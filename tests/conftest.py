@@ -35,6 +35,9 @@ def pytest_configure(config):
         "markers", "budget(seconds): per-test duration alert budget "
         "override (compile-heavy distributed-autodiff tests)")
     config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skips on a host without one")
+    config.addinivalue_line(
         "markers", "requires_env(*capabilities): skip (with the probe's "
         "reason) when the environment lacks a named capability — see "
         "tests/capabilities.py for the probe set")
