@@ -1,24 +1,38 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the
 hand-written kernels from `mmlspark_tpu_torch/csrc/`, holds each against
 its plain PyTorch version, drives the LM serving path
-(`TextGenerator.transform` -> `DecodeEngine.generate`) at the full width of
-the repo's LM bench configuration, and times kernels and path.
+(`TextGenerator.transform` -> `DecodeEngine.generate`) and the LM training
+path (`Trainer.fit_arrays`) at the full width of the repo's LM bench
+configuration, and times kernels and paths.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
   1. card (nvidia-smi name and power limit) and kernel build
-  2. flash-attention kernel vs plain: causal bf16 at S in {512, 1024,
+  2. flash-attention forward K1 vs plain: causal bf16 at S in {512, 1024,
      1984}, one non-causal case, one f32 case
-  3. single-query decode kernel vs plain: bf16 and int8 caches at
+  3. K1 with its log-sum-exp output and q/k offsets vs plain: causal bf16
+     at S in {512, 2048, 1000}, q_offset 512, k_offset > q_offset (fully
+     masked rows), one f32 case; out and lse compared
+  4. flash backward K2 (dQ) and K3 (dK/dV) vs plain: causal bf16 at S in
+     {512, 2048, 1000}, non-causal Sq 768 / Sk 1280, offsets, f32; and
+     `torch.autograd.grad` through `flash_attention` vs plain autograd
+  5. single-query decode kernel K4 vs plain: bf16 and int8 caches at
      L in {128, 1152, 2048}, the engine's mask layout, a fully masked row
-  4. the serving path at full width (TransformerLM vocab 8192, d_model
+  6. the serving path at full width (TransformerLM vocab 8192, d_model
      1024, 8 heads, 4 layers, max_len 2048, bf16, seeded random weights):
      8 ragged prompts, 64 greedy tokens, model-dtype and int8 KV caches;
-     both kernels' launch counts must rise; f32 prefill logits against the
+     K1 and K4 launch counts must rise; f32 prefill logits against the
      plain forward; greedy agreement with the recompute oracle at f32
-  5. timings with CUDA events (median after warm-up)
+  7. the training path at the same width: `fit_arrays` on 16 rows of
+     2048 tokens, batch 8, 2 epochs of adam at 3e-4 with flash attention;
+     the loss must fall and K1[lse], K2, K3 must each launch n_layers x
+     steps times; the trained bundle generates through `TextGenerator`;
+     step time, tokens/s, MFU and a profiler breakdown of one step
+  8. f32 gradient check: every parameter's gradient with the flash
+     kernels against the dense-attention model, TF32 off
 
+Kernel and step times come from CUDA events (median after warm-up).
 Prints the card line, a JSON line of per-kernel numbers, and last
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
@@ -42,6 +56,29 @@ LM_CONFIG = {"vocab_size": 8192, "d_model": 1024, "n_heads": 8,
              "n_layers": 4, "max_len": 2048, "dtype": "bfloat16"}
 PROMPT_LENGTHS = (20, 45, 70, 100, 600, 900, 1200, 1500)
 MAX_NEW = 64
+TRAIN_ROWS, TRAIN_SEQ, TRAIN_BATCH = 16, 2048, 8   # 2 steps per epoch
+
+
+def counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel-table name."""
+    from mmlspark_tpu_torch.ops.decode_attention import \
+        fused_single_query_attention
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_with_lse, flash_bwd_dkv,
+        flash_bwd_dq)
+    return {"flash_attention": flash_attention,
+            "flash_attention[lse]": flash_attention_with_lse,
+            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+            "fused_single_query_attention": fused_single_query_attention}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 class SmokeFailure(RuntimeError):
@@ -87,13 +124,17 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return cuda_ms(graph.replay, warmup=1, reps=reps) / calls
 
 
+GEMM_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 KERNEL_GROUPS = (("flash_attention (K1)", ("flash_fwd",)),
                  ("fused_single_query_attention (K4)", ("sqa_",)),
-                 ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma",
-                                    "cublas", "nvjet")))
+                 ("GEMM (cuBLAS)", GEMM_KEYS))
+TRAIN_GROUPS = (("K1 flash forward with lse", ("flash_fwd",)),
+                ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
+                ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
+                ("GEMM (cuBLAS)", GEMM_KEYS))
 
 
-def device_breakdown(fn, card) -> dict:
+def device_breakdown(fn, card, kernel_groups=KERNEL_GROUPS) -> dict:
     """Profile one call with torch.profiler: device kernel time by group
     and the device's idle share of the wall time."""
     from torch.autograd import DeviceType
@@ -115,7 +156,7 @@ def device_breakdown(fn, card) -> dict:
         if us <= 0:
             continue
         name = evt.key.lower()
-        group = next((g for g, keys in KERNEL_GROUPS
+        group = next((g for g, keys in kernel_groups
                       if any(k in name for k in keys)), "other kernels")
         groups[group] = groups.get(group, 0.0) + us
         top.append((us, evt.count, evt.key[:90]))
@@ -204,6 +245,210 @@ def phase_flash(dev, card) -> dict:
             "bound_ms": max(bound_f, bound_b),
             "bound_by": "operations" if bound_f >= bound_b else "bytes",
             "library_ms": lib_ms}
+
+
+def attention_bound(flops: float, nbytes: float) -> tuple:
+    """(bound ms, "operations" | "bytes") at the bf16 tensor-core peak and
+    the HBM rate."""
+    bound_f, bound_b = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(bound_f, bound_b), ("operations" if bound_f >= bound_b
+                                   else "bytes")
+
+
+def phase_flash_lse(dev, card) -> dict:
+    from mmlspark_tpu_torch.ops.attention import NEG_INF
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse, flash_attention_with_lse_plain)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rand(b, s, dtype):
+        return torch.randn((b, s, 8, 128), generator=gen, device=dev).to(dtype)
+
+    # (B, Sq, Sk, q_offset, k_offset, dtype)
+    cases = [(2, 512, 512, 0, 0, torch.bfloat16),
+             (2, 2048, 2048, 0, 0, torch.bfloat16),
+             (2, 1000, 1000, 0, 0, torch.bfloat16),
+             (2, 512, 512, 512, 0, torch.bfloat16),
+             (2, 512, 512, 0, 200, torch.bfloat16),   # 200 fully masked rows
+             (2, 700, 700, 0, 0, torch.float32)]
+    max_err = 0.0
+    for b, sq, sk, q_off, k_off, dtype in cases:
+        q, k, v = rand(b, sq, dtype), rand(b, sk, dtype), rand(b, sk, dtype)
+        out, lse = flash_attention_with_lse(q, k, v, True, None, q_off, k_off)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, True, None,
+                                                          q_off, k_off)
+        bf16 = dtype == torch.bfloat16
+        out_tol, lse_tol = (2e-2, 1e-3) if bf16 else (1e-4, 1e-4)
+        err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        print(f"flash_attention_with_lse B={b} Sq={sq} Sk={sk} "
+              f"q_offset={q_off} k_offset={k_off} {dtype}: out "
+              f"max_abs_err={err:.3e} (tol {out_tol}), lse "
+              f"max_abs_err={lse_err:.3e} (tol {lse_tol})")
+        require(err <= out_tol and lse_err <= lse_tol,
+                f"flash lse kernel disagrees at Sq={sq} offsets "
+                f"{q_off}/{k_off} {dtype}")
+        if k_off > q_off:
+            masked = k_off - q_off
+            require(bool((lse[:, :masked] <= NEG_INF / 2).all()) and
+                    torch.count_nonzero(out[:, :masked]).item() == 0,
+                    "fully masked rows are not zero / NEG_INF")
+        if bf16:
+            max_err = max(max_err, err)
+
+    # timing at the training shape: every block's forward
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 8, 128
+    q, k, v = (rand(b, s, torch.bfloat16) for _ in range(3))
+    ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True))
+    plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(q, k, v, True),
+                        calls=3)
+    # the library call with the same outputs: PyTorch's flash forward,
+    # which returns the log-sum-exp too (in (B, H, S))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = graph_ms(
+        lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True))
+    flops = 4.0 * b * h * d * (s * (s + 1) / 2)        # QK^T + PV, causal
+    nbytes = 4.0 * b * s * h * d * 2 + b * s * h * 4    # q, k, v, out; lse
+    bound, bound_by = attention_bound(flops, nbytes)
+    print(f"timing flash_attention_with_lse (8,2048,8,128) causal bf16, "
+          f"device time (CUDA graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"aten flash forward with lse {lib_ms:.4f} ms; bound {bound:.4f} "
+          f"ms ({bound_by}); kernel {flops / ms / 1e9:.1f} TFLOP/s [{card}]")
+    return {"name": "flash_attention[lse]", "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_backward(dev, card) -> list:
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_with_lse_plain,
+        flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(b, s, dtype):
+        return torch.randn((b, s, 8, 128), generator=gen, device=dev).to(dtype)
+
+    def inputs(b, sq, sk, causal, q_off, k_off, dtype):
+        q, do = rand(b, sq, dtype), rand(b, sq, dtype)
+        k, v = rand(b, sk, dtype), rand(b, sk, dtype)
+        out, lse = flash_attention_with_lse_plain(q, k, v, causal, None,
+                                                  q_off, k_off)
+        delta = (do.float() * out.float()).sum(-1)
+        return q, k, v, do, lse, delta
+
+    def grad_errs(got, ref):
+        """(max|d|/max|ref|, ||d||_F/||ref||_F).  The first is loose at
+        bf16 (the first rows' gradients are far larger than a late row's,
+        so its limit exceeds a late entry); the norm-relative error sees a
+        tile of keys or queries dropped or counted twice."""
+        d, r = got.float() - ref.float(), ref.float()
+        return (d.abs().max() / r.abs().max()).item(), (d.norm()
+                                                        / r.norm()).item()
+
+    def check_grads(what, got, ref, dtype):
+        # bf16: max 2e-2 and norm 1e-2 of the reference; f32: 1e-4 both
+        max_tol, norm_tol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (
+            1e-4, 1e-4)
+        errs_ = [grad_errs(a, r) for a, r in zip(got, ref)]
+        print(f"{what}: max|d|/max|ref| dq {errs_[0][0]:.3e} dk "
+              f"{errs_[1][0]:.3e} dv {errs_[2][0]:.3e} (tol {max_tol}); "
+              f"||d||/||ref|| dq {errs_[0][1]:.3e} dk {errs_[1][1]:.3e} dv "
+              f"{errs_[2][1]:.3e} (tol {norm_tol})")
+        require(all(m <= max_tol and n <= norm_tol for m, n in errs_),
+                f"{what} disagrees")
+
+    # (B, Sq, Sk, causal, q_offset, k_offset, dtype)
+    cases = [(2, 512, 512, True, 0, 0, torch.bfloat16),
+             (2, 2048, 2048, True, 0, 0, torch.bfloat16),
+             (2, 1000, 1000, True, 0, 0, torch.bfloat16),
+             (2, 768, 1280, False, 0, 0, torch.bfloat16),
+             (2, 512, 512, True, 512, 256, torch.bfloat16),
+             (2, 700, 700, True, 0, 0, torch.float32)]
+    errs = {"dq": 0.0, "dkv": 0.0}
+    scale = 128 ** -0.5
+    for b, sq, sk, causal, q_off, k_off, dtype in cases:
+        args = inputs(b, sq, sk, causal, q_off, k_off, dtype)
+        dq = flash_bwd_dq(*args, causal, scale, q_off, k_off)
+        dk, dv = flash_bwd_dkv(*args, causal, scale, q_off, k_off)
+        torch.cuda.synchronize()
+        ref = flash_block_grads_plain(*args, causal, scale, q_off, k_off)
+        check_grads(f"flash backward B={b} Sq={sq} Sk={sk} causal={causal} "
+                    f"offsets {q_off}/{k_off} {dtype}", (dq, dk, dv), ref,
+                    dtype)
+        if dtype == torch.bfloat16:
+            errs["dq"] = max(errs["dq"], (dq.float() - ref[0].float()).abs()
+                             .max().item())
+            errs["dkv"] = max(errs["dkv"], *((a.float() - r.float()).abs()
+                                             .max().item()
+                                             for a, r in zip((dk, dv),
+                                                             ref[1:])))
+
+    # the autograd wiring: grads through flash_attention vs plain autograd
+    for s, dtype in ((2048, torch.bfloat16), (700, torch.float32)):
+        q, k, v, do = (rand(2, s, dtype).requires_grad_() for _ in range(4))
+        got = torch.autograd.grad(flash_attention(q, k, v, causal=True),
+                                  (q, k, v), do.detach())
+        torch.cuda.synchronize()
+        ref = torch.autograd.grad(
+            flash_attention_with_lse_plain(q, k, v, True)[0], (q, k, v),
+            do.detach())
+        check_grads(f"autograd through flash_attention S={s} {dtype} vs "
+                    f"plain autograd", got, ref, dtype)
+
+    # timing at the training shape: every block's backward
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 8, 128
+    args = inputs(b, s, s, True, 0, 0, torch.bfloat16)
+    dq_ms = graph_ms(lambda: flash_bwd_dq(*args, True, scale))
+    dkv_ms = graph_ms(lambda: flash_bwd_dkv(*args, True, scale))
+    plain_ms = graph_ms(lambda: flash_block_grads_plain(*args, True, scale),
+                        calls=3)
+    # the library yardstick: PyTorch's flash backward on its own forward's
+    # saved outputs, timed the same way as the kernels (CUDA graph)
+    q, k, v, do = (t.transpose(1, 2) for t in args[:4])
+    saved = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, True, scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = saved[:8]
+
+    def sdpa_backward():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
+            seed, offset, scale=scale)
+    lib_dq = sdpa_backward()[0].transpose(1, 2)
+    torch.cuda.synchronize()
+    ref_dq = flash_block_grads_plain(*args, True, scale)[0]
+    lib_err = grad_errs(lib_dq, ref_dq)[1]
+    print(f"aten flash backward dq vs plain: ||d||/||ref|| {lib_err:.3e}")
+    require(lib_err <= 1e-2, "the library backward is not the same function")
+    sdpa_bwd_ms = graph_ms(sdpa_backward)
+    del saved, out, lse, lib_dq, ref_dq
+    tri = s * (s + 1) / 2
+    io = 4.0 * b * s * h * d * 2 + 2.0 * b * s * h * 4  # q, k, v, dO; lse, delta
+    entries = []
+    for name, ms, products, outs, err in (
+            ("flash_bwd_dq", dq_ms, 3, 1, errs["dq"]),
+            ("flash_bwd_dkv", dkv_ms, 4, 2, errs["dkv"])):
+        flops = products * 2.0 * b * h * d * tri
+        bound, bound_by = attention_bound(flops, io + outs * b * s * h * d * 2)
+        print(f"timing {name} (8,2048,8,128) causal bf16, device time (CUDA "
+              f"graph): {ms:.4f} ms; plain (dq, dk, dv together) "
+              f"{plain_ms:.4f} ms; aten flash backward (pair, CUDA graph) "
+              f"{sdpa_bwd_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}); "
+              f"kernel {flops / ms / 1e9:.1f} TFLOP/s [{card}]")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
+            "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
+                         if name == "flash_bwd_dq" else
+                         "mmlspark_tpu/ops/flash_attention.py:330"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": sdpa_bwd_ms})
+    return entries
+
 
 
 def phase_decode(dev, card) -> list:
@@ -302,10 +547,9 @@ def phase_decode(dev, card) -> list:
 def phase_main_path(dev, card) -> dict:
     from mmlspark_tpu_torch import DataTable, ModelBundle, TextGenerator
     from mmlspark_tpu_torch.core.table import object_column
-    from mmlspark_tpu_torch.models.generate import (_forward_with_cache,
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    _forward_with_cache,
                                                     naive_generate)
-    from mmlspark_tpu_torch.ops.decode_attention import \
-        fused_single_query_attention
     from mmlspark_tpu_torch.ops.flash_attention import flash_attention
 
     bundle = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
@@ -320,15 +564,15 @@ def phase_main_path(dev, card) -> dict:
         stage = TextGenerator(bundle, device=dev, inputCol="prompt",
                               maxNewTokens=MAX_NEW, kvCacheDtype=kv)
         stage.transform(table)                    # warm-up: load, init
-        flash_attention.launches = 0
-        fused_single_query_attention.launches = 0
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         out = stage.transform(table)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts[kv or "model"] = (flash_attention.launches,
-                                 fused_single_query_attention.launches)
+        launched = read_counts()
+        counts[kv or "model"] = (launched["flash_attention"],
+                                 launched["fused_single_query_attention"])
         for r, o in zip(rows, out["generated"]):
             require(len(o) == len(r) + MAX_NEW, "row length")
             require(np.array_equal(o[:len(r)], r), "prompt not kept")
@@ -342,8 +586,9 @@ def phase_main_path(dev, card) -> dict:
               f"decode={counts[kv or 'model'][1]} [{card}]")
         require(counts[kv or "model"][0] > 0, "flash kernel not launched")
         require(counts[kv or "model"][1] > 0, "decode kernel not launched")
-        breakdown[kv or "model"] = device_breakdown(
-            lambda: stage.transform(table), card)
+        if kv is None:
+            breakdown["model"] = device_breakdown(
+                lambda: stage.transform(table), card)
 
     # per-phase device time of the largest bucket (1984: two rows)
     stage = TextGenerator(bundle, device=dev, inputCol="prompt",
@@ -389,7 +634,8 @@ def phase_main_path(dev, card) -> dict:
               for _ in range(LM_CONFIG["n_layers"])]
     with torch.inference_mode():
         before = flash_attention.launches
-        kernel_logits = _forward_with_cache(module32, prompts, caches, 0)
+        kernel_logits = _forward_with_cache(ServingWeights(module32),
+                                            prompts, caches, 0)
         require(flash_attention.launches > before, "f32 prefill skipped flash")
         plain_logits = module32(prompts)
     logit_err = (kernel_logits - plain_logits).abs().max().item()
@@ -412,6 +658,128 @@ def phase_main_path(dev, card) -> dict:
             "greedy_match_f32": matches / total}
 
 
+def char_corpus(n_rows: int, seq: int, vocab: int) -> np.ndarray:
+    """Example 401's learnable corpus: rows cycle the vocabulary from a
+    random phase, seq + 1 tokens each (inputs and targets are slices)."""
+    rng = np.random.default_rng(41)
+    starts = rng.integers(0, vocab, size=(n_rows, 1))
+    return ((starts + np.arange(seq + 1)) % vocab).astype(np.int32)
+
+
+def train_config(model_config: dict):
+    from mmlspark_tpu_torch import TrainerConfig
+    return TrainerConfig(
+        architecture="TransformerLM", model_config=model_config,
+        optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+        epochs=2, loss="softmax_xent", seed=0)
+
+
+def phase_train(dev, card) -> dict:
+    """The training path at full width through `Trainer.fit_arrays`."""
+    from mmlspark_tpu_torch import DataTable, TextGenerator, Trainer
+    from mmlspark_tpu_torch.utils.perf import lm_train_flops
+    vocab, n_layers = LM_CONFIG["vocab_size"], LM_CONFIG["n_layers"]
+    rows = char_corpus(TRAIN_ROWS, TRAIN_SEQ, vocab)
+    tokens, targets = rows[:, :-1], rows[:, 1:]
+    model_config = {**LM_CONFIG, "attn_impl": "flash"}
+    trainer = Trainer(train_config(model_config), device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    bundle = trainer.fit_arrays(tokens, targets, log_fn=print)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = read_counts()
+    steps = bundle.metadata["steps"]
+    losses = [r["loss"] for r in trainer.history]
+    print(f"training path: {steps} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens "
+          f"in {seconds:.3f} s; history {trainer.history}; launches "
+          f"{launched} [{card}]")
+    require(steps == TRAIN_ROWS // TRAIN_BATCH * 2, "metadata steps")
+    require(all(np.isfinite(losses)), "non-finite training loss")
+    require(losses[1] < losses[0], "the loss did not fall")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == n_layers * steps,
+                f"{name} launched {launched[name]} times, want "
+                f"{n_layers * steps}")
+
+    prompts = tokens[:4, :12]
+    out = TextGenerator(bundle, device=dev, inputCol="prompt",
+                        maxNewTokens=16).transform(
+        DataTable({"prompt": prompts}))["generated"]
+    out = np.asarray(out)
+    require(out.shape == (4, 28) and ((out >= 0) & (out < vocab)).all(),
+            "generation from the trained bundle")
+    expect = (prompts[:, -1:] + 1 + np.arange(16)) % vocab
+    print(f"trained bundle generates {out.shape}; continuation accuracy vs "
+          f"the cycle {float((out[:, 12:] == expect).mean()):.3f}")
+
+    # the step alone: ms (CUDA events), tokens/s, analytic MFU
+    timer = Trainer(train_config(model_config), device=dev)
+    state = timer.init_state(total_steps=16, initial_bundle=bundle)
+    step = timer.make_train_step()
+    xb = torch.from_numpy(tokens[:TRAIN_BATCH].astype(np.int64)).to(dev)
+    yb = torch.from_numpy(targets[:TRAIN_BATCH].astype(np.int64)).to(dev)
+    mb = torch.ones(TRAIN_BATCH, device=dev)
+    step_ms = cuda_ms(lambda: step(state, xb, yb, mb), warmup=1, reps=5)
+    n_tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = lm_train_flops(TRAIN_BATCH, TRAIN_SEQ, LM_CONFIG["d_model"],
+                           n_layers, vocab)["total"]
+    mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"timing train step {TRAIN_BATCH}x{TRAIN_SEQ} bf16 flash: "
+          f"{step_ms:.3f} ms/step = {n_tokens / step_ms * 1e3:.1f} tokens/s; "
+          f"analytic MFU {mfu:.4f} of 989 TFLOP/s ({flops / 1e12:.3f} "
+          f"TFLOP/step); peak allocated {peak_gb:.2f} GiB [{card}]")
+    breakdown = device_breakdown(lambda: step(state, xb, yb, mb), card,
+                                 TRAIN_GROUPS)
+    return {"counts": launched, "seconds": seconds, "history": trainer.history,
+            "step_ms": step_ms, "tokens_per_s": n_tokens / step_ms * 1e3,
+            "mfu": mfu, "device_breakdown": breakdown}
+
+
+def phase_grad_check(dev, card) -> dict:
+    """f32 gradients of every parameter through the flash kernels against
+    the dense-attention model, on one (2, 2048) batch, TF32 off."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.train.trainer import make_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = char_corpus(2, TRAIN_SEQ, LM_CONFIG["vocab_size"])
+    x = torch.from_numpy(rows[:, :-1].astype(np.int64)).to(dev)
+    y = torch.from_numpy(rows[:, 1:].astype(np.int64)).to(dev)
+    init = ModelBundle.init("TransformerLM", LM_CONFIG, seed=4)
+    loss_fn = make_loss("softmax_xent")
+    grads, losses = {}, {}
+    for impl in ("flash", "dense"):
+        module = ModelBundle("TransformerLM", {
+            **LM_CONFIG, "dtype": "float32", "attn_impl": impl},
+            init.variables).module(dev).train()
+        loss = loss_fn(module(x), y, torch.ones(2, device=dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad for n, p in module.named_parameters()}
+        del module, loss
+    worst_name, worst = None, 0.0
+    for name, g in grads["flash"].items():
+        ref = grads["dense"][name]
+        rel = ((g - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst_name, worst = name, rel
+    loss_diff = abs(losses["flash"] - losses["dense"])
+    print(f"f32 gradient check (2, 2048), flash kernels vs dense attention: "
+          f"loss {losses['flash']:.6f} vs {losses['dense']:.6f} (diff "
+          f"{loss_diff:.3e}, tol 1e-4); worst parameter {worst_name} "
+          f"max|d|/max|ref| {worst:.3e} (tol 1e-3)")
+    require(loss_diff <= 1e-4, "f32 loss differs")
+    require(worst <= 1e-3, f"f32 gradient of {worst_name} differs")
+    del grads
+    torch.cuda.empty_cache()
+    return {"loss_diff": loss_diff, "worst_param": worst_name,
+            "worst_rel_err": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -426,21 +794,38 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s")
     dev = torch.device("cuda")
     flash = phase_flash(dev, card)
+    flash_lse = phase_flash_lse(dev, card)
+    backward = phase_backward(dev, card)
     decode = phase_decode(dev, card)
+    torch.cuda.empty_cache()
     main_path = phase_main_path(dev, card)
+    torch.cuda.empty_cache()
+    train = phase_train(dev, card)
+    torch.cuda.empty_cache()
+    grad_check = phase_grad_check(dev, card)
+    # launches: each kernel's count from the path that runs it (serving
+    # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]
     decode[0]["launches"] = main_path["counts"]["model"][1]
     decode[1]["launches"] = main_path["counts"]["int8"][1]
-    kernels = [flash] + decode
+    flash_lse["launches"] = train["counts"]["flash_attention[lse]"]
+    for entry in backward:
+        entry["launches"] = train["counts"][entry["name"]]
+    kernels = [flash, flash_lse] + backward + decode
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": {k: v for k, v in main_path.items()
-                                    if k != "counts"}, "card": card}))
+                                    if k != "counts"},
+                      "train_path": {k: v for k, v in train.items()
+                                     if k != "counts"},
+                      "grad_check": grad_check, "card": card}))
+    print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in kernels]}))
+    # the run used one card, whatever the host has
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

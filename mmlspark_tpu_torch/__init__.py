@@ -8,15 +8,20 @@ optax or mmlspark_tpu.
 
 Ported so far: LM serving, `TextGenerator.transform` ->
 `DecodeEngine.generate`, with the flash-attention prefill and the fused
-single-query decode read as CUDA kernels.
+single-query decode read as CUDA kernels; and LM training,
+`Trainer(TrainerConfig(...)).fit_arrays`, with the flash-attention forward
+(with its log-sum-exp) and backward (dQ, dK/dV) as CUDA kernels.
 
 Layer map:
   core/    - params DSL, column metadata, DataTable, stage save/load,
              device selection
   models/  - TransformerLM (torch.nn), bundles, the decode engine
-  ops/     - plain attention and the kernel wrappers (flash prefill,
-             single-query decode read), the nvcc build/loader
+  train/   - TrainerConfig, the optax-algebra optimizers, the Trainer
+  parallel/ - MeshSpec (one card) and the partition-rule data
+  ops/     - plain attention and the kernel wrappers (flash forward and
+             backward, single-query decode read), the nvcc build/loader
   quant/   - int8 KV-cache quantization
+  utils/   - analytic FLOP accounting
   csrc/    - the CUDA sources
 """
 
@@ -28,3 +33,4 @@ from mmlspark_tpu_torch.models import (DecodeEngine, ModelBundle,
                                        TextGenerator, TransformerLM,
                                        build_model, load_bundle,
                                        naive_generate, save_bundle)
+from mmlspark_tpu_torch.train import Trainer, TrainerConfig

@@ -2,11 +2,14 @@
 // interface (mmlspark_tpu_torch/ops/flash_attention.py).
 //
 // Replaces the Pallas kernel `_flash_kernel` / `_flash_forward` of
-// mmlspark_tpu/ops/flash_attention.py (the pallas_call at :148), forward
-// only: no log-sum-exp output and no q/k position offsets (only the ring
-// variants use them).  Same function: q, k, v (B, S, H, D) read in place
-// (no relayout to (B*H, S, D)), causal or not, f32 running max /
-// normalizer / accumulator, output in q's dtype.
+// mmlspark_tpu/ops/flash_attention.py (the pallas_call at :148) in all its
+// variants.  Same function: q, k, v (B, S, H, D) read in place (no
+// relayout to (B*H, S, D)), causal or not, f32 running max / normalizer /
+// accumulator, output in q's dtype.  Optional log-sum-exp output `lse`
+// (f32, written directly in the public (B, Sq, H) layout): m + log(l) of
+// the scaled scores, NEG_INF for a row that sees no key.  `q_off`/`k_off`
+// shift the global positions of the causal mask (query row i is at
+// q_off + i, key j at k_off + j); a row with no visible key gives zeros.
 //
 // Bound: tensor-core operations.  At the prefill shapes (S >= 512, D = 128)
 // attention does O(S^2 D) work on O(S D) bytes, far above the card's
@@ -74,8 +77,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H, int Sq,
-                   int Sk, float scale, int causal) {
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse, int H, int Sq, int Sk, float scale, int causal, int q_off,
+                   int k_off) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -106,7 +110,13 @@ __global__ void __launch_bounds__(THREADS)
 
   const int last_row = min(q0 + TILE, Sq) - 1;
   int n_kt = (Sk + TILE - 1) / TILE;
-  if (causal) n_kt = min(n_kt, last_row / TILE + 1);  // tiles above the diagonal add nothing
+  if (causal) {
+    // key tile kt is live while k_off + kt*TILE <= q_off + last_row: tiles
+    // above the diagonal add nothing, and none is live when every key of
+    // the tile's first row lies past the last query
+    const int reach = q_off + last_row - k_off;
+    n_kt = reach < 0 ? 0 : min(n_kt, reach / TILE + 1);
+  }
 
   const __nv_bfloat16* Qw = Qs + warp * 16 * L::LDH;
   float* Sw = Ss + warp * 16 * L::LDS;
@@ -146,8 +156,8 @@ __global__ void __launch_bounds__(THREADS)
       float s0 = Sw[r * L::LDS + lane] * scale;
       float s1 = Sw[r * L::LDS + lane + 32] * scale;
       const int c0 = k0 + lane, c1 = c0 + 32;
-      if (c0 >= Sk || (causal && c0 > qi)) s0 = NEG_INF;
-      if (c1 >= Sk || (causal && c1 > qi)) s1 = NEG_INF;
+      if (c0 >= Sk || (causal && k_off + c0 > q_off + qi)) s0 = NEG_INF;
+      if (c1 >= Sk || (causal && k_off + c1 > q_off + qi)) s1 = NEG_INF;
       const float m_new = fmaxf(m_old, mmlspark::warp_max(fmaxf(s0, s1)));
       const float safe = mmlspark::safe_max(m_new);
       const float p0 = mmlspark::masked_exp(s0, safe);
@@ -196,12 +206,21 @@ __global__ void __launch_bounds__(THREADS)
           __float2bfloat16(Ow[r * L::LDO + c] / (l == 0.f ? 1.f : l));
     }
   }
+  if (lse != nullptr && lane < 16) {
+    const int row = warp * 16 + lane;
+    const int qi = q0 + row;
+    if (qi < Sq) {
+      const float l = row_l[row];
+      lse[(size_t(b) * Sq + qi) * H + h] = l == 0.f ? NEG_INF : row_m[row] + logf(l);
+    }
+  }
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                  float* __restrict__ out, int B, int H, int Sq, int Sk, float scale, int causal) {
+                  float* __restrict__ out, float* __restrict__ lse, int B, int H, int Sq, int Sk, float scale,
+                  int causal, int q_off, int k_off) {
   constexpr int E = D / 32;
   const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;  // (b, h, qi), qi fastest
   const int lane = threadIdx.x % 32;
@@ -221,7 +240,8 @@ __global__ void __launch_bounds__(THREADS)
   const float* kp = k + size_t(b) * Sk * stride + col;
   const float* vp = v + size_t(b) * Sk * stride + col;
   float m = NEG_INF, l = 0.f;
-  const int n_keys = causal ? min(Sk, qi + 1) : Sk;
+  // keys j with k_off + j <= q_off + qi are visible under the causal mask
+  const int n_keys = causal ? max(0, min(Sk, q_off + qi - k_off + 1)) : Sk;
   for (int j = 0; j < n_keys; ++j) {
     float part = 0.f;
 #pragma unroll
@@ -238,11 +258,12 @@ __global__ void __launch_bounds__(THREADS)
   const float l_safe = l == 0.f ? 1.f : l;
 #pragma unroll
   for (int e = 0; e < E; ++e) out[(size_t(b) * Sq + qi) * stride + col + e] = acc[e] / l_safe;
+  if (lse != nullptr && lane == 0) lse[(size_t(b) * Sq + qi) * H + h] = l == 0.f ? NEG_INF : m + logf(l);
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq, int Sk,
-                        float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H, int Sq,
+                        int Sk, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
   using L = Layout<D>;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(L::BYTES));
@@ -250,32 +271,35 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   dim3 grid((Sq + TILE - 1) / TILE, B * H);
   flash_fwd_bf16<D><<<grid, THREADS, L::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Sq, Sk, scale, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, H, Sq, Sk, scale, causal, q_off,
+      k_off);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq, int Sk,
-                       float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H, int Sq,
+                       int Sk, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
   const long long rows = (long long)B * H * Sq;
   const unsigned blocks = unsigned((rows + WARPS - 1) / WARPS);
   flash_fwd_f32<D><<<blocks, THREADS, 0, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                   static_cast<const float*>(v), static_cast<float*>(out), B, H,
-                                                   Sq, Sk, scale, causal);
+                                                   static_cast<const float*>(v), static_cast<float*>(out), lse, B,
+                                                   H, Sq, Sk, scale, causal, q_off, k_off);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
-extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* v, void* out, int B, int H,
-                                      int Sq, int Sk, int D, float scale, int causal, int dtype,
-                                      void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  `lse` may be null (no log-sum-exp
+// output).  Returns the cudaError_t of the launch.
+extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                                      int H, int Sq, int Sk, int D, float scale, int causal, int q_off, int k_off,
+                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (B == 0 || H == 0 || Sq == 0) return cudaSuccess;
-  if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, out, B, H, Sq, Sk, scale, causal, s);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, out, B, H, Sq, Sk, scale, causal, s);
-  if (dtype == 0 && D == 128) return launch_f32<128>(q, k, v, out, B, H, Sq, Sk, scale, causal, s);
-  if (dtype == 0 && D == 64) return launch_f32<64>(q, k, v, out, B, H, Sq, Sk, scale, causal, s);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+  if (dtype == 0 && D == 128) return launch_f32<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+  if (dtype == 0 && D == 64) return launch_f32<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
   return cudaErrorInvalidValue;
 }

@@ -10,7 +10,8 @@ Both files are read and written here with the plain `msgpack` package,
 decoding and encoding flax's ndarray extension type (ext code 1: a packed
 (shape, dtype name, C-order bytes) triple), so a bundle written by either
 package loads in the other.  `ModelBundle.variables` keeps the flax tree of
-numpy arrays; `params_from_jax` turns it into the port's state_dict.
+numpy arrays; `params_from_jax` turns it into the port's state_dict and
+`params_to_jax` back (a bundle the port trains loads in the JAX package).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from mmlspark_tpu_torch.models.definitions import (
-    MODEL_REGISTRY, build_model, init_transformer_lm_params)
+    MODEL_REGISTRY, build_model, init_transformer_lm_params, model_config)
 
 # flax.serialization's msgpack extension codes
 _EXT_NDARRAY = 1
@@ -45,10 +46,19 @@ class ModelBundle:
     metadata: dict = dataclasses.field(default_factory=dict)
 
     def module(self, device="cuda") -> nn.Module:
-        """The architecture built on `device` with these weights loaded."""
+        """The architecture built on `device` with these weights loaded
+        (f32 masters, as the bundle holds them)."""
         module = build_model(self.architecture, self.config, device=device)
         module.load_state_dict(params_from_jax(self.variables["params"]))
         return module.eval()
+
+    @staticmethod
+    def from_module(module: nn.Module,
+                    metadata: Optional[dict] = None) -> "ModelBundle":
+        """A bundle of a registered module's current weights."""
+        return ModelBundle(registry_name(module), model_config(module),
+                           {"params": params_to_jax(module.state_dict())},
+                           dict(metadata or {}))
 
     @staticmethod
     def init(architecture: str, config: dict, seed: int = 0,
@@ -65,8 +75,7 @@ def params_from_jax(tree: dict) -> dict:
     """The JAX package's parameter tree (numpy leaves, flax names) -> the
     port's state_dict: Dense kernels (in, out) become Linear weights
     (out, in), embeddings `embedding` -> `weight`, LayerNorm `scale`/`bias`
-    keep their names.  Values stay f32; `load_state_dict` casts Dense
-    weights to the model dtype."""
+    keep their names.  Values stay f32."""
     state = {}
 
     def tensor(x) -> torch.Tensor:
@@ -90,6 +99,42 @@ def params_from_jax(tree: dict) -> dict:
 
     walk("", tree)
     return state
+
+
+def params_to_jax(state_dict: dict) -> dict:
+    """The inverse of `params_from_jax`: the port's state_dict -> the JAX
+    package's parameter tree of f32 numpy arrays with flax names.  A node
+    with `weight` and `bias` is a Dense (weight (out, in) -> kernel
+    (in, out)), `weight` alone an embedding, `scale`/`bias` a LayerNorm."""
+    nodes: dict = {}
+    for name, value in state_dict.items():
+        prefix, _, leaf = name.rpartition(".")
+        nodes.setdefault(prefix, {})[leaf] = (
+            value.detach().to(device="cpu", dtype=torch.float32).numpy()
+            .copy())
+    tree: dict = {}
+    for prefix, leaves in nodes.items():
+        if "scale" in leaves:
+            node = {"scale": leaves["scale"], "bias": leaves["bias"]}
+        elif "bias" in leaves:
+            node = {"kernel": np.ascontiguousarray(leaves["weight"].T),
+                    "bias": leaves["bias"]}
+        else:
+            node = {"embedding": leaves["weight"]}
+        parent = tree
+        *path, last = prefix.split(".")
+        for key in path:
+            parent = parent.setdefault(key, {})
+        parent[last] = node
+    return tree
+
+
+def registry_name(module: nn.Module) -> str:
+    """The registry name a module's bundle records."""
+    for name, cls in MODEL_REGISTRY.items():
+        if type(module) is cls:
+            return name
+    raise KeyError(f"{type(module).__name__} is not a registered model")
 
 
 def _bf16_to_f32(raw: bytes) -> np.ndarray:

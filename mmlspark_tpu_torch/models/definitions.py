@@ -12,13 +12,16 @@ the flax definition that the port keeps:
   * gelu is the tanh approximation;
   * a flax Dense kernel is (in, out), a torch Linear weight (out, in)
     (`models/bundle.py::params_from_jax` transposes);
-  * parameters are f32 in a bundle; Dense layers compute in the model dtype,
-    so their weights are cast to it once at load.  Embeddings and norms keep
-    f32, because the decode path sums embeddings and applies norm
-    scales in f32 before casting.
+  * every parameter is an f32 master, cast per call as flax does: a Dense
+    computes `F.linear(x.to(dtype), w.to(dtype), b.to(dtype))`, embeddings
+    are taken from `weight.to(dtype)`, LayerNorm keeps f32 statistics and
+    an f32 affine before the cast.  Training updates the f32 masters; the
+    serving path casts the Dense weights once (`models/generate.py`).
 
 `forward` is `module.apply` of the flax model: the parity target for
-logits and `naive_generate`'s recompute oracle.  It is inference only.
+logits, `naive_generate`'s recompute oracle, and the training forward.
+`remat=True` (policy "full") recomputes each block in the backward
+(`torch.utils.checkpoint`), which changes memory only.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.ops.attention import attention
@@ -73,6 +77,20 @@ class LayerNorm(nn.Module):
         return ((x32 - mu) * mul + self.bias).to(dtype)
 
 
+class Dense(nn.Linear):
+    """flax `nn.Dense(dtype=dtype)`: an f32 weight (out, in) and bias,
+    cast to the compute dtype on every call."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 device=None):
+        super().__init__(n_in, n_out, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class TransformerBlock(nn.Module):
     """Pre-norm decoder block: attention then a dense GELU MLP."""
 
@@ -88,11 +106,11 @@ class TransformerBlock(nn.Module):
         self.attn_impl = attn_impl
         kw = dict(dtype=self.dtype, device=device)
         self.LayerNorm_0 = LayerNorm(d_model, device=device)
-        self.qkv = nn.Linear(d_model, 3 * d_model, **kw)
-        self.proj = nn.Linear(d_model, d_model, **kw)
+        self.qkv = Dense(d_model, 3 * d_model, **kw)
+        self.proj = Dense(d_model, d_model, **kw)
         self.LayerNorm_1 = LayerNorm(d_model, device=device)
-        self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model, **kw)
-        self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model, **kw)
+        self.mlp_up = Dense(d_model, mlp_ratio * d_model, **kw)
+        self.mlp_down = Dense(mlp_ratio * d_model, d_model, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
@@ -117,8 +135,8 @@ class TransformerLM(nn.Module):
     Takes the flax model's constructor fields, so a bundle config from
     either package builds it; the fields of features not ported yet
     (sequence sharding, mixture-of-experts) must keep their defaults.
-    `remat`/`remat_policy` only change how training rematerializes, so
-    they are kept for the config round trip and ignored."""
+    `remat=True` with `remat_policy="full"` recomputes each block in the
+    backward; "save_attention" is not ported."""
 
     def __init__(self, vocab_size: int = 256, d_model: int = 128,
                  n_heads: int = 8, n_layers: int = 2, max_len: int = 2048,
@@ -134,8 +152,15 @@ class TransformerLM(nn.Module):
         if seq_axis is not None or expert_axis is not None:
             raise NotImplementedError(
                 "sequence- and expert-sharded TransformerLM are not ported")
+        if remat and remat_policy == "save_attention":
+            raise NotImplementedError(
+                "remat_policy 'save_attention' is not ported (full)")
+        if remat_policy not in ("full", "save_attention"):
+            raise ValueError(f"unknown remat_policy '{remat_policy}' "
+                             "(full | save_attention)")
         device = resolve_device(device)
         self.dtype = dtype_of(dtype)
+        self.remat = remat
         self.config = dict(
             vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
             n_layers=n_layers, max_len=max_len, mlp_ratio=mlp_ratio,
@@ -153,8 +178,7 @@ class TransformerLM(nn.Module):
                 d_model, n_heads, mlp_ratio, self.dtype, attn_impl,
                 device=device))
         self.final_norm_w = LayerNorm(d_model, device=device)
-        self.lm_head = nn.Linear(d_model, vocab_size, dtype=self.dtype,
-                                 device=device)
+        self.lm_head = Dense(d_model, vocab_size, self.dtype, device=device)
 
     @property
     def blocks(self) -> list:
@@ -170,7 +194,10 @@ class TransformerLM(nn.Module):
         x = (self.tok_embed.weight.to(self.dtype)[tokens]
              + self.pos_embed.weight.to(self.dtype)[pos][None])
         for block in self.blocks:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         x = self.final_norm_w(x, self.dtype)
         return self.lm_head(x).float()
 

@@ -21,7 +21,11 @@ The serving path is `TextGenerator.transform` -> `DecodeEngine.generate`:
 
 Greedy tokens equal the JAX package's at f32 (tests/test_torch_generate.py).
 Unlike the JAX programs, the caches are updated in place: one decode step
-writes one slot instead of rebuilding the cache.
+writes one slot instead of rebuilding the cache.  The module keeps f32
+master parameters; the engine casts the Dense weights to the model dtype
+once, at construction (`ServingWeights`), and the block math reads those
+copies; `TextGenerator` keeps only them, so serving holds no f32 Dense
+weights beside the bf16 ones.
 
 Sampling draws come from per-row `torch.Generator`s seeded from
 (seed, row id, step), so a row's draws never depend on its batch.  Torch
@@ -36,6 +40,7 @@ hooks.
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -64,6 +69,35 @@ _PREFILL_FLASH_MIN = 512   # prompt length from which prefill runs flash
 # The decode core: the block math over the module's weights
 # ---------------------------------------------------------------------------
 
+class ServingWeights:
+    """A TransformerLM's weights as the decode path reads them: every
+    Dense weight and bias cast to the model dtype once (a copy at bf16,
+    the module's own f32 tensors at f32), embeddings and LayerNorms as the
+    module holds them (f32).  Attribute names follow the module's, so the
+    block math takes either.  The module's f32 Dense masters are not
+    referenced, so serving holds the model-dtype copy alone."""
+
+    def __init__(self, module):
+        _check_generatable(module)
+        dtype = module.dtype
+
+        def cast(linear):
+            return SimpleNamespace(weight=linear.weight.detach().to(dtype),
+                                   bias=linear.bias.detach().to(dtype))
+
+        self.dtype, self.n_heads = dtype, module.n_heads
+        self.device = module.device
+        self.max_len, self.vocab_size = module.max_len, module.vocab_size
+        self.d_model, self.n_layers = module.d_model, module.n_layers
+        self.tok_embed, self.pos_embed = module.tok_embed, module.pos_embed
+        self.final_norm_w = module.final_norm_w
+        self.lm_head = cast(module.lm_head)
+        self.blocks = [SimpleNamespace(
+            LayerNorm_0=blk.LayerNorm_0, LayerNorm_1=blk.LayerNorm_1,
+            qkv=cast(blk.qkv), proj=cast(blk.proj), mlp_up=cast(blk.mlp_up),
+            mlp_down=cast(blk.mlp_down)) for blk in module.blocks]
+
+
 def _ln(norm, x: torch.Tensor, dtype) -> torch.Tensor:
     """The decode path's LayerNorm: f32 two-pass statistics, f32 affine,
     then the cast (generate.py `_ln`)."""
@@ -75,6 +109,7 @@ def _ln(norm, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _dense(linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """A Dense layer over its model-dtype copy (`ServingWeights`)."""
     return F.linear(x.to(dtype), linear.weight, linear.bias)
 
 
@@ -124,7 +159,8 @@ def _block_with_cache(block, n_heads: int, x: torch.Tensor,
 def _forward_with_cache(module, tokens: torch.Tensor, caches: list,
                         pos: int) -> torch.Tensor:
     """Logits (B, S, V) f32 for a token segment at cache slot `pos`; the
-    per-layer (k, v) caches are written in place."""
+    per-layer (k, v) caches are written in place.  `module` is the
+    `ServingWeights` of a TransformerLM."""
     dtype = module.dtype
     positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
     emb = (module.tok_embed.weight[tokens]
@@ -166,7 +202,8 @@ def _decode_block(block, n_heads: int, x: torch.Tensor, cache: tuple,
 def _decode_step(module, tok: torch.Tensor, pos: torch.Tensor, slot: int,
                  caches: list, visible: torch.Tensor) -> torch.Tensor:
     """Logits (B, V) f32 for one decode token per row: per-row positions
-    `pos` (true prompt length + step), shared write `slot`."""
+    `pos` (true prompt length + step), shared write `slot`.  `module` is
+    the `ServingWeights` of a TransformerLM."""
     dtype = module.dtype
     emb = module.tok_embed.weight[tok] + module.pos_embed.weight[pos]
     x = emb[:, None].to(dtype)
@@ -311,7 +348,8 @@ def _on_device(module, device: torch.device) -> bool:
 
 class DecodeEngine:
     """Bucketed, cache-windowed, early-exit generation for one sampling
-    configuration of one module.
+    configuration of one module: a `TransformerLM`, or the `ServingWeights`
+    made from one (so that several engines share one model-dtype copy).
 
     `cache_dtype='int8'` stores the KV cache quantized per head
     (quantize-on-write, dequant inside the cache read), so each decode
@@ -331,7 +369,8 @@ class DecodeEngine:
                  draft_module=None, spec_tokens: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
-        _check_generatable(module)
+        if not isinstance(module, ServingWeights):
+            _check_generatable(module)
         if not _on_device(module, self.device):
             raise ValueError(f"the module's weights are on {module.device}, "
                              f"the engine runs on {self.device}")
@@ -367,7 +406,9 @@ class DecodeEngine:
                 raise ValueError(
                     f"stop token {t} outside the vocabulary "
                     f"(0..{module.vocab_size - 1})")
-        self.module = module
+        # the engine keeps the model-dtype copy and drops the f32 masters
+        self.weights = (module if isinstance(module, ServingWeights)
+                        else ServingWeights(module))
         self.max_new_tokens = max_new_tokens
         self.stop_tokens = stop_tokens
         self.chunk = chunk
@@ -384,7 +425,7 @@ class DecodeEngine:
         self.last_exit_checks_skipped = 0
 
     def bucket_for(self, prompt_len: int) -> int:
-        return bucket_length(prompt_len, self.module.max_len,
+        return bucket_length(prompt_len, self.weights.max_len,
                              self.max_new_tokens, self.min_bucket)
 
     def _stop_gate(self, tok: torch.Tensor, new_count: int) -> torch.Tensor:
@@ -399,15 +440,15 @@ class DecodeEngine:
         """The prompt forward of one bucket: prompts (B, bucket) long,
         true_len (B,) long, live (B,) bool.  Returns (first token (B,),
         done (B,), per-layer caches over the first window)."""
-        module = self.module
+        model = self.weights
         b, p = prompts.shape
         w0 = _round_up(p + 1, self.chunk)
-        dh = module.d_model // module.n_heads
-        shape = (b, w0, module.n_heads, dh)
-        caches = [(torch.zeros(shape, dtype=module.dtype, device=self.device),
-                   torch.zeros(shape, dtype=module.dtype, device=self.device))
-                  for _ in range(module.n_layers)]
-        logits = _forward_with_cache(module, prompts, caches, 0)
+        dh = model.d_model // model.n_heads
+        shape = (b, w0, model.n_heads, dh)
+        caches = [(torch.zeros(shape, dtype=model.dtype, device=self.device),
+                   torch.zeros(shape, dtype=model.dtype, device=self.device))
+                  for _ in range(model.n_layers)]
+        logits = _forward_with_cache(self.weights, prompts, caches, 0)
         last = logits[torch.arange(b, device=self.device), true_len - 1]
         tok = self._sample(last, row_seeds, 0)
         done = ~live | self._stop_gate(tok, 1)
@@ -434,7 +475,7 @@ class DecodeEngine:
             slot = bucket + t
             visible = prompt_visible | ((slots >= bucket)
                                         & (slots <= slot))[None, :]
-            logits = _decode_step(self.module, tok, true_len + t, slot,
+            logits = _decode_step(self.weights, tok, true_len + t, slot,
                                   caches, visible)
             nxt = torch.where(done, tok, self._sample(logits, row_seeds,
                                                       t + 1))
@@ -458,11 +499,11 @@ class DecodeEngine:
             raise ValueError(
                 f"true_len ({int(tl_host.max())}) exceeds the prompt "
                 f"bucket width ({p})")
-        if int(tl_host.max()) + self.max_new_tokens > self.module.max_len:
+        if int(tl_host.max()) + self.max_new_tokens > self.weights.max_len:
             raise ValueError(
                 f"prompt_len ({int(tl_host.max())}) + max_new_tokens "
                 f"({self.max_new_tokens}) exceeds the model's max_len "
-                f"({self.module.max_len})")
+                f"({self.weights.max_len})")
         ids = range(b) if row_ids is None else [int(i) for i in row_ids]
         row_seeds = [_mix(int(seed), i) for i in ids]
         live = np.ones(b, bool) if live is None else np.asarray(live, bool)
@@ -556,12 +597,12 @@ class TextGenerator(Transformer):
         super().__init__(**kwargs)
         self.device = resolve_device(device)
         self._bundle = bundle
-        self._module = None
+        self._weights = None
         self._engines: dict = {}
 
     def set_bundle(self, bundle: ModelBundle) -> "TextGenerator":
         self._bundle = bundle
-        self._module = None
+        self._weights = None
         self._engines = {}
         return self
 
@@ -585,10 +626,12 @@ class TextGenerator(Transformer):
         key = (self.maxNewTokens, self.temperature, top_k, top_p, stops,
                self.cacheChunk, kv_dtype, self.minNewTokens)
         if key not in self._engines:
-            if self._module is None:
-                self._module = self._bundle.module(self.device)
+            if self._weights is None:
+                # the f32 module is dropped once its Dense weights are cast
+                self._weights = ServingWeights(
+                    self._bundle.module(self.device))
             self._engines[key] = DecodeEngine(
-                self._module, self.maxNewTokens,
+                self._weights, self.maxNewTokens,
                 temperature=self.temperature, top_k=top_k, top_p=top_p,
                 stop_tokens=stops, chunk=self.cacheChunk,
                 cache_dtype=kv_dtype, min_new_tokens=self.minNewTokens,

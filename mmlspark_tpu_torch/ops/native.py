@@ -36,9 +36,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (the cudaError_t of its launches)
 SIGNATURES = {
     "flash_attention": {
-        # q, k, v, out, B, H, Sq, Sk, D, scale, causal, dtype, stream
-        "mmlspark_flash_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                   _I, _I, _P],
+        # q, k, v, out, lse, B, H, Sq, Sk, D, scale, causal, q_off, k_off,
+        # dtype, stream
+        "mmlspark_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _I, _I, _P],
+    },
+    "flash_backward": {
+        # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, scale, causal,
+        # q_off, k_off, dtype, stream
+        "mmlspark_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _F, _I, _I, _I, _I, _P],
+        # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, scale, causal,
+        # q_off, k_off, dtype, stream
+        "mmlspark_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _F, _I, _I, _I, _I, _P],
     },
     "decode_attention": {
         # q, k_cache, v_cache, visible, k_scale, v_scale, partials, out,

@@ -1,0 +1,142 @@
+"""The port's flash-attention backward and log-sum-exp forward against the
+JAX package, on the CPU.
+
+The JAX side runs as its own tests run it (tests/test_flash_attention.py):
+`jax.grad` through `flash_attention(..., interpret=True, block_q=64,
+block_k=64)`, which reaches the Pallas dQ and dK/dV kernels in interpret
+mode, and `flash_attention_with_lse` / `flash_block_grads` with
+`interpret=True`.  The port's wrappers run their plain versions on CPU
+tensors, through the same `torch.autograd.Function` the card uses.  Inputs
+are numpy arrays from a seeded generator, handed to both.
+
+Tolerances: f32 paths differ only in summation order (atol 1e-5); bf16
+gradients are one bf16 rounding of O(1) values apart (2e-2).  The kernels
+themselves are held against the plain versions on the card
+(tests/test_torch_package.py, chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmlspark_tpu.ops.flash_attention import (
+    flash_attention as jax_flash_attention,
+    flash_attention_with_lse as jax_flash_attention_with_lse,
+    flash_block_grads as jax_flash_block_grads)
+from mmlspark_tpu_torch.ops.attention import NEG_INF
+from mmlspark_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_with_lse, flash_block_grads,
+    flash_bwd_dkv, flash_bwd_dq)
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+BLOCKS = dict(block_q=64, block_k=64, interpret=True)
+
+
+def _arrays(shape_q, shape_k, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(shape_q).astype(np.float32)
+    k, v = (rng.standard_normal(shape_k).astype(np.float32)
+            for _ in range(2))
+    g = rng.standard_normal(shape_q).astype(np.float32)
+    return q, k, v, g
+
+
+def _jax_grads(q, k, v, g, causal, dtype):
+    args = [jnp.asarray(a, dtype) for a in (q, k, v)]
+    gj = jnp.asarray(g, dtype)
+
+    def loss(q_, k_, v_):
+        out = jax_flash_attention(q_, k_, v_, causal=causal, **BLOCKS)
+        return jnp.sum(out.astype(jnp.float32) * gj.astype(jnp.float32))
+    return [np.asarray(x, np.float32)
+            for x in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+def _torch_grads(q, k, v, g, causal, dtype):
+    args = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*args, causal=causal)
+    grads = torch.autograd.grad(out, args, torch.from_numpy(g).to(dtype))
+    assert all(t.dtype == dtype for t in grads)
+    return [t.float().numpy() for t in grads]
+
+
+@pytest.mark.parametrize("causal,sq,sk,dtype", [
+    (True, 128, 128, "float32"), (False, 128, 192, "float32"),
+    (True, 128, 128, "bfloat16"),
+    (False, 128, 192, "bfloat16")])
+def test_autograd_matches_jax_flash_grads(causal, sq, sk, dtype):
+    """Gradients through the port's `_FlashAttention` equal `jax.grad`
+    through the Pallas backward (dQ, dK/dV kernels in interpret mode)."""
+    q, k, v, g = _arrays((1, sq, 2, 32), (1, sk, 2, 32), seed=sq + sk)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    ref = _jax_grads(q, k, v, g, causal, jdt)
+    got = _torch_grads(q, k, v, g, causal, tdt)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(
+            a, b, **(BF16_TOL if dtype == "bfloat16" else F32_TOL))
+
+
+@pytest.mark.parametrize("q_off,k_off", [(0, 0), (64, 0), (0, 40)])
+def test_with_lse_matches_jax_with_offsets(q_off, k_off):
+    """out and lse with global offsets; with k_off > q_off the first
+    k_off - q_off rows see no key: zero output and lse NEG_INF."""
+    q, k, v, _ = _arrays((2, 128, 4, 32), (2, 128, 4, 32), seed=5)
+    ref_out, ref_lse = jax_flash_attention_with_lse(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=True, q_offset=q_off,
+        k_offset=k_off, **BLOCKS)
+    out, lse = flash_attention_with_lse(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+        q_offset=q_off, k_offset=k_off)
+    assert lse.shape == (2, 128, 4) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **F32_TOL)
+    if k_off > q_off:
+        masked = k_off - q_off
+        assert (lse[:, :masked] == NEG_INF).all()
+        assert torch.count_nonzero(out[:, :masked]) == 0
+
+
+@pytest.mark.parametrize("causal,q_off,k_off", [
+    (True, 128, 0), (True, 64, 64), (False, 0, 0)])
+def test_block_grads_match_jax_with_offsets(causal, q_off, k_off):
+    """(dq, dk, dv) of one K/V block against global lse/delta: the ring
+    backward's building block."""
+    q, k, v, g = _arrays((2, 128, 4, 32), (2, 128, 4, 32), seed=9)
+    rng = np.random.default_rng(10)
+    lse = rng.standard_normal((2, 128, 4)).astype(np.float32) + 3.0
+    lse[:, 5] = NEG_INF          # a row that saw no key anywhere
+    delta = rng.standard_normal((2, 128, 4)).astype(np.float32)
+    scale = 32 ** -0.5
+    ref = jax_flash_block_grads(
+        *(jnp.asarray(a) for a in (q, k, v, g, lse, delta)), causal, scale,
+        q_offset=q_off, k_offset=k_off, **BLOCKS)
+    tensors = [torch.from_numpy(a) for a in (q, k, v, g, lse, delta)]
+    got = flash_block_grads(*tensors, causal, scale, q_off, k_off)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32_TOL)
+    assert torch.count_nonzero(got[0][:, 5]) == 0
+    # the K2 / K3 wrappers split the same function on the CPU
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    np.testing.assert_array_equal(
+        flash_bwd_dq(*tensors, causal, scale, q_off, k_off).numpy(),
+        got[0].numpy())
+    for a, b in zip(flash_bwd_dkv(*tensors, causal, scale, q_off, k_off),
+                    got[1:]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_length_matches_jax_dense_fallback(causal):
+    """S = 200 does not tile 64-row blocks: the JAX wrapper falls back to
+    the dense VJP, the port's plain path computes the same function (its
+    kernels mask the ragged tile on the card)."""
+    q, k, v, g = _arrays((1, 200, 2, 32), (1, 200, 2, 32), seed=11)
+    ref = _jax_grads(q, k, v, g, causal, jnp.float32)
+    got = _torch_grads(q, k, v, g, causal, torch.float32)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, **F32_TOL)

@@ -20,10 +20,13 @@ from mmlspark_tpu_torch import (DataTable, ModelBundle, TextGenerator,
                                 TransformerLM)
 from mmlspark_tpu_torch.models import DecodeEngine
 from mmlspark_tpu_torch.ops import native
+from mmlspark_tpu_torch.ops.attention import NEG_INF
 from mmlspark_tpu_torch.ops.decode_attention import (
     fused_single_query_attention, fused_single_query_attention_plain)
-from mmlspark_tpu_torch.ops.flash_attention import (flash_attention,
-                                                    flash_attention_plain)
+from mmlspark_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_plain, flash_attention_with_lse,
+    flash_attention_with_lse_plain, flash_block_grads_plain, flash_bwd_dkv,
+    flash_bwd_dq)
 from mmlspark_tpu_torch.quant.quantize import quantize_kv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,6 +57,8 @@ def _imported_roots(path):
 def test_port_never_imports_the_jax_stack():
     sources = _port_sources()
     assert len(sources) > 10 and os.path.exists(sources[0])
+    covered = {os.path.relpath(os.path.dirname(p), PKG) for p in sources[1:]}
+    assert {"train", "parallel", "utils", "ops", "models"} <= covered
     offenders = [(os.path.relpath(p, REPO), name) for p in sources
                  for name in _imported_roots(p) if name in FORBIDDEN]
     assert offenders == []
@@ -78,10 +83,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_kernel_sources_ship_and_build_outside_git():
+    assert {"flash_attention", "flash_backward",
+            "decode_attention"} <= set(native.SIGNATURES)
     for name in native.SIGNATURES:
         assert os.path.exists(os.path.join(native.CSRC, f"{name}.cu"))
-    assert native.library_path("flash_attention").startswith(
-        native.BUILD_DIR)
+        assert native.library_path(name).startswith(native.BUILD_DIR)
     with open(os.path.join(REPO, ".gitignore")) as f:
         ignored = {line.strip() for line in f}
     assert "mmlspark_tpu_torch/_build/" in ignored
@@ -108,6 +114,44 @@ def test_unported_options_raise():
 
 def _table(rows):
     return DataTable({"p": [np.asarray(r, np.int32) for r in rows]})
+
+
+def test_serving_holds_one_model_dtype_copy_of_the_dense_weights():
+    """At bf16 the engines of one TextGenerator share one ServingWeights of
+    bf16 Dense weights, and nothing keeps the f32 masters; the tokens equal
+    an engine built on the module itself."""
+    bundle = ModelBundle.init("TransformerLM", {**CFG, "dtype": "bfloat16"})
+    stage = TextGenerator(bundle, device="cpu", inputCol="p", maxNewTokens=4)
+    rows = [[1, 2, 3], [4, 5, 6]]
+    got = stage.transform(_table(rows))["generated"]
+    first = stage._engine_for()
+    stage.set("maxNewTokens", 5)
+    assert stage._engine_for().weights is first.weights
+    assert not hasattr(first, "module") and not hasattr(stage, "_module")
+    dense = [first.weights.lm_head] + [getattr(blk, name)
+                                       for blk in first.weights.blocks
+                                       for name in ("qkv", "proj", "mlp_up",
+                                                    "mlp_down")]
+    assert all(t.dtype == torch.bfloat16 for lin in dense
+               for t in (lin.weight, lin.bias))
+    ref = DecodeEngine(bundle.module("cpu"), 4, device="cpu").generate(
+        np.asarray(rows, np.int32), np.array([3, 3]))
+    np.testing.assert_array_equal(np.stack(got)[:, 3:], ref)
+
+
+@pytest.mark.parametrize("spec,n,want", [
+    ({}, None, {"data": 1, "model": 1, "seq": 1}),
+    ({"data": 1, "model": 1}, 1, {"data": 1, "model": 1, "seq": 1}),
+    ({"data": -1, "model": -1}, None, ValueError),
+    ({"data": 2}, None, NotImplementedError),
+    ({}, 2, NotImplementedError)])
+def test_mesh_spec_resolves_against_one_card(spec, n, want):
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec
+    if isinstance(want, dict):
+        assert MeshSpec(**spec).resolve(n) == want
+    else:
+        with pytest.raises(want):
+            MeshSpec(**spec).resolve(n)
 
 
 # ---------------------------------------------- kernels on the card ---
@@ -162,3 +206,99 @@ def test_decode_kernel_matches_plain(cuda, window, cache):
     ref = fused_single_query_attention_plain(q, k, v, visible, **kw)
     torch.testing.assert_close(got, ref, rtol=0, atol=2e-3)
     assert torch.count_nonzero(got[-1]) == 0
+
+
+def _assert_grad_close(got, ref, dtype):
+    """max|d| within 2e-2 of max|ref| and ||d||_F within 1e-2 of ||ref||_F
+    at bf16 (1e-4 both at f32).  The max-relative limit alone is loose at
+    bf16: the first rows' gradients dwarf a late row's, so a dropped or
+    doubled tile of late keys or queries passes it; the norm-relative one
+    catches that."""
+    max_tol, norm_tol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4,
+                                                                      1e-4)
+    d, r = got.float() - ref.float(), ref.float()
+    assert (d.abs().max() / r.abs().max().clamp(min=1e-30)).item() <= max_tol
+    assert (d.norm() / r.norm().clamp(min=1e-30)).item() <= norm_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,causal,q_off,k_off,dtype,d", [
+    (512, 512, True, 0, 0, torch.bfloat16, 128),
+    (1000, 1000, True, 0, 0, torch.bfloat16, 128),
+    (512, 512, True, 512, 0, torch.bfloat16, 128),
+    (256, 256, True, 0, 100, torch.bfloat16, 128),   # 100 masked rows
+    (300, 400, False, 0, 0, torch.bfloat16, 64),
+    (700, 700, True, 0, 0, torch.float32, 128)])
+def test_flash_lse_kernel_matches_plain(cuda, sq, sk, causal, q_off, k_off,
+                                        dtype, d):
+    gen = torch.Generator(device=cuda).manual_seed(sq + k_off)
+    q = torch.randn((2, sq, 8, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, sk, 8, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    before = flash_attention_with_lse.launches
+    out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off, k_off)
+    torch.cuda.synchronize()
+    assert flash_attention_with_lse.launches == before + 1
+    ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, causal, None,
+                                                      q_off, k_off)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0,
+                               atol=1e-3 if dtype == torch.bfloat16 else 1e-4)
+    if k_off > q_off:
+        assert (lse[:, :k_off - q_off] <= NEG_INF / 2).all()
+        assert torch.count_nonzero(out[:, :k_off - q_off]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,causal,q_off,k_off,dtype,d", [
+    (512, 512, True, 0, 0, torch.bfloat16, 128),
+    (1000, 1000, True, 0, 0, torch.bfloat16, 128),
+    (768, 1280, False, 0, 0, torch.bfloat16, 128),
+    (512, 512, True, 512, 256, torch.bfloat16, 128),
+    (256, 256, True, 0, 100, torch.bfloat16, 64),
+    (700, 700, True, 0, 0, torch.float32, 128)])
+def test_flash_backward_kernels_match_plain(cuda, sq, sk, causal, q_off,
+                                            k_off, dtype, d):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + q_off)
+    q, do = (torch.randn((2, sq, 8, d), generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((2, sk, 8, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    scale = d ** -0.5
+    out, lse = flash_attention_with_lse_plain(q, k, v, causal, scale, q_off,
+                                              k_off)
+    delta = (do.float() * out.float()).sum(-1)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, q_off, k_off)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_off,
+                           k_off)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    refs = flash_block_grads_plain(q, k, v, do, lse, delta, causal, scale,
+                                   q_off, k_off)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _assert_grad_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_autograd_matches_plain_autograd(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn((2, 1000, 8, 128), generator=gen, device=cuda)
+                   .to(dtype).requires_grad_() for _ in range(4))
+    before = (flash_attention_with_lse.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=True),
+                              (q, k, v), do.detach())
+    torch.cuda.synchronize()
+    assert (flash_attention_with_lse.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref = torch.autograd.grad(
+        flash_attention_with_lse_plain(q, k, v, causal=True)[0], (q, k, v),
+        do.detach())
+    for a, b in zip(got, ref):
+        _assert_grad_close(a, b, dtype)
