@@ -3,7 +3,8 @@ hand-written kernels from `mmlspark_tpu_torch/csrc/`, holds each against
 its plain PyTorch version, drives the LM serving path
 (`TextGenerator.transform` -> `DecodeEngine.generate`) and the LM training
 path (`Trainer.fit_arrays`) at the full width of the repo's LM bench
-configuration, and times kernels and paths.
+configuration and the seq-sharded long-context decode path at the width
+of its long-context configuration, and times kernels and paths.
 
     python3 chip_smoke.py
 
@@ -29,7 +30,22 @@ Phases (any failure exits non-zero before the result line):
      the loss must fall and K1[lse], K2, K3 must each launch n_layers x
      steps times; the trained bundle generates through `TextGenerator`;
      step time, tokens/s, MFU and a profiler breakdown of one step
-  8. f32 gradient check: every parameter's gradient with the flash
+  8. the stats entry of the decode kernel, K4[stats], vs plain: bf16 and
+     int8 caches (f32 q), head dims 64 and 128, the long-context slab
+     (2, 4224, 8, 64) and a window not a multiple of SPLIT, a fully masked
+     row giving exactly m = NEG_INF, l = 0, acc = 0; K4 at head dim 64
+  9. K1[lse] at head dim 64 vs plain on the ring prefill's (shard, block)
+     pairs (2, 4096, 8, 64) with q/k offsets 0/0, 4096/0, 4096/4096; K1
+     at head dim 64 over (2, 8192, 8, 64); bf16 outputs held to a
+     norm-relative limit as well as an absolute one (also in 2 and 3)
+ 10. the seq-sharded long-context path at the repo's long-context width
+     (TransformerLM vocab 8192, d_model 512, 8 heads, 4 layers, max_len
+     8448; context 8192, batch 2, 32 greedy tokens, cache chunk 256):
+     `DecodeEngine` at seq=1 and over a seq=2 mesh whose two shards share
+     this card; f32 greedy tokens identical, bf16 prefill logits close,
+     K4[stats] and K1[lse] launch counts exact; prefill ms and decode
+     ms/step of both engines
+ 11. f32 gradient check: every parameter's gradient with the flash
      kernels against the dense-attention model, TF32 off
 
 Kernel and step times come from CUDA events (median after warm-up).
@@ -57,19 +73,26 @@ LM_CONFIG = {"vocab_size": 8192, "d_model": 1024, "n_heads": 8,
 PROMPT_LENGTHS = (20, 45, 70, 100, 600, 900, 1200, 1500)
 MAX_NEW = 64
 TRAIN_ROWS, TRAIN_SEQ, TRAIN_BATCH = 16, 2048, 8   # 2 steps per epoch
+# the repo's long-context configuration (bench.py bench_lm_long_context):
+# head dim 64, context 8192, 32 greedy tokens, batch 2, cache chunk 256
+LC_CONFIG = {"vocab_size": 8192, "d_model": 512, "n_heads": 8,
+             "n_layers": 4, "max_len": 8448, "dtype": "bfloat16"}
+LC_CONTEXT, LC_NEW, LC_BATCH, LC_CHUNK = 8192, 32, 2, 256
 
 
 def counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel-table name."""
-    from mmlspark_tpu_torch.ops.decode_attention import \
-        fused_single_query_attention
+    from mmlspark_tpu_torch.ops.decode_attention import (
+        fused_single_query_attention, fused_single_query_attention_stats)
     from mmlspark_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_with_lse, flash_bwd_dkv,
         flash_bwd_dq)
     return {"flash_attention": flash_attention,
             "flash_attention[lse]": flash_attention_with_lse,
             "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
-            "fused_single_query_attention": fused_single_query_attention}
+            "fused_single_query_attention": fused_single_query_attention,
+            "fused_single_query_attention_stats":
+                fused_single_query_attention_stats}
 
 
 def reset_counts() -> None:
@@ -88,6 +111,23 @@ class SmokeFailure(RuntimeError):
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+# ||d||_F / ||ref||_F limit of an attention output: the bf16 kernels read
+# 2.0e-3 to 2.5e-3 on the H100; a V tile of 64 keys skipped out of 4096
+# reads 0.12
+OUT_NORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def out_errs(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|d|, ||d||_F / ||ref||_F) of an attention output.  The absolute
+    limit alone is loose at bf16 and long S: |out| is about sqrt(e/n) over
+    n visible keys, so a dropped or doubled V tile that leaves the
+    log-sum-exp alone moves each entry by less than the limit; the
+    norm-relative error sees it."""
+    d, r = got.float() - ref.float(), ref.float()
+    return d.abs().max().item(), (d.norm()
+                                  / r.norm().clamp(min=1e-30)).item()
 
 
 def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
@@ -128,6 +168,9 @@ GEMM_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 KERNEL_GROUPS = (("flash_attention (K1)", ("flash_fwd",)),
                  ("fused_single_query_attention (K4)", ("sqa_",)),
                  ("GEMM (cuBLAS)", GEMM_KEYS))
+LC_GROUPS = (("K1 / K1[lse] flash_fwd", ("flash_fwd",)),
+             ("K4 / K4[stats] sqa_", ("sqa_",)),
+             ("GEMM (cuBLAS)", GEMM_KEYS))
 TRAIN_GROUPS = (("K1 flash forward with lse", ("flash_fwd",)),
                 ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
                 ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
@@ -212,11 +255,13 @@ def phase_flash(dev, card) -> dict:
         torch.cuda.synchronize()
         ref = flash_attention_plain(q, k, v, causal=causal)
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        err = (got.float() - ref.float()).abs().max().item()
+        err, norm_err = out_errs(got, ref)
         ok = torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)
         print(f"flash_attention B={b} S={s} causal={causal} {dtype}: "
-              f"max_abs_err={err:.3e} (tol {tol})")
-        require(ok, f"flash kernel disagrees at S={s} {dtype}")
+              f"max_abs_err={err:.3e} (tol {tol}), ||d||/||ref|| "
+              f"{norm_err:.3e} (tol {OUT_NORM_TOL[dtype]})")
+        require(ok and norm_err <= OUT_NORM_TOL[dtype],
+                f"flash kernel disagrees at S={s} {dtype}")
         if dtype == torch.bfloat16 and causal:
             max_err = max(max_err, err)
 
@@ -280,13 +325,15 @@ def phase_flash_lse(dev, card) -> dict:
                                                           q_off, k_off)
         bf16 = dtype == torch.bfloat16
         out_tol, lse_tol = (2e-2, 1e-3) if bf16 else (1e-4, 1e-4)
-        err = (out.float() - ref_out.float()).abs().max().item()
+        err, norm_err = out_errs(out, ref_out)
         lse_err = (lse - ref_lse).abs().max().item()
         print(f"flash_attention_with_lse B={b} Sq={sq} Sk={sk} "
               f"q_offset={q_off} k_offset={k_off} {dtype}: out "
-              f"max_abs_err={err:.3e} (tol {out_tol}), lse "
+              f"max_abs_err={err:.3e} (tol {out_tol}), ||d||/||ref|| "
+              f"{norm_err:.3e} (tol {OUT_NORM_TOL[dtype]}), lse "
               f"max_abs_err={lse_err:.3e} (tol {lse_tol})")
-        require(err <= out_tol and lse_err <= lse_tol,
+        require(err <= out_tol and norm_err <= OUT_NORM_TOL[dtype]
+                and lse_err <= lse_tol,
                 f"flash lse kernel disagrees at Sq={sq} offsets "
                 f"{q_off}/{k_off} {dtype}")
         if k_off > q_off:
@@ -658,6 +705,433 @@ def phase_main_path(dev, card) -> dict:
             "greedy_match_f32": matches / total}
 
 
+def stats_bound(b: int, h: int, d: int, n_visible: int, window: int,
+                item: int, quantized: bool) -> tuple:
+    """(bound ms, "bytes" | "operations") of one single-query cache read:
+    the K and V rows of the visible slots (and their int8 scales), the
+    mask, q in and the f32 outputs, over the HBM rate; its 4 f32 FLOPs
+    per visible element over the f32 peak."""
+    nbytes = (2.0 * n_visible * h * d * item + b * window + b * h * d * 4
+              + b * h * d * 4 + 2 * b * h * 4)
+    if quantized:
+        nbytes += 2.0 * n_visible * h * 4
+    bound_b = nbytes / PEAK_BYTES * 1e3
+    bound_f = 4.0 * n_visible * h * d / PEAK_F32_FLOPS * 1e3
+    return max(bound_b, bound_f), ("bytes" if bound_b >= bound_f
+                                   else "operations")
+
+
+def phase_decode_stats(dev, card) -> list:
+    """K4[stats] against its plain version: bf16 caches and int8 caches
+    (with f32 q), head dims 64 and 128, the long-context slab
+    (2, 4224, 8, 64) and a window that is not a multiple of SPLIT; the
+    fully masked last row must be exactly the merge identity.  Tolerances:
+    acc and l within 1e-4 of their largest |value|, m within 1e-4
+    absolute (f32 arithmetic on both sides, summed in another order).
+    Then the times of K4[stats] at the slab and of K4 at head dim 64 on
+    the seq=1 engine's window (2, 8448, 8, 64)."""
+    from mmlspark_tpu_torch.ops.attention import NEG_INF
+    from mmlspark_tpu_torch.ops.decode_attention import (
+        SPLIT, fused_single_query_attention,
+        fused_single_query_attention_plain,
+        fused_single_query_attention_stats,
+        fused_single_query_attention_stats_plain)
+    from mmlspark_tpu_torch.quant.quantize import quantize_kv
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, h = LC_BATCH, LC_CONFIG["n_heads"]
+    slab = (LC_CONTEXT + LC_CHUNK) // 2       # one of two shards' window
+
+    def inputs(window, d, kind, full=False):
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(
+            torch.float32 if kind == "int8" else torch.bfloat16)
+        k, v = (torch.randn((b, window, h, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        # the second shard's layout: prompt slots, a hole, decode slots
+        slots = torch.arange(window, device=dev)
+        hole = window - window // 16
+        visible = ((slots < window - window // 8)
+                   | ((slots >= hole) & (slots <= hole + 5)))
+        visible = visible[None].repeat(b, 1)
+        if full:
+            visible[:] = True
+        else:
+            visible[-1] = False
+        kw = {}
+        if kind == "int8":
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            kw = dict(k_scale=ks, v_scale=vs)
+        return q, k, v, visible.contiguous(), kw
+
+    errs = {"model": 0.0, "int8": 0.0}
+    ragged = SPLIT * 15 + 37
+    for window, d, kind in ((slab, 64, "model"), (slab, 64, "int8"),
+                            (slab, 128, "model"), (slab, 128, "int8"),
+                            (ragged, 64, "model"), (ragged, 128, "int8")):
+        q, k, v, visible, kw = inputs(window, d, kind)
+        acc, m, l = fused_single_query_attention_stats(q, k, v, visible, **kw)
+        torch.cuda.synchronize()
+        r_acc, r_m, r_l = fused_single_query_attention_stats_plain(
+            q, k, v, visible, **kw)
+        e_acc = ((acc - r_acc).abs().max() / r_acc.abs().max()).item()
+        e_l = ((l - r_l).abs().max() / r_l.abs().max()).item()
+        e_m = (m[:-1] - r_m[:-1]).abs().max().item()
+        abs_err = max((acc - r_acc).abs().max().item(), e_m,
+                      (l - r_l).abs().max().item())
+        print(f"fused_single_query_attention_stats B={b} L={window} H={h} "
+              f"D={d} cache={kind} q={q.dtype}: acc {e_acc:.3e}, l "
+              f"{e_l:.3e} of max|ref| (tol 1e-4); m max_abs_err {e_m:.3e} "
+              f"(tol 1e-4)")
+        require(e_acc <= 1e-4 and e_l <= 1e-4 and e_m <= 1e-4,
+                f"stats kernel disagrees at L={window} D={d} {kind}")
+        require(bool((m[-1] == NEG_INF).all()) and bool((l[-1] == 0).all())
+                and torch.count_nonzero(acc[-1]).item() == 0,
+                "a fully masked row is not m = NEG_INF, l = 0, acc = 0")
+        errs[kind] = max(errs[kind], abs_err)
+
+    entries = []
+    for kind in ("model", "int8"):
+        q, k, v, visible, kw = inputs(slab, 64, kind, full=True)
+        ms = graph_ms(lambda: fused_single_query_attention_stats(
+            q, k, v, visible, **kw))
+        plain_ms = graph_ms(lambda: fused_single_query_attention_stats_plain(
+            q, k, v, visible, **kw))
+        bound, bound_by = stats_bound(b, h, 64, int(visible.sum().item()),
+                                      slab, k.element_size(), kind == "int8")
+        print(f"timing fused_single_query_attention_stats ({b},{slab},{h},64)"
+              f" cache={kind}, every slot visible, device time (CUDA graph):"
+              f" {ms:.4f} ms; plain {plain_ms:.4f} ms; library none (no "
+              f"PyTorch call returns the unnormalized triple); bound "
+              f"{bound:.4f} ms ({bound_by}) [{card}]")
+        entries.append({
+            "name": ("fused_single_query_attention_stats" if kind == "model"
+                     else "fused_single_query_attention_stats[int8]"),
+            "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "mmlspark_tpu/ops/decode_attention.py:245 "
+                        "(fused_single_query_attention_stats, :326)",
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+
+    # K4 at head dim 64 on the seq=1 engine's window
+    window, bucket = LC_CONTEXT + LC_CHUNK, LC_CONTEXT
+    q = torch.randn((b, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, window, h, 64), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    visible = engine_mask(b, window, bucket, bucket + 15,
+                          torch.full((b,), bucket, device=dev))
+    got = fused_single_query_attention(q, k, v, visible)
+    torch.cuda.synchronize()
+    err = (got - fused_single_query_attention_plain(q, k, v, visible)
+           ).abs().max().item()
+    require(err <= 2e-3, "decode kernel disagrees at head dim 64")
+    ms = graph_ms(lambda: fused_single_query_attention(q, k, v, visible))
+    plain_ms = graph_ms(lambda: fused_single_query_attention_plain(
+        q, k, v, visible))
+    lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=visible[:, None, None, :]))
+    bound, bound_by = stats_bound(b, h, 64, int(visible.sum().item()),
+                                  window, 2, False)
+    print(f"fused_single_query_attention ({b},{window},{h},64) bf16 cache: "
+          f"max_abs_err={err:.3e} (tol 2e-3); device time (CUDA graph) "
+          f"{ms:.4f} ms; plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; "
+          f"bound {bound:.4f} ms ({bound_by}) [{card}]")
+    entries.append({
+        "name": "fused_single_query_attention[d64]", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "mmlspark_tpu/ops/decode_attention.py:245",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
+    return entries
+
+
+def phase_ring_lse(dev, card) -> list:
+    """K1[lse] at head dim 64 against plain on the ring prefill's (shard,
+    block) pairs of two shards: (2, 4096, 8, 64) causal with q_offset /
+    k_offset 0/0, 4096/0 and 4096/4096 in bf16, 4096/0 in f32; and K1 on
+    the seq=1 engine's whole prompt (2, 8192, 8, 64).  Tolerances at bf16:
+    out within 2e-2 absolute AND ||d||_F within 1e-2 of ||ref||_F (see
+    `out_errs`), lse within 1e-3; 1e-4 each at f32.  Then the times of
+    both."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain, flash_attention_with_lse,
+        flash_attention_with_lse_plain)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, h, s_l = LC_BATCH, LC_CONFIG["n_heads"], LC_CONTEXT // 2
+
+    def rand(s, dtype):
+        return torch.randn((b, s, h, 64), generator=gen, device=dev).to(dtype)
+
+    max_err = 0.0
+    for q_off, k_off, dtype in ((0, 0, torch.bfloat16),
+                                (s_l, 0, torch.bfloat16),
+                                (s_l, s_l, torch.bfloat16),
+                                (s_l, 0, torch.float32)):
+        q, k, v = (rand(s_l, dtype) for _ in range(3))
+        out, lse = flash_attention_with_lse(q, k, v, True, None, q_off, k_off)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, True, None,
+                                                          q_off, k_off)
+        bf16 = dtype == torch.bfloat16
+        out_tol, lse_tol = (2e-2, 1e-3) if bf16 else (1e-4, 1e-4)
+        err, norm_err = out_errs(out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        print(f"flash_attention_with_lse B={b} S={s_l} H={h} D=64 causal "
+              f"q_offset={q_off} k_offset={k_off} {dtype}: out "
+              f"max_abs_err={err:.3e} (tol {out_tol}), ||d||/||ref|| "
+              f"{norm_err:.3e} (tol {OUT_NORM_TOL[dtype]}), lse max_abs_err="
+              f"{lse_err:.3e} (tol {lse_tol})")
+        require(err <= out_tol and norm_err <= OUT_NORM_TOL[dtype]
+                and lse_err <= lse_tol,
+                f"flash lse kernel disagrees at head dim 64, offsets "
+                f"{q_off}/{k_off} {dtype}")
+        if bf16:
+            max_err = max(max_err, err)
+
+    # the full off-diagonal pair: every key visible to every query
+    q, k, v = (rand(s_l, torch.bfloat16) for _ in range(3))
+    ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True, None, s_l,
+                                                   0))
+    plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(
+        q, k, v, True, None, s_l, 0), calls=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = graph_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, False))
+    bound, bound_by = attention_bound(4.0 * b * h * 64 * s_l * s_l,
+                                      4.0 * b * s_l * h * 64 * 2
+                                      + b * s_l * h * 4)
+    print(f"timing flash_attention_with_lse ({b},{s_l},{h},64) q_offset "
+          f"{s_l} k_offset 0 (no key masked) bf16, device time (CUDA "
+          f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; aten flash "
+          f"forward with lse, non-causal {lib_ms:.4f} ms; bound {bound:.4f} "
+          f"ms ({bound_by}) [{card}]")
+    entries = [{
+        "name": "flash_attention[lse,d64]", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}]
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # K1 over the seq=1 engine's whole prompt
+    s = LC_CONTEXT
+    q, k, v = (rand(s, torch.bfloat16) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, norm_err = out_errs(got, flash_attention_plain(q, k, v, causal=True))
+    print(f"flash_attention ({b},{s},{h},64) causal bf16: max_abs_err="
+          f"{err:.3e} (tol 2e-2), ||d||/||ref|| {norm_err:.3e} (tol "
+          f"{OUT_NORM_TOL[torch.bfloat16]})")
+    require(err <= 2e-2 and norm_err <= OUT_NORM_TOL[torch.bfloat16],
+            "flash kernel disagrees at head dim 64")
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = graph_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                        calls=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    bound, bound_by = attention_bound(4.0 * b * h * 64 * (s * (s + 1) / 2),
+                                      4.0 * b * s * h * 64 * 2)
+    print(f"timing flash_attention ({b},{s},{h},64) causal bf16, device "
+          f"time (CUDA graph): {ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({bound_by}) [{card}]")
+    entries.append({
+        "name": "flash_attention[d64]", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return entries
+
+
+def host_ms(fn, reps: int = 10) -> list:
+    """Host wall times (ms, sorted) of `reps` calls that end synchronized.
+    The seq path launches many small kernels from the host, and a one-card
+    host shares its cores, so its spread is reported, not only its median."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def phase_long_context(dev, card) -> dict:
+    """The seq-sharded long-context path at full width: `DecodeEngine` at
+    seq=1 and over a seq=2 mesh whose two shards share this card, on the
+    repo's long-context configuration with weights and prompts from a
+    seed.  At f32 the greedy tokens must be identical; at bf16 the
+    last-position prefill logits must agree within 5e-2 of their largest
+    |value| (bf16 rounding of the activations along two attention
+    orders), and token agreement is printed with the first differing step
+    and the plain forward's top-2 logit margin there.  The seq=2 run must
+    launch K4[stats] n_layers x steps x shards times and K1[lse] n_layers
+    x the live (shard, block) pairs."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models import DecodeEngine
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    _forward_with_cache)
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    n_layers, shards = LC_CONFIG["n_layers"], 2
+    steps = LC_NEW - 1
+    mesh = make_mesh(MeshSpec(data=1, model=1, seq=shards),
+                     [torch.device(dev.type, 0)] * shards)
+    bundle = ModelBundle.init("TransformerLM", LC_CONFIG, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, LC_CONFIG["vocab_size"],
+                           (LC_BATCH, LC_CONTEXT)).astype(np.int32)
+    true_len = np.full(LC_BATCH, LC_CONTEXT, np.int32)
+    out: dict = {"shards_share_one_card": True}
+
+    def engines(b, **kw):
+        weights = ServingWeights(b.module(dev))
+        return {seq: DecodeEngine(weights, LC_NEW, chunk=LC_CHUNK,
+                                  mesh=None if seq == 1 else mesh,
+                                  device=dev, **kw) for seq in (1, shards)}
+
+    def run(engine):
+        engine.generate(prompts, true_len)            # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        tokens = engine.generate(prompts, true_len)
+        torch.cuda.synchronize()
+        return tokens, read_counts()
+
+    def last_logits(engine, seq):
+        tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+        tl = torch.as_tensor(true_len, dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            if seq == 1:
+                w = engine.weights
+                shape = (LC_BATCH, LC_CONTEXT + LC_CHUNK, w.n_heads,
+                         w.d_model // w.n_heads)
+                caches = [(torch.zeros(shape, dtype=w.dtype, device=dev),
+                           torch.zeros(shape, dtype=w.dtype, device=dev))
+                          for _ in range(w.n_layers)]
+                logits = _forward_with_cache(w, tokens, caches, 0)
+                return logits[torch.arange(LC_BATCH, device=dev), tl - 1]
+            return engine._ring_prefill(tokens, tl, mesh.seq_rings()[0])[0]
+
+    # bf16, model-dtype cache: the path the counts are read from
+    eng = engines(bundle)
+    tokens, counts = {}, {}
+    for seq in (1, shards):
+        tokens[seq], counts[seq] = run(eng[seq])
+        once = DecodeEngine(eng[seq].weights, 1, chunk=LC_CHUNK,
+                            mesh=eng[seq].mesh, device=dev)
+        once.generate(prompts, true_len)
+        prefills = host_ms(lambda: once.generate(prompts, true_len))
+        totals = host_ms(lambda: eng[seq].generate(prompts, true_len))
+        prefill_ms = statistics.median(prefills)
+        # decode ms/step: each generate's time less the median prefill
+        decode = [(t - prefill_ms) / steps for t in totals]
+        out[f"seq{seq}"] = {"prefill_ms": prefill_ms,
+                            "prefill_ms_all": prefills,
+                            "decode_ms_per_step": statistics.median(decode),
+                            "decode_ms_per_step_all": decode,
+                            "generate_ms": statistics.median(totals),
+                            "device_breakdown": device_breakdown(
+                                lambda: eng[seq].generate(prompts, true_len),
+                                card, LC_GROUPS)}
+        print(f"long-context seq={seq}"
+              f"{' (both shards on this one card)' if seq > 1 else ''}, "
+              f"{len(totals)} runs each, median [min, max]: prefill "
+              f"{prefill_ms:.3f} [{prefills[0]:.3f}, {prefills[-1]:.3f}] ms "
+              f"(generate with 1 new token); decode "
+              f"{statistics.median(decode):.3f} [{decode[0]:.3f}, "
+              f"{decode[-1]:.3f}] ms/step ({LC_BATCH} rows x {LC_NEW} tokens "
+              f"in {statistics.median(totals):.3f} ms); launches "
+              f"{counts[seq]} [{card}]")
+    want_stats = n_layers * steps * shards
+    want_lse = n_layers * shards * (shards + 1) // 2
+    got = counts[shards]
+    require(got["fused_single_query_attention_stats"] == want_stats,
+            f"K4[stats] launched {got['fused_single_query_attention_stats']}"
+            f" times, want {want_stats}")
+    require(got["flash_attention[lse]"] == want_lse,
+            f"K1[lse] launched {got['flash_attention[lse]']} times, want "
+            f"{want_lse}")
+    require(got["flash_attention"] == 0 and
+            got["fused_single_query_attention"] == 0,
+            "the seq path launched the whole-window kernels")
+    require(counts[1]["flash_attention"] == n_layers and
+            counts[1]["fused_single_query_attention"] == n_layers * steps,
+            "the seq=1 engine skipped its kernels")
+    out["counts"] = {1: counts[1], shards: got}
+    ref, seq_logits = last_logits(eng[1], 1), last_logits(eng[shards], shards)
+    rel = ((ref - seq_logits).abs().max() / ref.abs().max()).item()
+    same = tokens[1] == tokens[shards]
+    first = [int(np.argmin(row)) if not row.all() else None for row in same]
+    margins = []
+    if any(t is not None for t in first):
+        # the plain bf16 forward's top-2 gap at each row's first
+        # differing step
+        module = ModelBundle("TransformerLM", {**LC_CONFIG,
+                                               "attn_impl": "flash"},
+                             bundle.variables).module(dev)
+        for r, t in enumerate(first):
+            if t is None:
+                continue
+            seqs = np.concatenate([prompts[r], tokens[1][r, :t]])[None]
+            with torch.inference_mode():
+                top = torch.topk(module(torch.as_tensor(
+                    seqs, dtype=torch.long, device=dev))[0, -1], 2).values
+            margins.append((r, t, (top[0] - top[1]).item()))
+        del module
+    print(f"long-context bf16: last-position prefill logits seq={shards} vs "
+          f"seq=1 max|d|/max|ref| {rel:.3e} (tol 5e-2); greedy tokens equal "
+          f"{int(same.sum())}/{same.size}; first differing step per row "
+          f"{first}; plain forward top-2 margin there (row, step, margin) "
+          f"{margins}")
+    require(rel <= 5e-2, "bf16 prefill logits of the two engines disagree")
+    out["bf16"] = {"logits_rel_err": rel,
+                   "tokens_match": int(same.sum()) / same.size,
+                   "first_differing_step": first, "margins": margins}
+    del eng
+    torch.cuda.empty_cache()
+
+    # bf16, int8 cache: K4[stats] over int8 slabs
+    eng = engines(bundle, cache_dtype="int8")
+    tok8, counts8 = run(eng[shards])
+    ref8 = eng[1].generate(prompts, true_len)
+    out["int8"] = {"tokens_match": float((tok8 == ref8).mean()),
+                   "stats_launches":
+                       counts8["fused_single_query_attention_stats"]}
+    print(f"long-context bf16 int8 cache: seq={shards} vs seq=1 greedy "
+          f"tokens equal {float((tok8 == ref8).mean()):.4f}; launches "
+          f"{counts8}")
+    require(counts8["fused_single_query_attention_stats"] == want_stats,
+            "K4[stats] on the int8 cache: launch count")
+    del eng
+    torch.cuda.empty_cache()
+
+    # f32: greedy tokens identical, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bundle32 = ModelBundle("TransformerLM", {**LC_CONFIG, "dtype": "float32"},
+                           bundle.variables)
+    eng = engines(bundle32)
+    tok32 = {seq: eng[seq].generate(prompts, true_len) for seq in eng}
+    ref = last_logits(eng[1], 1)
+    rel32 = ((ref - last_logits(eng[shards], shards)).abs().max()
+             / ref.abs().max()).item()
+    match = bool(np.array_equal(tok32[1], tok32[shards]))
+    print(f"long-context f32: greedy tokens seq={shards} vs seq=1 identical "
+          f"{match} ({LC_BATCH} x {LC_NEW}); last-position prefill logits "
+          f"max|d|/max|ref| {rel32:.3e}")
+    require(match, "f32 greedy tokens of the seq engine differ from seq=1")
+    out["f32"] = {"tokens_identical": match, "logits_rel_err": rel32}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def char_corpus(n_rows: int, seq: int, vocab: int) -> np.ndarray:
     """Example 401's learnable corpus: rows cycle the vocabulary from a
     random phase, seq + 1 tokens each (inputs and targets are slices)."""
@@ -802,6 +1276,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
     torch.cuda.empty_cache()
+    decode_stats = phase_decode_stats(dev, card)
+    ring_lse = phase_ring_lse(dev, card)
+    long_context = phase_long_context(dev, card)
+    torch.cuda.empty_cache()
     grad_check = phase_grad_check(dev, card)
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
@@ -811,13 +1289,22 @@ def main() -> int:
     flash_lse["launches"] = train["counts"]["flash_attention[lse]"]
     for entry in backward:
         entry["launches"] = train["counts"][entry["name"]]
-    kernels = [flash, flash_lse] + backward + decode
+    # the long-context path: K4[stats] and K1[lse] at head dim 64 from the
+    # seq=2 engine, K1 and K4 at head dim 64 from the seq=1 engine
+    seq1, seq2 = (long_context["counts"][n] for n in (1, 2))
+    decode_stats[0]["launches"] = seq2["fused_single_query_attention_stats"]
+    decode_stats[1]["launches"] = long_context["int8"]["stats_launches"]
+    decode_stats[2]["launches"] = seq1["fused_single_query_attention"]
+    ring_lse[0]["launches"] = seq2["flash_attention[lse]"]
+    ring_lse[1]["launches"] = seq1["flash_attention"]
+    kernels = [flash, flash_lse] + backward + decode + decode_stats + ring_lse
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": {k: v for k, v in main_path.items()
                                     if k != "counts"},
                       "train_path": {k: v for k, v in train.items()
                                      if k != "counts"},
+                      "long_context": long_context,
                       "grad_check": grad_check, "card": card}))
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

@@ -3,13 +3,19 @@
 // (mmlspark_tpu_torch/ops/decode_attention.py).
 //
 // Replaces the Pallas kernel `_sqa_kernel` / `_fused_forward` of
-// mmlspark_tpu/ops/decode_attention.py (the pallas_call at :245), the
-// normalized output.  Same function: q (B, H, D) in the model dtype against
+// mmlspark_tpu/ops/decode_attention.py (the pallas_call at :245) in both
+// its forms: the normalized output, and the raw online-softmax triple of
+// `fused_single_query_attention_stats` (:326, `emit_stats`) that a
+// seq-sharded cache read merges across shards.  Same function: q (B, H, D)
+// in the model dtype against
 // caches (B, L, H, D) in the model dtype or int8, under a per-row
 // visibility mask (B, L); for int8, the per-(row, slot, head) f32 k_scale
 // multiplies the score after QK^T and v_scale folds into the softmax
 // weight before PV, so only int8 bytes stream.  f32 statistics, (B, H, D)
-// f32 out; a fully masked row gives zeros.
+// f32 out; a fully masked row gives zeros.  The stats form writes acc
+// (B, H, D), m (B, H) and l (B, H) unnormalized, acc against the row's max
+// m; a fully masked row gives the merge identity m = NEG_INF, l = 0,
+// acc = 0.
 //
 // Bound: device-memory bytes.  One query per (row, head) does 2 FLOPs per
 // cached byte (bf16) -- far below the card's ridge -- so the time is the
@@ -28,8 +34,9 @@
 //     merge identity m = NEG_INF, l = 0, acc = 0 (the JAX package's
 //     merge_attention_stats contract), which is what a later stats-emitting
 //     entry point returns as is.
-//   * sqa_combine: one CTA per (row, head) merges the span triples and
-//     normalizes.
+//   * sqa_combine: one CTA per (row, head) merges the span triples against
+//     their global max M and either normalizes (acc / l) or, for the stats
+//     form, writes the merged triple (acc, M, l) as it is.
 
 #include "common.cuh"
 
@@ -56,7 +63,9 @@ struct SqaArgs {
   const float* k_scale;
   const float* v_scale;
   float* partials;  // (B, H, splits, D + 2): acc[D], m, l
-  float* out;       // (B, H, D)
+  float* out;       // (B, H, D): acc / l, or acc for the stats form
+  float* m_out;     // (B, H) for the stats form, else null
+  float* l_out;     // (B, H) for the stats form, else null
   int B, L, H, split;
   float scale;
   cudaStream_t stream;
@@ -187,8 +196,11 @@ __global__ void __launch_bounds__(THREADS) sqa_split(SqaArgs a) {
   }
 }
 
+// A span whose every slot is masked holds m = NEG_INF, so its weight c is
+// exactly 0; when every span is masked M stays NEG_INF and A = Ls = 0.
 template <int D>
-__global__ void sqa_combine(const float* __restrict__ partials, float* __restrict__ out, int n_splits) {
+__global__ void sqa_combine(const float* __restrict__ partials, float* __restrict__ out,
+                            float* __restrict__ m_out, float* __restrict__ l_out, int n_splits) {
   const int bh = blockIdx.x, t = threadIdx.x;
   const float* p = partials + size_t(bh) * n_splits * (D + 2);
   float M = NEG_INF;
@@ -200,7 +212,15 @@ __global__ void sqa_combine(const float* __restrict__ partials, float* __restric
     A += p[s * (D + 2) + t] * c;
     Ls += p[s * (D + 2) + D + 1] * c;
   }
-  out[size_t(bh) * D + t] = A / (Ls == 0.f ? 1.f : Ls);
+  if (m_out == nullptr) {
+    out[size_t(bh) * D + t] = A / (Ls == 0.f ? 1.f : Ls);
+    return;
+  }
+  out[size_t(bh) * D + t] = A;
+  if (t == 0) {
+    m_out[bh] = M;
+    l_out[bh] = Ls;
+  }
 }
 
 template <typename QT, typename CT, int D, bool QUANT>
@@ -210,7 +230,7 @@ cudaError_t launch(const SqaArgs& a) {
   sqa_split<QT, CT, D, QUANT><<<grid, THREADS, 0, a.stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sqa_combine<D><<<a.B * a.H, D, 0, a.stream>>>(a.partials, a.out, n_splits);
+  sqa_combine<D><<<a.B * a.H, D, 0, a.stream>>>(a.partials, a.out, a.m_out, a.l_out, n_splits);
   return cudaGetLastError();
 }
 
@@ -235,14 +255,17 @@ cudaError_t by_cache(int cache_dtype, int D, const SqaArgs& a) {
 
 // q_dtype: 0 = float32, 1 = bfloat16; cache_dtype: 0 = float32,
 // 1 = bfloat16, 2 = int8 (k_scale / v_scale then required).  `partials`
-// is scratch of B*H*ceil(L/split)*(D+2) floats.  Returns the cudaError_t of
-// the launches.
+// is scratch of B*H*ceil(L/split)*(D+2) floats.  With `m_out` and `l_out`
+// null, `out` gets the normalized output; with both set (the stats form),
+// `out` gets acc and they get m and l.  Returns the cudaError_t of the
+// launches.
 extern "C" int mmlspark_sqa_forward(const void* q, const void* k_cache, const void* v_cache,
                                     const void* visible, const void* k_scale, const void* v_scale,
-                                    void* partials, void* out, int B, int L, int H, int D, int split,
-                                    float scale, int q_dtype, int cache_dtype, void* stream) {
+                                    void* partials, void* out, void* m_out, void* l_out, int B, int L,
+                                    int H, int D, int split, float scale, int q_dtype, int cache_dtype,
+                                    void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
-  if (L < 1 || split < 1) return cudaErrorInvalidValue;
+  if (L < 1 || split < 1 || (m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
   SqaArgs a{q,
             k_cache,
             v_cache,
@@ -251,6 +274,8 @@ extern "C" int mmlspark_sqa_forward(const void* q, const void* k_cache, const vo
             static_cast<const float*>(v_scale),
             static_cast<float*>(partials),
             static_cast<float*>(out),
+            static_cast<float*>(m_out),
+            static_cast<float*>(l_out),
             B,
             L,
             H,

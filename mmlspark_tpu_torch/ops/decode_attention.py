@@ -1,10 +1,15 @@
 """Fused single-query attention, the decode step's cache read: a
 hand-written CUDA kernel for Hopper (`csrc/decode_attention.cu`) and its
-plain PyTorch version.
+plain PyTorch versions.
 
 The kernel replaces the Pallas `_sqa_kernel` / `_fused_forward` of
-`mmlspark_tpu/ops/decode_attention.py` (the `pallas_call` at :245), its
-normalized output.  Contract: q (B, H, D) in the model dtype; caches
+`mmlspark_tpu/ops/decode_attention.py` (the `pallas_call` at :245) in both
+its entry points: `fused_single_query_attention` (the normalized output)
+and `fused_single_query_attention_stats` (:326, `emit_stats`: the raw
+f32 triple acc (B, H, D), m (B, H), l (B, H) that a seq-sharded cache read
+merges across shards with `ops/attention.merge_attention_stats`; a fully
+masked row gives m = NEG_INF, l = 0, acc = 0).  Contract: q (B, H, D) in
+the model dtype; caches
 (B, L, H, D) in the model dtype, or int8 with per-(row, slot, head) f32
 dequant scales (B, L, H); per-row visibility (B, L) bool; (B, H, D) f32
 out.  K's scale multiplies the score after QK^T and V's folds into the
@@ -16,9 +21,10 @@ head, span), and merges the spans' online-softmax triples in a second
 small kernel (flash-decoding).  Any window length works: the last span is
 masked.
 
-`fused_single_query_attention` runs the plain version for CPU tensors only;
-for CUDA tensors it launches the kernel or raises.
-`fused_single_query_attention.launches` counts launches.
+Both wrappers run their plain version for CPU tensors only; for CUDA
+tensors they launch the kernel or raise.  Each counts its own launches
+(`fused_single_query_attention.launches`,
+`fused_single_query_attention_stats.launches`).
 """
 
 from __future__ import annotations
@@ -91,28 +97,35 @@ def _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale) -> None:
         raise ValueError("caches must be 16-byte aligned")
 
 
-def fused_single_query_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                                 v_cache: torch.Tensor, visible: torch.Tensor,
-                                 scale: Optional[float] = None,
-                                 k_scale: Optional[torch.Tensor] = None,
-                                 v_scale: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
-    """One decode step's query against a cache window: (B, H, D) f32."""
-    d = q.shape[-1]
-    scale = scale if scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        return fused_single_query_attention_plain(
-            q, k_cache, v_cache, visible, scale, k_scale, v_scale)
+def fused_single_query_attention_stats_plain(
+        q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+        visible: torch.Tensor, scale: Optional[float] = None,
+        k_scale: Optional[torch.Tensor] = None,
+        v_scale: Optional[torch.Tensor] = None) -> tuple:
+    """The stats entry's function in plain PyTorch: the unnormalized f32
+    (acc, m, l) of the whole window."""
+    return single_query_attention_stats(q, k_cache, v_cache, visible, scale,
+                                        k_scale, v_scale)
+
+
+def _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
+            stats: bool):
+    """Run the kernel on the current stream: the normalized (B, H, D) out,
+    or with `stats` the (acc, m, l) triple."""
     if q.device.type != "cuda":
-        raise ValueError(
-            f"fused_single_query_attention: unsupported device {q.device}")
+        raise ValueError(f"single-query attention kernel: unsupported "
+                         f"device {q.device}")
     _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale)
-    b, h, _ = q.shape
+    b, h, d = q.shape
     l = k_cache.shape[1]
     n_splits = -(-l // SPLIT)
     partials = torch.empty((b, h, n_splits, d + 2), dtype=torch.float32,
                            device=q.device)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    m_out = l_out = None
+    if stats:
+        m_out, l_out = (torch.empty((b, h), dtype=torch.float32,
+                                    device=q.device) for _ in range(2))
     lib = native.library("decode_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -121,12 +134,48 @@ def fused_single_query_attention(q: torch.Tensor, k_cache: torch.Tensor,
             visible.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            partials.data_ptr(), out.data_ptr(), b, l, h, d, SPLIT,
+            partials.data_ptr(), out.data_ptr(),
+            m_out.data_ptr() if stats else None,
+            l_out.data_ptr() if stats else None, b, l, h, d, SPLIT,
             float(scale), _Q_DTYPES[q.dtype], _CACHE_DTYPES[k_cache.dtype],
             stream)
-    native.check(code, "fused_single_query_attention")
+    native.check(code, "single-query attention")
+    return (out, m_out, l_out) if stats else out
+
+
+def fused_single_query_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, visible: torch.Tensor,
+                                 scale: Optional[float] = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """One decode step's query against a cache window: (B, H, D) f32."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return fused_single_query_attention_plain(
+            q, k_cache, v_cache, visible, scale, k_scale, v_scale)
+    out = _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
+                  stats=False)
     fused_single_query_attention.launches += 1
     return out
 
 
+def fused_single_query_attention_stats(
+        q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+        visible: torch.Tensor, scale: Optional[float] = None,
+        k_scale: Optional[torch.Tensor] = None,
+        v_scale: Optional[torch.Tensor] = None) -> tuple:
+    """One decode step's query against one shard's cache slab, stopped
+    before the normalize: f32 (acc (B, H, D), m (B, H), l (B, H))."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return fused_single_query_attention_stats_plain(
+            q, k_cache, v_cache, visible, scale, k_scale, v_scale)
+    triple = _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
+                     stats=True)
+    fused_single_query_attention_stats.launches += 1
+    return triple
+
+
 fused_single_query_attention.launches = 0
+fused_single_query_attention_stats.launches = 0

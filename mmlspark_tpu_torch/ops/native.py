@@ -53,9 +53,10 @@ SIGNATURES = {
     },
     "decode_attention": {
         # q, k_cache, v_cache, visible, k_scale, v_scale, partials, out,
-        # B, L, H, D, split, scale, q_dtype, cache_dtype, stream
-        "mmlspark_sqa_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _F, _I, _I, _P],
+        # m_out, l_out, B, L, H, D, split, scale, q_dtype, cache_dtype,
+        # stream
+        "mmlspark_sqa_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _F, _I, _I, _P],
     },
 }
 

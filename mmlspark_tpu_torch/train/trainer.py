@@ -103,7 +103,12 @@ class Trainer:
             raise NotImplementedError("pipeline stages are not ported")
         if mesh is not None:
             raise NotImplementedError("meshes are not ported (one card)")
-        config.mesh.resolve()   # raises on a multi-device spec
+        spec = config.mesh
+        if max(spec.data, spec.model, spec.seq) > 1:
+            raise NotImplementedError(
+                f"training over a mesh ({spec}) is not ported: the Trainer "
+                "runs on one card (ROADMAP A10)")
+        spec.resolve(1)   # a malformed spec raises
         if config.step_timeout_s > 0:
             raise NotImplementedError("the hung-step watchdog is not ported")
         if config.halt_on_nonfinite or config.halt_on_divergence:
