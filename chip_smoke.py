@@ -9,7 +9,8 @@ of its long-context configuration, and times kernels and paths.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. card (nvidia-smi name and power limit) and kernel build
+  1. card (nvidia-smi name and power limit) and kernel build; K1's
+     `-Xptxas -v` lines (registers, shared memory, spills: a spill fails)
   2. flash-attention forward K1 vs plain: causal bf16 at S in {512, 1024,
      1984}, one non-causal case, one f32 case
   3. K1 with its log-sum-exp output and q/k offsets vs plain: causal bf16
@@ -48,7 +49,9 @@ Phases (any failure exits non-zero before the result line):
  11. f32 gradient check: every parameter's gradient with the flash
      kernels against the dense-attention model, TF32 off
 
-Kernel and step times come from CUDA events (median after warm-up).
+Kernel and step times come from CUDA events (median after warm-up); each
+timed K1 shape also prints its TFLOP/s, its ratio to the library call of
+the same run and its share of the bound.
 Prints the card line, a JSON line of per-kernel numbers, and last
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
@@ -56,6 +59,7 @@ Prints the card line, a JSON line of per-kernel numbers, and last
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -281,8 +285,8 @@ def phase_flash(dev, card) -> dict:
           f"(CUDA graph): {ms:.4f} ms; "
           f"plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; bound "
           f"{max(bound_f, bound_b):.4f} ms (operations {bound_f:.4f} ms at "
-          f"989 TFLOP/s, bytes {bound_b:.4f} ms at 3.35 TB/s); kernel "
-          f"{flops / ms / 1e9:.1f} TFLOP/s [{card}]")
+          f"989 TFLOP/s, bytes {bound_b:.4f} ms at 3.35 TB/s); "
+          f"{k1_rates(flops, ms, lib_ms, max(bound_f, bound_b))} [{card}]")
     return {"name": "flash_attention", "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
@@ -298,6 +302,43 @@ def attention_bound(flops: float, nbytes: float) -> tuple:
     bound_f, bound_b = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(bound_f, bound_b), ("operations" if bound_f >= bound_b
                                    else "bytes")
+
+
+def k1_rates(flops: float, ms: float, lib_ms: float, bound: float) -> str:
+    """A timed K1 shape's rate, its ratio to the library call of the same
+    run and its share of the bound."""
+    return (f"K1 {flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.2f}x the "
+            f"library call, {bound / ms:.3f} of the bound")
+
+
+def ptxas_report(name: str, prefix: str) -> list:
+    """Registers, static shared memory and spills of each kernel of library
+    `name` whose symbol holds `prefix`, read from the `-Xptxas -v` build
+    log beside the library (`native.build`)."""
+    from mmlspark_tpu_torch.ops import native
+    rows, kernel, spills = [], None, (0, 0)
+    with open(native.library_path(name)[:-3] + ".log") as f:
+        for line in f:
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                kernel = found.group(1)
+                continue
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if found:
+                spills = (int(found.group(1)), int(found.group(2)))
+            found = re.search(r"Used (\d+) registers(.*)", line)
+            if found and kernel and prefix in kernel:
+                smem = re.search(r"(\d+) bytes smem", found.group(2))
+                short = re.search("(" + prefix + r"\w*?)ILi(\d+)E", kernel)
+                rows.append({
+                    "kernel": (f"{short.group(1)}<{short.group(2)}>" if short
+                               else kernel),
+                    "registers": int(found.group(1)),
+                    "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                    "spill_stores": spills[0], "spill_loads": spills[1]})
+                kernel = None
+    return rows
 
 
 def phase_flash_lse(dev, card) -> dict:
@@ -362,7 +403,7 @@ def phase_flash_lse(dev, card) -> dict:
     print(f"timing flash_attention_with_lse (8,2048,8,128) causal bf16, "
           f"device time (CUDA graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; "
           f"aten flash forward with lse {lib_ms:.4f} ms; bound {bound:.4f} "
-          f"ms ({bound_by}); kernel {flops / ms / 1e9:.1f} TFLOP/s [{card}]")
+          f"ms ({bound_by}); {k1_rates(flops, ms, lib_ms, bound)} [{card}]")
     return {"name": "flash_attention[lse]", "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
@@ -897,14 +938,14 @@ def phase_ring_lse(dev, card) -> list:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = graph_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
         qt, kt, vt, 0.0, False))
-    bound, bound_by = attention_bound(4.0 * b * h * 64 * s_l * s_l,
-                                      4.0 * b * s_l * h * 64 * 2
+    flops = 4.0 * b * h * 64 * s_l * s_l
+    bound, bound_by = attention_bound(flops, 4.0 * b * s_l * h * 64 * 2
                                       + b * s_l * h * 4)
     print(f"timing flash_attention_with_lse ({b},{s_l},{h},64) q_offset "
           f"{s_l} k_offset 0 (no key masked) bf16, device time (CUDA "
           f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; aten flash "
           f"forward with lse, non-causal {lib_ms:.4f} ms; bound {bound:.4f} "
-          f"ms ({bound_by}) [{card}]")
+          f"ms ({bound_by}); {k1_rates(flops, ms, lib_ms, bound)} [{card}]")
     entries = [{
         "name": "flash_attention[lse,d64]", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
@@ -931,12 +972,13 @@ def phase_ring_lse(dev, card) -> list:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    bound, bound_by = attention_bound(4.0 * b * h * 64 * (s * (s + 1) / 2),
-                                      4.0 * b * s * h * 64 * 2)
+    flops = 4.0 * b * h * 64 * (s * (s + 1) / 2)
+    bound, bound_by = attention_bound(flops, 4.0 * b * s * h * 64 * 2)
     print(f"timing flash_attention ({b},{s},{h},64) causal bf16, device "
           f"time (CUDA graph): {ms:.4f} ms; "
           f"plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; bound "
-          f"{bound:.4f} ms ({bound_by}) [{card}]")
+          f"{bound:.4f} ms ({bound_by}); "
+          f"{k1_rates(flops, ms, lib_ms, bound)} [{card}]")
     entries.append({
         "name": "flash_attention[d64]", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
@@ -1266,6 +1308,15 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     build_s = native.build()
     print(f"kernel build: {build_s:.1f} s")
+    k1_build = ptxas_report("flash_attention", "flash_fwd")
+    for row in k1_build:
+        print(f"ptxas {row['kernel']}: {row['registers']} registers, "
+              f"{row['static_smem_bytes']} bytes static shared memory, "
+              f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
+              f"stores / loads")
+    require(len(k1_build) == 4 and not any(
+        row["spill_stores"] or row["spill_loads"] for row in k1_build),
+        "K1's build log lacks a kernel or reports spills")
     dev = torch.device("cuda")
     flash = phase_flash(dev, card)
     flash_lse = phase_flash_lse(dev, card)
@@ -1305,14 +1356,14 @@ def main() -> int:
                       "train_path": {k: v for k, v in train.items()
                                      if k != "counts"},
                       "long_context": long_context,
-                      "grad_check": grad_check, "card": card}))
+                      "grad_check": grad_check, "k1_build": k1_build,
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in kernels]}))
-    # the run used one card, whatever the host has
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -156,10 +156,20 @@ def _check_stats(q, do, lse, delta) -> None:
 
 
 def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
-    """Launch K1 on the current stream: (out, lse or None)."""
+    """Launch K1 on the current stream: (out, lse or None).  The bf16
+    kernel reads q, k, v through TMA, which takes 16-byte-aligned tensors
+    only, and folds a positive scale into its base-2 softmax."""
     _check_inputs(q, k, v)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash attention kernel: {name} is not "
+                                 f"16-byte aligned")
+        if not scale > 0:
+            raise ValueError(f"flash attention kernel: bf16 takes a "
+                             f"positive scale, got {scale}")
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = native.library("flash_attention")

@@ -20,13 +20,14 @@ from mmlspark_tpu.ops.attention import (
 from mmlspark_tpu.ops.decode_attention import (
     fused_single_query_attention as jax_fused_single_query_attention)
 from mmlspark_tpu.ops.flash_attention import (
-    flash_attention as jax_flash_attention)
+    flash_attention as jax_flash_attention,
+    flash_attention_with_lse as jax_flash_attention_with_lse)
 from mmlspark_tpu.quant.quantize import quantize_kv as jax_quantize_kv
 from mmlspark_tpu_torch.ops.attention import single_query_attention
 from mmlspark_tpu_torch.ops.decode_attention import (
     fused_single_query_attention, fused_single_query_attention_plain)
-from mmlspark_tpu_torch.ops.flash_attention import (flash_attention,
-                                                    flash_attention_plain)
+from mmlspark_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_plain, flash_attention_with_lse)
 from mmlspark_tpu_torch.quant.quantize import quantize_kv
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -78,6 +79,49 @@ def test_flash_plain_takes_ragged_lengths():
                               causal=True, block_q=64, block_k=64,
                               interpret=True)
     got = flash_attention(*(_torch(x) for x in (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
+
+
+# The edges of the card kernel's tiles (128 query rows, 128 keys): one row
+# and one key past a tile, a single query deep in the sequence, fewer keys
+# than a tile, B = 3, and one K/V tile at head dim 128.  With 64-row blocks
+# the JAX wrappers compute the ragged ones densely and the rest through
+# the interpreted kernel.  (B, Sq, Sk, causal, q_offset, D)
+TILE_EDGES = [(2, 129, 129, True, 0, 128), (2, 1, 640, True, 500, 128),
+              (2, 300, 37, False, 0, 64), (3, 200, 200, True, 0, 64),
+              (2, 128, 128, True, 0, 128), (2, 128, 100, False, 0, 128)]
+
+
+def _edge_qkv(b, sq, sk, d):
+    rng = np.random.default_rng(sq + sk + d)
+    q = rng.standard_normal((b, sq, 2, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, sk, 2, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,d", TILE_EDGES)
+def test_flash_lse_plain_matches_jax_at_tile_edges(b, sq, sk, causal, q_off,
+                                                   d):
+    q, k, v = _edge_qkv(b, sq, sk, d)
+    ref_out, ref_lse = jax_flash_attention_with_lse(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=causal, q_offset=q_off,
+        block_q=64, block_k=64, interpret=True)
+    out, lse = flash_attention_with_lse(*(_torch(x) for x in (q, k, v)),
+                                        causal, None, q_off)
+    assert out.shape == (b, sq, 2, d) and lse.shape == (b, sq, 2)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **F32_TOL)
+
+
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,d", TILE_EDGES)
+def test_flash_plain_matches_jax_at_tile_edges(b, sq, sk, causal, q_off, d):
+    """The same shapes without lse (and so without offsets)."""
+    q, k, v = _edge_qkv(b, sq, sk, d)
+    ref = jax_flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                              causal=causal, block_q=64, block_k=64,
+                              interpret=True)
+    got = flash_attention(*(_torch(x) for x in (q, k, v)), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
 
 

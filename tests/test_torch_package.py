@@ -356,6 +356,63 @@ def test_flash_lse_kernel_matches_plain(cuda, sq, sk, causal, q_off, k_off,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,d", [
+    (2, 129, 129, True, 0, 128),    # one row and one key past a tile
+    (2, 1, 640, True, 500, 128),    # one query (q_offset with lse only)
+    (2, 300, 37, False, 0, 64),     # fewer keys than a tile
+    (3, 200, 200, True, 0, 64),
+    (2, 128, 128, True, 0, 128),    # one K/V tile: S's registers feed P V
+    (2, 128, 100, False, 0, 128)])
+def test_flash_kernel_at_tile_edges(cuda, b, sq, sk, causal, q_off, d,
+                                    with_lse):
+    """K1 and K1[lse] against plain at the edges of the bf16 kernel's
+    128-row query tiles and 128-key K/V tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, 8, d), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, sk, 8, d), generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    counter = flash_attention_with_lse if with_lse else flash_attention
+    before = counter.launches
+    if with_lse:
+        out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off)
+        ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, causal,
+                                                          None, q_off)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
+        ref_out = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    _assert_out_norm_close(out, ref_out, torch.bfloat16)
+    if with_lse:
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_misaligned_tensors(cuda):
+    """TMA reads 16-byte-aligned tensors only: a view that starts 2 bytes
+    into its storage raises ValueError, and no kernel launches."""
+    shape = (2, 64, 8, 128)
+    n = int(np.prod(shape))
+    good = torch.randn(shape, device=cuda).to(torch.bfloat16)
+    bad = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)[1:n + 1]
+    bad = bad.view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+    before = (flash_attention.launches, flash_attention_with_lse.launches)
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention(*args, causal=True)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_with_lse(*args, True)
+    assert (flash_attention.launches,
+            flash_attention_with_lse.launches) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sq,sk,causal,q_off,k_off,dtype,d", [
     (512, 512, True, 0, 0, torch.bfloat16, 128),
     (1000, 1000, True, 0, 0, torch.bfloat16, 128),
