@@ -9,16 +9,20 @@ of its long-context configuration, and times kernels and paths.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. card (nvidia-smi name and power limit) and kernel build; K1's
-     `-Xptxas -v` lines (registers, shared memory, spills: a spill fails)
+  1. card (nvidia-smi name and power limit) and kernel build; K1's, K2's
+     and K3's `-Xptxas -v` lines (registers, shared memory, spills: a
+     spill in a bf16 kernel fails)
   2. flash-attention forward K1 vs plain: causal bf16 at S in {512, 1024,
      1984}, one non-causal case, one f32 case
   3. K1 with its log-sum-exp output and q/k offsets vs plain: causal bf16
      at S in {512, 2048, 1000}, q_offset 512, k_offset > q_offset (fully
      masked rows), one f32 case; out and lse compared
   4. flash backward K2 (dQ) and K3 (dK/dV) vs plain: causal bf16 at S in
-     {512, 2048, 1000}, non-causal Sq 768 / Sk 1280, offsets, f32; and
-     `torch.autograd.grad` through `flash_attention` vs plain autograd
+     {512, 2048, 1000, 129}, non-causal Sq 768 / Sk 1280, offsets, head
+     dim 64 at S 2048, f32; a second launch at S 2048 bitwise equal to the
+     first; `torch.autograd.grad` through `flash_attention` vs plain
+     autograd; K2 and K3 timed with their TFLOP/s, ratio to the library
+     pair and share of the bound
   5. single-query decode kernel K4 vs plain: bf16 and int8 caches at
      L in {128, 1152, 2048}, the engine's mask layout, a fully masked row
   6. the serving path at full width (TransformerLM vocab 8192, d_model
@@ -417,25 +421,8 @@ def phase_backward(dev, card) -> list:
         flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
     gen = torch.Generator(device=dev).manual_seed(3)
 
-    def rand(b, s, dtype):
-        return torch.randn((b, s, 8, 128), generator=gen, device=dev).to(dtype)
-
-    def inputs(b, sq, sk, causal, q_off, k_off, dtype):
-        q, do = rand(b, sq, dtype), rand(b, sq, dtype)
-        k, v = rand(b, sk, dtype), rand(b, sk, dtype)
-        out, lse = flash_attention_with_lse_plain(q, k, v, causal, None,
-                                                  q_off, k_off)
-        delta = (do.float() * out.float()).sum(-1)
-        return q, k, v, do, lse, delta
-
-    def grad_errs(got, ref):
-        """(max|d|/max|ref|, ||d||_F/||ref||_F).  The first is loose at
-        bf16 (the first rows' gradients are far larger than a late row's,
-        so its limit exceeds a late entry); the norm-relative error sees a
-        tile of keys or queries dropped or counted twice."""
-        d, r = got.float() - ref.float(), ref.float()
-        return (d.abs().max() / r.abs().max()).item(), (d.norm()
-                                                        / r.norm()).item()
+    def rand(b, s, dtype, d=128):
+        return torch.randn((b, s, 8, d), generator=gen, device=dev).to(dtype)
 
     def check_grads(what, got, ref, dtype):
         # bf16: max 2e-2 and norm 1e-2 of the reference; f32: 1e-4 both
@@ -449,24 +436,37 @@ def phase_backward(dev, card) -> list:
         require(all(m <= max_tol and n <= norm_tol for m, n in errs_),
                 f"{what} disagrees")
 
-    # (B, Sq, Sk, causal, q_offset, k_offset, dtype)
-    cases = [(2, 512, 512, True, 0, 0, torch.bfloat16),
-             (2, 2048, 2048, True, 0, 0, torch.bfloat16),
-             (2, 1000, 1000, True, 0, 0, torch.bfloat16),
-             (2, 768, 1280, False, 0, 0, torch.bfloat16),
-             (2, 512, 512, True, 512, 256, torch.bfloat16),
-             (2, 700, 700, True, 0, 0, torch.float32)]
+    # (B, Sq, Sk, causal, q_offset, k_offset, dtype, head dim)
+    cases = [(2, 512, 512, True, 0, 0, torch.bfloat16, 128),
+             (2, 2048, 2048, True, 0, 0, torch.bfloat16, 128),
+             (2, 1000, 1000, True, 0, 0, torch.bfloat16, 128),
+             (2, 768, 1280, False, 0, 0, torch.bfloat16, 128),
+             (2, 512, 512, True, 512, 256, torch.bfloat16, 128),
+             (2, 129, 129, True, 0, 0, torch.bfloat16, 128),
+             (2, 2048, 2048, True, 0, 0, torch.bfloat16, 64),
+             (2, 700, 700, True, 0, 0, torch.float32, 128)]
     errs = {"dq": 0.0, "dkv": 0.0}
-    scale = 128 ** -0.5
-    for b, sq, sk, causal, q_off, k_off, dtype in cases:
-        args = inputs(b, sq, sk, causal, q_off, k_off, dtype)
+    for b, sq, sk, causal, q_off, k_off, dtype, d in cases:
+        scale = d ** -0.5
+        args = backward_inputs(gen, b, sq, sk, causal, q_off, k_off, dtype,
+                               d)
         dq = flash_bwd_dq(*args, causal, scale, q_off, k_off)
         dk, dv = flash_bwd_dkv(*args, causal, scale, q_off, k_off)
         torch.cuda.synchronize()
         ref = flash_block_grads_plain(*args, causal, scale, q_off, k_off)
-        check_grads(f"flash backward B={b} Sq={sq} Sk={sk} causal={causal} "
-                    f"offsets {q_off}/{k_off} {dtype}", (dq, dk, dv), ref,
-                    dtype)
+        check_grads(f"flash backward B={b} Sq={sq} Sk={sk} D={d} "
+                    f"causal={causal} offsets {q_off}/{k_off} {dtype}",
+                    (dq, dk, dv), ref, dtype)
+        if dtype == torch.bfloat16 and sq == 2048:
+            # one writer per output, no atomics: a second launch on the
+            # same inputs gives the same bits
+            again = (flash_bwd_dq(*args, causal, scale, q_off, k_off),
+                     *flash_bwd_dkv(*args, causal, scale, q_off, k_off))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, r)
+                       for a, r in zip(again, (dq, dk, dv)))
+            print(f"flash backward D={d} repeat: bitwise equal {same}")
+            require(same, f"two backward launches differ at D={d}")
         if dtype == torch.bfloat16:
             errs["dq"] = max(errs["dq"], (dq.float() - ref[0].float()).abs()
                              .max().item())
@@ -487,15 +487,62 @@ def phase_backward(dev, card) -> list:
         check_grads(f"autograd through flash_attention S={s} {dtype} vs "
                     f"plain autograd", got, ref, dtype)
 
-    # timing at the training shape: every block's backward
-    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 8, 128
-    args = inputs(b, s, s, True, 0, 0, torch.bfloat16)
+    # timing at the training shape: every block's backward; head dim 64
+    # (the long-context width) printed beside it
+    timed = time_backward(card, gen, 128)
+    time_backward(card, gen, 64)
+    entries = []
+    for name, err in (("flash_bwd_dq", errs["dq"]),
+                      ("flash_bwd_dkv", errs["dkv"])):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
+            "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
+                         if name == "flash_bwd_dq" else
+                         "mmlspark_tpu/ops/flash_attention.py:330"),
+            "max_abs_err": err, **timed[name]})
+    return entries
+
+
+def backward_inputs(gen, b, sq, sk, causal, q_off, k_off, dtype, d=128):
+    """q, k, v, dout (B, S, 8, d) from `gen`, and the plain forward's lse
+    and delta = rowsum(dout * out)."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse_plain)
+
+    def rand(s):
+        return torch.randn((b, s, 8, d), generator=gen,
+                           device=gen.device).to(dtype)
+    q, do, k, v = rand(sq), rand(sq), rand(sk), rand(sk)
+    out, lse = flash_attention_with_lse_plain(q, k, v, causal, None, q_off,
+                                              k_off)
+    return q, k, v, do, lse, (do.float() * out.float()).sum(-1)
+
+
+def grad_errs(got, ref) -> tuple:
+    """(max|d|/max|ref|, ||d||_F/||ref||_F).  The first is loose at bf16
+    (the first rows' gradients are far larger than a late row's, so its
+    limit exceeds a late entry); the norm-relative error sees a tile of
+    keys or queries dropped or counted twice."""
+    d, r = got.float() - ref.float(), ref.float()
+    return (d.abs().max() / r.abs().max()).item(), (d.norm()
+                                                    / r.norm()).item()
+
+
+def time_backward(card, gen, d: int) -> dict:
+    """K2 and K3 at (8, 2048, 8, d) causal bf16 against the plain version
+    and the library's backward pair (PyTorch's flash backward on its own
+    forward's saved outputs), all from CUDA graphs: per kernel its ms,
+    plain_ms, bound_ms, bound_by and library_ms (the pair)."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
+    b, s, h = TRAIN_BATCH, TRAIN_SEQ, 8
+    scale = d ** -0.5
+    args = backward_inputs(gen, b, s, s, True, 0, 0, torch.bfloat16, d)
     dq_ms = graph_ms(lambda: flash_bwd_dq(*args, True, scale))
     dkv_ms = graph_ms(lambda: flash_bwd_dkv(*args, True, scale))
     plain_ms = graph_ms(lambda: flash_block_grads_plain(*args, True, scale),
                         calls=3)
-    # the library yardstick: PyTorch's flash backward on its own forward's
-    # saved outputs, timed the same way as the kernels (CUDA graph)
     q, k, v, do = (t.transpose(1, 2) for t in args[:4])
     saved = torch.ops.aten._scaled_dot_product_flash_attention(
         q, k, v, 0.0, True, scale=scale)
@@ -509,34 +556,33 @@ def phase_backward(dev, card) -> list:
     torch.cuda.synchronize()
     ref_dq = flash_block_grads_plain(*args, True, scale)[0]
     lib_err = grad_errs(lib_dq, ref_dq)[1]
-    print(f"aten flash backward dq vs plain: ||d||/||ref|| {lib_err:.3e}")
+    print(f"aten flash backward D={d} dq vs plain: ||d||/||ref|| "
+          f"{lib_err:.3e}")
     require(lib_err <= 1e-2, "the library backward is not the same function")
     sdpa_bwd_ms = graph_ms(sdpa_backward)
     del saved, out, lse, lib_dq, ref_dq
     tri = s * (s + 1) / 2
     io = 4.0 * b * s * h * d * 2 + 2.0 * b * s * h * 4  # q, k, v, dO; lse, delta
-    entries = []
-    for name, ms, products, outs, err in (
-            ("flash_bwd_dq", dq_ms, 3, 1, errs["dq"]),
-            ("flash_bwd_dkv", dkv_ms, 4, 2, errs["dkv"])):
+    timed = {}
+    for name, ms, products, outs in (("flash_bwd_dq", dq_ms, 3, 1),
+                                     ("flash_bwd_dkv", dkv_ms, 4, 2)):
         flops = products * 2.0 * b * h * d * tri
         bound, bound_by = attention_bound(flops, io + outs * b * s * h * d * 2)
-        print(f"timing {name} (8,2048,8,128) causal bf16, device time (CUDA "
+        print(f"timing {name} (8,2048,8,{d}) causal bf16, device time (CUDA "
               f"graph): {ms:.4f} ms; plain (dq, dk, dv together) "
               f"{plain_ms:.4f} ms; aten flash backward (pair, CUDA graph) "
               f"{sdpa_bwd_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}); "
-              f"kernel {flops / ms / 1e9:.1f} TFLOP/s [{card}]")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
-            "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
-                         if name == "flash_bwd_dq" else
-                         "mmlspark_tpu/ops/flash_attention.py:330"),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": sdpa_bwd_ms})
-    return entries
-
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / sdpa_bwd_ms:.2f}x the "
+              f"library pair, {bound / ms:.3f} of the bound [{card}]")
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": sdpa_bwd_ms}
+    pair_bound = sum(t["bound_ms"] for t in timed.values())
+    print(f"timing K2 + K3 (8,2048,8,{d}) causal bf16: {dq_ms + dkv_ms:.4f} "
+          f"ms, {(dq_ms + dkv_ms) / sdpa_bwd_ms:.2f}x the library pair, "
+          f"{pair_bound / (dq_ms + dkv_ms):.3f} of the bound [{card}]")
+    del args
+    torch.cuda.empty_cache()
+    return timed
 
 
 def phase_decode(dev, card) -> list:
@@ -1309,7 +1355,8 @@ def main() -> int:
     build_s = native.build()
     print(f"kernel build: {build_s:.1f} s")
     k1_build = ptxas_report("flash_attention", "flash_fwd")
-    for row in k1_build:
+    bwd_build = ptxas_report("flash_backward", "flash_bwd")
+    for row in k1_build + bwd_build:
         print(f"ptxas {row['kernel']}: {row['registers']} registers, "
               f"{row['static_smem_bytes']} bytes static shared memory, "
               f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
@@ -1317,6 +1364,10 @@ def main() -> int:
     require(len(k1_build) == 4 and not any(
         row["spill_stores"] or row["spill_loads"] for row in k1_build),
         "K1's build log lacks a kernel or reports spills")
+    require(len(bwd_build) == 8 and not any(
+        row["spill_stores"] or row["spill_loads"] for row in bwd_build
+        if "bf16" in row["kernel"]),
+        "K2/K3's build log lacks a kernel or reports spills in a bf16 kernel")
     dev = torch.device("cuda")
     flash = phase_flash(dev, card)
     flash_lse = phase_flash_lse(dev, card)
@@ -1357,6 +1408,7 @@ def main() -> int:
                                      if k != "counts"},
                       "long_context": long_context,
                       "grad_check": grad_check, "k1_build": k1_build,
+                      "bwd_build": bwd_build,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

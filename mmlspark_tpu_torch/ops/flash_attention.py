@@ -155,6 +155,24 @@ def _check_stats(q, do, lse, delta) -> None:
         raise ValueError("q, dout, lse, delta must be on one device")
 
 
+def _check_backward(q, k, v, do, lse, delta) -> None:
+    """K2 and K3's inputs; at bf16 the kernels read q, k, v and dout
+    through TMA."""
+    _check_inputs(q, k, v)
+    _check_stats(q, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v, dout=do)
+
+
+def _check_aligned(**tensors) -> None:
+    """The bf16 kernels read their inputs through TMA, which takes
+    16-byte-aligned tensors only: raise for any other."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention kernel: {name} is not "
+                             f"16-byte aligned")
+
+
 def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
     """Launch K1 on the current stream: (out, lse or None).  The bf16
     kernel reads q, k, v through TMA, which takes 16-byte-aligned tensors
@@ -163,10 +181,7 @@ def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash attention kernel: {name} is not "
-                                 f"16-byte aligned")
+        _check_aligned(q=q, k=k, v=v, out=out)
         if not scale > 0:
             raise ValueError(f"flash attention kernel: bf16 takes a "
                              f"positive scale, got {scale}")
@@ -207,8 +222,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
     if q.device.type == "cpu":
         return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
                                        scale, q_offset, k_offset)[0]
-    _check_inputs(q, k, v)
-    _check_stats(q, do, lse, delta)
+    _check_backward(q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
     lib = native.library("flash_backward")
@@ -230,8 +244,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
     if q.device.type == "cpu":
         return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
                                        scale, q_offset, k_offset)[1:]
-    _check_inputs(q, k, v)
-    _check_stats(q, do, lse, delta)
+    _check_backward(q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = native.library("flash_backward")

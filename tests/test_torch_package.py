@@ -412,25 +412,40 @@ def test_flash_kernel_refuses_misaligned_tensors(cuda):
             flash_attention_with_lse.launches) == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,causal,q_off,k_off,dtype,d", [
-    (512, 512, True, 0, 0, torch.bfloat16, 128),
-    (1000, 1000, True, 0, 0, torch.bfloat16, 128),
-    (768, 1280, False, 0, 0, torch.bfloat16, 128),
-    (512, 512, True, 512, 256, torch.bfloat16, 128),
-    (256, 256, True, 0, 100, torch.bfloat16, 64),
-    (700, 700, True, 0, 0, torch.float32, 128)])
-def test_flash_backward_kernels_match_plain(cuda, sq, sk, causal, q_off,
-                                            k_off, dtype, d):
-    gen = torch.Generator(device=cuda).manual_seed(sq + sk + q_off)
-    q, do = (torch.randn((2, sq, 8, d), generator=gen, device=cuda).to(dtype)
+def _backward_inputs(cuda, b, sq, sk, causal, q_off, k_off, dtype, d):
+    """q, k, v, dout from a seed, and the forward's lse and delta (plain)."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + q_off + b + d)
+    q, do = (torch.randn((b, sq, 8, d), generator=gen, device=cuda).to(dtype)
              for _ in range(2))
-    k, v = (torch.randn((2, sk, 8, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, 8, d), generator=gen, device=cuda).to(dtype)
             for _ in range(2))
+    out, lse = flash_attention_with_lse_plain(q, k, v, causal, d ** -0.5,
+                                              q_off, k_off)
+    return q, k, v, do, lse, (do.float() * out.float()).sum(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off,dtype,d", [
+    (2, 512, 512, True, 0, 0, torch.bfloat16, 128),
+    (2, 1000, 1000, True, 0, 0, torch.bfloat16, 128),
+    (2, 768, 1280, False, 0, 0, torch.bfloat16, 128),
+    (2, 512, 512, True, 512, 256, torch.bfloat16, 128),
+    (2, 256, 256, True, 0, 100, torch.bfloat16, 64),
+    (2, 700, 700, True, 0, 0, torch.float32, 128),
+    # the edges of the bf16 kernels' 128-row owned and 64-row walked tiles
+    (2, 129, 129, True, 0, 0, torch.bfloat16, 128),
+    (2, 1, 640, True, 500, 0, torch.bfloat16, 128),   # one query row
+    (2, 300, 37, False, 0, 0, torch.bfloat16, 64),    # fewer keys than a tile
+    (3, 200, 200, True, 0, 0, torch.bfloat16, 64),
+    (2, 128, 128, True, 0, 0, torch.bfloat16, 128),   # one key tile of K3
+    (2, 200, 60, False, 0, 0, torch.bfloat16, 128),   # one key tile of K2
+    # rows 0-99 of the first 128-row tile see no key: lse NEG_INF
+    (2, 256, 256, True, 0, 100, torch.bfloat16, 128)])
+def test_flash_backward_kernels_match_plain(cuda, b, sq, sk, causal, q_off,
+                                            k_off, dtype, d):
+    q, k, v, do, lse, delta = _backward_inputs(cuda, b, sq, sk, causal,
+                                               q_off, k_off, dtype, d)
     scale = d ** -0.5
-    out, lse = flash_attention_with_lse_plain(q, k, v, causal, scale, q_off,
-                                              k_off)
-    delta = (do.float() * out.float()).sum(-1)
     before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, q_off, k_off)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_off,
@@ -443,6 +458,44 @@ def test_flash_backward_kernels_match_plain(cuda, sq, sk, causal, q_off,
     for got, ref in zip((dq, dk, dv), refs):
         assert got.dtype == dtype and got.shape == ref.shape
         _assert_grad_close(got, ref, dtype)
+    if k_off > q_off:
+        assert torch.count_nonzero(dq[:, :k_off - q_off]) == 0
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_misaligned_tensors(cuda):
+    """K2 and K3 read q, k, v and dout through TMA: a view that starts 2
+    bytes into its storage raises ValueError, and no kernel launches."""
+    shape = (2, 64, 8, 128)
+    n = int(np.prod(shape))
+    args = list(_backward_inputs(cuda, 2, 64, 64, True, 0, 0,
+                                 torch.bfloat16, 128))
+    bad = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)[1:n + 1]
+    bad = bad.view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    for i, name in enumerate(("q", "k", "v", "dout")):
+        call = args[:i] + [bad] + args[i + 1:]
+        for kernel in (flash_bwd_dq, flash_bwd_dkv):
+            with pytest.raises(ValueError, match=f"{name} is not 16-byte"):
+                kernel(*call, True, 128 ** -0.5)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_kernels_are_deterministic(cuda, d):
+    """One writer per output and no atomics: two launches on the same
+    inputs give bitwise-equal dq, dk and dv."""
+    args = _backward_inputs(cuda, 2, 1000, 1000, True, 0, 0, torch.bfloat16,
+                            d)
+    first = (flash_bwd_dq(*args, True, d ** -0.5),
+             *flash_bwd_dkv(*args, True, d ** -0.5))
+    second = (flash_bwd_dq(*args, True, d ** -0.5),
+              *flash_bwd_dkv(*args, True, d ** -0.5))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
