@@ -9,9 +9,9 @@ of its long-context configuration, and times kernels and paths.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. card (nvidia-smi name and power limit) and kernel build; K1's, K2's
-     and K3's `-Xptxas -v` lines (registers, shared memory, spills: a
-     spill in a bf16 kernel fails)
+  1. card (nvidia-smi name and power limit) and kernel build; K1's, K2's,
+     K3's and K4's `-Xptxas -v` lines (registers, shared memory, spills: a
+     spill in a bf16 kernel, or in any K4 kernel, fails)
   2. flash-attention forward K1 vs plain: causal bf16 at S in {512, 1024,
      1984}, one non-causal case, one f32 case
   3. K1 with its log-sum-exp output and q/k offsets vs plain: causal bf16
@@ -24,7 +24,10 @@ Phases (any failure exits non-zero before the result line):
      autograd; K2 and K3 timed with their TFLOP/s, ratio to the library
      pair and share of the bound
   5. single-query decode kernel K4 vs plain: bf16 and int8 caches at
-     L in {128, 1152, 2048}, the engine's mask layout, a fully masked row
+     L in {128, 1152, 2048}, the engine's mask layout, a fully masked row;
+     at the timed shape two calls bitwise equal and a CUDA graph replayed
+     twice equal to an eager call (the in-launch span merge resets its
+     arrival counters)
   6. the serving path at full width (TransformerLM vocab 8192, d_model
      1024, 8 heads, 4 layers, max_len 2048, bf16, seeded random weights):
      8 ragged prompts, 64 greedy tokens, model-dtype and int8 KV caches;
@@ -38,7 +41,9 @@ Phases (any failure exits non-zero before the result line):
   8. the stats entry of the decode kernel, K4[stats], vs plain: bf16 and
      int8 caches (f32 q), head dims 64 and 128, the long-context slab
      (2, 4224, 8, 64) and a window not a multiple of SPLIT, a fully masked
-     row giving exactly m = NEG_INF, l = 0, acc = 0; K4 at head dim 64
+     row giving exactly m = NEG_INF, l = 0, acc = 0; K4 at head dim 64;
+     the repeat and graph checks of phase 5 at the slab and at K4's
+     (2, 8448, 8, 64)
   9. K1[lse] at head dim 64 vs plain on the ring prefill's (shard, block)
      pairs (2, 4096, 8, 64) with q/k offsets 0/0, 4096/0, 4096/4096; K1
      at head dim 64 over (2, 8192, 8, 64); bf16 outputs held to a
@@ -170,6 +175,34 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
         for _ in range(calls):
             fn()
     return cuda_ms(graph.replay, warmup=1, reps=reps) / calls
+
+
+def repeat_and_graph_check(fn, what: str) -> None:
+    """Two eager calls of `fn` bitwise equal, and a CUDA graph of one call
+    replayed twice equal to them (outputs zeroed before each replay)."""
+    def parts(x):
+        return x if isinstance(x, tuple) else (x,)
+    first, second = parts(fn()), parts(fn())
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(first, second)),
+            f"{what}: two calls on the same inputs differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = parts(fn())
+    for _ in range(2):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(first, captured)),
+                f"{what}: a CUDA graph replay differs from an eager call")
+    print(f"{what}: two calls bitwise equal; a CUDA graph replayed twice "
+          f"equals them")
 
 
 GEMM_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
@@ -315,6 +348,35 @@ def k1_rates(flops: float, ms: float, lib_ms: float, bound: float) -> str:
             f"library call, {bound / ms:.3f} of the bound")
 
 
+MANGLED_TYPES = (("13__nv_bfloat16", "bf16"), ("f", "f32"), ("a", "int8"))
+
+
+def short_kernel_name(mangled: str, prefix: str) -> str:
+    """`flash_fwd_bf16<128>` for a kernel templated on its head dim;
+    `sqa_forward<q bf16, cache int8, 64>` for the decode kernels, whose
+    template names the q and cache types (a repeated type is a mangling
+    back-reference, S<n>_); else the mangled name."""
+    found = re.search("(" + prefix + r"\w*?)ILi(\d+)E", mangled)
+    if found:
+        return f"{found.group(1)}<{found.group(2)}>"
+    found = re.search("(" + prefix + r"\w*?)I(\w+?)Li(\d+)ELb", mangled)
+    if not found:
+        return mangled
+    types, rest = [], found.group(2)
+    while rest:
+        back = re.match(r"S\w*?_", rest)
+        if back:
+            types.append(types[-1])
+            rest = rest[back.end():]
+            continue
+        code, word = next(((c, w) for c, w in MANGLED_TYPES
+                           if rest.startswith(c)), (rest, rest))
+        types.append(word)
+        rest = rest[len(code):]
+    return (f"{found.group(1)}<q {types[0]}, cache {types[-1]}, "
+            f"{found.group(3)}>")
+
+
 def ptxas_report(name: str, prefix: str) -> list:
     """Registers, static shared memory and spills of each kernel of library
     `name` whose symbol holds `prefix`, read from the `-Xptxas -v` build
@@ -334,10 +396,8 @@ def ptxas_report(name: str, prefix: str) -> list:
             found = re.search(r"Used (\d+) registers(.*)", line)
             if found and kernel and prefix in kernel:
                 smem = re.search(r"(\d+) bytes smem", found.group(2))
-                short = re.search("(" + prefix + r"\w*?)ILi(\d+)E", kernel)
                 rows.append({
-                    "kernel": (f"{short.group(1)}<{short.group(2)}>" if short
-                               else kernel),
+                    "kernel": short_kernel_name(kernel, prefix),
                     "registers": int(found.group(1)),
                     "static_smem_bytes": int(smem.group(1)) if smem else 0,
                     "spill_stores": spills[0], "spill_loads": spills[1]})
@@ -587,7 +647,8 @@ def time_backward(card, gen, d: int) -> dict:
 
 def phase_decode(dev, card) -> list:
     from mmlspark_tpu_torch.ops.decode_attention import (
-        fused_single_query_attention, fused_single_query_attention_plain)
+        _sm_count, _span_plan, fused_single_query_attention,
+        fused_single_query_attention_plain)
     from mmlspark_tpu_torch.quant.quantize import quantize_kv
     gen = torch.Generator(device=dev).manual_seed(1)
     b, h, d = 8, 8, 128
@@ -634,10 +695,13 @@ def phase_decode(dev, card) -> list:
     n_visible = int(visible.sum().item())
     (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
     entries = []
+    span, n_spans = _span_plan(window, b * h, _sm_count(q.device))
     for kind, kc, vc, kw in (("model", k, v, {}),
                              ("int8", kq, vq, dict(k_scale=ks, v_scale=vs))):
         def call():
             return fused_single_query_attention(q, kc, vc, visible, **kw)
+        repeat_and_graph_check(call, f"fused_single_query_attention "
+                                     f"(8,1152,8,128) cache={kind}")
         ms = graph_ms(call)
         call_ms = cuda_ms(call)
         plain_ms = graph_ms(lambda: fused_single_query_attention_plain(
@@ -660,11 +724,13 @@ def phase_decode(dev, card) -> list:
         bound_b = nbytes / PEAK_BYTES * 1e3
         bound_f = flops / PEAK_F32_FLOPS * 1e3
         print(f"timing fused_single_query_attention (8,1152,8,128) "
-              f"cache={kind}, device time (CUDA graph): {ms:.4f} ms "
+              f"cache={kind}, {n_spans} spans of {span} slots, device time "
+              f"(CUDA graph): {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s); one eager call incl. host "
               f"launch {call_ms:.4f} ms; plain {plain_ms:.4f} ms; SDPA "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
-              f"{max(bound_b, bound_f):.4f} ms [{card}]")
+              f"{max(bound_b, bound_f):.4f} ms, "
+              f"{max(bound_b, bound_f) / ms:.3f} of it [{card}]")
         entries.append({
             "name": ("fused_single_query_attention" if kind == "model"
                      else "fused_single_query_attention[int8]"),
@@ -819,7 +885,7 @@ def phase_decode_stats(dev, card) -> list:
     the seq=1 engine's window (2, 8448, 8, 64)."""
     from mmlspark_tpu_torch.ops.attention import NEG_INF
     from mmlspark_tpu_torch.ops.decode_attention import (
-        SPLIT, fused_single_query_attention,
+        SPLIT, _sm_count, _span_plan, fused_single_query_attention,
         fused_single_query_attention_plain,
         fused_single_query_attention_stats,
         fused_single_query_attention_stats_plain)
@@ -878,6 +944,12 @@ def phase_decode_stats(dev, card) -> list:
     entries = []
     for kind in ("model", "int8"):
         q, k, v, visible, kw = inputs(slab, 64, kind, full=True)
+        span, n_spans = _span_plan(slab, b * h, _sm_count(q.device))
+        repeat_and_graph_check(
+            lambda: fused_single_query_attention_stats(q, k, v, visible,
+                                                       **kw),
+            f"fused_single_query_attention_stats ({b},{slab},{h},64) "
+            f"cache={kind}")
         ms = graph_ms(lambda: fused_single_query_attention_stats(
             q, k, v, visible, **kw))
         plain_ms = graph_ms(lambda: fused_single_query_attention_stats_plain(
@@ -885,10 +957,11 @@ def phase_decode_stats(dev, card) -> list:
         bound, bound_by = stats_bound(b, h, 64, int(visible.sum().item()),
                                       slab, k.element_size(), kind == "int8")
         print(f"timing fused_single_query_attention_stats ({b},{slab},{h},64)"
-              f" cache={kind}, every slot visible, device time (CUDA graph):"
-              f" {ms:.4f} ms; plain {plain_ms:.4f} ms; library none (no "
-              f"PyTorch call returns the unnormalized triple); bound "
-              f"{bound:.4f} ms ({bound_by}) [{card}]")
+              f" cache={kind}, every slot visible, {n_spans} spans of {span}"
+              f" slots, device time (CUDA graph): {ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; library none (no PyTorch call returns "
+              f"the unnormalized triple); bound {bound:.4f} ms ({bound_by}),"
+              f" {bound / ms:.3f} of it [{card}]")
         entries.append({
             "name": ("fused_single_query_attention_stats" if kind == "model"
                      else "fused_single_query_attention_stats[int8]"),
@@ -911,6 +984,10 @@ def phase_decode_stats(dev, card) -> list:
     err = (got - fused_single_query_attention_plain(q, k, v, visible)
            ).abs().max().item()
     require(err <= 2e-3, "decode kernel disagrees at head dim 64")
+    repeat_and_graph_check(
+        lambda: fused_single_query_attention(q, k, v, visible),
+        f"fused_single_query_attention ({b},{window},{h},64)")
+    span, n_spans = _span_plan(window, b * h, _sm_count(q.device))
     ms = graph_ms(lambda: fused_single_query_attention(q, k, v, visible))
     plain_ms = graph_ms(lambda: fused_single_query_attention_plain(
         q, k, v, visible))
@@ -920,9 +997,11 @@ def phase_decode_stats(dev, card) -> list:
     bound, bound_by = stats_bound(b, h, 64, int(visible.sum().item()),
                                   window, 2, False)
     print(f"fused_single_query_attention ({b},{window},{h},64) bf16 cache: "
-          f"max_abs_err={err:.3e} (tol 2e-3); device time (CUDA graph) "
-          f"{ms:.4f} ms; plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; "
-          f"bound {bound:.4f} ms ({bound_by}) [{card}]")
+          f"max_abs_err={err:.3e} (tol 2e-3); {n_spans} spans of {span} "
+          f"slots; device time (CUDA graph) {ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); "
+          f"bound {bound:.4f} ms ({bound_by}), {bound / ms:.3f} of it "
+          f"[{card}]")
     entries.append({
         "name": "fused_single_query_attention[d64]", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/decode_attention.cu",
@@ -1356,7 +1435,8 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s")
     k1_build = ptxas_report("flash_attention", "flash_fwd")
     bwd_build = ptxas_report("flash_backward", "flash_bwd")
-    for row in k1_build + bwd_build:
+    k4_build = ptxas_report("decode_attention", "sqa_")
+    for row in k1_build + bwd_build + k4_build:
         print(f"ptxas {row['kernel']}: {row['registers']} registers, "
               f"{row['static_smem_bytes']} bytes static shared memory, "
               f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
@@ -1368,6 +1448,9 @@ def main() -> int:
         row["spill_stores"] or row["spill_loads"] for row in bwd_build
         if "bf16" in row["kernel"]),
         "K2/K3's build log lacks a kernel or reports spills in a bf16 kernel")
+    require(len(k4_build) == 12 and not any(
+        row["spill_stores"] or row["spill_loads"] for row in k4_build),
+        "K4's build log lacks a kernel or reports spills")
     dev = torch.device("cuda")
     flash = phase_flash(dev, card)
     flash_lse = phase_flash_lse(dev, card)
@@ -1408,7 +1491,7 @@ def main() -> int:
                                      if k != "counts"},
                       "long_context": long_context,
                       "grad_check": grad_check, "k1_build": k1_build,
-                      "bwd_build": bwd_build,
+                      "bwd_build": bwd_build, "k4_build": k4_build,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

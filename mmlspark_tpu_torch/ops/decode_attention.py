@@ -16,10 +16,14 @@ out.  K's scale multiplies the score after QK^T and V's folds into the
 softmax weight before PV, so the read streams only the int8 bytes.  A row
 whose every slot is masked returns zeros, like the Pallas kernel.
 
-The kernel splits the window into `SPLIT`-slot spans, one CTA per (row,
-head, span), and merges the spans' online-softmax triples in a second
-small kernel (flash-decoding).  Any window length works: the last span is
-masked.
+The kernel cuts the window into spans, one CTA per (row, head, span),
+and merges the spans' online-softmax triples in the same launch: the CTA
+that finishes last for a (row, head) merges them in span order
+(flash-decoding in one kernel).  `_span_plan` sizes the spans from the
+window and the card's SM count; any window length works (the last span
+is short).  The merge's scratch: per-call partials, and per-(row, head)
+arrival counters that the kernel leaves zero, held once per (device,
+stream) so that launches that may overlap never share them.
 
 Both wrappers run their plain version for CPU tensors only; for CUDA
 tensors they launch the kernel or raise.  Each counts its own launches
@@ -36,11 +40,54 @@ import torch
 from mmlspark_tpu_torch.ops import native
 from mmlspark_tpu_torch.ops.attention import single_query_attention_stats
 
-SPLIT = 64  # cache slots per CTA
+SPLIT = 64        # slot step: every span is a multiple of it
+MAX_SPANS = 64    # spans per (row, head) at most: the merge reads them all
+CTAS_PER_SM = 2   # the kernel's occupancy (__launch_bounds__(256, 2))
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
+
+
+def _span_plan(length: int, rows_x_heads: int, sm_count: int) -> tuple:
+    """(span, n_spans) of a window of `length` slots read for
+    `rows_x_heads` (row, head) pairs on a card of `sm_count` SMs: enough
+    spans that the rows_x_heads * n_spans CTAs fill every SM about
+    CTAS_PER_SM times, at most MAX_SPANS and at most one per SPLIT slots.
+    The span is a multiple of SPLIT; spans [i * span, (i + 1) * span)
+    cover [0, length) exactly once, the last one cut at `length`."""
+    want = max(1, CTAS_PER_SM * sm_count // max(1, rows_x_heads))
+    want = min(want, MAX_SPANS, -(-length // SPLIT))
+    span = -(-length // (want * SPLIT)) * SPLIT
+    return span, -(-length // span)
+
+
+_sm_counts: dict = {}
+_counters: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    count = _sm_counts.get(device.index)
+    if count is None:
+        count = torch.cuda.get_device_properties(
+            device).multi_processor_count
+        _sm_counts[device.index] = count
+    return count
+
+
+def _arrival_counters(device: torch.device, stream: int,
+                      n: int) -> torch.Tensor:
+    """At least `n` int32 arrival counters for launches on `stream`: zero
+    when made, and zero again after every launch (the merging CTA resets
+    its own).  Launches on one stream run in order and share a buffer;
+    another stream gets its own, since its launches may overlap."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(1024, 1 << (n - 1).bit_length()),
+                          dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def fused_single_query_attention_plain(
@@ -75,6 +122,8 @@ def _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale) -> None:
                          f"one of {list(_CACHE_DTYPES)}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if l < 1:
+        raise ValueError("the cache window holds no slot")
     quantized = k_cache.dtype == torch.int8
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale go together")
@@ -118,25 +167,30 @@ def _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
     _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale)
     b, h, d = q.shape
     l = k_cache.shape[1]
-    n_splits = -(-l // SPLIT)
-    partials = torch.empty((b, h, n_splits, d + 2), dtype=torch.float32,
-                           device=q.device)
-    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    dev = q.device
+    span, n_spans = _span_plan(l, b * h, _sm_count(dev))
+    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     m_out = l_out = None
     if stats:
         m_out, l_out = (torch.empty((b, h), dtype=torch.float32,
-                                    device=q.device) for _ in range(2))
+                                    device=dev) for _ in range(2))
     lib = native.library("decode_attention")
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        partials = counters = None
+        if n_spans > 1:
+            partials = torch.empty((b, h, n_spans, d + 2),
+                                   dtype=torch.float32, device=dev)
+            counters = _arrival_counters(dev, stream, b * h)
         code = lib.mmlspark_sqa_forward(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             visible.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            partials.data_ptr(), out.data_ptr(),
-            m_out.data_ptr() if stats else None,
-            l_out.data_ptr() if stats else None, b, l, h, d, SPLIT,
+            partials.data_ptr() if partials is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            out.data_ptr(), m_out.data_ptr() if stats else None,
+            l_out.data_ptr() if stats else None, b, l, h, d, span,
             float(scale), _Q_DTYPES[q.dtype], _CACHE_DTYPES[k_cache.dtype],
             stream)
     native.check(code, "single-query attention")

@@ -52,11 +52,11 @@ SIGNATURES = {
                                    _I, _I, _I, _F, _I, _I, _I, _I, _P],
     },
     "decode_attention": {
-        # q, k_cache, v_cache, visible, k_scale, v_scale, partials, out,
-        # m_out, l_out, B, L, H, D, split, scale, q_dtype, cache_dtype,
-        # stream
-        "mmlspark_sqa_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _F, _I, _I, _P],
+        # q, k_cache, v_cache, visible, k_scale, v_scale, partials,
+        # counters, out, m_out, l_out, B, L, H, D, span, scale, q_dtype,
+        # cache_dtype, stream
+        "mmlspark_sqa_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
 }
 

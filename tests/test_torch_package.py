@@ -22,7 +22,8 @@ from mmlspark_tpu_torch.models import DecodeEngine
 from mmlspark_tpu_torch.ops import native
 from mmlspark_tpu_torch.ops.attention import NEG_INF
 from mmlspark_tpu_torch.ops.decode_attention import (
-    SPLIT, fused_single_query_attention, fused_single_query_attention_plain,
+    SPLIT, _sm_count, _span_plan, fused_single_query_attention,
+    fused_single_query_attention_plain,
     fused_single_query_attention_stats,
     fused_single_query_attention_stats_plain)
 from mmlspark_tpu_torch.ops.flash_attention import (
@@ -282,6 +283,137 @@ def test_decode_stats_kernel_matches_plain(cuda, window, d, cache, q_dtype):
     assert (m[:-1] - ref_m[:-1]).abs().max() <= 1e-4
     assert (m[-1] == NEG_INF).all() and (l[-1] == 0).all()
     assert torch.count_nonzero(acc[-1]) == 0
+
+
+def _decode_inputs(cuda, b, window, d, seed, dtype=torch.bfloat16, h=8):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, window, h, d), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def _assert_stats_close(got, ref):
+    """K4[stats] against plain: acc and l within 1e-4 of their largest
+    value, m within 1e-4 on the rows that see a slot; a fully masked row
+    exactly the merge identity."""
+    (acc, m, l), (r_acc, r_m, r_l) = got, ref
+    assert (acc - r_acc).abs().max() <= 1e-4 * r_acc.abs().max()
+    assert (l - r_l).abs().max() <= 1e-4 * r_l.abs().max()
+    seen = r_l > 0
+    assert (m[seen] - r_m[seen]).abs().max() <= 1e-4
+    assert (m[~seen] == NEG_INF).all() and (l[~seen] == 0).all()
+    assert torch.count_nonzero(acc[~seen]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,window,d", [
+    (2, 8448, 64), (2, 4224, 64), (8, 1152, 128), (2, 37, 64),
+    (1, 64, 128), (1, 65, 128), (4, 700, 64), (1, 20000, 64)])
+def test_decode_kernel_across_span_plans(cuda, b, window, d):
+    """K4 and K4[stats] against plain on windows whose span plans differ
+    (the long-context window, the slab, the serving window, one span below
+    one slot step, a span boundary at 64/65, up to the cap), with the
+    engine's mask layout and a fully masked last row; a second call is
+    bitwise equal to the first."""
+    q, k, v = _decode_inputs(cuda, b, window, d, seed=window + d)
+    bucket = max(1, window - 64)
+    true_len = torch.randint(1, bucket + 1, (b,), device=cuda)
+    slots = torch.arange(window, device=cuda)
+    visible = ((slots[None] < true_len[:, None])
+               | (slots >= bucket)[None]).contiguous()
+    if b > 1:
+        visible[-1] = False
+    before = (fused_single_query_attention.launches,
+              fused_single_query_attention_stats.launches)
+    out = fused_single_query_attention(q, k, v, visible)
+    stats = fused_single_query_attention_stats(q, k, v, visible)
+    again = fused_single_query_attention(q, k, v, visible)
+    stats_again = fused_single_query_attention_stats(q, k, v, visible)
+    torch.cuda.synchronize()
+    assert (fused_single_query_attention.launches,
+            fused_single_query_attention_stats.launches) == (
+        before[0] + 2, before[1] + 2)
+    ref = fused_single_query_attention_plain(q, k, v, visible)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-3)
+    _assert_stats_close(stats, fused_single_query_attention_stats_plain(
+        q, k, v, visible))
+    assert torch.equal(out, again)
+    assert all(torch.equal(x, y) for x, y in zip(stats, stats_again))
+    if b > 1:
+        assert torch.count_nonzero(out[-1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_decode_kernel_all_spans_masked_but_one(cuda, cache):
+    """Only a few slots inside one span of the slab are visible: every
+    other span carries the merge identity and must weigh exactly 0."""
+    b, window, d = 2, 4224, 64
+    q, k, v = _decode_inputs(cuda, b, window, d, seed=11)
+    span, n_spans = _span_plan(window, b * 8, _sm_count(q.device))
+    assert n_spans > 2
+    visible = torch.zeros((b, window), dtype=torch.bool, device=cuda)
+    visible[:, 2 * span + 3:2 * span + 40] = True
+    kw = {}
+    if cache == "int8":
+        q = q.float()
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    out = fused_single_query_attention(q, k, v, visible, **kw)
+    stats = fused_single_query_attention_stats(q, k, v, visible, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, fused_single_query_attention_plain(q, k, v, visible, **kw),
+        rtol=0, atol=2e-3)
+    _assert_stats_close(stats, fused_single_query_attention_stats_plain(
+        q, k, v, visible, **kw))
+
+
+def _decode_calls(cases):
+    return [(fused_single_query_attention(*c),
+             fused_single_query_attention_stats(*c)) for c in cases]
+
+
+@pytest.mark.cuda
+def test_decode_kernel_back_to_back_and_graph_replays(cuda):
+    """Launches of different B*H one after another on one stream, without
+    a sync between them, each agree with plain; the same launches
+    captured in a CUDA graph and replayed twice equal the eager calls
+    bitwise (the merge leaves its arrival counters zero for the next
+    launch and the next replay)."""
+    cases = []
+    for b, window, d, seed in ((2, 8448, 64, 1), (8, 1152, 128, 2),
+                               (1, 4224, 64, 3), (2, 4224, 64, 4)):
+        q, k, v = _decode_inputs(cuda, b, window, d, seed)
+        visible = torch.ones((b, window), dtype=torch.bool, device=cuda)
+        visible[:, window // 3:window // 2] = False
+        cases.append((q, k, v, visible.contiguous()))
+    eager = _decode_calls(cases)
+    torch.cuda.synchronize()
+    for c, (out, stats) in zip(cases, eager):
+        torch.testing.assert_close(
+            out, fused_single_query_attention_plain(*c), rtol=0, atol=2e-3)
+        _assert_stats_close(stats,
+                            fused_single_query_attention_stats_plain(*c))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _decode_calls(cases)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _decode_calls(cases)
+    for _ in range(2):
+        for out, stats in captured:
+            out.zero_()
+            for t in stats:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for (out, stats), (g_out, g_stats) in zip(eager, captured):
+            assert torch.equal(out, g_out)
+            assert all(torch.equal(x, y) for x, y in zip(stats, g_stats))
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ import numpy as np
 from mmlspark_tpu import DataTable as JaxDataTable
 from mmlspark_tpu.models import ModelBundle as JaxModelBundle
 from mmlspark_tpu.models.generate import TextGenerator as JaxTextGenerator
-from mmlspark_tpu_torch import DataTable, TextGenerator
+from mmlspark_tpu_torch import DataTable, ModelBundle, TextGenerator
 from mmlspark_tpu_torch.models import DecodeEngine
 from test_torch_seq_decode import (CFG, CHUNK, _jax_mesh, _mesh, _prompts,
                                    _three_way, bundle, jax_lm,  # noqa: F401
@@ -65,3 +65,29 @@ def test_textgenerator_data_seq_mesh_end_to_end(bundle):
         np.testing.assert_array_equal(got[:len(prompt)], prompt)
     # one model-dtype copy of the weights for the one distinct device
     assert not stage._engine_for().weights._copies
+
+
+def test_set_bundle_after_set_mesh_decodes_with_the_new_bundle(bundle):
+    """A stage with a data x seq mesh attached, after `set_bundle(B)`,
+    decodes with B's weights: its tokens equal a fresh stage's on B, with
+    and without the mesh.  (The JAX stage keeps the mesh weights of the
+    bundle it first decoded with; the port does not copy that.)"""
+    other = ModelBundle.init("TransformerLM", CFG, seed=11)
+    rows = [((np.arange(4 + i, dtype=np.int32) * 3 + i) % CFG["vocab_size"])
+            for i in range(3)]
+    table = DataTable({"prompt": rows})
+    params = dict(inputCol="prompt", outputCol="out", maxNewTokens=6,
+                  cacheChunk=CHUNK)
+    stage = TextGenerator(bundle, device="cpu", **params).set_mesh(
+        _mesh(data=2, seq=2))
+    first = stage.transform(table)["out"]
+    got = stage.set_bundle(other).transform(table)["out"]
+    fresh = TextGenerator(other, device="cpu", **params).set_mesh(
+        _mesh(data=2, seq=2)).transform(table)["out"]
+    single = TextGenerator(other, device="cpu", **params).transform(
+        table)["out"]
+    for g, f, s in zip(got, fresh, single):
+        np.testing.assert_array_equal(g, f)
+        np.testing.assert_array_equal(g, s)
+    # the two bundles decode differently, so stale weights would show
+    assert any(not np.array_equal(a, g) for a, g in zip(first, got))
