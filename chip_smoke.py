@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the
 hand-written kernels from `mmlspark_tpu_torch/csrc/`, holds each against
 its plain PyTorch version, drives the LM serving path
-(`TextGenerator.transform` -> `DecodeEngine.generate`) and the LM training
-path (`Trainer.fit_arrays`) at the full width of the repo's LM bench
+(`TextGenerator.transform` -> `DecodeEngine.generate`), the online
+serving engine over HTTP, and the LM training path
+(`Trainer.fit_arrays`) at the full width of the repo's LM bench
 configuration and the seq-sharded long-context decode path at the width
 of its long-context configuration, and times kernels and paths.
 
@@ -57,6 +58,15 @@ Phases (any failure exits non-zero before the result line):
      ms/step of both engines
  11. f32 gradient check: every parameter's gradient with the flash
      kernels against the dense-attention model, TF32 off
+ 12. the online serving engine (`start_engine` + `start_http` ->
+     `ServingEngine.submit` -> `_tick` -> the DecodeEngine serve hooks)
+     at the width of phase 6: the phase-6 prompts, a mid-flight join and
+     a streamed request POSTed over HTTP at f32 (tokens equal the offline
+     engine's), bf16 and bf16 with an int8 cache (in-vocabulary rows);
+     K1 and K4 launch counts exact against the engine's own spans; a
+     clean drain; the repo's serving bench arms (continuous vs static
+     goodput, latency percentiles, 88 of 96 shed at a queue of 8); one
+     profiled pass of the HTTP traffic
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -1421,6 +1431,413 @@ def phase_grad_check(dev, card) -> dict:
             "worst_rel_err": worst}
 
 
+# the repo's serving bench arm (bench.py bench_serve arms 1 and 2, not cut)
+SERVE_BENCH_CONFIG = {"vocab_size": 8192, "d_model": 512, "n_heads": 8,
+                      "n_layers": 4, "max_len": 256, "dtype": "bfloat16"}
+SERVE_BENCH = dict(n_req=48, short_new=16, long_new=96, max_batch=8,
+                   seg=16, chunk=64, lens=(40, 48, 56, 64), offered=96,
+                   reps=3)
+SERVE_GROUPS = (("K1 flash_fwd", ("flash_fwd",)),
+                ("K4 sqa_forward", ("sqa_",)),
+                ("GEMM (cuBLAS)", GEMM_KEYS))
+
+
+def http_json(port: int, method: str, path: str, body=None) -> tuple:
+    """(status, parsed JSON body) of one request on a fresh connection."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, None if body is None else
+                     json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read().decode() or "{}")
+    finally:
+        conn.close()
+
+
+def http_stream(port: int, body: dict) -> tuple:
+    """(status, streamed token chunks, final line) of one `"stream": true`
+    POST /generate."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/generate", json.dumps({**body,
+                                                      "stream": True}))
+        resp = conn.getresponse()
+        chunks, final = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            payload = json.loads(line.decode())
+            if payload.get("done"):
+                final = payload
+                break
+            chunks.append(payload.get("tokens", []))
+        return resp.status, chunks, final
+    finally:
+        conn.close()
+
+
+def offline_tokens(weights, prompts, max_new, chunk, dev, **kw) -> list:
+    """The offline `DecodeEngine`'s greedy tokens for each prompt, the
+    prompts batched by bucket as `TextGenerator` batches them."""
+    from mmlspark_tpu_torch.models import DecodeEngine
+    engine = DecodeEngine(weights, max_new, chunk=chunk, device=dev, **kw)
+    by_bucket: dict = {}
+    for i, p in enumerate(prompts):
+        by_bucket.setdefault(engine.bucket_for(len(p)), []).append(i)
+    out: list = [None] * len(prompts)
+    for bucket, idxs in by_bucket.items():
+        padded = np.zeros((len(idxs), bucket), np.int32)
+        for j, i in enumerate(idxs):
+            padded[j, :len(prompts[i])] = prompts[i]
+        rows = engine.generate(padded, [len(prompts[i]) for i in idxs])
+        for j, i in enumerate(idxs):
+            out[i] = rows[j].tolist()
+    return out
+
+
+def serve_traffic(port: int, prompts: list, late: np.ndarray,
+                  streamed: np.ndarray, running) -> dict:
+    """The phase's HTTP traffic: every prompt POSTed to /generate from its
+    own client thread, one `"stream": true` request, and one more request
+    once `running()` says its bucket's batch has run a segment (a
+    mid-flight join).  Returns the responses by name, the wall seconds
+    and the tokens served."""
+    import threading
+    results: dict = {}
+
+    def post(name, prompt):
+        results[name] = http_json(port, "POST", "/generate",
+                                  {"prompt": prompt.tolist(),
+                                   "deadline_ms": 600000})
+
+    def stream():
+        results["stream"] = http_stream(port, {"prompt": streamed.tolist(),
+                                               "deadline_ms": 600000})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(i, p))
+               for i, p in enumerate(prompts)]
+    threads.append(threading.Thread(target=stream))
+    for t in threads:
+        t.start()
+    give_up = time.perf_counter() + 120.0
+    while not running() and time.perf_counter() < give_up:
+        time.sleep(0.002)
+    joiner = threading.Thread(target=post, args=("late", late))
+    joiner.start()
+    for t in threads + [joiner]:
+        t.join(600)
+    seconds = time.perf_counter() - t0
+    tokens = sum(len(r[1].get("tokens", [])) for k, r in results.items()
+                 if k != "stream") + len(results["stream"][2]["tokens"])
+    return {"results": results, "seconds": seconds, "tokens": tokens}
+
+
+def phase_serving(dev, card) -> dict:
+    """The online serving engine at full width (chip_smoke phase 12).
+
+    (a) `start_engine` + `start_http` on 127.0.0.1 over the slice-1
+        configuration, `ServeConfig(max_new_tokens=64, max_batch=8,
+        segment_steps=16)`, warm buckets covering the traffic (so the
+        kernels are built before READY): the phase-6 prompts from
+        concurrent client threads, one mid-flight join and one streamed
+        request; at f32 (tokens equal the offline `DecodeEngine`'s), bf16
+        and bf16 with an int8 cache (in-vocabulary rows, agreement with
+        the offline engine printed).  K1 launches must equal n_layers x
+        the prefills of buckets >= 512 and K4 n_layers x the decode steps
+        run, both read off the engine's own spans; then `stop_http` and a
+        drain that ends STOPPED.
+    (b) the repo's serving bench arms 1 and 2 at their own width, bf16:
+        continuous and static goodput, latency percentiles, the offline
+        rate; 96 requests offered to a queue of 8 shed exactly 88 and
+        every admitted one meets its deadline.
+    (c) one profiled warm pass of (a)'s traffic at bf16: device busy /
+        wall and the K1, K4, GEMM and small-kernel groups."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    bucket_length)
+    from mmlspark_tpu_torch.observe.telemetry import run_telemetry
+    from mmlspark_tpu_torch.observe.trace import aggregate_spans
+    from mmlspark_tpu_torch.serve import ServeConfig, ServingEngine
+    from mmlspark_tpu_torch.serve.lifecycle import (start_engine, start_http,
+                                                    stop_http)
+    n_layers, vocab = LM_CONFIG["n_layers"], LM_CONFIG["vocab_size"]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in PROMPT_LENGTHS]
+    late = rng.integers(0, vocab, 50).astype(np.int32)
+    streamed = rng.integers(0, vocab, 30).astype(np.int32)
+    every = prompts + [late, streamed]
+
+    def bucket(p):
+        return bucket_length(len(p), LM_CONFIG["max_len"], MAX_NEW)
+
+    buckets = tuple(sorted({bucket(p) for p in every}))
+    base = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {}
+    for name, dtype, cache in (("f32", "float32", "model"),
+                               ("bf16", "bfloat16", "model"),
+                               ("bf16_int8", "bfloat16", "int8")):
+        bundle = ModelBundle("TransformerLM", {**LM_CONFIG, "dtype": dtype},
+                             base.variables)
+        cfg = ServeConfig(max_new_tokens=MAX_NEW, max_batch=8,
+                          segment_steps=16, cache_dtype=cache,
+                          default_deadline_s=600.0, warmup_buckets=buckets)
+        with run_telemetry(None) as rt:
+            engine = ServingEngine(bundle, cfg, device=dev)
+            t0 = time.perf_counter()
+            start_engine(engine, install_sigterm=False)
+            warm_s = time.perf_counter() - t0
+            server = start_http(engine, port=0)
+            port = server.server_address[1]
+
+            def running():
+                return any(r.get("type") == "serve"
+                           and r.get("event") == "segment"
+                           and r.get("bucket") == bucket(late)
+                           for r in rt.tracer.records())
+            try:
+                ready = http_json(port, "GET", "/readyz")[0]
+                require(ready == 200, f"serving {name}: /readyz was {ready} "
+                        f"before the first POST")
+                torch.cuda.synchronize()
+                reset_counts()
+                traffic = serve_traffic(port, prompts, late, streamed,
+                                        running)
+                torch.cuda.synchronize()
+                launched = read_counts()
+                records = rt.tracer.records()
+                if name == "bf16":
+                    # (c): the same traffic again, warm, under the profiler
+                    out["device_breakdown"] = device_breakdown(
+                        lambda: serve_traffic(port, prompts, late, streamed,
+                                              running), card, SERVE_GROUPS)
+                stats = http_json(port, "GET", "/statz")[1]
+            finally:
+                stop_http(server)
+                engine.stop()
+            require(engine.state == "stopped",
+                    f"serving {name}: drain ended {engine.state}")
+        results = traffic["results"]
+        statuses = sorted({r[0] for r in results.values()})
+        require(statuses == [200], f"serving {name}: statuses {statuses}")
+        got = [results[i][1]["tokens"] for i in range(len(prompts))]
+        got += [results["late"][1]["tokens"], results["stream"][2]["tokens"]]
+        # the late request joined a batch that had already run a segment
+        serve = [r for r in records if r.get("type") == "serve"]
+        late_id = results["late"][1]["request"]
+        join = next(i for i, r in enumerate(serve)
+                    if r["event"] == "join" and r["request"] == late_id)
+        require(any(r["event"] == "segment"
+                    and r["bucket"] == serve[join]["bucket"]
+                    for r in serve[:join]),
+                f"serving {name}: the late request did not join mid-flight")
+        chunks = results["stream"][1]
+        require(sum(chunks, []) == got[-1] and len(chunks) >= 2,
+                f"serving {name}: the stream's chunks do not add up to its "
+                f"final tokens")
+        for row in got:
+            require(len(row) == MAX_NEW and all(0 <= t < vocab for t in row),
+                    f"serving {name}: a row out of the vocabulary")
+        # the engine's own spans: prefills by bucket, steps per segment
+        spans = [r for r in records if r.get("type") == "span"]
+        flash_prefills = sum(1 for r in spans if r["name"] == "serve.prefill"
+                             and r["attrs"]["bucket"] >= 512)
+        steps = sum(r["attrs"]["seg_len"] for r in spans
+                    if r["name"] == "serve.segment")
+        k1, k4 = (launched["flash_attention"],
+                  launched["fused_single_query_attention"])
+        require(k1 == n_layers * flash_prefills and flash_prefills > 0,
+                f"serving {name}: K1 launched {k1}, expected {n_layers} x "
+                f"{flash_prefills} prefills of buckets >= 512")
+        require(k4 == n_layers * steps and steps > 0,
+                f"serving {name}: K4 launched {k4}, expected {n_layers} x "
+                f"{steps} decode steps")
+        weights = ServingWeights(bundle.module(dev))
+        ref = offline_tokens(weights, every, MAX_NEW, cfg.cache_chunk, dev,
+                             cache_dtype=cache)
+        agree = sum(int(a == b) for g, r in zip(got, ref)
+                    for a, b in zip(g, r))
+        if name == "f32":
+            require(got == ref, "serving f32: tokens differ from the "
+                    "offline DecodeEngine's")
+        agg = aggregate_spans(records)
+        seg_ms = 1e3 * agg["serve.segment"]["total_s"] / agg[
+            "serve.segment"]["count"]
+        out[name] = {
+            "tokens_per_s": traffic["tokens"] / traffic["seconds"],
+            "seconds": traffic["seconds"], "tokens": traffic["tokens"],
+            "warmup_s": warm_s, "launches": {"K1": k1, "K4": k4},
+            "flash_prefills": flash_prefills, "decode_steps": steps,
+            "segments": agg["serve.segment"]["count"],
+            "segment_ms": seg_ms, "step_ms": seg_ms / cfg.segment_steps,
+            "prefill_ms": 1e3 * agg["serve.prefill"]["total_s"]
+            / agg["serve.prefill"]["count"],
+            "agree_offline": f"{agree}/{MAX_NEW * len(every)}",
+            "latency_p50_s": stats["latency_p50_s"],
+            "latency_p99_s": stats["latency_p99_s"]}
+        print(f"serving {name} (HTTP, {len(every)} requests x {MAX_NEW} "
+              f"tokens): {out[name]['tokens_per_s']:.1f} tokens/s over "
+              f"{traffic['seconds'] * 1e3:.1f} ms; warmup {warm_s:.2f} s; "
+              f"K1 {k1} = {n_layers} x {flash_prefills} prefills, K4 {k4} "
+              f"= {n_layers} x {steps} steps; segment {seg_ms:.2f} ms "
+              f"({seg_ms / cfg.segment_steps:.2f} ms/step), prefill "
+              f"{out[name]['prefill_ms']:.2f} ms; tokens agree with the "
+              f"offline engine {out[name]['agree_offline']} [{card}]")
+    out["bench"] = serve_bench(dev, card)
+    return out
+
+
+def serve_bench(dev, card) -> dict:
+    """bench.py bench_serve arms 1 and 2 on the port, at bf16."""
+    import gc
+
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models import DecodeEngine
+    from mmlspark_tpu_torch.models.generate import ServingWeights
+    from mmlspark_tpu_torch.serve import Overloaded, ServeConfig, \
+        ServingEngine
+    b = SERVE_BENCH
+    bundle = ModelBundle.init("TransformerLM", SERVE_BENCH_CONFIG, seed=0)
+    rng = np.random.default_rng(0)
+    vocab = SERVE_BENCH_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, vocab, (b["lens"][i % len(b["lens"])],))
+               .astype(np.int32) for i in range(b["n_req"])]
+    budgets = [b["long_new"] if i % 4 == 3 else b["short_new"]
+               for i in range(b["n_req"])]
+    scfg = dict(max_new_tokens=b["long_new"], max_batch=b["max_batch"],
+                queue_capacity=max(b["n_req"], b["offered"]),
+                segment_steps=b["seg"], default_deadline_s=600.0,
+                cache_chunk=b["chunk"])
+
+    def drain_inline(engine, requests):
+        while any(not r.finished for r in requests):
+            if not engine._tick():
+                break
+        engine._tick()
+
+    def timed(engine, batches):
+        """The best wall of `reps` passes, each batch drained before the
+        next is admitted; the last pass's requests."""
+        wall, reqs = float("inf"), []
+        gc.collect()
+        gc.disable()
+        try:
+            for _ in range(b["reps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                reqs = []
+                for idx in batches:
+                    gang = [engine.submit(prompts[i],
+                                          max_new_tokens=budgets[i])
+                            for i in idx]
+                    drain_inline(engine, gang)
+                    reqs.extend(gang)
+                wall = min(wall, time.perf_counter() - t0)
+        finally:
+            gc.enable()
+        return wall, reqs
+
+    def pct(values, q):
+        return values[min(len(values) - 1,
+                          int(round(q / 100 * (len(values) - 1))))]
+
+    engine = ServingEngine(bundle, ServeConfig(**scfg), device=dev)
+    engine.warmup()
+    drain_inline(engine, [engine.submit(p, max_new_tokens=n)
+                          for p, n in zip(prompts, budgets)])
+    every = [list(range(b["n_req"]))]
+    gangs = [list(range(i, min(i + b["max_batch"], b["n_req"])))
+             for i in range(0, b["n_req"], b["max_batch"])]
+    cont_wall, cont = timed(engine, every)
+    static_wall, static = timed(engine, gangs)
+    out = {}
+    for name, wall, reqs in (("continuous", cont_wall, cont),
+                             ("static", static_wall, static)):
+        require(all(r.status == "ok" for r in reqs),
+                f"serving bench {name}: a request did not finish ok")
+        lat = sorted(r.latency_s() for r in reqs)
+        out[name] = {"goodput_tokens_per_s":
+                     sum(len(r.tokens) for r in reqs) / wall,
+                     "wall_s": wall,
+                     "latency_p50_s": pct(lat, 50),
+                     "latency_p95_s": pct(lat, 95),
+                     "latency_p99_s": pct(lat, 99)}
+    # the static latencies: every request arrived when the pass began
+    start = min(r.arrival for r in static)
+    lat = sorted(r.finished_at - start for r in static)
+    out["static"].update({f"latency_p{q}_s": pct(lat, q)
+                          for q in (50, 95, 99)})
+    # the offline DecodeEngine batch rate over the same gangs
+    offline = DecodeEngine(ServingWeights(bundle.module(dev)),
+                           b["long_new"], chunk=b["chunk"], device=dev)
+
+    def run_offline():
+        rows = {}
+        for idx in gangs:
+            bucket = max(offline.bucket_for(len(prompts[i])) for i in idx)
+            padded = np.zeros((len(idx), bucket), np.int32)
+            tl = np.asarray([len(prompts[i]) for i in idx], np.int32)
+            for j, i in enumerate(idx):
+                padded[j, :tl[j]] = prompts[i]
+            for j, row in zip(idx, offline.generate(padded, tl)):
+                rows[j] = row
+        return rows
+
+    run_offline()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = run_offline()
+    torch.cuda.synchronize()
+    out["offline_tokens_per_s"] = sum(budgets) / (time.perf_counter() - t0)
+    agree = sum(int(a == c) for r, i in zip(cont, range(b["n_req"]))
+                for a, c in zip(r.tokens, rows[i][:budgets[i]]))
+    out["continuous_agree_offline"] = f"{agree}/{sum(budgets)}"
+    out["continuous_over_static"] = (out["continuous"]["goodput_tokens_per_s"]
+                                     / out["static"]["goodput_tokens_per_s"])
+    # arm 2: a burst of `offered` requests on an idle engine, queue of 8
+    over = ServingEngine(bundle, ServeConfig(**{
+        **scfg, "queue_capacity": b["max_batch"],
+        "default_deadline_s": 120.0}), device=dev)
+    over.warmup()
+    admitted, shed = [], 0
+    for i in range(b["offered"]):
+        try:
+            admitted.append(over.submit(prompts[i % b["n_req"]],
+                                        max_new_tokens=b["short_new"]))
+        except Overloaded:
+            shed += 1
+    drain_inline(over, admitted)
+    met = sum(1 for r in admitted
+              if r.status == "ok" and r.finished_at <= r.deadline)
+    require(shed == b["offered"] - b["max_batch"] and met == len(admitted),
+            f"serving bench overload: shed {shed} of {b['offered']}, "
+            f"{met}/{len(admitted)} admitted met their deadline")
+    out["overload"] = {"offered": b["offered"], "shed": shed,
+                       "admitted": len(admitted), "met_deadline": met}
+    c, st = out["continuous"], out["static"]
+    print(f"serving bench (vocab {vocab}, d_model "
+          f"{SERVE_BENCH_CONFIG['d_model']}, bf16; {b['n_req']} requests "
+          f"3:1 of {b['short_new']}:{b['long_new']} tokens): continuous "
+          f"{c['goodput_tokens_per_s']:.1f} tokens/s (p50/p95/p99 "
+          f"{c['latency_p50_s']:.3f}/{c['latency_p95_s']:.3f}/"
+          f"{c['latency_p99_s']:.3f} s), static "
+          f"{st['goodput_tokens_per_s']:.1f} tokens/s "
+          f"({st['latency_p50_s']:.3f}/{st['latency_p95_s']:.3f}/"
+          f"{st['latency_p99_s']:.3f} s), ratio "
+          f"{out['continuous_over_static']:.3f}; offline "
+          f"{out['offline_tokens_per_s']:.1f} tokens/s; continuous tokens "
+          f"agree with offline {out['continuous_agree_offline']}; overload "
+          f"{shed}/{b['offered']} shed, {met}/{len(admitted)} admitted met "
+          f"the deadline [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1466,6 +1883,10 @@ def main() -> int:
     long_context = phase_long_context(dev, card)
     torch.cuda.empty_cache()
     grad_check = phase_grad_check(dev, card)
+    torch.cuda.empty_cache()
+    reset_counts()
+    serving = phase_serving(dev, card)
+    print(json.dumps({"serving": serving, "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

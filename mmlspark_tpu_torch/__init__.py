@@ -13,7 +13,11 @@ single-query decode read as CUDA kernels; and LM training,
 (with its log-sum-exp) and backward (dQ, dK/dV) as CUDA kernels; and
 seq-sharded long-context decode, `DecodeEngine`/`TextGenerator` over a
 single-controller data x seq `Mesh`, with ring prefill over the flash
-forward with lse and the decode read's stats entry as a CUDA kernel.
+forward with lse and the decode read's stats entry as a CUDA kernel; and
+online serving, `serve.start_engine` + `serve.start_http` ->
+`ServingEngine.submit` -> the `DecodeEngine` serve hooks (continuous
+batching of mixed-age rows, admission, deadlines, drain, HTTP), over the
+flash prefill and the decode read.
 
 Layer map:
   core/    - params DSL, column metadata, DataTable, stage save/load,
@@ -27,6 +31,12 @@ Layer map:
              the kernel wrappers (flash forward and backward, single-query
              decode read and its stats entry), the nvcc build/loader
   quant/   - int8 KV-cache quantization
+  serve/   - the continuous-batching ServingEngine, admission, requests,
+             the HTTP front end and the lifecycle (threads, SIGTERM drain)
+  observe/ - logger, counters, spans, traces, run telemetry, SLOs,
+             waterfalls, Prometheus text
+  resilience/ - the injectable clock, circuit breakers, the SIGTERM guard
+  config.py - the MMLSPARK_TPU_* knob registry (the JAX package's names)
   utils/   - analytic FLOP accounting
   csrc/    - the CUDA sources
 """

@@ -36,17 +36,24 @@ the distribution is the same.
     is > 1, the prompt and the cache window split over the seq shards:
     ring prefill, window slabs re-split on growth, and each step's read as
     per-shard softmax statistics merged across shards (`DecodeEngine`).
+  * **serving hooks** — `serve_prefill`, `serve_step`, `serve_window`
+    and `merge_cache_rows`, through which the continuous-batching
+    scheduler (serve/engine.py) drives a resident batch whose rows sit at
+    different decode ages; `serialize_cache_row`/`deserialize_cache_row`
+    cut a cache row into wire pages the JAX package reads, and read its.
 
 Not ported yet (they raise NotImplementedError): tensor-parallel decode
 (a mesh with model > 1), chunked prefill, speculative decoding, beam
-search, the serving hooks.
+search.
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import io
 import os
+import struct
 from types import SimpleNamespace
 from typing import Optional
 
@@ -61,6 +68,7 @@ from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
                                               save_bundle)
 from mmlspark_tpu_torch.models.definitions import TransformerLM
+from mmlspark_tpu_torch.observe.trace import trace_event
 from mmlspark_tpu_torch.ops.attention import (NEG_INF, merge_attention_stats,
                                               ring_attention)
 from mmlspark_tpu_torch.ops.decode_attention import (
@@ -222,21 +230,26 @@ def _forward_with_cache(module, tokens: torch.Tensor, caches: list,
     return _dense(module.lm_head, x, dtype).float()
 
 
-def _write_token(cache: tuple, index, k: torch.Tensor,
+def _write_token(cache: tuple, slot, k: torch.Tensor,
                  v: torch.Tensor) -> None:
-    """Write one decode token's K/V (B, H, Dh) at cache slot `index` in
-    place, quantized on write for an int8 cache ((k_q, k_scale, v_q,
-    v_scale)), on the cache's device."""
+    """Write one decode token's K/V (B, H, Dh) per row in place, on the
+    cache's device: at the shared cache slot `slot` (an int: every row of
+    a `decode_segment` batch writes the same slot), or at per-row slots
+    (a (B,) long tensor: the serving engine's mixed-age batch).  An int8
+    cache ((k_q, k_scale, v_q, v_scale)) quantizes the token on write,
+    payload and (B, H) scale at the same slots."""
     dev = cache[0].device
     k, v = k.to(dev), v.to(dev)
+    at = ((slice(None), slot) if isinstance(slot, int) else
+          (torch.arange(k.shape[0], device=dev), slot.to(dev)))
     if len(cache) == 4:
         kq, ks, vq, vs = cache
-        kq[:, index], ks[:, index] = quantize_kv(k)
-        vq[:, index], vs[:, index] = quantize_kv(v)
+        kq[at], ks[at] = quantize_kv(k)
+        vq[at], vs[at] = quantize_kv(v)
     else:
         kc, vc = cache
-        kc[:, index] = k.to(kc.dtype)
-        vc[:, index] = v.to(vc.dtype)
+        kc[at] = k.to(kc.dtype)
+        vc[at] = v.to(vc.dtype)
 
 
 def _cache_read_args(cache: tuple) -> tuple:
@@ -272,6 +285,106 @@ def _grow_cache(cache: torch.Tensor, window: int) -> torch.Tensor:
     out = cache.new_zeros((cache.shape[0], window) + tuple(cache.shape[2:]))
     out[:, :cache.shape[1]] = cache
     return out
+
+
+# ---------------------------------------------------------------------------
+# Cache-row pages: the wire format of the JAX package's
+# serialize_cache_row / deserialize_cache_row
+# ---------------------------------------------------------------------------
+
+# page header (n_layers, n_tensors); per-tensor header (dtype-name length,
+# ndim); dims and byte lengths as >I
+_PAGE_HDR, _TENSOR_HDR, _U32 = (struct.Struct(">HH"), struct.Struct(">BB"),
+                                struct.Struct(">I"))
+
+
+def _wire_bytes(part: torch.Tensor) -> bytes:
+    """A host tensor's raw bytes; bfloat16 through its int16 view (numpy
+    has no bfloat16), the same bits the JAX package writes."""
+    if part.dtype == torch.bfloat16:
+        part = part.view(torch.int16)
+    return part.numpy().tobytes()
+
+
+def _from_wire(raw: bytes, name: str, shape: tuple) -> torch.Tensor:
+    """The tensor a page record holds: `name` is a numpy dtype name, or
+    "bfloat16" read through int16.  A record whose name, byte count or
+    shape does not fit raises ValueError."""
+    try:
+        dtype = np.dtype("int16" if name == "bfloat16" else name)
+        out = torch.from_numpy(
+            np.frombuffer(raw, dtype=dtype).reshape(shape).copy())
+    except TypeError as e:
+        raise ValueError(f"unknown page tensor dtype {name!r}") from e
+    return out.view(torch.bfloat16) if name == "bfloat16" else out
+
+
+def serialize_cache_row(caches, row: int, chunk: int) -> list:
+    """Cut ONE row of a serve cache into chunk-granular window pages: each
+    page is a self-describing blob (dtype name + shape + raw bytes per
+    layer-tensor window slice) that `deserialize_cache_row` — the port's
+    or the JAX package's — reassembles without side-channel layout info.
+    Both cache layouts work, the 2-tuple model-dtype (k, v) and the
+    4-tuple int8 (kq, k_scale, vq, v_scale)."""
+    host = [[t[row].detach().cpu().contiguous() for t in layer]
+            for layer in caches]
+    width = host[0][0].shape[0]
+    step = max(1, int(chunk))
+    pages = []
+    for lo in range(0, width, step):
+        bio = io.BytesIO()
+        bio.write(_PAGE_HDR.pack(len(host), len(host[0])))
+        for layer in host:
+            for tensor in layer:
+                part = tensor[lo:lo + step].contiguous()
+                name = str(part.dtype).removeprefix("torch.").encode(
+                    "ascii")
+                bio.write(_TENSOR_HDR.pack(len(name), part.dim()))
+                bio.write(name)
+                for dim in part.shape:
+                    bio.write(_U32.pack(dim))
+                raw = _wire_bytes(part)
+                bio.write(_U32.pack(len(raw)))
+                bio.write(raw)
+        pages.append(bio.getvalue())
+    return pages
+
+
+def deserialize_cache_row(pages: list) -> list:
+    """Reassemble `serialize_cache_row` pages (in chunk order) into a
+    1-row cache of host tensors, ready for `DecodeEngine.
+    merge_cache_rows`: window slices concatenate back on the window axis
+    and gain the batch dim.  Bit-exact: dtype and bits round-trip
+    untouched.  Truncated or mismatched pages raise ValueError."""
+    if not pages:
+        raise ValueError("cannot deserialize an empty page list")
+
+    def read(bio, n):
+        data = bio.read(n)
+        if len(data) != n:
+            raise ValueError("short page: truncated tensor record")
+        return data
+
+    parts = None
+    for blob in pages:
+        bio = io.BytesIO(blob)
+        n_layers, n_tensors = _PAGE_HDR.unpack(read(bio, _PAGE_HDR.size))
+        if parts is None:
+            parts = [[[] for _ in range(n_tensors)]
+                     for _ in range(n_layers)]
+        elif len(parts) != n_layers or len(parts[0]) != n_tensors:
+            raise ValueError("page layout mismatch across pages")
+        for li in range(n_layers):
+            for ti in range(n_tensors):
+                nlen, ndim = _TENSOR_HDR.unpack(read(bio, _TENSOR_HDR.size))
+                name = read(bio, nlen).decode("ascii")
+                shape = tuple(_U32.unpack(read(bio, _U32.size))[0]
+                              for _ in range(ndim))
+                (nbytes,) = _U32.unpack(read(bio, _U32.size))
+                parts[li][ti].append(_from_wire(read(bio, nbytes), name,
+                                                shape))
+    return [tuple(torch.cat(tensors, dim=0)[None] for tensors in layer)
+            for layer in parts]
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +463,9 @@ def _make_row_sampler(temperature: float, top_k, top_p):
     """A `(logits (B, V), row_seeds [B], step) -> tokens (B,)` sampler:
     greedy at temperature 0, else the Gumbel-max draw over the filtered,
     temperature-scaled logits, each row from its own generator seeded with
-    (row stream, step)."""
+    (row stream, step).  `step` is one int for the batch, or a (B,) tensor
+    of per-row steps (the serving engine's mixed-age rows draw from the
+    stream positions a batch of their own would give them)."""
     if temperature <= 0.0:
         def sample(logits, row_seeds, step):
             return torch.argmax(logits, dim=-1)
@@ -361,8 +476,10 @@ def _make_row_sampler(temperature: float, top_k, top_p):
         out = torch.empty(logits.shape[0], dtype=torch.long,
                           device=logits.device)
         gen = torch.Generator(device=logits.device)
-        for i, row_seed in enumerate(row_seeds):
-            gen.manual_seed(_mix(row_seed, step))
+        steps = ([step] * len(row_seeds) if isinstance(step, int)
+                 else step.tolist())
+        for i, (row_seed, row_step) in enumerate(zip(row_seeds, steps)):
+            gen.manual_seed(_mix(row_seed, row_step))
             u = torch.rand(filtered.shape[-1], generator=gen,
                            device=logits.device)
             gumbel = -torch.log(-torch.log(u))
@@ -519,9 +636,11 @@ class DecodeEngine:
                         min_bucket=min_bucket, prefill_chunk=prefill_chunk,
                         draft_module=draft_module)
         if prefill_chunk is not None:
-            raise NotImplementedError("chunked prefill is not ported")
+            raise NotImplementedError(
+                "chunked prefill is not ported (ROADMAP A8 item 2)")
         if draft_module is not None or spec_tokens:
-            raise NotImplementedError("speculative decoding is not ported")
+            raise NotImplementedError(
+                "speculative decoding is not ported (ROADMAP A8 item 3)")
         if cache_dtype not in ("model", "int8"):
             raise ValueError(
                 f"unknown cache_dtype '{cache_dtype}' (model | int8)")
@@ -566,14 +685,18 @@ class DecodeEngine:
         self.last_segments_run = 0
         self.last_new_tokens_computed = 0
         self.last_exit_checks_skipped = 0
+        self._programs: set = set()
 
     def bucket_for(self, prompt_len: int) -> int:
         return bucket_length(prompt_len, self.weights.max_len,
                              self.max_new_tokens, self.min_bucket)
 
-    def _stop_gate(self, tok: torch.Tensor, new_count: int) -> torch.Tensor:
+    def _stop_gate(self, tok: torch.Tensor, new_count) -> torch.Tensor:
         # a stop token only freezes once the row has emitted
-        # `min_new_tokens` tokens including it
+        # `min_new_tokens` tokens including it; `new_count` is that count,
+        # one int for the batch or a (B,) tensor of per-row counts
+        if not isinstance(new_count, int):
+            return self._is_stop(tok) & (new_count >= self.min_new_tokens)
         if new_count < self.min_new_tokens:
             return torch.zeros(tok.shape, dtype=torch.bool, device=tok.device)
         return self._is_stop(tok)
@@ -782,6 +905,151 @@ class DecodeEngine:
                              self.max_new_tokens - generated.shape[1], axis=1)
             generated = np.concatenate([generated, fill], axis=1)
         return generated.astype(np.int32)
+
+    # -- serving hooks (serve/engine.py) ---------------------------------
+    # The continuous-batching scheduler drives the engine at segment
+    # granularity: prefill a join cohort, splice its cache rows into the
+    # resident batch, advance everyone one mixed-age segment, cancel and
+    # harvest at the boundary.  Each hook enters inference mode itself:
+    # the scheduler's loop thread does not inherit the caller's grad mode,
+    # and the resident caches are inference tensors, written in place.
+
+    def _refuse_seq(self, hook: str) -> None:
+        """Serving hooks refuse a seq-sharded engine: per-row cache
+        writes, row splices and cache pages assume whole-window rows on
+        one device."""
+        if self.seq_shards > 1:
+            raise ValueError(
+                f"{hook} does not support a seq-sharded engine (mesh "
+                f"seq={self.seq_shards}): serving assumes whole-window "
+                "cache rows; use DecodeEngine.generate / TextGenerator "
+                "for seq-parallel long-context decode")
+
+    def serve_prefill(self, prompts, true_len, live, row_seeds) -> tuple:
+        """Prefill one join cohort: prompts (N, bucket) right-padded,
+        per-row true lengths, `live=False` born-done pad rows, per-row
+        sampling streams (`_mix(seed, request id)`).  Returns (tok, done,
+        caches): the cohort's first generated token per row and its
+        bucket-window caches, ready to splice into a resident batch with
+        `merge_cache_rows`.  Prompts take numpy arrays or tensors."""
+        self._refuse_seq("serve_prefill")
+        dev = self.device
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                                  device=dev)
+        with torch.inference_mode():
+            out = self.prefill(
+                prompts, torch.as_tensor(np.asarray(true_len),
+                                         dtype=torch.long, device=dev),
+                torch.as_tensor(np.asarray(live), dtype=torch.bool,
+                                device=dev), list(row_seeds))
+        self._program("prefill", *prompts.shape)
+        return out
+
+    def serve_step(self, caches, tok, done, true_len, budget, bucket: int,
+                   t_row, row_seeds, seg_len: int, window: int) -> tuple:
+        """Advance a mixed-age resident batch `seg_len` decode steps (the
+        JAX `serve_segment_impl`): per-row step offsets `t_row` (a joined
+        row starts at 0 while resident rows are mid-generation) and
+        per-row token budgets.  Returns (caches, toks (B, seg_len), tok,
+        done): `toks` holds the tokens each step PRODUCED, a frozen row
+        repeating its token.  A row freezes on a stop token, when its
+        budget is spent (t + 1 >= budget), or when it was done already;
+        a free slot is born done.  Row r writes its K/V at slot
+        bucket + t_row[r] + step, clamped into the window, and reads
+        under its own visibility mask through the decode kernel (K4).
+        `window` must cover the highest slot a live row writes
+        (`serve_window`); a resident cache never shrinks."""
+        self._refuse_seq("serve_step")
+        dev = self.device
+
+        def on_dev(x, dtype):
+            return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
+                                   else x, dtype=dtype, device=dev)
+
+        b = len(row_seeds)
+        w_in = int(caches[0][0].shape[1])
+        window = max(int(window), w_in)
+        max_pos = self.weights.max_len - 1
+        with torch.inference_mode():
+            tok, done = on_dev(tok, torch.long), on_dev(done, torch.bool)
+            true_len = on_dev(true_len, torch.long)
+            budget, t_row = (on_dev(x, torch.long) for x in (budget, t_row))
+            caches = [tuple(_grow_cache(c, window) for c in layer)
+                      for layer in caches]
+            slots = torch.arange(window, device=dev)[None, :]
+            prompt_visible = slots < true_len[:, None]
+            emitted = []
+            for s_off in range(seg_len):
+                t = t_row + s_off                      # (B,) per-row step
+                slot = torch.clamp(bucket + t, max=window - 1)
+                visible = prompt_visible | ((slots >= bucket)
+                                            & (slots <= slot[:, None]))
+                logits = _decode_step(
+                    self.weights, tok, torch.clamp(true_len + t, max=max_pos),
+                    caches, functools.partial(_window_read, visible=visible,
+                                              slot=slot))
+                nxt = torch.where(done, tok,
+                                  self._sample(logits, row_seeds, t + 1))
+                done = done | self._stop_gate(nxt, t + 2) | (t + 1 >= budget)
+                emitted.append(nxt)
+                tok = nxt
+            toks = torch.stack(emitted, dim=1)
+        self._program("serve_segment", b, w_in, window, seg_len)
+        return caches, toks, tok, done
+
+    def serve_window(self, bucket: int, max_t: int, seg_len: int) -> int:
+        """The chunk-rounded cache window covering a segment whose oldest
+        live row sits at step `max_t`, capped at the model's position
+        budget (frozen rows past the cap clamp their writes in-window)."""
+        need = min(bucket + max_t + seg_len, self.weights.max_len)
+        return _round_up(max(need, bucket + 1), self.chunk)
+
+    @staticmethod
+    def merge_cache_rows(dst_caches, src_caches, dst_rows, src_rows,
+                         mesh=None) -> list:
+        """Splice cohort cache rows into a resident batch: row
+        `src_rows[i]` of `src_caches` replaces row `dst_rows[i]` of
+        `dst_caches`.  Both sides are grown to the wider window first
+        (zero-pad), so a freshly prefilled cohort joins a long-running
+        batch.  Both cache layouts (2-tuple model dtype, 4-tuple int8) work:
+        every tensor is row-indexed on axis 0.  Returns the merged caches;
+        a `dst_caches` tensor that needs no growth is written in place.
+        `mesh`: the JAX signature's; a seq > 1 mesh is refused."""
+        if mesh is not None and mesh.shape[SEQ_AXIS] > 1:
+            raise ValueError(
+                "merge_cache_rows refuses seq-sharded caches (mesh seq>1): "
+                "row splicing assumes whole-window rows")
+        window = max(dst_caches[0][0].shape[1], src_caches[0][0].shape[1])
+        with torch.inference_mode():
+            merged = []
+            for dst_layer, src_layer in zip(dst_caches, src_caches):
+                layer = []
+                for d, s in zip(dst_layer, src_layer):
+                    d = _grow_cache(d, window)
+                    di = torch.as_tensor(list(dst_rows), dtype=torch.long,
+                                         device=d.device)
+                    si = torch.as_tensor(list(src_rows), dtype=torch.long,
+                                         device=s.device)
+                    d[di] = _grow_cache(s, window)[si].to(d.device)
+                    layer.append(d)
+                merged.append(tuple(layer))
+        return merged
+
+    @property
+    def compiled_programs(self) -> int:
+        """Distinct shape classes the serving hooks have run so far (the
+        JAX engine's compiled programs: a prefill per (cohort, bucket), a
+        segment per (batch, window in, window, steps)).  Nothing compiles
+        here; warmup's coverage and a per-class CUDA graph read it."""
+        return len(self._programs)
+
+    def _program(self, *key) -> None:
+        """Register one executed shape class; a NEW class surfaces as a
+        telemetry `recompile` event, as in the JAX engine."""
+        if key not in self._programs:
+            self._programs.add(key)
+            trace_event("recompile", cat="compile", where="decode",
+                        program=str(key))
 
 
 def _window_read(cache: tuple, q: torch.Tensor, k: torch.Tensor,

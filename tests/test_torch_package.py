@@ -648,3 +648,80 @@ def test_flash_autograd_matches_plain_autograd(cuda, dtype):
         do.detach())
     for a, b in zip(got, ref):
         _assert_grad_close(a, b, dtype)
+
+
+# ------------------------------------------------ serving on the card ---
+
+SERVE_CFG = {"vocab_size": 256, "d_model": 256, "n_heads": 4, "n_layers": 2,
+             "max_len": 1024, "dtype": "bfloat16"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["model", "int8"])
+def test_serve_step_runs_the_decode_kernel_on_a_mixed_age_batch(
+        cuda, cache, monkeypatch):
+    """`serve_step` over a resident batch whose rows sit at different
+    ages, with a free slot (born done) and a row that spends its budget
+    mid-segment: every K4 read inside it agrees with the plain read on
+    the same inputs, and K4 launches n_layers x seg_len times."""
+    from mmlspark_tpu_torch.models import generate
+    bundle = ModelBundle.init("TransformerLM", SERVE_CFG, seed=3)
+    engine = DecodeEngine(bundle.module(cuda), 24, chunk=16,
+                          cache_dtype=cache, device=cuda)
+    rng = np.random.default_rng(3)
+    lengths, bucket = [5, 9, 16, 1], 16
+    prompts = np.zeros((4, bucket), np.int64)
+    for j, n in enumerate(lengths):
+        prompts[j, :n] = rng.integers(0, SERVE_CFG["vocab_size"], n)
+    live = np.asarray([True, True, True, False])
+    tok, done, caches = engine.serve_prefill(prompts, lengths, live,
+                                             [0, 1, 2, 3])
+    errs = []
+    kernel = generate.fused_single_query_attention
+
+    def checked(q, k, v, visible, **scales):
+        out = kernel(q, k, v, visible, **scales)
+        ref = fused_single_query_attention_plain(q, k, v, visible, **scales)
+        errs.append((out - ref).abs().max().item())
+        return out
+
+    monkeypatch.setattr(generate, "fused_single_query_attention", checked)
+    seg, t_row = 8, np.asarray([0, 3, 9, 0])
+    budget = np.asarray([24, 6, 24, 0])
+    window = engine.serve_window(bucket, int(t_row.max()), seg)
+    before = fused_single_query_attention.launches
+    caches, toks, tok, done = engine.serve_step(
+        caches, tok, done, lengths, budget, bucket, t_row, [0, 1, 2, 3],
+        seg, window)
+    torch.cuda.synchronize()
+    assert fused_single_query_attention.launches - before == \
+        SERVE_CFG["n_layers"] * seg
+    assert len(errs) == SERVE_CFG["n_layers"] * seg
+    assert max(errs) <= 2e-3
+    assert caches[0][0].shape[1] == window == 48
+    done = done.cpu().numpy()
+    assert done[1] and done[3] and not done[0] and not done[2]
+    toks = toks.cpu().numpy()
+    assert ((toks >= 0) & (toks < SERVE_CFG["vocab_size"])).all()
+    assert (toks[1, 2:] == toks[1, 2]).all()   # frozen after its budget
+
+
+@pytest.mark.cuda
+def test_warmup_builds_and_runs_both_serving_kernels(cuda):
+    """Readiness means the kernels are built and loaded: warming a bucket
+    of 512 runs K1 at every cohort prefill and K4 at every step."""
+    from mmlspark_tpu_torch.ops.native import _libs
+    from mmlspark_tpu_torch.serve import ServeConfig, ServingEngine
+    bundle = ModelBundle.init("TransformerLM", SERVE_CFG, seed=4)
+    engine = ServingEngine(bundle, ServeConfig(
+        max_new_tokens=16, max_batch=2, segment_steps=8,
+        warmup_buckets=(512,)), device=cuda)
+    before = (flash_attention.launches, fused_single_query_attention.launches)
+    engine.warmup()
+    assert engine.ready
+    assert {"flash_attention", "decode_attention"} <= set(_libs)
+    layers = SERVE_CFG["n_layers"]
+    # cohorts of 1 and 2 rows; two 8-step segments of a 16-token ladder
+    assert flash_attention.launches - before[0] == 2 * layers
+    assert fused_single_query_attention.launches - before[1] == \
+        2 * 8 * layers
