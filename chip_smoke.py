@@ -2,7 +2,8 @@
 hand-written kernels from `mmlspark_tpu_torch/csrc/`, holds each against
 its plain PyTorch version, drives the LM serving path
 (`TextGenerator.transform` -> `DecodeEngine.generate`), the online
-serving engine over HTTP, and the LM training path
+serving engine and a replicated fleet of them over HTTP, and the LM
+training path
 (`Trainer.fit_arrays`) at the full width of the repo's LM bench
 configuration and the seq-sharded long-context decode path at the width
 of its long-context configuration, and times kernels and paths.
@@ -67,6 +68,17 @@ Phases (any failure exits non-zero before the result line):
      clean drain; the repo's serving bench arms (continuous vs static
      goodput, latency percentiles, 88 of 96 shed at a queue of 8); one
      profiled pass of the HTTP traffic
+ 13. the replicated fleet (`build_fleet` of 2 replicas on this card +
+     `start_router` + `start_http` -> `Router` -> `Replica`s -> the
+     engines) at the width of phase 6 with chunked prefill (512) and the
+     prefix pool: the phase-12 prompts and four prompts sharing an
+     896-token prefix over HTTP, at f32 (tokens equal the offline
+     whole-prompt engine's), bf16 and bf16 with an int8 cache; K1 and K4
+     launch counts exact against the replicas' spans, pool hits >= 3 on
+     the replica affinity picked; at f32 a replica crashed mid-pass and
+     every request still exact; a chunk's and a resumed prefill's ms;
+     the repo's fleet bench arms (chunked first token, the Zipf prefix
+     arm, the router arm with one replica slowed 4x)
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -83,6 +95,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1693,6 +1706,31 @@ def phase_serving(dev, card) -> dict:
     return out
 
 
+def serve_bench_workload() -> tuple:
+    """bench.py bench_serve's requests (prompts of 40-64 tokens, 3 short
+    budgets to 1 long) and its per-engine ServeConfig fields."""
+    b = SERVE_BENCH
+    rng = np.random.default_rng(0)
+    vocab = SERVE_BENCH_CONFIG["vocab_size"]
+    prompts = [rng.integers(0, vocab, (b["lens"][i % len(b["lens"])],))
+               .astype(np.int32) for i in range(b["n_req"])]
+    budgets = [b["long_new"] if i % 4 == 3 else b["short_new"]
+               for i in range(b["n_req"])]
+    scfg = dict(max_new_tokens=b["long_new"], max_batch=b["max_batch"],
+                queue_capacity=max(b["n_req"], b["offered"]),
+                segment_steps=b["seg"], default_deadline_s=600.0,
+                cache_chunk=b["chunk"])
+    return prompts, budgets, scfg
+
+
+def drain_inline(engine, requests) -> None:
+    """Tick an inline engine until every request finished (or it idles)."""
+    while any(not r.finished for r in requests):
+        if not engine._tick():
+            break
+    engine._tick()
+
+
 def serve_bench(dev, card) -> dict:
     """bench.py bench_serve arms 1 and 2 on the port, at bf16."""
     import gc
@@ -1704,22 +1742,8 @@ def serve_bench(dev, card) -> dict:
         ServingEngine
     b = SERVE_BENCH
     bundle = ModelBundle.init("TransformerLM", SERVE_BENCH_CONFIG, seed=0)
-    rng = np.random.default_rng(0)
     vocab = SERVE_BENCH_CONFIG["vocab_size"]
-    prompts = [rng.integers(0, vocab, (b["lens"][i % len(b["lens"])],))
-               .astype(np.int32) for i in range(b["n_req"])]
-    budgets = [b["long_new"] if i % 4 == 3 else b["short_new"]
-               for i in range(b["n_req"])]
-    scfg = dict(max_new_tokens=b["long_new"], max_batch=b["max_batch"],
-                queue_capacity=max(b["n_req"], b["offered"]),
-                segment_steps=b["seg"], default_deadline_s=600.0,
-                cache_chunk=b["chunk"])
-
-    def drain_inline(engine, requests):
-        while any(not r.finished for r in requests):
-            if not engine._tick():
-                break
-        engine._tick()
+    prompts, budgets, scfg = serve_bench_workload()
 
     def timed(engine, batches):
         """The best wall of `reps` passes, each batch drained before the
@@ -1838,6 +1862,544 @@ def serve_bench(dev, card) -> dict:
     return out
 
 
+# chip_smoke phase 13: the replicated colocated fleet at the width of phase 6
+FLEET_SERVE = dict(max_new_tokens=MAX_NEW, max_batch=8, segment_steps=16,
+                   cache_chunk=64, prefill_chunk=512, prefix_cache=True)
+# one prompt of an 896-token prefix and a 64-token suffix, then three more
+# with the same prefix and new suffixes (each a pool hit of 896 tokens)
+SHARED_PREFIX, SHARED_SUFFIX, SHARED_LATER = 896, 64, 3
+# bench.py bench_lm_decode arm 5, the full arm (bf16, the bench's dtype)
+FIRST_TOKEN = dict(config={"vocab_size": 8192, "d_model": 1024,
+                           "n_heads": 8, "n_layers": 4, "max_len": 1024,
+                           "dtype": "bfloat16"},
+                   chunk=128, long=896, short=32, new=32)
+# bench.py bench_serve arm 5, the full arm, f32 for its exact gate, with 4
+# heads for the bench's 8: its head dim of 32 is one the port's K1 and K4
+# do not cover (64 and 128 only), and the port raises rather than falling
+# back to a plain version on the card
+ZIPF = dict(config={"vocab_size": 8192, "d_model": 256, "n_heads": 4,
+                    "n_layers": 4, "max_len": 1024, "dtype": "float32"},
+            n=16, new=8, chunk=64, prefix=896, suffix=64, reps=3)
+
+
+def post_all(port, named: dict, then: Optional[dict] = None) -> dict:
+    """POST every (name, prompt) of `named` to /generate from its own
+    client thread; once the last of them has its response, the prompts of
+    `then` the same way.  The responses by name, the wall seconds and the
+    tokens served."""
+    import threading
+    results: dict = {}
+
+    def post(name, prompt):
+        results[name] = http_json(port, "POST", "/generate",
+                                  {"prompt": prompt.tolist(),
+                                   "deadline_ms": 600000})
+
+    t0 = time.perf_counter()
+    threads = []
+    for wave in (named, then or {}):
+        started = [threading.Thread(target=post, args=item)
+                   for item in wave.items()]
+        for t in started:
+            t.start()
+        if wave is named and started:
+            started[-1].join(600)
+        threads += started
+    for t in threads:
+        t.join(600)
+    seconds = time.perf_counter() - t0
+    tokens = sum(len(r[1].get("tokens", [])) for r in results.values())
+    return {"results": results, "seconds": seconds, "tokens": tokens}
+
+
+def arm_crash(router) -> dict:
+    """Once `armed["on"]`, the first replica holding a row that has run a
+    decode segment raises from its next scheduler pass, on the router's
+    own thread: `Replica.tick` takes the crash path (`Replica.crash()`:
+    its rows fail, the router fails them over and ejects it)."""
+    armed = {"on": False, "crashed": None}
+    for rep in router.replicas:
+        def faulty(engine=rep.engine, tick=rep.engine._tick, name=rep.name):
+            if armed["on"] and armed["crashed"] is None and any(
+                    len(g.rows[i].tokens) > 1
+                    for g in list(engine._groups.values())
+                    for i in g.live_slots()):
+                armed["crashed"] = name
+                raise RuntimeError("injected fault: replica crash mid-pass")
+            return tick()
+        rep.engine._tick = faulty
+    return armed
+
+
+def fleet_launch_plan(records, n_layers: int) -> dict:
+    """The K1 and K4 launches the fleet's own spans call for: K1 once per
+    layer at every prefill segment of >= 512 tokens at slot 0 (a
+    whole-prompt prefill of such a bucket, or chunk 0 of such chunks),
+    K4 once per layer at every decode step of every replica."""
+    spans = [r for r in records if r.get("type") == "span"]
+    whole = sum(1 for r in spans if r["name"] == "serve.prefill"
+                and r["attrs"]["bucket"] >= 512)
+    chunk0 = sum(1 for r in spans if r["name"] == "serve.prefill_chunk"
+                 and r["attrs"]["index"] == 0
+                 and r["attrs"]["bucket"] // r["attrs"]["chunks"] >= 512)
+    steps = sum(r["attrs"]["seg_len"] for r in spans
+                if r["name"] == "serve.segment")
+    resumes = sum(1 for r in spans if r["name"] == "serve.prefill_resume")
+    return {"whole_prefills": whole, "chunk0_prefills": chunk0,
+            "resumes": resumes, "decode_steps": steps,
+            "K1": n_layers * (whole + chunk0), "K4": n_layers * steps}
+
+
+def prefill_timings(weights, dev, prompt, card) -> dict:
+    """A chunk's prefill against the whole-prompt prefill of its bucket,
+    and a resumed prefill against a fresh one, on one row of `prompt`
+    (CUDA events, median of 20 after 3 warm-up calls)."""
+    from mmlspark_tpu_torch.models import DecodeEngine
+    eng = DecodeEngine(weights, MAX_NEW, chunk=FLEET_SERVE["cache_chunk"],
+                       prefill_chunk=FLEET_SERVE["prefill_chunk"],
+                       device=dev)
+    bucket = eng.bucket_for(len(prompt))
+    padded = np.zeros((1, bucket), np.int64)
+    padded[0, :len(prompt)] = prompt
+    tl, live = [len(prompt)], np.ones(1, bool)
+    state0 = eng.serve_prefill_chunk(padded, tl, 0, None)
+
+    def chunked():
+        state = eng.serve_prefill_chunk(padded, tl, 0, None)
+        for ci in range(1, eng.serve_prefill_chunks(bucket)):
+            state = eng.serve_prefill_chunk(padded, tl, ci, state)
+        return eng.serve_prefill_finish(state, live, [0])
+
+    _, _, caches = eng.serve_prefill(padded, tl, live, [0])
+    donor = [tuple(t[:, :SHARED_PREFIX].clone() for t in layer)
+             for layer in caches]
+    out = {"bucket": bucket, "chunks": eng.serve_prefill_chunks(bucket),
+           "chunk0_ms": cuda_ms(lambda: eng.serve_prefill_chunk(
+               padded, tl, 0, None)),
+           "chunk1_ms": cuda_ms(lambda: eng.serve_prefill_chunk(
+               padded, tl, 1, state0)),
+           "chunked_ms": cuda_ms(chunked),
+           "whole_ms": cuda_ms(lambda: eng.serve_prefill(padded, tl, live,
+                                                         [0])),
+           "resume_ms": cuda_ms(lambda: eng.serve_prefill_resume(
+               padded, tl, SHARED_PREFIX, donor, live, [0])),
+           "matched": SHARED_PREFIX}
+    print(f"  prefill of one {len(prompt)}-token row, bucket {bucket}: "
+          f"chunk 0 (K1) {out['chunk0_ms']:.3f} ms, chunk 1 (dense) "
+          f"{out['chunk1_ms']:.3f} ms, chunked {out['chunked_ms']:.3f} ms "
+          f"vs whole {out['whole_ms']:.3f} ms; resumed after "
+          f"{SHARED_PREFIX} pooled tokens {out['resume_ms']:.3f} ms vs "
+          f"fresh chunked {out['chunked_ms']:.3f} ms [{card}]")
+    return out
+
+
+def phase_fleet(dev, card) -> dict:
+    """The replicated serving fleet at full width (chip_smoke phase 13).
+
+    (a) `build_fleet` of 2 replicas on this card over the slice-1
+        configuration, `ServeConfig(max_new_tokens=64, max_batch=8,
+        segment_steps=16, cache_chunk=64, prefill_chunk=512,
+        prefix_cache=True)`, `RouterConfig(replicas=2,
+        prefix_affinity=True)`, `start_router` + `start_http`: the phase-12
+        prompts (buckets 1024 chunked in two 512-token chunks, 1984
+        whole) and a 960-token prompt of an 896-token prefix, then three
+        more with its prefix (pool hits, resumed inline) over HTTP; at
+        f32 (tokens equal the offline whole-prompt `DecodeEngine`'s),
+        bf16 and bf16 with an int8 cache (in-vocabulary rows, agreement
+        printed).  Every response 200 after /readyz 200; K1 = n_layers x
+        the prefill segments of >= 512 tokens at slot 0 and K4 = n_layers
+        x the decode steps of both replicas, exactly, off the engines'
+        own spans; pool hits >= 3 with hit_tokens >= 3 x 896, the shared
+        prompts on one replica by affinity.  At f32 a second pass: the
+        replica holding rows crashes mid-pass (on the router's thread);
+        every request completes with the offline tokens, a retry is
+        counted and the replica is ejected.
+    (b) a chunk's prefill ms against the whole prompt's of its bucket, a
+        resumed prefill against a fresh one (bf16).
+    (c) the three fleet arms of bench.py at their own widths: chunked-
+        prefill first token (bench_lm_decode arm 5), the Zipf prefix arm
+        (bench_serve arm 5) and the router arm (bench_serve arm 3)."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    bucket_length)
+    from mmlspark_tpu_torch.observe.telemetry import run_telemetry
+    from mmlspark_tpu_torch.serve import (RouterConfig, ServeConfig,
+                                          build_fleet)
+    from mmlspark_tpu_torch.serve.lifecycle import (start_http,
+                                                    start_router, stop_http)
+    n_layers, vocab = LM_CONFIG["n_layers"], LM_CONFIG["vocab_size"]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in PROMPT_LENGTHS]
+    srng = np.random.default_rng(13)
+    prefix = srng.integers(0, vocab, SHARED_PREFIX).astype(np.int32)
+    shared = [np.concatenate([prefix, srng.integers(
+        0, vocab, SHARED_SUFFIX).astype(np.int32)])
+        for _ in range(1 + SHARED_LATER)]
+    first = {**dict(enumerate(prompts)), "shared0": shared[0]}
+    later = {f"shared{j}": shared[j] for j in range(1, len(shared))}
+    names = list(first) + list(later)
+    every = list(first.values()) + list(later.values())
+    buckets = tuple(sorted({bucket_length(len(p), LM_CONFIG["max_len"],
+                                          MAX_NEW) for p in every}))
+    base = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {}
+    for name, dtype, cache in (("f32", "float32", "model"),
+                               ("bf16", "bfloat16", "model"),
+                               ("bf16_int8", "bfloat16", "int8")):
+        bundle = ModelBundle("TransformerLM", {**LM_CONFIG, "dtype": dtype},
+                             base.variables)
+        scfg = ServeConfig(**FLEET_SERVE, cache_dtype=cache,
+                           default_deadline_s=600.0, warmup_buckets=buckets)
+        failover = None
+        with run_telemetry(None) as rt:
+            router = build_fleet(bundle, cfg=RouterConfig(
+                replicas=2, prefix_affinity=True, default_deadline_s=600.0),
+                serve_cfg=scfg, device=dev)
+            t0 = time.perf_counter()
+            start_router(router, install_sigterm=False)
+            warm_s = time.perf_counter() - t0
+            armed = arm_crash(router) if name == "f32" else None
+            server = start_http(router, port=0)
+            port = server.server_address[1]
+            try:
+                ready = http_json(port, "GET", "/readyz")[0]
+                require(ready == 200, f"fleet {name}: /readyz was {ready} "
+                        f"before the first POST")
+                torch.cuda.synchronize()
+                reset_counts()
+                traffic = post_all(port, first, later)
+                torch.cuda.synchronize()
+                launched = read_counts()
+                records = rt.tracer.records()
+                stats = http_json(port, "GET", "/statz")[1]
+                if armed is not None:
+                    armed["on"] = True
+                    failover = post_all(port, dict(enumerate(prompts)))
+                    failover["stats"] = http_json(port, "GET", "/statz")[1]
+            finally:
+                stop_http(server)
+                router.stop()
+            require(router.state == "stopped",
+                    f"fleet {name}: drain ended {router.state}")
+        results = traffic["results"]
+        statuses = sorted({results[k][0] for k in names})
+        require(statuses == [200], f"fleet {name}: statuses {statuses}")
+        got = [results[k][1]["tokens"] for k in names]
+        for row in got:
+            require(len(row) == MAX_NEW and all(0 <= t < vocab for t in row),
+                    f"fleet {name}: a row out of the vocabulary")
+        plan = fleet_launch_plan(records, n_layers)
+        k1, k4 = (launched["flash_attention"],
+                  launched["fused_single_query_attention"])
+        require(k1 == plan["K1"] and plan["whole_prefills"] > 0
+                and plan["chunk0_prefills"] > 0,
+                f"fleet {name}: K1 launched {k1}, expected {n_layers} x "
+                f"({plan['whole_prefills']} whole + "
+                f"{plan['chunk0_prefills']} chunk-0 prefills)")
+        require(k4 == plan["K4"] and plan["decode_steps"] > 0,
+                f"fleet {name}: K4 launched {k4}, expected {n_layers} x "
+                f"{plan['decode_steps']} decode steps")
+        pools = [h["prefix"] for h in stats["replicas"].values()]
+        hits = sum(p["hits"] for p in pools)
+        hit_tokens = sum(p["hit_tokens"] for p in pools)
+        require(hits >= SHARED_LATER
+                and hit_tokens >= SHARED_LATER * SHARED_PREFIX
+                and plan["resumes"] >= SHARED_LATER,
+                f"fleet {name}: pool hits {hits} ({hit_tokens} tokens), "
+                f"{plan['resumes']} resumes")
+        routing = [r for r in records if r.get("type") == "routing"]
+        shared_ids = {results[k][1]["request"] for k in names
+                      if str(k).startswith("shared")}
+        placed = {r["replica"] for r in routing if r["event"] == "dispatch"
+                  and r.get("request") in shared_ids}
+        steered = {r["request"] for r in routing if r["event"] == "affinity"}
+        require(len(placed) == 1 and shared_ids <= steered
+                and stats.get("affinity_routes", 0) >= len(shared_ids),
+                f"fleet {name}: the shared-prefix requests went to {placed}, "
+                f"affinity routes {stats.get('affinity_routes')}")
+        weights = ServingWeights(bundle.module(dev))
+        ref = offline_tokens(weights, every, MAX_NEW, scfg.cache_chunk, dev,
+                             cache_dtype=cache)
+        agree = sum(int(a == b) for g, r in zip(got, ref)
+                    for a, b in zip(g, r))
+        if name == "f32":
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if g != r:
+                    at = next(j for j, (a, b) in enumerate(zip(g, r))
+                              if a != b)
+                    print(f"  fleet f32: request {names[i]} differs from "
+                          f"the offline engine first at token {at} "
+                          f"({g[at]} vs {r[at]})")
+            require(got == ref, "fleet f32: tokens differ from the offline "
+                    "whole-prompt DecodeEngine's")
+        out[name] = {
+            "tokens_per_s": traffic["tokens"] / traffic["seconds"],
+            "seconds": traffic["seconds"], "tokens": traffic["tokens"],
+            "warmup_s": warm_s, "launches": {"K1": k1, "K4": k4},
+            "plan": plan, "pool_hits": hits, "pool_hit_tokens": hit_tokens,
+            "affinity_routes": stats.get("affinity_routes", 0),
+            "routed": {n: h["routed"] for n, h in stats["replicas"].items()},
+            "agree_offline": f"{agree}/{MAX_NEW * len(every)}"}
+        print(f"fleet {name} (2 replicas, HTTP, {len(every)} requests x "
+              f"{MAX_NEW} tokens): {out[name]['tokens_per_s']:.1f} tokens/s "
+              f"over {traffic['seconds'] * 1e3:.1f} ms; warmup "
+              f"{warm_s:.2f} s; K1 {k1} = {n_layers} x "
+              f"({plan['whole_prefills']} whole + "
+              f"{plan['chunk0_prefills']} chunk-0), K4 {k4} = {n_layers} x "
+              f"{plan['decode_steps']} steps; pool {hits} hits, "
+              f"{hit_tokens} tokens, {plan['resumes']} resumes; routed "
+              f"{out[name]['routed']}; tokens agree with the offline "
+              f"engine {out[name]['agree_offline']} [{card}]")
+        if failover is not None:
+            fres, fstats = failover["results"], failover["stats"]
+            fstatus = sorted({r[0] for r in fres.values()})
+            fgot = [fres[i][1]["tokens"] for i in range(len(prompts))]
+            crashed = armed["crashed"]
+            require(fstatus == [200] and fgot == ref[:len(prompts)],
+                    f"fleet failover: statuses {fstatus}, tokens equal "
+                    f"{fgot == ref[:len(prompts)]}")
+            require(crashed is not None and fstats.get("retries", 0) >= 1
+                    and fstats["replicas"][crashed]["crashed"]
+                    and fstats["replicas"][crashed]["breaker"]["state"]
+                    == "open",
+                    f"fleet failover: crashed {crashed}, retries "
+                    f"{fstats.get('retries')}")
+            out["failover"] = {
+                "crashed": crashed, "retries": fstats["retries"],
+                "ejections": fstats.get("ejections", 0),
+                "seconds": failover["seconds"],
+                "tokens_per_s": failover["tokens"] / failover["seconds"]}
+            print(f"fleet failover (f32): {crashed} crashed mid-pass; "
+                  f"{len(prompts)}/{len(prompts)} requests 200 with the "
+                  f"offline tokens; {fstats['retries']} retries, "
+                  f"{out['failover']['ejections']} ejections [{card}]")
+        if name == "bf16":
+            out["prefill"] = prefill_timings(weights, dev, shared[1], card)
+        del router, weights
+        torch.cuda.empty_cache()
+    out["first_token"] = bench_first_token(dev, card)
+    out["zipf"] = bench_zipf(dev, card)
+    out["router"] = bench_router(dev, card)
+    return out
+
+
+def bench_first_token(dev, card) -> dict:
+    """bench.py bench_lm_decode arm 5: a resident row decoding, then an
+    896-token prompt with a 32-token one right behind it; the short
+    request's first-token ms (host clock around the ticks) with
+    whole-prompt prefill and with the bench's chunk of 128.  Its bucket
+    is 992 (max_len 1024 less 32 new tokens), which 128 does not divide,
+    so the engine prefills it whole either way; a chunk of 32, which
+    divides 992, is timed beside them."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import bucket_length
+    from mmlspark_tpu_torch.observe.spans import monotonic
+    from mmlspark_tpu_torch.serve import ServeConfig, ServingEngine
+    c = FIRST_TOKEN
+    bundle = ModelBundle.init("TransformerLM", c["config"], seed=0)
+    rng = np.random.default_rng(0)
+    vocab = c["config"]["vocab_size"]
+    long_p = rng.integers(1, vocab, c["long"]).astype(np.int32)
+    short_p = rng.integers(1, vocab, c["short"]).astype(np.int32)
+    resident_p = rng.integers(1, vocab, c["short"] - 1).astype(np.int32)
+
+    buckets = tuple(bucket_length(n, c["config"]["max_len"], c["new"])
+                    for n in (c["short"], c["long"]))
+
+    def first_token_ms(prefill_chunk: int) -> tuple:
+        engine = ServingEngine(bundle, ServeConfig(
+            max_new_tokens=c["new"], max_batch=4, queue_capacity=16,
+            segment_steps=4, cache_chunk=c["chunk"],
+            prefill_chunk=prefill_chunk, default_deadline_s=600.0,
+            warmup_buckets=buckets), device=dev).warmup()
+        best = float("inf")
+        for _ in range(3):
+            r0 = engine.submit(resident_p)
+            engine._tick()
+            lg, sh = engine.submit(long_p), engine.submit(short_p)
+            t0, first = monotonic(), None
+            for _ in range(400):
+                engine._tick()
+                if first is None and len(sh.tokens) > 0:
+                    first = monotonic() - t0
+                if sh.finished and lg.finished and r0.finished:
+                    break
+            require(lg.status == sh.status == r0.status == "ok",
+                    f"first-token arm: statuses {lg.status} {sh.status}")
+            best = min(best, first * 1e3)
+        return best, engine._engines["primary"].serve_prefill_chunks(
+            buckets[1])
+
+    out = {}
+    for label, chunk in (("whole", 0), ("chunk128", c["chunk"]),
+                         ("chunk32", 32)):
+        out[label], out[f"{label}_chunks"] = first_token_ms(chunk)
+    print(f"first-token arm (bench_lm_decode arm 5: vocab {vocab}, d_model "
+          f"{c['config']['d_model']}, bf16; {c['long']} + {c['short']} "
+          f"tokens, bucket {buckets[1]}): the short request's first token "
+          f"{out['whole']:.2f} ms whole, {out['chunk128']:.2f} ms with "
+          f"the bench's chunk 128 ({out['chunk128_chunks']} chunks run), "
+          f"{out['chunk32']:.2f} ms with chunk 32 ({out['chunk32_chunks']} "
+          f"chunks) [{card}]")
+    return out
+
+
+def bench_zipf(dev, card) -> dict:
+    """bench.py bench_serve arm 5: 16 prompts over 4 shared 896-token
+    prefixes (Zipf weights) plus 64-token suffixes, 8 new tokens each,
+    through one engine with and without the prefix pool; goodput (best of
+    3 timed passes after a warm pass that fills the pool), the suffix
+    fraction of prefilled prompt tokens, tokens equal across the arms."""
+    import gc
+
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import bucket_length
+    from mmlspark_tpu_torch.serve import ServeConfig, ServingEngine
+    z = ZIPF
+    bundle = ModelBundle.init("TransformerLM", z["config"], seed=1)
+    vocab = z["config"]["vocab_size"]
+    rng = np.random.default_rng(11)
+    prefixes = [rng.integers(0, vocab, z["prefix"]).astype(np.int32)
+                for _ in range(4)]
+    weights = 1.0 / np.arange(1, 5) ** 1.2
+    prompts = [np.concatenate([prefixes[k], rng.integers(
+        0, vocab, z["suffix"]).astype(np.int32)])
+        for k in rng.choice(4, size=z["n"], p=weights / weights.sum())]
+
+    def run(prefix_cache: bool) -> tuple:
+        kw = dict(max_new_tokens=z["new"], max_batch=SERVE_BENCH["max_batch"],
+                  queue_capacity=max(32, z["n"]),
+                  segment_steps=SERVE_BENCH["seg"], default_deadline_s=600.0,
+                  cache_chunk=z["chunk"], prefill_chunk=z["chunk"])
+        if prefix_cache:
+            kw.update(prefix_cache=True, prefix_max_rows=64)
+        engine = ServingEngine(bundle, ServeConfig(**kw), device=dev)
+        engine.warmup()
+        drain_inline(engine, [engine.submit(p, max_new_tokens=z["new"])
+                              for p in prompts])
+        best_wall, best = float("inf"), None
+        gc.collect()
+        gc.disable()
+        try:
+            for _ in range(z["reps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                reqs = [engine.submit(p, max_new_tokens=z["new"])
+                        for p in prompts]
+                drain_inline(engine, reqs)
+                wall = time.perf_counter() - t0
+                if wall < best_wall:
+                    best_wall, best = wall, reqs
+        finally:
+            gc.enable()
+        return best, best_wall, engine.prefix_stats()
+
+    bucket = bucket_length(z["prefix"] + z["suffix"], z["config"]["max_len"],
+                           z["new"])
+    reuse, reuse_wall, pool = run(True)
+    plain, plain_wall, _ = run(False)
+    require(all(r.status == "ok" for r in reuse + plain)
+            and all(a.tokens == b.tokens for a, b in zip(reuse, plain)),
+            "zipf arm: reuse tokens differ from no-reuse tokens")
+    total = (1 + z["reps"]) * sum(len(p) for p in prompts)
+    out = {"reuse_goodput": sum(len(r.tokens) for r in reuse) / reuse_wall,
+           "plain_goodput": sum(len(r.tokens) for r in plain) / plain_wall,
+           "suffix_fraction": 1.0 - pool["hit_tokens"] / total,
+           "hit_rate": pool["hit_rate"], "hits": pool["hits"],
+           "resident_rows": pool["resident_rows"],
+           "resident_bytes": pool["resident_bytes"], "bucket": bucket}
+    out["speedup"] = out["reuse_goodput"] / out["plain_goodput"]
+    print(f"zipf prefix arm (bench_serve arm 5: vocab {vocab}, d_model "
+          f"{z['config']['d_model']}, {z['config']['n_heads']} heads, f32; "
+          f"{z['n']} prompts over 4 {z['prefix']}-token prefixes, bucket "
+          f"{bucket}): goodput {out['reuse_goodput']:.1f} tokens/s with "
+          f"the pool vs {out['plain_goodput']:.1f} without "
+          f"({out['speedup']:.3f}x); suffix fraction "
+          f"{out['suffix_fraction']:.4f}, hit rate {out['hit_rate']:.4f}, "
+          f"{out['resident_rows']} rows resident; tokens equal [{card}]")
+    return out
+
+
+def bench_router(dev, card) -> dict:
+    """bench.py bench_serve arm 3: the serving bench's 48 requests through
+    a 2-replica router with replica r1 slowed 4x (`inject_slow(4.0)`)
+    against one healthy replica behind the same router; goodput (best of
+    3 timed passes after a warm one), the ratio, the healthy replica's
+    share of the routed attempts; every token equal to the offline
+    engine's.  f32, so the exact gate holds whatever the batch
+    composition."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import ServingWeights
+    from mmlspark_tpu_torch.serve import (RouterConfig, ServeConfig,
+                                          build_fleet)
+    b = SERVE_BENCH
+    variables = ModelBundle.init("TransformerLM", SERVE_BENCH_CONFIG,
+                                 seed=0).variables
+    bundle = ModelBundle("TransformerLM", {**SERVE_BENCH_CONFIG,
+                                           "dtype": "float32"}, variables)
+    prompts, budgets, scfg = serve_bench_workload()
+
+    def run_router(n_replicas: int, degrade=None) -> tuple:
+        router = build_fleet(bundle, cfg=RouterConfig(
+            replicas=n_replicas, queue_capacity=max(b["n_req"], b["offered"]),
+            default_deadline_s=600.0, drain_timeout_s=60.0,
+            hang_timeout_s=600.0), serve_cfg=ServeConfig(**dict(
+                scfg, queue_capacity=b["max_batch"], warmup_joins=True)),
+            device=dev)
+        router.warmup()
+        if degrade is not None:
+            router.replicas[degrade].inject_slow(4.0)
+
+        def pass_once():
+            t0 = time.perf_counter()
+            reqs = [router.submit(p, max_new_tokens=n)
+                    for p, n in zip(prompts, budgets)]
+            while any(not r.finished for r in reqs):
+                router._tick()
+            return reqs, time.perf_counter() - t0
+
+        pass_once()
+        best_wall, best = float("inf"), None
+        for _ in range(b["reps"]):
+            reqs, wall = pass_once()
+            if wall < best_wall:
+                best_wall, best = wall, reqs
+        stats = router.stats()
+        router.stop()
+        return best, best_wall, stats
+
+    fleet, fleet_wall, fleet_stats = run_router(2, degrade=1)
+    single, single_wall, _ = run_router(1)
+    ref = offline_tokens(ServingWeights(bundle.module(dev)), prompts,
+                         b["long_new"], b["chunk"], dev)
+    exact = sum(r.status == "ok" and r.tokens == ref[i][:budgets[i]]
+                for i, r in enumerate(fleet))
+    require(exact == len(prompts),
+            f"router arm: {exact}/{len(prompts)} requests equal the offline "
+            f"tokens")
+
+    def goodput(reqs, wall):
+        return sum(len(r.tokens) for r in reqs if r.status == "ok") / wall
+
+    routed = {n: h["routed"] for n, h in fleet_stats["replicas"].items()}
+    out = {"fleet_goodput": goodput(fleet, fleet_wall),
+           "single_goodput": goodput(single, single_wall),
+           "healthy_share": routed["r0"] / max(1, sum(routed.values())),
+           "routed": routed}
+    out["ratio"] = out["fleet_goodput"] / out["single_goodput"]
+    print(f"router arm (bench_serve arm 3: d_model "
+          f"{SERVE_BENCH_CONFIG['d_model']}, f32; {b['n_req']} requests): "
+          f"2 replicas, r1 slowed 4x, {out['fleet_goodput']:.1f} tokens/s "
+          f"vs one healthy replica {out['single_goodput']:.1f} "
+          f"(ratio {out['ratio']:.3f}); healthy share "
+          f"{out['healthy_share']:.3f} of {sum(routed.values())} routed; "
+          f"{exact}/{len(prompts)} equal the offline tokens [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1887,6 +2449,10 @@ def main() -> int:
     reset_counts()
     serving = phase_serving(dev, card)
     print(json.dumps({"serving": serving, "card": card}))
+    torch.cuda.empty_cache()
+    reset_counts()
+    fleet = phase_fleet(dev, card)
+    print(json.dumps({"fleet": fleet, "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

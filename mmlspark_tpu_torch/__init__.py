@@ -17,7 +17,11 @@ forward with lse and the decode read's stats entry as a CUDA kernel; and
 online serving, `serve.start_engine` + `serve.start_http` ->
 `ServingEngine.submit` -> the `DecodeEngine` serve hooks (continuous
 batching of mixed-age rows, admission, deadlines, drain, HTTP), over the
-flash prefill and the decode read.
+flash prefill and the decode read; and the replicated colocated fleet,
+`serve.build_fleet` + `serve.start_router` (a router over engine
+replicas: power-of-two-choices, ejection, failover under a retry budget,
+hedging, prefix affinity), with chunked prefill and the radix prefix KV
+pool.
 
 Layer map:
   core/    - params DSL, column metadata, DataTable, stage save/load,
@@ -32,10 +36,12 @@ Layer map:
              decode read and its stats entry), the nvcc build/loader
   quant/   - int8 KV-cache quantization
   serve/   - the continuous-batching ServingEngine, admission, requests,
-             the HTTP front end and the lifecycle (threads, SIGTERM drain)
+             the prefix pool, replicas and the router, the HTTP front end
+             and the lifecycle (threads, SIGTERM drain)
   observe/ - logger, counters, spans, traces, run telemetry, SLOs,
              waterfalls, Prometheus text
-  resilience/ - the injectable clock, circuit breakers, the SIGTERM guard
+  resilience/ - the injectable clock, circuit breakers, the SIGTERM
+             guard, the seeded chaos injector
   config.py - the MMLSPARK_TPU_* knob registry (the JAX package's names)
   utils/   - analytic FLOP accounting
   csrc/    - the CUDA sources

@@ -41,10 +41,18 @@ the distribution is the same.
     scheduler (serve/engine.py) drives a resident batch whose rows sit at
     different decode ages; `serialize_cache_row`/`deserialize_cache_row`
     cut a cache row into wire pages the JAX package reads, and read its.
+  * **chunked prefill** — with `prefill_chunk`, a bucket the chunk
+    divides (and exceeds) prefills in chunks: chunk 0 at slot 0 (the
+    flash kernel from `_PREFILL_FLASH_MIN` tokens up), every later chunk
+    through the dense full-cache branch at its offset, the last prompt
+    position's logits carried between chunks; the serve hooks
+    (`serve_prefill_chunk`, `serve_prefill_finish`) let the scheduler
+    interleave the chunks with decode segments, and the resume hooks
+    (`serve_resume_init`, `serve_prefill_resume`) open a prefill from a
+    prefix pool's donor rows and prefill only the novel suffix.
 
 Not ported yet (they raise NotImplementedError): tensor-parallel decode
-(a mesh with model > 1), chunked prefill, speculative decoding, beam
-search.
+(a mesh with model > 1), speculative decoding, beam search.
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
                                               save_bundle)
 from mmlspark_tpu_torch.models.definitions import TransformerLM
-from mmlspark_tpu_torch.observe.trace import trace_event
+from mmlspark_tpu_torch.observe.trace import trace_event, trace_span
 from mmlspark_tpu_torch.ops.attention import (NEG_INF, merge_attention_stats,
                                               ring_attention)
 from mmlspark_tpu_torch.ops.decode_attention import (
@@ -635,9 +643,9 @@ class DecodeEngine:
             _check_mesh(mesh, module, self.device, chunk=chunk,
                         min_bucket=min_bucket, prefill_chunk=prefill_chunk,
                         draft_module=draft_module)
-        if prefill_chunk is not None:
-            raise NotImplementedError(
-                "chunked prefill is not ported (ROADMAP A8 item 2)")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(
+                "prefill_chunk must be >= 1 (None = whole-prompt)")
         if draft_module is not None or spec_tokens:
             raise NotImplementedError(
                 "speculative decoding is not ported (ROADMAP A8 item 3)")
@@ -677,6 +685,7 @@ class DecodeEngine:
         self.min_bucket = min_bucket
         self.cache_dtype = cache_dtype
         self.min_new_tokens = min_new_tokens
+        self.prefill_chunk = prefill_chunk
         greedy = temperature <= 0.0
         self._sample = _make_row_sampler(temperature,
                                          None if greedy else top_k,
@@ -719,23 +728,117 @@ class DecodeEngine:
         if ring is not None:
             last, caches = self._ring_prefill(prompts, true_len, ring)
             return self._first_token(last, live, row_seeds) + (caches,)
-        model = self.weights
         b, p = prompts.shape
-        w0 = _round_up(p + 1, self.chunk)
-        dh = model.d_model // model.n_heads
-        shape = (b, w0, model.n_heads, dh)
-        caches = [(torch.zeros(shape, dtype=model.dtype, device=self.device),
-                   torch.zeros(shape, dtype=model.dtype, device=self.device))
-                  for _ in range(model.n_layers)]
+        caches = self._new_caches(b, _round_up(p + 1, self.chunk))
         logits = _forward_with_cache(self.weights, prompts, caches, 0)
         last = logits[torch.arange(b, device=self.device), true_len - 1]
+        return self._prefill_finish(caches, last, live, row_seeds)
+
+    def _new_caches(self, b: int, window: int) -> list:
+        """Zeroed model-dtype (k, v) caches of `window` slots per layer."""
+        model = self.weights
+        shape = (b, window, model.n_heads, model.d_model // model.n_heads)
+        return [tuple(torch.zeros(shape, dtype=model.dtype,
+                                  device=self.device) for _ in range(2))
+                for _ in range(model.n_layers)]
+
+    # -- chunked prefill (the JAX prefill_chunk0/chunk/finish and
+    # resume_init programs) ------------------------------------------------
+
+    def _prefill_chunk0(self, w0: int, tokens: torch.Tensor,
+                        true_len: torch.Tensor) -> tuple:
+        """Chunk 0 of a chunked prefill, at slot 0: allocates the window-
+        `w0` caches and seeds the running last-prompt-position logits.
+        At slot 0 the chunk's attention is causal self-attention over the
+        chunk, so from `_PREFILL_FLASH_MIN` tokens up it runs the flash
+        kernel, as a whole-prompt prefill does."""
+        b, cl = tokens.shape
+        caches = self._new_caches(b, w0)
+        logits = _forward_with_cache(self.weights, tokens, caches, 0)
+        idx = torch.clamp(true_len - 1, 0, cl - 1)
+        return caches, logits[torch.arange(b, device=logits.device), idx]
+
+    def _prefill_chunk(self, tokens: torch.Tensor, caches: list,
+                       last: torch.Tensor, true_len: torch.Tensor,
+                       c0: int) -> tuple:
+        """One later prompt segment at slot offset `c0` > 0 (a chunk, or a
+        resumed suffix), written into `caches` in place through the dense
+        full-cache branch.  Rows whose last prompt token falls inside the
+        segment take its logits there; the rest keep `last`."""
+        b, cl = tokens.shape
+        width = int(caches[0][0].shape[1])
+        if not 0 < c0 <= c0 + cl <= width:
+            raise ValueError(
+                f"prefill segment [{c0}, {c0 + cl}) does not fit a cache "
+                f"window of {width} slots at an offset past 0")
+        logits = _forward_with_cache(self.weights, tokens, caches, c0)
+        idx = torch.clamp(true_len - 1 - c0, 0, cl - 1)
+        cand = logits[torch.arange(b, device=logits.device), idx]
+        here = (true_len - 1 >= c0) & (true_len - 1 < c0 + cl)
+        return caches, torch.where(here[:, None], cand, last)
+
+    def _prefill_finish(self, caches: list, last: torch.Tensor,
+                        live: torch.Tensor, row_seeds: list) -> tuple:
+        """Sample the first token from the last prompt position's logits
+        and, for an int8 cache, quantize the whole prompt cache once
+        (decode steps quantize each token as they write it)."""
         tok, done = self._first_token(last, live, row_seeds)
         if self.cache_dtype == "int8":
-            # quantize-on-write at prefill granularity: the prompt's whole
-            # cache quantizes once here; decode steps quantize each token
             caches = [quantize_kv(kc) + quantize_kv(vc)
                       for kc, vc in caches]
         return tok, done, caches
+
+    def _resume_init(self, w0: int, row_caches: list) -> tuple:
+        """Open a resumed prefill from donor prefix rows: int8 rows
+        dequantize to the model dtype as the JAX program does
+        (`(kq.float() * scale).to(dtype)`), every row is copied into
+        fresh window-`w0` caches (never a view of the donor: the suffix
+        writes into them in place), and the running logits start at zero
+        (the suffix always holds the last prompt position)."""
+        dtype, caches = self.weights.dtype, []
+        for layer in row_caches:
+            if len(layer) == 4:
+                kq, ks, vq, vs = layer
+                layer = ((kq.float() * ks[..., None]).to(dtype),
+                         (vq.float() * vs[..., None]).to(dtype))
+            fresh = []
+            for t in layer:
+                out = torch.zeros((t.shape[0], w0) + tuple(t.shape[2:]),
+                                  dtype=dtype, device=self.device)
+                out[:, :t.shape[1]] = t.to(self.device)
+                fresh.append(out)
+            caches.append(tuple(fresh))
+        b = int(row_caches[0][0].shape[0])
+        return caches, torch.zeros((b, self.weights.vocab_size),
+                                   device=self.device)
+
+    def _run_chunked_prefill(self, prompts: torch.Tensor,
+                             true_len: torch.Tensor, live: torch.Tensor,
+                             row_seeds: list) -> tuple:
+        """The host loop of a chunked prefill (`generate`): chunk 0, the
+        later chunks at their offsets, then the finish; the same
+        (tok, done, caches) contract and first token as `prefill`."""
+        b, p = prompts.shape
+        cl = self.prefill_chunk
+        w0 = _round_up(p + 1, self.chunk)
+        with trace_span("decode.prefill_chunk", cat="bucket", bucket=p,
+                        batch=b, chunk=cl, index=0):
+            caches, last = self._prefill_chunk0(w0, prompts[:, :cl],
+                                                true_len)
+        self._program("prefill_chunk0", b, cl, w0)
+        for ci in range(1, p // cl):
+            with trace_span("decode.prefill_chunk", cat="bucket", bucket=p,
+                            batch=b, chunk=cl, index=ci):
+                caches, last = self._prefill_chunk(
+                    prompts[:, ci * cl:(ci + 1) * cl], caches, last,
+                    true_len, ci * cl)
+            self._program("prefill_chunk", b, cl, w0)
+        out = self._prefill_finish(caches, last, live, row_seeds)
+        self._program("prefill_finish", b, w0)
+        return out
+
+    def _chunks_prefill(self, bucket: int) -> bool:
+        return self.serve_prefill_chunks(bucket) > 0
 
     def _ring_prefill(self, prompts, true_len, ring) -> tuple:
         """Distributed blockwise prefill of one data group (JAX
@@ -871,11 +974,15 @@ class DecodeEngine:
                 dev = self.device if ring is None else ring[0]
                 tl = torch.as_tensor(tl_host[rows], dtype=torch.long,
                                      device=dev)
-                tok, done, caches = self.prefill(
-                    torch.as_tensor(prompts[rows], dtype=torch.long,
-                                    device=dev), tl,
-                    torch.as_tensor(live[rows], device=dev),
-                    row_seeds[rows], ring)
+                args = (torch.as_tensor(prompts[rows], dtype=torch.long,
+                                        device=dev), tl,
+                        torch.as_tensor(live[rows], device=dev),
+                        row_seeds[rows])
+                # a meshed engine's ring prefill already splits the prompt
+                tok, done, caches = (
+                    self._run_chunked_prefill(*args)
+                    if ring is None and self._chunks_prefill(p)
+                    else self.prefill(*args, ring))
                 states.append([caches, tok, done, tl])
             for t0, seg_len, window in decode_segments(
                     p, self.max_new_tokens, self.chunk):
@@ -934,14 +1041,11 @@ class DecodeEngine:
         `merge_cache_rows`.  Prompts take numpy arrays or tensors."""
         self._refuse_seq("serve_prefill")
         dev = self.device
-        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
-                                  device=dev)
+        prompts = _to_device(prompts, torch.long, dev)
         with torch.inference_mode():
             out = self.prefill(
-                prompts, torch.as_tensor(np.asarray(true_len),
-                                         dtype=torch.long, device=dev),
-                torch.as_tensor(np.asarray(live), dtype=torch.bool,
-                                device=dev), list(row_seeds))
+                prompts, _to_device(true_len, torch.long, dev),
+                _to_device(live, torch.bool, dev), list(row_seeds))
         self._program("prefill", *prompts.shape)
         return out
 
@@ -961,19 +1065,16 @@ class DecodeEngine:
         (`serve_window`); a resident cache never shrinks."""
         self._refuse_seq("serve_step")
         dev = self.device
-
-        def on_dev(x, dtype):
-            return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                                   else x, dtype=dtype, device=dev)
-
         b = len(row_seeds)
         w_in = int(caches[0][0].shape[1])
         window = max(int(window), w_in)
         max_pos = self.weights.max_len - 1
         with torch.inference_mode():
-            tok, done = on_dev(tok, torch.long), on_dev(done, torch.bool)
-            true_len = on_dev(true_len, torch.long)
-            budget, t_row = (on_dev(x, torch.long) for x in (budget, t_row))
+            tok, done = (_to_device(tok, torch.long, dev),
+                         _to_device(done, torch.bool, dev))
+            true_len = _to_device(true_len, torch.long, dev)
+            budget, t_row = (_to_device(x, torch.long, dev)
+                             for x in (budget, t_row))
             caches = [tuple(_grow_cache(c, window) for c in layer)
                       for layer in caches]
             slots = torch.arange(window, device=dev)[None, :]
@@ -1003,6 +1104,111 @@ class DecodeEngine:
         budget (frozen rows past the cap clamp their writes in-window)."""
         need = min(bucket + max_t + seg_len, self.weights.max_len)
         return _round_up(max(need, bucket + 1), self.chunk)
+
+    def serve_prefill_chunks(self, bucket: int) -> int:
+        """How many chunks a chunked prefill of this bucket runs (0 = the
+        whole-prompt prefill applies: chunking off, a bucket no larger
+        than the chunk, or one the chunk does not divide).  Buckets are
+        powers of two (or the model's cap), so a power-of-two chunk
+        divides every power-of-two bucket larger than itself."""
+        cl = self.prefill_chunk
+        if not cl or bucket <= cl or bucket % cl:
+            return 0
+        return bucket // cl
+
+    def serve_prefill_chunk(self, prompts, true_len, index: int,
+                            state) -> tuple:
+        """Run chunk `index` of a join cohort's chunked prefill; `state` is
+        None for chunk 0, else the (caches, last logits) the previous
+        chunk returned (its caches are written in place).  The scheduler
+        interleaves these calls with resident decode segments, so a long
+        prompt does not stall running rows."""
+        self._refuse_seq("serve_prefill_chunk")
+        prompts = np.asarray(prompts)
+        b, p = prompts.shape
+        cl = self.prefill_chunk
+        w0 = _round_up(p + 1, self.chunk)
+        tokens = _to_device(prompts[:, index * cl:(index + 1) * cl],
+                            torch.long, self.device)
+        tl = _to_device(true_len, torch.long, self.device)
+        with torch.inference_mode():
+            if index == 0:
+                state = self._prefill_chunk0(w0, tokens, tl)
+                self._program("prefill_chunk0", b, cl, w0)
+            else:
+                caches, last = state
+                state = self._prefill_chunk(tokens, caches, last, tl,
+                                            index * cl)
+                self._program("prefill_chunk", b, cl, w0)
+        return state
+
+    def serve_prefill_finish(self, state, live, row_seeds) -> tuple:
+        """Close a chunked (or resumed) serve prefill: the same (tok,
+        done, caches) contract as `serve_prefill`, ready for
+        `merge_cache_rows`."""
+        self._refuse_seq("serve_prefill_finish")
+        caches, last = state
+        b, w0 = int(last.shape[0]), int(caches[0][0].shape[1])
+        with torch.inference_mode():
+            out = self._prefill_finish(
+                caches, last, _to_device(live, torch.bool, self.device),
+                list(row_seeds))
+        self._program("prefill_finish", b, w0)
+        return out
+
+    def serve_resume_chunks(self, bucket: int, prefix_len: int) -> int:
+        """How many SUFFIX chunks a chunk-interleaved resume from a
+        `prefix_len`-token donor prefix runs (0 = resume inline through
+        `serve_prefill_resume`: chunking off for this bucket, or a prefix
+        that is not chunk-aligned)."""
+        total = self.serve_prefill_chunks(bucket)
+        cl = self.prefill_chunk
+        if (not total or prefix_len <= 0 or prefix_len >= bucket
+                or prefix_len % cl):
+            return 0
+        return total - prefix_len // cl
+
+    def serve_resume_init(self, row_caches, bucket: int) -> tuple:
+        """Open a resumed prefill from donor prefix rows (a prefix pool
+        hit's chunk payloads, joined on the slot axis; either cache
+        layout): dequantize and copy them into the bucket's window and
+        zero the running logits — a (caches, last) state that
+        `serve_prefill_chunk` (index >= 1) and `serve_prefill_finish`
+        continue.  The donor tensors are only read."""
+        self._refuse_seq("serve_resume_init")
+        w0 = _round_up(bucket + 1, self.chunk)
+        b = int(row_caches[0][0].shape[0])
+        n = int(row_caches[0][0].shape[1])
+        with torch.inference_mode():
+            state = self._resume_init(w0, row_caches)
+        self._program("resume_init", b, n, w0, len(row_caches[0]))
+        return state
+
+    def serve_prefill_resume(self, prompts, true_len, prefix_len: int,
+                             row_caches, live, row_seeds) -> tuple:
+        """Prefill ONLY the novel suffix of prompts whose first
+        `prefix_len` tokens have donor cache rows (a prefix pool hit):
+        one segment at offset `prefix_len` over the whole suffix through
+        the dense full-cache branch, then the finish — the suffix attends
+        the donor slots as a fresh prefill attends its own, so greedy
+        tokens are a fresh prefill's.  Same (tok, done, caches) contract
+        as `serve_prefill`."""
+        self._refuse_seq("serve_prefill_resume")
+        prompts = np.asarray(prompts)
+        b, p = prompts.shape
+        if not 0 < prefix_len < p:
+            raise ValueError(
+                f"prefix_len ({prefix_len}) must be inside the bucket "
+                f"({p})")
+        caches, last = self.serve_resume_init(row_caches, p)
+        w0 = int(caches[0][0].shape[1])
+        with torch.inference_mode():
+            state = self._prefill_chunk(
+                _to_device(prompts[:, prefix_len:], torch.long, self.device),
+                caches, last, _to_device(true_len, torch.long, self.device),
+                prefix_len)
+        self._program("prefill_chunk", b, p - prefix_len, w0)
+        return self.serve_prefill_finish(state, live, row_seeds)
 
     @staticmethod
     def merge_cache_rows(dst_caches, src_caches, dst_rows, src_rows,
@@ -1050,6 +1256,12 @@ class DecodeEngine:
             self._programs.add(key)
             trace_event("recompile", cat="compile", where="decode",
                         program=str(key))
+
+
+def _to_device(x, dtype, device) -> torch.Tensor:
+    """A host array, list or tensor as a `dtype` tensor on `device`."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                           dtype=dtype, device=device)
 
 
 def _window_read(cache: tuple, q: torch.Tensor, k: torch.Tensor,
@@ -1129,8 +1341,11 @@ class TextGenerator(Transformer):
                          "itself)", ptype=int, validator=lambda v: v >= 1)
     specTokens = Param(0, "speculative decoding (not ported: must stay 0)",
                        ptype=int, validator=lambda v: v >= 0)
-    prefillChunk = Param(0, "chunked prefill (not ported: must stay 0)",
-                         ptype=int, validator=lambda v: v >= 0)
+    prefillChunk = Param(0, "chunked prefill: run prompt forwards in "
+                         "chunks of this many tokens (0 = whole-prompt); "
+                         "a bucket the chunk does not divide, or no "
+                         "larger than it, prefills whole", ptype=int,
+                         validator=lambda v: v >= 0)
 
     def __init__(self, bundle: Optional[ModelBundle] = None, device="cuda",
                  **kwargs):
@@ -1164,7 +1379,7 @@ class TextGenerator(Transformer):
         return self._bundle
 
     def _engine_for(self) -> DecodeEngine:
-        for name in ("beamWidth", "specTokens", "prefillChunk"):
+        for name in ("beamWidth", "specTokens"):
             if self.get(name):
                 raise NotImplementedError(f"{name} is not ported")
         # greedy ignores the filters: normalize them out of the cache key
@@ -1174,7 +1389,8 @@ class TextGenerator(Transformer):
         stops = tuple(int(t) for t in (self.stopTokens or ()))
         kv_dtype = self.kvCacheDtype or "model"
         key = (self.maxNewTokens, self.temperature, top_k, top_p, stops,
-               self.cacheChunk, kv_dtype, self.minNewTokens)
+               self.cacheChunk, kv_dtype, self.minNewTokens,
+               self.prefillChunk or None)
         if key not in self._engines:
             if self._weights is None:
                 # the f32 module is dropped once its Dense weights are cast
@@ -1185,6 +1401,7 @@ class TextGenerator(Transformer):
                 temperature=self.temperature, top_k=top_k, top_p=top_p,
                 stop_tokens=stops, chunk=self.cacheChunk,
                 cache_dtype=kv_dtype, min_new_tokens=self.minNewTokens,
+                prefill_chunk=self.prefillChunk or None,
                 mesh=self._mesh, device=self.device)
         return self._engines[key]
 

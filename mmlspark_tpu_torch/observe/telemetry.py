@@ -100,6 +100,14 @@ class RunTelemetry:
         # degrade, drain decisions in order — the machine-readable account
         # the serving tests assert against
         self._serve: list[dict] = []
+        # the run's fleet-routing timeline (serve/router.py): dispatch,
+        # failover, ejection, probe re-admission — what the router drills
+        # assert their failover/ejection sequences against
+        self._routing: list[dict] = []
+        # the run's prefix-pool timeline (serve/prefix_cache.py via
+        # serve/engine.py): hit, insert, evict, evict_refused events in
+        # order
+        self._prefix: list[dict] = []
         # bounded-time cleanups run at finish() (e.g. stopping a metrics
         # server bound to this run) — never allowed to raise or hang the
         # run exit
@@ -205,6 +213,31 @@ class RunTelemetry:
         self.tracer._record({"type": "serve",
                              "ts": round(self.tracer.now(), 6), **rec})
 
+    def record_routing(self, event: dict) -> None:
+        """Append one fleet-routing event (serve/router.py) to the run's
+        ordered timeline (also streamed as a `routing` record); the full
+        list lands in run_summary.json under `routing` — every dispatch,
+        failover, ejection, and probe re-admission, machine-readable."""
+        if not self.live:
+            return
+        rec = dict(event)
+        self._routing.append(rec)
+        self.tracer._record({"type": "routing",
+                             "ts": round(self.tracer.now(), 6), **rec})
+
+    def record_prefix(self, event: dict) -> None:
+        """Append one prefix-pool event (serve/prefix_cache.py decisions
+        surfaced by serve/engine.py) to the run's ordered timeline (also
+        streamed as a `prefix` record); the full list lands in
+        run_summary.json under `prefix` — every hit (matched/suffix
+        split), insert, eviction, and refused-under-lease eviction."""
+        if not self.live:
+            return
+        rec = dict(event)
+        self._prefix.append(rec)
+        self.tracer._record({"type": "prefix",
+                             "ts": round(self.tracer.now(), 6), **rec})
+
     # -- finalizers --------------------------------------------------------
     def add_finalizer(self, fn) -> None:
         """Register a cleanup to run at `finish()` (LIFO).  Finalizers
@@ -230,14 +263,15 @@ class RunTelemetry:
         return self._build_summary()
 
     def _slo_summary(self) -> dict:
-        """Per-endpoint SLO compliance + burn rates from the serve
-        timeline (observe/slo.py, imported lazily so runs that never
-        serve pay nothing).  Never allowed to fail the summary."""
-        if not self._serve:
+        """Per-endpoint SLO compliance + burn rates from the serve and
+        routing timelines (observe/slo.py, imported lazily so runs that
+        never serve pay nothing).  Never allowed to fail the summary."""
+        if not (self._serve or self._routing):
             return {}
         try:
             from mmlspark_tpu_torch.observe.slo import compute_slo
-            return compute_slo(self._serve, [], now=self.tracer.now())
+            return compute_slo(self._serve, self._routing,
+                               now=self.tracer.now())
         except Exception:
             from mmlspark_tpu_torch.observe.logging import get_logger
             get_logger("observe").warning(
@@ -257,11 +291,13 @@ class RunTelemetry:
             "stage_timings": self.timings.summary(),
             "programs": self.program_summary(),
             "serve": [dict(e) for e in self._serve],
+            "routing": [dict(e) for e in self._routing],
+            "prefix": [dict(e) for e in self._prefix],
             # the timelines of modules not ported yet (the recovery
-            # supervisor, router, handoff, prefix cache, data service,
-            # sweep): empty, so a summary keeps the JAX package's keys
-            **{key: [] for key in ("recovery", "routing", "handoff",
-                                   "prefix", "data_service", "sweep")},
+            # supervisor, handoff, data service, sweep): empty, so a
+            # summary keeps the JAX package's keys
+            **{key: [] for key in ("recovery", "handoff", "data_service",
+                                   "sweep")},
             "trace_records_dropped": self.tracer.dropped,
         }
 

@@ -456,3 +456,28 @@ class AdmissionController:
                 self._batch_queued += 1
         inc_counter("serve.admitted")
         return lane
+
+    def requeue(self, req: Request) -> None:
+        """Put a request back at the HEAD of the queue: the router could
+        not place it this tick (all replicas full or cooling down), or a
+        failover retry is waiting for re-dispatch — arrival order must
+        be preserved either way."""
+        with self._lock:
+            self._queue.appendleft(req)
+            if getattr(req, "priority", INTERACTIVE) == BATCH:
+                self._batch_queued += 1
+
+    def remove(self, req: Request) -> bool:
+        """Withdraw one still-queued request (a router cancelling the
+        losing hedge attempt, or failing a dead replica's backlog over);
+        True when it was found.  The caller owns finishing it."""
+        with self._lock:
+            try:
+                self._queue.remove(req)
+                if (self._batch_queued
+                        and getattr(req, "priority",
+                                    INTERACTIVE) == BATCH):
+                    self._batch_queued -= 1
+                return True
+            except ValueError:
+                return False

@@ -26,6 +26,19 @@ deadline-miss breaker — and when the breaker is open with a degraded
 bundle configured, new traffic runs on that bundle's lane instead of
 being refused.
 
+Long prompts and shared prefixes:
+
+  * CHUNKED PREFILL (`prefill_chunk`) — a cohort whose bucket the chunk
+    divides prefills ONE chunk per tick (`_pending` jobs, their slots
+    reserved), between the joins and the segments, so a long prompt's
+    forward interleaves with resident decode segments instead of
+    stalling them.
+  * THE PREFIX POOL (`prefix_cache`, serve/prefix_cache.py) — every
+    spliced request's chunk-aligned prompt prefix stays resident; a later
+    request sharing whole chunks of it resumes from those rows and
+    prefills only its novel suffix (inline, or chunk by chunk when the
+    prefix is chunk-aligned), with greedy tokens a fresh prefill's.
+
 Every request carries a `serve.request` span; segments and prefills are
 span-timed and feed the admission controller's per-bucket EWMAs.  The
 span around a hook call closes only after the hook's outputs reached the
@@ -41,9 +54,8 @@ the JAX engine's `fold_in(key(seed), id)`: greedy output is the JAX
 engine's; sampled output agrees in distribution.
 
 Not ported yet (they raise NotImplementedError, naming the ROADMAP step):
-chunked prefill, the prefix cache, speculative decoding, the
-disaggregated roles (prefill/decode tiers and `splice_remote`), and
-serving over a mesh.
+speculative decoding, the disaggregated roles (prefill/decode tiers and
+`splice_remote`), and serving over a mesh.
 """
 
 from __future__ import annotations
@@ -71,6 +83,7 @@ from mmlspark_tpu_torch.serve.admission import (AdmissionController,
                                                 InvalidRequest,
                                                 MissRateBreaker, Overloaded,
                                                 StepTimeEstimator)
+from mmlspark_tpu_torch.serve.prefix_cache import PrefixCache
 from mmlspark_tpu_torch.serve.request import (CANCELLED, INTERACTIVE, OK,
                                               PRIORITIES, TIMEOUT, Request)
 
@@ -100,8 +113,12 @@ SERVE_WARMUP_JOINS = config.register(
     "merges and terminal segments at each grown cache width)", ptype=bool)
 SERVE_PREFILL_CHUNK = config.register(
     "MMLSPARK_TPU_SERVE_PREFILL_CHUNK", 0,
-    "serving: chunked prefill in chunks of this many prompt tokens "
-    "(0 = whole-prompt prefill; > 0 is not ported)", ptype=int)
+    "serving: chunked prefill — join cohorts prefill in chunks of this "
+    "many prompt tokens, ONE chunk per scheduler tick, so a long "
+    "prompt's forward interleaves with resident decode segments instead "
+    "of stalling them (0 = whole-prompt prefill; power of two "
+    "recommended — buckets a non-divisor chunk doesn't divide fall back "
+    "to whole-prompt)", ptype=int)
 SERVE_SPEC_TOKENS = config.register(
     "MMLSPARK_TPU_SERVE_SPEC_TOKENS", 0,
     "serving: speculative decoding draft depth (0 = off; > 0 is not "
@@ -117,8 +134,19 @@ SERVE_CACHE_DTYPE = config.register(
     "symmetric quantize-on-write)", ptype=str)
 SERVE_PREFIX_CACHE = config.register(
     "MMLSPARK_TPU_SERVE_PREFIX_CACHE", False,
-    "serving: cross-request radix prefix KV cache (True is not ported)",
-    ptype=bool)
+    "serving: cross-request radix prefix KV cache — finished prefill "
+    "rows stay resident at cache_chunk granularity and later requests "
+    "sharing a chunk-aligned prompt prefix splice them in, prefilling "
+    "only the novel suffix (decode/colocated roles only; greedy outputs "
+    "stay byte-identical at model dtype)", ptype=bool)
+SERVE_PREFIX_MAX_ROWS = config.register(
+    "MMLSPARK_TPU_SERVE_PREFIX_MAX_ROWS", 64,
+    "serving: prefix-pool LRU budget in resident CHUNK rows (one row = "
+    "one cache_chunk of KV slots); leased rows never evict", ptype=int)
+SERVE_PREFIX_MAX_MB = config.register(
+    "MMLSPARK_TPU_SERVE_PREFIX_MAX_MB", 256.0,
+    "serving: prefix-pool LRU budget in resident megabytes (int8 KV "
+    "rows fit ~4x more prefixes per MB than model-dtype)", ptype=float)
 SERVE_LANE_BATCH_SHARE = config.register(
     "MMLSPARK_TPU_SERVE_LANE_BATCH_SHARE", 0.5,
     "serving: greatest fraction of the admission queue the BATCH "
@@ -132,9 +160,7 @@ _ROLES = ("colocated", "prefill", "decode")
 
 @dataclasses.dataclass
 class ServeConfig:
-    """Knobs for one ServingEngine: the JAX package's fields and names,
-    less the prefix pool's budgets (`prefix_max_rows`, `prefix_max_mb`),
-    which come with the prefix cache.
+    """Knobs for one ServingEngine: the JAX package's fields and names.
 
     None fields fall back to their MMLSPARK_TPU_SERVE_* config vars at
     construction.  The switches of features not ported yet keep their
@@ -164,6 +190,8 @@ class ServeConfig:
     role: Optional[str] = None           # colocated | prefill | decode
     cache_dtype: Optional[str] = None    # model | int8 resident KV cache
     prefix_cache: Optional[bool] = None  # cross-request prefix KV reuse
+    prefix_max_rows: Optional[int] = None   # pool LRU budget, chunk rows
+    prefix_max_mb: Optional[float] = None   # pool LRU budget, megabytes
     lane_batch_share: Optional[float] = None  # batch lane's queue share
 
     def __post_init__(self):
@@ -187,8 +215,16 @@ class ServeConfig:
         self.spec_tokens = read(self.spec_tokens, SERVE_SPEC_TOKENS, int)
         self.prefix_cache = read(self.prefix_cache,
                                  SERVE_PREFIX_CACHE, bool)
+        self.prefix_max_rows = read(self.prefix_max_rows,
+                                    SERVE_PREFIX_MAX_ROWS, int)
+        self.prefix_max_mb = read(self.prefix_max_mb,
+                                  SERVE_PREFIX_MAX_MB, float)
         self.lane_batch_share = read(self.lane_batch_share,
                                      SERVE_LANE_BATCH_SHARE, float)
+        if self.prefix_max_rows < 1:
+            raise ValueError("prefix_max_rows must be >= 1")
+        if self.prefix_max_mb <= 0:
+            raise ValueError("prefix_max_mb must be > 0")
         if not 0.0 < self.lane_batch_share <= 1.0:
             raise ValueError(
                 f"lane_batch_share must be in (0, 1], "
@@ -220,15 +256,6 @@ class ServeConfig:
             raise ValueError("segment_steps must be >= 1")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if self.prefill_chunk:
-            raise NotImplementedError(
-                "chunked prefill (prefill_chunk > 0) is not ported "
-                "(ROADMAP A8 item 2)")
-        if self.prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache (prefix_cache=True) is not ported "
-                "(ROADMAP A9: prefix_cache.py, over A8 item 2's resume "
-                "hooks)")
         if self.spec_tokens:
             raise NotImplementedError(
                 "speculative decoding (spec_tokens > 0) is not ported "
@@ -236,20 +263,22 @@ class ServeConfig:
         if self.role != "colocated":
             raise NotImplementedError(
                 f"the disaggregated role {self.role!r} is not ported "
-                "(ROADMAP A9: handoff.py)")
+                "(ROADMAP A9's handoff step: handoff.py)")
 
 
 class _Group:
     """One (bucket, lane)'s resident batch: fixed `capacity` rows, numpy
     row state on the host, caches on the device.  A row is free when
-    `rows[i] is None` (its `done` bit stays True so the segment freezes
-    it)."""
+    `rows[i] is None` and no chunked prefill holds it (its `done` bit
+    stays True so the segment freezes it)."""
 
     def __init__(self, bucket: int, capacity: int):
         self.bucket = bucket
         self.capacity = capacity
         self.rows: list[Optional[Request]] = [None] * capacity
         self.caches = None
+        self.reserved: set = set()     # slots held by in-flight chunked
+        # prefills (their rows stay None until the cohort splices in)
         self.tok = np.zeros(capacity, np.int64)
         self.done = np.ones(capacity, bool)
         self.true_len = np.ones(capacity, np.int64)
@@ -258,7 +287,8 @@ class _Group:
         self.row_ids = np.zeros(capacity, np.int64)
 
     def free_slots(self) -> list:
-        return [i for i, r in enumerate(self.rows) if r is None]
+        return [i for i, r in enumerate(self.rows)
+                if r is None and i not in self.reserved]
 
     def live_slots(self) -> list:
         return [i for i, r in enumerate(self.rows) if r is not None]
@@ -273,6 +303,16 @@ class _Group:
 
 # engine lifecycle states
 CREATED, READY, DRAINING, STOPPED = "created", "ready", "draining", "stopped"
+
+
+def _assemble_prefix_row(chunks: list) -> list:
+    """Concatenate a prefix hit's per-chunk pool payloads back into one
+    cache row (slot axis 1), layer by layer — both cache layouts ride
+    through (2-tuple model-dtype, 4-tuple int8 with its scale tensors).
+    `torch.cat` allocates: the row is a copy, never a view of the pool."""
+    with torch.inference_mode():
+        return [tuple(torch.cat(ts, dim=1) for ts in zip(*layer_parts))
+                for layer_parts in zip(*chunks)]
 
 
 class ServingEngine:
@@ -330,7 +370,16 @@ class ServingEngine:
             max_batch=self.cfg.max_batch,
             degraded_available=degraded_bundle is not None,
             batch_share=self.cfg.lane_batch_share, clock=clock)
+        # cross-request prefix pool: primary-lane rows only (the degraded
+        # lane decodes other weights — their caches never mix)
+        self._prefix = (PrefixCache(
+            self.cfg.cache_chunk, max_rows=self.cfg.prefix_max_rows,
+            max_bytes=int(self.cfg.prefix_max_mb * 2 ** 20))
+            if self.cfg.prefix_cache else None)
         self._groups: dict[tuple, _Group] = {}
+        # in-flight chunked prefills: each advances a single chunk per
+        # tick, between phase 4 (joins) and phase 5 (segments)
+        self._pending: list[dict] = []
         self.role = self.cfg.role
         self._state = CREATED
         self._state_lock = threading.Lock()
@@ -355,6 +404,7 @@ class ServingEngine:
             temperature=self.cfg.temperature, top_k=self.cfg.top_k,
             top_p=self.cfg.top_p, stop_tokens=self.cfg.stop_tokens,
             chunk=self.cfg.cache_chunk, cache_dtype=self.cfg.cache_dtype,
+            prefill_chunk=self.cfg.prefill_chunk or None,
             device=self.device)
 
     # -- lifecycle ---------------------------------------------------------
@@ -408,13 +458,24 @@ class ServingEngine:
         cap = self.cfg.max_batch
         seg = self.cfg.segment_steps
         cohorts = {}
+        chunks = eng.serve_prefill_chunks(bucket)
         n = 1
         while True:
             m = min(n, cap)
+            prompts = np.zeros((m, bucket), np.int64)
+            live = np.ones(m, bool)
             tl = np.ones(m, np.int64)
             seeds = self._row_seeds(np.arange(m))
-            tok, done, caches = eng.serve_prefill(
-                np.zeros((m, bucket), np.int64), tl, np.ones(m, bool), seeds)
+            if chunks:
+                # the chunked programs are what this bucket runs live
+                state = None
+                for ci in range(chunks):
+                    state = eng.serve_prefill_chunk(prompts, tl, ci, state)
+                tok, done, caches = eng.serve_prefill_finish(state, live,
+                                                             seeds)
+            else:
+                tok, done, caches = eng.serve_prefill(prompts, tl, live,
+                                                      seeds)
             cohorts[m] = caches
             if n >= cap:
                 break
@@ -627,6 +688,21 @@ class ServingEngine:
         if self._run is not None:
             self._run.record_serve(event)
 
+    def _record_prefix(self, event: dict) -> None:
+        if self._run is not None:
+            self._run.record_prefix(event)
+
+    def _gauge_prefix(self) -> None:
+        # mmlspark_tpu_prefix_{hit_rate,resident_rows,resident_bytes,
+        # evictions} on the Prometheus surface (observe/export.py)
+        if self._run is None or self._prefix is None:
+            return
+        s = self._prefix.stats()
+        self._run.gauge("prefix.hit_rate", round(s["hit_rate"], 4))
+        self._run.gauge("prefix.resident_rows", s["resident_rows"])
+        self._run.gauge("prefix.resident_bytes", s["resident_bytes"])
+        self._run.gauge("prefix.evictions", s["evictions"])
+
     @staticmethod
     def _trace_fields(req: Request) -> dict:
         """The trace join fields a serve event/span carries (empty for an
@@ -646,10 +722,40 @@ class ServingEngine:
             return max(0.1, self.cfg.drain_timeout_s)
         return max(0.1, self.breaker.retry_in_s())
 
+    def cancel_request(self, req: Request, detail: str = "cancelled") -> bool:
+        """Withdraw one unfinished request — resident row, chunking, or
+        still queued — WITHOUT feeding the miss breaker (the router
+        cancelling a losing hedge attempt is scheduling, not engine
+        failure).  True when the request was found and cancelled."""
+        if req.finished:
+            return False
+        for g in list(self._groups.values()):
+            for i in g.live_slots():
+                if g.rows[i] is req:
+                    req.finish(CANCELLED, self.now(), detail)
+                    g.release(i)
+                    self._count("cancelled_external")
+                    return True
+        for job in list(self._pending):
+            if req in job["reqs"]:
+                # its cohort row keeps prefilling (fixed shapes) but the
+                # finish-time filter drops it before the splice
+                req.finish(CANCELLED, self.now(), detail)
+                self._count("cancelled_external")
+                return True
+        if self.admission.remove(req):
+            req.finish(CANCELLED, self.now(), detail)
+            self._count("cancelled_external")
+            return True
+        return False
+
     def in_flight(self) -> int:
         # list() the dict: submit threads read while the loop thread
-        # adds/drops groups
-        return sum(len(g.live_slots()) for g in list(self._groups.values()))
+        # adds/drops groups; chunked-prefill cohorts count too (they hold
+        # reserved slots)
+        return (sum(len(g.live_slots())
+                    for g in list(self._groups.values()))
+                + sum(len(job["reqs"]) for job in list(self._pending)))
 
     def in_flight_tokens(self) -> int:
         total = 0
@@ -658,6 +764,9 @@ class ServingEngine:
                 req = g.rows[i]
                 if req is not None:
                     total += max(0, req.max_new_tokens - len(req.tokens))
+        for job in list(self._pending):
+            for req in job["reqs"]:
+                total += req.max_new_tokens
         return total
 
     def _row_seeds(self, ids) -> list:
@@ -727,6 +836,12 @@ class ServingEngine:
                     self._complete(g.rows[i], CANCELLED, "drain timeout")
                     g.release(i)
                     worked = True
+            for job in self._pending:
+                for req in job["reqs"]:
+                    self._complete(req, CANCELLED, "drain timeout")
+                    worked = True
+                self._release_job_lease(job)
+            self._pending.clear()
             for req in self.admission.drop_expired(float("inf")):
                 self._complete(req, CANCELLED, "drain timeout")
                 worked = True
@@ -753,14 +868,31 @@ class ServingEngine:
                 continue
             reqs = self.admission.take(bucket, len(free), lane)
             if reqs:
-                self._join(g, lane, reqs, free[:len(reqs)])
+                slots = free[:len(reqs)]
+                if self._prefix is not None and lane == "primary":
+                    # peel prefix-pool hits off the cohort: each resumes
+                    # from its donor rows (only the novel suffix
+                    # prefills); misses keep the normal cohort path
+                    reqs, slots = self._join_prefix_hits(g, lane, reqs,
+                                                         slots)
+                if reqs:
+                    if self._engines[lane].serve_prefill_chunks(bucket):
+                        self._start_chunked_join(g, lane, reqs, slots)
+                    else:
+                        self._join(g, lane, reqs, slots)
                 worked = True
+        # 4b. advance every in-flight chunked prefill by ONE chunk: the
+        # long forward yields to phase 5 between chunks instead of
+        # holding the tick for the whole prompt
+        for job in list(self._pending):
+            self._advance_prefill(job)
+            worked = True
         # 5. advance each group one segment
         for (bucket, lane), g in list(self._groups.items()):
             if g.live_slots():
                 self._advance(g, lane)
                 worked = True
-            elif not self.admission.pending():
+            elif not g.reserved and not self.admission.pending():
                 # empty group with no queued work: drop the cache memory
                 del self._groups[(bucket, lane)]
         return worked
@@ -800,9 +932,173 @@ class ServingEngine:
         self._splice(g, lane, reqs, slots, list(range(len(reqs))), tok_h,
                      caches)
 
+    def _join_prefix_hits(self, g: _Group, lane: str, reqs: list,
+                          slots: list) -> tuple:
+        """Try each join candidate against the prefix pool.  Hits resume
+        from their donor rows — inline, or as a pending chunked-resume
+        job when chunked prefill covers the suffix — and misses return
+        for the normal cohort path.  The donor lease holds until the
+        hit's splice lands (an in-flight resume never loses its slots to
+        eviction)."""
+        eng = self._engines[lane]
+        miss_reqs, miss_slots = [], []
+        for req, slot in zip(reqs, slots):
+            # match only whole chunks STRICTLY inside the prompt, so the
+            # resumed prefill always recomputes the last prompt
+            # position's logits itself
+            limit = ((req.true_len - 1) // self._prefix.chunk
+                     ) * self._prefix.chunk
+            hit = (self._prefix.acquire(req.prompt, limit)
+                   if limit else None)
+            if hit is None:
+                miss_reqs.append(req)
+                miss_slots.append(slot)
+                continue
+            matched = hit.n_tokens
+            self._count("prefix_hits")
+            inc_counter("serve.prefix_hit")
+            self._record_prefix({
+                "event": "hit", "request": req.id, "bucket": g.bucket,
+                "lane": lane, "matched": matched,
+                "suffix": int(req.true_len) - matched})
+            if eng.serve_resume_chunks(g.bucket, matched):
+                self._start_chunked_resume(g, lane, req, slot, hit)
+            else:
+                self._join_resume(g, lane, req, slot, hit)
+        return miss_reqs, miss_slots
+
+    @staticmethod
+    def _one_row(g: _Group, req: Request) -> np.ndarray:
+        prompts = np.zeros((1, g.bucket), np.int64)
+        prompts[0, :req.true_len] = req.prompt
+        return prompts
+
+    def _join_resume(self, g: _Group, lane: str, req: Request, slot: int,
+                     hit) -> None:
+        """Resume one prefix hit inline: dequantize and copy the donor
+        rows, prefill the whole novel suffix in one segment, finish and
+        splice — the same (tok, done, caches) contract as a fresh cohort
+        prefill, so greedy tokens stay a fresh prefill's."""
+        eng = self._engines[lane]
+        matched = hit.n_tokens
+        t0 = monotonic()
+        try:
+            with span_on_tracer(self._tracer, "serve.prefill_resume",
+                                cat="serve", bucket=g.bucket, lane=lane,
+                                matched=matched,
+                                suffix=int(req.true_len) - matched):
+                tok, done, caches = eng.serve_prefill_resume(
+                    self._one_row(g, req), [req.true_len], matched,
+                    _assemble_prefix_row(hit.rows), np.ones(1, bool),
+                    self._row_seeds([req.id]))
+                # the host copy waits for the device: the span is device
+                # time
+                tok_h = tok.cpu().numpy()
+            self.estimator.observe_prefill(g.bucket, monotonic() - t0)
+            self._splice(g, lane, [req], [slot], [0], tok_h, caches)
+        finally:
+            self._prefix.release(hit)
+
+    def _start_chunked_resume(self, g: _Group, lane: str, req: Request,
+                              slot: int, hit) -> None:
+        """Queue a chunked RESUME: like `_start_chunked_join`, but the
+        state opens from the donor rows and the chunk index starts past
+        the matched prefix — `_advance_prefill` then runs the suffix one
+        chunk per tick.  The donor lease holds across ticks until the
+        splice."""
+        eng = self._engines[lane]
+        g.reserved.add(slot)
+        state = eng.serve_resume_init(_assemble_prefix_row(hit.rows),
+                                      g.bucket)
+        self._pending.append(dict(
+            group=g, lane=lane, reqs=[req], slots=[slot],
+            prompts=self._one_row(g, req),
+            true_len=np.asarray([req.true_len], np.int64),
+            live=np.ones(1, bool), ids=np.asarray([req.id], np.int64),
+            state=state, index=hit.n_tokens // eng.prefill_chunk,
+            chunks=eng.serve_prefill_chunks(g.bucket), elapsed=0.0,
+            hit=hit))
+
+    def _release_job_lease(self, job: dict) -> None:
+        hit = job.get("hit")
+        if hit is not None and self._prefix is not None:
+            self._prefix.release(hit)
+            job["hit"] = None
+
+    def _start_chunked_join(self, g: _Group, lane: str, reqs: list,
+                            slots: list) -> None:
+        """Queue a chunked join: slots are reserved (not yet resident)
+        and `_advance_prefill` runs ONE prompt chunk per tick until the
+        cohort finishes and splices in."""
+        prompts, true_len, live, ids = self._cohort(g, reqs)
+        g.reserved.update(slots)
+        eng = self._engines[lane]
+        self._pending.append(dict(
+            group=g, lane=lane, reqs=reqs, slots=slots, prompts=prompts,
+            true_len=true_len, live=live, ids=ids, state=None, index=0,
+            chunks=eng.serve_prefill_chunks(g.bucket), elapsed=0.0))
+
+    def _advance_prefill(self, job: dict) -> None:
+        """One chunk of an in-flight chunked prefill; after the last
+        chunk, finish (sample, quantize) and splice the cohort in.  The
+        estimator's prefill EWMA sees the SUMMED chunk time, the full
+        prompt's cost."""
+        g: _Group = job["group"]
+        lane = job["lane"]
+        eng = self._engines[lane]
+        t0 = monotonic()
+        with span_on_tracer(self._tracer, "serve.prefill_chunk",
+                            cat="serve", bucket=g.bucket, lane=lane,
+                            index=job["index"], chunks=job["chunks"]):
+            job["state"] = eng.serve_prefill_chunk(
+                job["prompts"], job["true_len"], job["index"],
+                job["state"])
+            if eng.device.type == "cuda":
+                # the span closes on the device's time, not the launch's
+                torch.cuda.synchronize(eng.device)
+        job["elapsed"] += monotonic() - t0
+        if self._run is not None:
+            rec = {"event": "prefill_chunk", "bucket": g.bucket,
+                   "lane": lane, "index": job["index"],
+                   "chunks": job["chunks"],
+                   "requests": [r.id for r in job["reqs"]]}
+            traces = [r.trace.trace_id for r in job["reqs"]
+                      if getattr(r, "trace", None) is not None]
+            if traces:
+                rec["traces"] = traces
+            self._record_serve(rec)
+        job["index"] += 1
+        if job["index"] < job["chunks"]:
+            return
+        self._pending.remove(job)
+        g.reserved.difference_update(job["slots"])
+        t0 = monotonic()
+        tok, done, caches = eng.serve_prefill_finish(
+            job["state"], job["live"], self._row_seeds(job["ids"]))
+        tok_h = tok.cpu().numpy()
+        job["elapsed"] += monotonic() - t0
+        self.estimator.observe_prefill(g.bucket, job["elapsed"])
+        # requests whose deadline passed while their prompt was still
+        # chunking: finish as timeouts, splice only the survivors
+        now = self.now()
+        reqs, slots, src = [], [], []
+        for j, (req, slot) in enumerate(zip(job["reqs"], job["slots"])):
+            if req.finished:
+                continue
+            if req.deadline <= now:
+                self._complete(req, TIMEOUT, "expired during prefill")
+                continue
+            reqs.append(req)
+            slots.append(slot)
+            src.append(j)
+        if reqs:
+            self._splice(g, lane, reqs, slots, src, tok_h, caches)
+        self._release_job_lease(job)
+
     def _splice(self, g: _Group, lane: str, reqs: list, slots: list,
                 src: list, tok_h, caches) -> None:
-        """Merge cohort cache rows into the group and seat the requests."""
+        """Merge cohort cache rows into the group, seat the requests, and
+        (primary lane, pool on) pool their prompt prefixes."""
         eng = self._engines[lane]
         if g.caches is None:
             g.caches = self._empty_caches(eng, g.capacity, g.bucket)
@@ -827,6 +1123,40 @@ class ServingEngine:
                 self._run.observe_hist("serve.ttft_s",
                                        self.now() - req.arrival)
             self._emit(g, slot, [int(tok_h[j])])
+        if self._prefix is not None and lane == "primary":
+            self._insert_prefix_rows(reqs, src, caches)
+            self._gauge_prefix()
+
+    def _insert_prefix_rows(self, reqs: list, src: list, caches) -> None:
+        """Pool each freshly spliced request's prompt-prefix slots: the
+        greatest chunk multiple STRICTLY inside the prompt, so a later
+        resume always recomputes the final prompt position itself.
+        First-writer-wins per chunk; a refused eviction (every candidate
+        leased) skips the deeper chunks rather than forcing anything.
+        The pool copies what it keeps (`PrefixCache.insert`)."""
+        chunk = self._prefix.chunk
+        for j, req in zip(src, reqs):
+            n = ((req.true_len - 1) // chunk) * chunk
+            if n < chunk:
+                continue
+            row = [tuple(t[j:j + 1] for t in layer) for layer in caches]
+            with torch.inference_mode():
+                res = self._prefix.insert(req.prompt, n, row)
+            if res["inserted"]:
+                self._count("prefix_inserts", res["inserted"])
+                self._record_prefix({
+                    "event": "insert", "request": req.id,
+                    "chunks": res["inserted"], "tokens": n})
+            if res["evicted"]:
+                self._count("prefix_evictions", res["evicted"])
+                self._record_prefix({
+                    "event": "evict", "chunks": res["evicted"],
+                    "request": req.id})
+            if res["refused"]:
+                self._count("prefix_evictions_refused")
+                inc_counter("serve.prefix_eviction_refused")
+                self._record_prefix({"event": "evict_refused",
+                                     "request": req.id})
 
     def _empty_caches(self, eng: DecodeEngine, capacity: int,
                       bucket: int) -> list:
@@ -909,6 +1239,7 @@ class ServingEngine:
         if self._run is not None:
             self._run.gauge("serve.queue_depth", self.admission.pending())
             self._run.gauge("serve.in_flight", self.in_flight())
+            self._gauge_prefix()
 
     # -- the loop (spawned by serve/lifecycle.py) -------------------------
     def _drained(self) -> bool:
@@ -946,10 +1277,17 @@ class ServingEngine:
         out["queued"] = self.admission.pending()
         out["state"] = self._state
         out["breaker_state"] = self.breaker.state
+        if self._prefix is not None:
+            out["prefix"] = self._prefix.stats()
         for name, q in (("p50", 50), ("p95", 95), ("p99", 99)):
             p = self._percentile(q)
             out[f"latency_{name}_s"] = round(p, 6) if p is not None else None
         return out
+
+    def prefix_stats(self) -> Optional[dict]:
+        """The prefix pool's live stats dict (None when the pool is off)
+        — surfaced per replica in `Replica.health()` and `/statz`."""
+        return self._prefix.stats() if self._prefix is not None else None
 
     def _gauge_stats(self) -> None:
         if self._run is None:

@@ -35,9 +35,9 @@ error body is JSON with an explicit Content-Type; a client can always
 machine-read why it was refused.
 
 This module only DEFINES the handler (`make_handler(engine)`), bound to
-a `ServingEngine` or anything with its serving surface (submit/stats/
-state/ready/now/cfg/retry_after_s: the JAX package's router duck-types
-it).  The server itself — thread, socket — is constructed by
+a `ServingEngine` OR a `Router` — the router duck-types the serving
+surface (submit/stats/state/ready/now/cfg/retry_after_s), so one front
+end serves both.  The server itself — thread, socket — is constructed by
 serve/lifecycle.py, the one module of serve/ that does so.  The
 handler sets a socket timeout, so a slow or hung client stalls only its
 own connection thread, never the engine: its read raises, the

@@ -56,9 +56,26 @@ def start_engine(engine: ServingEngine, *,
     return engine
 
 
+def start_router(router, *, install_sigterm: bool = True):
+    """`start_engine` for a replicated fleet (serve/router.py): warm
+    every replica, wire SIGTERM -> graceful drain, and spawn ONE
+    scheduler thread running the router's loop — the router ticks its
+    replicas serially, so the whole fleet shares the engine's
+    single-scheduler determinism.  Returns the (now ready) router;
+    `router.stop()` drains the fleet and joins."""
+    router.warmup()
+    if install_sigterm and router._guard is None:
+        guard = PreemptionGuard(install=True)
+        guard.__enter__()
+        router._guard = guard
+    router._thread = spawn("mmlspark-serve-router", router._loop)
+    return router
+
+
 def start_http(engine, port: int = 0, host: str = "127.0.0.1"):
     """The stdlib HTTP front end (serve/http.py handlers) on a daemon
-    thread, in front of a `ServingEngine`.  Returns the
+    thread, in front of a `ServingEngine` OR a `Router` (the router
+    duck-types the engine's serving surface).  Returns the
     ThreadingHTTPServer — ephemeral port readable from
     `server.server_address[1]`; stop it with
     `observe.export.stop_server(server)` (bounded wait)."""

@@ -107,16 +107,15 @@ def _cpu_mesh(**axes):
 
 
 def test_unported_options_raise():
-    """Chunked prefill, speculation, beam search and tensor-parallel decode
-    (a model axis) raise NotImplementedError; a mesh that is not a port
-    `Mesh` is refused."""
+    """Speculation, beam search and tensor-parallel decode (a model axis)
+    raise NotImplementedError; a mesh that is not a port `Mesh` is
+    refused."""
     bundle = ModelBundle.init("TransformerLM", CFG)
     module = bundle.module("cpu")
-    for kw in ({"prefill_chunk": 4}, {"spec_tokens": 2},
-               {"mesh": _cpu_mesh(model=2)}):
+    for kw in ({"spec_tokens": 2}, {"mesh": _cpu_mesh(model=2)}):
         with pytest.raises(NotImplementedError):
             DecodeEngine(module, 4, device="cpu", **kw)
-    for param in ("beamWidth", "specTokens", "prefillChunk"):
+    for param in ("beamWidth", "specTokens"):
         stage = TextGenerator(bundle, device="cpu", inputCol="p",
                               **{param: 2})
         with pytest.raises(NotImplementedError, match=param):
@@ -725,3 +724,114 @@ def test_warmup_builds_and_runs_both_serving_kernels(cuda):
     assert flash_attention.launches - before[0] == 2 * layers
     assert fused_single_query_attention.launches - before[1] == \
         2 * 8 * layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_chunk0_of_512_tokens_runs_the_flash_kernel(cuda, dtype,
+                                                    monkeypatch):
+    """Chunk 0 of a chunked prefill sits at slot 0, so a 512-token chunk
+    runs K1 once per layer; each K1 output agrees with the dense branch
+    (causal softmax over the same q, k, v in f32) within the K1
+    tolerance.  Chunk 1 runs the dense branch and launches nothing; at
+    f32 the first tokens equal the whole-prompt prefill's."""
+    from mmlspark_tpu_torch.models import generate
+    bundle = ModelBundle.init("TransformerLM", {**SERVE_CFG, "dtype": dtype},
+                              seed=5)
+    engine = DecodeEngine(bundle.module(cuda), 16, chunk=64,
+                          prefill_chunk=512, device=cuda)
+    rng = np.random.default_rng(5)
+    lengths, bucket = [600, 1000], 1024
+    prompts = np.zeros((2, bucket), np.int64)
+    for j, n in enumerate(lengths):
+        prompts[j, :n] = rng.integers(0, SERVE_CFG["vocab_size"], n)
+    kernel, checked_calls = generate.flash_attention, []
+
+    def checked(q, k, v, causal):
+        out = kernel(q, k, v, causal=causal)
+        s, dh = q.shape[1], q.shape[-1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              k.float()) * dh ** -0.5
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        w = torch.softmax(torch.where(keep, scores, NEG_INF), dim=-1)
+        ref = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+        _assert_out_norm_close(out, ref, q.dtype)
+        checked_calls.append(s)
+        return out
+
+    monkeypatch.setattr(generate, "flash_attention", checked)
+    before = flash_attention.launches
+    state = engine.serve_prefill_chunk(prompts, lengths, 0, None)
+    torch.cuda.synchronize()
+    layers = SERVE_CFG["n_layers"]
+    assert flash_attention.launches - before == layers
+    assert checked_calls == [512] * layers
+    state = engine.serve_prefill_chunk(prompts, lengths, 1, state)
+    tok, done, caches = engine.serve_prefill_finish(
+        state, np.ones(2, bool), [0, 1])
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == layers
+    assert caches[0][0].shape[1] == 1088
+    if dtype == "float32":
+        whole, _, _ = engine.serve_prefill(prompts, lengths,
+                                           np.ones(2, bool), [0, 1])
+        assert torch.equal(tok, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["model", "int8"])
+def test_resumed_row_first_segment_runs_the_decode_kernel(cuda, cache,
+                                                          monkeypatch):
+    """A row resumed from pooled prefix rows (dequantized and re-quantized
+    for an int8 cache), spliced beside an older row: every K4 read of its
+    first segment agrees with the plain read within 2e-3, n_layers x
+    seg_len launches."""
+    from mmlspark_tpu_torch.models import generate
+    from mmlspark_tpu_torch.serve.engine import _assemble_prefix_row
+    from mmlspark_tpu_torch.serve.prefix_cache import PrefixCache
+    bundle = ModelBundle.init("TransformerLM", SERVE_CFG, seed=6)
+    engine = DecodeEngine(bundle.module(cuda), 24, chunk=16,
+                          cache_dtype=cache, prefill_chunk=16, device=cuda)
+    rng = np.random.default_rng(6)
+    bucket = 64
+    prompts = np.zeros((2, bucket), np.int64)
+    prompts[:, :40] = rng.integers(0, SERVE_CFG["vocab_size"], (2, 40))
+    tok, done, caches = engine.serve_prefill(prompts, [40, 40],
+                                             np.ones(2, bool), [0, 1])
+    pool = PrefixCache(16)
+    pool.insert(prompts[0, :40], 32,
+                [tuple(t[0:1] for t in layer) for layer in caches])
+    shared = prompts[0:1].copy()
+    shared[0, 32:40] = 7                    # a new suffix after 32 tokens
+    hit = pool.acquire(shared[0, :40], 32)
+    assert hit.n_tokens == 32
+    r_tok, _, r_caches = engine.serve_prefill_resume(
+        shared, [40], 32, _assemble_prefix_row(hit.rows), [True], [2])
+    pool.release(hit)
+    merged = DecodeEngine.merge_cache_rows(caches, r_caches, [1], [0])
+    tok = tok.clone()
+    tok[1] = r_tok[0]
+    errs, kernel = [], generate.fused_single_query_attention
+
+    def checked(q, k, v, visible, **scales):
+        out = kernel(q, k, v, visible, **scales)
+        ref = fused_single_query_attention_plain(q, k, v, visible, **scales)
+        errs.append((out - ref).abs().max().item())
+        return out
+
+    monkeypatch.setattr(generate, "fused_single_query_attention", checked)
+    seg, t_row = 8, np.asarray([5, 0])
+    window = engine.serve_window(bucket, int(t_row.max()), seg)
+    before = fused_single_query_attention.launches
+    merged, toks, _, done = engine.serve_step(
+        merged, tok, np.zeros(2, bool), [40, 40], np.asarray([24, 24]),
+        bucket, t_row, [0, 2], seg, window)
+    torch.cuda.synchronize()
+    assert fused_single_query_attention.launches - before == \
+        SERVE_CFG["n_layers"] * seg
+    assert len(errs) == SERVE_CFG["n_layers"] * seg
+    assert max(errs) <= 2e-3
+    toks = toks.cpu().numpy()
+    assert ((toks >= 0) & (toks < SERVE_CFG["vocab_size"])).all()

@@ -424,9 +424,7 @@ def test_degraded_bundle_the_loader_refuses_fails_at_construction(bundle):
 
 def test_unported_options_raise_naming_the_roadmap_step(bundle,
                                                         monkeypatch):
-    for kw, step in (({"prefill_chunk": 16}, "A8 item 2"),
-                     ({"prefix_cache": True}, "A9"),
-                     ({"spec_tokens": 2}, "A8 item 3"),
+    for kw, step in (({"spec_tokens": 2}, "A8 item 3"),
                      ({"role": "decode"}, "A9")):
         with pytest.raises(NotImplementedError, match=step):
             ServeConfig(**kw)
