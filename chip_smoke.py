@@ -5,15 +5,19 @@ its plain PyTorch version, drives the LM serving path
 serving engine and a replicated fleet of them over HTTP, and the LM
 training path
 (`Trainer.fit_arrays`) at the full width of the repo's LM bench
-configuration and the seq-sharded long-context decode path at the width
-of its long-context configuration, and times kernels and paths.
+configuration, the seq-sharded long-context decode path at the width of
+its long-context configuration and the disaggregated prefill/decode
+tiers, and times kernels and paths.
 
     python3 chip_smoke.py
+
+(`python3 chip_smoke.py --ab TAG [--tree DIR]` runs only the host-bound
+serving phases, for a parent-against-change comparison: `ab_main`.)
 
 Phases (any failure exits non-zero before the result line):
   1. card (nvidia-smi name and power limit) and kernel build; K1's, K2's,
      K3's and K4's `-Xptxas -v` lines (registers, shared memory, spills: a
-     spill in a bf16 kernel, or in any K4 kernel, fails)
+     spill in any K1 or K4 kernel, or in a bf16 K2/K3 kernel, fails)
   2. flash-attention forward K1 vs plain: causal bf16 at S in {512, 1024,
      1984}, one non-causal case, one f32 case
   3. K1 with its log-sum-exp output and q/k offsets vs plain: causal bf16
@@ -78,7 +82,27 @@ Phases (any failure exits non-zero before the result line):
      the replica affinity picked; at f32 a replica crashed mid-pass and
      every request still exact; a chunk's and a resumed prefill's ms;
      the repo's fleet bench arms (chunked first token, the Zipf prefix
-     arm, the router arm with one replica slowed 4x)
+     arm at its 8 heads of head dim 32 with K1 and K4 counted against
+     its engine's spans, the router arm with one replica slowed 4x)
+ 14. the disaggregated tiers (`build_fleet` of 1 prefill + 1 decode
+     replica on this card + `start_router` + `start_http` -> `Router` ->
+     the prefill engine -> the KV handoff bus over loopback sockets ->
+     `splice_remote` on the decode engine) at the width of phase 6 with
+     chunked prefill (512): the phase-13 prompts over HTTP at f32 (tokens
+     equal the offline engine's), bf16 and bf16 with an int8 cache; every
+     spliced row byte-equal to what the prefill tier serialized; K1 =
+     4 x (whole + chunk-0 prefills), all on the prefill tier, K4 = 4 x
+     the decode steps, all on the decode tier; at f32 a torn page and a
+     prefill crash mid-transfer, both re-prefilled exact; the bench's
+     disaggregated arm against a colocated fleet; the disagg drill's
+     interference scenario at full width (victims' inter-token p99,
+     colocated over tiered, at least the drill's 1.2)
+ 15. head dim 32: K1 and K1[lse] at (2, 1024, 8, 32), f32 and bf16,
+     causal and not, and K4 and K4[stats] at (16, 1088, 8, 32) over
+     bf16, f32 and int8 caches, against their plain versions, with their
+     times, bounds and library calls; the main paths that run them at
+     the Zipf arm's width (`TextGenerator.transform`, and the seq=2
+     `DecodeEngine`) with exact launch counts
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -1873,11 +1897,9 @@ FIRST_TOKEN = dict(config={"vocab_size": 8192, "d_model": 1024,
                            "n_heads": 8, "n_layers": 4, "max_len": 1024,
                            "dtype": "bfloat16"},
                    chunk=128, long=896, short=32, new=32)
-# bench.py bench_serve arm 5, the full arm, f32 for its exact gate, with 4
-# heads for the bench's 8: its head dim of 32 is one the port's K1 and K4
-# do not cover (64 and 128 only), and the port raises rather than falling
-# back to a plain version on the card
-ZIPF = dict(config={"vocab_size": 8192, "d_model": 256, "n_heads": 4,
+# bench.py bench_serve arm 5, the full arm at its own width (8 heads of
+# head dim 32), f32 for its exact gate
+ZIPF = dict(config={"vocab_size": 8192, "d_model": 256, "n_heads": 8,
                     "n_layers": 4, "max_len": 1024, "dtype": "float32"},
             n=16, new=8, chunk=64, prefix=896, suffix=64, reps=3)
 
@@ -1993,7 +2015,7 @@ def prefill_timings(weights, dev, prompt, card) -> dict:
     return out
 
 
-def phase_fleet(dev, card) -> dict:
+def phase_fleet(dev, card, benches: bool = True) -> dict:
     """The replicated serving fleet at full width (chip_smoke phase 13).
 
     (a) `build_fleet` of 2 replicas on this card over the slice-1
@@ -2180,9 +2202,10 @@ def phase_fleet(dev, card) -> dict:
             out["prefill"] = prefill_timings(weights, dev, shared[1], card)
         del router, weights
         torch.cuda.empty_cache()
-    out["first_token"] = bench_first_token(dev, card)
-    out["zipf"] = bench_zipf(dev, card)
-    out["router"] = bench_router(dev, card)
+    if benches:
+        out["first_token"] = bench_first_token(dev, card)
+        out["zipf"] = bench_zipf(dev, card)
+        out["router"] = bench_router(dev, card)
     return out
 
 
@@ -2257,6 +2280,7 @@ def bench_zipf(dev, card) -> dict:
 
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.models.generate import bucket_length
+    from mmlspark_tpu_torch.observe.telemetry import run_telemetry
     from mmlspark_tpu_torch.serve import ServeConfig, ServingEngine
     z = ZIPF
     bundle = ModelBundle.init("TransformerLM", z["config"], seed=1)
@@ -2269,6 +2293,8 @@ def bench_zipf(dev, card) -> dict:
         0, vocab, z["suffix"]).astype(np.int32)])
         for k in rng.choice(4, size=z["n"], p=weights / weights.sum())]
 
+    n_layers = z["config"]["n_layers"]
+
     def run(prefix_cache: bool) -> tuple:
         kw = dict(max_new_tokens=z["new"], max_batch=SERVE_BENCH["max_batch"],
                   queue_capacity=max(32, z["n"]),
@@ -2276,31 +2302,45 @@ def bench_zipf(dev, card) -> dict:
                   cache_chunk=z["chunk"], prefill_chunk=z["chunk"])
         if prefix_cache:
             kw.update(prefix_cache=True, prefix_max_rows=64)
-        engine = ServingEngine(bundle, ServeConfig(**kw), device=dev)
-        engine.warmup()
-        drain_inline(engine, [engine.submit(p, max_new_tokens=z["new"])
-                              for p in prompts])
-        best_wall, best = float("inf"), None
-        gc.collect()
-        gc.disable()
-        try:
-            for _ in range(z["reps"]):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                reqs = [engine.submit(p, max_new_tokens=z["new"])
-                        for p in prompts]
-                drain_inline(engine, reqs)
-                wall = time.perf_counter() - t0
-                if wall < best_wall:
-                    best_wall, best = wall, reqs
-        finally:
-            gc.enable()
-        return best, best_wall, engine.prefix_stats()
+        with run_telemetry(None) as rt:
+            engine = ServingEngine(bundle, ServeConfig(**kw), device=dev)
+            engine.warmup()
+            torch.cuda.synchronize()
+            reset_counts()
+            drain_inline(engine, [engine.submit(p, max_new_tokens=z["new"])
+                                  for p in prompts])
+            best_wall, best = float("inf"), None
+            gc.collect()
+            gc.disable()
+            try:
+                for _ in range(z["reps"]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    reqs = [engine.submit(p, max_new_tokens=z["new"])
+                            for p in prompts]
+                    drain_inline(engine, reqs)
+                    wall = time.perf_counter() - t0
+                    if wall < best_wall:
+                        best_wall, best = wall, reqs
+            finally:
+                gc.enable()
+            torch.cuda.synchronize()
+            launched = read_counts()
+            require(rt.tracer.dropped == 0, "zipf arm: trace records dropped")
+            plan = fleet_launch_plan(rt.tracer.records(), n_layers)
+        k1, k4 = (launched["flash_attention"],
+                  launched["fused_single_query_attention"])
+        require(k1 == plan["K1"] and k4 == plan["K4"]
+                and plan["decode_steps"] > 0,
+                f"zipf arm (pool {prefix_cache}): K1 {k1}, K4 {k4}, the "
+                f"engine's spans call for {plan['K1']} and {plan['K4']}")
+        return best, best_wall, engine.prefix_stats(), {"K1": k1, "K4": k4,
+                                                        "plan": plan}
 
     bucket = bucket_length(z["prefix"] + z["suffix"], z["config"]["max_len"],
                            z["new"])
-    reuse, reuse_wall, pool = run(True)
-    plain, plain_wall, _ = run(False)
+    reuse, reuse_wall, pool, reuse_counts = run(True)
+    plain, plain_wall, _, plain_counts = run(False)
     require(all(r.status == "ok" for r in reuse + plain)
             and all(a.tokens == b.tokens for a, b in zip(reuse, plain)),
             "zipf arm: reuse tokens differ from no-reuse tokens")
@@ -2310,7 +2350,8 @@ def bench_zipf(dev, card) -> dict:
            "suffix_fraction": 1.0 - pool["hit_tokens"] / total,
            "hit_rate": pool["hit_rate"], "hits": pool["hits"],
            "resident_rows": pool["resident_rows"],
-           "resident_bytes": pool["resident_bytes"], "bucket": bucket}
+           "resident_bytes": pool["resident_bytes"], "bucket": bucket,
+           "launches": {"reuse": reuse_counts, "plain": plain_counts}}
     out["speedup"] = out["reuse_goodput"] / out["plain_goodput"]
     print(f"zipf prefix arm (bench_serve arm 5: vocab {vocab}, d_model "
           f"{z['config']['d_model']}, {z['config']['n_heads']} heads, f32; "
@@ -2319,7 +2360,12 @@ def bench_zipf(dev, card) -> dict:
           f"the pool vs {out['plain_goodput']:.1f} without "
           f"({out['speedup']:.3f}x); suffix fraction "
           f"{out['suffix_fraction']:.4f}, hit rate {out['hit_rate']:.4f}, "
-          f"{out['resident_rows']} rows resident; tokens equal [{card}]")
+          f"{out['resident_rows']} rows resident; tokens equal; launches "
+          f"K1 {reuse_counts['K1']} / {plain_counts['K1']} and K4 "
+          f"{reuse_counts['K4']} / {plain_counts['K4']} (with / without the "
+          f"pool, equal to the engines' spans: {n_layers} x "
+          f"{reuse_counts['plan']['decode_steps']} / "
+          f"{plain_counts['plan']['decode_steps']} steps) [{card}]")
     return out
 
 
@@ -2400,6 +2446,877 @@ def bench_router(dev, card) -> dict:
     return out
 
 
+# chip_smoke phase 14: the disaggregated tiers at the width of phase 6
+TIER_SERVE = dict(max_new_tokens=MAX_NEW, max_batch=8, segment_steps=16,
+                  cache_chunk=64, prefill_chunk=512)
+
+
+def probe_tiers(router) -> dict:
+    """Instrument a tiered fleet on the router's own thread: K1 and K4
+    launches attributed to the replica whose scheduler pass made them
+    (replicas tick in series; the bus launches no kernel), the prefill
+    tier's `serve_step` calls, and the handoff byte check — the pages a
+    decode replica received equal, byte for byte, the pages the prefill
+    tier serialized for that request, and the row `splice_remote` seated
+    equals those pages' tensors bitwise.  Also each splice's wall time,
+    and its row's first decode segment after it."""
+    from mmlspark_tpu_torch.ops.decode_attention import \
+        fused_single_query_attention
+    from mmlspark_tpu_torch.ops.flash_attention import flash_attention
+    probe = {"k1": {}, "k4": {}, "prefill_steps": 0, "pages_checked": 0,
+             "rows_checked": 0, "bad": [], "splice_to_decode_ms": [],
+             "sent": {}, "pending": {}}
+    for rep in router.replicas:
+        probe["k1"][rep.name] = probe["k4"][rep.name] = 0
+
+        def ticked(name=rep.name, tick=rep.engine._tick):
+            k1, k4 = (flash_attention.launches,
+                      fused_single_query_attention.launches)
+            try:
+                return tick()
+            finally:
+                probe["k1"][name] += flash_attention.launches - k1
+                probe["k4"][name] += fused_single_query_attention.launches - k4
+        rep.engine._tick = ticked
+        eng = rep.engine._engines["primary"]
+        if rep.role == "prefill":
+            def step(*a, _step=eng.serve_step, **kw):
+                probe["prefill_steps"] += 1
+                return _step(*a, **kw)
+            eng.serve_step = step
+        else:
+            def splice(prompt, max_new, deadline, first_tok, src, lane=
+                       "primary", trace=None, engine=rep.engine,
+                       _splice=rep.engine.splice_remote):
+                req = _splice(prompt, max_new, deadline, first_tok, src,
+                              lane=lane, trace=trace)
+                if req is None:
+                    return req
+                g = engine._groups[(req.bucket, lane)]
+                slot = next(i for i, r in enumerate(g.rows) if r is req)
+                same = all(torch.equal(d[slot, :s.shape[1]],
+                                       s[0].to(d.device))
+                           for dl, sl in zip(g.caches, src)
+                           for d, s in zip(dl, sl))
+                probe["rows_checked"] += 1
+                if not same:
+                    probe["bad"].append(("row", req.id))
+                probe["pending"][id(req)] = (req, time.perf_counter())
+                return req
+            rep.engine.splice_remote = splice
+
+            def advance(g, lane, engine=rep.engine,
+                        _advance=rep.engine._advance):
+                rows = [r for r in g.rows if r is not None]
+                _advance(g, lane)
+                now = time.perf_counter()
+                for r in rows:
+                    seen = probe["pending"].pop(id(r), None)
+                    if seen is not None:
+                        probe["splice_to_decode_ms"].append(
+                            (now - seen[1]) * 1e3)
+            rep.engine._advance = advance
+    bus = router.handoff
+    from mmlspark_tpu_torch.serve import handoff
+
+    original = handoff.encode_page
+
+    def encode_page(rid, index, data):
+        # the page as the prefill tier serialized it, before the wire
+        # (a torn page is flipped after this)
+        probe["sent"].setdefault(rid, {})[index] = data
+        return original(rid, index, data)
+    handoff.encode_page = encode_page
+    probe["undo"] = lambda: setattr(handoff, "encode_page", original)
+
+    def try_splice(link, key, p, now, _try=bus._try_splice):
+        rid, n = p["meta"]["req"], int(p["meta"]["pages"])
+        sent = probe["sent"].get(rid, {})
+        probe["pages_checked"] += 1
+        if [p["pages"].get(i) for i in range(n)] != [sent.get(i)
+                                                     for i in range(n)]:
+            probe["bad"].append(("pages", rid))
+        return _try(link, key, p, now)
+    bus._try_splice = try_splice
+    return probe
+
+
+def recover_after(router, name: str, seconds: float) -> dict:
+    """A replica the handoff bus crashes restarts `seconds` later, on the
+    router's own thread (its next pass after that): the process that
+    comes back warm."""
+    rep = router._by_name[name]
+    seen = {"crashed_at": None, "recovered": 0}
+
+    def crash(detail="replica crashed", _crash=rep.crash):
+        seen["crashed_at"] = time.perf_counter()
+        return _crash(detail)
+
+    def tick(_tick=rep.tick):
+        if (rep._crashed and seen["crashed_at"] is not None
+                and time.perf_counter() - seen["crashed_at"] >= seconds):
+            rep.recover()
+            seen["crashed_at"] = None
+            seen["recovered"] += 1
+        return _tick()
+    rep.crash = crash
+    rep.tick = tick
+    return seen
+
+
+def phase_tiered(dev, card, benches: bool = True) -> dict:
+    """The disaggregated prefill/decode tiers at full width (chip_smoke
+    phase 14).
+
+    (a) `build_fleet(RouterConfig(replicas=2, prefill_replicas=1,
+        decode_replicas=1))` on this card over the slice-1 configuration,
+        `ServeConfig(max_new_tokens=64, max_batch=8, segment_steps=16,
+        cache_chunk=64, prefill_chunk=512)`, `start_router` +
+        `start_http`: the phase-13 prompts over HTTP at f32 (tokens equal
+        the offline whole-prompt `DecodeEngine`'s), bf16 and bf16 with an
+        int8 cache.  Gates: every response 200 after /readyz 200; the
+        handoff byte check of `probe_tiers` on every splice; K1 = n_layers
+        x the prefill segments of >= 512 tokens at slot 0, every one on
+        the prefill tier; K4 = n_layers x the decode steps, every one on
+        the decode tier; the decode tier's estimator saw no prefill and
+        the prefill tier ran no `serve_step`.  At f32 a second pass, the
+        prompts one after another, under a fault plan installed before it
+        (a torn page on its second transfer, a prefill crash after the
+        first page of its fifth; the crashed replica restarts half a
+        second later on the router's thread): every response 200 with
+        the offline tokens, two transfers re-prefilled.
+    (b) the bench's disaggregated arm (`bench_disagg`) and the
+        interference scenario of the disagg drill at full width
+        (`bench_interference`)."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    bucket_length)
+    from mmlspark_tpu_torch.observe.telemetry import run_telemetry
+    from mmlspark_tpu_torch.resilience.chaos import (ChaosInjector, Fault,
+                                                     set_injector)
+    from mmlspark_tpu_torch.serve import (RouterConfig, ServeConfig,
+                                          build_fleet)
+    from mmlspark_tpu_torch.serve.lifecycle import (start_http,
+                                                    start_router, stop_http)
+    n_layers, vocab = LM_CONFIG["n_layers"], LM_CONFIG["vocab_size"]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in PROMPT_LENGTHS]
+    srng = np.random.default_rng(13)
+    prefix = srng.integers(0, vocab, SHARED_PREFIX).astype(np.int32)
+    shared = [np.concatenate([prefix, srng.integers(
+        0, vocab, SHARED_SUFFIX).astype(np.int32)])
+        for _ in range(1 + SHARED_LATER)]
+    named = {**dict(enumerate(prompts)),
+             **{f"shared{j}": p for j, p in enumerate(shared)}}
+    names, every = list(named), list(named.values())
+    buckets = tuple(sorted({bucket_length(len(p), LM_CONFIG["max_len"],
+                                          MAX_NEW) for p in every}))
+    base = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {}
+    for name, dtype, cache in (("f32", "float32", "model"),
+                               ("bf16", "bfloat16", "model"),
+                               ("bf16_int8", "bfloat16", "int8")):
+        bundle = ModelBundle("TransformerLM", {**LM_CONFIG, "dtype": dtype},
+                             base.variables)
+        scfg = ServeConfig(**TIER_SERVE, cache_dtype=cache,
+                           default_deadline_s=600.0, warmup_buckets=buckets)
+        faults = None
+        with run_telemetry(None) as rt:
+            router = build_fleet(bundle, cfg=RouterConfig(
+                replicas=2, prefill_replicas=1, decode_replicas=1,
+                default_deadline_s=600.0, probe_reset_s=1.0),
+                serve_cfg=scfg, device=dev)
+            t0 = time.perf_counter()
+            start_router(router, install_sigterm=False)
+            warm_s = time.perf_counter() - t0
+            probe = probe_tiers(router)
+            server = start_http(router, port=0)
+            port = server.server_address[1]
+            try:
+                ready = http_json(port, "GET", "/readyz")[0]
+                health = http_json(port, "GET", "/healthz")[1]
+                require(ready == 200 and health.get("role") == "tiered",
+                        f"tiers {name}: /readyz {ready}, /healthz {health}")
+                torch.cuda.synchronize()
+                reset_counts()
+                traffic = post_all(port, named)
+                torch.cuda.synchronize()
+                launched = read_counts()
+                records = rt.tracer.records()
+                stats = http_json(port, "GET", "/statz")[1]
+                checked = {k: probe[k] for k in ("pages_checked",
+                                                 "rows_checked", "k1", "k4",
+                                                 "prefill_steps")}
+                checked["k1"], checked["k4"] = (dict(probe["k1"]),
+                                                dict(probe["k4"]))
+                checked["s2d"] = sorted(probe["splice_to_decode_ms"])
+                checked["remote_joins"] = router._by_name[
+                    "d0"].engine._counts.get("remote_joins")
+                checked["handoffs"] = router._by_name[
+                    "p0"].engine._counts.get("handoffs")
+                if name == "f32":
+                    seq0 = router.handoff._seq
+                    revived = recover_after(router, "p0", 0.5)
+                    set_injector(ChaosInjector(script=[
+                        Fault(kind="handoff_torn", at_request=seq0 + 2),
+                        Fault(kind="prefill_crash_mid_transfer",
+                              at_request=seq0 + 5)]))
+                    try:
+                        t1 = time.perf_counter()
+                        fres = {i: http_json(port, "POST", "/generate", {
+                            "prompt": p.tolist(), "deadline_ms": 600000})
+                            for i, p in enumerate(prompts)}
+                        faults = {"results": fres,
+                                  "seconds": time.perf_counter() - t1,
+                                  "stats": http_json(port, "GET",
+                                                     "/statz")[1],
+                                  "recovered": revived["recovered"]}
+                    finally:
+                        set_injector(None)
+            finally:
+                stop_http(server)
+                router.stop()
+                probe["undo"]()
+            require(router.state == "stopped",
+                    f"tiers {name}: drain ended {router.state}")
+        results = traffic["results"]
+        statuses = sorted({results[k][0] for k in names})
+        require(statuses == [200], f"tiers {name}: statuses {statuses}")
+        got = [results[k][1]["tokens"] for k in names]
+        for row in got:
+            require(len(row) == MAX_NEW and all(0 <= t < vocab for t in row),
+                    f"tiers {name}: a row out of the vocabulary")
+        hand = stats["handoff"]
+        require(not probe["bad"] and checked["pages_checked"] >= len(every)
+                and checked["rows_checked"] == len(every)
+                and hand["spliced"] == len(every) and hand["retries"] == 0,
+                f"tiers {name}: byte check {probe['bad'][:4]}, pages "
+                f"checked {checked['pages_checked']}, rows "
+                f"{checked['rows_checked']}, handoff {hand}")
+        plan = fleet_launch_plan(records, n_layers)
+        k1, k4 = (launched["flash_attention"],
+                  launched["fused_single_query_attention"])
+        require(k1 == plan["K1"] == checked["k1"]["p0"]
+                and checked["k1"]["d0"] == 0
+                and plan["whole_prefills"] > 0 and plan["chunk0_prefills"] > 0,
+                f"tiers {name}: K1 {k1} ({checked['k1']}), expected "
+                f"{n_layers} x ({plan['whole_prefills']} whole + "
+                f"{plan['chunk0_prefills']} chunk-0) on p0")
+        require(k4 == plan["K4"] == checked["k4"]["d0"]
+                and checked["k4"]["p0"] == 0
+                and plan["decode_steps"] > 0,
+                f"tiers {name}: K4 {k4} ({checked['k4']}), expected "
+                f"{n_layers} x {plan['decode_steps']} steps on d0")
+        d0 = router._by_name["d0"].engine
+        require(d0.estimator.snapshot()["prefill_s"] == {}
+                and checked["prefill_steps"] == 0
+                and checked["remote_joins"] == len(every)
+                and checked["handoffs"] == len(every),
+                f"tiers {name}: decode-tier prefills "
+                f"{d0.estimator.snapshot()['prefill_s']}, prefill-tier "
+                f"serve_step calls {checked['prefill_steps']}")
+        tiers = stats["tiers"]
+        require(tiers["prefill"]["replicas"] == ["p0"]
+                and tiers["decode"]["replicas"] == ["d0"],
+                f"tiers {name}: /statz tiers {tiers}")
+        weights = ServingWeights(bundle.module(dev))
+        ref = offline_tokens(weights, every, MAX_NEW, scfg.cache_chunk, dev,
+                             cache_dtype=cache)
+        agree = sum(int(a == b) for g, r in zip(got, ref)
+                    for a, b in zip(g, r))
+        if name == "f32":
+            require(got == ref, "tiers f32: tokens differ from the offline "
+                    "whole-prompt DecodeEngine's")
+        s2d = checked["s2d"]
+        out[name] = {
+            "tokens_per_s": traffic["tokens"] / traffic["seconds"],
+            "seconds": traffic["seconds"], "tokens": traffic["tokens"],
+            "warmup_s": warm_s, "launches": {"K1": k1, "K4": k4},
+            "plan": plan, "handoff": hand,
+            "pages_per_request": hand["pages_sent"] / len(every),
+            "bytes_per_request": hand["bytes_sent"] / len(every),
+            "splice_to_first_decode_ms": {
+                "median": statistics.median(s2d), "min": s2d[0],
+                "max": s2d[-1], "n": len(s2d)},
+            "agree_offline": f"{agree}/{MAX_NEW * len(every)}"}
+        print(f"tiers {name} (p0 -> d0 over the handoff bus, HTTP, "
+              f"{len(every)} requests x {MAX_NEW} tokens): "
+              f"{out[name]['tokens_per_s']:.1f} tokens/s over "
+              f"{traffic['seconds'] * 1e3:.1f} ms; warmup {warm_s:.2f} s; "
+              f"K1 {k1} = {n_layers} x ({plan['whole_prefills']} whole + "
+              f"{plan['chunk0_prefills']} chunk-0), all on p0; K4 {k4} = "
+              f"{n_layers} x {plan['decode_steps']} steps, all on d0; "
+              f"handoff {hand['pages_sent']} pages, {hand['bytes_sent']} "
+              f"bytes ({out[name]['bytes_per_request']:.0f} a request), "
+              f"overlap {hand['overlap']}; splice to first decode segment "
+              f"median {statistics.median(s2d):.2f} ms [{s2d[0]:.2f}, "
+              f"{s2d[-1]:.2f}]; {checked['pages_checked']} page lists and "
+              f"{checked['rows_checked']} seated rows byte-equal to what p0 "
+              f"serialized; tokens agree with the offline engine "
+              f"{out[name]['agree_offline']} [{card}]")
+        if faults is not None:
+            fres, fstats = faults["results"], faults["stats"]
+            fstatus = sorted({r[0] for r in fres.values()})
+            fgot = [fres[i][1]["tokens"] for i in range(len(prompts))]
+            fh = fstats["handoff"]
+            require(fstatus == [200] and fgot == ref[:len(prompts)],
+                    f"tiers faults: statuses {fstatus}, tokens equal "
+                    f"{fgot == ref[:len(prompts)]}")
+            require(fh["retries"] - hand["retries"] == 2
+                    and fstats.get("handoff_retries", 0) == 2
+                    and faults["recovered"] == 1 and not probe["bad"],
+                    f"tiers faults: handoff retries {fh['retries']}, router "
+                    f"{fstats.get('handoff_retries')}, p0 restarted "
+                    f"{faults['recovered']}, byte check {probe['bad'][:4]}")
+            out["faults"] = {"retries": fh["retries"] - hand["retries"],
+                             "seconds": faults["seconds"],
+                             "recovered": faults["recovered"]}
+            print(f"tiers faults (f32, {len(prompts)} prompts one after "
+                  f"another): a torn page and a prefill crash mid-transfer, "
+                  f"both re-prefilled (p0 restarted once); "
+                  f"{len(prompts)}/{len(prompts)} requests 200 with the "
+                  f"offline tokens [{card}]")
+        del router, weights
+        torch.cuda.empty_cache()
+    for name in ("f32", "bf16", "bf16_int8"):
+        out[name]["bytes_vs_bf16"] = (out[name]["bytes_per_request"]
+                                      / out["bf16"]["bytes_per_request"])
+    if benches:
+        out["disagg_arm"] = bench_disagg(dev, card)
+        out["interference"] = bench_interference(dev, card)
+    return out
+
+
+def bench_disagg(dev, card) -> dict:
+    """bench.py bench_serve arm 4: the serving bench's 48 requests through
+    1 prefill + 1 decode replica with int8 caches and chunk-64 prefill,
+    against a colocated 2-replica fleet of the same config; goodput (best
+    of 3 timed passes after a warm one) and the bus's bytes, pages,
+    splices and overlap.  Every token equal to the colocated engine's of
+    the same config.  f32, so the exact gate holds whatever the batch
+    composition (as the router arm)."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.serve import (RouterConfig, ServeConfig,
+                                          ServingEngine, build_fleet)
+    b = SERVE_BENCH
+    variables = ModelBundle.init("TransformerLM", SERVE_BENCH_CONFIG,
+                                 seed=0).variables
+    bundle = ModelBundle("TransformerLM", {**SERVE_BENCH_CONFIG,
+                                           "dtype": "float32"}, variables)
+    prompts, budgets, scfg = serve_bench_workload()
+    dcfg = dict(scfg, cache_dtype="int8", prefill_chunk=b["chunk"],
+                warmup_joins=True)
+    engine = ServingEngine(bundle, ServeConfig(**dcfg), device=dev).warmup()
+    ref_reqs = [engine.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, budgets)]
+    drain_inline(engine, ref_reqs)
+    require(all(r.status == "ok" for r in ref_reqs),
+            "disagg arm: the colocated engine did not finish every request")
+    ref = [r.tokens for r in ref_reqs]
+    del engine
+
+    def run(tiered: bool) -> tuple:
+        tiers = dict(prefill_replicas=1, decode_replicas=1) if tiered else {}
+        router = build_fleet(bundle, cfg=RouterConfig(
+            replicas=2, queue_capacity=max(b["n_req"], b["offered"]),
+            default_deadline_s=600.0, drain_timeout_s=60.0,
+            hang_timeout_s=600.0, **tiers), serve_cfg=ServeConfig(**dcfg),
+            device=dev)
+        router.warmup()
+
+        def pass_once():
+            t0 = time.perf_counter()
+            reqs = [router.submit(p, max_new_tokens=n)
+                    for p, n in zip(prompts, budgets)]
+            while any(not r.finished for r in reqs):
+                router._tick()
+            return reqs, time.perf_counter() - t0
+
+        pass_once()                     # warm: every shape once
+        best_wall, best = float("inf"), None
+        for _ in range(b["reps"]):
+            reqs, wall = pass_once()
+            if wall < best_wall:
+                best_wall, best = wall, reqs
+        stats = router.stats()
+        router.stop()
+        return best, best_wall, stats
+
+    disagg, disagg_wall, dstats = run(True)
+    coloc, coloc_wall, _ = run(False)
+    for label, reqs in (("disagg", disagg), ("colocated fleet", coloc)):
+        exact = sum(r.status == "ok" and r.tokens == ref[i]
+                    for i, r in enumerate(reqs))
+        require(exact == len(prompts),
+                f"disagg arm: {exact}/{len(prompts)} {label} requests equal "
+                f"the colocated engine's tokens")
+
+    def goodput(reqs, wall):
+        return sum(len(r.tokens) for r in reqs if r.status == "ok") / wall
+
+    hand = dstats["handoff"]
+    out = {"disagg_goodput": goodput(disagg, disagg_wall),
+           "coloc_goodput": goodput(coloc, coloc_wall),
+           "handoff": {k: hand[k] for k in ("bytes_sent", "pages_sent",
+                                            "spliced", "overlap",
+                                            "retries")}}
+    out["ratio"] = out["disagg_goodput"] / out["coloc_goodput"]
+    print(f"disagg arm (bench_serve arm 4: d_model "
+          f"{SERVE_BENCH_CONFIG['d_model']}, 8 heads, f32 weights, int8 "
+          f"cache, chunk {b['chunk']}; {b['n_req']} requests): 1 prefill + "
+          f"1 decode replica {out['disagg_goodput']:.1f} tokens/s vs a "
+          f"colocated 2-replica fleet {out['coloc_goodput']:.1f} (ratio "
+          f"{out['ratio']:.3f}); handoff over all 4 passes "
+          f"{hand['bytes_sent']} bytes, {hand['pages_sent']} pages, "
+          f"{hand['spliced']} spliced, overlap {hand['overlap']}; "
+          f"{len(prompts)}/{len(prompts)} equal the colocated engine's "
+          f"tokens [{card}]")
+    return out
+
+
+# the disagg drill's interference scenario at the width of phase 6: 3
+# victims decoding while 6 long prompts arrive (a 1000-token prompt is
+# bucket 1024: two 512-token chunks, K1 at chunk 0)
+INTERFERENCE = dict(victims=3, victim_len=20, victim_new=48, burst=6,
+                    burst_len=1000, burst_new=4, seg=4, min_p99_ratio=1.2)
+
+
+def bench_interference(dev, card) -> dict:
+    """scripts/disagg_drill.py's interference scenario at full width, f32:
+    the victims' inter-token gaps read off the wall clock of the engine
+    decoding them (each replica's `_tick` timed; a gap is the engine
+    time between two of a victim's token arrivals over the tokens that
+    arrived), colocated (3 replicas) against tiered (2 prefill + 1
+    decode), the second of two passes each.  Gates: every request exact
+    against the offline engine in both arms, the decode tier saw no
+    prefill and seated every request remotely, and the p99 ratio at the
+    drill's 1.2 or more (the drill test leaves this timing key to the
+    card)."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    bucket_length)
+    from mmlspark_tpu_torch.serve import (RouterConfig, ServeConfig,
+                                          build_fleet)
+    c = INTERFERENCE
+    vocab = LM_CONFIG["vocab_size"]
+    bundle = ModelBundle("TransformerLM", {**LM_CONFIG, "dtype": "float32"},
+                         ModelBundle.init("TransformerLM", LM_CONFIG,
+                                          seed=0).variables)
+    rng = np.random.default_rng(21)
+    victims = [rng.integers(0, vocab, c["victim_len"]).astype(np.int32)
+               for _ in range(c["victims"])]
+    burst = [rng.integers(0, vocab, c["burst_len"]).astype(np.int32)
+             for _ in range(c["burst"])]
+    buckets = tuple(sorted({bucket_length(len(p), LM_CONFIG["max_len"],
+                                          c["victim_new"])
+                            for p in victims + burst}))
+    scfg = ServeConfig(max_new_tokens=c["victim_new"], max_batch=8,
+                       segment_steps=c["seg"], cache_chunk=64,
+                       prefill_chunk=512, default_deadline_s=600.0,
+                       warmup_buckets=buckets)
+
+    def arm(tiered: bool) -> dict:
+        tiers = (dict(replicas=3, prefill_replicas=2, decode_replicas=1)
+                 if tiered else dict(replicas=3))
+        router = build_fleet(bundle, cfg=RouterConfig(
+            default_deadline_s=600.0, hang_timeout_s=600.0, **tiers),
+            serve_cfg=scfg, device=dev)
+        router.warmup()
+        spent = {rep.name: 0.0 for rep in router.replicas}
+        for rep in router.replicas:
+            def timed(name=rep.name, tick=rep.engine._tick):
+                t0 = time.perf_counter()
+                try:
+                    return tick()
+                finally:
+                    spent[name] += time.perf_counter() - t0
+            rep.engine._tick = timed
+
+        def run_pass():
+            vs = [router.submit(p, max_new_tokens=c["victim_new"])
+                  for p in victims]
+            bs = [router.submit(p, max_new_tokens=c["burst_new"])
+                  for p in burst]
+            seen = {r.id: (0, None, None) for r in vs}
+            gaps = []
+            while any(not r.finished for r in vs + bs):
+                router._tick()
+                for rr in vs:
+                    if not rr.attempts:
+                        continue
+                    host = rr.attempts[-1][0]
+                    n_tok, old_host, mark = seen[rr.id]
+                    cur = len(rr.stream_state()[1])
+                    if cur > n_tok:
+                        if mark is not None and host == old_host:
+                            gaps.append((spent[host] - mark) / (cur - n_tok))
+                        seen[rr.id] = (cur, host, spent[host])
+            return vs + bs, gaps
+
+        run_pass()
+        reqs, gaps = run_pass()
+        decode = [rep for rep in router.replicas if rep.role == "decode"]
+        out = {"reqs": reqs, "gaps": gaps,
+               "p99_ms": float(np.percentile(np.asarray(gaps), 99)) * 1e3,
+               "p50_ms": float(np.percentile(np.asarray(gaps), 50)) * 1e3,
+               "decode_tier_prefills": sum(
+                   len(rep.engine.estimator.snapshot()["prefill_s"])
+                   for rep in decode),
+               "remote_joins": sum(rep.engine._counts.get("remote_joins", 0)
+                                   for rep in decode)}
+        router.stop()
+        return out
+
+    tiered, coloc = arm(True), arm(False)
+    weights = ServingWeights(bundle.module(dev))
+    ref_v = offline_tokens(weights, victims, c["victim_new"], 64, dev)
+    ref_b = offline_tokens(weights, burst, c["burst_new"], 64, dev)
+    ref = ref_v + ref_b
+    for label, res in (("tiered", tiered), ("colocated", coloc)):
+        exact = sum(r.status == "ok" and r.tokens == ref[i]
+                    for i, r in enumerate(res["reqs"]))
+        require(exact == len(ref), f"interference {label}: {exact}/"
+                f"{len(ref)} requests equal the offline tokens")
+    n = c["victims"] + c["burst"]
+    require(tiered["decode_tier_prefills"] == 0
+            and tiered["remote_joins"] >= 2 * n,
+            f"interference: decode-tier prefills "
+            f"{tiered['decode_tier_prefills']}, remote joins "
+            f"{tiered['remote_joins']} (2 passes of {n})")
+    ratio = coloc["p99_ms"] / tiered["p99_ms"]
+    out = {"tiered_p99_ms": tiered["p99_ms"], "coloc_p99_ms": coloc["p99_ms"],
+           "tiered_p50_ms": tiered["p50_ms"], "coloc_p50_ms": coloc["p50_ms"],
+           "p99_ratio": ratio, "min_p99_ratio": c["min_p99_ratio"],
+           "gaps": (len(tiered["gaps"]), len(coloc["gaps"]))}
+    print(f"interference (disagg drill at full width, f32: "
+          f"{c['victims']} victims of {c['victim_len']} tokens x "
+          f"{c['victim_new']} new, a burst of {c['burst']} x "
+          f"{c['burst_len']} tokens): victims' inter-token p99 "
+          f"{coloc['p99_ms']:.3f} ms colocated vs {tiered['p99_ms']:.3f} ms "
+          f"tiered, ratio {ratio:.3f} (the drill's floor "
+          f"{c['min_p99_ratio']}); p50 {coloc['p50_ms']:.3f} vs "
+          f"{tiered['p50_ms']:.3f} ms; decode tier prefills 0, "
+          f"{tiered['remote_joins']} remote joins; every token equal to the "
+          f"offline engine's [{card}]")
+    require(ratio >= c["min_p99_ratio"],
+            f"interference: p99 ratio {ratio:.3f} under the drill's "
+            f"{c['min_p99_ratio']}")
+    return out
+
+
+# chip_smoke phase 15: head dim 32 -- the shapes of the checks and times,
+# and the width of the main paths that run K1 and K4 at head dim 32 (the
+# Zipf prefix arm's: bench.py bench_serve arm 5, d_model 256 over 8 heads)
+D32_FLASH = (2, 1024, 8, 32)
+D32_DECODE = (16, 1088, 8, 32)
+D32_CONFIG = {"vocab_size": 8192, "d_model": 256, "n_heads": 8,
+              "n_layers": 4, "max_len": 1024, "dtype": "bfloat16"}
+D32_PROMPT, D32_NEW, D32_CHUNK = 960, 8, 64
+
+
+def d32_kernel_checks(dev, card) -> dict:
+    """K1 and K1[lse] at (2, 1024, 8, 32), f32 and bf16, causal and not,
+    and K4 and K4[stats] at (16, 1088, 8, 32) over bf16, f32 and int8
+    caches, each against its plain version with the head-dim-64/128
+    cases' limits; then each one's device time (a CUDA graph of 20
+    calls, median of 5), its bound, the library call's time where one
+    PyTorch call computes the same function, and the plain version's."""
+    from mmlspark_tpu_torch.ops.decode_attention import (
+        _sm_count, _span_plan, fused_single_query_attention,
+        fused_single_query_attention_plain,
+        fused_single_query_attention_stats,
+        fused_single_query_attention_stats_plain)
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain, flash_attention_with_lse,
+        flash_attention_with_lse_plain)
+    from mmlspark_tpu_torch.quant.quantize import quantize_kv
+    gen = torch.Generator(device=dev).manual_seed(32)
+    b, s, h, d = D32_FLASH
+    errs: dict = {}
+    qkv = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        qkv[dtype] = (q, k, v)
+        bf16 = dtype == torch.bfloat16
+        out_tol, lse_tol = (2e-2, 1e-3) if bf16 else (1e-4, 1e-4)
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal=causal)
+            out, lse = flash_attention_with_lse(q, k, v, causal)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v,
+                                                              causal)
+            err, norm_err = out_errs(got, ref_out)
+            lse_err = (lse - ref_lse).abs().max().item()
+            print(f"head dim 32: flash_attention / _with_lse "
+                  f"{D32_FLASH} causal={causal} {dtype}: out "
+                  f"max_abs_err={err:.3e} (tol {out_tol}), ||d||/||ref|| "
+                  f"{norm_err:.3e} (tol {OUT_NORM_TOL[dtype]}); with lse "
+                  f"bitwise equal {torch.equal(got, out)}; lse "
+                  f"max_abs_err={lse_err:.3e} (tol {lse_tol})")
+            require(err <= out_tol and norm_err <= OUT_NORM_TOL[dtype]
+                    and lse_err <= lse_tol and torch.equal(got, out),
+                    f"head dim 32: K1 disagrees (causal={causal} {dtype})")
+            key = "k1_bf16" if bf16 else "k1_f32"
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    b4, window, h4, d4 = D32_DECODE
+    bucket = window - 64
+    cases = {}
+    for kind in ("bf16", "f32", "int8"):
+        dtype = torch.float32 if kind == "f32" else torch.bfloat16
+        q = torch.randn((b4, h4, d4), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b4, window, h4, d4), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        true_len = torch.randint(1, bucket + 1, (b4,), generator=gen,
+                                 device=dev)
+        visible = engine_mask(b4, window, bucket, bucket + 40, true_len)
+        visible[-1] = False                       # a fully masked row
+        kw = {}
+        if kind == "int8":
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            kw = dict(k_scale=ks, v_scale=vs)
+        cases[kind] = (q, k, v, visible, kw)
+        got = fused_single_query_attention(q, k, v, visible, **kw)
+        acc, m, l = fused_single_query_attention_stats(q, k, v, visible,
+                                                       **kw)
+        torch.cuda.synchronize()
+        err = (got - fused_single_query_attention_plain(
+            q, k, v, visible, **kw)).abs().max().item()
+        r_acc, r_m, r_l = fused_single_query_attention_stats_plain(
+            q, k, v, visible, **kw)
+        e_acc = ((acc - r_acc).abs().max() / r_acc.abs().max()).item()
+        e_l = ((l - r_l).abs().max() / r_l.abs().max()).item()
+        e_m = (m[:-1] - r_m[:-1]).abs().max().item()
+        print(f"head dim 32: fused_single_query_attention {D32_DECODE} "
+              f"cache={kind}: max_abs_err={err:.3e} (tol 2e-3); _stats acc "
+              f"{e_acc:.3e}, l {e_l:.3e} of max|ref| (tol 1e-4), m "
+              f"{e_m:.3e} (tol 1e-4)")
+        require(err <= 2e-3 and e_acc <= 1e-4 and e_l <= 1e-4
+                and e_m <= 1e-4 and torch.count_nonzero(got[-1]).item() == 0
+                and bool((l[-1] == 0).all()),
+                f"head dim 32: K4 / K4[stats] disagree (cache={kind})")
+        errs[f"k4_{kind}"] = err
+        errs[f"k4s_{kind}"] = (acc - r_acc).abs().max().item()
+    repeat_and_graph_check(
+        lambda: fused_single_query_attention(*cases["int8"][:4],
+                                             **cases["int8"][4]),
+        f"fused_single_query_attention {D32_DECODE} cache=int8")
+    repeat_and_graph_check(
+        lambda: flash_attention(*qkv[torch.bfloat16], causal=True),
+        f"flash_attention {D32_FLASH} causal bf16")
+
+    # times, bounds, library calls
+    entries: dict = {}
+
+    def entry(name, replaces, err, ms, plain_ms, bound, bound_by, lib_ms):
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": ("mmlspark_tpu_torch/csrc/flash_attention.cu"
+                       if name.startswith("flash") else
+                       "mmlspark_tpu_torch/csrc/decode_attention.cu"),
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+    flops = 4.0 * b * h * d * (s * (s + 1) / 2)        # QK^T + PV, causal
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, ", f32")):
+        q, k, v = qkv[dtype]
+        item = q.element_size()
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        for lse in (False, True):
+            name = f"flash_attention[{'lse, ' if lse else ''}d32{tag}]"
+            if lse:
+                ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True))
+                plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(
+                    q, k, v, True), calls=3)
+                # PyTorch's flash forward returns the lse too (bf16 only);
+                # at f32 its memory-efficient forward does
+                lib_ms = (graph_ms(
+                    lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                        qt, kt, vt, 0.0, True))
+                    if dtype == torch.bfloat16 else graph_ms(
+                    lambda: torch.ops.aten
+                    ._scaled_dot_product_efficient_attention(
+                        qt, kt, vt, None, True, is_causal=True)))
+            else:
+                ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
+                plain_ms = graph_ms(lambda: flash_attention_plain(
+                    q, k, v, causal=True), calls=3)
+                lib_ms = graph_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True))
+            nbytes = 4.0 * b * s * h * d * item + (b * s * h * 4 if lse else 0)
+            bound_f, bound_b = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+            bound = max(bound_f, bound_b)
+            by = "operations" if bound_f >= bound_b else "bytes"
+            print(f"timing {name} {D32_FLASH} causal, device time (CUDA "
+                  f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; library "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+                  f"bound {bound:.4f} ms ({by}); {flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {bound / ms:.3f} of the bound [{card}]")
+            entry(name, "mmlspark_tpu/ops/flash_attention.py:148",
+                  errs["k1_bf16" if dtype == torch.bfloat16 else "k1_f32"],
+                  ms, plain_ms, bound, by, lib_ms)
+
+    span, n_spans = _span_plan(window, b4 * h4, _sm_count(dev))
+    for kind in ("bf16", "f32", "int8"):
+        q, k, v, visible, kw = cases[kind]
+        n_visible = int(visible.sum().item())
+        bound, by = stats_bound(b4, h4, d4, n_visible, window,
+                                k.element_size(), kind == "int8")
+        lib_ms = None
+        if kind != "int8":
+            mask = visible[:, None, None, :]
+            lib_ms = graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask))
+        for stats in (False, True):
+            fn = (fused_single_query_attention_stats if stats
+                  else fused_single_query_attention)
+            plain = (fused_single_query_attention_stats_plain if stats
+                     else fused_single_query_attention_plain)
+            ms = graph_ms(lambda: fn(q, k, v, visible, **kw))
+            plain_ms = graph_ms(lambda: plain(q, k, v, visible, **kw))
+            base = ("fused_single_query_attention_stats" if stats
+                    else "fused_single_query_attention")
+            name = f"{base}[d32]" if kind == "bf16" else f"{base}[d32, {kind}]"
+            print(f"timing {name} {D32_DECODE}, {n_spans} spans of {span} "
+                  f"slots, device time (CUDA graph): {ms:.4f} ms; plain "
+                  f"{plain_ms:.4f} ms; library "
+                  f"{'none' if stats or lib_ms is None else f'SDPA {lib_ms:.4f} ms'}"
+                  f"; bound {bound:.4f} ms ({by}), {bound / ms:.3f} of it "
+                  f"[{card}]")
+            entry(name, "mmlspark_tpu/ops/decode_attention.py:245" + (
+                " (fused_single_query_attention_stats, :326)" if stats
+                else ""), errs[f"k4s_{kind}" if stats else f"k4_{kind}"], ms,
+                plain_ms, bound, by, None if stats else lib_ms)
+    return entries
+
+
+def d32_main_paths(dev, card) -> dict:
+    """The main paths that run the head-dim-32 instances, at the Zipf
+    arm's width with seeded weights: `TextGenerator.transform` on two
+    960-token prompts (bucket 1016: K1 at every layer's whole prefill, K4
+    at every decode step) at bf16, bf16 with an int8 cache and f32, and
+    the seq=2 `DecodeEngine` (both shards on this card: K1[lse] on the
+    ring prefill, K4[stats] per shard) at bf16.  Launches counted from 0
+    around each run; f32 greedy tokens equal the recompute oracle's."""
+    from mmlspark_tpu_torch import DataTable, ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.core.table import object_column
+    from mmlspark_tpu_torch.models import DecodeEngine
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    naive_generate)
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    n_layers, vocab = D32_CONFIG["n_layers"], D32_CONFIG["vocab_size"]
+    base = ModelBundle.init("TransformerLM", D32_CONFIG, seed=2)
+    rng = np.random.default_rng(32)
+    rows = [rng.integers(0, vocab, D32_PROMPT).astype(np.int32)
+            for _ in range(2)]
+    table = DataTable({"prompt": object_column(rows)})
+    out: dict = {}
+    for name, dtype, kv in (("bf16", "bfloat16", None),
+                            ("int8", "bfloat16", "int8"),
+                            ("f32", "float32", None)):
+        bundle = ModelBundle("TransformerLM", {**D32_CONFIG, "dtype": dtype},
+                             base.variables)
+        stage = TextGenerator(bundle, device=dev, inputCol="prompt",
+                              maxNewTokens=D32_NEW, kvCacheDtype=kv)
+        stage.transform(table)                    # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = stage.transform(table)["generated"]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = read_counts()
+        k1, k4 = (launched["flash_attention"],
+                  launched["fused_single_query_attention"])
+        # one prefill batch of both rows, then D32_NEW - 1 decode steps
+        require(k1 == n_layers and k4 == n_layers * (D32_NEW - 1),
+                f"head dim 32 TextGenerator {name}: K1 {k1}, K4 {k4}, "
+                f"expected {n_layers} and {n_layers * (D32_NEW - 1)}")
+        out[name] = {"K1": k1, "K4": k4,
+                     "tokens_per_s": len(rows) * D32_NEW / seconds}
+        if name == "f32":
+            module = bundle.module(dev)
+            refs = [naive_generate(module, r[None], D32_NEW)[0] for r in rows]
+            equal = all(np.array_equal(g, r) for g, r in zip(got, refs))
+            require(equal, "head dim 32 TextGenerator f32: tokens differ "
+                    "from the recompute oracle's")
+        print(f"head dim 32 main path TextGenerator.transform {name}: "
+              f"{len(rows)} rows x {D32_PROMPT} + {D32_NEW} tokens in "
+              f"{seconds * 1e3:.1f} ms; launches K1 {k1} = {n_layers} x 1 "
+              f"prefill, K4 {k4} = {n_layers} x {D32_NEW - 1} steps [{card}]")
+    shards = 2
+    mesh = make_mesh(MeshSpec(data=1, model=1, seq=shards),
+                     [torch.device(dev.type, 0)] * shards)
+    prompts = np.stack(rows)
+    true_len = np.full(len(rows), D32_PROMPT, np.int32)
+    for name, dtype, kv in (("bf16", "bfloat16", "model"),
+                            ("int8", "bfloat16", "int8"),
+                            ("f32", "float32", "model")):
+        bundle = ModelBundle("TransformerLM", {**D32_CONFIG, "dtype": dtype},
+                             base.variables)
+        engine = DecodeEngine(ServingWeights(bundle.module(dev)), D32_NEW,
+                              chunk=D32_CHUNK, mesh=mesh, cache_dtype=kv,
+                              device=dev)
+        engine.generate(prompts, true_len)        # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        engine.generate(prompts, true_len)
+        torch.cuda.synchronize()
+        launched = read_counts()
+        lse, stats = (launched["flash_attention[lse]"],
+                      launched["fused_single_query_attention_stats"])
+        want = n_layers * (D32_NEW - 1) * shards
+        # the ring prefill: one launch per live (shard, block) pair a layer
+        want_lse = n_layers * shards * (shards + 1) // 2
+        require(lse == want_lse and stats == want,
+                f"head dim 32 seq=2 engine {name}: K1[lse] {lse}, "
+                f"K4[stats] {stats} (expected {want_lse} and {want})")
+        out[f"seq2_{name}"] = {"K1[lse]": lse, "K4[stats]": stats}
+        print(f"head dim 32 main path DecodeEngine over a seq=2 mesh (both "
+              f"shards on this card), {name}: launches K1[lse] {lse} = "
+              f"{n_layers} x {shards * (shards + 1) // 2} (shard, block) "
+              f"pairs, "
+              f"K4[stats] {stats} = {n_layers} x {D32_NEW - 1} steps x "
+              f"{shards} shards [{card}]")
+    return out
+
+
+def phase_head_dim_32(dev, card) -> tuple:
+    """chip_smoke phase 15: K1, K1[lse], K4 and K4[stats] at head dim 32
+    (their checks and times, `d32_kernel_checks`) and the main paths that
+    run those instances (`d32_main_paths`): the kernels-line rows with
+    their launches, and the paths' counts."""
+    entries = d32_kernel_checks(dev, card)
+    paths = d32_main_paths(dev, card)
+    launches = {
+        "flash_attention[d32]": paths["bf16"]["K1"],
+        "flash_attention[d32, f32]": paths["f32"]["K1"],
+        "flash_attention[lse, d32]": paths["seq2_bf16"]["K1[lse]"],
+        "flash_attention[lse, d32, f32]": paths["seq2_f32"]["K1[lse]"],
+        "fused_single_query_attention[d32]": paths["bf16"]["K4"],
+        "fused_single_query_attention[d32, int8]": paths["int8"]["K4"],
+        "fused_single_query_attention[d32, f32]": paths["f32"]["K4"],
+        "fused_single_query_attention_stats[d32]":
+            paths["seq2_bf16"]["K4[stats]"],
+        "fused_single_query_attention_stats[d32, int8]":
+            paths["seq2_int8"]["K4[stats]"],
+        "fused_single_query_attention_stats[d32, f32]":
+            paths["seq2_f32"]["K4[stats]"]}
+    require(set(launches) == set(entries),
+            f"head dim 32: timed {sorted(entries)}, counted "
+            f"{sorted(launches)}")
+    return [{**entries[n], "launches": c} for n, c in launches.items()], paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2420,14 +3337,14 @@ def main() -> int:
               f"{row['static_smem_bytes']} bytes static shared memory, "
               f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
               f"stores / loads")
-    require(len(k1_build) == 4 and not any(
+    require(len(k1_build) == 6 and not any(
         row["spill_stores"] or row["spill_loads"] for row in k1_build),
         "K1's build log lacks a kernel or reports spills")
     require(len(bwd_build) == 8 and not any(
         row["spill_stores"] or row["spill_loads"] for row in bwd_build
         if "bf16" in row["kernel"]),
         "K2/K3's build log lacks a kernel or reports spills in a bf16 kernel")
-    require(len(k4_build) == 12 and not any(
+    require(len(k4_build) == 18 and not any(
         row["spill_stores"] or row["spill_loads"] for row in k4_build),
         "K4's build log lacks a kernel or reports spills")
     dev = torch.device("cuda")
@@ -2453,6 +3370,12 @@ def main() -> int:
     reset_counts()
     fleet = phase_fleet(dev, card)
     print(json.dumps({"fleet": fleet, "card": card}))
+    torch.cuda.empty_cache()
+    reset_counts()
+    tiered = phase_tiered(dev, card)
+    print(json.dumps({"tiers": tiered, "card": card}))
+    torch.cuda.empty_cache()
+    d32, d32_paths = phase_head_dim_32(dev, card)
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]
@@ -2469,7 +3392,8 @@ def main() -> int:
     decode_stats[2]["launches"] = seq1["fused_single_query_attention"]
     ring_lse[0]["launches"] = seq2["flash_attention[lse]"]
     ring_lse[1]["launches"] = seq1["flash_attention"]
-    kernels = [flash, flash_lse] + backward + decode + decode_stats + ring_lse
+    kernels = ([flash, flash_lse] + backward + decode + decode_stats
+               + ring_lse + d32)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": {k: v for k, v in main_path.items()
@@ -2477,7 +3401,8 @@ def main() -> int:
                       "train_path": {k: v for k, v in train.items()
                                      if k != "counts"},
                       "long_context": long_context,
-                      "grad_check": grad_check, "k1_build": k1_build,
+                      "grad_check": grad_check, "head_dim_32": d32_paths,
+                      "k1_build": k1_build,
                       "bwd_build": bwd_build, "k4_build": k4_build,
                       "card": card}))
     print(card)
@@ -2489,9 +3414,70 @@ def main() -> int:
     return 0
 
 
+def ab_main(argv: list) -> int:
+    """`python3 chip_smoke.py --ab TAG [--tree DIR]`: the host-bound
+    serving phases alone, on the port package of the tree DIR (default:
+    this script's own), for a parent-against-change comparison inside one
+    chip call, where host-bound rates do not move between runs as they do
+    between calls.  Unpack the parent into a git-ignored directory
+    (`git archive <parent> | tar -x -C build/parent`) and run, in one
+    call, `--ab parent --tree build/parent`, `--ab change` twice, then
+    the parent again.  Runs phase 6 (`TextGenerator.transform`), 12 (the
+    online engine over HTTP), 13 (the fleet over HTTP) and, where the
+    tree has the tiers, 14, the last two without their bench arms; their
+    gates hold as in a full run.  Prints one line, `AB {...}`: the
+    tree's tag and directory, each phase's tokens/s, phase 14's overlap
+    and splice-to-first-decode ms, the card's name and power limit."""
+    import argparse
+    import importlib.util
+    import os
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--ab", required=True, metavar="TAG")
+    ap.add_argument("--tree", default=None, metavar="DIR")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(args.tree or os.path.dirname(__file__))
+    sys.path.insert(0, tree)
+    import mmlspark_tpu_torch
+    from mmlspark_tpu_torch.ops import native
+    require(os.path.dirname(os.path.dirname(os.path.abspath(
+        mmlspark_tpu_torch.__file__))) == tree,
+        f"--tree {tree}: the port imported from {mmlspark_tpu_torch.__file__}")
+    native.build()
+    card = card_line()
+    dev = torch.device("cuda")
+    out: dict = {"tree": args.ab, "dir": tree, "card": card}
+    t0 = time.perf_counter()
+    out["phase6"] = phase_main_path(dev, card)["tokens_per_s"]
+    torch.cuda.empty_cache()
+    reset_counts()
+    out["phase12"] = {k: v["tokens_per_s"] for k, v in phase_serving(
+        dev, card).items() if isinstance(v, dict) and "tokens_per_s" in v}
+    torch.cuda.empty_cache()
+    reset_counts()
+    out["phase13"] = {k: v["tokens_per_s"] for k, v in phase_fleet(
+        dev, card, benches=False).items()
+        if isinstance(v, dict) and "tokens_per_s" in v}
+    if importlib.util.find_spec("mmlspark_tpu_torch.serve.handoff"):
+        torch.cuda.empty_cache()
+        reset_counts()
+        out["phase14"] = {
+            k: {"tokens_per_s": v["tokens_per_s"],
+                "overlap": v["handoff"]["overlap"],
+                "splice_to_first_decode_ms":
+                    v["splice_to_first_decode_ms"]["median"]}
+            for k, v in phase_tiered(dev, card, benches=False).items()
+            if isinstance(v, dict) and "handoff" in v}
+    out["seconds"] = time.perf_counter() - t0
+    print("AB " + json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(ab_main(sys.argv[1:]) if sys.argv[1:] else main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -32,7 +32,10 @@
 //   * A warp is cut into lane groups of D*itemsize/16 lanes; a group reads
 //     one slot's K and V row with 16-byte loads (a contiguous row per
 //     group), reduces q.k across its lanes, and folds the slot into its own
-//     online-softmax state (m, l, acc).  A stage is UNROLL such slot groups
+//     online-softmax state (m, l, acc).  Head dims 32, 64 and 128: at 32
+//     a group is 2 (int8), 4 (bf16) or 8 (f32) lanes, so a warp load
+//     round covers 16, 8 or 4 slots, and the span merge's thread groups
+//     over spans are 8 (256 threads over 32 columns).  A stage is UNROLL such slot groups
 //     per warp.  The stream is a register double buffer: stage g + 1's K/V
 //     loads (and stage g + 2's mask bytes, on which the K/V loads of the
 //     stage after depend) are issued before stage g's math.  Masked slots
@@ -361,6 +364,7 @@ template <typename QT, typename CT, bool QUANT>
 cudaError_t by_dim(int D, const SqaArgs& a) {
   if (D == 128) return launch<QT, CT, 128, QUANT>(a);
   if (D == 64) return launch<QT, CT, 64, QUANT>(a);
+  if (D == 32) return launch<QT, CT, 32, QUANT>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -52,6 +52,31 @@
 //   * f32: one warp per query row, each lane holding D/32 elements, keys
 //     folded one at a time with the same online-softmax algebra in f32
 //     FMA (no TF32: the f32 path is the precise reference-grade one).
+//
+// Design, bf16 at head dim 32 (`flash_fwd_bf16_mma<32>`).  A 32-column
+// bf16 row is 64 bytes, half the 128-byte swizzle span the TMA boxes and
+// wgmma descriptors above are laid out for, and a 64 x 32 P V product
+// would leave a warpgroup's wgmma mostly idle.  So D = 32 has its own,
+// simpler kernel on warp-level tensor-core products (mma.sync m16n8k16):
+//   * one CTA of four warps owns 64 query rows of one (batch, head), 16
+//     per warp, heaviest causal tiles first; 64-key K/V tiles stream
+//     through a 2-stage ring in shared memory by cp.async (16 bytes a
+//     thread, rows past S zero-filled), so tile t + 1 loads while tile t
+//     is computed;
+//   * shared rows are padded to 80 bytes, so the 8 rows an ldmatrix
+//     reads fall in 8 distinct 16-byte bank groups (no conflicts);
+//   * S = Q K^T: Q's A fragments are loaded once (ldmatrix), K's B
+//     fragments by ldmatrix (K rows are the product's columns, d
+//     contiguous); the 16 x 64 f32 scores stay in registers;
+//   * the online softmax is the bf16 kernel's above (base 2, quad
+//     shuffles for the row max, masks only on tiles that straddle the
+//     diagonal or the end of Sk, hidden tiles skipped per warp);
+//   * O += P V: the score accumulators of two neighbouring 8-key columns
+//     are the A fragment of a 16-key step, so P stays in registers; V's
+//     B fragments come from ldmatrix.trans; the 16 x 32 accumulator stays
+//     in registers and is written with 4-byte stores after the divide.
+
+#include <climits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -281,17 +306,237 @@ __global__ void __launch_bounds__(BF16_THREADS, D == 64 ? 2 : 1)  // D = 64: 2 C
   }
 }
 
+// ---- bf16 at head dim 32: warp-level tensor-core products ----------------
+
+constexpr int MMA_BM = 64;      // query rows per CTA, 16 per warp
+constexpr int MMA_BN = 64;      // keys per K/V tile
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int MMA_PITCH = 40;   // bf16 per shared row: 32 + 8 of padding (80 bytes)
+
+// 16 bytes from global to shared memory, asynchronously; `valid` false
+// reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sm90::smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N committed cp.async groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices: thread t gives the address of row t % 8 of
+// matrix t / 8 and receives, in r[i], row t / 4, columns 2 (t % 4) and
+// 2 (t % 4) + 1 of matrix i (with `trans`, row 2 (t % 4) and 2 (t % 4) + 1,
+// column t / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p)));
+}
+
+// d += A B on one warp: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col), f32
+// accumulators.  Lane t holds d[0], d[1] at row t / 4, columns 2 (t % 4)
+// and + 1, and d[2], d[3] eight rows further down.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [r0, r0 + 64) of one head of a (B, S, H, D) tensor into a padded
+// shared tile, rows at or past S as zeros (all threads of the CTA).
+template <int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, int b, int h, int H,
+                                          int S, int r0) {
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < MMA_BN * CHUNKS; i += MMA_THREADS) {
+    const int row = i / CHUNKS, c = i % CHUNKS;
+    const int r = r0 + row;
+    const bool ok = r < S;
+    const __nv_bfloat16* src = base + ((size_t(b) * S + (ok ? r : 0)) * H + h) * D + c * 8;
+    cp_async16(dst + row * MMA_PITCH + c * 8, src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+    flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int H, int Sq, int Sk, float scale_log2, int causal, int q_off,
+                       int k_off) {
+  static_assert(D == 32, "the mma.sync kernel is written for head dim 32");
+  constexpr int NT = MMA_BN / 8;  // 8-key score columns per tile
+  constexpr int DT = D / 8;       // 8-wide output columns
+  __shared__ __align__(128) __nv_bfloat16 q_tile[MMA_BM * MMA_PITCH];
+  __shared__ __align__(128) __nv_bfloat16 kv_tile[STAGES][2][MMA_BN * MMA_PITCH];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * MMA_BM;  // heaviest causal tiles first
+  const int wq0 = q0 + warp * 16;                                   // this warp's first row
+  const int g = lane / 4, tig = lane % 4;                            // rows g, g + 8; columns 2 tig (+1)
+
+  const int last_row = min(q0 + MMA_BM, Sq) - 1;
+  int n_kt = (Sk + MMA_BN - 1) / MMA_BN;
+  if (causal) {
+    const int reach = q_off + last_row - k_off;
+    n_kt = reach < 0 ? 0 : min(n_kt, reach / MMA_BN + 1);
+  }
+
+  load_rows<D>(q_tile, q, b, h, H, Sq, q0);
+  if (n_kt > 0) {
+    load_rows<D>(kv_tile[0][0], k, b, h, H, Sk, 0);
+    load_rows<D>(kv_tile[0][1], v, b, h, H, Sk, 0);
+  }
+  cp_async_commit();
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running row max of the base-2 scaled scores
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sums
+  uint32_t qa[D / 16][4];               // Q's A fragments, one per 16-column step
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int stage = kt % STAGES;
+    if (kt + 1 < n_kt) {
+      // the other stage was released by the barrier that ended tile kt - 1
+      load_rows<D>(kv_tile[1 - stage][0], k, b, h, H, Sk, (kt + 1) * MMA_BN);
+      load_rows<D>(kv_tile[1 - stage][1], v, b, h, H, Sk, (kt + 1) * MMA_BN);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        ldmatrix_x4(qa[ks], q_tile + (warp * 16 + lane % 16) * MMA_PITCH + ks * 16 + (lane / 16) * 8);
+    }
+    const int k0 = kt * MMA_BN;
+    // a tile wholly above the diagonal for this warp's rows adds nothing
+    const bool hidden = causal && k_off + k0 > q_off + wq0 + 15;
+    if (!hidden) {
+      const __nv_bfloat16* kt_s = kv_tile[stage][0];
+      const __nv_bfloat16* vt_s = kv_tile[stage][1];
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t kb[4];  // d columns 0-7, 8-15, 16-23, 24-31 of keys nt*8 .. nt*8+7
+        ldmatrix_x4(kb, kt_s + (nt * 8 + lane % 8) * MMA_PITCH + (lane / 8) * 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+        mma_16816(s[nt], qa[0], kb[0], kb[1]);
+        mma_16816(s[nt], qa[1], kb[2], kb[3]);
+      }
+
+      // mask only a tile that straddles the diagonal or the end of Sk
+      const bool full = k0 + MMA_BN <= Sk && (!causal || k_off + k0 + MMA_BN - 1 <= q_off + wq0);
+      if (!full) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + nt * 8 + 2 * tig + i % 2;
+            const int row = wq0 + g + 8 * (i / 2);
+            if (key >= Sk || (causal && k_off + key > q_off + row)) s[nt][i] = -INFINITY;
+          }
+      }
+
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i / 2] = fmaxf(mx[i / 2], s[nt][i]);
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row that sees nothing yet stays at zero weight
+        const float corr = ex2(m[r] - base[r]);
+        m[r] = m_new;
+        l[r] *= corr;
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          o[j][2 * r] *= corr;
+          o[j][2 * r + 1] *= corr;
+        }
+      }
+      uint32_t p[NT][2];  // probabilities as bf16 pairs: rows g and g + 8
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = ex2(fmaf(s[nt][2 * r], scale_log2, -base[r]));
+          const float p1 = ex2(fmaf(s[nt][2 * r + 1], scale_log2, -base[r]));
+          l[r] += p0 + p1;
+          p[nt][r] = pack_bf16(p0, p1);
+        }
+
+#pragma unroll
+      for (int ks = 0; ks < MMA_BN / 16; ++ks) {
+        const uint32_t pa[4] = {p[2 * ks][0], p[2 * ks][1], p[2 * ks + 1][0], p[2 * ks + 1][1]};
+#pragma unroll
+        for (int np = 0; np < DT / 2; ++np) {
+          uint32_t vb[4];  // keys 16ks .. +7 / +8 .. +15 of d columns 16np .. +7, then 16np+8 .. +15
+          ldmatrix_x4_trans(vb, vt_s + (16 * ks + lane % 16) * MMA_PITCH + 16 * np + (lane / 16) * 8);
+          mma_16816(o[2 * np], pa, vb[0], vb[1]);
+          mma_16816(o[2 * np + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq0 + g + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* dst = out + ((size_t(b) * Sq + qi) * H + h) * D + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
+    if (lse != nullptr && tig == 0)
+      lse[(size_t(b) * Sq + qi) * H + h] = l[r] == 0.f ? NEG_INF : (m[r] + log2f(l[r])) * LN2;
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   float* __restrict__ out, float* __restrict__ lse, int B, int H, int Sq, int Sk, float scale,
                   int causal, int q_off, int k_off) {
   constexpr int E = D / 32;
-  const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;  // (b, h, qi), qi fastest
+  const int row = int(blockIdx.x) * WARPS + int(threadIdx.x) / 32;  // (b, h, qi), qi fastest
   const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * H * Sq) return;  // whole warps leave together
-  const int qi = int(row % Sq);
-  const int bh = int(row / Sq);
+  if (row >= B * H * Sq) return;  // whole warps leave together
+  const int qi = row % Sq;
+  const int bh = row / Sq;
   const int b = bh / H, h = bh % H;
   const size_t stride = size_t(H) * D;
   const size_t col = size_t(h) * D + size_t(lane) * E;
@@ -349,9 +594,23 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
 }
 
 template <int D>
+cudaError_t launch_bf16_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+                            int Sq, int Sk, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
+  const dim3 grid(B * H, (Sq + MMA_BM - 1) / MMA_BM);
+  flash_fwd_bf16_mma<D><<<grid, MMA_THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, H, Sq, Sk,
+      scale * 1.4426950408889634f, causal, q_off, k_off);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H, int Sq,
                        int Sk, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
+  // the kernel indexes rows in 32 bits (a 64-bit division there is a
+  // subroutine call that spills at D = 32)
   const long long rows = (long long)B * H * Sq;
+  if (rows + WARPS > INT_MAX) return cudaErrorInvalidValue;
   const unsigned blocks = unsigned((rows + WARPS - 1) / WARPS);
   flash_fwd_f32<D><<<blocks, THREADS, 0, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                                    static_cast<const float*>(v), static_cast<float*>(out), lse, B,
@@ -361,7 +620,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, f
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out 16-byte aligned: TMA).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out 16-byte aligned: TMA, or
+// cp.async at D = 32); D is 32, 64 or 128.
 // `lse` may be null (no log-sum-exp output).  Returns the cudaError_t of the launch.
 extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                                       int H, int Sq, int Sk, int D, float scale, int causal, int q_off, int k_off,
@@ -374,6 +634,9 @@ extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* 
   if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
   if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
   if (dtype == 0 && D == 128) return launch_f32<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+  if (dtype == 1 && D == 32)
+    return launch_bf16_mma<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
   if (dtype == 0 && D == 64) return launch_f32<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+  if (dtype == 0 && D == 32) return launch_f32<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
   return cudaErrorInvalidValue;
 }

@@ -327,35 +327,89 @@ def _from_wire(raw: bytes, name: str, shape: tuple) -> torch.Tensor:
     return out.view(torch.bfloat16) if name == "bfloat16" else out
 
 
+def _row_to_host(parts: list) -> list:
+    """`parts` (a list of layers of tensors on one device) as
+    contiguous host tensors, through one device-to-host copy."""
+    flat = [t.contiguous() for layer in parts for t in layer]
+    if flat[0].device.type == "cpu":
+        host = flat
+    else:
+        data = torch.cat([t.view(torch.uint8).reshape(-1)
+                          for t in flat]).cpu()
+        host, at = [], 0
+        for t in flat:
+            n = t.numel() * t.element_size()
+            host.append(data[at:at + n].clone().view(t.dtype)
+                        .reshape(t.shape))
+            at += n
+    it = iter(host)
+    return [[next(it) for _ in layer] for layer in parts]
+
+
+def _slice_header(part: torch.Tensor) -> bytes:
+    """The record header of one window slice: its dtype name, shape and
+    byte length (the raw bytes follow it)."""
+    name = str(part.dtype).removeprefix("torch.").encode("ascii")
+    return b"".join([_TENSOR_HDR.pack(len(name), part.dim()), name,
+                     *(_U32.pack(dim) for dim in part.shape),
+                     _U32.pack(part.numel() * part.element_size())])
+
+
+def _frame_page(parts: list) -> bytes:
+    """One page: the page header, then per layer-tensor window slice its
+    record (`parts`: layers of host tensors)."""
+    bio = io.BytesIO()
+    bio.write(_PAGE_HDR.pack(len(parts), len(parts[0])))
+    for layer in parts:
+        for part in layer:
+            bio.write(_slice_header(part))
+            bio.write(_wire_bytes(part))
+    return bio.getvalue()
+
+
+class CacheRowPages:
+    """ONE row of a serve cache cut into chunk-granular window pages, made
+    one at a time: `pages[i]` copies page i's window slices of every
+    layer-tensor from the card to the host in one copy, then frames them
+    as a self-describing blob (dtype name + shape + raw bytes per slice)
+    that `deserialize_cache_row` — the port's or the JAX package's —
+    reassembles without side-channel layout info.  Both cache layouts
+    work, the 2-tuple model-dtype (k, v) and the 4-tuple int8 (kq,
+    k_scale, vq, v_scale).  The KV handoff bus frames a row's pages as it
+    pushes them, so the row's copies spread over the ticks its transfer
+    takes.  Holds views of `caches`, which must not be written
+    meanwhile."""
+
+    def __init__(self, caches, row: int, chunk: int):
+        self._row = [[t[row].detach() for t in layer] for layer in caches]
+        self._width = self._row[0][0].shape[0]
+        self._step = max(1, int(chunk))
+
+    def __len__(self) -> int:
+        return -(-self._width // self._step)
+
+    def _slices(self, i: int) -> list:
+        lo = i * self._step
+        return [[t[lo:lo + self._step] for t in layer] for layer in self._row]
+
+    def __getitem__(self, i: int) -> bytes:
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        return _frame_page(_row_to_host(self._slices(i)))
+
+    def nbytes(self) -> int:
+        """The pages' total length, from the shapes alone: the headers
+        `_frame_page` writes and the slices' bytes."""
+        return sum(_PAGE_HDR.size + sum(
+            len(_slice_header(part)) + part.numel() * part.element_size()
+            for layer in self._slices(i) for part in layer)
+            for i in range(len(self)))
+
+
 def serialize_cache_row(caches, row: int, chunk: int) -> list:
-    """Cut ONE row of a serve cache into chunk-granular window pages: each
-    page is a self-describing blob (dtype name + shape + raw bytes per
-    layer-tensor window slice) that `deserialize_cache_row` — the port's
-    or the JAX package's — reassembles without side-channel layout info.
-    Both cache layouts work, the 2-tuple model-dtype (k, v) and the
-    4-tuple int8 (kq, k_scale, vq, v_scale)."""
-    host = [[t[row].detach().cpu().contiguous() for t in layer]
-            for layer in caches]
-    width = host[0][0].shape[0]
-    step = max(1, int(chunk))
-    pages = []
-    for lo in range(0, width, step):
-        bio = io.BytesIO()
-        bio.write(_PAGE_HDR.pack(len(host), len(host[0])))
-        for layer in host:
-            for tensor in layer:
-                part = tensor[lo:lo + step].contiguous()
-                name = str(part.dtype).removeprefix("torch.").encode(
-                    "ascii")
-                bio.write(_TENSOR_HDR.pack(len(name), part.dim()))
-                bio.write(name)
-                for dim in part.shape:
-                    bio.write(_U32.pack(dim))
-                raw = _wire_bytes(part)
-                bio.write(_U32.pack(len(raw)))
-                bio.write(raw)
-        pages.append(bio.getvalue())
-    return pages
+    """The JAX package's `serialize_cache_row`: every page of
+    `CacheRowPages(caches, row, chunk)`, as a list."""
+    return list(CacheRowPages(caches, row, chunk))
 
 
 def deserialize_cache_row(pages: list) -> list:

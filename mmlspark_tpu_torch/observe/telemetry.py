@@ -104,6 +104,9 @@ class RunTelemetry:
         # failover, ejection, probe re-admission — what the router drills
         # assert their failover/ejection sequences against
         self._routing: list[dict] = []
+        # the run's KV-handoff timeline (serve/handoff.py): transfer
+        # begin/page/splice/fail events in order
+        self._handoff: list[dict] = []
         # the run's prefix-pool timeline (serve/prefix_cache.py via
         # serve/engine.py): hit, insert, evict, evict_refused events in
         # order
@@ -225,6 +228,18 @@ class RunTelemetry:
         self.tracer._record({"type": "routing",
                              "ts": round(self.tracer.now(), 6), **rec})
 
+    def record_handoff(self, event: dict) -> None:
+        """Append one KV-handoff event (serve/handoff.py) to the run's
+        ordered timeline (also streamed as a `handoff` record); the full
+        list lands in run_summary.json under `handoff` — every transfer
+        begin, page rejection, splice, cancel-at-splice, and re-prefill."""
+        if not self.live:
+            return
+        rec = dict(event)
+        self._handoff.append(rec)
+        self.tracer._record({"type": "handoff",
+                             "ts": round(self.tracer.now(), 6), **rec})
+
     def record_prefix(self, event: dict) -> None:
         """Append one prefix-pool event (serve/prefix_cache.py decisions
         surfaced by serve/engine.py) to the run's ordered timeline (also
@@ -293,11 +308,11 @@ class RunTelemetry:
             "serve": [dict(e) for e in self._serve],
             "routing": [dict(e) for e in self._routing],
             "prefix": [dict(e) for e in self._prefix],
+            "handoff": [dict(e) for e in self._handoff],
             # the timelines of modules not ported yet (the recovery
-            # supervisor, handoff, data service, sweep): empty, so a
-            # summary keeps the JAX package's keys
-            **{key: [] for key in ("recovery", "handoff", "data_service",
-                                   "sweep")},
+            # supervisor, data service, sweep): empty, so a summary keeps
+            # the JAX package's keys
+            **{key: [] for key in ("recovery", "data_service", "sweep")},
             "trace_records_dropped": self.tracer.dropped,
         }
 

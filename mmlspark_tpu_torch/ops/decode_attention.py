@@ -46,7 +46,7 @@ CTAS_PER_SM = 2   # the kernel's occupancy (__launch_bounds__(256, 2))
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def _span_plan(length: int, rows_x_heads: int, sm_count: int) -> tuple:

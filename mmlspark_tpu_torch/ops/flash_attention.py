@@ -10,8 +10,10 @@ The kernels replace the Pallas kernels of
   * K2 `_dq_kernel` (:318) and K3 `_dkv_kernel` (:330) of
     `_flash_backward`: `csrc/flash_backward.cu`.
 
-Semantics are the JAX kernels': inputs (B, S, H, D), causal or not, f32
-softmax statistics, scale D^-0.5 by default, outputs in the input dtype.
+Head dims: K1 takes 32, 64 and 128; K2 and K3 take 64 and 128 and raise
+at 32 (ROADMAP queue B).  Semantics are the JAX kernels': inputs
+(B, S, H, D), causal or not, f32 softmax statistics, scale D^-0.5 by
+default, outputs in the input dtype.
 The log-sum-exp `lse` and the backward's `delta = rowsum(dO * O)` are f32
 (B, Sq, H), the JAX layout; the kernels read and write that layout in
 place.  Unlike the JAX wrappers the kernels take any S: they mask the
@@ -43,7 +45,8 @@ from mmlspark_tpu_torch.ops.attention import NEG_INF
 
 # dtype codes of the C entry points
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)        # K1 (bf16 at 32: its mma.sync kernel)
+_BACKWARD_HEAD_DIMS = (64, 128)   # K2, K3
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -157,7 +160,13 @@ def _check_stats(q, do, lse, delta) -> None:
 
 def _check_backward(q, k, v, do, lse, delta) -> None:
     """K2 and K3's inputs; at bf16 the kernels read q, k, v and dout
-    through TMA."""
+    through TMA.  Head dim 32 is K1's only: K2 and K3 have no instance
+    for it yet."""
+    if q.shape[-1] not in _BACKWARD_HEAD_DIMS:
+        raise ValueError(
+            f"flash backward kernels (K2, K3) take head dim "
+            f"{_BACKWARD_HEAD_DIMS}, got {q.shape[-1]}: head dim 32 is "
+            f"ROADMAP queue B's open row 'K2/K3 at head dim 32'")
     _check_inputs(q, k, v)
     _check_stats(q, do, lse, delta)
     if q.dtype == torch.bfloat16:

@@ -152,7 +152,7 @@ class Fault:
     stall-evidence autoscaling drill).
 
     KV-handoff faults (interpreted by the handoff bus itself,
-    serve/handoff.py, during the disagg drill scripts/disagg_drill.py):
+    serve/handoff.py, which reads them through `get_injector()`):
     they fire on the `at_request`-th KV transfer (1-based) —
     'handoff_torn' (one page frame is bit-flipped on the wire; the
     decode side must reject it on crc32 and the request re-prefills
@@ -162,9 +162,9 @@ class Fault:
     replica crashes after its first page is on the wire; the remaining
     pages never arrive and the request must re-prefill elsewhere).
 
-    In the port, the data service and the handoff bus are not ported
-    yet: their fault kinds are kept so a script means the same in both
-    packages, and nothing of the port consults them.
+    In the port the data service is not ported yet (ROADMAP A12): its
+    fault kinds are kept so a script means the same in both packages,
+    and nothing of the port consults them.
     """
 
     kind: str

@@ -71,14 +71,15 @@ class StepTimeEstimator:
     `service_s(bucket, n_tokens)` answers "how long would this request
     occupy the engine end to end" and returns None until a measurement
     for the bucket (or any bucket, as a coarse fallback) exists — the
-    admission controller treats None as 'no proof, admit'.  The JAX
-    package's third priced stage, the tiered fleet's KV transfer, comes
-    with the handoff (ROADMAP A9)."""
+    admission controller treats None as 'no proof, admit'.  On a tiered
+    fleet the KV transfer between the tiers is a third priced stage
+    (`observe_handoff`, fed by the handoff bus at each splice)."""
 
     def __init__(self, alpha: float = 0.3):
         self.alpha = float(alpha)
         self._prefill: dict[int, float] = {}   # bucket -> seconds
         self._step: dict[int, float] = {}      # bucket -> seconds / step
+        self._handoff: dict[int, float] = {}   # bucket -> transfer seconds
         self._lock = threading.Lock()
 
     def _fold(self, table: dict, bucket: int, value: float) -> None:
@@ -92,6 +93,12 @@ class StepTimeEstimator:
 
     def observe_step(self, bucket: int, seconds_per_step: float) -> None:
         self._fold(self._step, bucket, max(0.0, float(seconds_per_step)))
+
+    def observe_handoff(self, bucket: int, seconds: float) -> None:
+        """Tiered fleets: the measured prefill->decode KV transfer wall
+        per bucket, so admission feasibility includes the wire time
+        between the tiers."""
+        self._fold(self._handoff, bucket, max(0.0, float(seconds)))
 
     def _lookup(self, table: dict, bucket: int) -> Optional[float]:
         with self._lock:
@@ -108,17 +115,20 @@ class StepTimeEstimator:
 
     def service_s(self, bucket: int, n_tokens: int) -> Optional[float]:
         """Estimated engine-occupancy seconds for one request — prefill
-        stage + decode steps — or None with no evidence yet."""
+        stage + handoff stage (tiered fleets; 0 until observed) + decode
+        steps — or None with no evidence yet."""
         step = self._lookup(self._step, bucket)
         if step is None:
             return None
         prefill = self._lookup(self._prefill, bucket) or 0.0
-        return prefill + step * max(1, int(n_tokens))
+        handoff = self._lookup(self._handoff, bucket) or 0.0
+        return prefill + handoff + step * max(1, int(n_tokens))
 
     def snapshot(self) -> dict:
         with self._lock:
             return {"prefill_s": dict(self._prefill),
-                    "step_s": dict(self._step)}
+                    "step_s": dict(self._step),
+                    "handoff_s": dict(self._handoff)}
 
 
 class MissRateBreaker:

@@ -53,9 +53,14 @@ sampling streams are `_mix(cfg.seed, request id)`, the port's stream for
 the JAX engine's `fold_in(key(seed), id)`: greedy output is the JAX
 engine's; sampled output agrees in distribution.
 
+Disaggregated roles (`ServeConfig.role`): a PREFILL-tier engine runs
+admission and (chunked) prefill only and hands each finished cohort to
+`handoff_export` (wired by serve/handoff.py) instead of seating it; a
+DECODE-tier engine seats handed-off rows through `splice_remote` and
+decodes them like any join.
+
 Not ported yet (they raise NotImplementedError, naming the ROADMAP step):
-speculative decoding, the disaggregated roles (prefill/decode tiers and
-`splice_remote`), and serving over a mesh.
+speculative decoding and serving over a mesh.
 """
 
 from __future__ import annotations
@@ -84,8 +89,9 @@ from mmlspark_tpu_torch.serve.admission import (AdmissionController,
                                                 MissRateBreaker, Overloaded,
                                                 StepTimeEstimator)
 from mmlspark_tpu_torch.serve.prefix_cache import PrefixCache
-from mmlspark_tpu_torch.serve.request import (CANCELLED, INTERACTIVE, OK,
-                                              PRIORITIES, TIMEOUT, Request)
+from mmlspark_tpu_torch.serve.request import (CANCELLED, HANDOFF,
+                                              INTERACTIVE, OK, PRIORITIES,
+                                              TIMEOUT, Request)
 
 SERVE_QUEUE_CAPACITY = config.register(
     "MMLSPARK_TPU_SERVE_QUEUE_CAPACITY", 64,
@@ -260,10 +266,6 @@ class ServeConfig:
             raise NotImplementedError(
                 "speculative decoding (spec_tokens > 0) is not ported "
                 "(ROADMAP A8 item 3)")
-        if self.role != "colocated":
-            raise NotImplementedError(
-                f"the disaggregated role {self.role!r} is not ported "
-                "(ROADMAP A9's handoff step: handoff.py)")
 
 
 class _Group:
@@ -381,6 +383,11 @@ class ServingEngine:
         # tick, between phase 4 (joins) and phase 5 (segments)
         self._pending: list[dict] = []
         self.role = self.cfg.role
+        # prefill tier: the handoff bus (serve/handoff.py) wires this to
+        # receive each finished cohort's (reqs, first tokens, caches)
+        # instead of seating them locally; the engine finishes the
+        # exported requests with status `handoff`
+        self.handoff_export = None
         self._state = CREATED
         self._state_lock = threading.Lock()
         self._wake = threading.Condition()
@@ -480,6 +487,12 @@ class ServingEngine:
             if n >= cap:
                 break
             n *= 2
+        if self.role == "prefill":
+            # a prefill-tier engine never decodes or merges: the cohort
+            # prefills above are its whole serving surface
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
+            return
         warmed_widths: set = set()
 
         def warm_joins(resident) -> None:
@@ -1098,8 +1111,25 @@ class ServingEngine:
     def _splice(self, g: _Group, lane: str, reqs: list, slots: list,
                 src: list, tok_h, caches) -> None:
         """Merge cohort cache rows into the group, seat the requests, and
-        (primary lane, pool on) pool their prompt prefixes."""
+        (primary lane, pool on) pool their prompt prefixes.
+
+        On a PREFILL-tier engine this is where the work leaves: the
+        finished cohort's caches go to the handoff bus instead of a
+        resident slot, and each engine request ends `handoff` — the
+        router's fleet request stays open until a decode replica splices
+        the shipped rows and finishes the decode attempt."""
         eng = self._engines[lane]
+        if self.role == "prefill" and self.handoff_export is not None:
+            now = self.now()
+            self.handoff_export(bucket=g.bucket, lane=lane, reqs=reqs,
+                                src=src, tok_h=tok_h, caches=caches)
+            for req in reqs:
+                self._count("handoffs")
+                trace_event("serve.handoff_out", cat="serve",
+                            request=req.id, bucket=g.bucket, lane=lane,
+                            **self._trace_fields(req))
+                req.finish(HANDOFF, now)
+            return
         if g.caches is None:
             g.caches = self._empty_caches(eng, g.capacity, g.bucket)
         g.caches = DecodeEngine.merge_cache_rows(g.caches, caches, slots,
@@ -1119,7 +1149,10 @@ class ServingEngine:
                                 "bucket": g.bucket, "slot": slot,
                                 "lane": lane, **self._trace_fields(req)})
             if self._run is not None:
-                # TTFT: arrival at this engine to its first emitted token
+                # attempt-level TTFT: arrival at this engine to its first
+                # emitted token (the fleet-level TTFT of a tiered fleet,
+                # arrival at the router to the decode-tier splice, lands
+                # in serve/handoff.py)
                 self._run.observe_hist("serve.ttft_s",
                                        self.now() - req.arrival)
             self._emit(g, slot, [int(tok_h[j])])
@@ -1176,6 +1209,62 @@ class ServingEngine:
             return [tuple(torch.zeros(shape, dtype=w.dtype,
                                       device=eng.device) for _ in range(2))
                     for _ in range(w.n_layers)]
+
+    def splice_remote(self, prompt: np.ndarray, max_new_tokens: int,
+                      deadline: float, first_tok: int, src_caches,
+                      lane: str = "primary", trace=None) -> Optional[Request]:
+        """Seat one handed-off row (decode tier): merge the deserialized
+        1-row cache into this engine's resident batch through
+        `merge_cache_rows` and decode it to completion like any join.
+        `trace` is the TraceContext that rode the kv_begin header — the
+        decode attempt keeps the fleet request's trace id.  Returns the
+        seated engine Request, or None when no slot is free or the
+        engine is not alive — the handoff bus retries next tick (bounded
+        by the transfer timeout and the request deadline)."""
+        if not self.alive:
+            return None
+        eng = self._engines[lane]
+        arr = np.asarray(prompt, np.int32)
+        bucket = eng.bucket_for(arr.size)
+        g = self._groups.get((bucket, lane))
+        if g is None:
+            g = self._groups[(bucket, lane)] = _Group(
+                bucket, self.cfg.max_batch)
+        free = g.free_slots()
+        if not free:
+            return None
+        slot = free[0]
+        now = self.now()
+        req = Request(self._new_id(), arr, bucket, max_new_tokens, now,
+                      float(deadline))
+        req.trace = trace
+        if g.caches is None:
+            g.caches = self._empty_caches(eng, g.capacity, bucket)
+        g.caches = DecodeEngine.merge_cache_rows(g.caches, src_caches,
+                                                 [slot], [0])
+        g.rows[slot] = req
+        g.tok[slot] = int(first_tok)
+        g.true_len[slot] = req.true_len
+        g.budget[slot] = req.max_new_tokens
+        g.t_row[slot] = 0
+        g.row_ids[slot] = req.id
+        g.done[slot] = False
+        self._count("remote_joins")
+        trace_event("serve.handoff_in", cat="serve", request=req.id,
+                    bucket=bucket, slot=slot, lane=lane,
+                    **self._trace_fields(req))
+        self._record_serve({"event": "remote_join", "request": req.id,
+                            "bucket": bucket, "slot": slot, "lane": lane,
+                            **self._trace_fields(req)})
+        self._emit(g, slot, [int(first_tok)])
+        if self._prefix is not None and lane == "primary":
+            # the pool lives on the DECODE tier of a disaggregated fleet:
+            # handed-off rows are the tier's only prefill source, so they
+            # are what populates it (ServeConfig refuses the pool on the
+            # prefill tier)
+            self._insert_prefix_rows([req], [0], src_caches)
+            self._gauge_prefix()
+        return req
 
     def _emit(self, g: _Group, slot: int, tokens: list) -> None:
         """Append emitted tokens to a row's request, honoring its budget

@@ -47,9 +47,12 @@ scenarios in tests/test_torch_router.py) drive `_tick()` under a
 serially by one scheduler thread, so on one card they share its
 stream.
 
-Not ported yet: the disaggregated prefill/decode tiers and their KV
-handoff bus (`prefill_replicas`/`decode_replicas` > 0 raise
-NotImplementedError naming ROADMAP A9's handoff step).
+  * DISAGGREGATED TIERS — `prefill_replicas`/`decode_replicas` > 0
+    partition the fleet into a prefill tier (p0..) and a decode tier
+    (d0..): dispatch goes to the prefill tier only, and the KV handoff
+    bus (serve/handoff.py), pumped once per tick, moves each finished
+    cache row to the decode tier.  A lost transfer re-prefills through
+    the failover path; tiers neither hedge nor route by prefix affinity.
 """
 
 from __future__ import annotations
@@ -80,10 +83,12 @@ from mmlspark_tpu_torch.serve.engine import (CREATED, DRAINING, READY,
                                              SERVE_DRAIN_TIMEOUT_S,
                                              SERVE_QUEUE_CAPACITY,
                                              ServeConfig, ServingEngine)
+from mmlspark_tpu_torch.serve.handoff import HandoffBus
 from mmlspark_tpu_torch.serve.prefix_cache import PrefixCache
 from mmlspark_tpu_torch.serve.replica import Replica, ReplicaUnavailable
-from mmlspark_tpu_torch.serve.request import (CANCELLED, INTERACTIVE, OK,
-                                              PRIORITIES, SHED, TIMEOUT)
+from mmlspark_tpu_torch.serve.request import (CANCELLED, HANDOFF,
+                                              INTERACTIVE, OK, PRIORITIES,
+                                              SHED, TIMEOUT)
 
 SERVE_REPLICAS = config.register(
     "MMLSPARK_TPU_SERVE_REPLICAS", 2,
@@ -153,8 +158,7 @@ class RouterConfig:
     package's fields and names.
 
     None fields fall back to their MMLSPARK_TPU_SERVE_* config vars at
-    construction, the ServeConfig convention.  The tier fields keep their
-    names and checks; tiers themselves raise NotImplementedError."""
+    construction, the ServeConfig convention."""
 
     replicas: Optional[int] = None
     queue_capacity: Optional[int] = None
@@ -235,11 +239,6 @@ class RouterConfig:
             raise ValueError("hang_timeout_s must be > 0")
         if self.hedge_fraction < 0:
             raise ValueError("hedge_fraction must be >= 0")
-        if self.prefill_replicas or self.decode_replicas:
-            raise NotImplementedError(
-                "the disaggregated prefill/decode tiers are not ported "
-                "(ROADMAP A9's handoff step: handoff.py, "
-                "data/service/transport.py)")
 
 
 class RetryBudget:
@@ -407,6 +406,21 @@ class Router:
         self._by_name = {r.name: r for r in self.replicas}
         if len(self._by_name) != len(self.replicas):
             raise ValueError("replica names must be unique")
+        # disaggregated tiers: replica roles partition the fleet; a
+        # tiered fleet dispatches to the PREFILL tier only and the
+        # handoff bus moves finished KV rows to the decode tier
+        self._prefill_reps = [r for r in self.replicas
+                              if r.role == "prefill"]
+        self._decode_reps = [r for r in self.replicas
+                             if r.role == "decode"]
+        if self._prefill_reps or self._decode_reps:
+            colocated = [r for r in self.replicas
+                         if r.role not in ("prefill", "decode")]
+            if not self._prefill_reps or not self._decode_reps or colocated:
+                raise ValueError(
+                    "a disaggregated fleet needs at least one prefill and "
+                    "one decode replica, and no colocated ones")
+        self.tiered = bool(self._prefill_reps)
         # the fleet estimator: every replica's measured prefill/segment
         # walls tee into it, so admission feasibility reflects real
         # decode speed no matter which replica produced the evidence
@@ -424,7 +438,9 @@ class Router:
         # instead of spreading across the pool.  The router only STEERS
         # — correctness never depends on landing the affinity target,
         # so an ejected target just falls back to power-of-two-choices.
-        self._affinity = bool(self.cfg.prefix_affinity
+        # Tiered fleets dispatch to the prefill tier, which refuses the
+        # pool, so affinity stays colocated-only.
+        self._affinity = bool(self.cfg.prefix_affinity and not self.tiered
                               and any(r.engine.cfg.prefix_cache
                                       for r in self.replicas))
         self._affinity_pool = sorted(self.replicas, key=lambda r: r.name)
@@ -443,6 +459,14 @@ class Router:
         self._thread = None            # set by lifecycle.start_router
         self._guard = None             # PreemptionGuard, set by lifecycle
         self._run = active_run()
+        self.handoff: Optional[HandoffBus] = None
+        if self.tiered:
+            self.handoff = HandoffBus(
+                self, timeout_s=self.cfg.handoff_timeout_s,
+                pages_per_tick=self.cfg.handoff_pages_per_tick)
+            for rep in self._prefill_reps:
+                rep.engine.handoff_export = self.handoff.make_export(
+                    rep.name)
 
     # -- lifecycle ---------------------------------------------------------
     def now(self) -> float:
@@ -497,6 +521,8 @@ class Router:
             except Exception as e:
                 get_logger("serve").warning(
                     "replica %s failed to stop cleanly: %r", r.name, e)
+        if self.handoff is not None:
+            self.handoff.close()
         self._state = STOPPED
         self._record_routing("drain_end", counts=dict(self._counts))
         self._gauge_fleet()
@@ -575,7 +601,12 @@ class Router:
                           else self.cfg.default_deadline_s)
         rr = RouterRequest(self._new_id(), arr, bucket, n_new, now, deadline,
                            priority=pri)
-        if not any(r.routable() or r.probe_due() for r in self.replicas):
+        # a tiered fleet needs BOTH tiers reachable: prefill to take the
+        # dispatch, decode to take the handoff
+        pools = ([self._prefill_reps, self._decode_reps] if self.tiered
+                 else [self.replicas])
+        if not all(any(r.routable() or r.probe_due() for r in pool)
+                   for pool in pools):
             self._count("shed_no_replica")
             self._count("shed")
             self._record_routing("shed", reason="no_replica", request=rr.id)
@@ -729,8 +760,9 @@ class Router:
         """Dispatch preference: a due probe first (re-admission must not
         starve behind healthy capacity), then the affinity target when
         its breaker allows it, then the p2c pick, then the remaining
-        routable replicas by load."""
-        pool = self.replicas
+        routable replicas by load.  A tiered fleet dispatches to its
+        prefill tier only."""
+        pool = self._prefill_reps if self.tiered else self.replicas
         order: list[Replica] = []
         probes = [r for r in pool if r.probe_due()]
         if probes:
@@ -827,6 +859,43 @@ class Router:
         return progressed
 
     # -- harvest / failover ------------------------------------------------
+    def _rr_for_attempt(self, att) -> Optional[RouterRequest]:
+        """The live fleet request owning one engine attempt (the handoff
+        bus resolves the exported engine request back to its router
+        request this way — engine requests carry no back-pointer)."""
+        for rr in list(self._live):
+            for _, a in rr.attempts:
+                if a is att:
+                    return rr
+        return None
+
+    def _handoff_failed(self, rr: RouterRequest, reason: str,
+                        now: float) -> None:
+        """A KV transfer died (torn page, stall, sender crash, no decode
+        capacity): the prefill work is lost, so the request re-prefills
+        elsewhere through the normal failover path — retry budget,
+        re-queue at the head, exact final output."""
+        if rr.finished:
+            return
+        if rr in self._live:
+            self._live.remove(rr)
+        self._count("handoff_retries")
+        self._record_routing("handoff_failed", request=rr.id,
+                             reason=reason, **self._trace_fields(rr))
+        self._failover(rr, now)
+
+    def _prefill_probe_done(self, rep: Replica, missed: bool) -> None:
+        """A prefill-tier probe attempt handed its row off: the replica
+        did its part, so it is re-admitted (or, past the request's
+        deadline, the probe failed).  The JAX router leaves such a probe
+        open for good — a prefill attempt never completes `ok` on its
+        replica — so there an ejected prefill replica never rejoins."""
+        rep.probe = None
+        if missed:
+            self._probe_failed(rep, "probe missed deadline")
+        else:
+            self._readmit(rep)
+
     def _failover(self, rr: RouterRequest, now: float) -> None:
         if rr.deadline <= now:
             self._complete(rr, TIMEOUT, "deadline passed before failover")
@@ -890,6 +959,9 @@ class Router:
             if any(att.status is None for _, att in atts):
                 continue               # still running somewhere
             name, att = atts[-1]
+            if att.status == HANDOFF:
+                continue     # KV transfer in flight; the bus owns the
+                #              outcome (splice, cancel, or re-prefill)
             rep = self._by_name[name]
             if att.status == TIMEOUT:
                 if rep.probe is att:
@@ -914,7 +986,9 @@ class Router:
 
     # -- hedging -----------------------------------------------------------
     def _hedge(self, now: float) -> bool:
-        if self.cfg.hedge_fraction <= 0:
+        if self.cfg.hedge_fraction <= 0 or self.tiered:
+            # tiered fleets don't hedge: a duplicate prefill would also
+            # duplicate the KV transfer — failover handles loss instead
             return False
         progressed = False
         for rr in list(self._live):
@@ -1001,6 +1075,9 @@ class Router:
                         if not att.finished:
                             self._by_name[name].engine.cancel_request(
                                 att, "drain timeout")
+                    if self.handoff is not None and self.handoff.drop_for(rr):
+                        self._record_routing("cancel", request=rr.id,
+                                             reason="drain_timeout")
                     self._complete(rr, CANCELLED, "drain timeout")
                 self._live.remove(rr)
             for rr in self.admission.drop_expired(float("inf")):
@@ -1010,16 +1087,27 @@ class Router:
         # 4. place queued work on replicas (probe first, then p2c)
         worked |= self._dispatch(now)
         # 5. advance every replica one scheduler pass
+        prefill_worked = False
         for rep in self.replicas:
             if rep.tick():
                 worked = True
+                if rep.role == "prefill":
+                    prefill_worked = True
+        # 5b. pump the KV handoff bus: page pushes pipeline behind the
+        # prefill tier's compute (the bus's `overlap` stat)
+        if self.handoff is not None:
+            worked |= self.handoff.pump(now, compute_worked=prefill_worked)
         # 6. harvest attempt outcomes; fail over the dead ones
         worked |= self._harvest(now)
         # 6b. per-replica SIGTERM drain: stop a draining replica's engine
-        # once its own queue and residents are empty
+        # once its own queue, residents, and (prefill tier) in-flight KV
+        # transfers are empty
         for rep in self.replicas:
             if rep.draining and rep.engine.state == DRAINING:
-                if not rep.busy():
+                owed = (self.handoff.transfers_from(rep.name)
+                        if (self.handoff is not None
+                            and rep.role == "prefill") else 0)
+                if not rep.busy() and owed == 0:
                     rep.engine._finish_drain()
                     self._count("replica_drains")
                     self._record_routing("replica_drained",
@@ -1070,6 +1158,19 @@ class Router:
             p = self._percentile(q)
             out[f"latency_{name}_s"] = round(p, 6) if p is not None else None
         out["replicas"] = {r.name: r.health() for r in self.replicas}
+        if self.tiered:
+            def tier(reps):
+                return {"replicas": [r.name for r in reps],
+                        "routable": sum(1 for r in reps if r.routable()),
+                        "draining": sum(1 for r in reps if r.draining),
+                        "queued": sum(r.engine.admission.pending()
+                                      for r in reps),
+                        "in_flight": sum(r.engine.in_flight()
+                                         for r in reps),
+                        "load_tokens": sum(r.load_tokens() for r in reps)}
+            out["tiers"] = {"prefill": tier(self._prefill_reps),
+                            "decode": tier(self._decode_reps)}
+            out["handoff"] = self.handoff.stats()
         return out
 
     def _gauge_fleet(self) -> None:
@@ -1096,17 +1197,35 @@ def build_fleet(bundle, n: Optional[int] = None, *,
     """Construct a router over `n` fresh engine replicas of `bundle`
     (default: `cfg.replicas`), named r0..r{n-1}, each on `device` (the
     card unless the caller asks for the CPU; replicas may share one
-    card).  Every replica shares the serve config and the degraded
-    fallback bundle; each gets its own engine, weights, breaker, and
-    health state."""
+    card).  With `cfg.prefill_replicas` > 0 the fleet is tiered instead:
+    prefill replicas p0.. (role "prefill", no prefix pool) and decode
+    replicas d0.. (role "decode").  Every replica shares the serve config
+    and the degraded fallback bundle; each gets its own engine, weights,
+    breaker, and health state."""
     cfg = cfg or RouterConfig()
     scfg = serve_cfg or ServeConfig()
+
+    def make(name: str, role_cfg: ServeConfig) -> Replica:
+        engine = ServingEngine(bundle, role_cfg,
+                               degraded_bundle=degraded_bundle, clock=clock,
+                               device=device)
+        return Replica(name, engine, clock=clock,
+                       eject_failures=cfg.eject_failures,
+                       probe_reset_s=cfg.probe_reset_s,
+                       miss_alpha=cfg.miss_alpha)
+
     replicas = []
-    for i in range(int(n if n is not None else cfg.replicas)):
-        engine = ServingEngine(bundle, scfg, degraded_bundle=degraded_bundle,
-                               clock=clock, device=device)
-        replicas.append(Replica(f"r{i}", engine, clock=clock,
-                                eject_failures=cfg.eject_failures,
-                                probe_reset_s=cfg.probe_reset_s,
-                                miss_alpha=cfg.miss_alpha))
+    if cfg.prefill_replicas > 0:
+        # a prefill-tier replica ships its finished KV rows over the
+        # handoff bus — the prefix pool lives on the decode tier only
+        for i in range(cfg.prefill_replicas):
+            replicas.append(make(
+                f"p{i}", dataclasses.replace(scfg, role="prefill",
+                                             prefix_cache=False)))
+        for i in range(cfg.decode_replicas):
+            replicas.append(make(
+                f"d{i}", dataclasses.replace(scfg, role="decode")))
+    else:
+        for i in range(int(n if n is not None else cfg.replicas)):
+            replicas.append(make(f"r{i}", scfg))
     return Router(replicas, cfg, clock=clock)

@@ -1,0 +1,184 @@
+"""Head dim 32 in the port's attention kernels, on the CPU.
+
+K1 / K1[lse] and K4 / K4[stats] have head-dim-32 instances on the card
+(tests/test_torch_package.py holds them against their plain versions
+there); here the plain versions those kernels are held to are held, at
+head dim 32, against the JAX package's Pallas kernels run in interpret
+mode on the same numpy inputs, at the edges of the card kernels' tiles
+(64 query rows and 64 keys for bf16 K1; K4's 2-, 4- and 8-lane slot
+groups).  K2 and K3 have no head-dim-32 instance yet: their wrappers
+refuse one naming the ROADMAP row.
+
+Tolerances are those of the head-dim-64/128 cases
+(tests/test_torch_attention.py): f32 differs in summation order only
+(2e-5); a bf16 output is one bf16 rounding apart at most (2e-2).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmlspark_tpu.ops.decode_attention import (
+    fused_single_query_attention as jax_fused,
+    fused_single_query_attention_stats as jax_fused_stats)
+from mmlspark_tpu.ops.flash_attention import (
+    flash_attention as jax_flash_attention,
+    flash_attention_with_lse as jax_flash_attention_with_lse)
+from mmlspark_tpu.quant.quantize import quantize_kv as jax_quantize_kv
+from mmlspark_tpu_torch.ops.attention import NEG_INF
+from mmlspark_tpu_torch.ops.decode_attention import (
+    fused_single_query_attention, fused_single_query_attention_stats)
+from mmlspark_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_with_lse, flash_block_grads,
+    flash_bwd_dkv, flash_bwd_dq)
+from mmlspark_tpu_torch.quant.quantize import quantize_kv
+
+D = 32
+# the JAX side jitted once per shape (eager JAX compiles every primitive
+# of every call)
+_FLASH = ("causal", "block_q", "block_k", "interpret")
+jax_flash_attention = jax.jit(jax_flash_attention, static_argnames=_FLASH)
+jax_flash_attention_with_lse = jax.jit(
+    jax_flash_attention_with_lse,
+    static_argnames=_FLASH + ("q_offset", "k_offset"))
+jax_fused = jax.jit(jax_fused, static_argnames=("block_k", "interpret"))
+jax_fused_stats = jax.jit(jax_fused_stats,
+                          static_argnames=("block_k", "interpret"))
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+# (B, Sq, Sk, causal, q_offset, k_offset): a row and a key past a 64-row
+# tile, one query deep in the sequence, fewer keys than a tile, and rows
+# that see no key (k_offset > q_offset) over two whole 64-blocks of the
+# JAX kernel proper
+FLASH_CASES = [(2, 129, 129, True, 0, 0), (2, 1, 640, True, 500, 0),
+               (2, 300, 37, False, 0, 0), (2, 128, 128, True, 0, 40)]
+
+
+def _qkv(b, sq, sk, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, 4, D)).astype(np.float32)
+    k, v = (rng.standard_normal((b, sk, 4, D)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", FLASH_CASES)
+def test_flash_with_lse_at_head_dim_32_matches_jax(b, sq, sk, causal, q_off,
+                                                   k_off, dtype):
+    q, k, v = _qkv(b, sq, sk, seed=sq + sk + q_off + k_off)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    ref_out, ref_lse = jax_flash_attention_with_lse(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), causal=causal,
+        q_offset=q_off, k_offset=k_off, block_q=64, block_k=64,
+        interpret=True)
+    out, lse = flash_attention_with_lse(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal, None,
+        q_off, k_off)
+    assert out.dtype == tdt and out.shape == (b, sq, 4, D)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref_out, np.float32), **tol)
+    # lse is f32 in both packages; at bf16 the inputs' one rounding
+    # moves it by the output's limit at most
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **tol)
+    if k_off > q_off:
+        assert (lse[:, :k_off - q_off] == NEG_INF).all()
+        assert torch.count_nonzero(out[:, :k_off - q_off]) == 0
+
+
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off",
+                         [c for c in FLASH_CASES if c[4] == c[5] == 0])
+def test_flash_at_head_dim_32_matches_jax(b, sq, sk, causal, q_off, k_off):
+    q, k, v = _qkv(b, sq, sk, seed=7 * sq + sk)
+    ref = jax_flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                              causal=causal, block_q=64, block_k=64,
+                              interpret=True)
+    got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                          causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
+
+
+def _decode_inputs(b, length, seed):
+    """The engine's mask layout at head dim 32: per-row prompt slots, the
+    pad hole up to the bucket, decode slots after it; the last row fully
+    masked."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, 8, D)).astype(np.float32)
+    k, v = (rng.standard_normal((b, length, 8, D)).astype(np.float32)
+            for _ in range(2))
+    bucket = length - 64
+    true_len = rng.integers(1, bucket + 1, size=b)
+    slots = np.arange(length)[None]
+    visible = (slots < true_len[:, None]) | (slots >= bucket)
+    visible[-1] = False
+    return q, k, v, visible
+
+
+def _decode_pair(cache, q, k, v, visible):
+    """(JAX args, JAX kwargs, port args, port kwargs) for one cache
+    layout."""
+    jvis, tvis = jnp.asarray(visible), torch.from_numpy(visible)
+    if cache == "int8":
+        jk, jks = jax_quantize_kv(jnp.asarray(k))
+        jv, jvs = jax_quantize_kv(jnp.asarray(v))
+        (tk, tks), (tv, tvs) = (quantize_kv(torch.from_numpy(x))
+                                for x in (k, v))
+        return ((jnp.asarray(q), jk, jv, jvis), dict(k_scale=jks, v_scale=jvs),
+                (torch.from_numpy(q), tk, tv, tvis),
+                dict(k_scale=tks, v_scale=tvs))
+    jdt = jnp.bfloat16 if cache == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if cache == "bfloat16" else torch.float32
+    return (tuple(jnp.asarray(x, jdt) for x in (q, k, v)) + (jvis,), {},
+            tuple(torch.from_numpy(x).to(tdt) for x in (q, k, v)) + (tvis,),
+            {})
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b,length", [(4, 192)])
+def test_decode_at_head_dim_32_matches_jax(b, length, cache):
+    q, k, v, visible = _decode_inputs(b, length, seed=length + b)
+    jargs, jkw, targs, tkw = _decode_pair(cache, q, k, v, visible)
+    ref = jax_fused(*jargs, block_k=64, interpret=True, **jkw)
+    got = fused_single_query_attention(*targs, **tkw)
+    assert got.dtype == torch.float32 and got.shape == (b, 8, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
+    assert torch.count_nonzero(got[-1]) == 0
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+def test_decode_stats_at_head_dim_32_matches_jax(cache):
+    q, k, v, visible = _decode_inputs(3, 192, seed=11)
+    jargs, jkw, targs, tkw = _decode_pair(cache, q, k, v, visible)
+    ref = [torch.from_numpy(np.array(x)) for x in jax_fused_stats(
+        *jargs, block_k=64, interpret=True, **jkw)]
+    acc, m, l = fused_single_query_attention_stats(*targs, **tkw)
+    r_acc, r_m, r_l = ref
+    assert (acc - r_acc).abs().max() <= 1e-5 * r_acc.abs().max()
+    assert (l - r_l).abs().max() <= 1e-5 * r_l.abs().max()
+    seen = torch.from_numpy(visible).any(dim=1)
+    assert (m[seen] - r_m[seen]).abs().max() <= 1e-5 * r_m[seen].abs().max()
+    assert (m[-1] == NEG_INF).all() and (l[-1] == 0).all()
+    assert torch.count_nonzero(acc[-1]) == 0
+
+
+def test_backward_kernels_refuse_head_dim_32_naming_the_roadmap_row():
+    """K2 and K3 (and the pair) raise at head dim 32 on any tensor that is
+    not on the CPU — here `meta` tensors — before touching a kernel; on
+    CPU tensors the plain version computes the gradients as before."""
+    shape = (1, 64, 2, D)
+    q, k, v, do = (torch.empty(shape, device="meta") for _ in range(4))
+    lse, delta = (torch.empty((1, 64, 2), device="meta") for _ in range(2))
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    for fn in (flash_bwd_dq, flash_bwd_dkv, flash_block_grads):
+        with pytest.raises(ValueError, match="ROADMAP queue B"):
+            fn(q, k, v, do, lse, delta, True, D ** -0.5)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+    cpu = [torch.randn(shape) for _ in range(4)]
+    stats = [torch.zeros((1, 64, 2)) for _ in range(2)]
+    dq = flash_bwd_dq(*cpu, *stats, True, D ** -0.5)
+    assert dq.shape == shape and torch.isfinite(dq).all()

@@ -523,6 +523,108 @@ def test_flash_kernel_at_tile_edges(cuda, b, sq, sk, causal, q_off, d,
         torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
 
 
+# ------------------------------------------------ head dim 32 ---------
+
+# K1 and K1[lse] at head dim 32 (bf16: the mma.sync kernel's 64-row query
+# and 64-key tiles; f32: one warp per row): the prefill shape, and the
+# tiles' edges -- a row and a key past a tile, one query deep in the
+# sequence, fewer keys than a tile, B = 3, one tile exactly, a row whose
+# every key lies ahead (k_offset > q_offset).
+# (B, Sq, Sk, causal, q_offset, k_offset)
+D32_FLASH = [(2, 1024, 1024, True, 0, 0), (2, 1000, 1000, False, 0, 0),
+             (2, 129, 129, True, 0, 0), (2, 1, 640, True, 500, 0),
+             (2, 300, 37, False, 0, 0), (3, 200, 200, True, 0, 0),
+             (2, 64, 64, True, 0, 0), (2, 512, 512, True, 512, 0),
+             (2, 512, 512, True, 0, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", D32_FLASH)
+def test_flash_kernels_at_head_dim_32(cuda, b, sq, sk, causal, q_off, k_off,
+                                      dtype):
+    """K1 (without offsets) and K1[lse] at head dim 32 against plain: out
+    within the D64/D128 cases' limits, lse within 1e-3 (bf16) / 1e-4; a
+    second call bitwise equal to the first."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + k_off)
+    q = torch.randn((b, sq, 8, 32), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, 8, 32), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    before = (flash_attention.launches, flash_attention_with_lse.launches)
+    out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off, k_off)
+    again, _ = flash_attention_with_lse(q, k, v, causal, None, q_off, k_off)
+    no_lse = (flash_attention(q, k, v, causal=causal)
+                 if q_off == k_off == 0 else None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, causal, None,
+                                                      q_off, k_off)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    _assert_out_norm_close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, rtol=0,
+                               atol=1e-3 if dtype == torch.bfloat16 else 1e-4)
+    if k_off > q_off:
+        hidden = k_off - q_off
+        assert torch.count_nonzero(out[:, :hidden]) == 0
+        assert (lse[:, :hidden] == NEG_INF).all()
+    if no_lse is not None:
+        assert torch.equal(no_lse, out)
+    assert (flash_attention.launches - before[0],
+            flash_attention_with_lse.launches - before[1]) == (
+        int(no_lse is not None), 2)
+
+
+# K4 and K4[stats] at head dim 32: the serving window of a 16-row batch
+# (the chip's timed shape), one span below a slot step, a span boundary,
+# and the long window at the span cap.  (B, L)
+D32_DECODE = [(16, 1088), (2, 37), (1, 65), (2, 8448)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,q_dtype", [
+    ("bfloat16", "bfloat16"), ("float32", "float32"), ("int8", "bfloat16"),
+    ("int8", "float32")])
+@pytest.mark.parametrize("b,window", D32_DECODE)
+def test_decode_kernels_at_head_dim_32(cuda, b, window, cache, q_dtype):
+    """K4 within 2e-3 of plain and K4[stats] within the stats limits, at
+    head dim 32 with the engine's mask layout and a fully masked last row;
+    a second call bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(window + b)
+    q = torch.randn((b, 8, 32), generator=gen, device=cuda).to(
+        getattr(torch, q_dtype))
+    kv_dtype = torch.float32 if cache == "float32" else torch.bfloat16
+    k, v = (torch.randn((b, window, 8, 32), generator=gen, device=cuda)
+            .to(kv_dtype) for _ in range(2))
+    bucket = max(1, window - 64)
+    true_len = torch.randint(1, bucket + 1, (b,), generator=gen, device=cuda)
+    slots = torch.arange(window, device=cuda)
+    visible = ((slots[None] < true_len[:, None])
+               | (slots >= bucket)[None]).contiguous()
+    if b > 1:
+        visible[-1] = False
+    kw = {}
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    before = (fused_single_query_attention.launches,
+              fused_single_query_attention_stats.launches)
+    out = fused_single_query_attention(q, k, v, visible, **kw)
+    again = fused_single_query_attention(q, k, v, visible, **kw)
+    stats = fused_single_query_attention_stats(q, k, v, visible, **kw)
+    torch.cuda.synchronize()
+    assert (fused_single_query_attention.launches - before[0],
+            fused_single_query_attention_stats.launches - before[1]) == (2, 1)
+    assert torch.equal(out, again)
+    ref = fused_single_query_attention_plain(q, k, v, visible, **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-3)
+    _assert_stats_close(stats, fused_single_query_attention_stats_plain(
+        q, k, v, visible, **kw))
+    if b > 1:
+        assert torch.count_nonzero(out[-1]) == 0
+
+
 @pytest.mark.cuda
 def test_flash_kernel_refuses_misaligned_tensors(cuda):
     """TMA reads 16-byte-aligned tensors only: a view that starts 2 bytes
