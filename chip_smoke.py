@@ -98,11 +98,27 @@ Phases (any failure exits non-zero before the result line):
      interference scenario at full width (victims' inter-token p99,
      colocated over tiered, at least the drill's 1.2)
  15. head dim 32: K1 and K1[lse] at (2, 1024, 8, 32), f32 and bf16,
-     causal and not, and K4 and K4[stats] at (16, 1088, 8, 32) over
-     bf16, f32 and int8 caches, against their plain versions, with their
-     times, bounds and library calls; the main paths that run them at
-     the Zipf arm's width (`TextGenerator.transform`, and the seq=2
-     `DecodeEngine`) with exact launch counts
+     causal and not and at q/k offsets, and K4 and K4[stats] at (16,
+     1088, 8, 32) over bf16, f32 and int8 caches, against their plain
+     versions, with their times, bounds and library calls; the main paths
+     that run them at the Zipf arm's width (`TextGenerator.transform`,
+     and the seq=2 `DecodeEngine`) with exact launch counts
+ 16. small head dims: the checks and times of phase 15 at head dims 8
+     and 16; the f32 K1 at 64 and 128 (and its path: f32 `TextGenerator`
+     at LC_CONFIG's and LM_CONFIG's widths); K2 and K3 at (8, 2048, 8, d)
+     causal, bf16 and f32, at head dims 8, 16 and 32 against plain and
+     the library's backward (a refused library call fails the run);
+     then (a) the LM example's configuration (head dim 8) trained with
+     flash attention at f32 and bf16, decoded (K4; continuation accuracy
+     printed), checked by the example's recompute oracle over its own
+     flash module (K1; f32 tokens equal it and a dense module's) and
+     decoded over a seq=2 mesh (K1[lse], K4[stats]), (b) `TransformerLM`'s
+     default widths (head dim 16) trained at bf16 and f32, served at bf16
+     / int8 / f32 (f32 tokens equal the oracle's) and decoded over a
+     seq=2 mesh, (c) the Zipf arm's width (head dim 32) trained at bf16
+     and f32; every count exact, and every phase-16 row of the kernels
+     line takes its launches from these paths; f32 gradient checks at 8,
+     16, 32
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -380,10 +396,11 @@ def phase_flash(dev, card) -> dict:
             "library_ms": lib_ms}
 
 
-def attention_bound(flops: float, nbytes: float) -> tuple:
-    """(bound ms, "operations" | "bytes") at the bf16 tensor-core peak and
-    the HBM rate."""
-    bound_f, bound_b = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def attention_bound(flops: float, nbytes: float,
+                    peak: float = PEAK_BF16_FLOPS) -> tuple:
+    """(bound ms, "operations" | "bytes") at `peak` FLOP/s (the bf16
+    tensor-core peak unless given) and the HBM rate."""
+    bound_f, bound_b = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(bound_f, bound_b), ("operations" if bound_f >= bound_b
                                    else "bytes")
 
@@ -636,57 +653,82 @@ def grad_errs(got, ref) -> tuple:
                                                     / r.norm()).item()
 
 
-def time_backward(card, gen, d: int) -> dict:
-    """K2 and K3 at (8, 2048, 8, d) causal bf16 against the plain version
-    and the library's backward pair (PyTorch's flash backward on its own
-    forward's saved outputs), all from CUDA graphs: per kernel its ms,
-    plain_ms, bound_ms, bound_by and library_ms (the pair)."""
+def time_backward(card, gen, d: int, dtype=torch.bfloat16,
+                  args: Optional[tuple] = None) -> dict:
+    """K2 and K3 at (8, 2048, 8, d) causal against the plain version and
+    the library's backward pair, all from CUDA graphs: per kernel its ms,
+    plain_ms, bound_ms, bound_by and library_ms (the pair).  The library
+    pair is PyTorch's flash backward on its own forward's saved outputs at
+    bf16, its memory-efficient backward (`aten._efficient_attention_
+    backward`, the port's (B, S, H, D) layout) at f32.  `args`: the inputs
+    of `backward_inputs`, made here when not given."""
     from mmlspark_tpu_torch.ops.flash_attention import (
         flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
     b, s, h = TRAIN_BATCH, TRAIN_SEQ, 8
     scale = d ** -0.5
-    args = backward_inputs(gen, b, s, s, True, 0, 0, torch.bfloat16, d)
+    bf16 = dtype == torch.bfloat16
+    tag = "bf16" if bf16 else "f32"
+    if args is None:
+        args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d)
     dq_ms = graph_ms(lambda: flash_bwd_dq(*args, True, scale))
     dkv_ms = graph_ms(lambda: flash_bwd_dkv(*args, True, scale))
     plain_ms = graph_ms(lambda: flash_block_grads_plain(*args, True, scale),
                         calls=3)
-    q, k, v, do = (t.transpose(1, 2) for t in args[:4])
-    saved = torch.ops.aten._scaled_dot_product_flash_attention(
-        q, k, v, 0.0, True, scale=scale)
-    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = saved[:8]
+    lib = "aten flash backward" if bf16 else "aten efficient backward"
+    if bf16:
+        q, k, v, do = (t.transpose(1, 2) for t in args[:4])
+        saved = torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, True, scale=scale)
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset = saved[:8]
 
-    def sdpa_backward():
-        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
-            seed, offset, scale=scale)
-    lib_dq = sdpa_backward()[0].transpose(1, 2)
-    torch.cuda.synchronize()
+        def lib_backward():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0,
+                True, seed, offset, scale=scale)
+    else:
+        q, k, v, do = args[:4]
+        # custom_mask_type 1: causal from the top-left
+        out, lse, seed, offset = torch.ops.aten._efficient_attention_forward(
+            q, k, v, None, None, None, None, None, 0.0, 1, True,
+            scale=scale)[:4]
+
+        def lib_backward():
+            return torch.ops.aten._efficient_attention_backward(
+                do, q, k, v, None, out, None, None, s, s, lse, 0.0, seed,
+                offset, 1, False, scale=scale)
+    lib_ms = library_ms(lib_backward, f"{lib} at D={d} {tag}")
+    lib_dq = lib_backward()[0]
+    if bf16:
+        lib_dq = lib_dq.transpose(1, 2)
     ref_dq = flash_block_grads_plain(*args, True, scale)[0]
     lib_err = grad_errs(lib_dq, ref_dq)[1]
-    print(f"aten flash backward D={d} dq vs plain: ||d||/||ref|| "
-          f"{lib_err:.3e}")
-    require(lib_err <= 1e-2, "the library backward is not the same function")
-    sdpa_bwd_ms = graph_ms(sdpa_backward)
-    del saved, out, lse, lib_dq, ref_dq
+    print(f"{lib} D={d} {tag} dq vs plain: ||d||/||ref|| {lib_err:.3e}")
+    require(lib_err <= (1e-2 if bf16 else 1e-4),
+            "the library backward is not the same function")
+    del out, lse, lib_dq, ref_dq
     tri = s * (s + 1) / 2
-    io = 4.0 * b * s * h * d * 2 + 2.0 * b * s * h * 4  # q, k, v, dO; lse, delta
+    item = args[0].element_size()
+    io = 4.0 * b * s * h * d * item + 2.0 * b * s * h * 4  # q, k, v, dO; lse, delta
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     timed = {}
     for name, ms, products, outs in (("flash_bwd_dq", dq_ms, 3, 1),
                                      ("flash_bwd_dkv", dkv_ms, 4, 2)):
         flops = products * 2.0 * b * h * d * tri
-        bound, bound_by = attention_bound(flops, io + outs * b * s * h * d * 2)
-        print(f"timing {name} (8,2048,8,{d}) causal bf16, device time (CUDA "
+        bound, bound_by = attention_bound(
+            flops, io + outs * b * s * h * d * item, peak)
+        print(f"timing {name} (8,2048,8,{d}) causal {tag}, device time (CUDA "
               f"graph): {ms:.4f} ms; plain (dq, dk, dv together) "
-              f"{plain_ms:.4f} ms; aten flash backward (pair, CUDA graph) "
-              f"{sdpa_bwd_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}); "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / sdpa_bwd_ms:.2f}x the "
+              f"{plain_ms:.4f} ms; {lib} (pair, CUDA graph) {lib_ms:.4f} "
+              f"ms; bound {bound:.4f} ms ({bound_by}); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.2f}x the "
               f"library pair, {bound / ms:.3f} of the bound [{card}]")
         timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "library_ms": sdpa_bwd_ms}
+                       "bound_by": bound_by, "library_ms": lib_ms}
     pair_bound = sum(t["bound_ms"] for t in timed.values())
-    print(f"timing K2 + K3 (8,2048,8,{d}) causal bf16: {dq_ms + dkv_ms:.4f} "
-          f"ms, {(dq_ms + dkv_ms) / sdpa_bwd_ms:.2f}x the library pair, "
-          f"{pair_bound / (dq_ms + dkv_ms):.3f} of the bound [{card}]")
+    print(f"timing K2 + K3 (8,2048,8,{d}) causal {tag}: "
+          f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / lib_ms:.2f}x the "
+          f"library pair, {pair_bound / (dq_ms + dkv_ms):.3f} of the bound "
+          f"[{card}]")
     del args
     torch.cuda.empty_cache()
     return timed
@@ -1429,19 +1471,28 @@ def phase_train(dev, card) -> dict:
 def phase_grad_check(dev, card) -> dict:
     """f32 gradients of every parameter through the flash kernels against
     the dense-attention model, on one (2, 2048) batch, TF32 off."""
+    return flash_grad_check(dev, card, LM_CONFIG, TRAIN_SEQ, seed=4)
+
+
+def flash_grad_check(dev, card, config: dict, seq: int, seed: int) -> dict:
+    """f32 gradients of every parameter of a `config` model through the
+    flash kernels (K1[lse], K2, K3) against the dense-attention model, on
+    one (2, seq) batch of the example corpus, TF32 off: loss within 1e-4,
+    every gradient within 1e-3 of its largest entry.  Returns the
+    errors."""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.train.trainer import make_loss
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = char_corpus(2, TRAIN_SEQ, LM_CONFIG["vocab_size"])
+    rows = char_corpus(2, seq, config["vocab_size"])
     x = torch.from_numpy(rows[:, :-1].astype(np.int64)).to(dev)
     y = torch.from_numpy(rows[:, 1:].astype(np.int64)).to(dev)
-    init = ModelBundle.init("TransformerLM", LM_CONFIG, seed=4)
+    init = ModelBundle.init("TransformerLM", config, seed=seed)
     loss_fn = make_loss("softmax_xent")
     grads, losses = {}, {}
     for impl in ("flash", "dense"):
         module = ModelBundle("TransformerLM", {
-            **LM_CONFIG, "dtype": "float32", "attn_impl": impl},
+            **config, "dtype": "float32", "attn_impl": impl},
             init.variables).module(dev).train()
         loss = loss_fn(module(x), y, torch.ones(2, device=dev))
         loss.backward()
@@ -1456,12 +1507,14 @@ def phase_grad_check(dev, card) -> dict:
         if rel > worst:
             worst_name, worst = name, rel
     loss_diff = abs(losses["flash"] - losses["dense"])
-    print(f"f32 gradient check (2, 2048), flash kernels vs dense attention: "
-          f"loss {losses['flash']:.6f} vs {losses['dense']:.6f} (diff "
-          f"{loss_diff:.3e}, tol 1e-4); worst parameter {worst_name} "
-          f"max|d|/max|ref| {worst:.3e} (tol 1e-3)")
-    require(loss_diff <= 1e-4, "f32 loss differs")
-    require(worst <= 1e-3, f"f32 gradient of {worst_name} differs")
+    head_dim = config["d_model"] // config["n_heads"]
+    print(f"f32 gradient check (2, {seq}) at head dim {head_dim}, flash "
+          f"kernels vs dense attention: loss {losses['flash']:.6f} vs "
+          f"{losses['dense']:.6f} (diff {loss_diff:.3e}, tol 1e-4); worst "
+          f"parameter {worst_name} max|d|/max|ref| {worst:.3e} (tol 1e-3)")
+    require(loss_diff <= 1e-4, f"f32 loss differs at head dim {head_dim}")
+    require(worst <= 1e-3, f"f32 gradient of {worst_name} differs at head "
+            f"dim {head_dim}")
     del grads
     torch.cuda.empty_cache()
     return {"loss_diff": loss_diff, "worst_param": worst_name,
@@ -3007,23 +3060,42 @@ def bench_interference(dev, card) -> dict:
     return out
 
 
-# chip_smoke phase 15: head dim 32 -- the shapes of the checks and times,
-# and the width of the main paths that run K1 and K4 at head dim 32 (the
-# Zipf prefix arm's: bench.py bench_serve arm 5, d_model 256 over 8 heads)
-D32_FLASH = (2, 1024, 8, 32)
-D32_DECODE = (16, 1088, 8, 32)
+# chip_smoke phases 15 and 16: head dims 32, then 16 and 8 -- the shapes of
+# the kernel checks and times: K1 at the prefill shape of two 1024-token
+# rows, K4 at the serving window of a 16-row batch
+SMALL_FLASH = (2, 1024, 8)
+SMALL_DECODE = (16, 1088, 8)
+# phase 15's main paths: the Zipf prefix arm's width (bench.py bench_serve
+# arm 5, d_model 256 over 8 heads)
 D32_CONFIG = {"vocab_size": 8192, "d_model": 256, "n_heads": 8,
               "n_layers": 4, "max_len": 1024, "dtype": "bfloat16"}
 D32_PROMPT, D32_NEW, D32_CHUNK = 960, 8, 64
 
 
-def d32_kernel_checks(dev, card) -> dict:
-    """K1 and K1[lse] at (2, 1024, 8, 32), f32 and bf16, causal and not,
-    and K4 and K4[stats] at (16, 1088, 8, 32) over bf16, f32 and int8
-    caches, each against its plain version with the head-dim-64/128
-    cases' limits; then each one's device time (a CUDA graph of 20
-    calls, median of 5), its bound, the library call's time where one
-    PyTorch call computes the same function, and the plain version's."""
+def library_ms(fn, what: str) -> float:
+    """graph_ms of the one library call that computes a kernel row's
+    function.  One eager call first, so that a refusal never happens
+    inside a graph capture; a refusal fails the run, so that no row's
+    library time goes missing unseen."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        raise SmokeFailure(f"the library call for {what} refused its inputs: "
+                           f"{str(e).splitlines()[0][:160]}") from e
+    return graph_ms(fn)
+
+
+def head_dim_kernel_checks(dev, card, d: int) -> dict:
+    """K1 and K1[lse] at (2, 1024, 8, d), f32 and bf16, causal and not and
+    at q/k offsets (the second 512 queries over the first 512 keys' block,
+    and 200 rows that see no key), and K4 and K4[stats] at (16, 1088, 8, d)
+    over bf16, f32 and int8 caches, each against its plain version with
+    the head-dim-64/128 cases' limits; then each one's device time (a CUDA
+    graph of 20 calls, median of 5), its bound, the library call's time
+    where one PyTorch call computes the same function, and the plain
+    version's.  Phase 15 runs it at head dim 32, phase 16 at 16 and 8."""
+    from mmlspark_tpu_torch.ops.attention import NEG_INF
     from mmlspark_tpu_torch.ops.decode_attention import (
         _sm_count, _span_plan, fused_single_query_attention,
         fused_single_query_attention_plain,
@@ -3033,16 +3105,18 @@ def d32_kernel_checks(dev, card) -> dict:
         flash_attention, flash_attention_plain, flash_attention_with_lse,
         flash_attention_with_lse_plain)
     from mmlspark_tpu_torch.quant.quantize import quantize_kv
-    gen = torch.Generator(device=dev).manual_seed(32)
-    b, s, h, d = D32_FLASH
+    gen = torch.Generator(device=dev).manual_seed(d)
+    b, s, h = SMALL_FLASH
+    shape = (b, s, h, d)
     errs: dict = {}
     qkv = {}
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
         qkv[dtype] = (q, k, v)
         bf16 = dtype == torch.bfloat16
         out_tol, lse_tol = (2e-2, 1e-3) if bf16 else (1e-4, 1e-4)
+        key = "k1_bf16" if bf16 else "k1_f32"
         for causal in (True, False):
             got = flash_attention(q, k, v, causal=causal)
             out, lse = flash_attention_with_lse(q, k, v, causal)
@@ -3051,25 +3125,49 @@ def d32_kernel_checks(dev, card) -> dict:
                                                               causal)
             err, norm_err = out_errs(got, ref_out)
             lse_err = (lse - ref_lse).abs().max().item()
-            print(f"head dim 32: flash_attention / _with_lse "
-                  f"{D32_FLASH} causal={causal} {dtype}: out "
-                  f"max_abs_err={err:.3e} (tol {out_tol}), ||d||/||ref|| "
-                  f"{norm_err:.3e} (tol {OUT_NORM_TOL[dtype]}); with lse "
-                  f"bitwise equal {torch.equal(got, out)}; lse "
-                  f"max_abs_err={lse_err:.3e} (tol {lse_tol})")
+            print(f"head dim {d}: flash_attention / _with_lse {shape} "
+                  f"causal={causal} {dtype}: out max_abs_err={err:.3e} (tol "
+                  f"{out_tol}), ||d||/||ref|| {norm_err:.3e} (tol "
+                  f"{OUT_NORM_TOL[dtype]}); with lse bitwise equal "
+                  f"{torch.equal(got, out)}; lse max_abs_err={lse_err:.3e} "
+                  f"(tol {lse_tol})")
             require(err <= out_tol and norm_err <= OUT_NORM_TOL[dtype]
                     and lse_err <= lse_tol and torch.equal(got, out),
-                    f"head dim 32: K1 disagrees (causal={causal} {dtype})")
-            key = "k1_bf16" if bf16 else "k1_f32"
+                    f"head dim {d}: K1 disagrees (causal={causal} {dtype})")
             errs[key] = max(errs.get(key, 0.0), err)
+        half = s // 2
+        for q_off, k_off in ((half, 0), (0, 200)):
+            args = tuple(t.contiguous() for t in (
+                q[:, half:], k[:, :half], v[:, :half])) if q_off else (q, k, v)
+            out, lse = flash_attention_with_lse(*args, True, None, q_off,
+                                                k_off)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = flash_attention_with_lse_plain(
+                *args, True, None, q_off, k_off)
+            err, norm_err = out_errs(out, ref_out)
+            lse_err = (lse - ref_lse).abs().max().item()
+            hidden = max(0, k_off - q_off)
+            dark = (torch.count_nonzero(out[:, :hidden]).item() == 0
+                    and bool((lse[:, :hidden] == NEG_INF).all()))
+            print(f"head dim {d}: flash_attention_with_lse q/k offsets "
+                  f"{q_off}/{k_off} over {tuple(args[0].shape)} causal "
+                  f"{dtype}: out max_abs_err={err:.3e}, ||d||/||ref|| "
+                  f"{norm_err:.3e}; lse max_abs_err={lse_err:.3e}; {hidden} "
+                  f"rows that see no key exactly 0 / NEG_INF: {dark}")
+            require(err <= out_tol and norm_err <= OUT_NORM_TOL[dtype]
+                    and lse_err <= lse_tol and dark,
+                    f"head dim {d}: K1[lse] disagrees at offsets "
+                    f"{q_off}/{k_off} ({dtype})")
+            errs[key] = max(errs[key], err)
 
-    b4, window, h4, d4 = D32_DECODE
+    b4, window, h4 = SMALL_DECODE
+    decode_shape = (b4, window, h4, d)
     bucket = window - 64
     cases = {}
     for kind in ("bf16", "f32", "int8"):
         dtype = torch.float32 if kind == "f32" else torch.bfloat16
-        q = torch.randn((b4, h4, d4), generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn((b4, window, h4, d4), generator=gen, device=dev)
+        q = torch.randn((b4, h4, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(decode_shape, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         true_len = torch.randint(1, bucket + 1, (b4,), generator=gen,
                                  device=dev)
@@ -3091,23 +3189,23 @@ def d32_kernel_checks(dev, card) -> dict:
         e_acc = ((acc - r_acc).abs().max() / r_acc.abs().max()).item()
         e_l = ((l - r_l).abs().max() / r_l.abs().max()).item()
         e_m = (m[:-1] - r_m[:-1]).abs().max().item()
-        print(f"head dim 32: fused_single_query_attention {D32_DECODE} "
+        print(f"head dim {d}: fused_single_query_attention {decode_shape} "
               f"cache={kind}: max_abs_err={err:.3e} (tol 2e-3); _stats acc "
               f"{e_acc:.3e}, l {e_l:.3e} of max|ref| (tol 1e-4), m "
               f"{e_m:.3e} (tol 1e-4)")
         require(err <= 2e-3 and e_acc <= 1e-4 and e_l <= 1e-4
                 and e_m <= 1e-4 and torch.count_nonzero(got[-1]).item() == 0
                 and bool((l[-1] == 0).all()),
-                f"head dim 32: K4 / K4[stats] disagree (cache={kind})")
+                f"head dim {d}: K4 / K4[stats] disagree (cache={kind})")
         errs[f"k4_{kind}"] = err
         errs[f"k4s_{kind}"] = (acc - r_acc).abs().max().item()
     repeat_and_graph_check(
         lambda: fused_single_query_attention(*cases["int8"][:4],
                                              **cases["int8"][4]),
-        f"fused_single_query_attention {D32_DECODE} cache=int8")
+        f"fused_single_query_attention {decode_shape} cache=int8")
     repeat_and_graph_check(
         lambda: flash_attention(*qkv[torch.bfloat16], causal=True),
-        f"flash_attention {D32_FLASH} causal bf16")
+        f"flash_attention {shape} causal bf16")
 
     # times, bounds, library calls
     entries: dict = {}
@@ -3129,34 +3227,34 @@ def d32_kernel_checks(dev, card) -> dict:
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         for lse in (False, True):
-            name = f"flash_attention[{'lse, ' if lse else ''}d32{tag}]"
+            name = f"flash_attention[{'lse, ' if lse else ''}d{d}{tag}]"
             if lse:
                 ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True))
                 plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(
                     q, k, v, True), calls=3)
                 # PyTorch's flash forward returns the lse too (bf16 only);
                 # at f32 its memory-efficient forward does
-                lib_ms = (graph_ms(
+                lib_ms = (library_ms(
                     lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                        qt, kt, vt, 0.0, True))
-                    if dtype == torch.bfloat16 else graph_ms(
+                        qt, kt, vt, 0.0, True), name)
+                    if dtype == torch.bfloat16 else library_ms(
                     lambda: torch.ops.aten
                     ._scaled_dot_product_efficient_attention(
-                        qt, kt, vt, None, True, is_causal=True)))
+                        qt, kt, vt, None, True, is_causal=True), name))
             else:
                 ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
                 plain_ms = graph_ms(lambda: flash_attention_plain(
                     q, k, v, causal=True), calls=3)
-                lib_ms = graph_ms(
+                lib_ms = library_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True))
+                        qt, kt, vt, is_causal=True), name)
             nbytes = 4.0 * b * s * h * d * item + (b * s * h * 4 if lse else 0)
             bound_f, bound_b = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
             bound = max(bound_f, bound_b)
             by = "operations" if bound_f >= bound_b else "bytes"
-            print(f"timing {name} {D32_FLASH} causal, device time (CUDA "
+            print(f"timing {name} {shape} causal, device time (CUDA "
                   f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; library "
-                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+                  f"{lib_ms:.4f} ms; "
                   f"bound {bound:.4f} ms ({by}); {flops / ms / 1e9:.1f} "
                   f"TFLOP/s, {bound / ms:.3f} of the bound [{card}]")
             entry(name, "mmlspark_tpu/ops/flash_attention.py:148",
@@ -3167,15 +3265,15 @@ def d32_kernel_checks(dev, card) -> dict:
     for kind in ("bf16", "f32", "int8"):
         q, k, v, visible, kw = cases[kind]
         n_visible = int(visible.sum().item())
-        bound, by = stats_bound(b4, h4, d4, n_visible, window,
+        bound, by = stats_bound(b4, h4, d, n_visible, window,
                                 k.element_size(), kind == "int8")
         lib_ms = None
         if kind != "int8":
             mask = visible[:, None, None, :]
-            lib_ms = graph_ms(
+            lib_ms = library_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=mask))
+                    attn_mask=mask), f"K4 d{d} {kind}")
         for stats in (False, True):
             fn = (fused_single_query_attention_stats if stats
                   else fused_single_query_attention)
@@ -3185,8 +3283,9 @@ def d32_kernel_checks(dev, card) -> dict:
             plain_ms = graph_ms(lambda: plain(q, k, v, visible, **kw))
             base = ("fused_single_query_attention_stats" if stats
                     else "fused_single_query_attention")
-            name = f"{base}[d32]" if kind == "bf16" else f"{base}[d32, {kind}]"
-            print(f"timing {name} {D32_DECODE}, {n_spans} spans of {span} "
+            name = (f"{base}[d{d}]" if kind == "bf16"
+                    else f"{base}[d{d}, {kind}]")
+            print(f"timing {name} {decode_shape}, {n_spans} spans of {span} "
                   f"slots, device time (CUDA graph): {ms:.4f} ms; plain "
                   f"{plain_ms:.4f} ms; library "
                   f"{'none' if stats or lib_ms is None else f'SDPA {lib_ms:.4f} ms'}"
@@ -3292,10 +3391,10 @@ def d32_main_paths(dev, card) -> dict:
 
 def phase_head_dim_32(dev, card) -> tuple:
     """chip_smoke phase 15: K1, K1[lse], K4 and K4[stats] at head dim 32
-    (their checks and times, `d32_kernel_checks`) and the main paths that
-    run those instances (`d32_main_paths`): the kernels-line rows with
-    their launches, and the paths' counts."""
-    entries = d32_kernel_checks(dev, card)
+    (their checks and times, `head_dim_kernel_checks`) and the main paths
+    that run those instances (`d32_main_paths`): the kernels-line rows
+    with their launches, and the paths' counts."""
+    entries = head_dim_kernel_checks(dev, card, 32)
     paths = d32_main_paths(dev, card)
     launches = {
         "flash_attention[d32]": paths["bf16"]["K1"],
@@ -3315,6 +3414,478 @@ def phase_head_dim_32(dev, card) -> tuple:
             f"head dim 32: timed {sorted(entries)}, counted "
             f"{sorted(launches)}")
     return [{**entries[n], "launches": c} for n, c in launches.items()], paths
+
+
+# chip_smoke phase 16: head dims 8 and 16 (and K2/K3 at 32).  The main
+# paths: (a) the LM example's configuration (examples/example_401_lm_
+# generation.py: head dim 8; its corpus, adam at 3e-3 cosine, 30 epochs of
+# 64 rows at batch 32), trained here with flash attention; (b)
+# `TransformerLM`'s default widths (mmlspark_tpu/models/definitions.py:
+# head dim 16); (c) the Zipf arm's width (ZIPF, head dim 32) trained
+EXAMPLE_CONFIG = {"vocab_size": 16, "d_model": 32, "n_heads": 4,
+                  "n_layers": 2, "max_len": 40, "dtype": "float32"}
+EXAMPLE = dict(rows=64, seq=24, prompt=8, new=12, seq2_chunk=8)
+DEFAULT_LM_CONFIG = {"vocab_size": 256, "d_model": 128, "n_heads": 8,
+                     "n_layers": 2, "max_len": 2048, "dtype": "bfloat16"}
+DEFAULT_PROMPTS, DEFAULT_NEW = (600, 900, 1200, 1500), 16
+SEQ2_PROMPT, SEQ2_CHUNK = 960, 64
+
+
+def small_dim_backward_checks(dev, card) -> dict:
+    """K2 and K3 at head dims 8, 16 and 32, bf16 and f32, at the training
+    shape (8, 2048, 8, d) causal against plain with phase 4's limits, a
+    second launch bitwise equal; then each one's time, bound, plain and
+    library times (`time_backward`)."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    entries = {}
+    for d in (8, 16, 32):
+        for dtype, tag in ((torch.bfloat16, ""), (torch.float32, ", f32")):
+            scale = d ** -0.5
+            args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d)
+            got = (flash_bwd_dq(*args, True, scale),
+                   *flash_bwd_dkv(*args, True, scale))
+            again = (flash_bwd_dq(*args, True, scale),
+                     *flash_bwd_dkv(*args, True, scale))
+            torch.cuda.synchronize()
+            ref = flash_block_grads_plain(*args, True, scale)
+            max_tol, norm_tol = ((2e-2, 1e-2) if dtype == torch.bfloat16
+                                 else (1e-4, 1e-4))
+            errs = [grad_errs(a, r) for a, r in zip(got, ref)]
+            same = all(torch.equal(a, r) for a, r in zip(got, again))
+            print(f"head dim {d}: flash backward (8, 2048, 8, {d}) causal "
+                  f"{dtype}: max|d|/max|ref| dq {errs[0][0]:.3e} dk "
+                  f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} (tol {max_tol}); "
+                  f"||d||/||ref|| dq {errs[0][1]:.3e} dk {errs[1][1]:.3e} dv "
+                  f"{errs[2][1]:.3e} (tol {norm_tol}); repeat bitwise equal "
+                  f"{same}")
+            require(all(m <= max_tol and n <= norm_tol for m, n in errs)
+                    and same, f"head dim {d}: K2/K3 disagree ({dtype})")
+            abs_err = [(a.float() - r.float()).abs().max().item()
+                       for a, r in zip(got, ref)]
+            del got, again, ref
+            timed = time_backward(card, gen, d, dtype, args)
+            for name, err in (("flash_bwd_dq", abs_err[0]),
+                              ("flash_bwd_dkv", max(abs_err[1:]))):
+                entries[f"{name}[d{d}{tag}]"] = {
+                    "name": f"{name}[d{d}{tag}]", "route": "cuda",
+                    "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
+                    "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
+                                 if name == "flash_bwd_dq" else
+                                 "mmlspark_tpu/ops/flash_attention.py:330"),
+                    "max_abs_err": err, **timed[name]}
+            del args
+    return entries
+
+
+def wide_f32_k1(dev, card) -> tuple:
+    """The redesigned f32 K1 at head dims 64 and 128: checked against plain
+    and timed at (2, 1024, 8, d) causal beside its bound, plain version
+    and SDPA; then its main path at each width, f32 `TextGenerator` over
+    one 600-token prompt (bucket 1024: K1 at each layer's prefill) of the
+    repo's LM configurations of those head dims (LC_CONFIG, LM_CONFIG),
+    launches counted exactly.  Returns (entries, launches)."""
+    from mmlspark_tpu_torch import DataTable, ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.core.table import object_column
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(64)
+    b, s, h = SMALL_FLASH
+    entries, launches = {}, {}
+    for d, config in ((64, LC_CONFIG), (128, LM_CONFIG)):
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   for _ in range(3))
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, norm_err = out_errs(got, flash_attention_plain(q, k, v,
+                                                            causal=True))
+        print(f"head dim {d}: f32 flash_attention {(b, s, h, d)} causal: "
+              f"max_abs_err={err:.3e} (tol 1e-4), ||d||/||ref|| "
+              f"{norm_err:.3e} (tol 1e-4)")
+        require(err <= 1e-4 and norm_err <= 1e-4,
+                f"head dim {d}: f32 K1 disagrees")
+        ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = graph_ms(lambda: flash_attention_plain(q, k, v,
+                                                          causal=True), calls=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        name = f"flash_attention[d{d}, f32]"
+        lib_ms = library_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), name)
+        flops = 4.0 * b * h * d * (s * (s + 1) / 2)
+        bound, by = attention_bound(flops, 4.0 * b * s * h * d * 4,
+                                    PEAK_F32_FLOPS)
+        print(f"timing {name} {(b, s, h, d)} causal, device time (CUDA "
+              f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; SDPA "
+              f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({by}); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound / ms:.3f} of the bound [{card}]")
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        del q, k, v, qt, kt, vt, got
+        bundle = ModelBundle.init("TransformerLM",
+                                  {**config, "dtype": "float32"}, seed=d)
+        row = np.random.default_rng(d).integers(
+            0, config["vocab_size"], 600).astype(np.int32)
+        stage = TextGenerator(bundle, device=dev, inputCol="prompt",
+                              maxNewTokens=4)
+        table = DataTable({"prompt": object_column([row])})
+        stage.transform(table)                    # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        stage.transform(table)
+        torch.cuda.synchronize()
+        k1 = read_counts()["flash_attention"]
+        require(k1 == config["n_layers"],
+                f"head dim {d} f32 TextGenerator: K1 {k1}, expected "
+                f"{config['n_layers']}")
+        print(f"head dim {d} f32 main path TextGenerator.transform, one "
+              f"600-token prompt (d_model {config['d_model']}): K1 {k1} = "
+              f"{config['n_layers']} layers x 1 prefill [{card}]")
+        launches[name] = k1
+        del bundle, stage
+        torch.cuda.empty_cache()
+    return entries, launches
+
+
+def flash_training(dev, card, label: str, config: dict, seq: int) -> dict:
+    """`Trainer.fit_arrays` of a `config` model with flash attention on
+    TRAIN_ROWS rows of `seq` tokens, batch TRAIN_BATCH, at bf16 and then
+    f32: K1[lse], K2 and K3 each n_layers x steps exactly, the loss falls.
+    Returns per `train_<dtype>` the steps, first and last loss and those
+    launches."""
+    from mmlspark_tpu_torch import Trainer
+    n_layers = config["n_layers"]
+    rows = char_corpus(TRAIN_ROWS, seq, config["vocab_size"])
+    out = {}
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        trainer = Trainer(train_config(
+            {**config, "dtype": dtype, "attn_impl": "flash"}), device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        bundle = trainer.fit_arrays(rows[:, :-1], rows[:, 1:])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = read_counts()
+        steps = bundle.metadata["steps"]
+        losses = [r["loss"] for r in trainer.history]
+        print(f"path {label}: fit_arrays {steps} steps of {TRAIN_BATCH}x{seq}"
+              f" {tag} flash in {seconds:.2f} s, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; launches {launched} [{card}]")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"path {label} {tag}: the loss did not fall")
+        for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+            require(launched[name] == n_layers * steps,
+                    f"path {label} {tag}: {name} launched {launched[name]} "
+                    f"times, want {n_layers * steps}")
+        out[f"train_{tag}"] = {"steps": steps,
+                               "losses": [losses[0], losses[-1]],
+                               "K1[lse]": launched["flash_attention[lse]"],
+                               "K2": launched["flash_bwd_dq"],
+                               "K3": launched["flash_bwd_dkv"]}
+        del trainer, bundle
+        torch.cuda.empty_cache()
+    return out
+
+
+def seq2_decode(dev, card, label: str, config: dict, variables,
+                prompts: np.ndarray, new: int, chunk: int) -> tuple:
+    """The seq=2 `DecodeEngine` (both shards on this card) over `prompts`
+    with a `config` model's `variables`, at bf16, bf16 with an int8 cache
+    and f32: K1[lse] on the ring prefill (n_layers x 3 (shard, block)
+    pairs) and K4[stats] per shard at every decode step, both counted
+    exactly.  Returns (launches, new tokens), each by cache name."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models import DecodeEngine
+    from mmlspark_tpu_torch.models.generate import ServingWeights
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    shards, n_layers = 2, config["n_layers"]
+    mesh = make_mesh(MeshSpec(data=1, model=1, seq=shards),
+                     [torch.device(dev.type, 0)] * shards)
+    true_len = np.full(len(prompts), prompts.shape[1], np.int32)
+    launches, tokens = {}, {}
+    for name, dtype, kv in (("bf16", "bfloat16", "model"),
+                            ("int8", "bfloat16", "int8"),
+                            ("f32", "float32", "model")):
+        bundle = ModelBundle("TransformerLM", {**config, "dtype": dtype},
+                             variables)
+        engine = DecodeEngine(ServingWeights(bundle.module(dev)), new,
+                              chunk=chunk, mesh=mesh, cache_dtype=kv,
+                              device=dev)
+        engine.generate(prompts, true_len)        # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        got = engine.generate(prompts, true_len)
+        torch.cuda.synchronize()
+        launched = read_counts()
+        lse, stats = (launched["flash_attention[lse]"],
+                      launched["fused_single_query_attention_stats"])
+        want = (n_layers * shards * (shards + 1) // 2,
+                n_layers * (new - 1) * shards)
+        require((lse, stats) == want,
+                f"path {label} seq=2 engine {name}: K1[lse] {lse}, K4[stats] "
+                f"{stats} (expected {want})")
+        launches[f"seq2_{name}"] = {"K1[lse]": lse, "K4[stats]": stats}
+        tokens[name] = np.asarray(got)
+        print(f"path {label} DecodeEngine over a seq=2 mesh (both shards on "
+              f"this card), {name}: {prompts.shape[0]} prompts x "
+              f"{prompts.shape[1]} + {new} tokens; launches K1[lse] {lse} = "
+              f"{n_layers} x {shards * (shards + 1) // 2} (shard, block) "
+              f"pairs, K4[stats] {stats} = {n_layers} x {new - 1} steps x "
+              f"{shards} shards [{card}]")
+        del engine, bundle
+    torch.cuda.empty_cache()
+    return launches, tokens
+
+
+def example_path(dev, card) -> dict:
+    """Path (a): the LM example's configuration built with the port's API:
+    `Trainer.fit_arrays` with flash attention on the example's corpus,
+    optimizer and epochs (K1[lse], K2, K3 at head dim 8, each n_layers x
+    steps exactly; the loss falls), then `TextGenerator.transform` on 4
+    prompts of 8 tokens x 12 new (K4 at head dim 8 on each of the 11
+    decode steps of each layer exactly; no K1: the prompts are short), the
+    continuation accuracy against the cycle printed as the example prints
+    it, then the example's own oracle, `naive_generate` over the trained
+    bundle's module (flash attention: K1 at head dim 8 on each of its
+    n_layers x 12 forwards, exactly).  At f32, as the example, the tokens
+    equal that oracle's and a dense-attention module's; at bf16 also with
+    an int8 cache.  Last, the f32-trained weights decode the same prompts
+    over a seq=2 mesh (`seq2_decode`: K1[lse] and K4[stats] at head dim 8),
+    whose f32 tokens equal the f32 `TextGenerator`'s."""
+    from mmlspark_tpu_torch import (DataTable, ModelBundle, TextGenerator,
+                                    Trainer, TrainerConfig)
+    from mmlspark_tpu_torch.models.generate import naive_generate
+    vocab, n_layers = EXAMPLE_CONFIG["vocab_size"], EXAMPLE_CONFIG["n_layers"]
+    rows = char_corpus(EXAMPLE["rows"], EXAMPLE["seq"], vocab)
+    tokens, targets = rows[:, :-1], rows[:, 1:]
+    prompts = tokens[:4, :EXAMPLE["prompt"]]
+    new = EXAMPLE["new"]
+    expect = (prompts[:, -1:] + 1 + np.arange(new)) % vocab
+    out: dict = {}
+    for dtype in ("float32", "bfloat16"):
+        tag = "f32" if dtype == "float32" else "bf16"
+        config = {**EXAMPLE_CONFIG, "dtype": dtype, "attn_impl": "flash"}
+        trainer = Trainer(TrainerConfig(
+            architecture="TransformerLM", model_config=config,
+            optimizer="adam", learning_rate=3e-3, lr_schedule="cosine",
+            epochs=30, batch_size=32, loss="softmax_xent", seed=0,
+            shuffle_each_epoch=False), device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        bundle = trainer.fit_arrays(tokens, targets)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = read_counts()
+        steps = bundle.metadata["steps"]
+        losses = [r["loss"] for r in trainer.history]
+        print(f"path (a) the LM example's configuration, {dtype}: "
+              f"fit_arrays {steps} steps in {seconds:.2f} s, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches K1[lse] "
+              f"{launched['flash_attention[lse]']}, K2 "
+              f"{launched['flash_bwd_dq']}, K3 {launched['flash_bwd_dkv']} "
+              f"= {n_layers} x {steps} [{card}]")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"path (a) {dtype}: the loss did not fall")
+        for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+            require(launched[name] == n_layers * steps,
+                    f"path (a) {dtype}: {name} launched {launched[name]} "
+                    f"times, want {n_layers * steps}")
+        out[f"train_{tag}"] = {"steps": steps, "losses": [losses[0],
+                                                          losses[-1]],
+                               "K1[lse]": launched["flash_attention[lse]"],
+                               "K2": launched["flash_bwd_dq"],
+                               "K3": launched["flash_bwd_dkv"]}
+        for kv in ((None,) if dtype == "float32" else (None, "int8")):
+            stage = TextGenerator(bundle, device=dev, inputCol="prompt",
+                                  maxNewTokens=new, kvCacheDtype=kv)
+            torch.cuda.synchronize()
+            reset_counts()
+            got = np.asarray(stage.transform(
+                DataTable({"prompt": prompts}))["generated"])
+            torch.cuda.synchronize()
+            launched = read_counts()
+            k1, k4 = (launched["flash_attention"],
+                      launched["fused_single_query_attention"])
+            accuracy = float((got[:, EXAMPLE["prompt"]:] == expect).mean())
+            name = tag if kv is None else "int8"
+            print(f"path (a) TextGenerator.transform {name}: 4 prompts x "
+                  f"{EXAMPLE['prompt']} + {new} tokens; continuation accuracy "
+                  f"vs the true cycle: {accuracy:.3f}; launches K1 {k1}, K4 "
+                  f"{k4} = {n_layers} x {new - 1} steps [{card}]")
+            require(got.shape == (4, EXAMPLE["prompt"] + new)
+                    and k1 == 0 and k4 == n_layers * (new - 1),
+                    f"path (a) {name}: K1 {k1}, K4 {k4} (expected 0 and "
+                    f"{n_layers * (new - 1)})")
+            out[f"decode_{name}"] = {"K4": k4, "accuracy": accuracy}
+            if kv is not None:
+                continue
+            # the example's oracle: the trained bundle's own module
+            torch.cuda.synchronize()
+            reset_counts()
+            oracle = naive_generate(bundle.module(dev), prompts, new)
+            torch.cuda.synchronize()
+            k1 = read_counts()["flash_attention"]
+            agree = float((oracle == got).mean())
+            print(f"path (a) naive_generate over the trained {tag} module "
+                  f"(flash): launches K1 {k1} = {n_layers} x {new} "
+                  f"forwards; tokens equal to TextGenerator's: {agree:.3f} "
+                  f"[{card}]")
+            require(oracle.shape == got.shape and k1 == n_layers * new,
+                    f"path (a) {tag} oracle: K1 {k1} (expected "
+                    f"{n_layers * new})")
+            out[f"oracle_{tag}"] = {"K1": k1, "agreement": agree}
+            if dtype == "float32":
+                dense = naive_generate(ModelBundle(
+                    "TransformerLM", {**config, "attn_impl": "dense"},
+                    bundle.variables).module(dev), prompts, new)
+                require(np.array_equal(got, oracle)
+                        and np.array_equal(got, dense),
+                        "path (a) f32: tokens differ from the recompute "
+                        "oracles'")
+                f32_bundle, f32_tokens = bundle, got
+    launches, seq2_tokens = seq2_decode(
+        dev, card, "(a)", EXAMPLE_CONFIG, f32_bundle.variables, prompts, new,
+        EXAMPLE["seq2_chunk"])
+    require(np.array_equal(seq2_tokens["f32"],
+                           f32_tokens[:, EXAMPLE["prompt"]:]),
+            "path (a) seq=2 engine f32: tokens differ from TextGenerator's")
+    out.update(launches)
+    return out
+
+
+def default_widths_path(dev, card) -> dict:
+    """Path (b): `TransformerLM` at its default widths.  `flash_training`
+    at batch 8 x 2048 (K1[lse], K2, K3 at head dim 16); `TextGenerator.
+    transform` on prompts of 600-1500 tokens (K1 at each bucket's prefill,
+    K4 at every decode step, exactly) at bf16, bf16 with an int8 cache and
+    f32, whose greedy tokens equal the recompute oracle's; the seq=2
+    `DecodeEngine` at the same three (`seq2_decode`)."""
+    from mmlspark_tpu_torch import DataTable, ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.core.table import object_column
+    from mmlspark_tpu_torch.models.generate import (_PREFILL_FLASH_MIN,
+                                                    bucket_length,
+                                                    naive_generate)
+    cfg = DEFAULT_LM_CONFIG
+    vocab, n_layers = cfg["vocab_size"], cfg["n_layers"]
+    out = flash_training(dev, card, "(b) TransformerLM default widths", cfg,
+                         TRAIN_SEQ)
+
+    base = ModelBundle.init("TransformerLM", cfg, seed=16)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in DEFAULT_PROMPTS]
+    table = DataTable({"prompt": object_column(prompts)})
+    buckets = {bucket_length(len(r), cfg["max_len"], DEFAULT_NEW)
+               for r in prompts}
+    n_buckets = len(buckets)
+    # K1 prefills a bucket of _PREFILL_FLASH_MIN (512) tokens or more
+    n_flash = len([bk for bk in buckets if bk >= _PREFILL_FLASH_MIN])
+    for name, dtype, kv in (("bf16", "bfloat16", None),
+                            ("int8", "bfloat16", "int8"),
+                            ("f32", "float32", None)):
+        bundle = ModelBundle("TransformerLM", {**cfg, "dtype": dtype},
+                             base.variables)
+        stage = TextGenerator(bundle, device=dev, inputCol="prompt",
+                              maxNewTokens=DEFAULT_NEW, kvCacheDtype=kv)
+        stage.transform(table)                    # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = stage.transform(table)["generated"]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = read_counts()
+        k1, k4 = (launched["flash_attention"],
+                  launched["fused_single_query_attention"])
+        want = (n_layers * n_flash, n_layers * (DEFAULT_NEW - 1) * n_buckets)
+        require((k1, k4) == want,
+                f"path (b) TextGenerator {name}: K1 {k1}, K4 {k4}, expected "
+                f"{want}")
+        if name == "f32":
+            module = bundle.module(dev)
+            equal = all(np.array_equal(
+                g, naive_generate(module, r[None], DEFAULT_NEW)[0])
+                for g, r in zip(got, prompts))
+            require(equal, "path (b) TextGenerator f32: tokens differ from "
+                    "the recompute oracle's")
+        out[name] = {"K1": k1, "K4": k4,
+                     "tokens_per_s": len(prompts) * DEFAULT_NEW / seconds}
+        print(f"path (b) TextGenerator.transform {name}: prompts "
+              f"{DEFAULT_PROMPTS} + {DEFAULT_NEW} tokens ({n_buckets} "
+              f"buckets) in {seconds * 1e3:.1f} ms; launches K1 {k1} = "
+              f"{n_layers} x {n_flash} prefills, K4 {k4} = {n_layers} x "
+              f"{DEFAULT_NEW - 1} steps x {n_buckets}"
+              f"{'; tokens equal the oracle' if name == 'f32' else ''} "
+              f"[{card}]")
+    seq_prompts = np.stack([rng.integers(0, vocab, SEQ2_PROMPT).astype(
+        np.int32) for _ in range(2)])
+    out.update(seq2_decode(dev, card, "(b)", cfg, base.variables,
+                           seq_prompts, DEFAULT_NEW, SEQ2_CHUNK)[0])
+    return out
+
+
+def phase_small_head_dims(dev, card) -> tuple:
+    """chip_smoke phase 16: K1 and K1[lse] (bf16, f32) and K4 and K4[stats]
+    (bf16, int8, f32 caches) at head dims 8 and 16, the f32 K1 at 64 and
+    128, and K2 and K3 (bf16, f32) at 8, 16 and 32, each against its
+    plain version and timed; then the main paths that run them -- (a) the
+    LM example's configuration, (b) `TransformerLM`'s default widths, (c)
+    the Zipf arm's width trained (`flash_training`) -- and the f32
+    gradient checks at head dims 8, 16 and 32.  Returns the kernels-line
+    rows, each with its launches on those paths, and the paths' numbers."""
+    t0 = time.perf_counter()
+    entries = {}
+    for d in (8, 16):
+        entries.update(head_dim_kernel_checks(dev, card, d))
+    wide, wide_launches = wide_f32_k1(dev, card)
+    entries.update(wide)
+    entries.update(small_dim_backward_checks(dev, card))
+    torch.cuda.empty_cache()
+    paths = {"a": example_path(dev, card), "b": default_widths_path(dev, card),
+             "c": flash_training(dev, card, "(c) the Zipf arm's width",
+                                 ZIPF["config"], ZIPF["config"]["max_len"])}
+    grads = {d: flash_grad_check(dev, card, config, seq, seed=d)
+             for d, config, seq in (
+                 (8, EXAMPLE_CONFIG, EXAMPLE["seq"]),
+                 (16, DEFAULT_LM_CONFIG, TRAIN_SEQ),
+                 (32, ZIPF["config"], ZIPF["config"]["max_len"]))}
+    launches = dict(wide_launches)
+    for d, path in ((8, paths["a"]), (16, paths["b"]), (32, paths["c"])):
+        for tag, dtype in (("", "bf16"), (", f32", "f32")):
+            train = path[f"train_{dtype}"]
+            launches[f"flash_bwd_dq[d{d}{tag}]"] = train["K2"]
+            launches[f"flash_bwd_dkv[d{d}{tag}]"] = train["K3"]
+    # K1 and K4 at head dim 32 are phase 15's rows
+    for d, path in ((8, paths["a"]), (16, paths["b"])):
+        for tag, dtype in (("", "bf16"), (", f32", "f32")):
+            launches[f"flash_attention[lse, d{d}{tag}]"] = \
+                path[f"train_{dtype}"]["K1[lse]"]
+            # K1 at head dim 8 runs in the example's oracle: no repo
+            # configuration of head dim 8 prefills 512 tokens or more
+            launches[f"flash_attention[d{d}{tag}]"] = (
+                path[f"oracle_{dtype}"] if d == 8 else path[dtype])["K1"]
+        for kind, cache in (("", "bf16"), (", int8", "int8"),
+                            (", f32", "f32")):
+            launches[f"fused_single_query_attention[d{d}{kind}]"] = (
+                path[f"decode_{cache}"] if d == 8 else path[cache])["K4"]
+            launches[f"fused_single_query_attention_stats[d{d}{kind}]"] = \
+                path[f"seq2_{cache}"]["K4[stats]"]
+    require(set(launches) == set(entries),
+            f"phase 16: timed {sorted(set(entries) - set(launches))} not "
+            f"counted, counted {sorted(set(launches) - set(entries))} not timed")
+    seconds = time.perf_counter() - t0
+    print(f"phase 16 (small head dims): {seconds:.1f} s [{card}]")
+    return ([{**entries[n], "launches": c} for n, c in launches.items()],
+            {"paths": paths, "grad_check": grads, "seconds": seconds})
 
 
 def main() -> int:
@@ -3337,14 +3908,17 @@ def main() -> int:
               f"{row['static_smem_bytes']} bytes static shared memory, "
               f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
               f"stores / loads")
-    require(len(k1_build) == 6 and not any(
+    # K1: f32 at 5 head dims, bf16 wgmma at 64 and 128, bf16 mma.sync at
+    # 8, 16 and 32; K2 and K3: f32 and bf16 (wgmma or mma.sync) at 5 head
+    # dims each; K4: 2 q types x 3 caches x 5 head dims
+    require(len(k1_build) == 10 and not any(
         row["spill_stores"] or row["spill_loads"] for row in k1_build),
         "K1's build log lacks a kernel or reports spills")
-    require(len(bwd_build) == 8 and not any(
+    require(len(bwd_build) == 20 and not any(
         row["spill_stores"] or row["spill_loads"] for row in bwd_build
-        if "bf16" in row["kernel"]),
+        if "f32" not in row["kernel"]),
         "K2/K3's build log lacks a kernel or reports spills in a bf16 kernel")
-    require(len(k4_build) == 18 and not any(
+    require(len(k4_build) == 30 and not any(
         row["spill_stores"] or row["spill_loads"] for row in k4_build),
         "K4's build log lacks a kernel or reports spills")
     dev = torch.device("cuda")
@@ -3376,6 +3950,8 @@ def main() -> int:
     print(json.dumps({"tiers": tiered, "card": card}))
     torch.cuda.empty_cache()
     d32, d32_paths = phase_head_dim_32(dev, card)
+    torch.cuda.empty_cache()
+    small, small_paths = phase_small_head_dims(dev, card)
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]
@@ -3393,7 +3969,7 @@ def main() -> int:
     ring_lse[0]["launches"] = seq2["flash_attention[lse]"]
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
-               + ring_lse + d32)
+               + ring_lse + d32 + small)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": {k: v for k, v in main_path.items()
@@ -3402,6 +3978,7 @@ def main() -> int:
                                      if k != "counts"},
                       "long_context": long_context,
                       "grad_check": grad_check, "head_dim_32": d32_paths,
+                      "small_head_dims": small_paths,
                       "k1_build": k1_build,
                       "bwd_build": bwd_build, "k4_build": k4_build,
                       "card": card}))

@@ -32,11 +32,15 @@
 //   * A warp is cut into lane groups of D*itemsize/16 lanes; a group reads
 //     one slot's K and V row with 16-byte loads (a contiguous row per
 //     group), reduces q.k across its lanes, and folds the slot into its own
-//     online-softmax state (m, l, acc).  Head dims 32, 64 and 128: at 32
-//     a group is 2 (int8), 4 (bf16) or 8 (f32) lanes, so a warp load
-//     round covers 16, 8 or 4 slots, and the span merge's thread groups
-//     over spans are 8 (256 threads over 32 columns).  A stage is UNROLL such slot groups
-//     per warp.  The stream is a register double buffer: stage g + 1's K/V
+//     online-softmax state (m, l, acc).  Head dims 8, 16, 32, 64 and 128:
+//     at 32 a group is 2 (int8), 4 (bf16) or 8 (f32) lanes, so a warp load
+//     round covers 16, 8 or 4 slots; at 16 and 8 a group shrinks to one
+//     lane where a 16-byte load holds the whole row, and an int8 row of
+//     8 bytes (head dim 8) is one 8-byte load (the load is capped at the
+//     row, never padded: padding would multiply a bandwidth-bound read).
+//     The span merge's thread groups over spans are THREADS / D, at most
+//     WARPS (8 at head dims 8-32; the rest of the threads idle in it).  A
+//     stage is UNROLL such slot groups per warp.  The stream is a register double buffer: stage g + 1's K/V
 //     loads (and stage g + 2's mask bytes, on which the K/V loads of the
 //     stage after depend) are issued before stage g's math.  Masked slots
 //     are never loaded.  Two slot groups a stage and two CTAs per SM were
@@ -63,6 +67,8 @@
 //     weighs exactly 0 in the merge; with a single span the CTA writes the
 //     result itself.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 using mmlspark::NEG_INF;
@@ -74,25 +80,36 @@ constexpr int THREADS = WARPS * 32;
 constexpr int UNROLL = 2;      // slot groups per warp in one pipeline stage
 constexpr int MAX_SPANS = 64;  // the wrapper's cap (ops/decode_attention.py)
 
-template <typename CT>
-__device__ __forceinline__ void unpack16(const uint4& raw, float* out) {
-  const CT* x = reinterpret_cast<const CT*>(&raw);
+// The first E elements of a lane's load as floats.
+template <typename CT, int E>
+__device__ __forceinline__ void unpack(const uint4& raw, float* out) {
+  if constexpr (std::is_same<CT, int8_t>::value) {
+    // int8 without the conversion instruction (an eighth of the FMA rate):
+    // x + 128 is the low byte of the f32 2^23 + x + 128, whose high byte
+    // is 0x4B; one byte permute and one exact subtraction per element.
+    const uint32_t words[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                               raw.w ^ 0x80808080u};
 #pragma unroll
-  for (int i = 0; i < int(16 / sizeof(CT)); ++i) out[i] = mmlspark::to_float(x[i]);
+    for (int i = 0; i < E / 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[4 * i + j] = __uint_as_float(__byte_perm(words[i], 0x4B000000u, 0x7540 + j)) - 8388736.f;
+    }
+  } else {
+    const CT* x = reinterpret_cast<const CT*>(&raw);
+#pragma unroll
+    for (int i = 0; i < E; ++i) out[i] = mmlspark::to_float(x[i]);
+  }
 }
 
-// int8 without the conversion instruction (an eighth of the FMA rate):
-// x + 128 is the low byte of the f32 2^23 + x + 128, whose high byte is
-// 0x4B; one byte permute and one exact subtraction per element.
-template <>
-__device__ __forceinline__ void unpack16<int8_t>(const uint4& raw, float* out) {
-  const uint32_t words[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
-                             raw.w ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[4 * i + j] = __uint_as_float(__byte_perm(words[i], 0x4B000000u, 0x7540 + j)) - 8388736.f;
+// A lane's BYTES (16, or 8: an int8 row at head dim 8) of a cache row.
+template <int BYTES>
+__device__ __forceinline__ uint4 load_row(const void* p) {
+  if constexpr (BYTES == 16) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    return make_uint4(r.x, r.y, 0u, 0u);
   }
 }
 
@@ -143,14 +160,14 @@ __device__ __forceinline__ void write_result(const SqaArgs& a, int bh, int t, fl
 
 template <typename QT, typename CT, int D, bool QUANT>
 __global__ void __launch_bounds__(THREADS, 2) sqa_forward(const __grid_constant__ SqaArgs a) {
-  constexpr int E = 16 / sizeof(CT);   // cache elements per 16-byte load
+  constexpr int E = 16 / sizeof(CT) < D ? 16 / sizeof(CT) : D;  // cache elements per load (16 bytes, or a row)
   constexpr int LPK = D / E;           // lanes per slot
   constexpr int KPS = 32 / LPK;        // slots per warp load
   constexpr int ROUND = WARPS * KPS;   // slots per CTA load round
   constexpr int STAGE = ROUND * UNROLL;
-  constexpr int G = THREADS / D;       // span groups of the merge
+  constexpr int G = THREADS / D < WARPS ? THREADS / D : WARPS;  // span groups of the merge
   static_assert(LPK <= 32 && 32 % LPK == 0, "head dim does not fit the lane groups");
-  static_assert(G >= 1 && G <= WARPS, "head dim does not fit the merge");
+  static_assert(G >= 1 && G * D <= THREADS, "head dim does not fit the merge");
   const int h = blockIdx.x, sp = blockIdx.y, b = blockIdx.z;
   const int L = a.L, H = a.H;
   const int bh = b * H + h;
@@ -190,8 +207,8 @@ __global__ void __launch_bounds__(THREADS, 2) sqa_forward(const __grid_constant_
       st.ks[u] = 1.f;
       st.vs[u] = 1.f;
       if (live[u]) {
-        st.k[u] = *reinterpret_cast<const uint4*>(kb + j * stride);
-        st.v[u] = *reinterpret_cast<const uint4*>(vb + j * stride);
+        st.k[u] = load_row<int(E * sizeof(CT))>(kb + j * stride);
+        st.v[u] = load_row<int(E * sizeof(CT))>(vb + j * stride);
         if (QUANT) {
           st.ks[u] = ksb[j * H];
           st.vs[u] = vsb[j * H];
@@ -207,7 +224,7 @@ __global__ void __launch_bounds__(THREADS, 2) sqa_forward(const __grid_constant_
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       float kf[E], vf[E];
-      unpack16<CT>(st.k[u], kf);
+      unpack<CT, E>(st.k[u], kf);
       float part = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) part += qv[e] * kf[e];
@@ -222,7 +239,7 @@ __global__ void __launch_bounds__(THREADS, 2) sqa_forward(const __grid_constant_
       const float corr = mmlspark::masked_exp(m, safe);
       l = l * corr + p;
       const float w = QUANT ? p * st.vs[u] : p;
-      unpack16<CT>(st.v[u], vf);
+      unpack<CT, E>(st.v[u], vf);
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] = acc[e] * corr + w * vf[e];
       m = m_new;
@@ -331,16 +348,18 @@ __global__ void __launch_bounds__(THREADS, 2) sqa_forward(const __grid_constant_
   if (t < n) s_w[t] = mmlspark::masked_exp(m_t, mmlspark::safe_max(M));
   __syncthreads();
   const int col = t % D, grp = t / D;
-  float sum_acc = 0.f, sum_l = 0.f;
+  if (grp < G) {
+    float sum_acc = 0.f, sum_l = 0.f;
 #pragma unroll 4
-  for (int s = grp; s < n; s += G) {
-    const float c = s_w[s];
-    const float* p = parts + size_t(s) * (D + 2);
-    sum_acc += __ldcg(p + col) * c;
-    if (col == 0) sum_l += __ldcg(p + D + 1) * c;
+    for (int s = grp; s < n; s += G) {
+      const float c = s_w[s];
+      const float* p = parts + size_t(s) * (D + 2);
+      sum_acc += __ldcg(p + col) * c;
+      if (col == 0) sum_l += __ldcg(p + D + 1) * c;
+    }
+    w_acc[grp][col] = sum_acc;
+    if (col == 0) w_l[grp] = sum_l;
   }
-  w_acc[grp][col] = sum_acc;
-  if (col == 0) w_l[grp] = sum_l;
   __syncthreads();
   if (t < D) {
     float A = 0.f, Ls = 0.f;
@@ -365,6 +384,8 @@ cudaError_t by_dim(int D, const SqaArgs& a) {
   if (D == 128) return launch<QT, CT, 128, QUANT>(a);
   if (D == 64) return launch<QT, CT, 64, QUANT>(a);
   if (D == 32) return launch<QT, CT, 32, QUANT>(a);
+  if (D == 16) return launch<QT, CT, 16, QUANT>(a);
+  if (D == 8) return launch<QT, CT, 8, QUANT>(a);
   return cudaErrorInvalidValue;
 }
 

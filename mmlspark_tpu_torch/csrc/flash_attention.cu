@@ -12,11 +12,11 @@
 // causal mask (query row i is at q_off + i, key j at k_off + j); a row with
 // no visible key gives zeros.  Any Sq and Sk: ragged tiles are masked here.
 //
-// Bound: tensor-core operations.  At the prefill and training shapes
-// (S >= 1024) attention does O(S^2 D) work on O(S D) bytes, far above the
-// card's ~295 operations-per-byte ridge in bf16, so the kernel is as fast
-// as its two products run and as little as the softmax between them holds
-// them up.
+// Bound: tensor-core operations at bf16, f32 operations at f32.  At the
+// prefill and training shapes (S >= 1024) attention does O(S^2 D) work on
+// O(S D) bytes, far above the card's ~295 operations-per-byte ridge in
+// bf16, so the kernel is as fast as its two products run and as little as
+// the softmax between them holds them up.
 //
 // Design, bf16 (head dim 64 or 128):
 //   * One CTA of two consumer warpgroups (256 threads) owns 128 query rows
@@ -49,45 +49,67 @@
 //   * Epilogue: divide by l (l = 0 gives 0), stage the bf16 rows in the
 //     warpgroup's own Q rows of shared memory and write rows < Sq with
 //     16-byte stores; lse = (m2 + log2 l) * ln 2 with m2 the base-2 max.
-//   * f32: one warp per query row, each lane holding D/32 elements, keys
-//     folded one at a time with the same online-softmax algebra in f32
-//     FMA (no TF32: the f32 path is the precise reference-grade one).
 //
-// Design, bf16 at head dim 32 (`flash_fwd_bf16_mma<32>`).  A 32-column
-// bf16 row is 64 bytes, half the 128-byte swizzle span the TMA boxes and
-// wgmma descriptors above are laid out for, and a 64 x 32 P V product
-// would leave a warpgroup's wgmma mostly idle.  So D = 32 has its own,
-// simpler kernel on warp-level tensor-core products (mma.sync m16n8k16):
+// Design, bf16 at head dims 8, 16 and 32 (`flash_fwd_bf16_mma<D>`).  A
+// row of 8-32 bf16 columns is 16-64 bytes, narrower than the 128-byte
+// swizzle span the TMA boxes and wgmma descriptors above are laid out
+// for, and a 64 x D P V product would leave a warpgroup's wgmma mostly
+// idle.  So these head dims have their own, simpler kernel on warp-level
+// tensor-core products (mma.sync, csrc/mma.cuh):
 //   * one CTA of four warps owns 64 query rows of one (batch, head), 16
 //     per warp, heaviest causal tiles first; 64-key K/V tiles stream
 //     through a 2-stage ring in shared memory by cp.async (16 bytes a
 //     thread, rows past S zero-filled), so tile t + 1 loads while tile t
 //     is computed;
-//   * shared rows are padded to 80 bytes, so the 8 rows an ldmatrix
-//     reads fall in 8 distinct 16-byte bank groups (no conflicts);
+//   * shared rows are 16 (D = 8, unpadded), 48 (D = 16) or 80 (D = 32)
+//     bytes, so the 8 rows an ldmatrix reads fall in 8 distinct 16-byte
+//     bank groups (no conflicts);
 //   * S = Q K^T: Q's A fragments are loaded once (ldmatrix), K's B
 //     fragments by ldmatrix (K rows are the product's columns, d
-//     contiguous); the 16 x 64 f32 scores stay in registers;
+//     contiguous): m16n8k16 steps, and at D = 8 one m16n8k8 step (the
+//     contraction is 8 deep; zero-padding Q and K to 16 columns would
+//     double the shared tiles and the product for nothing); the 16 x 64
+//     f32 scores stay in registers;
 //   * the online softmax is the bf16 kernel's above (base 2, quad
 //     shuffles for the row max, masks only on tiles that straddle the
 //     diagonal or the end of Sk, hidden tiles skipped per warp);
 //   * O += P V: the score accumulators of two neighbouring 8-key columns
 //     are the A fragment of a 16-key step, so P stays in registers; V's
-//     B fragments come from ldmatrix.trans; the 16 x 32 accumulator stays
+//     B fragments come from ldmatrix.trans; the 16 x D accumulator stays
 //     in registers and is written with 4-byte stores after the divide.
-
-#include <climits>
+//
+// Design, f32 (`flash_fwd_f32<D>`, every head dim).  Full f32 on the CUDA
+// cores, no TF32: the f32 path is the precise, reference-grade one (the
+// f32 greedy tokens of the serving paths equal an oracle's).  Bound: f32
+// operations (67 TFLOP/s), so the design keeps the FMA pipes fed from
+// registers rather than from memory:
+//   * one CTA of four warps owns 64 query rows, 16 per warp, heaviest
+//     causal tiles first; Q is staged once and 64-key K/V tiles stream
+//     through a 2-stage cp.async ring in shared memory, read by all 64
+//     rows of the CTA (each K/V byte leaves device memory once a CTA);
+//   * a warp's lanes are 4 row groups x 8 key groups: a thread holds a
+//     4 x 8 register tile of scores (rows rg + 4i, keys kg + 8j) and
+//     builds it from 128-bit shared loads, 128 FMAs for every 12 loads;
+//     rows of Q, K and V are padded by 4 floats, so one access's 4 rows
+//     or 8 keys fall in distinct bank groups at every head dim;
+//   * the online softmax runs once a tile: the scores are scaled to base
+//     2 (one multiply, any sign of the scale), a row's max takes three
+//     shuffles across its 8 key groups, row sums stay per thread until
+//     the end;
+//   * P goes through the warp's own 16 x 64 strip of shared memory (72-
+//     float rows: conflict-free scalar writes, broadcast 128-bit reads),
+//     one __syncwarp, then O += P V with each thread's 4 rows x D/8
+//     columns in registers (V rows read as 128 contiguous bytes a warp).
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "sm90.cuh"
 
 using mmlspark::NEG_INF;
 namespace sm90 = mmlspark::sm90;
+namespace mma = mmlspark::mma;
 
 namespace {
-
-constexpr int WARPS = 4;  // f32 kernel: one query row per warp
-constexpr int THREADS = WARPS * 32;
 
 constexpr int BM = 128;             // bf16: query rows per CTA, 64 per warpgroup
 constexpr int BN = 128;             // bf16: keys per K/V tile
@@ -306,83 +328,22 @@ __global__ void __launch_bounds__(BF16_THREADS, D == 64 ? 2 : 1)  // D = 64: 2 C
   }
 }
 
-// ---- bf16 at head dim 32: warp-level tensor-core products ----------------
+// ---- bf16 at head dims 8, 16 and 32: warp-level tensor-core products ----
 
-constexpr int MMA_BM = 64;      // query rows per CTA, 16 per warp
-constexpr int MMA_BN = 64;      // keys per K/V tile
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int MMA_PITCH = 40;   // bf16 per shared row: 32 + 8 of padding (80 bytes)
-
-// 16 bytes from global to shared memory, asynchronously; `valid` false
-// reads nothing and writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sm90::smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// Wait until at most N committed cp.async groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices: thread t gives the address of row t % 8 of
-// matrix t / 8 and receives, in r[i], row t / 4, columns 2 (t % 4) and
-// 2 (t % 4) + 1 of matrix i (with `trans`, row 2 (t % 4) and 2 (t % 4) + 1,
-// column t / 4).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(sm90::smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(sm90::smem_addr(p)));
-}
-
-// d += A B on one warp: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col), f32
-// accumulators.  Lane t holds d[0], d[1] at row t / 4, columns 2 (t % 4)
-// and + 1, and d[2], d[3] eight rows further down.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [r0, r0 + 64) of one head of a (B, S, H, D) tensor into a padded
-// shared tile, rows at or past S as zeros (all threads of the CTA).
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base, int b, int h, int H,
-                                          int S, int r0) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < MMA_BN * CHUNKS; i += MMA_THREADS) {
-    const int row = i / CHUNKS, c = i % CHUNKS;
-    const int r = r0 + row;
-    const bool ok = r < S;
-    const __nv_bfloat16* src = base + ((size_t(b) * S + (ok ? r : 0)) * H + h) * D + c * 8;
-    cp_async16(dst + row * MMA_PITCH + c * 8, src, ok);
-  }
-}
+constexpr int MMA_BM = mma::ROWS;  // query rows per CTA, 16 per warp
+constexpr int MMA_BN = mma::ROWS;  // keys per K/V tile
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(mma::THREADS)
     flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ lse, int H, int Sq, int Sk, float scale_log2, int causal, int q_off,
                        int k_off) {
-  static_assert(D == 32, "the mma.sync kernel is written for head dim 32");
   constexpr int NT = MMA_BN / 8;  // 8-key score columns per tile
   constexpr int DT = D / 8;       // 8-wide output columns
-  __shared__ __align__(128) __nv_bfloat16 q_tile[MMA_BM * MMA_PITCH];
-  __shared__ __align__(128) __nv_bfloat16 kv_tile[STAGES][2][MMA_BN * MMA_PITCH];
+  constexpr int P = mma::pitch<D>();
+  __shared__ __align__(128) __nv_bfloat16 q_tile[MMA_BM * P];
+  __shared__ __align__(128) __nv_bfloat16 kv_tile[STAGES][2][MMA_BN * P];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
@@ -397,12 +358,12 @@ __global__ void __launch_bounds__(MMA_THREADS)
     n_kt = reach < 0 ? 0 : min(n_kt, reach / MMA_BN + 1);
   }
 
-  load_rows<D>(q_tile, q, b, h, H, Sq, q0);
+  mma::load_rows<D>(q_tile, q, b, h, H, Sq, q0);
   if (n_kt > 0) {
-    load_rows<D>(kv_tile[0][0], k, b, h, H, Sk, 0);
-    load_rows<D>(kv_tile[0][1], v, b, h, H, Sk, 0);
+    mma::load_rows<D>(kv_tile[0][0], k, b, h, H, Sk, 0);
+    mma::load_rows<D>(kv_tile[0][1], v, b, h, H, Sk, 0);
   }
-  cp_async_commit();
+  mma::cp_async_commit();
 
   float o[DT][4];
 #pragma unroll
@@ -411,39 +372,25 @@ __global__ void __launch_bounds__(MMA_THREADS)
     for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running row max of the base-2 scaled scores
   float l[2] = {0.f, 0.f};              // this thread's share of the row sums
-  uint32_t qa[D / 16][4];               // Q's A fragments, one per 16-column step
+  uint32_t qa[mma::Frag<D>::KS][4];     // Q's A fragments
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int stage = kt % STAGES;
     if (kt + 1 < n_kt) {
       // the other stage was released by the barrier that ended tile kt - 1
-      load_rows<D>(kv_tile[1 - stage][0], k, b, h, H, Sk, (kt + 1) * MMA_BN);
-      load_rows<D>(kv_tile[1 - stage][1], v, b, h, H, Sk, (kt + 1) * MMA_BN);
+      mma::load_rows<D>(kv_tile[1 - stage][0], k, b, h, H, Sk, (kt + 1) * MMA_BN);
+      mma::load_rows<D>(kv_tile[1 - stage][1], v, b, h, H, Sk, (kt + 1) * MMA_BN);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
     __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        ldmatrix_x4(qa[ks], q_tile + (warp * 16 + lane % 16) * MMA_PITCH + ks * 16 + (lane / 16) * 8);
-    }
+    if (kt == 0) mma::load_a<D>(qa, q_tile + warp * 16 * P, lane);
     const int k0 = kt * MMA_BN;
     // a tile wholly above the diagonal for this warp's rows adds nothing
     const bool hidden = causal && k_off + k0 > q_off + wq0 + 15;
     if (!hidden) {
-      const __nv_bfloat16* kt_s = kv_tile[stage][0];
-      const __nv_bfloat16* vt_s = kv_tile[stage][1];
       float s[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t kb[4];  // d columns 0-7, 8-15, 16-23, 24-31 of keys nt*8 .. nt*8+7
-        ldmatrix_x4(kb, kt_s + (nt * 8 + lane % 8) * MMA_PITCH + (lane / 8) * 8);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-        mma_16816(s[nt], qa[0], kb[0], kb[1]);
-        mma_16816(s[nt], qa[1], kb[2], kb[3]);
-      }
+      mma::score_tile<D>(s, qa, kv_tile[stage][0], lane);
 
       // mask only a tile that straddles the diagonal or the end of Sk
       const bool full = k0 + MMA_BN <= Sk && (!causal || k_off + k0 + MMA_BN - 1 <= q_off + wq0);
@@ -489,22 +436,11 @@ __global__ void __launch_bounds__(MMA_THREADS)
           l[r] += p0 + p1;
           p[nt][r] = pack_bf16(p0, p1);
         }
-
-#pragma unroll
-      for (int ks = 0; ks < MMA_BN / 16; ++ks) {
-        const uint32_t pa[4] = {p[2 * ks][0], p[2 * ks][1], p[2 * ks + 1][0], p[2 * ks + 1][1]};
-#pragma unroll
-        for (int np = 0; np < DT / 2; ++np) {
-          uint32_t vb[4];  // keys 16ks .. +7 / +8 .. +15 of d columns 16np .. +7, then 16np+8 .. +15
-          ldmatrix_x4_trans(vb, vt_s + (16 * ks + lane % 16) * MMA_PITCH + 16 * np + (lane / 16) * 8);
-          mma_16816(o[2 * np], pa, vb[0], vb[1]);
-          mma_16816(o[2 * np + 1], pa, vb[2], vb[3]);
-        }
-      }
+      mma::accumulate_tile<D>(o, p, kv_tile[stage][1], lane);  // O += P V
     }
     __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
   }
-  cp_async_wait<0>();
+  mma::cp_async_wait<0>();
 
   float inv[2];
 #pragma unroll
@@ -526,49 +462,247 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                  float* __restrict__ out, float* __restrict__ lse, int B, int H, int Sq, int Sk, float scale,
-                  int causal, int q_off, int k_off) {
-  constexpr int E = D / 32;
-  const int row = int(blockIdx.x) * WARPS + int(threadIdx.x) / 32;  // (b, h, qi), qi fastest
-  const int lane = threadIdx.x % 32;
-  if (row >= B * H * Sq) return;  // whole warps leave together
-  const int qi = row % Sq;
-  const int bh = row / Sq;
-  const int b = bh / H, h = bh % H;
-  const size_t stride = size_t(H) * D;
-  const size_t col = size_t(h) * D + size_t(lane) * E;
+// ---- f32: register tiles on the CUDA cores --------------------------------
 
-  float qv[E], acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    qv[e] = q[(size_t(b) * Sq + qi) * stride + col + e] * scale;
-    acc[e] = 0.f;
+constexpr int F32_BM = 64;   // query rows per CTA, 16 per warp
+constexpr int F32_BN = 64;   // keys per K/V tile
+constexpr int F32_THREADS = 128;
+constexpr int F32_PP = 72;   // floats per row of a warp's P strip
+
+// Shared memory of the f32 kernel, in floats: Q, STAGES x (K, V), then each
+// warp's 16 x 64 strip of P.  Rows of Q, K, V are padded by 4 floats, so
+// the rows one 128-bit access reads (4 query rows, or 8 keys) start in
+// distinct 16-byte bank groups at every D; P's 72-float rows put a warp's
+// 4 rows of one access in 4 distinct groups and its 32 scalar writes in 32
+// distinct banks.
+template <int D>
+struct F32Smem {
+  static constexpr int PITCH = D + 4;
+  static constexpr int Q = F32_BM * PITCH;
+  static constexpr int KV = F32_BN * PITCH;
+  static constexpr int P = F32_BM * F32_PP;
+  static constexpr size_t BYTES = size_t(Q + STAGES * 2 * KV + P) * sizeof(float);
+};
+
+// Rows [r0, r0 + 64) of head h of a (B, S, H, D) f32 tensor into a padded
+// shared tile, rows at or past S as zeros (all threads of the CTA).
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* base, int b, int h, int H, int S, int r0) {
+  constexpr int CHUNKS = D / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < F32_BN * CHUNKS; i += F32_THREADS) {
+    const int row = i / CHUNKS, c = i % CHUNKS;
+    const int r = r0 + row;
+    const bool ok = r < S;
+    mma::cp_async16(dst + row * F32Smem<D>::PITCH + c * 4,
+                    base + ((size_t(b) * S + (ok ? r : 0)) * H + h) * D + c * 4, ok);
   }
-  const float* kp = k + size_t(b) * Sk * stride + col;
-  const float* vp = v + size_t(b) * Sk * stride + col;
-  float m = NEG_INF, l = 0.f;
-  // keys j with k_off + j <= q_off + qi are visible under the causal mask
-  const int n_keys = causal ? max(0, min(Sk, q_off + qi - k_off + 1)) : Sk;
-  for (int j = 0; j < n_keys; ++j) {
-    float part = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) part += qv[e] * kp[size_t(j) * stride + e];
-    const float s = mmlspark::warp_sum(part);
-    const float m_new = fmaxf(m, s);
-    const float p = expf(s - m_new);
-    const float corr = mmlspark::masked_exp(m, m_new);
-    l = l * corr + p;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] = acc[e] * corr + p * vp[size_t(j) * stride + e];
-    m = m_new;
+}
+
+// Output column n (of D / 8) of thread group kg: runs of 4 columns 32
+// apart from D = 32 up (a warp's 8 groups read 128 contiguous bytes of a
+// V row), else kg's own D / 8 columns.
+template <int D>
+__device__ __forceinline__ int f32_col(int kg, int n) {
+  return D >= 32 ? (n / 4) * 32 + kg * 4 + n % 4 : kg * (D / 8) + n;
+}
+
+// The launch bound names a minimum of one CTA per SM: without it ptxas
+// held the kernel to 128 registers and spilled at D = 32; with it the
+// kernel takes 130 (D = 32) to 242 (D = 128) registers and no spill, and
+// shared memory still admits 2-3 CTAs per SM up to D = 64.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk, float scale_log2,
+                  int causal, int q_off, int k_off) {
+  using L = F32Smem<D>;
+  constexpr int PITCH = L::PITCH;
+  constexpr int CW = D / 8;  // output columns per thread
+  extern __shared__ float4 f32_smem[];
+  float* q_tile = reinterpret_cast<float*>(f32_smem);
+  float* ring = q_tile + L::Q;                             // STAGES x (K, V)
+  float* p_strip = ring + STAGES * 2 * L::KV + (threadIdx.x / 32) * 16 * F32_PP;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, kg = lane % 8;  // rows rg + 4 i of the warp's 16; keys kg + 8 j of a tile
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * F32_BM;  // heaviest causal tiles first
+  const int wq0 = q0 + warp * 16;
+
+  const int last_row = min(q0 + F32_BM, Sq) - 1;
+  int n_kt = (Sk + F32_BN - 1) / F32_BN;
+  if (causal) {
+    const int reach = q_off + last_row - k_off;
+    n_kt = reach < 0 ? 0 : min(n_kt, reach / F32_BN + 1);
   }
-  const float l_safe = l == 0.f ? 1.f : l;
+
+  load_rows_f32<D>(q_tile, q, b, h, H, Sq, q0);
+  if (n_kt > 0) {
+    load_rows_f32<D>(ring, k, b, h, H, Sk, 0);
+    load_rows_f32<D>(ring + L::KV, v, b, h, H, Sk, 0);
+  }
+  mma::cp_async_commit();
+
+  float o[4][CW];
 #pragma unroll
-  for (int e = 0; e < E; ++e) out[(size_t(b) * Sq + qi) * stride + col + e] = acc[e] / l_safe;
-  if (lse != nullptr && lane == 0) lse[(size_t(b) * Sq + qi) * H + h] = l == 0.f ? NEG_INF : m + logf(l);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < CW; ++n) o[i][n] = 0.f;
+  float m[4], l[4];  // running base-2 row max; this thread's share of the row sums
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  const float* q_rows = q_tile + (warp * 16 + rg) * PITCH;  // row i at + 4 i * PITCH
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int stage = kt % STAGES;
+    if (kt + 1 < n_kt) {
+      // the other stage was released by the barrier that ended tile kt - 1
+      float* next = ring + (1 - stage) * 2 * L::KV;
+      load_rows_f32<D>(next, k, b, h, H, Sk, (kt + 1) * F32_BN);
+      load_rows_f32<D>(next + L::KV, v, b, h, H, Sk, (kt + 1) * F32_BN);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    __syncthreads();
+    const int k0 = kt * F32_BN;
+    // a tile wholly above the diagonal for this warp's rows adds nothing
+    const bool hidden = causal && k_off + k0 > q_off + wq0 + 15;
+    if (!hidden) {
+      const float* k_tile = ring + stage * 2 * L::KV;
+      const float* v_tile = k_tile + L::KV;
+      // S: 4 rows x 8 keys a thread, 4 columns of d a step
+      float s[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        float4 qv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(q_rows + 4 * i * PITCH + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(k_tile + (kg + 8 * j) * PITCH + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          }
+        }
+      }
+
+      // base-2 scaled scores (any sign of the scale); mask only a tile
+      // that straddles the diagonal or the end of Sk
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] *= scale_log2;
+      const bool full = k0 + F32_BN <= Sk && (!causal || k_off + k0 + F32_BN - 1 <= q_off + wq0);
+      if (!full) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int key = k0 + kg + 8 * j;
+            if (key >= Sk || (causal && k_off + key > q_off + wq0 + rg + 4 * i)) s[i][j] = -INFINITY;
+          }
+      }
+
+      // the online softmax once a tile: a row's 64 scores lie in the 8
+      // lanes of its group, so its max takes three shuffles
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = s[i][0];
+#pragma unroll
+        for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m[i], mx);
+        const float base = m_new == -INFINITY ? 0.f : m_new;  // a row that sees nothing yet stays at zero weight
+        const float corr = ex2(m[i] - base);
+        m[i] = m_new;
+        l[i] *= corr;
+#pragma unroll
+        for (int n = 0; n < CW; ++n) o[i][n] *= corr;
+        float* p_row = p_strip + (rg + 4 * i) * F32_PP + kg;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p = ex2(s[i][j] - base);
+          l[i] += p;
+          p_row[8 * j] = p;
+        }
+      }
+      __syncwarp();  // the warp's P strip is whole
+
+      // O += P V: each thread's 4 rows over all 64 keys, its D / 8 columns
+      const float* p_rows = p_strip + rg * F32_PP;  // row i at + 4 i * F32_PP
+#pragma unroll 2
+      for (int kk = 0; kk < F32_BN; kk += 4) {
+        float4 pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(p_rows + 4 * i * F32_PP + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* v_row = v_tile + (kk + e) * PITCH;
+          float vv[CW];
+          if constexpr (CW >= 4) {
+#pragma unroll
+            for (int c = 0; c < CW / 4; ++c) {
+              const float4 x = *reinterpret_cast<const float4*>(v_row + 32 * c + kg * 4);
+              vv[4 * c] = x.x;
+              vv[4 * c + 1] = x.y;
+              vv[4 * c + 2] = x.z;
+              vv[4 * c + 3] = x.w;
+            }
+          } else if constexpr (CW == 2) {
+            const float2 x = *reinterpret_cast<const float2*>(v_row + kg * 2);
+            vv[0] = x.x;
+            vv[1] = x.y;
+          } else {
+            vv[0] = v_row[kg];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+            for (int n = 0; n < CW; ++n) o[i][n] = fmaf(p, vv[n], o[i][n]);
+          }
+        }
+      }
+      __syncwarp();  // P is read before the next tile writes it
+    }
+    __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+    const int qi = wq0 + rg + 4 * i;
+    if (qi >= Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* dst = out + ((size_t(b) * Sq + qi) * H + h) * D;
+    if constexpr (CW >= 4) {
+#pragma unroll
+      for (int c = 0; c < CW / 4; ++c)
+        *reinterpret_cast<float4*>(dst + f32_col<D>(kg, 4 * c)) =
+            make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv, o[i][4 * c + 2] * inv, o[i][4 * c + 3] * inv);
+    } else {
+#pragma unroll
+      for (int n = 0; n < CW; ++n) dst[f32_col<D>(kg, n)] = o[i][n] * inv;
+    }
+    if (lse != nullptr && kg == 0)
+      lse[(size_t(b) * Sq + qi) * H + h] = l[i] == 0.f ? NEG_INF : (m[i] + log2f(l[i])) * LN2;
+  }
 }
 
 template <int D>
@@ -597,7 +731,7 @@ template <int D>
 cudaError_t launch_bf16_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
                             int Sq, int Sk, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + MMA_BM - 1) / MMA_BM);
-  flash_fwd_bf16_mma<D><<<grid, MMA_THREADS, 0, stream>>>(
+  flash_fwd_bf16_mma<D><<<grid, mma::THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, H, Sq, Sk,
       scale * 1.4426950408889634f, causal, q_off, k_off);
@@ -607,21 +741,21 @@ cudaError_t launch_bf16_mma(const void* q, const void* k, const void* v, void* o
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H, int Sq,
                        int Sk, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
-  // the kernel indexes rows in 32 bits (a 64-bit division there is a
-  // subroutine call that spills at D = 32)
-  const long long rows = (long long)B * H * Sq;
-  if (rows + WARPS > INT_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = unsigned((rows + WARPS - 1) / WARPS);
-  flash_fwd_f32<D><<<blocks, THREADS, 0, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                   static_cast<const float*>(v), static_cast<float*>(out), lse, B,
-                                                   H, Sq, Sk, scale, causal, q_off, k_off);
+  using L = F32Smem<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::BYTES));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + F32_BM - 1) / F32_BM);
+  flash_fwd_f32<D><<<grid, F32_THREADS, L::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, H, Sq, Sk, scale * 1.4426950408889634f, causal, q_off, k_off);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out 16-byte aligned: TMA, or
-// cp.async at D = 32); D is 32, 64 or 128.
+// dtype: 0 = float32, 1 = bfloat16 (then scale > 0); q, k, v, out 16-byte
+// aligned (TMA at bf16 D >= 64, else cp.async); D is 8, 16, 32, 64 or 128.
 // `lse` may be null (no log-sum-exp output).  Returns the cudaError_t of the launch.
 extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                                       int H, int Sq, int Sk, int D, float scale, int causal, int q_off, int k_off,
@@ -629,14 +763,26 @@ extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (B == 0 || H == 0 || Sq == 0) return cudaSuccess;
-  // the bf16 kernel folds the scale into its base-2 running max
-  if (dtype == 1 && !(scale > 0.f)) return cudaErrorInvalidValue;
-  if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  if (dtype == 0 && D == 128) return launch_f32<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  if (dtype == 1 && D == 32)
-    return launch_bf16_mma<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  if (dtype == 0 && D == 64) return launch_f32<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  if (dtype == 0 && D == 32) return launch_f32<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+  if (dtype == 1) {
+    if (!(scale > 0.f)) return cudaErrorInvalidValue;  // folded into the base-2 running max
+    switch (D) {
+      case 128: return launch_bf16<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 64: return launch_bf16<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 32: return launch_bf16_mma<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 16: return launch_bf16_mma<16>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 8: return launch_bf16_mma<8>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == 0) {
+    switch (D) {
+      case 128: return launch_f32<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 64: return launch_f32<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 32: return launch_f32<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 16: return launch_f32<16>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 8: return launch_f32<8>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   return cudaErrorInvalidValue;
 }

@@ -22,7 +22,7 @@
 // ridge in bf16.  So the kernels are as fast as their products run, and as
 // little as the elementwise step and the loads between them hold them up.
 //
-// Design, bf16 (head dim 64 or 128), on csrc/sm90.cuh as K1:
+// Design, bf16 at head dim 64 or 128, on csrc/sm90.cuh as K1:
 //   * One CTA of two consumer warpgroups (256 threads) owns 128 rows, 64
 //     per warpgroup: query rows in K2 (heaviest causal tile first), key
 //     rows in K3 (key tile 0, which sees the most queries, first).  Its
@@ -54,20 +54,50 @@
 //     at D = 128).
 //   * Epilogue: scale once, stage the bf16 rows in the warpgroup's own
 //     (no longer read) rows of an owned tile, 16-byte stores of rows < S.
-//   * f32: one warp per output row (a query row for K2, a key row for K3),
-//     each lane holding D/32 elements, the other side folded one row at a
-//     time in f32 FMA (no TF32: the f32 path is the precise reference-grade
-//     one).
+//
+// Design, bf16 at head dims 8, 16 and 32 (`flash_bwd_dq_mma<D>`,
+// `flash_bwd_dkv_mma<D>`).  A row of 16-64 bytes does not fill the
+// wgmma kernels' 64-column TMA boxes, so these head dims get a pair on
+// warp-level tensor-core products (mma.sync, csrc/mma.cuh), modelled on
+// K1's D <= 32 kernel:
+//   * one CTA of four warps owns 64 rows (queries in K2, heaviest causal
+//     tile first; keys in K3, key tile 0 first), 16 a warp, staged once
+//     by cp.async with their partner (dO in K2, V in K3) and held as A
+//     fragments in registers; the other side's 64-row tiles stream
+//     through a 2-stage cp.async ring (K3's stage also carries the tile's
+//     64 exp2 bases and deltas, stored by plain loads a tile ahead);
+//   * the two score-shaped products (S and dP in K2, S^T and dP^T in K3)
+//     are m16n8k16 steps (one m16n8k8 at D = 8) with the walked tile's
+//     rows as the product's columns, so in both kernels the accumulator's
+//     rows are the rows the warp owns;
+//   * P = exp2(S scale log2 e - lse log2 e) and dS = P (dP - delta) in
+//     registers, masked to exact zeros only on tiles that straddle the
+//     diagonal (or K2's ragged end of Sk); P and dS, rounded to bf16 pairs,
+//     are the A fragments of the gradient products as they lie (dQ += dS K
+//     in K2; dV += P^T dO and dK += dS^T Q in K3), whose B fragments come
+//     from the very tile by ldmatrix.trans;
+//   * one writer per output row, no atomics; 4-byte stores after the scale.
+//
+// Design, f32: one lane group per output row (a query row for K2, a key
+// row for K3): all 32 lanes of a warp from head dim 32 up, each holding
+// D/32 elements, else D lanes holding one element each (32/D rows a
+// warp, reduced by shuffles masked to the group); the other side folded
+// one row at a time in f32 FMA (no TF32: the f32 path is the precise
+// reference-grade one).
+
+#include <climits>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "sm90.cuh"
 
 using mmlspark::NEG_INF;
 namespace sm90 = mmlspark::sm90;
+namespace mma = mmlspark::mma;
 
 namespace {
 
-constexpr int WARPS = 4;  // f32 kernels: one output row per warp
+constexpr int WARPS = 4;  // f32 kernels: one output row per lane group
 constexpr int THREADS = WARPS * 32;
 
 using bf16 = __nv_bfloat16;
@@ -468,21 +498,267 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   store_rows<D>(dv, v_tile, wg, k0, Sk, b, h, H);
 }
 
+// ---- bf16 at head dims 8, 16 and 32: warp-level tensor-core products ----
+
+// K2 at D <= 32: one CTA of four warps per 64 query rows of one (batch,
+// head), 16 rows a warp, walking 64-key tiles.
+template <int D>
+__global__ void __launch_bounds__(mma::THREADS)
+    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Sk, float scale,
+                     int causal, int q_off, int k_off) {
+  constexpr int P = mma::pitch<D>();
+  constexpr int R = mma::ROWS;
+  __shared__ __align__(128) bf16 q_tile[R * P], do_tile[R * P];
+  __shared__ __align__(128) bf16 kv_tile[STAGES][2][R * P];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;  // rows g, g + 8; columns 2 tig (+1)
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * R;  // heaviest causal tiles first
+  const int wq0 = q0 + warp * 16;
+
+  const int last_row = min(q0 + R, Sq) - 1;
+  int n_kt = (Sk + R - 1) / R;
+  if (causal) {
+    const int reach = q_off + last_row - k_off;
+    n_kt = reach < 0 ? 0 : min(n_kt, reach / R + 1);
+  }
+
+  mma::load_rows<D>(q_tile, q, b, h, H, Sq, q0);
+  mma::load_rows<D>(do_tile, dout, b, h, H, Sq, q0);
+  if (n_kt > 0) {
+    mma::load_rows<D>(kv_tile[0][0], k, b, h, H, Sk, 0);
+    mma::load_rows<D>(kv_tile[0][1], v, b, h, H, Sk, 0);
+  }
+  mma::cp_async_commit();
+
+  float base[2], dl[2];  // rows g and g + 8: exp2 base and delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    fetch_stats(lse, delta, b, h, H, Sq, wq0 + g + 8 * r, base[r], dl[r]);
+    base[r] = exp2_base(base[r]);
+  }
+  const float scale_log2 = scale * LOG2E;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  uint32_t qa[mma::Frag<D>::KS][4], da[mma::Frag<D>::KS][4];  // Q's and dO's A fragments
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int stage = kt % STAGES;
+    if (kt + 1 < n_kt) {
+      // the other stage was released by the barrier that ended tile kt - 1
+      mma::load_rows<D>(kv_tile[1 - stage][0], k, b, h, H, Sk, (kt + 1) * R);
+      mma::load_rows<D>(kv_tile[1 - stage][1], v, b, h, H, Sk, (kt + 1) * R);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    __syncthreads();
+    if (kt == 0) {
+      mma::load_a<D>(qa, q_tile + warp * 16 * P, lane);
+      mma::load_a<D>(da, do_tile + warp * 16 * P, lane);
+    }
+    const int k0 = kt * R;
+    // a tile wholly above the diagonal for this warp's rows adds nothing
+    const bool hidden = causal && k_off + k0 > q_off + wq0 + 15;
+    if (!hidden) {
+      float s[8][4], dp[8][4];
+      mma::score_tile<D>(s, qa, kv_tile[stage][0], lane);   // S = Q K^T
+      mma::score_tile<D>(dp, da, kv_tile[stage][1], lane);  // dP = dO V^T
+      const bool whole = k0 + R <= Sk && (!causal || k_off + k0 + R - 1 <= q_off + wq0);
+      uint32_t ds[8][2];  // dS as bf16 pairs: the A operand of dS K
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[e] = sm90::ex2(fmaf(s[nt][2 * r + e], scale_log2, -base[r]));
+            const int key = k0 + nt * 8 + 2 * tig + e;
+            // mask only a tile that straddles the diagonal or the end of Sk
+            if (!whole && (key >= Sk || (causal && k_off + key > q_off + wq0 + g + 8 * r))) p[e] = 0.f;
+          }
+          ds[nt][r] = sm90::pack_bf16(p[0] * (dp[nt][2 * r] - dl[r]), p[1] * (dp[nt][2 * r + 1] - dl[r]));
+        }
+      mma::accumulate_tile<D>(acc, ds, kv_tile[stage][0], lane);  // dQ += dS K
+    }
+    __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq0 + g + 8 * r;
+    if (qi >= Sq) continue;
+    bf16* dst = dq + ((size_t(b) * Sq + qi) * H + h) * D + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = sm90::pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+  }
+}
+
+// K3 at D <= 32: one CTA of four warps per 64 key rows of one (batch,
+// head), 16 rows a warp, walking 64-query tiles; each ring stage also
+// holds its tile's 64 exp2 bases and deltas.
+template <int D>
+__global__ void __launch_bounds__(mma::THREADS)
+    flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                      int Sq, int Sk, float scale, int causal, int q_off, int k_off) {
+  constexpr int P = mma::pitch<D>();
+  constexpr int R = mma::ROWS;
+  __shared__ __align__(128) bf16 k_tile[R * P], v_tile[R * P];
+  __shared__ __align__(128) bf16 qd_tile[STAGES][2][R * P];
+  __shared__ __align__(16) float st_base[STAGES][R], st_delta[STAGES][R];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;  // key rows g, g + 8; query columns 2 tig (+1)
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = int(blockIdx.y) * R;  // key tile 0 walks the most query tiles under the causal mask
+  const int wk0 = k0 + warp * 16;
+
+  const int n_qt = (Sq + R - 1) / R;
+  int qt0 = 0;
+  if (causal) {
+    // the first query tile holding a row at or past the CTA's first key
+    const int reach = k_off + k0 - q_off;
+    qt0 = reach <= 0 ? 0 : min(n_qt, reach / R);
+  }
+  const int n_it = n_qt - qt0;
+
+  // query tile qt into ring stage `stage`: Q and dO by cp.async, the
+  // statistics by plain loads and stores (threads 0-63)
+  auto stage_tile = [&](int stage, int qt) {
+    mma::load_rows<D>(qd_tile[stage][0], q, b, h, H, Sq, qt * R);
+    mma::load_rows<D>(qd_tile[stage][1], dout, b, h, H, Sq, qt * R);
+    if (tid < R) {
+      float l, d;
+      fetch_stats(lse, delta, b, h, H, Sq, qt * R + tid, l, d);
+      st_base[stage][tid] = exp2_base(l);
+      st_delta[stage][tid] = d;
+    }
+  };
+  mma::load_rows<D>(k_tile, k, b, h, H, Sk, k0);
+  mma::load_rows<D>(v_tile, v, b, h, H, Sk, k0);
+  if (n_it > 0) stage_tile(0, qt0);
+  mma::cp_async_commit();
+
+  const float scale_log2 = scale * LOG2E;
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[j][i] = dva[j][i] = 0.f;
+  uint32_t ka[mma::Frag<D>::KS][4], va[mma::Frag<D>::KS][4];  // K's and V's A fragments
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it % STAGES;
+    // the other stage was released by the barrier that ended tile it - 1
+    if (it + 1 < n_it) stage_tile(1 - stage, qt0 + it + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile it + 1 has landed
+    __syncthreads();
+    if (it == 0) {
+      mma::load_a<D>(ka, k_tile + warp * 16 * P, lane);
+      mma::load_a<D>(va, v_tile + warp * 16 * P, lane);
+    }
+    const int q0 = (qt0 + it) * R;
+    // a tile whose every query precedes this warp's keys adds nothing
+    const bool hidden = causal && q_off + q0 + R - 1 < k_off + wk0;
+    if (!hidden) {
+      float s[8][4], dp[8][4];
+      mma::score_tile<D>(s, ka, qd_tile[stage][0], lane);   // S^T = K Q^T
+      mma::score_tile<D>(dp, va, qd_tile[stage][1], lane);  // dP^T = V dO^T
+      // mask only a tile that straddles the diagonal: entry (nt, 2 r + e)
+      // is key wk0 + g + 8 r against query q0 + 8 nt + 2 tig + e
+      const bool whole = !causal || q_off + q0 >= k_off + wk0 + 15;
+      uint32_t pa[8][2], dsa[8][2];  // P^T and dS^T as bf16 pairs: the A operands
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(&st_base[stage][nt * 8 + 2 * tig]);
+        const float2 dd = *reinterpret_cast<const float2*>(&st_delta[stage][nt * 8 + 2 * tig]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[e] = sm90::ex2(fmaf(s[nt][2 * r + e], scale_log2, e ? -bb.y : -bb.x));
+            const int query = q0 + nt * 8 + 2 * tig + e;
+            if (!whole && k_off + wk0 + g + 8 * r > q_off + query) p[e] = 0.f;
+          }
+          pa[nt][r] = sm90::pack_bf16(p[0], p[1]);
+          dsa[nt][r] = sm90::pack_bf16(p[0] * (dp[nt][2 * r] - dd.x), p[1] * (dp[nt][2 * r + 1] - dd.y));
+        }
+      }
+      mma::accumulate_tile<D>(dva, pa, qd_tile[stage][1], lane);   // dV += P^T dO
+      mma::accumulate_tile<D>(dka, dsa, qd_tile[stage][0], lane);  // dK += dS^T Q
+    }
+    __syncthreads();  // tile it's stage is free for the load of tile it + 2
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = wk0 + g + 8 * r;
+    if (kj >= Sk) continue;
+    const size_t at = ((size_t(b) * Sk + kj) * H + h) * D + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) = sm90::pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) = sm90::pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+}
+
+// ---- f32: FMA kernels, one lane group per output row ----------------------
+
+// A row of D elements is held by LANES lanes (all 32 from D = 32 up, else
+// D of them: a warp then holds 32 / D rows), E elements a lane; the group
+// reduces over its own lanes with a mask of just those lanes, so groups of
+// one warp may walk different numbers of keys.
+template <int D>
+struct RowGroup {
+  static constexpr int LANES = D < 32 ? D : 32;
+  static constexpr int E = D / LANES;
+  static constexpr int ROWS = 32 / LANES;  // rows a warp
+
+  __device__ static unsigned mask(int lane) {
+    return LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u) << (lane / LANES * LANES);
+  }
+
+  __device__ static float sum(float x, unsigned m) {
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1) x += __shfl_xor_sync(m, x, off);
+    return x;
+  }
+};
+
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const float* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dq, int B, int H, int Sq, int Sk,
                      float scale, int causal, int q_off, int k_off) {
-  constexpr int E = D / 32;
-  const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;  // (b, h, qi), qi fastest
+  using G = RowGroup<D>;
+  constexpr int E = G::E;
   const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * H * Sq) return;  // whole warps leave together
-  const int qi = int(row % Sq);
-  const int bh = int(row / Sq);
+  // (b, h, qi), qi fastest
+  // 32-bit row index (the launcher checks that B * H * Sq fits): a 64-bit
+  // divide is a subroutine call that makes ptxas spill
+  const int row = (int(blockIdx.x) * WARPS + int(threadIdx.x) / 32) * G::ROWS + lane / G::LANES;
+  if (row >= B * H * Sq) return;  // whole lane groups leave together
+  const unsigned gm = G::mask(lane);
+  const int qi = row % Sq;
+  const int bh = row / Sq;
   const int b = bh / H, h = bh % H;
   const size_t stride = size_t(H) * D;
-  const size_t col = size_t(h) * D + size_t(lane) * E;
+  const size_t col = size_t(h) * D + size_t(lane % G::LANES) * E;
   const size_t at = (size_t(b) * Sq + qi) * H + h;
   const float l = lse[at], dl = delta[at];
 
@@ -504,8 +780,8 @@ __global__ void __launch_bounds__(THREADS)
       s_part += qv[e] * kp[size_t(j) * stride + e];
       dp_part += dov[e] * vp[size_t(j) * stride + e];
     }
-    const float p = expf(mmlspark::warp_sum(s_part) - l);
-    const float ds = p * (mmlspark::warp_sum(dp_part) - dl);
+    const float p = expf(G::sum(s_part, gm) - l);
+    const float ds = p * (G::sum(dp_part, gm) - dl);
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] += ds * kp[size_t(j) * stride + e];
   }
@@ -519,15 +795,20 @@ __global__ void __launch_bounds__(THREADS)
                       const float* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int B,
                       int H, int Sq, int Sk, float scale, int causal, int q_off, int k_off) {
-  constexpr int E = D / 32;
-  const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;  // (b, h, kj), kj fastest
+  using G = RowGroup<D>;
+  constexpr int E = G::E;
   const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * H * Sk) return;  // whole warps leave together
-  const int kj = int(row % Sk);
-  const int bh = int(row / Sk);
+  // (b, h, kj), kj fastest
+  // 32-bit row index (the launcher checks that B * H * Sk fits): a 64-bit
+  // divide is a subroutine call that makes ptxas spill
+  const int row = (int(blockIdx.x) * WARPS + int(threadIdx.x) / 32) * G::ROWS + lane / G::LANES;
+  if (row >= B * H * Sk) return;  // whole lane groups leave together
+  const unsigned gm = G::mask(lane);
+  const int kj = row % Sk;
+  const int bh = row / Sk;
   const int b = bh / H, h = bh % H;
   const size_t stride = size_t(H) * D;
-  const size_t col = size_t(h) * D + size_t(lane) * E;
+  const size_t col = size_t(h) * D + size_t(lane % G::LANES) * E;
 
   float kv[E], vv[E], dk_acc[E], dv_acc[E];
 #pragma unroll
@@ -544,15 +825,15 @@ __global__ void __launch_bounds__(THREADS)
   for (int qi = q_start; qi < Sq; ++qi) {
     const size_t at = (size_t(b) * Sq + qi) * H + h;
     const float l = lse[at];
-    if (l == NEG_INF) continue;  // uniform across the warp
+    if (l == NEG_INF) continue;  // uniform across the lane group
     float s_part = 0.f, dp_part = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       s_part += qp[size_t(qi) * stride + e] * scale * kv[e];
       dp_part += dop[size_t(qi) * stride + e] * vv[e];
     }
-    const float p = expf(mmlspark::warp_sum(s_part) - l);
-    const float ds = p * (mmlspark::warp_sum(dp_part) - delta[at]);
+    const float p = expf(G::sum(s_part, gm) - l);
+    const float ds = p * (G::sum(dp_part, gm) - delta[at]);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       dv_acc[e] += p * dop[size_t(qi) * stride + e];
@@ -623,8 +904,22 @@ template <int D>
 cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* delta, void* dq, int B, int H, int Sq, int Sk, float scale, int causal,
                       int q_off, int k_off, cudaStream_t stream) {
-  if (dtype == 1) return launch_dq_bf16<D>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
-  const unsigned blocks = unsigned(((long long)B * H * Sq + WARPS - 1) / WARPS);
+  if (dtype == 1) {
+    if constexpr (D >= 64) {
+      return launch_dq_bf16<D>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
+    } else {
+      const dim3 grid(B * H, (Sq + mma::ROWS - 1) / mma::ROWS);
+      flash_bwd_dq_mma<D><<<grid, mma::THREADS, 0, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, scale, causal, q_off,
+          k_off);
+      return cudaGetLastError();
+    }
+  }
+  constexpr int rows = WARPS * RowGroup<D>::ROWS;  // output rows a block
+  const long long total = (long long)B * H * Sq;
+  if (total + rows > INT_MAX) return cudaErrorInvalidValue;
+  const unsigned blocks = unsigned((total + rows - 1) / rows);
   flash_bwd_dq_f32<D><<<blocks, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), B, H, Sq, Sk, scale, causal, q_off,
@@ -636,9 +931,23 @@ template <int D>
 cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int H, int Sq, int Sk, float scale,
                        int causal, int q_off, int k_off, cudaStream_t stream) {
-  if (dtype == 1)
-    return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
-  const unsigned blocks = unsigned(((long long)B * H * Sk + WARPS - 1) / WARPS);
+  if (dtype == 1) {
+    if constexpr (D >= 64) {
+      return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off,
+                                stream);
+    } else {
+      const dim3 grid(B * H, (Sk + mma::ROWS - 1) / mma::ROWS);
+      flash_bwd_dkv_mma<D><<<grid, mma::THREADS, 0, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk,
+          scale, causal, q_off, k_off);
+      return cudaGetLastError();
+    }
+  }
+  constexpr int rows = WARPS * RowGroup<D>::ROWS;  // output rows a block
+  const long long total = (long long)B * H * Sk;
+  if (total + rows > INT_MAX) return cudaErrorInvalidValue;
+  const unsigned blocks = unsigned((total + rows - 1) / rows);
   flash_bwd_dkv_f32<D><<<blocks, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), B, H, Sq,
@@ -649,8 +958,9 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v, c
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients; at
-// bf16 q, k, v, dout 16-byte aligned: TMA); lse and delta are f32
-// (B, Sq, H).  Each returns the cudaError_t of its launch.
+// bf16 q, k, v, dout 16-byte aligned: TMA at D >= 64, cp.async below);
+// D is 8, 16, 32, 64 or 128; lse and delta are f32 (B, Sq, H).  Each
+// returns the cudaError_t of its launch.
 extern "C" int mmlspark_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                      const void* lse, const void* delta, void* dq, int B, int H, int Sq, int Sk,
                                      int D, float scale, int causal, int q_off, int k_off, int dtype,
@@ -660,9 +970,14 @@ extern "C" int mmlspark_flash_bwd_dq(const void* q, const void* k, const void* v
   const float* dl = static_cast<const float*>(delta);
   if (B == 0 || H == 0 || Sq == 0) return cudaSuccess;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  if (D == 128) return launch_dq<128>(dtype, q, k, v, dout, l, dl, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  if (D == 64) return launch_dq<64>(dtype, q, k, v, dout, l, dl, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 128: return launch_dq<128>(dtype, q, k, v, dout, l, dl, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 64: return launch_dq<64>(dtype, q, k, v, dout, l, dl, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 32: return launch_dq<32>(dtype, q, k, v, dout, l, dl, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 16: return launch_dq<16>(dtype, q, k, v, dout, l, dl, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 8: return launch_dq<8>(dtype, q, k, v, dout, l, dl, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int mmlspark_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -674,9 +989,12 @@ extern "C" int mmlspark_flash_bwd_dkv(const void* q, const void* k, const void* 
   const float* dl = static_cast<const float*>(delta);
   if (B == 0 || H == 0 || Sk == 0) return cudaSuccess;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  if (D == 128)
-    return launch_dkv<128>(dtype, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  if (D == 64)
-    return launch_dkv<64>(dtype, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 128: return launch_dkv<128>(dtype, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 64: return launch_dkv<64>(dtype, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 32: return launch_dkv<32>(dtype, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 16: return launch_dkv<16>(dtype, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    case 8: return launch_dkv<8>(dtype, q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -14,7 +14,9 @@ the model dtype; caches
 dequant scales (B, L, H); per-row visibility (B, L) bool; (B, H, D) f32
 out.  K's scale multiplies the score after QK^T and V's folds into the
 softmax weight before PV, so the read streams only the int8 bytes.  A row
-whose every slot is masked returns zeros, like the Pallas kernel.
+whose every slot is masked returns zeros, like the Pallas kernel.  Head
+dims 8, 16, 32, 64 and 128; any other head dim on a CUDA tensor raises
+ValueError naming the set, before any launch.
 
 The kernel cuts the window into spans, one CTA per (row, head, span),
 and merges the spans' online-softmax triples in the same launch: the CTA
@@ -46,7 +48,7 @@ CTAS_PER_SM = 2   # the kernel's occupancy (__launch_bounds__(256, 2))
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def _span_plan(length: int, rows_x_heads: int, sm_count: int) -> tuple:
@@ -107,6 +109,8 @@ def _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale) -> None:
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError("q must be (B, H, D) and caches (B, L, H, D)")
     b, h, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
     l = k_cache.shape[1]
     if k_cache.shape != (b, l, h, d) or v_cache.shape != k_cache.shape:
         raise ValueError(
@@ -120,8 +124,6 @@ def _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale) -> None:
     if k_cache.dtype not in _CACHE_DTYPES or v_cache.dtype != k_cache.dtype:
         raise ValueError(f"cache dtypes {k_cache.dtype}/{v_cache.dtype} not "
                          f"one of {list(_CACHE_DTYPES)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
     if l < 1:
         raise ValueError("the cache window holds no slot")
     quantized = k_cache.dtype == torch.int8
@@ -161,10 +163,10 @@ def _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
             stats: bool):
     """Run the kernel on the current stream: the normalized (B, H, D) out,
     or with `stats` the (acc, m, l) triple."""
+    _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"single-query attention kernel: unsupported "
                          f"device {q.device}")
-    _check_inputs(q, k_cache, v_cache, visible, k_scale, v_scale)
     b, h, d = q.shape
     l = k_cache.shape[1]
     dev = q.device

@@ -10,8 +10,10 @@ The kernels replace the Pallas kernels of
   * K2 `_dq_kernel` (:318) and K3 `_dkv_kernel` (:330) of
     `_flash_backward`: `csrc/flash_backward.cu`.
 
-Head dims: K1 takes 32, 64 and 128; K2 and K3 take 64 and 128 and raise
-at 32 (ROADMAP queue B).  Semantics are the JAX kernels': inputs
+Head dims: K1, K2 and K3 take 8, 16, 32, 64 and 128, at f32 and bf16
+(bf16 at 64 and 128: wgmma + TMA; bf16 at 8-32: mma.sync; f32: CUDA-core
+FMA); any other head dim on a CUDA tensor raises ValueError naming the
+set, before any launch.  Semantics are the JAX kernels': inputs
 (B, S, H, D), causal or not, f32 softmax statistics, scale D^-0.5 by
 default, outputs in the input dtype.
 The log-sum-exp `lse` and the backward's `delta = rowsum(dO * O)` are f32
@@ -45,8 +47,7 @@ from mmlspark_tpu_torch.ops.attention import NEG_INF
 
 # dtype codes of the C entry points
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)        # K1 (bf16 at 32: its mma.sync kernel)
-_BACKWARD_HEAD_DIMS = (64, 128)   # K2, K3
+_HEAD_DIMS = (8, 16, 32, 64, 128)   # K1, K2, K3
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -119,11 +120,15 @@ def flash_block_grads_plain(q, k, v, do, lse, delta, causal: bool,
 # ---------------------------------------------------------------------------
 
 def _check_inputs(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes (B, S, H, D) tensors")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(
+            f"flash attention kernels take head dim {_HEAD_DIMS}, got "
+            f"{q.shape[-1]}")
     if q.device.type != "cuda":
         raise ValueError(f"flash attention kernels: unsupported device "
                          f"{q.device}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash attention takes (B, S, H, D) tensors")
     if k.shape != v.shape or k.shape[0] != q.shape[0] or \
             k.shape[2:] != q.shape[2:]:
         raise ValueError(
@@ -133,10 +138,6 @@ def _check_inputs(q, k, v) -> None:
         raise ValueError(
             f"flash attention kernels take float32 or bfloat16 q/k/v of one "
             f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(
-            f"flash attention kernels take head dim {_HEAD_DIMS}, got "
-            f"{q.shape[-1]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash attention kernels take contiguous tensors")
     if k.device != q.device or v.device != q.device:
@@ -160,13 +161,7 @@ def _check_stats(q, do, lse, delta) -> None:
 
 def _check_backward(q, k, v, do, lse, delta) -> None:
     """K2 and K3's inputs; at bf16 the kernels read q, k, v and dout
-    through TMA.  Head dim 32 is K1's only: K2 and K3 have no instance
-    for it yet."""
-    if q.shape[-1] not in _BACKWARD_HEAD_DIMS:
-        raise ValueError(
-            f"flash backward kernels (K2, K3) take head dim "
-            f"{_BACKWARD_HEAD_DIMS}, got {q.shape[-1]}: head dim 32 is "
-            f"ROADMAP queue B's open row 'K2/K3 at head dim 32'")
+    through TMA (head dims 64, 128) or cp.async (8-32)."""
     _check_inputs(q, k, v)
     _check_stats(q, do, lse, delta)
     if q.dtype == torch.bfloat16:
@@ -174,8 +169,9 @@ def _check_backward(q, k, v, do, lse, delta) -> None:
 
 
 def _check_aligned(**tensors) -> None:
-    """The bf16 kernels read their inputs through TMA, which takes
-    16-byte-aligned tensors only: raise for any other."""
+    """The kernels read their inputs through TMA or cp.async, 16 bytes at
+    a time, which take 16-byte-aligned tensors only: raise for any
+    other."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"flash attention kernel: {name} is not "
@@ -183,14 +179,15 @@ def _check_aligned(**tensors) -> None:
 
 
 def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
-    """Launch K1 on the current stream: (out, lse or None).  The bf16
-    kernel reads q, k, v through TMA, which takes 16-byte-aligned tensors
-    only, and folds a positive scale into its base-2 softmax."""
+    """Launch K1 on the current stream: (out, lse or None).  Every K1
+    kernel reads q, k, v 16 bytes at a time (TMA or cp.async), which takes
+    16-byte-aligned tensors only; the bf16 kernels fold a positive scale
+    into their base-2 softmax."""
     _check_inputs(q, k, v)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
+    _check_aligned(q=q, k=k, v=v, out=out)
     if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v, out=out)
         if not scale > 0:
             raise ValueError(f"flash attention kernel: bf16 takes a "
                              f"positive scale, got {scale}")

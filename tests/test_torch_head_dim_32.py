@@ -1,17 +1,20 @@
 """Head dim 32 in the port's attention kernels, on the CPU.
 
-K1 / K1[lse] and K4 / K4[stats] have head-dim-32 instances on the card
-(tests/test_torch_package.py holds them against their plain versions
-there); here the plain versions those kernels are held to are held, at
-head dim 32, against the JAX package's Pallas kernels run in interpret
-mode on the same numpy inputs, at the edges of the card kernels' tiles
-(64 query rows and 64 keys for bf16 K1; K4's 2-, 4- and 8-lane slot
-groups).  K2 and K3 have no head-dim-32 instance yet: their wrappers
-refuse one naming the ROADMAP row.
+K1 / K1[lse], K2 / K3 and K4 / K4[stats] have head-dim-32 instances on
+the card (tests/test_torch_package.py holds them against their plain
+versions there); here the plain versions those kernels are held to are
+held, at head dim 32, against the JAX package's Pallas kernels run in
+interpret mode on the same numpy inputs, at the edges of the card
+kernels' tiles (64 query rows and 64 keys for bf16 K1, K2 and K3; K4's
+2-, 4- and 8-lane slot groups).  A head dim that no kernel takes (24,
+256) is refused before any launch, naming the supported set.  Head dims
+8 and 16 are in tests/test_torch_head_dims.py.
 
 Tolerances are those of the head-dim-64/128 cases
-(tests/test_torch_attention.py): f32 differs in summation order only
-(2e-5); a bf16 output is one bf16 rounding apart at most (2e-2).
+(tests/test_torch_attention.py, tests/test_torch_flash_backward.py): f32
+differs in summation order only (2e-5; 1e-4 absolute for block
+gradients, whose entries reach |x| ~ 10); a bf16 output is one bf16
+rounding apart at most (2e-2).
 """
 
 import jax
@@ -23,6 +26,7 @@ import torch
 from mmlspark_tpu.ops.decode_attention import (
     fused_single_query_attention as jax_fused,
     fused_single_query_attention_stats as jax_fused_stats)
+from mmlspark_tpu.ops.flash_attention import _flash_backward
 from mmlspark_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
     flash_attention_with_lse as jax_flash_attention_with_lse)
@@ -46,7 +50,12 @@ jax_flash_attention_with_lse = jax.jit(
 jax_fused = jax.jit(jax_fused, static_argnames=("block_k", "interpret"))
 jax_fused_stats = jax.jit(jax_fused_stats,
                           static_argnames=("block_k", "interpret"))
+# positional (q, k, v, do, lse, delta, causal, scale, block_q, block_k,
+# interpret, q_offset, k_offset): static from `causal` to `interpret`, the
+# offsets traced (one program per causal flag)
+jax_flash_backward = jax.jit(_flash_backward, static_argnums=(6, 7, 8, 9, 10))
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=1e-5, atol=1e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 # (B, Sq, Sk, causal, q_offset, k_offset): a row and a key past a 64-row
@@ -166,19 +175,74 @@ def test_decode_stats_at_head_dim_32_matches_jax(cache):
     assert torch.count_nonzero(acc[-1]) == 0
 
 
-def test_backward_kernels_refuse_head_dim_32_naming_the_roadmap_row():
-    """K2 and K3 (and the pair) raise at head dim 32 on any tensor that is
-    not on the CPU — here `meta` tensors — before touching a kernel; on
-    CPU tensors the plain version computes the gradients as before."""
-    shape = (1, 64, 2, D)
+# (causal, q_offset, k_offset): one 64-block diagonal, a q/k shift, rows
+# that see no key
+GRAD_CASES = [(True, 0, 0), (True, 64, 0), (False, 0, 0), (True, 0, 40)]
+
+
+def block_grad_inputs(d, seed, b=2, sq=128, sk=128, h=4):
+    """q, k, v, dout and the forward's lse and delta (the port's plain
+    forward) at head dim d, from numpy."""
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((b, sq, h, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, sk, h, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("causal,q_off,k_off", GRAD_CASES)
+def test_block_grads_at_head_dim_32_match_jax_backward(causal, q_off, k_off):
+    """K2 and K3's function (`flash_block_grads`, the plain version on CPU
+    tensors) against the JAX `_flash_backward`, whose dQ and dK/dV Pallas
+    kernels run in interpret mode, from the same lse and delta."""
+    q, k, v, do = block_grad_inputs(D, seed=q_off + k_off + causal)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = flash_attention_with_lse(tq, tk, tv, causal, None, q_off,
+                                        k_off)
+    delta = (tdo * out).sum(-1)
+    scale = D ** -0.5
+    got = flash_block_grads(tq, tk, tv, tdo, lse, delta, causal, scale,
+                            q_off, k_off)
+    ref = jax_flash_backward(*(jnp.asarray(x) for x in (q, k, v, do)),
+                             jnp.asarray(lse.numpy()),
+                             jnp.asarray(delta.numpy()), causal, scale, 64,
+                             64, True, q_off, k_off)
+    for g, r in zip(got, ref):
+        assert g.shape == (2, 128, 4, D)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **GRAD_TOL)
+    if k_off > q_off:
+        assert torch.count_nonzero(got[0][:, :k_off - q_off]) == 0
+
+
+@pytest.mark.parametrize("d", [24, 256])
+def test_kernels_refuse_an_unsupported_head_dim_naming_the_set(d):
+    """Every kernel wrapper raises ValueError naming the head dims it
+    takes, on any tensor that is not on the CPU (here `meta` tensors),
+    before a launch is counted; on CPU tensors the plain versions take
+    any head dim as before."""
+    shape = (1, 64, 2, d)
     q, k, v, do = (torch.empty(shape, device="meta") for _ in range(4))
     lse, delta = (torch.empty((1, 64, 2), device="meta") for _ in range(2))
-    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    for fn in (flash_bwd_dq, flash_bwd_dkv, flash_block_grads):
-        with pytest.raises(ValueError, match="ROADMAP queue B"):
-            fn(q, k, v, do, lse, delta, True, D ** -0.5)
-    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+    cache = torch.empty((1, 64, 2, d), device="meta")
+    visible = torch.empty((1, 64), dtype=torch.bool, device="meta")
+    counted = (flash_attention, flash_attention_with_lse, flash_bwd_dq,
+               flash_bwd_dkv, fused_single_query_attention,
+               fused_single_query_attention_stats)
+    before = [fn.launches for fn in counted]
+    calls = [lambda: flash_attention(q, k, v, causal=True),
+             lambda: flash_attention_with_lse(q, k, v, True),
+             lambda: flash_block_grads(q, k, v, do, lse, delta, True, 0.1)]
+    calls += [lambda fn=fn: fn(q, k, v, do, lse, delta, True, 0.1)
+              for fn in (flash_bwd_dq, flash_bwd_dkv)]
+    calls += [lambda fn=fn: fn(q[:, 0], cache, cache, visible)
+              for fn in (fused_single_query_attention,
+                         fused_single_query_attention_stats)]
+    for call in calls:
+        with pytest.raises(ValueError, match=r"\(8, 16, 32, 64, 128\)"):
+            call()
+    assert [fn.launches for fn in counted] == before
     cpu = [torch.randn(shape) for _ in range(4)]
     stats = [torch.zeros((1, 64, 2)) for _ in range(2)]
-    dq = flash_bwd_dq(*cpu, *stats, True, D ** -0.5)
+    dq = flash_bwd_dq(*cpu, *stats, True, d ** -0.5)
     assert dq.shape == shape and torch.isfinite(dq).all()

@@ -538,17 +538,14 @@ D32_FLASH = [(2, 1024, 1024, True, 0, 0), (2, 1000, 1000, False, 0, 0),
              (2, 512, 512, True, 0, 200)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", D32_FLASH)
-def test_flash_kernels_at_head_dim_32(cuda, b, sq, sk, causal, q_off, k_off,
-                                      dtype):
-    """K1 (without offsets) and K1[lse] at head dim 32 against plain: out
+def _check_flash_kernels(cuda, d, b, sq, sk, causal, q_off, k_off, dtype):
+    """K1 (without offsets) and K1[lse] at head dim d against plain: out
     within the D64/D128 cases' limits, lse within 1e-3 (bf16) / 1e-4; a
-    second call bitwise equal to the first."""
-    gen = torch.Generator(device=cuda).manual_seed(sq + sk + k_off)
-    q = torch.randn((b, sq, 8, 32), generator=gen, device=cuda).to(dtype)
-    k, v = (torch.randn((b, sk, 8, 32), generator=gen, device=cuda).to(dtype)
+    second call bitwise equal to the first; K1 equal to K1[lse]'s out;
+    rows that see no key exactly zero with lse NEG_INF."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + k_off + d % 32)
+    q = torch.randn((b, sq, 8, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, 8, d), generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     before = (flash_attention.launches, flash_attention_with_lse.launches)
@@ -576,26 +573,34 @@ def test_flash_kernels_at_head_dim_32(cuda, b, sq, sk, causal, q_off, k_off,
         int(no_lse is not None), 2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", D32_FLASH)
+def test_flash_kernels_at_head_dim_32(cuda, b, sq, sk, causal, q_off, k_off,
+                                      dtype):
+    """K1 and K1[lse] at head dim 32 against plain (`_check_flash_kernels`)."""
+    _check_flash_kernels(cuda, 32, b, sq, sk, causal, q_off, k_off, dtype)
+
+
 # K4 and K4[stats] at head dim 32: the serving window of a 16-row batch
 # (the chip's timed shape), one span below a slot step, a span boundary,
 # and the long window at the span cap.  (B, L)
 D32_DECODE = [(16, 1088), (2, 37), (1, 65), (2, 8448)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cache,q_dtype", [
-    ("bfloat16", "bfloat16"), ("float32", "float32"), ("int8", "bfloat16"),
-    ("int8", "float32")])
-@pytest.mark.parametrize("b,window", D32_DECODE)
-def test_decode_kernels_at_head_dim_32(cuda, b, window, cache, q_dtype):
-    """K4 within 2e-3 of plain and K4[stats] within the stats limits, at
-    head dim 32 with the engine's mask layout and a fully masked last row;
-    a second call bitwise equal."""
-    gen = torch.Generator(device=cuda).manual_seed(window + b)
-    q = torch.randn((b, 8, 32), generator=gen, device=cuda).to(
+DECODE_CACHES = [("bfloat16", "bfloat16"), ("float32", "float32"),
+                 ("int8", "bfloat16"), ("int8", "float32")]
+
+
+def _check_decode_kernels(cuda, d, b, window, cache, q_dtype):
+    """K4 within 2e-3 of plain and K4[stats] within the stats limits at
+    head dim d, with the engine's mask layout and a fully masked last row;
+    a second call bitwise equal; launches counted once each."""
+    gen = torch.Generator(device=cuda).manual_seed(window + b + d % 32)
+    q = torch.randn((b, 8, d), generator=gen, device=cuda).to(
         getattr(torch, q_dtype))
     kv_dtype = torch.float32 if cache == "float32" else torch.bfloat16
-    k, v = (torch.randn((b, window, 8, 32), generator=gen, device=cuda)
+    k, v = (torch.randn((b, window, 8, d), generator=gen, device=cuda)
             .to(kv_dtype) for _ in range(2))
     bucket = max(1, window - 64)
     true_len = torch.randint(1, bucket + 1, (b,), generator=gen, device=cuda)
@@ -623,6 +628,15 @@ def test_decode_kernels_at_head_dim_32(cuda, b, window, cache, q_dtype):
         q, k, v, visible, **kw))
     if b > 1:
         assert torch.count_nonzero(out[-1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,q_dtype", DECODE_CACHES)
+@pytest.mark.parametrize("b,window", D32_DECODE)
+def test_decode_kernels_at_head_dim_32(cuda, b, window, cache, q_dtype):
+    """K4 and K4[stats] at head dim 32 against plain
+    (`_check_decode_kernels`)."""
+    _check_decode_kernels(cuda, 32, b, window, cache, q_dtype)
 
 
 @pytest.mark.cuda
@@ -749,6 +763,149 @@ def test_flash_autograd_matches_plain_autograd(cuda, dtype):
         do.detach())
     for a, b in zip(got, ref):
         _assert_grad_close(a, b, dtype)
+
+
+# ------------------------------------------- head dims 8 and 16 -------
+
+SMALL_HEAD_DIMS = [8, 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", D32_FLASH)
+@pytest.mark.parametrize("d", SMALL_HEAD_DIMS)
+def test_flash_kernels_at_small_head_dims(cuda, d, b, sq, sk, causal, q_off,
+                                          k_off, dtype):
+    """K1 and K1[lse] at head dims 8 and 16 (bf16: the mma.sync kernel,
+    m16n8k8 at 8; f32: the register-tiled kernel) at the head-dim-32
+    cases' tile edges and limits (`_check_flash_kernels`)."""
+    _check_flash_kernels(cuda, d, b, sq, sk, causal, q_off, k_off, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", [
+    (2, 129, 129, True, 0, 0), (2, 1, 640, True, 500, 0),
+    (2, 300, 37, False, 0, 0), (2, 512, 512, True, 0, 200)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_flash_kernel_at_wide_head_dims(cuda, d, b, sq, sk, causal,
+                                            q_off, k_off):
+    """The register-tiled f32 K1 at head dims 64 and 128 (its largest
+    shared tiles and register micro-tiles) at the tile edges: out within
+    1e-4 of plain, lse within 1e-4, rows that see no key exactly zero."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, 8, d), generator=gen, device=cuda)
+    k, v = (torch.randn((b, sk, 8, d), generator=gen, device=cuda)
+            for _ in range(2))
+    out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off, k_off)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, causal, None,
+                                                      q_off, k_off)
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    if k_off > q_off:
+        assert torch.count_nonzero(out[:, :k_off - q_off]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,q_dtype", DECODE_CACHES)
+@pytest.mark.parametrize("b,window", D32_DECODE)
+@pytest.mark.parametrize("d", SMALL_HEAD_DIMS)
+def test_decode_kernels_at_small_head_dims(cuda, d, b, window, cache,
+                                           q_dtype):
+    """K4 and K4[stats] at head dims 8 and 16 (one-lane slot groups; at 8
+    an int8 row is one 8-byte load; the span merge's groups capped at the
+    warps) against plain (`_check_decode_kernels`)."""
+    _check_decode_kernels(cuda, d, b, window, cache, q_dtype)
+
+
+# K2 and K3 at head dims 8, 16 and 32 (bf16: the mma.sync pair; f32: lane
+# groups of D lanes): the training shape's causal diagonal, non-causal
+# ragged sides, offsets with rows that see no key, and the edges of the
+# 64-row owned and walked tiles.  (B, Sq, Sk, causal, q_offset, k_offset)
+SMALL_BACKWARD = [(2, 512, 512, True, 0, 0), (2, 768, 1280, False, 0, 0),
+                  (2, 512, 512, True, 512, 256), (2, 256, 256, True, 0, 100),
+                  (2, 129, 129, True, 0, 0), (2, 1, 640, True, 500, 0),
+                  (2, 300, 37, False, 0, 0), (3, 200, 200, True, 0, 0),
+                  (2, 64, 64, True, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", SMALL_BACKWARD)
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_flash_backward_kernels_at_small_head_dims(cuda, d, b, sq, sk,
+                                                   causal, q_off, k_off,
+                                                   dtype):
+    """K2 and K3 at head dims 8, 16 and 32 against plain with the
+    head-dim-64/128 gradient limits; a second launch bitwise equal (one
+    writer per output, no atomics)."""
+    q, k, v, do, lse, delta = _backward_inputs(cuda, b, sq, sk, causal,
+                                               q_off, k_off, dtype, d)
+    scale = d ** -0.5
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, q_off, k_off)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_off,
+                           k_off)
+    dq2 = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, q_off, k_off)
+    dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_off,
+                             k_off)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 2, before[1] + 2)
+    refs = flash_block_grads_plain(q, k, v, do, lse, delta, causal, scale,
+                                   q_off, k_off)
+    for got, again, ref in zip((dq, dk, dv), (dq2, dk2, dv2), refs):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.equal(got, again)
+        _assert_grad_close(got, ref, dtype)
+    if k_off > q_off:
+        assert torch.count_nonzero(dq[:, :k_off - q_off]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_flash_autograd_at_small_head_dims(cuda, d, dtype):
+    """`torch.autograd.grad` through `flash_attention` at head dims 8-32:
+    K1[lse] forward, K2 + K3 backward, each launched once, against plain
+    autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do = (torch.randn((2, 1000, 8, d), generator=gen, device=cuda)
+                   .to(dtype).requires_grad_() for _ in range(4))
+    before = (flash_attention_with_lse.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=True),
+                              (q, k, v), do.detach())
+    torch.cuda.synchronize()
+    assert (flash_attention_with_lse.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref = torch.autograd.grad(
+        flash_attention_with_lse_plain(q, k, v, causal=True)[0], (q, k, v),
+        do.detach())
+    for a, b in zip(got, ref):
+        _assert_grad_close(a, b, dtype)
+
+
+@pytest.mark.cuda
+def test_small_head_dim_kernels_refuse_misaligned_tensors(cuda):
+    """The cp.async kernels (K1 at every dtype below head dim 64 and at
+    f32, K2/K3 bf16 below 64) read 16 bytes at a time: a view 4 bytes into
+    its storage raises ValueError, and no kernel launches."""
+    shape = (2, 64, 8, 16)
+    n = int(np.prod(shape))
+    for dtype in (torch.float32, torch.bfloat16):
+        good = torch.randn(shape, device=cuda).to(dtype)
+        offset = 4 // good.element_size()
+        bad = torch.zeros(n + 16, dtype=dtype, device=cuda)[offset:n + offset]
+        bad = bad.view(shape)
+        assert bad.data_ptr() % 16 == 4
+        before = (flash_attention.launches, flash_attention_with_lse.launches)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention(bad, good, good, causal=True)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_with_lse(good, bad, good, True)
+        assert (flash_attention.launches,
+                flash_attention_with_lse.launches) == before
 
 
 # ------------------------------------------------ serving on the card ---
