@@ -12,12 +12,13 @@ tiers, and times kernels and paths.
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --ab TAG [--tree DIR]` runs only the host-bound
-serving phases, for a parent-against-change comparison: `ab_main`.)
+serving phases, for a parent-against-change comparison, and with `--bwd`
+only the f32 K2/K3 times at every head dim: `ab_main`.)
 
 Phases (any failure exits non-zero before the result line):
   1. card (nvidia-smi name and power limit) and kernel build; K1's, K2's,
      K3's and K4's `-Xptxas -v` lines (registers, shared memory, spills: a
-     spill in any K1 or K4 kernel, or in a bf16 K2/K3 kernel, fails)
+     spill in any of the 60 kernels fails)
   2. flash-attention forward K1 vs plain: causal bf16 at S in {512, 1024,
      1984}, one non-causal case, one f32 case
   3. K1 with its log-sum-exp output and q/k offsets vs plain: causal bf16
@@ -25,7 +26,7 @@ Phases (any failure exits non-zero before the result line):
      masked rows), one f32 case; out and lse compared
   4. flash backward K2 (dQ) and K3 (dK/dV) vs plain: causal bf16 at S in
      {512, 2048, 1000, 129}, non-causal Sq 768 / Sk 1280, offsets, head
-     dim 64 at S 2048, f32; a second launch at S 2048 bitwise equal to the
+     dim 64 at S 2048, f32 at head dims 128 and 64; a second launch at S 2048 bitwise equal to the
      first; `torch.autograd.grad` through `flash_attention` vs plain
      autograd; K2 and K3 timed with their TFLOP/s, ratio to the library
      pair and share of the bound
@@ -62,7 +63,8 @@ Phases (any failure exits non-zero before the result line):
      K4[stats] and K1[lse] launch counts exact; prefill ms and decode
      ms/step of both engines
  11. f32 gradient check: every parameter's gradient with the flash
-     kernels against the dense-attention model, TF32 off
+     kernels against the dense-attention model, TF32 off; K1[lse], K2, K3
+     launched once a layer
  12. the online serving engine (`start_engine` + `start_http` ->
      `ServingEngine.submit` -> `_tick` -> the DecodeEngine serve hooks)
      at the width of phase 6: the phase-6 prompts, a mid-flight join and
@@ -119,6 +121,12 @@ Phases (any failure exits non-zero before the result line):
      and f32; every count exact, and every phase-16 row of the kernels
      line takes its launches from these paths; f32 gradient checks at 8,
      16, 32
+ 17. the f32 training kernels at head dims 64 and 128: K2 and K3 at (8,
+     2048, 8, d) causal against plain (a second launch bitwise equal) and
+     K1[lse] on the same inputs, timed beside their bounds, plain versions
+     and library calls (`aten._efficient_attention_backward` /
+     `_forward`); the f32 gradient check at the long-context width (head
+     dim 64); the rows' launches from that check (64) and phase 11's (128)
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -568,7 +576,8 @@ def phase_backward(dev, card) -> list:
              (2, 512, 512, True, 512, 256, torch.bfloat16, 128),
              (2, 129, 129, True, 0, 0, torch.bfloat16, 128),
              (2, 2048, 2048, True, 0, 0, torch.bfloat16, 64),
-             (2, 700, 700, True, 0, 0, torch.float32, 128)]
+             (2, 700, 700, True, 0, 0, torch.float32, 128),
+             (2, 1000, 1000, True, 0, 0, torch.float32, 64)]
     errs = {"dq": 0.0, "dkv": 0.0}
     for b, sq, sk, causal, q_off, k_off, dtype, d in cases:
         scale = d ** -0.5
@@ -1478,8 +1487,9 @@ def flash_grad_check(dev, card, config: dict, seq: int, seed: int) -> dict:
     """f32 gradients of every parameter of a `config` model through the
     flash kernels (K1[lse], K2, K3) against the dense-attention model, on
     one (2, seq) batch of the example corpus, TF32 off: loss within 1e-4,
-    every gradient within 1e-3 of its largest entry.  Returns the
-    errors."""
+    every gradient within 1e-3 of its largest entry; K1[lse], K2 and K3
+    each launched once a layer, counted from 0 around the flash model's
+    forward and backward.  Returns the errors and those launches."""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.train.trainer import make_loss
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1494,9 +1504,13 @@ def flash_grad_check(dev, card, config: dict, seq: int, seed: int) -> dict:
         module = ModelBundle("TransformerLM", {
             **config, "dtype": "float32", "attn_impl": impl},
             init.variables).module(dev).train()
+        torch.cuda.synchronize()
+        reset_counts()
         loss = loss_fn(module(x), y, torch.ones(2, device=dev))
         loss.backward()
         torch.cuda.synchronize()
+        if impl == "flash":
+            launched = read_counts()
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad for n, p in module.named_parameters()}
         del module, loss
@@ -1515,10 +1529,17 @@ def flash_grad_check(dev, card, config: dict, seq: int, seed: int) -> dict:
     require(loss_diff <= 1e-4, f"f32 loss differs at head dim {head_dim}")
     require(worst <= 1e-3, f"f32 gradient of {worst_name} differs at head "
             f"dim {head_dim}")
+    counts = {"K1[lse]": launched["flash_attention[lse]"],
+              "K2": launched["flash_bwd_dq"], "K3": launched["flash_bwd_dkv"]}
+    print(f"f32 gradient check at head dim {head_dim}: launches {counts} = "
+          f"{config['n_layers']} layers x 1 step [{card}]")
+    require(set(counts.values()) == {config["n_layers"]},
+            f"f32 gradient check at head dim {head_dim}: launches {counts}, "
+            f"want {config['n_layers']} each")
     del grads
     torch.cuda.empty_cache()
     return {"loss_diff": loss_diff, "worst_param": worst_name,
-            "worst_rel_err": worst}
+            "worst_rel_err": worst, "launches": counts}
 
 
 # the repo's serving bench arm (bench.py bench_serve arms 1 and 2, not cut)
@@ -2840,6 +2861,9 @@ def phase_tiered(dev, card, benches: bool = True) -> dict:
     if benches:
         out["disagg_arm"] = bench_disagg(dev, card)
         out["interference"] = bench_interference(dev, card)
+        require(out["interference"]["passed"],
+                f"interference: p99 ratio {out['interference']['p99_ratio']:.3f}"
+                f" under the drill's {INTERFERENCE['min_p99_ratio']}")
     return out
 
 
@@ -2932,9 +2956,12 @@ def bench_disagg(dev, card) -> dict:
 
 # the disagg drill's interference scenario at the width of phase 6: 3
 # victims decoding while 6 long prompts arrive (a 1000-token prompt is
-# bucket 1024: two 512-token chunks, K1 at chunk 0)
+# bucket 1024: two 512-token chunks, K1 at chunk 0).  A victim's tokens
+# arrive a segment (4) at a time, so a timed pass gives 3 x 12 = 36 gaps,
+# whose p99 is their largest: the gate pools 8 passes an arm (~280 gaps)
 INTERFERENCE = dict(victims=3, victim_len=20, victim_new=48, burst=6,
-                    burst_len=1000, burst_new=4, seg=4, min_p99_ratio=1.2)
+                    burst_len=1000, burst_new=4, seg=4, passes=8,
+                    min_p99_ratio=1.2)
 
 
 def bench_interference(dev, card) -> dict:
@@ -2943,11 +2970,12 @@ def bench_interference(dev, card) -> dict:
     decoding them (each replica's `_tick` timed; a gap is the engine
     time between two of a victim's token arrivals over the tokens that
     arrived), colocated (3 replicas) against tiered (2 prefill + 1
-    decode), the second of two passes each.  Gates: every request exact
-    against the offline engine in both arms, the decode tier saw no
-    prefill and seated every request remotely, and the p99 ratio at the
+    decode), the gaps of `passes` timed passes pooled after a warm one.
+    Gates: every request of every pass exact against the offline engine
+    in both arms, the decode tier saw no prefill and seated every request
+    remotely.  Returns the p99 ratio with `passed`: the ratio at the
     drill's 1.2 or more (the drill test leaves this timing key to the
-    card)."""
+    card; the caller holds the run to it)."""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.models.generate import (ServingWeights,
                                                     bucket_length)
@@ -3010,9 +3038,16 @@ def bench_interference(dev, card) -> dict:
             return vs + bs, gaps
 
         run_pass()
-        reqs, gaps = run_pass()
+        passes, gaps, extra_s = [], [], 0.0
+        for i in range(c["passes"]):
+            t0 = time.perf_counter()
+            reqs, pass_gaps = run_pass()
+            if i:
+                extra_s += time.perf_counter() - t0
+            passes.append(reqs)
+            gaps += pass_gaps
         decode = [rep for rep in router.replicas if rep.role == "decode"]
-        out = {"reqs": reqs, "gaps": gaps,
+        out = {"passes": passes, "gaps": gaps, "extra_s": extra_s,
                "p99_ms": float(np.percentile(np.asarray(gaps), 99)) * 1e3,
                "p50_ms": float(np.percentile(np.asarray(gaps), 50)) * 1e3,
                "decode_tier_prefills": sum(
@@ -3023,40 +3058,48 @@ def bench_interference(dev, card) -> dict:
         router.stop()
         return out
 
+    t0 = time.perf_counter()
     tiered, coloc = arm(True), arm(False)
+    seconds = time.perf_counter() - t0
     weights = ServingWeights(bundle.module(dev))
     ref_v = offline_tokens(weights, victims, c["victim_new"], 64, dev)
     ref_b = offline_tokens(weights, burst, c["burst_new"], 64, dev)
     ref = ref_v + ref_b
     for label, res in (("tiered", tiered), ("colocated", coloc)):
-        exact = sum(r.status == "ok" and r.tokens == ref[i]
-                    for i, r in enumerate(res["reqs"]))
-        require(exact == len(ref), f"interference {label}: {exact}/"
-                f"{len(ref)} requests equal the offline tokens")
+        for k, reqs in enumerate(res["passes"]):
+            exact = sum(r.status == "ok" and r.tokens == ref[i]
+                        for i, r in enumerate(reqs))
+            require(exact == len(ref), f"interference {label} pass {k}: "
+                    f"{exact}/{len(ref)} requests equal the offline tokens")
     n = c["victims"] + c["burst"]
+    runs = 1 + c["passes"]
     require(tiered["decode_tier_prefills"] == 0
-            and tiered["remote_joins"] >= 2 * n,
+            and tiered["remote_joins"] >= runs * n,
             f"interference: decode-tier prefills "
             f"{tiered['decode_tier_prefills']}, remote joins "
-            f"{tiered['remote_joins']} (2 passes of {n})")
+            f"{tiered['remote_joins']} ({runs} passes of {n})")
     ratio = coloc["p99_ms"] / tiered["p99_ms"]
+    extra_s = tiered["extra_s"] + coloc["extra_s"]
     out = {"tiered_p99_ms": tiered["p99_ms"], "coloc_p99_ms": coloc["p99_ms"],
            "tiered_p50_ms": tiered["p50_ms"], "coloc_p50_ms": coloc["p50_ms"],
            "p99_ratio": ratio, "min_p99_ratio": c["min_p99_ratio"],
-           "gaps": (len(tiered["gaps"]), len(coloc["gaps"]))}
+           "passed": ratio >= c["min_p99_ratio"],
+           "gaps": (len(tiered["gaps"]), len(coloc["gaps"])),
+           "passes": c["passes"], "seconds": seconds,
+           "extra_pass_s": extra_s}
     print(f"interference (disagg drill at full width, f32: "
           f"{c['victims']} victims of {c['victim_len']} tokens x "
           f"{c['victim_new']} new, a burst of {c['burst']} x "
-          f"{c['burst_len']} tokens): victims' inter-token p99 "
+          f"{c['burst_len']} tokens; {c['passes']} timed passes an arm "
+          f"pooled, {len(tiered['gaps'])} tiered / {len(coloc['gaps'])} "
+          f"colocated gaps): victims' inter-token p99 "
           f"{coloc['p99_ms']:.3f} ms colocated vs {tiered['p99_ms']:.3f} ms "
           f"tiered, ratio {ratio:.3f} (the drill's floor "
           f"{c['min_p99_ratio']}); p50 {coloc['p50_ms']:.3f} vs "
           f"{tiered['p50_ms']:.3f} ms; decode tier prefills 0, "
           f"{tiered['remote_joins']} remote joins; every token equal to the "
-          f"offline engine's [{card}]")
-    require(ratio >= c["min_p99_ratio"],
-            f"interference: p99 ratio {ratio:.3f} under the drill's "
-            f"{c['min_p99_ratio']}")
+          f"offline engine's; {seconds:.1f} s, of which {extra_s:.1f} s the "
+          f"passes past the first timed one [{card}]")
     return out
 
 
@@ -3434,50 +3477,143 @@ SEQ2_PROMPT, SEQ2_CHUNK = 960, 64
 def small_dim_backward_checks(dev, card) -> dict:
     """K2 and K3 at head dims 8, 16 and 32, bf16 and f32, at the training
     shape (8, 2048, 8, d) causal against plain with phase 4's limits, a
-    second launch bitwise equal; then each one's time, bound, plain and
-    library times (`time_backward`)."""
-    from mmlspark_tpu_torch.ops.flash_attention import (
-        flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
+    second launch bitwise equal (`check_backward`); then each one's time,
+    bound, plain and library times (`time_backward`)."""
     gen = torch.Generator(device=dev).manual_seed(16)
     b, s = TRAIN_BATCH, TRAIN_SEQ
     entries = {}
     for d in (8, 16, 32):
         for dtype, tag in ((torch.bfloat16, ""), (torch.float32, ", f32")):
-            scale = d ** -0.5
             args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d)
-            got = (flash_bwd_dq(*args, True, scale),
-                   *flash_bwd_dkv(*args, True, scale))
-            again = (flash_bwd_dq(*args, True, scale),
-                     *flash_bwd_dkv(*args, True, scale))
-            torch.cuda.synchronize()
-            ref = flash_block_grads_plain(*args, True, scale)
-            max_tol, norm_tol = ((2e-2, 1e-2) if dtype == torch.bfloat16
-                                 else (1e-4, 1e-4))
-            errs = [grad_errs(a, r) for a, r in zip(got, ref)]
-            same = all(torch.equal(a, r) for a, r in zip(got, again))
-            print(f"head dim {d}: flash backward (8, 2048, 8, {d}) causal "
-                  f"{dtype}: max|d|/max|ref| dq {errs[0][0]:.3e} dk "
-                  f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} (tol {max_tol}); "
-                  f"||d||/||ref|| dq {errs[0][1]:.3e} dk {errs[1][1]:.3e} dv "
-                  f"{errs[2][1]:.3e} (tol {norm_tol}); repeat bitwise equal "
-                  f"{same}")
-            require(all(m <= max_tol and n <= norm_tol for m, n in errs)
-                    and same, f"head dim {d}: K2/K3 disagree ({dtype})")
-            abs_err = [(a.float() - r.float()).abs().max().item()
-                       for a, r in zip(got, ref)]
-            del got, again, ref
-            timed = time_backward(card, gen, d, dtype, args)
-            for name, err in (("flash_bwd_dq", abs_err[0]),
-                              ("flash_bwd_dkv", max(abs_err[1:]))):
-                entries[f"{name}[d{d}{tag}]"] = {
-                    "name": f"{name}[d{d}{tag}]", "route": "cuda",
-                    "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
-                    "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
-                                 if name == "flash_bwd_dq" else
-                                 "mmlspark_tpu/ops/flash_attention.py:330"),
-                    "max_abs_err": err, **timed[name]}
+            abs_err = check_backward(args, d, dtype,
+                                     f"head dim {d}: flash backward (8, 2048, "
+                                     f"8, {d}) causal {dtype}")
+            entries.update(backward_entries(d, tag, abs_err, time_backward(
+                card, gen, d, dtype, args)))
             del args
     return entries
+
+
+def backward_entries(d: int, tag: str, abs_err: list, timed: dict) -> dict:
+    """The kernels-line rows of K2 and K3 at head dim `d` (`tag`: "" or
+    ", f32") from their max |error| (dq, dk, dv) and `time_backward`."""
+    return {f"{name}[d{d}{tag}]": {
+        "name": f"{name}[d{d}{tag}]", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
+        "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
+                     if name == "flash_bwd_dq" else
+                     "mmlspark_tpu/ops/flash_attention.py:330"),
+        "max_abs_err": err, **timed[name]}
+        for name, err in (("flash_bwd_dq", abs_err[0]),
+                          ("flash_bwd_dkv", max(abs_err[1:])))}
+
+
+def check_backward(args, d: int, dtype, what: str) -> list:
+    """K2 and K3 on `backward_inputs` (causal, no offsets) against plain
+    with phase 4's limits, a second launch bitwise equal.  Returns the max
+    |error| of dq, dk, dv."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
+    scale = d ** -0.5
+    got = (flash_bwd_dq(*args, True, scale), *flash_bwd_dkv(*args, True, scale))
+    again = (flash_bwd_dq(*args, True, scale),
+             *flash_bwd_dkv(*args, True, scale))
+    torch.cuda.synchronize()
+    ref = flash_block_grads_plain(*args, True, scale)
+    max_tol, norm_tol = ((2e-2, 1e-2) if dtype == torch.bfloat16
+                         else (1e-4, 1e-4))
+    errs = [grad_errs(a, r) for a, r in zip(got, ref)]
+    same = all(torch.equal(a, r) for a, r in zip(got, again))
+    print(f"{what}: max|d|/max|ref| dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} "
+          f"dv {errs[2][0]:.3e} (tol {max_tol}); ||d||/||ref|| dq "
+          f"{errs[0][1]:.3e} dk {errs[1][1]:.3e} dv {errs[2][1]:.3e} (tol "
+          f"{norm_tol}); repeat bitwise equal {same}")
+    require(all(m <= max_tol and n <= norm_tol for m, n in errs) and same,
+            f"{what}: K2/K3 disagree")
+    return [(a.float() - r.float()).abs().max().item()
+            for a, r in zip(got, ref)]
+
+
+def time_lse_f32(card, d: int, args: tuple) -> dict:
+    """The f32 K1[lse] at the training shape (8, 2048, 8, d) causal, on
+    `backward_inputs`' q, k, v: out and lse within 1e-4 of plain; its time
+    beside its bound, plain and the library's memory-efficient forward with
+    log-sum-exp (`aten._efficient_attention_forward`, the port's layout)."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse, flash_attention_with_lse_plain)
+    q, k, v = args[:3]
+    b, s, h, _ = q.shape
+    scale = d ** -0.5
+    out, lse = flash_attention_with_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, True)
+    err, norm_err = out_errs(out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    print(f"head dim {d}: f32 flash_attention_with_lse {tuple(q.shape)} "
+          f"causal: out max_abs_err={err:.3e} (tol 1e-4), ||d||/||ref|| "
+          f"{norm_err:.3e} (tol 1e-4); lse max_abs_err={lse_err:.3e} (tol "
+          f"1e-4)")
+    require(err <= 1e-4 and norm_err <= 1e-4 and lse_err <= 1e-4,
+            f"head dim {d}: f32 K1[lse] disagrees")
+    del out, lse, ref_out, ref_lse
+    name = f"flash_attention[lse, d{d}, f32]"
+    ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True))
+    plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(q, k, v, True),
+                        calls=3)
+    lib_ms = library_ms(
+        lambda: torch.ops.aten._efficient_attention_forward(
+            q, k, v, None, None, None, None, None, 0.0, 1, True,
+            scale=scale), name)
+    flops = 4.0 * b * h * d * (s * (s + 1) / 2)
+    bound, by = attention_bound(flops, 4.0 * b * s * h * d * 4 + b * s * h * 4,
+                                PEAK_F32_FLOPS)
+    print(f"timing {name} {tuple(q.shape)} causal, device time (CUDA graph): "
+          f"{ms:.4f} ms; plain {plain_ms:.4f} ms; aten efficient forward "
+          f"with lse {lib_ms:.4f} ms; bound {bound:.4f} ms ({by}); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.2f}x the library "
+          f"call, {bound / ms:.3f} of the bound [{card}]")
+    return {"name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_wide_f32_backward(dev, card, grad_check: dict) -> tuple:
+    """chip_smoke phase 17: the f32 training kernels at head dims 64 and
+    128.  K2 and K3 at (8, 2048, 8, d) causal against plain (1e-4, a
+    second launch bitwise equal) and K1[lse] on the same q, k, v, each
+    timed beside its bound, plain and library call; then the f32 gradient
+    check at LC_CONFIG's width (head dim 64, seq TRAIN_SEQ).  The rows'
+    launches: head dim 128 from phase 11's gradient check at LM_CONFIG
+    (`grad_check`), head dim 64 from this one, 4 each (one a layer)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(128)
+    entries = {}
+    for d in (64, 128):
+        args = backward_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True,
+                               0, 0, torch.float32, d)
+        abs_err = check_backward(args, d, torch.float32,
+                                 f"head dim {d}: flash backward (8, 2048, 8, "
+                                 f"{d}) causal f32")
+        entries.update(backward_entries(d, ", f32", abs_err, time_backward(
+            card, gen, d, torch.float32, args)))
+        lse_row = time_lse_f32(card, d, args)
+        entries[lse_row["name"]] = lse_row
+        del args
+        torch.cuda.empty_cache()
+    grads = {64: flash_grad_check(dev, card, LC_CONFIG, TRAIN_SEQ, seed=64),
+             128: grad_check}
+    rows = []
+    for d, check in grads.items():
+        for name, key in ((f"flash_bwd_dq[d{d}, f32]", "K2"),
+                          (f"flash_bwd_dkv[d{d}, f32]", "K3"),
+                          (f"flash_attention[lse, d{d}, f32]", "K1[lse]")):
+            rows.append({**entries[name], "launches": check["launches"][key]})
+    seconds = time.perf_counter() - t0
+    print(f"phase 17 (f32 training kernels at head dims 64, 128): "
+          f"{seconds:.1f} s [{card}]")
+    return rows, {"grad_check_d64": grads[64], "seconds": seconds}
 
 
 def wide_f32_k1(dev, card) -> tuple:
@@ -3915,9 +4051,8 @@ def main() -> int:
         row["spill_stores"] or row["spill_loads"] for row in k1_build),
         "K1's build log lacks a kernel or reports spills")
     require(len(bwd_build) == 20 and not any(
-        row["spill_stores"] or row["spill_loads"] for row in bwd_build
-        if "f32" not in row["kernel"]),
-        "K2/K3's build log lacks a kernel or reports spills in a bf16 kernel")
+        row["spill_stores"] or row["spill_loads"] for row in bwd_build),
+        "K2/K3's build log lacks a kernel or reports spills")
     require(len(k4_build) == 30 and not any(
         row["spill_stores"] or row["spill_loads"] for row in k4_build),
         "K4's build log lacks a kernel or reports spills")
@@ -3952,6 +4087,8 @@ def main() -> int:
     d32, d32_paths = phase_head_dim_32(dev, card)
     torch.cuda.empty_cache()
     small, small_paths = phase_small_head_dims(dev, card)
+    torch.cuda.empty_cache()
+    wide, wide_paths = phase_wide_f32_backward(dev, card, grad_check)
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]
@@ -3969,7 +4106,7 @@ def main() -> int:
     ring_lse[0]["launches"] = seq2["flash_attention[lse]"]
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
-               + ring_lse + d32 + small)
+               + ring_lse + d32 + small + wide)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"main_path": {k: v for k, v in main_path.items()
@@ -3979,6 +4116,7 @@ def main() -> int:
                       "long_context": long_context,
                       "grad_check": grad_check, "head_dim_32": d32_paths,
                       "small_head_dims": small_paths,
+                      "wide_f32_backward": wide_paths,
                       "k1_build": k1_build,
                       "bwd_build": bwd_build, "k4_build": k4_build,
                       "card": card}))
@@ -3989,6 +4127,27 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def f32_backward_times(dev, card) -> dict:
+    """`chip_smoke.py --ab TAG --bwd`: K2 and K3 at f32 on (8, 2048, 8, d)
+    causal at every head dim, checked against plain (`check_backward`) and
+    timed (`time_backward`).  Returns per head dim the K2 and K3 ms and
+    the library pair's."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for d in (8, 16, 32, 64, 128):
+        args = backward_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True,
+                               0, 0, torch.float32, d)
+        check_backward(args, d, torch.float32,
+                       f"head dim {d}: flash backward f32")
+        timed = time_backward(card, gen, d, torch.float32, args)
+        out[d] = {"dq_ms": timed["flash_bwd_dq"]["ms"],
+                  "dkv_ms": timed["flash_bwd_dkv"]["ms"],
+                  "library_pair_ms": timed["flash_bwd_dq"]["library_ms"]}
+        del args
+        torch.cuda.empty_cache()
+    return out
 
 
 def ab_main(argv: list) -> int:
@@ -4004,13 +4163,17 @@ def ab_main(argv: list) -> int:
     tree has the tiers, 14, the last two without their bench arms; their
     gates hold as in a full run.  Prints one line, `AB {...}`: the
     tree's tag and directory, each phase's tokens/s, phase 14's overlap
-    and splice-to-first-decode ms, the card's name and power limit."""
+    and splice-to-first-decode ms, the card's name and power limit.  With
+    `--bwd`, only `f32_backward_times` on that tree's kernels (their
+    ptxas lines printed first), for the same comparison of a kernel
+    change."""
     import argparse
     import importlib.util
     import os
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--ab", required=True, metavar="TAG")
     ap.add_argument("--tree", default=None, metavar="DIR")
+    ap.add_argument("--bwd", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4027,6 +4190,14 @@ def ab_main(argv: list) -> int:
     dev = torch.device("cuda")
     out: dict = {"tree": args.ab, "dir": tree, "card": card}
     t0 = time.perf_counter()
+    if args.bwd:
+        for row in ptxas_report("flash_backward", "flash_bwd"):
+            print(f"ptxas {row['kernel']}: {row['registers']} registers, "
+                  f"{row['spill_stores']} / {row['spill_loads']} bytes spill")
+        out["f32_backward"] = f32_backward_times(dev, card)
+        out["seconds"] = time.perf_counter() - t0
+        print("AB " + json.dumps(out))
+        return 0
     out["phase6"] = phase_main_path(dev, card)["tokens_per_s"]
     torch.cuda.empty_cache()
     reset_counts()

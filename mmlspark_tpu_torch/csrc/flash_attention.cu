@@ -102,9 +102,16 @@
 //     columns in registers (V rows read as 128 contiguous bytes a warp).
 
 #include "common.cuh"
+#include "f32.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
+using mmlspark::F32_PP;
+using mmlspark::F32_ROWS;
+using mmlspark::F32_THREADS;
+using mmlspark::f32_col;
+using mmlspark::f32_pitch;
+using mmlspark::load_rows_f32;
 using mmlspark::NEG_INF;
 namespace sm90 = mmlspark::sm90;
 namespace mma = mmlspark::mma;
@@ -464,10 +471,8 @@ __global__ void __launch_bounds__(mma::THREADS)
 
 // ---- f32: register tiles on the CUDA cores --------------------------------
 
-constexpr int F32_BM = 64;   // query rows per CTA, 16 per warp
-constexpr int F32_BN = 64;   // keys per K/V tile
-constexpr int F32_THREADS = 128;
-constexpr int F32_PP = 72;   // floats per row of a warp's P strip
+constexpr int F32_BM = F32_ROWS;  // query rows per CTA, 16 per warp
+constexpr int F32_BN = F32_ROWS;  // keys per K/V tile
 
 // Shared memory of the f32 kernel, in floats: Q, STAGES x (K, V), then each
 // warp's 16 x 64 strip of P.  Rows of Q, K, V are padded by 4 floats, so
@@ -477,34 +482,12 @@ constexpr int F32_PP = 72;   // floats per row of a warp's P strip
 // distinct banks.
 template <int D>
 struct F32Smem {
-  static constexpr int PITCH = D + 4;
+  static constexpr int PITCH = f32_pitch<D>();
   static constexpr int Q = F32_BM * PITCH;
   static constexpr int KV = F32_BN * PITCH;
   static constexpr int P = F32_BM * F32_PP;
   static constexpr size_t BYTES = size_t(Q + STAGES * 2 * KV + P) * sizeof(float);
 };
-
-// Rows [r0, r0 + 64) of head h of a (B, S, H, D) f32 tensor into a padded
-// shared tile, rows at or past S as zeros (all threads of the CTA).
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* base, int b, int h, int H, int S, int r0) {
-  constexpr int CHUNKS = D / 4;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < F32_BN * CHUNKS; i += F32_THREADS) {
-    const int row = i / CHUNKS, c = i % CHUNKS;
-    const int r = r0 + row;
-    const bool ok = r < S;
-    mma::cp_async16(dst + row * F32Smem<D>::PITCH + c * 4,
-                    base + ((size_t(b) * S + (ok ? r : 0)) * H + h) * D + c * 4, ok);
-  }
-}
-
-// Output column n (of D / 8) of thread group kg: runs of 4 columns 32
-// apart from D = 32 up (a warp's 8 groups read 128 contiguous bytes of a
-// V row), else kg's own D / 8 columns.
-template <int D>
-__device__ __forceinline__ int f32_col(int kg, int n) {
-  return D >= 32 ? (n / 4) * 32 + kg * 4 + n % 4 : kg * (D / 8) + n;
-}
 
 // The launch bound names a minimum of one CTA per SM: without it ptxas
 // held the kernel to 128 registers and spilled at D = 32; with it the

@@ -16,11 +16,12 @@
 // time.  q_off/k_off place the tensors at global positions for the causal
 // mask (query i at q_off + i, key j at k_off + j).  Any Sq and Sk.
 //
-// Bound: tensor-core operations.  At the training shape (8, 2048, 8, 128)
-// causal, K2 does three (64 x 64 x D) products per live tile pair and K3
-// four, on O(S D) bytes: far above the card's ~295 operations-per-byte
-// ridge in bf16.  So the kernels are as fast as their products run, and as
-// little as the elementwise step and the loads between them hold them up.
+// Bound: tensor-core operations at bf16 (f32: below).  At the training
+// shape (8, 2048, 8, 128) causal, K2 does three (64 x 64 x D) products per
+// live tile pair and K3 four, on O(S D) bytes: far above the card's ~295
+// operations-per-byte ridge in bf16.  So the kernels are as fast as their
+// products run, and as little as the elementwise step and the loads
+// between them hold them up.
 //
 // Design, bf16 at head dim 64 or 128, on csrc/sm90.cuh as K1:
 //   * One CTA of two consumer warpgroups (256 threads) owns 128 rows, 64
@@ -78,27 +79,55 @@
 //     from the very tile by ldmatrix.trans;
 //   * one writer per output row, no atomics; 4-byte stores after the scale.
 //
-// Design, f32: one lane group per output row (a query row for K2, a key
-// row for K3): all 32 lanes of a warp from head dim 32 up, each holding
-// D/32 elements, else D lanes holding one element each (32/D rows a
-// warp, reduced by shuffles masked to the group); the other side folded
-// one row at a time in f32 FMA (no TF32: the f32 path is the precise
-// reference-grade one).
-
-#include <climits>
+// Design, f32 (`flash_bwd_dq_f32<D>`, `flash_bwd_dkv_f32<D>`, every head
+// dim).  Full f32 on the CUDA cores, no TF32: the f32 path is the precise,
+// reference-grade one (the f32 gradient checks hold the flash model to the
+// dense one).  Bound: f32 operations (67 TFLOP/s), so the design keeps the
+// FMA pipes fed from registers and shared memory, as the f32 K1 does
+// (csrc/f32.cuh holds the pieces the three share):
+//   * one CTA of four warps owns 64 rows of one (batch, head), 16 a warp,
+//     staged once by cp.async with their partner: queries with dO in K2
+//     (heaviest causal tile first), keys with V in K3 (key tile 0 first);
+//   * the other side's 64-row tiles stream through a 2-stage cp.async
+//     ring, each read by all 64 owned rows (every byte leaves device memory
+//     once a CTA); the number of tiles follows the causal reach; K3's stage
+//     also holds the tile's 64 exp2 bases and deltas, stored by threads
+//     0-63 from registers loaded a tile earlier;
+//   * a warp's lanes are 4 row groups x 8 column groups, so each thread
+//     builds 4 x 8 register tiles of the two score products from 128-bit
+//     shared loads: S = Q K^T and dP = dO V^T in K2, the transposed
+//     S^T = K Q^T and dP^T = V dO^T in K3, whose rows are then the keys
+//     the warp owns;
+//   * P = exp2(S scale log2 e - lse log2 e) and dS = P (dP - delta) on those
+//     registers; a row whose lse is NEG_INF (or past Sq) has the base +inf,
+//     so its P is exactly 0; only tiles on the diagonal, and K2's ragged end
+//     of Sk, are masked; a tile a warp's rows cannot see is skipped;
+//   * P and dS reach the gradient products through the warp's own strip of
+//     72-float rows (one __syncwarp): dQ += dS K in K2; dV += P^T dO, then
+//     dK += dS^T Q in one strip in K3 (dS^T formed from this thread's own
+//     P^T entries read back, so no score tile outlives its product); each
+//     thread's 4 rows x D / 8 columns of every accumulator stay in
+//     registers for the whole walk, scaled once and stored after it (K3
+//     at D = 128 holds 128 of them, dK and dV: 255 registers, no spill,
+//     under `__launch_bounds__(128, 1)`, which lets ptxas past 128);
+//   * one writer per output, no atomics: two launches give the same bits.
 
 #include "common.cuh"
+#include "f32.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
+using mmlspark::F32_PP;
+using mmlspark::F32_ROWS;
+using mmlspark::F32_THREADS;
+using mmlspark::f32_col;
+using mmlspark::f32_pitch;
+using mmlspark::load_rows_f32;
 using mmlspark::NEG_INF;
 namespace sm90 = mmlspark::sm90;
 namespace mma = mmlspark::mma;
 
 namespace {
-
-constexpr int WARPS = 4;  // f32 kernels: one output row per lane group
-constexpr int THREADS = WARPS * 32;
 
 using bf16 = __nv_bfloat16;
 
@@ -716,135 +745,387 @@ __global__ void __launch_bounds__(mma::THREADS)
   }
 }
 
-// ---- f32: FMA kernels, one lane group per output row ----------------------
+// ---- f32: register tiles on the CUDA cores ---------------------------------
 
-// A row of D elements is held by LANES lanes (all 32 from D = 32 up, else
-// D of them: a warp then holds 32 / D rows), E elements a lane; the group
-// reduces over its own lanes with a mask of just those lanes, so groups of
-// one warp may walk different numbers of keys.
+// Shared memory of the f32 kernels, in floats: the two owned tiles (Q, dO
+// in K2; K, V in K3), STAGES x the two walked tiles (K, V; Q, dO), in K3
+// STAGES x the walked tile's 64 exp2 bases and 64 deltas, then each
+// warp's 16 x 64 strip.  221184 bytes in K2 and 222208 in K3 at D = 128.
 template <int D>
-struct RowGroup {
-  static constexpr int LANES = D < 32 ? D : 32;
-  static constexpr int E = D / LANES;
-  static constexpr int ROWS = 32 / LANES;  // rows a warp
-
-  __device__ static unsigned mask(int lane) {
-    return LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1u) << (lane / LANES * LANES);
-  }
-
-  __device__ static float sum(float x, unsigned m) {
-#pragma unroll
-    for (int off = LANES / 2; off > 0; off >>= 1) x += __shfl_xor_sync(m, x, off);
-    return x;
-  }
+struct F32Smem {
+  static constexpr int TILE = F32_ROWS * f32_pitch<D>();
+  static constexpr int STATS = STAGES * 2 * F32_ROWS;
+  static constexpr int STRIPS = F32_ROWS * F32_PP;
+  static constexpr size_t DQ_BYTES = size_t(2 * TILE + STAGES * 2 * TILE + STRIPS) * sizeof(float);
+  static constexpr size_t DKV_BYTES = size_t(2 * TILE + STAGES * 2 * TILE + STATS + STRIPS) * sizeof(float);
 };
 
+// s[i][j] = sum over d of a[rg + 4 i][d] t[kg + 8 j][d]: 4 rows of an
+// owned tile (`a` at row rg, row i 4 i rows further) against the 64 rows of
+// a walked tile (`t` at row kg), from 128-bit shared loads: 128 FMAs for
+// every 12 loads.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void f32_scores(float (&s)[4][8], const float* a, const float* t) {
+  constexpr int P = f32_pitch<D>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + 4 * i * P + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 tv = *reinterpret_cast<const float4*>(t + 8 * j * P + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = fmaf(av[i].x, tv.x, s[i][j]);
+        s[i][j] = fmaf(av[i].y, tv.y, s[i][j]);
+        s[i][j] = fmaf(av[i].z, tv.z, s[i][j]);
+        s[i][j] = fmaf(av[i].w, tv.w, s[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][n] += sum over k of w[rg + 4 i][k] t[k][f32_col(kg, n)]: 4 rows
+// of a warp's strip (`w` at row rg) times a 64-row tile, each thread's D / 8
+// columns (a warp's 8 column groups read 128 contiguous bytes of a row).
+template <int D>
+__device__ __forceinline__ void f32_accumulate(float (&acc)[4][D / 8], const float* w, const float* t, int kg) {
+  constexpr int P = f32_pitch<D>();
+  constexpr int CW = D / 8;
+#pragma unroll 2
+  for (int kk = 0; kk < F32_ROWS; kk += 4) {
+    float4 wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = *reinterpret_cast<const float4*>(w + 4 * i * F32_PP + kk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* row = t + (kk + e) * P;
+      float tv[CW];
+      if constexpr (CW >= 4) {
+#pragma unroll
+        for (int c = 0; c < CW / 4; ++c) {
+          const float4 x = *reinterpret_cast<const float4*>(row + 32 * c + kg * 4);
+          tv[4 * c] = x.x;
+          tv[4 * c + 1] = x.y;
+          tv[4 * c + 2] = x.z;
+          tv[4 * c + 3] = x.w;
+        }
+      } else if constexpr (CW == 2) {
+        const float2 x = *reinterpret_cast<const float2*>(row + kg * 2);
+        tv[0] = x.x;
+        tv[1] = x.y;
+      } else {
+        tv[0] = row[kg];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = e == 0 ? wv[i].x : e == 1 ? wv[i].y : e == 2 ? wv[i].z : wv[i].w;
+#pragma unroll
+        for (int n = 0; n < CW; ++n) acc[i][n] = fmaf(p, tv[n], acc[i][n]);
+      }
+    }
+  }
+}
+
+// Store `acc * mul` (rows row0 + 4 i, each thread's D / 8 columns) into a
+// (B, S, H, D) f32 tensor, rows < S only.
+template <int D>
+__device__ __forceinline__ void f32_store(float* out, const float (&acc)[4][D / 8], float mul, int row0, int S,
+                                          int b, int h, int H, int kg) {
+  constexpr int CW = D / 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + 4 * i;
+    if (r >= S) continue;
+    float* dst = out + ((size_t(b) * S + r) * H + h) * D;
+    if constexpr (CW >= 4) {
+#pragma unroll
+      for (int c = 0; c < CW / 4; ++c)
+        *reinterpret_cast<float4*>(dst + f32_col<D>(kg, 4 * c)) =
+            make_float4(acc[i][4 * c] * mul, acc[i][4 * c + 1] * mul, acc[i][4 * c + 2] * mul,
+                        acc[i][4 * c + 3] * mul);
+    } else {
+#pragma unroll
+      for (int n = 0; n < CW; ++n) dst[f32_col<D>(kg, n)] = acc[i][n] * mul;
+    }
+  }
+}
+
+// K2 at f32: one CTA of four warps per 64 query rows of one (batch, head),
+// 16 a warp, walking 64-key tiles.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
     flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq, int B, int H, int Sq, int Sk,
-                     float scale, int causal, int q_off, int k_off) {
-  using G = RowGroup<D>;
-  constexpr int E = G::E;
-  const int lane = threadIdx.x % 32;
-  // (b, h, qi), qi fastest
-  // 32-bit row index (the launcher checks that B * H * Sq fits): a 64-bit
-  // divide is a subroutine call that makes ptxas spill
-  const int row = (int(blockIdx.x) * WARPS + int(threadIdx.x) / 32) * G::ROWS + lane / G::LANES;
-  if (row >= B * H * Sq) return;  // whole lane groups leave together
-  const unsigned gm = G::mask(lane);
-  const int qi = row % Sq;
-  const int bh = row / Sq;
-  const int b = bh / H, h = bh % H;
-  const size_t stride = size_t(H) * D;
-  const size_t col = size_t(h) * D + size_t(lane % G::LANES) * E;
-  const size_t at = (size_t(b) * Sq + qi) * H + h;
-  const float l = lse[at], dl = delta[at];
+                     const float* __restrict__ delta, float* __restrict__ dq, int H, int Sq, int Sk, float scale,
+                     int causal, int q_off, int k_off) {
+  using L = F32Smem<D>;
+  constexpr int P = f32_pitch<D>();
+  extern __shared__ float4 f32_smem[];
+  float* q_tile = reinterpret_cast<float*>(f32_smem);
+  float* do_tile = q_tile + L::TILE;
+  float* ring = do_tile + L::TILE;  // STAGES x (K, V)
 
-  float qv[E], dov[E], acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    qv[e] = q[(size_t(b) * Sq + qi) * stride + col + e] * scale;
-    dov[e] = dout[(size_t(b) * Sq + qi) * stride + col + e];
-    acc[e] = 0.f;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, kg = lane % 8;  // rows rg + 4 i of the warp's 16; keys kg + 8 j of a tile
+  float* strip = ring + STAGES * 2 * L::TILE + warp * 16 * F32_PP;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * F32_ROWS;  // heaviest causal tiles first
+  const int wq0 = q0 + warp * 16;
+
+  const int last_row = min(q0 + F32_ROWS, Sq) - 1;
+  int n_kt = (Sk + F32_ROWS - 1) / F32_ROWS;
+  if (causal) {
+    const int reach = q_off + last_row - k_off;
+    n_kt = reach < 0 ? 0 : min(n_kt, reach / F32_ROWS + 1);
   }
-  const float* kp = k + size_t(b) * Sk * stride + col;
-  const float* vp = v + size_t(b) * Sk * stride + col;
-  int n_keys = causal ? max(0, min(Sk, q_off + qi - k_off + 1)) : Sk;
-  if (l == NEG_INF) n_keys = 0;  // a row that saw no key has P = 0
-  for (int j = 0; j < n_keys; ++j) {
-    float s_part = 0.f, dp_part = 0.f;
+
+  load_rows_f32<D>(q_tile, q, b, h, H, Sq, q0);
+  load_rows_f32<D>(do_tile, dout, b, h, H, Sq, q0);
+  if (n_kt > 0) {
+    load_rows_f32<D>(ring, k, b, h, H, Sk, 0);
+    load_rows_f32<D>(ring + L::TILE, v, b, h, H, Sk, 0);
+  }
+  mma::cp_async_commit();
+
+  float base[4], dl[4];  // this thread's rows' exp2 base and delta
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      s_part += qv[e] * kp[size_t(j) * stride + e];
-      dp_part += dov[e] * vp[size_t(j) * stride + e];
+  for (int i = 0; i < 4; ++i) {
+    float l;
+    fetch_stats(lse, delta, b, h, H, Sq, wq0 + rg + 4 * i, l, dl[i]);
+    base[i] = exp2_base(l);
+  }
+  const float scale_log2 = scale * LOG2E;
+  float acc[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[i][n] = 0.f;
+  const float* q_rows = q_tile + (warp * 16 + rg) * P;
+  const float* do_rows = do_tile + (warp * 16 + rg) * P;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int stage = kt % STAGES;
+    if (kt + 1 < n_kt) {
+      // the other stage was released by the barrier that ended tile kt - 1
+      float* next = ring + (1 - stage) * 2 * L::TILE;
+      load_rows_f32<D>(next, k, b, h, H, Sk, (kt + 1) * F32_ROWS);
+      load_rows_f32<D>(next + L::TILE, v, b, h, H, Sk, (kt + 1) * F32_ROWS);
     }
-    const float p = expf(G::sum(s_part, gm) - l);
-    const float ds = p * (G::sum(dp_part, gm) - dl);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    __syncthreads();
+    const int k0 = kt * F32_ROWS;
+    // a tile wholly above the diagonal for this warp's rows, or a warp
+    // wholly past Sq, adds nothing
+    const bool hidden = wq0 >= Sq || (causal && k_off + k0 > q_off + wq0 + 15);
+    if (!hidden) {
+      const float* k_tile = ring + stage * 2 * L::TILE;
+      const float* v_tile = k_tile + L::TILE;
+      float p[4][8], dp[4][8];
+      f32_scores<D>(p, q_rows, k_tile + kg * P);  // S = Q K^T
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += ds * kp[size_t(j) * stride + e];
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) p[i][j] = sm90::ex2(fmaf(p[i][j], scale_log2, -base[i]));
+      // mask only a tile that straddles the diagonal or the end of Sk
+      const bool whole = k0 + F32_ROWS <= Sk && (!causal || k_off + k0 + F32_ROWS - 1 <= q_off + wq0);
+      if (!whole) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int key = k0 + kg + 8 * j;
+            if (key >= Sk || (causal && k_off + key > q_off + wq0 + rg + 4 * i)) p[i][j] = 0.f;
+          }
+      }
+      f32_scores<D>(dp, do_rows, v_tile + kg * P);  // dP = dO V^T
+      // dS = P (dP - delta) through the warp's strip, then dQ += dS K
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) strip[(rg + 4 * i) * F32_PP + kg + 8 * j] = p[i][j] * (dp[i][j] - dl[i]);
+      __syncwarp();
+      f32_accumulate<D>(acc, strip + rg * F32_PP, k_tile, kg);
+      __syncwarp();  // dS is read before the next tile writes it
+    }
+    __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
   }
+  mma::cp_async_wait<0>();
+  f32_store<D>(dq, acc, scale, wq0 + rg, Sq, b, h, H, kg);
+}
+
+// K3 at f32: one CTA of four warps per 64 key rows of one (batch, head), 16
+// a warp, walking 64-query tiles; each ring stage also holds its tile's
+// exp2 bases and deltas, stored by threads 0-63 from registers loaded a
+// tile earlier.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int H,
+                      int Sq, int Sk, float scale, int causal, int q_off, int k_off) {
+  using L = F32Smem<D>;
+  constexpr int P = f32_pitch<D>();
+  extern __shared__ float4 f32_smem[];
+  float* k_tile = reinterpret_cast<float*>(f32_smem);
+  float* v_tile = k_tile + L::TILE;
+  float* ring = v_tile + L::TILE;               // STAGES x (Q, dO)
+  float* stats = ring + STAGES * 2 * L::TILE;  // STAGES x (64 bases, 64 deltas)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, kg = lane % 8;  // key rows rg + 4 i of the warp's 16; queries kg + 8 j of a tile
+  float* strip = stats + L::STATS + warp * 16 * F32_PP;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = int(blockIdx.y) * F32_ROWS;  // key tile 0 walks the most query tiles under the causal mask
+  const int wk0 = k0 + warp * 16;
+
+  const int n_qt = (Sq + F32_ROWS - 1) / F32_ROWS;
+  int qt0 = 0;
+  if (causal) {
+    // the first query tile holding a row at or past the CTA's first key
+    const int reach = k_off + k0 - q_off;
+    qt0 = reach <= 0 ? 0 : min(n_qt, reach / F32_ROWS);
+  }
+  const int n_it = n_qt - qt0;
+
+  // threads 0-63: the exp2 base and delta of query tid of tile qt
+  auto fetch = [&](int qt, float& bs, float& dd) {
+    float l;
+    fetch_stats(lse, delta, b, h, H, Sq, qt * F32_ROWS + tid, l, dd);
+    bs = exp2_base(l);
+  };
+  load_rows_f32<D>(k_tile, k, b, h, H, Sk, k0);
+  load_rows_f32<D>(v_tile, v, b, h, H, Sk, k0);
+  float next_b = 0.f, next_d = 0.f;  // the statistics of tile it + 1 (threads 0-63)
+  if (n_it > 0) {
+    load_rows_f32<D>(ring, q, b, h, H, Sq, qt0 * F32_ROWS);
+    load_rows_f32<D>(ring + L::TILE, dout, b, h, H, Sq, qt0 * F32_ROWS);
+    if (tid < F32_ROWS) {
+      fetch(qt0, stats[tid], stats[F32_ROWS + tid]);
+      if (n_it > 1) fetch(qt0 + 1, next_b, next_d);
+    }
+  }
+  mma::cp_async_commit();
+
+  const float scale_log2 = scale * LOG2E;
+  float dka[4][D / 8], dva[4][D / 8];
 #pragma unroll
-  for (int e = 0; e < E; ++e) dq[(size_t(b) * Sq + qi) * stride + col + e] = scale * acc[e];
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) dka[i][n] = dva[i][n] = 0.f;
+  const float* k_rows = k_tile + (warp * 16 + rg) * P;
+  const float* v_rows = v_tile + (warp * 16 + rg) * P;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it % STAGES;
+    if (it + 1 < n_it) {
+      // the other stage was released by the barrier that ended tile it - 1
+      const int qt = qt0 + it + 1;
+      float* next = ring + (1 - stage) * 2 * L::TILE;
+      load_rows_f32<D>(next, q, b, h, H, Sq, qt * F32_ROWS);
+      load_rows_f32<D>(next + L::TILE, dout, b, h, H, Sq, qt * F32_ROWS);
+      if (tid < F32_ROWS) {
+        float* st = stats + (1 - stage) * 2 * F32_ROWS;
+        st[tid] = next_b;
+        st[F32_ROWS + tid] = next_d;
+        if (it + 2 < n_it) fetch(qt + 1, next_b, next_d);  // in flight while this tile is computed
+      }
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile it + 1 has landed
+    __syncthreads();
+    const int q0 = (qt0 + it) * F32_ROWS;
+    // a tile whose every query precedes this warp's keys, or a warp wholly
+    // past Sk, adds nothing
+    const bool hidden = wk0 >= Sk || (causal && q_off + q0 + F32_ROWS - 1 < k_off + wk0);
+    if (!hidden) {
+      const float* q_t = ring + stage * 2 * L::TILE;
+      const float* do_t = q_t + L::TILE;
+      const float* st = stats + stage * 2 * F32_ROWS;
+      float s[4][8];
+      f32_scores<D>(s, k_rows, q_t + kg * P);  // S^T = K Q^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float bq = st[kg + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] = sm90::ex2(fmaf(s[i][j], scale_log2, -bq));
+      }
+      // mask only a tile that straddles the diagonal: entry (i, j) is key
+      // wk0 + rg + 4 i against query q0 + kg + 8 j
+      const bool whole = !causal || q_off + q0 >= k_off + wk0 + 15;
+      if (!whole) {
+        const int lim = k_off + wk0 + rg - q_off - q0 - kg;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (lim + 4 * i > 8 * j) s[i][j] = 0.f;
+      }
+      // P^T through the warp's strip: dV += P^T dO
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) strip[(rg + 4 * i) * F32_PP + kg + 8 * j] = s[i][j];
+      __syncwarp();
+      f32_accumulate<D>(dva, strip + rg * F32_PP, do_t, kg);
+      __syncwarp();  // P^T is read before dS^T overwrites it
+      // dS^T = P^T (dP^T - delta), P^T read back from this thread's own
+      // strip entries, then dK += dS^T Q
+      f32_scores<D>(s, v_rows, do_t + kg * P);  // dP^T = V dO^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float dd = st[F32_ROWS + kg + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* e = strip + (rg + 4 * i) * F32_PP + kg + 8 * j;
+          *e = *e * (s[i][j] - dd);
+        }
+      }
+      __syncwarp();
+      f32_accumulate<D>(dka, strip + rg * F32_PP, q_t, kg);
+      __syncwarp();  // dS^T is read before the next tile writes the strip
+    }
+    __syncthreads();  // tile it's stage is free for the load of tile it + 2
+  }
+  mma::cp_async_wait<0>();
+  f32_store<D>(dk, dka, scale, wk0 + rg, Sk, b, h, H, kg);
+  f32_store<D>(dv, dva, 1.f, wk0 + rg, Sk, b, h, H, kg);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      const float* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int B,
-                      int H, int Sq, int Sk, float scale, int causal, int q_off, int k_off) {
-  using G = RowGroup<D>;
-  constexpr int E = G::E;
-  const int lane = threadIdx.x % 32;
-  // (b, h, kj), kj fastest
-  // 32-bit row index (the launcher checks that B * H * Sk fits): a 64-bit
-  // divide is a subroutine call that makes ptxas spill
-  const int row = (int(blockIdx.x) * WARPS + int(threadIdx.x) / 32) * G::ROWS + lane / G::LANES;
-  if (row >= B * H * Sk) return;  // whole lane groups leave together
-  const unsigned gm = G::mask(lane);
-  const int kj = row % Sk;
-  const int bh = row / Sk;
-  const int b = bh / H, h = bh % H;
-  const size_t stride = size_t(H) * D;
-  const size_t col = size_t(h) * D + size_t(lane % G::LANES) * E;
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                          const float* delta, void* dq, int B, int H, int Sq, int Sk, float scale, int causal,
+                          int q_off, int k_off, cudaStream_t stream) {
+  constexpr size_t bytes = F32Smem<D>::DQ_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + F32_ROWS - 1) / F32_ROWS);
+  flash_bwd_dq_f32<D><<<grid, F32_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), H, Sq, Sk, scale, causal, q_off, k_off);
+  return cudaGetLastError();
+}
 
-  float kv[E], vv[E], dk_acc[E], dv_acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    kv[e] = k[(size_t(b) * Sk + kj) * stride + col + e];
-    vv[e] = v[(size_t(b) * Sk + kj) * stride + col + e];
-    dk_acc[e] = 0.f;
-    dv_acc[e] = 0.f;
-  }
-  const float* qp = q + size_t(b) * Sq * stride + col;
-  const float* dop = dout + size_t(b) * Sq * stride + col;
-  // queries qi with q_off + qi >= k_off + kj see this key under the causal mask
-  const int q_start = causal ? max(0, k_off + kj - q_off) : 0;
-  for (int qi = q_start; qi < Sq; ++qi) {
-    const size_t at = (size_t(b) * Sq + qi) * H + h;
-    const float l = lse[at];
-    if (l == NEG_INF) continue;  // uniform across the lane group
-    float s_part = 0.f, dp_part = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      s_part += qp[size_t(qi) * stride + e] * scale * kv[e];
-      dp_part += dop[size_t(qi) * stride + e] * vv[e];
-    }
-    const float p = expf(G::sum(s_part, gm) - l);
-    const float ds = p * (G::sum(dp_part, gm) - delta[at]);
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      dv_acc[e] += p * dop[size_t(qi) * stride + e];
-      dk_acc[e] += ds * qp[size_t(qi) * stride + e];
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    dk[(size_t(b) * Sk + kj) * stride + col + e] = scale * dk_acc[e];
-    dv[(size_t(b) * Sk + kj) * stride + col + e] = dv_acc[e];
-  }
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B, int H, int Sq, int Sk, float scale,
+                           int causal, int q_off, int k_off, cudaStream_t stream) {
+  constexpr size_t bytes = F32Smem<D>::DKV_BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sk + F32_ROWS - 1) / F32_ROWS);
+  flash_bwd_dkv_f32<D><<<grid, F32_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
+      scale, causal, q_off, k_off);
+  return cudaGetLastError();
 }
 
 // Tensor maps of the four bf16 inputs: the owned pair in boxes of BM rows,
@@ -916,15 +1197,7 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v, co
       return cudaGetLastError();
     }
   }
-  constexpr int rows = WARPS * RowGroup<D>::ROWS;  // output rows a block
-  const long long total = (long long)B * H * Sq;
-  if (total + rows > INT_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = unsigned((total + rows - 1) / rows);
-  flash_bwd_dq_f32<D><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), B, H, Sq, Sk, scale, causal, q_off,
-      k_off);
-  return cudaGetLastError();
+  return launch_dq_f32<D>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
 }
 
 template <int D>
@@ -944,15 +1217,7 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v, c
       return cudaGetLastError();
     }
   }
-  constexpr int rows = WARPS * RowGroup<D>::ROWS;  // output rows a block
-  const long long total = (long long)B * H * Sk;
-  if (total + rows > INT_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = unsigned((total + rows - 1) / rows);
-  flash_bwd_dkv_f32<D><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), B, H, Sq,
-      Sk, scale, causal, q_off, k_off);
-  return cudaGetLastError();
+  return launch_dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
 }
 
 }  // namespace

@@ -160,12 +160,11 @@ def _check_stats(q, do, lse, delta) -> None:
 
 
 def _check_backward(q, k, v, do, lse, delta) -> None:
-    """K2 and K3's inputs; at bf16 the kernels read q, k, v and dout
-    through TMA (head dims 64, 128) or cp.async (8-32)."""
+    """K2 and K3's inputs; the kernels read q, k, v and dout through TMA
+    (bf16 at head dims 64, 128) or cp.async (every other case)."""
     _check_inputs(q, k, v)
     _check_stats(q, do, lse, delta)
-    if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v, dout=do)
+    _check_aligned(q=q, k=k, v=v, dout=do)
 
 
 def _check_aligned(**tensors) -> None:

@@ -10,12 +10,20 @@ kernels' tiles (64 query rows and 64 keys for bf16 K1, K2 and K3; K4's
 256) is refused before any launch, naming the supported set.  Head dims
 8 and 16 are in tests/test_torch_head_dims.py.
 
+The JAX side is jitted once per shape, its offsets traced, and the module
+fixture `jax_refs` computes every case's JAX side up front, a few
+programs compiling at once on threads (XLA compiles outside the GIL), as
+tests/test_torch_flash_backward.py does.
+
 Tolerances are those of the head-dim-64/128 cases
 (tests/test_torch_attention.py, tests/test_torch_flash_backward.py): f32
 differs in summation order only (2e-5; 1e-4 absolute for block
 gradients, whose entries reach |x| ~ 10); a bf16 output is one bf16
 rounding apart at most (2e-2).
 """
+
+import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -41,15 +49,15 @@ from mmlspark_tpu_torch.quant.quantize import quantize_kv
 
 D = 32
 # the JAX side jitted once per shape (eager JAX compiles every primitive
-# of every call)
+# of every call), the offsets traced
 _FLASH = ("causal", "block_q", "block_k", "interpret")
 jax_flash_attention = jax.jit(jax_flash_attention, static_argnames=_FLASH)
-jax_flash_attention_with_lse = jax.jit(
-    jax_flash_attention_with_lse,
-    static_argnames=_FLASH + ("q_offset", "k_offset"))
+jax_flash_attention_with_lse = jax.jit(jax_flash_attention_with_lse,
+                                       static_argnames=_FLASH)
 jax_fused = jax.jit(jax_fused, static_argnames=("block_k", "interpret"))
 jax_fused_stats = jax.jit(jax_fused_stats,
                           static_argnames=("block_k", "interpret"))
+jax_quantize_kv = jax.jit(jax_quantize_kv)
 # positional (q, k, v, do, lse, delta, causal, scale, block_q, block_k,
 # interpret, q_offset, k_offset): static from `causal` to `interpret`, the
 # offsets traced (one program per causal flag)
@@ -74,27 +82,61 @@ def _qkv(b, sq, sk, seed):
     return q, k, v
 
 
+def _lse_qkv(b, sq, sk, q_off, k_off):
+    return _qkv(b, sq, sk, seed=sq + sk + q_off + k_off)
+
+
+def _jax_lse_ref(b, sq, sk, causal, q_off, k_off, dtype):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    out = jax_flash_attention_with_lse(
+        *(jnp.asarray(x, jdt) for x in _lse_qkv(b, sq, sk, q_off, k_off)),
+        causal=causal, q_offset=q_off, k_offset=k_off, block_q=64,
+        block_k=64, interpret=True)
+    return [np.asarray(x, np.float32) for x in out]
+
+
+def _jax_flash_ref(b, sq, sk, causal):
+    q, k, v = _qkv(b, sq, sk, seed=7 * sq + sk)
+    return np.asarray(jax_flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=causal, block_q=64,
+        block_k=64, interpret=True))
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX side of every case, by test and parameters."""
+    jobs = {("lse", *c, dtype): functools.partial(_jax_lse_ref, *c, dtype)
+            for c in FLASH_CASES for dtype in ("float32", "bfloat16")}
+    jobs.update({("flash", *c[:4]): functools.partial(_jax_flash_ref, *c[:4])
+                 for c in FLASH_CASES if c[4] == c[5] == 0})
+    for cache in ("float32", "bfloat16", "int8"):
+        jobs[("decode", cache)] = functools.partial(_jax_decode_ref, cache)
+        jobs[("stats", cache)] = functools.partial(_jax_stats_ref, cache)
+    jobs.update({("grads", *c): functools.partial(_jax_grads_ref, *c)
+                 for c in GRAD_CASES})
+    with ThreadPoolExecutor(4) as pool:
+        futures = {key: pool.submit(job) for key, job in jobs.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", FLASH_CASES)
-def test_flash_with_lse_at_head_dim_32_matches_jax(b, sq, sk, causal, q_off,
-                                                   k_off, dtype):
-    q, k, v = _qkv(b, sq, sk, seed=sq + sk + q_off + k_off)
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+def test_flash_with_lse_at_head_dim_32_matches_jax(jax_refs, b, sq, sk,
+                                                   causal, q_off, k_off,
+                                                   dtype):
+    q, k, v = _lse_qkv(b, sq, sk, q_off, k_off)
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    ref_out, ref_lse = jax_flash_attention_with_lse(
-        *(jnp.asarray(x, jdt) for x in (q, k, v)), causal=causal,
-        q_offset=q_off, k_offset=k_off, block_q=64, block_k=64,
-        interpret=True)
+    ref_out, ref_lse = jax_refs[("lse", b, sq, sk, causal, q_off, k_off,
+                                 dtype)]
     out, lse = flash_attention_with_lse(
         *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal, None,
         q_off, k_off)
     assert out.dtype == tdt and out.shape == (b, sq, 4, D)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
-    np.testing.assert_allclose(out.float().numpy(),
-                               np.asarray(ref_out, np.float32), **tol)
+    np.testing.assert_allclose(out.float().numpy(), ref_out, **tol)
     # lse is f32 in both packages; at bf16 the inputs' one rounding
     # moves it by the output's limit at most
-    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **tol)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, **tol)
     if k_off > q_off:
         assert (lse[:, :k_off - q_off] == NEG_INF).all()
         assert torch.count_nonzero(out[:, :k_off - q_off]) == 0
@@ -102,14 +144,13 @@ def test_flash_with_lse_at_head_dim_32_matches_jax(b, sq, sk, causal, q_off,
 
 @pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off",
                          [c for c in FLASH_CASES if c[4] == c[5] == 0])
-def test_flash_at_head_dim_32_matches_jax(b, sq, sk, causal, q_off, k_off):
+def test_flash_at_head_dim_32_matches_jax(jax_refs, b, sq, sk, causal, q_off,
+                                          k_off):
     q, k, v = _qkv(b, sq, sk, seed=7 * sq + sk)
-    ref = jax_flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
-                              causal=causal, block_q=64, block_k=64,
-                              interpret=True)
+    ref = jax_refs[("flash", b, sq, sk, causal)]
     got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
                           causal=causal)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), ref, **F32_TOL)
 
 
 def _decode_inputs(b, length, seed):
@@ -128,43 +169,59 @@ def _decode_inputs(b, length, seed):
     return q, k, v, visible
 
 
-def _decode_pair(cache, q, k, v, visible):
-    """(JAX args, JAX kwargs, port args, port kwargs) for one cache
-    layout."""
-    jvis, tvis = jnp.asarray(visible), torch.from_numpy(visible)
+def _jax_decode_args(cache, q, k, v, visible):
+    """(JAX args, JAX kwargs) for one cache layout."""
+    jvis = jnp.asarray(visible)
     if cache == "int8":
         jk, jks = jax_quantize_kv(jnp.asarray(k))
         jv, jvs = jax_quantize_kv(jnp.asarray(v))
+        return (jnp.asarray(q), jk, jv, jvis), dict(k_scale=jks, v_scale=jvs)
+    jdt = jnp.bfloat16 if cache == "bfloat16" else jnp.float32
+    return tuple(jnp.asarray(x, jdt) for x in (q, k, v)) + (jvis,), {}
+
+
+def _torch_decode_args(cache, q, k, v, visible):
+    """(port args, port kwargs) for one cache layout."""
+    tvis = torch.from_numpy(visible)
+    if cache == "int8":
         (tk, tks), (tv, tvs) = (quantize_kv(torch.from_numpy(x))
                                 for x in (k, v))
-        return ((jnp.asarray(q), jk, jv, jvis), dict(k_scale=jks, v_scale=jvs),
-                (torch.from_numpy(q), tk, tv, tvis),
+        return ((torch.from_numpy(q), tk, tv, tvis),
                 dict(k_scale=tks, v_scale=tvs))
-    jdt = jnp.bfloat16 if cache == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if cache == "bfloat16" else torch.float32
-    return (tuple(jnp.asarray(x, jdt) for x in (q, k, v)) + (jvis,), {},
-            tuple(torch.from_numpy(x).to(tdt) for x in (q, k, v)) + (tvis,),
+    return (tuple(torch.from_numpy(x).to(tdt) for x in (q, k, v)) + (tvis,),
             {})
+
+
+def _jax_decode_ref(cache, b=4, length=192):
+    jargs, jkw = _jax_decode_args(cache, *_decode_inputs(b, length,
+                                                         seed=length + b))
+    return np.asarray(jax_fused(*jargs, block_k=64, interpret=True, **jkw))
+
+
+def _jax_stats_ref(cache):
+    jargs, jkw = _jax_decode_args(cache, *_decode_inputs(3, 192, seed=11))
+    return [np.array(x) for x in jax_fused_stats(
+        *jargs, block_k=64, interpret=True, **jkw)]
 
 
 @pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("b,length", [(4, 192)])
-def test_decode_at_head_dim_32_matches_jax(b, length, cache):
+def test_decode_at_head_dim_32_matches_jax(jax_refs, b, length, cache):
     q, k, v, visible = _decode_inputs(b, length, seed=length + b)
-    jargs, jkw, targs, tkw = _decode_pair(cache, q, k, v, visible)
-    ref = jax_fused(*jargs, block_k=64, interpret=True, **jkw)
+    targs, tkw = _torch_decode_args(cache, q, k, v, visible)
+    ref = jax_refs[("decode", cache)]
     got = fused_single_query_attention(*targs, **tkw)
     assert got.dtype == torch.float32 and got.shape == (b, 8, D)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), ref, **F32_TOL)
     assert torch.count_nonzero(got[-1]) == 0
 
 
 @pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
-def test_decode_stats_at_head_dim_32_matches_jax(cache):
+def test_decode_stats_at_head_dim_32_matches_jax(jax_refs, cache):
     q, k, v, visible = _decode_inputs(3, 192, seed=11)
-    jargs, jkw, targs, tkw = _decode_pair(cache, q, k, v, visible)
-    ref = [torch.from_numpy(np.array(x)) for x in jax_fused_stats(
-        *jargs, block_k=64, interpret=True, **jkw)]
+    targs, tkw = _torch_decode_args(cache, q, k, v, visible)
+    ref = [torch.from_numpy(x) for x in jax_refs[("stats", cache)]]
     acc, m, l = fused_single_query_attention_stats(*targs, **tkw)
     r_acc, r_m, r_l = ref
     assert (acc - r_acc).abs().max() <= 1e-5 * r_acc.abs().max()
@@ -191,26 +248,39 @@ def block_grad_inputs(d, seed, b=2, sq=128, sk=128, h=4):
     return q, k, v, do
 
 
-@pytest.mark.parametrize("causal,q_off,k_off", GRAD_CASES)
-def test_block_grads_at_head_dim_32_match_jax_backward(causal, q_off, k_off):
-    """K2 and K3's function (`flash_block_grads`, the plain version on CPU
-    tensors) against the JAX `_flash_backward`, whose dQ and dK/dV Pallas
-    kernels run in interpret mode, from the same lse and delta."""
+def _grad_stats(causal, q_off, k_off):
+    """The inputs of a GRAD_CASES case as tensors, and the lse and delta
+    of the port's plain forward."""
     q, k, v, do = block_grad_inputs(D, seed=q_off + k_off + causal)
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     out, lse = flash_attention_with_lse(tq, tk, tv, causal, None, q_off,
                                         k_off)
-    delta = (tdo * out).sum(-1)
+    return (tq, tk, tv, tdo), lse, (tdo * out).sum(-1)
+
+
+def _jax_grads_ref(causal, q_off, k_off):
+    inputs, lse, delta = _grad_stats(causal, q_off, k_off)
+    ref = jax_flash_backward(*(jnp.asarray(x.numpy()) for x in inputs),
+                             jnp.asarray(lse.numpy()),
+                             jnp.asarray(delta.numpy()), causal, D ** -0.5,
+                             64, 64, True, q_off, k_off)
+    return [np.asarray(r) for r in ref]
+
+
+@pytest.mark.parametrize("causal,q_off,k_off", GRAD_CASES)
+def test_block_grads_at_head_dim_32_match_jax_backward(jax_refs, causal,
+                                                       q_off, k_off):
+    """K2 and K3's function (`flash_block_grads`, the plain version on CPU
+    tensors) against the JAX `_flash_backward`, whose dQ and dK/dV Pallas
+    kernels run in interpret mode, from the same lse and delta."""
+    (tq, tk, tv, tdo), lse, delta = _grad_stats(causal, q_off, k_off)
     scale = D ** -0.5
     got = flash_block_grads(tq, tk, tv, tdo, lse, delta, causal, scale,
                             q_off, k_off)
-    ref = jax_flash_backward(*(jnp.asarray(x) for x in (q, k, v, do)),
-                             jnp.asarray(lse.numpy()),
-                             jnp.asarray(delta.numpy()), causal, scale, 64,
-                             64, True, q_off, k_off)
+    ref = jax_refs[("grads", causal, q_off, k_off)]
     for g, r in zip(got, ref):
         assert g.shape == (2, 128, 4, D)
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), **GRAD_TOL)
+        np.testing.assert_allclose(g.numpy(), r, **GRAD_TOL)
     if k_off > q_off:
         assert torch.count_nonzero(got[0][:, :k_off - q_off]) == 0
 

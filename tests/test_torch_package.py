@@ -818,27 +818,33 @@ def test_decode_kernels_at_small_head_dims(cuda, d, b, window, cache,
     _check_decode_kernels(cuda, d, b, window, cache, q_dtype)
 
 
-# K2 and K3 at head dims 8, 16 and 32 (bf16: the mma.sync pair; f32: lane
-# groups of D lanes): the training shape's causal diagonal, non-causal
-# ragged sides, offsets with rows that see no key, and the edges of the
-# 64-row owned and walked tiles.  (B, Sq, Sk, causal, q_offset, k_offset)
+# K2 and K3 at head dims 8-128 (bf16 at 8-32: the mma.sync pair; f32: the
+# register-tiled pair, 64 owned rows in four warps of 16): the training
+# shape's causal diagonal, non-causal ragged sides, offsets with rows that
+# see no key, the edges of the 64-row owned and walked tiles, and the f32
+# K3's warp edges (Sk = 33: one valid row in warp 2 and warp 3 past Sk;
+# Sk = 96: half the second CTA).  (B, Sq, Sk, causal, q_offset, k_offset)
 SMALL_BACKWARD = [(2, 512, 512, True, 0, 0), (2, 768, 1280, False, 0, 0),
                   (2, 512, 512, True, 512, 256), (2, 256, 256, True, 0, 100),
                   (2, 129, 129, True, 0, 0), (2, 1, 640, True, 500, 0),
                   (2, 300, 37, False, 0, 0), (3, 200, 200, True, 0, 0),
-                  (2, 64, 64, True, 0, 0)]
+                  (2, 64, 64, True, 0, 0), (2, 200, 33, False, 0, 0),
+                  (2, 33, 33, True, 0, 0), (2, 96, 96, True, 0, 0),
+                  (2, 160, 96, False, 0, 0)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,sq,sk,causal,q_off,k_off", SMALL_BACKWARD)
-@pytest.mark.parametrize("d", [8, 16, 32])
-def test_flash_backward_kernels_at_small_head_dims(cuda, d, b, sq, sk,
-                                                   causal, q_off, k_off,
-                                                   dtype):
-    """K2 and K3 at head dims 8, 16 and 32 against plain with the
-    head-dim-64/128 gradient limits; a second launch bitwise equal (one
-    writer per output, no atomics)."""
+@pytest.mark.parametrize("d,dtype", [
+    (8, torch.bfloat16), (8, torch.float32), (16, torch.bfloat16),
+    (16, torch.float32), (32, torch.bfloat16), (32, torch.float32),
+    (64, torch.float32), (128, torch.float32)])
+def test_flash_backward_kernels_at_small_head_dims(cuda, d, dtype, b, sq, sk,
+                                                   causal, q_off, k_off):
+    """K2 and K3 at head dims 8, 16 and 32, and at f32 also 64 and 128
+    (the register-tiled pair's widest tiles and accumulators), against
+    plain with the head-dim-64/128 gradient limits; a second launch
+    bitwise equal (one writer per output, no atomics)."""
     q, k, v, do, lse, delta = _backward_inputs(cuda, b, sq, sk, causal,
                                                q_off, k_off, dtype, d)
     scale = d ** -0.5
@@ -860,6 +866,27 @@ def test_flash_backward_kernels_at_small_head_dims(cuda, d, b, sq, sk,
         _assert_grad_close(got, ref, dtype)
     if k_off > q_off:
         assert torch.count_nonzero(dq[:, :k_off - q_off]) == 0
+
+
+@pytest.mark.cuda
+def test_f32_flash_backward_refuses_misaligned_tensors(cuda):
+    """The f32 K2 and K3 read q, k, v and dout by cp.async, 16 bytes at a
+    time: a view 4 bytes into its storage raises ValueError, and no kernel
+    launches."""
+    shape = (2, 64, 8, 64)
+    n = int(np.prod(shape))
+    args = list(_backward_inputs(cuda, 2, 64, 64, True, 0, 0,
+                                 torch.float32, 64))
+    bad = torch.zeros(n + 8, dtype=torch.float32, device=cuda)[1:n + 1]
+    bad = bad.view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 4
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    for i, name in enumerate(("q", "k", "v", "dout")):
+        call = args[:i] + [bad] + args[i + 1:]
+        for kernel in (flash_bwd_dq, flash_bwd_dkv):
+            with pytest.raises(ValueError, match=f"{name} is not 16-byte"):
+                kernel(*call, True, 64 ** -0.5)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
 
 
 @pytest.mark.cuda
