@@ -12,11 +12,14 @@ tiers, and times kernels and paths.
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --ab TAG [--tree DIR]` runs only the host-bound
-serving phases, for a parent-against-change comparison, and with `--bwd`
-only the f32 K2/K3 times at every head dim: `ab_main`.)
+serving phases, for a parent-against-change comparison; with `--bwd`
+only the K2/K3 checks and times (f32 at every head dim, bf16 at 8-32),
+with `--fwd` only the bf16 K1 / K1[lse] ones at head dims 8-32:
+`ab_main`.)
 
 Phases (any failure exits non-zero before the result line):
-  1. card (nvidia-smi name and power limit) and kernel build; K1's, K2's,
+  1. card (nvidia-smi name and power limit, and the ex2 rate the bounds
+     use: 16 a clock an SM x SMs x clocks.max.sm) and kernel build; K1's, K2's,
      K3's and K4's `-Xptxas -v` lines (registers, shared memory, spills: a
      spill in any of the 60 kernels fails)
   2. flash-attention forward K1 vs plain: causal bf16 at S in {512, 1024,
@@ -120,7 +123,10 @@ Phases (any failure exits non-zero before the result line):
      seq=2 mesh, (c) the Zipf arm's width (head dim 32) trained at bf16
      and f32; every count exact, and every phase-16 row of the kernels
      line takes its launches from these paths; f32 gradient checks at 8,
-     16, 32
+     16, 32; bf16 K1, K1[lse] and K3 at 8, 16, 32 on the narrow wgmma
+     kernels' edge cases (H = 1 and 3, split and 128-key edges, offsets,
+     repeats bitwise equal); K1[lse] timed at the training shapes of (b)
+     and (c), their rows' launches from those trainings
  17. the f32 training kernels at head dims 64 and 128: K2 and K3 at (8,
      2048, 8, d) causal against plain (a second launch bitwise equal) and
      K1[lse] on the same inputs, timed beside their bounds, plain versions
@@ -130,7 +136,9 @@ Phases (any failure exits non-zero before the result line):
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
-the same run and its share of the bound.
+the same run and its share of the bound.  A bound is the largest of the
+FLOPs at the peak, the bytes at the HBM rate and the exponentials at the
+ex2 rate (`attention_bound`); no gate reads it.
 Prints the card line, a JSON line of per-kernel numbers, and last
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
@@ -151,6 +159,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
+EX2_PER_CLOCK_SM = 16      # sm_90 special-function units: ex2 a clock an SM
 
 LM_CONFIG = {"vocab_size": 8192, "d_model": 1024, "n_heads": 8,
              "n_layers": 4, "max_len": 2048, "dtype": "bfloat16"}
@@ -388,29 +397,64 @@ def phase_flash(dev, card) -> dict:
         qt, kt, vt, is_causal=True))
     flops = 4.0 * b * h * d * (s * (s + 1) / 2)        # QK^T + PV, causal
     nbytes = 4.0 * b * s * h * d * 2                   # q, k, v in; out
-    bound_f, bound_b = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound, by, term = attention_bound(flops, nbytes,
+                                      b * h * visible_pairs(s, s, True))
     print(f"timing flash_attention (8,1024,8,128) causal bf16, device time "
           f"(CUDA graph): {ms:.4f} ms; "
           f"plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; bound "
-          f"{max(bound_f, bound_b):.4f} ms (operations {bound_f:.4f} ms at "
-          f"989 TFLOP/s, bytes {bound_b:.4f} ms at 3.35 TB/s); "
-          f"{k1_rates(flops, ms, lib_ms, max(bound_f, bound_b))} [{card}]")
+          f"{bound:.4f} ms ({term}); "
+          f"{k1_rates(flops, ms, lib_ms, bound)} [{card}]")
     return {"name": "flash_attention", "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_f, bound_b),
-            "bound_by": "operations" if bound_f >= bound_b else "bytes",
+            "bound_ms": bound, "bound_by": by, "bound_term": term,
             "library_ms": lib_ms}
 
 
-def attention_bound(flops: float, nbytes: float,
+def exp_rate() -> float:
+    """The card's ex2 rate a second: EX2_PER_CLOCK_SM x its SM count x its
+    highest SM clock (`nvidia-smi` clocks.max.sm), read once."""
+    if exp_rate.detail is None:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True)
+        mhz = float(out.stdout.strip().splitlines()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        exp_rate.value = EX2_PER_CLOCK_SM * sms * mhz * 1e6
+        exp_rate.detail = (f"{EX2_PER_CLOCK_SM} ex2 a clock an SM x {sms} "
+                           f"SMs x {mhz:.0f} MHz clocks.max.sm = "
+                           f"{exp_rate.value:.4g} ex2/s")
+    return exp_rate.value
+
+
+exp_rate.value, exp_rate.detail = 0.0, None
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, q_off: int = 0,
+                  k_off: int = 0) -> int:
+    """The (query, key) pairs of one (batch, head) that the causal mask at
+    global offsets leaves visible (all sq x sk when not causal): the
+    exponentials K1, K2 and K3 each take there."""
+    if not causal:
+        return sq * sk
+    return int(np.clip(q_off + np.arange(sq) - k_off + 1, 0, sk).sum())
+
+
+def attention_bound(flops: float, nbytes: float, exps: float,
                     peak: float = PEAK_BF16_FLOPS) -> tuple:
-    """(bound ms, "operations" | "bytes") at `peak` FLOP/s (the bf16
-    tensor-core peak unless given) and the HBM rate."""
-    bound_f, bound_b = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(bound_f, bound_b), ("operations" if bound_f >= bound_b
-                                   else "bytes")
+    """(bound ms, bound_by, term): the largest of three times -- `flops` at
+    `peak` FLOP/s (the bf16 tensor-core peak unless given), `nbytes` at the
+    HBM rate and `exps` exponentials at the card's ex2 rate (`exp_rate`).
+    `term` names the winner ("flops", "bytes" or "exp"); `bound_by` is
+    "bytes" for the bytes and "operations" for either count of operations
+    at its type's peak."""
+    times = {"flops": flops / peak * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+             "exp": exps / exp_rate() * 1e3}
+    term = max(times, key=times.get)
+    return (times[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def k1_rates(flops: float, ms: float, lib_ms: float, bound: float) -> str:
@@ -535,16 +579,18 @@ def phase_flash_lse(dev, card) -> dict:
             qt, kt, vt, 0.0, True))
     flops = 4.0 * b * h * d * (s * (s + 1) / 2)        # QK^T + PV, causal
     nbytes = 4.0 * b * s * h * d * 2 + b * s * h * 4    # q, k, v, out; lse
-    bound, bound_by = attention_bound(flops, nbytes)
+    bound, bound_by, term = attention_bound(flops, nbytes,
+                                            b * h * visible_pairs(s, s, True))
     print(f"timing flash_attention_with_lse (8,2048,8,128) causal bf16, "
           f"device time (CUDA graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; "
           f"aten flash forward with lse {lib_ms:.4f} ms; bound {bound:.4f} "
-          f"ms ({bound_by}); {k1_rates(flops, ms, lib_ms, bound)} [{card}]")
+          f"ms ({term}); {k1_rates(flops, ms, lib_ms, bound)} [{card}]")
     return {"name": "flash_attention[lse]", "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound, "bound_by": bound_by, "bound_term": term,
+            "library_ms": lib_ms}
 
 
 def phase_backward(dev, card) -> list:
@@ -723,16 +769,18 @@ def time_backward(card, gen, d: int, dtype=torch.bfloat16,
     for name, ms, products, outs in (("flash_bwd_dq", dq_ms, 3, 1),
                                      ("flash_bwd_dkv", dkv_ms, 4, 2)):
         flops = products * 2.0 * b * h * d * tri
-        bound, bound_by = attention_bound(
-            flops, io + outs * b * s * h * d * item, peak)
+        # each kernel recomputes P: one exponential a visible pair
+        bound, bound_by, term = attention_bound(
+            flops, io + outs * b * s * h * d * item, b * h * tri, peak)
         print(f"timing {name} (8,2048,8,{d}) causal {tag}, device time (CUDA "
               f"graph): {ms:.4f} ms; plain (dq, dk, dv together) "
               f"{plain_ms:.4f} ms; {lib} (pair, CUDA graph) {lib_ms:.4f} "
-              f"ms; bound {bound:.4f} ms ({bound_by}); "
+              f"ms; bound {bound:.4f} ms ({term}); "
               f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.2f}x the "
               f"library pair, {bound / ms:.3f} of the bound [{card}]")
         timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "library_ms": lib_ms}
+                       "bound_by": bound_by, "bound_term": term,
+                       "library_ms": lib_ms}
     pair_bound = sum(t["bound_ms"] for t in timed.values())
     print(f"timing K2 + K3 (8,2048,8,{d}) causal {tag}: "
           f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / lib_ms:.2f}x the "
@@ -819,16 +867,15 @@ def phase_decode(dev, card) -> list:
         if kind == "int8":
             nbytes += 2.0 * n_visible * h * 4
         flops = 4.0 * n_visible * h * d
-        bound_b = nbytes / PEAK_BYTES * 1e3
-        bound_f = flops / PEAK_F32_FLOPS * 1e3
+        bound, by, term = attention_bound(flops, nbytes, n_visible * h,
+                                          PEAK_F32_FLOPS)
         print(f"timing fused_single_query_attention (8,1152,8,128) "
               f"cache={kind}, {n_spans} spans of {span} slots, device time "
               f"(CUDA graph): {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s); one eager call incl. host "
               f"launch {call_ms:.4f} ms; plain {plain_ms:.4f} ms; SDPA "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
-              f"{max(bound_b, bound_f):.4f} ms, "
-              f"{max(bound_b, bound_f) / ms:.3f} of it [{card}]")
+              f"{bound:.4f} ms ({term}), {bound / ms:.3f} of it [{card}]")
         entries.append({
             "name": ("fused_single_query_attention" if kind == "model"
                      else "fused_single_query_attention[int8]"),
@@ -836,8 +883,7 @@ def phase_decode(dev, card) -> list:
             "source": "mmlspark_tpu_torch/csrc/decode_attention.cu",
             "replaces": "mmlspark_tpu/ops/decode_attention.py:245",
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_b, bound_f),
-            "bound_by": "bytes" if bound_b >= bound_f else "operations",
+            "bound_ms": bound, "bound_by": by, "bound_term": term,
             "library_ms": lib_ms})
     return entries
 
@@ -958,18 +1004,16 @@ def phase_main_path(dev, card) -> dict:
 
 def stats_bound(b: int, h: int, d: int, n_visible: int, window: int,
                 item: int, quantized: bool) -> tuple:
-    """(bound ms, "bytes" | "operations") of one single-query cache read:
-    the K and V rows of the visible slots (and their int8 scales), the
-    mask, q in and the f32 outputs, over the HBM rate; its 4 f32 FLOPs
-    per visible element over the f32 peak."""
+    """`attention_bound` of one single-query cache read: the K and V rows
+    of the visible slots (and their int8 scales), the mask, q in and the
+    f32 outputs, over the HBM rate; its 4 f32 FLOPs per visible element
+    over the f32 peak; one exponential per visible slot and head."""
     nbytes = (2.0 * n_visible * h * d * item + b * window + b * h * d * 4
               + b * h * d * 4 + 2 * b * h * 4)
     if quantized:
         nbytes += 2.0 * n_visible * h * 4
-    bound_b = nbytes / PEAK_BYTES * 1e3
-    bound_f = 4.0 * n_visible * h * d / PEAK_F32_FLOPS * 1e3
-    return max(bound_b, bound_f), ("bytes" if bound_b >= bound_f
-                                   else "operations")
+    return attention_bound(4.0 * n_visible * h * d, nbytes, n_visible * h,
+                           PEAK_F32_FLOPS)
 
 
 def phase_decode_stats(dev, card) -> list:
@@ -1052,13 +1096,14 @@ def phase_decode_stats(dev, card) -> list:
             q, k, v, visible, **kw))
         plain_ms = graph_ms(lambda: fused_single_query_attention_stats_plain(
             q, k, v, visible, **kw))
-        bound, bound_by = stats_bound(b, h, 64, int(visible.sum().item()),
-                                      slab, k.element_size(), kind == "int8")
+        bound, bound_by, term = stats_bound(
+            b, h, 64, int(visible.sum().item()), slab, k.element_size(),
+            kind == "int8")
         print(f"timing fused_single_query_attention_stats ({b},{slab},{h},64)"
               f" cache={kind}, every slot visible, {n_spans} spans of {span}"
               f" slots, device time (CUDA graph): {ms:.4f} ms; plain "
               f"{plain_ms:.4f} ms; library none (no PyTorch call returns "
-              f"the unnormalized triple); bound {bound:.4f} ms ({bound_by}),"
+              f"the unnormalized triple); bound {bound:.4f} ms ({term}),"
               f" {bound / ms:.3f} of it [{card}]")
         entries.append({
             "name": ("fused_single_query_attention_stats" if kind == "model"
@@ -1068,7 +1113,8 @@ def phase_decode_stats(dev, card) -> list:
             "replaces": "mmlspark_tpu/ops/decode_attention.py:245 "
                         "(fused_single_query_attention_stats, :326)",
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound, "bound_by": bound_by, "bound_term": term,
+            "library_ms": None})
 
     # K4 at head dim 64 on the seq=1 engine's window
     window, bucket = LC_CONTEXT + LC_CHUNK, LC_CONTEXT
@@ -1092,20 +1138,21 @@ def phase_decode_stats(dev, card) -> list:
     lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=visible[:, None, None, :]))
-    bound, bound_by = stats_bound(b, h, 64, int(visible.sum().item()),
-                                  window, 2, False)
+    bound, bound_by, term = stats_bound(b, h, 64, int(visible.sum().item()),
+                                        window, 2, False)
     print(f"fused_single_query_attention ({b},{window},{h},64) bf16 cache: "
           f"max_abs_err={err:.3e} (tol 2e-3); {n_spans} spans of {span} "
           f"slots; device time (CUDA graph) {ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); "
-          f"bound {bound:.4f} ms ({bound_by}), {bound / ms:.3f} of it "
+          f"bound {bound:.4f} ms ({term}), {bound / ms:.3f} of it "
           f"[{card}]")
     entries.append({
         "name": "fused_single_query_attention[d64]", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/decode_attention.cu",
         "replaces": "mmlspark_tpu/ops/decode_attention.py:245",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
+        "bound_ms": bound, "bound_by": bound_by, "bound_term": term,
+        "library_ms": lib_ms})
     return entries
 
 
@@ -1162,19 +1209,21 @@ def phase_ring_lse(dev, card) -> list:
     lib_ms = graph_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
         qt, kt, vt, 0.0, False))
     flops = 4.0 * b * h * 64 * s_l * s_l
-    bound, bound_by = attention_bound(flops, 4.0 * b * s_l * h * 64 * 2
-                                      + b * s_l * h * 4)
+    bound, bound_by, term = attention_bound(
+        flops, 4.0 * b * s_l * h * 64 * 2 + b * s_l * h * 4,
+        b * h * visible_pairs(s_l, s_l, True, s_l, 0))
     print(f"timing flash_attention_with_lse ({b},{s_l},{h},64) q_offset "
           f"{s_l} k_offset 0 (no key masked) bf16, device time (CUDA "
           f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; aten flash "
           f"forward with lse, non-causal {lib_ms:.4f} ms; bound {bound:.4f} "
-          f"ms ({bound_by}); {k1_rates(flops, ms, lib_ms, bound)} [{card}]")
+          f"ms ({term}); {k1_rates(flops, ms, lib_ms, bound)} [{card}]")
     entries = [{
         "name": "flash_attention[lse,d64]", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}]
+        "bound_ms": bound, "bound_by": bound_by, "bound_term": term,
+        "library_ms": lib_ms}]
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
@@ -1196,18 +1245,20 @@ def phase_ring_lse(dev, card) -> list:
     lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     flops = 4.0 * b * h * 64 * (s * (s + 1) / 2)
-    bound, bound_by = attention_bound(flops, 4.0 * b * s * h * 64 * 2)
+    bound, bound_by, term = attention_bound(
+        flops, 4.0 * b * s * h * 64 * 2, b * h * visible_pairs(s, s, True))
     print(f"timing flash_attention ({b},{s},{h},64) causal bf16, device "
           f"time (CUDA graph): {ms:.4f} ms; "
           f"plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; bound "
-          f"{bound:.4f} ms ({bound_by}); "
+          f"{bound:.4f} ms ({term}); "
           f"{k1_rates(flops, ms, lib_ms, bound)} [{card}]")
     entries.append({
         "name": "flash_attention[d64]", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
+        "bound_ms": bound, "bound_by": bound_by, "bound_term": term,
+        "library_ms": lib_ms})
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return entries
@@ -3253,15 +3304,15 @@ def head_dim_kernel_checks(dev, card, d: int) -> dict:
     # times, bounds, library calls
     entries: dict = {}
 
-    def entry(name, replaces, err, ms, plain_ms, bound, bound_by, lib_ms):
+    def entry(name, replaces, err, ms, plain_ms, bound, lib_ms):
         entries[name] = {
             "name": name, "route": "cuda",
             "source": ("mmlspark_tpu_torch/csrc/flash_attention.cu"
                        if name.startswith("flash") else
                        "mmlspark_tpu_torch/csrc/decode_attention.cu"),
             "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms}
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_term": bound[2], "library_ms": lib_ms}
 
     flops = 4.0 * b * h * d * (s * (s + 1) / 2)        # QK^T + PV, causal
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, ", f32")):
@@ -3292,24 +3343,24 @@ def head_dim_kernel_checks(dev, card, d: int) -> dict:
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True), name)
             nbytes = 4.0 * b * s * h * d * item + (b * s * h * 4 if lse else 0)
-            bound_f, bound_b = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-            bound = max(bound_f, bound_b)
-            by = "operations" if bound_f >= bound_b else "bytes"
+            bound = attention_bound(flops, nbytes,
+                                    b * h * visible_pairs(s, s, True), peak)
             print(f"timing {name} {shape} causal, device time (CUDA "
                   f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; library "
                   f"{lib_ms:.4f} ms; "
-                  f"bound {bound:.4f} ms ({by}); {flops / ms / 1e9:.1f} "
-                  f"TFLOP/s, {bound / ms:.3f} of the bound [{card}]")
+                  f"bound {bound[0]:.4f} ms ({bound[2]}); "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {bound[0] / ms:.3f} of "
+                  f"the bound [{card}]")
             entry(name, "mmlspark_tpu/ops/flash_attention.py:148",
                   errs["k1_bf16" if dtype == torch.bfloat16 else "k1_f32"],
-                  ms, plain_ms, bound, by, lib_ms)
+                  ms, plain_ms, bound, lib_ms)
 
     span, n_spans = _span_plan(window, b4 * h4, _sm_count(dev))
     for kind in ("bf16", "f32", "int8"):
         q, k, v, visible, kw = cases[kind]
         n_visible = int(visible.sum().item())
-        bound, by = stats_bound(b4, h4, d, n_visible, window,
-                                k.element_size(), kind == "int8")
+        bound = stats_bound(b4, h4, d, n_visible, window,
+                            k.element_size(), kind == "int8")
         lib_ms = None
         if kind != "int8":
             mask = visible[:, None, None, :]
@@ -3332,12 +3383,12 @@ def head_dim_kernel_checks(dev, card, d: int) -> dict:
                   f"slots, device time (CUDA graph): {ms:.4f} ms; plain "
                   f"{plain_ms:.4f} ms; library "
                   f"{'none' if stats or lib_ms is None else f'SDPA {lib_ms:.4f} ms'}"
-                  f"; bound {bound:.4f} ms ({by}), {bound / ms:.3f} of it "
-                  f"[{card}]")
+                  f"; bound {bound[0]:.4f} ms ({bound[2]}), "
+                  f"{bound[0] / ms:.3f} of it [{card}]")
             entry(name, "mmlspark_tpu/ops/decode_attention.py:245" + (
                 " (fused_single_query_attention_stats, :326)" if stats
                 else ""), errs[f"k4s_{kind}" if stats else f"k4_{kind}"], ms,
-                plain_ms, bound, by, None if stats else lib_ms)
+                plain_ms, bound, None if stats else lib_ms)
     return entries
 
 
@@ -3494,6 +3545,88 @@ def small_dim_backward_checks(dev, card) -> dict:
     return entries
 
 
+# the wgmma kernels at head dims 8-32 (bf16 K1 `flash_fwd_bf16_narrow`, K3
+# `flash_bwd_dkv_narrow`): the split walk's and the 128-key CTA's edges,
+# ragged non-causal sides, the phase-15 offsets, H = 1 and 3 (statistics
+# rows that are not 16-byte multiples).  The cases of
+# tests/test_torch_package.py::test_narrow_wgmma_kernels_match_plain.
+# (B, Sq, Sk, H, causal, q_offset, k_offset)
+NARROW_CASES = ((2, 33, 33, 8, True, 0, 0), (2, 96, 96, 8, True, 0, 0),
+                (2, 1000, 1000, 8, True, 0, 0),
+                (2, 300, 700, 8, False, 0, 0), (2, 700, 300, 8, False, 0, 0),
+                (2, 512, 512, 8, True, 512, 0), (2, 512, 512, 8, True, 0, 200),
+                (2, 128, 128, 8, True, 0, 0), (2, 129, 129, 8, True, 0, 0),
+                (2, 192, 192, 8, True, 0, 0), (1, 200, 200, 1, True, 0, 0),
+                (3, 130, 130, 3, True, 0, 0), (2, 1, 640, 3, True, 500, 0))
+
+
+def narrow_kernel_checks(dev, card) -> None:
+    """bf16 K1, K1[lse] and K3 at head dims 8, 16 and 32 on NARROW_CASES
+    against plain with the head-dim-64/128 limits: K1's out equal to
+    K1[lse]'s, a second launch of each bitwise equal to the first, rows
+    that see no key exactly zero with lse NEG_INF, keys no query reaches
+    exactly zero gradients."""
+    from mmlspark_tpu_torch.ops.attention import NEG_INF
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_with_lse,
+        flash_attention_with_lse_plain, flash_block_grads_plain,
+        flash_bwd_dkv)
+    worst = [0.0, 0.0, 0.0]   # out max|d|, dK and dV ||d||/||ref||
+    for d in (8, 16, 32):
+        for b, sq, sk, h, causal, q_off, k_off in NARROW_CASES:
+            gen = torch.Generator(device=dev).manual_seed(sq + 7 * sk + h + d)
+            q, do = (torch.randn((b, sq, h, d), generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn((b, sk, h, d), generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+            scale = d ** -0.5
+            what = (f"head dim {d}: bf16 K1/K3 (B, Sq, Sk, H) = ({b}, {sq}, "
+                    f"{sk}, {h}) causal={causal} offsets {q_off}/{k_off}")
+            out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off,
+                                                k_off)
+            again = flash_attention_with_lse(q, k, v, causal, None, q_off,
+                                             k_off)
+            no_lse = (flash_attention(q, k, v, causal=causal)
+                      if q_off == k_off == 0 else out)
+            ref_out, ref_lse = flash_attention_with_lse_plain(
+                q, k, v, causal, None, q_off, k_off)
+            delta = (do.float() * ref_out.float()).sum(-1)
+            grads = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale,
+                                  q_off, k_off)
+            grads2 = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal,
+                                   scale, q_off, k_off)
+            torch.cuda.synchronize()
+            refs = flash_block_grads_plain(q, k, v, do, ref_lse, delta,
+                                           causal, scale, q_off, k_off)[1:]
+            err, norm_err = out_errs(out, ref_out)
+            lse_err = (lse - ref_lse).abs().max().item()
+            g_errs = [grad_errs(a, r) for a, r in zip(grads, refs)]
+            same = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                    and torch.equal(no_lse, out)
+                    and all(torch.equal(a, r) for a, r in zip(grads, grads2)))
+            dark = True
+            if causal and k_off > q_off:
+                dark = (torch.count_nonzero(out[:, :k_off - q_off]).item() == 0
+                        and bool((lse[:, :k_off - q_off] == NEG_INF).all()))
+            if causal and q_off + sq < k_off + sk:
+                seen = max(0, q_off + sq - k_off)
+                dark = dark and all(torch.count_nonzero(g[:, seen:]).item()
+                                    == 0 for g in grads)
+            require(err <= 2e-2 and norm_err <= 1e-2 and lse_err <= 1e-3
+                    and all(m <= 2e-2 and n <= 1e-2 for m, n in g_errs)
+                    and same and dark,
+                    f"{what}: out {err:.3e} / {norm_err:.3e}, lse "
+                    f"{lse_err:.3e}, dK dV {g_errs}, repeats equal {same}, "
+                    f"unseen rows and keys exactly zero {dark}")
+            worst = [max(worst[0], err), max(worst[1], g_errs[0][1]),
+                     max(worst[2], g_errs[1][1])]
+    print(f"bf16 K1, K1[lse] and K3 at head dims 8, 16, 32 on "
+          f"{len(NARROW_CASES)} edge cases each: all within the limits "
+          f"(worst out max_abs_err {worst[0]:.3e}, dK / dV ||d||/||ref|| "
+          f"{worst[1]:.3e} / {worst[2]:.3e}), repeats bitwise equal, unseen "
+          f"rows and keys exactly zero [{card}]")
+
+
 def backward_entries(d: int, tag: str, abs_err: list, timed: dict) -> dict:
     """The kernels-line rows of K2 and K3 at head dim `d` (`tag`: "" or
     ", f32") from their max |error| (dq, dk, dv) and `time_backward`."""
@@ -3565,18 +3698,90 @@ def time_lse_f32(card, d: int, args: tuple) -> dict:
             q, k, v, None, None, None, None, None, 0.0, 1, True,
             scale=scale), name)
     flops = 4.0 * b * h * d * (s * (s + 1) / 2)
-    bound, by = attention_bound(flops, 4.0 * b * s * h * d * 4 + b * s * h * 4,
-                                PEAK_F32_FLOPS)
+    bound, by, term = attention_bound(
+        flops, 4.0 * b * s * h * d * 4 + b * s * h * 4,
+        b * h * visible_pairs(s, s, True), PEAK_F32_FLOPS)
     print(f"timing {name} {tuple(q.shape)} causal, device time (CUDA graph): "
           f"{ms:.4f} ms; plain {plain_ms:.4f} ms; aten efficient forward "
-          f"with lse {lib_ms:.4f} ms; bound {bound:.4f} ms ({by}); "
+          f"with lse {lib_ms:.4f} ms; bound {bound:.4f} ms ({term}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.2f}x the library "
           f"call, {bound / ms:.3f} of the bound [{card}]")
     return {"name": name, "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bound, "bound_by": by, "bound_term": term,
+            "library_ms": lib_ms}
+
+
+def bf16_k1_rows(dev, card, shape: tuple, seed: int) -> dict:
+    """bf16 K1 and K1[lse] at `shape` (B, S, H, D) causal: out and lse
+    against plain with phase 15's limits, K1's out bitwise equal to
+    K1[lse]'s and a second K1[lse] launch bitwise equal to the first; then
+    each one's time (CUDA graph) beside its bound, plain version and library
+    call (SDPA for K1; `aten._scaled_dot_product_flash_attention`, which
+    returns the log-sum-exp too, for K1[lse]).  Returns both kernels-line
+    rows (without launches), named by head dim and shape."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain, flash_attention_with_lse,
+        flash_attention_with_lse_plain)
+    b, s, h, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    out, lse = flash_attention_with_lse(q, k, v, True)
+    again = flash_attention_with_lse(q, k, v, True)[1]
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, True)
+    err, norm_err = out_errs(out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    same = torch.equal(got, out) and torch.equal(lse, again)
+    print(f"bf16 flash_attention / _with_lse {shape} causal: out "
+          f"max_abs_err={err:.3e} (tol 2e-2), ||d||/||ref|| {norm_err:.3e} "
+          f"(tol 1e-2); lse max_abs_err={lse_err:.3e} (tol 1e-3); K1 equal "
+          f"to K1[lse] and a repeat bitwise {same}")
+    require(err <= 2e-2 and norm_err <= 1e-2 and lse_err <= 1e-3 and same,
+            f"bf16 K1 disagrees at {shape}")
+    del got, out, lse, again, ref_out, ref_lse
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flops = 4.0 * b * h * d * (s * (s + 1) / 2)
+    exps = b * h * visible_pairs(s, s, True)
+    rows = {}
+    for lse in (False, True):
+        name = (f"flash_attention[{'lse, ' if lse else ''}d{d}, "
+                f"({b}, {s})]")
+        if lse:
+            ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True))
+            plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(
+                q, k, v, True), calls=3)
+            lib, lib_ms = "aten flash forward with lse", library_ms(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    qt, kt, vt, 0.0, True), name)
+        else:
+            ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
+            plain_ms = graph_ms(lambda: flash_attention_plain(
+                q, k, v, causal=True), calls=3)
+            lib, lib_ms = "SDPA", library_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), name)
+        bound, by, term = attention_bound(
+            flops, 4.0 * b * s * h * d * 2 + (b * s * h * 4 if lse else 0),
+            exps)
+        print(f"timing {name} {shape} causal bf16, device time (CUDA "
+              f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; {lib} "
+              f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({term}); "
+              f"{k1_rates(flops, ms, lib_ms, bound)} [{card}]")
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "bound_term": term,
+            "library_ms": lib_ms}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_wide_f32_backward(dev, card, grad_check: dict) -> tuple:
@@ -3651,11 +3856,12 @@ def wide_f32_k1(dev, card) -> tuple:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), name)
         flops = 4.0 * b * h * d * (s * (s + 1) / 2)
-        bound, by = attention_bound(flops, 4.0 * b * s * h * d * 4,
-                                    PEAK_F32_FLOPS)
+        bound, by, term = attention_bound(
+            flops, 4.0 * b * s * h * d * 4, b * h * visible_pairs(s, s, True),
+            PEAK_F32_FLOPS)
         print(f"timing {name} {(b, s, h, d)} causal, device time (CUDA "
               f"graph): {ms:.4f} ms; plain {plain_ms:.4f} ms; SDPA "
-              f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({by}); "
+              f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({term}); "
               f"{flops / ms / 1e9:.1f} TFLOP/s, "
               f"{bound / ms:.3f} of the bound [{card}]")
         entries[name] = {
@@ -3663,7 +3869,8 @@ def wide_f32_k1(dev, card) -> tuple:
             "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bound, "bound_by": by, "bound_term": term,
+            "library_ms": lib_ms}
         del q, k, v, qt, kt, vt, got
         bundle = ModelBundle.init("TransformerLM",
                                   {**config, "dtype": "float32"}, seed=d)
@@ -3985,6 +4192,13 @@ def phase_small_head_dims(dev, card) -> tuple:
     wide, wide_launches = wide_f32_k1(dev, card)
     entries.update(wide)
     entries.update(small_dim_backward_checks(dev, card))
+    narrow_kernel_checks(dev, card)
+    # K1[lse] at the training shapes of paths (b) and (c)
+    for i, shape in enumerate(((TRAIN_BATCH, TRAIN_SEQ, 8, 16),
+                               (TRAIN_BATCH, ZIPF["config"]["max_len"], 8,
+                                32))):
+        entries.update({name: row for name, row in bf16_k1_rows(
+            dev, card, shape, seed=216 + i).items() if "lse" in name})
     torch.cuda.empty_cache()
     paths = {"a": example_path(dev, card), "b": default_widths_path(dev, card),
              "c": flash_training(dev, card, "(c) the Zipf arm's width",
@@ -4000,6 +4214,11 @@ def phase_small_head_dims(dev, card) -> tuple:
             train = path[f"train_{dtype}"]
             launches[f"flash_bwd_dq[d{d}{tag}]"] = train["K2"]
             launches[f"flash_bwd_dkv[d{d}{tag}]"] = train["K3"]
+    launches[f"flash_attention[lse, d16, ({TRAIN_BATCH}, {TRAIN_SEQ})]"] = \
+        paths["b"]["train_bf16"]["K1[lse]"]
+    launches[f"flash_attention[lse, d32, ({TRAIN_BATCH}, "
+             f"{ZIPF['config']['max_len']})]"] = \
+        paths["c"]["train_bf16"]["K1[lse]"]
     # K1 and K4 at head dim 32 are phase 15's rows
     for d, path in ((8, paths["a"]), (16, paths["b"])):
         for tag, dtype in (("", "bf16"), (", f32", "f32")):
@@ -4032,6 +4251,8 @@ def main() -> int:
 
     card = card_line()
     print(card)
+    exp_rate()
+    print(f"exp rate: {exp_rate.detail} [{card}]")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     build_s = native.build()
@@ -4108,7 +4329,8 @@ def main() -> int:
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
                + ring_lse + d32 + small + wide)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
+            "library_ms")
     print(json.dumps({"main_path": {k: v for k, v in main_path.items()
                                     if k != "counts"},
                       "train_path": {k: v for k, v in train.items()
@@ -4129,24 +4351,48 @@ def main() -> int:
     return 0
 
 
-def f32_backward_times(dev, card) -> dict:
-    """`chip_smoke.py --ab TAG --bwd`: K2 and K3 at f32 on (8, 2048, 8, d)
-    causal at every head dim, checked against plain (`check_backward`) and
-    timed (`time_backward`).  Returns per head dim the K2 and K3 ms and
-    the library pair's."""
+def backward_times(dev, card) -> dict:
+    """`chip_smoke.py --ab TAG --bwd`: K2 and K3 on (8, 2048, 8, d) causal,
+    f32 at every head dim and bf16 at 8, 16 and 32, checked against plain
+    (`check_backward`) and timed (`time_backward`).  Returns per dtype and
+    head dim the K2 and K3 ms and the library pair's."""
     gen = torch.Generator(device=dev).manual_seed(11)
+    out: dict = {"f32": {}, "bf16": {}}
+    for dtype, dims in ((torch.float32, (8, 16, 32, 64, 128)),
+                        (torch.bfloat16, (8, 16, 32))):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for d in dims:
+            args = backward_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+                                   True, 0, 0, dtype, d)
+            check_backward(args, d, dtype,
+                           f"head dim {d}: flash backward {tag}")
+            timed = time_backward(card, gen, d, dtype, args)
+            out[tag][d] = {
+                "dq_ms": timed["flash_bwd_dq"]["ms"],
+                "dkv_ms": timed["flash_bwd_dkv"]["ms"],
+                "library_pair_ms": timed["flash_bwd_dq"]["library_ms"]}
+            del args
+            torch.cuda.empty_cache()
+    return out
+
+
+# `--fwd`: the bf16 K1 shapes of phases 15 and 16 at head dims 8-32 and the
+# training shapes of paths (b) and (c)
+FWD_SHAPES = ((2, 1024, 8, 8), (2, 1024, 8, 16), (2, 1024, 8, 32),
+              (TRAIN_BATCH, TRAIN_SEQ, 8, 16), (TRAIN_BATCH, 1024, 8, 32))
+
+
+def forward_times(dev, card) -> dict:
+    """`chip_smoke.py --ab TAG --fwd`: bf16 K1 and K1[lse] at FWD_SHAPES,
+    checked and timed with their library calls (`bf16_k1_rows`).  Returns
+    per shape the K1 and K1[lse] ms and the library calls'."""
     out = {}
-    for d in (8, 16, 32, 64, 128):
-        args = backward_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True,
-                               0, 0, torch.float32, d)
-        check_backward(args, d, torch.float32,
-                       f"head dim {d}: flash backward f32")
-        timed = time_backward(card, gen, d, torch.float32, args)
-        out[d] = {"dq_ms": timed["flash_bwd_dq"]["ms"],
-                  "dkv_ms": timed["flash_bwd_dkv"]["ms"],
-                  "library_pair_ms": timed["flash_bwd_dq"]["library_ms"]}
-        del args
-        torch.cuda.empty_cache()
+    for i, shape in enumerate(FWD_SHAPES):
+        rows = list(bf16_k1_rows(dev, card, shape, seed=100 + i).values())
+        out[str(shape)] = {"k1_ms": rows[0]["ms"],
+                           "sdpa_ms": rows[0]["library_ms"],
+                           "k1_lse_ms": rows[1]["ms"],
+                           "aten_flash_ms": rows[1]["library_ms"]}
     return out
 
 
@@ -4164,9 +4410,9 @@ def ab_main(argv: list) -> int:
     gates hold as in a full run.  Prints one line, `AB {...}`: the
     tree's tag and directory, each phase's tokens/s, phase 14's overlap
     and splice-to-first-decode ms, the card's name and power limit.  With
-    `--bwd`, only `f32_backward_times` on that tree's kernels (their
-    ptxas lines printed first), for the same comparison of a kernel
-    change."""
+    `--bwd`, only `backward_times` on that tree's kernels, with `--fwd`
+    only `forward_times` (both: both), their ptxas lines printed first,
+    for the same comparison of a kernel change."""
     import argparse
     import importlib.util
     import os
@@ -4174,6 +4420,7 @@ def ab_main(argv: list) -> int:
     ap.add_argument("--ab", required=True, metavar="TAG")
     ap.add_argument("--tree", default=None, metavar="DIR")
     ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--fwd", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4190,11 +4437,18 @@ def ab_main(argv: list) -> int:
     dev = torch.device("cuda")
     out: dict = {"tree": args.ab, "dir": tree, "card": card}
     t0 = time.perf_counter()
-    if args.bwd:
-        for row in ptxas_report("flash_backward", "flash_bwd"):
+    if args.bwd or args.fwd:
+        exp_rate()
+        print(f"exp rate: {exp_rate.detail} [{card}]")
+        for row in (ptxas_report("flash_attention", "flash_fwd")
+                    + ptxas_report("flash_backward", "flash_bwd")):
             print(f"ptxas {row['kernel']}: {row['registers']} registers, "
+                  f"{row['static_smem_bytes']} bytes static shared memory, "
                   f"{row['spill_stores']} / {row['spill_loads']} bytes spill")
-        out["f32_backward"] = f32_backward_times(dev, card)
+        if args.fwd:
+            out["bf16_forward"] = forward_times(dev, card)
+        if args.bwd:
+            out["backward"] = backward_times(dev, card)
         out["seconds"] = time.perf_counter() - t0
         print("AB " + json.dumps(out))
         return 0

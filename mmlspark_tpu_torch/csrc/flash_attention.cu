@@ -50,33 +50,35 @@
 //     warpgroup's own Q rows of shared memory and write rows < Sq with
 //     16-byte stores; lse = (m2 + log2 l) * ln 2 with m2 the base-2 max.
 //
-// Design, bf16 at head dims 8, 16 and 32 (`flash_fwd_bf16_mma<D>`).  A
-// row of 8-32 bf16 columns is 16-64 bytes, narrower than the 128-byte
-// swizzle span the TMA boxes and wgmma descriptors above are laid out
-// for, and a 64 x D P V product would leave a warpgroup's wgmma mostly
-// idle.  So these head dims have their own, simpler kernel on warp-level
-// tensor-core products (mma.sync, csrc/mma.cuh):
-//   * one CTA of four warps owns 64 query rows of one (batch, head), 16
-//     per warp, heaviest causal tiles first; 64-key K/V tiles stream
-//     through a 2-stage ring in shared memory by cp.async (16 bytes a
-//     thread, rows past S zero-filled), so tile t + 1 loads while tile t
-//     is computed;
-//   * shared rows are 16 (D = 8, unpadded), 48 (D = 16) or 80 (D = 32)
-//     bytes, so the 8 rows an ldmatrix reads fall in 8 distinct 16-byte
-//     bank groups (no conflicts);
-//   * S = Q K^T: Q's A fragments are loaded once (ldmatrix), K's B
-//     fragments by ldmatrix (K rows are the product's columns, d
-//     contiguous): m16n8k16 steps, and at D = 8 one m16n8k8 step (the
-//     contraction is 8 deep; zero-padding Q and K to 16 columns would
-//     double the shared tiles and the product for nothing); the 16 x 64
-//     f32 scores stay in registers;
-//   * the online softmax is the bf16 kernel's above (base 2, quad
-//     shuffles for the row max, masks only on tiles that straddle the
-//     diagonal or the end of Sk, hidden tiles skipped per warp);
-//   * O += P V: the score accumulators of two neighbouring 8-key columns
-//     are the A fragment of a 16-key step, so P stays in registers; V's
-//     B fragments come from ldmatrix.trans; the 16 x D accumulator stays
-//     in registers and is written with 4-byte stores after the divide.
+// Design, bf16 at head dims 8, 16 and 32 (`flash_fwd_bf16_narrow<D>`).
+// Here each score element carries about 8 instructions that do not depend
+// on D (the base-2 FMA, ex2, the mask, the pack) against a 64 x 64 x D
+// product, so the kernel is bound by instruction issue and the ex2 rate
+// (16 a clock an SM) and, at the prefill shapes, by the walk of the
+// heaviest query tile; the design keeps the products off the issue slots
+// and shortens that walk:
+//   * one CTA owns 64 query rows of one (batch, head), heaviest causal
+//     tiles first; Q's A fragments are read once from global memory into
+//     registers (at D = 8 the k 8-15 half is zero, see sm90.cuh);
+//   * where the grid is too small to fill the card (the wrapper's plan,
+//     `_k1_split`), two consumer warpgroups split the CTA's key walk,
+//     warpgroup w taking 64-key tiles kt = w (mod 2), which halves the
+//     heaviest tile's chain; each keeps its own (m, l, O) and at the end
+//     the second hands its triple to the first through shared memory,
+//     merged in that fixed order, so a launch's bits do not depend on
+//     timing; a full grid runs one consumer warpgroup a CTA (more CTAs an
+//     SM, no merge);
+//   * a producer warp streams K/V tiles by TMA (16-, 32- or 64-byte rows:
+//     no swizzle, 32- and 64-byte swizzles) into a 4-stage ring on
+//     full/empty mbarriers, stage kt % 4, so each warpgroup has two stages
+//     of its own in flight and no CTA-wide barrier stands in a tile;
+//   * S = Q K^T: wgmma m64n64k16 with Q in registers and K K-major in
+//     shared memory (one k-step at D = 8 and 16, two at 32); the online
+//     softmax is the one above (base 2, quad shuffles for the row max,
+//     masks only on tiles that straddle the diagonal or the end of Sk);
+//   * O += P V: wgmma m64nDk16, P in registers in the accumulator layout
+//     of S, V read MN-major from its tile; O stays in registers and is
+//     written with 4-byte stores after the divide.
 //
 // Design, f32 (`flash_fwd_f32<D>`, every head dim).  Full f32 on the CUDA
 // cores, no TF32: the f32 path is the precise, reference-grade one (the
@@ -100,6 +102,8 @@
 //     float rows: conflict-free scalar writes, broadcast 128-bit reads),
 //     one __syncwarp, then O += P V with each thread's 4 rows x D/8
 //     columns in registers (V rows read as 128 contiguous bytes a warp).
+
+#include <cstring>
 
 #include "common.cuh"
 #include "f32.cuh"
@@ -335,119 +339,179 @@ __global__ void __launch_bounds__(BF16_THREADS, D == 64 ? 2 : 1)  // D = 64: 2 C
   }
 }
 
-// ---- bf16 at head dims 8, 16 and 32: warp-level tensor-core products ----
+// ---- bf16 at head dims 8, 16 and 32: wgmma on a TMA ring, split key walk ----
 
-constexpr int MMA_BM = mma::ROWS;  // query rows per CTA, 16 per warp
-constexpr int MMA_BN = mma::ROWS;  // keys per K/V tile
+constexpr int NARROW_BM = 64;       // query rows per CTA
+constexpr int NARROW_BN = 64;       // keys per K/V tile
+constexpr int NARROW_STAGES = 4;    // K/V ring depth: tile kt in stage kt % 4
+// Consumer warpgroups a CTA splits its key walk between (`split`, 1 or 2,
+// planned by the wrapper: 2 when the grid is too small to fill the card),
+// warpgroup w walking key tiles kt = w (mod split); then the producer warp.
+constexpr int NARROW_MAX_SPLIT = 2;
+constexpr int NARROW_THREADS = NARROW_MAX_SPLIT * WG_THREADS + 32;
+
+// Shared memory of the narrow kernel: the ring of STAGES x (K, V) tiles,
+// then the second warpgroup's (m, l, O) for the merge, one float per
+// thread a row of 128 (conflict-free).
+template <int D>
+struct NarrowSmem {
+  static constexpr uint32_t TILE = sm90::Narrow<D>::TILE;  // one K or V tile
+  static constexpr uint32_t RING = NARROW_STAGES * 2 * TILE;
+  static constexpr int MERGED = 4 + D / 2;                  // floats a thread hands over
+  static constexpr size_t ALLOC = RING + MERGED * WG_THREADS * sizeof(float) + 1024;  // + alignment room
+};
 
 template <int D>
-__global__ void __launch_bounds__(mma::THREADS)
-    flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int H, int Sq, int Sk, float scale_log2, int causal, int q_off,
-                       int k_off) {
-  constexpr int NT = MMA_BN / 8;  // 8-key score columns per tile
-  constexpr int DT = D / 8;       // 8-wide output columns
-  constexpr int P = mma::pitch<D>();
-  __shared__ __align__(128) __nv_bfloat16 q_tile[MMA_BM * P];
-  __shared__ __align__(128) __nv_bfloat16 kv_tile[STAGES][2][MMA_BN * P];
+__global__ void __launch_bounds__(NARROW_THREADS)
+    flash_fwd_bf16_narrow(__grid_constant__ const CUtensorMap k_map, __grid_constant__ const CUtensorMap v_map,
+                          const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int H, int Sq, int Sk, float scale_log2, int causal, int q_off,
+                          int k_off, int split) {
+  using L = NarrowSmem<D>;
+  constexpr int NO = D / 2;  // O accumulator registers per thread
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[NARROW_STAGES], empty[NARROW_STAGES];
+  unsigned char* ring = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  float* merged = reinterpret_cast<float*>(ring + L::RING);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS;  // `split`: the producer warp
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * MMA_BM;  // heaviest causal tiles first
-  const int wq0 = q0 + warp * 16;                                   // this warp's first row
-  const int g = lane / 4, tig = lane % 4;                            // rows g, g + 8; columns 2 tig (+1)
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * NARROW_BM;  // heaviest causal tiles first
 
-  const int last_row = min(q0 + MMA_BM, Sq) - 1;
-  int n_kt = (Sk + MMA_BN - 1) / MMA_BN;
+  const int last_row = min(q0 + NARROW_BM, Sq) - 1;
+  int n_kt = (Sk + NARROW_BN - 1) / NARROW_BN;
   if (causal) {
     const int reach = q_off + last_row - k_off;
-    n_kt = reach < 0 ? 0 : min(n_kt, reach / MMA_BN + 1);
+    n_kt = reach < 0 ? 0 : min(n_kt, reach / NARROW_BN + 1);
   }
 
-  mma::load_rows<D>(q_tile, q, b, h, H, Sq, q0);
-  if (n_kt > 0) {
-    mma::load_rows<D>(kv_tile[0][0], k, b, h, H, Sk, 0);
-    mma::load_rows<D>(kv_tile[0][1], v, b, h, H, Sk, 0);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NARROW_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], WG_THREADS);  // the warpgroup that walks the stage's tiles
+    }
+    sm90::fence_mbar_init();
   }
-  mma::cp_async_commit();
+  __syncthreads();
 
-  float o[DT][4];
+  if (wg == split) {
+    // producer: tile kt into stage kt % STAGES once its previous tile is consumed
+    if (tid % 32 == 0) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int stage = kt % NARROW_STAGES;
+        if (kt >= NARROW_STAGES) sm90::mbar_wait(&empty[stage], ((kt / NARROW_STAGES) - 1) & 1);
+        unsigned char* dst = ring + stage * 2 * L::TILE;
+        sm90::mbar_arrive_expect_tx(&full[stage], 2 * L::TILE);
+        sm90::tma_load_4d(dst, &k_map, &full[stage], 0, h, kt * NARROW_BN, b);
+        sm90::tma_load_4d(dst + L::TILE, &v_map, &full[stage], 0, h, kt * NARROW_BN, b);
+      }
+    }
+    return;
+  }
+
+  const int t = tid % WG_THREADS, warp = t / 32, lane = tid % 32;
+  const int row = warp * 16 + lane / 4;  // rows row and row + 8 of the 64
+  const int col = 2 * (lane % 4);        // + 8j (+1): columns within a tile
+  uint32_t qa[sm90::Narrow<D>::KS][4];   // Q's A fragments, held for the whole walk
+  sm90::load_frags<D>(qa, q, b, h, H, Sq, q0 + row);
+
+  float s[32];     // scores of this thread's two rows (see sm90.cuh for the layout)
+  uint32_t p[16];  // probabilities as bf16 pairs: the A operand of P V
+  float o[NO];
 #pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running row max of the base-2 scaled scores
   float l[2] = {0.f, 0.f};              // this thread's share of the row sums
-  uint32_t qa[mma::Frag<D>::KS][4];     // Q's A fragments
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int stage = kt % STAGES;
-    if (kt + 1 < n_kt) {
-      // the other stage was released by the barrier that ended tile kt - 1
-      mma::load_rows<D>(kv_tile[1 - stage][0], k, b, h, H, Sk, (kt + 1) * MMA_BN);
-      mma::load_rows<D>(kv_tile[1 - stage][1], v, b, h, H, Sk, (kt + 1) * MMA_BN);
-    }
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
-    __syncthreads();
-    if (kt == 0) mma::load_a<D>(qa, q_tile + warp * 16 * P, lane);
-    const int k0 = kt * MMA_BN;
-    // a tile wholly above the diagonal for this warp's rows adds nothing
-    const bool hidden = causal && k_off + k0 > q_off + wq0 + 15;
-    if (!hidden) {
-      float s[NT][4];
-      mma::score_tile<D>(s, qa, kv_tile[stage][0], lane);
+  for (int kt = wg; kt < n_kt; kt += split) {
+    const int stage = kt % NARROW_STAGES;
+    const int k0 = kt * NARROW_BN;
+    sm90::mbar_wait(&full[stage], (kt / NARROW_STAGES) & 1);
+    const uint32_t k_addr = sm90::smem_addr(ring + stage * 2 * L::TILE);
+    sm90::wgmma_fence();
+    sm90::score_rs<D, NARROW_BN>(s, qa, k_addr);  // S = Q K^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
 
-      // mask only a tile that straddles the diagonal or the end of Sk
-      const bool full = k0 + MMA_BN <= Sk && (!causal || k_off + k0 + MMA_BN - 1 <= q_off + wq0);
-      if (!full) {
+    // mask only a tile that straddles the diagonal or the end of Sk
+    const bool whole = k0 + NARROW_BN <= Sk && (!causal || k_off + k0 + NARROW_BN - 1 <= q_off + q0);
+    if (!whole) {
+      // entry i is key k0 + col + dc of query q0 + row + dr (dc, dr
+      // constants): hidden past Sk, or above the diagonal when causal
+      const int key_end = Sk - k0 - col;
+      const int diag = causal ? q_off + q0 + row - k_off - k0 - col : NARROW_BN;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int key = k0 + nt * 8 + 2 * tig + i % 2;
-            const int row = wq0 + g + 8 * (i / 2);
-            if (key >= Sk || (causal && k_off + key > q_off + row)) s[nt][i] = -INFINITY;
-          }
+      for (int i = 0; i < 32; ++i) {
+        const int dc = 8 * (i / 4) + i % 2, dr = 8 * ((i / 2) % 2);
+        if (dc >= key_end || dc > diag + dr) s[i] = -INFINITY;
       }
+    }
 
-      float mx[2] = {-INFINITY, -INFINITY};
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+    float base[2], corr[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) mx[i / 2] = fmaxf(mx[i / 2], s[nt][i]);
-      float base[2];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row that sees nothing yet stays at zero weight
+      corr[r] = ex2(m[r] - base[r]);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i / 2) % 2];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p0 = ex2(fmaf(s[2 * j], scale_log2, -base[j % 2]));
+      const float p1 = ex2(fmaf(s[2 * j + 1], scale_log2, -base[j % 2]));
+      l[j % 2] += p0 + p1;
+      p[j] = pack_bf16(p0, p1);
+    }
+
+    sm90::wgmma_fence();
+    sm90::accumulate_rs<D, NARROW_BN / 16>(o, p, k_addr + L::TILE);  // O += P V
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::mbar_arrive(&empty[stage]);
+  }
+
+  // merge the two walks in a fixed order (warpgroup 0's, then 1's), so that
+  // a launch's bits do not depend on timing: warpgroup 1 hands its (m, l, O)
+  // over, warpgroup 0 rescales both to the joint max and writes the rows
+  if (split == 2) {
+    if (wg == 1) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
-        base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row that sees nothing yet stays at zero weight
-        const float corr = ex2(m[r] - base[r]);
-        m[r] = m_new;
-        l[r] *= corr;
-#pragma unroll
-        for (int j = 0; j < DT; ++j) {
-          o[j][2 * r] *= corr;
-          o[j][2 * r + 1] *= corr;
-        }
+        merged[r * WG_THREADS + t] = m[r];
+        merged[(2 + r) * WG_THREADS + t] = l[r];
       }
-      uint32_t p[NT][2];  // probabilities as bf16 pairs: rows g and g + 8
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float p0 = ex2(fmaf(s[nt][2 * r], scale_log2, -base[r]));
-          const float p1 = ex2(fmaf(s[nt][2 * r + 1], scale_log2, -base[r]));
-          l[r] += p0 + p1;
-          p[nt][r] = pack_bf16(p0, p1);
-        }
-      mma::accumulate_tile<D>(o, p, kv_tile[stage][1], lane);  // O += P V
+      for (int i = 0; i < NO; ++i) merged[(4 + i) * WG_THREADS + t] = o[i];
     }
-    __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
+    sm90::named_barrier_sync(1, 2 * WG_THREADS);
+    if (wg == 1) return;
+    float c0[2], c1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = merged[r * WG_THREADS + t];
+      const float m_new = fmaxf(m[r], m1);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      c0[r] = ex2(m[r] - base);
+      c1[r] = ex2(m1 - base);
+      l[r] = l[r] * c0[r] + merged[(2 + r) * WG_THREADS + t] * c1[r];
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      o[i] = o[i] * c0[(i / 2) % 2] + merged[(4 + i) * WG_THREADS + t] * c1[(i / 2) % 2];
   }
-  mma::cp_async_wait<0>();
 
   float inv[2];
 #pragma unroll
@@ -458,13 +522,13 @@ __global__ void __launch_bounds__(mma::THREADS)
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = wq0 + g + 8 * r;
+    const int qi = q0 + row + 8 * r;
     if (qi >= Sq) continue;
-    __nv_bfloat16* dst = out + ((size_t(b) * Sq + qi) * H + h) * D + 2 * tig;
+    __nv_bfloat16* dst = out + ((size_t(b) * Sq + qi) * H + h) * D + col;
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
-    if (lse != nullptr && tig == 0)
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    if (lse != nullptr && lane % 4 == 0)
       lse[(size_t(b) * Sq + qi) * H + h] = l[r] == 0.f ? NEG_INF : (m[r] + log2f(l[r])) * LN2;
   }
 }
@@ -711,13 +775,23 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
 }
 
 template <int D>
-cudaError_t launch_bf16_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
-                            int Sq, int Sk, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
-  const dim3 grid(B * H, (Sq + MMA_BM - 1) / MMA_BM);
-  flash_fwd_bf16_mma<D><<<grid, mma::THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, H, Sq, Sk,
-      scale * 1.4426950408889634f, causal, q_off, k_off);
+cudaError_t launch_bf16_narrow(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+                               int Sq, int Sk, float scale, int causal, int q_off, int k_off, int split,
+                               cudaStream_t stream) {
+  if (split != 1 && split != 2) return cudaErrorInvalidValue;
+  CUtensorMap k_map, v_map;
+  if (Sk > 0) {
+    if (!sm90::encode_bshd_bf16(&k_map, k, B, Sk, H, D, NARROW_BN) ||
+        !sm90::encode_bshd_bf16(&v_map, v, B, Sk, H, D, NARROW_BN))
+      return cudaErrorInvalidValue;
+  } else {
+    memset(&k_map, 0, sizeof(k_map));  // no key tile is ever loaded
+    v_map = k_map;
+  }
+  const dim3 grid(B * H, (Sq + NARROW_BM - 1) / NARROW_BM);
+  flash_fwd_bf16_narrow<D><<<grid, split * WG_THREADS + 32, NarrowSmem<D>::ALLOC, stream>>>(
+      k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), lse, H, Sq, Sk,
+      scale * 1.4426950408889634f, causal, q_off, k_off, split);
   return cudaGetLastError();
 }
 
@@ -738,11 +812,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, f
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (then scale > 0); q, k, v, out 16-byte
-// aligned (TMA at bf16 D >= 64, else cp.async); D is 8, 16, 32, 64 or 128.
-// `lse` may be null (no log-sum-exp output).  Returns the cudaError_t of the launch.
+// aligned (TMA at bf16, cp.async at f32); D is 8, 16, 32, 64 or 128.
+// `lse` may be null (no log-sum-exp output).  `split` (1 or 2): the
+// consumer warpgroups of a bf16 CTA at D <= 32; ignored elsewhere.
+// Returns the cudaError_t of the launch.
 extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                                       int H, int Sq, int Sk, int D, float scale, int causal, int q_off, int k_off,
-                                      int dtype, void* stream) {
+                                      int dtype, int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (B == 0 || H == 0 || Sq == 0) return cudaSuccess;
@@ -751,9 +827,9 @@ extern "C" int mmlspark_flash_forward(const void* q, const void* k, const void* 
     switch (D) {
       case 128: return launch_bf16<128>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
       case 64: return launch_bf16<64>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-      case 32: return launch_bf16_mma<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-      case 16: return launch_bf16_mma<16>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
-      case 8: return launch_bf16_mma<8>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, s);
+      case 32: return launch_bf16_narrow<32>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, split, s);
+      case 16: return launch_bf16_narrow<16>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, split, s);
+      case 8: return launch_bf16_narrow<8>(q, k, v, out, l, B, H, Sq, Sk, scale, causal, q_off, k_off, split, s);
       default: return cudaErrorInvalidValue;
     }
   }

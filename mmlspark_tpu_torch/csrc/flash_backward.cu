@@ -56,27 +56,46 @@
 //   * Epilogue: scale once, stage the bf16 rows in the warpgroup's own
 //     (no longer read) rows of an owned tile, 16-byte stores of rows < S.
 //
-// Design, bf16 at head dims 8, 16 and 32 (`flash_bwd_dq_mma<D>`,
-// `flash_bwd_dkv_mma<D>`).  A row of 16-64 bytes does not fill the
-// wgmma kernels' 64-column TMA boxes, so these head dims get a pair on
-// warp-level tensor-core products (mma.sync, csrc/mma.cuh), modelled on
-// K1's D <= 32 kernel:
-//   * one CTA of four warps owns 64 rows (queries in K2, heaviest causal
-//     tile first; keys in K3, key tile 0 first), 16 a warp, staged once
-//     by cp.async with their partner (dO in K2, V in K3) and held as A
-//     fragments in registers; the other side's 64-row tiles stream
-//     through a 2-stage cp.async ring (K3's stage also carries the tile's
-//     64 exp2 bases and deltas, stored by plain loads a tile ahead);
-//   * the two score-shaped products (S and dP in K2, S^T and dP^T in K3)
-//     are m16n8k16 steps (one m16n8k8 at D = 8) with the walked tile's
-//     rows as the product's columns, so in both kernels the accumulator's
-//     rows are the rows the warp owns;
-//   * P = exp2(S scale log2 e - lse log2 e) and dS = P (dP - delta) in
-//     registers, masked to exact zeros only on tiles that straddle the
-//     diagonal (or K2's ragged end of Sk); P and dS, rounded to bf16 pairs,
-//     are the A fragments of the gradient products as they lie (dQ += dS K
-//     in K2; dV += P^T dO and dK += dS^T Q in K3), whose B fragments come
-//     from the very tile by ldmatrix.trans;
+// Design, bf16 K2 at head dims 8, 16 and 32 (`flash_bwd_dq_mma<D>`), on
+// warp-level tensor-core products (mma.sync, csrc/mma.cuh):
+//   * one CTA of four warps owns 64 query rows (heaviest causal tile
+//     first), 16 a warp, staged once by cp.async with dO and held as A
+//     fragments in registers; 64-key K/V tiles stream through a 2-stage
+//     cp.async ring;
+//   * S and dP are m16n8k16 steps (one m16n8k8 at D = 8) with the key
+//     tile's rows as the product's columns; P = exp2(S scale log2 e - lse
+//     log2 e) and dS = P (dP - delta) in registers, masked to exact zeros
+//     only on tiles that straddle the diagonal or the ragged end of Sk;
+//     dS, rounded to bf16 pairs, is the A fragment of dQ += dS K as it
+//     lies, whose B fragments come from the K tile by ldmatrix.trans;
+//   * one writer per output row, no atomics; 4-byte stores after the scale.
+//
+// Design, bf16 K3 at head dims 8, 16 and 32 (`flash_bwd_dkv_narrow<D>`).
+// Each score element carries about 8 instructions that do not depend on D
+// (the FMA into base 2, ex2, the mask, dP - delta, the multiply, two
+// packs), so the kernel is bound by instruction issue and the ex2 rate;
+// the design puts all four products on wgmma, one asynchronous instruction
+// a 64 x N x 16 step, off the issue slots of that elementwise pass, and
+// keeps enough warpgroups on an SM to overlap one's products with
+// another's elementwise pass:
+//   * a CTA of one or two warpgroups owns 64 keys each of one (batch,
+//     head), their K and V rows read once from global memory into register
+//     A fragments (the k 8-15 half zero at D = 8);
+//   * the walked 64-query tiles of Q and dO stream by TMA into a 4-stage
+//     ring on full/empty mbarriers; warp 0 also produces it, refilling the
+//     stage of the previous tile (a tile late, so that it seldom waits on
+//     another warpgroup) and storing each tile's 64 exp2 bases and deltas
+//     beside it from plain loads issued a tile ahead;
+//   * a tile's queries are taken 32 at a time: S^T = K Q^T and dP^T = V
+//     dO^T as wgmma m64n32k16 with K or V in registers and the walked
+//     rows K-major in shared memory, so the accumulator's rows are the
+//     warpgroup's keys; P^T and dS^T in registers as in the wide kernels
+//     above, masked only where the diagonal crosses, a tile the keys
+//     cannot see skipped (its stage still released); the half holds the
+//     score registers to 32, so two or more CTAs share an SM at every D;
+//   * dV += P^T dO and dK += dS^T Q: wgmma m64nDk16 with P^T and dS^T as
+//     the register A operand as they lie, B read MN-major from the very
+//     rows the score product read K-major; dK and dV stay in registers;
 //   * one writer per output row, no atomics; 4-byte stores after the scale.
 //
 // Design, f32 (`flash_bwd_dq_f32<D>`, `flash_bwd_dkv_f32<D>`, every head
@@ -111,6 +130,8 @@
 //     at D = 128 holds 128 of them, dK and dV: 255 registers, no spill,
 //     under `__launch_bounds__(128, 1)`, which lets ptxas past 128);
 //   * one writer per output, no atomics: two launches give the same bits.
+
+#include <cstring>
 
 #include "common.cuh"
 #include "f32.cuh"
@@ -631,116 +652,195 @@ __global__ void __launch_bounds__(mma::THREADS)
   }
 }
 
-// K3 at D <= 32: one CTA of four warps per 64 key rows of one (batch,
-// head), 16 rows a warp, walking 64-query tiles; each ring stage also
-// holds its tile's 64 exp2 bases and deltas.
+// K3 at D <= 32: wgmma on a TMA ring.  One CTA of OWN warpgroups owns 64
+// key rows each (their K and V rows held as register A fragments); the
+// walked 64-query tiles of Q and dO stream through a ring of
+// NARROW_STAGES stages by TMA.  Warp 0 also produces the ring, as in the
+// wide kernel above (a TMA box over the (B, Sq, H) statistics needs H * 4
+// bytes to be a multiple of 16, so they take plain loads).  No warp of its
+// own for the producer keeps the registers of two or more CTAs within an
+// SM.
+constexpr int NARROW_STAGES = 4;  // ring depth
+
+// The shape at each narrow head dim, chosen on the H100 with
+// `chip_smoke.py --ab TAG --bwd` (PERF.md §6): warpgroups a CTA, and the
+// queries of a walked tile taken at a time.  One warpgroup a CTA at
+// D = 8 puts five CTAs on an SM and never waits on another warpgroup;
+// two at D = 16 and 32 halve the walked tiles a key needs.
 template <int D>
-__global__ void __launch_bounds__(mma::THREADS)
-    flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                      int Sq, int Sk, float scale, int causal, int q_off, int k_off) {
-  constexpr int P = mma::pitch<D>();
-  constexpr int R = mma::ROWS;
-  __shared__ __align__(128) bf16 k_tile[R * P], v_tile[R * P];
-  __shared__ __align__(128) bf16 qd_tile[STAGES][2][R * P];
-  __shared__ __align__(16) float st_base[STAGES][R], st_delta[STAGES][R];
+struct NarrowDkv {
+  static constexpr int OWN = D == 8 ? 1 : 2;
+  static constexpr int HALF = 32;
+  static constexpr int THREADS = OWN * WG_THREADS;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;  // key rows g, g + 8; query columns 2 tig (+1)
+template <int D>
+__global__ void __launch_bounds__(NarrowDkv<D>::THREADS)
+    flash_bwd_dkv_narrow(__grid_constant__ const CUtensorMap q_map, __grid_constant__ const CUtensorMap do_map,
+                         const bf16* __restrict__ k, const bf16* __restrict__ v, const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                         int Sq, int Sk, float scale, int causal, int q_off, int k_off) {
+  constexpr uint32_t TILE = sm90::Narrow<D>::TILE;
+  constexpr int NO = D / 2;  // registers of each gradient accumulator
+  constexpr int OWN = NarrowDkv<D>::OWN, THREADS = NarrowDkv<D>::THREADS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[NARROW_STAGES], empty[NARROW_STAGES];
+  __shared__ __align__(16) float st_base[NARROW_STAGES][BN], st_delta[NARROW_STAGES][BN];
+  unsigned char* ring = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, lane = tid % 32;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = int(blockIdx.y) * R;  // key tile 0 walks the most query tiles under the causal mask
-  const int wk0 = k0 + warp * 16;
+  const int k0 = int(blockIdx.y) * OWN * 64;  // key tile 0 walks the most query tiles under the causal mask
 
-  const int n_qt = (Sq + R - 1) / R;
+  const int n_qt = (Sq + BN - 1) / BN;
   int qt0 = 0;
   if (causal) {
     // the first query tile holding a row at or past the CTA's first key
     const int reach = k_off + k0 - q_off;
-    qt0 = reach <= 0 ? 0 : min(n_qt, reach / R);
+    qt0 = reach <= 0 ? 0 : min(n_qt, reach / BN);
   }
   const int n_it = n_qt - qt0;
 
-  // query tile qt into ring stage `stage`: Q and dO by cp.async, the
-  // statistics by plain loads and stores (threads 0-63)
-  auto stage_tile = [&](int stage, int qt) {
-    mma::load_rows<D>(qd_tile[stage][0], q, b, h, H, Sq, qt * R);
-    mma::load_rows<D>(qd_tile[stage][1], dout, b, h, H, Sq, qt * R);
-    if (tid < R) {
-      float l, d;
-      fetch_stats(lse, delta, b, h, H, Sq, qt * R + tid, l, d);
-      st_base[stage][tid] = exp2_base(l);
-      st_delta[stage][tid] = d;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NARROW_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 32);  // warp 0's lanes, lane 0 with the TMA bytes
+      sm90::mbar_init(&empty[s], THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // warp 0: stage query tile qt (its lse and delta from l, d) into `stage`
+  auto produce = [&](int stage, int qt, const float (&l)[2], const float (&d)[2]) {
+    reinterpret_cast<float2*>(st_base[stage])[lane] = make_float2(exp2_base(l[0]), exp2_base(l[1]));
+    reinterpret_cast<float2*>(st_delta[stage])[lane] = make_float2(d[0], d[1]);
+    if (lane == 0) {
+      unsigned char* dst = ring + stage * 2 * TILE;
+      sm90::mbar_arrive_expect_tx(&full[stage], 2 * TILE);
+      sm90::tma_load_4d(dst, &q_map, &full[stage], 0, h, qt * BN, b);
+      sm90::tma_load_4d(dst + TILE, &do_map, &full[stage], 0, h, qt * BN, b);
+    } else {
+      sm90::mbar_arrive(&full[stage]);
     }
   };
-  mma::load_rows<D>(k_tile, k, b, h, H, Sk, k0);
-  mma::load_rows<D>(v_tile, v, b, h, H, Sk, k0);
-  if (n_it > 0) stage_tile(0, qt0);
-  mma::cp_async_commit();
+  // lanes hold queries 2 lane and 2 lane + 1 of a tile
+  auto fetch = [&](int qt, float (&l)[2], float (&d)[2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) fetch_stats(lse, delta, b, h, H, Sq, qt * BN + 2 * lane + e, l[e], d[e]);
+  };
+  if (tid < 32) {
+    for (int it = 0; it < min(n_it, NARROW_STAGES); ++it) {
+      float l[2], d[2];
+      fetch(qt0 + it, l, d);
+      produce(it, qt0 + it, l, d);
+    }
+  }
 
+  const int warp = (tid % WG_THREADS) / 32;
+  const int row = warp * 16 + lane / 4;  // key rows row and row + 8 of the warpgroup's 64
+  const int col = 2 * (lane % 4);        // + 8j (+1): query columns within a tile
+  const int wg_k0 = k0 + wg * 64;
+  uint32_t ka[sm90::Narrow<D>::KS][4], va[sm90::Narrow<D>::KS][4];  // K's and V's A fragments
+  sm90::load_frags<D>(ka, k, b, h, H, Sk, wg_k0 + row);
+  sm90::load_frags<D>(va, v, b, h, H, Sk, wg_k0 + row);
   const float scale_log2 = scale * LOG2E;
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[NO], dva[NO];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[j][i] = dva[j][i] = 0.f;
-  uint32_t ka[mma::Frag<D>::KS][4], va[mma::Frag<D>::KS][4];  // K's and V's A fragments
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.f;
+  // A tile's 64 queries are taken HALF at a time: 32 halves the score
+  // registers, so that two or more CTAs share an SM at every head dim.
+  constexpr int HALF = NarrowDkv<D>::HALF;
+  constexpr uint32_t ROW = sm90::Narrow<D>::ROW;
+  float s[HALF / 2], dp[HALF / 2];
+  uint32_t pa[HALF / 4], dsa[HALF / 4];  // P^T and dS^T as bf16 pairs: the A operands
 
   for (int it = 0; it < n_it; ++it) {
-    const int stage = it % STAGES;
-    // the other stage was released by the barrier that ended tile it - 1
-    if (it + 1 < n_it) stage_tile(1 - stage, qt0 + it + 1);
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();  // everything but tile it + 1 has landed
-    __syncthreads();
-    if (it == 0) {
-      mma::load_a<D>(ka, k_tile + warp * 16 * P, lane);
-      mma::load_a<D>(va, v_tile + warp * 16 * P, lane);
-    }
-    const int q0 = (qt0 + it) * R;
-    // a tile whose every query precedes this warp's keys adds nothing
-    const bool hidden = causal && q_off + q0 + R - 1 < k_off + wk0;
+    const int stage = it % NARROW_STAGES;
+    const int q0 = (qt0 + it) * BN;
+    // warp 0 refills the stage of the previous tile, one tile late, so that
+    // it seldom waits on the other warpgroup
+    const int next = it - 1 + NARROW_STAGES;
+    const bool refill = tid < 32 && it >= 1 && next < n_it;
+    float next_l[2], next_d[2];
+    if (refill) fetch(qt0 + next, next_l, next_d);  // in flight while this tile is computed
+    sm90::mbar_wait(&full[stage], (it / NARROW_STAGES) & 1);
+    // a tile whose every query precedes this warpgroup's keys adds nothing
+    const bool hidden = causal && q_off + q0 + BN - 1 < k_off + wg_k0;
     if (!hidden) {
-      float s[8][4], dp[8][4];
-      mma::score_tile<D>(s, ka, qd_tile[stage][0], lane);   // S^T = K Q^T
-      mma::score_tile<D>(dp, va, qd_tile[stage][1], lane);  // dP^T = V dO^T
-      // mask only a tile that straddles the diagonal: entry (nt, 2 r + e)
-      // is key wk0 + g + 8 r against query q0 + 8 nt + 2 tig + e
-      const bool whole = !causal || q_off + q0 >= k_off + wk0 + 15;
-      uint32_t pa[8][2], dsa[8][2];  // P^T and dS^T as bf16 pairs: the A operands
+      const uint32_t q_addr = sm90::smem_addr(ring + stage * 2 * TILE);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float2 bb = *reinterpret_cast<const float2*>(&st_base[stage][nt * 8 + 2 * tig]);
-        const float2 dd = *reinterpret_cast<const float2*>(&st_delta[stage][nt * 8 + 2 * tig]);
+      for (int half = 0; half < BN / HALF; ++half) {
+        const int hq0 = q0 + half * HALF;
+        const uint32_t hq_addr = q_addr + half * HALF * ROW;
+        sm90::wgmma_fence();
+        sm90::score_rs<D, HALF>(s, ka, hq_addr);  // S^T = K Q^T
+        sm90::wgmma_commit();
+        sm90::score_rs<D, HALF>(dp, va, hq_addr + TILE);  // dP^T = V dO^T
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // S^T, and the previous half's gradient products
+        sm90::fence_regs(s);
+        const float2* sb = reinterpret_cast<const float2*>(st_base[stage] + half * HALF);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float p[2];
+        for (int j = 0; j < HALF / 8; ++j) {
+          const float2 bb = sb[4 * j + lane % 4];  // queries 8j + col, + 1
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            p[e] = sm90::ex2(fmaf(s[nt][2 * r + e], scale_log2, e ? -bb.y : -bb.x));
-            const int query = q0 + nt * 8 + 2 * tig + e;
-            if (!whole && k_off + wk0 + g + 8 * r > q_off + query) p[e] = 0.f;
-          }
-          pa[nt][r] = sm90::pack_bf16(p[0], p[1]);
-          dsa[nt][r] = sm90::pack_bf16(p[0] * (dp[nt][2 * r] - dd.x), p[1] * (dp[nt][2 * r + 1] - dd.y));
+          for (int e = 0; e < 4; ++e)
+            s[4 * j + e] = sm90::ex2(fmaf(s[4 * j + e], scale_log2, e % 2 ? -bb.y : -bb.x));
         }
+        // mask only a half that straddles the diagonal: entry i is key
+        // wg_k0 + row + dr against query hq0 + col + dc
+        const bool whole = !causal || q_off + hq0 >= k_off + wg_k0 + 63;
+        if (!whole) {
+          const int lim = k_off + wg_k0 + row - q_off - hq0 - col;
+#pragma unroll
+          for (int i = 0; i < HALF / 2; ++i)
+            if (entry_dc(i) < lim + entry_dr(i)) s[i] = 0.f;
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dp);
+        const float2* sd = reinterpret_cast<const float2*>(st_delta[stage] + half * HALF);
+#pragma unroll
+        for (int j = 0; j < HALF / 8; ++j) {
+          const float2 dd = sd[4 * j + lane % 4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e % 2 ? dd.y : dd.x));
+        }
+#pragma unroll
+        for (int j = 0; j < HALF / 4; ++j) {
+          pa[j] = sm90::pack_bf16(s[2 * j], s[2 * j + 1]);
+          dsa[j] = sm90::pack_bf16(dp[2 * j], dp[2 * j + 1]);
+        }
+        sm90::wgmma_fence();
+        sm90::accumulate_rs<D, HALF / 16>(dva, pa, hq_addr + TILE);  // dV += P^T dO
+        sm90::accumulate_rs<D, HALF / 16>(dka, dsa, hq_addr);        // dK += dS^T Q
+        sm90::wgmma_commit();
       }
-      mma::accumulate_tile<D>(dva, pa, qd_tile[stage][1], lane);   // dV += P^T dO
-      mma::accumulate_tile<D>(dka, dsa, qd_tile[stage][0], lane);  // dK += dS^T Q
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dva);
+      sm90::fence_regs(dka);
     }
-    __syncthreads();  // tile it's stage is free for the load of tile it + 2
+    sm90::mbar_arrive(&empty[stage]);
+    if (refill) {
+      const int prev = (it - 1) % NARROW_STAGES;
+      sm90::mbar_wait(&empty[prev], ((it - 1) / NARROW_STAGES) & 1);  // both warpgroups are done with it
+      produce(prev, qt0 + next, next_l, next_d);
+    }
+    __syncwarp();
   }
-  mma::cp_async_wait<0>();
 
+  // epilogue: scale * dK and dV, rows < Sk, 4-byte stores of bf16 pairs
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int kj = wk0 + g + 8 * r;
+    const int kj = wg_k0 + row + 8 * r;
     if (kj >= Sk) continue;
-    const size_t at = ((size_t(b) * Sk + kj) * H + h) * D + 2 * tig;
+    const size_t at = ((size_t(b) * Sk + kj) * H + h) * D + col;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) = sm90::pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) = sm90::pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+          sm90::pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) = sm90::pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -1182,6 +1282,26 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 }
 
 template <int D>
+cudaError_t launch_dkv_narrow(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                              const float* delta, void* dk, void* dv, int B, int H, int Sq, int Sk, float scale,
+                              int causal, int q_off, int k_off, cudaStream_t stream) {
+  CUtensorMap q_map, do_map;
+  if (Sq > 0) {
+    if (!sm90::encode_bshd_bf16(&q_map, q, B, Sq, H, D, BN) || !sm90::encode_bshd_bf16(&do_map, dout, B, Sq, H, D, BN))
+      return cudaErrorInvalidValue;
+  } else {
+    memset(&q_map, 0, sizeof(q_map));  // no query tile is ever loaded
+    do_map = q_map;
+  }
+  constexpr int keys = NarrowDkv<D>::OWN * 64;  // a CTA's owned keys
+  const dim3 grid(B * H, (Sk + keys - 1) / keys);
+  flash_bwd_dkv_narrow<D><<<grid, NarrowDkv<D>::THREADS, sm90::Narrow<D>::TILE * 2 * NARROW_STAGES + 1024, stream>>>(
+      q_map, do_map, static_cast<const bf16*>(k), static_cast<const bf16*>(v), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Sq, Sk, scale, causal, q_off, k_off);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* delta, void* dq, int B, int H, int Sq, int Sk, float scale, int causal,
                       int q_off, int k_off, cudaStream_t stream) {
@@ -1209,12 +1329,8 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v, c
       return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off,
                                 stream);
     } else {
-      const dim3 grid(B * H, (Sk + mma::ROWS - 1) / mma::ROWS);
-      flash_bwd_dkv_mma<D><<<grid, mma::THREADS, 0, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk,
-          scale, causal, q_off, k_off);
-      return cudaGetLastError();
+      return launch_dkv_narrow<D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off,
+                                  stream);
     }
   }
   return launch_dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);

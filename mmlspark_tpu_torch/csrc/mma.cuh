@@ -1,14 +1,11 @@
 // Warp-level tensor-core building blocks (mma.sync, ldmatrix, cp.async)
-// for the bf16 attention kernels at head dims 8, 16 and 32: K1's
-// `flash_fwd_bf16_mma<D>` (flash_attention.cu) and K2/K3's
-// `flash_bwd_dq_mma<D>` / `flash_bwd_dkv_mma<D>` (flash_backward.cu).
+// for the bf16 dQ kernel K2 at head dims 8, 16 and 32,
+// `flash_bwd_dq_mma<D>` (flash_backward.cu); the f32 kernels use its
+// cp.async helpers.
 //
-// A row of 8-32 bf16 columns is 16-64 bytes: narrower than the 128-byte
-// swizzle span of the wgmma kernels' TMA boxes, and a 64 x D product
-// would leave a warpgroup's wgmma mostly idle.  So these kernels give each
-// warp 16 rows of a 64-row tile and build every product from m16n8k16
-// steps (m16n8k8 when the contraction is head dim 8), with operands
-// loaded from padded shared tiles by ldmatrix.
+// This kernel gives each warp 16 rows of a 64-row tile and builds every
+// product from m16n8k16 steps (m16n8k8 when the contraction is head dim
+// 8), with operands loaded from padded shared tiles by ldmatrix.
 //
 // Layouts (PTX ISA, mma.m16n8k16 / m16n8k8 with .bf16): lane t of a warp
 // has g = t / 4 and tig = t % 4.  An f32 accumulator d[4] holds rows g and
@@ -17,8 +14,8 @@
 // 2 tig), (row g + 8, k 2 tig), (row g, k 8 + 2 tig), (row g + 8, k 8 +
 // 2 tig); of a k8 step the first two.  So the accumulators of two
 // neighbouring n-tiles, rounded to bf16 pairs, ARE the A fragment of a
-// k16 step over those 16 columns: P and dS stay in registers between a
-// score product and the product that consumes them.
+// k16 step over those 16 columns: dS stays in registers between the score
+// products and the product that consumes it.
 #pragma once
 
 #include "common.cuh"

@@ -3,19 +3,24 @@
 // tensor loads, warpgroup matrix products (wgmma) and their operand
 // descriptors, and the host-side encoding of a TMA tensor map.
 //
-// Layout convention.  A bf16 tile lives in shared memory as TMA writes it
-// with CU_TENSOR_MAP_SWIZZLE_128B: boxes of 64 columns (128 bytes, the
-// swizzle span), each box `rows` lines of 128 bytes, boxes one after the
-// other; every box starts on a 1024-byte boundary (8 lines, the swizzle
-// atom).  A row of D = 128 columns is two boxes.  The descriptors below
-// address such a tile:
+// Layout convention.  A bf16 tile lives in shared memory as TMA writes it,
+// swizzled by the bytes of one row of its box (`encode_bshd_bf16`): rows of
+// 16 bytes (head dim 8) unswizzled, 32 bytes (16) with the 32-byte swizzle,
+// 64 bytes (32) with the 64-byte one, and boxes of 64 columns (128 bytes)
+// with the 128-byte one.  A swizzle of span W bytes XORs the 16-byte chunk
+// index of a row with bits of the row index, repeating every 8 rows, so a
+// tile starts on a 1024-byte boundary and its 8-row groups are 8 W bytes
+// apart.  A row of D = 128 columns is two 64-column boxes, one after the
+// other.  The descriptors below address such a tile:
 //   * K-major (the reduction dimension runs along the row): the product's
 //     16-column k-step at column c starts at box c / 64, byte 2 * (c % 64)
-//     of its first line; 8-line groups are 1024 bytes apart (SBO).
+//     of its first line; 8-line groups are 8 W bytes apart (SBO).  Rows of
+//     16 bytes hold half a k-step: the unswizzled layout's second 8-column
+//     core matrix lies LBO bytes on.
 //   * MN-major (the reduction dimension runs down the rows, as V's keys in
-//     P V): the k-step of 16 rows at row r starts at line r of box 0;
-//     8-line groups are 1024 bytes apart (SBO) and the next 64 columns of
-//     N sit one box further on (LBO = rows * 128).
+//     P V): the k-step of 16 rows at row r starts at line r of box 0; 8-line
+//     groups are 8 W bytes apart (SBO; LBO when unswizzled) and the next 64
+//     columns of N sit one box further on (LBO = rows * 128).
 #pragma once
 
 #include <cuda.h>
@@ -99,11 +104,25 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 
 // ---- wgmma -----------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled shared-memory operand starting at
+// Descriptor layout types (bits 62-63): no swizzle, 128-, 64- and 32-byte.
+constexpr uint64_t LAYOUT_NONE = 0, LAYOUT_SW128 = 1, LAYOUT_SW64 = 2, LAYOUT_SW32 = 3;
+
+// The layout type of a tile whose rows are `row_bytes` long (16, 32, 64;
+// 128 for a 64-column box): the swizzle TMA writes it with.
+__host__ __device__ constexpr uint64_t layout_of_row(int row_bytes) {
+  return row_bytes >= 128 ? LAYOUT_SW128 : row_bytes == 64 ? LAYOUT_SW64 : row_bytes == 32 ? LAYOUT_SW32 : LAYOUT_NONE;
+}
+
+// Descriptor of a shared-memory operand of layout type `layout` starting at
 // shared address `addr`; `lbo` and `sbo` in bytes (see the layout note).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
-         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+// Descriptor of a 128-byte-swizzled operand.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return make_desc(addr, lbo, sbo, LAYOUT_SW128);
 }
 
 // The descriptor `bytes` further on (a multiple of 16).  Only the low
@@ -249,6 +268,172 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss_acc(float (&d)[32], uint64_t 
       : "l"(a), "l"(b), "r"(1));
 }
 
+// ---- narrow tiles: head dims 8, 16 and 32 ----------------------------------
+
+// A bf16 tile of 64-row boxes with rows of D = 8, 16 or 32 columns (16, 32
+// or 64 bytes), dense, starting on a 1024-byte boundary, as TMA writes it.
+template <int D>
+struct Narrow {
+  static_assert(D == 8 || D == 16 || D == 32, "narrow tiles take head dims 8, 16 and 32");
+  static constexpr uint32_t ROW = 2 * D;              // bytes of one row
+  static constexpr uint32_t GROUP = 8 * ROW;          // bytes of 8 rows: the swizzle atom
+  static constexpr uint32_t TILE = 64 * ROW;          // bytes of a 64-row tile
+  static constexpr uint64_t LAYOUT = layout_of_row(ROW);
+  static constexpr int KS = D >= 16 ? D / 16 : 1;     // k16 steps of a product over D
+};
+
+// The tile at `addr` as the K-major B operand of a product that contracts
+// over D (the rows are the product's N columns): k-step kk starts 32 kk
+// bytes on.  At D = 8 a k16 step is two 8-column core matrices of which the
+// tile holds one: LBO 0 reads it again as the second, which the A operand's
+// zero k 8-15 half (`load_frags`) cancels.
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return make_desc(addr, D == 8 ? 0 : 16, Narrow<D>::GROUP, Narrow<D>::LAYOUT);
+}
+
+// The tile at `addr` as the MN-major B operand of a product that contracts
+// over its rows (N = D): the k16 step over rows 16 kk.. starts 16 kk ROW
+// bytes on; its two 8-row groups lie GROUP bytes apart, which is LBO when
+// unswizzled and SBO when swizzled (the other offset spans N, one core
+// matrix or swizzle atom wide here, and is never used).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  using N = Narrow<D>;
+  return D == 8 ? make_desc(addr, N::GROUP, N::TILE, N::LAYOUT) : make_desc(addr, N::TILE, N::GROUP, N::LAYOUT);
+}
+
+// The register A fragments, over all D columns, of rows `r0` and `r0 + 8`
+// of head h of a (B, S, H, D) bf16 tensor, read from global memory: a[kk]
+// is the k-step over columns 16 kk.. in the accumulator-to-A layout above
+// ({row r0, cols 2 tig..; row r0 + 8; row r0, cols 8 + 2 tig..; row
+// r0 + 8}, tig = lane % 4).  Rows at or past S read as zeros, and at D = 8
+// the k 8-15 half is zero (see `desc_kmajor`).
+template <int D>
+__device__ __forceinline__ void load_frags(uint32_t (&a)[Narrow<D>::KS][4], const __nv_bfloat16* base, int b, int h,
+                                           int H, int S, int r0) {
+  const int tig = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const bool ok = row < S;
+    const uint32_t* p =
+        reinterpret_cast<const uint32_t*>(base + ((size_t(b) * S + (ok ? row : 0)) * H + h) * D) + tig;
+#pragma unroll
+    for (int kk = 0; kk < Narrow<D>::KS; ++kk) {
+      a[kk][r] = ok ? __ldg(p + 8 * kk) : 0u;
+      a[kk][2 + r] = (ok && D > 8) ? __ldg(p + 8 * kk + 4) : 0u;
+    }
+  }
+}
+
+// D (64 x N) = A B (ACC: D += A B): A (64 x 16 bf16) in registers, B
+// (16 x N) K-major in shared memory; N = 32 or 64.
+template <int N, bool ACC>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 32 || N == 64, "wgmma_rs_k takes N = 32 and 64");
+  if constexpr (N == 64 && ACC) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+          " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+          " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  } else if constexpr (ACC) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  }
+}
+
+// D (64 x N) += A B: A (64 x 16 bf16) in registers, B (16 x N) MN-major in
+// shared memory; N = 8, 16 or 32 (a narrow head dim).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 8 || N == 16 || N == 32, "wgmma_rs_mn takes N = 8, 16 and 32");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+}
+
+// S (64 x N) = A B^T over D: A in registers (`load_frags`), B the N rows
+// of a tile at `b_addr` (its rows are S's columns); N = 32 or 64.
+template <int D, int N>
+__device__ __forceinline__ void score_rs(float (&s)[N / 2], const uint32_t (&a)[Narrow<D>::KS][4], uint32_t b_addr) {
+  const uint64_t b = desc_kmajor<D>(b_addr);
+  wgmma_rs_k<N, false>(s, a[0], b);
+#pragma unroll
+  for (int kk = 1; kk < Narrow<D>::KS; ++kk) wgmma_rs_k<N, true>(s, a[kk], desc_advance(b, kk * 32));
+}
+
+// acc (64 x D) += A T: A (64 x 16 KS) as bf16 pairs in the accumulator
+// layout of `score_rs` (a[4 kk .. 4 kk + 3] the k-step over its columns
+// 16 kk..), T the 16 KS rows of a tile at `t_addr` that are the
+// contraction.
+template <int D, int KS>
+__device__ __forceinline__ void accumulate_rs(float (&acc)[D / 2], const uint32_t (&a)[4 * KS], uint32_t t_addr) {
+  const uint64_t t = desc_mnmajor<D>(t_addr);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    wgmma_rs_mn<D>(acc, ak, desc_advance(t, kk * 16 * Narrow<D>::ROW));
+  }
+}
+
 // ---- register helpers --------------------------------------------------------
 
 // 2^x (approximate, flushes denormals; exp2(-inf) = +0).
@@ -286,18 +471,25 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // A tensor map over a bf16 (B, S, H, D) tensor read in place: dimensions
-// innermost first (D, H, S, B).  A box is 64 columns of one head over
-// `box_rows` consecutive rows of one batch, 128-byte swizzled; rows at or
-// past S read as zeros.  `ptr` must be 16-byte aligned.  False on failure.
+// innermost first (D, H, S, B).  A box is min(D, 64) columns of one head
+// over `box_rows` consecutive rows of one batch, swizzled by the bytes of
+// its row (16: none, 32 and 64: 32- and 64-byte, 128: 128-byte, as
+// `layout_of_row`); rows at or past S read as zeros.  `ptr` must be 16-byte
+// aligned.  False on failure.
 inline bool encode_bshd_bf16(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int box_rows) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
+  const int cols = D < 64 ? D : 64;
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(H) * D * 2, cuuint64_t(S) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(box_rows), 1};
+  const cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -11,8 +11,8 @@ The kernels replace the Pallas kernels of
     `_flash_backward`: `csrc/flash_backward.cu`.
 
 Head dims: K1, K2 and K3 take 8, 16, 32, 64 and 128, at f32 and bf16
-(bf16 at 64 and 128: wgmma + TMA; bf16 at 8-32: mma.sync; f32: CUDA-core
-FMA); any other head dim on a CUDA tensor raises ValueError naming the
+(bf16 at 64 and 128, and bf16 K1 and K3 at 8-32: wgmma + TMA; bf16 K2
+at 8-32: mma.sync; f32: CUDA-core FMA); any other head dim on a CUDA tensor raises ValueError naming the
 set, before any launch.  Semantics are the JAX kernels': inputs
 (B, S, H, D), causal or not, f32 softmax statistics, scale D^-0.5 by
 default, outputs in the input dtype.
@@ -44,10 +44,22 @@ import torch
 
 from mmlspark_tpu_torch.ops import native
 from mmlspark_tpu_torch.ops.attention import NEG_INF
+from mmlspark_tpu_torch.ops.decode_attention import _sm_count
 
 # dtype codes of the C entry points
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)   # K1, K2, K3
+
+# bf16 K1 at head dims 8-32 (`flash_fwd_bf16_narrow`): a CTA owns
+# NARROW_ROWS query rows and splits its key walk between two warpgroups
+# when the grid has fewer than SPLIT_BELOW CTAs an SM, which shortens the
+# heaviest tiles' walk where the card is not full; a full grid runs one
+# warpgroup a CTA, more CTAs an SM and no merge (`chip_smoke.py --ab TAG
+# --fwd` on an H100: split 0.0093 ms against 0.0121 at (2, 1024, 8, 8)
+# causal, 256 CTAs; no split 0.0243 against 0.0255 at (8, 1024, 8, 32),
+# 1024 CTAs).
+NARROW_ROWS = 64
+SPLIT_BELOW = 4
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -161,7 +173,8 @@ def _check_stats(q, do, lse, delta) -> None:
 
 def _check_backward(q, k, v, do, lse, delta) -> None:
     """K2 and K3's inputs; the kernels read q, k, v and dout through TMA
-    (bf16 at head dims 64, 128) or cp.async (every other case)."""
+    (bf16 at head dims 64, 128; bf16 K3's walked q, dout at 8-32) or
+    16-byte cp.async (the rest)."""
     _check_inputs(q, k, v)
     _check_stats(q, do, lse, delta)
     _check_aligned(q=q, k=k, v=v, dout=do)
@@ -175,6 +188,14 @@ def _check_aligned(**tensors) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"flash attention kernel: {name} is not "
                              f"16-byte aligned")
+
+
+def _k1_split(b: int, h: int, sq: int, sm_count: int) -> int:
+    """Consumer warpgroups (1 or 2) a bf16 head-dim-8-32 K1 CTA splits its
+    key walk between: 2 when the b * h * ceil(sq / NARROW_ROWS) CTAs are
+    fewer than SPLIT_BELOW for each of the card's `sm_count` SMs."""
+    ctas = b * h * -(-sq // NARROW_ROWS)
+    return 2 if ctas < SPLIT_BELOW * sm_count else 1
 
 
 def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
@@ -192,6 +213,7 @@ def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
                              f"positive scale, got {scale}")
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    split = _k1_split(b, h, sq, _sm_count(q.device))
     lib = native.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -199,7 +221,7 @@ def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, h, sq, k.shape[1], d,
             float(scale), int(causal), int(q_offset), int(k_offset),
-            _DTYPES[q.dtype], stream)
+            _DTYPES[q.dtype], split, stream)
     native.check(code, "flash attention forward")
     return out, lse
 

@@ -37,9 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_attention": {
         # q, k, v, out, lse, B, H, Sq, Sk, D, scale, causal, q_off, k_off,
-        # dtype, stream
+        # dtype, split, stream
         "mmlspark_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _F, _I, _I, _I, _I, _P],
+                                   _F, _I, _I, _I, _I, _I, _P],
     },
     "flash_backward": {
         # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, scale, causal,

@@ -10,6 +10,7 @@ card and no flax its kernel cases run alone:
 """
 
 import ast
+import importlib
 import os
 
 import numpy as np
@@ -933,6 +934,99 @@ def test_small_head_dim_kernels_refuse_misaligned_tensors(cuda):
             flash_attention_with_lse(good, bad, good, True)
         assert (flash_attention.launches,
                 flash_attention_with_lse.launches) == before
+
+
+@pytest.mark.parametrize("sm_count", [1, 114, 132])
+def test_k1_split_plan_matches_enumeration(sm_count):
+    """The bf16 K1 at head dims 8-32 splits a CTA's key walk between two
+    warpgroups exactly when its grid, counted query tile by query tile,
+    gives fewer than SPLIT_BELOW CTAs an SM."""
+    fa = importlib.import_module("mmlspark_tpu_torch.ops.flash_attention")
+    for b in (1, 2, 3, 8):
+        for h in (1, 3, 8):
+            for sq in (1, 63, 64, 65, 500, 1000, 1024, 2048, 4097):
+                ctas = sum(1 for _ in range(b) for _ in range(h)
+                           for start in range(0, sq, fa.NARROW_ROWS))
+                want = 2 if ctas < fa.SPLIT_BELOW * sm_count else 1
+                assert fa._k1_split(b, h, sq, sm_count) == want, (b, h, sq)
+
+
+# ---------------------- the wgmma kernels at head dims 8, 16 and 32 ---
+
+# bf16 K1 (`flash_fwd_bf16_narrow`: 64 query rows a CTA, two warpgroups
+# splitting the 64-key tiles, merged in a fixed order) and K3
+# (`flash_bwd_dkv_narrow`: 128 owned keys, two warpgroups, 64-query tiles
+# on a TMA ring whose statistics the producer warp stores): tile and split
+# edges (Sq = Sk = 33, 96; 128 and 129 rows; 192, where the split walk's
+# last tile falls to the first warpgroup), the training shape's length,
+# ragged non-causal sides both ways, the phase-15 offsets (200 rows that
+# see no key), and H = 1 and 3, whose (B, Sq, H) statistics rows are not
+# 16-byte multiples.  (B, Sq, Sk, H, causal, q_offset, k_offset)
+NARROW_CASES = [(2, 33, 33, 8, True, 0, 0), (2, 96, 96, 8, True, 0, 0),
+                (2, 1000, 1000, 8, True, 0, 0), (2, 300, 700, 8, False, 0, 0),
+                (2, 700, 300, 8, False, 0, 0), (2, 512, 512, 8, True, 512, 0),
+                (2, 512, 512, 8, True, 0, 200), (2, 128, 128, 8, True, 0, 0),
+                (2, 129, 129, 8, True, 0, 0), (2, 192, 192, 8, True, 0, 0),
+                (1, 200, 200, 1, True, 0, 0), (3, 130, 130, 3, True, 0, 0),
+                (2, 1, 640, 3, True, 500, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,causal,q_off,k_off", NARROW_CASES)
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_narrow_wgmma_kernels_match_plain(cuda, d, b, sq, sk, h, causal,
+                                          q_off, k_off):
+    """bf16 K1, K1[lse] and K3 at head dims 8-32 against plain with the
+    head-dim-64/128 limits; K1 equal to K1[lse]'s out and every kernel's
+    second launch bitwise equal to its first; rows that see no key exactly
+    zero with lse NEG_INF, and their dK, dV exactly zero."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + 7 * sk + h + d)
+    q, do = (torch.randn((b, sq, h, d), generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, sk, h, d), generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    scale = d ** -0.5
+    before = (flash_attention.launches, flash_attention_with_lse.launches,
+              flash_bwd_dkv.launches)
+    out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off, k_off)
+    out2, lse2 = flash_attention_with_lse(q, k, v, causal, None, q_off,
+                                          k_off)
+    no_lse = (flash_attention(q, k, v, causal=causal)
+              if q_off == k_off == 0 else None)
+    ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, causal, None,
+                                                      q_off, k_off)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dk, dv = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale, q_off,
+                           k_off)
+    dk2, dv2 = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale,
+                             q_off, k_off)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention_with_lse.launches - before[1],
+            flash_bwd_dkv.launches - before[2]) == (
+        int(no_lse is not None), 2, 2)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if no_lse is not None:
+        assert torch.equal(no_lse, out)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    _assert_out_norm_close(out, ref_out, torch.bfloat16)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    _, ref_dk, ref_dv = flash_block_grads_plain(q, k, v, do, ref_lse, delta,
+                                                causal, scale, q_off, k_off)
+    for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _assert_grad_close(got, ref, torch.bfloat16)
+    if causal and k_off > q_off:
+        hidden = k_off - q_off
+        assert torch.count_nonzero(out[:, :hidden]) == 0
+        assert (lse[:, :hidden] == NEG_INF).all()
+    if causal and q_off + sq - 1 < k_off + sk - 1:
+        # keys past the last query's reach get exactly zero gradients
+        seen = max(0, q_off + sq - k_off)
+        assert torch.count_nonzero(dk[:, seen:]) == 0
+        assert torch.count_nonzero(dv[:, seen:]) == 0
 
 
 # ------------------------------------------------ serving on the card ---
