@@ -683,14 +683,15 @@ def phase_backward(dev, card) -> list:
     return entries
 
 
-def backward_inputs(gen, b, sq, sk, causal, q_off, k_off, dtype, d=128):
-    """q, k, v, dout (B, S, 8, d) from `gen`, and the plain forward's lse
+def backward_inputs(gen, b, sq, sk, causal, q_off, k_off, dtype, d=128,
+                    h=8):
+    """q, k, v, dout (B, S, h, d) from `gen`, and the plain forward's lse
     and delta = rowsum(dout * out)."""
     from mmlspark_tpu_torch.ops.flash_attention import (
         flash_attention_with_lse_plain)
 
     def rand(s):
-        return torch.randn((b, s, 8, d), generator=gen,
+        return torch.randn((b, s, h, d), generator=gen,
                            device=gen.device).to(dtype)
     q, do, k, v = rand(sq), rand(sq), rand(sk), rand(sk)
     out, lse = flash_attention_with_lse_plain(q, k, v, causal, None, q_off,
@@ -709,22 +710,24 @@ def grad_errs(got, ref) -> tuple:
 
 
 def time_backward(card, gen, d: int, dtype=torch.bfloat16,
-                  args: Optional[tuple] = None) -> dict:
-    """K2 and K3 at (8, 2048, 8, d) causal against the plain version and
-    the library's backward pair, all from CUDA graphs: per kernel its ms,
+                  args: Optional[tuple] = None,
+                  shape: Optional[tuple] = None) -> dict:
+    """K2 and K3 at (B, S, H, d) causal, (B, S, H) = `shape` (default the
+    training shape (8, 2048, 8)), against the plain version and the
+    library's backward pair, all from CUDA graphs: per kernel its ms,
     plain_ms, bound_ms, bound_by and library_ms (the pair).  The library
     pair is PyTorch's flash backward on its own forward's saved outputs at
     bf16, its memory-efficient backward (`aten._efficient_attention_
     backward`, the port's (B, S, H, D) layout) at f32.  `args`: the inputs
-    of `backward_inputs`, made here when not given."""
+    of `backward_inputs` at that shape, made here when not given."""
     from mmlspark_tpu_torch.ops.flash_attention import (
         flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
-    b, s, h = TRAIN_BATCH, TRAIN_SEQ, 8
+    b, s, h = shape or (TRAIN_BATCH, TRAIN_SEQ, 8)
     scale = d ** -0.5
     bf16 = dtype == torch.bfloat16
     tag = "bf16" if bf16 else "f32"
     if args is None:
-        args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d)
+        args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d, h)
     dq_ms = graph_ms(lambda: flash_bwd_dq(*args, True, scale))
     dkv_ms = graph_ms(lambda: flash_bwd_dkv(*args, True, scale))
     plain_ms = graph_ms(lambda: flash_block_grads_plain(*args, True, scale),
@@ -772,8 +775,8 @@ def time_backward(card, gen, d: int, dtype=torch.bfloat16,
         # each kernel recomputes P: one exponential a visible pair
         bound, bound_by, term = attention_bound(
             flops, io + outs * b * s * h * d * item, b * h * tri, peak)
-        print(f"timing {name} (8,2048,8,{d}) causal {tag}, device time (CUDA "
-              f"graph): {ms:.4f} ms; plain (dq, dk, dv together) "
+        print(f"timing {name} ({b},{s},{h},{d}) causal {tag}, device time "
+              f"(CUDA graph): {ms:.4f} ms; plain (dq, dk, dv together) "
               f"{plain_ms:.4f} ms; {lib} (pair, CUDA graph) {lib_ms:.4f} "
               f"ms; bound {bound:.4f} ms ({term}); "
               f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.2f}x the "
@@ -782,7 +785,7 @@ def time_backward(card, gen, d: int, dtype=torch.bfloat16,
                        "bound_by": bound_by, "bound_term": term,
                        "library_ms": lib_ms}
     pair_bound = sum(t["bound_ms"] for t in timed.values())
-    print(f"timing K2 + K3 (8,2048,8,{d}) causal {tag}: "
+    print(f"timing K2 + K3 ({b},{s},{h},{d}) causal {tag}: "
           f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / lib_ms:.2f}x the "
           f"library pair, {pair_bound / (dq_ms + dkv_ms):.3f} of the bound "
           f"[{card}]")
@@ -3518,37 +3521,49 @@ def phase_head_dim_32(dev, card) -> tuple:
 # head dim 16); (c) the Zipf arm's width (ZIPF, head dim 32) trained
 EXAMPLE_CONFIG = {"vocab_size": 16, "d_model": 32, "n_heads": 4,
                   "n_layers": 2, "max_len": 40, "dtype": "float32"}
-EXAMPLE = dict(rows=64, seq=24, prompt=8, new=12, seq2_chunk=8)
+EXAMPLE = dict(rows=64, seq=24, batch=32, prompt=8, new=12, seq2_chunk=8)
 DEFAULT_LM_CONFIG = {"vocab_size": 256, "d_model": 128, "n_heads": 8,
                      "n_layers": 2, "max_len": 2048, "dtype": "bfloat16"}
 DEFAULT_PROMPTS, DEFAULT_NEW = (600, 900, 1200, 1500), 16
 SEQ2_PROMPT, SEQ2_CHUNK = 960, 64
+# (path, head dim, (B, S, H)): where training paths (a) and (c) launch K2
+# and K3 -- the LM example's batch of 23-token rows over 4 heads of 8, the
+# Zipf width's 8 x 1024 over 8 heads of 32.  Path (b)'s, (8, 2048, 8) at
+# head dim 16, is the training shape every narrow row is timed at.
+PATH_BWD_SHAPES = (
+    ("a", EXAMPLE_CONFIG["d_model"] // EXAMPLE_CONFIG["n_heads"],
+     (EXAMPLE["batch"], EXAMPLE["seq"] - 1, EXAMPLE_CONFIG["n_heads"])),
+    ("c", ZIPF["config"]["d_model"] // ZIPF["config"]["n_heads"],
+     (TRAIN_BATCH, ZIPF["config"]["max_len"], ZIPF["config"]["n_heads"])))
 
 
 def small_dim_backward_checks(dev, card) -> dict:
     """K2 and K3 at head dims 8, 16 and 32, bf16 and f32, at the training
-    shape (8, 2048, 8, d) causal against plain with phase 4's limits, a
-    second launch bitwise equal (`check_backward`); then each one's time,
-    bound, plain and library times (`time_backward`)."""
+    shape (8, 2048, 8, d) and at PATH_BWD_SHAPES, causal, against plain
+    with phase 4's limits, a second launch bitwise equal
+    (`check_backward`); then each one's time, bound, plain and library
+    times (`time_backward`)."""
     gen = torch.Generator(device=dev).manual_seed(16)
-    b, s = TRAIN_BATCH, TRAIN_SEQ
+    shapes = [(d, (TRAIN_BATCH, TRAIN_SEQ, 8), "") for d in (8, 16, 32)]
+    shapes += [(d, shape, f", {shape}") for _, d, shape in PATH_BWD_SHAPES]
     entries = {}
-    for d in (8, 16, 32):
+    for d, (b, s, h), at in shapes:
         for dtype, tag in ((torch.bfloat16, ""), (torch.float32, ", f32")):
-            args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d)
+            args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d, h)
             abs_err = check_backward(args, d, dtype,
-                                     f"head dim {d}: flash backward (8, 2048, "
-                                     f"8, {d}) causal {dtype}")
-            entries.update(backward_entries(d, tag, abs_err, time_backward(
-                card, gen, d, dtype, args)))
+                                     f"head dim {d}: flash backward ({b}, "
+                                     f"{s}, {h}, {d}) causal {dtype}")
+            entries.update(backward_entries(d, tag + at, abs_err,
+                                            time_backward(card, gen, d, dtype,
+                                                          args, (b, s, h))))
             del args
     return entries
 
 
-# the wgmma kernels at head dims 8-32 (bf16 K1 `flash_fwd_bf16_narrow`, K3
-# `flash_bwd_dkv_narrow`): the split walk's and the 128-key CTA's edges,
-# ragged non-causal sides, the phase-15 offsets, H = 1 and 3 (statistics
-# rows that are not 16-byte multiples).  The cases of
+# the wgmma kernels at head dims 8-32 (bf16 K1 `flash_fwd_bf16_narrow`, K2
+# `flash_bwd_dq_narrow`, K3 `flash_bwd_dkv_narrow`): the split walk's and
+# the 128-row CTA's edges, ragged non-causal sides, the phase-15 offsets,
+# H = 1 and 3 (statistics rows that are not 16-byte multiples).  The cases of
 # tests/test_torch_package.py::test_narrow_wgmma_kernels_match_plain.
 # (B, Sq, Sk, H, causal, q_offset, k_offset)
 NARROW_CASES = ((2, 33, 33, 8, True, 0, 0), (2, 96, 96, 8, True, 0, 0),
@@ -3561,17 +3576,18 @@ NARROW_CASES = ((2, 33, 33, 8, True, 0, 0), (2, 96, 96, 8, True, 0, 0),
 
 
 def narrow_kernel_checks(dev, card) -> None:
-    """bf16 K1, K1[lse] and K3 at head dims 8, 16 and 32 on NARROW_CASES
-    against plain with the head-dim-64/128 limits: K1's out equal to
-    K1[lse]'s, a second launch of each bitwise equal to the first, rows
-    that see no key exactly zero with lse NEG_INF, keys no query reaches
-    exactly zero gradients."""
+    """bf16 K1, K1[lse], K2 and K3 at head dims 8, 16 and 32 on
+    NARROW_CASES against plain with the head-dim-64/128 limits: K1's out
+    equal to K1[lse]'s, a second launch of each bitwise equal to the
+    first, each wrapper's launch count, rows that see no key exactly zero
+    out and dQ with lse NEG_INF, keys no query reaches exactly zero
+    gradients."""
     from mmlspark_tpu_torch.ops.attention import NEG_INF
     from mmlspark_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_with_lse,
         flash_attention_with_lse_plain, flash_block_grads_plain,
-        flash_bwd_dkv)
-    worst = [0.0, 0.0, 0.0]   # out max|d|, dK and dV ||d||/||ref||
+        flash_bwd_dkv, flash_bwd_dq)
+    worst = [0.0, 0.0, 0.0, 0.0]   # out max|d|, dQ, dK, dV ||d||/||ref||
     for d in (8, 16, 32):
         for b, sq, sk, h, causal, q_off, k_off in NARROW_CASES:
             gen = torch.Generator(device=dev).manual_seed(sq + 7 * sk + h + d)
@@ -3580,8 +3596,10 @@ def narrow_kernel_checks(dev, card) -> None:
             k, v = (torch.randn((b, sk, h, d), generator=gen, device=dev)
                     .to(torch.bfloat16) for _ in range(2))
             scale = d ** -0.5
-            what = (f"head dim {d}: bf16 K1/K3 (B, Sq, Sk, H) = ({b}, {sq}, "
-                    f"{sk}, {h}) causal={causal} offsets {q_off}/{k_off}")
+            what = (f"head dim {d}: bf16 K1/K2/K3 (B, Sq, Sk, H) = ({b}, "
+                    f"{sq}, {sk}, {h}) causal={causal} offsets "
+                    f"{q_off}/{k_off}")
+            before = read_counts()
             out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off,
                                                 k_off)
             again = flash_attention_with_lse(q, k, v, causal, None, q_off,
@@ -3591,13 +3609,19 @@ def narrow_kernel_checks(dev, card) -> None:
             ref_out, ref_lse = flash_attention_with_lse_plain(
                 q, k, v, causal, None, q_off, k_off)
             delta = (do.float() * ref_out.float()).sum(-1)
-            grads = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale,
-                                  q_off, k_off)
-            grads2 = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal,
-                                   scale, q_off, k_off)
+            grads, grads2 = ((flash_bwd_dq(q, k, v, do, ref_lse, delta,
+                                           causal, scale, q_off, k_off),
+                              *flash_bwd_dkv(q, k, v, do, ref_lse, delta,
+                                             causal, scale, q_off, k_off))
+                             for _ in range(2))
             torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in read_counts().items()}
+            want = {"flash_attention": int(q_off == k_off == 0),
+                    "flash_attention[lse]": 2, "flash_bwd_dq": 2,
+                    "flash_bwd_dkv": 2}
+            counted = all(launched[n] == c for n, c in want.items())
             refs = flash_block_grads_plain(q, k, v, do, ref_lse, delta,
-                                           causal, scale, q_off, k_off)[1:]
+                                           causal, scale, q_off, k_off)
             err, norm_err = out_errs(out, ref_out)
             lse_err = (lse - ref_lse).abs().max().item()
             g_errs = [grad_errs(a, r) for a, r in zip(grads, refs)]
@@ -3606,30 +3630,35 @@ def narrow_kernel_checks(dev, card) -> None:
                     and all(torch.equal(a, r) for a, r in zip(grads, grads2)))
             dark = True
             if causal and k_off > q_off:
-                dark = (torch.count_nonzero(out[:, :k_off - q_off]).item() == 0
-                        and bool((lse[:, :k_off - q_off] == NEG_INF).all()))
+                hid = k_off - q_off
+                dark = (torch.count_nonzero(out[:, :hid]).item() == 0
+                        and torch.count_nonzero(grads[0][:, :hid]).item() == 0
+                        and bool((lse[:, :hid] == NEG_INF).all()))
             if causal and q_off + sq < k_off + sk:
                 seen = max(0, q_off + sq - k_off)
                 dark = dark and all(torch.count_nonzero(g[:, seen:]).item()
-                                    == 0 for g in grads)
+                                    == 0 for g in grads[1:])
             require(err <= 2e-2 and norm_err <= 1e-2 and lse_err <= 1e-3
                     and all(m <= 2e-2 and n <= 1e-2 for m, n in g_errs)
-                    and same and dark,
+                    and same and dark and counted,
                     f"{what}: out {err:.3e} / {norm_err:.3e}, lse "
-                    f"{lse_err:.3e}, dK dV {g_errs}, repeats equal {same}, "
-                    f"unseen rows and keys exactly zero {dark}")
-            worst = [max(worst[0], err), max(worst[1], g_errs[0][1]),
-                     max(worst[2], g_errs[1][1])]
-    print(f"bf16 K1, K1[lse] and K3 at head dims 8, 16, 32 on "
+                    f"{lse_err:.3e}, dQ dK dV {g_errs}, repeats equal "
+                    f"{same}, unseen rows and keys exactly zero {dark}, "
+                    f"launches {launched} (want {want})")
+            worst = [max(worst[0], err)] + [max(w, e[1]) for w, e in
+                                             zip(worst[1:], g_errs)]
+    print(f"bf16 K1, K1[lse], K2 and K3 at head dims 8, 16, 32 on "
           f"{len(NARROW_CASES)} edge cases each: all within the limits "
-          f"(worst out max_abs_err {worst[0]:.3e}, dK / dV ||d||/||ref|| "
-          f"{worst[1]:.3e} / {worst[2]:.3e}), repeats bitwise equal, unseen "
-          f"rows and keys exactly zero [{card}]")
+          f"(worst out max_abs_err {worst[0]:.3e}, dQ / dK / dV ||d||/||ref|| "
+          f"{worst[1]:.3e} / {worst[2]:.3e} / {worst[3]:.3e}), repeats "
+          f"bitwise equal, launch counts exact, unseen rows and keys exactly "
+          f"zero [{card}]")
 
 
 def backward_entries(d: int, tag: str, abs_err: list, timed: dict) -> dict:
     """The kernels-line rows of K2 and K3 at head dim `d` (`tag`: "" or
-    ", f32") from their max |error| (dq, dk, dv) and `time_backward`."""
+    ", f32", then the shape where it is not the training shape) from their
+    max |error| (dq, dk, dv) and `time_backward`."""
     return {f"{name}[d{d}{tag}]": {
         "name": f"{name}[d{d}{tag}]", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
@@ -4019,7 +4048,8 @@ def example_path(dev, card) -> dict:
         trainer = Trainer(TrainerConfig(
             architecture="TransformerLM", model_config=config,
             optimizer="adam", learning_rate=3e-3, lr_schedule="cosine",
-            epochs=30, batch_size=32, loss="softmax_xent", seed=0,
+            epochs=30, batch_size=EXAMPLE["batch"], loss="softmax_xent",
+            seed=0,
             shuffle_each_epoch=False), device=dev)
         torch.cuda.synchronize()
         reset_counts()
@@ -4209,11 +4239,13 @@ def phase_small_head_dims(dev, card) -> tuple:
                  (16, DEFAULT_LM_CONFIG, TRAIN_SEQ),
                  (32, ZIPF["config"], ZIPF["config"]["max_len"]))}
     launches = dict(wide_launches)
-    for d, path in ((8, paths["a"]), (16, paths["b"]), (32, paths["c"])):
+    bwd_rows = [(8, "a", ""), (16, "b", ""), (32, "c", "")]
+    bwd_rows += [(d, path, f", {shape}") for path, d, shape in PATH_BWD_SHAPES]
+    for d, path, at in bwd_rows:
         for tag, dtype in (("", "bf16"), (", f32", "f32")):
-            train = path[f"train_{dtype}"]
-            launches[f"flash_bwd_dq[d{d}{tag}]"] = train["K2"]
-            launches[f"flash_bwd_dkv[d{d}{tag}]"] = train["K3"]
+            train = paths[path][f"train_{dtype}"]
+            launches[f"flash_bwd_dq[d{d}{tag}{at}]"] = train["K2"]
+            launches[f"flash_bwd_dkv[d{d}{tag}{at}]"] = train["K3"]
     launches[f"flash_attention[lse, d16, ({TRAIN_BATCH}, {TRAIN_SEQ})]"] = \
         paths["b"]["train_bf16"]["K1[lse]"]
     launches[f"flash_attention[lse, d32, ({TRAIN_BATCH}, "
@@ -4265,9 +4297,8 @@ def main() -> int:
               f"{row['static_smem_bytes']} bytes static shared memory, "
               f"{row['spill_stores']} / {row['spill_loads']} bytes spill "
               f"stores / loads")
-    # K1: f32 at 5 head dims, bf16 wgmma at 64 and 128, bf16 mma.sync at
-    # 8, 16 and 32; K2 and K3: f32 and bf16 (wgmma or mma.sync) at 5 head
-    # dims each; K4: 2 q types x 3 caches x 5 head dims
+    # K1, K2 and K3: f32 and bf16 at 5 head dims each (bf16 wgmma, on
+    # narrow tiles at 8, 16 and 32); K4: 2 q types x 3 caches x 5 head dims
     require(len(k1_build) == 10 and not any(
         row["spill_stores"] or row["spill_loads"] for row in k1_build),
         "K1's build log lacks a kernel or reports spills")
@@ -4352,22 +4383,24 @@ def main() -> int:
 
 
 def backward_times(dev, card) -> dict:
-    """`chip_smoke.py --ab TAG --bwd`: K2 and K3 on (8, 2048, 8, d) causal,
-    f32 at every head dim and bf16 at 8, 16 and 32, checked against plain
-    (`check_backward`) and timed (`time_backward`).  Returns per dtype and
-    head dim the K2 and K3 ms and the library pair's."""
+    """`chip_smoke.py --ab TAG --bwd`: K2 and K3 causal, f32 at every head
+    dim and bf16 at 8, 16 and 32 on (8, 2048, 8, d), both also at
+    PATH_BWD_SHAPES, checked against plain (`check_backward`) and timed
+    (`time_backward`).  Returns per dtype and (B, S, H, D) the K2 and K3
+    ms and the library pair's."""
     gen = torch.Generator(device=dev).manual_seed(11)
     out: dict = {"f32": {}, "bf16": {}}
+    paths = [(d, shape) for _, d, shape in PATH_BWD_SHAPES]
     for dtype, dims in ((torch.float32, (8, 16, 32, 64, 128)),
                         (torch.bfloat16, (8, 16, 32))):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        for d in dims:
-            args = backward_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
-                                   True, 0, 0, dtype, d)
-            check_backward(args, d, dtype,
-                           f"head dim {d}: flash backward {tag}")
-            timed = time_backward(card, gen, d, dtype, args)
-            out[tag][d] = {
+        for d, (b, s, h) in [(d, (TRAIN_BATCH, TRAIN_SEQ, 8))
+                             for d in dims] + paths:
+            args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d, h)
+            check_backward(args, d, dtype, f"head dim {d}: flash backward "
+                           f"{tag} ({b}, {s}, {h}, {d})")
+            timed = time_backward(card, gen, d, dtype, args, (b, s, h))
+            out[tag][str((b, s, h, d))] = {
                 "dq_ms": timed["flash_bwd_dq"]["ms"],
                 "dkv_ms": timed["flash_bwd_dkv"]["ms"],
                 "library_pair_ms": timed["flash_bwd_dq"]["library_ms"]}

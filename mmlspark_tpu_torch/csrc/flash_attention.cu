@@ -107,18 +107,18 @@
 
 #include "common.cuh"
 #include "f32.cuh"
-#include "mma.cuh"
 #include "sm90.cuh"
 
 using mmlspark::F32_PP;
 using mmlspark::F32_ROWS;
 using mmlspark::F32_THREADS;
+using mmlspark::cp_async_commit;
+using mmlspark::cp_async_wait;
 using mmlspark::f32_col;
 using mmlspark::f32_pitch;
 using mmlspark::load_rows_f32;
 using mmlspark::NEG_INF;
 namespace sm90 = mmlspark::sm90;
-namespace mma = mmlspark::mma;
 
 namespace {
 
@@ -588,7 +588,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     load_rows_f32<D>(ring, k, b, h, H, Sk, 0);
     load_rows_f32<D>(ring + L::KV, v, b, h, H, Sk, 0);
   }
-  mma::cp_async_commit();
+  cp_async_commit();
 
   float o[4][CW];
 #pragma unroll
@@ -611,8 +611,8 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
       load_rows_f32<D>(next, k, b, h, H, Sk, (kt + 1) * F32_BN);
       load_rows_f32<D>(next + L::KV, v, b, h, H, Sk, (kt + 1) * F32_BN);
     }
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but tile kt + 1 has landed
     __syncthreads();
     const int k0 = kt * F32_BN;
     // a tile wholly above the diagonal for this warp's rows adds nothing
@@ -727,7 +727,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     }
     __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
   }
-  mma::cp_async_wait<0>();
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

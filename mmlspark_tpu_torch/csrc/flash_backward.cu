@@ -56,46 +56,40 @@
 //   * Epilogue: scale once, stage the bf16 rows in the warpgroup's own
 //     (no longer read) rows of an owned tile, 16-byte stores of rows < S.
 //
-// Design, bf16 K2 at head dims 8, 16 and 32 (`flash_bwd_dq_mma<D>`), on
-// warp-level tensor-core products (mma.sync, csrc/mma.cuh):
-//   * one CTA of four warps owns 64 query rows (heaviest causal tile
-//     first), 16 a warp, staged once by cp.async with dO and held as A
-//     fragments in registers; 64-key K/V tiles stream through a 2-stage
-//     cp.async ring;
-//   * S and dP are m16n8k16 steps (one m16n8k8 at D = 8) with the key
-//     tile's rows as the product's columns; P = exp2(S scale log2 e - lse
-//     log2 e) and dS = P (dP - delta) in registers, masked to exact zeros
-//     only on tiles that straddle the diagonal or the ragged end of Sk;
-//     dS, rounded to bf16 pairs, is the A fragment of dQ += dS K as it
-//     lies, whose B fragments come from the K tile by ldmatrix.trans;
-//   * one writer per output row, no atomics; 4-byte stores after the scale.
-//
-// Design, bf16 K3 at head dims 8, 16 and 32 (`flash_bwd_dkv_narrow<D>`).
-// Each score element carries about 8 instructions that do not depend on D
-// (the FMA into base 2, ex2, the mask, dP - delta, the multiply, two
-// packs), so the kernel is bound by instruction issue and the ex2 rate;
-// the design puts all four products on wgmma, one asynchronous instruction
-// a 64 x N x 16 step, off the issue slots of that elementwise pass, and
-// keeps enough warpgroups on an SM to overlap one's products with
-// another's elementwise pass:
-//   * a CTA of one or two warpgroups owns 64 keys each of one (batch,
-//     head), their K and V rows read once from global memory into register
-//     A fragments (the k 8-15 half zero at D = 8);
-//   * the walked 64-query tiles of Q and dO stream by TMA into a 4-stage
-//     ring on full/empty mbarriers; warp 0 also produces it, refilling the
-//     stage of the previous tile (a tile late, so that it seldom waits on
-//     another warpgroup) and storing each tile's 64 exp2 bases and deltas
-//     beside it from plain loads issued a tile ahead;
-//   * a tile's queries are taken 32 at a time: S^T = K Q^T and dP^T = V
-//     dO^T as wgmma m64n32k16 with K or V in registers and the walked
-//     rows K-major in shared memory, so the accumulator's rows are the
-//     warpgroup's keys; P^T and dS^T in registers as in the wide kernels
-//     above, masked only where the diagonal crosses, a tile the keys
-//     cannot see skipped (its stage still released); the half holds the
-//     score registers to 32, so two or more CTAs share an SM at every D;
-//   * dV += P^T dO and dK += dS^T Q: wgmma m64nDk16 with P^T and dS^T as
-//     the register A operand as they lie, B read MN-major from the very
-//     rows the score product read K-major; dK and dV stay in registers;
+// Design, bf16 K2 and K3 at head dims 8, 16 and 32 (`flash_bwd_dq_narrow<D>`,
+// `flash_bwd_dkv_narrow<D>`).  Each score element carries about 8
+// instructions that do not depend on D (the FMA into base 2, ex2, the
+// mask, dP - delta, the multiply, the packs), so the kernels are bound by
+// instruction issue and the ex2 rate; the design puts every product on
+// wgmma, one asynchronous instruction a 64 x N x 16 step, off the issue
+// slots of that elementwise pass, and keeps enough warpgroups on an SM to
+// overlap one's products with another's elementwise pass:
+//   * a CTA of one or two warpgroups (K2: two) owns 64 rows each of one
+//     (batch, head), read once from global memory into register A
+//     fragments (the k 8-15 half zero at D = 8): queries with dO in K2
+//     (heaviest causal tile first), keys with V in K3 (key tile 0 first);
+//   * the walked 64-row tiles (K and V in K2, Q and dO in K3) stream by TMA
+//     into a 4-stage ring on full/empty mbarriers, produced by a warp of
+//     its own (K2 at D = 8, 16) or by warp 0 beside its products, which
+//     refills the stage of the previous tile (a tile late, so that it
+//     seldom waits on another warpgroup); K2 reads its two rows' exp2
+//     bases and deltas once into registers, K3 has warp 0 store each
+//     walked tile's 64 beside it from plain loads issued a tile ahead;
+//   * a walked tile is taken 32 rows at a time (K2 at D = 32: all 64),
+//     which holds the score registers to 32, so two or more CTAs share an
+//     SM: S = Q K^T and dP = dO V^T in K2, S^T = K Q^T and dP^T = V dO^T
+//     in K3, as wgmma m64n32k16 (m64n64k16) with the owned rows in
+//     registers and the walked rows K-major in shared memory, so the
+//     accumulator's rows are the rows the warpgroup owns; P and dS in
+//     registers as in the wide kernels above, masked only where the
+//     diagonal or the end of Sk crosses (TMA reads rows past S as zeros,
+//     whose P is not 0), a tile the owned rows cannot see skipped (its
+//     stage still released);
+//   * the gradient products are wgmma m64nDk16 with P, dS (or their
+//     transposes) as the register A operand as they lie, B read MN-major
+//     from the very rows the score product read K-major: dQ += dS K in K2,
+//     dV += P^T dO and dK += dS^T Q in K3; the accumulators stay in
+//     registers;
 //   * one writer per output row, no atomics; 4-byte stores after the scale.
 //
 // Design, f32 (`flash_bwd_dq_f32<D>`, `flash_bwd_dkv_f32<D>`, every head
@@ -135,18 +129,18 @@
 
 #include "common.cuh"
 #include "f32.cuh"
-#include "mma.cuh"
 #include "sm90.cuh"
 
 using mmlspark::F32_PP;
 using mmlspark::F32_ROWS;
 using mmlspark::F32_THREADS;
+using mmlspark::cp_async_commit;
+using mmlspark::cp_async_wait;
 using mmlspark::f32_col;
 using mmlspark::f32_pitch;
 using mmlspark::load_rows_f32;
 using mmlspark::NEG_INF;
 namespace sm90 = mmlspark::sm90;
-namespace mma = mmlspark::mma;
 
 namespace {
 
@@ -548,107 +542,177 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   store_rows<D>(dv, v_tile, wg, k0, Sk, b, h, H);
 }
 
-// ---- bf16 at head dims 8, 16 and 32: warp-level tensor-core products ----
+// ---- bf16 at head dims 8, 16 and 32: wgmma on a TMA ring ---------------------
 
-// K2 at D <= 32: one CTA of four warps per 64 query rows of one (batch,
-// head), 16 rows a warp, walking 64-key tiles.
+constexpr int NARROW_STAGES = 4;  // ring depth
+
+// K2 at D <= 32.  One CTA of OWN warpgroups owns 64 query rows each of
+// one (batch, head), heaviest causal tiles first, their Q and dO rows held
+// as register A fragments and their statistics in registers; the walked
+// 64-key tiles of K and V stream through a ring of NARROW_STAGES stages by
+// TMA, produced by a warp of its own (PRODUCER) or by warp 0 beside its
+// products (as K3 below).  A tile's keys are taken HALF at a time.  The
+// shape at each head dim was chosen on the H100 with `chip_smoke.py --ab
+// TAG --bwd` (PERF.md §6): a producer warp won 6% at D = 16 and lost 24%
+// at D = 32; whole 64-key tiles won 5% at D = 32 only.
 template <int D>
-__global__ void __launch_bounds__(mma::THREADS)
-    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Sk, float scale,
-                     int causal, int q_off, int k_off) {
-  constexpr int P = mma::pitch<D>();
-  constexpr int R = mma::ROWS;
-  __shared__ __align__(128) bf16 q_tile[R * P], do_tile[R * P];
-  __shared__ __align__(128) bf16 kv_tile[STAGES][2][R * P];
+struct NarrowDq {
+  static constexpr int OWN = 2;
+  static constexpr int HALF = D == 32 ? 64 : 32;
+  static constexpr bool PRODUCER = D <= 16;
+  static constexpr int THREADS = OWN * WG_THREADS + (PRODUCER ? 32 : 0);
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;  // rows g, g + 8; columns 2 tig (+1)
+template <int D>
+__global__ void __launch_bounds__(NarrowDq<D>::THREADS)
+    flash_bwd_dq_narrow(__grid_constant__ const CUtensorMap k_map, __grid_constant__ const CUtensorMap v_map,
+                        const bf16* __restrict__ q, const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Sk, float scale,
+                        int causal, int q_off, int k_off) {
+  constexpr uint32_t TILE = sm90::Narrow<D>::TILE;
+  constexpr uint32_t ROW = sm90::Narrow<D>::ROW;
+  constexpr int OWN = NarrowDq<D>::OWN, HALF = NarrowDq<D>::HALF;
+  constexpr bool PRODUCER = NarrowDq<D>::PRODUCER;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[NARROW_STAGES], empty[NARROW_STAGES];
+  unsigned char* ring = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, warp = (tid % WG_THREADS) / 32, lane = tid % 32;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * R;  // heaviest causal tiles first
-  const int wq0 = q0 + warp * 16;
+  const int q0 = (int(gridDim.y) - 1 - int(blockIdx.y)) * OWN * 64;  // heaviest causal tiles first
+  const int wg_q0 = q0 + wg * 64;                                      // this warpgroup's first row
 
-  const int last_row = min(q0 + R, Sq) - 1;
-  int n_kt = (Sk + R - 1) / R;
+  const int last_row = min(q0 + OWN * 64, Sq) - 1;
+  int n_kt = (Sk + BN - 1) / BN;
   if (causal) {
+    // key tile kt is live while k_off + kt*BN <= q_off + last_row
     const int reach = q_off + last_row - k_off;
-    n_kt = reach < 0 ? 0 : min(n_kt, reach / R + 1);
+    n_kt = reach < 0 ? 0 : min(n_kt, reach / BN + 1);
   }
 
-  mma::load_rows<D>(q_tile, q, b, h, H, Sq, q0);
-  mma::load_rows<D>(do_tile, dout, b, h, H, Sq, q0);
-  if (n_kt > 0) {
-    mma::load_rows<D>(kv_tile[0][0], k, b, h, H, Sk, 0);
-    mma::load_rows<D>(kv_tile[0][1], v, b, h, H, Sk, 0);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NARROW_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], OWN * WG_THREADS);  // the consumer warpgroups
+    }
+    sm90::fence_mbar_init();
   }
-  mma::cp_async_commit();
+  __syncthreads();
 
-  float base[2], dl[2];  // rows g and g + 8: exp2 base and delta
+  // one lane: key tile kt into `stage`
+  auto produce = [&](int stage, int kt) {
+    unsigned char* dst = ring + stage * 2 * TILE;
+    sm90::mbar_arrive_expect_tx(&full[stage], 2 * TILE);
+    sm90::tma_load_4d(dst, &k_map, &full[stage], 0, h, kt * BN, b);
+    sm90::tma_load_4d(dst + TILE, &v_map, &full[stage], 0, h, kt * BN, b);
+  };
+  if constexpr (PRODUCER) {
+    // the producer warp: tile kt into stage kt % STAGES once the stage's
+    // previous tile is consumed
+    if (wg == OWN) {
+      if (lane == 0)
+        for (int kt = 0; kt < n_kt; ++kt) {
+          const int stage = kt % NARROW_STAGES;
+          if (kt >= NARROW_STAGES) sm90::mbar_wait(&empty[stage], ((kt / NARROW_STAGES) - 1) & 1);
+          produce(stage, kt);
+        }
+      return;
+    }
+  } else if (tid == 0) {
+    for (int kt = 0; kt < min(n_kt, NARROW_STAGES); ++kt) produce(kt, kt);
+  }
+
+  const int row = warp * 16 + lane / 4;  // query rows row and row + 8 of the warpgroup's 64
+  const int col = 2 * (lane % 4);        // + 8j (+1): key columns within a tile
+  uint32_t qa[sm90::Narrow<D>::KS][4], da[sm90::Narrow<D>::KS][4];  // Q's and dO's A fragments
+  sm90::load_frags<D>(qa, q, b, h, H, Sq, wg_q0 + row);
+  sm90::load_frags<D>(da, dout, b, h, H, Sq, wg_q0 + row);
+  float base[2], dl[2];  // this thread's two rows' exp2 base and delta
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    fetch_stats(lse, delta, b, h, H, Sq, wq0 + g + 8 * r, base[r], dl[r]);
+    fetch_stats(lse, delta, b, h, H, Sq, wg_q0 + row + 8 * r, base[r], dl[r]);
     base[r] = exp2_base(base[r]);
   }
   const float scale_log2 = scale * LOG2E;
-  float acc[D / 8][4];
+  float dqa[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  uint32_t qa[mma::Frag<D>::KS][4], da[mma::Frag<D>::KS][4];  // Q's and dO's A fragments
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  float s[HALF / 2], dp[HALF / 2];
+  uint32_t dsa[HALF / 4];  // dS as bf16 pairs: the A operand of dS K
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int stage = kt % STAGES;
-    if (kt + 1 < n_kt) {
-      // the other stage was released by the barrier that ended tile kt - 1
-      mma::load_rows<D>(kv_tile[1 - stage][0], k, b, h, H, Sk, (kt + 1) * R);
-      mma::load_rows<D>(kv_tile[1 - stage][1], v, b, h, H, Sk, (kt + 1) * R);
-    }
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
-    __syncthreads();
-    if (kt == 0) {
-      mma::load_a<D>(qa, q_tile + warp * 16 * P, lane);
-      mma::load_a<D>(da, do_tile + warp * 16 * P, lane);
-    }
-    const int k0 = kt * R;
-    // a tile wholly above the diagonal for this warp's rows adds nothing
-    const bool hidden = causal && k_off + k0 > q_off + wq0 + 15;
+    const int stage = kt % NARROW_STAGES;
+    const int k0 = kt * BN;
+    // without a producer warp, warp 0 refills the stage of the previous
+    // tile, one tile late, so that it seldom waits on the other warpgroup
+    const int next = kt - 1 + NARROW_STAGES;
+    const bool refill = !PRODUCER && tid < 32 && kt >= 1 && next < n_kt;
+    sm90::mbar_wait(&full[stage], (kt / NARROW_STAGES) & 1);
+    // a tile wholly above the diagonal for this warpgroup's rows, or rows
+    // all past Sq, adds nothing
+    const bool hidden = wg_q0 >= Sq || (causal && k_off + k0 > q_off + wg_q0 + 63);
     if (!hidden) {
-      float s[8][4], dp[8][4];
-      mma::score_tile<D>(s, qa, kv_tile[stage][0], lane);   // S = Q K^T
-      mma::score_tile<D>(dp, da, kv_tile[stage][1], lane);  // dP = dO V^T
-      const bool whole = k0 + R <= Sk && (!causal || k_off + k0 + R - 1 <= q_off + wq0);
-      uint32_t ds[8][2];  // dS as bf16 pairs: the A operand of dS K
+      const uint32_t k_addr = sm90::smem_addr(ring + stage * 2 * TILE);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int half = 0; half < BN / HALF; ++half) {
+        const int hk0 = k0 + half * HALF;
+        const uint32_t hk_addr = k_addr + half * HALF * ROW;
+        sm90::wgmma_fence();
+        sm90::score_rs<D, HALF>(s, qa, hk_addr);  // S = Q K^T
+        sm90::wgmma_commit();
+        sm90::score_rs<D, HALF>(dp, da, hk_addr + TILE);  // dP = dO V^T
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // S, and the previous half's gradient product
+        sm90::fence_regs(s);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float p[2];
+        for (int i = 0; i < HALF / 2; ++i) s[i] = sm90::ex2(fmaf(s[i], scale_log2, -base[(i / 2) % 2]));
+        // mask only a half that straddles the diagonal or the end of Sk
+        // (TMA reads keys past Sk as zeros, whose P is not 0)
+        const bool whole = hk0 + HALF <= Sk && (!causal || k_off + hk0 + HALF - 1 <= q_off + wg_q0);
+        if (!whole) {
+          // entry i is key hk0 + col + dc of query wg_q0 + row + dr: hidden
+          // past Sk, or above the diagonal when causal
+          const int key_end = Sk - hk0 - col;
+          const int diag = causal ? q_off + wg_q0 + row - k_off - hk0 - col : HALF;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            p[e] = sm90::ex2(fmaf(s[nt][2 * r + e], scale_log2, -base[r]));
-            const int key = k0 + nt * 8 + 2 * tig + e;
-            // mask only a tile that straddles the diagonal or the end of Sk
-            if (!whole && (key >= Sk || (causal && k_off + key > q_off + wq0 + g + 8 * r))) p[e] = 0.f;
+          for (int i = 0; i < HALF / 2; ++i) {
+            const int dc = entry_dc(i);
+            if (dc >= key_end || dc > diag + entry_dr(i)) s[i] = 0.f;
           }
-          ds[nt][r] = sm90::pack_bf16(p[0] * (dp[nt][2 * r] - dl[r]), p[1] * (dp[nt][2 * r + 1] - dl[r]));
         }
-      mma::accumulate_tile<D>(acc, ds, kv_tile[stage][0], lane);  // dQ += dS K
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < HALF / 4; ++j)
+          dsa[j] = sm90::pack_bf16(s[2 * j] * (dp[2 * j] - dl[j % 2]), s[2 * j + 1] * (dp[2 * j + 1] - dl[j % 2]));
+        sm90::wgmma_fence();
+        sm90::accumulate_rs<D, HALF / 16>(dqa, dsa, hk_addr);  // dQ += dS K
+        sm90::wgmma_commit();
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dqa);
     }
-    __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
+    sm90::mbar_arrive(&empty[stage]);
+    if (refill) {
+      const int prev = (kt - 1) % NARROW_STAGES;
+      sm90::mbar_wait(&empty[prev], ((kt - 1) / NARROW_STAGES) & 1);  // every warpgroup is done with it
+      if (lane == 0) produce(prev, next);
+    }
+    __syncwarp();
   }
-  mma::cp_async_wait<0>();
 
+  // epilogue: scale * dQ, rows < Sq, 4-byte stores of bf16 pairs
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = wq0 + g + 8 * r;
+    const int qi = wg_q0 + row + 8 * r;
     if (qi >= Sq) continue;
-    bf16* dst = dq + ((size_t(b) * Sq + qi) * H + h) * D + 2 * tig;
+    const size_t at = ((size_t(b) * Sq + qi) * H + h) * D + col;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) = sm90::pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dq + at + 8 * j) =
+          sm90::pack_bf16(dqa[4 * j + 2 * r] * scale, dqa[4 * j + 2 * r + 1] * scale);
   }
 }
 
@@ -660,8 +724,7 @@ __global__ void __launch_bounds__(mma::THREADS)
 // bytes to be a multiple of 16, so they take plain loads).  No warp of its
 // own for the producer keeps the registers of two or more CTAs within an
 // SM.
-constexpr int NARROW_STAGES = 4;  // ring depth
-
+//
 // The shape at each narrow head dim, chosen on the H100 with
 // `chip_smoke.py --ab TAG --bwd` (PERF.md §6): warpgroups a CTA, and the
 // queries of a walked tile taken at a time.  One warpgroup a CTA at
@@ -991,7 +1054,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     load_rows_f32<D>(ring, k, b, h, H, Sk, 0);
     load_rows_f32<D>(ring + L::TILE, v, b, h, H, Sk, 0);
   }
-  mma::cp_async_commit();
+  cp_async_commit();
 
   float base[4], dl[4];  // this thread's rows' exp2 base and delta
 #pragma unroll
@@ -1017,8 +1080,8 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
       load_rows_f32<D>(next, k, b, h, H, Sk, (kt + 1) * F32_ROWS);
       load_rows_f32<D>(next + L::TILE, v, b, h, H, Sk, (kt + 1) * F32_ROWS);
     }
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but tile kt + 1 has landed
     __syncthreads();
     const int k0 = kt * F32_ROWS;
     // a tile wholly above the diagonal for this warp's rows, or a warp
@@ -1056,7 +1119,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     }
     __syncthreads();  // tile kt's stage is free for the load of tile kt + 2
   }
-  mma::cp_async_wait<0>();
+  cp_async_wait<0>();
   f32_store<D>(dq, acc, scale, wq0 + rg, Sq, b, h, H, kg);
 }
 
@@ -1111,7 +1174,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
       if (n_it > 1) fetch(qt0 + 1, next_b, next_d);
     }
   }
-  mma::cp_async_commit();
+  cp_async_commit();
 
   const float scale_log2 = scale * LOG2E;
   float dka[4][D / 8], dva[4][D / 8];
@@ -1137,8 +1200,8 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
         if (it + 2 < n_it) fetch(qt + 1, next_b, next_d);  // in flight while this tile is computed
       }
     }
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();  // everything but tile it + 1 has landed
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but tile it + 1 has landed
     __syncthreads();
     const int q0 = (qt0 + it) * F32_ROWS;
     // a tile whose every query precedes this warp's keys, or a warp wholly
@@ -1193,7 +1256,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     }
     __syncthreads();  // tile it's stage is free for the load of tile it + 2
   }
-  mma::cp_async_wait<0>();
+  cp_async_wait<0>();
   f32_store<D>(dk, dka, scale, wk0 + rg, Sk, b, h, H, kg);
   f32_store<D>(dv, dva, 1.f, wk0 + rg, Sk, b, h, H, kg);
 }
@@ -1282,6 +1345,26 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
 }
 
 template <int D>
+cudaError_t launch_dq_narrow(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                             const float* delta, void* dq, int B, int H, int Sq, int Sk, float scale, int causal,
+                             int q_off, int k_off, cudaStream_t stream) {
+  CUtensorMap k_map, v_map;
+  if (Sk > 0) {
+    if (!sm90::encode_bshd_bf16(&k_map, k, B, Sk, H, D, BN) || !sm90::encode_bshd_bf16(&v_map, v, B, Sk, H, D, BN))
+      return cudaErrorInvalidValue;
+  } else {
+    memset(&k_map, 0, sizeof(k_map));  // no key tile is ever loaded
+    v_map = k_map;
+  }
+  constexpr int rows = NarrowDq<D>::OWN * 64;  // a CTA's owned queries
+  const dim3 grid(B * H, (Sq + rows - 1) / rows);
+  flash_bwd_dq_narrow<D><<<grid, NarrowDq<D>::THREADS, sm90::Narrow<D>::TILE * 2 * NARROW_STAGES + 1024, stream>>>(
+      k_map, v_map, static_cast<const bf16*>(q), static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
+      H, Sq, Sk, scale, causal, q_off, k_off);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv_narrow(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                               const float* delta, void* dk, void* dv, int B, int H, int Sq, int Sk, float scale,
                               int causal, int q_off, int k_off, cudaStream_t stream) {
@@ -1309,12 +1392,7 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v, co
     if constexpr (D >= 64) {
       return launch_dq_bf16<D>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
     } else {
-      const dim3 grid(B * H, (Sq + mma::ROWS - 1) / mma::ROWS);
-      flash_bwd_dq_mma<D><<<grid, mma::THREADS, 0, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, scale, causal, q_off,
-          k_off);
-      return cudaGetLastError();
+      return launch_dq_narrow<D>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
     }
   }
   return launch_dq_f32<D>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, q_off, k_off, stream);
@@ -1339,7 +1417,7 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v, c
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients; at
-// bf16 q, k, v, dout 16-byte aligned: TMA at D >= 64, cp.async below);
+// bf16 q, k, v, dout 16-byte aligned for TMA);
 // D is 8, 16, 32, 64 or 128; lse and delta are f32 (B, Sq, H).  Each
 // returns the cudaError_t of its launch.
 extern "C" int mmlspark_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

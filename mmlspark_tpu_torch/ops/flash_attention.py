@@ -11,9 +11,9 @@ The kernels replace the Pallas kernels of
     `_flash_backward`: `csrc/flash_backward.cu`.
 
 Head dims: K1, K2 and K3 take 8, 16, 32, 64 and 128, at f32 and bf16
-(bf16 at 64 and 128, and bf16 K1 and K3 at 8-32: wgmma + TMA; bf16 K2
-at 8-32: mma.sync; f32: CUDA-core FMA); any other head dim on a CUDA tensor raises ValueError naming the
-set, before any launch.  Semantics are the JAX kernels': inputs
+(bf16 at every head dim: wgmma + TMA, over narrow tiles at 8-32; f32:
+CUDA-core FMA); any other head dim on a CUDA tensor raises ValueError
+naming the set, before any launch.  Semantics are the JAX kernels': inputs
 (B, S, H, D), causal or not, f32 softmax statistics, scale D^-0.5 by
 default, outputs in the input dtype.
 The log-sum-exp `lse` and the backward's `delta = rowsum(dO * O)` are f32
@@ -173,8 +173,8 @@ def _check_stats(q, do, lse, delta) -> None:
 
 def _check_backward(q, k, v, do, lse, delta) -> None:
     """K2 and K3's inputs; the kernels read q, k, v and dout through TMA
-    (bf16 at head dims 64, 128; bf16 K3's walked q, dout at 8-32) or
-    16-byte cp.async (the rest)."""
+    (bf16: every input at head dims 64, 128; the walked k, v of K2 and q,
+    dout of K3 at 8-32) or 16-byte cp.async (f32)."""
     _check_inputs(q, k, v)
     _check_stats(q, do, lse, delta)
     _check_aligned(q=q, k=k, v=v, dout=do)

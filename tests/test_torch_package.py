@@ -526,8 +526,8 @@ def test_flash_kernel_at_tile_edges(cuda, b, sq, sk, causal, q_off, d,
 
 # ------------------------------------------------ head dim 32 ---------
 
-# K1 and K1[lse] at head dim 32 (bf16: the mma.sync kernel's 64-row query
-# and 64-key tiles; f32: one warp per row): the prefill shape, and the
+# K1 and K1[lse] at head dim 32 (bf16: the narrow wgmma kernel's 64-row
+# query and 64-key tiles; f32: one warp per row): the prefill shape, and the
 # tiles' edges -- a row and a key past a tile, one query deep in the
 # sequence, fewer keys than a tile, B = 3, one tile exactly, a row whose
 # every key lies ahead (k_offset > q_offset).
@@ -777,8 +777,8 @@ SMALL_HEAD_DIMS = [8, 16]
 @pytest.mark.parametrize("d", SMALL_HEAD_DIMS)
 def test_flash_kernels_at_small_head_dims(cuda, d, b, sq, sk, causal, q_off,
                                           k_off, dtype):
-    """K1 and K1[lse] at head dims 8 and 16 (bf16: the mma.sync kernel,
-    m16n8k8 at 8; f32: the register-tiled kernel) at the head-dim-32
+    """K1 and K1[lse] at head dims 8 and 16 (bf16: the narrow wgmma
+    kernel; f32: the register-tiled kernel) at the head-dim-32
     cases' tile edges and limits (`_check_flash_kernels`)."""
     _check_flash_kernels(cuda, d, b, sq, sk, causal, q_off, k_off, dtype)
 
@@ -819,8 +819,8 @@ def test_decode_kernels_at_small_head_dims(cuda, d, b, window, cache,
     _check_decode_kernels(cuda, d, b, window, cache, q_dtype)
 
 
-# K2 and K3 at head dims 8-128 (bf16 at 8-32: the mma.sync pair; f32: the
-# register-tiled pair, 64 owned rows in four warps of 16): the training
+# K2 and K3 at head dims 8-128 (bf16 at 8-32: the narrow wgmma pair; f32:
+# the register-tiled pair, 64 owned rows in four warps of 16): the training
 # shape's causal diagonal, non-causal ragged sides, offsets with rows that
 # see no key, the edges of the 64-row owned and walked tiles, and the f32
 # K3's warp edges (Sk = 33: one valid row in warp 2 and warp 3 past Sk;
@@ -954,9 +954,11 @@ def test_k1_split_plan_matches_enumeration(sm_count):
 # ---------------------- the wgmma kernels at head dims 8, 16 and 32 ---
 
 # bf16 K1 (`flash_fwd_bf16_narrow`: 64 query rows a CTA, two warpgroups
-# splitting the 64-key tiles, merged in a fixed order) and K3
-# (`flash_bwd_dkv_narrow`: 128 owned keys, two warpgroups, 64-query tiles
-# on a TMA ring whose statistics the producer warp stores): tile and split
+# splitting the 64-key tiles, merged in a fixed order), K2
+# (`flash_bwd_dq_narrow`: 128 owned queries, two warpgroups, 64-key tiles
+# on a TMA ring) and K3 (`flash_bwd_dkv_narrow`: 128 owned keys, two
+# warpgroups, 64-query tiles on a TMA ring whose statistics the producer
+# warp stores; one warpgroup of 64 at head dim 8 in both): tile and split
 # edges (Sq = Sk = 33, 96; 128 and 129 rows; 192, where the split walk's
 # last tile falls to the first warpgroup), the training shape's length,
 # ragged non-causal sides both ways, the phase-15 offsets (200 rows that
@@ -976,10 +978,11 @@ NARROW_CASES = [(2, 33, 33, 8, True, 0, 0), (2, 96, 96, 8, True, 0, 0),
 @pytest.mark.parametrize("d", [8, 16, 32])
 def test_narrow_wgmma_kernels_match_plain(cuda, d, b, sq, sk, h, causal,
                                           q_off, k_off):
-    """bf16 K1, K1[lse] and K3 at head dims 8-32 against plain with the
-    head-dim-64/128 limits; K1 equal to K1[lse]'s out and every kernel's
-    second launch bitwise equal to its first; rows that see no key exactly
-    zero with lse NEG_INF, and their dK, dV exactly zero."""
+    """bf16 K1, K1[lse], K2 and K3 at head dims 8-32 against plain with
+    the head-dim-64/128 limits; K1 equal to K1[lse]'s out and every
+    kernel's second launch bitwise equal to its first; rows that see no
+    key exactly zero out and dQ with lse NEG_INF, and keys that no query
+    sees exactly zero dK, dV."""
     gen = torch.Generator(device=cuda).manual_seed(sq + 7 * sk + h + d)
     q, do = (torch.randn((b, sq, h, d), generator=gen, device=cuda)
              .to(torch.bfloat16) for _ in range(2))
@@ -987,7 +990,7 @@ def test_narrow_wgmma_kernels_match_plain(cuda, d, b, sq, sk, h, causal,
             .to(torch.bfloat16) for _ in range(2))
     scale = d ** -0.5
     before = (flash_attention.launches, flash_attention_with_lse.launches,
-              flash_bwd_dkv.launches)
+              flash_bwd_dq.launches, flash_bwd_dkv.launches)
     out, lse = flash_attention_with_lse(q, k, v, causal, None, q_off, k_off)
     out2, lse2 = flash_attention_with_lse(q, k, v, causal, None, q_off,
                                           k_off)
@@ -996,6 +999,10 @@ def test_narrow_wgmma_kernels_match_plain(cuda, d, b, sq, sk, h, causal,
     ref_out, ref_lse = flash_attention_with_lse_plain(q, k, v, causal, None,
                                                       q_off, k_off)
     delta = (do.float() * ref_out.float()).sum(-1)
+    dq = flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale, q_off,
+                      k_off)
+    dq2 = flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, scale, q_off,
+                       k_off)
     dk, dv = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale, q_off,
                            k_off)
     dk2, dv2 = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, scale,
@@ -1003,9 +1010,11 @@ def test_narrow_wgmma_kernels_match_plain(cuda, d, b, sq, sk, h, causal,
     torch.cuda.synchronize()
     assert (flash_attention.launches - before[0],
             flash_attention_with_lse.launches - before[1],
-            flash_bwd_dkv.launches - before[2]) == (
-        int(no_lse is not None), 2, 2)
+            flash_bwd_dq.launches - before[2],
+            flash_bwd_dkv.launches - before[3]) == (
+        int(no_lse is not None), 2, 2, 2)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, dq2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     if no_lse is not None:
         assert torch.equal(no_lse, out)
@@ -1013,14 +1022,15 @@ def test_narrow_wgmma_kernels_match_plain(cuda, d, b, sq, sk, h, causal,
                                atol=2e-2)
     _assert_out_norm_close(out, ref_out, torch.bfloat16)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
-    _, ref_dk, ref_dv = flash_block_grads_plain(q, k, v, do, ref_lse, delta,
-                                                causal, scale, q_off, k_off)
-    for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+    refs = flash_block_grads_plain(q, k, v, do, ref_lse, delta, causal,
+                                   scale, q_off, k_off)
+    for got, ref in zip((dq, dk, dv), refs):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         _assert_grad_close(got, ref, torch.bfloat16)
     if causal and k_off > q_off:
         hidden = k_off - q_off
         assert torch.count_nonzero(out[:, :hidden]) == 0
+        assert torch.count_nonzero(dq[:, :hidden]) == 0
         assert (lse[:, :hidden] == NEG_INF).all()
     if causal and q_off + sq - 1 < k_off + sk - 1:
         # keys past the last query's reach get exactly zero gradients
