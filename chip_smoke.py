@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the
 hand-written kernels from `mmlspark_tpu_torch/csrc/`, holds each against
 its plain PyTorch version, drives the LM serving path
-(`TextGenerator.transform` -> `DecodeEngine.generate`), the online
+(`TextGenerator.transform` -> `DecodeEngine.generate`, with int8
+weights, speculative decoding and beam search too), the online
 serving engine and a replicated fleet of them over HTTP, and the LM
 training path
 (`Trainer.fit_arrays`) at the full width of the repo's LM bench
@@ -133,6 +134,22 @@ Phases (any failure exits non-zero before the result line):
      and library calls (`aten._efficient_attention_backward` /
      `_forward`); the f32 gradient check at the long-context width (head
      dim 64); the rows' launches from that check (64) and phase 11's (128)
+ 18. the rest of LM decoding: (a) `TextGenerator(specTokens=7)` with a
+     1-block draft of a target whose blocks 1-3 are softened to zero, at
+     the width of phase 6 and its prompts, f32 and bf16: f32 tokens equal
+     the plain stage's and the recompute oracle's, K1 = (target + draft
+     layers) x the prefills of buckets >= 512 and K4 = rounds x 8 draft
+     steps, exact; (b) the repo's speculative bench arm at its width
+     (8 layers, 8 x 64 prompt, 128 new, k 7): tokens/s beside its plain
+     engine, the acceptance rate, a profile of each; (c) an int8 and a
+     bf16 `quantize_bundle` of the phase-6 model through `TextGenerator`:
+     tokens/s, ms/step, resident Dense bytes, greedy agreement, K1 and K4
+     exact; (d) `ServingEngine(spec_tokens=3)` over HTTP at f32 (every
+     response 200, tokens equal the offline speculative engine's), then
+     one request on its int8 degraded lane with the breaker forced open
+     (tokens equal the offline int8 engine's); (e) beam width 4 over a
+     600-token prompt at f32: K1 once a layer, the best score within 1e-3
+     of a full-forward recompute
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -4275,6 +4292,451 @@ def phase_small_head_dims(dev, card) -> tuple:
             {"paths": paths, "grad_check": grads, "seconds": seconds})
 
 
+# chip_smoke phase 18: the rest of LM decoding.  (a) speculative decoding
+# at phase 6's width; (b) at the repo's speculative bench arm (bench.py
+# bench_lm arm 4: 8 layers, max_len 512, 8 rows of 64 tokens, 128 new,
+# k 7, cache chunk 128); (c) int8 weights at phase 6's width; (d) the
+# serving engine's speculative lanes and its int8 degraded lane; (e) beam
+# search
+SPEC_K = 7
+SPEC_BENCH_CONFIG = {"vocab_size": 8192, "d_model": 1024, "n_heads": 8,
+                     "n_layers": 8, "max_len": 512, "dtype": "bfloat16"}
+SPEC_BENCH = dict(batch=8, prompt=64, new=128, k=7, chunk=128, reps=3)
+SPEC_SERVE_LENGTHS = (20, 70, 600, 900)
+SPEC_SERVE_K = 3
+BEAM = dict(prompt=600, new=16, width=4)
+LM_DECODE_GROUPS = (("K1 flash_fwd", ("flash_fwd",)),
+                    ("K4 sqa_", ("sqa_",)),
+                    ("GEMM (cuBLAS)", GEMM_KEYS),
+                    ("softmax", ("softmax",)))
+
+
+def lm_table(lengths, seed: int = 1) -> tuple:
+    """Seeded prompts of the given lengths (phase 6's draw at seed 1 for
+    PROMPT_LENGTHS) and their DataTable."""
+    from mmlspark_tpu_torch import DataTable
+    from mmlspark_tpu_torch.core.table import object_column
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, LM_CONFIG["vocab_size"], n).astype(np.int32)
+            for n in lengths]
+    return rows, DataTable({"prompt": object_column(rows)})
+
+
+def count_rounds(engine) -> list:
+    """Per `generate` call of `engine`, its speculative rounds: the
+    engine's `generate` wrapped so that `TextGenerator.transform`, which
+    calls it once a bucket, leaves the rounds of every bucket."""
+    rounds: list = []
+    inner = engine.generate
+
+    def generate(*args, **kw):
+        out = inner(*args, **kw)
+        rounds.append(engine.last_spec_rounds)
+        return out
+    engine.generate = generate
+    return rounds
+
+
+def timed_transform(stage, table) -> tuple:
+    """(output column, seconds, launch counts) of one warm
+    `stage.transform(table)`, the counters zeroed just before it."""
+    stage.transform(table)                        # warm-up: load, build
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = stage.transform(table)["generated"]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def spec_main_path(dev, card) -> dict:
+    """Phase 18 (a): `TextGenerator(specTokens=7).set_draft_bundle(...)`
+    over the phase-6 prompts at LM_CONFIG's width; the target's blocks
+    1-3 softened to zero (`soften_late_blocks(..., 1, 0.0)`), the draft
+    its first block.  f32 tokens equal the plain stage's and the
+    recompute oracle's; K1 = (target + draft layers) x the prefills of
+    buckets >= 512; K4 = rounds x (k+1) x draft layers, every draft step
+    and nothing else."""
+    from mmlspark_tpu_torch import ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.models.generate import naive_generate
+    from mmlspark_tpu_torch.zoo import (soften_late_blocks,
+                                        truncated_draft_bundle)
+    n_layers = LM_CONFIG["n_layers"]
+    rows, table = lm_table(PROMPT_LENGTHS)
+    base = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
+    out: dict = {}
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        target = soften_late_blocks(ModelBundle(
+            "TransformerLM", {**LM_CONFIG, "dtype": dtype}, base.variables),
+            1, 0.0)
+        draft = truncated_draft_bundle(target, 1)
+        plain_stage = TextGenerator(target, device=dev, inputCol="prompt",
+                                    maxNewTokens=MAX_NEW)
+        plain, plain_s, _ = timed_transform(plain_stage, table)
+        stage = TextGenerator(target, device=dev, inputCol="prompt",
+                              maxNewTokens=MAX_NEW, specTokens=SPEC_K
+                              ).set_draft_bundle(draft)
+        engine = stage._engine_for()
+        rounds = count_rounds(engine)
+        got, spec_s, launched = timed_transform(stage, table)
+        buckets = {engine.bucket_for(len(r)) for r in rows}
+        rounds = rounds[-len(buckets):]           # the timed transform's
+        prefills = sum(1 for b in buckets if b >= 512)
+        k1 = launched["flash_attention"]
+        k4 = launched["fused_single_query_attention"]
+        require(k1 == (n_layers + 1) * prefills and prefills > 0,
+                f"speculative {name}: K1 launched {k1}, expected "
+                f"({n_layers} + 1) x {prefills} prefills")
+        require(k4 == sum(rounds) * (SPEC_K + 1) and k4 > 0,
+                f"speculative {name}: K4 launched {k4}, expected "
+                f"{sum(rounds)} rounds x {SPEC_K + 1} draft steps")
+        agree = sum(int((g[len(r):] == p[len(r):]).sum())
+                    for g, p, r in zip(got, plain, rows))
+        total = MAX_NEW * len(rows)
+        if name == "f32":
+            require(agree == total, f"speculative f32: {agree}/{total} "
+                    f"tokens equal the plain stage's")
+            module = target.module(dev)
+            for g, r in zip(got, rows):
+                require(np.array_equal(g, naive_generate(module, r[None],
+                                                         MAX_NEW)[0]),
+                        "speculative f32: tokens differ from the "
+                        "recompute oracle's")
+            del module
+        tokens = MAX_NEW * len(rows)
+        out[name] = {"tokens_per_s": tokens / spec_s,
+                     "plain_tokens_per_s": tokens / plain_s,
+                     "rounds": sum(rounds),
+                     "acceptance": engine.last_spec_acceptance,
+                     "launches": {"K1": k1, "K4": k4},
+                     "agree_plain": f"{agree}/{total}"}
+        print(f"speculative main path {name} (k {SPEC_K}, 1-layer draft of "
+              f"a softened target): {tokens / spec_s:.1f} tokens/s against "
+              f"plain {tokens / plain_s:.1f}; {sum(rounds)} rounds; K1 {k1} "
+              f"= ({n_layers} + 1) x {prefills}, K4 {k4} = {sum(rounds)} x "
+              f"{SPEC_K + 1}; tokens equal the plain stage's "
+              f"{agree}/{total} [{card}]")
+        del stage, plain_stage, engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def spec_bench(dev, card) -> dict:
+    """Phase 18 (b): bench.py's speculative arm at its own width, bf16:
+    `DecodeEngine` with and without a 1-layer draft of the softened
+    target, best of 3 generates each, in this call; the acceptance rate
+    and the agreement of the greedy tokens."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models import DecodeEngine
+    from mmlspark_tpu_torch.zoo import (soften_late_blocks,
+                                        truncated_draft_bundle)
+    b = SPEC_BENCH
+    target = soften_late_blocks(ModelBundle.init(
+        "TransformerLM", SPEC_BENCH_CONFIG, seed=0), 1, 0.0)
+    draft = truncated_draft_bundle(target, 1)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, SPEC_BENCH_CONFIG["vocab_size"],
+                           (b["batch"], b["prompt"])).astype(np.int32)
+    tl = np.full(b["batch"], b["prompt"], np.int32)
+    base = DecodeEngine(target.module(dev), b["new"], chunk=b["chunk"],
+                        device=dev)
+    spec = DecodeEngine(base.weights, b["new"], chunk=b["chunk"],
+                        draft_module=draft.module(dev), spec_tokens=b["k"],
+                        device=dev)
+    ref, got = base.generate(prompts, tl), spec.generate(prompts, tl)
+    # where a round's device time goes: the whole generate profiled, and
+    # the verify's plain attention (`segment_cache_attention`) timed
+    # alone at its shape, times layers x rounds
+    breakdown = {name: device_breakdown(lambda: eng.generate(prompts, tl),
+                                        card, LM_DECODE_GROUPS)
+                 for name, eng in (("plain", base), ("spec", spec))}
+    verify_ms = verify_attention_ms(dev, spec, b["batch"], b["prompt"])
+    best = {"plain": float("inf"), "spec": float("inf")}
+    for _ in range(b["reps"]):
+        for name, eng in (("plain", base), ("spec", spec)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate(prompts, tl)
+            best[name] = min(best[name], time.perf_counter() - t0)
+    tokens = b["batch"] * b["new"]
+    out = {"tokens_per_s": tokens / best["spec"],
+           "plain_tokens_per_s": tokens / best["plain"],
+           "speedup": best["plain"] / best["spec"],
+           "acceptance": spec.last_spec_acceptance,
+           "rounds": spec.last_spec_rounds,
+           "agree": f"{int((ref == got).sum())}/{ref.size}",
+           "device_breakdown": breakdown,
+           "verify_attention_ms": verify_ms * SPEC_BENCH_CONFIG["n_layers"]
+           * spec.last_spec_rounds}
+    print(f"speculative bench arm (bf16, {b['batch']} x {b['prompt']} "
+          f"prompt, {b['new']} new, k {b['k']}, 8 layers): "
+          f"{out['tokens_per_s']:.1f} tokens/s against plain "
+          f"{out['plain_tokens_per_s']:.1f} ({out['speedup']:.2f}x); "
+          f"acceptance {out['acceptance']:.4f} over {out['rounds']} rounds; "
+          f"tokens equal the plain engine's {out['agree']}; the verify's "
+          f"segment_cache_attention {verify_ms:.4f} ms a call x "
+          f"{SPEC_BENCH_CONFIG['n_layers']} layers x {out['rounds']} "
+          f"rounds = {out['verify_attention_ms']:.3f} ms [{card}]")
+    return out
+
+
+def verify_attention_ms(dev, engine, batch: int, prompt: int) -> float:
+    """Device ms (CUDA graph) of one verify layer's attention read,
+    `segment_cache_attention`, at a round's shape: q (B, k+1, H, D), the
+    first round's window, bf16 caches."""
+    from mmlspark_tpu_torch.ops.attention import segment_cache_attention
+    w = engine.weights
+    s = engine.spec_tokens + 1
+    window = engine.serve_window(prompt, 0, s)
+    h, d = w.n_heads, w.d_model // w.n_heads
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((batch, s, h, d), generator=gen, device=dev).to(w.dtype)
+    k, v = (torch.randn((batch, window, h, d), generator=gen, device=dev)
+            .to(w.dtype) for _ in range(2))
+    slots = torch.arange(window, device=dev)
+    visible = (slots[None, None, :] <= prompt + torch.arange(
+        s, device=dev)[None, :, None]).expand(batch, s, window)
+    return graph_ms(lambda: segment_cache_attention(q, k, v, visible))
+
+
+def int8_weights_path(dev, card) -> dict:
+    """Phase 18 (c): `quantize_bundle(..., "int8")` of the phase-6 model
+    through `TextGenerator`, beside `quantize_bundle(..., "bf16")`:
+    tokens/s, decode ms/step at the 1984 bucket (phase 6's timing), the
+    Dense weights' resident bytes, greedy agreement, and K1 = n_layers x
+    2 prefills, K4 = n_layers x 63 steps x 5 buckets, exact."""
+    from mmlspark_tpu_torch import ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.quant import quantize_bundle
+    n_layers = LM_CONFIG["n_layers"]
+    rows, table = lm_table(PROMPT_LENGTHS)
+    base = ModelBundle.init("TransformerLM", {**LM_CONFIG,
+                                              "dtype": "float32"}, seed=0)
+    out: dict = {}
+    tokens: dict = {}
+    for mode in ("bf16", "int8"):
+        stage = TextGenerator(quantize_bundle(base, mode), device=dev,
+                              inputCol="prompt", maxNewTokens=MAX_NEW)
+        got, seconds, launched = timed_transform(stage, table)
+        tokens[mode] = got
+        engine = stage._engine_for()
+        buckets = {engine.bucket_for(len(r)) for r in rows}
+        steps = MAX_NEW - 1
+        k1 = launched["flash_attention"]
+        k4 = launched["fused_single_query_attention"]
+        require(k1 == n_layers * sum(1 for b in buckets if b >= 512),
+                f"{mode} weights: K1 launched {k1}")
+        require(k4 == n_layers * steps * len(buckets),
+                f"{mode} weights: K4 launched {k4}, expected {n_layers} x "
+                f"{steps} x {len(buckets)}")
+        layers = engine.weights.dense_layers()
+        nbytes = sum(t.numel() * t.element_size() for layer in layers
+                     for t in (layer.weight, getattr(layer, "scale", None))
+                     if t is not None)
+        require(all(layer.weight.dtype == (torch.int8 if mode == "int8"
+                                           else torch.bfloat16)
+                    for layer in layers), f"{mode} weights: a Dense layer "
+                "is not resident in its dtype")
+        long_rows = rows[6:]
+        bucket = engine.bucket_for(max(map(len, long_rows)))
+        prompts = torch.zeros((len(long_rows), bucket), dtype=torch.long,
+                              device=dev)
+        for j, r in enumerate(long_rows):
+            prompts[j, :len(r)] = torch.from_numpy(r.astype(np.int64))
+        tl = torch.tensor([len(r) for r in long_rows], device=dev)
+        live = torch.ones(len(long_rows), dtype=torch.bool, device=dev)
+        with torch.inference_mode():
+            tok, done, caches = engine.prefill(prompts, tl, live,
+                                               [0] * len(long_rows))
+            window = -(-(bucket + 32) // engine.chunk) * engine.chunk
+            seg_ms = cuda_ms(lambda: engine.decode_segment(
+                32, window, caches, tok, done, tl, bucket, 0,
+                [0] * len(long_rows)), warmup=1, reps=5)
+            breakdown = device_breakdown(lambda: engine.decode_segment(
+                32, window, caches, tok, done, tl, bucket, 0,
+                [0] * len(long_rows)), card, LM_DECODE_GROUPS)
+        # the per-call weight cast an int8 step pays: every Dense weight
+        # to bf16 once, device time in a CUDA graph (bf16 weights: none)
+        cast_ms = (graph_ms(lambda: [layer.weight.to(torch.bfloat16)
+                                     for layer in layers])
+                   if mode == "int8" else 0.0)
+        out[mode] = {"tokens_per_s": len(rows) * MAX_NEW / seconds,
+                     "ms_per_step": seg_ms / 32,
+                     "dense_weight_bytes": nbytes,
+                     "launches": {"K1": k1, "K4": k4},
+                     "device_breakdown_32_steps": breakdown,
+                     "weight_cast_ms_per_step": cast_ms}
+        print(f"{mode} weights main path: "
+              f"{out[mode]['tokens_per_s']:.1f} tokens/s; decode "
+              f"{seg_ms / 32:.3f} ms/step (bucket {bucket}, window "
+              f"{window}); Dense weights resident {nbytes} bytes; casting "
+              f"them to bf16 {cast_ms:.4f} ms; K1 {k1}, K4 {k4} [{card}]")
+        del stage, engine, caches
+        torch.cuda.empty_cache()
+    agree = sum(int((a[len(r):] == b[len(r):]).sum()) for a, b, r in zip(
+        tokens["int8"], tokens["bf16"], rows))
+    total = MAX_NEW * len(rows)
+    out["agree_bf16"] = f"{agree}/{total}"
+    print(f"int8 against bf16 weights: generated tokens {agree}/{total} "
+          f"equal [{card}]")
+    return out
+
+
+def spec_serving(dev, card) -> dict:
+    """Phase 18 (d): `ServingEngine(spec_tokens=3, draft_bundle=...)` over
+    HTTP at f32 (every response 200, tokens equal the offline speculative
+    engine's), then, with the miss breaker forced open, one request on
+    its int8 degraded lane (the int8 tree at f32 compute, also
+    speculative with the same draft), its tokens equal the offline int8
+    speculative engine's."""
+    import threading
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.generate import (ServingWeights,
+                                                    bucket_length)
+    from mmlspark_tpu_torch.quant import quantize_bundle
+    from mmlspark_tpu_torch.serve import ServeConfig, ServingEngine
+    from mmlspark_tpu_torch.serve.lifecycle import (start_engine, start_http,
+                                                    stop_http)
+    from mmlspark_tpu_torch.zoo import (soften_late_blocks,
+                                        truncated_draft_bundle)
+    rows, _ = lm_table(SPEC_SERVE_LENGTHS, seed=3)
+    degraded_prompt = rows[0][:15]
+    f32 = {**LM_CONFIG, "dtype": "float32"}
+    target = soften_late_blocks(ModelBundle.init("TransformerLM", f32,
+                                                 seed=0), 1, 0.0)
+    draft = truncated_draft_bundle(target, 1)
+    q = quantize_bundle(target, "int8")
+    int8 = ModelBundle("TransformerLM", {**q.config, "dtype": "float32"},
+                       q.variables)
+    buckets = tuple(sorted({bucket_length(len(r), f32["max_len"], MAX_NEW)
+                            for r in rows}))
+    cfg = ServeConfig(max_new_tokens=MAX_NEW, max_batch=8, segment_steps=16,
+                      spec_tokens=SPEC_SERVE_K, default_deadline_s=600.0,
+                      warmup_buckets=buckets, miss_window=8,
+                      miss_min_samples=4, shed_miss_rate=0.5,
+                      breaker_reset_s=600.0)
+    engine = ServingEngine(target, cfg, draft_bundle=draft,
+                           degraded_bundle=int8, device=dev)
+    t0 = time.perf_counter()
+    start_engine(engine, install_sigterm=False)
+    warm_s = time.perf_counter() - t0
+    server = start_http(engine, port=0)
+    port = server.server_address[1]
+    results: dict = {}
+
+    def post(i, prompt):
+        results[i] = http_json(port, "POST", "/generate",
+                               {"prompt": prompt.tolist(),
+                                "deadline_ms": 600000})
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i, r))
+                   for i, r in enumerate(rows)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        seconds = time.perf_counter() - t0
+        for _ in range(cfg.miss_window):
+            engine.breaker.record(missed=True)
+        require(engine.breaker.state == "open",
+                f"spec serving: the breaker is {engine.breaker.state}")
+        post("degraded", degraded_prompt)
+    finally:
+        stop_http(server)
+        engine.stop()
+    require(engine.state == "stopped",
+            f"spec serving: drain ended {engine.state}")
+    statuses = sorted({r[0] for r in results.values()})
+    require(statuses == [200], f"spec serving: statuses {statuses}")
+    got = [results[i][1]["tokens"] for i in range(len(rows))]
+    kw = dict(spec_tokens=SPEC_SERVE_K,
+              draft_module=ServingWeights(draft.module(dev)))
+    ref = offline_tokens(ServingWeights(target.module(dev)), rows, MAX_NEW,
+                         cfg.cache_chunk, dev, **kw)
+    require(got == ref, "spec serving f32: tokens differ from the offline "
+            "speculative engine's")
+    deg = results["degraded"][1]
+    require(deg["degraded"], "spec serving: the request after the breaker "
+            "opened did not run on the degraded lane")
+    want = offline_tokens(ServingWeights(int8.module(dev)),
+                          [degraded_prompt], MAX_NEW, cfg.cache_chunk, dev,
+                          **kw)[0]
+    require(deg["tokens"] == want, "degraded lane: tokens differ from the "
+            "offline int8 engine's")
+    tokens = MAX_NEW * len(rows)
+    out = {"tokens_per_s": tokens / seconds, "seconds": seconds,
+           "warmup_s": warm_s, "degraded_tokens": len(deg["tokens"])}
+    print(f"speculative serving f32 (HTTP, {len(rows)} requests x {MAX_NEW} "
+          f"tokens, k {SPEC_SERVE_K}): {out['tokens_per_s']:.1f} tokens/s; "
+          f"warmup {warm_s:.2f} s; tokens equal the offline speculative "
+          f"engine's; the int8 degraded lane's request equal the offline "
+          f"int8 engine's [{card}]")
+    return out
+
+
+def beam_path(dev, card) -> dict:
+    """Phase 18 (e): `make_beam_search_fn` at width 4 over a 600-token
+    prompt at f32 (LM_CONFIG's width): K1 launched once a layer (the one
+    prefill), the best beam's score within 1e-3 of its log-probabilities
+    recomputed by the full forward, the search's host ms."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models import make_beam_search_fn
+    from mmlspark_tpu_torch.models.generate import ServingWeights
+    module = ModelBundle.init("TransformerLM", {**LM_CONFIG,
+                                                "dtype": "float32"},
+                              seed=0).module(dev)
+    prompt = np.random.default_rng(5).integers(
+        0, LM_CONFIG["vocab_size"], (1, BEAM["prompt"])).astype(np.int32)
+    fn = make_beam_search_fn(ServingWeights(module), BEAM["prompt"],
+                             BEAM["new"], BEAM["width"])
+    fn(prompt)
+    torch.cuda.synchronize()
+    reset_counts()
+    tokens, scores = fn(prompt)
+    launched = read_counts()
+    k1 = launched["flash_attention"]
+    require(k1 == LM_CONFIG["n_layers"], f"beam: K1 launched {k1}")
+    ms = host_ms(lambda: fn(prompt), reps=5)
+    with torch.inference_mode():
+        best = torch.as_tensor(tokens[0, 0], dtype=torch.long, device=dev)
+        logp = torch.log_softmax(module(best[None])[0], -1)
+        gen = best[BEAM["prompt"]:]
+        recomputed = logp[BEAM["prompt"] - 1:-1].gather(
+            1, gen[:, None]).sum().item()
+    err = abs(recomputed - float(scores[0, 0]))
+    require(err <= 1e-3, f"beam: best score {scores[0, 0]} against the "
+            f"recomputed {recomputed}")
+    require((np.diff(scores[0]) <= 0).all(), "beam: scores not best-first")
+    out = {"ms": statistics.median(ms), "ms_range": [ms[0], ms[-1]],
+           "launches": {"K1": k1}, "score_abs_err": err}
+    print(f"beam search f32 (width {BEAM['width']}, prompt "
+          f"{BEAM['prompt']}, {BEAM['new']} new): {out['ms']:.2f} ms "
+          f"(host, median of 5, {ms[0]:.2f}-{ms[-1]:.2f}); K1 {k1}; best "
+          f"score {scores[0, 0]:.4f}, recomputed {recomputed:.4f} [{card}]")
+    return out
+
+
+def phase_lm_decoding(dev, card) -> dict:
+    """chip_smoke phase 18: the rest of LM decoding on the card, every
+    path through the port's entry points (`spec_main_path`, `spec_bench`,
+    `int8_weights_path`, `spec_serving`, `beam_path`)."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"speculative": spec_main_path(dev, card)}
+    torch.cuda.empty_cache()
+    out["spec_bench"] = spec_bench(dev, card)
+    torch.cuda.empty_cache()
+    out["int8_weights"] = int8_weights_path(dev, card)
+    torch.cuda.empty_cache()
+    out["spec_serving"] = spec_serving(dev, card)
+    torch.cuda.empty_cache()
+    out["beam"] = beam_path(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 (LM decoding features): {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4341,6 +4803,9 @@ def main() -> int:
     small, small_paths = phase_small_head_dims(dev, card)
     torch.cuda.empty_cache()
     wide, wide_paths = phase_wide_f32_backward(dev, card, grad_check)
+    torch.cuda.empty_cache()
+    lm_decoding = phase_lm_decoding(dev, card)
+    print(json.dumps({"lm_decoding": lm_decoding, "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

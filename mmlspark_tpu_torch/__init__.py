@@ -21,12 +21,17 @@ flash prefill and the decode read; and the replicated colocated fleet,
 `serve.build_fleet` + `serve.start_router` (a router over engine
 replicas: power-of-two-choices, ejection, failover under a retry budget,
 hedging, prefix affinity), with chunked prefill and the radix prefix KV
-pool.
+pool; and the rest of one-card LM decoding: int8-weight bundles
+(`quant.quantize_bundle`), speculative decoding with a truncated draft
+(`zoo.truncated_draft_bundle`; `TextGenerator(specTokens=...)`, the
+`ServingEngine`'s speculative lanes) and beam search
+(`TextGenerator(beamWidth=...)`).
 
 Layer map:
   core/    - params DSL, column metadata, DataTable, stage save/load,
-             device selection
-  models/  - TransformerLM (torch.nn), bundles, the decode engine
+             device selection, host bfloat16 arrays
+  models/  - TransformerLM (torch.nn), bundles, the decode engine, beam
+             search
   train/   - TrainerConfig, the optax-algebra optimizers, the Trainer
   parallel/ - MeshSpec, Mesh and make_mesh (single controller, devices may
              repeat), the collectives and ring attention over a mesh
@@ -34,7 +39,9 @@ Layer map:
   ops/     - attention in torch (dense, cache read, stats merge, ring) and
              the kernel wrappers (flash forward and backward, single-query
              decode read and its stats entry), the nvcc build/loader
-  quant/   - int8 KV-cache quantization
+  quant/   - weight PTQ of bundles (bf16, int8) and int8 KV-cache
+             quantization
+  zoo/     - draft bundles for speculative decoding
   serve/   - the continuous-batching ServingEngine, admission, requests,
              the prefix pool, replicas and the router, the HTTP front end
              and the lifecycle (threads, SIGTERM drain)

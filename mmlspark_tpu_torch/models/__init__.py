@@ -5,6 +5,7 @@ from mmlspark_tpu_torch.models.definitions import (MODEL_REGISTRY,
                                                    TransformerLM, build_model,
                                                    model_config)
 from mmlspark_tpu_torch.models.generate import (DecodeEngine, TextGenerator,
-                                                bucket_length,
+                                                beam_search, bucket_length,
                                                 decode_segments,
+                                                make_beam_search_fn,
                                                 naive_generate)

@@ -12,6 +12,13 @@ decoding and encoding flax's ndarray extension type (ext code 1: a packed
 package loads in the other.  `ModelBundle.variables` keeps the flax tree of
 numpy arrays; `params_from_jax` turns it into the port's state_dict and
 `params_to_jax` back (a bundle the port trains loads in the JAX package).
+
+numpy has no bfloat16, and the JAX package's quantized bundles
+(`quant/quantize.py`) hold bfloat16 leaves: those load as `BF16Array`,
+which carries the raw 16-bit payload, so a loaded bundle saves back with
+the same bytes; `np.asarray` of one widens it exactly to f32.  An int8
+Dense node (`kernel` int8 (in, out), `kernel_scale` f32 (out,), `bias`)
+builds an `Int8Dense` layer holding the int8 weight (out, in).
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from mmlspark_tpu_torch.core.bf16 import BF16Array
 from mmlspark_tpu_torch.models.definitions import (
-    MODEL_REGISTRY, build_model, init_transformer_lm_params, model_config)
+    MODEL_REGISTRY, Int8Dense, build_model, init_transformer_lm_params,
+    model_config)
 
 # flax.serialization's msgpack extension codes
 _EXT_NDARRAY = 1
@@ -46,10 +55,22 @@ class ModelBundle:
     metadata: dict = dataclasses.field(default_factory=dict)
 
     def module(self, device="cuda") -> nn.Module:
-        """The architecture built on `device` with these weights loaded
-        (f32 masters, as the bundle holds them)."""
+        """The architecture built on `device` with these weights loaded:
+        f32 masters (bfloat16 leaves widen exactly), and for each int8
+        Dense node of a `quantize_bundle(..., "int8")` tree an `Int8Dense`
+        holding the int8 weight, its f32 scale and its bias as stored."""
         module = build_model(self.architecture, self.config, device=device)
-        module.load_state_dict(params_from_jax(self.variables["params"]))
+        state = params_from_jax(self.variables["params"])
+        for name, value in state.items():
+            prefix, _, leaf = name.rpartition(".")
+            if leaf == "weight" and value.dtype == torch.int8:
+                parent, _, attr = prefix.rpartition(".")
+                old = module.get_submodule(prefix)
+                module.get_submodule(parent).register_module(attr, Int8Dense(
+                    old.in_features, old.out_features, old.compute_dtype,
+                    bias_dtype=state[f"{prefix}.bias"].dtype,
+                    device=old.weight.device))
+        module.load_state_dict(state)
         return module.eval()
 
     @staticmethod
@@ -75,7 +96,10 @@ def params_from_jax(tree: dict) -> dict:
     """The JAX package's parameter tree (numpy leaves, flax names) -> the
     port's state_dict: Dense kernels (in, out) become Linear weights
     (out, in), embeddings `embedding` -> `weight`, LayerNorm `scale`/`bias`
-    keep their names.  Values stay f32."""
+    keep their names.  Values are f32 (bfloat16 leaves widened exactly),
+    except an int8 Dense node's: its weight stays int8 (out, in), its
+    `kernel_scale` becomes `scale` (f32) and its bias keeps its stored
+    dtype (bfloat16 as `torch.bfloat16`)."""
     state = {}
 
     def tensor(x) -> torch.Tensor:
@@ -83,9 +107,14 @@ def params_from_jax(tree: dict) -> dict:
 
     def walk(prefix: str, node: dict) -> None:
         if "kernel_scale" in node:
-            raise NotImplementedError(
-                f"{prefix}: int8-quantized weight bundles are not ported")
-        if "kernel" in node:
+            bias = node["bias"]
+            state[f"{prefix}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(node["kernel"], np.int8).T))
+            state[f"{prefix}.scale"] = tensor(node["kernel_scale"])
+            state[f"{prefix}.bias"] = (bias.torch()
+                                       if isinstance(bias, BF16Array)
+                                       else tensor(bias))
+        elif "kernel" in node:
             state[f"{prefix}.weight"] = tensor(node["kernel"]).T.contiguous()
             state[f"{prefix}.bias"] = tensor(node["bias"])
         elif "embedding" in node:
@@ -105,16 +134,28 @@ def params_to_jax(state_dict: dict) -> dict:
     """The inverse of `params_from_jax`: the port's state_dict -> the JAX
     package's parameter tree of f32 numpy arrays with flax names.  A node
     with `weight` and `bias` is a Dense (weight (out, in) -> kernel
-    (in, out)), `weight` alone an embedding, `scale`/`bias` a LayerNorm."""
+    (in, out)), `weight` alone an embedding, `scale`/`bias` a LayerNorm,
+    `weight`/`scale`/`bias` an int8 Dense, written back as the int8 tree
+    it was loaded from (int8 kernel, f32 `kernel_scale`, the bias in its
+    own dtype)."""
     nodes: dict = {}
     for name, value in state_dict.items():
         prefix, _, leaf = name.rpartition(".")
-        nodes.setdefault(prefix, {})[leaf] = (
-            value.detach().to(device="cpu", dtype=torch.float32).numpy()
-            .copy())
+        value = value.detach().cpu()
+        if value.dtype == torch.int8:
+            host = value.numpy().copy()
+        elif value.dtype == torch.bfloat16:
+            host = BF16Array(value.view(torch.int16).numpy().view(np.uint16)
+                             .copy())
+        else:
+            host = value.float().numpy().copy()
+        nodes.setdefault(prefix, {})[leaf] = host
     tree: dict = {}
     for prefix, leaves in nodes.items():
-        if "scale" in leaves:
+        if "weight" in leaves and "scale" in leaves:
+            node = {"kernel": np.ascontiguousarray(leaves["weight"].T),
+                    "kernel_scale": leaves["scale"], "bias": leaves["bias"]}
+        elif "scale" in leaves:
             node = {"scale": leaves["scale"], "bias": leaves["bias"]}
         elif "bias" in leaves:
             node = {"kernel": np.ascontiguousarray(leaves["weight"].T),
@@ -137,27 +178,26 @@ def registry_name(module: nn.Module) -> str:
     raise KeyError(f"{type(module).__name__} is not a registered model")
 
 
-def _bf16_to_f32(raw: bytes) -> np.ndarray:
-    bits = np.frombuffer(raw, dtype=np.uint16).astype(np.uint32) << 16
-    return bits.view(np.float32)
-
-
 def _unpack_ext(code: int, data: bytes):
     import msgpack
     if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
         return msgpack.ExtType(code, data)
     shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
     if dtype_name == b"bfloat16":
-        # numpy has no bfloat16: widen exactly to f32
-        arr = _bf16_to_f32(buffer)
-    else:
-        arr = np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()))
+        # numpy has no bfloat16: keep the payload, so it saves back as is
+        return BF16Array(np.frombuffer(buffer, dtype=np.uint16)
+                         .reshape(shape))
+    arr = np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()))
     arr = arr.reshape(shape)
     return arr[()] if code == _EXT_NPSCALAR else arr
 
 
 def _pack_ext(x):
     import msgpack
+    if isinstance(x, BF16Array):
+        return msgpack.ExtType(_EXT_NDARRAY, msgpack.packb(
+            (x.shape, BF16Array.dtype_name, x.bits.tobytes("C")),
+            use_bin_type=True))
     if isinstance(x, (np.ndarray, np.generic)):
         arr = np.asarray(x)
         if arr.dtype.hasobject or arr.nbytes > _MAX_LEAF_BYTES:
@@ -170,6 +210,15 @@ def _pack_ext(x):
     raise TypeError(f"cannot serialize {type(x).__name__}")
 
 
+def _sorted_tree(tree):
+    """The tree with every dict's keys in sorted order: flax writes a
+    tree in the order of JAX's tree walk, so the files agree byte for
+    byte."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def save_bundle(bundle: ModelBundle, path: str) -> None:
     import msgpack
     os.makedirs(path, exist_ok=True)
@@ -180,8 +229,8 @@ def save_bundle(bundle: ModelBundle, path: str) -> None:
             "metadata": bundle.metadata,
         }, f, indent=1)
     with open(os.path.join(path, "params.msgpack"), "wb") as f:
-        f.write(msgpack.packb(bundle.variables, default=_pack_ext,
-                              strict_types=True))
+        f.write(msgpack.packb(_sorted_tree(bundle.variables),
+                              default=_pack_ext, strict_types=True))
 
 
 def load_bundle(path: str) -> ModelBundle:

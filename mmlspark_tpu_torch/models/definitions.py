@@ -17,6 +17,8 @@ the flax definition that the port keeps:
     are taken from `weight.to(dtype)`, LayerNorm keeps f32 statistics and
     an f32 affine before the cast.  Training updates the f32 masters; the
     serving path casts the Dense weights once (`models/generate.py`).
+    An int8-quantized bundle's Dense layers are `Int8Dense` instead (built
+    by `ModelBundle.module`): int8 weights, never cast to f32.
 
 `forward` is `module.apply` of the flax model: the parity target for
 logits, `naive_generate`'s recompute oracle, and the training forward.
@@ -89,6 +91,39 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Int8Dense(nn.Module):
+    """A Dense layer of an int8-quantized bundle (`quant/quantize.py`):
+    the int8 weight (out, in), its f32 per-output-channel `scale` and the
+    bias as stored (bfloat16 in a quantized bundle), all buffers.  The
+    forward is the JAX decode path's (`mmlspark_tpu/models/generate.py`
+    `_dense`): the product in the compute dtype, rounded there, then the
+    scale and the bias in f32, then the cast."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 bias_dtype=torch.float32, device=None):
+        super().__init__()
+        self.in_features, self.out_features = n_in, n_out
+        self.compute_dtype = dtype
+        self.register_buffer("weight", torch.zeros(
+            (n_out, n_in), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.zeros(n_out, device=device))
+        self.register_buffer("bias", torch.zeros(n_out, dtype=bias_dtype,
+                                                 device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_linear(x, self.weight, self.scale, self.bias,
+                           self.compute_dtype)
+
+
+def int8_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 weight (out, in) x activations in `dtype` (int8 -> bf16 is
+    exact), the product rounded to `dtype`, then `* scale + bias` in f32
+    and the cast to `dtype`."""
+    y = F.linear(x.to(dtype), weight.to(dtype)).float()
+    return (y * scale + bias.float()).to(dtype)
 
 
 class TransformerBlock(nn.Module):

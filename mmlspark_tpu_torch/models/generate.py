@@ -51,8 +51,23 @@ the distribution is the same.
     (`serve_resume_init`, `serve_prefill_resume`) open a prefill from a
     prefix pool's donor rows and prefill only the novel suffix.
 
-Not ported yet (they raise NotImplementedError): tensor-parallel decode
-(a mesh with model > 1), speculative decoding, beam search.
+  * **speculative decoding** — with a draft model (`zoo/speculative.py`
+    builds one from the target bundle) and `spec_tokens` k, decode runs
+    draft/verify rounds: the draft's k+1 single-token steps through the
+    per-row decode step (the decode kernel on every draft step), ONE
+    target forward over the k+1 positions (`_verify_step_rows`, its read
+    `segment_cache_attention`), and the agreeing prefix commits.  Greedy
+    tokens are the plain engine's; sampled ones come from a rejection
+    sampler on the row streams' disjoint speculative positions.
+  * **int8 weights** — a `quantize_bundle(..., "int8")` bundle's Dense
+    layers stay int8 on the card (`ServingWeights`); `_dense` runs the
+    product in the model dtype and applies the per-channel scale after.
+  * **beam search** — `make_beam_search_fn` / `beam_search`: one prefill
+    a row, expanded to B*W cache rows, top-W of W*V each step, caches and
+    history re-indexed to the surviving ancestors.
+
+Not ported yet (it raises NotImplementedError): tensor-parallel decode (a
+mesh with model > 1).
 """
 
 from __future__ import annotations
@@ -75,10 +90,14 @@ from mmlspark_tpu_torch.core.pipeline import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
                                               save_bundle)
-from mmlspark_tpu_torch.models.definitions import TransformerLM
+from mmlspark_tpu_torch.models.definitions import (Int8Dense, TransformerLM,
+                                                   int8_linear)
+from mmlspark_tpu_torch.observe.metrics import inc_counter
+from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import trace_event, trace_span
 from mmlspark_tpu_torch.ops.attention import (NEG_INF, merge_attention_stats,
-                                              ring_attention)
+                                              ring_attention,
+                                              segment_cache_attention)
 from mmlspark_tpu_torch.ops.decode_attention import (
     fused_single_query_attention, fused_single_query_attention_stats)
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
@@ -92,6 +111,12 @@ DEFAULT_CACHE_CHUNK = 128  # cache-window growth granularity (slots)
 DEFAULT_MIN_BUCKET = 8     # smallest prompt bucket
 _PREFILL_FLASH_MIN = 512   # prompt length from which prefill runs flash
 _WINDOW_DIM = SEQ_KV_CACHE_SPEC.index(SEQ_AXIS)  # the cache axis over 'seq'
+# speculative sampling streams: stream ids past any decode step (steps are
+# < max_len < 2**20) for the draft's draws, the acceptance coins and the
+# residual draw of each round, so they never meet the per-step streams
+_SPEC_DRAFT_STREAM = 1 << 20
+_SPEC_COIN_STREAM = 2 << 20
+_SPEC_FIX_STREAM = 3 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -104,13 +129,19 @@ class ServingWeights:
     the module's own f32 tensors at f32), embeddings and LayerNorms as the
     module holds them (f32).  Attribute names follow the module's, so the
     block math takes either.  The module's f32 Dense masters are not
-    referenced, so serving holds the model-dtype copy alone."""
+    referenced, so serving holds the model-dtype copy alone.  An int8
+    layer (`Int8Dense`, from an int8-quantized bundle) stays int8, one
+    byte a weight, with its f32 `scale` and an f32 bias."""
 
     def __init__(self, module):
         _check_generatable(module)
         dtype = module.dtype
 
         def cast(linear):
+            if isinstance(linear, Int8Dense):
+                return SimpleNamespace(weight=linear.weight,
+                                       scale=linear.scale,
+                                       bias=linear.bias.detach().float())
             return SimpleNamespace(weight=linear.weight.detach().to(dtype),
                                    bias=linear.bias.detach().to(dtype))
 
@@ -127,6 +158,12 @@ class ServingWeights:
             qkv=cast(blk.qkv), proj=cast(blk.proj), mlp_up=cast(blk.mlp_up),
             mlp_down=cast(blk.mlp_down)) for blk in module.blocks]
         self._copies: dict = {}
+
+    def dense_layers(self) -> list:
+        """Every Dense layer's weights: each block's four, then the head."""
+        return [getattr(blk, name) for blk in self.blocks
+                for name in ("qkv", "proj", "mlp_up", "mlp_down")] + [
+                    self.lm_head]
 
     def on(self, device) -> "ServingWeights":
         """These weights on `device`: this object where they already are,
@@ -164,7 +201,12 @@ def _ln(norm, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _dense(linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    """A Dense layer over its model-dtype copy (`ServingWeights`)."""
+    """A Dense layer over its model-dtype copy (`ServingWeights`), or an
+    int8 layer (one with a `scale`): the JAX decode path's int8 branch,
+    the product rounded to `dtype` before the per-channel scale."""
+    scale = getattr(linear, "scale", None)
+    if scale is not None:
+        return int8_linear(x, linear.weight, scale, linear.bias, dtype)
     return F.linear(x.to(dtype), linear.weight, linear.bias)
 
 
@@ -283,6 +325,60 @@ def _decode_step(module, tok: torch.Tensor, pos: torch.Tensor, caches: list,
         x = _block_tail(block, x, attend(cache, q.contiguous(), k, v), dtype)
     x = _ln(module.final_norm_w, x, dtype)
     return _dense(module.lm_head, x, dtype).float()[:, 0]
+
+
+def _row_write(cache: torch.Tensor, update: torch.Tensor,
+               slots0: torch.Tensor) -> None:
+    """Write S contiguous entries a row in place: `update` (B, S, ...)
+    lands at slots slots0[r]..slots0[r]+S-1 of row r of `cache` (B, W,
+    ...), the start clamped into [0, W - S] as `dynamic_update_slice`
+    clamps it."""
+    b, s = update.shape[:2]
+    dev = cache.device
+    start = torch.clamp(slots0.to(dev), 0, cache.shape[1] - s)
+    cols = start[:, None] + torch.arange(s, device=dev)[None, :]
+    cache[torch.arange(b, device=dev)[:, None], cols] = update.to(
+        device=dev, dtype=cache.dtype)
+
+
+def _write_segment(cache: tuple, slots0: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+    """Write a segment's K/V (B, S, H, Dh) at per-row start slots in
+    place (the JAX `_row_write` of the verify forward); an int8 cache
+    quantizes the segment on write, payload and (B, S, H) scales."""
+    if len(cache) == 4:
+        kq, ks, vq, vs = cache
+        for dst, part in zip((kq, ks, vq, vs),
+                             quantize_kv(k) + quantize_kv(v)):
+            _row_write(dst, part, slots0)
+    else:
+        _row_write(cache[0], k, slots0)
+        _row_write(cache[1], v, slots0)
+
+
+def _verify_step_rows(module, toks: torch.Tensor, pos0: torch.Tensor,
+                      slots0: torch.Tensor, caches: list,
+                      visible: torch.Tensor) -> torch.Tensor:
+    """Logits (B, S, V) f32 of per-row contiguous verify segments (the
+    speculative target forward): row r's S tokens sit at positions
+    pos0[r].. (clamped to the position table) and write cache slots
+    slots0[r]..; every query reads the window under its own row of
+    `visible` (B, S, W) through `segment_cache_attention`."""
+    dtype = module.dtype
+    s = toks.shape[1]
+    positions = torch.clamp(
+        pos0[:, None] + torch.arange(s, device=toks.device)[None, :],
+        max=module.max_len - 1)
+    x = (module.tok_embed.weight[toks]
+         + module.pos_embed.weight[positions]).to(dtype)
+    for block, cache in zip(module.blocks, caches):
+        q, k, v = _qkv(block, module.n_heads, x, dtype)
+        _write_segment(cache, slots0, k, v)
+        kc, vc, scales = _cache_read_args(cache)
+        o = segment_cache_attention(q, kc, vc, visible, **scales)
+        x = _block_tail(block, x, o, dtype)
+    x = _ln(module.final_norm_w, x, dtype)
+    return _dense(module.lm_head, x, dtype).float()
 
 
 def _grow_cache(cache: torch.Tensor, window: int) -> torch.Tensor:
@@ -521,6 +617,15 @@ def _mix(a: int, b: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
+def _gumbel_draw(logits: torch.Tensor, seed: int) -> torch.Tensor:
+    """One categorical draw from a row's (V,) logits by the Gumbel max,
+    its uniforms from a generator seeded with `seed`."""
+    gen = torch.Generator(device=logits.device)
+    gen.manual_seed(seed)
+    u = torch.rand(logits.shape[-1], generator=gen, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)))
+
+
 def _make_row_sampler(temperature: float, top_k, top_p):
     """A `(logits (B, V), row_seeds [B], step) -> tokens (B,)` sampler:
     greedy at temperature 0, else the Gumbel-max draw over the filtered,
@@ -537,15 +642,10 @@ def _make_row_sampler(temperature: float, top_k, top_p):
         filtered = filter_logits(logits.float() / temperature, top_k, top_p)
         out = torch.empty(logits.shape[0], dtype=torch.long,
                           device=logits.device)
-        gen = torch.Generator(device=logits.device)
         steps = ([step] * len(row_seeds) if isinstance(step, int)
                  else step.tolist())
         for i, (row_seed, row_step) in enumerate(zip(row_seeds, steps)):
-            gen.manual_seed(_mix(row_seed, row_step))
-            u = torch.rand(filtered.shape[-1], generator=gen,
-                           device=logits.device)
-            gumbel = -torch.log(-torch.log(u))
-            out[i] = torch.argmax(filtered[i] + gumbel)
+            out[i] = _gumbel_draw(filtered[i], _mix(row_seed, row_step))
         return out
     return sample
 
@@ -616,7 +716,7 @@ def _check_mesh(mesh, module, device: torch.device, *, chunk: int,
             raise ValueError(
                 "seq-sharded decode does not compose with speculative "
                 "decoding: the multi-token verify forward has no "
-                "seq-sharded cache path")
+                "seq-sharded cache path (ROADMAP A8; use a data-only mesh)")
         if prefill_chunk is not None:
             raise ValueError(
                 "seq-sharded decode does not compose with chunked prefill: "
@@ -634,6 +734,97 @@ def _check_mesh(mesh, module, device: torch.device, *, chunk: int,
         if not _same_device(dev, device):
             raise ValueError(f"the mesh holds {dev}, the engine runs on "
                              f"{device}")
+
+
+# ---------------------------------------------------------------------------
+# Beam search
+# ---------------------------------------------------------------------------
+
+def make_beam_search_fn(module, prompt_len: int, max_new_tokens: int,
+                        beam_width: int):
+    """A `prompts (B, P) int -> (tokens, scores)` beam search for one
+    (prompt_len, max_new_tokens) shape (the JAX `make_beam_search_fn`):
+    tokens (B, W, P+N) int32 best-first per row, scores (B, W) f32, the
+    summed log-probabilities of each beam's generated tokens.  `module` is
+    a TransformerLM or its `ServingWeights`; the search runs where they
+    are.
+
+    Length-N beams, no early stop and no length penalty.  The prompt
+    prefills ONCE a row (the flash kernel from `_PREFILL_FLASH_MIN`
+    tokens up), its caches are expanded to B*W rows, and each step scores
+    every beam's vocabulary expansion, keeps the top W of W*V a row and
+    re-indexes the cache rows and the token history to the surviving
+    beams' ancestors.  The caches hold the P+N slots the search writes
+    (the JAX program's hold max_len; the extra slots are masked out)."""
+    weights = (module if isinstance(module, ServingWeights)
+               else ServingWeights(module))
+    if prompt_len < 1:
+        raise ValueError("prompt_len must be >= 1")
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    if prompt_len + max_new_tokens > weights.max_len:
+        raise ValueError(
+            f"prompt_len ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
+            f"exceeds the model's max_len ({weights.max_len})")
+    if beam_width < 1:
+        raise ValueError("beam_width must be >= 1")
+    if beam_width > weights.vocab_size:
+        raise ValueError(
+            f"beam_width ({beam_width}) cannot exceed the vocabulary "
+            f"({weights.vocab_size}): the first expansion keeps beam_width "
+            "distinct tokens")
+    w, v = beam_width, weights.vocab_size
+
+    def beam_fn(prompts) -> tuple:
+        prompts = _to_device(prompts, torch.long, weights.device)
+        if prompts.shape[1] != prompt_len:
+            raise ValueError(
+                f"prompts have length {prompts.shape[1]} but this beam "
+                f"search was built for prompt_len={prompt_len}")
+        b = prompts.shape[0]
+        shape = (b, prompt_len + max_new_tokens, weights.n_heads,
+                 weights.d_model // weights.n_heads)
+        with torch.inference_mode():
+            caches = [tuple(torch.zeros(shape, dtype=weights.dtype,
+                                        device=weights.device)
+                            for _ in range(2))
+                      for _ in range(weights.n_layers)]
+            logits = _forward_with_cache(weights, prompts, caches, 0)
+            scores, tok = torch.topk(torch.log_softmax(logits[:, -1], -1), w)
+            # every beam of a row shares the prompt's cache: B -> B*W rows
+            caches = [tuple(c.repeat_interleave(w, dim=0) for c in layer)
+                      for layer in caches]
+            history = torch.zeros((b, w, max_new_tokens), dtype=torch.long,
+                                  device=weights.device)
+            history[:, :, 0] = tok
+            row_base = torch.arange(b, device=weights.device)[:, None] * w
+            for t in range(max_new_tokens - 1):
+                logits = _forward_with_cache(weights, tok.reshape(b * w, 1),
+                                             caches, prompt_len + t)
+                total = scores[:, :, None] + torch.log_softmax(
+                    logits[:, 0], -1).reshape(b, w, v)
+                scores, flat = torch.topk(total.reshape(b, w * v), w)
+                beam, tok = flat // v, flat % v
+                take = (row_base + beam).reshape(-1)
+                caches = [tuple(c[take] for c in layer) for layer in caches]
+                history = history.gather(
+                    1, beam[:, :, None].expand(b, w, max_new_tokens))
+                history[:, :, t + 1] = tok
+            tokens = torch.cat([prompts[:, None].expand(b, w, prompt_len),
+                                history], dim=2)
+            return (tokens.cpu().numpy().astype(np.int32),
+                    scores.cpu().numpy())
+
+    return beam_fn
+
+
+def beam_search(module, prompts, max_new_tokens: int,
+                beam_width: int = 4) -> tuple:
+    """One-shot `make_beam_search_fn`: (tokens (B, W, P+N) best-first,
+    scores (B, W))."""
+    prompts = np.asarray(prompts)
+    return make_beam_search_fn(module, prompts.shape[1], max_new_tokens,
+                               beam_width)(prompts)
 
 
 # ---------------------------------------------------------------------------
@@ -700,9 +891,31 @@ class DecodeEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
                 "prefill_chunk must be >= 1 (None = whole-prompt)")
-        if draft_module is not None or spec_tokens:
-            raise NotImplementedError(
-                "speculative decoding is not ported (ROADMAP A8 item 3)")
+        if spec_tokens < 0:
+            raise ValueError("spec_tokens must be >= 0")
+        if spec_tokens and draft_module is None:
+            raise ValueError(
+                "spec_tokens > 0 needs a draft_module (zoo/speculative.py "
+                "builds one)")
+        if draft_module is not None:
+            if spec_tokens < 1:
+                raise ValueError("draft_module set but spec_tokens is 0")
+            if not isinstance(draft_module, ServingWeights):
+                _check_generatable(draft_module)
+            if draft_module.vocab_size != module.vocab_size:
+                raise ValueError(
+                    f"draft vocab ({draft_module.vocab_size}) != target "
+                    f"vocab ({module.vocab_size}): speculative acceptance "
+                    "compares distributions over one vocabulary")
+            if draft_module.max_len < module.max_len:
+                raise ValueError(
+                    f"draft max_len ({draft_module.max_len}) < target "
+                    f"max_len ({module.max_len}): the draft must reach "
+                    "every position the target decodes")
+            if not _same_device(draft_module.device, self.device):
+                raise ValueError(
+                    f"the draft's weights are on {draft_module.device}, "
+                    f"the engine runs on {self.device}")
         if cache_dtype not in ("model", "int8"):
             raise ValueError(
                 f"unknown cache_dtype '{cache_dtype}' (model | int8)")
@@ -741,13 +954,24 @@ class DecodeEngine:
         self.min_new_tokens = min_new_tokens
         self.prefill_chunk = prefill_chunk
         greedy = temperature <= 0.0
-        self._sample = _make_row_sampler(temperature,
-                                         None if greedy else top_k,
-                                         None if greedy else top_p)
+        self.temperature = temperature
+        self.top_k = None if greedy else top_k
+        self.top_p = None if greedy else top_p
+        self._sample = _make_row_sampler(temperature, self.top_k,
+                                         self.top_p)
         self._is_stop = _make_stop_check(stop_tokens)
+        self.spec_tokens = spec_tokens
+        self.draft_weights = (
+            None if draft_module is None
+            else draft_module if isinstance(draft_module, ServingWeights)
+            else ServingWeights(draft_module))
         self.last_segments_run = 0
         self.last_new_tokens_computed = 0
         self.last_exit_checks_skipped = 0
+        self.last_spec_rounds = 0
+        self.last_spec_drafted = 0
+        self.last_spec_accepted = 0
+        self.last_spec_acceptance = 0.0
         self._programs: set = set()
 
     def bucket_for(self, prompt_len: int) -> int:
@@ -788,12 +1012,16 @@ class DecodeEngine:
         last = logits[torch.arange(b, device=self.device), true_len - 1]
         return self._prefill_finish(caches, last, live, row_seeds)
 
-    def _new_caches(self, b: int, window: int) -> list:
-        """Zeroed model-dtype (k, v) caches of `window` slots per layer."""
-        model = self.weights
+    def _new_caches(self, b: int, window: int, device=None,
+                    model=None) -> list:
+        """Zeroed model-dtype (k, v) caches of `window` slots per layer of
+        `model` (default: the engine's weights) on `device` (default: the
+        engine's)."""
+        model = model or self.weights
         shape = (b, window, model.n_heads, model.d_model // model.n_heads)
         return [tuple(torch.zeros(shape, dtype=model.dtype,
-                                  device=self.device) for _ in range(2))
+                                  device=device or self.device)
+                      for _ in range(2))
                 for _ in range(model.n_layers)]
 
     # -- chunked prefill (the JAX prefill_chunk0/chunk/finish and
@@ -977,6 +1205,255 @@ class DecodeEngine:
             tok = nxt
         return caches, torch.stack(emitted, dim=1), tok, done
 
+    # -- speculative decoding (the JAX draft_prefill and spec_round
+    # programs) ---------------------------------------------------------
+
+    def _draft_prefill(self, prompts: torch.Tensor) -> list:
+        """The draft model's model-dtype caches over a bucket of prompts,
+        on the prompts' device: the target's window arithmetic and no
+        sampling (the draft's first proposal comes from its first round
+        step).  From `_PREFILL_FLASH_MIN` tokens up its attention is the
+        flash kernel, as the target's prefill is."""
+        dev = prompts.device
+        draft = self.draft_weights.on(dev)
+        b, p = prompts.shape
+        caches = self._new_caches(b, _round_up(p + 1, self.chunk), dev,
+                                  draft)
+        _forward_with_cache(draft, prompts, caches, 0)
+        return caches
+
+    def _draft_token(self, logits: torch.Tensor, row_seeds: list,
+                     round_idx: int, j: int) -> tuple:
+        """Draft proposal j of a round: the argmax when greedy, else a
+        draw from the filtered, tempered draft distribution on the row's
+        draft stream.  Returns (tokens (B,), that distribution or None)."""
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1), None
+        filtered = filter_logits(logits / self.temperature, self.top_k,
+                                 self.top_p)
+        tok = torch.stack([
+            _gumbel_draw(filtered[i], _mix(
+                _mix(seed, _SPEC_DRAFT_STREAM + round_idx), j))
+            for i, seed in enumerate(row_seeds)])
+        return tok, torch.softmax(filtered, dim=-1)
+
+    def _accept(self, logits: torch.Tensor, d: torch.Tensor,
+                d_dists: list, row_seeds: list, round_idx: int) -> tuple:
+        """How many proposals each row accepts, and the token that follows
+        them.  Greedy: accept while the proposal is the target's argmax,
+        then the target's own next token.  Sampled: standard rejection
+        sampling, proposal j kept with probability min(1, p(d)/q(d)) on
+        the row's coin stream, then a draw from the residual max(p - q, 0)
+        (the target itself past the last proposal) on its residual stream.
+        Returns (n_acc (B,), next token (B,))."""
+        k = d.shape[1]
+        if self.temperature <= 0.0:
+            g = torch.argmax(logits, dim=-1)
+            n_acc = (d == g[:, :k]).long().cumprod(dim=1).sum(dim=1)
+            return n_acc, g.gather(1, n_acc[:, None])[:, 0]
+        b, s, v = logits.shape
+        pt = torch.softmax(filter_logits(logits / self.temperature,
+                                         self.top_k, self.top_p), dim=-1)
+        qd = torch.stack(d_dists, dim=1)                       # (B, k, V)
+        pt_d = pt[:, :k].gather(2, d[..., None])[..., 0]
+        qd_d = qd.gather(2, d[..., None])[..., 0]
+        u = torch.empty((b, k), device=logits.device)
+        gen = torch.Generator(device=logits.device)
+        for i, seed in enumerate(row_seeds):
+            gen.manual_seed(_mix(seed, _SPEC_COIN_STREAM + round_idx))
+            u[i] = torch.rand(k, generator=gen, device=logits.device)
+        accept = u * torch.clamp(qd_d, min=1e-30) < pt_d
+        n_acc = accept.long().cumprod(dim=1).sum(dim=1)
+        # the residual at each row's first rejected position; past the last
+        # proposal the draft distribution is empty and it is the target's
+        at = n_acc[:, None, None].expand(b, 1, v)
+        p_at = pt.gather(1, at)[:, 0]
+        q_at = torch.cat([qd, torch.zeros_like(qd[:, :1])], dim=1).gather(
+            1, at)[:, 0]
+        res = torch.clamp(p_at - q_at, min=0.0)
+        res = torch.where(res.sum(dim=-1, keepdim=True) > 1e-30, res, p_at)
+        res_logits = torch.where(res > 0, torch.log(torch.clamp(
+            res, min=1e-38)), NEG_INF)
+        corr = torch.stack([
+            _gumbel_draw(res_logits[i], _mix(
+                _mix(seed, _SPEC_FIX_STREAM + round_idx), int(n_acc[i])))
+            for i, seed in enumerate(row_seeds)])
+        return n_acc, corr
+
+    def _spec_round(self, window: int, caches: list, draft_caches: list,
+                    tok: torch.Tensor, done: torch.Tensor,
+                    true_len: torch.Tensor, budget: torch.Tensor,
+                    bucket: int, t_row: torch.Tensor, round_idx: int,
+                    row_seeds: list) -> tuple:
+        """One speculative round over a batch whose rows sit at per-row
+        steps `t_row` (the JAX `spec_round_impl`; `generate` and the
+        serving engine share it), on the device of `tok`:
+
+          * the draft's k+1 single-token steps through the per-row decode
+            step (the decode kernel reads its cache), proposals from the
+            first k; the last step only writes the last proposal's K/V, so
+            the draft never reads a zero slot;
+          * ONE target forward over [tok, d_1..d_k] (`_verify_step_rows`),
+            token t_row+j's K/V at slot bucket+t_row+j as the per-step
+            path writes it;
+          * the agreeing prefix plus one token commits, each committed
+            token passing the stop and budget freezes of the per-step
+            path.  Rejected proposals leave K/V past a row's frontier that
+            no committed query sees and the next round overwrites.
+
+        Returns (caches, draft_caches, toks (B, k+1), counts (B,), tok,
+        done, accepted (B,)): row r's first counts[r] entries of toks are
+        committed tokens (the rest repeat the frozen token); `accepted` is
+        the draft/target agreement length (0 for a row done on entry)."""
+        dev = tok.device
+        target, draft = self.weights.on(dev), self.draft_weights.on(dev)
+        caches = [tuple(_grow_cache(c, window) for c in layer)
+                  for layer in caches]
+        draft_caches = [tuple(_grow_cache(c, window) for c in layer)
+                        for layer in draft_caches]
+        k = self.spec_tokens
+        s = k + 1
+        slots = torch.arange(window, device=dev)
+        max_pos = target.max_len - 1
+        prompt_visible = slots[None, :] < true_len[:, None]
+        decode_slots = slots[None, :] >= bucket
+        d_toks, d_dists = [], []
+        cur = tok
+        for j in range(s):
+            t = t_row + j
+            slot = torch.clamp(bucket + t, max=window - 1)
+            visible = prompt_visible | (decode_slots
+                                        & (slots[None, :] <= slot[:, None]))
+            logits = _decode_step(
+                draft, cur, torch.clamp(true_len + t, max=max_pos),
+                draft_caches, functools.partial(_window_read,
+                                                visible=visible, slot=slot))
+            if j == k:
+                break           # K/V back-fill only; the proposal is unused
+            cur, dist = self._draft_token(logits, row_seeds, round_idx, j)
+            d_toks.append(cur)
+            d_dists.append(dist)
+        d = torch.stack(d_toks, dim=1)                          # (B, k)
+        slots0 = torch.clamp(bucket + t_row, max=window - s)
+        last = slots0[:, None] + torch.arange(s, device=dev)[None, :]
+        visible = prompt_visible[:, None, :] | (
+            decode_slots[:, None, :] & (slots[None, None, :]
+                                        <= last[:, :, None]))
+        logits = _verify_step_rows(target, torch.cat([tok[:, None], d], 1),
+                                   true_len + t_row, slots0, caches, visible)
+        n_acc, corr = self._accept(logits, d, d_dists, row_seeds, round_idx)
+        # commit: positions 0..n_acc are real (the accepted prefix, then
+        # the correction or bonus token)
+        seq = torch.where(torch.arange(s, device=dev)[None, :]
+                          < n_acc[:, None],
+                          torch.cat([d, torch.zeros_like(d[:, :1])], 1),
+                          corr[:, None])
+        accepted = torch.where(done, 0, n_acc)
+        out_toks = []
+        count = torch.zeros_like(t_row)
+        cur = tok
+        for i in range(s):
+            live = ~done & (i <= n_acc)
+            cur = torch.where(live, seq[:, i], cur)
+            idx = t_row + 1 + i                 # the token's global index
+            done = done | (live & (self._stop_gate(cur, idx + 1)
+                                   | (idx >= budget)))
+            count = count + live.long()
+            out_toks.append(cur)
+        return (caches, draft_caches, torch.stack(out_toks, dim=1), count,
+                cur, done, accepted)
+
+    def _generate_speculative(self, prompts: np.ndarray, tl_host: np.ndarray,
+                              live: np.ndarray, row_seeds: list,
+                              groups: list) -> np.ndarray:
+        """The speculative form of `generate`: per data group the target
+        prefill (chunked or whole: the same functions), the draft
+        prefill, then rounds until every row freezes or fills its budget,
+        the window growing with the group's oldest row as the serving
+        path's does."""
+        k, max_new = self.spec_tokens, self.max_new_tokens
+        b, p = prompts.shape
+        out = np.zeros((b, max_new), np.int32)
+        rounds = drafted = accepted_total = new_computed = 0
+        with torch.inference_mode():
+            for rows, ring in groups:
+                dev = self.device if ring is None else ring[0]
+                n = len(row_seeds[rows])
+                prompts_t = torch.as_tensor(prompts[rows], dtype=torch.long,
+                                            device=dev)
+                tl = torch.as_tensor(tl_host[rows], dtype=torch.long,
+                                     device=dev)
+                args = (prompts_t, tl, torch.as_tensor(live[rows],
+                                                       device=dev),
+                        row_seeds[rows])
+                with trace_span("decode.prefill", cat="bucket", bucket=p,
+                                batch=n, speculative=True):
+                    if ring is None and self._chunks_prefill(p):
+                        tok, done, caches = self._run_chunked_prefill(*args)
+                    else:
+                        tok, done, caches = self.prefill(*args, ring)
+                        if ring is not None:
+                            # one seq shard: its slab is the whole window
+                            caches = [tuple(part[0] for part in layer)
+                                      for layer in caches]
+                    dcaches = self._draft_prefill(prompts_t)
+                group_out = out[rows]
+                group_out[:, 0] = tok.cpu().numpy()
+                emitted = np.ones(n, np.int64)
+                t_row = np.zeros(n, np.int64)
+                # freeze once a row's newest token index reaches max_new-1
+                budget = torch.full((n,), max_new - 1, dtype=torch.long,
+                                    device=dev)
+                done_h = done.cpu().numpy()
+                g_rounds = 0
+                while not done_h.all():
+                    w_in = int(caches[0][0].shape[1])
+                    window = max(self.serve_window(p, int(t_row.max()),
+                                                   k + 1),
+                                 w_in, int(dcaches[0][0].shape[1]))
+                    with trace_span("decode.spec_round", cat="segment",
+                                    window=window, round=g_rounds):
+                        (caches, dcaches, toks, counts, tok, done,
+                         acc) = self._spec_round(
+                            window, caches, dcaches, tok, done, tl, budget,
+                            p, torch.as_tensor(t_row, device=dev), g_rounds,
+                            row_seeds[rows])
+                    self._program("spec_round", n, w_in, window, k)
+                    toks_h, counts_h = toks.cpu().numpy(), counts.cpu().numpy()
+                    drafted += int((counts_h > 0).sum()) * k
+                    accepted_total += int(acc.sum())
+                    for r in np.nonzero(counts_h)[0]:
+                        take = min(int(counts_h[r]), max_new - int(emitted[r]))
+                        group_out[r, emitted[r]:emitted[r] + take] = \
+                            toks_h[r, :take]
+                        emitted[r] += take
+                    t_row = t_row + counts_h
+                    done_h = done.cpu().numpy()
+                    g_rounds += 1
+                tok_h = tok.cpu().numpy()
+                for r in range(n):
+                    # a row frozen early repeats its stop token, as the
+                    # non-speculative fill does
+                    group_out[r, emitted[r]:] = tok_h[r]
+                out[rows] = group_out
+                rounds += g_rounds
+                new_computed = max(new_computed, int(emitted.max()))
+        rate = accepted_total / drafted if drafted else 0.0
+        self.last_spec_rounds = rounds
+        self.last_spec_drafted = drafted
+        self.last_spec_accepted = accepted_total
+        self.last_spec_acceptance = rate
+        self.last_segments_run = rounds
+        self.last_new_tokens_computed = new_computed
+        self.last_exit_checks_skipped = 0
+        inc_counter("decode.spec_drafted_tokens", drafted)
+        inc_counter("decode.spec_accepted_tokens", accepted_total)
+        run = active_run()
+        if run is not None:
+            run.gauge("decode.spec_acceptance_rate", round(rate, 4))
+            run.gauge("decode.spec_rounds", rounds)
+        return out
+
     def _groups(self, b: int) -> list:
         """(row slice, seq ring or None) per data group."""
         if self.mesh is None:
@@ -1019,6 +1496,9 @@ class DecodeEngine:
         ids = range(b) if row_ids is None else [int(i) for i in row_ids]
         row_seeds = [_mix(int(seed), i) for i in ids]
         live = np.ones(b, bool) if live is None else np.asarray(live, bool)
+        if self.spec_tokens:
+            return self._generate_speculative(prompts, tl_host, live,
+                                              row_seeds, groups)
         check_exit = bool(self.stop_tokens)
         parts = [[] for _ in groups]
         segments_run = exit_checks_skipped = 0
@@ -1264,6 +1744,43 @@ class DecodeEngine:
         self._program("prefill_chunk", b, p - prefix_len, w0)
         return self.serve_prefill_finish(state, live, row_seeds)
 
+    def serve_draft_prefill(self, prompts) -> list:
+        """Prefill the draft model's caches for a join cohort (speculative
+        serving): the draft caches to splice beside the target's
+        (`merge_cache_rows` takes both)."""
+        self._refuse_seq("serve_draft_prefill")
+        prompts = _to_device(prompts, torch.long, self.device)
+        with torch.inference_mode():
+            caches = self._draft_prefill(prompts)
+        self._program("draft_prefill", *prompts.shape)
+        return caches
+
+    def serve_spec_round(self, caches, draft_caches, tok, done, true_len,
+                         budget, bucket: int, t_row, round_idx: int,
+                         row_seeds, window: int) -> tuple:
+        """One speculative round over the resident batch (the round
+        `generate` runs, with per-row steps and budgets): returns
+        (caches, draft_caches, toks (B, k+1), counts, tok, done,
+        accepted); the scheduler advances each row's step by its count
+        and emits that prefix of its toks.  Writes the caches in place
+        where they need no growth."""
+        self._refuse_seq("serve_spec_round")
+        dev = self.device
+        b = len(row_seeds)
+        w_in = int(caches[0][0].shape[1])
+        window = max(int(window), w_in, int(draft_caches[0][0].shape[1]))
+        with torch.inference_mode():
+            out = self._spec_round(
+                window, caches, draft_caches,
+                _to_device(tok, torch.long, dev),
+                _to_device(done, torch.bool, dev),
+                _to_device(true_len, torch.long, dev),
+                _to_device(budget, torch.long, dev), int(bucket),
+                _to_device(t_row, torch.long, dev), int(round_idx),
+                list(row_seeds))
+        self._program("spec_round", b, w_in, window, self.spec_tokens)
+        return out
+
     @staticmethod
     def merge_cache_rows(dst_caches, src_caches, dst_rows, src_rows,
                          mesh=None) -> list:
@@ -1355,7 +1872,10 @@ class TextGenerator(Transformer):
     tokens out, decoded through the `DecodeEngine` with rows grouped by
     prompt bucket.  Output rows align with input rows.  With `stopTokens`
     set, each row is trimmed after its first stop token (kept) at or past
-    the `minNewTokens` floor.
+    the `minNewTokens` floor.  `beamWidth > 0` runs beam search instead
+    (`make_beam_search_fn`, rows grouped by prompt length) and emits each
+    row's best beam; `specTokens > 0` decodes speculatively with the draft
+    set by `set_draft_bundle`.
 
     `device` (default "cuda") is where the model runs; it is a run-time
     setting, not a param, and is not saved."""
@@ -1375,8 +1895,11 @@ class TextGenerator(Transformer):
     topP = Param(1.0, "nucleus sampling: smallest probability mass to "
                  "sample within (1.0 = off; ignored when greedy)",
                  ptype=float, validator=lambda v: 0 < v <= 1)
-    beamWidth = Param(0, "beam search width (not ported: must stay 0)",
-                      ptype=int, validator=lambda v: v >= 0)
+    beamWidth = Param(0, "deterministic beam search width; each row "
+                      "emits its best beam (0 = off; overrides "
+                      "temperature/topK/topP, stopTokens and kvCacheDtype; "
+                      "rows grouped by prompt length)", ptype=int,
+                      validator=lambda v: v >= 0)
     seed = Param(0, "sampling seed (ignored when greedy); each row's "
                  "stream also folds in its table position", ptype=int)
     stopTokens = Param(None, "token ids that end a row's generation: the "
@@ -1393,8 +1916,13 @@ class TextGenerator(Transformer):
     minNewTokens = Param(1, "suppress stop tokens until a row has "
                          "generated this many tokens (including the stop "
                          "itself)", ptype=int, validator=lambda v: v >= 1)
-    specTokens = Param(0, "speculative decoding (not ported: must stay 0)",
-                       ptype=int, validator=lambda v: v >= 0)
+    specTokens = Param(0, "speculative decoding: tokens the draft model "
+                       "proposes per verify round (0 = off; requires "
+                       "set_draft_bundle).  Greedy outputs stay those of "
+                       "plain decoding; sampled ones draw from the same "
+                       "target distribution by rejection sampling, on "
+                       "other streams", ptype=int,
+                       validator=lambda v: v >= 0)
     prefillChunk = Param(0, "chunked prefill: run prompt forwards in "
                          "chunks of this many tokens (0 = whole-prompt); "
                          "a bucket the chunk does not divide, or no "
@@ -1407,12 +1935,24 @@ class TextGenerator(Transformer):
         self.device = resolve_device(device)
         self._bundle = bundle
         self._weights = None
+        self._draft_bundle = None
+        self._draft_weights = None
         self._mesh = None
         self._engines: dict = {}
 
     def set_bundle(self, bundle: ModelBundle) -> "TextGenerator":
         self._bundle = bundle
         self._weights = None
+        self._engines = {}
+        return self
+
+    def set_draft_bundle(self, bundle: Optional[ModelBundle]
+                         ) -> "TextGenerator":
+        """The small LM that `specTokens` speculation drafts with
+        (`zoo.truncated_draft_bundle` builds one from the target bundle).
+        Not saved with the stage: attach again after load."""
+        self._draft_bundle = bundle
+        self._draft_weights = None
         self._engines = {}
         return self
 
@@ -1432,41 +1972,85 @@ class TextGenerator(Transformer):
     def bundle(self) -> Optional[ModelBundle]:
         return self._bundle
 
+    def _serving_weights(self) -> ServingWeights:
+        if self._weights is None:
+            # the f32 module is dropped once its Dense weights are cast
+            self._weights = ServingWeights(self._bundle.module(self.device))
+        return self._weights
+
+    def _beam_fn_for(self, prompt_len: int):
+        """The beam search of one prompt length, made once; it runs on
+        the stage's device whatever the mesh (each row's search is
+        independent of the others)."""
+        key = ("beam", prompt_len, self.maxNewTokens, self.beamWidth)
+        if key not in self._engines:
+            self._engines[key] = make_beam_search_fn(
+                self._serving_weights(), prompt_len, self.maxNewTokens,
+                self.beamWidth)
+        return self._engines[key]
+
     def _engine_for(self) -> DecodeEngine:
-        for name in ("beamWidth", "specTokens"):
-            if self.get(name):
-                raise NotImplementedError(f"{name} is not ported")
         # greedy ignores the filters: normalize them out of the cache key
         sampling = self.temperature > 0
         top_k = (self.topK or None) if sampling else None
         top_p = self.topP if sampling and self.topP < 1.0 else None
         stops = tuple(int(t) for t in (self.stopTokens or ()))
         kv_dtype = self.kvCacheDtype or "model"
+        spec = int(self.specTokens)
+        if spec and self._draft_bundle is None:
+            raise ValueError(
+                "specTokens > 0 needs a draft model; call "
+                "set_draft_bundle() (zoo.truncated_draft_bundle builds one)")
         key = (self.maxNewTokens, self.temperature, top_k, top_p, stops,
                self.cacheChunk, kv_dtype, self.minNewTokens,
-               self.prefillChunk or None)
+               self.prefillChunk or None, spec)
         if key not in self._engines:
-            if self._weights is None:
-                # the f32 module is dropped once its Dense weights are cast
-                self._weights = ServingWeights(
-                    self._bundle.module(self.device))
+            if spec and self._draft_weights is None:
+                self._draft_weights = ServingWeights(
+                    self._draft_bundle.module(self.device))
             self._engines[key] = DecodeEngine(
-                self._weights, self.maxNewTokens,
+                self._serving_weights(), self.maxNewTokens,
                 temperature=self.temperature, top_k=top_k, top_p=top_p,
                 stop_tokens=stops, chunk=self.cacheChunk,
                 cache_dtype=kv_dtype, min_new_tokens=self.minNewTokens,
                 prefill_chunk=self.prefillChunk or None,
-                mesh=self._mesh, device=self.device)
+                mesh=self._mesh, device=self.device,
+                draft_module=self._draft_weights if spec else None,
+                spec_tokens=spec)
         return self._engines[key]
+
+    def _transform_beam(self, rows: list, out: list) -> None:
+        """Beam rows: one search per prompt length, each row's best beam."""
+        by_len: dict[int, list[int]] = {}
+        for i, r in enumerate(rows):
+            by_len.setdefault(len(r), []).append(i)
+        for plen, idxs in sorted(by_len.items()):
+            tokens, _ = self._beam_fn_for(plen)(
+                np.stack([rows[i] for i in idxs]))
+            for j, i in enumerate(idxs):
+                out[i] = tokens[j, 0]
 
     def transform(self, table: DataTable) -> DataTable:
         self._check_required()
         if self._bundle is None:
             raise ValueError(
                 "TextGenerator has no model bundle; call set_bundle()")
-        engine = self._engine_for()
         rows = [np.asarray(r, np.int32) for r in table[self.inputCol]]
         out: list = [None] * len(rows)
+        if self.beamWidth > 0:
+            self._transform_beam(rows, out)
+        else:
+            self._transform_engine(rows, out)
+        if out and len({len(r) for r in out}) == 1:
+            return table.with_column(self.outputCol, np.stack(out))
+        result = np.empty(len(out), object)
+        for i, r in enumerate(out):
+            result[i] = r
+        return table.with_column(self.outputCol, result)
+
+    def _transform_engine(self, rows: list, out: list) -> None:
+        """Greedy and sampled rows: the bucketed engine."""
+        engine = self._engine_for()
         by_bucket: dict[int, list[int]] = {}
         for i, r in enumerate(rows):
             by_bucket.setdefault(engine.bucket_for(len(r)), []).append(i)
@@ -1497,12 +2081,6 @@ class TextGenerator(Transformer):
                     if hits.size:
                         gen = gen[:start + hits[0] + 1]
                 out[i] = np.concatenate([rows[i], gen])
-        if out and len({len(r) for r in out}) == 1:
-            return table.with_column(self.outputCol, np.stack(out))
-        result = np.empty(len(out), object)
-        for i, r in enumerate(out):
-            result[i] = r
-        return table.with_column(self.outputCol, result)
 
     def _save_extra(self, path: str) -> None:
         if self._bundle is not None:
@@ -1511,6 +2089,7 @@ class TextGenerator(Transformer):
     def _load_extra(self, path: str) -> None:
         self.set_bundle(load_bundle(f"{path}/bundle")
                         if os.path.exists(f"{path}/bundle") else None)
+        self.set_draft_bundle(None)
 
 
 def naive_generate(module, prompts, max_new_tokens: int) -> np.ndarray:

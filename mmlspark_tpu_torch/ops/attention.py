@@ -9,6 +9,9 @@
     before PV); f32 out.
   * `single_query_attention_stats` — the same read stopped before the
     normalize: the (acc, m, l) triple a split cache read merges.
+  * `segment_cache_attention` — S queries a row against a cache window
+    under per-query visibility: the speculative verify forward's read;
+    at S = 1 elementwise the math of `single_query_attention`.
   * `merge_attention_stats` — the cross-shard epilogue of a seq-sharded
     decode step: pmax, then a psum pair, over per-shard triples.
   * `ring_attention` — causal or full attention over a sequence cut into
@@ -17,7 +20,7 @@
 
 The first three are the algebra the hand-written kernels
 (ops/flash_attention.py, ops/decode_attention.py) are held against; the
-last two are plain tensor code around the kernels, as in JAX they are
+last three are plain tensor code around the kernels, as in JAX they are
 XLA around the Pallas calls.
 """
 
@@ -74,6 +77,29 @@ def single_query_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if v_scale is not None:
         w = w * v_scale.float().transpose(1, 2)
     return torch.einsum("bhl,blhd->bhd", w, v_cache.float())
+
+
+def segment_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, visible: torch.Tensor,
+                            scale: Optional[float] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """A short segment's queries q (B, S, H, D) against caches (B, L, H,
+    D) that already hold the segment's own K/V, under per-query
+    visibility `visible` (B, S, L) bool.  int8 dequant scales (B, L, H)
+    hoisted as in `single_query_attention`: K's after QK^T, V's into the
+    softmax weights.  f32 statistics; returns (B, S, H, D) f32."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bshd,blhd->bhsl", q.float(), k_cache.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
+    s = torch.where(visible[:, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale.float().transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bhsl,blhd->bshd", w, v_cache.float())
 
 
 def single_query_attention_stats(q: torch.Tensor, k_cache: torch.Tensor,

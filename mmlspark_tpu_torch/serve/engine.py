@@ -59,8 +59,16 @@ admission and (chunked) prefill only and hands each finished cohort to
 DECODE-tier engine seats handed-off rows through `splice_remote` and
 decodes them like any join.
 
-Not ported yet (they raise NotImplementedError, naming the ROADMAP step):
-speculative decoding and serving over a mesh.
+SPECULATIVE LANES (`spec_tokens` with a `draft_bundle`, colocated only):
+every lane advances by draft/verify rounds (`DecodeEngine.serve_spec_round`)
+instead of segments; each join prefills the cohort's draft caches too and
+splices them beside the target's, and each row emits the tokens its round
+committed.  Greedy tokens are the offline speculative (and plain)
+engine's.  The degraded lane takes any bundle of the primary's
+vocabulary, an int8-weight `quantize_bundle` included.
+
+Not ported yet (it raises NotImplementedError, naming the ROADMAP step):
+serving over a mesh.
 """
 
 from __future__ import annotations
@@ -127,8 +135,9 @@ SERVE_PREFILL_CHUNK = config.register(
     "to whole-prompt)", ptype=int)
 SERVE_SPEC_TOKENS = config.register(
     "MMLSPARK_TPU_SERVE_SPEC_TOKENS", 0,
-    "serving: speculative decoding draft depth (0 = off; > 0 is not "
-    "ported)", ptype=int)
+    "serving: speculative decoding — draft-model tokens proposed per "
+    "verify round (0 = off; needs a draft_bundle on the ServingEngine)",
+    ptype=int)
 SERVE_ROLE = config.register(
     "MMLSPARK_TPU_SERVE_ROLE", "colocated",
     "serving: this engine's tier — 'colocated' (prefill + decode on one "
@@ -169,8 +178,7 @@ class ServeConfig:
     """Knobs for one ServingEngine: the JAX package's fields and names.
 
     None fields fall back to their MMLSPARK_TPU_SERVE_* config vars at
-    construction.  The switches of features not ported yet keep their
-    names and checks, and raise NotImplementedError when turned on."""
+    construction."""
 
     max_new_tokens: int = 32          # engine-wide generation cap
     max_batch: Optional[int] = None   # resident slots per bucket group
@@ -262,10 +270,6 @@ class ServeConfig:
             raise ValueError("segment_steps must be >= 1")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if self.spec_tokens:
-            raise NotImplementedError(
-                "speculative decoding (spec_tokens > 0) is not ported "
-                "(ROADMAP A8 item 3)")
 
 
 class _Group:
@@ -279,6 +283,8 @@ class _Group:
         self.capacity = capacity
         self.rows: list[Optional[Request]] = [None] * capacity
         self.caches = None
+        self.draft_caches = None       # speculative lanes only
+        self.spec_rounds = 0           # the rounds' stream index
         self.reserved: set = set()     # slots held by in-flight chunked
         # prefills (their rows stay None until the cohort splices in)
         self.tok = np.zeros(capacity, np.int64)
@@ -327,8 +333,11 @@ class ServingEngine:
     start_http` puts the stdlib front end in front of `submit`.
 
     `degraded_bundle`: a second bundle of the same vocabulary whose lane
-    takes new traffic while the miss breaker is open.  A bundle the
-    port's loader refuses (int8 weights) raises here.
+    takes new traffic while the miss breaker is open (for example
+    `quantize_bundle(bundle, "int8")`: its Dense weights stay int8 on the
+    card).  `draft_bundle`: the draft model of the speculative lanes
+    (`cfg.spec_tokens` > 0; `zoo.truncated_draft_bundle` builds one),
+    shared by every lane.
     """
 
     def __init__(self, bundle, cfg: Optional[ServeConfig] = None, *,
@@ -345,13 +354,17 @@ class ServingEngine:
                     "TextGenerator for seq-parallel long-context decode")
             raise NotImplementedError(
                 "serving over a mesh is not ported (ROADMAP A10)")
-        if draft_bundle is not None:
-            raise NotImplementedError(
-                "speculative decoding (a draft_bundle) is not ported "
-                "(ROADMAP A8 item 3)")
+        if self.cfg.spec_tokens and draft_bundle is None:
+            raise ValueError(
+                "spec_tokens > 0 needs a draft_bundle "
+                "(zoo.truncated_draft_bundle builds one)")
         self.device = resolve_device(device)
         self._clock = clock
         self._bundle = bundle
+        # one draft drafts for every lane: greedy exactness holds lane by
+        # lane, so the degraded lane pairs with the same draft
+        self._draft = (ServingWeights(draft_bundle.module(self.device))
+                       if self.cfg.spec_tokens else None)
         primary = ServingWeights(bundle.module(self.device))
         self.vocab_size = primary.vocab_size
         self._engines = {"primary": self._decode_engine(primary)}
@@ -412,6 +425,7 @@ class ServingEngine:
             top_p=self.cfg.top_p, stop_tokens=self.cfg.stop_tokens,
             chunk=self.cfg.cache_chunk, cache_dtype=self.cfg.cache_dtype,
             prefill_chunk=self.cfg.prefill_chunk or None,
+            draft_module=self._draft, spec_tokens=self.cfg.spec_tokens,
             device=self.device)
 
     # -- lifecycle ---------------------------------------------------------
@@ -483,6 +497,8 @@ class ServingEngine:
             else:
                 tok, done, caches = eng.serve_prefill(prompts, tl, live,
                                                       seeds)
+            if eng.spec_tokens:
+                dcaches = eng.serve_draft_prefill(prompts)
             cohorts[m] = caches
             if n >= cap:
                 break
@@ -517,6 +533,23 @@ class ServingEngine:
         t_row = np.zeros(cap, np.int64)
         t = 0
         warm_joins(caches)
+        if eng.spec_tokens:
+            # speculative lanes run rounds instead of segments: sweep the
+            # window ladder at full-acceptance stride
+            k1 = eng.spec_tokens + 1
+            rounds = 0
+            while t < self.cfg.max_new_tokens + k1:
+                tr = np.minimum(t_row + t, self.cfg.max_new_tokens - 1)
+                window = eng.serve_window(bucket, int(tr.max()), k1)
+                (caches, dcaches, _, _, tok, done,
+                 _) = eng.serve_spec_round(
+                    caches, dcaches, tok, done, tl, budget, bucket, tr,
+                    rounds, seeds, window)
+                t += k1
+                rounds += 1
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
+            return
         while t < self.cfg.max_new_tokens:
             window = eng.serve_window(bucket, t, seg)
             caches, _, tok, done = eng.serve_step(
@@ -943,7 +976,7 @@ class ServingEngine:
             tok_h = tok.cpu().numpy()
         self.estimator.observe_prefill(g.bucket, monotonic() - t0)
         self._splice(g, lane, reqs, slots, list(range(len(reqs))), tok_h,
-                     caches)
+                     caches, prompts)
 
     def _join_prefix_hits(self, g: _Group, lane: str, reqs: list,
                           slots: list) -> tuple:
@@ -1008,7 +1041,8 @@ class ServingEngine:
                 # time
                 tok_h = tok.cpu().numpy()
             self.estimator.observe_prefill(g.bucket, monotonic() - t0)
-            self._splice(g, lane, [req], [slot], [0], tok_h, caches)
+            self._splice(g, lane, [req], [slot], [0], tok_h, caches,
+                         self._one_row(g, req))
         finally:
             self._prefix.release(hit)
 
@@ -1105,13 +1139,16 @@ class ServingEngine:
             slots.append(slot)
             src.append(j)
         if reqs:
-            self._splice(g, lane, reqs, slots, src, tok_h, caches)
+            self._splice(g, lane, reqs, slots, src, tok_h, caches,
+                         job["prompts"])
         self._release_job_lease(job)
 
     def _splice(self, g: _Group, lane: str, reqs: list, slots: list,
-                src: list, tok_h, caches) -> None:
-        """Merge cohort cache rows into the group, seat the requests, and
-        (primary lane, pool on) pool their prompt prefixes.
+                src: list, tok_h, caches, prompts) -> None:
+        """Merge cohort cache rows into the group (on a speculative lane
+        also the draft cache rows of the cohort's `prompts`, prefilled
+        here), seat the requests, and (primary lane, pool on) pool their
+        prompt prefixes.
 
         On a PREFILL-tier engine this is where the work leaves: the
         finished cohort's caches go to the handoff bus instead of a
@@ -1134,6 +1171,13 @@ class ServingEngine:
             g.caches = self._empty_caches(eng, g.capacity, g.bucket)
         g.caches = DecodeEngine.merge_cache_rows(g.caches, caches, slots,
                                                  src)
+        if eng.spec_tokens:
+            draft = eng.serve_draft_prefill(prompts)
+            if g.draft_caches is None:
+                g.draft_caches = self._empty_caches(
+                    eng, g.capacity, g.bucket, eng.draft_weights)
+            g.draft_caches = DecodeEngine.merge_cache_rows(
+                g.draft_caches, draft, slots, src)
         for j, (req, slot) in zip(src, zip(reqs, slots)):
             g.rows[slot] = req
             g.tok[slot] = tok_h[j]
@@ -1192,15 +1236,16 @@ class ServingEngine:
                                      "request": req.id})
 
     def _empty_caches(self, eng: DecodeEngine, capacity: int,
-                      bucket: int) -> list:
+                      bucket: int, weights=None) -> list:
         """A group's zeroed resident caches at the bucket's first window,
         in the engine's cache layout (the int8 4-tuple: payloads and f32
-        per-(row, slot, head) scales)."""
-        w = eng.weights
+        per-(row, slot, head) scales); with `weights` (the draft's),
+        model-dtype caches of that model."""
+        w = weights or eng.weights
         shape = (capacity, _round_up(bucket + 1, self.cfg.cache_chunk),
                  w.n_heads, w.d_model // w.n_heads)
         with torch.inference_mode():
-            if eng.cache_dtype == "int8":
+            if eng.cache_dtype == "int8" and weights is None:
                 def layer():
                     return (torch.zeros(shape, dtype=torch.int8,
                                         device=eng.device),
@@ -1289,9 +1334,12 @@ class ServingEngine:
             req.note_tokens()
 
     def _advance(self, g: _Group, lane: str) -> None:
-        """Run one mixed-age segment for a group and harvest the
-        results."""
+        """Run one mixed-age segment (on a speculative lane one
+        draft/verify round) for a group and harvest the results."""
         eng = self._engines[lane]
+        if eng.spec_tokens:
+            self._advance_spec(g, lane)
+            return
         seg = self.cfg.segment_steps
         live = g.live_slots()
         max_t = int(g.t_row[live].max()) if live else 0
@@ -1329,6 +1377,63 @@ class ServingEngine:
             self._run.gauge("serve.queue_depth", self.admission.pending())
             self._run.gauge("serve.in_flight", self.in_flight())
             self._gauge_prefix()
+
+    def _advance_spec(self, g: _Group, lane: str) -> None:
+        """One speculative round: the draft proposes, one target forward
+        verifies, each row advances by the tokens it committed.  The
+        estimator's per-step EWMA sees the round's time over the tokens a
+        live row emitted, the measured speedup."""
+        eng = self._engines[lane]
+        k1 = eng.spec_tokens + 1
+        live = g.live_slots()
+        max_t = int(g.t_row[live].max()) if live else 0
+        window = eng.serve_window(g.bucket, max_t, k1)
+        t0 = monotonic()
+        with span_on_tracer(self._tracer, "serve.spec_round", cat="serve",
+                            bucket=g.bucket, lane=lane, window=window,
+                            occupancy=round(len(live) / g.capacity, 3)):
+            (caches, draft_caches, toks, counts, tok, done,
+             accepted) = eng.serve_spec_round(
+                g.caches, g.draft_caches, g.tok, g.done, g.true_len,
+                g.budget, g.bucket, g.t_row, g.spec_rounds,
+                self._row_seeds(g.row_ids), window)
+            # the host copies wait for the device: the span is device time
+            toks_h = toks.cpu().numpy()
+            counts_h = counts.cpu().numpy()
+            tok_h = tok.cpu().numpy()
+            done_h = done.cpu().numpy()
+            accepted_h = accepted.cpu().numpy()
+        elapsed = monotonic() - t0
+        g.spec_rounds += 1
+        emitted = int(counts_h[live].sum())
+        per_row = emitted / max(1, len(live))
+        self.estimator.observe_step(g.bucket, elapsed / max(1.0, per_row))
+        inc_counter("serve.spec_drafted_tokens", eng.spec_tokens * len(live))
+        inc_counter("serve.spec_accepted_tokens", int(accepted_h[live].sum()))
+        self._record_serve({"event": "segment", "bucket": g.bucket,
+                            "lane": lane, "rows": len(live), "spec": True,
+                            "emitted": emitted})
+        if self._run is not None:
+            self._run.observe_hist("serve.inter_token_s",
+                                   elapsed / max(1.0, per_row))
+        g.caches, g.draft_caches = caches, draft_caches
+        g.tok = tok_h.astype(np.int64)
+        g.done = done_h.astype(bool)
+        for i in live:
+            if g.rows[i] is None:
+                continue
+            take = int(counts_h[i])
+            if take:
+                self._emit(g, i, toks_h[i][:take].tolist())
+            if g.rows[i] is not None:
+                g.t_row[i] += take
+        if self._run is not None:
+            self._run.gauge(
+                "serve.spec_acceptance_rate",
+                round(float(accepted_h[live].sum())
+                      / max(1, eng.spec_tokens * len(live)), 4))
+            self._run.gauge("serve.queue_depth", self.admission.pending())
+            self._run.gauge("serve.in_flight", self.in_flight())
 
     # -- the loop (spawned by serve/lifecycle.py) -------------------------
     def _drained(self) -> bool:

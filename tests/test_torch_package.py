@@ -36,7 +36,8 @@ from mmlspark_tpu_torch.quant.quantize import quantize_kv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mmlspark_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mmlspark_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes",
+             "mmlspark_tpu"}
 CFG = {"vocab_size": 32, "d_model": 32, "n_heads": 2, "n_layers": 1,
        "max_len": 64, "dtype": "float32"}
 
@@ -63,7 +64,8 @@ def test_port_never_imports_the_jax_stack():
     sources = _port_sources()
     assert len(sources) > 10 and os.path.exists(sources[0])
     covered = {os.path.relpath(os.path.dirname(p), PKG) for p in sources[1:]}
-    assert {"train", "parallel", "utils", "ops", "models"} <= covered
+    assert {"train", "parallel", "utils", "ops", "models", "quant",
+            "zoo"} <= covered
     offenders = [(os.path.relpath(p, REPO), name) for p in sources
                  for name in _imported_roots(p) if name in FORBIDDEN]
     assert offenders == []
@@ -108,19 +110,22 @@ def _cpu_mesh(**axes):
 
 
 def test_unported_options_raise():
-    """Speculation, beam search and tensor-parallel decode (a model axis)
-    raise NotImplementedError; a mesh that is not a port `Mesh` is
-    refused."""
+    """Tensor-parallel decode (a model axis) raises NotImplementedError;
+    speculation without a draft is refused with a ValueError naming what
+    is missing (speculative decoding and beam search are ported); a mesh
+    that is not a port `Mesh` is refused."""
     bundle = ModelBundle.init("TransformerLM", CFG)
     module = bundle.module("cpu")
-    for kw in ({"spec_tokens": 2}, {"mesh": _cpu_mesh(model=2)}):
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(module, 4, device="cpu", **kw)
-    for param in ("beamWidth", "specTokens"):
-        stage = TextGenerator(bundle, device="cpu", inputCol="p",
-                              **{param: 2})
-        with pytest.raises(NotImplementedError, match=param):
-            stage.transform(_table([[1, 2, 3]]))
+    with pytest.raises(NotImplementedError, match="A10"):
+        DecodeEngine(module, 4, device="cpu", mesh=_cpu_mesh(model=2))
+    with pytest.raises(ValueError, match="draft_module"):
+        DecodeEngine(module, 4, device="cpu", spec_tokens=2)
+    with pytest.raises(ValueError, match="set_draft_bundle"):
+        TextGenerator(bundle, device="cpu", inputCol="p",
+                      specTokens=2).transform(_table([[1, 2, 3]]))
+    beam = TextGenerator(bundle, device="cpu", inputCol="p", beamWidth=2,
+                         maxNewTokens=3).transform(_table([[1, 2, 3]]))
+    assert np.asarray(beam["generated"][0]).shape == (6,)
     with pytest.raises(TypeError, match="Mesh"):
         DecodeEngine(module, 4, device="cpu", mesh=object())
     with pytest.raises(TypeError, match="Mesh"):

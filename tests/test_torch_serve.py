@@ -408,15 +408,18 @@ def test_breaker_open_fails_over_to_degraded(bundle):
 
 
 def test_degraded_bundle_the_loader_refuses_fails_at_construction(bundle):
-    """An int8-weight bundle (the JAX package's PTQ) cannot decode in the
-    port yet: the loader's refusal surfaces when the engine is built."""
+    """An int8-weight bundle (the JAX package's PTQ) now loads: its lane
+    builds with the Dense weights int8 on the device.  A bundle of another
+    vocabulary is still refused when the engine is built."""
     from mmlspark_tpu.quant import quantize_bundle
     jax_bundle = JaxModelBundle("TransformerLM", CFG, bundle.variables)
     q = quantize_bundle(jax_bundle, "int8")
-    int8_bundle = ModelBundle("TransformerLM", CFG,
+    int8_bundle = ModelBundle("TransformerLM", q.config,
                               jax.tree_util.tree_map(np.asarray, q.variables))
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_engine(bundle, VirtualClock(), degraded_bundle=int8_bundle)
+    engine = make_engine(bundle, VirtualClock(), degraded_bundle=int8_bundle)
+    lane = engine._engines["degraded"].weights
+    assert all(layer.weight.dtype == torch.int8
+               for layer in lane.dense_layers())
     other = ModelBundle.init("TransformerLM", {**CFG, "vocab_size": 32})
     with pytest.raises(ValueError, match="vocabulary"):
         make_engine(bundle, VirtualClock(), degraded_bundle=other)
@@ -424,16 +427,15 @@ def test_degraded_bundle_the_loader_refuses_fails_at_construction(bundle):
 
 def test_unported_options_raise_naming_the_roadmap_step(bundle,
                                                         monkeypatch):
-    with pytest.raises(NotImplementedError, match="A8 item 3"):
-        ServeConfig(spec_tokens=2)
+    # speculation is ported: the config takes it, the engine wants a draft
+    assert ServeConfig(spec_tokens=2).spec_tokens == 2
     # the disaggregated roles are ported: they construct
     for role in ("prefill", "decode"):
         assert ServeConfig(role=role).role == role
     with pytest.raises(ValueError, match="role"):
         ServeConfig(role="router")
-    with pytest.raises(NotImplementedError, match="A8 item 3"):
-        ServingEngine(bundle, ServeConfig(), draft_bundle=bundle,
-                      device="cpu")
+    with pytest.raises(ValueError, match="draft_bundle"):
+        ServingEngine(bundle, ServeConfig(spec_tokens=2), device="cpu")
     from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     for axes, err in (({"seq": 2}, ValueError), ({"data": 2},
                                                   NotImplementedError)):
