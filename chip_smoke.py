@@ -5,10 +5,11 @@ its plain PyTorch version, drives the LM serving path
 weights, speculative decoding and beam search too), the online
 serving engine and a replicated fleet of them over HTTP, and the LM
 training path
-(`Trainer.fit_arrays`) at the full width of the repo's LM bench
-configuration, the seq-sharded long-context decode path at the width of
-its long-context configuration and the disaggregated prefill/decode
-tiers, and times kernels and paths.
+(`Trainer.fit_arrays`, with checkpoints, preemption, resume and the
+recovery supervisor too) at the full width of the repo's LM bench
+configuration, the seq-sharded long-context decode and seq-parallel
+training paths at the width of its long-context configuration and the
+disaggregated prefill/decode tiers, and times kernels and paths.
 
     python3 chip_smoke.py
 
@@ -102,7 +103,8 @@ Phases (any failure exits non-zero before the result line):
      prefill crash mid-transfer, both re-prefilled exact; the bench's
      disaggregated arm against a colocated fleet; the disagg drill's
      interference scenario at full width (victims' inter-token p99,
-     colocated over tiered, at least the drill's 1.2)
+     colocated over tiered, at least the drill's 1.2; 16 timed passes an
+     arm, the arms interleaved pass by pass, pooled)
  15. head dim 32: K1 and K1[lse] at (2, 1024, 8, 32), f32 and bf16,
      causal and not and at q/k offsets, and K4 and K4[stats] at (16,
      1088, 8, 32) over bf16, f32 and int8 caches, against their plain
@@ -150,6 +152,29 @@ Phases (any failure exits non-zero before the result line):
      (tokens equal the offline int8 engine's); (e) beam width 4 over a
      600-token prompt at f32: K1 once a layer, the best score within 1e-3
      of a full-forward recompute
+ 19. checkpointed training at the width of phase 7 (`Trainer.fit_arrays`,
+     8 x 2048, adam, async checkpoints every 2 steps in a temporary
+     directory): two fault-free fits (bitwise repeatable?), a chaos
+     SIGTERM at step 2 then resume=True, a resume past a torn newest
+     checkpoint; both resumed fits end at the fault-free step count with
+     the fault-free weights (bit-equal when the two fault-free fits are),
+     K1[lse], K2 and K3 each n_layers x the steps executed over every
+     attempt; `RecoverySupervisor` against a chaos NaN (halt_on_nonfinite)
+     and a chaos hang (the step watchdog): rollback, completion and the
+     reference's timeline; the checkpoint's bytes, a sync write's
+     seconds, the step with an async checkpoint every step against none,
+     a restore's seconds
+ 20. seq-parallel training at the long-context width (LC_CONFIG, bf16,
+     2 x 8192 tokens, data 1 x seq 2 on this card):
+     `make_seq_parallel_lm_step` with the differentiable ring flash, 4
+     steps of adam, the loss falls, K1[lse], K2 and K3 each n_layers x 3
+     block pairs a step (the causal fold rule), counted by their wrappers
+     as n_layers x 2 diagonal and n_layers x 1 below it, ms/step beside the
+     one-card flash step; f32 gradients at 2 x 2048 against the one-card
+     flash step; ulysses and the dense ring fold at a small width against
+     the dense step; K1[lse], K2 and K3 at the ring's block shape (2,
+     4096, 8, 64) on the diagonal block and the one below it, against
+     plain, timed beside their bounds and library calls
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -208,10 +233,19 @@ def counters() -> dict:
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+        if hasattr(fn, "block_launches"):
+            fn.block_launches = dict.fromkeys(fn.block_launches, 0)
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def read_block_counts() -> dict:
+    """The flash kernels' launches by block kind ("diagonal" where q and k
+    start at the same global position, "off-diagonal" elsewhere)."""
+    return {name: dict(fn.block_launches) for name, fn in counters().items()
+            if hasattr(fn, "block_launches")}
 
 
 class SmokeFailure(RuntimeError):
@@ -728,60 +762,68 @@ def grad_errs(got, ref) -> tuple:
 
 def time_backward(card, gen, d: int, dtype=torch.bfloat16,
                   args: Optional[tuple] = None,
-                  shape: Optional[tuple] = None) -> dict:
+                  shape: Optional[tuple] = None, offsets: tuple = (0, 0),
+                  lib_causal: bool = True) -> dict:
     """K2 and K3 at (B, S, H, d) causal, (B, S, H) = `shape` (default the
-    training shape (8, 2048, 8)), against the plain version and the
-    library's backward pair, all from CUDA graphs: per kernel its ms,
-    plain_ms, bound_ms, bound_by and library_ms (the pair).  The library
-    pair is PyTorch's flash backward on its own forward's saved outputs at
-    bf16, its memory-efficient backward (`aten._efficient_attention_
-    backward`, the port's (B, S, H, D) layout) at f32.  `args`: the inputs
-    of `backward_inputs` at that shape, made here when not given."""
+    training shape (8, 2048, 8)), q and k at global `offsets`, against the
+    plain version and the library's backward pair, all from CUDA graphs:
+    per kernel its ms, plain_ms, bound_ms, bound_by and library_ms (the
+    pair).  The library pair is PyTorch's flash backward on its own
+    forward's saved outputs at bf16, its memory-efficient backward
+    (`aten._efficient_attention_backward`, the port's (B, S, H, D) layout)
+    at f32, causal from the top left when `lib_causal` (the mask the
+    offsets leave: a diagonal block is causal, one wholly below it is
+    not).  `args`: the inputs of `backward_inputs` at that shape and those
+    offsets, made here when not given."""
     from mmlspark_tpu_torch.ops.flash_attention import (
         flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
     b, s, h = shape or (TRAIN_BATCH, TRAIN_SEQ, 8)
     scale = d ** -0.5
     bf16 = dtype == torch.bfloat16
     tag = "bf16" if bf16 else "f32"
+    if offsets != (0, 0):
+        tag += f" at offsets {offsets[0]}/{offsets[1]}"
     if args is None:
-        args = backward_inputs(gen, b, s, s, True, 0, 0, dtype, d, h)
-    dq_ms = graph_ms(lambda: flash_bwd_dq(*args, True, scale))
-    dkv_ms = graph_ms(lambda: flash_bwd_dkv(*args, True, scale))
-    plain_ms = graph_ms(lambda: flash_block_grads_plain(*args, True, scale),
-                        calls=3)
+        args = backward_inputs(gen, b, s, s, True, *offsets, dtype, d, h)
+    kw = {"q_offset": offsets[0], "k_offset": offsets[1]}
+    dq_ms = graph_ms(lambda: flash_bwd_dq(*args, True, scale, **kw))
+    dkv_ms = graph_ms(lambda: flash_bwd_dkv(*args, True, scale, **kw))
+    plain_ms = graph_ms(
+        lambda: flash_block_grads_plain(*args, True, scale, **kw), calls=3)
     lib = "aten flash backward" if bf16 else "aten efficient backward"
     if bf16:
         q, k, v, do = (t.transpose(1, 2) for t in args[:4])
         saved = torch.ops.aten._scaled_dot_product_flash_attention(
-            q, k, v, 0.0, True, scale=scale)
+            q, k, v, 0.0, lib_causal, scale=scale)
         out, lse, cum_q, cum_k, max_q, max_k, seed, offset = saved[:8]
 
         def lib_backward():
             return torch.ops.aten._scaled_dot_product_flash_attention_backward(
                 do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0,
-                True, seed, offset, scale=scale)
+                lib_causal, seed, offset, scale=scale)
     else:
         q, k, v, do = args[:4]
         # custom_mask_type 1: causal from the top-left
+        mask = 1 if lib_causal else 0
         out, lse, seed, offset = torch.ops.aten._efficient_attention_forward(
-            q, k, v, None, None, None, None, None, 0.0, 1, True,
+            q, k, v, None, None, None, None, None, 0.0, mask, True,
             scale=scale)[:4]
 
         def lib_backward():
             return torch.ops.aten._efficient_attention_backward(
                 do, q, k, v, None, out, None, None, s, s, lse, 0.0, seed,
-                offset, 1, False, scale=scale)
+                offset, mask, False, scale=scale)
     lib_ms = library_ms(lib_backward, f"{lib} at D={d} {tag}")
     lib_dq = lib_backward()[0]
     if bf16:
         lib_dq = lib_dq.transpose(1, 2)
-    ref_dq = flash_block_grads_plain(*args, True, scale)[0]
+    ref_dq = flash_block_grads_plain(*args, True, scale, **kw)[0]
     lib_err = grad_errs(lib_dq, ref_dq)[1]
     print(f"{lib} D={d} {tag} dq vs plain: ||d||/||ref|| {lib_err:.3e}")
     require(lib_err <= (1e-2 if bf16 else 1e-4),
             "the library backward is not the same function")
     del out, lse, lib_dq, ref_dq
-    tri = s * (s + 1) / 2
+    tri = visible_pairs(s, s, True, *offsets)
     item = args[0].element_size()
     io = 4.0 * b * s * h * d * item + 2.0 * b * s * h * 4  # q, k, v, dO; lse, delta
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
@@ -3029,9 +3071,11 @@ def bench_disagg(dev, card) -> dict:
 # victims decoding while 6 long prompts arrive (a 1000-token prompt is
 # bucket 1024: two 512-token chunks, K1 at chunk 0).  A victim's tokens
 # arrive a segment (4) at a time, so a timed pass gives 3 x 12 = 36 gaps,
-# whose p99 is their largest: the gate pools 8 passes an arm (~280 gaps)
+# whose p99 is their largest: the gate pools 16 passes an arm (~560
+# gaps), the arms' passes interleaved so that the host's drift over the
+# run falls on both alike
 INTERFERENCE = dict(victims=3, victim_len=20, victim_new=48, burst=6,
-                    burst_len=1000, burst_new=4, seg=4, passes=8,
+                    burst_len=1000, burst_new=4, seg=4, passes=16,
                     min_p99_ratio=1.2)
 
 
@@ -3041,12 +3085,14 @@ def bench_interference(dev, card) -> dict:
     decoding them (each replica's `_tick` timed; a gap is the engine
     time between two of a victim's token arrivals over the tokens that
     arrived), colocated (3 replicas) against tiered (2 prefill + 1
-    decode), the gaps of `passes` timed passes pooled after a warm one.
-    Gates: every request of every pass exact against the offline engine
-    in both arms, the decode tier saw no prefill and seated every request
-    remotely.  Returns the p99 ratio with `passed`: the ratio at the
-    drill's 1.2 or more (the drill test leaves this timing key to the
-    card; the caller holds the run to it)."""
+    decode).  Both fleets are built once and warmed by one pass each;
+    then `passes` timed passes an arm run interleaved (colocated, tiered,
+    colocated, ...), and each arm's gaps are pooled.  Gates: every
+    request of every pass exact against the offline engine in both arms,
+    the decode tier saw no prefill and seated every request remotely.
+    Returns the pooled p99 ratio with `passed` (the ratio at the drill's
+    1.2 or more; the caller holds the run to it) and every pass's own
+    ratio of p99s."""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.models.generate import (ServingWeights,
                                                     bucket_length)
@@ -3070,7 +3116,9 @@ def bench_interference(dev, card) -> dict:
                        prefill_chunk=512, default_deadline_s=600.0,
                        warmup_buckets=buckets)
 
-    def arm(tiered: bool) -> dict:
+    def fleet(tiered: bool) -> dict:
+        """A warmed fleet with each replica's `_tick` timed, and its pass
+        runner: `run_pass()` -> (requests, victims' gaps)."""
         tiers = (dict(replicas=3, prefill_replicas=2, decode_replicas=1)
                  if tiered else dict(replicas=3))
         router = build_fleet(bundle, cfg=RouterConfig(
@@ -3108,35 +3156,38 @@ def bench_interference(dev, card) -> dict:
                         seen[rr.id] = (cur, host, spent[host])
             return vs + bs, gaps
 
-        run_pass()
-        passes, gaps, extra_s = [], [], 0.0
-        for i in range(c["passes"]):
-            t0 = time.perf_counter()
-            reqs, pass_gaps = run_pass()
-            if i:
-                extra_s += time.perf_counter() - t0
-            passes.append(reqs)
-            gaps += pass_gaps
-        decode = [rep for rep in router.replicas if rep.role == "decode"]
-        out = {"passes": passes, "gaps": gaps, "extra_s": extra_s,
-               "p99_ms": float(np.percentile(np.asarray(gaps), 99)) * 1e3,
-               "p50_ms": float(np.percentile(np.asarray(gaps), 50)) * 1e3,
-               "decode_tier_prefills": sum(
-                   len(rep.engine.estimator.snapshot()["prefill_s"])
-                   for rep in decode),
-               "remote_joins": sum(rep.engine._counts.get("remote_joins", 0)
-                                   for rep in decode)}
-        router.stop()
-        return out
+        return {"router": router, "run_pass": run_pass, "passes": [],
+                "gaps": [], "pass_p99": []}
 
     t0 = time.perf_counter()
-    tiered, coloc = arm(True), arm(False)
+    arms = {"colocated": fleet(False), "tiered": fleet(True)}
+    for arm in arms.values():
+        arm["passes"].append(arm["run_pass"]()[0])   # the warm pass
+    for _ in range(c["passes"]):
+        for arm in arms.values():                     # colocated first
+            reqs, pass_gaps = arm["run_pass"]()
+            arm["passes"].append(reqs)
+            arm["gaps"] += pass_gaps
+            arm["pass_p99"].append(float(np.percentile(pass_gaps, 99)))
     seconds = time.perf_counter() - t0
+    tiered, coloc = arms["tiered"], arms["colocated"]
+    decode = [rep for rep in tiered["router"].replicas
+              if rep.role == "decode"]
+    decode_prefills = sum(len(rep.engine.estimator.snapshot()["prefill_s"])
+                          for rep in decode)
+    remote_joins = sum(rep.engine._counts.get("remote_joins", 0)
+                       for rep in decode)
+    for arm in arms.values():
+        arm["router"].stop()
+        arm["p99_ms"] = float(np.percentile(np.asarray(arm["gaps"]), 99)) \
+            * 1e3
+        arm["p50_ms"] = float(np.percentile(np.asarray(arm["gaps"]), 50)) \
+            * 1e3
     weights = ServingWeights(bundle.module(dev))
     ref_v = offline_tokens(weights, victims, c["victim_new"], 64, dev)
     ref_b = offline_tokens(weights, burst, c["burst_new"], 64, dev)
     ref = ref_v + ref_b
-    for label, res in (("tiered", tiered), ("colocated", coloc)):
+    for label, res in arms.items():
         for k, reqs in enumerate(res["passes"]):
             exact = sum(r.status == "ok" and r.tokens == ref[i]
                         for i, r in enumerate(reqs))
@@ -3144,33 +3195,32 @@ def bench_interference(dev, card) -> dict:
                     f"{exact}/{len(ref)} requests equal the offline tokens")
     n = c["victims"] + c["burst"]
     runs = 1 + c["passes"]
-    require(tiered["decode_tier_prefills"] == 0
-            and tiered["remote_joins"] >= runs * n,
-            f"interference: decode-tier prefills "
-            f"{tiered['decode_tier_prefills']}, remote joins "
-            f"{tiered['remote_joins']} ({runs} passes of {n})")
+    require(decode_prefills == 0 and remote_joins >= runs * n,
+            f"interference: decode-tier prefills {decode_prefills}, remote "
+            f"joins {remote_joins} ({runs} passes of {n})")
     ratio = coloc["p99_ms"] / tiered["p99_ms"]
-    extra_s = tiered["extra_s"] + coloc["extra_s"]
+    pass_ratios = [a / b for a, b in zip(coloc["pass_p99"],
+                                         tiered["pass_p99"])]
     out = {"tiered_p99_ms": tiered["p99_ms"], "coloc_p99_ms": coloc["p99_ms"],
            "tiered_p50_ms": tiered["p50_ms"], "coloc_p50_ms": coloc["p50_ms"],
            "p99_ratio": ratio, "min_p99_ratio": c["min_p99_ratio"],
            "passed": ratio >= c["min_p99_ratio"],
+           "pass_ratios": pass_ratios,
            "gaps": (len(tiered["gaps"]), len(coloc["gaps"])),
-           "passes": c["passes"], "seconds": seconds,
-           "extra_pass_s": extra_s}
+           "passes": c["passes"], "seconds": seconds}
     print(f"interference (disagg drill at full width, f32: "
           f"{c['victims']} victims of {c['victim_len']} tokens x "
           f"{c['victim_new']} new, a burst of {c['burst']} x "
-          f"{c['burst_len']} tokens; {c['passes']} timed passes an arm "
-          f"pooled, {len(tiered['gaps'])} tiered / {len(coloc['gaps'])} "
-          f"colocated gaps): victims' inter-token p99 "
+          f"{c['burst_len']} tokens; {c['passes']} timed passes an arm, "
+          f"interleaved, pooled: {len(tiered['gaps'])} tiered / "
+          f"{len(coloc['gaps'])} colocated gaps): victims' inter-token p99 "
           f"{coloc['p99_ms']:.3f} ms colocated vs {tiered['p99_ms']:.3f} ms "
-          f"tiered, ratio {ratio:.3f} (the drill's floor "
+          f"tiered, pooled ratio {ratio:.3f} (the drill's floor "
           f"{c['min_p99_ratio']}); p50 {coloc['p50_ms']:.3f} vs "
-          f"{tiered['p50_ms']:.3f} ms; decode tier prefills 0, "
-          f"{tiered['remote_joins']} remote joins; every token equal to the "
-          f"offline engine's; {seconds:.1f} s, of which {extra_s:.1f} s the "
-          f"passes past the first timed one [{card}]")
+          f"{tiered['p50_ms']:.3f} ms; each pass's ratio of p99s "
+          f"{[round(r, 3) for r in pass_ratios]}; decode tier prefills 0, "
+          f"{remote_joins} remote joins; every token equal to the offline "
+          f"engine's; {seconds:.1f} s of fleets and passes [{card}]")
     return out
 
 
@@ -4737,6 +4787,545 @@ def phase_lm_decoding(dev, card) -> dict:
     return out
 
 
+# chip_smoke phase 19: the phase-7 fit with checkpoints every 2 steps
+# (async), a chaos preemption and its resume, a resume past a torn newest
+# checkpoint, and the recovery supervisor against a NaN and a hung step
+CKPT = dict(every=2, preempt_at=2, nan_at=2, hang_at=3, hang_s=4.0,
+            step_timeout_s=2.0, reps=5)
+
+
+def ckpt_config(**kw):
+    """The phase-7 training config with async checkpoints every
+    CKPT["every"] steps and no numerics probe (unless `kw` says)."""
+    from mmlspark_tpu_torch import TrainerConfig
+    base = dict(architecture="TransformerLM",
+                model_config={**LM_CONFIG, "attn_impl": "flash"},
+                optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+                epochs=2, loss="softmax_xent", seed=0, numerics_cadence=0,
+                checkpoint_every_steps=CKPT["every"],
+                async_checkpointing=True)
+    base.update(kw)
+    return TrainerConfig(**base)
+
+
+def bundle_leaves(bundle) -> list:
+    """A bundle's parameter arrays in sorted-path order."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key])
+        else:
+            out.append(np.asarray(node))
+    walk(bundle.variables)
+    return out
+
+
+def max_leaf_diff(a, b) -> float:
+    return max(float(np.abs(x.astype(np.float64) - y).max())
+               for x, y in zip(bundle_leaves(a), bundle_leaves(b)))
+
+
+def phase_checkpointed_training(dev, card) -> dict:
+    """Phase 19: `Trainer.fit_arrays` at the phase-7 width with async
+    checkpoints, in a temporary directory removed at the end.  (a) two
+    fault-free fits, the first checkpointing (is the step bitwise
+    repeatable on the card?); (b) a
+    chaos SIGTERM at step CKPT["preempt_at"] -> Preempted, then
+    resume=True; (c) a resume after tearing the newest checkpoint of (a)
+    (falls back by checksum); gates on (b) and (c): the step count, the
+    final weights bit-equal to (a)'s when (a)'s two fits are (else within
+    their spread), K1[lse], K2 and K3 each n_layers x the steps
+    executed over every attempt.  (d) `RecoverySupervisor` with
+    halt_on_nonfinite against a chaos NaN, then with the watchdog against
+    a chaos hang: each rolls back, completes, and records the JAX
+    package's timeline.  Then the checkpoint's bytes, a sync write's
+    seconds, the step with an async checkpoint every step against none
+    (CUDA events, median of CKPT["reps"]) and a restore's seconds."""
+    import os
+    import shutil
+    import tempfile
+    from mmlspark_tpu_torch import ModelBundle, Trainer
+    from mmlspark_tpu_torch.resilience.chaos import (ChaosInjector, Fault,
+                                                     set_injector)
+    from mmlspark_tpu_torch.resilience.checkpoints import (
+        latest_valid_checkpoint, list_checkpoints, step_of)
+    from mmlspark_tpu_torch.resilience.preemption import Preempted
+    from mmlspark_tpu_torch.train import RecoveryPolicy, RecoverySupervisor
+    t_phase = time.perf_counter()
+    n_layers = LM_CONFIG["n_layers"]
+    rows = char_corpus(TRAIN_ROWS, TRAIN_SEQ, LM_CONFIG["vocab_size"])
+    x, y = rows[:, :-1], rows[:, 1:]
+    init = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
+    steps = TRAIN_ROWS // TRAIN_BATCH * 2
+    kernels = ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out: dict = {}
+
+    def run(fn, faults=()):
+        """fn() under a chaos script, counters from 0: (result or the
+        exception it raised, launches, seconds)."""
+        previous = set_injector(ChaosInjector(script=list(faults)))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            result = fn()
+        except Preempted as e:
+            result = e
+        finally:
+            torch.cuda.synchronize()
+            set_injector(previous)
+        return result, read_counts(), time.perf_counter() - t0
+
+    def fit(ckpt, cfg=None, **kw):
+        return lambda: Trainer(cfg or ckpt_config(), device=dev).fit_arrays(
+            x, y, initial_bundle=init, ckpt_dir=ckpt, **kw)
+
+    def require_launches(label, launched, executed):
+        got = {k: launched[k] for k in kernels}
+        print(f"  {label}: launches {got} = {n_layers} layers x "
+              f"{executed} executed steps")
+        require(all(v == n_layers * executed for v in got.values()),
+                f"{label}: launches {got}, want {n_layers * executed} each")
+
+    try:
+        # (a) two fault-free fits, the second without checkpoints (it
+        # only asks whether the step is bitwise repeatable)
+        fits = []
+        for i in (1, 2):
+            bundle, launched, secs = run(fit(
+                os.path.join(root, "a1") if i == 1 else None))
+            require(bundle.metadata["steps"] == steps, "(a) metadata steps")
+            require(all(np.isfinite(a).all() for a in bundle_leaves(bundle)),
+                    "(a) non-finite weights")
+            kept = [st for st, _ in list_checkpoints(os.path.join(root,
+                                                                  "a1"))]
+            print(f"fault-free fit (a) {i}: {steps} steps of "
+                  f"{TRAIN_BATCH}x{TRAIN_SEQ} in {secs:.3f} s"
+                  + (f"; checkpoints {kept}" if i == 1 else "")
+                  + f" [{card}]")
+            require_launches(f"(a) {i}", launched, steps)
+            fits.append(bundle)
+        spread = max_leaf_diff(fits[0], fits[1])
+        repeatable = spread == 0.0
+        print(f"  (a) two fault-free fits bitwise equal: {repeatable} "
+              f"(max |d| {spread:.3e})")
+        out["repeatable"], out["spread"] = repeatable, spread
+
+        def same_as_a(label, bundle):
+            diff = max_leaf_diff(bundle, fits[0])
+            print(f"  {label}: max |d| against (a) {diff:.3e} (gate: "
+                  f"{'0' if repeatable else f'<= {spread:.3e}'})")
+            require(bundle.metadata["steps"] == steps,
+                    f"{label}: {bundle.metadata['steps']} steps, want "
+                    f"{steps}")
+            require(diff == 0.0 if repeatable else diff <= spread,
+                    f"{label}: final weights differ from the fault-free "
+                    f"fit's by {diff:.3e}")
+            return diff
+
+        # (b) preempted at a step, then resumed
+        d_b = os.path.join(root, "b")
+        err, launched_1, secs_1 = run(
+            fit(d_b), [Fault("sigterm", step=CKPT["preempt_at"])])
+        require(isinstance(err, Preempted)
+                and err.step == CKPT["preempt_at"] + 1,
+                f"(b) a SIGTERM at step {CKPT['preempt_at']} gave {err!r}")
+        bundle, launched_2, secs_2 = run(fit(d_b, resume=True))
+        print(f"(b) preempted at step {err.step} after {secs_1:.3f} s, "
+              f"resumed in {secs_2:.3f} s [{card}]")
+        require_launches("(b) both attempts", {
+            k: launched_1[k] + launched_2[k] for k in kernels}, steps)
+        out["b_max_diff"] = same_as_a("(b) resumed", bundle)
+
+        # (c) the newest checkpoint of (a) torn: the resume falls back
+        d_c = os.path.join(root, "a1")
+        newest = list_checkpoints(d_c)[0][1]
+        ChaosInjector.tear_file(newest)
+        fallback = step_of(os.path.basename(latest_valid_checkpoint(d_c)))
+        require(fallback == steps - CKPT["every"],
+                f"(c) fell back to step {fallback}")
+        bundle, launched, secs = run(fit(d_c, resume=True))
+        print(f"(c) {os.path.basename(newest)} torn: restored step "
+              f"{fallback}, resumed in {secs:.3f} s [{card}]")
+        require_launches("(c) resumed", launched, steps - fallback)
+        out["c_max_diff"] = same_as_a("(c) resumed", bundle)
+
+        # (d) the supervisor against a NaN, then against a hung step
+        sups = {}
+        for label, cfg, fault, kind, restore, executed in (
+                ("nan", ckpt_config(numerics_cadence=1,
+                                    halt_on_nonfinite=True),
+                 Fault("nan", step=CKPT["nan_at"]), "nonfinite",
+                 CKPT["nan_at"], steps),
+                ("hang", ckpt_config(step_timeout_s=CKPT["step_timeout_s"]),
+                 Fault("hang", step=CKPT["hang_at"],
+                       seconds=CKPT["hang_s"]), "hung_step",
+                 CKPT["hang_at"], CKPT["hang_at"])):
+            sup = RecoverySupervisor(cfg, RecoveryPolicy(max_recoveries=2),
+                                     device=dev)
+            bundle, launched, secs = run(
+                lambda sup=sup, d=os.path.join(root, label): sup.fit_arrays(
+                    x, y, ckpt_dir=d, initial_bundle=init), [fault])
+            events = [e["event"] for e in sup.timeline]
+            print(f"(d) supervisor against a chaos {label} at step "
+                  f"{fault.step}: timeline {sup.timeline}; {secs:.3f} s "
+                  f"[{card}]")
+            require(events == ["failure", "recover", "completed"],
+                    f"(d) {label}: timeline {events}")
+            fail, recover = sup.timeline[0], sup.timeline[1]
+            require(fail["kind"] == kind and fail["step"] == fault.step
+                    and recover["restore_step"] == restore
+                    and recover["skip_window"] == [restore, fault.step],
+                    f"(d) {label}: failure {fail}, recover {recover}")
+            require(bundle.metadata["steps"] == steps and all(
+                np.isfinite(a).all() for a in bundle_leaves(bundle)),
+                f"(d) {label}: the recovered fit")
+            require_launches(f"(d) {label}, both attempts", launched,
+                             executed)
+            sups[label] = sup.timeline
+        out["timelines"] = sups
+
+        # (e) the checkpoint's cost at this width
+        timer = Trainer(ckpt_config(), device=dev)
+        state = timer.init_state(16, init)
+        timer._effective_batch_size = TRAIN_BATCH
+        step = timer.make_train_step()
+        xb = torch.from_numpy(x[:TRAIN_BATCH].astype(np.int64)).to(dev)
+        yb = torch.from_numpy(y[:TRAIN_BATCH].astype(np.int64)).to(dev)
+        mb = torch.ones(TRAIN_BATCH, device=dev)
+        d_e = os.path.join(root, "e")
+        none_ms = cuda_ms(lambda: step(state, xb, yb, mb), warmup=1,
+                          reps=CKPT["reps"])
+
+        def step_and_save():
+            step(state, xb, yb, mb)
+            timer.save_checkpoint(state, d_e, sync=False)
+        async_ms = cuda_ms(step_and_save, warmup=1, reps=CKPT["reps"])
+        timer._close_writers()
+        t0 = time.perf_counter()
+        path = timer.save_checkpoint(state, d_e, sync=True)
+        sync_s = time.perf_counter() - t0
+        timer._close_writers()
+        nbytes = os.path.getsize(path)
+        again = Trainer(ckpt_config(), device=dev)
+        fresh = again.init_state(16, init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = again.restore_checkpoint(fresh, d_e)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        require(restored.step == state.step
+                and all(torch.equal(a, b) for a, b in zip(restored.params,
+                                                          state.params)),
+                "(e) the restored state differs from the saved one")
+        print(f"checkpoint cost at the phase-7 width ({nbytes} bytes: f32 "
+              f"params and adam's two moments): sync write {sync_s:.3f} s; "
+              f"train step with an async checkpoint every step "
+              f"{async_ms:.3f} ms against {none_ms:.3f} ms with none "
+              f"(CUDA events, median of {CKPT['reps']}); restore "
+              f"{resume_s:.3f} s [{card}]")
+        out.update(checkpoint_bytes=nbytes, sync_write_s=sync_s,
+                   step_ms_async_every_step=async_ms,
+                   step_ms_no_checkpoint=none_ms, restore_s=resume_s)
+        del timer, again, state, restored, fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+# chip_smoke phase 20: LC_CONFIG trained seq-parallel (data 1 x seq 2 on
+# this card) with the differentiable ring flash; the f32 check at 2 x 2048
+# against the one-card flash step; ulysses and ring at a small width
+# against the dense step; K1[lse], K2, K3 timed at the ring's block shape
+RING = dict(batch=2, seq=8192, steps=4, reps=5, grad_seq=2048,
+            small={"vocab_size": 256, "d_model": 128, "n_heads": 8,
+                   "n_layers": 2, "max_len": 1024}, small_seq=1024,
+            block=(2, 4096, 8, 64))
+
+
+def seq_step(module, mesh):
+    """`make_seq_parallel_lm_step` with adam at 3e-4 over `module`:
+    (params, opt_state, step)."""
+    from mmlspark_tpu_torch import TrainerConfig
+    from mmlspark_tpu_torch.parallel.ring import make_seq_parallel_lm_step
+    from mmlspark_tpu_torch.train.optim import Optimizer
+    tx = Optimizer(TrainerConfig(optimizer="adam", learning_rate=3e-4), 1)
+    params = list(module.parameters())
+    return params, tx.init(params), make_seq_parallel_lm_step(module, tx,
+                                                              mesh)
+
+
+def seq_grads(dev, mesh, config: dict, variables, impls, seq: int) -> dict:
+    """f32 loss and gradients of one (2, seq) batch of the example corpus
+    through each impl (the seq impls inside `use_seq_mesh`), TF32 off:
+    {impl: (loss, {name: grad})}."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.parallel.ring import use_seq_mesh
+    from mmlspark_tpu_torch.train.trainer import make_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = char_corpus(2, seq, config["vocab_size"])
+    x = torch.from_numpy(rows[:, :-1].astype(np.int64)).to(dev)
+    y = torch.from_numpy(rows[:, 1:].astype(np.int64)).to(dev)
+    out = {}
+    for impl in impls:
+        sharded = impl in ("ring", "ring_flash", "ulysses")
+        module = ModelBundle("TransformerLM", {
+            **config, "dtype": "float32", "attn_impl": impl,
+            "seq_axis": "seq" if sharded else None}, variables).module(
+                dev).train()
+        with use_seq_mesh(mesh):
+            loss = make_loss("softmax_xent")(module(x), y,
+                                             torch.ones(2, device=dev))
+        loss.backward()
+        out[impl] = (loss.item(),
+                     {n: p.grad for n, p in module.named_parameters()})
+        del module, loss
+    return out
+
+
+def compare_grads(label: str, got: tuple, ref: tuple, tol: float) -> dict:
+    """Loss within 1e-5 relative (f32 rounding) and every gradient's
+    max|d| within `tol` of its reference's max|ref|."""
+    worst_name, worst = None, 0.0
+    for name, g in got[1].items():
+        r = ref[1][name]
+        rel = ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst_name, worst = name, rel
+    loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+    print(f"  {label}: loss {got[0]:.7f} vs {ref[0]:.7f} (rel {loss_rel:.3e},"
+          f" tol 1e-5); worst parameter {worst_name} max|d|/max|ref| "
+          f"{worst:.3e} (tol {tol})")
+    require(loss_rel <= 1e-5, f"{label}: the loss differs")
+    require(worst <= tol, f"{label}: the gradient of {worst_name} differs")
+    return {"loss_rel": loss_rel, "worst_param": worst_name,
+            "worst_rel_err": worst}
+
+
+def phase_seq_parallel_training(dev, card) -> tuple:
+    """Phase 20: `make_seq_parallel_lm_step` with `attn_impl="ring_flash"`
+    at LC_CONFIG's width, bf16, 2 x 8192 tokens over a data 1 x seq 2 mesh
+    on this card, RING["steps"] steps of adam: the loss falls, and
+    K1[lse], K2 and K3 each launch n_layers x 3 (the causal fold rule
+    over 2 shards: 2 diagonal block pairs + 1 below it) a step.  Its
+    ms/step beside the one-card flash step's on the same batch.  At f32
+    and 2 x 2048 one step's gradients against the one-card flash step's;
+    ulysses and ring at a small width against the dense step's.  A
+    profile of one step of each (device time by kernel group, idle
+    share).  Then the ring's block pairs' kernel rows.  Returns (kernel
+    rows, the path's numbers)."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from mmlspark_tpu_torch.parallel.ring import shard_tokens
+    t_phase = time.perf_counter()
+    n_layers, n = LC_CONFIG["n_layers"], 2
+    mesh = make_mesh(MeshSpec(data=1, seq=n), [dev] * n)
+    rows = char_corpus(RING["batch"], RING["seq"], LC_CONFIG["vocab_size"])
+    batch = [shard_tokens(a, mesh) for a in (
+        rows[:, :-1].astype(np.int64), rows[:, 1:].astype(np.int64),
+        np.ones((RING["batch"], RING["seq"]), np.float32))]
+    init = ModelBundle.init("TransformerLM", LC_CONFIG, seed=5)
+
+    def module(impl):
+        return ModelBundle("TransformerLM", {
+            **LC_CONFIG, "attn_impl": impl,
+            "seq_axis": "seq" if impl == "ring_flash" else None},
+            init.variables).module(dev).train()
+
+    params, opt, step = seq_step(module("ring_flash"), mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(RING["steps"]):
+        params, opt, loss = step(params, opt, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = read_counts()
+    blocks = read_block_counts()
+    losses = [float(v) for v in losses]
+    # per step and layer, n diagonal block pairs and n(n-1)/2 below it
+    want_blocks = {"diagonal": n_layers * n * RING["steps"],
+                   "off-diagonal": n_layers * n * (n - 1) // 2 * RING["steps"]}
+    want = sum(want_blocks.values())
+    print(f"seq-parallel training (ring_flash, data 1 x seq {n} on one "
+          f"card): {RING['steps']} steps of {RING['batch']}x{RING['seq']} "
+          f"tokens at LC_CONFIG's width, bf16, in {seconds:.3f} s; losses "
+          f"{[round(v, 4) for v in losses]}; launches {launched} (want "
+          f"{want} = {n_layers} layers x {n * (n + 1) // 2} block pairs x "
+          f"{RING['steps']} steps of K1[lse], K2, K3); by block kind "
+          f"{blocks} (want {want_blocks} each) [{card}]")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            "seq-parallel training: the loss did not fall")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == want, f"seq-parallel training: {name} "
+                f"launched {launched[name]} times, want {want}")
+        require(blocks[name] == want_blocks, f"seq-parallel training: "
+                f"{name} launched {blocks[name]} by block kind, want "
+                f"{want_blocks}")
+    require(launched["flash_attention"] == 0,
+            "seq-parallel training launched K1 without lse")
+    ring_ms = cuda_ms(lambda: step(params, opt, *batch), warmup=1,
+                      reps=RING["reps"])
+    print("  profile of one ring_flash step:")
+    ring_profile = device_breakdown(lambda: step(params, opt, *batch), card,
+                                    TRAIN_GROUPS)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    fparams, fopt, fstep = seq_step(module("flash"), mesh)
+    flash_ms = cuda_ms(lambda: fstep(fparams, fopt, *batch), warmup=1,
+                       reps=RING["reps"])
+    print("  profile of one one-card flash step:")
+    flash_profile = device_breakdown(lambda: fstep(fparams, fopt, *batch),
+                                     card, TRAIN_GROUPS)
+    del fparams, fopt, fstep, batch
+    torch.cuda.empty_cache()
+    n_tokens = RING["batch"] * RING["seq"]
+    print(f"timing seq-parallel step {RING['batch']}x{RING['seq']} bf16: "
+          f"ring_flash over seq {n} {ring_ms:.3f} ms/step "
+          f"({n_tokens / ring_ms * 1e3:.1f} tokens/s) against the one-card "
+          f"flash step {flash_ms:.3f} ms/step (CUDA events, median of "
+          f"{RING['reps']}) [{card}]")
+
+    grads = seq_grads(dev, mesh, LC_CONFIG, init.variables,
+                      ("ring_flash", "flash"), RING["grad_seq"])
+    print(f"f32 gradients at (2, {RING['grad_seq']}), LC_CONFIG's width:")
+    f32 = compare_grads("ring_flash over seq 2 vs the one-card flash step",
+                        grads["ring_flash"], grads["flash"], 1e-4)
+    del grads
+    small = {**RING["small"], "dtype": "float32"}
+    small_init = ModelBundle.init("TransformerLM", small, seed=6)
+    grads = seq_grads(dev, mesh, small, small_init.variables,
+                      ("ulysses", "ring", "dense"), RING["small_seq"])
+    print(f"f32 gradients at (2, {RING['small_seq']}), d_model "
+          f"{small['d_model']}, {small['n_layers']} layers:")
+    small_out = {impl: compare_grads(f"{impl} over seq 2 vs dense",
+                                     grads[impl], grads["dense"], 1e-4)
+                 for impl in ("ulysses", "ring")}
+    del grads
+    torch.cuda.empty_cache()
+    rows = ring_block_rows(dev, card, blocks)
+    out = {"losses": losses, "seconds": seconds, "launches": launched,
+           "block_launches": blocks,
+           "ring_flash_ms_per_step": ring_ms, "flash_ms_per_step": flash_ms,
+           "ring_flash_profile": ring_profile,
+           "flash_profile": flash_profile,
+           "f32_grads": f32, "small_width_grads": small_out}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['phase_seconds']:.1f} s [{card}]")
+    return rows, out
+
+
+def ring_block_rows(dev, card, blocks: dict) -> list:
+    """K1[lse], K2 and K3 at the ring's block shape RING["block"], bf16:
+    shard 1's queries (q offset S_l) against the diagonal block (k offset
+    S_l, causal) and the block below it (k offset 0, every key visible).
+    K1[lse] and, at the lse and delta of the whole 2 x S_l sequence as the
+    ring-flash backward gives them, K2 and K3 are checked against their
+    plain versions.  K1[lse] is timed here beside its bound and PyTorch's
+    flash forward with lse; K2 and K3 by `time_backward` at the block's
+    offsets.  `blocks`: each kernel's launches on the path by block kind,
+    as its wrapper counted them."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse, flash_attention_with_lse_plain,
+        flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
+    b, s, h, d = RING["block"]
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q_all, k_all, v_all, do_all = (
+        torch.randn((b, 2 * s, h, d), generator=gen, device=dev)
+        .to(torch.bfloat16) for _ in range(4))
+    q, do = q_all[:, s:].contiguous(), do_all[:, s:].contiguous()
+    out, lse = flash_attention_with_lse_plain(q, k_all, v_all, True, scale,
+                                              s, 0)
+    delta = (do.float() * out.float()).sum(-1)
+    del out, q_all, do_all
+    item = 2
+    rows = []
+    for pair, k_off in (("diagonal", s), ("off-diagonal", 0)):
+        k = k_all[:, k_off:k_off + s].contiguous()
+        v = v_all[:, k_off:k_off + s].contiguous()
+        causal_lib = pair == "diagonal"
+        vis = visible_pairs(s, s, True, s, k_off)
+        # K1[lse] against plain
+        got, got_lse = flash_attention_with_lse(q, k, v, True, scale, s,
+                                                k_off)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_with_lse_plain(q, k, v, True, scale,
+                                                      s, k_off)
+        err, norm_err = out_errs(got, ref)
+        lse_err = (got_lse - ref_lse).abs().max().item()
+        print(f"K1[lse] ring {pair} block (offsets {s}/{k_off}) "
+              f"{RING['block']}: max_abs_err {err:.3e} (tol 2e-2), "
+              f"||d||/||ref|| {norm_err:.3e} (tol 1e-2), lse {lse_err:.3e} "
+              f"(tol 1e-3)")
+        require(err <= 2e-2 and norm_err <= 1e-2 and lse_err <= 1e-3,
+                f"K1[lse] disagrees on the ring's {pair} block")
+        del got, got_lse, ref, ref_lse
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        k1_ms = graph_ms(lambda: flash_attention_with_lse(
+            q, k, v, True, scale, s, k_off))
+        k1_plain = graph_ms(lambda: flash_attention_with_lse_plain(
+            q, k, v, True, scale, s, k_off), calls=3)
+        k1_lib = library_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, causal_lib, scale=scale),
+            f"aten flash forward on the ring's {pair} block")
+        bound, by, term = attention_bound(
+            4.0 * b * h * d * vis, 4.0 * b * s * h * d * item + b * s * h * 4,
+            b * h * vis)
+        print(f"timing K1[lse] ring {pair} {RING['block']}: {k1_ms:.4f} ms;"
+              f" plain {k1_plain:.4f} ms; aten flash {k1_lib:.4f} ms; bound "
+              f"{bound:.4f} ms ({term}); {k1_ms / k1_lib:.2f}x the library, "
+              f"{bound / k1_ms:.3f} of the bound [{card}]")
+        name = "flash_attention[lse]"
+        rows.append({"name": f"{name[:-1]},d{d},ring {pair}]",
+                     "route": "cuda", "launches": blocks[name][pair],
+                     "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+                     "max_abs_err": err, "ms": k1_ms, "plain_ms": k1_plain,
+                     "bound_ms": bound, "bound_by": by, "bound_term": term,
+                     "library_ms": k1_lib})
+        # K2 and K3 against plain, at the global lse and delta
+        args = (q, k, v, do, lse, delta, True, scale, s, k_off)
+        got = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        ref = flash_block_grads_plain(*args)
+        errs = [grad_errs(a, r) for a, r in zip(got, ref)]
+        abs_errs = [(a.float() - r.float()).abs().max().item()
+                    for a, r in zip(got, ref)]
+        print(f"K2/K3 ring {pair} block at the whole sequence's lse and "
+              f"delta: max|d|/max|ref| dq {errs[0][0]:.3e} dk "
+              f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} (tol 2e-2); "
+              f"||d||/||ref|| dq {errs[0][1]:.3e} dk {errs[1][1]:.3e} dv "
+              f"{errs[2][1]:.3e} (tol 1e-2)")
+        require(all(m <= 2e-2 and nrm <= 1e-2 for m, nrm in errs),
+                f"K2/K3 disagree on the ring's {pair} block")
+        del got, ref, k, v, args, qt, kt, vt
+        timed = time_backward(card, gen, d, shape=(b, s, h),
+                              offsets=(s, k_off), lib_causal=causal_lib)
+        for name, err in (("flash_bwd_dq", abs_errs[0]),
+                          ("flash_bwd_dkv", max(abs_errs[1:]))):
+            rows.append({
+                "name": f"{name}[d{d},ring {pair}]", "route": "cuda",
+                "launches": blocks[name][pair],
+                "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
+                "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
+                             if name == "flash_bwd_dq" else
+                             "mmlspark_tpu/ops/flash_attention.py:330"),
+                "max_abs_err": err, **timed[name]})
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4806,6 +5395,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_decoding = phase_lm_decoding(dev, card)
     print(json.dumps({"lm_decoding": lm_decoding, "card": card}))
+    torch.cuda.empty_cache()
+    ckpt_training = phase_checkpointed_training(dev, card)
+    print(json.dumps({"checkpointed_training": ckpt_training,
+                      "card": card}))
+    torch.cuda.empty_cache()
+    ring_rows, seq_training = phase_seq_parallel_training(dev, card)
+    print(json.dumps({"seq_parallel_training": seq_training,
+                      "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]
@@ -4823,7 +5420,7 @@ def main() -> int:
     ring_lse[0]["launches"] = seq2["flash_attention[lse]"]
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
-               + ring_lse + d32 + small + wide)
+               + ring_lse + d32 + small + wide + ring_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
             "library_ms")

@@ -25,18 +25,26 @@ pool; and the rest of one-card LM decoding: int8-weight bundles
 (`quant.quantize_bundle`), speculative decoding with a truncated draft
 (`zoo.truncated_draft_bundle`; `TextGenerator(specTokens=...)`, the
 `ServingEngine`'s speculative lanes) and beam search
-(`TextGenerator(beamWidth=...)`).
+(`TextGenerator(beamWidth=...)`); fault-tolerant training (checkpoint
+rotation in the JAX package's format, async writes, resume, the
+preemption guard, the step watchdog, numerics halts and the
+`RecoverySupervisor`); and seq-parallel training over a data x seq
+`Mesh` (`parallel.ring.make_seq_parallel_lm_step` with the differentiable
+ring flash over the flash forward with lse and the dQ and dK/dV kernels,
+the dense ring, Ulysses).
 
 Layer map:
   core/    - params DSL, column metadata, DataTable, stage save/load,
              device selection, host bfloat16 arrays
   models/  - TransformerLM (torch.nn), bundles, the decode engine, beam
              search
-  train/   - TrainerConfig, the optax-algebra optimizers, the Trainer
+  train/   - TrainerConfig, the optax-algebra optimizers and their state
+             trees, the Trainer, the recovery supervisor
   parallel/ - MeshSpec, Mesh and make_mesh (single controller, devices may
-             repeat), the collectives and ring attention over a mesh
-             (ring.py), the partition-rule data
-  ops/     - attention in torch (dense, cache read, stats merge, ring) and
+             repeat), the collectives, attention over a mesh and the
+             seq-parallel LM step (ring.py), the partition-rule data
+  ops/     - attention in torch (dense, cache read, stats merge, ring,
+             differentiable ring flash, Ulysses) and
              the kernel wrappers (flash forward and backward, single-query
              decode read and its stats entry), the nvcc build/loader
   quant/   - weight PTQ of bundles (bf16, int8) and int8 KV-cache
@@ -46,9 +54,10 @@ Layer map:
              the prefix pool, replicas and the router, the HTTP front end
              and the lifecycle (threads, SIGTERM drain)
   observe/ - logger, counters, spans, traces, run telemetry, SLOs,
-             waterfalls, Prometheus text
+             waterfalls, Prometheus text, numerics probes
   resilience/ - the injectable clock, circuit breakers, the SIGTERM
-             guard, the seeded chaos injector
+             guard and step watchdog, the seeded chaos injector,
+             checkpoint rotation and the async writer
   config.py - the MMLSPARK_TPU_* knob registry (the JAX package's names)
   utils/   - analytic FLOP accounting
   csrc/    - the CUDA sources

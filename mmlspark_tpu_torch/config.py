@@ -115,3 +115,8 @@ TELEMETRY_DIR = register(
     doc="Default output directory for run_telemetry(): run.jsonl event "
         "stream + run_summary.json land here when the block passes no "
         "dir. Unset + no explicit dir: in-memory ring only, no files.")
+
+CKPT_KEEP = register(
+    "MMLSPARK_TPU_CKPT_KEEP", 3,
+    "checkpoint rotation: how many validated checkpoints to keep",
+    ptype=int)

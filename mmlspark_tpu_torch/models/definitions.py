@@ -24,6 +24,16 @@ the flax definition that the port keeps:
 logits, `naive_generate`'s recompute oracle, and the training forward.
 `remat=True` (policy "full") recomputes each block in the backward
 (`torch.utils.checkpoint`), which changes memory only.
+
+Sequence parallelism: with `attn_impl` ring | ring_flash | ulysses and
+`seq_axis` ("seq"), the attention of every block runs sequence-sharded
+over the mesh of the enclosing `parallel.ring.use_seq_mesh` block (batch
+over 'data', sequence over 'seq'; `seq_parallel_attention`), as the JAX
+model runs under `shard_map`.  The token-wise layers (embeddings, norms,
+Dense layers, the MLP, the head) run unsharded on the device of the
+tokens, the mesh's first device, as the port's seq decode engine runs
+them: positions are then the global ones by construction, and only the
+attention's K/V (and its gradients) move between shards.
 """
 
 from __future__ import annotations
@@ -39,6 +49,12 @@ from torch.utils.checkpoint import checkpoint
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.ops.attention import attention
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
+from mmlspark_tpu_torch.parallel.ring import (active_seq_mesh,
+                                              seq_parallel_attention,
+                                              use_seq_mesh)
+
+ATTN_IMPLS = ("dense", "flash", "ring", "ring_flash", "ulysses")
+SEQ_IMPLS = ("ring", "ring_flash", "ulysses")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LN_EPS = 1e-6
@@ -131,14 +147,15 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, mlp_ratio: int = 4,
                  dtype=torch.bfloat16, attn_impl: str = "dense",
-                 device=None):
+                 seq_axis: Optional[str] = None, device=None):
         super().__init__()
-        if attn_impl not in ("dense", "flash"):
-            raise NotImplementedError(
-                f"attn_impl '{attn_impl}' is not ported (dense | flash)")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl '{attn_impl}' "
+                             f"({' | '.join(ATTN_IMPLS)})")
         self.d_model, self.n_heads = d_model, n_heads
         self.dtype = dtype_of(dtype)
         self.attn_impl = attn_impl
+        self.seq_axis = seq_axis
         kw = dict(dtype=self.dtype, device=device)
         self.LayerNorm_0 = LayerNorm(d_model, device=device)
         self.qkv = Dense(d_model, 3 * d_model, **kw)
@@ -153,7 +170,9 @@ class TransformerBlock(nn.Module):
         qkv = self.qkv(h)
         shape = (b, s, self.n_heads, self.d_model // self.n_heads)
         q, k, v = (t.reshape(shape) for t in qkv.split(self.d_model, -1))
-        if self.attn_impl == "flash":
+        if self.attn_impl in SEQ_IMPLS:
+            o = self._seq_attention(q, k, v)
+        elif self.attn_impl == "flash":
             o = flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=True)
         else:
@@ -163,15 +182,38 @@ class TransformerBlock(nn.Module):
         h = F.gelu(self.mlp_up(h), approximate="tanh")
         return x + self.mlp_down(h)
 
+    def _seq_attention(self, q, k, v) -> torch.Tensor:
+        mesh = active_seq_mesh()
+        if mesh is None:
+            raise ValueError(
+                f"attn_impl '{self.attn_impl}' with seq_axis "
+                f"'{self.seq_axis}' runs over a mesh: call the model inside "
+                "parallel.ring.use_seq_mesh(mesh) (make_seq_parallel_lm_step "
+                "does)")
+        if self.seq_axis not in mesh.shape:
+            raise ValueError(f"seq_axis '{self.seq_axis}' is not an axis of "
+                             f"the mesh {mesh.shape}")
+        return seq_parallel_attention(mesh, q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=True,
+                                      impl=self.attn_impl)
+
+
+def _block_in_mesh(block: nn.Module, mesh, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` inside `mesh`'s `use_seq_mesh` block: a rematerialized
+    block recomputes in the backward, outside the caller's block."""
+    with use_seq_mesh(mesh):
+        return block(x)
+
 
 class TransformerLM(nn.Module):
-    """Decoder-only language model, dense and single-device.
+    """Decoder-only language model with a dense MLP.
 
     Takes the flax model's constructor fields, so a bundle config from
     either package builds it; the fields of features not ported yet
-    (sequence sharding, mixture-of-experts) must keep their defaults.
+    (mixture-of-experts) must keep their defaults.  `attn_impl` ring |
+    ring_flash | ulysses need `seq_axis` (module docstring).
     `remat=True` with `remat_policy="full"` recomputes each block in the
-    backward; "save_attention" is not ported."""
+    backward; "save_attention" is not ported (ROADMAP A5)."""
 
     def __init__(self, vocab_size: int = 256, d_model: int = 128,
                  n_heads: int = 8, n_layers: int = 2, max_len: int = 2048,
@@ -183,13 +225,21 @@ class TransformerLM(nn.Module):
                  remat_policy: str = "full", device="cuda"):
         super().__init__()
         if mlp_impl != "dense":
-            raise NotImplementedError(f"mlp_impl '{mlp_impl}' is not ported")
-        if seq_axis is not None or expert_axis is not None:
             raise NotImplementedError(
-                "sequence- and expert-sharded TransformerLM are not ported")
+                f"mlp_impl '{mlp_impl}' is not ported (ROADMAP A10)")
+        if expert_axis is not None:
+            raise NotImplementedError(
+                "the expert-sharded TransformerLM is not ported (ROADMAP "
+                "A10)")
+        if (attn_impl in SEQ_IMPLS) != (seq_axis is not None):
+            raise ValueError(
+                f"attn_impl '{attn_impl}' with seq_axis {seq_axis!r}: the "
+                f"sequence-sharded impls {SEQ_IMPLS} take a seq_axis, the "
+                "others none")
         if remat and remat_policy == "save_attention":
             raise NotImplementedError(
-                "remat_policy 'save_attention' is not ported (full)")
+                "remat_policy 'save_attention' is not ported (full; ROADMAP "
+                "A5)")
         if remat_policy not in ("full", "save_attention"):
             raise ValueError(f"unknown remat_policy '{remat_policy}' "
                              "(full | save_attention)")
@@ -211,7 +261,7 @@ class TransformerLM(nn.Module):
         for i in range(n_layers):
             self.add_module(f"block{i}_w", TransformerBlock(
                 d_model, n_heads, mlp_ratio, self.dtype, attn_impl,
-                device=device))
+                seq_axis, device=device))
         self.final_norm_w = LayerNorm(d_model, device=device)
         self.lm_head = Dense(d_model, vocab_size, self.dtype, device=device)
 
@@ -228,9 +278,11 @@ class TransformerLM(nn.Module):
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         x = (self.tok_embed.weight.to(self.dtype)[tokens]
              + self.pos_embed.weight.to(self.dtype)[pos][None])
+        mesh = active_seq_mesh()
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(_block_in_mesh, block, mesh, x,
+                               use_reentrant=False)
             else:
                 x = block(x)
         x = self.final_norm_w(x, self.dtype)

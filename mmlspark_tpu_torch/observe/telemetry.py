@@ -111,6 +111,9 @@ class RunTelemetry:
         # serve/engine.py): hit, insert, evict, evict_refused events in
         # order
         self._prefix: list[dict] = []
+        # the run's recovery timeline (train/supervisor.py): failures,
+        # rollbacks, skip windows and budget decisions in order
+        self._recovery: list[dict] = []
         # bounded-time cleanups run at finish() (e.g. stopping a metrics
         # server bound to this run) — never allowed to raise or hang the
         # run exit
@@ -254,6 +257,17 @@ class RunTelemetry:
                              "ts": round(self.tracer.now(), 6), **rec})
 
     # -- finalizers --------------------------------------------------------
+    def record_recovery(self, event: dict) -> None:
+        """Append one recovery-supervisor event to the run's timeline
+        (also streamed as a `recovery` record); the ordered list lands in
+        run_summary.json under `recovery`."""
+        if not self.live:
+            return
+        rec = dict(event)
+        self._recovery.append(rec)
+        self.tracer._record({"type": "recovery",
+                             "ts": round(self.tracer.now(), 6), **rec})
+
     def add_finalizer(self, fn) -> None:
         """Register a cleanup to run at `finish()` (LIFO).  Finalizers
         must themselves be bounded-time (observe/export.py's server stop
@@ -309,10 +323,10 @@ class RunTelemetry:
             "routing": [dict(e) for e in self._routing],
             "prefix": [dict(e) for e in self._prefix],
             "handoff": [dict(e) for e in self._handoff],
-            # the timelines of modules not ported yet (the recovery
-            # supervisor, data service, sweep): empty, so a summary keeps
-            # the JAX package's keys
-            **{key: [] for key in ("recovery", "data_service", "sweep")},
+            "recovery": [dict(e) for e in self._recovery],
+            # the timelines of modules not ported yet (data service,
+            # sweep): empty, so a summary keeps the JAX package's keys
+            **{key: [] for key in ("data_service", "sweep")},
             "trace_records_dropped": self.tracer.dropped,
         }
 

@@ -33,7 +33,10 @@ Entry points, each with its plain version beside it:
 For CPU tensors every wrapper runs the plain version; for CUDA tensors it
 launches its kernel or raises.  Launch counters: `flash_attention.launches`
 (K1 without lse), `flash_attention_with_lse.launches` (K1 with lse),
-`flash_bwd_dq.launches` (K2), `flash_bwd_dkv.launches` (K3).
+`flash_bwd_dq.launches` (K2), `flash_bwd_dkv.launches` (K3).  The last
+three also count by block kind in `block_launches`: "diagonal" where q and
+k start at the same global position (every one-card call, and a ring
+shard against its own K/V), "off-diagonal" elsewhere.
 """
 
 from __future__ import annotations
@@ -226,6 +229,13 @@ def _forward_kernel(q, k, v, causal, scale, with_lse, q_offset, k_offset):
     return out, lse
 
 
+def _count(fn, q_offset: int, k_offset: int) -> None:
+    """One launch of `fn`'s kernel, in its total and by block kind."""
+    fn.launches += 1
+    fn.block_launches["diagonal" if q_offset == k_offset
+                      else "off-diagonal"] += 1
+
+
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = False,
                              scale: Optional[float] = None,
@@ -239,7 +249,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                                               q_offset, k_offset)
     out, lse = _forward_kernel(q, k, v, causal, scale, True, q_offset,
                                k_offset)
-    flash_attention_with_lse.launches += 1
+    _count(flash_attention_with_lse, q_offset, k_offset)
     return out, lse
 
 
@@ -261,7 +271,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
             k.shape[1], d, float(scale), int(causal), int(q_offset),
             int(k_offset), _DTYPES[q.dtype], stream)
     native.check(code, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q_offset, k_offset)
     return dq
 
 
@@ -283,7 +293,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
             b, h, sq, k.shape[1], d, float(scale), int(causal),
             int(q_offset), int(k_offset), _DTYPES[q.dtype], stream)
     native.check(code, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q_offset, k_offset)
     return dk, dv
 
 
@@ -344,3 +354,6 @@ flash_attention.launches = 0
 flash_attention_with_lse.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+for _fn in (flash_attention_with_lse, flash_bwd_dq, flash_bwd_dkv):
+    _fn.block_launches = {"diagonal": 0, "off-diagonal": 0}
+del _fn

@@ -1,7 +1,7 @@
-"""Single-controller collectives and sequence-parallel attention: the
-port's counterparts of what `shard_map` gives the JAX code
-(`mmlspark_tpu/parallel/ring.py`, `mmlspark_tpu/ops/attention.py`
-:219-234).
+"""Single-controller collectives, sequence-parallel attention and the
+seq-parallel LM train step: the port's counterparts of what `shard_map`
+gives the JAX code (`mmlspark_tpu/parallel/ring.py`,
+`mmlspark_tpu/ops/attention.py` :219-434).
 
 A sharded tensor is a list of per-shard tensors, shard i on its own
 device.  The collectives are explicit tensor moves between those devices:
@@ -16,15 +16,50 @@ device.  The collectives are explicit tensor moves between those devices:
 On shards that share one device each move is a no-op, so a mesh of one
 card costs no copies.  `seq_parallel_attention` is the JAX entry point of
 the same name over a `Mesh`: batch over 'data', sequence over 'seq'.
+
+`make_seq_parallel_lm_step` is the JAX step of the same name: a
+`TransformerLM` with `attn_impl` ring | ring_flash | ulysses and
+`seq_axis="seq"` runs its attention sequence-sharded over the mesh set by
+`use_seq_mesh` (the counterpart of the axis name a `shard_map` region
+puts in scope), the token-wise layers unsharded on the mesh's first
+device (`models/definitions.py`).  The loss is the masked mean over both
+axes; the parameters and the optimizer state are one replicated copy.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import contextvars
+import copy
+from typing import Callable, Iterator, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from mmlspark_tpu_torch.parallel.mesh import MODEL_AXIS
+from mmlspark_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
+
+IMPLS = ("ring", "ring_flash", "ulysses", "dense")
+
+_seq_mesh: contextvars.ContextVar = contextvars.ContextVar(
+    "mmlspark_tpu_torch_seq_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_seq_mesh(mesh) -> Iterator:
+    """The mesh a seq-sharded `TransformerLM` runs its attention over
+    inside this block (what the JAX model reads from the `shard_map`
+    region's axis names)."""
+    token = _seq_mesh.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _seq_mesh.reset(token)
+
+
+def active_seq_mesh():
+    """The mesh of the innermost `use_seq_mesh` block, or None."""
+    return _seq_mesh.get()
 
 
 def shard(x: torch.Tensor, devices: Sequence, dim: int) -> list:
@@ -107,19 +142,20 @@ def seq_parallel_attention(mesh, q: torch.Tensor, k: torch.Tensor,
                            impl: str = "ring") -> torch.Tensor:
     """Attention over (B, S, H, D) tensors with B split over the mesh's
     'data' axis and S over its 'seq' axis (model 1).  Each data group runs
-    its own seq ring; the result is joined on q's device.
+    its own seq ring; the result is joined on q's device.  The cuts and
+    joins are differentiable, so gradients flow back to q, k and v.
 
     impl "ring": `ops/attention.ring_attention` (the flash forward with
-    lse per (shard, block), K/V rotating).  impl "dense": each shard
-    gathers the whole K/V and attends with its global query offset (the
-    correctness yardstick).  Forward only."""
-    from mmlspark_tpu_torch.ops.attention import attention, ring_attention
-    if impl in ("ulysses", "ring_flash"):
-        raise NotImplementedError(
-            f"seq-parallel impl '{impl}' is not ported: all-to-all Ulysses "
-            "and the differentiable ring flash come with seq-parallel "
-            "training, a later slice (ROADMAP A10)")
-    if impl not in ("ring", "dense"):
+    lse per (shard, block) without gradients; the dense online-softmax
+    fold under autograd).  "ring_flash": `ring_flash_attention` (the
+    flash forward with lse per block, the dQ and dK/dV kernels per block
+    in the backward).  "ulysses": `ulysses_attention` (heads all-to-all,
+    dense attention).  "dense": each shard gathers the whole K/V and
+    attends with its global query offset (the correctness yardstick)."""
+    from mmlspark_tpu_torch.ops.attention import (attention, ring_attention,
+                                                  ring_flash_attention,
+                                                  ulysses_attention)
+    if impl not in IMPLS:
         raise ValueError(f"unknown seq-parallel impl '{impl}'")
     if mesh.shape[MODEL_AXIS] != 1:
         raise ValueError("seq_parallel_attention runs over a model-1 mesh")
@@ -131,6 +167,10 @@ def seq_parallel_attention(mesh, q: torch.Tensor, k: torch.Tensor,
         qs, ks, vs = (shard(t, devs, 1) for t in (qg, kg, vg))
         if impl == "ring":
             outs = ring_attention(qs, ks, vs, causal=causal)
+        elif impl == "ring_flash":
+            outs = ring_flash_attention(qs, ks, vs, causal=causal)
+        elif impl == "ulysses":
+            outs = ulysses_attention(qs, ks, vs, causal=causal)
         else:
             kf, vf = unshard(ks, 1, devs[0]), unshard(vs, 1, devs[0])
             s_l = qs[0].shape[1]
@@ -139,3 +179,58 @@ def seq_parallel_attention(mesh, q: torch.Tensor, k: torch.Tensor,
                     for i, qi in enumerate(qs)]
         rows.append(unshard(outs, 1, q.device))
     return torch.cat(rows, dim=0)
+
+
+def shard_tokens(tokens, mesh, data_axis: str = DATA_AXIS,
+                 seq_axis: str = SEQ_AXIS) -> torch.Tensor:
+    """(B, S) token, target or mask arrays for the seq-parallel step: B
+    must split over `data_axis` and S over `seq_axis`.  The token-wise
+    layers run on the mesh's first device, so the array lands there
+    whole; the attention cuts it per shard."""
+    t = torch.as_tensor(np.asarray(tokens))
+    b, s = t.shape[:2]
+    if b % mesh.shape[data_axis] or s % mesh.shape[seq_axis]:
+        raise ValueError(
+            f"tokens {tuple(t.shape)} do not split over the mesh "
+            f"{mesh.shape} (batch over '{data_axis}', sequence over "
+            f"'{seq_axis}')")
+    return t.to(mesh.devices.flat[0])
+
+
+def make_seq_parallel_lm_step(module, tx, mesh, remat: bool = False
+                              ) -> Callable:
+    """The seq-parallel LM train step over `mesh` (batch over 'data',
+    sequence over 'seq'): `step(params, opt_state, tokens, targets, mask)
+    -> (params, opt_state, loss)`, as the JAX step returns them.
+
+    `module` is a `TransformerLM` with attn_impl ring | ring_flash |
+    ulysses and `seq_axis="seq"`; `params` is `list(module.parameters())`
+    (the replicated f32 masters, updated in place) and `tx` the port's
+    `Optimizer` with `opt_state = tx.init(params)`.  The loss is the
+    masked mean of the per-token cross-entropy over both axes.
+    `remat=True` steps a copy of `module` that shares its parameters and
+    recomputes each block in the backward (the reference's
+    `module.clone(remat=True)`); `module` itself is left as it is."""
+    # here, not at the top: the train package imports the models, whose
+    # attention imports this module
+    from mmlspark_tpu_torch.train.optim import backward_and_update
+    if remat and not module.remat:
+        module = copy.copy(module)
+        module.remat = True
+
+    def loss_of(tokens, targets, mask):
+        with use_seq_mesh(mesh):
+            logits = module(tokens)
+        ll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                             targets.reshape(-1).long(),
+                             reduction="none").reshape(targets.shape)
+        mask = mask.float()
+        return (ll * mask).sum() / torch.clamp(mask.sum(), min=1.0), None
+
+    def step(params, opt_state, tokens, targets, mask):
+        loss = backward_and_update(
+            tx, params, opt_state,
+            lambda: loss_of(tokens, targets, mask))[0]
+        return params, opt_state, loss.detach()
+
+    return step

@@ -1,4 +1,5 @@
-"""Resilience primitives the serving engine needs (the port of part of
-`mmlspark_tpu/resilience/`): the injectable clock, the per-endpoint
-circuit breaker, the SIGTERM preemption guard, and the seeded fault
-injector with its scenario DSL (`chaos`)."""
+"""Resilience primitives (the port of `mmlspark_tpu/resilience/`): the
+injectable clock, the per-endpoint circuit breaker, the SIGTERM
+preemption guard and the step watchdog, the seeded fault injector with
+its scenario DSL (`chaos`), and checkpoint rotation with its async
+writer (`checkpoints`, `ckpt_writer`)."""

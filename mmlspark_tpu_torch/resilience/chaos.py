@@ -51,11 +51,9 @@ from mmlspark_tpu_torch import config
 from mmlspark_tpu_torch.observe.logging import get_logger
 from mmlspark_tpu_torch.observe.metrics import inc_counter
 from mmlspark_tpu_torch.observe.trace import trace_event
+from mmlspark_tpu_torch.resilience.checkpoints import LATEST
 from mmlspark_tpu_torch.resilience.clock import get_clock
 
-# the checkpoint directory's pointer file, the one the JAX package's
-# resilience/checkpoints.py writes: the torn-'latest' fault truncates it
-LATEST = "LATEST"
 
 CHAOS_SEED = config.register(
     "MMLSPARK_TPU_CHAOS_SEED", 0,

@@ -1,2 +1,5 @@
 from mmlspark_tpu_torch.train.config import TrainerConfig
+from mmlspark_tpu_torch.train.supervisor import (RecoveryBudgetExceeded,
+                                                 RecoveryPolicy,
+                                                 RecoverySupervisor)
 from mmlspark_tpu_torch.train.trainer import Trainer, TrainState

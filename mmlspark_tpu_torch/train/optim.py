@@ -16,6 +16,14 @@ The learning rate is a constant or an optax schedule (`cosine_decay_schedule`,
 `warmup_cosine_decay_schedule`) evaluated in f32 at the pre-increment
 count.  `Optimizer.update` applies the updates in place to the f32 master
 parameters; its moments are f32.
+
+The state crosses to and from optax's own state tree (the `opt_state` of
+a JAX Trainer checkpoint, in flax's state-dict form: every chain a dict
+of "0", "1", ...) through `opt_state_to_jax` / `opt_state_from_jax`.
+The state keeps that tree's skeleton (`layout`, from `chain_layout`):
+`{}` for a stateless transformation (clip, decayed weights, a constant
+learning rate), `{"count"}` for a schedule, `{"count", "mu", "nu"}` for
+`scale_by_adam`, `{"trace"}` for momentum.
 """
 
 from __future__ import annotations
@@ -115,6 +123,24 @@ def scale_by_adam(updates: list, state: dict, count_inc: int,
             for m, v in zip(state["mu"], state["nu"])]
 
 
+def backward_and_update(tx: "Optimizer", params: Sequence[torch.Tensor],
+                        opt_state: dict, loss_and_aux: Callable[[], tuple],
+                        return_updates: bool = False) -> tuple:
+    """The core of a train step: clear `params`' grads, run
+    `loss_and_aux() -> (loss, aux)`, backpropagate the loss (zeros for a
+    parameter it does not reach), then `tx.update` in place.  Returns
+    (loss, aux, grads, the applied updates or None)."""
+    for p in params:
+        p.grad = None
+    loss, aux = loss_and_aux()
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    updates = tx.update(grads, opt_state, params,
+                        return_updates=return_updates)
+    return loss, aux, grads, updates
+
+
 class Optimizer:
     """The config's optax chain over a fixed list of f32 parameters."""
 
@@ -128,7 +154,9 @@ class Optimizer:
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         zeros = lambda: [torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
                          for p in params]
-        state: dict = {"count": 0}
+        state: dict = {"count": 0, "layout": chain_layout(
+            self.kind, bool(self.clip), bool(self.weight_decay),
+            callable(self.lr))}
         if self.kind in ("adam", "adamw"):
             state["mu"], state["nu"] = zeros(), zeros()
         elif self.kind == "momentum":
@@ -141,8 +169,11 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: dict,
-               params: Sequence[torch.Tensor]) -> None:
-        """One optax update, applied in place to `params`."""
+               params: Sequence[torch.Tensor],
+               return_updates: bool = False) -> Optional[list]:
+        """One optax update, applied in place to `params`; with
+        `return_updates` also returns the applied updates (the numerics
+        probe's update-to-weight ratios)."""
         params = list(params)
         u = [g.float() for g in grads]
         if self.clip:
@@ -157,6 +188,141 @@ class Optimizer:
         elif self.kind == "momentum":
             u = trace(u, state, self.momentum)
         step = self.step_size(count)
-        for p, x in zip(params, u):
-            p.add_(x * step)
+        applied = [x * step for x in u]
+        for p, x in zip(params, applied):
+            p.add_(x)
         state["count"] = count + 1
+        return applied if return_updates else None
+
+
+# ---------------------------------------------------------------------------
+# optax's state tree
+# ---------------------------------------------------------------------------
+
+_ADAM = {"count": "count", "mu": "mu", "nu": "nu"}
+
+
+def _chain(*parts) -> dict:
+    return {str(i): part for i, part in enumerate(parts)}
+
+
+def chain_layout(kind: str, clip: bool, decay: bool,
+                 scheduled: bool) -> dict:
+    """The skeleton of optax's state for `build_optimizer`'s chain
+    (`mmlspark_tpu/train/trainer.py:122-154`): each leaf names the state
+    entry it holds ("count", "mu", "nu", "trace")."""
+    lr = {"count": "count"} if scheduled else {}
+    if kind == "sgd":
+        tree = _chain({}, lr)
+    elif kind == "momentum":
+        tree = _chain({"trace": "trace"}, lr)
+    elif kind == "adam":
+        tree = _chain(dict(_ADAM), lr)
+    elif kind == "adamw":
+        tree = _chain(dict(_ADAM), {}, lr)
+    else:
+        raise ValueError(f"unknown optimizer {kind!r}")
+    if kind != "adamw" and decay:
+        tree = _chain({}, tree)
+    if clip:
+        tree = _chain({}, tree)
+    return tree
+
+
+def named_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
+               to: str = "numpy") -> dict:
+    """Named f32 tensors of a TransformerLM in the flax tree: a node with
+    `weight` and `bias` is a Dense (weight (out, in) -> `kernel`
+    (in, out)), `weight` alone an embedding, `scale`/`bias` a LayerNorm.
+    Leaves: `to="numpy"` host copies; `"device"` fresh contiguous copies
+    on the tensors' device (later in-place updates leave them alone);
+    `"view"` the tensors themselves (shapes only: a restore's
+    template)."""
+    nodes: dict = {}
+    for name, t in zip(names, tensors):
+        prefix, _, leaf = name.rpartition(".")
+        nodes.setdefault(prefix, {})[leaf] = t.detach()
+    leaf_of = {"numpy": lambda v: v.float().cpu().numpy().copy(),
+               "device": lambda v: v.float().clone(
+                   memory_format=torch.contiguous_format),
+               "view": lambda v: v}[to]
+    tree: dict = {}
+    for prefix, leaves in nodes.items():
+        if "scale" in leaves:
+            node = {"scale": leaves["scale"], "bias": leaves["bias"]}
+        elif "bias" in leaves:
+            node = {"kernel": leaves["weight"].t(), "bias": leaves["bias"]}
+        else:
+            node = {"embedding": leaves["weight"]}
+        parent = tree
+        *path, last = prefix.split(".")
+        for key in path:
+            parent = parent.setdefault(key, {})
+        parent[last] = {k: leaf_of(v) for k, v in node.items()}
+    return tree
+
+
+def _named_from_tree(tree: dict, names: Sequence[str]) -> list:
+    from mmlspark_tpu_torch.models.bundle import params_from_jax
+    named = params_from_jax(tree)
+    if set(named) != set(names):
+        raise ValueError(f"optimizer state tree names {sorted(named)} do "
+                         f"not match the parameters {sorted(names)}")
+    return [named[n] for n in names]
+
+
+def opt_state_to_jax(state: dict, names: Sequence[str],
+                     to: str = "numpy") -> dict:
+    """The port's optimizer state -> optax's state tree in flax's
+    state-dict form.  Each count is an int32 0-d array, each moment tree
+    mirrors the parameters' (`named_tree`, whose `to` picks numpy
+    leaves, device copies for an async checkpoint's snapshot, or
+    views)."""
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(v) for k, v in node.items()}
+        if node == "count":
+            return np.asarray(state["count"], np.int32)
+        return named_tree(names, state[node], to=to)
+    return fill(state["layout"])
+
+
+def opt_state_from_jax(tree: dict, names: Sequence[str],
+                       device=None) -> dict:
+    """optax's state tree of any `build_optimizer` chain (flax state-dict
+    form, numpy leaves) -> the port's optimizer state over the parameters
+    `names` (in the order of the port's parameter list), f32 tensors on
+    `device`.  A chain with no count (sgd or momentum at a constant rate)
+    gives count 0, which such a chain never reads."""
+    state: dict = {}
+    counts = []
+
+    def walk(node):
+        if not isinstance(node, dict):
+            raise ValueError(f"unexpected optimizer state leaf {node!r}")
+        keys = set(node)
+        if keys and all(k.isdigit() for k in keys):
+            return {k: walk(node[k]) for k in sorted(node, key=int)}
+        if keys == {"count", "mu", "nu"}:
+            counts.append(int(np.asarray(node["count"])))
+            for key in ("mu", "nu"):
+                state[key] = [t.to(device) for t in
+                              _named_from_tree(node[key], names)]
+            return dict(_ADAM)
+        if keys == {"trace"}:
+            state["trace"] = [t.to(device) for t in
+                              _named_from_tree(node["trace"], names)]
+            return {"trace": "trace"}
+        if keys == {"count"}:
+            counts.append(int(np.asarray(node["count"])))
+            return {"count": "count"}
+        if not keys:
+            return {}
+        raise ValueError(f"unknown optax state node with keys "
+                         f"{sorted(keys)}")
+
+    state["layout"] = walk(tree)
+    if len(set(counts)) > 1:
+        raise ValueError(f"optax state counts disagree: {counts}")
+    state["count"] = counts[0] if counts else 0
+    return state

@@ -1,32 +1,64 @@
 """The single-device Trainer: the port of `mmlspark_tpu/train/trainer.py`
 (`_make_loss` :157-179, `_epoch_order` :197-208, `Trainer` :211-312,
-:367-442, :445-927, :988-1021) for a `TransformerLM` on one card.
+:367-442, `fit_arrays` :445-927, `_numerics_check` :929-987,
+`_ckpt_meta` :1040-1060, `save_checkpoint` / `restore_checkpoint`
+:1062-1160) for a `TransformerLM` on one card.
 
 `fit_arrays` keeps the JAX loop's contract: the clamped batch size, the
 numpy data order (`np.random.default_rng(seed)`, or `[seed, rng_fold]`),
 a partial last batch padded by cycling rows of the epoch's order with a
-0/1 loss mask, one `history` row per epoch (loss, grad_norm, wall_s)
-fetched at the epoch's end, and a bundle whose metadata records `steps`
-and the partition layout exactly as the JAX Trainer writes them.
+0/1 loss mask, one `history` row per epoch that ran a step (loss,
+grad_norm, wall_s) fetched at the epoch's end, and a bundle whose
+metadata records `steps` and the partition layout exactly as the JAX
+Trainer writes them.
 
 A step is forward -> loss -> `backward()` -> global gradient norm (f32)
 -> the optax-algebra update of the f32 masters (`train/optim.py`).  With
 `attn_impl="flash"` the attention forward and backward are the CUDA
 kernels K1-K3 (`ops/flash_attention.py`).  Batches are staged serially:
-pinned host memory, then a non-blocking copy to the card.
+pinned host memory, then a non-blocking copy to the card
+(`prefetch_depth` is kept for the config round trip).
 
-Not ported (they raise NotImplementedError): pipeline stages, multi-device
-meshes, checkpoint/resume, recovery skip windows, the hung-step watchdog,
-halting on non-finite or diverging losses, and every architecture but
-`TransformerLM`.  `numerics_cadence` is accepted and runs no probe;
-`prefetch_depth` is kept for the config round trip.
+Fault tolerance, as in the JAX Trainer:
+
+  * checkpoints (`ckpt_dir` or `config.checkpoint_dir`) every
+    `checkpoint_every_steps` steps and at the end, in the JAX package's
+    rotation layout and payload format (`resilience/checkpoints.py`,
+    `resilience/ckpt_writer.py`: a checkpoint either package writes
+    restores in the other), async by default: the state is copied on the
+    card before the next step runs and written by a background thread;
+  * `resume=True` restores the newest valid checkpoint and replays the
+    same data order, skipping the completed steps; the `.meta.json`
+    sidecar's effective batch size is adopted (the one-card half of
+    elastic resume);
+  * SIGTERM (`PreemptionGuard`) -> an emergency checkpoint at the step
+    boundary, then `Preempted`;
+  * `skip_data_windows`: the step number advances, the data and the
+    update are skipped (the recovery supervisor's lever,
+    `train/supervisor.py`);
+  * `step_timeout_s`: the hung-step watchdog (armed from the third
+    executed step), a best-effort checkpoint of the last completed state
+    on `HungStepError` when the hung step never launched (one that did
+    may still be updating the state in place, so none is written and
+    recovery falls back to the last periodic checkpoint);
+  * the numerics probe every `numerics_cadence` steps
+    (`observe/numerics.py`), computed on the card and fetched at the
+    step boundary; `halt_on_nonfinite` / `halt_on_divergence` raise
+    before any checkpoint write;
+  * the chaos hooks of `resilience/chaos.py` (`on_step`, `maybe_hang`,
+    `poison_nan`, torn checkpoints).
+
+Still raising NotImplementedError: meshes and pipeline stages (ROADMAP
+A10; seq-parallel training is `parallel/ring.py`'s
+`make_seq_parallel_lm_step`) and every architecture but `TransformerLM`
+(ROADMAP A2/A5, the vision slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import time
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -37,9 +69,31 @@ from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.models.bundle import ModelBundle, params_from_jax
 from mmlspark_tpu_torch.models.definitions import (build_model,
                                                    init_transformer_lm_params)
+from mmlspark_tpu_torch.observe.logging import get_logger
+from mmlspark_tpu_torch.observe.metrics import inc_counter
+from mmlspark_tpu_torch.observe.numerics import (DivergenceError,
+                                                 LossSpikeDetector,
+                                                 NonFiniteError,
+                                                 fetch_health, tree_health)
+from mmlspark_tpu_torch.observe.spans import monotonic
+from mmlspark_tpu_torch.observe.telemetry import active_run
+from mmlspark_tpu_torch.observe.trace import (active_tracer, current_span_id,
+                                              trace_event, trace_span)
 from mmlspark_tpu_torch.parallel.partition import DEFAULT_RULES, rules_to_json
+from mmlspark_tpu_torch.resilience.chaos import get_injector
+from mmlspark_tpu_torch.resilience.checkpoints import (
+    checkpoint_meta, latest_valid_checkpoint)
+from mmlspark_tpu_torch.resilience.ckpt_writer import (CheckpointWriter,
+                                                       read_checkpoint)
+from mmlspark_tpu_torch.resilience.preemption import (HungStepError,
+                                                      Preempted,
+                                                      PreemptionGuard,
+                                                      StepWatchdog)
 from mmlspark_tpu_torch.train.config import TrainerConfig
-from mmlspark_tpu_torch.train.optim import Optimizer, global_norm
+from mmlspark_tpu_torch.train.optim import (Optimizer, backward_and_update,
+                                            global_norm, named_tree,
+                                            opt_state_from_jax,
+                                            opt_state_to_jax)
 
 _LOG = logging.getLogger("mmlspark_tpu_torch.train")
 
@@ -98,29 +152,34 @@ class Trainer:
         if config.architecture != "TransformerLM":
             raise NotImplementedError(
                 f"architecture {config.architecture!r} is not ported "
-                "(TransformerLM)")
+                "(TransformerLM; the others come with the vision slice, "
+                "ROADMAP A2/A5)")
         if config.pipeline_stages > 1:
-            raise NotImplementedError("pipeline stages are not ported")
+            raise NotImplementedError(
+                "pipeline stages are not ported (ROADMAP A10)")
         if mesh is not None:
-            raise NotImplementedError("meshes are not ported (one card)")
+            raise NotImplementedError(
+                "the Trainer over a mesh is not ported (one card; ROADMAP "
+                "A10): seq-parallel training is "
+                "parallel.ring.make_seq_parallel_lm_step")
         spec = config.mesh
         if max(spec.data, spec.model, spec.seq) > 1:
             raise NotImplementedError(
                 f"training over a mesh ({spec}) is not ported: the Trainer "
                 "runs on one card (ROADMAP A10)")
         spec.resolve(1)   # a malformed spec raises
-        if config.step_timeout_s > 0:
-            raise NotImplementedError("the hung-step watchdog is not ported")
-        if config.halt_on_nonfinite or config.halt_on_divergence:
-            raise NotImplementedError(
-                "halting on numerics (halt_on_nonfinite / "
-                "halt_on_divergence) is not ported")
         self.config = config
         self.device = resolve_device(device)
         self.module = build_model(config.architecture, config.model_config,
                                   device=self.device)
+        self._names = [n for n, _ in self.module.named_parameters()]
         self._loss = make_loss(config.loss)
         self.history: list[dict] = []
+        self.last_health: Optional[dict] = None
+        # background checkpoint writers, one per directory; closed at the
+        # end of each fit
+        self._writers: dict[str, CheckpointWriter] = {}
+        self._effective_batch_size: Optional[int] = None
 
     # -- state ----------------------------------------------------------
     def init_state(self, total_steps: int = 1,
@@ -145,22 +204,29 @@ class Trainer:
 
     # -- the step -------------------------------------------------------
     def make_train_step(self):
-        """`step(state, x, y, mask) -> (loss, {"grad_norm": ...})`, both
+        """`step(state, x, y, mask, probe=False) -> (loss, metrics)`, both
         device tensors; the state's parameters and optimizer state are
-        updated in place and its step advances."""
-        module, loss_fn, tx = self.module, self._loss, self._tx
+        updated in place and its step advances.  `metrics` holds
+        `grad_norm`, and on a probe step `health` (`tree_health` over the
+        new parameters, the gradients, the updates and the logits)."""
+        module, loss_fn, tx, names = (self.module, self._loss, self._tx,
+                                      self._names)
 
-        def train_step(state: TrainState, x, y, mask):
-            for p in state.params:
-                p.grad = None
-            loss = loss_fn(module(x), y, mask)
-            loss.backward()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in state.params]
-            grad_norm = global_norm(grads)
-            tx.update(grads, state.opt_state, state.params)
+        def train_step(state: TrainState, x, y, mask, probe: bool = False):
+            def loss_and_logits():
+                logits = module(x)
+                return loss_fn(logits, y, mask), logits
+
+            loss, logits, grads, updates = backward_and_update(
+                tx, state.params, state.opt_state, loss_and_logits,
+                return_updates=probe)
+            metrics = {"grad_norm": global_norm(grads)}
             state.step += 1
-            return loss.detach(), {"grad_norm": grad_norm}
+            if probe:
+                metrics["health"] = tree_health(
+                    dict(zip(names, state.params)), dict(zip(names, grads)),
+                    dict(zip(names, updates)), acts=logits.detach())
+            return loss.detach(), metrics
 
         return train_step
 
@@ -174,6 +240,14 @@ class Trainer:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _sync(self) -> None:
+        """Wait for the work queued so far on the card (a CUDA event's
+        synchronize: what the watchdog bounds)."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            event.synchronize()
+
     # -- the loop -------------------------------------------------------
     def fit_arrays(self, x: np.ndarray, y: np.ndarray,
                    initial_bundle: Optional[ModelBundle] = None,
@@ -184,57 +258,291 @@ class Trainer:
                    skip_data_windows: Optional[Sequence] = None
                    ) -> ModelBundle:
         """Train on arrays for `config.epochs` epochs; returns the trained
-        bundle.  `self.history` gains one row per epoch."""
+        bundle.  `self.history` gains one row per epoch that ran a step.
+
+        `ckpt_dir` (default `config.checkpoint_dir`) arms the SIGTERM
+        guard and the checkpoints; `resume=True` restarts from the newest
+        valid checkpoint there, replaying the same data order and skipping
+        completed steps, so a preempted-and-resumed run ends with the step
+        count and weights of an uninterrupted one.  `skip_data_windows`
+        ([(first, last)] inclusive step ranges) skips those steps' data
+        and updates while the step number advances."""
         cfg = self.config
         ckpt_dir = ckpt_dir if ckpt_dir is not None else cfg.checkpoint_dir
-        if ckpt_dir or resume:
-            raise NotImplementedError("checkpoint/resume is not ported")
-        if skip_data_windows:
-            raise NotImplementedError("recovery skip windows are not ported")
         n = n_local = len(x)
         bs = max(cfg.batch_size, 1)   # the JAX clamp with a data axis of 1
+        # the newest valid checkpoint, validated once for this fit
+        restore_from = latest_valid_checkpoint(ckpt_dir) \
+            if resume and ckpt_dir else None
+        if restore_from:
+            bs = self._adopt_saved_batch(restore_from, bs)
+        self._effective_batch_size = bs
         steps_per_epoch = max(1, (n + bs - 1) // bs)
         total_steps = steps_per_epoch * cfg.epochs
 
         state = self.init_state(total_steps, initial_bundle)
+        base_step = skip_until = int(state.step)
+        if restore_from:
+            with trace_span("checkpoint.restore", cat="checkpoint",
+                            ckpt_dir=ckpt_dir):
+                state = self._restore_path(state, restore_from)
+            skip_until = int(state.step)
+            trace_event("train.resume", cat="resilience", step=skip_until,
+                        ckpt_dir=ckpt_dir,
+                        skipped_steps=skip_until - base_step)
+            get_logger("train").info(
+                "resuming from checkpoint at step %d (skipping %d "
+                "completed steps)", skip_until, skip_until - base_step)
         step_fn = self.make_train_step()
         rng = np.random.default_rng(
             cfg.seed if not cfg.rng_fold else [cfg.seed, int(cfg.rng_fold)])
-        t0 = time.monotonic()
+        t0 = monotonic()
         emit = log_fn if log_fn is not None else _LOG.info
+        chaos = get_injector()
+        tracer = active_tracer()
+        run = active_run()
+        fit_span = tracer.span(
+            "train.fit", parent=current_span_id(), cat="phase",
+            architecture=cfg.architecture, total_steps=total_steps,
+            batch_size=bs, resume_from=skip_until - base_step or 0,
+        ) if tracer is not None else None
+        fit_id = fit_span.span_id if fit_span is not None else None
+        cadence = max(0, int(cfg.numerics_cadence))
+        detector = LossSpikeDetector() if cadence else None
+        self.last_health = None
+        windows = [(int(a), int(b)) for a, b in (skip_data_windows or [])]
+        watchdog = StepWatchdog(cfg.step_timeout_s) \
+            if cfg.step_timeout_s else None
 
-        def finish_epoch(epoch: int, losses: list, norms: list) -> None:
+        def plan():
+            step_c = base_step
+            for epoch in range(cfg.epochs):
+                order = epoch_order(rng, epoch, n, n_local,
+                                    cfg.shuffle_each_epoch)
+                for start in range(0, n, bs):
+                    if step_c >= skip_until:
+                        skipped = any(a <= step_c <= b for a, b in windows)
+                        yield epoch, step_c, None if skipped else order, \
+                            start
+                    step_c += 1
+
+        def stage(order, start):
+            idx = order[start:start + bs]
+            valid = len(idx)
+            if valid < bs:
+                # cycle rows of the order into the pad, masked out
+                idx = np.concatenate([idx, np.resize(order, bs - valid)])
+            mask = np.zeros(bs, np.float32)
+            mask[:valid] = 1.0
+            return (self._to_device(x[idx]), self._to_device(y[idx]),
+                    self._to_device(mask))
+
+        losses, norms = [], []
+        cur_epoch: Optional[int] = None
+
+        def finish_epoch():
             # one device->host fetch per epoch, never per step
+            if cur_epoch is None or not losses:
+                return
             fetched = torch.stack(losses + norms).cpu().numpy()
-            rec = {"epoch": epoch,
+            rec = {"epoch": cur_epoch,
                    "loss": float(np.sum(fetched[:len(losses)]))
                    / max(len(losses), 1),
-                   "wall_s": time.monotonic() - t0,
+                   "wall_s": monotonic() - t0,
                    "grad_norm": float(np.mean(fetched[len(losses):]))}
             self.history.append(rec)
-            if epoch % max(1, log_every) == 0 or epoch == cfg.epochs - 1:
-                emit(f"epoch {epoch}: loss={rec['loss']:.5f} "
+            if cur_epoch % max(1, log_every) == 0 \
+                    or cur_epoch == cfg.epochs - 1:
+                emit(f"epoch {cur_epoch}: loss={rec['loss']:.5f} "
                      f"({rec['wall_s']:.1f}s)")
 
-        for epoch in range(cfg.epochs):
-            order = epoch_order(rng, epoch, n, n_local,
-                                cfg.shuffle_each_epoch)
-            losses, norms = [], []
-            for start in range(0, n, bs):
-                idx = order[start:start + bs]
-                valid = len(idx)
-                if valid < bs:
-                    # cycle rows of the order into the pad, masked out
-                    idx = np.concatenate([idx, np.resize(order, bs - valid)])
-                mask = np.zeros(bs, np.float32)
-                mask[:valid] = 1.0
-                loss, metrics = step_fn(state, self._to_device(x[idx]),
-                                        self._to_device(y[idx]),
-                                        self._to_device(mask))
-                losses.append(loss)
-                norms.append(metrics["grad_norm"])
-            finish_epoch(epoch, losses, norms)
+        exec_count = 0
+        # orders a watched worker's launch against the watchdog giving up
+        # on it: a step is either abandoned before it launches or recorded
+        # here as launched
+        launch_gate, launched = threading.Lock(), [None]
+        with PreemptionGuard(install=bool(ckpt_dir)) as guard:
+            try:
+                for epoch, step_c, order, start in plan():
+                    if epoch != cur_epoch:
+                        finish_epoch()
+                        cur_epoch = epoch
+                        losses, norms = [], []
+                    if order is None:
+                        # a skip window: the step number advances, no
+                        # data is staged and no update runs
+                        state.step += 1
+                        inc_counter("train.skipped_steps")
+                        trace_event("train.step_skipped", cat="resilience",
+                                    step=step_c, epoch=epoch)
+                        continue
+                    xb, yb, mask_d = stage(order, start)
+                    chaos.on_step(step_c)  # may deliver a simulated SIGTERM
+                    if chaos.poison_nan(step_c):
+                        mask_d = mask_d * float("nan")
+                    probe_now = bool(cadence) and step_c % cadence == 0
+                    # the watchdog arms from the third executed step (the
+                    # first two pay kernel builds and allocator warm-up)
+                    dog = watchdog if exec_count >= 2 else None
+
+                    def exec_step(dog=dog, step=step_c,
+                                  args=(xb, yb, mask_d, probe_now)):
+                        chaos.maybe_hang(step)
+                        with launch_gate:
+                            if dog is not None and dog.abandoned.is_set():
+                                return None   # the watchdog gave up on it
+                            launched[0] = step
+                        out = step_fn(state, *args)
+                        if dog is not None:
+                            self._sync()
+                        return out
+
+                    if dog is None:
+                        run_step = exec_step
+                    else:
+                        def run_step(dog=dog, step=step_c):
+                            return dog.run(exec_step, step=step,
+                                           ckpt_dir=ckpt_dir)
+                    if tracer is None:
+                        loss, metrics = run_step()
+                    else:
+                        with tracer.span("train.step", parent=fit_id,
+                                         cat="step", step=step_c,
+                                         epoch=epoch) as sp:
+                            loss, metrics = run_step()
+                            sp.attrs["loss"] = float(loss)
+                            sp.attrs["grad_norm"] = float(
+                                metrics["grad_norm"])
+                    exec_count += 1
+                    health = metrics.pop("health", None)
+                    losses.append(loss)
+                    norms.append(metrics["grad_norm"])
+                    if probe_now and health is not None:
+                        # may raise BEFORE the step-boundary checkpoint, so
+                        # a poisoned state never rotates over the last
+                        # finite one
+                        self._numerics_check(step_c, loss, health,
+                                             detector, run, ckpt_dir)
+                    step = step_c + 1
+                    if ckpt_dir and cfg.checkpoint_every_steps and \
+                            step % cfg.checkpoint_every_steps == 0:
+                        self.save_checkpoint(
+                            state, ckpt_dir, step=step,
+                            sync=not cfg.async_checkpointing)
+                    if guard.triggered:
+                        # the emergency save is a barrier: durable before
+                        # the process exits in its grace window
+                        self.save_checkpoint(state, ckpt_dir, step=step,
+                                             sync=True)
+                        self._last_state = state
+                        trace_event("train.preempted", cat="resilience",
+                                    step=step, ckpt_dir=ckpt_dir)
+                        raise Preempted(step=step, ckpt_dir=ckpt_dir)
+                finish_epoch()
+            except HungStepError as e:
+                with launch_gate:
+                    started = launched[0] == e.step
+                if started:
+                    # the abandoned worker may still be updating the
+                    # params and moments in place: a copy now could mix
+                    # old and new leaves, so recovery takes the last
+                    # periodic checkpoint
+                    get_logger("train").warning(
+                        "hung step %d had launched; no emergency "
+                        "checkpoint", e.step)
+                    trace_event("train.hung_step_no_checkpoint",
+                                cat="resilience", step=e.step)
+                elif ckpt_dir:
+                    # the hung step never launched, so `state` is the
+                    # last completed boundary: checkpoint it, best effort
+                    try:
+                        path = self.save_checkpoint(state, ckpt_dir,
+                                                    sync=True)
+                        trace_event("train.hung_step_checkpoint",
+                                    cat="resilience", path=path)
+                    except Exception as err:
+                        get_logger("train").warning(
+                            "emergency checkpoint after hung step "
+                            "failed: %s", err)
+                raise
+            finally:
+                self._close_writers()
+                if fit_span is not None:
+                    fit_span.finish()
+        if ckpt_dir:
+            self.save_checkpoint(state, ckpt_dir, sync=True)
+            self._close_writers()
+        self._last_state = state
         return self.bundle_from_state(state)
+
+    def _adopt_saved_batch(self, path: str, bs: int) -> int:
+        """The one-card half of elastic resume: a checkpoint's `.meta.json`
+        names the effective batch size it was written under; adopt it so
+        the step numbering and data order replay identically."""
+        saved = checkpoint_meta(path) or {}
+        saved_bs = int(saved.get("effective_batch_size") or 0)
+        saved_dp = int(saved.get("data_devices") or 0)
+        saved_mp = int(saved.get("model_devices") or 0)
+        if (saved_dp and saved_dp != 1) or saved_mp > 1:
+            trace_event("train.elastic_resume", cat="resilience",
+                        saved_dp=saved_dp, dp=1, saved_mp=saved_mp or 1,
+                        mp=1, saved_batch=saved_bs or bs, batch=bs)
+            inc_counter("train.elastic_resumes")
+            get_logger("train").info(
+                "elastic resume: checkpoint written under dp=%d x mp=%d, "
+                "restoring onto one card", saved_dp, saved_mp or 1)
+        if saved_bs and saved_bs != bs:
+            get_logger("train").info(
+                "elastic resume: adopting the checkpoint's effective batch "
+                "size %d (config %d) so data order replays identically",
+                saved_bs, bs)
+            return saved_bs
+        return bs
+
+    def _numerics_check(self, step: int, loss, health: dict, detector,
+                        run, ckpt_dir: Optional[str]) -> None:
+        """One probe step's health pass: fetch the probe's scalars (one
+        copy), feed the loss-spike detector, emit the `numerics.*`
+        events, and with halt_on_nonfinite / halt_on_divergence raise
+        before any checkpoint write."""
+        fetched = fetch_health({**health, "loss": loss})
+        loss_val = fetched.pop("loss")
+        self.last_health = {"step": step, "loss": loss_val, **fetched}
+        nonfinite = (fetched.get("nonfinite_params", 0.0)
+                     + fetched.get("nonfinite_grads", 0.0)
+                     + fetched.get("nonfinite_acts", 0.0)
+                     + (0.0 if np.isfinite(loss_val) else 1.0))
+        verdict = detector.update(loss_val) if detector is not None \
+            else "ok"
+        if run is not None:
+            for key, value in fetched.items():
+                run.gauge(f"numerics.{key}", value, step=step)
+        trace_event("numerics.probe", cat="numerics", step=step,
+                    loss=loss_val, verdict=verdict,
+                    nonfinite_elements=nonfinite)
+        if nonfinite:
+            inc_counter("numerics.nonfinite_probes")
+            trace_event("numerics.nonfinite", cat="resilience", step=step,
+                        loss=loss_val, nonfinite_elements=nonfinite,
+                        halting=bool(self.config.halt_on_nonfinite))
+            get_logger("train").warning(
+                "numerics: non-finite training state at step %d "
+                "(%g element(s), loss=%g)", step, nonfinite, loss_val)
+            if self.config.halt_on_nonfinite:
+                raise NonFiniteError(
+                    step, f"{nonfinite:g} non-finite element(s), "
+                          f"loss={loss_val:g}", ckpt_dir)
+        elif verdict in ("spike", "divergence"):
+            inc_counter(f"numerics.loss_{verdict}")
+            trace_event(f"numerics.loss_{verdict}", cat="resilience",
+                        step=step, loss=loss_val,
+                        threshold=detector.threshold())
+            get_logger("train").warning(
+                "numerics: loss %s at step %d (loss=%g, threshold=%g)",
+                verdict, step, loss_val, detector.threshold())
+            if verdict == "divergence" and self.config.halt_on_divergence:
+                raise DivergenceError(step, loss_val,
+                                      detector.threshold(), ckpt_dir)
 
     def bundle_from_state(self, state: TrainState) -> ModelBundle:
         """The trained bundle; metadata records the step and the partition
@@ -247,3 +555,82 @@ class Trainer:
                           "mesh": {"data": 1, "model": 1}},
         }
         return ModelBundle.from_module(self.module, metadata)
+
+    # -- checkpoint / resume ----------------------------------------------
+    def state_tree(self, state: TrainState, to: str = "numpy") -> dict:
+        """The checkpoint tree of the JAX Trainer (`{"batch_stats": {},
+        "opt_state": optax's state, "params": the flax tree, "step"}`),
+        leaves as `named_tree`'s `to` says."""
+        return {"batch_stats": {},
+                "opt_state": opt_state_to_jax(state.opt_state, self._names,
+                                              to=to),
+                "params": named_tree(self._names, state.params, to=to),
+                "step": np.asarray(int(state.step), np.int32)}
+
+    def _writer_for(self, ckpt_dir: str) -> CheckpointWriter:
+        writer = self._writers.get(ckpt_dir)
+        if writer is None:
+            writer = self._writers[ckpt_dir] = CheckpointWriter(ckpt_dir)
+        return writer
+
+    def _close_writers(self) -> None:
+        """Drain and stop every checkpoint writer (best effort: a failed
+        write was surfaced at its submit/drain)."""
+        for writer in self._writers.values():
+            writer.close(best_effort=True)
+        self._writers.clear()
+
+    def _ckpt_meta(self, step: int) -> dict:
+        """The `.meta.json` sidecar: the topology and effective batch size
+        this checkpoint was written under, the JAX Trainer's keys."""
+        return {"step": int(step), "data_devices": 1, "model_devices": 1,
+                "process_count": 1,
+                "effective_batch_size": self._effective_batch_size,
+                "seed": int(self.config.seed),
+                "rng_fold": int(self.config.rng_fold), "format": 1}
+
+    def save_checkpoint(self, state: TrainState, ckpt_dir: str, *,
+                        step: Optional[int] = None,
+                        sync: bool = True) -> str:
+        """Write one rotation checkpoint.  The state is copied on its
+        device first (in JAX layout: Dense kernels transposed), so the
+        next step's in-place update cannot reach a pending write;
+        `sync=False` returns once the copy is queued and the background
+        writer has it (the copy to the host, serialization and the disk
+        happen on the writer thread), `sync=True` drains first."""
+        with trace_span("checkpoint.save", cat="checkpoint", sync=sync):
+            step = int(state.step) if step is None else int(step)
+            snapshot = self.state_tree(state, to="device")
+            return self._writer_for(ckpt_dir).submit(
+                step, snapshot, meta=self._ckpt_meta(step), sync=sync)
+
+    def restore_checkpoint(self, state: TrainState,
+                           ckpt_dir: str) -> TrainState:
+        """Restore from the newest VALID checkpoint in `ckpt_dir` (torn or
+        corrupt files skipped by checksum, the legacy single file
+        accepted) into the live parameters (in place) and a new optimizer
+        state.  A checkpoint of another optimizer chain, or of another
+        tree (a pipeline-stage checkpoint's stacked blocks), raises
+        ValueError."""
+        with trace_span("checkpoint.restore", cat="checkpoint",
+                        ckpt_dir=ckpt_dir):
+            path = latest_valid_checkpoint(ckpt_dir)
+            if path is None:
+                raise FileNotFoundError(f"no valid checkpoint in {ckpt_dir}")
+            return self._restore_path(state, path)
+
+    def _restore_path(self, state: TrainState, path: str) -> TrainState:
+        restored = read_checkpoint(self.state_tree(state, to="view"), path)
+        opt_state = opt_state_from_jax(restored["opt_state"], self._names,
+                                       device=self.device)
+        if opt_state["layout"] != state.opt_state["layout"]:
+            raise ValueError(
+                f"checkpoint {path} holds another optimizer chain's state "
+                f"than {self.config.optimizer!r} with this config's clip, "
+                "weight decay and schedule")
+        named = params_from_jax(restored["params"])
+        with torch.no_grad():
+            for name, p in zip(self._names, state.params):
+                p.copy_(named[name])
+        return TrainState(step=int(np.asarray(restored["step"])),
+                          params=state.params, opt_state=opt_state)

@@ -716,6 +716,75 @@ def test_flash_backward_kernels_match_plain(cuda, b, sq, sk, causal, q_off,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (64, torch.float32),
+                                     (16, torch.bfloat16)])
+def test_flash_backward_kernels_at_ring_offsets(cuda, d, dtype):
+    """K2 and K3 as the ring-flash backward launches them: one shard's
+    queries against one K/V block at the block pair's global offsets
+    (the diagonal pairs and the off-diagonal one of a 2-shard ring,
+    causal), against the lse and delta of the WHOLE sequence; each
+    against the plain version on the same inputs."""
+    b, s_l = 2, 384
+    gen = torch.Generator(device=cuda).manual_seed(d + s_l)
+    q, k, v, do = (torch.randn((b, 2 * s_l, 8, d), generator=gen,
+                               device=cuda).to(dtype) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = flash_attention_with_lse_plain(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1)
+
+    def part(t, i):
+        return t[:, i * s_l:(i + 1) * s_l].contiguous()
+
+    for i, src in ((0, 0), (1, 0), (1, 1)):
+        args = (part(q, i), part(k, src), part(v, src), part(do, i),
+                part(lse, i), part(delta, i), True, scale, i * s_l,
+                src * s_l)
+        before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+            before[0] + 1, before[1] + 1)
+        for got, ref in zip((dq, dk, dv), flash_block_grads_plain(*args)):
+            _assert_grad_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_flash_autograd_on_one_card(cuda, dtype):
+    """`seq_parallel_attention(impl="ring_flash")` over a data 1 x seq 2
+    mesh whose shards share the card: output and q/k/v gradients against
+    plain autograd of the dense attention, and exactly 3 launches each of
+    K1[lse], K2 and K3 (the causal fold rule: n(n+1)/2 block pairs), 2 of
+    them on diagonal blocks and 1 below."""
+    from mmlspark_tpu_torch.ops.attention import attention
+    from mmlspark_tpu_torch.parallel.ring import seq_parallel_attention
+    mesh = make_mesh(MeshSpec(data=1, seq=2), [cuda, cuda])
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    base = [torch.randn((2, 512, 8, 64), generator=gen, device=cuda)
+            .to(dtype) for _ in range(3)]
+    leaves = [t.clone().requires_grad_() for t in base]
+    kernels = (flash_attention_with_lse, flash_bwd_dq, flash_bwd_dkv)
+    before = [(fn.launches, dict(fn.block_launches)) for fn in kernels]
+    out = seq_parallel_attention(mesh, *leaves, causal=True,
+                                 impl="ring_flash")
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    for fn, (total, blocks) in zip(kernels, before):
+        assert fn.launches - total == 3
+        assert {kind: n - blocks[kind] for kind, n in
+                fn.block_launches.items()} == {"diagonal": 2,
+                                               "off-diagonal": 1}
+    refs = [t.float().clone().requires_grad_() for t in base]
+    ref = attention(*refs, causal=True)
+    (ref ** 2).sum().backward()
+    _assert_out_norm_close(out, ref, dtype)
+    for got, want in zip(leaves, refs):
+        _assert_grad_close(got.grad, want.grad, dtype)
+
+
+@pytest.mark.cuda
 def test_flash_backward_refuses_misaligned_tensors(cuda):
     """K2 and K3 read q, k, v and dout through TMA: a view that starts 2
     bytes into its storage raises ValueError, and no kernel launches."""

@@ -148,16 +148,27 @@ def test_seq_parallel_attention_matches_jax_ring(causal, data, seq):
 
 
 def test_ring_attention_refusals():
+    """Ulysses refuses heads that do not divide the seq axis (the JAX
+    ValueError); an unknown impl raises; every seq-parallel impl takes
+    gradients now (ring_flash and Ulysses since seq-parallel training,
+    the ring through its dense fold: tests/test_torch_seq_train.py holds
+    their values)."""
     mesh = _cpu_mesh(seq=2)
-    q = torch.zeros((1, 8, 2, 16))
-    for impl in ("ulysses", "ring_flash"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            seq_parallel_attention(mesh, q, q, q, impl=impl)
+    q = torch.zeros((1, 8, 3, 16))
+    with pytest.raises(ValueError, match="divisible"):
+        seq_parallel_attention(mesh, q, q, q, impl="ulysses")
     with pytest.raises(ValueError, match="unknown"):
         seq_parallel_attention(mesh, q, q, q, impl="nope")
-    slabs = shard(q.clone().requires_grad_(), [CPU, CPU], 1)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        ring_attention(slabs, slabs, slabs, causal=True)
+    leaf = torch.randn((1, 8, 2, 16), requires_grad=True)
+    slabs = shard(leaf, [CPU, CPU], 1)
+    torch.stack(ring_attention(slabs, slabs, slabs,
+                               causal=True)).sum().backward()
+    assert torch.isfinite(leaf.grad).all()
+    for impl in ("ring", "ring_flash"):
+        leaf = torch.randn((1, 8, 2, 16), requires_grad=True)
+        seq_parallel_attention(mesh, leaf, leaf, leaf, causal=True,
+                               impl=impl).sum().backward()
+        assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
 
 
 # --------------------------------------------- collectives, meshes ---
