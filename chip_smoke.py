@@ -9,7 +9,9 @@ training path
 recovery supervisor too) at the full width of the repo's LM bench
 configuration, the seq-sharded long-context decode and seq-parallel
 training paths at the width of its long-context configuration and the
-disaggregated prefill/decode tiers, and times kernels and paths.
+disaggregated prefill/decode tiers, and vision and tabular scoring
+(`TPUModel.transform` over the zoo ConvNet, ResNet-50 and the MLP zoo
+bundles), and times kernels and paths.
 
     python3 chip_smoke.py
 
@@ -175,6 +177,25 @@ Phases (any failure exits non-zero before the result line):
      the dense step; K1[lse], K2 and K3 at the ring's block shape (2,
      4096, 8, 64) on the diagonal block and the one below it, against
      plain, timed beside their bounds and library calls
+ 21. vision and tabular scoring (`TPUModel.transform`; convolutions,
+     BatchNorm and Dense layers on cuDNN and cuBLAS, no hand-written
+     kernel): (a) the zoo ConvNet (ConvNet_UCIDigits, bf16) over 32768
+     uint8 32 x 32 x 3 images at miniBatchSize 4096, bench.py
+     bench_convnet's configuration: the bf16 arm with prefetch off and on
+     and its host / transfer / compute / drain span seconds, an f32 arm
+     and an int8 arm with its resident weight bytes; (b) resnet50() at
+     full width over 1024 uint8 224 x 224 x 3 images at 256 (bench.py
+     bench_resnet50's): computeDtype bfloat16, float32 and the int8
+     bundle; (c) the TabularWDBC and TextSentiment MLP bundles over
+     seeded 30- and 4096-wide features.  Every arm: rows/s end to end and
+     in the device steady state (the stage's forward over batches on the
+     card), FLOPs per row and the share of the peak.  Gates: the f32 arm
+     (TF32 on globally; the stage turns it off) within 1e-4 of max
+     |logit| of the port's CPU f32 forward on the first 256 rows, argmax
+     equal where the top-2 gap exceeds 1e-3; bf16 and int8 arms within
+     1e-1 of max |logit| of the f32 arm, argmax equal on at least 99% of
+     the rows whose top-2 gap exceeds 2^-6 of max |logit|; shapes, no NaN
+     or Inf
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -5326,6 +5347,422 @@ def ring_block_rows(dev, card, blocks: dict) -> list:
     return rows
 
 
+# chip_smoke phase 21: vision and tabular scoring (TPUModel, no hand-written
+# kernel: cuDNN and cuBLAS).  (a) the zoo ConvNet at bench.py
+# bench_convnet's configuration, (b) ResNet-50 at bench_resnet50's, (c) the
+# two MLP zoo bundles.  Inputs are made here with numpy from seed 0.
+VISION = dict(convnet_images=32768, convnet_batch=4096, resnet_images=1024,
+              resnet_batch=256, check_rows=256, reps=3, steady_iters=4,
+              wdbc_rows=65536, text_rows=16384, mlp_batch=4096,
+              calibration_rows=32, resnet_branch_scale=0.1)
+# The gates of phase 21, per model family and arm, each limit a share of
+# max |logit|; PERF.md section 6 gives the readings each was set from:
+# every limit sits about 2x or more above the sound arms' largest reading
+# and below the planted fault's.
+# - min_distinct: the f32 arm's argmax takes at least this many classes
+#   over the scored rows, so a forward that ignores its input cannot pass
+#   the agreement gate;
+# - tol[arm] = (vs_f32, vs_cpu): the arm against the f32 arm on the card,
+#   every logit within vs_f32 and the argmax the same on at least
+#   AGREE_FLOOR of the rows whose f32 top-2 gap exceeds vs_f32, which must
+#   be at least 1% of the rows (closer rows flip under rounding: on the
+#   bench's noise images the zoo ConvNet's bf16 and int8 arms keep the f32
+#   class on 0.989 / 0.960 of all rows, and the JAX package's own arms
+#   fall below 99% too); and the arm on the card against the port's CPU
+#   forward at the arm's own precision on the first same_rows rows,
+#   within vs_cpu;
+# - faults[arm]: the params node of the arm's planted fault
+#   (`planted_fault`), which both limits must reject.
+AGREE_FLOOR = 0.99
+VISION_GATES = {
+    "convnet": dict(min_distinct=5, same_rows=256,
+                    tol={"bf16": (4e-2, 2e-2), "int8": (8e-2, 1.5e-2)},
+                    faults={"bf16": "conv2_w", "int8": "conv1_w"}),
+    "resnet50": dict(min_distinct=100, same_rows=32,
+                     tol={"bf16": (8e-2, 6e-2), "int8": (1.8e-1, 9e-2)},
+                     faults={"bf16": "ResNetBottleneckBlock_7/Conv_1",
+                             "int8": "stem_conv"}),
+    "mlp": dict(min_distinct=2, same_rows=256, tol={"bf16": (1.5e-2, 1e-2)},
+                faults={"bf16": "dense0"}),
+}
+
+
+def resident_bytes(module) -> int:
+    """Bytes of the module's parameters and buffers on the device."""
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))
+
+
+def flops_per_row(model, row: np.ndarray) -> float:
+    """2 x the multiply-adds of every conv and Dense layer of one row's
+    forward, from the layers' weight and output shapes (forward hooks)."""
+    from mmlspark_tpu_torch.models.definitions import (Conv, Dense, Int8Conv,
+                                                       Int8Dense)
+    module = model._scoring_module()
+    total = [0.0]
+
+    def hook(mod, _inp, out):
+        w = mod.weight
+        if w.dim() == 4:    # (out, in, kh, kw) over every output position
+            total[0] += 2.0 * out.numel() * w.shape[1] * w.shape[2] \
+                * w.shape[3]
+        else:
+            total[0] += 2.0 * out.numel() * w.shape[1]
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (Conv, Dense, Int8Conv, Int8Dense))]
+    try:
+        model._apply(module, torch.from_numpy(row[None]).to(model.device))
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def scoring_steady_state(model, rows: np.ndarray, batch: int,
+                         iters: int) -> float:
+    """Rows/s of the stage's own forward over batches already on the card
+    (bench.py's device_steady_state): host clock around synchronized
+    passes, after one warm pass."""
+    module = model._scoring_module()
+    batches = [torch.from_numpy(rows[i:i + batch]).to(model.device)
+               for i in range(0, len(rows) - batch + 1, batch)]
+    for b in batches:
+        model._apply(module, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        for b in batches:
+            model._apply(module, b)
+    torch.cuda.synchronize()
+    return iters * len(batches) * batch / (time.perf_counter() - t0)
+
+
+def timed_scoring(model, table, reps: int) -> tuple:
+    """(scores, sorted rows/s of `reps` end-to-end transforms); one warm
+    transform of a batch first."""
+    from mmlspark_tpu_torch import DataTable
+    n = table.num_rows
+    model.transform(DataTable({model.inputCol: table[model.inputCol][
+        :model.miniBatchSize]}))
+    rates, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.transform(table)[model.outputCol]
+        rates.append(n / (time.perf_counter() - t0))
+    return out, sorted(rates)
+
+
+def check_scores(what: str, got: np.ndarray, shape: tuple) -> None:
+    require(got.shape == shape and got.dtype == np.float32,
+            f"{what}: scores {got.shape} {got.dtype}, expected {shape} "
+            "float32")
+    require(bool(np.isfinite(got).all()), f"{what}: non-finite scores")
+
+
+def check_card_f32(what: str, card: np.ndarray, cpu: np.ndarray) -> dict:
+    """The card's f32 forward against the port's CPU f32 forward of the
+    same weights: within 1e-4 of max |logit|, the same argmax wherever the
+    top-2 gap exceeds 1e-3."""
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max())
+    top2 = np.sort(cpu, axis=1)
+    clear = top2[:, -1] - top2[:, -2] > 1e-3
+    same = bool((card.argmax(1)[clear] == cpu.argmax(1)[clear]).all())
+    require(err <= 1e-4 * scale and same,
+            f"{what}: card f32 vs CPU f32 max |d| {err:.3e} (limit "
+            f"{1e-4 * scale:.3e}), argmax equal on the clear rows: {same}")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "clear_rows": int(clear.sum())}
+
+
+def arm_readings(arm: np.ndarray, f32: np.ndarray, clear_gap: float
+                 ) -> dict:
+    """A bf16 or int8 arm's scores against the f32 arm's; argmax
+    agreement over the rows whose f32 top-2 gap exceeds `clear_gap` x max
+    |logit|."""
+    scale = float(np.abs(f32).max())
+    same = arm.argmax(1) == f32.argmax(1)
+    top2 = np.sort(f32, axis=1)
+    clear = top2[:, -1] - top2[:, -2] > clear_gap * scale
+    return {"argmax_agreement": float(same[clear].mean()) if clear.any()
+            else 1.0,
+            "clear_rows": int(clear.sum()), "rows": len(same),
+            "argmax_agreement_all_rows": float(same.mean()),
+            "max_logit_gap": float(np.abs(arm - f32).max()),
+            "max_abs_logit": scale}
+
+
+def same_readings(card: np.ndarray, cpu: np.ndarray) -> dict:
+    """An arm on the card against the port's CPU forward at the same
+    precision."""
+    return {"max_abs_err": float(np.abs(card - cpu).max()),
+            "max_abs_logit": float(np.abs(cpu).max())}
+
+
+def arm_passes(vs_f32: dict, same: dict, tol: tuple) -> tuple:
+    """(vs the f32 arm, vs the CPU at the same precision) within `tol`;
+    the agreement counts only over at least 1% of the rows."""
+    return (vs_f32["argmax_agreement"] >= AGREE_FLOOR
+            and vs_f32["clear_rows"] >= vs_f32["rows"] / 100
+            and vs_f32["max_logit_gap"] <= tol[0] * vs_f32["max_abs_logit"],
+            same["max_abs_err"] <= tol[1] * same["max_abs_logit"])
+
+
+def describe_arm(vs_f32: dict, same: dict, tol: tuple) -> str:
+    return (f"argmax agreement {vs_f32['argmax_agreement']:.4f} of "
+            f"{vs_f32['clear_rows']} rows of top-2 gap over {tol[0]:.1e} "
+            f"(floor {AGREE_FLOOR}; "
+            f"{vs_f32['argmax_agreement_all_rows']:.4f} of all), max logit "
+            f"gap {vs_f32['max_logit_gap'] / vs_f32['max_abs_logit']:.3e} "
+            f"of max |logit| (limit {tol[0]:.1e}); card vs CPU at its "
+            f"precision {same['max_abs_err'] / same['max_abs_logit']:.3e} "
+            f"of max |logit| (limit {tol[1]:.1e})")
+
+
+def planted_fault(bundle, arm: str, node: str):
+    """A copy of `bundle` with one known fault at the params node `node`
+    ("/"-separated): for an int8 bundle the per-channel scale rolled by
+    one channel; else a conv kernel with its two spatial axes swapped (a
+    HWIO -> OIHW transpose that swaps kh and kw), or a Dense node's bias
+    dropped."""
+    from mmlspark_tpu_torch.models import ModelBundle
+
+    def walk(tree, path):
+        tree = dict(tree)
+        if len(path) > 1:
+            tree[path[0]] = walk(tree[path[0]], path[1:])
+            return tree
+        leaf = dict(tree[path[0]])
+        if arm == "int8":
+            leaf["kernel_scale"] = np.roll(np.asarray(leaf["kernel_scale"]),
+                                           1)
+        elif np.ndim(leaf["kernel"]) == 4:
+            leaf["kernel"] = np.ascontiguousarray(
+                np.asarray(leaf["kernel"]).transpose(1, 0, 2, 3))
+        else:
+            leaf["bias"] = np.zeros_like(np.asarray(leaf["bias"]))
+        tree[path[0]] = leaf
+        return tree
+
+    variables = dict(bundle.variables)
+    variables["params"] = walk(variables["params"], node.split("/"))
+    return ModelBundle(bundle.architecture, bundle.config, variables,
+                       bundle.metadata)
+
+
+def cpu_scores(model, rows: np.ndarray) -> np.ndarray:
+    """The port's CPU forward of `model`'s weights and params over `rows`
+    in one batch."""
+    from mmlspark_tpu_torch import DataTable, TPUModel
+    params = {**model.param_values(), "miniBatchSize": len(rows),
+              "inputCol": "x", "outputCol": "y"}
+    return TPUModel(model.bundle, device="cpu", **params).transform(
+        DataTable({"x": rows}))["y"]
+
+
+def vision_arms(dev, card, name: str, family: str, arms: dict,
+                rows: np.ndarray, batch: int, n_out: int, peak_of: dict,
+                off_and_on: bool, iters: int) -> dict:
+    """Each arm (name -> TPUModel) end to end (prefetch on; off too when
+    `off_and_on`) and in the device steady state, its FLOPs per row and
+    share of its peak, its resident weight bytes; then the gates of
+    VISION_GATES[family]: the f32 arm against the CPU on the first rows and
+    its count of distinct classes, each other arm against the f32 arm and
+    against the CPU at its own precision, and each arm's planted fault
+    rejected by both."""
+    from mmlspark_tpu_torch import DataTable, TPUModel
+    from mmlspark_tpu_torch.observe.spans import pipeline_timing
+    gates = VISION_GATES[family]
+    table = DataTable({"x": rows})
+    out, scores = {}, {}
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    # TF32 on, as torch's cuDNN default: the f32 arm must turn it off
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        for arm, model in arms.items():
+            with pipeline_timing() as spans:
+                scores[arm], on = timed_scoring(model, table, VISION["reps"])
+            entry = {"e2e_rows_per_s": on, "spans": spans.summary()}
+            if off_and_on:
+                _, entry["e2e_rows_per_s_prefetch_off"] = timed_scoring(
+                    model.copy(prefetchDepth=-1), table, VISION["reps"])
+            entry["steady_rows_per_s"] = scoring_steady_state(
+                model, rows, batch, iters)
+            fpr = flops_per_row(model, rows[0])
+            peak = peak_of[arm]
+            entry.update(
+                flops_per_row=fpr, peak_flops=peak,
+                steady_share_of_peak=entry["steady_rows_per_s"] * fpr / peak,
+                resident_weight_bytes=resident_bytes(
+                    model._scoring_module()))
+            check_scores(f"phase 21 {name} {arm}", scores[arm],
+                         (len(rows), n_out))
+            out[arm] = entry
+            print(f"phase 21 {name} {arm}: e2e {max(on):.1f} rows/s "
+                  f"(prefetch on, best of {len(on)}"
+                  + (f"; off {max(entry['e2e_rows_per_s_prefetch_off']):.1f}"
+                     if off_and_on else "")
+                  + f"), steady {entry['steady_rows_per_s']:.1f} rows/s, "
+                  f"{fpr / 1e6:.2f} MFLOP/row, "
+                  f"{entry['steady_share_of_peak']:.4f} of {peak / 1e12:.0f} "
+                  f"TFLOP/s, weights {entry['resident_weight_bytes']} B, "
+                  f"spans host/transfer/compute/drain "
+                  + "/".join(f"{spans.seconds.get(k, 0.0):.3f}"
+                             for k in ("host", "transfer", "compute",
+                                       "drain"))
+                  + f" s [{card}]")
+        faulty = {arm: TPUModel(planted_fault(arms[arm].bundle, arm, node),
+                                device=dev, **arms[arm].param_values())
+                  for arm, node in gates["faults"].items()}
+        fault_scores = {arm: m.transform(table)[m.outputCol]
+                        for arm, m in faulty.items()}
+        require(cudnn.allow_tf32 and matmul.allow_tf32,
+                f"phase 21 {name}: the stage did not restore the TF32 flags")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    f32 = scores["f32"]
+    first = rows[:VISION["check_rows"]]
+    out["f32"]["card_vs_cpu"] = check_card_f32(
+        f"phase 21 {name}", f32[:len(first)],
+        cpu_scores(arms["f32"], first))
+    distinct = int(len(np.unique(f32.argmax(1))))
+    out["f32"]["distinct_argmax"] = distinct
+    require(distinct >= gates["min_distinct"],
+            f"phase 21 {name}: the f32 argmax takes {distinct} classes over "
+            f"{len(rows)} rows (floor {gates['min_distinct']})")
+    lines = []
+    for arm, tol in gates["tol"].items():
+        model, n = arms[arm], gates["same_rows"]
+        cpu = cpu_scores(model, rows[:n])
+        entry = out[arm]
+        entry["vs_f32"] = arm_readings(scores[arm], f32, tol[0])
+        entry["vs_cpu"] = same_readings(scores[arm][:n], cpu)
+        entry["fault"] = {"node": gates["faults"][arm],
+                          "vs_f32": arm_readings(fault_scores[arm], f32,
+                                                 tol[0]),
+                          "vs_cpu": same_readings(fault_scores[arm][:n], cpu)}
+        ok = arm_passes(entry["vs_f32"], entry["vs_cpu"], tol)
+        caught = arm_passes(entry["fault"]["vs_f32"],
+                            entry["fault"]["vs_cpu"], tol)
+        lines.append(f"{arm} "
+                     + describe_arm(entry["vs_f32"], entry["vs_cpu"], tol)
+                     + f"; planted fault at {gates['faults'][arm]}: "
+                     + describe_arm(entry["fault"]["vs_f32"],
+                                    entry["fault"]["vs_cpu"], tol))
+        require(all(ok), f"phase 21 {name} {arm}: " + lines[-1])
+        require(not any(caught), f"phase 21 {name} {arm}: a gate passed "
+                "the planted fault: " + lines[-1])
+    print(f"phase 21 {name} gates: card f32 vs CPU f32 max |d| "
+          f"{out['f32']['card_vs_cpu']['max_abs_err']:.3e} of max |logit| "
+          f"{out['f32']['card_vs_cpu']['max_abs_logit']:.3e}, {distinct} "
+          f"distinct f32 classes; " + "; ".join(lines) + f" [{card}]")
+    return out
+
+
+def phase_vision_scoring(dev, card) -> dict:
+    """chip_smoke phase 21: `TPUModel.transform` over the vision and
+    tabular models.  (a) the zoo ConvNet (ConvNet_UCIDigits, widths 64 /
+    128 / 256, dense 512, bf16) over 32768 uint8 32 x 32 x 3 images at
+    miniBatchSize 4096: the bf16 arm with prefetch off and on, f32 and
+    int8 arms; (b) resnet50() at full width (1000 classes) with seeded
+    random weights made input-dependent by `calibrated_bundle` over 1024
+    uint8 224 x 224 x 3 images at 256: computeDtype bfloat16 and float32
+    and the int8 bundle, prefetch off and on; (c) the TabularWDBC and
+    TextSentiment MLP bundles over seeded 30- and 4096-wide features.
+    Every arm: rows/s end to end and in the device steady state, FLOPs
+    per row and share of the peak; gates (VISION_GATES): the card's f32
+    forward against the CPU's on the first 256 rows, the f32 argmax's
+    distinct classes, each bf16 and int8 arm against the f32 arm and
+    against the CPU at its own precision, a planted fault per arm
+    rejected, shapes, no NaN or Inf."""
+    from mmlspark_tpu_torch import TPUModel
+    from mmlspark_tpu_torch.quant import quantize_bundle
+    from mmlspark_tpu_torch.zoo import ModelDownloader, pretrained_repo
+    import tempfile
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory() as cache:
+        dl = ModelDownloader(cache)
+        zoo = {n: dl.load_bundle(dl.download_by_name(pretrained_repo(), n))
+               for n in ("ConvNet", "TabularWDBC", "TextSentiment")}
+
+    def stage(bundle, batch, **params):
+        return TPUModel(bundle, device=dev, inputCol="x", outputCol="y",
+                        miniBatchSize=batch, **params)
+
+    # (a) the zoo ConvNet
+    bs = VISION["convnet_batch"]
+    images = rng.integers(0, 256, (VISION["convnet_images"], 32, 32, 3),
+                          dtype=np.uint8)
+    conv = zoo["ConvNet"]
+    require(conv.config["widths"] == [64, 128, 256]
+            and conv.config["dense_width"] == 512,
+            f"phase 21: the zoo ConvNet's config is {conv.config}")
+    out["convnet"] = vision_arms(
+        dev, card, "convnet", "convnet",
+        {"bf16": stage(conv, bs), "f32": stage(conv, bs,
+                                               computeDtype="float32"),
+         "int8": stage(quantize_bundle(conv, "int8"), bs)},
+        images, bs, 10,
+        {"bf16": PEAK_BF16_FLOPS, "f32": PEAK_F32_FLOPS,
+         "int8": PEAK_BF16_FLOPS}, True, VISION["steady_iters"])
+    del images
+    torch.cuda.empty_cache()
+    # (b) ResNet-50
+    bs = VISION["resnet_batch"]
+    images = rng.integers(0, 256, (VISION["resnet_images"], 224, 224, 3),
+                          dtype=np.uint8)
+    r50 = resnet50_bundle(images[:VISION["calibration_rows"]],
+                          VISION["resnet_branch_scale"])
+    out["resnet50"] = vision_arms(
+        dev, card, "resnet50", "resnet50",
+        {"bf16": stage(r50, bs, computeDtype="bfloat16"),
+         "f32": stage(r50, bs),
+         "int8": stage(quantize_bundle(r50, "int8"), bs)},
+        images, bs, 1000,
+        {"bf16": PEAK_BF16_FLOPS, "f32": PEAK_F32_FLOPS,
+         "int8": PEAK_BF16_FLOPS}, True, VISION["steady_iters"])
+    del images
+    torch.cuda.empty_cache()
+    # (c) the two MLP bundles
+    bs = VISION["mlp_batch"]
+    wdbc = rng.standard_normal((VISION["wdbc_rows"], 30), dtype=np.float32)
+    text = (rng.random((VISION["text_rows"], 4096), dtype=np.float32)
+            * (rng.random((VISION["text_rows"], 4096)) < 0.01)).astype(
+        np.float32)
+    for name, rows in (("TabularWDBC", wdbc), ("TextSentiment", text)):
+        b = zoo[name]
+        out[name] = vision_arms(
+            dev, card, name, "mlp",
+            {"bf16": stage(b, bs), "f32": stage(b, bs,
+                                                computeDtype="float32")},
+            rows, bs, 2, {"bf16": PEAK_BF16_FLOPS, "f32": PEAK_F32_FLOPS},
+            False, 20)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 21 (vision and tabular scoring): {out['seconds']:.1f} s "
+          f"[{card}]")
+    return out
+
+
+def resnet50_bundle(images: np.ndarray, branch_scale: float):
+    """resnet50() at full width, f32, seeded (0, then 1 for the BatchNorm
+    draws) and made input-dependent over `images` by `calibrated_bundle`,
+    each bottleneck branch's last BatchNorm scaled by `branch_scale`."""
+    from mmlspark_tpu_torch.models import ModelBundle
+    from mmlspark_tpu_torch.models.bundle import calibrated_bundle
+    r50 = ModelBundle.init("ResNet", {"stage_sizes": [3, 4, 6, 3],
+                                      "widths": [64, 128, 256, 512],
+                                      "num_classes": 1000,
+                                      "block_kind": "bottleneck",
+                                      "dtype": "float32"},
+                           seed=0, input_shape=(1, 224, 224, 3))
+    return calibrated_bundle(r50, images, seed=1, branch_scale=branch_scale)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5403,6 +5840,9 @@ def main() -> int:
     ring_rows, seq_training = phase_seq_parallel_training(dev, card)
     print(json.dumps({"seq_parallel_training": seq_training,
                       "card": card}))
+    torch.cuda.empty_cache()
+    vision = phase_vision_scoring(dev, card)
+    print(json.dumps({"vision_scoring": vision, "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

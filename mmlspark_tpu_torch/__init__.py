@@ -31,25 +31,34 @@ preemption guard, the step watchdog, numerics halts and the
 `RecoverySupervisor`); and seq-parallel training over a data x seq
 `Mesh` (`parallel.ring.make_seq_parallel_lm_step` with the differentiable
 ring flash over the flash forward with lse and the dQ and dK/dV kernels,
-the dense ring, Ulysses).
+the dense ring, Ulysses); and vision and tabular scoring,
+`TPUModel(bundle, inputCol=..., outputCol=...).transform(table)` over the
+MLP, linear, ConvNet and ResNet models (ResNet-50 included; bf16, f32 and
+int8 weights; convolutions, BatchNorm and Dense layers on cuDNN and
+cuBLAS, with staging through pinned buffers and a copy stream), composed
+with `Pipeline` / `PipelineModel`, over bundles from the local model zoo
+(`zoo.ModelDownloader`, `zoo.pretrained_repo`).
 
 Layer map:
-  core/    - params DSL, column metadata, DataTable, stage save/load,
-             device selection, host bfloat16 arrays
-  models/  - TransformerLM (torch.nn), bundles, the decode engine, beam
-             search
+  core/    - params DSL, column metadata and the schema helpers, DataTable,
+             stages, Pipeline / PipelineModel and their save/load, device
+             selection, host bfloat16 arrays
+  models/  - TransformerLM and the scoring models (torch.nn), bundles,
+             TPUModel, the decode engine, beam search
   train/   - TrainerConfig, the optax-algebra optimizers and their state
              trees, the Trainer, the recovery supervisor
   parallel/ - MeshSpec, Mesh and make_mesh (single controller, devices may
              repeat), the collectives, attention over a mesh and the
-             seq-parallel LM step (ring.py), the partition-rule data
+             seq-parallel LM step (ring.py), the partition-rule data, the
+             ordered Prefetcher and the pinned host <-> device feed
   ops/     - attention in torch (dense, cache read, stats merge, ring,
              differentiable ring flash, Ulysses) and
              the kernel wrappers (flash forward and backward, single-query
              decode read and its stats entry), the nvcc build/loader
-  quant/   - weight PTQ of bundles (bf16, int8) and int8 KV-cache
-             quantization
-  zoo/     - draft bundles for speculative decoding
+  quant/   - weight PTQ of bundles (bf16, int8), the int8 Dense and Conv
+             forwards, int8 KV-cache quantization
+  zoo/     - the local model repository and downloader, the pretrained
+             bundles, draft bundles for speculative decoding
   serve/   - the continuous-batching ServingEngine, admission, requests,
              the prefix pool, replicas and the router, the HTTP front end
              and the lifecycle (threads, SIGTERM drain)
@@ -65,10 +74,12 @@ Layer map:
 
 __version__ = "0.1.0"
 
-from mmlspark_tpu_torch.core import (DataTable, Param, Params, PipelineStage,
+from mmlspark_tpu_torch.core import (DataTable, Estimator, Param, Params,
+                                     Pipeline, PipelineModel, PipelineStage,
                                      Transformer, load_stage)
 from mmlspark_tpu_torch.models import (DecodeEngine, ModelBundle,
-                                       TextGenerator, TransformerLM,
+                                       TextGenerator, TPUModel, TransformerLM,
                                        build_model, load_bundle,
                                        naive_generate, save_bundle)
 from mmlspark_tpu_torch.train import Trainer, TrainerConfig
+from mmlspark_tpu_torch.zoo import ModelDownloader, pretrained_repo

@@ -1,9 +1,18 @@
-"""Pipeline kernel: PipelineStage / Transformer with save/load (the port's
-copy of the stage contract in `mmlspark_tpu/core/pipeline.py`).
+"""Pipeline kernel: PipelineStage / Transformer / Estimator / Pipeline with
+save/load (the port's copy of `mmlspark_tpu/core/pipeline.py`).
 
 Persistence layout per stage directory, as in the JAX package:
     stage.json   {"class": "pkg.mod.Class", "uid": ..., "params": {...}}
     extra/       stage-specific payload via the _save_extra/_load_extra hooks
+
+Stages move between the packages.  `load_stage` reads a recorded
+`mmlspark_tpu.<path>` class as the port's `mmlspark_tpu_torch.<path>` (by
+string: the JAX package is never imported).  A stage whose class sets
+`saved_class` records that path instead of its own: the port's `TPUModel`,
+`Pipeline` and `PipelineModel` record the JAX package's classes, whose
+params and `extra/` layout they share, so the JAX package loads them as
+its own.  Stages without a JAX twin of the same layout record their own
+path.
 """
 
 from __future__ import annotations
@@ -13,6 +22,8 @@ import itertools
 import json
 import os
 
+from typing import Optional, Sequence
+
 import numpy as np
 
 from mmlspark_tpu_torch.core.params import Param, Params
@@ -20,7 +31,37 @@ from mmlspark_tpu_torch.core.table import DataTable
 
 _uid_counters = itertools.count()
 
+_JAX_ROOT, _PORT_ROOT = "mmlspark_tpu", "mmlspark_tpu_torch"
+
+# Per-row error policy for row-wise transforms: "fail" raises on the first
+# bad row (the default), "skip" drops bad rows, "column" keeps every row
+# and records the error message in an `<output>_error` object column.
 ON_ERROR_POLICIES = ("fail", "skip", "column")
+
+
+def check_on_error(policy: str) -> str:
+    """Validate an on_error policy value (shared by stages and readers)."""
+    if policy not in ON_ERROR_POLICIES:
+        raise ValueError(
+            f"on_error must be one of {ON_ERROR_POLICIES}, got {policy!r}")
+    return policy
+
+
+def record_skipped_rows(stage: str, count: int,
+                        reason: str = "on_error=skip") -> None:
+    """Make an `on_error='skip'` row drop visible: the
+    `rows.skipped_on_error` counter, a cat=resilience trace event and a
+    warning."""
+    if count <= 0:
+        return
+    from mmlspark_tpu_torch.observe.logging import get_logger
+    from mmlspark_tpu_torch.observe.metrics import inc_counter
+    from mmlspark_tpu_torch.observe.trace import trace_event
+    inc_counter("rows.skipped_on_error", float(count))
+    trace_event("rows.skipped", cat="resilience", stage=stage,
+                rows=int(count), reason=reason)
+    get_logger("core").warning("%s: skipped %d row(s) (%s)", stage,
+                               count, reason)
 
 
 def _fresh_uid(cls_name: str) -> str:
@@ -34,11 +75,16 @@ class PipelineStage(Params):
         super().__init__(**kwargs)
         self.uid = _fresh_uid(type(self).__name__)
 
+    # the class path stage.json records when it is not the stage's own
+    # (module docstring)
+    saved_class: Optional[str] = None
+
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
         cls = type(self)
         payload = {
-            "class": f"{cls.__module__}.{cls.__qualname__}",
+            "class": (self.saved_class
+                      or f"{cls.__module__}.{cls.__qualname__}"),
             "uid": self.uid,
             "params": {k: _param_to_json(v)
                        for k, v in self.param_values(set_only=True).items()},
@@ -60,21 +106,32 @@ class PipelineStage(Params):
     def _save_extra(self, path: str) -> None:  # override for array state
         pass
 
-    def _load_extra(self, path: str) -> None:
-        pass
+    def _load_extra(self, path: str, **init_kwargs) -> None:
+        """Load the payload `_save_extra` wrote; `init_kwargs` are the
+        run-time settings `load_stage` gave the constructor."""
 
     def __repr__(self):
         set_params = ", ".join(f"{k}={v!r}" for k, v in self._paramMap.items())
         return f"{type(self).__name__}({set_params})"
 
 
+def port_class_path(path: str) -> str:
+    """A recorded class path as the port reads it: `mmlspark_tpu.<rest>`
+    becomes `mmlspark_tpu_torch.<rest>`; any other path is kept."""
+    root, dot, rest = path.partition(".")
+    return f"{_PORT_ROOT}{dot}{rest}" if root == _JAX_ROOT else path
+
+
 def load_stage(path: str, **init_kwargs) -> PipelineStage:
-    """Load any saved stage, dispatching on the recorded class path.
-    `init_kwargs` go to the stage's constructor: run-time settings that are
-    not params and are not saved, such as a model stage's `device`."""
+    """Load any saved stage, by either package, dispatching on the
+    recorded class path (`port_class_path`).  `init_kwargs` go to the
+    stage's constructor and its `_load_extra` (a stage that holds stages
+    passes them on to each): run-time settings that are not params and
+    are not saved, such as a model stage's `device`."""
     with open(os.path.join(path, "stage.json")) as f:
         payload = json.load(f)
-    module_name, _, qualname = payload["class"].rpartition(".")
+    module_name, _, qualname = port_class_path(payload["class"]).rpartition(
+        ".")
     cls = importlib.import_module(module_name)
     for part in qualname.split("."):
         cls = getattr(cls, part)
@@ -83,7 +140,7 @@ def load_stage(path: str, **init_kwargs) -> PipelineStage:
     stage.uid = payload["uid"]
     for k, v in payload["params"].items():
         stage.set(k, _param_from_json(v))
-    stage._load_extra(os.path.join(path, "extra"))
+    stage._load_extra(os.path.join(path, "extra"), **init_kwargs)
     return stage
 
 
@@ -119,3 +176,99 @@ class Transformer(PipelineStage):
 
     def __call__(self, table: DataTable) -> DataTable:
         return self.transform(table)
+
+
+class Estimator(PipelineStage):
+    """Fits on a table, producing a Transformer (the "Model")."""
+
+    def fit(self, table: DataTable) -> Transformer:
+        raise NotImplementedError
+
+
+class Evaluator(Transformer):
+    """A transformer that computes metric tables."""
+
+
+class Pipeline(Estimator):
+    """Sequence of stages; fit() fits estimators in order, each on the
+    table the stages before it transformed."""
+
+    saved_class = f"{_JAX_ROOT}.core.pipeline.Pipeline"
+
+    def __init__(self, stages: Optional[Sequence[PipelineStage]] = None,
+                 device=None, **kwargs):
+        # `device` is a run-time setting of the stages it holds, which
+        # `load_stage` hands on to them through `_load_extra`
+        super().__init__(**kwargs)
+        self._stages: list[PipelineStage] = list(stages or [])
+
+    def get_stages(self) -> list[PipelineStage]:
+        return list(self._stages)
+
+    def set_stages(self, stages: Sequence[PipelineStage]) -> "Pipeline":
+        self._stages = list(stages)
+        return self
+
+    def fit(self, table: DataTable) -> "PipelineModel":
+        fitted: list[Transformer] = []
+        current = table
+        for i, stage in enumerate(self._stages):
+            if isinstance(stage, Estimator):
+                model = stage.fit(current)
+            elif isinstance(stage, Transformer):
+                model = stage
+            else:
+                raise TypeError(f"stage {i} ({stage!r}) is neither Estimator "
+                                f"nor Transformer")
+            if i < len(self._stages) - 1:
+                current = model.transform(current)
+            fitted.append(model)
+        return PipelineModel(fitted)
+
+    def _save_extra(self, path: str) -> None:
+        _save_stage_list(path, self._stages)
+
+    def _load_extra(self, path: str, **init_kwargs) -> None:
+        self._stages = _load_stage_list(path, **init_kwargs)
+
+
+class PipelineModel(Transformer):
+    """The fitted pipeline: applies each stage's transform in order."""
+
+    saved_class = f"{_JAX_ROOT}.core.pipeline.PipelineModel"
+
+    def __init__(self, stages: Optional[Sequence[Transformer]] = None,
+                 device=None, **kwargs):
+        # `device` is a run-time setting of the stages it holds, which
+        # `load_stage` hands on to them through `_load_extra`
+        super().__init__(**kwargs)
+        self._stages: list[Transformer] = list(stages or [])
+
+    def get_stages(self) -> list[Transformer]:
+        return list(self._stages)
+
+    def transform(self, table: DataTable) -> DataTable:
+        current = table
+        for stage in self._stages:
+            current = stage.transform(current)
+        return current
+
+    def _save_extra(self, path: str) -> None:
+        _save_stage_list(path, self._stages)
+
+    def _load_extra(self, path: str, **init_kwargs) -> None:
+        self._stages = _load_stage_list(path, **init_kwargs)
+
+
+def _save_stage_list(path: str, stages: Sequence[PipelineStage]) -> None:
+    with open(os.path.join(path, "stages.json"), "w") as f:
+        json.dump({"count": len(stages)}, f)
+    for i, stage in enumerate(stages):
+        stage.save(os.path.join(path, f"stage_{i:03d}"))
+
+
+def _load_stage_list(path: str, **init_kwargs) -> list:
+    with open(os.path.join(path, "stages.json")) as f:
+        count = json.load(f)["count"]
+    return [load_stage(os.path.join(path, f"stage_{i:03d}"), **init_kwargs)
+            for i in range(count)]

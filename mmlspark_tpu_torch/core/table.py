@@ -1,17 +1,18 @@
 """DataTable: host-side columnar table with ML metadata (the port's copy of
-`mmlspark_tpu/core/table.py`, cut to what the ported stages use).
+`mmlspark_tpu/core/table.py`).
 
 A table is a dict of numpy columns on the host; tensors are made from them
 only at the device boundary, inside a stage.  The on-disk layout
 (`columns.npz`, `objects.json`, `meta.json`) is the JAX package's, so a
-table saved by either package loads in the other.
+table saved by either package loads in the other, and the seeded helpers
+(`sample`, `shuffle`) draw the same rows for the same seed.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -66,6 +67,38 @@ class DataTable:
         }
         self.num_shards = max(1, int(num_shards))
 
+    # -- construction --------------------------------------------------
+    @staticmethod
+    def from_dict(d: Mapping[str, Any], **kw) -> "DataTable":
+        return DataTable(d, **kw)
+
+    @staticmethod
+    def from_pandas(df, **kw) -> "DataTable":
+        cols = {}
+        for name in df.columns:
+            s = df[name]
+            cols[name] = (s.to_numpy(dtype=object) if s.dtype == object
+                          else s.to_numpy())
+        return DataTable(cols, **kw)
+
+    @staticmethod
+    def from_rows(rows: Sequence[Mapping[str, Any]], **kw) -> "DataTable":
+        if not rows:
+            return DataTable({}, **kw)
+        names = list(rows[0].keys())
+        return DataTable({n: [r[n] for r in rows] for n in names}, **kw)
+
+    @staticmethod
+    def read_csv(path: str, **kw) -> "DataTable":
+        import pandas as pd
+        return DataTable.from_pandas(pd.read_csv(path), **kw)
+
+    def to_pandas(self):
+        import pandas as pd
+        return pd.DataFrame({name: list(arr) if arr.ndim > 1 else arr
+                             for name, arr in self._cols.items()})
+
+    # -- basic accessors -----------------------------------------------
     @property
     def columns(self) -> list[str]:
         return list(self._cols)
@@ -89,6 +122,9 @@ class DataTable:
             raise KeyError(
                 f"no column '{name}'; available: {self.columns}") from None
 
+    def column(self, name: str) -> np.ndarray:
+        return self[name]
+
     def meta(self, name: str) -> ColumnMeta:
         self[name]
         return self._meta[name]
@@ -100,13 +136,28 @@ class DataTable:
     def schema(self) -> dict[str, tuple]:
         return {n: (str(a.dtype), a.shape[1:]) for n, a in self._cols.items()}
 
-    def _derive(self, cols: dict[str, np.ndarray]) -> "DataTable":
+    def rows(self) -> Iterator[dict]:
+        for i in range(self.num_rows):
+            yield {n: a[i] for n, a in self._cols.items()}
+
+    # -- shaping (all return new tables) --------------------------------
+    def _derive(self, cols: dict[str, np.ndarray],
+                meta: Optional[Mapping[str, ColumnMeta]] = None
+                ) -> "DataTable":
+        src = self._meta if meta is None else meta
         t = DataTable.__new__(DataTable)
         t._cols = cols
-        t._meta = {n: (self._meta[n].copy() if n in self._meta
-                       else ColumnMeta()) for n in cols}
+        t._meta = {n: (src[n].copy() if n in src else ColumnMeta())
+                   for n in cols}
         t.num_shards = self.num_shards
         return t
+
+    def select(self, *names: str) -> "DataTable":
+        return self._derive({n: self[n] for n in names})
+
+    def drop(self, *names: str) -> "DataTable":
+        return self._derive({n: a for n, a in self._cols.items()
+                             if n not in names})
 
     def with_column(self, name: str, values: Any,
                     meta: Optional[ColumnMeta] = None) -> "DataTable":
@@ -121,6 +172,82 @@ class DataTable:
         if meta is not None:
             out._meta[name] = meta.copy()
         return out
+
+    def rename(self, mapping: Mapping[str, str]) -> "DataTable":
+        cols = {mapping.get(n, n): a for n, a in self._cols.items()}
+        meta = {mapping.get(n, n): m for n, m in self._meta.items()}
+        return self._derive(cols, meta)
+
+    def filter(self, mask: Any) -> "DataTable":
+        mask = np.asarray(mask)
+        return self._derive({n: a[mask] for n, a in self._cols.items()})
+
+    def take(self, n: int) -> "DataTable":
+        return self._derive({name: a[:n] for name, a in self._cols.items()})
+
+    def slice(self, start: int, stop: int) -> "DataTable":
+        return self._derive({n: a[start:stop] for n, a in self._cols.items()})
+
+    def sample(self, fraction: float, seed: int = 0) -> "DataTable":
+        rng = np.random.default_rng(seed)
+        return self.filter(rng.random(self.num_rows) < fraction)
+
+    def shuffle(self, seed: int = 0) -> "DataTable":
+        perm = np.random.default_rng(seed).permutation(self.num_rows)
+        return self._derive({n: a[perm] for n, a in self._cols.items()})
+
+    def concat(self, other: "DataTable") -> "DataTable":
+        if set(self.columns) != set(other.columns):
+            raise ValueError(
+                f"column mismatch: {self.columns} vs {other.columns}")
+        return self._derive({n: np.concatenate([self[n], other[n]], axis=0)
+                             for n in self.columns})
+
+    def repartition(self, num_shards: int) -> "DataTable":
+        """A resharding hint: the same rows with `num_shards` recorded."""
+        out = self._derive(dict(self._cols))
+        out.num_shards = max(1, int(num_shards))
+        return out
+
+    def drop_nulls(self, subset: Optional[Sequence[str]] = None
+                   ) -> "DataTable":
+        """Rows without a None (object columns) or a NaN (float columns;
+        any NaN of a multi-dimensional row) in `subset` (default: all)."""
+        mask = np.ones(self.num_rows, dtype=bool)
+        for n in (list(subset) if subset else self.columns):
+            a = self[n]
+            if a.dtype == object:
+                mask &= np.asarray([v is not None for v in a], dtype=bool)
+            elif np.issubdtype(a.dtype, np.floating):
+                nan = np.isnan(a)
+                mask &= ~(nan.any(axis=tuple(range(1, a.ndim)))
+                          if a.ndim > 1 else nan)
+        return self.filter(mask)
+
+    def find_unused_column_name(self, prefix: str) -> str:
+        name, i = prefix, 0
+        while name in self._cols:
+            i += 1
+            name = f"{prefix}_{i}"
+        return name
+
+    # -- batching -------------------------------------------------------
+    def batches(self, columns: Sequence[str], batch_size: int,
+                pad: bool = True
+                ) -> Iterator[tuple[dict[str, np.ndarray], int]]:
+        """Yield (column-dict, valid_count) minibatches; with `pad` the
+        last one is zero-padded to `batch_size`, so every batch has one
+        shape."""
+        n = self.num_rows
+        for start in range(0, n, batch_size):
+            stop = min(start + batch_size, n)
+            valid = stop - start
+            batch = {c: self[c][start:stop] for c in columns}
+            if pad and valid < batch_size:
+                batch = {c: np.concatenate(
+                    [a, np.zeros((batch_size - valid,) + a.shape[1:],
+                                 a.dtype)]) for c, a in batch.items()}
+            yield batch, valid
 
     # -- persistence ----------------------------------------------------
     def save(self, path: str) -> None:

@@ -1,6 +1,11 @@
 """Model definitions in PyTorch: the decoder-only `TransformerLM` (the port
-of `mmlspark_tpu/models/definitions.py` :196-357, dense MLP only) and the
-model registry.
+of `mmlspark_tpu/models/definitions.py` :196-357, dense MLP only), the
+vision and tabular scoring models (`MLPClassifier`, `LinearModel`,
+`ConvNetCIFAR10`, `ResNet` with basic or bottleneck blocks, `resnet50`;
+:36-195) and the model registry.  The scoring models' forward returns the
+output and the named nodes the flax models sow (`_Scorer`); convolutions,
+pools and BatchNorm run as torch ops on channels-last tensors (cuDNN on
+the card), with flax's "SAME" padding (`pad_same`).
 
 The module tree keeps the flax names, so a parameter's path reads the same
 in both packages: `tok_embed`, `pos_embed`, `block{i}_w.{LayerNorm_0, qkv,
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.parameter import UninitializedParameter, is_lazy
 from torch.utils.checkpoint import checkpoint
 
 from mmlspark_tpu_torch.core.device import resolve_device
@@ -52,6 +58,8 @@ from mmlspark_tpu_torch.ops.flash_attention import flash_attention
 from mmlspark_tpu_torch.parallel.ring import (active_seq_mesh,
                                               seq_parallel_attention,
                                               use_seq_mesh)
+from mmlspark_tpu_torch.quant.modules import (quant_conv_apply,
+                                              quant_dense_apply)
 
 ATTN_IMPLS = ("dense", "flash", "ring", "ring_flash", "ulysses")
 SEQ_IMPLS = ("ring", "ring_flash", "ulysses")
@@ -97,14 +105,20 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Linear):
     """flax `nn.Dense(dtype=dtype)`: an f32 weight (out, in) and bias,
-    cast to the compute dtype on every call."""
+    cast to the compute dtype on every call.  `n_in=None` leaves the
+    weight uninitialized until the first call or a state_dict sets its
+    shape, as flax infers a Dense layer's inputs from the data."""
 
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+    def __init__(self, n_in: Optional[int], n_out: int, dtype: torch.dtype,
                  device=None):
-        super().__init__(n_in, n_out, device=device)
+        super().__init__(n_in or 1, n_out, device=device)
         self.compute_dtype = dtype
+        if n_in is None:
+            self.weight = UninitializedParameter(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_lazy(self.weight):
+            self.weight.materialize((self.out_features, x.shape[-1]))
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
@@ -113,9 +127,9 @@ class Int8Dense(nn.Module):
     """A Dense layer of an int8-quantized bundle (`quant/quantize.py`):
     the int8 weight (out, in), its f32 per-output-channel `scale` and the
     bias as stored (bfloat16 in a quantized bundle), all buffers.  The
-    forward is the JAX decode path's (`mmlspark_tpu/models/generate.py`
-    `_dense`): the product in the compute dtype, rounded there, then the
-    scale and the bias in f32, then the cast."""
+    forward is `quant/modules.py` `quant_dense_apply`: the product in the
+    compute dtype, rounded there, then the scale and the bias in f32, then
+    the cast."""
 
     def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
                  bias_dtype=torch.float32, device=None):
@@ -129,17 +143,8 @@ class Int8Dense(nn.Module):
                                                  device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_linear(x, self.weight, self.scale, self.bias,
-                           self.compute_dtype)
-
-
-def int8_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """int8 weight (out, in) x activations in `dtype` (int8 -> bf16 is
-    exact), the product rounded to `dtype`, then `* scale + bias` in f32
-    and the cast to `dtype`."""
-    y = F.linear(x.to(dtype), weight.to(dtype)).float()
-    return (y * scale + bias.float()).to(dtype)
+        return quant_dense_apply(x, self.weight, self.scale, self.bias,
+                                 self.compute_dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -322,10 +327,386 @@ def init_transformer_lm_params(config: dict, seed: int = 0) -> dict:
     return {"params": params}
 
 
+# --------------------------------------------------------------------------
+# vision and tabular scoring models (`mmlspark_tpu/models/definitions.py`
+# :36-195)
+# --------------------------------------------------------------------------
+
+BN_EPS = 1e-5
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial axis: ceil(size / stride)
+    outputs, the total pad split with the odd one after (a 7x7 stride-2
+    conv on 32 pads 2 before and 3 after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: tuple, stride: tuple,
+             value: float = 0.0) -> tuple[torch.Tensor, tuple]:
+    """`x` (N, C, H, W) and the symmetric padding for a "SAME" window:
+    a symmetric pad is left to the conv / pool, an asymmetric one is
+    applied here with `value`."""
+    ph = same_pads(x.shape[2], kernel[0], stride[0])
+    pw = same_pads(x.shape[3], kernel[1], stride[1])
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return x, (ph[0], pw[0])
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """An (N, C, H, W) activation as the flax model's (N, H, W, C): a
+    view, contiguous for a channels-last tensor."""
+    return x.permute(0, 2, 3, 1)
+
+
+class Conv(nn.Module):
+    """flax `nn.Conv(features, kernel, strides, padding="SAME",
+    dtype=dtype)`: an f32 weight (out, in, kh, kw) in channels-last
+    memory and an optional bias, cast to the compute dtype on every call.
+    Activations are (N, C, H, W) tensors in channels-last memory, so cuDNN
+    runs its NHWC kernels with no transpose.  `n_in=None` infers the
+    input channels, as `Dense` does."""
+
+    def __init__(self, n_in: Optional[int], n_out: int, kernel: tuple,
+                 strides: tuple = (1, 1), use_bias: bool = True,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.out_features, self.kernel, self.strides = n_out, kernel, strides
+        self.compute_dtype = dtype
+        self.weight = (UninitializedParameter(device=device) if n_in is None
+                       else nn.Parameter(torch.zeros(
+                           (n_out, n_in, *kernel), device=device
+                       ).contiguous(memory_format=torch.channels_last)))
+        self.bias = (nn.Parameter(torch.zeros(n_out, device=device))
+                     if use_bias else None)
+        self.register_load_state_dict_post_hook(Conv._channels_last)
+
+    @staticmethod
+    def _channels_last(module, _keys) -> None:
+        module.weight.data = module.weight.data.contiguous(
+            memory_format=torch.channels_last)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_lazy(self.weight):
+            self.weight.materialize((self.out_features, x.shape[1],
+                                     *self.kernel))
+        dt = self.compute_dtype
+        x, padding = pad_same(x, self.kernel, self.strides)
+        w = self.weight.to(dt, memory_format=torch.channels_last)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), w, b, self.strides, padding)
+
+
+class Int8Conv(nn.Module):
+    """A Conv layer of an int8-quantized bundle: the int8 weight (out, in,
+    kh, kw), its f32 per-output-channel `scale` and the optional bias as
+    stored, all buffers; the forward is `quant/modules.py`
+    `quant_conv_apply` over the same "SAME" padding as `Conv`."""
+
+    def __init__(self, n_in: int, n_out: int, kernel: tuple,
+                 strides: tuple, dtype: torch.dtype, bias_dtype=None,
+                 device=None):
+        super().__init__()
+        self.out_features, self.kernel, self.strides = n_out, kernel, strides
+        self.compute_dtype = dtype
+        self.register_buffer("weight", torch.zeros(
+            (n_out, n_in, *kernel), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.zeros(n_out, device=device))
+        self.register_buffer("bias", None if bias_dtype is None else
+                             torch.zeros(n_out, dtype=bias_dtype,
+                                         device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, padding = pad_same(x, self.kernel, self.strides)
+        return quant_conv_apply(x, self.weight, self.scale, self.bias,
+                                self.strides, padding, self.compute_dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(use_running_average=True, dtype=dtype)`: `scale`
+    and `bias` (flax params) and `mean` and `var` (flax batch_stats, here
+    buffers), eps 1e-5.  The math is flax's: (x - mean) * rsqrt(var + eps)
+    * scale + bias in f32, cast to the compute dtype (one
+    `F.batch_norm`, which takes bf16 activations with f32 statistics).
+    `zero_scale` marks the layer whose scale flax initialises to zero (the
+    last of a bottleneck block).  Only inference is ported: updating the
+    statistics in training (flax momentum 0.99) waits for the Trainer of
+    these models (ROADMAP A5)."""
+
+    def __init__(self, features: int, dtype=torch.bfloat16,
+                 zero_scale: bool = False, device=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.zero_scale = zero_scale
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
+        return F.batch_norm(x, self.mean.float(), self.var.float(),
+                            self.scale.float(), self.bias.float(),
+                            training=False, eps=BN_EPS)
+
+
+class _Scorer(nn.Module):
+    """Base of the scoring models: `forward(x)` returns the final output
+    and the sown nodes (name -> tensor, in the flax model's call order;
+    conv and pool nodes (N, H, W, C)), as flax's `module.apply(...,
+    mutable=["intermediates"])` does."""
+
+    def __init__(self, config: dict, device):
+        super().__init__()
+        self.dtype = dtype_of(config["dtype"])
+        self.config = {**config, "dtype": dtype_name(self.dtype)}
+        self._device = resolve_device(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.out.bias.device
+
+
+class MLPClassifier(_Scorer):
+    """Dense + ReLU layers (nodes h0, h1, ...) and the logits node z."""
+
+    def __init__(self, hidden_sizes=(100,), num_classes: int = 2,
+                 dtype="bfloat16", device="cuda"):
+        super().__init__(dict(hidden_sizes=list(hidden_sizes),
+                              num_classes=num_classes, dtype=dtype), device)
+        n_in = None
+        for i, h in enumerate(hidden_sizes):
+            self.add_module(f"dense{i}", Dense(n_in, h, self.dtype,
+                                               device=self._device))
+            n_in = h
+        self.out = Dense(n_in, num_classes, self.dtype, device=self._device)
+        self.n_hidden = len(hidden_sizes)
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        nodes = {}
+        x = x.to(self.dtype)
+        for i in range(self.n_hidden):
+            x = nodes[f"h{i}"] = F.relu(getattr(self, f"dense{i}")(x))
+        z = nodes["z"] = self.out(x).float()
+        return z, nodes
+
+
+class LinearModel(_Scorer):
+    """One Dense head, node z."""
+
+    def __init__(self, num_outputs: int = 1, dtype="float32",
+                 device="cuda"):
+        super().__init__(dict(num_outputs=num_outputs, dtype=dtype), device)
+        self.out = Dense(None, num_outputs, self.dtype, device=self._device)
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        z = self.out(x.to(self.dtype)).float()
+        return z, {"z": z}
+
+
+class ConvNetCIFAR10(_Scorer):
+    """3 x (3x3 SAME conv + ReLU, 2x2 max pool) then two Dense layers over
+    (N, 32, 32, 3) images: nodes conv1, pool1, ..., pool3, dense1, z.
+    The flatten is in (H, W, C) order, as flax's reshape of NHWC, so
+    `dense1_w`'s rows need no permutation."""
+
+    def __init__(self, num_classes: int = 10, widths=(64, 128, 256),
+                 dense_width: int = 512, dtype="bfloat16", device="cuda"):
+        super().__init__(dict(num_classes=num_classes, widths=list(widths),
+                              dense_width=dense_width, dtype=dtype), device)
+        n_in = None
+        for i, w in enumerate(widths, start=1):
+            self.add_module(f"conv{i}_w", Conv(n_in, w, (3, 3),
+                                               dtype=self.dtype,
+                                               device=self._device))
+            n_in = w
+        self.n_convs = len(widths)
+        self.dense1_w = Dense(None, dense_width, self.dtype,
+                              device=self._device)
+        self.out = Dense(dense_width, num_classes, self.dtype,
+                         device=self._device)
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        nodes = {}
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        for i in range(1, self.n_convs + 1):
+            x = F.relu(getattr(self, f"conv{i}_w")(x))
+            nodes[f"conv{i}"] = nhwc(x)
+            x = F.max_pool2d(x, 2, 2)
+            nodes[f"pool{i}"] = nhwc(x)
+        x = nhwc(x).reshape(x.shape[0], -1)
+        x = nodes["dense1"] = F.relu(self.dense1_w(x))
+        z = nodes["z"] = self.out(x).float()
+        return z, nodes
+
+
+class ResNetBlock(nn.Module):
+    """Basic block: 3x3 (strides) -> BN -> ReLU -> 3x3 -> BN, plus the
+    input or, where the shape changes, a 1x1 (strides) projection + BN."""
+
+    def __init__(self, n_in: int, filters: int, strides=(1, 1),
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.Conv_0 = Conv(n_in, filters, (3, 3), strides, False, **kw)
+        self.BatchNorm_0 = BatchNorm(filters, **kw)
+        self.Conv_1 = Conv(filters, filters, (3, 3), (1, 1), False, **kw)
+        self.BatchNorm_1 = BatchNorm(filters, **kw)
+        self.project = tuple(strides) != (1, 1) or n_in != filters
+        if self.project:
+            self.Conv_2 = Conv(n_in, filters, (1, 1), strides, False, **kw)
+            self.BatchNorm_2 = BatchNorm(filters, **kw)
+        self.n_out = filters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_1(self.Conv_1(y))
+        if self.project:
+            x = self.BatchNorm_2(self.Conv_2(x))
+        return F.relu(y + x)
+
+
+class ResNetBottleneckBlock(nn.Module):
+    """1x1 reduce -> 3x3 (strides) -> 1x1 expand (x4), each with BN (the
+    last one's scale zero-initialised), plus the input or a 1x1 (strides)
+    projection + BN (`Conv_3` / `BatchNorm_3`)."""
+
+    def __init__(self, n_in: int, filters: int, strides=(1, 1),
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        out = 4 * filters
+        self.Conv_0 = Conv(n_in, filters, (1, 1), (1, 1), False, **kw)
+        self.BatchNorm_0 = BatchNorm(filters, **kw)
+        self.Conv_1 = Conv(filters, filters, (3, 3), strides, False, **kw)
+        self.BatchNorm_1 = BatchNorm(filters, **kw)
+        self.Conv_2 = Conv(filters, out, (1, 1), (1, 1), False, **kw)
+        self.BatchNorm_2 = BatchNorm(out, zero_scale=True, **kw)
+        self.project = tuple(strides) != (1, 1) or n_in != out
+        if self.project:
+            self.Conv_3 = Conv(n_in, out, (1, 1), strides, False, **kw)
+            self.BatchNorm_3 = BatchNorm(out, **kw)
+        self.n_out = out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
+        y = self.BatchNorm_2(self.Conv_2(y))
+        if self.project:
+            x = self.BatchNorm_3(self.Conv_3(x))
+        return F.relu(y + x)
+
+
+class ResNet(_Scorer):
+    """ResNet over (N, H, W, C) images: a 7x7 stride-2 stem conv + BN +
+    ReLU (node stem), a 3x3 stride-2 SAME max pool (-inf padding), stages
+    of basic or bottleneck blocks (nodes stage1..stageN; the first block
+    of every stage after the first strides 2), the global average pool
+    (node pool, f32) and the logits (node z).  Blocks keep flax's
+    auto-names, `ResNetBlock_k` / `ResNetBottleneckBlock_k` numbered over
+    all stages."""
+
+    def __init__(self, stage_sizes=(2, 2, 2, 2), widths=(64, 128, 256, 512),
+                 num_classes: int = 1000, block_kind: str = "basic",
+                 dtype="bfloat16", device="cuda"):
+        super().__init__(dict(stage_sizes=list(stage_sizes),
+                              widths=list(widths), num_classes=num_classes,
+                              block_kind=block_kind, dtype=dtype), device)
+        blocks = {"basic": ResNetBlock, "bottleneck": ResNetBottleneckBlock}
+        if block_kind not in blocks:
+            raise KeyError(block_kind)
+        block_cls = blocks[block_kind]
+        kw = dict(dtype=self.dtype, device=self._device)
+        self.stem_conv = Conv(None, 64, (7, 7), (2, 2), False, **kw)
+        self.BatchNorm_0 = BatchNorm(64, **kw)
+        self.stages: list[list[str]] = []
+        n_in, k = 64, 0
+        for i, (n_blocks, w) in enumerate(zip(stage_sizes, widths), 1):
+            names = []
+            for b in range(n_blocks):
+                strides = (2, 2) if b == 0 and i > 1 else (1, 1)
+                name = f"{block_cls.__name__}_{k}"
+                block = block_cls(n_in, w, strides, **kw)
+                self.add_module(name, block)
+                names.append(name)
+                n_in, k = block.n_out, k + 1
+            self.stages.append(names)
+        self.out = Dense(n_in, num_classes, self.dtype, device=self._device)
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        nodes = {}
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x = F.relu(self.BatchNorm_0(self.stem_conv(x)))
+        nodes["stem"] = nhwc(x)
+        x, padding = pad_same(x, (3, 3), (2, 2), value=float("-inf"))
+        x = F.max_pool2d(x, 3, 2, padding)
+        for i, names in enumerate(self.stages, 1):
+            for name in names:
+                x = getattr(self, name)(x)
+            nodes[f"stage{i}"] = nhwc(x)
+        # jnp.mean of bf16 accumulates in f32 and returns bf16
+        pool = x.mean((2, 3), dtype=torch.float32).to(self.dtype).float()
+        nodes["pool"] = pool
+        z = nodes["z"] = self.out(pool).float()
+        return z, nodes
+
+
+def resnet50(num_classes: int = 1000, dtype="bfloat16",
+             device="cuda") -> ResNet:
+    """ResNet-50: bottleneck stages (3, 4, 6, 3) of widths 64-512 (pool
+    node 2048 wide)."""
+    return ResNet(stage_sizes=(3, 4, 6, 3), widths=(64, 128, 256, 512),
+                  num_classes=num_classes, block_kind="bottleneck",
+                  dtype=dtype, device=device)
+
+
+def init_scoring_params(module: nn.Module, input_shape: tuple,
+                        seed: int = 0) -> dict:
+    """Seeded numpy variables of a scoring model in the flax layout
+    ({"params": ..., "batch_stats": ...}), matched to flax's initialisers
+    in distribution: kernels lecun-normal (truncated normal, variance
+    1/fan_in), biases 0, BatchNorm scale 1 (0 where flax zero-initialises
+    it), bias 0, mean 0, var 1.  A forward over zeros of `input_shape`
+    first sets the shapes inferred from the input, as flax's init does."""
+    from mmlspark_tpu_torch.models.bundle import variables_to_jax
+    with torch.no_grad():
+        module(torch.zeros(input_shape, device=module.device))
+    rng = np.random.default_rng(seed)
+    state = {}
+    for prefix, mod in module.named_modules():
+        if isinstance(mod, (Dense, Conv)):
+            w = mod.weight
+            fan_in = int(np.prod(w.shape[1:]))
+            draw = rng.standard_normal(tuple(w.shape), dtype=np.float32)
+            while (bad := np.abs(draw) > 2).any():
+                draw[bad] = rng.standard_normal(int(bad.sum()),
+                                                dtype=np.float32)
+            # 0.8796...: the std of a standard normal truncated to [-2, 2]
+            std = np.float32(fan_in ** -0.5 / .87962566103423978)
+            state[f"{prefix}.weight"] = torch.from_numpy(draw * std)
+            if mod.bias is not None:
+                state[f"{prefix}.bias"] = torch.zeros(w.shape[0])
+        elif isinstance(mod, BatchNorm):
+            n = mod.scale.shape[0]
+            state[f"{prefix}.scale"] = (torch.zeros(n) if mod.zero_scale
+                                        else torch.ones(n))
+            state[f"{prefix}.bias"] = torch.zeros(n)
+            state[f"{prefix}.mean"] = torch.zeros(n)
+            state[f"{prefix}.var"] = torch.ones(n)
+    return variables_to_jax(state)
+
+
 _LM_DEFAULTS = {"vocab_size": 256, "d_model": 128, "n_layers": 2,
                 "max_len": 2048, "mlp_ratio": 4}
 
 MODEL_REGISTRY: dict[str, Callable[..., nn.Module]] = {
+    "MLPClassifier": MLPClassifier,
+    "LinearModel": LinearModel,
+    "ConvNetCIFAR10": ConvNetCIFAR10,
+    "ResNet": ResNet,
     "TransformerLM": TransformerLM,
 }
 

@@ -90,8 +90,7 @@ from mmlspark_tpu_torch.core.pipeline import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
                                               save_bundle)
-from mmlspark_tpu_torch.models.definitions import (Int8Dense, TransformerLM,
-                                                   int8_linear)
+from mmlspark_tpu_torch.models.definitions import Int8Dense, TransformerLM
 from mmlspark_tpu_torch.observe.metrics import inc_counter
 from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import trace_event, trace_span
@@ -105,6 +104,7 @@ from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
                                               Mesh)
 from mmlspark_tpu_torch.parallel.partition import SEQ_KV_CACHE_SPEC
 from mmlspark_tpu_torch.parallel.ring import reshard
+from mmlspark_tpu_torch.quant.modules import quant_dense_apply
 from mmlspark_tpu_torch.quant.quantize import quantize_kv
 
 DEFAULT_CACHE_CHUNK = 128  # cache-window growth granularity (slots)
@@ -206,7 +206,8 @@ def _dense(linear, x: torch.Tensor, dtype) -> torch.Tensor:
     the product rounded to `dtype` before the per-channel scale."""
     scale = getattr(linear, "scale", None)
     if scale is not None:
-        return int8_linear(x, linear.weight, scale, linear.bias, dtype)
+        return quant_dense_apply(x, linear.weight, scale, linear.bias,
+                                 dtype)
     return F.linear(x.to(dtype), linear.weight, linear.bias)
 
 
@@ -2086,7 +2087,7 @@ class TextGenerator(Transformer):
         if self._bundle is not None:
             save_bundle(self._bundle, f"{path}/bundle")
 
-    def _load_extra(self, path: str) -> None:
+    def _load_extra(self, path: str, **_init_kwargs) -> None:
         self.set_bundle(load_bundle(f"{path}/bundle")
                         if os.path.exists(f"{path}/bundle") else None)
         self.set_draft_bundle(None)

@@ -11,7 +11,7 @@ Weight post-training quantization of model bundles, on the host in numpy
     ``kernel_scale`` (out,); every other floating leaf becomes bfloat16,
     and the whole ``moe`` subtree stays un-int8'd.  The decode path runs
     int8 weights x bf16 activations with the scale after the product
-    (`models/definitions.py` `int8_linear`).
+    (`quant/modules.py` `quant_dense_apply`).
 
 numpy has no bfloat16: the port rounds f32 -> bf16 with torch's
 round-to-nearest-even cast (the rounding `ml_dtypes` does) and carries the

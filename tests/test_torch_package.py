@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch import (DataTable, ModelBundle, TextGenerator,
-                                TransformerLM)
+                                TPUModel, TransformerLM)
 from mmlspark_tpu_torch.models import DecodeEngine
 from mmlspark_tpu_torch.ops import native
 from mmlspark_tpu_torch.ops.attention import NEG_INF
@@ -80,7 +80,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for make in (lambda: TextGenerator(bundle),
                  lambda: DecodeEngine(module, 4),
                  lambda: TransformerLM(**CFG),
-                 lambda: bundle.module()):
+                 lambda: bundle.module(),
+                 lambda: TPUModel(bundle)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     # an explicit host device is honoured
@@ -1299,3 +1300,54 @@ def test_resumed_row_first_segment_runs_the_decode_kernel(cuda, cache,
     assert max(errs) <= 2e-3
     toks = toks.cpu().numpy()
     assert ((toks >= 0) & (toks < SERVE_CFG["vocab_size"])).all()
+
+
+# ------------------------------- vision scoring (no kernel) on the card ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,config,shape,classes", [
+    ("ConvNetCIFAR10", {"dtype": "float32"}, (1, 32, 32, 3), 3),
+    ("ResNet", {"stage_sizes": [1, 1, 1, 1], "block_kind": "bottleneck",
+                "dtype": "float32"}, (1, 64, 64, 3), 20)])
+def test_scoring_forward_on_the_card_matches_the_cpu(cuda, arch, config,
+                                                     shape, classes):
+    """TPUModel's forward on the card (cuDNN, TF32 off by the stage at f32
+    even with TF32 on globally) against the CPU's at the same precision,
+    on seeded weights made input-dependent by `calibrated_bundle` (the
+    f32 argmax takes at least `classes` classes): within 1e-4 of max
+    |logit| at f32, 2e-2 with bf16 activations and 4e-2 with int8
+    weights (read on an H100: at most 6.2e-3 / 1.5e-2, and 0.17 or more
+    with a planted fault: one conv's kh and kw swapped, or an int8 scale
+    rolled by a channel)."""
+    from mmlspark_tpu_torch.models.bundle import calibrated_bundle
+    from mmlspark_tpu_torch.quant import quantize_bundle
+    images = np.random.default_rng(2).integers(
+        0, 256, (70,) + shape[1:], dtype=np.uint8)
+    bundle = calibrated_bundle(
+        ModelBundle.init(arch, config, seed=0, input_shape=shape),
+        images[:32], seed=1, branch_scale=0.1)
+    table = DataTable({"x": images})
+
+    def score(device, b=bundle, **params):
+        return TPUModel(b, device=device, inputCol="x", outputCol="y",
+                        miniBatchSize=32, **params).transform(table)["y"]
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = score("cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    ref = score("cpu")
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert len(np.unique(ref.argmax(1))) >= classes
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    int8 = quantize_bundle(bundle, "int8")
+    for arm, limit in (({"computeDtype": "bfloat16"}, 2e-2),
+                       ({"b": int8}, 4e-2)):
+        card, cpu = score("cuda", **arm), score("cpu", **arm)
+        assert np.isfinite(card).all()
+        assert np.abs(card - cpu).max() <= limit * np.abs(cpu).max()

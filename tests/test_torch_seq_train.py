@@ -15,6 +15,11 @@ inputs, a data 2 x seq 4 mesh of host shards, f32).
     1e-5 (the key third of each qkv bias held apart, as
     tests/test_torch_train.py does: its true gradient is zero and Adam
     scales round-off there).
+
+The JAX side compiles each function once: the dense attention's output
+and gradients in one jit of value_and_grad, and the seq-parallel step
+with its initial weights and optimizer state placed replicated on the
+mesh, as the step returns them (unplaced, the second step recompiled).
 """
 
 import jax
@@ -23,6 +28,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from mmlspark_tpu.models.definitions import build_model as jax_build_model
 from mmlspark_tpu.ops.attention import attention as jax_attention
@@ -64,16 +70,17 @@ def mesh():
 @pytest.fixture(scope="module")
 def dense_grads(qkv):
     """The JAX dense attention's output and q/k/v gradients of
-    sum(out ** 2), causal and not."""
+    sum(out ** 2), causal and not: one jit of value_and_grad."""
+    def loss(q_, k_, v_, causal):
+        out = jax_attention(q_, k_, v_, causal=causal)
+        return (out ** 2).sum(), out
+
+    both = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                      has_aux=True), static_argnums=3)
     out = {}
     for causal in (False, True):
-        def loss(q_, k_, v_, causal=causal):
-            return (jax_attention(q_, k_, v_, causal=causal) ** 2).sum()
-        fwd = jax.jit(lambda q_, k_, v_, c=causal: jax_attention(
-            q_, k_, v_, causal=c))
-        grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*qkv)
-        out[causal] = (np.asarray(fwd(*qkv)),
-                       [np.asarray(g) for g in grads])
+        (_, fwd), grads = both(*qkv, causal)
+        out[causal] = (np.asarray(fwd), [np.asarray(g) for g in grads])
     return out
 
 
@@ -134,9 +141,11 @@ def jax_steps():
     lm = jax_build_model("TransformerLM", {**LM, "attn_impl": "ring",
                                            "seq_axis": "seq"})
     init = init_transformer_lm_params(LM, seed=0)
-    params = jax.tree_util.tree_map(jnp.asarray, init)
+    replicated = NamedSharding(jmesh, PartitionSpec())
+    params = jax.device_put(jax.tree_util.tree_map(jnp.asarray, init),
+                            replicated)
     tx = optax.adam(1e-2)
-    opt_state = tx.init(params)
+    opt_state = jax.device_put(tx.init(params), replicated)
     step = jax_make_step(lm, tx, jmesh)
     args = [jax_shard_tokens(a, jmesh) for a in (tokens, targets, mask)]
     losses = []
