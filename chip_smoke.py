@@ -11,7 +11,9 @@ configuration, the seq-sharded long-context decode and seq-parallel
 training paths at the width of its long-context configuration and the
 disaggregated prefill/decode tiers, and vision and tabular scoring
 (`TPUModel.transform` over the zoo ConvNet, ResNet-50 and the MLP zoo
-bundles), and times kernels and paths.
+bundles), the image pipeline (PNG files -> the streaming reader ->
+ResNet-50 scoring under the depth Autotuner; `ImageTransformer` and
+`ImageFeaturizer`), and times kernels and paths.
 
     python3 chip_smoke.py
 
@@ -196,6 +198,31 @@ Phases (any failure exits non-zero before the result line):
      1e-1 of max |logit| of the f32 arm, argmax equal on at least 99% of
      the rows whose top-2 gap exceeds 2^-6 of max |logit|; shapes, no NaN
      or Inf
+ 22. the image pipeline (`read_images_iter` -> `TPUModel.transform_batches`;
+     `ImageTransformer`, `ImageFeaturizer`; torch ops, no hand-written
+     kernel): (0) the host's codecs (the native decoder built from
+     `mmlspark_tpu_torch/native/decode.cpp`, PIL), each holding a PNG of
+     distinct channels; (a) bench.py bench_ingestion's configuration: 768
+     PNGs of 224 x 224 x 3 written with the standard library, read in
+     batches of 128 with resize_to (224, 224) and scored by the ResNet-50
+     of phase 21 at bf16, at depth 0 (the Autotuner), fixed 8 and the hand
+     sweep 2-32: images/s each, autotune over the best hand arm, the
+     autotune arm's decode / host / transfer / compute / drain
+     thread-seconds and decisions (when the host decodes no PNG, (a)
+     starts from the pixel arrays and says so); gates: pixels equal the
+     written arrays, all rows in order in every arm, streamed scores
+     within 1e-3 of max |score| of `transform` over the stacked arrays,
+     argmax equal; (b) 1024 seeded 240 x 320 images through
+     `ImageTransformer.resize(256, 256).center_crop(224, 224).flip()` and
+     `ImageFeaturizer` over that ResNet-50 at f32 (cut 1: pool, 2048; cut
+     2: stage4, 7 x 7 x 2048), images/s each; each op alone at (256, 320,
+     240, 3) float32 by CUDA events with its bytes and share of 3.35 TB/s;
+     gates: each op and the transformer against the port's CPU forward
+     (exact for crop, flip, threshold, the channel swap and unroll; within
+     1e-3 of the 255 range otherwise), the featurizer's f32 features
+     within 1e-5 of max |feature| of the CPU's, the widths, and two
+     planted faults (resize without antialiasing, a 4 x 4 blur padded
+     symmetrically) rejected by the op limit
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -5763,6 +5790,433 @@ def resnet50_bundle(images: np.ndarray, branch_scale: float):
     return calibrated_bundle(r50, images, seed=1, branch_scale=branch_scale)
 
 
+# -- phase 22: the image pipeline ---------------------------------------------
+
+# bench.py bench_ingestion's configuration: 768 PNGs of 224 x 224 x 3 on
+# disk, read in batches of 128, scored by resnet50() at bf16; the depth
+# knob 0 (the Autotuner), fixed 8 and the hand sweep, decisions every 4
+# decode-batch pulls.  (b): 1024 seeded uint8 images 240 high, 320 wide
+# (a resize to 256 x 256 scales the height up and the width down), batch
+# 256; each op alone at (256, 320, 240, 3) float32.
+INGEST = dict(n_files=768, side=224, batch=128, fixed=8,
+              sweep=(2, 4, 8, 16, 32), interval=4, calibration_rows=32)
+TRANSFORM = dict(images=1024, height=240, width=320, batch=256, reps=3,
+                 check_rows=16, cpu_feature_rows=8)
+OPS_SHAPE = (256, 320, 240, 3)
+OPS_CHECK_ROWS = 8
+# on [0, 255]: the card against the port's CPU forward of the same op
+OP_TOL = 1e-3
+ZOO_RESNET50 = {"input_shape": [1, 224, 224, 3],
+                "layer_names": ["z", "pool", "stage4", "stage3", "stage2",
+                                "stage1"]}
+
+
+def png_bytes(arr: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of an (H, W, 3) uint8 array, written with the
+    standard library alone (filter 0 on every row, zlib, CRC32)."""
+    import struct
+    import zlib
+    h, w, _ = arr.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          np.ascontiguousarray(arr).reshape(h, w * 3)],
+                         axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def ingest_corpus(directory: str) -> tuple:
+    """bench_ingestion's corpus: image n is (i + j) % 256 + 7 n (mod 256),
+    gray replicated to 3 channels; returns (paths, arrays)."""
+    import os
+    side = INGEST["side"]
+    base = np.add.outer(np.arange(side), np.arange(side)) % 256
+    paths, arrays = [], []
+    for n in range(INGEST["n_files"]):
+        arr = ((base + 7 * n) % 256).astype(np.uint8)
+        arr = np.stack([arr] * 3, axis=-1)
+        path = os.path.join(directory, f"img_{n:05d}.png")
+        with open(path, "wb") as f:
+            f.write(png_bytes(arr))
+        paths.append(path)
+        arrays.append(arr)
+    return paths, np.stack(arrays)
+
+
+def codecs() -> dict:
+    """Which host decoders this machine has: the native library (built
+    here from `mmlspark_tpu_torch/native/decode.cpp`) and PIL; a decoder
+    that is present must return the written pixels (BGR) of a PNG with
+    distinct channels."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.io import image_reader
+    out = {}
+    try:
+        native_loader.build_native()
+        out["native"] = "built"
+    except Exception as e:   # reported, and then PIL or nothing decodes
+        detail = getattr(e, "stderr", "") or repr(e)
+        out["native"] = f"unavailable ({detail.strip().splitlines()[-1]})"
+    try:
+        import PIL
+        out["pil"] = f"PIL {PIL.__version__}"
+    except ImportError as e:
+        out["pil"] = f"unavailable ({e})"
+    rgb = np.random.default_rng(3).integers(0, 256, (48, 64, 3),
+                                            dtype=np.uint8)
+    data = png_bytes(rgb)
+    if out["native"] == "built":
+        got = native_loader.native_decode(data)
+        require(got is not None and np.array_equal(got, rgb[..., ::-1]),
+                "phase 22: the native decoder returned wrong pixels")
+    if out["pil"].startswith("PIL"):
+        got = image_reader._pil_decode(data)
+        require(got is not None and np.array_equal(got, rgb[..., ::-1]),
+                "phase 22: PIL returned wrong pixels")
+    out["decodes"] = out["native"] == "built" or out["pil"].startswith("PIL")
+    return out
+
+
+def ingest_arm(model, knob: int, source) -> dict:
+    """One arm of (a): `source()` -> `model.transform_batches` with the
+    one depth knob governing both the reader's decode lookahead (the
+    config variable) and the model's staging window (the Param)."""
+    from mmlspark_tpu_torch import config
+    config.set("MMLSPARK_TPU_PREFETCH_DEPTH", knob)
+    m = model.copy(prefetchDepth=knob)
+    paths, scores, images = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scored in m.transform_batches(source()):
+        paths.extend(scored["path"])
+        scores.append(scored["scores"])
+        images.append(scored["image"])
+    wall = time.perf_counter() - t0
+    return {"rate": len(paths) / wall, "paths": paths,
+            "scores": np.concatenate(scores), "images": images}
+
+
+def phase_image_pipeline(dev, card) -> dict:
+    """chip_smoke phase 22: the image pipeline.  (0) the host's codecs;
+    (a) bench_ingestion's configuration: 768 PNGs written with the
+    standard library -> `read_images_iter(batch_size=128, resize_to=(224,
+    224))` -> `TPUModel(resnet50 bf16, miniBatchSize=128)
+    .transform_batches` at depth 0 (the Autotuner), fixed 8 and the hand
+    sweep, images/s each, the autotune arm's spans and decisions; gates:
+    decoded pixels equal the written arrays, every arm yields the 768 rows
+    in order, streamed scores agree with `transform` of the stacked
+    arrays.  (b) 1024 seeded 240 x 320 images -> `ImageTransformer.resize(
+    256, 256).center_crop(224, 224).flip()` -> `ImageFeaturizer` over the
+    same ResNet-50 at f32, cut 1 (pool) and 2 (stage4), images/s each;
+    each op alone at (256, 320, 240, 3) float32 timed by CUDA events
+    against its bytes; gates: every op and the transformer against the
+    port's CPU forward, the featurizer's f32 features against the CPU's,
+    the widths, two planted faults rejected."""
+    import os
+    import tempfile
+    from mmlspark_tpu_torch import DataTable, TPUModel, config
+    from mmlspark_tpu_torch.data import Dataset
+    from mmlspark_tpu_torch.io.image_reader import (_dense_batch,
+                                                    _resize_all,
+                                                    decoder_counts,
+                                                    read_images_iter)
+    from mmlspark_tpu_torch.observe.telemetry import run_telemetry
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    # (0) codecs
+    out["codecs"] = codecs()
+    print(f"phase 22 codecs: native decoder {out['codecs']['native']}; "
+          f"{out['codecs']['pil']}")
+    bs = INGEST["batch"]
+    prev_depth = config.get("MMLSPARK_TPU_PREFETCH_DEPTH")
+    prev_interval = config.get("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL")
+    with tempfile.TemporaryDirectory() as corpus:
+        t_write = time.perf_counter()
+        paths, arrays = ingest_corpus(corpus)
+        out["corpus"] = {"files": len(paths), "write_s":
+                         time.perf_counter() - t_write,
+                         "bytes": sum(os.path.getsize(p) for p in paths)}
+        if out["codecs"]["decodes"]:
+            def source():
+                return read_images_iter(corpus, batch_size=bs,
+                                        resize_to=(224, 224), device=dev)
+            out["decoder"] = "files"
+        else:
+            print(f"decoder: unavailable on this host "
+                  f"(native {out['codecs']['native']}; "
+                  f"{out['codecs']['pil']}); (a) starts from the pixel "
+                  "arrays")
+
+            def source():
+                def decode(chunk):
+                    return _dense_batch([p for p, _ in chunk], _resize_all(
+                        [a for _, a in chunk], (224, 224), dev))
+                return (Dataset.from_iterable(lambda: zip(paths, arrays))
+                        .batch(bs).map(decode, name="decode"))
+            out["decoder"] = "arrays"
+        r50 = resnet50_bundle(arrays[:INGEST["calibration_rows"]],
+                              VISION["resnet_branch_scale"])
+        model = TPUModel(r50, device=dev, inputCol="image",
+                         outputCol="scores", miniBatchSize=bs,
+                         computeDtype="bfloat16")
+        model.transform(DataTable({"image": arrays[:bs]}))   # warm
+        reference = model.transform(DataTable({"image": arrays}))["scores"]
+        before = dict(decoder_counts)
+        arms = {}
+        try:
+            config.set("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL",
+                       INGEST["interval"])
+            # one untimed pass first: the decoder's and the reader's
+            # first-use costs are not the first timed arm's
+            ingest_arm(model, INGEST["fixed"], source)
+            arms["fixed_8"] = ingest_arm(model, INGEST["fixed"], source)
+            for knob in INGEST["sweep"]:
+                arms[f"hand_{knob}"] = ingest_arm(model, knob, source)
+            # the run installs its own timings collector: read that one
+            with run_telemetry(None) as rt:
+                arms["autotune"] = ingest_arm(model, 0, source)
+            spans = rt.timings
+            decisions = [r["attrs"] for r in rt.tracer.records()
+                         if r.get("name") == "data.autotune"]
+        finally:
+            config.set("MMLSPARK_TPU_PREFETCH_DEPTH", prev_depth)
+            config.set("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL", prev_interval)
+    decoded = {k: decoder_counts[k] - before[k] for k in decoder_counts}
+    gap_scale = float(np.abs(reference).max())
+    for name, arm in arms.items():
+        require(arm["paths"] == paths,
+                f"phase 22 {name}: {len(arm['paths'])} rows, not the "
+                f"{len(paths)} files in order")
+        got = np.concatenate(arm["images"])
+        require(got.shape == arrays.shape and np.array_equal(got, arrays),
+                f"phase 22 {name}: the streamed pixels differ from the "
+                "written arrays")
+        gap = float(np.abs(arm["scores"] - reference).max())
+        same = bool((arm["scores"].argmax(1) == reference.argmax(1)).all())
+        arm["max_gap"] = gap
+        require(same and gap <= 1e-3 * gap_scale,
+                f"phase 22 {name}: streamed scores against transform of the "
+                f"stacked arrays: max gap {gap:.3e} (limit "
+                f"{1e-3 * gap_scale:.3e}), argmax equal {same}")
+    hand = {k: a["rate"] for k, a in arms.items() if k.startswith("hand_")}
+    best = max(hand, key=hand.get)
+    out["ingest"] = {
+        "images": len(paths), "batch": bs, "decoded": decoded,
+        "images_per_s": {k: a["rate"] for k, a in arms.items()},
+        "hand_best": best,
+        "autotune_vs_hand_best": arms["autotune"]["rate"] / hand[best],
+        "max_score_gap": max(a["max_gap"] for a in arms.values()),
+        "max_abs_score": gap_scale, "spans": spans.summary(),
+        "autotune_decisions": decisions,
+        "service_arm": "not ported (A12)"}
+    print(f"phase 22 (a) ingestion of {len(paths)} PNGs "
+          f"({out['corpus']['bytes']} bytes, written in "
+          f"{out['corpus']['write_s']:.2f} s; decoded {decoded}): images/s "
+          + ", ".join(f"{k} {a['rate']:.1f}" for k, a in arms.items())
+          + f"; autotune / best hand ({best}) "
+          f"{out['ingest']['autotune_vs_hand_best']:.3f}; autotune spans "
+          + "/".join(f"{k} {v:.3f}" for k, v in spans.seconds.items())
+          + f" thread-s; {len(decisions)} autotune decisions "
+          + str([(d['stage'], d['action'], d['depth_to'])
+                 for d in decisions][:8])
+          + f"; pixels equal, rows in order, max score gap "
+          f"{out['ingest']['max_score_gap']:.3e} of max |score| "
+          f"{gap_scale:.3e}; service arm: not ported (A12) [{card}]")
+    del arms, reference
+    torch.cuda.empty_cache()
+    out["transform"] = transform_and_featurize(dev, card, r50)
+    out["ops"] = time_image_ops(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 22 (the image pipeline): {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def transform_and_featurize(dev, card, r50) -> dict:
+    """(b): the transformer and the featurizer end to end, each against
+    the port's CPU forward."""
+    from mmlspark_tpu_torch import DataTable
+    from mmlspark_tpu_torch.models import ModelBundle
+    from mmlspark_tpu_torch.vision import ImageFeaturizer, ImageTransformer
+    cfg = TRANSFORM
+    rng = np.random.default_rng(22)
+    images = rng.integers(0, 256, (cfg["images"], cfg["height"],
+                                   cfg["width"], 3), dtype=np.uint8)
+    table = DataTable({"image": images})
+    out = {}
+
+    def chain(device):
+        return (ImageTransformer(inputCol="image", outputCol="image",
+                                 device=device)
+                .resize(256, 256).center_crop(224, 224).flip())
+    transformer = chain(dev)
+    transformer.transform(DataTable({"image": images[:cfg["batch"]]}))
+    rates = []
+    for _ in range(cfg["reps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        crops = transformer.transform(table)["image"]
+        rates.append(len(images) / (time.perf_counter() - t))
+    n = cfg["check_rows"]
+    cpu = chain("cpu").transform(DataTable({"image": images[:n]}))["image"]
+    err = float(np.abs(crops[:n] - cpu).max())
+    require(crops.shape == (len(images), 224, 224, 3)
+            and crops.dtype == np.float32 and err <= OP_TOL * 255,
+            f"phase 22 transformer: {crops.shape} {crops.dtype}, card vs CPU "
+            f"max |d| {err:.3e} (limit {OP_TOL * 255:.3e})")
+    out["transformer"] = {"images_per_s": sorted(rates), "max_abs_err": err}
+    bundle = ModelBundle(r50.architecture, r50.config, r50.variables,
+                         {**(r50.metadata or {}), **ZOO_RESNET50})
+    crops_table = DataTable({"image": crops})
+    m = cfg["cpu_feature_rows"]
+    for cut, want in ((1, (2048,)), (2, (7, 7, 2048))):
+        feat = ImageFeaturizer(bundle, inputCol="image", outputCol="f",
+                               cutOutputLayers=cut,
+                               miniBatchSize=cfg["batch"], device=dev)
+        feat.transform(DataTable({"image": crops[:cfg["batch"]]}))
+        rates = []
+        for _ in range(cfg["reps"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            feats = feat.transform(crops_table)["f"]
+            rates.append(len(crops) / (time.perf_counter() - t))
+        cpu = ImageFeaturizer(bundle, inputCol="image", outputCol="f",
+                              cutOutputLayers=cut, miniBatchSize=m,
+                              device="cpu").transform(
+            DataTable({"image": crops[:m]}))["f"]
+        scale = float(np.abs(cpu).max())
+        err = float(np.abs(feats[:m] - cpu).max())
+        require(feats.shape == (len(crops),) + want
+                and bool(np.isfinite(feats).all())
+                and err <= 1e-5 * scale,
+                f"phase 22 featurizer cut {cut}: {feats.shape} (want "
+                f"{(len(crops),) + want}), card f32 vs CPU max |d| "
+                f"{err:.3e} (limit {1e-5 * scale:.3e})")
+        out[f"featurizer_cut{cut}"] = {
+            "node": ZOO_RESNET50["layer_names"][cut], "width": list(want),
+            "images_per_s": sorted(rates), "max_abs_err": err,
+            "max_abs_feature": scale}
+    print(f"phase 22 (b) ImageTransformer resize(256, 256).center_crop(224, "
+          f"224).flip() over {len(images)} images 240 x 320: "
+          f"{max(out['transformer']['images_per_s']):.1f} images/s (best "
+          f"of {cfg['reps']}), card vs CPU {out['transformer']['max_abs_err']:.3e}; "
+          + "; ".join(
+              f"ImageFeaturizer cut {c} ({out[f'featurizer_cut{c}']['node']}, "
+              f"{out[f'featurizer_cut{c}']['width']}) f32 "
+              f"{max(out[f'featurizer_cut{c}']['images_per_s']):.1f} "
+              f"images/s, card vs CPU "
+              f"{out[f'featurizer_cut{c}']['max_abs_err']:.3e} of max "
+              f"|feature| {out[f'featurizer_cut{c}']['max_abs_feature']:.3e}"
+              for c in (1, 2)) + f" [{card}]")
+    return out
+
+
+def image_op_cases(x):
+    """name -> (call on a (B, H, W, C) tensor, exact?).  crop returns a
+    view, so its timed form copies the crop out."""
+    from mmlspark_tpu_torch.ops import image as ops
+    return {
+        "resize_down_160x120": (lambda t: ops.resize(t, 160, 120), False),
+        "resize_up_480x360": (lambda t: ops.resize(t, 480, 360), False),
+        "resize_mixed_256x256": (lambda t: ops.resize(t, 256, 256), False),
+        "crop_224": (lambda t: ops.crop(t, 8, 48, 224, 224).contiguous(),
+                     True),
+        "flip": (lambda t: ops.flip(t, 1), True),
+        "bgr2gray": (lambda t: ops.cvt_color(t, "bgr2gray"), False),
+        "bgr2rgb": (lambda t: ops.cvt_color(t, "bgr2rgb"), True),
+        "blur_4x4": (lambda t: ops.blur(t, 4, 4), False),
+        "blur_5x5": (lambda t: ops.blur(t, 5, 5), False),
+        "gaussian_kernel_4": (lambda t: ops.gaussian_kernel(t, 4, 1.0),
+                              False),
+        "gaussian_kernel_5": (lambda t: ops.gaussian_kernel(t, 5, 0.0),
+                              False),
+        "threshold": (lambda t: ops.threshold(t, 127.5, 255.0), True),
+        "normalize": (lambda t: ops.normalize(t, [0.45, 0.45, 0.45],
+                                              [0.25, 0.25, 0.25]), False),
+        "unroll": (lambda t: ops.unroll(t), True),
+    }
+
+
+def unfiltered_resize(x: torch.Tensor, height: int,
+                      width: int) -> torch.Tensor:
+    """A planted fault: `ops.image.resize` without the antialiasing
+    filter that `jax.image.resize` applies when it downsamples."""
+    return torch.nn.functional.interpolate(
+        x.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
+        align_corners=False, antialias=False).permute(0, 2, 3, 1)
+
+
+def mirrored_blur(x: torch.Tensor, k: int) -> torch.Tensor:
+    """A planted fault: `ops.image.blur` with an even window's "SAME"
+    padding mirrored (k // 2 low, (k - 1) // 2 high)."""
+    pads = (k // 2, (k - 1) // 2) * 2
+    f = torch.nn.functional
+    summed = f.avg_pool2d(f.pad(x.permute(0, 3, 1, 2), pads), k, stride=1,
+                          divisor_override=1)
+    ones = torch.ones((1, 1) + tuple(x.shape[1:3]), device=x.device)
+    counts = f.avg_pool2d(f.pad(ones, pads), k, stride=1,
+                          divisor_override=1)
+    return (summed / counts).permute(0, 2, 3, 1)
+
+
+def time_image_ops(dev, card) -> dict:
+    """Each op alone at OPS_SHAPE float32 on the card: CUDA-event median
+    of 5 after warm-up, the bytes it must move (its input read once, its
+    output written once) and their share of 3.35 TB/s; each checked
+    against the port's CPU forward on the first rows, and two planted
+    faults (resize without the antialiasing filter, a 4 x 4 blur padded
+    symmetrically) rejected by the same limit."""
+    from mmlspark_tpu_torch.ops import image as ops
+    rng = np.random.default_rng(23)
+    host = rng.uniform(0, 255, OPS_SHAPE).astype(np.float32)
+    x = torch.from_numpy(host).to(dev)
+    head = torch.from_numpy(host[:OPS_CHECK_ROWS].copy())
+    rows, lines = {}, []
+    with torch.inference_mode():
+        for name, (fn, exact) in image_op_cases(x).items():
+            y = fn(x)
+            torch.cuda.synchronize()
+            ref = fn(head)
+            err = float((y[:OPS_CHECK_ROWS].cpu() - ref).abs().max())
+            require(err == 0.0 if exact else err <= OP_TOL * 255,
+                    f"phase 22 op {name}: card vs CPU max |d| {err:.3e} "
+                    f"(limit {'exact' if exact else OP_TOL * 255})")
+            ms = cuda_ms(lambda: fn(x), warmup=2, reps=5)
+            nbytes = x.numel() * x.element_size() + y.numel() * \
+                y.element_size()
+            share = nbytes / (ms * 1e-3) / PEAK_BYTES
+            rows[name] = {"ms": ms, "bytes": nbytes, "bw_share": share,
+                          "max_abs_err": err, "out_shape": list(y.shape)}
+            lines.append(f"{name} {ms:.3f} ms {nbytes / 1e6:.1f} MB "
+                         f"{share:.3f} of 3.35 TB/s (card vs CPU "
+                         f"{err:.1e})")
+            del y
+        faults = {
+            "resize without antialias": lambda t: unfiltered_resize(
+                t, 160, 120),
+            "blur 4x4 padded symmetrically": lambda t: mirrored_blur(t, 4)}
+        sound = {"resize without antialias": lambda t: ops.resize(t, 160,
+                                                                  120),
+                 "blur 4x4 padded symmetrically": lambda t: ops.blur(t, 4,
+                                                                     4)}
+        caught = {}
+        for name, fault in faults.items():
+            err = float((fault(x)[:OPS_CHECK_ROWS].cpu()
+                         - sound[name](head)).abs().max())
+            caught[name] = err
+            require(err > OP_TOL * 255,
+                    f"phase 22: the op gate passed the planted fault "
+                    f"'{name}' (max |d| {err:.3e})")
+    print(f"phase 22 ops at {OPS_SHAPE} float32 (CUDA events, median of 5): "
+          + "; ".join(lines) + "; planted faults rejected: "
+          + ", ".join(f"{k} max |d| {v:.3e}" for k, v in caught.items())
+          + f" (limit {OP_TOL * 255:.3e}) [{card}]")
+    return {"shape": list(OPS_SHAPE), "rows": rows, "faults": caught}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5843,6 +6297,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision = phase_vision_scoring(dev, card)
     print(json.dumps({"vision_scoring": vision, "card": card}))
+    torch.cuda.empty_cache()
+    image_pipeline = phase_image_pipeline(dev, card)
+    print(json.dumps({"image_pipeline": image_pipeline, "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

@@ -37,7 +37,11 @@ MLP, linear, ConvNet and ResNet models (ResNet-50 included; bf16, f32 and
 int8 weights; convolutions, BatchNorm and Dense layers on cuDNN and
 cuBLAS, with staging through pinned buffers and a copy stream), composed
 with `Pipeline` / `PipelineModel`, over bundles from the local model zoo
-(`zoo.ModelDownloader`, `zoo.pretrained_repo`).
+(`zoo.ModelDownloader`, `zoo.pretrained_repo`); and the image pipeline
+that feeds it: `io.read_images` / `io.read_images_iter` over local, zip
+and remote sources with the host decoder (`native_loader`), the streaming
+`data.Dataset` with its depth Autotuner, and `vision.ImageTransformer`,
+`UnrollImage` and `ImageFeaturizer` (torch image ops on the card).
 
 Layer map:
   core/    - params DSL, column metadata and the schema helpers, DataTable,
@@ -51,8 +55,12 @@ Layer map:
              repeat), the collectives, attention over a mesh and the
              seq-parallel LM step (ring.py), the partition-rule data, the
              ordered Prefetcher and the pinned host <-> device feed
-  ops/     - attention in torch (dense, cache read, stats merge, ring,
-             differentiable ring flash, Ulysses) and
+  io/      - binary-file, image, remote (http, gs, s3) and SQL readers
+  data/    - the streaming Dataset graph, its executor, the depth
+             Autotuner, snapshot offsets; the data service's framing
+  vision/  - ImageTransformer, UnrollImage, ImageFeaturizer
+  ops/     - the image ops; attention in torch (dense, cache read, stats
+             merge, ring, differentiable ring flash, Ulysses) and
              the kernel wrappers (flash forward and backward, single-query
              decode read and its stats entry), the nvcc build/loader
   quant/   - weight PTQ of bundles (bf16, int8), the int8 Dense and Conv
@@ -64,9 +72,12 @@ Layer map:
              and the lifecycle (threads, SIGTERM drain)
   observe/ - logger, counters, spans, traces, run telemetry, SLOs,
              waterfalls, Prometheus text, numerics probes
-  resilience/ - the injectable clock, circuit breakers, the SIGTERM
-             guard and step watchdog, the seeded chaos injector,
-             checkpoint rotation and the async writer
+  resilience/ - the injectable clock, circuit breakers, the retry
+             policy and the one HTTP seam, the SIGTERM guard and step
+             watchdog, the seeded chaos injector, checkpoint rotation
+             and the async writer
+  native_loader.py, native/ - the host image decoder (C++, g++ at first
+             use)
   config.py - the MMLSPARK_TPU_* knob registry (the JAX package's names)
   utils/   - analytic FLOP accounting
   csrc/    - the CUDA sources

@@ -7,6 +7,9 @@ quietly computing on the host.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -21,3 +24,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32() -> Iterator[None]:
+    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside the
+    block, the caller's settings restored after it."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -20,11 +20,14 @@ on this path.
     cuBLAS, set by the stage itself, so f32 means f32 on the card.
   * **Staging**: the host half of every batch (stacking the column,
     zero padding into a pinned buffer, the non-blocking copy on a side
-    stream) runs on a `Prefetcher`'s threads, `prefetchDepth` batches
-    ahead of the dispatch thread, which only launches the forward and
-    drains results through pinned buffers (`parallel/bridge.py`
-    `DeviceFeed`).  `transform_batches` keeps one window open across
-    tables.
+    stream) runs on the worker threads of a `Dataset` map stage
+    (`data/dataset.py`), `prefetchDepth` batches ahead of the dispatch
+    thread, which only launches the forward and drains results through
+    pinned buffers (`parallel/bridge.py` `DeviceFeed`).  The device's
+    in-flight window follows the stage's depth live, so with
+    `prefetchDepth=0` the data layer's Autotuner sizes both.
+    `transform_batches` keeps one window open across tables, and takes
+    any iterable of tables, a `Dataset` of them included.
   * **Inputs**: uint8 columns travel as bytes and are cast to float32 on
     the device; other integer columns are not cast; float64 columns are
     scored as float32, as JAX (without x64) places them.
@@ -33,9 +36,8 @@ on this path.
     float32; the JAX stage returns it as bfloat16.
 
 Not ported, each raising with its ROADMAP item: a mesh of several devices
-(`set_mesh`, the multi-host path; A10), a `Dataset` input (A12),
-`prefetchDepth=0` (autotune, A12), and the device-cached `CheckpointData`
-column (A6).  The port records no program-cost rows
+(`set_mesh`, the multi-host path; A10) and the device-cached
+`CheckpointData` column (A6).  The port records no program-cost rows
 (`observe/costmodel.py`, A11).  A TransformerLM bundle is scored by
 `TextGenerator`, not here.
 """
@@ -49,7 +51,7 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
-from mmlspark_tpu_torch.core.device import resolve_device
+from mmlspark_tpu_torch.core.device import exact_f32, resolve_device
 from mmlspark_tpu_torch.core.params import Param
 from mmlspark_tpu_torch.core.pipeline import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
@@ -60,21 +62,8 @@ from mmlspark_tpu_torch.observe.trace import (active_tracer,
                                               current_span_id,
                                               span_on_tracer)
 from mmlspark_tpu_torch.parallel.bridge import DeviceFeed
-from mmlspark_tpu_torch.parallel.prefetch import (OncePerTable, Prefetcher,
-                                                  resolve_depth)
-
-
-@contextlib.contextmanager
-def exact_f32() -> Iterator[None]:
-    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside the
-    block, the caller's settings restored after it."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+from mmlspark_tpu_torch.data import Dataset
+from mmlspark_tpu_torch.parallel.prefetch import OncePerTable
 
 
 class TPUModel(Transformer):
@@ -95,8 +84,9 @@ class TPUModel(Transformer):
     prefetchDepth = Param(
         None, "pipeline depth: staged batches in flight (host staging and "
         "the host->device copy overlap the forward); None defers to "
-        "MMLSPARK_TPU_PREFETCH_DEPTH, positive values pin the depth, -1 "
-        "disables overlap; 0 (autotune) is not ported and raises",
+        "MMLSPARK_TPU_PREFETCH_DEPTH, positive values pin the depth, 0 "
+        "lets the data layer's Autotuner size it from measured stalls, -1 "
+        "disables overlap",
         ptype=int, validator=lambda v: v >= -1)
     computeDtype = Param(
         None, "compute-dtype override: 'bfloat16' runs a float32 bundle "
@@ -221,10 +211,9 @@ class TPUModel(Transformer):
     def _check_input(self, table) -> str:
         self._check_required()
         if not isinstance(table, DataTable):
-            raise NotImplementedError(
-                f"TPUModel scores DataTables; a {type(table).__name__} "
-                "input (the data layer's Dataset) is not ported (ROADMAP "
-                "A12)")
+            raise TypeError(
+                f"TPUModel scores DataTables, not a {type(table).__name__}; "
+                "stream a Dataset of tables through transform_batches")
         if getattr(table, "_device_cache", None):
             raise NotImplementedError(
                 "the device-cached CheckpointData column is not ported "
@@ -240,14 +229,14 @@ class TPUModel(Transformer):
         return scored
 
     def transform_batches(self, tables) -> Iterator[DataTable]:
-        """Streaming scoring: for each incoming table yield it back with
-        the output column appended.  Only the dispatch window's batches
-        are resident on the host or the device, and the window stays open
-        across table boundaries (module docstring)."""
+        """Streaming scoring: for each incoming table (any iterable of
+        tables: a list, `read_images_iter`, a `Dataset`) yield it back
+        with the output column appended.  Only the dispatch window's
+        batches are resident on the host or the device, and the window
+        stays open across table boundaries (module docstring)."""
         self._check_required()
         module = self._scoring_module()
         bs = self.miniBatchSize
-        depth = resolve_depth(self.prefetchDepth)
         feed = self._get_feed()
         timings = active_timings()   # captured HERE: workers have no context
         tracer = active_tracer()
@@ -300,7 +289,13 @@ class TPUModel(Transformer):
                 ready.append(rec["table"].with_column(self.outputCol,
                                                       result))
 
-        staged = Prefetcher(stage, plans(), depth=depth, name="score")
+        staged = (Dataset.from_iterable(plans)
+                  .map(stage, name="score", depth=self.prefetchDepth,
+                       span=None)
+                  .iterator())
+        # the device's in-flight window follows the staging depth live, so
+        # an Autotuner widen deepens dispatch pipelining in the same step
+        score_runner = staged.stage("score").runner
         try:
             for kind, rec, payload, event, valid in staged:
                 if rec.get("queued") is None:
@@ -320,7 +315,7 @@ class TPUModel(Transformer):
                         out = self._apply(module, feed.ready(dev, event))
                         handle = feed.fetch(out)
                     in_flight.append((handle, valid, rec))
-                    drain(depth)
+                    drain(score_runner.depth)
                 while ready:
                     yield ready.pop(0)
             drain(0)

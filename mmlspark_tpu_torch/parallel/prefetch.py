@@ -16,9 +16,10 @@ strictly in submission order, so pipelining never reorders rows.
 
 `depth=0` is a synchronous inline map on the consumer thread (prefetch
 off).  The depth knob is the JAX package's: `prefetchDepth` /
-`MMLSPARK_TPU_PREFETCH_DEPTH`, positive pins it, -1 is synchronous; 0
-(autotune) needs the data layer's Autotuner, which is not ported, and
-raises (`resolve_depth`).
+`MMLSPARK_TPU_PREFETCH_DEPTH`, positive pins it, -1 is synchronous, 0
+autotunes: the data layer's `Autotuner` (`data/autotune.py`) starts the
+window at DEPTH_FLOOR and resizes it live (`set_depth`, up to
+`max_depth`) from the counters every Prefetcher keeps (`stats()`).
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ from mmlspark_tpu_torch import config
 PREFETCH_DEPTH = config.register(
     "MMLSPARK_TPU_PREFETCH_DEPTH", default=8, ptype=int,
     doc="Default pipeline depth: staged batches in flight per hot loop "
-        "(TPUModel scoring window). Positive values pin the depth; -1 "
-        "disables overlap (synchronous per-batch round trips); 0 "
-        "(autotune) is not ported and raises.")
+        "(TPUModel scoring window). Positive values pin the depth; 0 "
+        "means autotune (the data layer's Autotuner starts at the "
+        "DEPTH_FLOOR and resizes from measured stage timings); -1 "
+        "disables overlap (synchronous per-batch round trips).")
 
 PREFETCH_WORKERS = config.register(
     "MMLSPARK_TPU_PREFETCH_WORKERS", default=4, ptype=int,
@@ -45,20 +47,24 @@ PREFETCH_WORKERS = config.register(
         "the host->device copy.")
 
 
-def resolve_depth(value=None) -> int:
-    """Resolve a depth knob to a depth: `None` defers to
-    MMLSPARK_TPU_PREFETCH_DEPTH, a positive value pins the depth, a
-    negative one means synchronous (depth 0); 0 asks for the data layer's
-    Autotuner, which the port does not have yet, and raises."""
+# The autotuner's floor: an autotuned stage starts here and is never
+# narrowed below it, so "autotune" always keeps at least double buffering.
+DEPTH_FLOOR = 2
+
+
+def resolve_depth(value=None) -> tuple:
+    """Resolve a depth knob to `(depth, autotune)`: `None` defers to
+    MMLSPARK_TPU_PREFETCH_DEPTH, a positive value pins the depth, 0 asks
+    for autotuning from DEPTH_FLOOR, a negative one means synchronous
+    (depth 0)."""
     if value is None:
         value = int(config.get("MMLSPARK_TPU_PREFETCH_DEPTH"))
     value = int(value)
+    if value > 0:
+        return value, False
     if value == 0:
-        raise NotImplementedError(
-            "prefetch depth 0 (autotune) needs the data layer's Autotuner, "
-            "which is not ported (ROADMAP A12); pin a positive depth or "
-            "pass -1 for synchronous staging")
-    return max(value, 0)
+        return DEPTH_FLOOR, True
+    return 0, False
 
 
 class Prefetcher:
@@ -71,16 +77,20 @@ class Prefetcher:
 
     def __init__(self, fn: Callable[[Any], Any], items: Iterable, *,
                  depth: int, workers: Optional[int] = None,
-                 name: str = "prefetch"):
+                 max_depth: Optional[int] = None, name: str = "prefetch"):
         self._closed = False  # first: __del__ runs even if init raises
         if depth < 0:
             raise ValueError(f"prefetch depth must be >= 0, got {depth}")
         self._fn = fn
         self._items = iter(items)
         self._depth = int(depth)
+        # the pool is sized for `max_depth`, so `set_depth()` can widen a
+        # running stage without rebuilding threads (the Autotuner's lever)
+        self._max_depth = (max(self._depth, int(max_depth))
+                           if max_depth is not None else self._depth)
         if workers is None:
             workers = int(config.get("MMLSPARK_TPU_PREFETCH_WORKERS"))
-        self._workers = max(1, min(int(workers), self._depth or 1))
+        self._workers = max(1, min(int(workers), self._max_depth or 1))
         self._name = name
         self._pending: deque = deque()   # futures, submission order
         self._executor: Optional[ThreadPoolExecutor] = None
@@ -90,11 +100,35 @@ class Prefetcher:
         # see its contextvar
         from mmlspark_tpu_torch.observe.telemetry import active_run
         self._run = active_run()
+        # always-on counters, which the Autotuner reads through `stats()`
         self.stall_s = 0.0   # consumer time blocked on unfinished staging
+        self.stalls = 0      # deliveries that blocked on an unfinished item
+        self.deliveries = 0  # results handed to the consumer
+        self.residency = 0   # sum of the staged queue's length at each one
 
     @property
     def depth(self) -> int:
         return self._depth
+
+    @property
+    def max_depth(self) -> int:
+        return self._max_depth
+
+    def set_depth(self, depth: int) -> int:
+        """Retune the staged window live, clamped to [1, max_depth];
+        returns the depth applied.  A synchronous prefetcher (max_depth
+        0) has no window and stays at 0."""
+        if self._max_depth <= 0:
+            return 0
+        self._depth = max(1, min(int(depth), self._max_depth))
+        return self._depth
+
+    def stats(self) -> dict:
+        """Counter snapshot: deliveries, stalls, stall_s, residency,
+        depth, max_depth."""
+        return {"deliveries": self.deliveries, "stalls": self.stalls,
+                "stall_s": self.stall_s, "residency": self.residency,
+                "depth": self._depth, "max_depth": self._max_depth}
 
     def __iter__(self) -> Iterator:
         return self
@@ -108,7 +142,9 @@ class Prefetcher:
             except StopIteration:
                 self.close()
                 raise
-            return self._fn(item)
+            result = self._fn(item)
+            self.deliveries += 1
+            return result
         try:
             self._top_up()
             if not self._pending:
@@ -123,6 +159,9 @@ class Prefetcher:
             result = fut.result()
             if stalled:
                 self.stall_s += time.perf_counter() - t0
+                self.stalls += 1
+            self.deliveries += 1
+            self.residency += len(self._pending)
             if self._run is not None:
                 self._run.gauge(f"prefetch.{self._name}.depth",
                                 len(self._pending))

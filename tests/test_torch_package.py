@@ -20,6 +20,8 @@ import torch
 from mmlspark_tpu_torch import (DataTable, ModelBundle, TextGenerator,
                                 TPUModel, TransformerLM)
 from mmlspark_tpu_torch.models import DecodeEngine
+from mmlspark_tpu_torch import native_loader
+from mmlspark_tpu_torch.ops import image as image_ops
 from mmlspark_tpu_torch.ops import native
 from mmlspark_tpu_torch.ops.attention import NEG_INF
 from mmlspark_tpu_torch.ops.decode_attention import (
@@ -33,6 +35,8 @@ from mmlspark_tpu_torch.ops.flash_attention import (
     flash_bwd_dq)
 from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from mmlspark_tpu_torch.quant.quantize import quantize_kv
+from mmlspark_tpu_torch.vision import (ImageFeaturizer, ImageTransformer,
+                                       UnrollImage)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mmlspark_tpu_torch")
@@ -65,7 +69,10 @@ def test_port_never_imports_the_jax_stack():
     assert len(sources) > 10 and os.path.exists(sources[0])
     covered = {os.path.relpath(os.path.dirname(p), PKG) for p in sources[1:]}
     assert {"train", "parallel", "utils", "ops", "models", "quant",
-            "zoo"} <= covered
+            "zoo", "io", "data", "vision", "resilience"} <= covered
+    for module in ("native_loader.py", "ops/image.py", "io/remote.py",
+                   "data/autotune.py", "resilience/net.py"):
+        assert os.path.join(PKG, module) in sources
     offenders = [(os.path.relpath(p, REPO), name) for p in sources
                  for name in _imported_roots(p) if name in FORBIDDEN]
     assert offenders == []
@@ -81,7 +88,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: DecodeEngine(module, 4),
                  lambda: TransformerLM(**CFG),
                  lambda: bundle.module(),
-                 lambda: TPUModel(bundle)):
+                 lambda: TPUModel(bundle),
+                 lambda: ImageTransformer(),
+                 lambda: UnrollImage(),
+                 lambda: ImageFeaturizer(bundle),
+                 lambda: image_ops.resize(np.zeros((1, 4, 4, 3)), 2, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     # an explicit host device is honoured
@@ -102,6 +113,25 @@ def test_kernel_sources_ship_and_build_outside_git():
     with open(os.path.join(REPO, "pyproject.toml")) as f:
         pyproject = f.read()
     assert '"mmlspark_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in pyproject
+
+
+def test_decoder_source_is_the_ports_own_and_builds_outside_git():
+    """The decoder's C++ source lies under mmlspark_tpu_torch/ (the port
+    reads no file of the JAX package) and its library goes to the
+    git-ignored build directory, named by the source's digest."""
+    sources = native_loader.source_paths()
+    assert sources and all(
+        os.path.commonpath([p, PKG]) == PKG and os.path.exists(p)
+        for p in sources)
+    assert native_loader.BUILD_DIR == os.path.join(PKG, "_build")
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        ignored = {line.strip() for line in f}
+    assert "mmlspark_tpu_torch/_build/" in ignored
+    assert native_loader.library_path().startswith(native_loader.BUILD_DIR)
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        assert "mmlspark_tpu/native/" not in text, path
 
 
 def _cpu_mesh(**axes):
@@ -1351,3 +1381,51 @@ def test_scoring_forward_on_the_card_matches_the_cpu(cuda, arch, config,
         card, cpu = score("cuda", **arm), score("cpu", **arm)
         assert np.isfinite(card).all()
         assert np.abs(card - cpu).max() <= limit * np.abs(cpu).max()
+
+
+# ----------------------------------- the image pipeline (no kernel) on the card
+
+IMAGE_OPS = {
+    "resize_linear": (lambda x: image_ops.resize(x, 50, 70), False),
+    "resize_cubic": (lambda x: image_ops.resize(x, 90, 30, "cubic"), False),
+    "resize_lanczos3": (lambda x: image_ops.resize(x, 50, 70, "lanczos3"),
+                        False),
+    "resize_nearest": (lambda x: image_ops.resize(x, 33, 81, "nearest"),
+                       True),
+    "gray": (lambda x: image_ops.cvt_color(x, "bgr2gray"), False),
+    "swap": (lambda x: image_ops.cvt_color(x, "bgr2rgb"), True),
+    "blur_4x4": (lambda x: image_ops.blur(x, 4, 4), False),
+    "gaussian_4": (lambda x: image_ops.gaussian_kernel(x, 4, 1.0), False),
+    "gaussian_blur_5": (lambda x: image_ops.gaussian_blur(x, 5, 0.0), False),
+    "threshold": (lambda x: image_ops.threshold(x, 127.0, 255.0,
+                                                "tozero_inv"), True),
+    "flip": (lambda x: image_ops.flip(x, -1), True),
+    "crop": (lambda x: image_ops.crop(x, 3, 5, 40, 30), True),
+    "normalize": (lambda x: image_ops.normalize(x, [0.4, 0.5, 0.6]), False),
+    "unroll": (lambda x: image_ops.unroll(x), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(IMAGE_OPS))
+def test_image_ops_on_the_card_match_the_cpu(cuda, name):
+    """Each image op on the card against the same op on the CPU, TF32 on
+    globally (the gaussian's conv and the lanczos matmuls turn it off):
+    exact where the op only moves or compares values, else within 1e-3
+    of the 255 range."""
+    fn, exact = IMAGE_OPS[name]
+    host = np.random.default_rng(4).integers(0, 256, (3, 61, 47, 3),
+                                             dtype=np.uint8)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fn(torch.from_numpy(host).to(cuda))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    ref = fn(torch.from_numpy(host))
+    assert got.device.type == "cuda" and got.dtype == ref.dtype
+    diff = (got.cpu().float() - ref.float()).abs().max().item()
+    assert diff == 0.0 if exact else diff <= 1e-3 * 255

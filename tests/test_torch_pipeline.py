@@ -35,8 +35,8 @@ from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models import ModelBundle, TPUModel
 from mmlspark_tpu_torch.observe.metrics import get_counter
 from mmlspark_tpu_torch.parallel.bridge import pad_to_multiple
-from mmlspark_tpu_torch.parallel.prefetch import (OncePerTable, Prefetcher,
-                                                  resolve_depth)
+from mmlspark_tpu_torch.parallel.prefetch import (DEPTH_FLOOR, OncePerTable,
+                                                  Prefetcher, resolve_depth)
 
 
 # ------------------------------------------------------- pipelines ---
@@ -366,15 +366,17 @@ def test_once_per_table_computes_once_across_threads(cls):
 
 
 def test_resolve_depth_follows_the_jax_knob_except_autotune():
-    assert resolve_depth(3) == 3
-    assert resolve_depth(-1) == 0
-    assert resolve_depth(None) == 8
+    """The knob resolves to (depth, autotune) as the JAX package's does,
+    autotune (0) included now that the data layer's Autotuner is
+    ported."""
+    assert resolve_depth(3) == (3, False)
+    assert resolve_depth(-1) == (0, False)
+    assert resolve_depth(None) == (8, False)
     config.set("MMLSPARK_TPU_PREFETCH_DEPTH", 2)
     try:
-        assert resolve_depth(None) == 2
+        assert resolve_depth(None) == (2, False)
         config.set("MMLSPARK_TPU_PREFETCH_DEPTH", 0)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            resolve_depth(None)
+        assert resolve_depth(None) == (DEPTH_FLOOR, True) == (2, True)
     finally:
         config.set("MMLSPARK_TPU_PREFETCH_DEPTH", None)
     assert config.get("MMLSPARK_TPU_PREFETCH_WORKERS") == 4

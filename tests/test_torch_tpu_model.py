@@ -20,12 +20,13 @@ import torch
 
 from mmlspark_tpu.core.pipeline import load_stage as jax_load_stage
 from mmlspark_tpu.core.table import DataTable as JaxDataTable
-from mmlspark_tpu.data import Dataset
+from mmlspark_tpu.data import Dataset as JaxDataset
 from mmlspark_tpu.models import TPUModel as JaxTPUModel
 from mmlspark_tpu.models.bundle import ModelBundle as JaxModelBundle
 from mmlspark_tpu.quant import quantize_bundle as jax_quantize_bundle
 from mmlspark_tpu_torch import DataTable, TPUModel
 from mmlspark_tpu_torch.core.pipeline import load_stage
+from mmlspark_tpu_torch.data import Dataset
 from mmlspark_tpu_torch.models import ModelBundle
 from mmlspark_tpu_torch.models.tpu_model import exact_f32
 from mmlspark_tpu_torch.observe.spans import pipeline_timing
@@ -263,9 +264,16 @@ def test_saved_stages_load_in_both_packages(tmp_path, jax_scores):
 
 def test_defaults_to_the_card_and_raises_on_unported_paths(monkeypatch):
     table = DataTable({"x": rows(MLP, n=4)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        port_model("mlp", prefetchDepth=0).transform(table)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    # depth 0 (the Autotuner) and a Dataset of tables are ported: parity
+    # with depth 8 and with the tables themselves
+    np.testing.assert_array_equal(
+        port_model("mlp", prefetchDepth=0).transform(table)["y"],
+        port_model("mlp", prefetchDepth=8).transform(table)["y"])
+    [streamed] = port_model("mlp").transform_batches(
+        Dataset.from_iterable(lambda: iter([table])))
+    np.testing.assert_array_equal(streamed["y"],
+                                  port_model("mlp").transform(table)["y"])
+    with pytest.raises(TypeError, match="transform_batches"):
         port_model("mlp").transform(Dataset.from_iterable(lambda: iter([])))
     cached = DataTable({"x": rows(MLP, n=4)})
     cached._device_cache = {"x": object()}
@@ -351,3 +359,44 @@ def test_projection_is_decided_at_construction_not_from_shapes():
     assert "Conv_2" not in ref["params"]["ResNetBlock_1"]
     port = ModelBundle.init(arch, cfg, input_shape=(1, 4, 4, 3))
     assert "Conv_2" in port.variables["params"]["ResNetBlock_1"]
+
+
+@pytest.mark.parametrize("knob", [0, 8, -1])
+def test_a_dataset_of_tables_scores_like_the_jax_stage(jax_scores, knob):
+    """A port `Dataset` of ragged tables through `transform_batches` at
+    depth 0 (the Autotuner), 8 and -1 (synchronous), against the JAX
+    stage over a JAX `Dataset` of the same tables: f32 within rtol 1e-5."""
+    parts = np.split(rows(MLP), [5, 6, 6, 30])     # an empty table too
+    got = list(port_model("mlp", prefetchDepth=knob).transform_batches(
+        Dataset.from_iterable(lambda: (DataTable({"x": p}) for p in parts))))
+    ref = list(jax_model("mlp", prefetchDepth=knob).transform_batches(
+        JaxDataset.from_iterable(
+            lambda: (JaxDataTable({"x": p}) for p in parts))))
+    assert [len(t["y"]) for t in got] == [len(p) for p in parts]
+    for g, r in zip(got, ref):
+        assert g["y"].shape == np.asarray(r["y"]).shape
+        if len(g["y"]):
+            close_f32(g["y"], np.asarray(r["y"], np.float32))
+    close_f32(np.concatenate([t["y"] for t in got]), jax_scores["mlp"])
+
+
+def test_depth_zero_tunes_the_scoring_window_live(monkeypatch):
+    """With prefetchDepth=0 the score stage starts at DEPTH_FLOOR and the
+    Autotuner may widen it while the stream runs; scores stay in order."""
+    from mmlspark_tpu_torch.data import dataset as dataset_mod
+    from mmlspark_tpu_torch.parallel.prefetch import DEPTH_FLOOR
+    seen = []
+    real = dataset_mod.DatasetIterator.__init__
+
+    def spy(self, *a, **kw):
+        real(self, *a, **kw)
+        seen.append(self)
+    monkeypatch.setattr(dataset_mod.DatasetIterator, "__init__", spy)
+    tables = [DataTable({"x": rows(MLP, n=16, seed=s)}) for s in range(12)]
+    model = port_model("mlp", prefetchDepth=0)
+    got = [t["y"] for t in model.transform_batches(tables)]
+    want = [port_model("mlp").transform(t)["y"] for t in tables]
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    score = seen[0].stage("score")
+    assert score.tunable and seen[0].tuner is not None
+    assert DEPTH_FLOOR <= score.runner.depth <= score.runner.max_depth
