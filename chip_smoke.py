@@ -206,10 +206,13 @@ Phases (any failure exits non-zero before the result line):
      PNGs of 224 x 224 x 3 written with the standard library, read in
      batches of 128 with resize_to (224, 224) and scored by the ResNet-50
      of phase 21 at bf16, at depth 0 (the Autotuner), fixed 8 and the hand
-     sweep 2-32: images/s each, autotune over the best hand arm, the
+     sweep 2-32, each arm 3 times interleaved: median images/s each, the
+     fixed-8 / hand-8 gap (one configuration: the noise floor), autotune
+     over the best hand arm, the Autotuner's steps and decisions, the
      autotune arm's decode / host / transfer / compute / drain
-     thread-seconds and decisions (when the host decodes no PNG, (a)
-     starts from the pixel arrays and says so); gates: pixels equal the
+     thread-seconds (when the host decodes no PNG, (a) starts from the
+     pixel arrays and says so); the codec headers on g++'s include path,
+     the native build and PIL are printed first; gates: pixels equal the
      written arrays, all rows in order in every arm, streamed scores
      within 1e-3 of max |score| of `transform` over the stacked arrays,
      argmax equal; (b) 1024 seeded 240 x 320 images through
@@ -218,11 +221,12 @@ Phases (any failure exits non-zero before the result line):
      2: stage4, 7 x 7 x 2048), images/s each; each op alone at (256, 320,
      240, 3) float32 by CUDA events with its bytes and share of 3.35 TB/s;
      gates: each op and the transformer against the port's CPU forward
-     (exact for crop, flip, threshold, the channel swap and unroll; within
-     1e-3 of the 255 range otherwise), the featurizer's f32 features
-     within 1e-5 of max |feature| of the CPU's, the widths, and two
-     planted faults (resize without antialiasing, a 4 x 4 blur padded
-     symmetrically) rejected by the op limit
+     (exact for crop, flip, threshold, the channel swap and unroll;
+     absolute on the [0, 255] scale: resize 1e-2, blur, gaussian and gray
+     1e-3, normalize 1e-5), the featurizer's f32 features within 1e-5 of
+     max |feature| of the CPU's, the widths, and three planted faults
+     (resize without antialiasing, a 4 x 4 blur padded symmetrically, the
+     lanczos3 resize in TF32) rejected by the limit of the op they break
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -235,6 +239,7 @@ Prints the card line, a JSON line of per-kernel numbers, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -5795,17 +5800,24 @@ def resnet50_bundle(images: np.ndarray, branch_scale: float):
 # bench.py bench_ingestion's configuration: 768 PNGs of 224 x 224 x 3 on
 # disk, read in batches of 128, scored by resnet50() at bf16; the depth
 # knob 0 (the Autotuner), fixed 8 and the hand sweep, decisions every 4
-# decode-batch pulls.  (b): 1024 seeded uint8 images 240 high, 320 wide
-# (a resize to 256 x 256 scales the height up and the width down), batch
-# 256; each op alone at (256, 320, 240, 3) float32.
+# batch pulls (6 batches: each tuner steps once); each arm timed `reps`
+# times, the arms interleaved, the start rotated a rep.  (b): 1024 seeded
+# uint8 images 240 high, 320 wide (a resize to 256 x 256 scales the
+# height up and the width down), batch 256; each op alone at (256, 320,
+# 240, 3) float32.
 INGEST = dict(n_files=768, side=224, batch=128, fixed=8,
-              sweep=(2, 4, 8, 16, 32), interval=4, calibration_rows=32)
+              sweep=(2, 4, 8, 16, 32), interval=4, calibration_rows=32,
+              reps=3)
 TRANSFORM = dict(images=1024, height=240, width=320, batch=256, reps=3,
                  check_rows=16, cpu_feature_rows=8)
 OPS_SHAPE = (256, 320, 240, 3)
 OPS_CHECK_ROWS = 8
-# on [0, 255]: the card against the port's CPU forward of the same op
-OP_TOL = 1e-3
+# absolute limits on the [0, 255] scale of the outputs: the card against
+# the port's CPU forward of the same op (0: exact).  Sound readings on the
+# H100 sit at or below 3.2e-3 (resize) and 1.5e-5 (gray); TF32 errs by
+# about a tenth of a level, far over each limit (the TF32 control below).
+OP_LIMITS = {"resize": 1e-2, "blur": 1e-3, "gaussian": 1e-3, "gray": 1e-3,
+             "normalize": 1e-5, "exact": 0.0}
 ZOO_RESNET50 = {"input_shape": [1, 224, 224, 3],
                 "layer_names": ["z", "pool", "stage4", "stage3", "stage2",
                                 "stage1"]}
@@ -5847,14 +5859,27 @@ def ingest_corpus(directory: str) -> tuple:
     return paths, np.stack(arrays)
 
 
+def header_found(name: str) -> bool:
+    """Whether g++ finds `<name>` on its include path."""
+    try:
+        done = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                              input=f"#include <{name}>\n", text=True,
+                              capture_output=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return done.returncode == 0
+
+
 def codecs() -> dict:
-    """Which host decoders this machine has: the native library (built
-    here from `mmlspark_tpu_torch/native/decode.cpp`) and PIL; a decoder
-    that is present must return the written pixels (BGR) of a PNG with
-    distinct channels."""
+    """Which host decoders this machine has: the codec headers on g++'s
+    include path, the native library (built here from
+    `mmlspark_tpu_torch/native/decode.cpp`) and PIL; a decoder that is
+    present must return the written pixels (BGR) of a PNG with distinct
+    channels."""
     from mmlspark_tpu_torch import native_loader
     from mmlspark_tpu_torch.io import image_reader
-    out = {}
+    out = {"headers": {h: header_found(h)
+                       for h in ("png.h", "jpeglib.h", "zlib.h")}}
     try:
         native_loader.build_native()
         out["native"] = "built"
@@ -5900,22 +5925,61 @@ def ingest_arm(model, knob: int, source) -> dict:
             "scores": np.concatenate(scores), "images": images}
 
 
+def check_ingest_arm(name: str, arm: dict, paths: list, arrays: np.ndarray,
+                     reference: np.ndarray, gap_scale: float) -> float:
+    """(a)'s gates on one pass: every file's row in order, the pixels the
+    written arrays, the streamed scores `transform`'s; returns the largest
+    score gap."""
+    require(arm["paths"] == paths,
+            f"phase 22 {name}: {len(arm['paths'])} rows, not the "
+            f"{len(paths)} files in order")
+    got = np.concatenate(arm["images"])
+    require(got.shape == arrays.shape and np.array_equal(got, arrays),
+            f"phase 22 {name}: the streamed pixels differ from the "
+            "written arrays")
+    gap = float(np.abs(arm["scores"] - reference).max())
+    same = bool((arm["scores"].argmax(1) == reference.argmax(1)).all())
+    require(same and gap <= 1e-3 * gap_scale,
+            f"phase 22 {name}: streamed scores against transform of the "
+            f"stacked arrays: max gap {gap:.3e} (limit "
+            f"{1e-3 * gap_scale:.3e}), argmax equal {same}")
+    return gap
+
+
+@contextlib.contextmanager
+def counting_tuner_steps():
+    """Counts `Autotuner.step` calls inside the block (every tuner's)."""
+    from mmlspark_tpu_torch.data.autotune import Autotuner
+    counted = {"steps": 0}
+    step = Autotuner.step
+
+    def counting(self):
+        counted["steps"] += 1
+        return step(self)
+    Autotuner.step = counting
+    try:
+        yield counted
+    finally:
+        Autotuner.step = step
+
+
 def phase_image_pipeline(dev, card) -> dict:
     """chip_smoke phase 22: the image pipeline.  (0) the host's codecs;
     (a) bench_ingestion's configuration: 768 PNGs written with the
     standard library -> `read_images_iter(batch_size=128, resize_to=(224,
     224))` -> `TPUModel(resnet50 bf16, miniBatchSize=128)
     .transform_batches` at depth 0 (the Autotuner), fixed 8 and the hand
-    sweep, images/s each, the autotune arm's spans and decisions; gates:
-    decoded pixels equal the written arrays, every arm yields the 768 rows
-    in order, streamed scores agree with `transform` of the stacked
-    arrays.  (b) 1024 seeded 240 x 320 images -> `ImageTransformer.resize(
+    sweep, each `INGEST["reps"]` times interleaved: median images/s each,
+    the autotune arm's spans, steps and decisions; gates on every pass:
+    decoded pixels equal the written arrays, the 768 rows in order,
+    streamed scores agree with `transform` of the stacked arrays.  (b)
+    1024 seeded 240 x 320 images -> `ImageTransformer.resize(
     256, 256).center_crop(224, 224).flip()` -> `ImageFeaturizer` over the
     same ResNet-50 at f32, cut 1 (pool) and 2 (stage4), images/s each;
     each op alone at (256, 320, 240, 3) float32 timed by CUDA events
     against its bytes; gates: every op and the transformer against the
     port's CPU forward, the featurizer's f32 features against the CPU's,
-    the widths, two planted faults rejected."""
+    the widths, three planted faults rejected."""
     import os
     import tempfile
     from mmlspark_tpu_torch import DataTable, TPUModel, config
@@ -5929,7 +5993,10 @@ def phase_image_pipeline(dev, card) -> dict:
     out: dict = {"card": card}
     # (0) codecs
     out["codecs"] = codecs()
-    print(f"phase 22 codecs: native decoder {out['codecs']['native']}; "
+    print(f"phase 22 codecs: headers "
+          + ", ".join(f"{h} {'found' if ok else 'missing'}"
+                      for h, ok in out["codecs"]["headers"].items())
+          + f"; native decoder {out['codecs']['native']}; "
           f"{out['codecs']['pil']}")
     bs = INGEST["batch"]
     prev_depth = config.get("MMLSPARK_TPU_PREFETCH_DEPTH")
@@ -5965,68 +6032,73 @@ def phase_image_pipeline(dev, card) -> dict:
                          computeDtype="bfloat16")
         model.transform(DataTable({"image": arrays[:bs]}))   # warm
         reference = model.transform(DataTable({"image": arrays}))["scores"]
+        gap_scale = float(np.abs(reference).max())
         before = dict(decoder_counts)
-        arms = {}
+        knobs = [("fixed_8", INGEST["fixed"])] + [
+            (f"hand_{k}", k) for k in INGEST["sweep"]] + [("autotune", 0)]
+        rates = {name: [] for name, _ in knobs}
+        gaps = dict.fromkeys(rates, 0.0)
+        steps, decisions, spans = [], [], None
         try:
             config.set("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL",
                        INGEST["interval"])
-            # one untimed pass first: the decoder's and the reader's
-            # first-use costs are not the first timed arm's
-            ingest_arm(model, INGEST["fixed"], source)
-            arms["fixed_8"] = ingest_arm(model, INGEST["fixed"], source)
-            for knob in INGEST["sweep"]:
-                arms[f"hand_{knob}"] = ingest_arm(model, knob, source)
-            # the run installs its own timings collector: read that one
-            with run_telemetry(None) as rt:
-                arms["autotune"] = ingest_arm(model, 0, source)
-            spans = rt.timings
-            decisions = [r["attrs"] for r in rt.tracer.records()
-                         if r.get("name") == "data.autotune"]
+            ingest_arm(model, INGEST["fixed"], source)   # untimed pass
+            for rep in range(INGEST["reps"]):
+                turn = rep % len(knobs)
+                for name, knob in knobs[turn:] + knobs[:turn]:
+                    if knob:
+                        arm = ingest_arm(model, knob, source)
+                    else:
+                        with run_telemetry(None) as rt, \
+                                counting_tuner_steps() as counted:
+                            arm = ingest_arm(model, 0, source)
+                        spans = rt.timings
+                        steps.append(counted["steps"])
+                        decisions.append(
+                            [r["attrs"] for r in rt.tracer.records()
+                             if r.get("name") == "data.autotune"])
+                    gaps[name] = max(gaps[name], check_ingest_arm(
+                        name, arm, paths, arrays, reference, gap_scale))
+                    rates[name].append(arm["rate"])
+                    del arm
         finally:
             config.set("MMLSPARK_TPU_PREFETCH_DEPTH", prev_depth)
             config.set("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL", prev_interval)
     decoded = {k: decoder_counts[k] - before[k] for k in decoder_counts}
-    gap_scale = float(np.abs(reference).max())
-    for name, arm in arms.items():
-        require(arm["paths"] == paths,
-                f"phase 22 {name}: {len(arm['paths'])} rows, not the "
-                f"{len(paths)} files in order")
-        got = np.concatenate(arm["images"])
-        require(got.shape == arrays.shape and np.array_equal(got, arrays),
-                f"phase 22 {name}: the streamed pixels differ from the "
-                "written arrays")
-        gap = float(np.abs(arm["scores"] - reference).max())
-        same = bool((arm["scores"].argmax(1) == reference.argmax(1)).all())
-        arm["max_gap"] = gap
-        require(same and gap <= 1e-3 * gap_scale,
-                f"phase 22 {name}: streamed scores against transform of the "
-                f"stacked arrays: max gap {gap:.3e} (limit "
-                f"{1e-3 * gap_scale:.3e}), argmax equal {same}")
-    hand = {k: a["rate"] for k, a in arms.items() if k.startswith("hand_")}
+    median = {k: statistics.median(v) for k, v in rates.items()}
+    hand = {k: v for k, v in median.items() if k.startswith("hand_")}
     best = max(hand, key=hand.get)
+    # fixed_8 and hand_8 are one configuration: their gap is the noise floor
+    same = (median["fixed_8"], median[f"hand_{INGEST['fixed']}"])
+    noise = abs(same[0] - same[1]) / max(same)
     out["ingest"] = {
-        "images": len(paths), "batch": bs, "decoded": decoded,
-        "images_per_s": {k: a["rate"] for k, a in arms.items()},
-        "hand_best": best,
-        "autotune_vs_hand_best": arms["autotune"]["rate"] / hand[best],
-        "max_score_gap": max(a["max_gap"] for a in arms.values()),
-        "max_abs_score": gap_scale, "spans": spans.summary(),
+        "images": len(paths), "batch": bs, "reps": INGEST["reps"],
+        "decoded": decoded, "images_per_s": rates,
+        "median_images_per_s": median, "hand_best": best,
+        "autotune_vs_hand_best": median["autotune"] / hand[best],
+        "noise_floor": noise,
+        "max_score_gap": max(gaps.values()), "max_abs_score": gap_scale,
+        "spans": spans.summary(), "autotune_steps": steps,
         "autotune_decisions": decisions,
         "service_arm": "not ported (A12)"}
     print(f"phase 22 (a) ingestion of {len(paths)} PNGs "
           f"({out['corpus']['bytes']} bytes, written in "
-          f"{out['corpus']['write_s']:.2f} s; decoded {decoded}): images/s "
-          + ", ".join(f"{k} {a['rate']:.1f}" for k, a in arms.items())
-          + f"; autotune / best hand ({best}) "
-          f"{out['ingest']['autotune_vs_hand_best']:.3f}; autotune spans "
+          f"{out['corpus']['write_s']:.2f} s; decoded {decoded}): images/s, "
+          f"median of {INGEST['reps']} interleaved [min, max]: "
+          + ", ".join(f"{k} {median[k]:.1f} [{min(v):.1f}, {max(v):.1f}]"
+                      for k, v in rates.items())
+          + f"; noise floor |fixed_8 - hand_{INGEST['fixed']}| / max "
+          f"{noise:.3f}; autotune / best hand ({best}) "
+          f"{out['ingest']['autotune_vs_hand_best']:.3f}; autotune steps "
+          f"a pass {steps}, decisions "
+          + str([[(d["stage"], d["action"], d["depth_to"]) for d in ds]
+                 for ds in decisions])
+          + "; last autotune pass's spans "
           + "/".join(f"{k} {v:.3f}" for k, v in spans.seconds.items())
-          + f" thread-s; {len(decisions)} autotune decisions "
-          + str([(d['stage'], d['action'], d['depth_to'])
-                 for d in decisions][:8])
-          + f"; pixels equal, rows in order, max score gap "
+          + f" thread-s; pixels equal, rows in order, max score gap "
           f"{out['ingest']['max_score_gap']:.3e} of max |score| "
           f"{gap_scale:.3e}; service arm: not ported (A12) [{card}]")
-    del arms, reference
+    del reference
     torch.cuda.empty_cache()
     out["transform"] = transform_and_featurize(dev, card, r50)
     out["ops"] = time_image_ops(dev, card)
@@ -6063,10 +6135,11 @@ def transform_and_featurize(dev, card, r50) -> dict:
     n = cfg["check_rows"]
     cpu = chain("cpu").transform(DataTable({"image": images[:n]}))["image"]
     err = float(np.abs(crops[:n] - cpu).max())
+    limit = OP_LIMITS["resize"]
     require(crops.shape == (len(images), 224, 224, 3)
-            and crops.dtype == np.float32 and err <= OP_TOL * 255,
+            and crops.dtype == np.float32 and err <= limit,
             f"phase 22 transformer: {crops.shape} {crops.dtype}, card vs CPU "
-            f"max |d| {err:.3e} (limit {OP_TOL * 255:.3e})")
+            f"max |d| {err:.3e} (limit {limit:.0e})")
     out["transformer"] = {"images_per_s": sorted(rates), "max_abs_err": err}
     bundle = ModelBundle(r50.architecture, r50.config, r50.variables,
                          {**(r50.metadata or {}), **ZOO_RESNET50})
@@ -6114,30 +6187,57 @@ def transform_and_featurize(dev, card, r50) -> dict:
     return out
 
 
-def image_op_cases(x):
-    """name -> (call on a (B, H, W, C) tensor, exact?).  crop returns a
-    view, so its timed form copies the crop out."""
+def image_op_cases():
+    """name -> (call on a (B, H, W, C) tensor, its `OP_LIMITS` key).  crop
+    returns a view, so its timed form copies the crop out."""
     from mmlspark_tpu_torch.ops import image as ops
     return {
-        "resize_down_160x120": (lambda t: ops.resize(t, 160, 120), False),
-        "resize_up_480x360": (lambda t: ops.resize(t, 480, 360), False),
-        "resize_mixed_256x256": (lambda t: ops.resize(t, 256, 256), False),
+        "resize_down_160x120": (lambda t: ops.resize(t, 160, 120), "resize"),
+        "resize_up_480x360": (lambda t: ops.resize(t, 480, 360), "resize"),
+        "resize_mixed_256x256": (lambda t: ops.resize(t, 256, 256),
+                                 "resize"),
+        "resize_lanczos3_160x120": (
+            lambda t: ops.resize(t, 160, 120, "lanczos3"), "resize"),
         "crop_224": (lambda t: ops.crop(t, 8, 48, 224, 224).contiguous(),
-                     True),
-        "flip": (lambda t: ops.flip(t, 1), True),
-        "bgr2gray": (lambda t: ops.cvt_color(t, "bgr2gray"), False),
-        "bgr2rgb": (lambda t: ops.cvt_color(t, "bgr2rgb"), True),
-        "blur_4x4": (lambda t: ops.blur(t, 4, 4), False),
-        "blur_5x5": (lambda t: ops.blur(t, 5, 5), False),
+                     "exact"),
+        "flip": (lambda t: ops.flip(t, 1), "exact"),
+        "bgr2gray": (lambda t: ops.cvt_color(t, "bgr2gray"), "gray"),
+        "bgr2rgb": (lambda t: ops.cvt_color(t, "bgr2rgb"), "exact"),
+        "blur_4x4": (lambda t: ops.blur(t, 4, 4), "blur"),
+        "blur_5x5": (lambda t: ops.blur(t, 5, 5), "blur"),
         "gaussian_kernel_4": (lambda t: ops.gaussian_kernel(t, 4, 1.0),
-                              False),
+                              "gaussian"),
         "gaussian_kernel_5": (lambda t: ops.gaussian_kernel(t, 5, 0.0),
-                              False),
-        "threshold": (lambda t: ops.threshold(t, 127.5, 255.0), True),
+                              "gaussian"),
+        "threshold": (lambda t: ops.threshold(t, 127.5, 255.0), "exact"),
         "normalize": (lambda t: ops.normalize(t, [0.45, 0.45, 0.45],
-                                              [0.25, 0.25, 0.25]), False),
-        "unroll": (lambda t: ops.unroll(t), True),
+                                              [0.25, 0.25, 0.25]),
+                      "normalize"),
+        "unroll": (lambda t: ops.unroll(t), "exact"),
     }
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """A planted fault's setting: TF32 on for cuBLAS and cuDNN, and
+    `ops.image` without the `exact_f32` guard of its lanczos matmuls and
+    its gaussian conv."""
+    from mmlspark_tpu_torch.ops import image as ops
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = ops.exact_f32, cudnn.allow_tf32, matmul.allow_tf32
+    ops.exact_f32 = contextlib.nullcontext
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        ops.exact_f32, cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def tf32_lanczos(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """A planted fault: the lanczos3 resize with its matmuls in TF32."""
+    from mmlspark_tpu_torch.ops import image as ops
+    with tf32_allowed():
+        return ops.resize(x, height, width, "lanczos3")
 
 
 def unfiltered_resize(x: torch.Tensor, height: int,
@@ -6166,9 +6266,12 @@ def time_image_ops(dev, card) -> dict:
     """Each op alone at OPS_SHAPE float32 on the card: CUDA-event median
     of 5 after warm-up, the bytes it must move (its input read once, its
     output written once) and their share of 3.35 TB/s; each checked
-    against the port's CPU forward on the first rows, and two planted
-    faults (resize without the antialiasing filter, a 4 x 4 blur padded
-    symmetrically) rejected by the same limit."""
+    against the port's CPU forward on the first rows within its
+    `OP_LIMITS` entry, and three planted faults (resize without the
+    antialiasing filter, a 4 x 4 blur padded symmetrically, the lanczos3
+    resize in TF32) rejected by the limit of the op they break.  The
+    gaussian in TF32 is read and printed, not gated: cuDNN may run its
+    one-channel conv without tensor cores, where TF32 changes nothing."""
     from mmlspark_tpu_torch.ops import image as ops
     rng = np.random.default_rng(23)
     host = rng.uniform(0, 255, OPS_SHAPE).astype(np.float32)
@@ -6176,45 +6279,58 @@ def time_image_ops(dev, card) -> dict:
     head = torch.from_numpy(host[:OPS_CHECK_ROWS].copy())
     rows, lines = {}, []
     with torch.inference_mode():
-        for name, (fn, exact) in image_op_cases(x).items():
+        for name, (fn, kind) in image_op_cases().items():
             y = fn(x)
             torch.cuda.synchronize()
             ref = fn(head)
             err = float((y[:OPS_CHECK_ROWS].cpu() - ref).abs().max())
-            require(err == 0.0 if exact else err <= OP_TOL * 255,
+            limit = OP_LIMITS[kind]
+            require(err <= limit,
                     f"phase 22 op {name}: card vs CPU max |d| {err:.3e} "
-                    f"(limit {'exact' if exact else OP_TOL * 255})")
+                    f"(limit {limit:.0e})")
             ms = cuda_ms(lambda: fn(x), warmup=2, reps=5)
             nbytes = x.numel() * x.element_size() + y.numel() * \
                 y.element_size()
             share = nbytes / (ms * 1e-3) / PEAK_BYTES
             rows[name] = {"ms": ms, "bytes": nbytes, "bw_share": share,
-                          "max_abs_err": err, "out_shape": list(y.shape)}
+                          "max_abs_err": err, "limit": limit,
+                          "out_shape": list(y.shape)}
             lines.append(f"{name} {ms:.3f} ms {nbytes / 1e6:.1f} MB "
                          f"{share:.3f} of 3.35 TB/s (card vs CPU "
-                         f"{err:.1e})")
+                         f"{err:.1e}, limit {limit:.0e})")
             del y
+        # name -> (fault on the card, the sound op on the CPU, limit)
         faults = {
-            "resize without antialias": lambda t: unfiltered_resize(
-                t, 160, 120),
-            "blur 4x4 padded symmetrically": lambda t: mirrored_blur(t, 4)}
-        sound = {"resize without antialias": lambda t: ops.resize(t, 160,
-                                                                  120),
-                 "blur 4x4 padded symmetrically": lambda t: ops.blur(t, 4,
-                                                                     4)}
+            "resize without antialias": (
+                lambda t: unfiltered_resize(t, 160, 120),
+                lambda t: ops.resize(t, 160, 120), "resize"),
+            "blur 4x4 padded symmetrically": (
+                lambda t: mirrored_blur(t, 4), lambda t: ops.blur(t, 4, 4),
+                "blur"),
+            "lanczos3 resize in TF32": (
+                lambda t: tf32_lanczos(t, 160, 120),
+                lambda t: ops.resize(t, 160, 120, "lanczos3"), "resize")}
         caught = {}
-        for name, fault in faults.items():
+        for name, (fault, sound, kind) in faults.items():
             err = float((fault(x)[:OPS_CHECK_ROWS].cpu()
-                         - sound[name](head)).abs().max())
-            caught[name] = err
-            require(err > OP_TOL * 255,
+                         - sound(head)).abs().max())
+            caught[name] = {"max_abs_err": err, "limit": OP_LIMITS[kind]}
+            require(err > OP_LIMITS[kind],
                     f"phase 22: the op gate passed the planted fault "
-                    f"'{name}' (max |d| {err:.3e})")
+                    f"'{name}' (max |d| {err:.3e}, limit "
+                    f"{OP_LIMITS[kind]:.0e})")
+        with tf32_allowed():
+            gauss = ops.gaussian_kernel(x, 4, 1.0)[:OPS_CHECK_ROWS].cpu()
+        tf32_gauss = float((gauss - ops.gaussian_kernel(head, 4, 1.0))
+                           .abs().max())
     print(f"phase 22 ops at {OPS_SHAPE} float32 (CUDA events, median of 5): "
           + "; ".join(lines) + "; planted faults rejected: "
-          + ", ".join(f"{k} max |d| {v:.3e}" for k, v in caught.items())
-          + f" (limit {OP_TOL * 255:.3e}) [{card}]")
-    return {"shape": list(OPS_SHAPE), "rows": rows, "faults": caught}
+          + ", ".join(f"{k} max |d| {v['max_abs_err']:.3e} (limit "
+                      f"{v['limit']:.0e})" for k, v in caught.items())
+          + f"; gaussian_kernel_4 in TF32 (not gated) max |d| "
+          f"{tf32_gauss:.3e} [{card}]")
+    return {"shape": list(OPS_SHAPE), "rows": rows, "faults": caught,
+            "tf32_gaussian_max_abs_err": tf32_gauss}
 
 
 def main() -> int:

@@ -18,9 +18,7 @@ turns the window deltas into depth decisions:
 Decisions are published while a telemetry run is active: per-stage
 `data.<stage>.depth` / `.stall_frac` gauges and a `data.autotune` trace
 event stream (cat="data").  The controller is pure arithmetic over
-counter snapshots: tests drive it with synthetic stage stats.  A runner
-may declare `scale_unit` (gauges publish as `data.<stage>.<unit>`) and its
-own `depth_floor`, as the JAX package's data-service consumer does.
+counter snapshots: tests drive it with synthetic stage stats.
 """
 
 from __future__ import annotations
@@ -103,8 +101,7 @@ class Autotuner:
                                  * max(1, s.runner.depth)))
             windows.append((s, stall_frac, residency_frac, delta))
             if self._run is not None:
-                self._run.gauge(
-                    f"data.{s.name}.{self._unit(s)}", s.runner.depth)
+                self._run.gauge(f"data.{s.name}.depth", s.runner.depth)
                 self._run.gauge(f"data.{s.name}.stall_frac",
                                 round(stall_frac, 4))
 
@@ -122,33 +119,23 @@ class Autotuner:
             if new != old:
                 made.append(self._publish(s, "widen", old, new, sf))
         for s, sf, rf, _ in windows:
-            floor = self._floor_for(s)
             if (sf < self.NARROW_STALL_FRAC
                     and rf > self.NARROW_RESIDENCY_FRAC
-                    and s.runner.depth > floor):
+                    and s.runner.depth > self._floor):
                 old = s.runner.depth
-                new = s.runner.set_depth(max(floor, old - 1))
+                new = s.runner.set_depth(max(self._floor, old - 1))
                 if new != old:
                     made.append(self._publish(s, "narrow", old, new, sf))
         self.decisions.extend(made)
         return made
 
-    @staticmethod
-    def _unit(stage) -> str:
-        return getattr(stage.runner, "scale_unit", "depth")
-
-    def _floor_for(self, stage) -> int:
-        floor = getattr(stage.runner, "depth_floor", None)
-        return max(1, int(floor)) if floor is not None else self._floor
-
     def _publish(self, stage, action: str, old: int, new: int,
                  stall_frac: float) -> dict:
         from mmlspark_tpu_torch.observe.trace import trace_event
-        unit = self._unit(stage)
-        decision = {"stage": stage.name, "action": action, "unit": unit,
+        decision = {"stage": stage.name, "action": action, "unit": "depth",
                     "depth_from": old, "depth_to": new,
                     "stall_frac": round(stall_frac, 4)}
         trace_event("data.autotune", cat="data", **decision)
         if self._run is not None:
-            self._run.gauge(f"data.{stage.name}.{unit}", new)
+            self._run.gauge(f"data.{stage.name}.depth", new)
         return decision

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mmlspark_tpu_torch import (DataTable, ModelBundle, TextGenerator,
                                 TPUModel, TransformerLM)
 from mmlspark_tpu_torch.models import DecodeEngine
@@ -1385,25 +1386,32 @@ def test_scoring_forward_on_the_card_matches_the_cpu(cuda, arch, config,
 
 # ----------------------------------- the image pipeline (no kernel) on the card
 
+# name -> (op, its key in chip_smoke.OP_LIMITS: absolute on [0, 255])
 IMAGE_OPS = {
-    "resize_linear": (lambda x: image_ops.resize(x, 50, 70), False),
-    "resize_cubic": (lambda x: image_ops.resize(x, 90, 30, "cubic"), False),
+    "resize_linear": (lambda x: image_ops.resize(x, 50, 70), "resize"),
+    "resize_cubic": (lambda x: image_ops.resize(x, 90, 30, "cubic"),
+                     "resize"),
     "resize_lanczos3": (lambda x: image_ops.resize(x, 50, 70, "lanczos3"),
-                        False),
+                        "resize"),
     "resize_nearest": (lambda x: image_ops.resize(x, 33, 81, "nearest"),
-                       True),
-    "gray": (lambda x: image_ops.cvt_color(x, "bgr2gray"), False),
-    "swap": (lambda x: image_ops.cvt_color(x, "bgr2rgb"), True),
-    "blur_4x4": (lambda x: image_ops.blur(x, 4, 4), False),
-    "gaussian_4": (lambda x: image_ops.gaussian_kernel(x, 4, 1.0), False),
-    "gaussian_blur_5": (lambda x: image_ops.gaussian_blur(x, 5, 0.0), False),
+                       "exact"),
+    "gray": (lambda x: image_ops.cvt_color(x, "bgr2gray"), "gray"),
+    "swap": (lambda x: image_ops.cvt_color(x, "bgr2rgb"), "exact"),
+    "blur_4x4": (lambda x: image_ops.blur(x, 4, 4), "blur"),
+    "gaussian_4": (lambda x: image_ops.gaussian_kernel(x, 4, 1.0),
+                   "gaussian"),
+    "gaussian_blur_5": (lambda x: image_ops.gaussian_blur(x, 5, 0.0),
+                        "gaussian"),
     "threshold": (lambda x: image_ops.threshold(x, 127.0, 255.0,
-                                                "tozero_inv"), True),
-    "flip": (lambda x: image_ops.flip(x, -1), True),
-    "crop": (lambda x: image_ops.crop(x, 3, 5, 40, 30), True),
-    "normalize": (lambda x: image_ops.normalize(x, [0.4, 0.5, 0.6]), False),
-    "unroll": (lambda x: image_ops.unroll(x), True),
+                                                "tozero_inv"), "exact"),
+    "flip": (lambda x: image_ops.flip(x, -1), "exact"),
+    "crop": (lambda x: image_ops.crop(x, 3, 5, 40, 30), "exact"),
+    "normalize": (lambda x: image_ops.normalize(x, [0.4, 0.5, 0.6]),
+                  "normalize"),
+    "unroll": (lambda x: image_ops.unroll(x), "exact"),
 }
+IMAGE_HOST = np.random.default_rng(4).integers(0, 256, (3, 61, 47, 3),
+                                               dtype=np.uint8)
 
 
 @pytest.mark.cuda
@@ -1411,11 +1419,11 @@ IMAGE_OPS = {
 def test_image_ops_on_the_card_match_the_cpu(cuda, name):
     """Each image op on the card against the same op on the CPU, TF32 on
     globally (the gaussian's conv and the lanczos matmuls turn it off):
-    exact where the op only moves or compares values, else within 1e-3
-    of the 255 range."""
-    fn, exact = IMAGE_OPS[name]
-    host = np.random.default_rng(4).integers(0, 256, (3, 61, 47, 3),
-                                             dtype=np.uint8)
+    exact where the op only moves or compares values, else within
+    chip_smoke's absolute limit of the op (resize 1e-2; blur, gaussian
+    and gray 1e-3; normalize 1e-5)."""
+    fn, kind = IMAGE_OPS[name]
+    host = IMAGE_HOST
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
@@ -1428,4 +1436,16 @@ def test_image_ops_on_the_card_match_the_cpu(cuda, name):
     ref = fn(torch.from_numpy(host))
     assert got.device.type == "cuda" and got.dtype == ref.dtype
     diff = (got.cpu().float() - ref.float()).abs().max().item()
-    assert diff == 0.0 if exact else diff <= 1e-3 * 255
+    assert diff <= chip_smoke.OP_LIMITS[kind], diff
+
+
+@pytest.mark.cuda
+def test_image_op_limits_reject_the_lanczos_resize_in_tf32(cuda):
+    """The TF32 control: the lanczos3 resize with its matmuls in TF32 (the
+    `exact_f32` guard taken away) errs far past the resize limit that
+    the sound op keeps."""
+    fn, kind = IMAGE_OPS["resize_lanczos3"]
+    x = torch.from_numpy(IMAGE_HOST).to(cuda)
+    got = chip_smoke.tf32_lanczos(x, 50, 70).cpu()
+    diff = (got - fn(torch.from_numpy(IMAGE_HOST))).abs().max().item()
+    assert diff > chip_smoke.OP_LIMITS[kind], diff
