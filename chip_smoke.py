@@ -227,6 +227,24 @@ Phases (any failure exits non-zero before the result line):
      max |feature| of the CPU's, the widths, and three planted faults
      (resize without antialiasing, a 4 x 4 blur padded symmetrically, the
      lanczos3 resize in TF32) rejected by the limit of the op they break
+ 23. training the vision and tabular models (`Trainer.fit_arrays`,
+     `TPULearner.fit`; torch ops, no hand-written kernel): (a) the zoo
+     ConvNet at scripts/train_zoo_model.py's configuration (bf16, adam
+     1e-3, cosine, batch 128) over 4096 seeded template images, 3 epochs,
+     at prefetch_depth -1 and 2, each twice, interleaved: the loss falls,
+     train accuracy >= 0.9 through `TPUModel`; (b) resnet50() bf16 over
+     uint8 224 x 224 images, batch 128, momentum, 8 steps at prefetch -1
+     and 2: finite losses, every batch_stats leaf moved; (c) ResNetDigits
+     at f32 (TF32 on around it), 2 steps on the card and on the CPU:
+     params and batch_stats within 1e-4 of each leaf's max, torch's
+     unbiased running variance planted and rejected; (d) a ResNetDigits
+     fit preempted by the chaos hook and resumed (cuDNN deterministic):
+     equal to the fault-free fit within the spread of two fault-free
+     fits; (e) `TPULearner` -> `TPUModel` over 65536 rows x 30: accuracy
+     >= 0.95.  Step ms (CUDA events, median of 5), images/s end to end
+     per arm, training FLOPs per image and the share of the bf16 peak,
+     peak memory, host / transfer / dispatch / stall seconds and a device
+     breakdown of one step by kernel group
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -1621,7 +1639,8 @@ def phase_train(dev, card) -> dict:
 
     # the step alone: ms (CUDA events), tokens/s, analytic MFU
     timer = Trainer(train_config(model_config), device=dev)
-    state = timer.init_state(total_steps=16, initial_bundle=bundle)
+    state = timer.init_state((1, TRAIN_SEQ), total_steps=16,
+                             initial_bundle=bundle)
     step = timer.make_train_step()
     xb = torch.from_numpy(tokens[:TRAIN_BATCH].astype(np.int64)).to(dev)
     yb = torch.from_numpy(targets[:TRAIN_BATCH].astype(np.int64)).to(dev)
@@ -4861,8 +4880,8 @@ def ckpt_config(**kw):
     return TrainerConfig(**base)
 
 
-def bundle_leaves(bundle) -> list:
-    """A bundle's parameter arrays in sorted-path order."""
+def tree_leaves(tree) -> list:
+    """A nested dict's arrays in sorted-path order."""
     out = []
 
     def walk(node):
@@ -4871,8 +4890,13 @@ def bundle_leaves(bundle) -> list:
                 walk(node[key])
         else:
             out.append(np.asarray(node))
-    walk(bundle.variables)
+    walk(tree)
     return out
+
+
+def bundle_leaves(bundle) -> list:
+    """A bundle's parameter arrays in sorted-path order."""
+    return tree_leaves(bundle.variables)
 
 
 def max_leaf_diff(a, b) -> float:
@@ -5043,7 +5067,7 @@ def phase_checkpointed_training(dev, card) -> dict:
 
         # (e) the checkpoint's cost at this width
         timer = Trainer(ckpt_config(), device=dev)
-        state = timer.init_state(16, init)
+        state = timer.init_state((1, TRAIN_SEQ), 16, init)
         timer._effective_batch_size = TRAIN_BATCH
         step = timer.make_train_step()
         xb = torch.from_numpy(x[:TRAIN_BATCH].astype(np.int64)).to(dev)
@@ -5064,7 +5088,7 @@ def phase_checkpointed_training(dev, card) -> dict:
         timer._close_writers()
         nbytes = os.path.getsize(path)
         again = Trainer(ckpt_config(), device=dev)
-        fresh = again.init_state(16, init)
+        fresh = again.init_state((1, TRAIN_SEQ), 16, init)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         restored = again.restore_checkpoint(fresh, d_e)
@@ -6333,6 +6357,429 @@ def time_image_ops(dev, card) -> dict:
             "tf32_gaussian_max_abs_err": tf32_gauss}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: training the vision and tabular models
+# ---------------------------------------------------------------------------
+
+VISION_TRAIN = dict(
+    # (a) the zoo ConvNet at scripts/train_zoo_model.py::train_convnet's
+    # configuration, on seeded class templates plus noise
+    convnet_images=4096, convnet_epochs=3, convnet_batch=128,
+    convnet_noise=48.0, convnet_reps=2, min_accuracy=0.9,
+    # (b) resnet50() at 224 x 224, 8 steps of 128
+    resnet_images=1024, resnet_side=224, resnet_batch=128, resnet_lr=0.01,
+    # (c) card against CPU at f32: the zoo ResNetDigits, 2 steps on one
+    # batch of 8 (BatchNorm over 2 x 2 maps in the last stage: 32 values a
+    # channel, where an unbiased running variance is 32/31 of flax's)
+    digits_batch=8, card_vs_cpu_tol=1e-4,
+    # (d) resume: ResNetDigits, 512 images at batch 64, 2 epochs, a
+    # checkpoint every 4 steps, a SIGTERM at step 6
+    resume_images=512, resume_batch=64, resume_every=4, preempt_at=6,
+    # (e) TPULearner over the WDBC bundle's width
+    learner_rows=65536, learner_features=30, learner_batch=512,
+    learner_epochs=2, learner_accuracy=0.95,
+    step_reps=5)
+RESNET_DIGITS = {"stage_sizes": [1, 1, 1], "widths": [8, 16, 32],
+                 "num_classes": 10, "block_kind": "bottleneck"}
+CONVNET = {}   # ConvNetCIFAR10's defaults: widths 64 / 128 / 256, dense 512
+RESNET50 = {"stage_sizes": [3, 4, 6, 3], "widths": [64, 128, 256, 512],
+            "num_classes": 1000, "block_kind": "bottleneck",
+            "dtype": "bfloat16"}
+
+
+def template_images(n: int, classes: int, noise: float, seed: int) -> tuple:
+    """`n` uint8 32 x 32 x 3 images in `classes` classes: each class a
+    fixed seeded template, each image its template plus Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    templates = rng.integers(0, 256, (classes, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, classes, n)
+    noisy = templates[labels] + rng.normal(0.0, noise, (n, 32, 32, 3))
+    return np.clip(noisy, 0, 255).astype(np.uint8), labels.astype(np.int32)
+
+
+VISION_TRAIN_GROUPS = (
+    ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                             "implicit")),
+    ("GEMM (cuBLAS)", GEMM_KEYS),
+    ("pooling", ("pool",)),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def train_step_ms(trainer, bundle, x: np.ndarray, y: np.ndarray,
+                  dev) -> tuple:
+    """(median ms, one step as a no-argument function): CUDA events
+    around each of VISION_TRAIN["step_reps"] steady steps of `trainer`'s
+    step over one batch already on the card, after two warm steps, from
+    `bundle`'s weights."""
+    state = trainer.init_state((1,) + x.shape[1:], 16, bundle)
+    step = trainer.make_train_step()
+    xb, yb = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    mb = torch.ones(len(x), device=dev)
+    for _ in range(2):
+        step(state, xb, yb, mb)
+    times = []
+    for _ in range(VISION_TRAIN["step_reps"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, xb, yb, mb)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), lambda: step(state, xb, yb, mb)
+
+
+def fit_spans(timing, trainer) -> dict:
+    """One fit's staging and dispatch seconds: host (the gather and the
+    pinned buffers) and transfer (the copies' launch) on whichever thread
+    staged, compute (the step's dispatch), and stall (the dispatch
+    thread's waits on a batch not yet staged; 0 at depth -1, where the
+    dispatch thread stages)."""
+    return {"host": timing.seconds.get("host", 0.0),
+            "transfer": timing.seconds.get("transfer", 0.0),
+            "compute": timing.seconds.get("compute", 0.0),
+            "stall": trainer.last_staging["stall_s"]}
+
+
+def describe_spans(spans: dict) -> str:
+    return "; ".join(
+        f"prefetch {depth} " + ", ".join(
+            "/".join(f"{s[k]:.3f}" for k in ("host", "transfer", "compute",
+                                            "stall")) for s in runs)
+        for depth, runs in spans.items())
+
+
+def timed_fit(trainer, x: np.ndarray, y: np.ndarray, **kw) -> tuple:
+    """(bundle, seconds) of one `fit_arrays`, the card synchronized on
+    both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = trainer.fit_arrays(x, y, **kw)
+    torch.cuda.synchronize()
+    return bundle, time.perf_counter() - t0
+
+
+def leaf_gaps(got, ref) -> dict:
+    """Each params / batch_stats leaf's max |got - ref| over its max
+    |ref| (path -> ratio)."""
+    out = {}
+
+    def walk(path, a, b):
+        if isinstance(b, dict):
+            for key in sorted(b):
+                walk(f"{path}/{key}", a[key], b[key])
+        else:
+            b = np.asarray(b)
+            out[path] = float(np.abs(np.asarray(a) - b).max()
+                              / max(float(np.abs(b).max()), 1e-30))
+    walk("", got.variables, ref.variables)
+    return out
+
+
+def unbiased_batchnorm(self, x: torch.Tensor) -> torch.Tensor:
+    """The planted fault of phase 23 (c): torch's training BatchNorm,
+    whose running variance moves toward the UNBIASED batch variance."""
+    from mmlspark_tpu_torch.models.definitions import BN_EPS
+    return torch.nn.functional.batch_norm(
+        x.float(), self.mean, self.var, self.scale, self.bias,
+        training=True, momentum=0.01, eps=BN_EPS).to(self.compute_dtype)
+
+
+def phase_vision_training(dev, card) -> dict:
+    """chip_smoke phase 23: `Trainer.fit_arrays` and `TPULearner.fit` over
+    the vision and tabular models.  (a) the zoo ConvNet (64 / 128 / 256,
+    dense 512, bf16) at its published training configuration (adam 1e-3,
+    cosine, batch 128) over 4096 seeded template images, 3 epochs, at
+    prefetch_depth -1 and 2, each twice, interleaved: the loss falls and
+    the trained bundle scores >= 0.9 of its training images right through
+    `TPUModel`; (b) resnet50() bf16 over 224 x 224 uint8 images, batch
+    128, momentum 0.9, 8 steps at prefetch -1 and 2: finite losses, every
+    batch_stats leaf moved; (c) ResNetDigits at f32 (TF32 turned on
+    around it: the Trainer must turn it off), 2 momentum steps on one
+    seeded batch, on the card and on the CPU: params and batch_stats
+    within 1e-4 of each leaf's max |value|, and a planted fault (torch's
+    unbiased running variance) rejected; (d) a ResNetDigits fit preempted
+    by the chaos hook and resumed ends bit-equal to the fault-free fit
+    when two fault-free fits are bit-equal (cuDNN's deterministic
+    algorithms on), else within their spread; (e) `TPULearner.fit` ->
+    `TPUModel.transform` on an MLP over 65536 seeded two-class rows of 30
+    features: accuracy >= 0.95.  Prints step ms (CUDA events, median of 5
+    steady steps), images/s end to end per arm, training FLOPs per image
+    (3 x the forward's, from the layer shapes) and the share of the bf16
+    peak, peak memory."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+    from mmlspark_tpu_torch import (DataTable, ModelBundle, TPULearner,
+                                    TPUModel, Trainer, TrainerConfig)
+    from mmlspark_tpu_torch.models.definitions import BatchNorm
+    from mmlspark_tpu_torch.observe.spans import pipeline_timing
+    from mmlspark_tpu_torch.resilience.chaos import (ChaosInjector, Fault,
+                                                     set_injector)
+    from mmlspark_tpu_torch.resilience.preemption import Preempted
+    vt = VISION_TRAIN
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+
+    # (a) the zoo ConvNet
+    x, y = template_images(vt["convnet_images"], 10, vt["convnet_noise"], 0)
+    cfg = dict(architecture="ConvNetCIFAR10", model_config=dict(CONVNET),
+               optimizer="adam", learning_rate=1e-3, lr_schedule="cosine",
+               epochs=vt["convnet_epochs"], batch_size=vt["convnet_batch"],
+               loss="softmax_xent", seed=0)
+    init = ModelBundle.init("ConvNetCIFAR10", CONVNET, seed=0,
+                            input_shape=(1, 32, 32, 3))
+    b = vt["convnet_batch"]
+    # the step alone first: it also pays the first calls' setup before
+    # the timed fits
+    step_ms, one_step = train_step_ms(
+        Trainer(TrainerConfig(**cfg), device=dev), init, x[:b], y[:b], dev)
+    breakdown = device_breakdown(one_step, card, VISION_TRAIN_GROUPS)
+    arms: dict = {-1: [], 2: []}
+    spans: dict = {-1: [], 2: []}
+    bundles = []
+    for depth in (-1, 2) * vt["convnet_reps"]:
+        trainer = Trainer(TrainerConfig(**cfg, prefetch_depth=depth),
+                          device=dev)
+        with pipeline_timing() as timing:
+            bundle, secs = timed_fit(trainer, x, y, initial_bundle=init)
+        losses = [r["loss"] for r in trainer.history]
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"phase 23 (a) depth {depth}: epoch losses {losses}")
+        arms[depth].append(len(x) * vt["convnet_epochs"] / secs)
+        spans[depth].append(fit_spans(timing, trainer))
+        bundles.append(bundle)
+    model = TPUModel(bundles[-1], device=dev, inputCol="x", outputCol="s",
+                     miniBatchSize=1024)
+    scores = model.transform(DataTable({"x": x}))["s"]
+    accuracy = float((scores.argmax(1) == y).mean())
+    require(accuracy >= vt["min_accuracy"],
+            f"phase 23 (a): train accuracy {accuracy:.4f} through TPUModel")
+    fwd = flops_per_row(model, x[0])
+    steady = b / step_ms * 1e3
+    same = all(all(np.array_equal(u, v) for u, v in zip(
+        bundle_leaves(bundles[0]), bundle_leaves(other)))
+        for other in bundles[1:])
+    out["convnet"] = {
+        "train_accuracy": accuracy, "losses": losses,
+        "e2e_images_per_s": {str(k): v for k, v in arms.items()},
+        "spans": {str(k): v for k, v in spans.items()},
+        "device_breakdown": breakdown,
+        "step_ms": step_ms, "steady_images_per_s": steady,
+        "train_flops_per_image": 3 * fwd,
+        "steady_share_of_bf16_peak": steady * 3 * fwd / PEAK_BF16_FLOPS,
+        "fits_bit_equal": same}
+    print(f"phase 23 (a) zoo ConvNet, 3 epochs of {len(x)} images at batch "
+          f"{b}: train accuracy {accuracy:.4f} through TPUModel, losses "
+          f"{[round(v, 4) for v in losses]}; e2e images/s at prefetch -1 "
+          f"{[round(v, 1) for v in arms[-1]]}, at 2 "
+          f"{[round(v, 1) for v in arms[2]]}; step {step_ms:.3f} ms = "
+          f"{steady:.1f} images/s, {3 * fwd / 1e9:.4f} GFLOP/image trained, "
+          f"{out['convnet']['steady_share_of_bf16_peak']:.4f} of 989 "
+          f"TFLOP/s; the 4 fits bit-equal: {same} [{card}]")
+    print(f"  spans (s) per fit, host / transfer / dispatch / stall: "
+          f"{describe_spans(spans)} [{card}]")
+    del x, y, bundles, model
+    torch.cuda.empty_cache()
+
+    # (b) ResNet-50
+    rng = np.random.default_rng(1)
+    b, side = vt["resnet_batch"], vt["resnet_side"]
+    x = rng.integers(0, 256, (vt["resnet_images"], side, side, 3),
+                     dtype=np.uint8)
+    y = rng.integers(0, RESNET50["num_classes"], len(x)).astype(np.int32)
+    cfg = dict(architecture="ResNet", model_config=dict(RESNET50),
+               optimizer="momentum", momentum=0.9,
+               learning_rate=vt["resnet_lr"], epochs=1, batch_size=b,
+               loss="softmax_xent", seed=0)
+    init = ModelBundle.init("ResNet", RESNET50, seed=0,
+                            input_shape=(1, side, side, 3))
+    step_ms, one_step = train_step_ms(
+        Trainer(TrainerConfig(**cfg), device=dev), init, x[:b], y[:b], dev)
+    breakdown = device_breakdown(one_step, card, VISION_TRAIN_GROUPS)
+    del one_step
+    r50: dict = {}
+    for depth in (-1, 2):
+        trainer = Trainer(TrainerConfig(**cfg, prefetch_depth=depth),
+                          device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        with pipeline_timing() as timing:
+            bundle, secs = timed_fit(trainer, x, y, initial_bundle=init)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [r["loss"] for r in trainer.history]
+        require(bundle.metadata["steps"] == len(x) // b
+                and all(np.isfinite(losses)),
+                f"phase 23 (b) depth {depth}: steps "
+                f"{bundle.metadata['steps']}, losses {losses}")
+        unmoved = sum(np.array_equal(u, v) for u, v in zip(
+            tree_leaves(init.variables["batch_stats"]),
+            tree_leaves(bundle.variables["batch_stats"])))
+        require(unmoved == 0, f"phase 23 (b) depth {depth}: {unmoved} "
+                "batch_stats leaves did not move")
+        r50[str(depth)] = {"e2e_images_per_s": len(x) / secs,
+                           "fit_s": secs, "loss": losses,
+                           "peak_allocated_bytes": peak,
+                           "spans": fit_spans(timing, trainer)}
+    fwd = flops_per_row(TPUModel(bundle, device=dev, inputCol="x"), x[0])
+    steady = b / step_ms * 1e3
+    out["resnet50"] = {
+        "arms": r50, "device_breakdown": breakdown,
+        "step_ms": step_ms, "steady_images_per_s": steady,
+        "train_flops_per_image": 3 * fwd,
+        "steady_share_of_bf16_peak": steady * 3 * fwd / PEAK_BF16_FLOPS}
+    print(f"phase 23 (b) resnet50 bf16, {len(x) // b} steps of {b} x "
+          f"{side} x {side} uint8: e2e images/s "
+          + ", ".join(f"prefetch {k} {v['e2e_images_per_s']:.1f} (peak "
+                      f"allocated {v['peak_allocated_bytes'] / 2 ** 30:.2f} "
+                      f"GiB)" for k, v in r50.items())
+          + f"; step {step_ms:.3f} ms = {steady:.1f} images/s, "
+          f"{3 * fwd / 1e9:.3f} GFLOP/image trained, "
+          f"{out['resnet50']['steady_share_of_bf16_peak']:.4f} of 989 "
+          f"TFLOP/s; losses {r50['2']['loss']} [{card}]")
+    print(f"  spans (s) per fit, host / transfer / dispatch / stall: "
+          + describe_spans({k: [v["spans"]] for k, v in r50.items()})
+          + f" [{card}]")
+    del x, y, init, bundle
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU at f32, and the planted fault
+    x, y = template_images(vt["digits_batch"], 10, 16.0, 2)
+    digits = {**RESNET_DIGITS, "dtype": "float32"}
+    cfg = dict(architecture="ResNet", model_config=digits,
+               optimizer="momentum", learning_rate=0.05, epochs=2,
+               batch_size=vt["digits_batch"], loss="softmax_xent", seed=0)
+    init = ModelBundle.init("ResNet", digits, seed=3,
+                            input_shape=(1, 32, 32, 3))
+
+    def digits_fit(device, fault=False):
+        saved = BatchNorm.forward
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        flags = cudnn.allow_tf32, matmul.allow_tf32
+        if fault:
+            BatchNorm.forward = lambda self, v: (
+                unbiased_batchnorm(self, v) if self.training
+                else saved(self, v))
+        # TF32 on: the Trainer's f32 step must turn it off
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        try:
+            return Trainer(TrainerConfig(**cfg), device=device).fit_arrays(
+                x, y, initial_bundle=init)
+        finally:
+            BatchNorm.forward = saved
+            cudnn.allow_tf32, matmul.allow_tf32 = flags
+
+    cpu = digits_fit("cpu")
+    tol = vt["card_vs_cpu_tol"]
+    gaps = leaf_gaps(digits_fit(dev), cpu)
+    fault = leaf_gaps(digits_fit(dev, fault=True), cpu)
+    worst = max(gaps, key=gaps.get)
+    caught = max(fault, key=fault.get)
+    out["card_vs_cpu"] = {"worst_leaf": worst, "worst": gaps[worst],
+                          "fault_worst_leaf": caught,
+                          "fault_worst": fault[caught], "tol": tol}
+    print(f"phase 23 (c) ResNetDigits f32, 2 momentum steps on a batch of "
+          f"{len(x)}: card vs CPU worst leaf {worst} at "
+          f"{gaps[worst]:.3e} of its max |value| (limit {tol:g}); planted "
+          f"unbiased running variance: worst {caught} at "
+          f"{fault[caught]:.3e} [{card}]")
+    require(gaps[worst] <= tol, f"phase 23 (c): the card's f32 fit is "
+            f"{gaps[worst]:.3e} of {worst}'s max from the CPU's")
+    require(fault[caught] > tol, "phase 23 (c): the gate passed torch's "
+            f"unbiased running variance (worst {fault[caught]:.3e})")
+
+    # (d) resume
+    x, y = template_images(vt["resume_images"], 10, 32.0, 4)
+    cfg = dict(architecture="ResNet", model_config=dict(RESNET_DIGITS),
+               optimizer="adam", learning_rate=2e-3, lr_schedule="cosine",
+               epochs=2, batch_size=vt["resume_batch"], loss="softmax_xent",
+               seed=1, checkpoint_every_steps=vt["resume_every"])
+    init = ModelBundle.init("ResNet", RESNET_DIGITS, seed=1,
+                            input_shape=(1, 32, 32, 3))
+    root = tempfile.mkdtemp(prefix="chip_smoke_vision_")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught_warnings:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+
+            def fit(ckpt, **kw):
+                return Trainer(TrainerConfig(**cfg), device=dev).fit_arrays(
+                    x, y, initial_bundle=init, ckpt_dir=ckpt, **kw)
+
+            first = fit(os.path.join(root, "a"))
+            second = fit(None)
+            previous = set_injector(ChaosInjector(
+                script=[Fault("sigterm", step=vt["preempt_at"])]))
+            preempted = None
+            try:
+                fit(os.path.join(root, "b"), resume=True)
+            except Preempted as e:
+                preempted = e.step
+            finally:
+                set_injector(previous)
+            resumed = fit(os.path.join(root, "b"), resume=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    nondeterministic = sorted({str(w.message).split("\n")[0]
+                               for w in caught_warnings
+                               if "deterministic" in str(w.message)})
+    spread = max(leaf_gaps(second, first).values())
+    gap = max(leaf_gaps(resumed, first).values())
+    steps = 2 * vt["resume_images"] // vt["resume_batch"]
+    out["resume"] = {"preempted_at": preempted, "steps":
+                     resumed.metadata["steps"], "fault_free_spread": spread,
+                     "resumed_gap": gap,
+                     "nondeterministic_ops": nondeterministic}
+    print(f"phase 23 (d) ResNetDigits bf16 resume: preempted after step "
+          f"{preempted}, resumed to {resumed.metadata['steps']} steps; "
+          f"two fault-free fits differ by {spread:.3e}, the resumed fit by "
+          f"{gap:.3e} (of each leaf's max); ops warned nondeterministic: "
+          f"{nondeterministic} [{card}]")
+    require(preempted == vt["preempt_at"] + 1
+            and resumed.metadata["steps"] == steps,
+            f"phase 23 (d): preempted at {preempted}, "
+            f"{resumed.metadata['steps']} steps")
+    require(gap <= spread, f"phase 23 (d): the resumed fit is {gap:.3e} "
+            f"from the fault-free one, whose repeat is {spread:.3e}")
+
+    # (e) TPULearner -> TPUModel
+    rng = np.random.default_rng(5)
+    n, f = vt["learner_rows"], vt["learner_features"]
+    feats = rng.standard_normal((n, f), dtype=np.float32)
+    labels = (feats @ rng.standard_normal(f) > 0).astype(np.int32)
+    table = DataTable({"features": feats, "label": labels})
+    learner = TPULearner(TrainerConfig(
+        architecture="MLPClassifier",
+        model_config={"hidden_sizes": [32], "num_classes": 2},
+        optimizer="adam", learning_rate=1e-2, lr_schedule="cosine",
+        epochs=vt["learner_epochs"], batch_size=vt["learner_batch"],
+        loss="softmax_xent", seed=3), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted = learner.fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    scores = fitted.transform(table)["output"]
+    score_s = time.perf_counter() - t0 - fit_s
+    accuracy = float((scores.argmax(1) == labels).mean())
+    out["learner"] = {"accuracy": accuracy, "fit_s": fit_s,
+                      "transform_s": score_s}
+    print(f"phase 23 (e) TPULearner MLP [32] over {n} rows x {f}: fit "
+          f"{fit_s:.3f} s ({fitted.bundle.metadata['steps']} steps), "
+          f"transform {score_s:.3f} s, accuracy {accuracy:.4f} [{card}]")
+    require(accuracy >= vt["learner_accuracy"],
+            f"phase 23 (e): accuracy {accuracy:.4f}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 23 (vision and tabular training): {out['seconds']:.1f} s "
+          f"[{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6416,6 +6863,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     image_pipeline = phase_image_pipeline(dev, card)
     print(json.dumps({"image_pipeline": image_pipeline, "card": card}))
+    torch.cuda.empty_cache()
+    vision_training = phase_vision_training(dev, card)
+    print(json.dumps({"vision_training": vision_training, "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

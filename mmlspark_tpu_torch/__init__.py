@@ -41,7 +41,11 @@ with `Pipeline` / `PipelineModel`, over bundles from the local model zoo
 that feeds it: `io.read_images` / `io.read_images_iter` over local, zip
 and remote sources with the host decoder (`native_loader`), the streaming
 `data.Dataset` with its depth Autotuner, and `vision.ImageTransformer`,
-`UnrollImage` and `ImageFeaturizer` (torch image ops on the card).
+`UnrollImage` and `ImageFeaturizer` (torch image ops on the card); and
+training of the vision and tabular models, `Trainer.fit_arrays` over the
+MLP, linear, ConvNet and ResNet models (BatchNorm statistics updated in
+training and carried in checkpoints and bundles, batches staged through
+a `Dataset` map stage) and `TPULearner.fit(table) -> TPUModel`.
 
 Layer map:
   core/    - params DSL, column metadata and the schema helpers, DataTable,
@@ -50,7 +54,7 @@ Layer map:
   models/  - TransformerLM and the scoring models (torch.nn), bundles,
              TPUModel, the decode engine, beam search
   train/   - TrainerConfig, the optax-algebra optimizers and their state
-             trees, the Trainer, the recovery supervisor
+             trees, the Trainer, TPULearner, the recovery supervisor
   parallel/ - MeshSpec, Mesh and make_mesh (single controller, devices may
              repeat), the collectives, attention over a mesh and the
              seq-parallel LM step (ring.py), the partition-rule data, the
@@ -92,5 +96,5 @@ from mmlspark_tpu_torch.models import (DecodeEngine, ModelBundle,
                                        TextGenerator, TPUModel, TransformerLM,
                                        build_model, load_bundle,
                                        naive_generate, save_bundle)
-from mmlspark_tpu_torch.train import Trainer, TrainerConfig
+from mmlspark_tpu_torch.train import TPULearner, Trainer, TrainerConfig
 from mmlspark_tpu_torch.zoo import ModelDownloader, pretrained_repo

@@ -72,9 +72,7 @@ class ModelBundle:
                              self.config if config is None else config,
                              device=device)
         state = variables_from_jax(self.variables)
-        for name, param in module.named_parameters():
-            if is_lazy(param):
-                param.materialize(tuple(state[name].shape))
+        _materialize(module, state)
         for name, value in state.items():
             prefix, _, leaf = name.rpartition(".")
             if leaf == "weight" and value.dtype == torch.int8:
@@ -153,6 +151,24 @@ def calibrated_bundle(bundle: ModelBundle, images: np.ndarray,
     return ModelBundle(bundle.architecture, dict(bundle.config),
                        variables_to_jax(module.state_dict()),
                        dict(bundle.metadata))
+
+
+def _materialize(module: nn.Module, state: dict) -> None:
+    """Give every layer that infers its shape from its input (`Dense(None,
+    ...)`, `Conv(None, ...)`) the shape of its weight in `state`."""
+    for name, param in module.named_parameters():
+        if is_lazy(param):
+            param.materialize(tuple(state[name].shape))
+
+
+def load_variables(module: nn.Module, variables: dict) -> nn.Module:
+    """Load float flax-layout variables (params, and batch_stats for
+    BatchNorm models) into a registered module in place: its f32 masters
+    and buffers, lazy layers materialized from the weights' shapes."""
+    state = variables_from_jax(variables)
+    _materialize(module, state)
+    module.load_state_dict(state)
+    return module
 
 
 def _int8_layer(old: nn.Module, weight: torch.Tensor,

@@ -333,6 +333,7 @@ def init_transformer_lm_params(config: dict, seed: int = 0) -> dict:
 # --------------------------------------------------------------------------
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -426,15 +427,22 @@ class Int8Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax `nn.BatchNorm(use_running_average=True, dtype=dtype)`: `scale`
-    and `bias` (flax params) and `mean` and `var` (flax batch_stats, here
-    buffers), eps 1e-5.  The math is flax's: (x - mean) * rsqrt(var + eps)
-    * scale + bias in f32, cast to the compute dtype (one
-    `F.batch_norm`, which takes bf16 activations with f32 statistics).
-    `zero_scale` marks the layer whose scale flax initialises to zero (the
-    last of a bottleneck block).  Only inference is ported: updating the
-    statistics in training (flax momentum 0.99) waits for the Trainer of
-    these models (ROADMAP A5)."""
+    """flax `nn.BatchNorm(use_running_average=not train, dtype=dtype)`:
+    `scale` and `bias` (flax params) and `mean` and `var` (flax
+    batch_stats, here buffers), eps 1e-5, momentum 0.99.  `zero_scale`
+    marks the layer whose scale flax initialises to zero (the last of a
+    bottleneck block).  The module's `training` flag is flax's `train`.
+
+    In inference the math is flax's: (x - mean) * rsqrt(var + eps) * scale
+    + bias in f32, cast to the compute dtype (one `F.batch_norm`, which
+    takes bf16 activations with f32 statistics).
+
+    In training the statistics are the batch's, over (N, H, W) in f32,
+    with flax's fast biased variance max(0, E[x^2] - E[x]^2); the output
+    is (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast to the
+    compute dtype, and the buffers move in place to 0.99 * buffer + (1 -
+    0.99) * batch statistic, the variance biased as flax keeps it
+    (`F.batch_norm(training=True)` would update with the unbiased one)."""
 
     def __init__(self, features: int, dtype=torch.bfloat16,
                  zero_scale: bool = False, device=None):
@@ -447,10 +455,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
-        return F.batch_norm(x, self.mean.float(), self.var.float(),
-                            self.scale.float(), self.bias.float(),
-                            training=False, eps=BN_EPS)
+        if not self.training:
+            x = x.to(self.compute_dtype)
+            return F.batch_norm(x, self.mean.float(), self.var.float(),
+                                self.scale.float(), self.bias.float(),
+                                training=False, eps=BN_EPS)
+        # over the (N, H, W, C) view, contiguous for a channels-last
+        # activation: every per-channel broadcast then runs along the
+        # innermost axis (vectorized kernels on the card)
+        xf = nhwc(x).float()
+        dims = (0, 1, 2)
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for buf, stat in ((self.mean, mean), (self.var, var)):
+                buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat)
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        y = (xf - mean) * mul + self.bias
+        return y.to(self.compute_dtype).permute(0, 3, 1, 2)
 
 
 class _Scorer(nn.Module):
@@ -607,7 +629,9 @@ class ResNet(_Scorer):
     of every stage after the first strides 2), the global average pool
     (node pool, f32) and the logits (node z).  Blocks keep flax's
     auto-names, `ResNetBlock_k` / `ResNetBottleneckBlock_k` numbered over
-    all stages."""
+    all stages.  The module's `training` flag is flax's `train`: in
+    `train()` mode every BatchNorm normalizes with the batch's statistics
+    and updates its buffers (`BatchNorm`)."""
 
     def __init__(self, stage_sizes=(2, 2, 2, 2), widths=(64, 128, 256, 512),
                  num_classes: int = 1000, block_kind: str = "basic",
@@ -670,10 +694,15 @@ def init_scoring_params(module: nn.Module, input_shape: tuple,
     in distribution: kernels lecun-normal (truncated normal, variance
     1/fan_in), biases 0, BatchNorm scale 1 (0 where flax zero-initialises
     it), bias 0, mean 0, var 1.  A forward over zeros of `input_shape`
-    first sets the shapes inferred from the input, as flax's init does."""
+    first sets the shapes inferred from the input, as flax's init does
+    (in eval mode: the init moves no BatchNorm statistics)."""
     from mmlspark_tpu_torch.models.bundle import variables_to_jax
-    with torch.no_grad():
-        module(torch.zeros(input_shape, device=module.device))
+    training = module.training
+    try:
+        with torch.no_grad():
+            module.eval()(torch.zeros(input_shape, device=module.device))
+    finally:
+        module.train(training)
     rng = np.random.default_rng(seed)
     state = {}
     for prefix, mod in module.named_modules():

@@ -1,4 +1,5 @@
 from mmlspark_tpu_torch.train.config import TrainerConfig
+from mmlspark_tpu_torch.train.learner import TPULearner
 from mmlspark_tpu_torch.train.supervisor import (RecoveryBudgetExceeded,
                                                  RecoveryPolicy,
                                                  RecoverySupervisor)

@@ -52,8 +52,10 @@ class TrainerConfig:
     pipeline_stages: int = 1
     pipeline_microbatches: int = 4
 
-    # input staging depth (kept for the round trip: the port stages
-    # batches serially)
+    # input staging: batches in flight on the Trainer's Dataset map stage
+    # (batch k+1's gather and copy overlap step k).  Positive pins the
+    # window, 0 hands it to the data layer's Autotuner, -1 stages
+    # synchronously on the dispatch thread
     prefetch_depth: int = 2
 
     # checkpoint/resume

@@ -229,37 +229,61 @@ def chain_layout(kind: str, clip: bool, decay: bool,
     return tree
 
 
+_LEAF_OF = {"numpy": lambda v: v.float().cpu().numpy().copy(),
+            "device": lambda v: v.float().clone(
+                memory_format=torch.contiguous_format),
+            "view": lambda v: v}
+
+
+def nest(flat: dict) -> dict:
+    """{"a.b.c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        parent = tree
+        *path, last = name.split(".")
+        for key in path:
+            parent = parent.setdefault(key, {})
+        parent[last] = leaf
+    return tree
+
+
 def named_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
                to: str = "numpy") -> dict:
-    """Named f32 tensors of a TransformerLM in the flax tree: a node with
-    `weight` and `bias` is a Dense (weight (out, in) -> `kernel`
-    (in, out)), `weight` alone an embedding, `scale`/`bias` a LayerNorm.
-    Leaves: `to="numpy"` host copies; `"device"` fresh contiguous copies
-    on the tensors' device (later in-place updates leave them alone);
-    `"view"` the tensors themselves (shapes only: a restore's
-    template)."""
+    """Named f32 parameters in the flax tree, by the node rules of
+    `models/bundle.py::variables_to_jax`: `scale`/`bias` a LayerNorm or a
+    BatchNorm's params, a rank-4 `weight` a Conv (OIHW -> `kernel` HWIO,
+    bias optional), `weight` and `bias` a Dense (weight (out, in) ->
+    `kernel` (in, out)), `weight` alone an embedding.  Leaves: `to="numpy"`
+    host copies; `"device"` fresh contiguous copies on the tensors' device
+    (later in-place updates leave them alone); `"view"` the tensors
+    themselves (shapes only: a restore's template)."""
     nodes: dict = {}
     for name, t in zip(names, tensors):
         prefix, _, leaf = name.rpartition(".")
         nodes.setdefault(prefix, {})[leaf] = t.detach()
-    leaf_of = {"numpy": lambda v: v.float().cpu().numpy().copy(),
-               "device": lambda v: v.float().clone(
-                   memory_format=torch.contiguous_format),
-               "view": lambda v: v}[to]
-    tree: dict = {}
+    leaf_of = _LEAF_OF[to]
+    flat: dict = {}
     for prefix, leaves in nodes.items():
         if "scale" in leaves:
             node = {"scale": leaves["scale"], "bias": leaves["bias"]}
+        elif leaves["weight"].dim() == 4:
+            node = {"kernel": leaves["weight"].permute(2, 3, 1, 0)}
         elif "bias" in leaves:
-            node = {"kernel": leaves["weight"].t(), "bias": leaves["bias"]}
+            node = {"kernel": leaves["weight"].t()}
         else:
             node = {"embedding": leaves["weight"]}
-        parent = tree
-        *path, last = prefix.split(".")
-        for key in path:
-            parent = parent.setdefault(key, {})
-        parent[last] = {k: leaf_of(v) for k, v in node.items()}
-    return tree
+        if "kernel" in node and "bias" in leaves:
+            node["bias"] = leaves["bias"]
+        flat[prefix] = {k: leaf_of(v) for k, v in node.items()}
+    return nest(flat)
+
+
+def stats_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
+               to: str = "numpy") -> dict:
+    """Named BatchNorm buffers (`<layer>.mean`, `<layer>.var`) as flax's
+    `batch_stats` tree, leaves as `named_tree`'s `to` says."""
+    return nest({name: _LEAF_OF[to](t.detach())
+                 for name, t in zip(names, tensors)})
 
 
 def _named_from_tree(tree: dict, names: Sequence[str]) -> list:

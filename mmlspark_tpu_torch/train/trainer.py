@@ -1,23 +1,41 @@
 """The single-device Trainer: the port of `mmlspark_tpu/train/trainer.py`
 (`_make_loss` :157-179, `_epoch_order` :197-208, `Trainer` :211-312,
 :367-442, `fit_arrays` :445-927, `_numerics_check` :929-987,
+`training_metric_data` :978-986, `bundle_from_state` :988-1022,
 `_ckpt_meta` :1040-1060, `save_checkpoint` / `restore_checkpoint`
-:1062-1160) for a `TransformerLM` on one card.
+:1062-1170) for every registered architecture on one card: the
+`TransformerLM` and the scoring models (`MLPClassifier`, `LinearModel`,
+`ConvNetCIFAR10`, `ResNet`), the path of MMLSpark's CNTKLearner.
 
 `fit_arrays` keeps the JAX loop's contract: the clamped batch size, the
 numpy data order (`np.random.default_rng(seed)`, or `[seed, rng_fold]`),
 a partial last batch padded by cycling rows of the epoch's order with a
-0/1 loss mask, one `history` row per epoch that ran a step (loss,
-grad_norm, wall_s) fetched at the epoch's end, and a bundle whose
-metadata records `steps` and the partition layout exactly as the JAX
-Trainer writes them.
+0/1 loss mask (the pad rows are real rows, so they count in BatchNorm's
+batch statistics, as in the JAX Trainer), one `history` row per epoch
+that ran a step (loss, grad_norm, wall_s) fetched at the epoch's end,
+and a bundle whose metadata records `steps` and the partition layout
+exactly as the JAX Trainer writes them.
 
 A step is forward -> loss -> `backward()` -> global gradient norm (f32)
--> the optax-algebra update of the f32 masters (`train/optim.py`).  With
-`attn_impl="flash"` the attention forward and backward are the CUDA
-kernels K1-K3 (`ops/flash_attention.py`).  Batches are staged serially:
-pinned host memory, then a non-blocking copy to the card
-(`prefetch_depth` is kept for the config round trip).
+-> the optax-algebra update of the f32 masters (`train/optim.py`).  The
+forward runs in `train()` mode: a scoring model's BatchNorm layers
+normalize with the batch's statistics and move their running statistics
+in place during the forward (`models/definitions.py` `BatchNorm`), and
+the loss reads the logits node of the scorer's `(z, nodes)`.  With
+`attn_impl="flash"` the LM's attention forward and backward are the CUDA
+kernels K1-K3 (`ops/flash_attention.py`); convolutions, pools, BatchNorm
+and Dense layers are torch ops (cuDNN, cuBLAS).  A float32 model's step
+runs with TF32 off (`core.device.exact_f32`), as `TPUModel` scores it.
+
+Staging, as in the JAX Trainer: a `Dataset` map stage (`data/dataset.py`)
+builds batch k+1 (the index gather, the mask, pinned host buffers and the
+non-blocking copy on a side stream, `parallel/bridge.py` `DeviceFeed`)
+while step k runs.  `prefetch_depth` sets the window: positive pins it, 0
+hands it to the data layer's Autotuner, -1 stages on the dispatch
+thread.  Batches travel in their own dtype (uint8 images as bytes) and
+the module casts on the card; float64 and int64 arrays are narrowed to
+float32 and int32 on the host, as JAX places them.  The data order, the
+pad rows and the mask are the same at every depth.
 
 Fault tolerance, as in the JAX Trainer:
 
@@ -25,8 +43,9 @@ Fault tolerance, as in the JAX Trainer:
     `checkpoint_every_steps` steps and at the end, in the JAX package's
     rotation layout and payload format (`resilience/checkpoints.py`,
     `resilience/ckpt_writer.py`: a checkpoint either package writes
-    restores in the other), async by default: the state is copied on the
-    card before the next step runs and written by a background thread;
+    restores in the other, BatchNorm statistics in its `batch_stats`),
+    async by default: the state is copied on the card before the next
+    step runs and written by a background thread;
   * `resume=True` restores the newest valid checkpoint and replays the
     same data order, skipping the completed steps; the `.meta.json`
     sidecar's effective batch size is adopted (the one-card half of
@@ -39,8 +58,9 @@ Fault tolerance, as in the JAX Trainer:
   * `step_timeout_s`: the hung-step watchdog (armed from the third
     executed step), a best-effort checkpoint of the last completed state
     on `HungStepError` when the hung step never launched (one that did
-    may still be updating the state in place, so none is written and
-    recovery falls back to the last periodic checkpoint);
+    may still be updating the parameters, moments and BatchNorm
+    statistics in place, so none is written and recovery falls back to
+    the last periodic checkpoint);
   * the numerics probe every `numerics_cadence` steps
     (`observe/numerics.py`), computed on the card and fetched at the
     step boundary; `halt_on_nonfinite` / `halt_on_divergence` raise
@@ -50,12 +70,12 @@ Fault tolerance, as in the JAX Trainer:
 
 Still raising NotImplementedError: meshes and pipeline stages (ROADMAP
 A10; seq-parallel training is `parallel/ring.py`'s
-`make_seq_parallel_lm_step`) and every architecture but `TransformerLM`
-(ROADMAP A2/A5, the vision slice).
+`make_seq_parallel_lm_step`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -65,20 +85,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mmlspark_tpu_torch.core.device import resolve_device
-from mmlspark_tpu_torch.models.bundle import ModelBundle, params_from_jax
-from mmlspark_tpu_torch.models.definitions import (build_model,
+from mmlspark_tpu_torch.core.device import exact_f32, resolve_device
+from mmlspark_tpu_torch.data import Dataset
+from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_variables,
+                                              variables_from_jax)
+from mmlspark_tpu_torch.models.definitions import (BatchNorm, build_model,
+                                                   init_scoring_params,
                                                    init_transformer_lm_params)
 from mmlspark_tpu_torch.observe.logging import get_logger
-from mmlspark_tpu_torch.observe.metrics import inc_counter
+from mmlspark_tpu_torch.observe.metrics import MetricData, inc_counter
 from mmlspark_tpu_torch.observe.numerics import (DivergenceError,
                                                  LossSpikeDetector,
                                                  NonFiniteError,
                                                  fetch_health, tree_health)
-from mmlspark_tpu_torch.observe.spans import monotonic
+from mmlspark_tpu_torch.observe.spans import (active_timings, monotonic,
+                                              span_on)
 from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import (active_tracer, current_span_id,
-                                              trace_event, trace_span)
+                                              span_on_tracer, trace_event,
+                                              trace_span)
+from mmlspark_tpu_torch.parallel.bridge import DeviceFeed
 from mmlspark_tpu_torch.parallel.partition import DEFAULT_RULES, rules_to_json
 from mmlspark_tpu_torch.resilience.chaos import get_injector
 from mmlspark_tpu_torch.resilience.checkpoints import (
@@ -93,7 +119,7 @@ from mmlspark_tpu_torch.train.config import TrainerConfig
 from mmlspark_tpu_torch.train.optim import (Optimizer, backward_and_update,
                                             global_norm, named_tree,
                                             opt_state_from_jax,
-                                            opt_state_to_jax)
+                                            opt_state_to_jax, stats_tree)
 
 _LOG = logging.getLogger("mmlspark_tpu_torch.train")
 
@@ -135,25 +161,31 @@ def epoch_order(rng, epoch: int, n: int, n_local: int,
     return (np.arange(n) + epoch * n) % n_local
 
 
+def host_batch(arr: np.ndarray) -> np.ndarray:
+    """A host batch as JAX (without x64) places it: float64 and int64
+    narrowed to float32 and int32, every other dtype kept."""
+    narrow = {np.dtype(np.float64): np.float32,
+              np.dtype(np.int64): np.int32}.get(arr.dtype)
+    return arr if narrow is None else arr.astype(narrow)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The global step, the parameters (the module's f32 masters, updated
-    in place) and the optimizer's state."""
+    in place), the optimizer's state and the BatchNorm statistics (the
+    module's `mean` / `var` buffers, updated in place by the training
+    forward; empty for a model without BatchNorm)."""
 
     step: int
     params: list
     opt_state: dict
+    batch_stats: list = dataclasses.field(default_factory=list)
 
 
 class Trainer:
     """Drives the training loop for one model on one card."""
 
     def __init__(self, config: TrainerConfig, mesh=None, device="cuda"):
-        if config.architecture != "TransformerLM":
-            raise NotImplementedError(
-                f"architecture {config.architecture!r} is not ported "
-                "(TransformerLM; the others come with the vision slice, "
-                "ROADMAP A2/A5)")
         if config.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline stages are not ported (ROADMAP A10)")
@@ -172,54 +204,77 @@ class Trainer:
         self.device = resolve_device(device)
         self.module = build_model(config.architecture, config.model_config,
                                   device=self.device)
+        # the scoring models return (z, nodes) and infer their first
+        # layers' widths from the input
+        self._scoring = config.architecture != "TransformerLM"
         self._names = [n for n, _ in self.module.named_parameters()]
+        self._stat_names = [f"{prefix}.{leaf}" for prefix, mod in
+                            self.module.named_modules()
+                            if isinstance(mod, BatchNorm)
+                            for leaf in ("mean", "var")]
         self._loss = make_loss(config.loss)
         self.history: list[dict] = []
         self.last_health: Optional[dict] = None
+        self.last_staging: Optional[dict] = None
         # background checkpoint writers, one per directory; closed at the
         # end of each fit
         self._writers: dict[str, CheckpointWriter] = {}
         self._effective_batch_size: Optional[int] = None
 
     # -- state ----------------------------------------------------------
-    def init_state(self, total_steps: int = 1,
-                   initial_bundle: Optional[ModelBundle] = None
-                   ) -> TrainState:
-        """Load the module's seeded init (or warm-start from a bundle) into
-        its f32 masters and build the optimizer state.  A warm start
-        resumes the bundle's recorded step."""
+    def init_state(self, input_shape: tuple, total_steps: int = 1,
+                   initial_bundle: Optional[ModelBundle] = None,
+                   input_dtype=np.float32) -> TrainState:
+        """Load the module's seeded init (or warm-start from a bundle:
+        parameters and BatchNorm statistics) into its f32 masters and
+        buffers, and build the optimizer state.  A scoring model's init
+        (`init_scoring_params`) reads `input_shape`, a batch's shape, for
+        the widths its first layer infers; the LM's ignores it.
+        `input_dtype` is the JAX signature's: a shape is all the port's
+        init reads.  A warm start resumes the bundle's recorded step."""
         self._tx = Optimizer(self.config, total_steps)
         if initial_bundle is not None:
             variables = initial_bundle.variables
+        elif self._scoring:
+            variables = init_scoring_params(self.module, tuple(input_shape),
+                                            self.config.seed)
         else:
             variables = init_transformer_lm_params(self.module.config,
                                                    self.config.seed)
-        self.module.load_state_dict(params_from_jax(variables["params"]))
+        load_variables(self.module, variables)
         self.module.train()
         params = list(self.module.parameters())
         start = int((initial_bundle.metadata or {}).get("steps", 0)) \
             if initial_bundle is not None else 0
         return TrainState(step=start, params=params,
-                          opt_state=self._tx.init(params))
+                          opt_state=self._tx.init(params),
+                          batch_stats=[self.module.get_buffer(n)
+                                       for n in self._stat_names])
 
     # -- the step -------------------------------------------------------
     def make_train_step(self):
         """`step(state, x, y, mask, probe=False) -> (loss, metrics)`, both
-        device tensors; the state's parameters and optimizer state are
-        updated in place and its step advances.  `metrics` holds
-        `grad_norm`, and on a probe step `health` (`tree_health` over the
-        new parameters, the gradients, the updates and the logits)."""
+        device tensors; the state's parameters, optimizer state and
+        BatchNorm statistics are updated in place and its step advances.
+        `metrics` holds `grad_norm`, and on a probe step `health`
+        (`tree_health` over the new parameters, the gradients, the
+        updates and the logits)."""
         module, loss_fn, tx, names = (self.module, self._loss, self._tx,
                                       self._names)
+        scoring = self._scoring
+        f32 = module.dtype == torch.float32
 
         def train_step(state: TrainState, x, y, mask, probe: bool = False):
             def loss_and_logits():
-                logits = module(x)
+                out = module(x)
+                logits = out[0] if scoring else out
                 return loss_fn(logits, y, mask), logits
 
-            loss, logits, grads, updates = backward_and_update(
-                tx, state.params, state.opt_state, loss_and_logits,
-                return_updates=probe)
+            # a float32 model computes in f32 on the card: TF32 off
+            with exact_f32() if f32 else contextlib.nullcontext():
+                loss, logits, grads, updates = backward_and_update(
+                    tx, state.params, state.opt_state, loss_and_logits,
+                    return_updates=probe)
             metrics = {"grad_norm": global_norm(grads)}
             state.step += 1
             if probe:
@@ -229,16 +284,6 @@ class Trainer:
             return loss.detach(), metrics
 
         return train_step
-
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        if np.issubdtype(arr.dtype, np.integer):
-            arr = arr.astype(np.int64)
-        elif arr.dtype != np.float32:
-            arr = arr.astype(np.float32)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
 
     def _sync(self) -> None:
         """Wait for the work queued so far on the card (a CUDA event's
@@ -280,7 +325,8 @@ class Trainer:
         steps_per_epoch = max(1, (n + bs - 1) // bs)
         total_steps = steps_per_epoch * cfg.epochs
 
-        state = self.init_state(total_steps, initial_bundle)
+        state = self.init_state((1,) + x.shape[1:], total_steps,
+                                initial_bundle, input_dtype=x.dtype)
         base_step = skip_until = int(state.step)
         if restore_from:
             with trace_span("checkpoint.restore", cat="checkpoint",
@@ -313,8 +359,12 @@ class Trainer:
         windows = [(int(a), int(b)) for a, b in (skip_data_windows or [])]
         watchdog = StepWatchdog(cfg.step_timeout_s) \
             if cfg.step_timeout_s else None
+        feed = DeviceFeed(self.device)
+        timings = active_timings()   # captured HERE: workers have no context
 
         def plan():
+            # pulled on the dispatch thread (the map stage tops up there),
+            # so the orders are drawn in the same sequence at every depth
             step_c = base_step
             for epoch in range(cfg.epochs):
                 order = epoch_order(rng, epoch, n, n_local,
@@ -326,16 +376,28 @@ class Trainer:
                             start
                     step_c += 1
 
-        def stage(order, start):
-            idx = order[start:start + bs]
-            valid = len(idx)
-            if valid < bs:
-                # cycle rows of the order into the pad, masked out
-                idx = np.concatenate([idx, np.resize(order, bs - valid)])
-            mask = np.zeros(bs, np.float32)
-            mask[:valid] = 1.0
-            return (self._to_device(x[idx]), self._to_device(y[idx]),
-                    self._to_device(mask))
+        def stage(item):
+            # on a staging worker: the gather, the mask, the pinned
+            # buffers and the copies to the card (a skip window's marker
+            # stages nothing)
+            epoch, step_c, order, start = item
+            if order is None:
+                return epoch, step_c, None
+            with span_on_tracer(tracer, "train.stage", parent=fit_id,
+                                cat="stage", step=step_c):
+                with span_on(timings, "host"):
+                    idx = order[start:start + bs]
+                    valid = len(idx)
+                    if valid < bs:
+                        # cycle rows of the order into the pad, masked out
+                        idx = np.concatenate([idx,
+                                              np.resize(order, bs - valid)])
+                    mask = np.zeros(bs, np.float32)
+                    mask[:valid] = 1.0
+                    hosts = [feed.stage(host_batch(a), bs)
+                             for a in (x[idx], y[idx], mask)]
+                with span_on(timings, "transfer"):
+                    return epoch, step_c, [feed.put(h) for h in hosts]
 
         losses, norms = [], []
         cur_epoch: Optional[int] = None
@@ -361,14 +423,19 @@ class Trainer:
         # on it: a step is either abandoned before it launches or recorded
         # here as launched
         launch_gate, launched = threading.Lock(), [None]
+        # NO `prefetch` op below the plan: its pulls stay on this thread
+        staged = (Dataset.from_iterable(plan)
+                  .map(stage, name="train", depth=cfg.prefetch_depth,
+                       span=None)
+                  .iterator())
         with PreemptionGuard(install=bool(ckpt_dir)) as guard:
             try:
-                for epoch, step_c, order, start in plan():
+                for epoch, step_c, batch in staged:
                     if epoch != cur_epoch:
                         finish_epoch()
                         cur_epoch = epoch
                         losses, norms = [], []
-                    if order is None:
+                    if batch is None:
                         # a skip window: the step number advances, no
                         # data is staged and no update runs
                         state.step += 1
@@ -376,7 +443,7 @@ class Trainer:
                         trace_event("train.step_skipped", cat="resilience",
                                     step=step_c, epoch=epoch)
                         continue
-                    xb, yb, mask_d = stage(order, start)
+                    xb, yb, mask_d = (feed.ready(*b) for b in batch)
                     chaos.on_step(step_c)  # may deliver a simulated SIGTERM
                     if chaos.poison_nan(step_c):
                         mask_d = mask_d * float("nan")
@@ -404,11 +471,13 @@ class Trainer:
                             return dog.run(exec_step, step=step,
                                            ckpt_dir=ckpt_dir)
                     if tracer is None:
-                        loss, metrics = run_step()
+                        with span_on(timings, "compute"):
+                            loss, metrics = run_step()
                     else:
                         with tracer.span("train.step", parent=fit_id,
                                          cat="step", step=step_c,
-                                         epoch=epoch) as sp:
+                                         epoch=epoch) as sp, \
+                                span_on(timings, "compute"):
                             loss, metrics = run_step()
                             sp.attrs["loss"] = float(loss)
                             sp.attrs["grad_norm"] = float(
@@ -444,9 +513,9 @@ class Trainer:
                     started = launched[0] == e.step
                 if started:
                     # the abandoned worker may still be updating the
-                    # params and moments in place: a copy now could mix
-                    # old and new leaves, so recovery takes the last
-                    # periodic checkpoint
+                    # params, moments and BatchNorm statistics in place: a
+                    # copy now could mix old and new leaves, so recovery
+                    # takes the last periodic checkpoint
                     get_logger("train").warning(
                         "hung step %d had launched; no emergency "
                         "checkpoint", e.step)
@@ -466,12 +535,19 @@ class Trainer:
                             "failed: %s", err)
                 raise
             finally:
+                # the staging stage's counters (deliveries, stalls: the
+                # dispatch thread's waits on unfinished batches), kept
+                # for inspection
+                self.last_staging = staged.stage("train").runner.stats()
+                staged.close()
                 self._close_writers()
                 if fit_span is not None:
                     fit_span.finish()
         if ckpt_dir:
             self.save_checkpoint(state, ckpt_dir, sync=True)
             self._close_writers()
+        # the run's loss curve through the typed contract
+        self.training_metric_data().log("train", "debug")
         self._last_state = state
         return self.bundle_from_state(state)
 
@@ -544,8 +620,19 @@ class Trainer:
                 raise DivergenceError(step, loss_val,
                                       detector.threshold(), ckpt_dir)
 
+    def training_metric_data(self) -> MetricData:
+        """This trainer's history as a typed metric table (epoch, loss,
+        wall_s and any other history column, e.g. grad_norm)."""
+        extras = sorted({k for r in self.history for k in r}
+                        - {"epoch", "loss", "wall_s"})
+        cols = {key: [r.get(key, float("nan")) for r in self.history]
+                for key in ("epoch", "loss", "wall_s", *extras)}
+        return MetricData.create_table(cols, "training",
+                                       self.config.architecture)
+
     def bundle_from_state(self, state: TrainState) -> ModelBundle:
-        """The trained bundle; metadata records the step and the partition
+        """The trained bundle (parameters, and the BatchNorm statistics as
+        `batch_stats`); metadata records the step and the partition
         layout (rules and a {data: 1, model: 1} mesh) as the JAX Trainer
         does."""
         rules = self.config.partition_rules or DEFAULT_RULES
@@ -558,10 +645,12 @@ class Trainer:
 
     # -- checkpoint / resume ----------------------------------------------
     def state_tree(self, state: TrainState, to: str = "numpy") -> dict:
-        """The checkpoint tree of the JAX Trainer (`{"batch_stats": {},
-        "opt_state": optax's state, "params": the flax tree, "step"}`),
-        leaves as `named_tree`'s `to` says."""
-        return {"batch_stats": {},
+        """The checkpoint tree of the JAX Trainer (`{"batch_stats": flax's
+        statistics tree ({} without BatchNorm), "opt_state": optax's
+        state, "params": the flax tree, "step"}`), leaves as
+        `named_tree`'s `to` says."""
+        return {"batch_stats": stats_tree(self._stat_names,
+                                          state.batch_stats, to=to),
                 "opt_state": opt_state_to_jax(state.opt_state, self._names,
                                               to=to),
                 "params": named_tree(self._names, state.params, to=to),
@@ -609,9 +698,9 @@ class Trainer:
         """Restore from the newest VALID checkpoint in `ckpt_dir` (torn or
         corrupt files skipped by checksum, the legacy single file
         accepted) into the live parameters (in place) and a new optimizer
-        state.  A checkpoint of another optimizer chain, or of another
-        tree (a pipeline-stage checkpoint's stacked blocks), raises
-        ValueError."""
+        state, and the BatchNorm statistics into their buffers.  A
+        checkpoint of another optimizer chain, or of another tree (a
+        pipeline-stage checkpoint's stacked blocks), raises ValueError."""
         with trace_span("checkpoint.restore", cat="checkpoint",
                         ckpt_dir=ckpt_dir):
             path = latest_valid_checkpoint(ckpt_dir)
@@ -628,9 +717,12 @@ class Trainer:
                 f"checkpoint {path} holds another optimizer chain's state "
                 f"than {self.config.optimizer!r} with this config's clip, "
                 "weight decay and schedule")
-        named = params_from_jax(restored["params"])
+        named = variables_from_jax({"params": restored["params"],
+                                    "batch_stats": restored["batch_stats"]})
         with torch.no_grad():
-            for name, p in zip(self._names, state.params):
-                p.copy_(named[name])
+            for name, t in zip(self._names + self._stat_names,
+                               state.params + state.batch_stats):
+                t.copy_(named[name])
         return TrainState(step=int(np.asarray(restored["step"])),
-                          params=state.params, opt_state=opt_state)
+                          params=state.params, opt_state=opt_state,
+                          batch_stats=state.batch_stats)

@@ -138,7 +138,7 @@ def test_jax_checkpoint_round_trips_through_the_port(jax_run, tmp_path):
         raw = f.read()
     port = Trainer(TrainerConfig(model_config=dict(LM), **FIT),
                    device="cpu")
-    state = port.init_state(3, init)
+    state = port.init_state((1, 16), 3, init)
     state = port.restore_checkpoint(state, d)
     assert state.step == 3 and state.opt_state["count"] == 3
     assert serialize_tree(port.state_tree(state)) == raw
@@ -206,7 +206,8 @@ def test_read_checkpoint_refuses_another_tree(jax_run):
     port = Trainer(TrainerConfig(**dict(FIT, optimizer="momentum"),
                                  model_config=dict(LM)), device="cpu")
     with pytest.raises(ValueError):
-        port.restore_checkpoint(port.init_state(3), os.path.dirname(newest))
+        port.restore_checkpoint(port.init_state((1, 16), 3),
+                                os.path.dirname(newest))
 
 
 # ------------------------------------------------- optimizer state trees ---

@@ -19,7 +19,8 @@ import torch
 
 import chip_smoke
 from mmlspark_tpu_torch import (DataTable, ModelBundle, TextGenerator,
-                                TPUModel, TransformerLM)
+                                TPULearner, TPUModel, Trainer, TrainerConfig,
+                                TransformerLM)
 from mmlspark_tpu_torch.models import DecodeEngine
 from mmlspark_tpu_torch import native_loader
 from mmlspark_tpu_torch.ops import image as image_ops
@@ -72,7 +73,8 @@ def test_port_never_imports_the_jax_stack():
     assert {"train", "parallel", "utils", "ops", "models", "quant",
             "zoo", "io", "data", "vision", "resilience"} <= covered
     for module in ("native_loader.py", "ops/image.py", "io/remote.py",
-                   "data/autotune.py", "resilience/net.py"):
+                   "data/autotune.py", "resilience/net.py",
+                   "train/learner.py"):
         assert os.path.join(PKG, module) in sources
     offenders = [(os.path.relpath(p, REPO), name) for p in sources
                  for name in _imported_roots(p) if name in FORBIDDEN]
@@ -93,7 +95,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: ImageTransformer(),
                  lambda: UnrollImage(),
                  lambda: ImageFeaturizer(bundle),
-                 lambda: image_ops.resize(np.zeros((1, 4, 4, 3)), 2, 2)):
+                 lambda: image_ops.resize(np.zeros((1, 4, 4, 3)), 2, 2),
+                 lambda: Trainer(TrainerConfig(
+                     architecture="ResNet", model_config={
+                         "stage_sizes": [1], "widths": [8]})),
+                 lambda: TPULearner(TrainerConfig())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     # an explicit host device is honoured
@@ -113,7 +119,8 @@ def test_kernel_sources_ship_and_build_outside_git():
     assert "mmlspark_tpu_torch/_build/" in ignored
     with open(os.path.join(REPO, "pyproject.toml")) as f:
         pyproject = f.read()
-    assert '"mmlspark_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in pyproject
+    assert ('"mmlspark_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh", '
+            '"native/*.cpp"]') in pyproject
 
 
 def test_decoder_source_is_the_ports_own_and_builds_outside_git():

@@ -103,7 +103,8 @@ def test_checkpoint_save_restore(tmp_path):
     t = trainer(cfg)
     bundle = t.fit_arrays(x, y)
     t2 = trainer(cfg)
-    state = t2.restore_checkpoint(t2.init_state(4), str(tmp_path / "ckpt"))
+    state = t2.restore_checkpoint(t2.init_state((1, 8), 4),
+                                  str(tmp_path / "ckpt"))
     assert state.step == 4 == bundle.metadata["steps"]
     assert bit_equal(t2.bundle_from_state(state), bundle)
     for a, b in zip(state.opt_state["trace"],
@@ -152,7 +153,7 @@ def test_resume_skips_torn_checkpoint(tmp_path):
     with open(newest, "r+b") as f:
         f.truncate(10)
     t = trainer(cfg)
-    state = t.restore_checkpoint(t.init_state(4), ckpt)
+    state = t.restore_checkpoint(t.init_state((1, 8), 4), ckpt)
     assert state.step == 3
 
 
@@ -176,7 +177,7 @@ def test_async_snapshot_survives_the_in_place_update(tmp_path):
     leaves the written checkpoint at the saved values."""
     cfg = drill_config(epochs=1, numerics_cadence=0)
     t = trainer(cfg)
-    state = t.init_state(4)
+    state = t.init_state((1, 8), 4)
     t._effective_batch_size = 16
     before = [p.detach().clone() for p in state.params]
     t.save_checkpoint(state, str(tmp_path), step=1, sync=False)
@@ -187,7 +188,7 @@ def test_async_snapshot_survives_the_in_place_update(tmp_path):
     path = latest_valid_checkpoint(str(tmp_path))
     assert os.path.basename(path) == "ckpt_0000000001.msgpack"
     assert int(np.asarray(read_checkpoint(None, path)["step"])) == 0
-    restored = t.restore_checkpoint(t.init_state(4), str(tmp_path))
+    restored = t.restore_checkpoint(t.init_state((1, 8), 4), str(tmp_path))
     for a, b in zip(restored.params, before):
         assert torch.equal(a, b)
 
@@ -243,7 +244,8 @@ def test_budget_exhaustion_fails_cleanly_last_finite_newest(tmp_path):
     assert [e["event"] for e in ei.value.timeline] == \
         ["failure", "recover", "failure", "gave_up"]
     probe = trainer(drill_config())
-    restored = probe.restore_checkpoint(probe.init_state(1), str(tmp_path))
+    restored = probe.restore_checkpoint(probe.init_state((1, 8)),
+                                        str(tmp_path))
     assert all(torch.isfinite(p).all() for p in restored.params)
 
 

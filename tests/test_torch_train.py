@@ -132,17 +132,24 @@ def test_flash_and_dense_attention_give_the_same_gradients():
 
 
 def test_unported_trainer_options_raise():
-    """What the port's Trainer still refuses (pipeline stages, meshes,
-    other architectures, the save_attention remat policy) raises
-    NotImplementedError naming its ROADMAP item; the fault-tolerance
-    options it runs since (the watchdog, the numerics halts, checkpoints,
-    resume, skip windows) construct and fit."""
-    for kw in ({"pipeline_stages": 2}, {"mesh": {"data": 2}},
-               {"architecture": "MLPClassifier"}):
+    """What the port's Trainer still refuses (pipeline stages, meshes, the
+    save_attention remat policy) raises NotImplementedError naming its
+    ROADMAP item; the options it runs since (the scoring architectures,
+    the watchdog, the numerics halts, checkpoints, resume, skip windows)
+    construct and fit."""
+    for kw in ({"pipeline_stages": 2}, {"mesh": {"data": 2}}):
         cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)), **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             Trainer(cfg, device="cpu")
     x, y = corpus()
+    mlp = TrainerConfig(**{**FIT, "architecture": "MLPClassifier",
+                           "model_config": {"hidden_sizes": [8],
+                                            "num_classes": 4,
+                                            "dtype": "float32"}})
+    bundle = Trainer(mlp, device="cpu").fit_arrays(
+        x.astype(np.float32), x[:, 0] % 4)
+    assert bundle.metadata["steps"] == 6
+    assert bundle.variables["params"]["dense0"]["kernel"].shape == (32, 8)
     for kw in ({"step_timeout_s": 30.0}, {"halt_on_nonfinite": True},
                {"halt_on_divergence": True}):
         cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)), **kw})
