@@ -13,7 +13,10 @@ disaggregated prefill/decode tiers, and vision and tabular scoring
 (`TPUModel.transform` over the zoo ConvNet, ResNet-50 and the MLP zoo
 bundles), the image pipeline (PNG files -> the streaming reader ->
 ResNet-50 scoring under the depth Autotuner; `ImageTransformer` and
-`ImageFeaturizer`), and times kernels and paths.
+`ImageFeaturizer`), vision and tabular training, and the AutoML layer
+(`TrainClassifier` / `TrainRegressor` over every learner family,
+`FindBestModel`, the text featurizer and `CheckpointData`), and times
+kernels and paths.
 
     python3 chip_smoke.py
 
@@ -245,6 +248,26 @@ Phases (any failure exits non-zero before the result line):
      per arm, training FLOPs per image and the share of the bf16 peak,
      peak memory, host / transfer / dispatch / stall seconds and a device
      breakdown of one step by kernel group
+ 24. the AutoML layer (`TrainClassifier`, `TrainRegressor`, `Featurize`,
+     `TextFeaturizer`, `Word2Vec`, `FindBestModel`,
+     `ComputeModelStatistics`, `CheckpointData`; torch ops, no
+     hand-written kernel), each fit on the card and on the CPU: (a) the
+     census (48842 rows, the UCI Adult's 32561 / 16281 split) through
+     example 101's six families, fit and transform seconds, accuracy and
+     AUC; card predictions equal to the CPU's on >= 99.9% of the test
+     rows per family, the same FindBestModel winner, two RandomForest fits
+     bit-equal; (b) flights (500000 rows) through example 102's three
+     regressors, R^2 within 1e-4 of the CPU's, LinearRegression's
+     coefficients on the collinear featurized matrix within 1e-3 of
+     max |w| of float64 lstsq, with the gels solve and the JAX package's
+     cutoff read beside the limit; (c) 100000 reviews through example
+     201's TextFeaturizer, every ASCII row counted through the fused
+     native hasher, the first 2000 byte-identical to the staged path,
+     LogisticRegression accuracy within 0.002 of the CPU's, example 202's
+     Word2Vec after one pass within 1e-3 of max |v| of the CPU's; (d) the
+     zoo ConvNet at f32 over 8192 images from a CheckpointData-cached
+     table: scores bit-equal to the plain table's with no host->device
+     bytes, and `accuracy_gate` between the f32 and int8 bundles
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -6780,6 +6803,383 @@ def phase_vision_training(dev, card) -> dict:
     return out
 
 
+# -- phase 24: the AutoML layer ------------------------------------------
+
+# sizes: the UCI Adult's own train/test split, about a month of US domestic
+# flights, 100,000 reviews, 8192 images
+AUTOML = dict(census_rows=48842, census_train=32561, flight_rows=500000,
+              flight_train=375000, review_rows=100000, review_train=75000,
+              staged_rows=2000, cache_images=8192, cache_batch=1024)
+# the gates: card predictions equal to the CPU's on this share of the
+# test rows; LinearRegression's coefficients within this share of max |w|
+# of float64 numpy.linalg.lstsq's; R^2, text accuracy and Word2Vec
+# (share of max |v|) card vs CPU
+AUTOML_LIMITS = dict(agree=0.999, lr_coef=1e-3, r2=1e-4, text_acc=0.002,
+                     w2v=1e-3)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def census_learners(dev) -> dict:
+    """Example 101's six families with its settings."""
+    from mmlspark_tpu_torch.ml import (DecisionTreeClassifier, GBTClassifier,
+                                       LogisticRegression,
+                                       MultilayerPerceptronClassifier,
+                                       NaiveBayes, RandomForestClassifier)
+    return {
+        "LogisticRegression": LogisticRegression(device=dev),
+        "DecisionTree": DecisionTreeClassifier(maxDepth=5, device=dev),
+        "RandomForest": RandomForestClassifier(numTrees=10, maxDepth=5,
+                                               device=dev),
+        "GBT": GBTClassifier(maxIter=10, maxDepth=4, device=dev),
+        "NaiveBayes": NaiveBayes(device=dev),
+        "MLP": MultilayerPerceptronClassifier(layers=[-1, 32, -1],
+                                              maxIter=40, device=dev),
+    }
+
+
+def fit_scored(trainer, train, test, dev) -> tuple:
+    """(model, scored test table, fit s, transform s, metrics row)."""
+    from mmlspark_tpu_torch.ml import ComputeModelStatistics
+    t0 = time.perf_counter()
+    model = trainer.fit(train)
+    sync(dev)
+    t1 = time.perf_counter()
+    scored = model.transform(test)
+    sync(dev)
+    t2 = time.perf_counter()
+    metrics = ComputeModelStatistics().transform(scored)
+    return model, scored, t1 - t0, t2 - t1, {
+        c: float(metrics[c][0]) for c in metrics.columns}
+
+
+def automl_census(dev, card) -> dict:
+    """(a) TrainClassifier over example 101's families, FindBestModel on
+    accuracy and ComputeModelStatistics on the winner, on the card and on
+    the CPU; two RandomForest fits on the card bit-equal."""
+    from mmlspark_tpu_torch.ml import (ComputeModelStatistics, FindBestModel,
+                                       RandomForestClassifier,
+                                       TrainClassifier)
+    from mmlspark_tpu_torch.utils.demo_data import adult_census_like
+    cfg = AUTOML
+    data = adult_census_like(n=cfg["census_rows"], seed=0)
+    train = data.slice(0, cfg["census_train"])
+    test = data.slice(cfg["census_train"], data.num_rows)
+    cpu = torch.device("cpu")
+    out: dict = {"rows": [train.num_rows, test.num_rows]}
+    # the first fits of a process load the card's sort, search and solver
+    # kernels: timed apart, on 256 rows, so the family times are steady
+    t0 = time.perf_counter()
+    for learner in census_learners(dev).values():
+        TrainClassifier(learner, labelCol="income").fit(train.slice(0, 256))
+    sync(dev)
+    out["warmup_s"] = time.perf_counter() - t0
+    print(f"phase 24 (a) warm-up: the six families on 256 rows "
+          f"{out['warmup_s']:.3f} s [{card}]")
+    winners = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        models, rows = {}, {}
+        for name, learner in census_learners(d).items():
+            model, scored, fit_s, tr_s, m = fit_scored(
+                TrainClassifier(learner, labelCol="income"), train, test, d)
+            models[name] = (model, scored)
+            rows[name] = {"fit_s": fit_s, "transform_s": tr_s,
+                          "accuracy": m["accuracy"], "AUC": m.get("AUC")}
+        best = FindBestModel([m for m, _ in models.values()],
+                             evaluationMetric="accuracy").fit(test)
+        winners[where] = next(n for n, (m, _) in models.items()
+                              if m is best.best_model)
+        result = ComputeModelStatistics().evaluate(best.transform(test))
+        out[where] = {"families": rows, "winner": winners[where],
+                      "winner_metrics": {c: float(result.metrics[c][0])
+                                         for c in result.metrics.columns},
+                      "confusion_matrix":
+                          np.asarray(result.confusion_matrix).tolist()}
+        out[f"_{where}_scored"] = {n: s for n, (_, s) in models.items()}
+    card_scored, cpu_scored = out.pop("_card_scored"), out.pop("_cpu_scored")
+    agree = {}
+    for name in card_scored:
+        a = np.asarray(card_scored[name]["scored_labels"])
+        b = np.asarray(cpu_scored[name]["scored_labels"])
+        agree[name] = float(np.mean(a == b))
+        print(f"phase 24 (a) census {name}: card fit "
+              f"{out['card']['families'][name]['fit_s']:.3f} s, transform "
+              f"{out['card']['families'][name]['transform_s']:.3f} s, "
+              f"accuracy {out['card']['families'][name]['accuracy']:.6f}, "
+              f"AUC {out['card']['families'][name]['AUC']}, predictions "
+              f"equal to the CPU's on {agree[name]:.6f} of "
+              f"{len(a)} test rows [{card}]")
+        require(agree[name] >= AUTOML_LIMITS["agree"],
+                f"phase 24 (a): {name}'s card predictions equal the CPU's "
+                f"on {agree[name]:.6f} of the test rows, below "
+                f"{AUTOML_LIMITS['agree']}")
+    out["agreement"] = agree
+    require(winners["card"] == winners["cpu"],
+            f"phase 24 (a): FindBestModel picks {winners['card']} on the "
+            f"card and {winners['cpu']} on the CPU")
+    forests = [TrainClassifier(
+        RandomForestClassifier(numTrees=10, maxDepth=5, device=dev),
+        labelCol="income").fit(train).fit_model for _ in range(2)]
+    trees = [[a for e in f.ensembles for t in e.trees for a in t]
+             for f in forests]
+    equal = (len(trees[0]) == len(trees[1]) and all(
+        x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(*trees)))
+    out["forest_repeat_bit_equal"] = equal
+    require(equal, "phase 24 (a): two RandomForest fits on the card differ")
+    print(f"phase 24 (a) census winner {winners['card']} on both, "
+          f"{out['card']['winner_metrics']}; two RandomForest fits on the "
+          f"card bit-equal ({len(trees[0])} arrays) [{card}]")
+    return out
+
+
+def automl_flights(dev, card) -> dict:
+    """(b) TrainRegressor over example 102's learners on the card and the
+    CPU; LinearRegression against float64 numpy.linalg.lstsq, with the
+    gels solve and the JAX package's cutoff read beside the limit."""
+    from mmlspark_tpu_torch.ml import (GBTRegressor, LinearRegression,
+                                       RandomForestRegressor, TrainRegressor)
+    from mmlspark_tpu_torch.ml.learners import lstsq_min_norm
+    from mmlspark_tpu_torch.utils.demo_data import flight_delays_like
+    cfg = AUTOML
+    data = flight_delays_like(n=cfg["flight_rows"], seed=1)
+    train = data.slice(0, cfg["flight_train"])
+    test = data.slice(cfg["flight_train"], data.num_rows)
+    cpu = torch.device("cpu")
+    out: dict = {"rows": [train.num_rows, test.num_rows]}
+    fitted = {}
+    for name, make in (
+            ("LinearRegression", lambda d: LinearRegression(device=d)),
+            ("RandomForest", lambda d: RandomForestRegressor(
+                numTrees=10, maxDepth=5, device=d)),
+            ("GBT", lambda d: GBTRegressor(maxIter=15, maxDepth=4,
+                                           device=d))):
+        row = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            model, _, fit_s, tr_s, m = fit_scored(
+                TrainRegressor(make(d), labelCol="arr_delay"), train, test,
+                d)
+            row[where] = {"fit_s": fit_s, "transform_s": tr_s,
+                          "r2": m["R^2"], "rmse": m["root_mean_squared_error"]}
+            if where == "card":
+                fitted[name] = model
+        gap = abs(row["card"]["r2"] - row["cpu"]["r2"])
+        row["r2_gap"] = gap
+        out[name] = row
+        print(f"phase 24 (b) flights {name}: card fit "
+              f"{row['card']['fit_s']:.3f} s, transform "
+              f"{row['card']['transform_s']:.3f} s, R^2 "
+              f"{row['card']['r2']:.6f} (CPU {row['cpu']['r2']:.6f}, gap "
+              f"{gap:.2e}, limit {AUTOML_LIMITS['r2']}) [{card}]")
+        require(gap <= AUTOML_LIMITS["r2"],
+                f"phase 24 (b): {name}'s R^2 on the card is {gap:.2e} from "
+                f"the CPU's")
+    lr = fitted["LinearRegression"]
+    featurizer = lr._pipeline.get_stages()[0]
+    x = np.asarray(featurizer.transform(train)["features"], np.float32)
+    y = np.asarray(train["arr_delay"], np.float32)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    ref = np.linalg.lstsq(x64 - x64.mean(0), y64 - y64.mean(),
+                          rcond=None)[0]
+    scale = float(np.abs(ref).max())
+
+    def err(w) -> float:
+        return float(np.abs(np.asarray(w, np.float64) - ref).max() / scale)
+
+    xd = torch.as_tensor(x, device=dev)
+    yd = torch.as_tensor(y, device=dev)
+    xc, yc = xd - xd.mean(0), yd - yd.mean()
+    with torch.inference_mode():
+        gels = torch.linalg.lstsq(xc, yc[:, None]).solution[:, 0]
+        u, s, vt = torch.linalg.svd(xc, full_matrices=False)
+        jax_cut = s >= torch.finfo(torch.float32).eps * max(xc.shape) * s[0]
+        s_inv = torch.where(jax_cut, 1.0 / s, torch.zeros_like(s))
+        jax_rule = vt.T @ (s_inv * (u.T @ yc))
+        port_rule = lstsq_min_norm(xc, yc)
+    readings = {"fit": err(lr.fit_model.w), "svd_port_rule":
+                err(port_rule.cpu().numpy()),
+                "gels": err(gels.cpu().numpy()),
+                "svd_jax_cutoff": err(jax_rule.cpu().numpy()),
+                "jax_cutoff_rank": int(jax_cut.sum()),
+                "singular_values": s.cpu().numpy().tolist()}
+    out["lr_coefficients"] = readings
+    print(f"phase 24 (b) LinearRegression coefficients on {x.shape} "
+          f"featurized rows: {readings['fit']:.3e} of max |w| from float64 "
+          f"lstsq (limit {AUTOML_LIMITS['lr_coef']}); planted: gels "
+          f"{readings['gels']:.3e}, the JAX cutoff eps*max(m,n)*s[0] "
+          f"{readings['svd_jax_cutoff']:.3e} (rank "
+          f"{readings['jax_cutoff_rank']} of {x.shape[1]}) [{card}]")
+    require(readings["fit"] <= AUTOML_LIMITS["lr_coef"],
+            f"phase 24 (b): LinearRegression is {readings['fit']:.3e} of "
+            f"max |w| from float64 lstsq")
+    return out
+
+
+def automl_text(dev, card) -> dict:
+    """(c) example 201's TextFeaturizer (the fused native path counted,
+    byte-identical to the staged path), TrainClassifier(LogisticRegression)
+    and example 202's Word2Vec, card against CPU."""
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.feature import (TextFeaturizer, Tokenizer,
+                                            Word2Vec, densify_sparse_column)
+    from mmlspark_tpu_torch.feature import text as text_mod
+    from mmlspark_tpu_torch.feature.hashing import nonzero_slots
+    from mmlspark_tpu_torch.ml import LogisticRegression, TrainClassifier
+    from mmlspark_tpu_torch.utils.demo_data import book_reviews_like
+    cfg = AUTOML
+    cpu = torch.device("cpu")
+    data = book_reviews_like(n=cfg["review_rows"], seed=2)
+    train = data.slice(0, cfg["review_train"])
+    test = data.slice(cfg["review_train"], data.num_rows)
+    out: dict = {"rows": [train.num_rows, test.num_rows]}
+    t0 = time.perf_counter()
+    fz = TextFeaturizer(inputCol="text", outputCol="feats",
+                        useStopWordsRemover=True, useIDF=True,
+                        numFeatures=1 << 14).fit(train)
+    out["featurizer_fit_s"] = time.perf_counter() - t0
+    before = dict(text_mod.fused_rows)
+    t0 = time.perf_counter()
+    feats = {"train": fz.transform(train), "test": fz.transform(test)}
+    out["featurizer_transform_s"] = time.perf_counter() - t0
+    native = text_mod.fused_rows["native"] - before["native"]
+    python = text_mod.fused_rows["python"] - before["python"]
+    ascii_rows = sum(all(ord(ch) < 128 for ch in str(t))
+                     for t in data["text"])
+    out["fused_rows"] = {"native": native, "python": python,
+                         "ascii_rows": ascii_rows}
+    require(native == ascii_rows and python == data.num_rows - ascii_rows,
+            f"phase 24 (c): the fused native path hashed {native} rows and "
+            f"the stages {python}, of {ascii_rows} ASCII rows")
+    sub = train.slice(0, cfg["staged_rows"])
+    fused = fz.transform(sub)["feats"]
+    staged = PipelineModel.transform(fz, sub)["feats"]
+    same = all(a[0].dtype == b[0].dtype and a[1].dtype == b[1].dtype
+               and a[0].tobytes() == b[0].tobytes()
+               and a[1].tobytes() == b[1].tobytes()
+               for a, b in zip(fused, staged)) and len(fused) == len(staged)
+    require(same, "phase 24 (c): the fused rows differ from the staged "
+            "path's")
+    slots = nonzero_slots(feats["train"]["feats"])
+
+    def dense(t):
+        return DataTable({"rating": t["rating"], "feats":
+                          densify_sparse_column(t["feats"], selected=slots)})
+
+    tables = {k: dense(v) for k, v in feats.items()}
+    acc = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        _, _, fit_s, tr_s, m = fit_scored(
+            TrainClassifier(LogisticRegression(device=d), labelCol="rating"),
+            tables["train"], tables["test"], d)
+        acc[where] = m["accuracy"]
+        out[f"lr_{where}"] = {"fit_s": fit_s, "transform_s": tr_s,
+                              "accuracy": m["accuracy"], "AUC": m.get("AUC")}
+    gap = abs(acc["card"] - acc["cpu"])
+    require(gap <= AUTOML_LIMITS["text_acc"],
+            f"phase 24 (c): LogisticRegression accuracy {acc['card']} on the "
+            f"card, {acc['cpu']} on the CPU")
+    tokens = Tokenizer(inputCol="text", outputCol="tokens").transform(data)
+    vecs = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        w2v = Word2Vec(inputCol="tokens", outputCol="embedding",
+                       vectorSize=32, windowSize=4, minCount=3, maxIter=1,
+                       seed=0, device=d).fit(tokens)
+        sync(d)
+        out[f"word2vec_{where}_s"] = time.perf_counter() - t0
+        vecs[where] = w2v.vectors
+    w2v_err = float(np.abs(vecs["card"] - vecs["cpu"]).max()
+                    / np.abs(vecs["cpu"]).max())
+    out["word2vec_err"] = w2v_err
+    out["word2vec_vocab"] = int(vecs["card"].shape[0])
+    print(f"phase 24 (c) text: {native} rows through the fused native "
+          f"path, {python} through the stages, the first "
+          f"{cfg['staged_rows']} byte-identical to the staged path; "
+          f"{len(slots)} slots; LogisticRegression accuracy "
+          f"{acc['card']:.6f} (CPU {acc['cpu']:.6f}); Word2Vec one pass "
+          f"{out['word2vec_card_s']:.3f} s on the card "
+          f"({out['word2vec_cpu_s']:.3f} s CPU), {w2v_err:.3e} of max |v| "
+          f"from the CPU's (limit {AUTOML_LIMITS['w2v']}) [{card}]")
+    require(w2v_err <= AUTOML_LIMITS["w2v"],
+            f"phase 24 (c): Word2Vec is {w2v_err:.3e} of max |v| from the "
+            f"CPU's")
+    return out
+
+
+def automl_checkpoint(dev, card) -> dict:
+    """(d) the zoo ConvNet at f32 over a CheckpointData-cached table: scores
+    bit-equal to the plain table's, no host->device copy of the column;
+    `accuracy_gate` between the f32 and int8 bundles."""
+    import tempfile
+    from mmlspark_tpu_torch import TPUModel
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.quant import accuracy_gate, quantize_bundle
+    from mmlspark_tpu_torch.stages import CheckpointData
+    from mmlspark_tpu_torch.zoo import ModelDownloader, pretrained_repo
+    cfg = AUTOML
+    with tempfile.TemporaryDirectory() as cache:
+        dl = ModelDownloader(cache)
+        bundle = dl.load_bundle(dl.download_by_name(pretrained_repo(),
+                                                    "ConvNet"))
+    images, labels = template_images(cfg["cache_images"], 10, 32.0, 24)
+    table = DataTable({"image": images})
+
+    def stage(b, **params):
+        return TPUModel(b, device=dev, inputCol="image", outputCol="scores",
+                        miniBatchSize=cfg["cache_batch"], **params)
+
+    f32 = stage(bundle, computeDtype="float32")
+    f32.transform(table.slice(0, cfg["cache_batch"]))   # build and warm up
+    sync(dev)
+    t0 = time.perf_counter()
+    plain = f32.transform(table)["scores"]
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    cached_table = CheckpointData(device=dev).transform(table)
+    sync(dev)
+    put_before = f32._get_feed().put_bytes
+    t0 = time.perf_counter()
+    cached = f32.transform(cached_table)["scores"]
+    sync(dev)
+    cached_s = time.perf_counter() - t0
+    put = f32._get_feed().put_bytes - put_before
+    equal = plain.dtype == cached.dtype and np.array_equal(plain, cached)
+    gate = accuracy_gate(f32, stage(quantize_bundle(bundle, "int8")), table,
+                         labels)
+    out = {"rows": len(images), "plain_s": plain_s, "cached_s": cached_s,
+           "bit_equal": bool(equal), "cached_put_bytes": int(put),
+           "column_bytes": int(images.nbytes), "accuracy_gate": gate}
+    print(f"phase 24 (d) CheckpointData: {len(images)} images through the "
+          f"zoo ConvNet at f32, plain {plain_s * 1e3:.2f} ms, cached "
+          f"{cached_s * 1e3:.2f} ms, bit-equal {equal}, host->device bytes "
+          f"of the cached run {put} (the column: {images.nbytes}); "
+          f"accuracy_gate f32 vs int8 {gate} [{card}]")
+    require(equal, "phase 24 (d): scores from the cached table differ from "
+            "the plain table's")
+    require(put == 0, f"phase 24 (d): the cached run put {put} bytes on "
+            "the device")
+    return out
+
+
+def phase_automl(dev, card) -> dict:
+    """Phase 24: the AutoML layer at the sizes its users run (module
+    docstring)."""
+    t0 = time.perf_counter()
+    out = {"census": automl_census(dev, card)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["flights"] = automl_flights(dev, card)
+    out["text"] = automl_text(dev, card)
+    out["checkpoint_data"] = automl_checkpoint(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 24: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6866,6 +7266,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision_training = phase_vision_training(dev, card)
     print(json.dumps({"vision_training": vision_training, "card": card}))
+    torch.cuda.empty_cache()
+    automl = phase_automl(dev, card)
+    print(json.dumps({"automl": automl, "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

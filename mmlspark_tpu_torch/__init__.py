@@ -45,7 +45,14 @@ and remote sources with the host decoder (`native_loader`), the streaming
 training of the vision and tabular models, `Trainer.fit_arrays` over the
 MLP, linear, ConvNet and ResNet models (BatchNorm statistics updated in
 training and carried in checkpoints and bundles, batches staged through
-a `Dataset` map stage) and `TPULearner.fit(table) -> TPUModel`.
+a `Dataset` map stage) and `TPULearner.fit(table) -> TPUModel`; and the
+AutoML layer: `ml.TrainClassifier` / `TrainRegressor` over every learner
+family (logistic regression by optax's L-BFGS as torch algebra, one-vs-rest,
+linear regression, naive Bayes, the MLP through the Trainer, decision
+trees, random forests and boosted trees with deterministic histograms),
+`ComputeModelStatistics`, `FindBestModel`, `feature.Featurize`, the text
+chain with its fused native hasher and `Word2Vec`, and the utility stages
+(`stages.CheckpointData` caches columns on the card for `TPUModel`).
 
 Layer map:
   core/    - params DSL, column metadata and the schema helpers, DataTable,
@@ -63,12 +70,19 @@ Layer map:
   data/    - the streaming Dataset graph, its executor, the depth
              Autotuner, snapshot offsets; the data service's framing
   vision/  - ImageTransformer, UnrollImage, ImageFeaturizer
+  ml/      - the learners (L-BFGS, SVD, naive Bayes, MLP, the tree
+             ensembles), TrainClassifier / TrainRegressor, the statistics,
+             FindBestModel
+  feature/ - AssembleFeatures / Featurize, hashing, the text chain,
+             Word2Vec
+  stages/  - column selection, conversion, summaries, sampling, the
+             multi-column adapter, CheckpointData
   ops/     - the image ops; attention in torch (dense, cache read, stats
              merge, ring, differentiable ring flash, Ulysses) and
              the kernel wrappers (flash forward and backward, single-query
              decode read and its stats entry), the nvcc build/loader
   quant/   - weight PTQ of bundles (bf16, int8), the int8 Dense and Conv
-             forwards, int8 KV-cache quantization
+             forwards, int8 KV-cache quantization, the accuracy gate
   zoo/     - the local model repository and downloader, the pretrained
              bundles, draft bundles for speculative decoding
   serve/   - the continuous-batching ServingEngine, admission, requests,
@@ -80,10 +94,11 @@ Layer map:
              policy and the one HTTP seam, the SIGTERM guard and step
              watchdog, the seeded chaos injector, checkpoint rotation
              and the async writer
-  native_loader.py, native/ - the host image decoder (C++, g++ at first
-             use)
+  native_loader.py, native/ - the host image decoder and the fused text
+             hasher (C++, g++ at first use, two libraries)
   config.py - the MMLSPARK_TPU_* knob registry (the JAX package's names)
-  utils/   - analytic FLOP accounting
+  utils/   - analytic FLOP accounting, the demo datasets, the learner
+             grid
   csrc/    - the CUDA sources
 """
 

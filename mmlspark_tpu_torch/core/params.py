@@ -174,3 +174,8 @@ class Params:
             return dict(self._paramMap)
         return {name: self.get(name) for name in self.params()}
 
+
+
+def domain(*values) -> tuple:
+    """Helper mirroring the reference's string-domain params (Params.scala:103-108)."""
+    return tuple(values)

@@ -12,12 +12,14 @@ string: the JAX package is never imported).  A stage whose class sets
 `Pipeline` and `PipelineModel` record the JAX package's classes, whose
 params and `extra/` layout they share, so the JAX package loads them as
 its own.  Stages without a JAX twin of the same layout record their own
-path.
+path.  A port stage that mixes in `JaxTwin` records the class of the same
+name at the same module path in the JAX package.
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
 import itertools
 import json
 import os
@@ -115,6 +117,19 @@ class PipelineStage(Params):
         return f"{type(self).__name__}({set_params})"
 
 
+class JaxTwin:
+    """Mixin of a port stage whose JAX twin lies at the same module path
+    under `mmlspark_tpu` with the same params and `extra/` layout: the
+    stage records that class, so the JAX package loads it as its own.
+    A subclass defined outside the port records its own path."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        root, _, rest = cls.__module__.partition(".")
+        cls.saved_class = (f"{_JAX_ROOT}.{rest}.{cls.__qualname__}"
+                           if root == _PORT_ROOT else None)
+
+
 def port_class_path(path: str) -> str:
     """A recorded class path as the port reads it: `mmlspark_tpu.<rest>`
     becomes `mmlspark_tpu_torch.<rest>`; any other path is kept."""
@@ -127,7 +142,9 @@ def load_stage(path: str, **init_kwargs) -> PipelineStage:
     recorded class path (`port_class_path`).  `init_kwargs` go to the
     stage's constructor and its `_load_extra` (a stage that holds stages
     passes them on to each): run-time settings that are not params and
-    are not saved, such as a model stage's `device`."""
+    are not saved, such as a model stage's `device`; the constructor
+    gets those it names (a stage that runs nothing on a device takes
+    none)."""
     with open(os.path.join(path, "stage.json")) as f:
         payload = json.load(f)
     module_name, _, qualname = port_class_path(payload["class"]).rpartition(
@@ -135,7 +152,8 @@ def load_stage(path: str, **init_kwargs) -> PipelineStage:
     cls = importlib.import_module(module_name)
     for part in qualname.split("."):
         cls = getattr(cls, part)
-    stage = cls(**init_kwargs)
+    named = inspect.signature(cls.__init__).parameters
+    stage = cls(**{k: v for k, v in init_kwargs.items() if k in named})
     stage._paramMap = {}
     stage.uid = payload["uid"]
     for k, v in payload["params"].items():

@@ -31,14 +31,20 @@ on this path.
   * **Inputs**: uint8 columns travel as bytes and are cast to float32 on
     the device; other integer columns are not cast; float64 columns are
     scored as float32, as JAX (without x64) places them.
+  * **CheckpointData**: a table whose input column `stages.CheckpointData`
+    cached on the stage's device is scored from that tensor: each
+    minibatch is a slice of it (the last zero-padded on the device), so
+    the column makes no host->device copy (`DeviceFeed.put_bytes` stays
+    where it was); float64 / int64 narrow on the device as they do on the
+    host.  `transform_batches` reads the host column, as the JAX stage's
+    does.
   * **Outputs**: numpy has no bfloat16, so a bfloat16 node (selected from
     a bf16 module without an override) comes out widened, exactly, to
     float32; the JAX stage returns it as bfloat16.
 
-Not ported, each raising with its ROADMAP item: a mesh of several devices
-(`set_mesh`, the multi-host path; A10) and the device-cached
-`CheckpointData` column (A6).  The port records no program-cost rows
-(`observe/costmodel.py`, A11).  A TransformerLM bundle is scored by
+Not ported, raising with its ROADMAP item: a mesh of several devices
+(`set_mesh`, the multi-host path; A10).  The port records no program-cost
+rows (`observe/costmodel.py`, A11).  A TransformerLM bundle is scored by
 `TextGenerator`, not here.
 """
 
@@ -63,7 +69,7 @@ from mmlspark_tpu_torch.observe.trace import (active_tracer,
                                               span_on_tracer)
 from mmlspark_tpu_torch.parallel.bridge import DeviceFeed
 from mmlspark_tpu_torch.data import Dataset
-from mmlspark_tpu_torch.parallel.prefetch import OncePerTable
+from mmlspark_tpu_torch.parallel.prefetch import OncePerTable, resolve_depth
 
 
 class TPUModel(Transformer):
@@ -214,19 +220,66 @@ class TPUModel(Transformer):
             raise TypeError(
                 f"TPUModel scores DataTables, not a {type(table).__name__}; "
                 "stream a Dataset of tables through transform_batches")
-        if getattr(table, "_device_cache", None):
-            raise NotImplementedError(
-                "the device-cached CheckpointData column is not ported "
-                "(ROADMAP A6)")
         if self.inputCol is None:
             raise ValueError("TPUModel: inputCol is not set")
         return self.inputCol
 
     # -- transform -------------------------------------------------------
     def transform(self, table: DataTable) -> DataTable:
-        self._check_input(table)
+        in_col = self._check_input(table)
+        cached = getattr(table, "_device_cache", {}).get(in_col)
+        if cached is not None:
+            return table.with_column(self.outputCol,
+                                     self._transform_cached(cached))
         [scored] = list(self.transform_batches([table]))
         return scored
+
+    def _transform_cached(self, column: torch.Tensor) -> np.ndarray:
+        """Score a column held on the device (module docstring): batches
+        are slices of it, with the dispatch window of the streaming
+        loop."""
+        if column.device.type != self.device.type or (
+                self.device.index is not None
+                and column.device.index != self.device.index):
+            raise ValueError(
+                f"the column is cached on {column.device}; the stage "
+                f"scores on {self.device}")
+        module = self._scoring_module()
+        if column.dtype == torch.float64:
+            column = column.float()
+        elif column.dtype == torch.int64:
+            column = column.int()
+        n, bs = column.shape[0], self.miniBatchSize
+        if n == 0:
+            return self._empty_output(
+                module, np.zeros(tuple(column.shape),
+                                 str(column.dtype)[6:]))
+        feed = self._get_feed()
+        timings, tracer = active_timings(), active_tracer()
+        window = resolve_depth(self.prefetchDepth)[0]
+        in_flight: list = []
+        parts: list = []
+        for start in range(0, n, bs):
+            valid = min(bs, n - start)
+            with span_on(timings, "transfer"):
+                chunk = column[start:start + bs]
+                if valid < bs:
+                    chunk = torch.cat([chunk, chunk.new_zeros(
+                        (bs - valid,) + tuple(chunk.shape[1:]))])
+            with span_on_tracer(tracer, "score.batch",
+                                parent=current_span_id(), cat="batch",
+                                rows=valid, device_cached=True), \
+                    span_on(timings, "compute"):
+                in_flight.append((feed.fetch(self._apply(module, chunk)),
+                                  valid))
+            while len(in_flight) > window:
+                handle, rows = in_flight.pop(0)
+                with span_on(timings, "drain"):
+                    parts.append(feed.take(handle, rows))
+        for handle, rows in in_flight:
+            with span_on(timings, "drain"):
+                parts.append(feed.take(handle, rows))
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def transform_batches(self, tables) -> Iterator[DataTable]:
         """Streaming scoring: for each incoming table (any iterable of

@@ -1,5 +1,5 @@
-"""Build and load the host image decoder (the decode half of
-`mmlspark_tpu/native_loader.py`).
+"""Build and load the host image decoder and the fused text hasher (the
+port of `mmlspark_tpu/native_loader.py`).
 
 The C++ decoder ships as source (`mmlspark_tpu_torch/native/decode.cpp`,
 the port's own copy) and is compiled by `g++` at first use into
@@ -12,7 +12,13 @@ returns None and the readers decode through PIL (`io/image_reader.py`);
 `build_native()` raises instead, for a caller that must know which
 decoder runs.
 
-Decoding is host work: nothing here touches the device.
+The fused text hasher (`native/text.cpp`, the port's own copy: tokenize,
+stop-filter, hash and count in one C++ sweep) is a library of its own,
+`libmmltext-<digest>.so`, linked with zlib alone, so a host without the
+codec headers still builds it (`build_text()` raises, `get_text_lib()`
+returns None, and the text chain then runs its Python stages).
+
+Decoding and hashing are host work: nothing here touches the device.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ NATIVE_DIR = os.path.join(_PKG, "native")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("decode.cpp",)
 LINK_LIBS = ("-ljpeg", "-lpng", "-lz")
+TEXT_SOURCES = ("text.cpp",)
+TEXT_LINK_LIBS = ("-lz",)
 
 NATIVE_CACHE = config.register(
     "MMLSPARK_TPU_NATIVE_CACHE", default=None,
@@ -42,10 +50,12 @@ NATIVE_CACHE = config.register(
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
+_text_lib: Optional[ctypes.CDLL] = None
+_text_failed = False
 
 
-def source_paths() -> list:
-    return [os.path.join(NATIVE_DIR, s) for s in SOURCES]
+def source_paths(sources=SOURCES) -> list:
+    return [os.path.join(NATIVE_DIR, s) for s in sources]
 
 
 def _cache_dir() -> str:
@@ -54,9 +64,9 @@ def _cache_dir() -> str:
     return d
 
 
-def _source_digest() -> str:
+def _source_digest(sources=SOURCES) -> str:
     h = hashlib.sha256()
-    for path in source_paths():
+    for path in source_paths(sources):
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -66,19 +76,33 @@ def library_path() -> str:
     return os.path.join(_cache_dir(), f"libmmldecode-{_source_digest()}.so")
 
 
-def build_native() -> str:
-    """Compile the decoder if needed and return the .so path; raises
-    (`subprocess.CalledProcessError` with g++'s message, or `OSError`)
-    when it cannot be built."""
-    so_path = library_path()
+def text_library_path() -> str:
+    return os.path.join(_cache_dir(),
+                        f"libmmltext-{_source_digest(TEXT_SOURCES)}.so")
+
+
+def _build(so_path: str, sources, link_libs) -> str:
     if os.path.exists(so_path):
         return so_path
     tmp = f"{so_path}.{os.getpid()}.tmp"   # per process: builds may race
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-pthread", "-o", tmp,
-           *source_paths(), *LINK_LIBS]
+           *source_paths(sources), *link_libs]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
     os.replace(tmp, so_path)
     return so_path
+
+
+def build_native() -> str:
+    """Compile the decoder if needed and return the .so path; raises
+    (`subprocess.CalledProcessError` with g++'s message, or `OSError`)
+    when it cannot be built."""
+    return _build(library_path(), SOURCES, LINK_LIBS)
+
+
+def build_text() -> str:
+    """Compile the fused text hasher (zlib only) if needed and return the
+    .so path; raises as `build_native` does."""
+    return _build(text_library_path(), TEXT_SOURCES, TEXT_LINK_LIBS)
 
 
 def get_native_lib() -> Optional[ctypes.CDLL]:
@@ -169,3 +193,94 @@ def native_decode_batch(buffers: list) -> Optional[list]:
         if status[j] == 0:
             results[i] = outs[j]
     return results
+
+
+def get_text_lib() -> Optional[ctypes.CDLL]:
+    """The loaded text-hasher library, or None if it cannot be built."""
+    global _text_lib, _text_failed
+    if _text_lib is not None or _text_failed:
+        return _text_lib
+    with _lock:
+        if _text_lib is not None or _text_failed:
+            return _text_lib
+        try:
+            lib = ctypes.CDLL(build_text())
+            lib.text_hash_count.restype = ctypes.c_int
+            lib.text_hash_count.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64,
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_int)),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte))]
+            lib.text_hash_free.restype = None
+            lib.text_hash_free.argtypes = [
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_float),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_ubyte)]
+            _text_lib = lib
+        except Exception:
+            _text_failed = True
+    return _text_lib
+
+
+def native_text_hash(docs: list, stopwords: list, lowercase: bool,
+                     lower_for_stop: bool, min_token_len: int,
+                     num_features: int, binary: bool) -> Optional[tuple]:
+    """Fused tokenize->stop->hash->count over raw document strings.
+
+    Returns (rows, fallback_idx): `rows[i]` is the (slot_ids int32, vals
+    float32) sparse row for doc i (None where i is in fallback_idx:
+    non-ASCII documents the caller recomputes through the Python stages,
+    which own the unicode tables), or None entirely when the library is
+    absent.  `None` cells tokenize to [] (the Tokenizer contract).
+    """
+    lib = get_text_lib()
+    if lib is None or num_features > 2**31 - 1:
+        return None
+    enc = [("" if d is None else str(d)).encode("utf-8") for d in docs]
+    buf = b"".join(enc)
+    offsets = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(e) for e in enc], out=offsets[1:])
+    senc = [s.encode("utf-8") for s in stopwords]
+    sbuf = b"".join(senc)
+    soff = np.zeros(len(senc) + 1, np.int64)
+    np.cumsum([len(e) for e in senc], out=soff[1:])
+
+    slots_p = ctypes.POINTER(ctypes.c_int)()
+    vals_p = ctypes.POINTER(ctypes.c_float)()
+    bounds_p = ctypes.POINTER(ctypes.c_int64)()
+    status_p = ctypes.POINTER(ctypes.c_ubyte)()
+    rc = lib.text_hash_count(
+        buf, offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        len(enc),
+        sbuf, soff.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(senc),
+        int(lowercase), int(lower_for_stop), int(min_token_len),
+        int(num_features), int(binary),
+        ctypes.byref(slots_p), ctypes.byref(vals_p), ctypes.byref(bounds_p),
+        ctypes.byref(status_p))
+    if rc != 0:
+        return None
+    try:
+        n = len(enc)
+        bounds = np.ctypeslib.as_array(bounds_p, shape=(n + 1,)).copy()
+        total = int(bounds[-1])
+        slots = (np.ctypeslib.as_array(slots_p, shape=(total,)).copy()
+                 if total else np.zeros(0, np.int32))
+        vals = (np.ctypeslib.as_array(vals_p, shape=(total,)).copy()
+                if total else np.zeros(0, np.float32))
+        status = (np.ctypeslib.as_array(status_p, shape=(n,)).copy()
+                  if n else np.zeros(0, np.uint8))
+    finally:
+        lib.text_hash_free(slots_p, vals_p, bounds_p, status_p)
+    fallback = np.nonzero(status)[0].tolist()
+    fb = set(fallback)
+    rows = [None if i in fb else (slots[bounds[i]:bounds[i + 1]],
+                                  vals[bounds[i]:bounds[i + 1]])
+            for i in range(n)]
+    return rows, fallback

@@ -57,6 +57,8 @@ class DeviceFeed:
                             else None)
         self._free: dict[tuple, list] = {}
         self._lock = threading.Lock()
+        # bytes `put` has sent to the device (copied on a card)
+        self.put_bytes = 0
 
     # -- the pinned pool -------------------------------------------------
     def _acquire(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
@@ -93,6 +95,8 @@ class DeviceFeed:
         """A staged host buffer on the device: returns (tensor, event),
         the event None on the CPU.  The buffer goes back to the pool with
         the copy's event."""
+        with self._lock:
+            self.put_bytes += host.numel() * host.element_size()
         if not self.cuda:
             return host, None
         with torch.cuda.stream(self.copy_stream):

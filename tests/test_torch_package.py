@@ -71,10 +71,19 @@ def test_port_never_imports_the_jax_stack():
     assert len(sources) > 10 and os.path.exists(sources[0])
     covered = {os.path.relpath(os.path.dirname(p), PKG) for p in sources[1:]}
     assert {"train", "parallel", "utils", "ops", "models", "quant",
-            "zoo", "io", "data", "vision", "resilience"} <= covered
+            "zoo", "io", "data", "vision", "resilience", "ml", "feature",
+            "stages"} <= covered
     for module in ("native_loader.py", "ops/image.py", "io/remote.py",
                    "data/autotune.py", "resilience/net.py",
-                   "train/learner.py"):
+                   "train/learner.py", "ml/learners.py", "ml/trees.py",
+                   "ml/train_classifier.py", "ml/train_regressor.py",
+                   "ml/find_best_model.py", "ml/statistics.py",
+                   "feature/assemble.py", "feature/hashing.py",
+                   "feature/text.py", "feature/word2vec.py",
+                   "stages/basic.py", "stages/adapter.py",
+                   "stages/data_conversion.py", "stages/summarize.py",
+                   "stages/sample.py", "quant/gate.py",
+                   "utils/demo_data.py", "utils/benchmarks.py"):
         assert os.path.join(PKG, module) in sources
     offenders = [(os.path.relpath(p, REPO), name) for p in sources
                  for name in _imported_roots(p) if name in FORBIDDEN]
@@ -1456,3 +1465,53 @@ def test_image_op_limits_reject_the_lanczos_resize_in_tf32(cuda):
     got = chip_smoke.tf32_lanczos(x, 50, 70).cpu()
     diff = (got - fn(torch.from_numpy(IMAGE_HOST))).abs().max().item()
     assert diff > chip_smoke.OP_LIMITS[kind], diff
+
+
+# -- the AutoML layer on the card (phase 24 holds it at full size) --------
+
+@pytest.mark.cuda
+def test_trees_are_bit_repeatable_on_the_card(cuda):
+    """Two fits of a forest and of a boosted ensemble on the card give
+    bit-equal trees (histograms summed in a fixed order, the ordered
+    prefix sums), and predict as the CPU's fit does on >= 99.9% of the
+    rows (the boosted gradients pass through the card's own sigmoid, so
+    a near-tie split may part)."""
+    from mmlspark_tpu_torch.ml import GBTClassifier, RandomForestClassifier
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3000, 12)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] + 0.5 * rng.normal(size=3000) > 0)
+    table = DataTable({"features": x, "label": y.astype(np.float64)})
+
+    for make in (lambda d: RandomForestClassifier(numTrees=8, maxDepth=6,
+                                                  device=d),
+                 lambda d: GBTClassifier(maxIter=8, maxDepth=5, device=d)):
+        first, second = make(cuda).fit(table), make(cuda).fit(table)
+        arrays = [[a for e in m.ensembles for t in e.trees for a in t]
+                  for m in (first, second)]
+        assert len(arrays[0]) == len(arrays[1])
+        for a, b in zip(*arrays):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        on_cpu = make("cpu").fit(table)
+        agree = np.mean(first.transform(table)["prediction"]
+                        == on_cpu.transform(table)["prediction"])
+        assert agree >= 0.999
+
+
+@pytest.mark.cuda
+def test_text_library_builds_with_zlib_alone(cuda):
+    """The fused text hasher is its own library, linked with -lz only, so
+    a host without the image codecs' headers builds it; it hashes as the
+    Python stages do."""
+    from mmlspark_tpu_torch.feature import HashingTF, Tokenizer
+    assert native_loader.TEXT_LINK_LIBS == ("-lz",)
+    path = native_loader.build_text()
+    assert os.path.basename(path).startswith("libmmltext-")
+    docs = ["The quick brown fox", "  jumps\tover the\nlazy dog ", ""]
+    rows, fallback = native_loader.native_text_hash(
+        docs, [], True, False, 0, 1 << 10, False)
+    staged = HashingTF(inputCol="t", numFeatures=1 << 10).transform(
+        Tokenizer(inputCol="d", outputCol="t").transform(
+            DataTable({"d": np.asarray(docs, object)})))["tf"]
+    assert fallback == []
+    for (i, v), (si, sv) in zip(rows, staged):
+        assert i.tobytes() == si.tobytes() and v.tobytes() == sv.tobytes()

@@ -275,10 +275,12 @@ def test_defaults_to_the_card_and_raises_on_unported_paths(monkeypatch):
                                   port_model("mlp").transform(table)["y"])
     with pytest.raises(TypeError, match="transform_batches"):
         port_model("mlp").transform(Dataset.from_iterable(lambda: iter([])))
+    # a CheckpointData-cached column is ported: scored from the cache, the
+    # same scores as the host column's
     cached = DataTable({"x": rows(MLP, n=4)})
-    cached._device_cache = {"x": object()}
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        port_model("mlp").transform(cached)
+    cached._device_cache = {"x": torch.as_tensor(cached["x"])}
+    np.testing.assert_array_equal(port_model("mlp").transform(cached)["y"],
+                                  port_model("mlp").transform(table)["y"])
     mesh = make_mesh(MeshSpec(data=2), devices=[torch.device("cpu")] * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         port_model("mlp").set_mesh(mesh)

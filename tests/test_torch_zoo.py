@@ -84,8 +84,7 @@ def wdbc_held_out(bundle):
 
 def review_features(bundle):
     """Fresh held-out reviews through the bundle's recorded featurizer
-    (the JAX package's TextFeaturizer: text featurization is ROADMAP
-    A6)."""
+    (the JAX package's TextFeaturizer, as the bundle was made)."""
     from mmlspark_tpu.feature.hashing import densify_sparse_column
     from mmlspark_tpu.feature.text import TextFeaturizer
     cfg = bundle.metadata["featurizer"]
@@ -178,9 +177,10 @@ def test_zoo_accuracy_floors(zoo, name, floor):
 
 
 def test_example_301_predictions_equal_under_both_packages(zoo, jax_scores):
-    """`examples/example_301_cifar_eval.py`'s flow without its statistics
-    (ml/, ROADMAP A6): the zoo ConvNet through TPUModel at miniBatchSize
-    128, the predictions tagged as a score column."""
+    """`examples/example_301_cifar_eval.py`'s flow: the zoo ConvNet
+    through TPUModel at miniBatchSize 128, the predictions tagged as a
+    score column, and its statistics half (`ComputeModelStatistics`, the
+    JAX package's metrics on the same tagged table)."""
     bundle, x, y, _ = zoo["ConvNet"]
     test = DataTable({"image": x, "label": y.astype(np.float64)})
     scored = TPUModel(bundle, device="cpu", inputCol="image",
@@ -197,6 +197,23 @@ def test_example_301_predictions_equal_under_both_packages(zoo, jax_scores):
                                           "true_labels": "label"}
     ref = np.argmax(jax_scores["ConvNet", None], axis=1).astype(np.float64)
     np.testing.assert_array_equal(preds, ref)
+    from mmlspark_tpu.core.schema import set_score_column as jax_tag
+    from mmlspark_tpu.ml import ComputeModelStatistics as JaxStatistics
+    from mmlspark_tpu_torch.ml import ComputeModelStatistics
+    jax_table = JaxDataTable({"prediction": ref, "label": test["label"]})
+    jax_tag(jax_table, "example301", "prediction",
+            SchemaConstants.SCORED_LABELS_COLUMN,
+            SchemaConstants.CLASSIFICATION_KIND)
+    jax_tag(jax_table, "example301", "label",
+            SchemaConstants.TRUE_LABELS_COLUMN,
+            SchemaConstants.CLASSIFICATION_KIND)
+    got = ComputeModelStatistics().evaluate(scored)
+    want = JaxStatistics().evaluate(jax_table)
+    assert got.metrics.columns == want.metrics.columns
+    for c in got.metrics.columns:
+        np.testing.assert_array_equal(got.metrics[c], want.metrics[c])
+    np.testing.assert_array_equal(got.confusion_matrix,
+                                  want.confusion_matrix)
 
 
 def test_pretrained_repo_is_the_jax_package_s_read_in_place(tmp_path):
