@@ -15,8 +15,9 @@ bundles), the image pipeline (PNG files -> the streaming reader ->
 ResNet-50 scoring under the depth Autotuner; `ImageTransformer` and
 `ImageFeaturizer`), vision and tabular training, and the AutoML layer
 (`TrainClassifier` / `TrainRegressor` over every learner family,
-`FindBestModel`, the text featurizer and `CheckpointData`), and times
-kernels and paths.
+`FindBestModel`, the text featurizer and `CheckpointData`), the
+mixture-of-experts LM (served, trained, rematerialized) and the
+population sweep, and times kernels and paths.
 
     python3 chip_smoke.py
 
@@ -268,6 +269,29 @@ Phases (any failure exits non-zero before the result line):
      zoo ConvNet at f32 over 8192 images from a CheckpointData-cached
      table: scores bit-equal to the plain table's with no host->device
      bytes, and `accuracy_gate` between the f32 and int8 bundles
+ 25. the mixture-of-experts LM and the population sweep (the MoE
+     router and experts are torch ops, no hand-written kernel of their
+     own): LM_CONFIG with 8 experts, top 2, groups of 512 (seeded
+     weights in the flax layout): (a) `TextGenerator.transform` over the
+     phase-6 prompts, 64 greedy tokens, bf16 and an int8 PTQ bundle
+     (expert stacks and router left bf16): K1 and K4 counted exactly,
+     tokens/s, prefill ms, ms/step and the decode steps' overflow
+     fraction; f32 prefill logits against the plain forward (1e-3); f32
+     greedy tokens against the recompute oracle at moe_group_size=1
+     (>= 0.95 equal); (b) `Trainer.fit_arrays` at phase 7's shape with
+     aux_loss_weight 1e-2: the loss falls, K1[lse], K2 and K3 n_layers x
+     steps each, history's moe_overflow_fraction, step ms, tokens/s, the
+     FLOPs as run, the routing share, a device breakdown; (c) one step
+     each with no remat, "full" and "save_attention": K1[lse] n / 2n / n,
+     the bytes held for the backward none > save_attention > full,
+     gradients within 1e-5 of max |g| (bit-equal expected); (d)
+     `TrainClassifier(MLP, sweepLearningRates=[4 rates])` on the census
+     of phase 24 (a) against 4 serial fits (seconds, member and test
+     accuracy), and the same sweep with 2 halving rungs: every culled
+     member's stacked tensors byte-unchanged from its rung to the end
+
+Each phase's seconds print on a line of their own (`phase seconds N`) and
+as one `{"phase_seconds": ...}` line; the whole run stays under 1000 s.
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -7180,12 +7204,459 @@ def phase_automl(dev, card) -> dict:
     return out
 
 
+# phase 25: the mixture-of-experts LM at LM_CONFIG's width and the
+# population sweep on example 101's census
+MOE_CONFIG = {**LM_CONFIG, "mlp_impl": "moe", "n_experts": 8,
+              "moe_router_k": 2, "moe_group_size": 512}
+MOE_AUX = 1e-2
+SWEEP_RATES = (1e-3, 3e-3, 1e-2, 3e-2)
+SWEEP_RUNGS = 2
+MOE_TRAIN_GROUPS = (("K1 flash forward with lse", ("flash_fwd",)),
+                    ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
+                    ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
+                    ("GEMM (cuBLAS)", GEMM_KEYS),
+                    ("gather / scatter / index", ("index", "scatter",
+                                                  "gather")),
+                    ("softmax / argmax / cumsum", ("softmax", "argmax",
+                                                   "cumsum", "scan",
+                                                   "reduce")))
+
+
+def expected_serving_launches(engine, lengths) -> tuple:
+    """(K1, K4) launches of one `TextGenerator.transform` over prompts of
+    `lengths` with no stop tokens: K1 once a layer for every bucket of
+    `_PREFILL_FLASH_MIN` tokens or more, K4 once a layer for every decode
+    step of every bucket."""
+    from mmlspark_tpu_torch.models.generate import (_PREFILL_FLASH_MIN,
+                                                    decode_segments)
+    n_layers = engine.weights.n_layers
+    buckets = sorted({engine.bucket_for(n) for n in lengths})
+    k1 = n_layers * sum(b >= _PREFILL_FLASH_MIN for b in buckets)
+    k4 = n_layers * sum(seg for b in buckets for _, seg, _ in decode_segments(
+        b, engine.max_new_tokens, engine.chunk))
+    return k1, k4
+
+
+def moe_layer_flops(tokens: int, config: dict) -> int:
+    """Forward FLOPs of one MoE layer as it runs: the f32 router product
+    over every token and the two expert products over every capacity
+    slot (empty slots included: the expert GEMMs run them)."""
+    from mmlspark_tpu_torch.ops.moe import _group_size, capacity_of
+    d, e = config["d_model"], config["n_experts"]
+    h = config.get("mlp_ratio", 4) * d
+    gs = _group_size(tokens, config["moe_group_size"])
+    slots = e * (tokens // gs) * capacity_of(gs, e, 1.25,
+                                             config["moe_router_k"])
+    return 2 * tokens * d * e + 2 * 2 * slots * d * h
+
+
+def moe_serving(dev, card) -> dict:
+    """(a) `TextGenerator.transform` over the MoE LM: exact K1 / K4
+    counts, f32 prefill logits against the plain forward, f32 greedy
+    tokens against the recompute oracle at moe_group_size=1, an int8 PTQ
+    bundle with float expert stacks, tokens/s, ms/step and the decode
+    overflow fraction."""
+    from mmlspark_tpu_torch import DataTable, ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.core.bf16 import BF16Array
+    from mmlspark_tpu_torch.core.table import object_column
+    from mmlspark_tpu_torch.models import generate as gen
+    from mmlspark_tpu_torch.quant.quantize import quantize_bundle
+    bundle = ModelBundle.init("TransformerLM", MOE_CONFIG, seed=0)
+    rng = np.random.default_rng(1)
+    rows = [rng.integers(0, MOE_CONFIG["vocab_size"], n).astype(np.int32)
+            for n in PROMPT_LENGTHS]
+    table = DataTable({"prompt": object_column(rows)})
+    n_tokens = len(rows) * MAX_NEW
+    out: dict = {}
+    arms = (("bf16", bundle), ("int8", quantize_bundle(bundle, "int8")))
+    for arm, b in arms:
+        if arm == "int8":
+            moe = b.variables["params"]["block0_w"]["moe"]
+            require(all(isinstance(moe[k], BF16Array) for k in
+                         ("w_in", "w_out")) and isinstance(
+                moe["router"]["kernel"], BF16Array),
+                "phase 25 (a): the int8 PTQ bundle quantized the MoE")
+        stage = TextGenerator(b, device=dev, inputCol="prompt",
+                              maxNewTokens=MAX_NEW)
+        stage.transform(table)                       # warm-up
+        engine = stage._engine_for()
+        want = expected_serving_launches(engine, PROMPT_LENGTHS)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        gen_out = stage.transform(table)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = read_counts()
+        got = (launched["flash_attention"],
+               launched["fused_single_query_attention"])
+        for r, o in zip(rows, gen_out["generated"]):
+            require(len(o) == len(r) + MAX_NEW and np.array_equal(
+                o[:len(r)], r) and ((o >= 0) & (o < MOE_CONFIG[
+                    "vocab_size"])).all(), f"phase 25 (a) {arm}: a row")
+        require(got == want, f"phase 25 (a) {arm}: K1 / K4 launched {got}, "
+                f"want {want}")
+        steps = want[1] // MOE_CONFIG["n_layers"]
+        out[arm] = {"tokens_per_s": n_tokens / seconds, "seconds": seconds,
+                    "launches": {"K1": got[0], "K4": got[1]},
+                    "decode_steps": steps}
+        print(f"phase 25 (a) MoE serving {arm}: {len(rows)} rows x {MAX_NEW} "
+              f"tokens in {seconds * 1e3:.1f} ms = "
+              f"{n_tokens / seconds:.1f} tokens/s; launches K1 {got[0]} K4 "
+              f"{got[1]} (want {want}) [{card}]")
+    # ms a decode step and the overflow of the decode steps' routing
+    stage = TextGenerator(bundle, device=dev, inputCol="prompt",
+                          maxNewTokens=MAX_NEW)
+    engine = stage._engine_for()
+    long_rows = rows[6:]
+    bucket = engine.bucket_for(max(map(len, long_rows)))
+    prompts = torch.zeros((len(long_rows), bucket), dtype=torch.long,
+                          device=dev)
+    for j, r in enumerate(long_rows):
+        prompts[j, :len(r)] = torch.from_numpy(r.astype(np.int64))
+    tl = torch.tensor([len(r) for r in long_rows], device=dev)
+    live = torch.ones(len(long_rows), dtype=torch.bool, device=dev)
+    seeds = [0] * len(long_rows)
+    steps = 32
+    window = -(-(bucket + steps) // engine.chunk) * engine.chunk
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: engine.prefill(prompts, tl, live, seeds),
+                             warmup=1, reps=3)
+        tok, done, caches = engine.prefill(prompts, tl, live, seeds)
+        seg_ms = cuda_ms(lambda: engine.decode_segment(
+            steps, window, caches, tok, done, tl, bucket, 0, seeds),
+            warmup=1, reps=3)
+        overflow = []
+        real_apply = gen.moe_apply
+
+        def recording(x, *args, **kw):
+            y, sown = real_apply(x, *args, **kw)
+            if x.shape[1] == 1:
+                overflow.append(sown["metrics"]["moe_overflow_fraction"])
+            return y, sown
+        gen.moe_apply = recording
+        try:
+            engine.decode_segment(steps, window, caches, tok, done, tl,
+                                  bucket, 0, seeds)
+        finally:
+            gen.moe_apply = real_apply
+        decode_overflow = float(torch.stack(overflow).mean())
+    out.update(prefill_ms=prefill_ms, decode_ms_per_step=seg_ms / steps,
+               decode_overflow_fraction=decode_overflow)
+    print(f"phase 25 (a) MoE bucket {bucket} x {len(long_rows)} rows: "
+          f"prefill {prefill_ms:.3f} ms; decode {seg_ms / steps:.3f} "
+          f"ms/step; decode routing overflow fraction {decode_overflow:.4f} "
+          f"(the step's {len(long_rows)} rows routed as one group) [{card}]")
+    del caches
+    # f32: the kernel path's prefill logits against the plain forward, and
+    # greedy tokens against the recompute oracle in the drop-free regime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = {**MOE_CONFIG, "dtype": "float32"}
+    module32 = ModelBundle("TransformerLM", cfg32,
+                           bundle.variables).module(dev)
+    mid = rows[4:6]
+    prompts = torch.zeros((len(mid), 1024), dtype=torch.long, device=dev)
+    for j, r in enumerate(mid):
+        prompts[j, :len(r)] = torch.from_numpy(r.astype(np.int64))
+    shape = (len(mid), 1024 + 128, MOE_CONFIG["n_heads"],
+             MOE_CONFIG["d_model"] // MOE_CONFIG["n_heads"])
+    caches = [(torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+              for _ in range(MOE_CONFIG["n_layers"])]
+    with torch.inference_mode():
+        kernel_logits = gen._forward_with_cache(gen.ServingWeights(module32),
+                                                prompts, caches, 0)
+        plain_logits = module32(prompts)
+    logit_err = (kernel_logits - plain_logits).abs().max().item()
+    print(f"phase 25 (a) f32 MoE prefill logits (bucket 1024) kernel vs "
+          f"plain forward: max_abs_err={logit_err:.3e} (tol 1e-3)")
+    require(logit_err <= 1e-3, "phase 25 (a): f32 MoE prefill logits")
+    del caches, module32, kernel_logits, plain_logits
+    cfg1 = {**cfg32, "moe_group_size": 1}
+    b1 = ModelBundle("TransformerLM", cfg1, bundle.variables)
+    module1 = b1.module(dev)
+    gen1 = TextGenerator(b1, device=dev, inputCol="prompt",
+                         maxNewTokens=MAX_NEW).transform(table)
+    matches = 0
+    for r, o in zip(rows, gen1["generated"]):
+        ref = gen.naive_generate(module1, r[None], MAX_NEW)[0]
+        matches += int((o[len(r):] == ref[len(r):]).sum())
+    match = matches / n_tokens
+    print(f"phase 25 (a) f32 greedy tokens at moe_group_size=1 vs the "
+          f"recompute oracle: {matches}/{n_tokens} = {match:.4f} (gate "
+          f">= 0.95)")
+    require(match >= 0.95, "phase 25 (a): f32 greedy tokens part from the "
+            "recompute oracle in the drop-free regime")
+    out.update(prefill_logit_err_f32=logit_err, greedy_match_f32=match)
+    del module1
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_step(module, x, y):
+    """One forward + backward of the MoE objective (NLL + MOE_AUX x the
+    sown losses): the bytes allocated when the forward ends (what the
+    backward keeps) and the gradients by name."""
+    from mmlspark_tpu_torch.train.trainer import make_loss, sown_leaves
+    for p in module.parameters():
+        p.grad = None
+    logits, sown = module(x, collect=True)
+    loss = make_loss("softmax_xent")(logits, y, torch.ones(
+        x.shape[0], device=x.device)) + MOE_AUX * sum(
+        sown_leaves(sown["losses"]))
+    held = torch.cuda.memory_allocated()
+    loss.backward()
+    return held, {n: p.grad for n, p in module.named_parameters()}
+
+
+def moe_training(dev, card) -> dict:
+    """(b) `Trainer.fit_arrays` over the MoE LM at phase 7's shape and (c)
+    one step in each remat mode."""
+    from mmlspark_tpu_torch import ModelBundle, Trainer, TrainerConfig
+    from mmlspark_tpu_torch.ops.moe import capacity_of, route
+    from mmlspark_tpu_torch.utils.perf import lm_train_flops
+    n_layers, vocab = MOE_CONFIG["n_layers"], MOE_CONFIG["vocab_size"]
+    rows = char_corpus(TRAIN_ROWS, TRAIN_SEQ, vocab)
+    tokens, targets = rows[:, :-1], rows[:, 1:]
+    config = {**MOE_CONFIG, "attn_impl": "flash"}
+    cfg = TrainerConfig(architecture="TransformerLM", model_config=config,
+                        optimizer="adam", learning_rate=3e-4,
+                        batch_size=TRAIN_BATCH, epochs=2, seed=0,
+                        aux_loss_weight=MOE_AUX)
+    trainer = Trainer(cfg, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    bundle = trainer.fit_arrays(tokens, targets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = read_counts()
+    steps = bundle.metadata["steps"]
+    losses = [r["loss"] for r in trainer.history]
+    overflow = [r.get("moe_overflow_fraction") for r in trainer.history]
+    print(f"phase 25 (b) MoE training: {steps} steps of {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} in {seconds:.3f} s; history {trainer.history}; "
+          f"launches {launched} [{card}]")
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"phase 25 (b): the loss did not fall: {losses}")
+    require(all(o is not None and 0.0 <= o <= 1.0 for o in overflow),
+            "phase 25 (b): history lacks moe_overflow_fraction")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == n_layers * steps,
+                f"phase 25 (b): {name} launched {launched[name]} times, "
+                f"want {n_layers * steps}")
+    out: dict = {"steps": steps, "seconds": seconds,
+                 "history": trainer.history,
+                 "launches": {k: launched[k] for k in (
+                     "flash_attention[lse]", "flash_bwd_dq",
+                     "flash_bwd_dkv")}}
+    # the step alone, and the routing's share of it
+    state = trainer.init_state((1, TRAIN_SEQ), total_steps=16,
+                               initial_bundle=bundle)
+    step = trainer.make_train_step()
+    xb = torch.from_numpy(tokens[:TRAIN_BATCH].astype(np.int64)).to(dev)
+    yb = torch.from_numpy(targets[:TRAIN_BATCH].astype(np.int64)).to(dev)
+    mb = torch.ones(TRAIN_BATCH, device=dev)
+    step_ms = cuda_ms(lambda: step(state, xb, yb, mb), warmup=1, reps=5)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    gs = MOE_CONFIG["moe_group_size"]
+    logits = torch.randn((n_tok // gs, gs, MOE_CONFIG["n_experts"]),
+                         device=dev)
+    cap = capacity_of(gs, MOE_CONFIG["n_experts"], 1.25,
+                      MOE_CONFIG["moe_router_k"])
+    route_ms = cuda_ms(lambda: route(logits, cap, MOE_CONFIG["moe_router_k"]),
+                       warmup=2, reps=10)
+    flops = (lm_train_flops(TRAIN_BATCH, TRAIN_SEQ, MOE_CONFIG["d_model"],
+                            n_layers, vocab, mlp_ratio=0)["total"]
+             + 3 * n_layers * moe_layer_flops(n_tok, MOE_CONFIG))
+    out.update(step_ms=step_ms, tokens_per_s=n_tok / step_ms * 1e3,
+               flops_per_step=flops, route_ms=route_ms,
+               routing_share=n_layers * route_ms / step_ms,
+               mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS)
+    print(f"phase 25 (b) MoE train step {TRAIN_BATCH}x{TRAIN_SEQ} bf16 flash: "
+          f"{step_ms:.3f} ms/step = {n_tok / step_ms * 1e3:.1f} tokens/s; "
+          f"{flops / 1e12:.3f} TFLOP/step as run (attention, qkv/proj/head, "
+          f"f32 router over every token, the expert GEMMs over every "
+          f"capacity slot, x3 for the backward) = {out['mfu']:.4f} of 989 "
+          f"TFLOP/s; routing (softmax, top-2, positions) {route_ms:.3f} ms "
+          f"a layer's forward = {out['routing_share']:.4f} of the step "
+          f"[{card}]")
+    out["device_breakdown"] = device_breakdown(
+        lambda: step(state, xb, yb, mb), card, MOE_TRAIN_GROUPS)
+    del state, trainer
+    torch.cuda.empty_cache()
+    # (c) one step in each remat mode from the same weights and batch
+    grads, peaks, held, counts = {}, {}, {}, {}
+    for mode in ("none", "full", "save_attention"):
+        mcfg = {**config, "remat": mode != "none",
+                "remat_policy": "full" if mode == "none" else mode}
+        module = ModelBundle("TransformerLM", mcfg,
+                             bundle.variables).module(dev).train()
+        moe_train_step(module, xb, yb)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        held[mode], g = moe_train_step(module, xb, yb)
+        held[mode] -= base
+        torch.cuda.synchronize()
+        counts[mode] = read_counts()["flash_attention[lse]"]
+        peaks[mode] = torch.cuda.max_memory_allocated() - base
+        grads[mode] = {n: t.detach().clone() for n, t in g.items()}
+        del module, g
+        torch.cuda.empty_cache()
+    want = {"none": n_layers, "full": 2 * n_layers,
+            "save_attention": n_layers}
+    gaps = {}
+    for mode in ("full", "save_attention"):
+        gaps[mode] = max(((grads[mode][n] - grads["none"][n]).abs().max()
+                          / grads["none"][n].abs().max().clamp(min=1e-30)
+                          ).item() for n in grads["none"])
+    bit_equal = {mode: all(torch.equal(grads[mode][n], grads["none"][n])
+                           for n in grads["none"])
+                 for mode in ("full", "save_attention")}
+    print(f"phase 25 (c) remat none / full / save_attention: K1[lse] "
+          f"{counts['none']} / {counts['full']} / "
+          f"{counts['save_attention']} a step (want {want}); held for the "
+          f"backward when the forward ends {held['none'] / 2 ** 30:.3f} / "
+          f"{held['full'] / 2 ** 30:.3f} / "
+          f"{held['save_attention'] / 2 ** 30:.3f} GiB; peak allocated "
+          f"over the weights {peaks['none'] / 2 ** 30:.3f} / "
+          f"{peaks['full'] / 2 ** 30:.3f} / "
+          f"{peaks['save_attention'] / 2 ** 30:.3f} GiB (the end of the "
+          f"backward, where every gradient exists); gradients vs none: "
+          f"max |d|/max |g| {gaps['full']:.3e} / {gaps['save_attention']:.3e}"
+          f", bit-equal {bit_equal['full']} / {bit_equal['save_attention']} "
+          f"[{card}]")
+    require(counts == want, f"phase 25 (c): K1[lse] launches {counts}, "
+            f"want {want}")
+    require(held["none"] > held["save_attention"] > held["full"],
+            f"phase 25 (c): memory held for the backward {held} not none > "
+            f"save_attention > full")
+    require(max(gaps.values()) <= 1e-5,
+            f"phase 25 (c): remat gradients differ by {gaps}")
+    out["remat"] = {"k1_lse_launches": counts, "held_bytes": held,
+                    "peak_bytes": peaks, "grad_gap": gaps,
+                    "bit_equal": bit_equal}
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_sweep(dev, card) -> dict:
+    """(d) `TrainClassifier(MLP, sweepLearningRates)` on example 101's
+    census against 4 serial fits, and a halving population whose culled
+    members stay byte-frozen."""
+    from mmlspark_tpu_torch.ml import (ComputeModelStatistics,
+                                       MultilayerPerceptronClassifier,
+                                       TrainClassifier)
+    from mmlspark_tpu_torch.train import PopulationTrainer
+    from mmlspark_tpu_torch.utils.demo_data import adult_census_like
+    data = adult_census_like(n=AUTOML["census_rows"], seed=0)
+    train = data.slice(0, AUTOML["census_train"])
+    test = data.slice(AUTOML["census_train"], data.num_rows)
+
+    def mlp(rate=SWEEP_RATES[0]):
+        return MultilayerPerceptronClassifier(layers=[-1, 32, -1],
+                                              maxIter=40, stepSize=rate,
+                                              device=dev)
+
+    def accuracy(model) -> float:
+        return float(ComputeModelStatistics().evaluate(
+            model.transform(test)).metrics["accuracy"][0])
+
+    TrainClassifier(mlp(), labelCol="income",
+                    sweepLearningRates=list(SWEEP_RATES[:2])).fit(
+        train.slice(0, 256))                      # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    swept = TrainClassifier(mlp(), labelCol="income",
+                            sweepLearningRates=list(SWEEP_RATES)).fit(train)
+    sync(dev)
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = [TrainClassifier(mlp(r), labelCol="income").fit(train)
+              for r in SWEEP_RATES]
+    sync(dev)
+    serial_s = time.perf_counter() - t0
+    sm = swept.sweep_metrics
+    member_acc = [float(a) for a in sm["accuracy"]]
+    winner = int(np.argmax(member_acc))
+    serial_acc = [accuracy(m) for m in serial]
+    swept_acc = accuracy(swept)
+    print(f"phase 25 (d) sweep of {len(SWEEP_RATES)} MLP rates "
+          f"{list(SWEEP_RATES)} on {train.num_rows} census rows: "
+          f"{sweep_s:.3f} s against {serial_s:.3f} s for the serial fits "
+          f"({serial_s / sweep_s:.2f}x); members' train accuracy "
+          f"{member_acc}; winner member {winner} (rate "
+          f"{SWEEP_RATES[winner]}), test accuracy {swept_acc:.6f}; serial "
+          f"fits' test accuracy {serial_acc} [{card}]")
+    require(np.isfinite(sm["final_loss"]).all(),
+            "phase 25 (d): a member's loss is not finite")
+    # halving: the same sweep with SWEEP_RUNGS rungs, the stacked
+    # parameters snapshot after every step
+    snaps = []
+    make_step = PopulationTrainer.make_population_step
+
+    def recording(self):
+        step = make_step(self)
+
+        def recorded(state, x, y, mask):
+            losses = step(state, x, y, mask)
+            snaps.append(([p.clone() for p in state.params],
+                          state.active.clone()))
+            return losses
+        return recorded
+
+    PopulationTrainer.make_population_step = recording
+    try:
+        halved = TrainClassifier(mlp(), labelCol="income",
+                                 sweepLearningRates=list(SWEEP_RATES),
+                                 sweepHalvingRungs=SWEEP_RUNGS).fit(train)
+    finally:
+        PopulationTrainer.make_population_step = make_step
+    active = np.asarray(halved.sweep_metrics["active"])
+    culled = [k for k in range(len(SWEEP_RATES)) if active[k] == 0]
+    require(culled, "phase 25 (d): the halving rungs culled no member")
+    final = snaps[-1][0]
+    frozen = True
+    for k in culled:
+        first = next(i for i, (_, act) in enumerate(snaps)
+                     if act[k].item() == 0)
+        at_cull = snaps[first - 1][0]
+        frozen &= all(torch.equal(p[k], q[k]) for s, _ in snaps[first:]
+                      for p, q in zip(s, at_cull))
+        frozen &= all(torch.equal(p[k], q[k]) for p, q in zip(final,
+                                                                 at_cull))
+    print(f"phase 25 (d) halving ({SWEEP_RUNGS} rungs, {len(snaps)} steps): "
+          f"culled members {culled}, survivors "
+          f"{[k for k in range(len(SWEEP_RATES)) if k not in culled]}; "
+          f"culled members' tensors byte-unchanged after their rung: "
+          f"{frozen} [{card}]")
+    require(frozen, "phase 25 (d): a culled member moved after its rung")
+    return {"sweep_s": sweep_s, "serial_s": serial_s,
+            "member_accuracy": member_acc, "winner": winner,
+            "winner_test_accuracy": swept_acc,
+            "serial_test_accuracy": serial_acc, "culled": culled,
+            "culled_frozen": frozen}
+
+
+def phase_moe_and_sweep(dev, card) -> dict:
+    """Phase 25: the mixture-of-experts LM served and trained at
+    LM_CONFIG's width, the remat policies, and the population sweep."""
+    out = {"serving": moe_serving(dev, card)}
+    out["training"] = moe_training(dev, card)
+    out["sweep"] = moe_sweep(dev, card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from mmlspark_tpu_torch.ops import native
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     exp_rate()
@@ -7214,61 +7685,63 @@ def main() -> int:
         row["spill_stores"] or row["spill_loads"] for row in k4_build),
         "K4's build log lacks a kernel or reports spills")
     dev = torch.device("cuda")
-    flash = phase_flash(dev, card)
-    flash_lse = phase_flash_lse(dev, card)
-    backward = phase_backward(dev, card)
-    decode = phase_decode(dev, card)
-    torch.cuda.empty_cache()
-    main_path = phase_main_path(dev, card)
-    torch.cuda.empty_cache()
-    train = phase_train(dev, card)
-    torch.cuda.empty_cache()
-    decode_stats = phase_decode_stats(dev, card)
-    ring_lse = phase_ring_lse(dev, card)
-    long_context = phase_long_context(dev, card)
-    torch.cuda.empty_cache()
-    grad_check = phase_grad_check(dev, card)
-    torch.cuda.empty_cache()
+    seconds: dict = {1: time.perf_counter() - t_start}
+    print(f"phase seconds 1: {seconds[1]:.1f} s [{card}]")
+
+    def phase(n: int, fn, *args, clear: bool = True):
+        """Run phase `n`, print its seconds on a line of its own."""
+        t0 = time.perf_counter()
+        out = fn(dev, card, *args)
+        if clear:
+            torch.cuda.empty_cache()
+        seconds[n] = time.perf_counter() - t0
+        print(f"phase seconds {n}: {seconds[n]:.1f} s [{card}]")
+        return out
+
+    flash = phase(2, phase_flash, clear=False)
+    flash_lse = phase(3, phase_flash_lse, clear=False)
+    backward = phase(4, phase_backward, clear=False)
+    decode = phase(5, phase_decode)
+    main_path = phase(6, phase_main_path)
+    train = phase(7, phase_train)
+    decode_stats = phase(8, phase_decode_stats, clear=False)
+    ring_lse = phase(9, phase_ring_lse, clear=False)
+    long_context = phase(10, phase_long_context)
+    grad_check = phase(11, phase_grad_check)
     reset_counts()
-    serving = phase_serving(dev, card)
+    serving = phase(12, phase_serving)
     print(json.dumps({"serving": serving, "card": card}))
-    torch.cuda.empty_cache()
     reset_counts()
-    fleet = phase_fleet(dev, card)
+    fleet = phase(13, phase_fleet)
     print(json.dumps({"fleet": fleet, "card": card}))
-    torch.cuda.empty_cache()
     reset_counts()
-    tiered = phase_tiered(dev, card)
+    tiered = phase(14, phase_tiered)
     print(json.dumps({"tiers": tiered, "card": card}))
-    torch.cuda.empty_cache()
-    d32, d32_paths = phase_head_dim_32(dev, card)
-    torch.cuda.empty_cache()
-    small, small_paths = phase_small_head_dims(dev, card)
-    torch.cuda.empty_cache()
-    wide, wide_paths = phase_wide_f32_backward(dev, card, grad_check)
-    torch.cuda.empty_cache()
-    lm_decoding = phase_lm_decoding(dev, card)
+    d32, d32_paths = phase(15, phase_head_dim_32)
+    small, small_paths = phase(16, phase_small_head_dims)
+    wide, wide_paths = phase(17, phase_wide_f32_backward, grad_check)
+    lm_decoding = phase(18, phase_lm_decoding)
     print(json.dumps({"lm_decoding": lm_decoding, "card": card}))
-    torch.cuda.empty_cache()
-    ckpt_training = phase_checkpointed_training(dev, card)
+    ckpt_training = phase(19, phase_checkpointed_training)
     print(json.dumps({"checkpointed_training": ckpt_training,
                       "card": card}))
-    torch.cuda.empty_cache()
-    ring_rows, seq_training = phase_seq_parallel_training(dev, card)
+    ring_rows, seq_training = phase(20, phase_seq_parallel_training)
     print(json.dumps({"seq_parallel_training": seq_training,
                       "card": card}))
-    torch.cuda.empty_cache()
-    vision = phase_vision_scoring(dev, card)
+    vision = phase(21, phase_vision_scoring)
     print(json.dumps({"vision_scoring": vision, "card": card}))
-    torch.cuda.empty_cache()
-    image_pipeline = phase_image_pipeline(dev, card)
+    image_pipeline = phase(22, phase_image_pipeline)
     print(json.dumps({"image_pipeline": image_pipeline, "card": card}))
-    torch.cuda.empty_cache()
-    vision_training = phase_vision_training(dev, card)
+    vision_training = phase(23, phase_vision_training)
     print(json.dumps({"vision_training": vision_training, "card": card}))
-    torch.cuda.empty_cache()
-    automl = phase_automl(dev, card)
+    automl = phase(24, phase_automl)
     print(json.dumps({"automl": automl, "card": card}))
+    moe = phase(25, phase_moe_and_sweep)
+    print(json.dumps({"moe_and_sweep": moe, "card": card}))
+    total = time.perf_counter() - t_start
+    print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
+                                        seconds.items()},
+                      "total_s": round(total, 1), "card": card}))
     # launches: each kernel's count from the path that runs it (serving
     # for K1 and K4, training for K1[lse], K2 and K3)
     flash["launches"] = main_path["counts"]["model"][0]

@@ -120,3 +120,20 @@ CKPT_KEEP = register(
     "MMLSPARK_TPU_CKPT_KEEP", 3,
     "checkpoint rotation: how many validated checkpoints to keep",
     ptype=int)
+
+# population training (train/sweep.py), under the JAX package's names
+SWEEP_HALVING_RUNGS = register(
+    "MMLSPARK_TPU_SWEEP_HALVING_RUNGS", 0, ptype=int,
+    doc="population training: successive-halving rung count (0 = no "
+        "culling; rungs split the step budget evenly, each culls the "
+        "trailing members by recent loss — train/sweep.py)")
+
+SWEEP_CULL_FRACTION = register(
+    "MMLSPARK_TPU_SWEEP_CULL_FRACTION", 0.5, ptype=float,
+    doc="population training: fraction of still-active members culled "
+        "at each halving rung (mask-frozen, never re-stacked)")
+
+SWEEP_MIN_ACTIVE = register(
+    "MMLSPARK_TPU_SWEEP_MIN_ACTIVE", 1, ptype=int,
+    doc="population training: floor of active members a halving rung "
+        "may not cull below")

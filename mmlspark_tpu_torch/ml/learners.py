@@ -50,10 +50,6 @@ from mmlspark_tpu_torch.core.pipeline import (Estimator, JaxTwin,
                                               Transformer, load_stage)
 from mmlspark_tpu_torch.core.table import DataTable
 
-POPULATION_UNPORTED = (
-    "the MLP population sweep (train/sweep.py) is not ported (ROADMAP A11)")
-
-
 def _features_matrix(col: np.ndarray) -> np.ndarray:
     if col.dtype == object:
         return (np.stack([np.asarray(v, np.float32).ravel() for v in col])
@@ -832,4 +828,37 @@ class MultilayerPerceptronClassifier(_DeviceEstimator):
 
     def fit_population(self, table: DataTable, learning_rates,
                        halving_rungs: int = 0):
-        raise NotImplementedError(POPULATION_UNPORTED)
+        """Train one candidate per learning rate as a vmapped population
+        (`train/sweep.py`), score every member with one vmapped forward
+        and rank them with one `classification_report_batch`.  Returns
+        (the winner's model, per-member metrics ordered like
+        `learning_rates`, with `learning_rate` / `final_loss` / `active`
+        columns)."""
+        from mmlspark_tpu_torch.ml.statistics import \
+            classification_report_batch
+        from mmlspark_tpu_torch.train import PopulationTrainer
+        X, y, cfg = self._fit_inputs(table)
+        rates = [float(r) for r in learning_rates]
+        if not rates:
+            raise ParamError("fit_population needs at least one rate")
+        pt = PopulationTrainer(cfg, [{"learning_rate": r} for r in rates],
+                               halving_rungs=int(halving_rungs),
+                               device=self.device)
+        result = pt.fit_arrays(X, y.astype(np.int32))
+        logits = pt.score_population(result.state, X)  # (N, rows, classes)
+        preds = np.argmax(logits, axis=-1)
+        report = classification_report_batch(
+            y, preds, model_uids=[f"member_{k}_lr={r:g}"
+                                  for k, r in enumerate(rates)])
+        acc = np.asarray(report["accuracy"], np.float64)
+        best = int(np.argmax(np.where(result.active > 0, acc, -np.inf)))
+        report = report.with_column("learning_rate",
+                                    np.asarray(rates, np.float64))
+        report = report.with_column("final_loss",
+                                    result.final_losses().astype(np.float64))
+        report = report.with_column("active",
+                                    result.active.astype(np.float64))
+        model = MultilayerPerceptronClassifierModel(
+            result.member_bundle(best), device=self.device,
+            featuresCol=self.featuresCol)
+        return model, report

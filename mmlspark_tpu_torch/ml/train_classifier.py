@@ -10,9 +10,11 @@ columns in metadata (lines 213-264) so evaluators find them without
 hard-coded names.
 
 `device` (a run-time setting, not a Param) moves the learner onto that
-device when given; left None, the learner keeps its own.  The MLP
-population sweep (`populationSize` > 1, `sweepLearningRates`) is not
-ported (`train/sweep.py`, ROADMAP A11) and raises.
+device when given; left None, the learner keeps its own.  With
+`populationSize` > 1 or `sweepLearningRates`, an MLP learner trains every
+candidate rate as one vmapped population (`train/sweep.py`) over the
+table featurized once, and the model keeps the best-accuracy member
+(`sweep_metrics` holds every member's row).
 """
 
 from __future__ import annotations
@@ -33,8 +35,7 @@ from mmlspark_tpu_torch.core.schema import (CategoricalMap, SchemaConstants,
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.feature.assemble import (NUM_FEATURES_DEFAULT,
                                            NUM_FEATURES_TREE_OR_NN, Featurize)
-from mmlspark_tpu_torch.ml.learners import (POPULATION_UNPORTED,
-                                            LogisticRegression,
+from mmlspark_tpu_torch.ml.learners import (LogisticRegression,
                                             MultilayerPerceptronClassifier,
                                             OneVsRest)
 
@@ -127,9 +128,15 @@ class TrainClassifier(JaxTwin, Estimator):
 
         learner.set_params(featuresCol=self.featuresCol, labelCol=label)
         sweep_metrics = None
-        if is_mlp and self._sweep_rates(learner):
-            raise NotImplementedError(POPULATION_UNPORTED)
-        fit_model = learner.fit(processed)
+        rates = self._sweep_rates(learner) if is_mlp else None
+        if rates:
+            # featurized once above; every candidate trains in one
+            # vmapped population, the winner picked by one batched
+            # evaluation (train/sweep.py)
+            fit_model, sweep_metrics = learner.fit_population(
+                processed, rates, int(self.sweepHalvingRungs))
+        else:
+            fit_model = learner.fit(processed)
         pipeline = PipelineModel([featurized_model, fit_model])
         model = TrainedClassifierModel(
             pipeline, levels=levels, labelCol=label,

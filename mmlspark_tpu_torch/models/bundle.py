@@ -22,7 +22,9 @@ the same bytes; `np.asarray` of one widens it exactly to f32.  An int8
 Dense node (`kernel` int8 (in, out), `kernel_scale` f32 (out,), `bias`)
 builds an `Int8Dense` layer holding the int8 weight (out, in), an int8
 Conv node (`kernel` int8 HWIO) an `Int8Conv` holding it as (out, in, kh,
-kw).
+kw).  A mixture-of-experts block's `moe` node holds a Dense `router`
+(transposed like every Dense kernel) and the rank-3 expert stacks `w_in`
+(E, D, H) and `w_out` (E, H, D), which keep their names and layout.
 """
 
 from __future__ import annotations
@@ -195,7 +197,9 @@ def params_from_jax(tree: dict) -> dict:
     port's state_dict: Dense kernels (in, out) become Linear weights
     (out, in), Conv kernels HWIO become (out, in, kh, kw), embeddings
     `embedding` -> `weight`, LayerNorm and BatchNorm `scale`/`bias` keep
-    their names.  Values are f32 (bfloat16 leaves widened exactly), except
+    their names, and any other leaf (a MoE block's expert stacks `w_in`,
+    `w_out`) keeps its name and layout.  Values are f32 (bfloat16 leaves
+    widened exactly), except
     an int8 Dense or Conv node's: its weight stays int8 in the torch
     layout, its `kernel_scale` becomes `scale` (f32) and its bias keeps
     its stored dtype (bfloat16 as `torch.bfloat16`)."""
@@ -226,7 +230,11 @@ def params_from_jax(tree: dict) -> dict:
             state[f"{prefix}.bias"] = _to_torch(node["bias"])
         else:
             for name, child in node.items():
-                walk(f"{prefix}.{name}" if prefix else name, child)
+                path = f"{prefix}.{name}" if prefix else name
+                if isinstance(child, dict):
+                    walk(path, child)
+                else:
+                    state[path] = _to_torch(child)
 
     walk("", tree)
     return state
@@ -264,7 +272,8 @@ def variables_to_jax(state_dict: dict) -> dict:
     int8 Dense or Conv (written back as the int8 tree it was loaded from:
     int8 kernel, f32 `kernel_scale`, the bias in its own dtype), a rank-4
     `weight` a Conv (bias optional), `weight`/`bias` a Dense, `weight`
-    alone an embedding."""
+    alone an embedding, and a node without `weight` or `scale` (a MoE
+    block's expert stacks) keeps its leaves as they are."""
     nodes: dict = {}
     for name, value in state_dict.items():
         prefix, _, leaf = name.rpartition(".")
@@ -293,6 +302,8 @@ def variables_to_jax(state_dict: dict) -> dict:
                     "kernel_scale": leaves["scale"]}
         elif "scale" in leaves:
             node = {"scale": leaves["scale"], "bias": leaves["bias"]}
+        elif "weight" not in leaves:
+            node = dict(leaves)
         elif "bias" in leaves or leaves["weight"].ndim == 4:
             node = {"kernel": kernel(leaves["weight"])}
         else:

@@ -1,16 +1,18 @@
 """Model definitions in PyTorch: the decoder-only `TransformerLM` (the port
-of `mmlspark_tpu/models/definitions.py` :196-357, dense MLP only), the
-vision and tabular scoring models (`MLPClassifier`, `LinearModel`,
-`ConvNetCIFAR10`, `ResNet` with basic or bottleneck blocks, `resnet50`;
-:36-195) and the model registry.  The scoring models' forward returns the
-output and the named nodes the flax models sow (`_Scorer`); convolutions,
-pools and BatchNorm run as torch ops on channels-last tensors (cuDNN on
-the card), with flax's "SAME" padding (`pad_same`).
+of `mmlspark_tpu/models/definitions.py` :196-357, with a dense or a
+mixture-of-experts MLP), the vision and tabular scoring models
+(`MLPClassifier`, `LinearModel`, `ConvNetCIFAR10`, `ResNet` with basic or
+bottleneck blocks, `resnet50`; :36-195) and the model registry.  The
+scoring models' forward returns the output and the named nodes the flax
+models sow (`_Scorer`); convolutions, pools and BatchNorm run as torch
+ops on channels-last tensors (cuDNN on the card), with flax's "SAME"
+padding (`pad_same`).
 
 The module tree keeps the flax names, so a parameter's path reads the same
 in both packages: `tok_embed`, `pos_embed`, `block{i}_w.{LayerNorm_0, qkv,
-proj, LayerNorm_1, mlp_up, mlp_down}`, `final_norm_w`, `lm_head`.  Traps of
-the flax definition that the port keeps:
+proj, LayerNorm_1, mlp_up, mlp_down}` (a MoE block's `moe.{router, w_in,
+w_out}` in place of `mlp_up` / `mlp_down`), `final_norm_w`, `lm_head`.
+Traps of the flax definition that the port keeps:
 
   * LayerNorm eps is 1e-6, statistics in f32 (flax's E[x^2] - E[x]^2
     variance in the forward);
@@ -27,8 +29,17 @@ the flax definition that the port keeps:
 
 `forward` is `module.apply` of the flax model: the parity target for
 logits, `naive_generate`'s recompute oracle, and the training forward.
-`remat=True` (policy "full") recomputes each block in the backward
-(`torch.utils.checkpoint`), which changes memory only.
+`forward(tokens, collect=True)` also returns what the flax model sows
+(`mutable=["losses", "metrics"]`): a MoE block's `moe_aux_loss`,
+`moe_z_loss` and `moe_overflow_fraction` (`ops/moe.py`), nested by module
+path as flax nests them.  `remat=True` recomputes each block in the
+backward (`torch.utils.checkpoint`), which changes memory only: policy
+"full" recomputes all of it; "save_attention" runs the block under a
+selective-checkpoint policy that keeps the flash operator's (out, lse)
+(`ops/flash_attention.py` `flash_attention_op`) and, for the other
+attention impls, the attention output (`attention_output`), so the
+backward recomputes the dense ops but never re-launches the attention
+kernel.
 
 Sequence parallelism: with `attn_impl` ring | ring_flash | ulysses and
 `seq_axis` ("seq"), the attention of every block runs sequence-sharded
@@ -43,6 +54,8 @@ attention's K/V (and its gradients) move between shards.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -50,11 +63,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.parameter import UninitializedParameter, is_lazy
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.ops.attention import attention
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
+from mmlspark_tpu_torch.ops.moe import MoEMLP
 from mmlspark_tpu_torch.parallel.ring import (active_seq_mesh,
                                               seq_parallel_attention,
                                               use_seq_mesh)
@@ -63,6 +78,8 @@ from mmlspark_tpu_torch.quant.modules import (quant_conv_apply,
 
 ATTN_IMPLS = ("dense", "flash", "ring", "ring_flash", "ulysses")
 SEQ_IMPLS = ("ring", "ring_flash", "ulysses")
+MLP_IMPLS = ("dense", "moe")
+REMAT_POLICIES = ("full", "save_attention")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LN_EPS = 1e-6
@@ -147,29 +164,81 @@ class Int8Dense(nn.Module):
                                  self.compute_dtype)
 
 
+@torch.library.custom_op("mmlspark::attention_output", mutates_args=())
+def attention_output(o: torch.Tensor) -> torch.Tensor:
+    """An identity operator (a copy) that names a block's attention
+    output, the flax `checkpoint_name(o, "attn_out")`, so that the
+    "save_attention" policy keeps it."""
+    return o.clone()
+
+
+@attention_output.register_fake
+def _attention_output_fake(o):
+    return torch.empty_like(o)
+
+
+attention_output.register_autograd(lambda ctx, g: g)
+
+
+@functools.cache
+def _saved_by_policy() -> tuple:
+    return (torch.ops.mmlspark.flash_attention_lse.default,
+            torch.ops.mmlspark.attention_output.default)
+
+
+def _save_attention_policy(ctx, op, *args, **kwargs):
+    """Keep the attention operators' outputs, recompute every other op."""
+    if op in _saved_by_policy():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_attention_contexts():
+    return create_selective_checkpoint_contexts(_save_attention_policy)
+
+
 class TransformerBlock(nn.Module):
-    """Pre-norm decoder block: attention then a dense GELU MLP."""
+    """Pre-norm decoder block: attention then a dense GELU MLP, or with
+    `mlp_impl="moe"` the mixture-of-experts MLP (`ops/moe.py`, submodule
+    `moe`).  `forward(x)` returns (x, sown): the MoE's sown values
+    ({} for a dense block).  `name_attention` passes the attention output
+    of a non-flash impl through `attention_output` (the save_attention
+    remat policy keeps it)."""
 
     def __init__(self, d_model: int, n_heads: int, mlp_ratio: int = 4,
                  dtype=torch.bfloat16, attn_impl: str = "dense",
-                 seq_axis: Optional[str] = None, device=None):
+                 seq_axis: Optional[str] = None, mlp_impl: str = "dense",
+                 n_experts: int = 8, moe_router_k: int = 1,
+                 moe_group_size: int = 512, name_attention: bool = False,
+                 device=None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl '{attn_impl}' "
                              f"({' | '.join(ATTN_IMPLS)})")
+        if mlp_impl not in MLP_IMPLS:
+            raise ValueError(f"unknown mlp_impl '{mlp_impl}' "
+                             f"({' | '.join(MLP_IMPLS)})")
         self.d_model, self.n_heads = d_model, n_heads
         self.dtype = dtype_of(dtype)
         self.attn_impl = attn_impl
         self.seq_axis = seq_axis
+        self.mlp_impl = mlp_impl
+        self.name_attention = name_attention and attn_impl != "flash"
         kw = dict(dtype=self.dtype, device=device)
         self.LayerNorm_0 = LayerNorm(d_model, device=device)
         self.qkv = Dense(d_model, 3 * d_model, **kw)
         self.proj = Dense(d_model, d_model, **kw)
         self.LayerNorm_1 = LayerNorm(d_model, device=device)
-        self.mlp_up = Dense(d_model, mlp_ratio * d_model, **kw)
-        self.mlp_down = Dense(mlp_ratio * d_model, d_model, **kw)
+        if mlp_impl == "moe":
+            self.moe = MoEMLP(d_model, n_experts=n_experts,
+                              mlp_ratio=mlp_ratio, dtype=self.dtype,
+                              group_size=moe_group_size,
+                              router_k=moe_router_k, device=device)
+        else:
+            self.mlp_up = Dense(d_model, mlp_ratio * d_model, **kw)
+            self.mlp_down = Dense(mlp_ratio * d_model, d_model, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> tuple:
         b, s, _ = x.shape
         h = self.LayerNorm_0(x, self.dtype)
         qkv = self.qkv(h)
@@ -182,10 +251,15 @@ class TransformerBlock(nn.Module):
                                 v.contiguous(), causal=True)
         else:
             o = attention(q, k, v, causal=True)
+        if self.name_attention and torch.is_grad_enabled():
+            o = attention_output(o)
         x = x + self.proj(o.reshape(b, s, self.d_model))
         h = self.LayerNorm_1(x, self.dtype)
+        if self.mlp_impl == "moe":
+            y, sown = self.moe(h)
+            return x + y, {"moe": sown}
         h = F.gelu(self.mlp_up(h), approximate="tanh")
-        return x + self.mlp_down(h)
+        return x + self.mlp_down(h), {}
 
     def _seq_attention(self, q, k, v) -> torch.Tensor:
         mesh = active_seq_mesh()
@@ -203,22 +277,33 @@ class TransformerBlock(nn.Module):
                                       impl=self.attn_impl)
 
 
-def _block_in_mesh(block: nn.Module, mesh, x: torch.Tensor) -> torch.Tensor:
+def _block_in_mesh(block: nn.Module, mesh, x: torch.Tensor) -> tuple:
     """`block(x)` inside `mesh`'s `use_seq_mesh` block: a rematerialized
     block recomputes in the backward, outside the caller's block."""
     with use_seq_mesh(mesh):
         return block(x)
 
 
+def _by_collection(sown: dict) -> dict:
+    """{block name: {"moe": {"losses": ..., "metrics": ...}}} -> flax's
+    {"losses": {block: {"moe": {...}}}, "metrics": {...}}."""
+    out: dict = {}
+    for block, mods in sown.items():
+        for mod, cols in mods.items():
+            for col, values in cols.items():
+                out.setdefault(col, {}).setdefault(block, {})[mod] = values
+    return out
+
+
 class TransformerLM(nn.Module):
-    """Decoder-only language model with a dense MLP.
+    """Decoder-only language model with a dense or mixture-of-experts MLP.
 
     Takes the flax model's constructor fields, so a bundle config from
-    either package builds it; the fields of features not ported yet
-    (mixture-of-experts) must keep their defaults.  `attn_impl` ring |
-    ring_flash | ulysses need `seq_axis` (module docstring).
-    `remat=True` with `remat_policy="full"` recomputes each block in the
-    backward; "save_attention" is not ported (ROADMAP A5)."""
+    either package builds it; `expert_axis` (expert parallelism) must keep
+    its default (ROADMAP A10).  `attn_impl` ring | ring_flash | ulysses
+    need `seq_axis` (module docstring).  `remat=True` recomputes each
+    block in the backward, under `remat_policy` "full" or
+    "save_attention" (module docstring)."""
 
     def __init__(self, vocab_size: int = 256, d_model: int = 128,
                  n_heads: int = 8, n_layers: int = 2, max_len: int = 2048,
@@ -229,9 +314,6 @@ class TransformerLM(nn.Module):
                  moe_group_size: int = 512, remat: bool = False,
                  remat_policy: str = "full", device="cuda"):
         super().__init__()
-        if mlp_impl != "dense":
-            raise NotImplementedError(
-                f"mlp_impl '{mlp_impl}' is not ported (ROADMAP A10)")
         if expert_axis is not None:
             raise NotImplementedError(
                 "the expert-sharded TransformerLM is not ported (ROADMAP "
@@ -241,16 +323,13 @@ class TransformerLM(nn.Module):
                 f"attn_impl '{attn_impl}' with seq_axis {seq_axis!r}: the "
                 f"sequence-sharded impls {SEQ_IMPLS} take a seq_axis, the "
                 "others none")
-        if remat and remat_policy == "save_attention":
-            raise NotImplementedError(
-                "remat_policy 'save_attention' is not ported (full; ROADMAP "
-                "A5)")
-        if remat_policy not in ("full", "save_attention"):
+        if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy '{remat_policy}' "
                              "(full | save_attention)")
         device = resolve_device(device)
         self.dtype = dtype_of(dtype)
         self.remat = remat
+        self.remat_policy = remat_policy
         self.config = dict(
             vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
             n_layers=n_layers, max_len=max_len, mlp_ratio=mlp_ratio,
@@ -261,12 +340,15 @@ class TransformerLM(nn.Module):
             remat_policy=remat_policy)
         self.vocab_size, self.d_model = vocab_size, d_model
         self.n_heads, self.n_layers, self.max_len = n_heads, n_layers, max_len
+        self.mlp_impl = mlp_impl
         self.tok_embed = nn.Embedding(vocab_size, d_model, device=device)
         self.pos_embed = nn.Embedding(max_len, d_model, device=device)
         for i in range(n_layers):
             self.add_module(f"block{i}_w", TransformerBlock(
                 d_model, n_heads, mlp_ratio, self.dtype, attn_impl,
-                seq_axis, device=device))
+                seq_axis, mlp_impl, n_experts, moe_router_k, moe_group_size,
+                name_attention=remat and remat_policy == "save_attention",
+                device=device))
         self.final_norm_w = LayerNorm(d_model, device=device)
         self.lm_head = Dense(d_model, vocab_size, self.dtype, device=device)
 
@@ -278,27 +360,38 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.lm_head.weight.device
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int -> logits (B, S, vocab) f32."""
+    def forward(self, tokens: torch.Tensor, collect: bool = False):
+        """tokens (B, S) int -> logits (B, S, vocab) f32; with `collect`,
+        (logits, sown) where sown is flax's {"losses": ..., "metrics":
+        ...} of the MoE blocks ({} for a dense model)."""
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         x = (self.tok_embed.weight.to(self.dtype)[tokens]
              + self.pos_embed.weight.to(self.dtype)[pos][None])
         mesh = active_seq_mesh()
-        for block in self.blocks:
+        sown = {}
+        context = (_save_attention_contexts
+                   if self.remat_policy == "save_attention" else None)
+        for i, block in enumerate(self.blocks):
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(_block_in_mesh, block, mesh, x,
-                               use_reentrant=False)
+                kw = {} if context is None else {"context_fn": context}
+                x, block_sown = checkpoint(_block_in_mesh, block, mesh, x,
+                                           use_reentrant=False, **kw)
             else:
-                x = block(x)
+                x, block_sown = block(x)
+            if block_sown:
+                sown[f"block{i}_w"] = block_sown
         x = self.final_norm_w(x, self.dtype)
-        return self.lm_head(x).float()
+        logits = self.lm_head(x).float()
+        return (logits, _by_collection(sown)) if collect else logits
 
 
 def init_transformer_lm_params(config: dict, seed: int = 0) -> dict:
     """A seeded numpy init of a TransformerLM's parameters in the flax
     layout ({"params": tree}, f32): Dense kernels ~ N(0, 1/fan_in), small
     random biases and norm affines (so every term of the math is live),
-    embeddings ~ N(0, 1/d_model)."""
+    embeddings ~ N(0, 1/d_model); a MoE block's router a Dense layer and
+    its expert stacks w_in (E, D, H) ~ N(0, 1/D), w_out (E, H, D) ~ N(0,
+    1/H)."""
     rng = np.random.default_rng(seed)
     cfg = {**_LM_DEFAULTS, **config}
     d, v, r = cfg["d_model"], cfg["vocab_size"], cfg["mlp_ratio"]
@@ -317,11 +410,19 @@ def init_transformer_lm_params(config: dict, seed: int = 0) -> dict:
     params = {"tok_embed": {"embedding": normal((v, d), d ** -0.5)},
               "pos_embed": {"embedding": normal((cfg["max_len"], d),
                                                 d ** -0.5)}}
+    moe = cfg.get("mlp_impl", "dense") == "moe"
+    e = cfg.get("n_experts", 8)
     for i in range(cfg["n_layers"]):
-        params[f"block{i}_w"] = {
+        block = params[f"block{i}_w"] = {
             "LayerNorm_0": norm(), "qkv": dense(d, 3 * d),
-            "proj": dense(d, d), "LayerNorm_1": norm(),
-            "mlp_up": dense(d, r * d), "mlp_down": dense(r * d, d)}
+            "proj": dense(d, d), "LayerNorm_1": norm()}
+        if moe:
+            block["moe"] = {"router": dense(d, e),
+                            "w_in": normal((e, d, r * d), d ** -0.5),
+                            "w_out": normal((e, r * d, d), (r * d) ** -0.5)}
+        else:
+            block["mlp_up"] = dense(d, r * d)
+            block["mlp_down"] = dense(r * d, d)
     params["final_norm_w"] = norm()
     params["lm_head"] = dense(d, v)
     return {"params": params}
@@ -396,7 +497,11 @@ class Conv(nn.Module):
                                      *self.kernel))
         dt = self.compute_dtype
         x, padding = pad_same(x, self.kernel, self.strides)
-        w = self.weight.to(dt, memory_format=torch.channels_last)
+        # a member's weight under torch.func.vmap (the population sweep)
+        # has no memory format of its own to ask for
+        wrapped = torch._C._functorch.is_functorch_wrapped_tensor(self.weight)
+        w = (self.weight.to(dt) if wrapped else
+             self.weight.to(dt, memory_format=torch.channels_last))
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), w, b, self.strides, padding)
 
@@ -426,6 +531,21 @@ class Int8Conv(nn.Module):
                                 self.strides, padding, self.compute_dtype)
 
 
+_STATS_SINK: list = []
+
+
+@contextlib.contextmanager
+def functional_batch_stats():
+    """Within the block a training BatchNorm leaves its buffers alone and
+    puts its moved (mean, var) into the yielded dict, keyed by module."""
+    sink: dict = {}
+    _STATS_SINK.append(sink)
+    try:
+        yield sink
+    finally:
+        _STATS_SINK.pop()
+
+
 class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(use_running_average=not train, dtype=dtype)`:
     `scale` and `bias` (flax params) and `mean` and `var` (flax
@@ -442,7 +562,10 @@ class BatchNorm(nn.Module):
     is (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast to the
     compute dtype, and the buffers move in place to 0.99 * buffer + (1 -
     0.99) * batch statistic, the variance biased as flax keeps it
-    (`F.batch_norm(training=True)` would update with the unbiased one)."""
+    (`F.batch_norm(training=True)` would update with the unbiased one).
+    Inside `functional_batch_stats()` the buffers stay as they are and
+    the new statistics go to the block's dict instead (a functional form,
+    for `torch.func.vmap`, under which the in-place update cannot run)."""
 
     def __init__(self, features: int, dtype=torch.bfloat16,
                  zero_scale: bool = False, device=None):
@@ -467,9 +590,15 @@ class BatchNorm(nn.Module):
         dims = (0, 1, 2)
         mean = xf.mean(dims)
         var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        sink = _STATS_SINK[-1] if _STATS_SINK else None
         with torch.no_grad():
-            for buf, stat in ((self.mean, mean), (self.var, var)):
-                buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat)
+            moved = [BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat
+                     for buf, stat in ((self.mean, mean), (self.var, var))]
+            if sink is not None:
+                sink[self] = moved
+            else:
+                self.mean.copy_(moved[0])
+                self.var.copy_(moved[1])
         mul = torch.rsqrt(var + BN_EPS) * self.scale
         y = (xf - mean) * mul + self.bias
         return y.to(self.compute_dtype).permute(0, 3, 1, 2)

@@ -65,6 +65,15 @@ the distribution is the same.
   * **beam search** — `make_beam_search_fn` / `beam_search`: one prefill
     a row, expanded to B*W cache rows, top-W of W*V each step, caches and
     history re-indexed to the surviving ancestors.
+  * **mixture-of-experts models** — a MoE block's MLP half is
+    `ops/moe.py` `moe_apply` over the serving copy of its experts
+    (`_mlp`).  Each call routes its B x S tokens as the module does, so a
+    decode step routes its whole batch, padding and finished rows
+    included, as one capacity group, exactly as the JAX engine does:
+    under capacity pressure a row's tokens depend on its co-batched rows,
+    and greedy tokens equal the recompute oracle's only in the drop-free
+    regime (moe_group_size=1).  Speculative decoding and the seq-sharded
+    path refuse MoE models, as in the JAX package.
 
 Not ported yet (it raises NotImplementedError): tensor-parallel decode (a
 mesh with model > 1).
@@ -100,6 +109,7 @@ from mmlspark_tpu_torch.ops.attention import (NEG_INF, merge_attention_stats,
 from mmlspark_tpu_torch.ops.decode_attention import (
     fused_single_query_attention, fused_single_query_attention_stats)
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
+from mmlspark_tpu_torch.ops.moe import moe_apply
 from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
                                               Mesh)
 from mmlspark_tpu_torch.parallel.partition import SEQ_KV_CACHE_SPEC
@@ -131,7 +141,10 @@ class ServingWeights:
     block math takes either.  The module's f32 Dense masters are not
     referenced, so serving holds the model-dtype copy alone.  An int8
     layer (`Int8Dense`, from an int8-quantized bundle) stays int8, one
-    byte a weight, with its f32 `scale` and an f32 bias."""
+    byte a weight, with its f32 `scale` and an f32 bias.  A MoE block's
+    `moe` holds its router in f32 (the JAX module routes in f32) and its
+    expert stacks cast to the model dtype once (`ops/moe.py`
+    `moe_apply`)."""
 
     def __init__(self, module):
         _check_generatable(module)
@@ -145,6 +158,20 @@ class ServingWeights:
             return SimpleNamespace(weight=linear.weight.detach().to(dtype),
                                    bias=linear.bias.detach().to(dtype))
 
+        def mlp(blk) -> dict:
+            if module.mlp_impl != "moe":
+                return dict(mlp_up=cast(blk.mlp_up),
+                            mlp_down=cast(blk.mlp_down))
+            moe = blk.moe
+            return dict(moe=SimpleNamespace(
+                router_weight=moe.router.weight.detach().float(),
+                router_bias=moe.router.bias.detach().float(),
+                w_in=moe.w_in.detach().to(dtype),
+                w_out=moe.w_out.detach().to(dtype),
+                router_k=moe.router_k, group_size=moe.group_size,
+                capacity_factor=moe.capacity_factor,
+                z_loss_weight=moe.z_loss_weight))
+
         self.dtype, self.n_heads = dtype, module.n_heads
         self.device = module.device
         self.mlp_impl = module.config["mlp_impl"]
@@ -155,15 +182,16 @@ class ServingWeights:
         self.lm_head = cast(module.lm_head)
         self.blocks = [SimpleNamespace(
             LayerNorm_0=blk.LayerNorm_0, LayerNorm_1=blk.LayerNorm_1,
-            qkv=cast(blk.qkv), proj=cast(blk.proj), mlp_up=cast(blk.mlp_up),
-            mlp_down=cast(blk.mlp_down)) for blk in module.blocks]
+            qkv=cast(blk.qkv), proj=cast(blk.proj), **mlp(blk))
+            for blk in module.blocks]
         self._copies: dict = {}
 
     def dense_layers(self) -> list:
-        """Every Dense layer's weights: each block's four, then the head."""
+        """Every Dense layer's weights: each block's (qkv, proj, and a
+        dense block's mlp_up and mlp_down), then the head."""
         return [getattr(blk, name) for blk in self.blocks
-                for name in ("qkv", "proj", "mlp_up", "mlp_down")] + [
-                    self.lm_head]
+                for name in ("qkv", "proj", "mlp_up", "mlp_down")
+                if hasattr(blk, name)] + [self.lm_head]
 
     def on(self, device) -> "ServingWeights":
         """These weights on `device`: this object where they already are,
@@ -174,10 +202,16 @@ class ServingWeights:
             return self
         if device not in self._copies:
             def move(layer):
+                # a module (embeddings, norms) by its leaves, a namespace
+                # (cast layers, a MoE block's pieces) by its attributes
+                items = ([(leaf, getattr(layer, leaf)) for leaf in
+                          ("weight", "scale", "bias") if hasattr(layer, leaf)]
+                         if isinstance(layer, torch.nn.Module)
+                         else vars(layer).items())
                 return SimpleNamespace(**{
-                    name: getattr(layer, name).detach().to(device)
-                    for name in ("weight", "scale", "bias")
-                    if hasattr(layer, name)})
+                    name: (value.detach().to(device)
+                           if isinstance(value, torch.Tensor) else value)
+                    for name, value in items})
             twin = copy.copy(self)
             twin.device, twin._copies = device, {}
             for name in ("tok_embed", "pos_embed", "final_norm_w",
@@ -212,6 +246,19 @@ def _dense(linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _mlp(block, h2: torch.Tensor, dtype) -> torch.Tensor:
+    """The block's MLP half over normalized activations h2 (B, S, D): the
+    dense GELU MLP, or a MoE block's experts (`ops/moe.py` `moe_apply`,
+    the JAX `_mlp`'s re-applied `MoEMLP`).  MoE routes the B x S tokens
+    of the call as the module does, so a decode step routes its whole
+    batch, padding and finished rows included, as one capacity group, as
+    the JAX engine does."""
+    moe = getattr(block, "moe", None)
+    if moe is not None:
+        return moe_apply(h2, moe.router_weight, moe.router_bias, moe.w_in,
+                         moe.w_out, router_k=moe.router_k,
+                         group_size=moe.group_size,
+                         capacity_factor=moe.capacity_factor,
+                         z_loss_weight=moe.z_loss_weight)[0]
     return _dense(block.mlp_down, F.gelu(_dense(block.mlp_up, h2, dtype),
                                          approximate="tanh"), dtype)
 
@@ -917,6 +964,12 @@ class DecodeEngine:
                 raise ValueError(
                     f"the draft's weights are on {draft_module.device}, "
                     f"the engine runs on {self.device}")
+            if "moe" in (module.mlp_impl, draft_module.mlp_impl):
+                raise ValueError(
+                    "speculative decoding does not support MoE models: "
+                    "the multi-token verify forward routes a different "
+                    "capacity group than step-by-step decode, so "
+                    "greedy-exactness cannot hold (see _mlp)")
         if cache_dtype not in ("model", "int8"):
             raise ValueError(
                 f"unknown cache_dtype '{cache_dtype}' (model | int8)")

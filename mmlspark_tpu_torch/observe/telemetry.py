@@ -114,6 +114,9 @@ class RunTelemetry:
         # the run's recovery timeline (train/supervisor.py): failures,
         # rollbacks, skip windows and budget decisions in order
         self._recovery: list[dict] = []
+        # the run's population-sweep timeline (train/sweep.py): start,
+        # rung culls, member finals and the winner in order
+        self._sweep: list[dict] = []
         # bounded-time cleanups run at finish() (e.g. stopping a metrics
         # server bound to this run) — never allowed to raise or hang the
         # run exit
@@ -256,6 +259,18 @@ class RunTelemetry:
         self.tracer._record({"type": "prefix",
                              "ts": round(self.tracer.now(), 6), **rec})
 
+    def record_sweep(self, event: dict) -> None:
+        """Append one population-sweep event (train/sweep.py: start, rung
+        cull, member final, winner) to the run's ordered timeline (also
+        streamed as a `sweep` record); the full list lands in
+        run_summary.json under `sweep`."""
+        if not self.live:
+            return
+        rec = dict(event)
+        self._sweep.append(rec)
+        self.tracer._record({"type": "sweep",
+                             "ts": round(self.tracer.now(), 6), **rec})
+
     # -- finalizers --------------------------------------------------------
     def record_recovery(self, event: dict) -> None:
         """Append one recovery-supervisor event to the run's timeline
@@ -324,9 +339,10 @@ class RunTelemetry:
             "prefix": [dict(e) for e in self._prefix],
             "handoff": [dict(e) for e in self._handoff],
             "recovery": [dict(e) for e in self._recovery],
-            # the timelines of modules not ported yet (data service,
-            # sweep): empty, so a summary keeps the JAX package's keys
-            **{key: [] for key in ("data_service", "sweep")},
+            "sweep": [dict(e) for e in self._sweep],
+            # the data service's timeline (not ported yet): empty, so a
+            # summary keeps the JAX package's keys
+            "data_service": [],
             "trace_records_dropped": self.tracer.dropped,
         }
 

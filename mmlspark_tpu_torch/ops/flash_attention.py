@@ -23,9 +23,10 @@ ragged last tile themselves, so there is no dense fallback.
 
 Entry points, each with its plain version beside it:
 
-  * `flash_attention` — differentiable; with grad, `_FlashAttention` (the
-    port of the `_flash` custom VJP) runs K1 with the LSE output forward
-    and K2 + K3 backward, delta computed between them as a torch op;
+  * `flash_attention` — differentiable; with grad, `flash_attention_op`
+    (the port of the `_flash` custom VJP, a torch operator) runs K1 with
+    the LSE output forward and K2 + K3 backward, delta computed between
+    them as a torch op;
   * `flash_attention_with_lse` — forward with lse and offsets;
   * `flash_block_grads` — (dq, dk, dv) of one K/V block against global
     lse/delta (the ring backward's building block), through K2 and K3.
@@ -311,26 +312,42 @@ def flash_block_grads(q, k, v, do, lse, delta, causal: bool, scale: float,
                                  q_offset, k_offset)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The port of the JAX `_flash` custom VJP: the forward saves
-    (q, k, v, out, lse); the backward computes delta = rowsum(dO * O) in
-    f32 and runs K2 and K3 (their plain version on CPU tensors)."""
+@torch.library.custom_op("mmlspark::flash_attention_lse", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable flash attention as one torch operator, the port
+    of the JAX `_flash` custom VJP: (out, lse) from K1 with its lse output
+    (the plain version on CPU tensors); its backward computes delta =
+    rowsum(dO * O) in f32 and runs K2 and K3.  An operator, not an
+    autograd.Function, so that a selective-checkpoint policy sees the
+    kernel's launch and can keep its outputs (`remat_policy
+    "save_attention"`, models/definitions.py)."""
+    return flash_attention_with_lse(q, k, v, causal, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_with_lse(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        g = g.contiguous()
-        delta = (g.float() * out.float()).sum(-1)
-        dq, dk, dv = flash_block_grads(q, k, v, g, lse, delta, ctx.causal,
-                                       ctx.scale)
-        return dq, dk, dv, None, None
+@flash_attention_op.register_fake
+def _flash_attention_op_fake(q, k, v, causal, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _flash_attention_op_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_attention_op_backward(ctx, g, _g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    g = g.contiguous()
+    delta = (g.float() * out.float()).sum(-1)
+    dq, dk, dv = flash_block_grads(q, k, v, g, lse, delta, ctx.causal,
+                                   ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_attention_op.register_autograd(_flash_attention_op_backward,
+                                     setup_context=_flash_attention_op_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -338,11 +355,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention: q (B, Sq, H, D), k/v (B, Sk, H, D) -> (B, Sq, H, D)
     in q's dtype.  Differentiable: when grad is needed it goes through
-    `_FlashAttention` (K1 with lse, then K2 + K3 backward)."""
+    `flash_attention_op` (K1 with lse, then K2 + K3 backward)."""
     scale = _scale(q, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, scale)
+        return flash_attention_op(q, k, v, causal, scale)[0]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
     out, _ = _forward_kernel(q, k, v, causal, scale, False, 0, 0)

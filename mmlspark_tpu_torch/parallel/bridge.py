@@ -21,12 +21,15 @@ batches onto one device and fetches results back:
 
 On a CPU device there are no streams or pinned buffers: batches are host
 tensors and `take` reads the output directly.
+
+`stack_trees` / `unstack_member` stack structurally identical trees on a
+leading population axis and slice one member back out (train/sweep.py).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +46,37 @@ def pad_to_multiple(arr: np.ndarray, multiple: int,
     widths = [(0, 0)] * arr.ndim
     widths[axis] = (0, multiple - rem)
     return np.pad(arr, widths), n
+
+
+def stack_trees(trees: Sequence[Any]) -> Any:
+    """Stack N structurally identical trees (dicts, lists, tuples) on a new
+    leading population axis: numpy leaves with `np.stack`, tensor leaves
+    with `torch.stack` (train/sweep.py: member trees become one tree
+    whose leaves carry shape (N, ...))."""
+    if not trees:
+        raise ValueError("stack_trees needs at least one tree")
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_trees([t[i] for t in trees])
+                           for i in range(len(first)))
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(trees))
+    return np.stack([np.asarray(leaf) for leaf in trees])
+
+
+def unstack_member(tree: Any, k: int) -> Any:
+    """Member `k` of a population-stacked tree as host numpy arrays of the
+    member's own shapes (the sweep winner's tree, ready for a
+    ModelBundle)."""
+    if isinstance(tree, dict):
+        return {key: unstack_member(v, k) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unstack_member(v, k) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree[k].detach().cpu().numpy().copy()
+    return np.asarray(tree)[k]
 
 
 class DeviceFeed:

@@ -12,10 +12,11 @@ operations differently):
     bias correction with the count incremented first);
   * adamw: `scale_by_adam` -> `add_decayed_weights` -> learning rate.
 
-The learning rate is a constant or an optax schedule (`cosine_decay_schedule`,
-`warmup_cosine_decay_schedule`) evaluated in f32 at the pre-increment
-count.  `Optimizer.update` applies the updates in place to the f32 master
-parameters; its moments are f32.
+The learning rate is a constant or an optax schedule (cosine decay, warmup
+then cosine decay) evaluated in f32 at the pre-increment count
+(`scheduled_rate`), over the config's rate or a tensor of per-member
+rates (the population sweep).  `Optimizer.update` applies the updates in
+place to the f32 master parameters; its moments are f32.
 
 The state crosses to and from optax's own state tree (the `opt_state` of
 a JAX Trainer checkpoint, in flax's state-dict form: every chain a dict
@@ -44,53 +45,32 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
-def cosine_decay_schedule(init_value: float, decay_steps: int,
-                          alpha: float = 0.0) -> Callable[[int], float]:
-    if not decay_steps > 0:
-        raise ValueError(f"cosine_decay_schedule requires positive "
-                         f"decay_steps, got {decay_steps}")
-
-    def schedule(count: int) -> float:
-        c = min(_F32(count), _F32(decay_steps))
-        cosine = _F32(0.5) * (_F32(1) + np.cos(_F32(math.pi) * c
-                                               / _F32(decay_steps)))
-        return float(_F32(init_value) * ((_F32(1) - _F32(alpha)) * cosine
-                                         + _F32(alpha)))
-    return schedule
+def _cosine_factor(count: int, decay_steps: int) -> np.float32:
+    """`cosine_decay_schedule`'s decayed factor at alpha 0, in f32."""
+    c = min(_F32(count), _F32(decay_steps))
+    return _F32(0.5) * (_F32(1) + np.cos(_F32(math.pi) * c
+                                         / _F32(decay_steps)))
 
 
-def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
-                                 warmup_steps: int, decay_steps: int,
-                                 end_value: float = 0.0
-                                 ) -> Callable[[int], float]:
-    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    cosine = cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
-                                   alpha)
-
-    def warmup(count: int) -> float:
-        if warmup_steps <= 0:        # optax's linear schedule is constant
-            return init_value
-        c = min(max(count, 0), warmup_steps)
-        frac = _F32(1) - _F32(c) / _F32(warmup_steps)
-        return float(_F32(init_value - peak_value) * frac + _F32(peak_value))
-
-    def schedule(count: int) -> float:
-        return warmup(count) if count < warmup_steps \
-            else cosine(count - warmup_steps)
-    return schedule
-
-
-def learning_rate_schedule(cfg, total_steps: int):
-    """The config's learning rate: a float, or a schedule of the count."""
-    base = cfg.learning_rate
+def scheduled_rate(cfg, total_steps: int, count: int, base):
+    """The config's learning rate at the pre-increment `count` over the
+    base rate `base`: an f32 numpy scalar (the config's rate), or a
+    tensor (the population sweep's per-member rates, one member's under
+    `torch.func.vmap`).  optax's f32 algebra: `constant` is the base,
+    `cosine` the base x the decayed factor, `warmup_cosine` (0 - base) x
+    (1 - count / warmup) + base during the warmup, then the cosine over
+    the remaining steps."""
     if cfg.lr_schedule == "constant":
         return base
     if cfg.lr_schedule == "cosine":
-        return cosine_decay_schedule(base, max(total_steps, 1))
+        return base * _cosine_factor(count, max(total_steps, 1))
     if cfg.lr_schedule == "warmup_cosine":
-        return warmup_cosine_decay_schedule(
-            0.0, base, cfg.warmup_steps,
-            max(total_steps, cfg.warmup_steps + 1))
+        warmup = cfg.warmup_steps
+        if count < warmup:
+            frac = _F32(1) - _F32(count) / _F32(warmup)
+            return (-base) * frac + base
+        return base * _cosine_factor(
+            count - warmup, max(total_steps, warmup + 1) - warmup)
     raise ValueError(f"unknown lr_schedule {cfg.lr_schedule}")
 
 
@@ -146,7 +126,8 @@ class Optimizer:
 
     def __init__(self, cfg, total_steps: int):
         self.kind = cfg.optimizer
-        self.lr = learning_rate_schedule(cfg, total_steps)
+        self.cfg, self.total_steps = cfg, total_steps
+        scheduled_rate(cfg, total_steps, 0, _F32(1))  # an unknown one raises
         self.momentum = cfg.momentum
         self.weight_decay = cfg.weight_decay
         self.clip: Optional[float] = cfg.gradient_clip_norm or None
@@ -156,7 +137,7 @@ class Optimizer:
                          for p in params]
         state: dict = {"count": 0, "layout": chain_layout(
             self.kind, bool(self.clip), bool(self.weight_decay),
-            callable(self.lr))}
+            self.cfg.lr_schedule != "constant")}
         if self.kind in ("adam", "adamw"):
             state["mu"], state["nu"] = zeros(), zeros()
         elif self.kind == "momentum":
@@ -165,16 +146,15 @@ class Optimizer:
 
     def step_size(self, count: int) -> float:
         """-learning rate at the pre-increment `count`."""
-        return -(self.lr(count) if callable(self.lr) else self.lr)
+        return -float(scheduled_rate(self.cfg, self.total_steps, count,
+                                     _F32(self.cfg.learning_rate)))
 
-    @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor], state: dict,
-               params: Sequence[torch.Tensor],
-               return_updates: bool = False) -> Optional[list]:
-        """One optax update, applied in place to `params`; with
-        `return_updates` also returns the applied updates (the numerics
-        probe's update-to-weight ratios)."""
-        params = list(params)
+    def updates(self, grads: Sequence[torch.Tensor], state: dict,
+                params: Sequence[torch.Tensor], lr=None) -> list:
+        """The chain's updates for `grads` (not applied; the count is not
+        advanced; the moment lists in `state` are replaced).  `lr` is a
+        tensor base rate in place of the config's (the population sweep's
+        per-member rate); the config's schedule still applies to it."""
         u = [g.float() for g in grads]
         if self.clip:
             u = clip_by_global_norm(u, self.clip)
@@ -187,11 +167,22 @@ class Optimizer:
                 u = add_decayed_weights(u, params, self.weight_decay)
         elif self.kind == "momentum":
             u = trace(u, state, self.momentum)
-        step = self.step_size(count)
-        applied = [x * step for x in u]
+        step = (self.step_size(count) if lr is None else
+                -scheduled_rate(self.cfg, self.total_steps, count, lr))
+        return [x * step for x in u]
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: dict,
+               params: Sequence[torch.Tensor],
+               return_updates: bool = False) -> Optional[list]:
+        """One optax update, applied in place to `params`; with
+        `return_updates` also returns the applied updates (the numerics
+        probe's update-to-weight ratios)."""
+        params = list(params)
+        applied = self.updates(grads, state, params)
         for p, x in zip(params, applied):
             p.add_(x)
-        state["count"] = count + 1
+        state["count"] += 1
         return applied if return_updates else None
 
 
@@ -253,7 +244,8 @@ def named_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
     `models/bundle.py::variables_to_jax`: `scale`/`bias` a LayerNorm or a
     BatchNorm's params, a rank-4 `weight` a Conv (OIHW -> `kernel` HWIO,
     bias optional), `weight` and `bias` a Dense (weight (out, in) ->
-    `kernel` (in, out)), `weight` alone an embedding.  Leaves: `to="numpy"`
+    `kernel` (in, out)), `weight` alone an embedding, anything else (a
+    MoE block's expert stacks) as it is.  Leaves: `to="numpy"`
     host copies; `"device"` fresh contiguous copies on the tensors' device
     (later in-place updates leave them alone); `"view"` the tensors
     themselves (shapes only: a restore's template)."""
@@ -266,6 +258,8 @@ def named_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
     for prefix, leaves in nodes.items():
         if "scale" in leaves:
             node = {"scale": leaves["scale"], "bias": leaves["bias"]}
+        elif "weight" not in leaves:
+            node = dict(leaves)
         elif leaves["weight"].dim() == 4:
             node = {"kernel": leaves["weight"].permute(2, 3, 1, 0)}
         elif "bias" in leaves:

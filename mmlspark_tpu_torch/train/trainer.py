@@ -26,6 +26,10 @@ the loss reads the logits node of the scorer's `(z, nodes)`.  With
 kernels K1-K3 (`ops/flash_attention.py`); convolutions, pools, BatchNorm
 and Dense layers are torch ops (cuDNN, cuBLAS).  A float32 model's step
 runs with TF32 off (`core.device.exact_f32`), as `TPUModel` scores it.
+A mixture-of-experts LM's sown losses (`moe_aux_loss`, `moe_z_loss`) join
+the objective weighted by `aux_loss_weight`, and its sown metrics fold
+into one history column each (`moe_overflow_fraction`, `fold_metrics`),
+as in the JAX Trainer.
 
 Staging, as in the JAX Trainer: a `Dataset` map stage (`data/dataset.py`)
 builds batch k+1 (the index gather, the mask, pinned host buffers and the
@@ -151,6 +155,31 @@ def make_loss(kind: str) -> Callable:
     return loss_fn
 
 
+def sown_leaves(tree: dict) -> list:
+    """The leaves of a sown collection in JAX's tree order (sorted keys)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for key in sorted(tree) for leaf in sown_leaves(tree[key])]
+
+
+def fold_metrics(tree: dict) -> dict:
+    """The JAX `_fold_metrics`: a sown "metrics" collection collapsed to
+    {metric name: the mean over every module that sowed it} (every MoE
+    layer's overflow fraction into one `moe_overflow_fraction`), 0-d f32
+    tensors, detached."""
+    grouped: dict = {}
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], key)
+        else:
+            grouped.setdefault(name, []).append(node.detach().float())
+
+    walk(tree, "metric")
+    return {k: torch.stack(v).mean() for k, v in grouped.items()}
+
+
 def epoch_order(rng, epoch: int, n: int, n_local: int,
                 shuffle: bool) -> np.ndarray:
     """The `n` row indices this epoch feeds (the JAX `_epoch_order`)."""
@@ -263,19 +292,28 @@ class Trainer:
                                       self._names)
         scoring = self._scoring
         f32 = module.dtype == torch.float32
+        aux_w = float(self.config.aux_loss_weight)
 
         def train_step(state: TrainState, x, y, mask, probe: bool = False):
             def loss_and_logits():
-                out = module(x)
-                logits = out[0] if scoring else out
-                return loss_fn(logits, y, mask), logits
+                if scoring:
+                    logits, sown = module(x)[0], {}
+                else:
+                    logits, sown = module(x, collect=True)
+                loss = loss_fn(logits, y, mask)
+                if aux_w:
+                    # model-sown auxiliary losses (the MoE load-balance and
+                    # z terms, ops/moe.py) join the objective
+                    loss = loss + aux_w * sum(
+                        sown_leaves(sown.get("losses", {})))
+                return loss, (logits, sown.get("metrics", {}))
 
             # a float32 model computes in f32 on the card: TF32 off
             with exact_f32() if f32 else contextlib.nullcontext():
-                loss, logits, grads, updates = backward_and_update(
+                loss, (logits, sown), grads, updates = backward_and_update(
                     tx, state.params, state.opt_state, loss_and_logits,
                     return_updates=probe)
-            metrics = {"grad_norm": global_norm(grads)}
+            metrics = {**fold_metrics(sown), "grad_norm": global_norm(grads)}
             state.step += 1
             if probe:
                 metrics["health"] = tree_health(
@@ -399,19 +437,26 @@ class Trainer:
                 with span_on(timings, "transfer"):
                     return epoch, step_c, [feed.put(h) for h in hosts]
 
-        losses, norms = [], []
+        losses, norms, sown = [], [], []
         cur_epoch: Optional[int] = None
 
         def finish_epoch():
             # one device->host fetch per epoch, never per step
             if cur_epoch is None or not losses:
                 return
-            fetched = torch.stack(losses + norms).cpu().numpy()
+            keys = list(sown[0]) if sown else []
+            fetched = torch.stack(losses + norms + [
+                m[key] for m in sown for key in keys]).cpu().numpy()
+            n = len(losses)
             rec = {"epoch": cur_epoch,
-                   "loss": float(np.sum(fetched[:len(losses)]))
-                   / max(len(losses), 1),
+                   "loss": float(np.sum(fetched[:n])) / max(n, 1),
                    "wall_s": monotonic() - t0,
-                   "grad_norm": float(np.mean(fetched[len(losses):]))}
+                   "grad_norm": float(np.mean(fetched[n:2 * n]))}
+            # model-sown diagnostics (the MoE overflow fraction) averaged
+            # over the epoch's steps, one history column each
+            per_step = fetched[2 * n:].reshape(n, len(keys))
+            for i, key in enumerate(keys):
+                rec[key] = float(np.mean(per_step[:, i]))
             self.history.append(rec)
             if cur_epoch % max(1, log_every) == 0 \
                     or cur_epoch == cfg.epochs - 1:
@@ -434,7 +479,7 @@ class Trainer:
                     if epoch != cur_epoch:
                         finish_epoch()
                         cur_epoch = epoch
-                        losses, norms = [], []
+                        losses, norms, sown = [], [], []
                     if batch is None:
                         # a skip window: the step number advances, no
                         # data is staged and no update runs
@@ -485,7 +530,9 @@ class Trainer:
                     exec_count += 1
                     health = metrics.pop("health", None)
                     losses.append(loss)
-                    norms.append(metrics["grad_norm"])
+                    norms.append(metrics.pop("grad_norm"))
+                    if metrics:
+                        sown.append(metrics)
                     if probe_now and health is not None:
                         # may raise BEFORE the step-boundary checkpoint, so
                         # a poisoned state never rotates over the last

@@ -229,12 +229,24 @@ def test_train_regressor_and_serial_ranking_match_jax(jax_refs, tmp_path):
 
 
 def test_population_sweep_is_not_ported():
+    """The population sweep is ported (this test once pinned its
+    refusal): `populationSize=3` trains three MLP members at log-spaced
+    rates around stepSize in one vmapped population, `sweep_metrics`
+    holds a row a member, and the kept model scores as the best-accuracy
+    member."""
     (train, _), _ = census_split()
     mlp = PM.MultilayerPerceptronClassifier(layers=[-1, 4, -1], maxIter=1,
                                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        PM.TrainClassifier(mlp, labelCol="income",
-                           populationSize=3).fit(train)
+    model = PM.TrainClassifier(mlp, labelCol="income",
+                               populationSize=3).fit(train)
+    sm = model.sweep_metrics
+    assert sm.num_rows == 3
+    np.testing.assert_allclose(sm["learning_rate"],
+                               np.geomspace(5e-4, 5e-2, 3))
+    assert (np.asarray(sm["active"]) == 1.0).all()
+    acc = float(PM.ComputeModelStatistics().evaluate(
+        model.transform(train)).metrics["accuracy"][0])
+    assert acc == pytest.approx(max(sm["accuracy"]), abs=1e-12)
 
 
 # -- the committed metrics ---------------------------------------------

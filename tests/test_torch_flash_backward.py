@@ -156,7 +156,7 @@ def _torch_grads(q, k, v, g, causal, dtype):
 
 @pytest.mark.parametrize("causal,sq,sk,dtype", AUTOGRAD_CASES)
 def test_autograd_matches_jax_flash_grads(jax_refs, causal, sq, sk, dtype):
-    """Gradients through the port's `_FlashAttention` equal `jax.grad`
+    """Gradients through the port's `flash_attention_op` equal `jax.grad`
     through the Pallas backward (dQ, dK/dV kernels in interpret mode)."""
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     ref = jax_refs["autograd", causal, sq, sk, dtype]

@@ -260,10 +260,14 @@ def test_mlp_estimator_builds_the_jax_trainer_config():
     for field in ("architecture", "model_config", "optimizer",
                   "learning_rate", "epochs", "batch_size", "loss", "seed"):
         assert getattr(pcfg, field) == getattr(jcfg, field), field
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        P.MultilayerPerceptronClassifier(
-            device="cpu", **est_args).fit_population(DataTable(table),
-                                                     [0.1, 0.01])
+    model, report = P.MultilayerPerceptronClassifier(
+        device="cpu", **est_args).fit_population(DataTable(table),
+                                                 [0.1, 0.01])
+    assert report.num_rows == 2
+    assert list(report["learning_rate"]) == [0.1, 0.01]
+    best = int(np.argmax(report["accuracy"]))
+    assert model._bundle.metadata["sweep"] == {
+        "member": best, "population": 2, "learning_rate": [0.1, 0.01][best]}
 
 
 def test_models_load_and_score_across_packages(ref, tmp_path):

@@ -35,8 +35,10 @@ from mmlspark_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain, flash_attention_with_lse,
     flash_attention_with_lse_plain, flash_block_grads_plain, flash_bwd_dkv,
     flash_bwd_dq)
+from mmlspark_tpu_torch.ops.moe import MoEMLP
 from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from mmlspark_tpu_torch.quant.quantize import quantize_kv
+from mmlspark_tpu_torch.train import PopulationTrainer
 from mmlspark_tpu_torch.vision import (ImageFeaturizer, ImageTransformer,
                                        UnrollImage)
 
@@ -108,7 +110,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: Trainer(TrainerConfig(
                      architecture="ResNet", model_config={
                          "stage_sizes": [1], "widths": [8]})),
-                 lambda: TPULearner(TrainerConfig())):
+                 lambda: TPULearner(TrainerConfig()),
+                 lambda: PopulationTrainer(TrainerConfig(), 2),
+                 lambda: MoEMLP(8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     # an explicit host device is honoured

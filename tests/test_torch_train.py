@@ -132,11 +132,11 @@ def test_flash_and_dense_attention_give_the_same_gradients():
 
 
 def test_unported_trainer_options_raise():
-    """What the port's Trainer still refuses (pipeline stages, meshes, the
-    save_attention remat policy) raises NotImplementedError naming its
-    ROADMAP item; the options it runs since (the scoring architectures,
-    the watchdog, the numerics halts, checkpoints, resume, skip windows)
-    construct and fit."""
+    """What the port's Trainer still refuses (pipeline stages, meshes)
+    raises NotImplementedError naming its ROADMAP item; the options it
+    runs since (the scoring architectures, the watchdog, the numerics
+    halts, checkpoints, resume, skip windows, the save_attention remat
+    policy) construct and fit."""
     for kw in ({"pipeline_stages": 2}, {"mesh": {"data": 2}}):
         cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)), **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -159,7 +159,12 @@ def test_unported_trainer_options_raise():
                       device="cpu")
     bundle = trainer.fit_arrays(x, y, skip_data_windows=[(0, 1)])
     assert bundle.metadata["steps"] == 6
-    with pytest.raises(NotImplementedError, match="save_attention"):
+    saved = Trainer(TrainerConfig(model_config={
+        **LM, "remat": True, "remat_policy": "save_attention"}, **FIT),
+        device="cpu").fit_arrays(x, y)
+    assert saved.metadata["steps"] == 6
+    assert saved.config["remat_policy"] == "save_attention"
+    with pytest.raises(ValueError, match="remat_policy"):
         ModelBundle("TransformerLM", {**LM, "remat": True,
-                                      "remat_policy": "save_attention"},
+                                      "remat_policy": "offload"},
                     {}).module("cpu")
