@@ -290,6 +290,27 @@ Phases (any failure exits non-zero before the result line):
      accuracy), and the same sweep with 2 halving rungs: every culled
      member's stacked tensors byte-unchanged from its rung to the end
 
+ 26. the measurement layer (observe/costmodel.py, utils/perf.py, the
+     profiler, the report and history CLIs), all under one
+     `run_telemetry`, its depth cut to `MEASURE`: (a) `Trainer.fit_arrays`
+     at phase 7's shape, 2 steps: the `trainer:` row's counted FLOPs
+     less the kernels' within 1% of `lm_train_flops(...)["xla_visible"]`,
+     its `kernel_flops` the kernel formulas over the K1[lse] / K2 / K3
+     launches of the counted step, MFU on the span-wall basis; (b)
+     resnet50() bf16, one batch of 256 at 224 x 224 through
+     `TPUModel.transform`: the `tpu_model:` row has a probe time and its
+     FLOPs per row within 2% of `flops_per_row` and of `forward_flops`;
+     (c) 4 of the phase-6 prompts (buckets 32, 128, 1024, 1984) through
+     `TextGenerator`, twice: `decode:` rows for every prefill and segment
+     class, `kernel_flops` the K1 / K4 formulas over their launches, the
+     warm pass timed on the card; (d) `profile` around one train step:
+     the Chrome trace parses and holds `flash_fwd`, `flash_bwd` kernels
+     and the `annotate` span; (e) `python -m
+     mmlspark_tpu_torch.observe.report` over the run directory prints a
+     roofline verdict for (a) and (b), and `observe.history ingest` then
+     `check --strict` over the phase's own bench records says `new` then
+     `ok`
+
 Each phase's seconds print on a line of their own (`phase seconds N`) and
 as one `{"phase_seconds": ...}` line; the whole run stays under 1000 s.
 
@@ -7650,6 +7671,322 @@ def phase_moe_and_sweep(dev, card) -> dict:
     return out
 
 
+# -- phase 26: the measurement layer ------------------------------------------
+
+R50_CONFIG = {"stage_sizes": [3, 4, 6, 3], "widths": [64, 128, 256, 512],
+              "num_classes": 1000, "block_kind": "bottleneck",
+              "dtype": "float32"}
+# (a) 2 steps of phase 7's shape (1 counted, 1 timed), (b) one batch of
+# 256 at 224^2, (c) phase 6's prompts of 4 buckets (32, 128 and the two
+# that run K1, 1024 and 1984): the phase's depth, cut to fit the run
+MEASURE = {"train_rows": TRAIN_BATCH, "batch": 256, "side": 224,
+           "prompts": (20, 70, 600, 1500)}
+
+
+def measured_rows(rows: dict, card: str) -> None:
+    """Print each roofline row of a run with the card line."""
+    for key, r in sorted(rows.items()):
+        print(f"  {key}: {r['flops']:.6e} FLOPs (kernels "
+              f"{r.get('kernel_flops') or 0:.6e}), {r['bytes_accessed']:.6e} "
+              f"bytes, {r['executions']} timed execution(s), step "
+              f"{r['step_s']} s ({r['step_basis']}), MFU {r['mfu']}, HBM bw "
+              f"{r['hbm_bw_util']}, AI {r['arithmetic_intensity']}, "
+              f"verdict {r['verdict']}; kernels {r.get('kernel_launches')} "
+              f"[{card}]")
+
+
+def run_clis_at_once(*commands) -> list:
+    """Each `python -m <args>` of `commands` from the repo root, all at
+    once; their standard outputs, in order.  A nonzero exit fails the
+    run."""
+    import os
+    procs = [subprocess.Popen([sys.executable, "-m", *args],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+             for args in commands]
+    outs = []
+    for args, proc in zip(commands, procs):
+        out, err = proc.communicate(timeout=300)
+        require(proc.returncode == 0, f"python -m {' '.join(args)} exited "
+                                      f"{proc.returncode}: {err[-2000:]}")
+        outs.append(out)
+    return outs
+
+
+def measure_training(dev, card) -> tuple:
+    """(a): the 4-step fit at phase 7's shape; returns the trainer (its
+    last state drives (d)), the launches and the seconds."""
+    from mmlspark_tpu_torch import Trainer
+    rows = char_corpus(MEASURE["train_rows"], TRAIN_SEQ,
+                       LM_CONFIG["vocab_size"])
+    trainer = Trainer(train_config({**LM_CONFIG, "attn_impl": "flash"}),
+                      device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit_arrays(rows[:, :-1], rows[:, 1:])
+    torch.cuda.synchronize()
+    return trainer, read_counts(), time.perf_counter() - t0
+
+
+def check_train_row(row: dict, launched: dict, card: str) -> dict:
+    from mmlspark_tpu_torch.utils.perf import lm_train_flops
+    n_layers = LM_CONFIG["n_layers"]
+    ref = lm_train_flops(TRAIN_BATCH, TRAIN_SEQ, LM_CONFIG["d_model"],
+                         n_layers, LM_CONFIG["vocab_size"])
+    dense = row["flops"] - row["kernel_flops"]
+    # the kernel table's formulas: 2·B·H·D a visible pair per product,
+    # two products in K1, three in K2, four in K3
+    pair = 2 * TRAIN_BATCH * LM_CONFIG["d_model"] * visible_pairs(
+        TRAIN_SEQ, TRAIN_SEQ, True)
+    per_launch = {"K1[lse]": 2 * pair, "K2": 3 * pair, "K3": 4 * pair}
+    want = sum(per_launch[k] * n for k, n in
+               row["kernel_launches"].items())
+    steps = MEASURE["train_rows"] // TRAIN_BATCH * 2
+    print(f"(a) train step {TRAIN_BATCH}x{TRAIN_SEQ}: counted dense "
+          f"{dense:.6e} FLOPs against lm_train_flops xla_visible "
+          f"{ref['xla_visible']:.6e} ({dense / ref['xla_visible']:.6f}); "
+          f"kernels {row['kernel_flops']:.6e} against the formulas "
+          f"{want:.6e} over {row['kernel_launches']}; the fit's wrapper "
+          f"launches {launched} over {steps} steps [{card}]")
+    require(abs(dense / ref["xla_visible"] - 1) <= 0.01,
+            "the train step's counted dense FLOPs miss lm_train_flops")
+    require(row["kernel_launches"] == {"K1[lse]": n_layers, "K2": n_layers,
+                                       "K3": n_layers},
+            f"the counted step's kernels: {row['kernel_launches']}")
+    require(row["kernel_flops"] == want, "kernel_flops is not the formulas'")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == n_layers * steps,
+                f"{name} launched {launched[name]} times in the fit")
+    require(row["step_basis"] == "span_wall" and row["executions"] ==
+            steps - 1 and row["mfu"] and row["verdict"],
+            "the trainer row's MFU is not on the span-wall basis")
+    return {"dense_flops": dense, "xla_visible": ref["xla_visible"],
+            "kernel_flops": row["kernel_flops"], "mfu": row["mfu"],
+            "step_s": row["step_s"], "verdict": row["verdict"],
+            "analytic_mfu": ref["total"] / row["step_s"] / PEAK_BF16_FLOPS}
+
+
+def measure_scoring(dev, card) -> tuple:
+    """(b): one batch of 256 through resnet50() at bf16; returns the stage
+    and the rows scored."""
+    from mmlspark_tpu_torch import DataTable, TPUModel
+    from mmlspark_tpu_torch.models import ModelBundle
+    n, side = MEASURE["batch"], MEASURE["side"]
+    bundle = ModelBundle.init("ResNet", R50_CONFIG, seed=0,
+                              input_shape=(1, side, side, 3))
+    images = np.random.default_rng(5).integers(0, 256, (n, side, side, 3),
+                                               dtype=np.uint8)
+    model = TPUModel(bundle, device=dev, inputCol="x", outputCol="y",
+                     miniBatchSize=n, computeDtype="bfloat16")
+    out = np.asarray(model.transform(DataTable({"x": images}))["y"])
+    require(out.shape == (n, R50_CONFIG["num_classes"])
+            and np.isfinite(out).all(), "resnet50 scores")
+    return model, images
+
+
+def check_scoring_row(row: dict, model, images, card: str) -> dict:
+    from mmlspark_tpu_torch.utils.perf import forward_flops
+    n = len(images)
+    per_row = row["flops"] / n
+    hooked = flops_per_row(model, images[0])
+    counted = forward_flops(model.bundle, images.shape, np.uint8)
+    print(f"(b) resnet50 bf16 batch {n}: counted {per_row:.6e} FLOPs/row, "
+          f"flops_per_row {hooked:.6e} ({per_row / hooked:.6f}), "
+          f"forward_flops {counted / n:.6e}; probe step {row['step_s']} s, "
+          f"MFU {row['mfu']}, verdict {row['verdict']} [{card}]")
+    require(row["step_basis"] == "probe" and row["step_s"] > 0,
+            "the tpu_model row has no probe time")
+    require(abs(per_row / hooked - 1) <= 0.02 and
+            abs(counted / row["flops"] - 1) <= 0.02,
+            "ResNet-50's counted FLOPs miss flops_per_row / forward_flops")
+    return {"flops_per_row": per_row, "hooked_flops_per_row": hooked,
+            "probe_s": row["step_s"], "mfu": row["mfu"],
+            "verdict": row["verdict"],
+            "images_per_sec": n / row["step_s"]}
+
+
+def measure_decode(dev, card) -> tuple:
+    """(c): the phase-6 prompts through `TextGenerator`, a counted pass
+    then a warm one; returns each pass's wrapper launches."""
+    from mmlspark_tpu_torch import DataTable, ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.core.table import object_column
+    bundle = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
+    rng = np.random.default_rng(1)
+    rows = [rng.integers(0, LM_CONFIG["vocab_size"], n).astype(np.int32)
+            for n in MEASURE["prompts"]]
+    stage = TextGenerator(bundle, device=dev, inputCol="prompt",
+                          maxNewTokens=MAX_NEW)
+    launches = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counts()
+        stage.transform(DataTable({"prompt": object_column(rows)}))
+        torch.cuda.synchronize()
+        launches.append(read_counts())
+    return launches
+
+
+def check_decode_rows(rows: dict, launches: list, card: str) -> dict:
+    n_layers, d = LM_CONFIG["n_layers"], LM_CONFIG["d_model"]
+    h = LM_CONFIG["n_heads"]
+    prefills = {k: r for k, r in rows.items()
+                if k.startswith("decode:('prefill'")}
+    segments = {k: r for k, r in rows.items()
+                if k.startswith("decode:('segment'")}
+    require(prefills and segments, f"decode rows: {sorted(rows)}")
+    k1 = k4 = 0
+    for key, r in prefills.items():
+        b, p = (int(x) for x in key[:-1].split(", ")[1:])
+        got = r["kernel_launches"].get("K1", 0)
+        k1 += got
+        pairs = p * (p + 1) // 2
+        require(got in (0, n_layers) and r["kernel_flops"] ==
+                got * 4 * b * h * (d // h) * pairs,
+                f"{key}: K1 {got} launches, kernel_flops "
+                f"{r['kernel_flops']}")
+    for key, r in segments.items():
+        b, _, window, seg_len = (int(x) for x in
+                                 key[:-1].split(", ")[1:])
+        got = r["kernel_launches"].get("K4", 0)
+        k4 += got
+        require(got == seg_len * n_layers and r["kernel_flops"] ==
+                got * 4 * b * window * d,
+                f"{key}: K4 {got} launches, kernel_flops "
+                f"{r['kernel_flops']}")
+    print(f"(c) decode: {len(prefills)} prefill and {len(segments)} segment "
+          f"classes; counted K1 {k1}, K4 {k4}; wrapper launches of the "
+          f"counted pass {launches[0]} [{card}]")
+    # a class counted once covers every later execution of it, so the
+    # rows hold at most the counted pass's launches
+    require(0 < k1 <= launches[0]["flash_attention"] and
+            0 < k4 <= launches[0]["fused_single_query_attention"],
+            "the decode rows' kernels are not the pass's launches")
+    require(all(r["executions"] >= 1 and r["step_basis"] == "device"
+                for r in segments.values()),
+            "the warm pass timed no segment on the card")
+    return {"prefill_classes": len(prefills),
+            "segment_classes": len(segments), "k1": k1, "k4": k4}
+
+
+def profile_train_step(trainer, dev, card) -> dict:
+    """(d): one train step under `profile`; the Chrome trace parsed."""
+    import os
+    import tempfile
+    from mmlspark_tpu_torch import profile
+    from mmlspark_tpu_torch.observe import annotate
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, LM_CONFIG["vocab_size"])
+    xb = torch.from_numpy(rows[:, :-1].astype(np.int64)).to(dev)
+    yb = torch.from_numpy(rows[:, 1:].astype(np.int64)).to(dev)
+    mb = torch.ones(TRAIN_BATCH, device=dev)
+    step, state = trainer.make_train_step(), trainer._last_state
+    torch.cuda.synchronize()
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        with profile(trace_dir) as path:
+            with annotate("chip_smoke.train_step"):
+                step(state, xb, yb, mb)
+            torch.cuda.synchronize()
+        size = os.path.getsize(path)
+        with open(path) as f:
+            names = [str(e.get("name")) for e in json.load(f)["traceEvents"]]
+    finally:
+        import shutil
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    found = {key: sum(key in n for n in names)
+             for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "chip_smoke.train_step")}
+    print(f"(d) profile of one train step: {size} bytes of Chrome trace, "
+          f"{len(names)} events; {found} [{card}]")
+    require(all(found.values()), f"the trace lacks {found}")
+    return {"trace_bytes": size, "events": len(names), "found": found}
+
+
+def run_clis(run_dir: str, work: str, train: dict, scoring: dict,
+             card: str) -> dict:
+    """(e): the report over the run directory, then history ingest and
+    check --strict over the phase's own bench records (in `work`)."""
+    import os
+    bench = os.path.join(work, "bench.jsonl")
+    with open(bench, "w") as f:
+        f.write(json.dumps({"metric": "lm_train_step_8x2048_bf16",
+                            "mfu": train["mfu"],
+                            "step_ms": train["step_s"] * 1e3}) + "\n")
+        f.write(json.dumps({"metric": "resnet50_score_256_bf16",
+                            "mfu": scoring["mfu"],
+                            "images_per_sec": scoring["images_per_sec"]})
+                + "\n")
+    store = os.path.join(work, "history.jsonl")
+    history = ("mmlspark_tpu_torch.observe.history", bench, "--store",
+               store, "--strict", "--format", "json")
+    text, ingested = run_clis_at_once(
+        ("mmlspark_tpu_torch.observe.report", run_dir),
+        (history[0], "ingest") + history[1:])
+    (checked,) = run_clis_at_once((history[0], "check") + history[1:])
+    section = text[text.index("-- roofline"):].split("\n\n")[0]
+    print(section)
+    verdicts = {}
+    for key in ("trainer:", "tpu_model:"):
+        block = section[section.index(f"  {key}"):]
+        line = next(x for x in block.splitlines() if "verdict:" in x)
+        verdicts[key[:-1]] = line.split("verdict: ")[1]
+    require(all(v in ("compute-bound", "bandwidth-bound", "host-bound")
+                for v in verdicts.values()),
+            f"report verdicts {verdicts}")
+    said = [sorted({r["verdict"] for r in json.loads(out[out.index("["):])})
+            for out in (ingested, checked)]
+    print(f"(e) report verdicts {verdicts}; history ingest {said[0]}, check "
+          f"--strict {said[1]} [{card}]")
+    require(said == [["new"], ["ok"]], f"history verdicts {said}")
+    return {"verdicts": verdicts, "history": said}
+
+
+def phase_measurement(dev, card) -> dict:
+    """Phase 26 (module docstring): (a)-(c) under one `run_telemetry`,
+    then (d) and (e)."""
+    import shutil
+    import tempfile
+    from mmlspark_tpu_torch import run_telemetry
+    from mmlspark_tpu_torch.utils.perf import (device_peak_flops,
+                                               device_peak_hbm_bw)
+    peaks = (device_peak_flops(), device_peak_hbm_bw())
+    print(f"device peaks {peaks} [{card}]")
+    require(peaks == (PEAK_BF16_FLOPS, PEAK_BYTES),
+            "utils.perf peaks are not the bounds' peaks")
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_measure_")
+    work = tempfile.mkdtemp(prefix="chip_smoke_history_")
+    try:
+        with run_telemetry(run_dir) as rt:
+            trainer, launched, fit_s = measure_training(dev, card)
+            model, images = measure_scoring(dev, card)
+            decode_launches = measure_decode(dev, card)
+        rows = rt.summary()["programs"]
+        measured_rows(rows, card)
+        train_key = f"trainer:({TRAIN_BATCH}, {TRAIN_SEQ}):int32"
+        n, side = MEASURE["batch"], MEASURE["side"]
+        score_key = f"tpu_model:({n}, {side}, {side}, 3):uint8"
+        require(train_key in rows and score_key in rows,
+                f"program rows {sorted(rows)}")
+        for row in rows.values():
+            require(row["flops"] and row["bytes_accessed"] and
+                    row["kernel_flops"] is not None,
+                    f"{row['where']}:{row['program']} lacks its costs")
+        train = check_train_row(rows[train_key], launched, card)
+        train["fit_s"] = fit_s
+        scoring = check_scoring_row(rows[score_key], model, images, card)
+        decode = check_decode_rows(
+            {k: r for k, r in rows.items() if k.startswith("decode:")},
+            decode_launches, card)
+        profiled = profile_train_step(trainer, dev, card)
+        clis = run_clis(run_dir, work, train, scoring, card)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    return {"train": train, "scoring": scoring, "decode": decode,
+            "profile": profiled, "clis": clis}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7738,6 +8075,8 @@ def main() -> int:
     print(json.dumps({"automl": automl, "card": card}))
     moe = phase(25, phase_moe_and_sweep)
     print(json.dumps({"moe_and_sweep": moe, "card": card}))
+    measurement = phase(26, phase_measurement)
+    print(json.dumps({"measurement": measurement, "card": card}))
     total = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
                                         seconds.items()},

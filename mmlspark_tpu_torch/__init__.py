@@ -88,8 +88,10 @@ Layer map:
   serve/   - the continuous-batching ServingEngine, admission, requests,
              the prefix pool, replicas and the router, the HTTP front end
              and the lifecycle (threads, SIGTERM drain)
-  observe/ - logger, counters, spans, traces, run telemetry, SLOs,
-             waterfalls, Prometheus text, numerics probes
+  observe/ - logger, counters, spans, stage timers, traces, run
+             telemetry, SLOs, waterfalls, Prometheus text, numerics
+             probes, the profiler, per-program cost counting and
+             roofline rows, the run report and bench history CLIs
   resilience/ - the injectable clock, circuit breakers, the retry
              policy and the one HTTP seam, the SIGTERM guard and step
              watchdog, the seeded chaos injector, checkpoint rotation
@@ -97,8 +99,8 @@ Layer map:
   native_loader.py, native/ - the host image decoder and the fused text
              hasher (C++, g++ at first use, two libraries)
   config.py - the MMLSPARK_TPU_* knob registry (the JAX package's names)
-  utils/   - analytic FLOP accounting, the demo datasets, the learner
-             grid
+  utils/   - FLOP accounting (analytic and counted), the card's peaks
+             and MFU, the demo datasets, the learner grid
   csrc/    - the CUDA sources
 """
 
@@ -111,5 +113,6 @@ from mmlspark_tpu_torch.models import (DecodeEngine, ModelBundle,
                                        TextGenerator, TPUModel, TransformerLM,
                                        build_model, load_bundle,
                                        naive_generate, save_bundle)
+from mmlspark_tpu_torch.observe import profile, run_telemetry, stage_timing
 from mmlspark_tpu_torch.train import TPULearner, Trainer, TrainerConfig
 from mmlspark_tpu_torch.zoo import ModelDownloader, pretrained_repo

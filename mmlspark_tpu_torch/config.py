@@ -116,6 +116,19 @@ TELEMETRY_DIR = register(
         "stream + run_summary.json land here when the block passes no "
         "dir. Unset + no explicit dir: in-memory ring only, no files.")
 
+COSTMODEL = register(
+    "MMLSPARK_TPU_COSTMODEL", default=None,
+    doc="Per-program cost counting kill switch: '0'/'off'/'false' skips "
+        "the cost counter over each program's first execution while the "
+        "rest of telemetry stays live (observe/costmodel.py).")
+
+BENCH_HISTORY = register(
+    "MMLSPARK_TPU_BENCH_HISTORY", default=None,
+    doc="Default bench-history store path for "
+        "`python -m mmlspark_tpu_torch.observe.history` (--store "
+        "overrides); unset: .bench_history.jsonl in the working "
+        "directory.")
+
 CKPT_KEEP = register(
     "MMLSPARK_TPU_CKPT_KEEP", 3,
     "checkpoint rotation: how many validated checkpoints to keep",

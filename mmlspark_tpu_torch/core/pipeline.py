@@ -77,6 +77,19 @@ class PipelineStage(Params):
         super().__init__(**kwargs)
         self.uid = _fresh_uid(type(self).__name__)
 
+    def __init_subclass__(cls, **kwargs):
+        # every stage's fit/transform is wrapped for the opt-in stage timer
+        # (observe/timing.py): one contextvar check when inactive.
+        # Wrapping at class creation covers stages defined outside the
+        # framework too.
+        super().__init_subclass__(**kwargs)
+        from mmlspark_tpu_torch.observe.timing import instrument_stage_method
+        for method in ("fit", "transform"):
+            fn = cls.__dict__.get(method)
+            if fn is not None and not getattr(
+                    fn, "__mmlspark_instrumented__", False):
+                setattr(cls, method, instrument_stage_method(method, fn))
+
     # the class path stage.json records when it is not the stage's own
     # (module docstring)
     saved_class: Optional[str] = None

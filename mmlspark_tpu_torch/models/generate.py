@@ -81,6 +81,7 @@ mesh with model > 1).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import io
@@ -100,6 +101,7 @@ from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
                                               save_bundle)
 from mmlspark_tpu_torch.models.definitions import Int8Dense, TransformerLM
+from mmlspark_tpu_torch.observe.costmodel import DeviceTimes, ProgramCosts
 from mmlspark_tpu_torch.observe.metrics import inc_counter
 from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import trace_event, trace_span
@@ -1027,6 +1029,10 @@ class DecodeEngine:
         self.last_spec_accepted = 0
         self.last_spec_acceptance = 0.0
         self._programs: set = set()
+        # `generate`'s prefill and segment cost rows (the JAX engine's
+        # program keys), counted over each class's first execution under
+        # a run and replayed into later runs
+        self._costs = ProgramCosts("decode")
 
     def bucket_for(self, prompt_len: int) -> int:
         return bucket_length(prompt_len, self.weights.max_len,
@@ -1556,22 +1562,31 @@ class DecodeEngine:
         check_exit = bool(self.stop_tokens)
         parts = [[] for _ in groups]
         segments_run = exit_checks_skipped = 0
+        # the JAX engine's programs: a whole-prompt prefill and each
+        # segment class, counted or timed on the card (observe/costmodel)
+        run = active_run()
+        timer = DeviceTimes(self.device) if run is not None else None
+        chunked = self.mesh is None and self._chunks_prefill(p)
         with torch.inference_mode():
             states = []
-            for rows, ring in groups:
-                dev = self.device if ring is None else ring[0]
-                tl = torch.as_tensor(tl_host[rows], dtype=torch.long,
-                                     device=dev)
-                args = (torch.as_tensor(prompts[rows], dtype=torch.long,
-                                        device=dev), tl,
-                        torch.as_tensor(live[rows], device=dev),
-                        row_seeds[rows])
-                # a meshed engine's ring prefill already splits the prompt
-                tok, done, caches = (
-                    self._run_chunked_prefill(*args)
-                    if ring is None and self._chunks_prefill(p)
-                    else self.prefill(*args, ring))
-                states.append([caches, tok, done, tl])
+            with (contextlib.nullcontext() if chunked else
+                  self._costs.execution(run, ("prefill", b, p),
+                                        timer=timer)):
+                for rows, ring in groups:
+                    dev = self.device if ring is None else ring[0]
+                    tl = torch.as_tensor(tl_host[rows], dtype=torch.long,
+                                         device=dev)
+                    args = (torch.as_tensor(prompts[rows], dtype=torch.long,
+                                            device=dev), tl,
+                            torch.as_tensor(live[rows], device=dev),
+                            row_seeds[rows])
+                    # a meshed engine's ring prefill already splits the
+                    # prompt
+                    tok, done, caches = (
+                        self._run_chunked_prefill(*args) if chunked
+                        else self.prefill(*args, ring))
+                    states.append([caches, tok, done, tl])
+            prev_w = _round_up(p + 1, self.chunk)
             for t0, seg_len, window in decode_segments(
                     p, self.max_new_tokens, self.chunk):
                 if check_exit and t0 + 1 < self.min_new_tokens:
@@ -1580,17 +1595,23 @@ class DecodeEngine:
                     exit_checks_skipped += 1
                 elif check_exit and all(bool(st[2].all()) for st in states):
                     break
-                for (rows, ring), st, out in zip(groups, states, parts):
-                    caches, tok, done, tl = st
-                    caches, toks, tok, done = self.decode_segment(
-                        seg_len, window, caches, tok, done, tl, p, t0,
-                        row_seeds[rows], ring)
-                    st[:3] = caches, tok, done
-                    out.append(toks)
+                with self._costs.execution(
+                        run, ("segment", b, prev_w, window, seg_len),
+                        timer=timer):
+                    for (rows, ring), st, out in zip(groups, states, parts):
+                        caches, tok, done, tl = st
+                        caches, toks, tok, done = self.decode_segment(
+                            seg_len, window, caches, tok, done, tl, p, t0,
+                            row_seeds[rows], ring)
+                        st[:3] = caches, tok, done
+                        out.append(toks)
+                prev_w = window
                 segments_run += 1
             generated = np.concatenate([
                 torch.cat(out + [st[1][:, None]], dim=1).cpu().numpy()
                 for out, st in zip(parts, states)])
+        if timer is not None:
+            timer.flush(run, "decode")
         self.last_segments_run = segments_run
         self.last_new_tokens_computed = generated.shape[1]
         self.last_exit_checks_skipped = exit_checks_skipped

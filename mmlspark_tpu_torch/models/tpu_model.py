@@ -42,10 +42,13 @@ on this path.
     a bf16 module without an override) comes out widened, exactly, to
     float32; the JAX stage returns it as bfloat16.
 
+Under `run_telemetry` each new batch shape class raises a `recompile`
+event and its first batch is counted for the run's roofline row
+(`observe/costmodel.py`), with one synced probe forward after it.
+
 Not ported, raising with its ROADMAP item: a mesh of several devices
-(`set_mesh`, the multi-host path; A10).  The port records no program-cost
-rows (`observe/costmodel.py`, A11).  A TransformerLM bundle is scored by
-`TextGenerator`, not here.
+(`set_mesh`, the multi-host path; A10).  A TransformerLM bundle is
+scored by `TextGenerator`, not here.
 """
 
 from __future__ import annotations
@@ -63,7 +66,9 @@ from mmlspark_tpu_torch.core.pipeline import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
                                               save_bundle)
+from mmlspark_tpu_torch.observe.costmodel import ProgramCosts
 from mmlspark_tpu_torch.observe.spans import active_timings, span_on
+from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import (active_tracer,
                                               current_span_id,
                                               span_on_tracer)
@@ -108,11 +113,18 @@ class TPUModel(Transformer):
         self._bundle = bundle
         self._modules: dict = {}   # compute dtype -> module on the device
         self._feed: Optional[DeviceFeed] = None
+        # batch shape classes scored under telemetry (a NEW one is a
+        # `recompile` event, as in the JAX package) and their cost rows
+        # (counted over the class's first batch, replayed into later runs)
+        self._seen_shapes: set = set()
+        self._costs = ProgramCosts("tpu_model")
 
     # -- model wiring ----------------------------------------------------
     def set_bundle(self, bundle: Optional[ModelBundle]) -> "TPUModel":
         self._bundle = bundle
         self._modules.clear()
+        self._seen_shapes.clear()
+        self._costs.clear()
         return self
 
     @property
@@ -130,6 +142,8 @@ class TPUModel(Transformer):
         self.device = resolve_device(devices[0])
         self._modules.clear()
         self._feed = None
+        self._seen_shapes.clear()
+        self._costs.clear()
         return self
 
     def _select_output(self, final, nodes: dict):
@@ -182,6 +196,24 @@ class TPUModel(Transformer):
                                            and out.is_floating_point()):
             out = out.float()
         return out
+
+    def _scored(self, module, x: torch.Tensor, key: str, run, tracer,
+                parent) -> torch.Tensor:
+        """`_apply` of one batch of shape class `key`; under a run, a new
+        class raises a `recompile` event and its first batch is counted
+        (observe/costmodel.py), with a synced probe forward after it for a
+        clean step time (the forward has no side effect); later batches
+        add their dispatch walls."""
+        if run is None:
+            return self._apply(module, x)
+        if key not in self._seen_shapes:
+            self._seen_shapes.add(key)
+            tracer.event("recompile", parent=parent, cat="compile",
+                         where="tpu_model", shape_class=key)
+        with self._costs.execution(run, key,
+                                   probe=lambda: self._apply(module, x),
+                                   device=self.device):
+            return self._apply(module, x)
 
     @staticmethod
     def _tensor_column(col: np.ndarray) -> np.ndarray:
@@ -255,7 +287,7 @@ class TPUModel(Transformer):
                 module, np.zeros(tuple(column.shape),
                                  str(column.dtype)[6:]))
         feed = self._get_feed()
-        timings, tracer = active_timings(), active_tracer()
+        timings, tracer, run = active_timings(), active_tracer(), active_run()
         window = resolve_depth(self.prefetchDepth)[0]
         in_flight: list = []
         parts: list = []
@@ -266,12 +298,16 @@ class TPUModel(Transformer):
                 if valid < bs:
                     chunk = torch.cat([chunk, chunk.new_zeros(
                         (bs - valid,) + tuple(chunk.shape[1:]))])
+            key = f"{tuple(chunk.shape)}:{str(chunk.dtype)[6:]}"
+            parent = current_span_id()
             with span_on_tracer(tracer, "score.batch",
-                                parent=current_span_id(), cat="batch",
-                                rows=valid, device_cached=True), \
+                                parent=parent, cat="batch",
+                                shape_class=key, rows=valid,
+                                device_cached=True), \
                     span_on(timings, "compute"):
-                in_flight.append((feed.fetch(self._apply(module, chunk)),
-                                  valid))
+                out = self._scored(module, chunk, key, run, tracer,
+                                   parent)
+                in_flight.append((feed.fetch(out), valid))
             while len(in_flight) > window:
                 handle, rows = in_flight.pop(0)
                 with span_on(timings, "drain"):
@@ -292,7 +328,7 @@ class TPUModel(Transformer):
         bs = self.miniBatchSize
         feed = self._get_feed()
         timings = active_timings()   # captured HERE: workers have no context
-        tracer = active_tracer()
+        tracer, run = active_tracer(), active_run()
         score_span = tracer.span(
             "score.transform_batches", parent=current_span_id(),
             cat="phase", batch_size=bs) if tracer is not None else None
@@ -365,7 +401,8 @@ class TPUModel(Transformer):
                                         parent=score_id, cat="batch",
                                         shape_class=key, rows=valid), \
                             span_on(timings, "compute"):
-                        out = self._apply(module, feed.ready(dev, event))
+                        out = self._scored(module, feed.ready(dev, event),
+                                           key, run, tracer, score_id)
                         handle = feed.fetch(out)
                     in_flight.append((handle, valid, rec))
                     drain(score_runner.depth)

@@ -1,6 +1,23 @@
-"""Observability (the port of the parts of `mmlspark_tpu/observe/` that
-serving and training need): the namespaced logger, process counters,
-pipeline spans, structured traces with Chrome-trace export, run telemetry
-with gauges and histograms, SLO burn rates, per-request waterfalls, the
-Prometheus exposition and the training numerics probes.  Run summaries
-carry the JAX package's keys."""
+"""Observability (the port of `mmlspark_tpu/observe/`): the namespaced
+logger, process counters, pipeline spans, stage timers, structured traces
+with Chrome-trace export, run telemetry with gauges and histograms, SLO
+burn rates, per-request waterfalls, the Prometheus exposition, the
+training numerics probes, device profiling, and the analytics that
+interpret them: per-program cost counting with roofline attribution
+(costmodel.py), the run-report diagnostic (report.py) and the persistent
+bench-history regression store (history.py).  Run summaries carry the
+JAX package's keys."""
+
+from mmlspark_tpu_torch.observe.costmodel import (CostCounter,
+                                                  costmodel_enabled,
+                                                  roofline)
+from mmlspark_tpu_torch.observe.profiler import annotate, profile
+from mmlspark_tpu_torch.observe.telemetry import (RunTelemetry, active_run,
+                                                  run_telemetry)
+from mmlspark_tpu_torch.observe.timing import (StageTimings,
+                                               instrument_stage_method,
+                                               stage_timing)
+
+__all__ = ["CostCounter", "costmodel_enabled", "roofline", "annotate",
+           "profile", "RunTelemetry", "active_run", "run_telemetry",
+           "StageTimings", "instrument_stage_method", "stage_timing"]

@@ -144,6 +144,43 @@ def prometheus_text(run: Optional[RunTelemetry] = None) -> str:
                 lines.append(f'{cnt}{{name="{name}"}} '
                              f"{_fmt(agg[name]['count'])}")
 
+        progs = run.program_summary()
+        if progs:
+            # the roofline gauges (observe/costmodel.py): one sample per
+            # program, labeled by call site + shape-class key, each metric
+            # name with its # HELP/# TYPE metadata once
+            fields = (
+                ("program_mfu", "mfu",
+                 "model-FLOPs utilization per program "
+                 "(achieved FLOP/s over the card bf16 peak)"),
+                ("program_hbm_bw_util", "hbm_bw_util",
+                 "HBM-bandwidth utilization per program "
+                 "(achieved bytes/s over the card HBM peak)"),
+                ("program_step_seconds", "step_s",
+                 "per-execution seconds of one program "
+                 "(span wall, device time or probe; see step_basis)"),
+                ("program_flops", "flops",
+                 "FLOPs per execution of one program "
+                 "(the cost counter, kernels included)"),
+                ("program_bytes_accessed", "bytes_accessed",
+                 "bytes accessed per execution of one program "
+                 "(the cost counter, kernels included)"),
+            )
+            for metric_base, field, help_text in fields:
+                samples = [(key, p[field]) for key, p in sorted(
+                    progs.items()) if p.get(field) is not None]
+                if not samples:
+                    continue
+                metric = _metric_name(metric_base)
+                lines.append(f"# HELP {metric} {help_text}")
+                lines.append(f"# TYPE {metric} gauge")
+                for key, value in samples:
+                    p = progs[key]
+                    lines.append(
+                        f'{metric}{{where="{_label_value(p["where"])}",'
+                        f'program="{_label_value(p["program"])}"}} '
+                        f"{_fmt(value)}")
+
         if run.timings.seconds:
             stage = _metric_name("stage_seconds", "_total")
             lines.append(f"# HELP {stage} thread-seconds per pipeline "

@@ -41,6 +41,7 @@ import contextlib
 import contextvars
 import json
 import os
+import threading
 import time
 from typing import Iterator, Optional
 
@@ -96,6 +97,13 @@ class RunTelemetry:
         # memory per family no matter how many samples, which is what lets
         # the serve hot path record TTFT/inter-token without a ring
         self._hists: dict[str, dict] = {}
+        # per-program cost/time tables (observe/costmodel.py): costs from
+        # the cost counter over each shape class's first execution, times
+        # accumulated by the hot loops at each later one, keyed (where,
+        # program) on both sides so the roofline join is by construction
+        self._program_costs: dict[tuple, dict] = {}
+        self._program_times: dict[tuple, dict] = {}
+        self._program_lock = threading.Lock()
         # the run's serving timeline (serve/engine.py): admission, shed,
         # degrade, drain decisions in order — the machine-readable account
         # the serving tests assert against
@@ -201,13 +209,45 @@ class RunTelemetry:
                     self.gauge(name, stats[stat], tag=tag)
         return out
 
+    # -- per-program cost/time (roofline attribution) ---------------------
+    def record_program_cost(self, where: str, program: str,
+                            rec: dict) -> None:
+        """One program's cost row (the hot loops' `ProgramCosts` write
+        here; first record wins — the program's cost never changes)."""
+        if not self.live:
+            return
+        with self._program_lock:
+            self._program_costs.setdefault((where, str(program)), dict(rec))
+
+    def add_program_time(self, where: str, program: str, seconds: float,
+                         basis: str = "dispatch") -> None:
+        """Accumulate one execution's seconds against a program.  `basis`
+        says what the seconds measure: 'step_wall' (the span bracketed a
+        synced execution — trainer steps), 'device' (CUDA events around
+        the program on its stream — decode) or 'dispatch' (the host's
+        dispatch only — scoring, whose roofline uses the probe)."""
+        if not self.live:
+            return
+        with self._program_lock:
+            t = self._program_times.setdefault(
+                (where, str(program)),
+                {"seconds": 0.0, "count": 0, "basis": basis})
+            t["seconds"] += seconds
+            t["count"] += 1
+
     def program_summary(self) -> dict:
-        """The per-program roofline table.  It joins compile-time program
-        costs (the JAX package's observe/costmodel.py) with execution
-        times; the port records no program costs yet (ROADMAP A11), so the
-        table is empty, as the JAX package's is when nothing was
-        recorded."""
-        return {}
+        """The per-program roofline table (costmodel.program_summary over
+        this run's cost/time tables + the card's peaks), each row with its
+        kernels' share beside it."""
+        from mmlspark_tpu_torch.observe.costmodel import (device_peaks,
+                                                          program_rows)
+        if not (self._program_costs or self._program_times):
+            return {}
+        peak_flops, peak_bw = device_peaks()
+        with self._program_lock:
+            costs = {k: dict(v) for k, v in self._program_costs.items()}
+            times = {k: dict(v) for k, v in self._program_times.items()}
+        return program_rows(costs, times, peak_flops, peak_bw)
 
     # -- serving timeline --------------------------------------------------
     def record_serve(self, event: dict) -> None:

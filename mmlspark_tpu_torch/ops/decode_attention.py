@@ -30,7 +30,8 @@ stream) so that launches that may overlap never share them.
 Both wrappers run their plain version for CPU tensors only; for CUDA
 tensors they launch the kernel or raise.  Each counts its own launches
 (`fused_single_query_attention.launches`,
-`fused_single_query_attention_stats.launches`).
+`fused_single_query_attention_stats.launches`) and, under an active cost
+counter (observe/costmodel.py), reports its work (`k4_cost`).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from mmlspark_tpu_torch.observe import costmodel
 from mmlspark_tpu_torch.ops import native
 from mmlspark_tpu_torch.ops.attention import single_query_attention_stats
 
@@ -159,6 +161,26 @@ def fused_single_query_attention_stats_plain(
                                         k_scale, v_scale)
 
 
+def k4_cost(q, k_cache, v_cache, visible, k_scale=None, v_scale=None,
+            stats: bool = False) -> tuple:
+    """(FLOPs, bytes) of one K4 / K4[stats] call, from the shapes: q·K
+    and P·V over every slot of the window (4·H·D a slot: which slots the
+    mask shows is data, and reading it would sync the card); q, the
+    caches, their scales and the mask read once, the f32 out (and m, l)
+    written."""
+    b, h, d = q.shape
+    slots = b * k_cache.shape[1]
+    nbytes = (q.numel() * q.element_size()
+              + 2 * k_cache.numel() * k_cache.element_size()
+              + visible.numel() * visible.element_size() + b * h * d * 4)
+    for s in (k_scale, v_scale):
+        if s is not None:
+            nbytes += s.numel() * s.element_size()
+    if stats:
+        nbytes += 2 * b * h * 4
+    return 4 * slots * h * d, nbytes
+
+
 def _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
             stats: bool):
     """Run the kernel on the current stream: the normalized (B, H, D) out,
@@ -207,11 +229,13 @@ def fused_single_query_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                  ) -> torch.Tensor:
     """One decode step's query against a cache window: (B, H, D) f32."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return fused_single_query_attention_plain(
-            q, k_cache, v_cache, visible, scale, k_scale, v_scale)
-    out = _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
-                  stats=False)
+    with costmodel.kernel_work("K4", k4_cost, q, k_cache, v_cache, visible,
+                               k_scale, v_scale):
+        if q.device.type == "cpu":
+            return fused_single_query_attention_plain(
+                q, k_cache, v_cache, visible, scale, k_scale, v_scale)
+        out = _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
+                      stats=False)
     fused_single_query_attention.launches += 1
     return out
 
@@ -224,11 +248,13 @@ def fused_single_query_attention_stats(
     """One decode step's query against one shard's cache slab, stopped
     before the normalize: f32 (acc (B, H, D), m (B, H), l (B, H))."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return fused_single_query_attention_stats_plain(
-            q, k_cache, v_cache, visible, scale, k_scale, v_scale)
-    triple = _launch(q, k_cache, v_cache, visible, scale, k_scale, v_scale,
-                     stats=True)
+    with costmodel.kernel_work("K4[stats]", k4_cost, q, k_cache, v_cache,
+                               visible, k_scale, v_scale, True):
+        if q.device.type == "cpu":
+            return fused_single_query_attention_stats_plain(
+                q, k_cache, v_cache, visible, scale, k_scale, v_scale)
+        triple = _launch(q, k_cache, v_cache, visible, scale, k_scale,
+                         v_scale, stats=True)
     fused_single_query_attention_stats.launches += 1
     return triple
 

@@ -32,8 +32,11 @@ Entry points, each with its plain version beside it:
     lse/delta (the ring backward's building block), through K2 and K3.
 
 For CPU tensors every wrapper runs the plain version; for CUDA tensors it
-launches its kernel or raises.  Launch counters: `flash_attention.launches`
-(K1 without lse), `flash_attention_with_lse.launches` (K1 with lse),
+launches its kernel or raises.  Under an active cost counter
+(observe/costmodel.py) each wrapper reports its kernel's work, counted
+from the shapes before the device branch so both branches count the
+same (`k1_cost`, `k2_cost`, `k3_cost`).  Launch counters:
+`flash_attention.launches` (K1 without lse), `flash_attention_with_lse.launches` (K1 with lse),
 `flash_bwd_dq.launches` (K2), `flash_bwd_dkv.launches` (K3).  The last
 three also count by block kind in `block_launches`: "diagonal" where q and
 k start at the same global position (every one-card call, and a ring
@@ -46,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from mmlspark_tpu_torch.observe import costmodel
 from mmlspark_tpu_torch.ops import native
 from mmlspark_tpu_torch.ops.attention import NEG_INF
 from mmlspark_tpu_torch.ops.decode_attention import _sm_count
@@ -80,6 +84,57 @@ def _scores(q, k, causal, scale, q_offset, k_offset) -> torch.Tensor:
         cols = k_offset + torch.arange(s.shape[-1], device=s.device)
         s = torch.where(rows[:, None] >= cols[None, :], s, NEG_INF)
     return s
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int = 0,
+                  k_offset: int = 0) -> int:
+    """The (query, key) pairs of one (batch, head) that the causal mask at
+    global offsets leaves visible (all sq x sk when not causal)."""
+    if not causal:
+        return sq * sk
+    # query i sees keys j with k_offset + j <= q_offset + i, clipped to sk
+    lo = q_offset - k_offset + 1            # keys seen by query 0
+    first = min(sq, max(0, -lo))             # queries that see none
+    full = min(sq, max(first, sk - lo))      # queries that see all sk
+    rising = full - first                    # sees lo + i keys
+    return (rising * lo + (first + full - 1) * rising // 2
+            + (sq - full) * sk)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k1_cost(q, k, v, causal, q_offset=0, k_offset=0, with_lse=False
+            ) -> tuple:
+    """(FLOPs, bytes) of one K1 call: QK^T and PV over the visible pairs
+    (4·B·H·D a pair); q, k, v read, out (and lse) written."""
+    b, sq, h, d = q.shape
+    pairs = visible_pairs(sq, k.shape[1], causal, q_offset, k_offset)
+    lse = b * sq * h * 4 if with_lse else 0
+    return 4 * b * h * d * pairs, 2 * _nbytes(q) + _nbytes(k, v) + lse
+
+
+def _bwd_bytes(q, k, v) -> int:
+    """What K2 and K3 each read: q, k, v, dout, and lse and delta f32."""
+    b, sq, h, _ = q.shape
+    return 2 * _nbytes(q) + _nbytes(k, v) + 2 * b * sq * h * 4
+
+
+def k2_cost(q, k, v, causal, q_offset=0, k_offset=0) -> tuple:
+    """(FLOPs, bytes) of one K2 call: three products over the visible
+    pairs (S recomputed, dP, dQ); dq written."""
+    b, sq, h, d = q.shape
+    pairs = visible_pairs(sq, k.shape[1], causal, q_offset, k_offset)
+    return 6 * b * h * d * pairs, _bwd_bytes(q, k, v) + _nbytes(q)
+
+
+def k3_cost(q, k, v, causal, q_offset=0, k_offset=0) -> tuple:
+    """(FLOPs, bytes) of one K3 call: four products over the visible
+    pairs (S and dP recomputed, dV, dK); dk and dv written."""
+    b, sq, h, d = q.shape
+    pairs = visible_pairs(sq, k.shape[1], causal, q_offset, k_offset)
+    return 8 * b * h * d * pairs, _bwd_bytes(q, k, v) + _nbytes(k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +300,13 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     `q_offset`/`k_offset` place q and k at global positions for the causal
     mask.  Forward only."""
     scale = _scale(q, scale)
-    if q.device.type == "cpu":
-        return flash_attention_with_lse_plain(q, k, v, causal, scale,
-                                              q_offset, k_offset)
-    out, lse = _forward_kernel(q, k, v, causal, scale, True, q_offset,
-                               k_offset)
+    with costmodel.kernel_work("K1[lse]", k1_cost, q, k, v, causal,
+                               q_offset, k_offset, True):
+        if q.device.type == "cpu":
+            return flash_attention_with_lse_plain(q, k, v, causal, scale,
+                                                  q_offset, k_offset)
+        out, lse = _forward_kernel(q, k, v, causal, scale, True, q_offset,
+                                   k_offset)
     _count(flash_attention_with_lse, q_offset, k_offset)
     return out, lse
 
@@ -257,21 +314,23 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
                  q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
     """K2: dq (B, Sq, H, D) in q's dtype from the saved statistics."""
-    if q.device.type == "cpu":
-        return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
-                                       scale, q_offset, k_offset)[0]
-    _check_backward(q, k, v, do, lse, delta)
-    b, sq, h, d = q.shape
-    dq = torch.empty_like(q)
-    lib = native.library("flash_backward")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mmlspark_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq,
-            k.shape[1], d, float(scale), int(causal), int(q_offset),
-            int(k_offset), _DTYPES[q.dtype], stream)
-    native.check(code, "flash_bwd_dq")
+    with costmodel.kernel_work("K2", k2_cost, q, k, v, causal, q_offset,
+                               k_offset):
+        if q.device.type == "cpu":
+            return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
+                                           scale, q_offset, k_offset)[0]
+        _check_backward(q, k, v, do, lse, delta)
+        b, sq, h, d = q.shape
+        dq = torch.empty_like(q)
+        lib = native.library("flash_backward")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.mmlspark_flash_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq,
+                k.shape[1], d, float(scale), int(causal), int(q_offset),
+                int(k_offset), _DTYPES[q.dtype], stream)
+        native.check(code, "flash_bwd_dq")
     _count(flash_bwd_dq, q_offset, k_offset)
     return dq
 
@@ -279,21 +338,24 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
                   q_offset: int = 0, k_offset: int = 0) -> tuple:
     """K3: (dk, dv) (B, Sk, H, D) in k's dtype from the saved statistics."""
-    if q.device.type == "cpu":
-        return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
-                                       scale, q_offset, k_offset)[1:]
-    _check_backward(q, k, v, do, lse, delta)
-    b, sq, h, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = native.library("flash_backward")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mmlspark_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, sq, k.shape[1], d, float(scale), int(causal),
-            int(q_offset), int(k_offset), _DTYPES[q.dtype], stream)
-    native.check(code, "flash_bwd_dkv")
+    with costmodel.kernel_work("K3", k3_cost, q, k, v, causal, q_offset,
+                               k_offset):
+        if q.device.type == "cpu":
+            return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
+                                           scale, q_offset, k_offset)[1:]
+        _check_backward(q, k, v, do, lse, delta)
+        b, sq, h, d = q.shape
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        lib = native.library("flash_backward")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.mmlspark_flash_bwd_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, h, sq, k.shape[1], d, float(scale),
+                int(causal), int(q_offset), int(k_offset), _DTYPES[q.dtype],
+                stream)
+        native.check(code, "flash_bwd_dkv")
     _count(flash_bwd_dkv, q_offset, k_offset)
     return dk, dv
 
@@ -302,10 +364,14 @@ def flash_block_grads(q, k, v, do, lse, delta, causal: bool, scale: float,
                       q_offset: int = 0, k_offset: int = 0) -> tuple:
     """(dq, dk, dv) of one K/V block against global `lse`/`delta`
     (B, Sq, H) f32: K2 then K3 on the card, the plain version on the
-    CPU."""
+    CPU (which reports K2's and K3's work as the kernels would)."""
     if q.device.type == "cpu":
-        return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
-                                       scale, q_offset, k_offset)
+        with costmodel.kernel_work("K2", k2_cost, q, k, v, causal, q_offset,
+                                   k_offset), \
+                costmodel.kernel_work("K3", k3_cost, q, k, v, causal,
+                                      q_offset, k_offset):
+            return flash_block_grads_plain(q, k, v, do, lse, delta, causal,
+                                           scale, q_offset, k_offset)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
                       k_offset)
     return (dq,) + flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
@@ -335,14 +401,18 @@ def _flash_attention_op_setup(ctx, inputs, output) -> None:
     q, k, v, causal, scale = inputs
     ctx.save_for_backward(q, k, v, *output)
     ctx.causal, ctx.scale = causal, scale
+    # the autograd engine may run the backward on its own thread: carry
+    # the forward's cost counters there
+    ctx.cost_counters = costmodel.active_counters()
 
 
 def _flash_attention_op_backward(ctx, g, _g_lse):
     q, k, v, out, lse = ctx.saved_tensors
-    g = g.contiguous()
-    delta = (g.float() * out.float()).sum(-1)
-    dq, dk, dv = flash_block_grads(q, k, v, g, lse, delta, ctx.causal,
-                                   ctx.scale)
+    with costmodel.bound(ctx.cost_counters):
+        g = g.contiguous()
+        delta = (g.float() * out.float()).sum(-1)
+        dq, dk, dv = flash_block_grads(q, k, v, g, lse, delta, ctx.causal,
+                                       ctx.scale)
     return dq, dk, dv, None, None
 
 
@@ -360,9 +430,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return flash_attention_op(q, k, v, causal, scale)[0]
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale)
-    out, _ = _forward_kernel(q, k, v, causal, scale, False, 0, 0)
+    with costmodel.kernel_work("K1", k1_cost, q, k, v, causal):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal, scale)
+        out, _ = _forward_kernel(q, k, v, causal, scale, False, 0, 0)
     flash_attention.launches += 1
     return out
 

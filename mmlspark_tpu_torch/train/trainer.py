@@ -96,6 +96,7 @@ from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_variables,
 from mmlspark_tpu_torch.models.definitions import (BatchNorm, build_model,
                                                    init_scoring_params,
                                                    init_transformer_lm_params)
+from mmlspark_tpu_torch.observe.costmodel import ProgramCosts
 from mmlspark_tpu_torch.observe.logging import get_logger
 from mmlspark_tpu_torch.observe.metrics import MetricData, inc_counter
 from mmlspark_tpu_torch.observe.numerics import (DivergenceError,
@@ -248,6 +249,9 @@ class Trainer:
         # background checkpoint writers, one per directory; closed at the
         # end of each fit
         self._writers: dict[str, CheckpointWriter] = {}
+        # the train step's cost rows by batch shape class (counted over a
+        # class's first step under a run, replayed into later runs)
+        self._costs = ProgramCosts("trainer")
         self._effective_batch_size: Optional[int] = None
 
     # -- state ----------------------------------------------------------
@@ -519,9 +523,16 @@ class Trainer:
                         with span_on(timings, "compute"):
                             loss, metrics = run_step()
                     else:
-                        with tracer.span("train.step", parent=fit_id,
-                                         cat="step", step=step_c,
-                                         epoch=epoch) as sp, \
+                        # the span is synced by the loss fetch, so its wall
+                        # is the step's: the roofline joins it directly
+                        # ("step_wall"); a new shape class's first step
+                        # is counted instead (observe/costmodel.py)
+                        key = f"{tuple(xb.shape)}:{str(xb.dtype)[6:]}"
+                        with self._costs.execution(run, key,
+                                                   basis="step_wall"), \
+                                tracer.span("train.step", parent=fit_id,
+                                            cat="step", step=step_c,
+                                            epoch=epoch) as sp, \
                                 span_on(timings, "compute"):
                             loss, metrics = run_step()
                             sp.attrs["loss"] = float(loss)

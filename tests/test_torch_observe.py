@@ -13,6 +13,9 @@ import pytest
 
 from mmlspark_tpu import config as jax_config
 from mmlspark_tpu.observe import export as jax_export
+# the JAX package declares MMLSPARK_TPU_BENCH_HISTORY where its history
+# CLI is defined; import it so its registry lists every variable it has
+from mmlspark_tpu.observe import history as _jax_history  # noqa: F401
 from mmlspark_tpu.observe import metrics as jax_metrics
 from mmlspark_tpu.observe import slo as jax_slo
 from mmlspark_tpu.observe import telemetry as jax_telemetry

@@ -11,6 +11,7 @@ card and no flax its kernel cases run alone:
 
 import ast
 import importlib
+import json
 import os
 
 import numpy as np
@@ -74,7 +75,7 @@ def test_port_never_imports_the_jax_stack():
     covered = {os.path.relpath(os.path.dirname(p), PKG) for p in sources[1:]}
     assert {"train", "parallel", "utils", "ops", "models", "quant",
             "zoo", "io", "data", "vision", "resilience", "ml", "feature",
-            "stages"} <= covered
+            "stages", "observe"} <= covered
     for module in ("native_loader.py", "ops/image.py", "io/remote.py",
                    "data/autotune.py", "resilience/net.py",
                    "train/learner.py", "ml/learners.py", "ml/trees.py",
@@ -85,11 +86,56 @@ def test_port_never_imports_the_jax_stack():
                    "stages/basic.py", "stages/adapter.py",
                    "stages/data_conversion.py", "stages/summarize.py",
                    "stages/sample.py", "quant/gate.py",
-                   "utils/demo_data.py", "utils/benchmarks.py"):
+                   "utils/demo_data.py", "utils/benchmarks.py",
+                   "utils/perf.py", "observe/costmodel.py",
+                   "observe/profiler.py", "observe/timing.py",
+                   "observe/history.py", "observe/report.py"):
         assert os.path.join(PKG, module) in sources
     offenders = [(os.path.relpath(p, REPO), name) for p in sources
                  for name in _imported_roots(p) if name in FORBIDDEN]
     assert offenders == []
+
+
+# the interpreter of a CLI run with the JAX stack made unimportable
+_NO_JAX = ("import runpy, sys\n"
+           "for name in ('jax', 'flax', 'optax', 'ml_dtypes', "
+           "'mmlspark_tpu'):\n"
+           "    sys.modules[name] = None\n"
+           "sys.argv = [sys.argv[1]] + sys.argv[2:]\n"
+           "runpy.run_module(sys.argv[0], run_name='__main__')\n")
+
+
+def _cli(module, *args):
+    import subprocess
+    import sys
+    return subprocess.run([sys.executable, "-c", _NO_JAX, module, *args],
+                          capture_output=True, text=True, cwd=REPO,
+                          timeout=120)
+
+
+def test_report_and_history_clis_run_without_the_jax_package(tmp_path):
+    run = tmp_path / "run.jsonl"
+    run.write_text("\n".join(json.dumps(e) for e in (
+        {"type": "run_start", "ts": 0.0, "wall_time": 1.0, "pid": 1},
+        {"type": "programs", "ts": 0.5, "programs": {"trainer:(8, 64):int32": {
+            "where": "trainer", "program": "(8, 64):int32", "flops": 1e12,
+            "bytes_accessed": 1e9, "executions": 3, "span_s": 0.03,
+            "step_s": 0.01, "step_basis": "span_wall",
+            "arithmetic_intensity": 1000.0, "ridge": 295.224, "mfu": 0.101,
+            "hbm_bw_util": 0.03, "bound": "compute",
+            "verdict": "compute-bound"}}},
+        {"type": "run_end", "ts": 0.9, "wall_s": 0.9})) + "\n")
+    out = _cli("mmlspark_tpu_torch.observe.report", str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "verdict: compute-bound" in out.stdout
+    bench = tmp_path / "bench.json"
+    bench.write_text(json.dumps({"metric": "m", "value": 10.0}) + "\n")
+    store = str(tmp_path / "store.jsonl")
+    for cmd, code, said in (("ingest", 0, "new"), ("check", 0, "ok")):
+        out = _cli("mmlspark_tpu_torch.observe.history", cmd, str(bench),
+                   "--store", store, "--strict")
+        assert out.returncode == code, out.stderr
+        assert said in out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -1519,3 +1565,51 @@ def test_text_library_builds_with_zlib_alone(cuda):
     assert fallback == []
     for (i, v), (si, sv) in zip(rows, staged):
         assert i.tobytes() == si.tobytes() and v.tobytes() == sv.tobytes()
+
+
+# ------------------------------------- the measurement layer on the card ---
+
+@pytest.mark.cuda
+def test_peaks_of_the_card(cuda):
+    from mmlspark_tpu_torch.utils.perf import (device_peak_flops,
+                                               device_peak_hbm_bw)
+    name = torch.cuda.get_device_name(cuda)
+    if "H100 80GB HBM3" not in name:
+        pytest.skip(f"the peak table lists the H100 SXM only, not {name}")
+    assert device_peak_flops() == 989e12
+    assert device_peak_hbm_bw(cuda) == 3.35e12
+
+
+@pytest.mark.cuda
+def test_counter_counts_the_flash_kernels_on_the_card(cuda):
+    from mmlspark_tpu_torch.observe.costmodel import CostCounter
+    from mmlspark_tpu_torch.ops.flash_attention import (k1_cost, k2_cost,
+                                                        k3_cost)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    with CostCounter() as c:
+        flash_attention(q, k, v, causal=True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert c.error is None
+    assert c.kernel_launches == {"K1[lse]": 1, "K2": 1, "K3": 1}
+    assert c.kernel_flops == (k1_cost(q, k, v, True, 0, 0, True)[0]
+                              + k2_cost(q, k, v, True)[0]
+                              + k3_cost(q, k, v, True)[0])
+
+
+@pytest.mark.cuda
+def test_profile_traces_the_flash_kernel(cuda, tmp_path):
+    from mmlspark_tpu_torch.observe import annotate, profile
+    q, k, v = (torch.randn((2, 512, 8, 128), device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    with profile(str(tmp_path)) as path:
+        with annotate("flash.block"):
+            flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    with open(path) as f:
+        names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+    assert "flash.block" in names
+    assert any("flash_fwd" in n for n in names)
