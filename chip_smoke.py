@@ -17,7 +17,8 @@ ResNet-50 scoring under the depth Autotuner; `ImageTransformer` and
 (`TrainClassifier` / `TrainRegressor` over every learner family,
 `FindBestModel`, the text featurizer and `CheckpointData`), the
 mixture-of-experts LM (served, trained, rematerialized) and the
-population sweep, and times kernels and paths.
+population sweep, the measurement layer, and data parallelism over a
+mesh whose shards share the card, and times kernels and paths.
 
     python3 chip_smoke.py
 
@@ -310,6 +311,25 @@ Phases (any failure exits non-zero before the result line):
      roofline verdict for (a) and (b), and `observe.history ingest` then
      `check --strict` over the phase's own bench records says `new` then
      `ok`
+ 27. data parallelism over a mesh of 2 shards on this card
+     (`phase_data_parallel`, only the port): (a) the LM at LM_CONFIG's
+     width, one batch of 8 x 2048 for 4 steps at data 2 against one
+     card from one init: per-step losses within 5e-3 relative, K1[lse],
+     K2 and K3 exactly 4 layers x 2 shards x 4 steps = 32 times, every
+     Dense call at batch 4, the step's ms at both widths, f32 at 2
+     layers with TF32 off: weights within 1e-5 of max |w|; K1[lse], K2,
+     K3 checked against plain and timed at the shard shape (4, 2048, 8,
+     128); (b) a data-2 checkpoint records data_devices 2 and restores
+     onto one card byte for byte, a preemption at step 5 under data 2
+     resumes on one card to the fault-free step count; (c) the zoo
+     ConvNet's config and resnet50() bf16, 2 steps of 2 x 64: weights and
+     batch_stats against one card, a planted per-shard BatchNorm
+     rejected; (d) resnet50() bf16 scoring through `TPUModel.set_mesh`
+     and from a `CheckpointData` cache over the mesh, held to
+     VISION_GATES' bf16 limit against one card; (e) the census sweep at
+     data 2, member accuracies against one card's; (f) one data 1 x
+     seq 2 ring-flash step: every token-wise layer at S/2 a shard, the
+     loss equal to the whole-array forward's
 
 Each phase's seconds print on a line of their own (`phase seconds N`) and
 as one `{"phase_seconds": ...}` line; the whole run stays under 1000 s.
@@ -5325,13 +5345,18 @@ def phase_seq_parallel_training(dev, card) -> tuple:
                                     TRAIN_GROUPS)
     del params, opt, step
     torch.cuda.empty_cache()
-    fparams, fopt, fstep = seq_step(module("flash"), mesh)
-    flash_ms = cuda_ms(lambda: fstep(fparams, fopt, *batch), warmup=1,
+    # the one-card flash step: the same step over a mesh of one shard
+    one = make_mesh(MeshSpec(data=1, seq=1), [dev])
+    whole = [shard_tokens(a, one) for a in (
+        rows[:, :-1].astype(np.int64), rows[:, 1:].astype(np.int64),
+        np.ones((RING["batch"], RING["seq"]), np.float32))]
+    fparams, fopt, fstep = seq_step(module("flash"), one)
+    flash_ms = cuda_ms(lambda: fstep(fparams, fopt, *whole), warmup=1,
                        reps=RING["reps"])
     print("  profile of one one-card flash step:")
-    flash_profile = device_breakdown(lambda: fstep(fparams, fopt, *batch),
+    flash_profile = device_breakdown(lambda: fstep(fparams, fopt, *whole),
                                      card, TRAIN_GROUPS)
-    del fparams, fopt, fstep, batch
+    del fparams, fopt, fstep, batch, whole
     torch.cuda.empty_cache()
     n_tokens = RING["batch"] * RING["seq"]
     print(f"timing seq-parallel step {RING['batch']}x{RING['seq']} bf16: "
@@ -7987,6 +8012,594 @@ def phase_measurement(dev, card) -> dict:
             "profile": profiled, "clis": clis}
 
 
+# -- phase 27: data parallelism over a mesh whose shards share this card ------
+
+# (a) the LM at LM_CONFIG's width, a global batch of 8 x 2048 over data 2
+# (4 rows a shard), 4 steps (one a epoch, so the history is per step);
+# the f32 check at a depth of f32_layers.  (b) checkpoints of a small
+# flash LM, 8 steps, a preemption at step 5.  (c) the zoo ConvNet's
+# config and resnet50() bf16, 2 steps of 128 (2 x 64), momentum.  (d)
+# resnet50() bf16 scoring, 1024 images at 256.  (e) phase 25's census
+# sweep.  (f) one ring-flash step of data 1 x seq 2 at LC_CONFIG's width,
+# f32, 2 x 2048.
+DP = dict(n=2, steps=4, f32_layers=2, loss_rtol=5e-3, f32_tol=1e-5,
+          ckpt_config={"vocab_size": 256, "d_model": 128, "n_heads": 4,
+                       "n_layers": 2, "max_len": 256, "dtype": "bfloat16",
+                       "attn_impl": "flash"},
+          ckpt_rows=32, ckpt_batch=8, ckpt_epochs=2, preempt_at=5,
+          vision_images=256, vision_batch=128, vision_lr=0.01,
+          weight_tol=1e-1, stats_tol=1e-2,
+          score_images=1024, score_batch=256, calibration_rows=32,
+          sweep_acc_tol=2e-3, shard_shape=(4, 2048, 8, 128))
+
+
+def dp_mesh(dev, n: int = DP["n"]):
+    """A data-n mesh whose shards all sit on `dev`."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    return make_mesh(MeshSpec(data=n), [dev] * n)
+
+
+def named_gaps(got, ref, skip_key_bias: int = 0) -> dict:
+    """Each leaf's max |got - ref| over its max |ref| (path -> ratio);
+    with `skip_key_bias` = d_model, the key third of each qkv bias left
+    out (its true gradient is zero and Adam scales round-off there)."""
+    out = {}
+
+    def walk(path, a, b):
+        if isinstance(b, dict):
+            for key in sorted(b):
+                walk(f"{path}/{key}", a[key], b[key])
+            return
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if skip_key_bias and path.endswith("qkv/bias"):
+            d = skip_key_bias
+            a, b = np.delete(a, np.s_[d:2 * d]), np.delete(b, np.s_[d:2 * d])
+        out[path] = float(np.abs(a - b).max()
+                          / max(float(np.abs(b).max()), 1e-30))
+    walk("", got, ref)
+    return out
+
+
+def f32_weight_gaps(got, ref, d_model: int) -> dict:
+    """An f32 data-2 fit's parameters against one card's, over the leaves:
+    the largest share of a leaf's entries past DP["f32_tol"] of its max
+    |w|, the largest |d|, and the largest ||d|| / ||w|| (the key third of
+    each qkv bias left out: its true gradient is zero).  Adam scales the
+    round-off of a near-zero gradient, which moves with the GEMMs' batch
+    shapes on the card, to a step of up to its learning rate, so single
+    entries part by up to lr a step; a lost shard's gradient moves most
+    entries."""
+    out = {"share": 0.0, "share_leaf": None, "max_abs": 0.0,
+           "frobenius": 0.0}
+    gp, rp = named_leaf_arrays(got), named_leaf_arrays(ref)
+    for path, r in rp.items():
+        g = gp[path]
+        if path.endswith("qkv/bias"):
+            g = np.delete(g, np.s_[d_model:2 * d_model])
+            r = np.delete(r, np.s_[d_model:2 * d_model])
+        diff = np.abs(g - r)
+        share = float((diff > DP["f32_tol"] * np.abs(r).max()).mean())
+        if out["share_leaf"] is None or share > out["share"]:
+            out["share"], out["share_leaf"] = share, path
+        out["max_abs"] = max(out["max_abs"], float(diff.max()))
+        out["frobenius"] = max(out["frobenius"], float(
+            np.linalg.norm(g - r) / max(np.linalg.norm(r), 1e-30)))
+    return out
+
+
+def named_leaf_arrays(tree, prefix: str = "") -> dict:
+    """A nested dict's leaves by "/"-joined path, as f64 numpy arrays."""
+    out = {}
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            out.update(named_leaf_arrays(tree[key], f"{prefix}/{key}"))
+        else:
+            out[f"{prefix}/{key}"] = np.asarray(tree[key], np.float64)
+    return out
+
+
+def update_gap(got, ref, init) -> float:
+    """The data-2 fit's parameter update against the one-card fit's, as
+    one relative error over every params leaf: ||got - ref|| over
+    ||ref - init|| (Frobenius, f64).  A bf16 step's round-off moves with
+    the shards' batch shapes, so a leaf whose true gradient is near zero
+    (a BatchNorm bias before another BatchNorm) differs by its whole
+    update; this measure weighs each leaf by how far the fit moved it."""
+    num = den = 0.0
+    for g, r, i in zip(tree_leaves(got["params"]), tree_leaves(ref["params"]),
+                       tree_leaves(init["params"])):
+        g, r, i = (np.asarray(a, np.float64) for a in (g, r, i))
+        num += float(((g - r) ** 2).sum())
+        den += float(((r - i) ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def dense_batches(module) -> tuple:
+    """Forward hooks on every Dense and LayerNorm of `module` (shard
+    replicas share them): (calls, a list of (class, input shape, device)
+    the hooks fill, the hook handles)."""
+    from mmlspark_tpu_torch.models.definitions import Dense, LayerNorm
+    calls: list = []
+    handles = [m.register_forward_hook(
+        lambda mod, args, out: calls.append(
+            (type(mod).__name__, tuple(args[0].shape), args[0].device)))
+        for m in module.modules() if isinstance(m, (Dense, LayerNorm))]
+    return calls, handles
+
+
+def dp_shard_kernel_rows(dev, card, launched: dict) -> list:
+    """K1[lse], K2 and K3 at the data-2 path's shard shape
+    DP["shard_shape"] bf16, causal: against their plain versions (the
+    phase-3 and phase-4 limits), timed beside the bound and the library
+    call; `launched`: each kernel's launches on that path."""
+    from mmlspark_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse, flash_attention_with_lse_plain,
+        flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
+    b, s, h, d = DP["shard_shape"]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out, lse = flash_attention_with_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_with_lse_plain(q, k, v, True)
+    err, norm_err = out_errs(out, ref)
+    lse_err = (lse - ref_lse).abs().max().item()
+    print(f"K1[lse] at the data-2 shard shape {DP['shard_shape']} bf16: "
+          f"max_abs_err {err:.3e} (tol 2e-2), ||d||/||ref|| {norm_err:.3e} "
+          f"(tol 1e-2), lse {lse_err:.3e} (tol 1e-3)")
+    require(err <= 2e-2 and norm_err <= 1e-2 and lse_err <= 1e-3,
+            "phase 27: K1[lse] disagrees at the shard shape")
+    ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True))
+    plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(q, k, v,
+                                                               True), calls=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = library_ms(
+        lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True), "aten flash forward at the shard shape")
+    flops = 4.0 * b * h * d * (s * (s + 1) / 2)
+    nbytes = 4.0 * b * s * h * d * 2 + b * s * h * 4
+    bound, bound_by, term = attention_bound(flops, nbytes,
+                                            b * h * visible_pairs(s, s, True))
+    print(f"timing K1[lse] {DP['shard_shape']} causal bf16: {ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; aten flash forward {lib_ms:.4f} ms; "
+          f"bound {bound:.4f} ms ({term}); "
+          f"{k1_rates(flops, ms, lib_ms, bound)} [{card}]")
+    rows = [{"name": "flash_attention[lse,data 2 shard]", "route": "cuda",
+             "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
+             "launches": launched["flash_attention[lse]"],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": bound_by, "bound_term": term,
+             "library_ms": lib_ms}]
+    del q, k, v, out, lse, ref, ref_lse, qt, kt, vt
+    args = backward_inputs(gen, b, s, s, True, 0, 0, torch.bfloat16, d, h)
+    scale = d ** -0.5
+    got = (flash_bwd_dq(*args, True, scale), *flash_bwd_dkv(*args, True,
+                                                            scale))
+    torch.cuda.synchronize()
+    want = flash_block_grads_plain(*args, True, scale)
+    errs = [grad_errs(a, r) for a, r in zip(got, want)]
+    abs_errs = [(a.float() - r.float()).abs().max().item()
+                for a, r in zip(got, want)]
+    print(f"K2/K3 at the shard shape: max|d|/max|ref| dq {errs[0][0]:.3e} "
+          f"dk {errs[1][0]:.3e} dv {errs[2][0]:.3e} (tol 2e-2); "
+          f"||d||/||ref|| dq {errs[0][1]:.3e} dk {errs[1][1]:.3e} dv "
+          f"{errs[2][1]:.3e} (tol 1e-2)")
+    require(all(m <= 2e-2 and n <= 1e-2 for m, n in errs),
+            "phase 27: K2/K3 disagree at the shard shape")
+    del got, want
+    timed = time_backward(card, gen, d, args=args, shape=(b, s, h))
+    for name, err in (("flash_bwd_dq", abs_errs[0]),
+                      ("flash_bwd_dkv", max(abs_errs[1:]))):
+        rows.append({
+            "name": f"{name}[data 2 shard]", "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
+            "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
+                         if name == "flash_bwd_dq" else
+                         "mmlspark_tpu/ops/flash_attention.py:330"),
+            "launches": launched[name], "max_abs_err": err, **timed[name]})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dp_lm(dev, card) -> tuple:
+    """(a) The LM at LM_CONFIG's width, flash, bf16: a one-card fit and a
+    data-2 fit from one init over one batch of 8 x 2048, 4 steps; the
+    per-step losses within DP["loss_rtol"], K1[lse], K2 and K3 exactly
+    n_layers x 2 shards x 4 steps each, every Dense call at batch 4; the
+    step's ms at both widths; at f32 and DP["f32_layers"] layers the
+    weights after 4 steps as `f32_weight_gaps` holds them.
+    Returns (the kernel rows at the shard shape, the numbers)."""
+    from mmlspark_tpu_torch import ModelBundle, Trainer, TrainerConfig
+    vocab, n_layers, n = LM_CONFIG["vocab_size"], LM_CONFIG["n_layers"], \
+        DP["n"]
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, vocab)
+    x, y = rows[:, :-1], rows[:, 1:]
+
+    def config(model_config):
+        return TrainerConfig(
+            architecture="TransformerLM", model_config=model_config,
+            optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+            epochs=DP["steps"], loss="softmax_xent", seed=0,
+            numerics_cadence=0)
+
+    model_config = {**LM_CONFIG, "attn_impl": "flash"}
+    init = ModelBundle.init("TransformerLM", model_config, seed=0)
+    one = Trainer(config(model_config), device=dev)
+    one.fit_arrays(x, y, initial_bundle=init)
+    dp = Trainer(config(model_config), mesh=dp_mesh(dev))
+    calls, handles = dense_batches(dp.module)
+    torch.cuda.synchronize()
+    reset_counts()
+    dp.fit_arrays(x, y, initial_bundle=init)
+    torch.cuda.synchronize()
+    launched = read_counts()
+    for handle in handles:
+        handle.remove()
+    losses = [[r["loss"] for r in t.history] for t in (one, dp)]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0])]
+    dense = {shape[0] for kind, shape, _ in calls if kind == "Dense"}
+    want = n_layers * n * DP["steps"]
+    print(f"phase 27 (a) data {n} on one card, {DP['steps']} steps of "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} bf16 flash at LM_CONFIG's width: "
+          f"losses {[round(v, 5) for v in losses[1]]} against one card's "
+          f"{[round(v, 5) for v in losses[0]]} (max rel gap {max(gaps):.3e}, "
+          f"tol {DP['loss_rtol']}); launches {launched} (want {want} each "
+          f"of K1[lse], K2, K3); Dense calls "
+          f"{sum(k == 'Dense' for k, _, _ in calls)} at batch "
+          f"{sorted(dense)} [{card}]")
+    require(max(gaps) <= DP["loss_rtol"], "phase 27 (a): the data-2 losses "
+            "differ from one card's")
+    require(losses[1][-1] < losses[1][0], "phase 27 (a): the loss did not "
+            "fall")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == want, f"phase 27 (a): {name} launched "
+                f"{launched[name]} times, want {want}")
+    require(dense == {TRAIN_BATCH // n}, f"phase 27 (a): Dense calls at "
+            f"batch {sorted(dense)}, want {TRAIN_BATCH // n}")
+    # the step alone at both widths (CUDA events, median of 5)
+    xb = torch.from_numpy(x.astype(np.int64)).to(dev)
+    yb = torch.from_numpy(y.astype(np.int64)).to(dev)
+    mb = torch.ones(TRAIN_BATCH, device=dev)
+    times = {}
+    for width, trainer in ((1, one), (n, dp)):
+        state = trainer.init_state((1, TRAIN_SEQ), 16, init)
+        step = trainer.make_train_step()
+        args = ((xb, yb, mb) if width == 1 else
+                tuple(list(t.chunk(n)) for t in (xb, yb, mb)))
+        times[width] = cuda_ms(lambda: step(state, *args), warmup=1, reps=5)
+        del state, step
+    print(f"timing train step {TRAIN_BATCH}x{TRAIN_SEQ} bf16 flash: one card "
+          f"{times[1]:.3f} ms; data {n} on the same card {times[n]:.3f} ms "
+          f"({times[n] / times[1]:.3f}x; CUDA events, median of 5) [{card}]")
+    del one, dp
+    torch.cuda.empty_cache()
+    # f32, TF32 off in the step: the weights after 4 steps
+    f32_config = {**model_config, "dtype": "float32",
+                  "n_layers": DP["f32_layers"]}
+    f32_init = ModelBundle.init("TransformerLM", f32_config, seed=0)
+    bundles = [Trainer(config(f32_config), mesh=mesh, device=dev).fit_arrays(
+        x, y, initial_bundle=f32_init) for mesh in (None, dp_mesh(dev))]
+    f32 = f32_weight_gaps(bundles[1].variables, bundles[0].variables,
+                          LM_CONFIG["d_model"])
+    print(f"phase 27 (a) f32, {DP['f32_layers']} layers, TF32 off: weights "
+          f"after {DP['steps']} steps at data {n} against one card: share "
+          f"of a leaf's entries past {DP['f32_tol']} of its max |w| at most "
+          f"{f32['share']:.3e} ({f32['share_leaf']}; limit 1e-3), max |d| "
+          f"{f32['max_abs']:.3e} (limit {DP['steps'] * 3e-4:.1e}, Adam's "
+          f"step), ||d|| / ||w|| at most {f32['frobenius']:.3e} (limit "
+          f"{DP['f32_tol']}); the key third of each qkv bias left out "
+          f"[{card}]")
+    require(f32["share"] <= 1e-3 and f32["max_abs"] <= DP["steps"] * 3e-4
+            and f32["frobenius"] <= DP["f32_tol"],
+            "phase 27 (a): the f32 weights differ")
+    del bundles
+    torch.cuda.empty_cache()
+    rows = dp_shard_kernel_rows(dev, card, launched)
+    return rows, {"losses": losses[1], "one_card_losses": losses[0],
+                  "loss_rel_gaps": gaps, "launches": launched,
+                  "step_ms": times[n], "one_card_step_ms": times[1],
+                  "f32_weights": f32}
+
+
+def dp_checkpoints(dev, card) -> dict:
+    """(b) A data-2 fit's checkpoint records data_devices 2 and restores
+    onto one card byte for byte; a data-2 fit preempted at step
+    DP["preempt_at"] resumes on one card to the fault-free step count."""
+    import os
+    import shutil
+    import tempfile
+    from mmlspark_tpu_torch import Trainer, TrainerConfig, config
+    from mmlspark_tpu_torch.resilience.chaos import reset_chaos
+    from mmlspark_tpu_torch.resilience.checkpoints import (
+        checkpoint_meta, latest_valid_checkpoint)
+    from mmlspark_tpu_torch.resilience.ckpt_writer import serialize_tree
+    from mmlspark_tpu_torch.resilience.preemption import Preempted
+    mc = DP["ckpt_config"]
+    rows = char_corpus(DP["ckpt_rows"], mc["max_len"], mc["vocab_size"])
+    x, y = rows[:, :-1], rows[:, 1:]
+    cfg = TrainerConfig(architecture="TransformerLM", model_config=dict(mc),
+                        optimizer="adam", learning_rate=1e-3,
+                        batch_size=DP["ckpt_batch"], epochs=DP["ckpt_epochs"],
+                        loss="softmax_xent", seed=0, numerics_cadence=0,
+                        checkpoint_every_steps=1)
+    steps = DP["ckpt_rows"] // DP["ckpt_batch"] * DP["ckpt_epochs"]
+    root = tempfile.mkdtemp()
+    try:
+        saved = os.path.join(root, "saved")
+        Trainer(cfg, mesh=dp_mesh(dev)).fit_arrays(x, y, ckpt_dir=saved)
+        path = latest_valid_checkpoint(saved)
+        meta = checkpoint_meta(path)
+        with open(path, "rb") as f:
+            raw = f.read()
+        one = Trainer(cfg, device=dev)
+        state = one.restore_checkpoint(one.init_state((1, mc["max_len"]), 1),
+                                       saved)
+        same = serialize_tree(one.state_tree(state)) == raw
+        resumed_dir = os.path.join(root, "preempted")
+        config.set("MMLSPARK_TPU_CHAOS_PREEMPT_AT_STEP", DP["preempt_at"])
+        reset_chaos()
+        preempted = False
+        try:
+            Trainer(cfg, mesh=dp_mesh(dev)).fit_arrays(
+                x, y, ckpt_dir=resumed_dir)
+        except Preempted:
+            preempted = True
+        finally:
+            config.set("MMLSPARK_TPU_CHAOS_PREEMPT_AT_STEP", None)
+            reset_chaos()
+        resumed = Trainer(cfg, device=dev).fit_arrays(
+            x, y, ckpt_dir=resumed_dir, resume=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 27 (b) checkpoints: data 2 writes data_devices "
+          f"{meta['data_devices']}, effective batch "
+          f"{meta['effective_batch_size']}; restored onto one card byte for "
+          f"byte: {same} ({len(raw)} bytes); preempted at step "
+          f"{DP['preempt_at']} under data 2: {preempted}; resumed on one "
+          f"card to step {resumed.metadata['steps']} (want {steps}) [{card}]")
+    require(meta["data_devices"] == 2, "phase 27 (b): data_devices")
+    require(same, "phase 27 (b): the restore onto one card is not "
+            "byte-identical")
+    require(preempted and resumed.metadata["steps"] == steps,
+            "phase 27 (b): the preempted data-2 fit did not resume to the "
+            "fault-free step count")
+    return {"data_devices": meta["data_devices"], "restore_bytes": len(raw),
+            "restore_byte_identical": same,
+            "resumed_steps": resumed.metadata["steps"]}
+
+
+def dp_vision(dev, card) -> dict:
+    """(c) The zoo ConvNet's config (adam 1e-3, cosine, as phase 23 (a))
+    and resnet50() bf16 (momentum 0.01, as phase 23 (b)), 2 steps of 128
+    (2 x 64 at data 2) on images scaled to [0, 1), each shard's half of a
+    batch at another brightness: the data-2 fit's parameter update
+    within DP["weight_tol"] of the one-card fit's (`update_gap`; bf16
+    round-off moves with the shards' batch shapes, a shard's gradient
+    left out moves it by O(1)) and the ResNet's batch_stats within
+    DP["stats_tol"] of each leaf's max; a planted BatchNorm with each
+    shard's own statistics must fail the batch_stats gate."""
+    from mmlspark_tpu_torch import ModelBundle, Trainer, TrainerConfig
+    from mmlspark_tpu_torch.models import definitions
+    rng = np.random.default_rng(27)
+    b, n_img = DP["vision_batch"], DP["vision_images"]
+    out: dict = {}
+    for name, arch, mc, side, opt in (
+            ("convnet", "ConvNetCIFAR10", {**CONVNET, "dtype": "bfloat16"},
+             32, dict(optimizer="adam", learning_rate=1e-3,
+                      lr_schedule="cosine")),
+            ("resnet50", "ResNet", dict(RESNET50), 224,
+             dict(optimizer="momentum", momentum=0.9,
+                  learning_rate=DP["vision_lr"]))):
+        # images scaled to [0, 1), the first half of every batch (shard
+        # 0's slab) dimmed to a quarter
+        x = (rng.integers(0, 256, (n_img, side, side, 3), dtype=np.uint8)
+             / np.float32(255)).astype(np.float32)
+        for start in range(0, n_img, b):
+            x[start:start + b // 2] *= np.float32(0.25)
+        y = rng.integers(0, mc.get("num_classes", 10), n_img).astype(
+            np.int32)
+        cfg = TrainerConfig(architecture=arch, model_config=mc, epochs=1,
+                            batch_size=b, loss="softmax_xent", seed=0,
+                            shuffle_each_epoch=False, numerics_cadence=0,
+                            **opt)
+        init = ModelBundle.init(arch, mc, seed=0,
+                                input_shape=(1, side, side, 3))
+        one = Trainer(cfg, device=dev).fit_arrays(x, y, initial_bundle=init)
+        dp = Trainer(cfg, mesh=dp_mesh(dev)).fit_arrays(x, y,
+                                                        initial_bundle=init)
+        gap = update_gap(dp.variables, one.variables, init.variables)
+        entry = {"update_gap": gap}
+        line = (f"phase 27 (c) {name} bf16, 2 steps of {b} at data "
+                f"{DP['n']}: the update's relative gap to one card's "
+                f"{gap:.3e} (tol {DP['weight_tol']})")
+        require(gap <= DP["weight_tol"],
+                f"phase 27 (c) {name}: the data-2 weights differ")
+        if "batch_stats" in one.variables:
+            stats = named_gaps(dp.variables["batch_stats"],
+                               one.variables["batch_stats"])
+            worst_s = max(stats, key=stats.get)
+            real = definitions.active_data_shard
+            definitions.active_data_shard = lambda: None
+            try:
+                planted = Trainer(cfg, mesh=dp_mesh(dev)).fit_arrays(
+                    x, y, initial_bundle=init)
+            finally:
+                definitions.active_data_shard = real
+            planted_gaps = named_gaps(planted.variables["batch_stats"],
+                                      one.variables["batch_stats"])
+            worst_p = max(planted_gaps, key=planted_gaps.get)
+            entry.update(worst_stats=worst_s, stats_gap=stats[worst_s],
+                         planted_worst=worst_p,
+                         planted_gap=planted_gaps[worst_p])
+            line += (f"; worst batch_stats leaf {worst_s} "
+                     f"{stats[worst_s]:.3e} of its max (tol "
+                     f"{DP['stats_tol']}); the planted per-shard "
+                     f"statistics: {worst_p} {planted_gaps[worst_p]:.3e}")
+            require(stats[worst_s] <= DP["stats_tol"],
+                    f"phase 27 (c) {name}: the data-2 batch_stats differ")
+            require(planted_gaps[worst_p] > DP["stats_tol"],
+                    f"phase 27 (c) {name}: per-shard statistics pass the "
+                    "batch_stats gate")
+            del planted
+        print(line + f" [{card}]")
+        out[name] = entry
+        del x, one, dp
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_scoring(dev, card) -> dict:
+    """(d) resnet50() bf16 through `TPUModel.set_mesh` at data 2 against
+    one card, 1024 images at 256, and from a `CheckpointData` cache over
+    the same mesh (no host->device bytes): VISION_GATES' bf16 limits
+    against the one-card scores."""
+    from mmlspark_tpu_torch import DataTable, TPUModel
+    from mmlspark_tpu_torch.stages import CheckpointData
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (DP["score_images"], 224, 224, 3),
+                          dtype=np.uint8)
+    r50 = resnet50_bundle(images[:DP["calibration_rows"]],
+                          VISION["resnet_branch_scale"])
+    mesh = dp_mesh(dev)
+
+    def stage():
+        return TPUModel(r50, device=dev, inputCol="x", outputCol="y",
+                        miniBatchSize=DP["score_batch"],
+                        computeDtype="bfloat16")
+
+    table = DataTable({"x": images})
+    one = stage().transform(table)["y"]
+    model = stage().set_mesh(mesh)
+    dp = model.transform(table)["y"]
+    cached = CheckpointData(device=dev, mesh=mesh).transform(table)
+    before = model._get_feed().put_bytes
+    from_cache = model.transform(cached)["y"]
+    put = model._get_feed().put_bytes - before
+    tol = VISION_GATES["resnet50"]["tol"]["bf16"][1]
+    out = {}
+    for what, got in (("TPUModel.set_mesh", dp),
+                      ("CheckpointData over the mesh", from_cache)):
+        check_scores(f"phase 27 (d) {what}", got, one.shape)
+        readings = arm_readings(got, one, tol)
+        ok = (readings["argmax_agreement"] >= AGREE_FLOOR
+              and readings["clear_rows"] >= readings["rows"] / 100
+              and readings["max_logit_gap"] <= tol
+              * readings["max_abs_logit"])
+        print(f"phase 27 (d) resnet50 bf16 {what} at data {DP['n']} against "
+              f"one card: max logit gap "
+              f"{readings['max_logit_gap'] / readings['max_abs_logit']:.3e} "
+              f"of max |logit| (limit {tol}), argmax agreement "
+              f"{readings['argmax_agreement']:.4f} of "
+              f"{readings['clear_rows']} clear rows (floor {AGREE_FLOOR}) "
+              f"[{card}]")
+        require(ok, f"phase 27 (d): {what} scores differ from one card's")
+        out[what] = readings
+    print(f"phase 27 (d) the cached column put {put} bytes on the card "
+          f"[{card}]")
+    require(put == 0, "phase 27 (d): the cached column was copied again")
+    return out
+
+
+def dp_sweep(dev, card) -> dict:
+    """(e) Phase 25's census sweep (4 rates, TrainClassifier over the
+    MLP) at data 2 against one card: member accuracies within
+    DP["sweep_acc_tol"]."""
+    from mmlspark_tpu_torch.ml import (MultilayerPerceptronClassifier,
+                                       TrainClassifier)
+    from mmlspark_tpu_torch.utils.demo_data import adult_census_like
+    data = adult_census_like(n=AUTOML["census_rows"], seed=0)
+    train = data.slice(0, AUTOML["census_train"])
+    sweeps = {}
+    for width, mesh in ((1, None), (DP["n"], dp_mesh(dev))):
+        mlp = MultilayerPerceptronClassifier(layers=[-1, 32, -1], maxIter=40,
+                                             stepSize=SWEEP_RATES[0],
+                                             device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        sm = TrainClassifier(mlp, labelCol="income",
+                             sweepLearningRates=list(SWEEP_RATES),
+                             mesh=mesh).fit(train).sweep_metrics
+        sync(dev)
+        sweeps[width] = ([float(a) for a in sm["accuracy"]],
+                         time.perf_counter() - t0)
+    gap = max(abs(a - b) for a, b in zip(sweeps[DP["n"]][0], sweeps[1][0]))
+    print(f"phase 27 (e) census sweep of {list(SWEEP_RATES)}: member "
+          f"accuracy at data {DP['n']} {sweeps[DP['n']][0]} against one "
+          f"card's {sweeps[1][0]} (max gap {gap:.2e}, tol "
+          f"{DP['sweep_acc_tol']}); {sweeps[DP['n']][1]:.3f} s against "
+          f"{sweeps[1][1]:.3f} s [{card}]")
+    require(gap <= DP["sweep_acc_tol"], "phase 27 (e): the data-2 sweep's "
+            "member accuracies differ")
+    return {"member_accuracy": sweeps[DP["n"]][0],
+            "one_card_member_accuracy": sweeps[1][0], "max_gap": gap,
+            "seconds": sweeps[DP["n"]][1], "one_card_seconds": sweeps[1][1]}
+
+
+def dp_seq_step(dev, card) -> dict:
+    """(f) One step of the seq-parallel ring-flash step, data 1 x seq 2 on
+    this card, f32 at LC_CONFIG's width on 2 x RING["grad_seq"] tokens:
+    every Dense and LayerNorm call sees (2, S/2, .) on the card, and the
+    loss equals phase 20's whole-array forward's within 1e-5."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from mmlspark_tpu_torch.parallel.ring import shard_tokens
+    mesh = make_mesh(MeshSpec(data=1, seq=2), [dev] * 2)
+    seq = RING["grad_seq"]
+    init = ModelBundle.init("TransformerLM", LC_CONFIG, seed=5)
+    ref = seq_grads(dev, mesh, LC_CONFIG, init.variables, ("ring_flash",),
+                    seq)["ring_flash"][0]
+    rows = char_corpus(2, seq, LC_CONFIG["vocab_size"])
+    module = ModelBundle("TransformerLM", {
+        **LC_CONFIG, "dtype": "float32", "attn_impl": "ring_flash",
+        "seq_axis": "seq"}, init.variables).module(dev).train()
+    calls, handles = dense_batches(module)
+    batch = [shard_tokens(a, mesh) for a in (
+        rows[:, :-1].astype(np.int64), rows[:, 1:].astype(np.int64),
+        np.ones((2, seq), np.float32))]
+    params, opt, step = seq_step(module, mesh)
+    _, _, loss = step(params, opt, *batch)
+    loss = float(loss)
+    for handle in handles:
+        handle.remove()
+    shapes = {shape[:2] for _, shape, _ in calls}
+    devices = {str(d) for _, _, d in calls}
+    rel = abs(loss - ref) / abs(ref)
+    print(f"phase 27 (f) ring_flash step, data 1 x seq 2, f32 at "
+          f"LC_CONFIG's width: {len(calls)} Dense / LayerNorm calls at "
+          f"{sorted(shapes)} on {sorted(devices)} (want (2, {seq // 2})); "
+          f"loss {loss:.7f} vs the whole-array forward's {ref:.7f} (rel "
+          f"{rel:.3e}, tol 1e-5) [{card}]")
+    require(shapes == {(2, seq // 2)}, "phase 27 (f): a token-wise layer "
+            "saw more than its shard's slab")
+    require(rel <= 1e-5, "phase 27 (f): the per-shard step's loss differs")
+    del params, opt, step, module
+    torch.cuda.empty_cache()
+    return {"calls": len(calls), "shapes": sorted(shapes), "loss": loss,
+            "whole_array_loss": ref, "loss_rel": rel}
+
+
+def phase_data_parallel(dev, card) -> tuple:
+    """Phase 27: data parallelism over a mesh whose 2 shards share this
+    card, through the port's entry points only: (a) `dp_lm`, (b)
+    `dp_checkpoints`, (c) `dp_vision`, (d) `dp_scoring`, (e) `dp_sweep`,
+    (f) `dp_seq_step`.  Returns (the kernel rows at the data-2 shard
+    shape, the numbers)."""
+    t0 = time.perf_counter()
+    rows, out = dp_lm(dev, card)
+    out = {"lm": out}
+    for key, fn in (("checkpoints", dp_checkpoints), ("vision", dp_vision),
+                    ("scoring", dp_scoring), ("sweep", dp_sweep),
+                    ("seq_step", dp_seq_step)):
+        t1 = time.perf_counter()
+        out[key] = fn(dev, card)
+        torch.cuda.empty_cache()
+        print(f"phase 27 {key}: {time.perf_counter() - t1:.1f} s [{card}]")
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 27: {out['phase_seconds']:.1f} s [{card}]")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8077,6 +8690,8 @@ def main() -> int:
     print(json.dumps({"moe_and_sweep": moe, "card": card}))
     measurement = phase(26, phase_measurement)
     print(json.dumps({"measurement": measurement, "card": card}))
+    dp_rows, data_parallel = phase(27, phase_data_parallel)
+    print(json.dumps({"data_parallel": data_parallel, "card": card}))
     total = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
                                         seconds.items()},
@@ -8098,7 +8713,7 @@ def main() -> int:
     ring_lse[0]["launches"] = seq2["flash_attention[lse]"]
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
-               + ring_lse + d32 + small + wide + ring_rows)
+               + ring_lse + d32 + small + wide + ring_rows + dp_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
             "library_ms")

@@ -784,7 +784,12 @@ class MultilayerPerceptronClassifierModel(ClassifierModel):
 class MultilayerPerceptronClassifier(_DeviceEstimator):
     """MLP classifier (Spark's MultilayerPerceptronClassifier counterpart,
     TrainClassifier.scala:96-101).  `layers` = [in, hidden..., classes];
-    the input size is autosized by TrainClassifier when left as -1."""
+    the input size is autosized by TrainClassifier when left as -1.
+    `set_mesh(mesh)` trains (a fit or a population) data-parallel over
+    the mesh's data axis (`train/trainer.py`, `train/sweep.py`)."""
+
+    # a run-time setting, as `device` is: None trains on `device` alone
+    mesh = None
 
     featuresCol = Param("features", "features column", ptype=str)
     labelCol = Param("label", "label column (class indices)", ptype=str)
@@ -818,10 +823,18 @@ class MultilayerPerceptronClassifier(_DeviceEstimator):
             loss="softmax_xent", seed=int(self.seed))
         return X, y, cfg
 
+    def set_mesh(self, mesh) -> "MultilayerPerceptronClassifier":
+        """Train over `mesh`'s data axis (None: on `device` alone); the
+        models score on the mesh's first device."""
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = resolve_device(mesh.devices.flat[0])
+        return self
+
     def fit(self, table: DataTable) -> MultilayerPerceptronClassifierModel:
         from mmlspark_tpu_torch.train import Trainer
         X, y, cfg = self._fit_inputs(table)
-        bundle = Trainer(cfg, device=self.device).fit_arrays(
+        bundle = Trainer(cfg, mesh=self.mesh, device=self.device).fit_arrays(
             X, y.astype(np.int32))
         return MultilayerPerceptronClassifierModel(
             bundle, device=self.device, featuresCol=self.featuresCol)
@@ -842,6 +855,7 @@ class MultilayerPerceptronClassifier(_DeviceEstimator):
         if not rates:
             raise ParamError("fit_population needs at least one rate")
         pt = PopulationTrainer(cfg, [{"learning_rate": r} for r in rates],
+                               mesh=self.mesh,
                                halving_rungs=int(halving_rungs),
                                device=self.device)
         result = pt.fit_arrays(X, y.astype(np.int32))

@@ -68,10 +68,14 @@ class TrainClassifier(JaxTwin, Estimator):
                               "(0 = train every member to completion)",
                               ptype=int)
 
-    def __init__(self, model: Optional[Estimator] = None, device=None, **kw):
+    def __init__(self, model: Optional[Estimator] = None, device=None,
+                 mesh=None, **kw):
         super().__init__(**kw)
         self._model = model
         self.device = None if device is None else resolve_device(device)
+        # a run-time setting: an MLP learner (a fit or a population)
+        # trains data-parallel over this mesh
+        self.mesh = mesh
 
     def set_model(self, model: Estimator) -> "TrainClassifier":
         self._model = model
@@ -127,6 +131,8 @@ class TrainClassifier(JaxTwin, Estimator):
             learner = learner.copy(layers=layers)
 
         learner.set_params(featuresCol=self.featuresCol, labelCol=label)
+        if is_mlp and self.mesh is not None:
+            learner = learner.copy().set_mesh(self.mesh)
         sweep_metrics = None
         rates = self._sweep_rates(learner) if is_mlp else None
         if rates:

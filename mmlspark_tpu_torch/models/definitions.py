@@ -42,14 +42,23 @@ backward recomputes the dense ops but never re-launches the attention
 kernel.
 
 Sequence parallelism: with `attn_impl` ring | ring_flash | ulysses and
-`seq_axis` ("seq"), the attention of every block runs sequence-sharded
-over the mesh of the enclosing `parallel.ring.use_seq_mesh` block (batch
-over 'data', sequence over 'seq'; `seq_parallel_attention`), as the JAX
-model runs under `shard_map`.  The token-wise layers (embeddings, norms,
-Dense layers, the MLP, the head) run unsharded on the device of the
-tokens, the mesh's first device, as the port's seq decode engine runs
-them: positions are then the global ones by construction, and only the
-attention's K/V (and its gradients) move between shards.
+`seq_axis` ("seq") the model trains per (data, seq) shard through
+`forward_seq_shards` (`parallel/ring.py` `make_seq_parallel_lm_step`):
+each shard embeds its own slab at its global positions and runs its
+token-wise layers (embeddings, norms, Dense layers, the MLP, the head)
+on its own device, and only the attention crosses shards, as the JAX
+model runs under `shard_map`.  A whole-array `forward` inside a
+`parallel.ring.use_seq_mesh` block runs the attention of every block
+sequence-sharded over that mesh (`seq_parallel_attention`) and the
+token-wise layers on the tokens' device, as the port's seq decode engine
+runs them.
+
+Data parallelism (`parallel/ring.py` `ShardGroup`): inside a data shard
+of a step, a training `BatchNorm` takes its statistics over the global
+batch (the shards' sums of x and x^2 and their row counts, summed across
+shards in f32), as the JAX step's jit computes them over the whole
+batch-sharded array; the MoE routes with the global group size
+(`ops/moe.py`).
 """
 
 from __future__ import annotations
@@ -70,7 +79,9 @@ from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.ops.attention import attention
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
 from mmlspark_tpu_torch.ops.moe import MoEMLP
-from mmlspark_tpu_torch.parallel.ring import (active_seq_mesh,
+from mmlspark_tpu_torch.parallel.ring import (active_data_shard,
+                                              active_seq_mesh,
+                                              seq_group_attention,
                                               seq_parallel_attention,
                                               use_seq_mesh)
 from mmlspark_tpu_torch.quant.modules import (quant_conv_apply,
@@ -239,18 +250,34 @@ class TransformerBlock(nn.Module):
             self.mlp_down = Dense(mlp_ratio * d_model, d_model, **kw)
 
     def forward(self, x: torch.Tensor) -> tuple:
+        q, k, v = self.attention_inputs(x)
+        if self.attn_impl in SEQ_IMPLS:
+            o = self._seq_attention(q, k, v)
+        else:
+            o = self.local_attention(q, k, v)
+        return self.after_attention(x, o)
+
+    def local_attention(self, q, k, v) -> torch.Tensor:
+        """Causal attention within (q, k, v) alone: the flash kernels or
+        the dense op."""
+        if self.attn_impl == "flash":
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
+        return attention(q, k, v, causal=True)
+
+    def attention_inputs(self, x: torch.Tensor) -> tuple:
+        """The first norm and the qkv projection: (q, k, v), each (B, S,
+        heads, head dim)."""
         b, s, _ = x.shape
         h = self.LayerNorm_0(x, self.dtype)
         qkv = self.qkv(h)
         shape = (b, s, self.n_heads, self.d_model // self.n_heads)
-        q, k, v = (t.reshape(shape) for t in qkv.split(self.d_model, -1))
-        if self.attn_impl in SEQ_IMPLS:
-            o = self._seq_attention(q, k, v)
-        elif self.attn_impl == "flash":
-            o = flash_attention(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=True)
-        else:
-            o = attention(q, k, v, causal=True)
+        return tuple(t.reshape(shape) for t in qkv.split(self.d_model, -1))
+
+    def after_attention(self, x: torch.Tensor, o: torch.Tensor) -> tuple:
+        """The block's rest after its attention output `o`: the output
+        projection and residual, the second norm and the MLP: (x, sown)."""
+        b, s, _ = x.shape
         if self.name_attention and torch.is_grad_enabled():
             o = attention_output(o)
         x = x + self.proj(o.reshape(b, s, self.d_model))
@@ -383,6 +410,59 @@ class TransformerLM(nn.Module):
         x = self.final_norm_w(x, self.dtype)
         logits = self.lm_head(x).float()
         return (logits, _by_collection(sown)) if collect else logits
+
+    def forward_seq_shards(self, replicas: list, tokens: list, n_seq: int,
+                           remat: bool = False) -> list:
+        """The seq-parallel forward per (data, seq) shard, the body of the
+        JAX step's `shard_map`: `tokens[i]` is shard i's (b/data, s/seq)
+        slab on its own device (shard g * n_seq + j: data group g, seq
+        index j) and `replicas[i]` shard i's replica of this module
+        (`parallel/bridge.py` `ShardReplicas`).  Each shard embeds its
+        slab at positions j * s_l + arange(s_l) and runs its norms, Dense
+        layers, MLP and head on its own device; only the attention crosses
+        shards, each data group's over its seq shards
+        (`parallel/ring.py` `seq_group_attention`).  With `remat` each
+        block, over every shard, is recomputed in the backward.  Returns
+        the per-shard logits (f32); the sown values are dropped, as
+        `module.apply` without `mutable` drops them in the JAX step."""
+        xs = []
+        for i, (rep, tok) in enumerate(zip(replicas, tokens)):
+            s_l = tok.shape[1]
+            pos = (i % n_seq) * s_l + torch.arange(s_l, device=tok.device)
+            xs.append(rep.tok_embed.weight.to(self.dtype)[tok]
+                      + rep.pos_embed.weight.to(self.dtype)[pos][None])
+        context = (_save_attention_contexts
+                   if self.remat_policy == "save_attention" else None)
+        for layer in range(self.n_layers):
+            blocks = [getattr(rep, f"block{layer}_w") for rep in replicas]
+            if remat and torch.is_grad_enabled():
+                kw = {} if context is None else {"context_fn": context}
+                xs = checkpoint(_blocks_over_shards, blocks, n_seq, *xs,
+                                use_reentrant=False, **kw)
+            else:
+                xs = _blocks_over_shards(blocks, n_seq, *xs)
+        return [rep.lm_head(rep.final_norm_w(x, self.dtype)).float()
+                for rep, x in zip(replicas, xs)]
+
+
+def _blocks_over_shards(blocks: list, n_seq: int, *xs) -> tuple:
+    """One block over every (data, seq) shard: each shard's norm and qkv
+    projection, each data group's attention across its seq shards, each
+    shard's rest of the block.  A model whose attention is not
+    sequence-sharded attends within each shard's slab (as it would inside
+    the JAX step's `shard_map`; at seq 1, the whole sequence)."""
+    qkv = [blk.attention_inputs(x) for blk, x in zip(blocks, xs)]
+    impl = blocks[0].attn_impl
+    if impl in SEQ_IMPLS:
+        outs: list = []
+        for g in range(0, len(xs), n_seq):
+            q, k, v = ([t.contiguous() for t in part]
+                       for part in zip(*qkv[g:g + n_seq]))
+            outs += seq_group_attention(impl, q, k, v, causal=True)
+    else:
+        outs = [blk.local_attention(*t) for blk, t in zip(blocks, qkv)]
+    return tuple(blk.after_attention(x, o)[0]
+                 for blk, x, o in zip(blocks, xs, outs))
 
 
 def init_transformer_lm_params(config: dict, seed: int = 0) -> dict:
@@ -561,8 +641,10 @@ class BatchNorm(nn.Module):
     with flax's fast biased variance max(0, E[x^2] - E[x]^2); the output
     is (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast to the
     compute dtype, and the buffers move in place to 0.99 * buffer + (1 -
-    0.99) * batch statistic, the variance biased as flax keeps it
-    (`F.batch_norm(training=True)` would update with the unbiased one).
+    0.99) * batch statistic (under a data-parallel step the global
+    batch's, moved once, by shard 0: module docstring), the variance
+    biased as flax keeps it (`F.batch_norm(training=True)` would update
+    with the unbiased one).
     Inside `functional_batch_stats()` the buffers stay as they are and
     the new statistics go to the block's dict instead (a functional form,
     for `torch.func.vmap`, under which the in-place update cannot run)."""
@@ -588,15 +670,29 @@ class BatchNorm(nn.Module):
         # innermost axis (vectorized kernels on the card)
         xf = nhwc(x).float()
         dims = (0, 1, 2)
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        shard = active_data_shard()
+        if shard is None or shard.count == 1:
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        else:
+            # the global batch's statistics: every shard's sums and row
+            # count summed across the shards (differentiable, so the
+            # backward carries the cross-shard terms)
+            rows = torch.full((1,), float(xf[..., 0].numel()),
+                              device=xf.device)
+            s1, s2, n = shard.group.all_sum(
+                shard.index, (xf.sum(dims), (xf * xf).sum(dims), rows))
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
         sink = _STATS_SINK[-1] if _STATS_SINK else None
         with torch.no_grad():
             moved = [BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat
                      for buf, stat in ((self.mean, mean), (self.var, var))]
             if sink is not None:
                 sink[self] = moved
-            else:
+            elif shard is None or shard.index == 0:
+                # one update from the global values (shard 0 owns the
+                # statistics the checkpoint and the bundle read)
                 self.mean.copy_(moved[0])
                 self.var.copy_(moved[1])
         mul = torch.rsqrt(var + BN_EPS) * self.scale

@@ -3,8 +3,13 @@ port of `mmlspark_tpu/models/tpu_model.py`; the counterpart of
 MMLSpark's CNTKModel).
 
 `transform` streams fixed-shape minibatches of the input column through
-the bundle's module on one device: every batch is `miniBatchSize` rows
-(the last zero-padded, its output trimmed), so the device sees one shape.
+the bundle's module: every batch is `miniBatchSize` rows (the last
+zero-padded, its output trimmed), so the device sees one shape.  Over a
+mesh (`set_mesh`, or with none set `parallel.mesh.default_mesh`, the
+JAX stage's `_get_mesh`) each minibatch is padded to a multiple of the
+data axis, cut into contiguous slabs and scored per shard, the module
+replicated once to each distinct device (CNTKModel's Spark partitions);
+the results are joined in row order.
 The scoring models are torch modules whose convolutions, Dense layers,
 BatchNorm and pools run on cuDNN and cuBLAS; no hand-written kernel lies
 on this path.
@@ -32,12 +37,13 @@ on this path.
     the device; other integer columns are not cast; float64 columns are
     scored as float32, as JAX (without x64) places them.
   * **CheckpointData**: a table whose input column `stages.CheckpointData`
-    cached on the stage's device is scored from that tensor: each
-    minibatch is a slice of it (the last zero-padded on the device), so
-    the column makes no host->device copy (`DeviceFeed.put_bytes` stays
-    where it was); float64 / int64 narrow on the device as they do on the
-    host.  `transform_batches` reads the host column, as the JAX stage's
-    does.
+    cached on the stage's devices is scored from the cache: one tensor on
+    one device, or over a mesh one contiguous slab per shard, which that
+    shard scores in minibatches of its share of `miniBatchSize` (the last
+    zero-padded on the device), so the column makes no host->device copy
+    (`DeviceFeed.put_bytes` stays where it was); float64 / int64 narrow
+    on the device as they do on the host.  `transform_batches` reads the
+    host column, as the JAX stage's does.
   * **Outputs**: numpy has no bfloat16, so a bfloat16 node (selected from
     a bf16 module without an override) comes out widened, exactly, to
     float32; the JAX stage returns it as bfloat16.
@@ -46,9 +52,9 @@ Under `run_telemetry` each new batch shape class raises a `recompile`
 event and its first batch is counted for the run's roofline row
 (`observe/costmodel.py`), with one synced probe forward after it.
 
-Not ported, raising with its ROADMAP item: a mesh of several devices
-(`set_mesh`, the multi-host path; A10).  A TransformerLM bundle is
-scored by `TextGenerator`, not here.
+Not ported, raising with its ROADMAP item: a mesh with a model axis and
+the multi-host path (A10).  A TransformerLM bundle is scored by
+`TextGenerator`, not here.
 """
 
 from __future__ import annotations
@@ -73,13 +79,15 @@ from mmlspark_tpu_torch.observe.trace import (active_tracer,
                                               current_span_id,
                                               span_on_tracer)
 from mmlspark_tpu_torch.parallel.bridge import DeviceFeed
+from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, batch_devices,
+                                              default_mesh)
 from mmlspark_tpu_torch.data import Dataset
 from mmlspark_tpu_torch.parallel.prefetch import OncePerTable, resolve_depth
 
 
 class TPUModel(Transformer):
-    """Score a table column through a bundle's model on one device
-    (module docstring)."""
+    """Score a table column through a bundle's model on one device or
+    over a mesh's data axis (module docstring)."""
 
     saved_class = "mmlspark_tpu.models.tpu_model.TPUModel"
 
@@ -111,8 +119,11 @@ class TPUModel(Transformer):
         super().__init__(**kwargs)
         self.device = resolve_device(device)
         self._bundle = bundle
-        self._modules: dict = {}   # compute dtype -> module on the device
-        self._feed: Optional[DeviceFeed] = None
+        # (compute dtype, device) -> the module there
+        self._modules: dict = {}
+        self._feeds: dict = {}     # device -> its DeviceFeed
+        self._mesh = None
+        self._shards: Optional[list] = None   # each shard's device
         # batch shape classes scored under telemetry (a NEW one is a
         # `recompile` event, as in the JAX package) and their cost rows
         # (counted over the class's first batch, replayed into later runs)
@@ -132,19 +143,31 @@ class TPUModel(Transformer):
         return self._bundle
 
     def set_mesh(self, mesh) -> "TPUModel":
-        """Score on a one-device `parallel.mesh.Mesh`'s device; a mesh of
-        several devices is not ported."""
-        devices = list(mesh.devices.flat)
-        if len(devices) > 1:
+        """Score over `mesh`'s data axis (`parallel.mesh.Mesh`): the module
+        replicated to each distinct device, each minibatch cut into one
+        slab per shard.  A model axis raises (ROADMAP A10)."""
+        if mesh.shape[MODEL_AXIS] > 1:
             raise NotImplementedError(
-                f"TPUModel over a mesh of {len(devices)} devices is not "
-                "ported (ROADMAP A10); it scores on one device")
-        self.device = resolve_device(devices[0])
+                f"TPUModel over a mesh with a model axis ({mesh.shape}) is "
+                "not ported: tensor parallelism (ROADMAP A10)")
+        self._mesh = mesh
+        self._shards = [resolve_device(d) for d in batch_devices(mesh)]
+        self.device = self._shards[0]
         self._modules.clear()
-        self._feed = None
+        self._feeds.clear()
         self._seen_shapes.clear()
         self._costs.clear()
         return self
+
+    def shard_devices(self) -> list:
+        """Each shard's device: the mesh's data axis, or with none set
+        `default_mesh`'s (this stage's own device when that is one
+        shard)."""
+        if self._shards is None:
+            shards = batch_devices(default_mesh(self.device))
+            self._shards = [self.device] if len(shards) == 1 else shards
+            self.device = self._shards[0]
+        return self._shards
 
     def _select_output(self, final, nodes: dict):
         name, idx = self.outputNodeName, self.outputNodeIndex
@@ -165,9 +188,10 @@ class TPUModel(Transformer):
         return ((self._bundle.metadata or {}).get("quantization")
                 or {}).get("mode")
 
-    def _scoring_module(self) -> torch.nn.Module:
-        """The bundle's module on the device, rebuilt at `computeDtype`
-        when the Param is set (cached per dtype)."""
+    def _scoring_module(self, device=None) -> torch.nn.Module:
+        """The bundle's module on `device` (default the stage's first),
+        rebuilt at `computeDtype` when the Param is set (cached per dtype
+        and device)."""
         if self._bundle is None:
             raise ValueError("TPUModel has no model bundle; call set_bundle()")
         if self._bundle.architecture == "TransformerLM":
@@ -175,11 +199,12 @@ class TPUModel(Transformer):
                 "TPUModel over a TransformerLM bundle is not ported; score "
                 "it with TextGenerator (ROADMAP A3)")
         cd = self.computeDtype
-        if cd not in self._modules:
+        device = self.device if device is None else device
+        if (cd, device) not in self._modules:
             config = (None if cd is None
                       else {**self._bundle.config, "dtype": cd})
-            self._modules[cd] = self._bundle.module(self.device, config)
-        return self._modules[cd]
+            self._modules[cd, device] = self._bundle.module(device, config)
+        return self._modules[cd, device]
 
     def _apply(self, module, x: torch.Tensor) -> torch.Tensor:
         """The forward of one device batch, its selected node as the table
@@ -197,23 +222,25 @@ class TPUModel(Transformer):
             out = out.float()
         return out
 
-    def _scored(self, module, x: torch.Tensor, key: str, run, tracer,
-                parent) -> torch.Tensor:
-        """`_apply` of one batch of shape class `key`; under a run, a new
-        class raises a `recompile` event and its first batch is counted
+    def _scored(self, modules: list, xs: list, key: str, run, tracer,
+                parent) -> list:
+        """`_apply` of one batch of shape class `key`, shard by shard
+        (`modules[i]` over `xs[i]`); under a run, a new class raises a
+        `recompile` event and its first batch is counted
         (observe/costmodel.py), with a synced probe forward after it for a
         clean step time (the forward has no side effect); later batches
         add their dispatch walls."""
+        def apply():
+            return [self._apply(m, x) for m, x in zip(modules, xs)]
         if run is None:
-            return self._apply(module, x)
+            return apply()
         if key not in self._seen_shapes:
             self._seen_shapes.add(key)
             tracer.event("recompile", parent=parent, cat="compile",
                          where="tpu_model", shape_class=key)
-        with self._costs.execution(run, key,
-                                   probe=lambda: self._apply(module, x),
+        with self._costs.execution(run, key, probe=apply,
                                    device=self.device):
-            return self._apply(module, x)
+            return apply()
 
     @staticmethod
     def _tensor_column(col: np.ndarray) -> np.ndarray:
@@ -241,10 +268,13 @@ class TPUModel(Transformer):
         out = self._apply(module, feed.ready(dev, event))
         return feed.take(feed.fetch(out), 0)
 
-    def _get_feed(self) -> DeviceFeed:
-        if self._feed is None:
-            self._feed = DeviceFeed(self.device)
-        return self._feed
+    def _get_feed(self, device=None) -> DeviceFeed:
+        """The `DeviceFeed` of `device` (default the stage's first), one
+        per distinct device."""
+        device = self.device if device is None else device
+        if device not in self._feeds:
+            self._feeds[device] = DeviceFeed(device)
+        return self._feeds[device]
 
     def _check_input(self, table) -> str:
         self._check_required()
@@ -261,61 +291,81 @@ class TPUModel(Transformer):
         in_col = self._check_input(table)
         cached = getattr(table, "_device_cache", {}).get(in_col)
         if cached is not None:
-            return table.with_column(self.outputCol,
-                                     self._transform_cached(cached))
+            return table.with_column(
+                self.outputCol,
+                self._transform_cached(cached, len(table[in_col])))
         [scored] = list(self.transform_batches([table]))
         return scored
 
-    def _transform_cached(self, column: torch.Tensor) -> np.ndarray:
-        """Score a column held on the device (module docstring): batches
-        are slices of it, with the dispatch window of the streaming
-        loop."""
-        if column.device.type != self.device.type or (
-                self.device.index is not None
-                and column.device.index != self.device.index):
+    def _transform_cached(self, column, n: Optional[int] = None
+                          ) -> np.ndarray:
+        """Score a column held on the devices (module docstring): one
+        tensor, or a list of contiguous slabs, slab i on shard i's device
+        (`n` the valid rows, default all).  Each shard scores its slab in
+        minibatches of its share of `miniBatchSize`, with the dispatch
+        window of the streaming loop."""
+        devices = self.shard_devices()
+        slabs = list(column) if isinstance(column, (list, tuple)) \
+            else [column]
+        if len(slabs) != len(devices) or any(
+                t.device.type != d.type or (d.index is not None
+                                            and t.device.index != d.index)
+                for t, d in zip(slabs, devices)):
             raise ValueError(
-                f"the column is cached on {column.device}; the stage "
-                f"scores on {self.device}")
-        module = self._scoring_module()
-        if column.dtype == torch.float64:
-            column = column.float()
-        elif column.dtype == torch.int64:
-            column = column.int()
-        n, bs = column.shape[0], self.miniBatchSize
+                f"the column is cached on {[str(t.device) for t in slabs]}; "
+                f"the stage scores on {[str(d) for d in devices]}")
+        modules = [self._scoring_module(d) for d in devices]
+        slabs = [t.float() if t.dtype == torch.float64 else
+                 t.int() if t.dtype == torch.int64 else t for t in slabs]
+        length = slabs[0].shape[0]
+        n = length * len(slabs) if n is None else n
         if n == 0:
             return self._empty_output(
-                module, np.zeros(tuple(column.shape),
-                                 str(column.dtype)[6:]))
-        feed = self._get_feed()
+                modules[0], np.zeros((0,) + tuple(slabs[0].shape[1:]),
+                                     str(slabs[0].dtype)[6:]))
+        bs = -(-self.miniBatchSize // len(slabs))
+        valid = [min(max(n - i * length, 0), length)
+                 for i in range(len(slabs))]
+        feeds = [self._get_feed(d) for d in devices]
         timings, tracer, run = active_timings(), active_tracer(), active_run()
         window = resolve_depth(self.prefetchDepth)[0]
         in_flight: list = []
-        parts: list = []
-        for start in range(0, n, bs):
-            valid = min(bs, n - start)
+        parts: list = [[] for _ in slabs]
+        for start in range(0, length, bs):
+            rows = min(bs, length - start)
             with span_on(timings, "transfer"):
-                chunk = column[start:start + bs]
-                if valid < bs:
-                    chunk = torch.cat([chunk, chunk.new_zeros(
-                        (bs - valid,) + tuple(chunk.shape[1:]))])
-            key = f"{tuple(chunk.shape)}:{str(chunk.dtype)[6:]}"
+                chunks = [t[start:start + bs] for t in slabs]
+                if rows < bs:
+                    chunks = [torch.cat([c, c.new_zeros(
+                        (bs - rows,) + tuple(c.shape[1:]))]) for c in chunks]
+            key = (f"{(bs * len(slabs),) + tuple(chunks[0].shape[1:])}:"
+                   f"{str(chunks[0].dtype)[6:]}")
             parent = current_span_id()
             with span_on_tracer(tracer, "score.batch",
                                 parent=parent, cat="batch",
-                                shape_class=key, rows=valid,
+                                shape_class=key,
+                                rows=sum(min(max(v - start, 0), bs)
+                                         for v in valid),
                                 device_cached=True), \
                     span_on(timings, "compute"):
-                out = self._scored(module, chunk, key, run, tracer,
-                                   parent)
-                in_flight.append((feed.fetch(out), valid))
+                outs = self._scored(modules, chunks, key, run, tracer,
+                                    parent)
+                in_flight.append([(feed.fetch(out),
+                                   min(max(v - start, 0), bs))
+                                  for feed, out, v in zip(feeds, outs,
+                                                          valid)])
             while len(in_flight) > window:
-                handle, rows = in_flight.pop(0)
+                handles = in_flight.pop(0)
                 with span_on(timings, "drain"):
-                    parts.append(feed.take(handle, rows))
-        for handle, rows in in_flight:
+                    for i, (feed, (handle, k)) in enumerate(
+                            zip(feeds, handles)):
+                        parts[i].append(feed.take(handle, k))
+        for handles in in_flight:
             with span_on(timings, "drain"):
-                parts.append(feed.take(handle, rows))
-        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+                for i, (feed, (handle, k)) in enumerate(zip(feeds, handles)):
+                    parts[i].append(feed.take(handle, k))
+        flat = [p for shard in parts for p in shard]
+        return flat[0] if len(flat) == 1 else np.concatenate(flat)
 
     def transform_batches(self, tables) -> Iterator[DataTable]:
         """Streaming scoring: for each incoming table (any iterable of
@@ -324,9 +374,12 @@ class TPUModel(Transformer):
         batches are resident on the host or the device, and the window
         stays open across table boundaries (module docstring)."""
         self._check_required()
-        module = self._scoring_module()
+        devices = self.shard_devices()
+        modules = [self._scoring_module(d) for d in devices]
+        feeds = [self._get_feed(d) for d in devices]
         bs = self.miniBatchSize
-        feed = self._get_feed()
+        # each shard's slab of a minibatch padded to a multiple of them
+        slab = -(-bs // len(devices))
         timings = active_timings()   # captured HERE: workers have no context
         tracer, run = active_tracer(), active_run()
         score_span = tracer.span(
@@ -359,16 +412,19 @@ class TPUModel(Transformer):
                                 cat="stage"):
                 with span_on(timings, "host"):
                     rows = column.get()[start:start + bs]
-                    host = feed.stage(rows, bs)
+                    hosts = [feed.stage(rows[i * slab:(i + 1) * slab], slab)
+                             for i, feed in enumerate(feeds)]
                 with span_on(timings, "transfer"):
-                    dev, event = feed.put(host)
-            return kind, rec, dev, event, len(rows)
+                    puts = [feed.put(h) for feed, h in zip(feeds, hosts)]
+            return kind, rec, puts, None, len(rows)
 
         def drain(limit: int):
             while len(in_flight) > limit:
-                handle, valid, rec = in_flight.pop(0)
+                handles, valid, rec = in_flight.pop(0)
                 with span_on(timings, "drain"):
-                    rec["parts"].append(feed.take(handle, valid))
+                    for i, (feed, handle) in enumerate(zip(feeds, handles)):
+                        rec["parts"].append(feed.take(
+                            handle, min(max(valid - i * slab, 0), slab)))
                 rec["n_left"] -= 1
             while pending and pending[0]["n_left"] == 0:
                 rec = pending.pop(0)
@@ -391,20 +447,24 @@ class TPUModel(Transformer):
                     rec["queued"] = True
                     pending.append(rec)
                 if kind == "empty":   # payload: the table's column
-                    rec["parts"] = [self._empty_output(module,
+                    rec["parts"] = [self._empty_output(modules[0],
                                                        payload.get())]
                     drain(len(in_flight))
                 else:
-                    dev = payload
-                    key = f"{tuple(dev.shape)}:{str(dev.dtype)[6:]}"
+                    # payload: each shard's (tensor, event)
+                    xs = [feed.ready(*put)
+                          for feed, put in zip(feeds, payload)]
+                    key = (f"{(slab * len(xs),) + tuple(xs[0].shape[1:])}:"
+                           f"{str(xs[0].dtype)[6:]}")
                     with span_on_tracer(tracer, "score.batch",
                                         parent=score_id, cat="batch",
                                         shape_class=key, rows=valid), \
                             span_on(timings, "compute"):
-                        out = self._scored(module, feed.ready(dev, event),
-                                           key, run, tracer, score_id)
-                        handle = feed.fetch(out)
-                    in_flight.append((handle, valid, rec))
+                        outs = self._scored(modules, xs, key, run, tracer,
+                                            score_id)
+                        handles = [feed.fetch(out)
+                                   for feed, out in zip(feeds, outs)]
+                    in_flight.append((handles, valid, rec))
                     drain(score_runner.depth)
                 while ready:
                     yield ready.pop(0)

@@ -52,13 +52,15 @@ def _nonfinite_count(tree: Mapping[str, torch.Tensor]):
 def tree_health(params: Mapping[str, torch.Tensor],
                 grads: Mapping[str, torch.Tensor],
                 updates: Mapping[str, torch.Tensor],
-                acts: Optional[torch.Tensor] = None) -> dict:
+                acts=None) -> dict:
     """The flat health dict of 0-d f32 tensors over name -> tensor maps.
 
     Keys: `nonfinite_params` / `nonfinite_grads` / `nonfinite_acts`
     (element counts), `param_norm/<group>`, `grad_norm/<group>`,
     `update_ratio/<group>` (||update|| / (||param|| + eps)), and
-    `act_norm` over `acts` when given."""
+    `act_norm` over `acts` when given.  `acts` may be a list of per-shard
+    tensors (a data-parallel step's logits): their counts and squared
+    sums add up on the first one's device, as over the joined batch."""
     eps = 1e-12
     health: dict = {
         "nonfinite_params": _nonfinite_count(params),
@@ -75,7 +77,15 @@ def tree_health(params: Mapping[str, torch.Tensor],
         if g in u_sq:
             health[f"update_ratio/{g}"] = torch.sqrt(u_sq[g]) / (p_norm
                                                                  + eps)
-    if acts is not None:
+    if isinstance(acts, (list, tuple)):
+        home = acts[0].device
+        parts = [a.float() for a in acts]
+        health["act_norm"] = torch.sqrt(torch.stack([
+            torch.sum(torch.square(a)).to(home) for a in parts]).sum())
+        health["nonfinite_acts"] = torch.stack([
+            torch.sum(~torch.isfinite(a)).float().to(home)
+            for a in parts]).sum()
+    elif acts is not None:
         acts = acts.float()
         health["act_norm"] = torch.sqrt(torch.sum(torch.square(acts)))
         health["nonfinite_acts"] = torch.sum(~torch.isfinite(acts)).float()

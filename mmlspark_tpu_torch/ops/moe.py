@@ -36,6 +36,15 @@ even with atomic adds: a real row receives at most two contributions,
 and a + b is b + a (the empty and dropped slots all add into pad rows
 that are thrown away).
 
+Under a data-parallel step (`parallel/ring.py` `active_data_shard`) the
+JAX step's jit sees the whole batch, so the group size is `_group_size`
+over the GLOBAL token count (shard tokens x shards), and each shard routes
+its own tokens in groups of that size; a shard whose token count that
+size does not divide would need a group straddling two shards, and
+raises `ValueError` (a port difference).  Each shard's sown values are
+means over its own groups; the shards have equal group counts, so the
+Trainer averages them over the shards.
+
 Expert parallelism (`expert_axis`, `expert_parallel_rules`) is not ported
 (ROADMAP A10): it raises.
 """
@@ -50,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmlspark_tpu_torch.core.device import exact_f32, resolve_device
+from mmlspark_tpu_torch.parallel.ring import active_data_shard
 
 EXPERT_PARALLEL_UNPORTED = (
     "expert parallelism (expert_axis, expert_parallel_rules) is not ported "
@@ -140,7 +150,7 @@ def moe_apply(x: torch.Tensor, router_weight: torch.Tensor,
               router_bias: torch.Tensor, w_in: torch.Tensor,
               w_out: torch.Tensor, *, router_k: int = 1,
               group_size: int = 512, capacity_factor: float = 1.25,
-              z_loss_weight: float = 1e-3) -> tuple:
+              z_loss_weight: float = 1e-3, shards: int = 1) -> tuple:
     """The MoE MLP over x (B, S, D): (y (B, S, D) in x's dtype, sown).
 
     `router_weight` (E, D) and `router_bias` (E,) are f32; `w_in` (E, D,
@@ -148,11 +158,18 @@ def moe_apply(x: torch.Tensor, router_weight: torch.Tensor,
     its f32 masters per call, the serving weights once).  `sown` holds
     {"losses": {"moe_aux_loss", "moe_z_loss"}, "metrics":
     {"moe_overflow_fraction"}}, 0-d f32 tensors, the values the flax
-    module sows."""
+    module sows.  `shards`: x is one of that many equal data shards of
+    the batch, routed with the group size of the whole batch (module
+    docstring)."""
     b, s, d = x.shape
     t = b * s
     e = w_in.shape[0]
-    gs = _group_size(t, group_size)
+    gs = _group_size(t * shards, group_size)
+    if t % gs:
+        raise ValueError(
+            f"a data shard's {t} tokens do not split into routing groups "
+            f"of {gs} (the group size of the global batch of {t * shards} "
+            f"tokens): a group would straddle two shards")
     g = t // gs
     capacity = capacity_of(gs, e, capacity_factor, router_k)
     xf = x.reshape(t, d)
@@ -225,11 +242,13 @@ class MoEMLP(nn.Module):
                                               device=device))
 
     def forward(self, x: torch.Tensor) -> tuple:
+        shard = active_data_shard()
         return moe_apply(x, self.router.weight, self.router.bias,
                          self.w_in.to(self.dtype), self.w_out.to(self.dtype),
                          router_k=self.router_k, group_size=self.group_size,
                          capacity_factor=self.capacity_factor,
-                         z_loss_weight=self.z_loss_weight)
+                         z_loss_weight=self.z_loss_weight,
+                         shards=1 if shard is None else shard.count)
 
 
 def is_expert_stack(path, shape, axis_size: int = 1) -> bool:

@@ -1,5 +1,10 @@
+from mmlspark_tpu_torch.parallel.bridge import (gather_to_host,
+                                                pad_to_multiple, shard_batch,
+                                                shard_table_columns)
 from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
-                                              Mesh, MeshSpec, make_mesh)
+                                              Mesh, MeshSpec, best_mesh,
+                                              default_mesh, make_mesh,
+                                              mesh_spec_from_config)
 from mmlspark_tpu_torch.parallel.partition import (DEFAULT_RULES,
                                                    SEQ_KV_CACHE_SPEC,
                                                    SEQ_KV_SCALE_SPEC,

@@ -1,5 +1,5 @@
 """Host table <-> device tensor bridge (the port of
-`mmlspark_tpu/parallel/bridge.py`'s one-device half).
+`mmlspark_tpu/parallel/bridge.py`).
 
 `pad_to_multiple` zero-pads a host batch to a fixed row count, so every
 batch of a scoring pass has one shape.  `DeviceFeed` stages fixed-shape
@@ -24,15 +24,32 @@ tensors and `take` reads the output directly.
 
 `stack_trees` / `unstack_member` stack structurally identical trees on a
 leading population axis and slice one member back out (train/sweep.py).
+
+Over a `Mesh` (single controller, `parallel/mesh.py`) a batch sharded
+along 'data' is a list of per-shard tensors: `shard_batch`,
+`shard_table_columns` and `put_batch_parts` cut host rows into `data`
+contiguous slabs (padded to a multiple by `pad_to_multiple`, as
+`P("data")` cuts them), slab i on the mesh's data row i.
+`gather_replicated` / `gather_to_host` join the slabs back in row order;
+`put_tree` / `snapshot_tree` place or copy a tree of tensors, a list of
+per-shard tensors keeping one entry per shard.  `replicate_module` gives
+each shard a module whose parameters are leaves of their own, sharing
+storage with one copy per distinct device (the weights replicated,
+`P()`).
 """
 
 from __future__ import annotations
 
+import copy
 import threading
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
+
+from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, batch_devices,
+                                              distinct_devices)
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int,
@@ -46,6 +63,183 @@ def pad_to_multiple(arr: np.ndarray, multiple: int,
     widths = [(0, 0)] * arr.ndim
     widths[axis] = (0, multiple - rem)
     return np.pad(arr, widths), n
+
+
+def _slabs(arr: np.ndarray, devices: Sequence) -> list:
+    """`arr` (rows a multiple of len(devices)) as contiguous row slabs,
+    slab i a tensor on devices[i]."""
+    n = len(devices)
+    step = arr.shape[0] // n
+    return [torch.as_tensor(np.ascontiguousarray(arr[i * step:(i + 1) * step]),
+                            device=dev) for i, dev in enumerate(devices)]
+
+
+def shard_batch(arr: np.ndarray, mesh, *, axis: str = DATA_AXIS) -> list:
+    """A host batch on the mesh, cut along its leading dim over `axis`
+    (zero-padded to a multiple): one slab per shard, in row order."""
+    if axis != DATA_AXIS:
+        raise NotImplementedError(
+            f"batches cut along '{axis}' are not ported (ROADMAP A10)")
+    padded, _ = pad_to_multiple(np.asarray(arr), mesh.shape[axis])
+    return _slabs(padded, batch_devices(mesh))
+
+
+def shard_table_columns(table, columns: Sequence[str], mesh, *,
+                        axis: str = DATA_AXIS, dtype=None) -> tuple:
+    """Table columns as sharded device slabs: ({column: [slab, ...]},
+    valid row count); rows past the count are padding."""
+    out: dict = {}
+    valid = table.num_rows
+    for c in columns:
+        col = table[c]
+        if col.dtype == object:
+            raise TypeError(
+                f"column '{c}' is an object column; tensorize it first")
+        arr = col.astype(dtype) if dtype is not None else col
+        out[c] = shard_batch(arr, mesh, axis=axis)
+    return out, valid
+
+
+def put_batch_parts(mesh, *arrays: np.ndarray,
+                    axis: str = DATA_AXIS) -> tuple:
+    """Several row-aligned host arrays cut over `axis`, one list of slabs
+    each.  Leading dims must already divide (the caller pads with its own
+    pad values)."""
+    for a in arrays:
+        if a.shape[0] % mesh.shape[axis]:
+            raise ValueError(
+                f"leading dim {a.shape[0]} not divisible by the mesh "
+                f"'{axis}' axis ({mesh.shape[axis]}); pad rows first "
+                f"(pad_to_multiple)")
+    return tuple(shard_batch(a, mesh, axis=axis) for a in arrays)
+
+
+def gather_replicated(tree: Any, mesh) -> Any:
+    """Every sharded leaf (a list of slabs) joined in row order on the
+    mesh's first device; a tensor leaf moved there."""
+    home = mesh.devices.flat[0]
+    if isinstance(tree, dict):
+        return {k: gather_replicated(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(gather_replicated(v, mesh) for v in tree)
+    if isinstance(tree, list):
+        return torch.cat([t.to(home) for t in tree])
+    if isinstance(tree, torch.Tensor):
+        return tree.to(home)
+    return tree
+
+
+def gather_to_host(tree: Any, mesh) -> Any:
+    """`gather_replicated` on the host: numpy arrays."""
+    def host(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().cpu().numpy()
+        return leaf
+    gathered = gather_replicated(tree, mesh)
+    return _map(host, gathered)
+
+
+def _map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def put_tree(tree: Any, devices: Any) -> Any:
+    """Every leaf of `tree` on its device: `devices` is one device for the
+    whole tree, or a tree of the same structure (a list of per-shard
+    tensors takes a list of devices)."""
+    if not isinstance(devices, (dict, list, tuple)):
+        return _map(lambda t: torch.as_tensor(t, device=devices), tree)
+    if isinstance(tree, dict):
+        return {k: put_tree(v, devices[k]) for k, v in tree.items()}
+    return type(tree)(put_tree(v, d) for v, d in zip(tree, devices))
+
+
+def snapshot_tree(tree: Any) -> Any:
+    """A copy of every tensor leaf on its own device (the asynchronous
+    checkpoint's snapshot: later in-place updates do not reach it)."""
+    return _map(lambda t: t.detach().clone()
+                if isinstance(t, torch.Tensor) else t, tree)
+
+
+def replicate_module(module: nn.Module, device: torch.device,
+                     leaf_of: Callable) -> nn.Module:
+    """A replica of `module` for one shard on `device`: the module tree
+    copied shallowly (configuration, hooks and code shared), each
+    parameter replaced by `leaf_of(name, parameter)` (a leaf of the
+    shard's own), each buffer the module's own where it lives on
+    `device`, else a copy there."""
+    def walk(mod: nn.Module, prefix: str) -> nn.Module:
+        rep = copy.copy(mod)
+        rep._parameters = {
+            n: None if p is None else leaf_of(prefix + n, p)
+            for n, p in mod._parameters.items()}
+        rep._buffers = {
+            n: None if b is None else (b if b.device == device
+                                       else b.to(device))
+            for n, b in mod._buffers.items()}
+        rep._modules = {n: None if m is None else walk(m, f"{prefix}{n}.")
+                        for n, m in mod._modules.items()}
+        return rep
+    return walk(module, "")
+
+
+class ShardReplicas:
+    """One replica of a module per shard (`devices[i]` holds shard i):
+    the module's own parameters are the f32 masters on the home device
+    (`devices[0]`); each other distinct device keeps one copy of them.
+    Every shard's replica has parameter leaves of its own (so each
+    shard's gradients stay apart until `reduced_grads`) sharing storage
+    with its device's copy: where shards share a device, no copy is
+    made."""
+
+    def __init__(self, module: nn.Module, devices: Sequence):
+        self.devices = [torch.device(d) for d in devices]
+        self.home = self.devices[0]
+        masters = dict(module.named_parameters())
+        self.names = list(masters)
+        self.copies = {self.home: masters}
+        for dev in distinct_devices(self.devices)[1:]:
+            self.copies[dev] = {n: p.detach().to(dev)
+                                for n, p in masters.items()}
+        self.leaves: list = []
+        self.shards: list = []
+        for dev in self.devices:
+            own: dict = {}
+
+            def leaf_of(name, _p, dev=dev, own=own):
+                own[name] = nn.Parameter(self.copies[dev][name].detach())
+                return own[name]
+            self.shards.append(replicate_module(module, dev, leaf_of))
+            self.leaves.append([own[n] for n in self.names])
+
+    def zero_grad(self) -> None:
+        for leaves in self.leaves:
+            for p in leaves:
+                p.grad = None
+
+    def reduced_grads(self) -> list:
+        """Each parameter's gradient summed over the shards on the home
+        device, in shard order (`parallel/ring.py` `reduce_to_home`); a
+        shard the loss did not reach adds zeros."""
+        from mmlspark_tpu_torch.parallel.ring import reduce_to_home
+        return [reduce_to_home([
+            leaves[j].grad if leaves[j].grad is not None
+            else torch.zeros_like(leaves[j]) for leaves in self.leaves])
+            for j in range(len(self.names))]
+
+    @torch.no_grad()
+    def broadcast(self) -> None:
+        """The masters' values to every other distinct device's copy (after
+        an update or a restore)."""
+        masters = self.copies[self.home]
+        for dev, copies in self.copies.items():
+            if dev != self.home:
+                for n, t in copies.items():
+                    t.copy_(masters[n])
 
 
 def stack_trees(trees: Sequence[Any]) -> Any:

@@ -12,6 +12,15 @@ way the JAX tests put 8 virtual devices on one CPU.  Every layout, slot
 ownership and cross-shard merge still runs; only the traffic between
 cards does not.  A multi-process mesh over `torch.distributed` (several
 hosts) is later work.
+
+The default meshes (`mesh_spec_from_config`, `default_mesh`, `best_mesh`,
+:31-52 and :96-140) read the JAX package's knobs MMLSPARK_TPU_MESH_DATA,
+_MODEL and _SEQ from the port's registry.  They span the visible cards,
+or `[torch.device("cpu")] * n` when asked for the host.  The placements
+are plain functions: `batch_devices` names the device of each slab of a
+batch cut along 'data' (`P("data")`: contiguous row slabs, slab i on the
+mesh's i-th data row), `distinct_devices` the devices a replicated weight
+lives on once each (`P()`).
 """
 
 from __future__ import annotations
@@ -22,12 +31,35 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch import config
 from mmlspark_tpu_torch.core.device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS)
+
+MESH_DATA = config.register(
+    "MMLSPARK_TPU_MESH_DATA", default=-1, ptype=int,
+    doc="Data-parallel mesh width for the default dp x mp mesh "
+        "(mesh_spec_from_config); -1 = all devices left over after the "
+        "model axis.")
+
+MESH_MODEL = config.register(
+    "MMLSPARK_TPU_MESH_MODEL", default=1, ptype=int,
+    doc="Tensor/model-parallel mesh width for the default dp x mp mesh: "
+        "weights matched by the partition rules (parallel/partition.py) "
+        "shard over this many chips. 1 (default) keeps every path "
+        "data-parallel-only.")
+
+MESH_SEQ = config.register(
+    "MMLSPARK_TPU_MESH_SEQ", default=1, ptype=int,
+    doc="Sequence-parallel mesh width for the default mesh: long-context "
+        "decode shards the KV-cache window over this many chips "
+        "(blockwise ring prefill + cross-chip softmax-stats merge, "
+        "models/generate.py). Composes with MESH_DATA; mutually "
+        "exclusive with MESH_MODEL>1 on the decode path. 1 (default) "
+        "keeps the single-chip window.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,3 +142,87 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     for i, d in enumerate(devices):
         array[i] = d
     return Mesh(array.reshape(tuple(sizes[a] for a in AXES)))
+
+
+def _visible(device_type: str) -> list:
+    """The devices a default mesh spans: every visible card (raises
+    without one), or the host once."""
+    if device_type == "cpu":
+        return [torch.device("cpu")]
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def mesh_spec_from_config() -> MeshSpec:
+    """The MeshSpec the MMLSPARK_TPU_MESH_* knobs declare (dp x mp)."""
+    return MeshSpec(data=int(MESH_DATA.current()),
+                    model=int(MESH_MODEL.current()),
+                    seq=int(MESH_SEQ.current()))
+
+
+def best_mesh(n_data: Optional[int] = None, device="cuda") -> Mesh:
+    """The default 1-D data-parallel mesh (the CNTKModel scoring
+    topology): every visible card of `device`'s type, or the first
+    `n_data` of them.  On the host there is one device, repeated
+    `n_data` times when asked."""
+    kind = torch.device(device).type
+    local = _visible(kind)
+    if n_data is None:
+        return make_mesh(MeshSpec(), local)
+    if kind == "cpu":
+        local = local * n_data
+    return make_mesh(MeshSpec(data=n_data), local[:n_data])
+
+
+def default_mesh(device="cuda") -> Mesh:
+    """The mesh scoring and training paths get when none is passed: with
+    the MESH knobs at their defaults `best_mesh()`, else the dp x mp x
+    seq mesh they declare over the visible cards of `device`'s type (on
+    the host, `[cpu] * n`)."""
+    spec = mesh_spec_from_config()
+    kind = torch.device(device).type
+    if spec.model <= 1 and spec.seq <= 1 and spec.data <= 0:
+        return best_mesh(device=kind)
+    local = _visible(kind)
+    if spec.data <= 0:
+        sizes = spec.resolve(len(local))
+    else:
+        sizes = {DATA_AXIS: spec.data, MODEL_AXIS: max(spec.model, 1),
+                 SEQ_AXIS: max(spec.seq, 1)}
+    n = sizes[DATA_AXIS] * sizes[MODEL_AXIS] * sizes[SEQ_AXIS]
+    if kind == "cpu":
+        local = local * n
+    if n > len(local):
+        raise ValueError(
+            f"MMLSPARK_TPU_MESH_DATA x MODEL x SEQ wants {n} devices, "
+            f"have {len(local)}")
+    return make_mesh(MeshSpec(**sizes), local[:n])
+
+
+def mesh_for_spec(spec: MeshSpec, device="cuda") -> Optional[Mesh]:
+    """The mesh a config's MeshSpec asks for on `device`'s type, or None
+    where it asks for one device (data -1 or 1, model and seq 1): the
+    caller then runs on `device` itself."""
+    spec.resolve(max(1, spec.data) * spec.model * spec.seq)  # malformed
+    if spec.data in (-1, 1) and spec.model == 1 and spec.seq == 1:
+        return None
+    kind = torch.device(device).type
+    n = max(1, spec.data) * spec.model * spec.seq
+    local = _visible(kind) * (n if kind == "cpu" else 1)
+    return make_mesh(spec, local[:n] if kind == "cpu" else local)
+
+
+def batch_devices(mesh: Mesh) -> list:
+    """The device of each slab of a batch cut along 'data' (slab i on the
+    mesh's data row i; model and seq index 0)."""
+    return [mesh.devices[i, 0, 0] for i in range(mesh.shape[DATA_AXIS])]
+
+
+def distinct_devices(devices) -> list:
+    """`devices` once each, in first-seen order (shard 0's first): where a
+    replicated weight lives."""
+    out: list = []
+    for d in devices:
+        if d not in out:
+            out.append(d)
+    return out

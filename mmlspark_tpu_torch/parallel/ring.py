@@ -17,21 +17,36 @@ On shards that share one device each move is a no-op, so a mesh of one
 card costs no copies.  `seq_parallel_attention` is the JAX entry point of
 the same name over a `Mesh`: batch over 'data', sequence over 'seq'.
 
-`make_seq_parallel_lm_step` is the JAX step of the same name: a
-`TransformerLM` with `attn_impl` ring | ring_flash | ulysses and
-`seq_axis="seq"` runs its attention sequence-sharded over the mesh set by
-`use_seq_mesh` (the counterpart of the axis name a `shard_map` region
-puts in scope), the token-wise layers unsharded on the mesh's first
-device (`models/definitions.py`).  The loss is the masked mean over both
-axes; the parameters and the optimizer state are one replicated copy.
+`make_seq_parallel_lm_step` is the JAX step of the same name: the whole
+loss runs per (data, seq) shard, as the JAX step's `shard_map` body does.
+Each shard embeds its own (b/data, s/seq) slab at its global positions
+and runs its norms, Dense layers, MLP, head and per-token loss on its own
+device, with its own replica of the parameters
+(`parallel/bridge.py` `ShardReplicas`); only the attention crosses
+shards, through the ring or Ulysses exchanges (`seq_group_attention`).
+The loss is the masked sum psum'd over both axes over the psum of the
+mask.  A whole-array forward under `use_seq_mesh` (the counterpart of the
+axis name a `shard_map` region puts in scope) still runs the attention
+sharded and the rest on the tokens' device.
+
+Data parallelism (`ShardGroup`, `data_shard`): a data-parallel step runs
+one function per shard of the 'data' axis.  Inside it `active_data_shard`
+names the shard, its index and the shard count, which the layers read
+where the JAX step's jit sees the whole batch: BatchNorm in training
+takes its statistics over the global batch through `ShardGroup.all_sum`
+(the shards then run in lockstep on threads of their own, since each
+waits for the others' sums), and the MoE routes with the global group
+size.  `reduce_to_home` is the gradient reduce: the sum on the home
+device (shard 0's), in shard order.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-import copy
-from typing import Callable, Iterator, Sequence
+import dataclasses
+import threading
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -112,12 +127,24 @@ def reshard(parts: Sequence, length: int, devices: Sequence,
     return out
 
 
-def _reduce(parts: Sequence, op) -> list:
+def _reduce_home(parts: Sequence, op) -> torch.Tensor:
     home = parts[0].device
     total = parts[0]
     for p in parts[1:]:
         total = op(total, p.to(home))
+    return total
+
+
+def _reduce(parts: Sequence, op) -> list:
+    total = _reduce_home(parts, op)
     return [total.to(p.device) for p in parts]
+
+
+def reduce_to_home(parts: Sequence) -> torch.Tensor:
+    """The elementwise sum over the shards on the home device (shard 0's),
+    in shard order: the gradient reduce, whose result one optimizer
+    consumes."""
+    return _reduce_home(parts, torch.add)
 
 
 def pmax(parts: Sequence) -> list:
@@ -137,24 +164,43 @@ def ppermute(parts: Sequence) -> list:
     return [parts[(i - 1) % n].to(parts[i].device) for i in range(n)]
 
 
+def seq_group_attention(impl: str, q: list, k: list, v: list,
+                        causal: bool = False) -> list:
+    """One data group's attention over its seq shards' slabs (lists of
+    (B, S_l, H, D), shard i on its own device): impl "ring"
+    (`ops/attention.ring_attention`: the flash forward with lse per
+    (shard, block) without gradients, the dense online-softmax fold under
+    autograd), "ring_flash" (`ring_flash_attention`: the flash forward
+    with lse per block, the dQ and dK/dV kernels per block in the
+    backward), "ulysses" (`ulysses_attention`: heads all-to-all, dense
+    attention), "dense" (each shard gathers the whole K/V and attends with
+    its global query offset: the correctness yardstick)."""
+    from mmlspark_tpu_torch.ops.attention import (attention, ring_attention,
+                                                  ring_flash_attention,
+                                                  ulysses_attention)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown seq-parallel impl '{impl}'")
+    if impl == "ring":
+        return ring_attention(q, k, v, causal=causal)
+    if impl == "ring_flash":
+        return ring_flash_attention(q, k, v, causal=causal)
+    if impl == "ulysses":
+        return ulysses_attention(q, k, v, causal=causal)
+    home = q[0].device
+    kf, vf = unshard(k, 1, home), unshard(v, 1, home)
+    s_l = q[0].shape[1]
+    return [attention(qi, kf.to(qi.device), vf.to(qi.device), causal=causal,
+                      q_offset=i * s_l) for i, qi in enumerate(q)]
+
+
 def seq_parallel_attention(mesh, q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, causal: bool = False,
                            impl: str = "ring") -> torch.Tensor:
     """Attention over (B, S, H, D) tensors with B split over the mesh's
     'data' axis and S over its 'seq' axis (model 1).  Each data group runs
-    its own seq ring; the result is joined on q's device.  The cuts and
-    joins are differentiable, so gradients flow back to q, k and v.
-
-    impl "ring": `ops/attention.ring_attention` (the flash forward with
-    lse per (shard, block) without gradients; the dense online-softmax
-    fold under autograd).  "ring_flash": `ring_flash_attention` (the
-    flash forward with lse per block, the dQ and dK/dV kernels per block
-    in the backward).  "ulysses": `ulysses_attention` (heads all-to-all,
-    dense attention).  "dense": each shard gathers the whole K/V and
-    attends with its global query offset (the correctness yardstick)."""
-    from mmlspark_tpu_torch.ops.attention import (attention, ring_attention,
-                                                  ring_flash_attention,
-                                                  ulysses_attention)
+    its own seq ring (`seq_group_attention`); the result is joined on q's
+    device.  The cuts and joins are differentiable, so gradients flow
+    back to q, k and v."""
     if impl not in IMPLS:
         raise ValueError(f"unknown seq-parallel impl '{impl}'")
     if mesh.shape[MODEL_AXIS] != 1:
@@ -165,72 +211,189 @@ def seq_parallel_attention(mesh, q: torch.Tensor, k: torch.Tensor,
                      for t in (q, k, v)))
     for (qg, kg, vg), devs in zip(by_group, rings):
         qs, ks, vs = (shard(t, devs, 1) for t in (qg, kg, vg))
-        if impl == "ring":
-            outs = ring_attention(qs, ks, vs, causal=causal)
-        elif impl == "ring_flash":
-            outs = ring_flash_attention(qs, ks, vs, causal=causal)
-        elif impl == "ulysses":
-            outs = ulysses_attention(qs, ks, vs, causal=causal)
-        else:
-            kf, vf = unshard(ks, 1, devs[0]), unshard(vs, 1, devs[0])
-            s_l = qs[0].shape[1]
-            outs = [attention(qi, kf.to(qi.device), vf.to(qi.device),
-                              causal=causal, q_offset=i * s_l)
-                    for i, qi in enumerate(qs)]
-        rows.append(unshard(outs, 1, q.device))
+        rows.append(unshard(seq_group_attention(impl, qs, ks, vs, causal),
+                            1, q.device))
     return torch.cat(rows, dim=0)
 
 
+def seq_shard_devices(mesh) -> list:
+    """The devices of the (data, seq) shards of a model-1 mesh, in shard
+    order: shard g * seq + j is data group g's seq index j."""
+    if mesh.shape[MODEL_AXIS] != 1:
+        raise ValueError("the seq-parallel step runs over a model-1 mesh")
+    return [d for group in mesh.seq_rings() for d in group]
+
+
 def shard_tokens(tokens, mesh, data_axis: str = DATA_AXIS,
-                 seq_axis: str = SEQ_AXIS) -> torch.Tensor:
-    """(B, S) token, target or mask arrays for the seq-parallel step: B
-    must split over `data_axis` and S over `seq_axis`.  The token-wise
-    layers run on the mesh's first device, so the array lands there
-    whole; the attention cuts it per shard."""
+                 seq_axis: str = SEQ_AXIS) -> list:
+    """(B, S) token, target or mask arrays for the seq-parallel step, cut
+    with B over `data_axis` and S over `seq_axis`: the (B/data, S/seq)
+    slab of each (data, seq) shard on its own device, in shard order."""
     t = torch.as_tensor(np.asarray(tokens))
     b, s = t.shape[:2]
-    if b % mesh.shape[data_axis] or s % mesh.shape[seq_axis]:
+    n_data, n_seq = mesh.shape[data_axis], mesh.shape[seq_axis]
+    if b % n_data or s % n_seq:
         raise ValueError(
             f"tokens {tuple(t.shape)} do not split over the mesh "
             f"{mesh.shape} (batch over '{data_axis}', sequence over "
             f"'{seq_axis}')")
-    return t.to(mesh.devices.flat[0])
+    b_l, s_l = b // n_data, s // n_seq
+    devices = seq_shard_devices(mesh)
+    return [t[g * b_l:(g + 1) * b_l, j * s_l:(j + 1) * s_l]
+            .contiguous().to(devices[g * n_seq + j])
+            for g in range(n_data) for j in range(n_seq)]
 
 
 def make_seq_parallel_lm_step(module, tx, mesh, remat: bool = False
                               ) -> Callable:
     """The seq-parallel LM train step over `mesh` (batch over 'data',
     sequence over 'seq'): `step(params, opt_state, tokens, targets, mask)
-    -> (params, opt_state, loss)`, as the JAX step returns them.
+    -> (params, opt_state, loss)`, as the JAX step returns them; tokens,
+    targets and mask are `shard_tokens` slabs.
 
     `module` is a `TransformerLM` with attn_impl ring | ring_flash |
     ulysses and `seq_axis="seq"`; `params` is `list(module.parameters())`
     (the replicated f32 masters, updated in place) and `tx` the port's
-    `Optimizer` with `opt_state = tx.init(params)`.  The loss is the
-    masked mean of the per-token cross-entropy over both axes.
-    `remat=True` steps a copy of `module` that shares its parameters and
-    recomputes each block in the backward (the reference's
-    `module.clone(remat=True)`); `module` itself is left as it is."""
-    # here, not at the top: the train package imports the models, whose
-    # attention imports this module
-    from mmlspark_tpu_torch.train.optim import backward_and_update
-    if remat and not module.remat:
-        module = copy.copy(module)
-        module.remat = True
-
-    def loss_of(tokens, targets, mask):
-        with use_seq_mesh(mesh):
-            logits = module(tokens)
-        ll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                             targets.reshape(-1).long(),
-                             reduction="none").reshape(targets.shape)
-        mask = mask.float()
-        return (ll * mask).sum() / torch.clamp(mask.sum(), min=1.0), None
+    `Optimizer` with `opt_state = tx.init(params)`.  Each shard runs the
+    model on its slab (`TransformerLM.forward_seq_shards`) with its own
+    parameter leaves; the loss is the masked sum of the per-token
+    cross-entropy psum'd over both axes over the psum of the mask; the
+    gradients are reduced to the masters (`reduce_to_home`), the
+    optimizer runs once, and the new values reach every other distinct
+    device.  `remat=True` recomputes each block in the backward (the
+    reference's `module.clone(remat=True)`); `module` itself is left as
+    it is."""
+    # here, not at the top: the bridge's replicas import this module
+    from mmlspark_tpu_torch.parallel.bridge import ShardReplicas
+    replicas = ShardReplicas(module, seq_shard_devices(mesh))
+    n_seq = mesh.shape[SEQ_AXIS]
 
     def step(params, opt_state, tokens, targets, mask):
-        loss = backward_and_update(
-            tx, params, opt_state,
-            lambda: loss_of(tokens, targets, mask))[0]
+        replicas.zero_grad()
+        denom = torch.clamp(reduce_to_home([m.float().sum() for m in mask]),
+                            min=1.0)
+        logits = module.forward_seq_shards(replicas.shards, tokens, n_seq,
+                                           remat=remat or module.remat)
+        parts = []
+        for lg, tg, mk in zip(logits, targets, mask):
+            ll = F.cross_entropy(lg.float().reshape(-1, lg.shape[-1]),
+                                 tg.reshape(-1).long(),
+                                 reduction="none").reshape(tg.shape)
+            parts.append((ll * mk.float()).sum())
+        loss = reduce_to_home(parts) / denom
+        loss.backward()
+        tx.update(replicas.reduced_grads(), opt_state, params)
+        replicas.broadcast()
         return params, opt_state, loss.detach()
 
     return step
+
+
+# --------------------------------------------------------------------------
+# data parallelism: one function per shard of the 'data' axis
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """Shard `index` of `count` shards of a data-parallel step."""
+
+    index: int
+    count: int
+    group: "ShardGroup"
+
+
+_data_shard: contextvars.ContextVar = contextvars.ContextVar(
+    "mmlspark_tpu_torch_data_shard", default=None)
+
+
+def active_data_shard() -> Optional[DataShard]:
+    """The data shard the calling code runs as, or None outside a
+    data-parallel step."""
+    return _data_shard.get()
+
+
+@contextlib.contextmanager
+def data_shard(shard: DataShard) -> Iterator:
+    token = _data_shard.set(shard)
+    try:
+        yield shard
+    finally:
+        _data_shard.reset(token)
+
+
+class ShardGroup:
+    """Runs one function per shard of `count` shards of a data axis
+    (`run`) and gives them `all_sum`, the psum of a data-parallel
+    forward.
+
+    Without a collective the shards run one after another on the calling
+    thread.  With `lockstep=True` each shard runs on a thread of its own:
+    `all_sum` waits until every shard has handed in its tensors, one of
+    them takes the sums (`psum`: on the home device, in shard order, back
+    to every shard's device), and each goes on with its own copy.  The
+    sums are plain differentiable ops, so one backward over the shards'
+    joint graph carries each shard's share of the cross-shard terms."""
+
+    def __init__(self, count: int):
+        self.count = count
+        self._barrier = threading.Barrier(self.count)
+        self._parts: list = [None] * self.count
+        self._sums: list = []
+        self._lockstep = False
+
+    def run(self, fn: Callable[[int], object], lockstep: bool = False
+            ) -> list:
+        """[fn(i) for each shard i], each call inside `data_shard`."""
+        if not lockstep or self.count == 1:
+            out = []
+            for i in range(self.count):
+                with data_shard(DataShard(i, self.count, self)):
+                    out.append(fn(i))
+            return out
+        results: list = [None] * self.count
+        errors: list = [None] * self.count
+        grad = torch.is_grad_enabled()
+
+        def body(i):
+            try:
+                with torch.set_grad_enabled(grad), \
+                        data_shard(DataShard(i, self.count, self)):
+                    results[i] = fn(i)
+            except BaseException as err:   # every shard's wait must end
+                errors[i] = err
+                self._barrier.abort()
+
+        self._barrier.reset()
+        self._lockstep = True
+        threads = [threading.Thread(
+            target=contextvars.copy_context().run, args=(body, i),
+            name=f"data-shard-{i}", daemon=True) for i in range(self.count)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            self._lockstep = False
+        raised = [e for e in errors if e is not None]
+        if raised:
+            # the failing shard's own error, not the broken waits it
+            # caused in the others
+            raise next((e for e in raised if not isinstance(
+                e, threading.BrokenBarrierError)), raised[0])
+        return results
+
+    def all_sum(self, index: int, tensors: Sequence) -> list:
+        """Each of `tensors` summed over the shards, on this shard's
+        device (called by every shard of a lockstep `run`)."""
+        if self.count == 1:
+            return list(tensors)
+        if not self._lockstep:
+            raise RuntimeError(
+                "a cross-shard sum needs the shards in lockstep "
+                "(ShardGroup.run(..., lockstep=True))")
+        self._parts[index] = list(tensors)
+        if self._barrier.wait() == 0:
+            self._sums = [psum(list(col)) for col in zip(*self._parts)]
+        self._barrier.wait()
+        return [col[index] for col in self._sums]

@@ -14,6 +14,7 @@ from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.core.params import Param
 from mmlspark_tpu_torch.core.pipeline import JaxTwin, Transformer
 from mmlspark_tpu_torch.core.table import DataTable
+from mmlspark_tpu_torch.parallel.bridge import shard_batch
 
 
 class SelectColumns(JaxTwin, Transformer):
@@ -92,17 +93,31 @@ class CheckpointData(JaxTwin, Transformer):
     lives on the table object itself, so it is garbage-collected with the
     table; TPUModel consults it via `get_device_cache`.
 
-    The port caches on one device, the stage's `device` (a run-time
-    setting, not a Param): each numeric column as one tensor of the
-    column's own dtype, as `torch.as_tensor` holds it.  Placing the cache
-    over a mesh of several cards is not ported (ROADMAP A10).
+    The port caches on the stage's `device` (a run-time setting, not a
+    Param): each numeric column as one tensor of the column's own dtype,
+    as `torch.as_tensor` holds it.  Over a mesh (`mesh=` or `set_mesh`,
+    the JAX stage's `best_mesh` + `shard_batch`) each column is cached as
+    per-device slabs: contiguous rows zero-padded to a multiple of the
+    data axis, slab i on shard i's device (`parallel/bridge.py`
+    `shard_batch`), which a `TPUModel` over the same mesh scores shard by
+    shard; the valid row count is the host column's length.
     """
 
     removeCheckpoint = Param(False, "release instead of persist", ptype=bool)
 
-    def __init__(self, device="cuda", **kw):
+    def __init__(self, device="cuda", mesh=None, **kw):
         super().__init__(**kw)
         self.device = resolve_device(device)
+        self.mesh = None
+        if mesh is not None:
+            self.set_mesh(mesh)
+
+    def set_mesh(self, mesh) -> "CheckpointData":
+        """Cache over `mesh`'s data axis (None: on `device` alone)."""
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = resolve_device(mesh.devices.flat[0])
+        return self
 
     def transform(self, table: DataTable) -> DataTable:
         out = table.select(*table.columns)
@@ -117,8 +132,10 @@ class CheckpointData(JaxTwin, Transformer):
         for name in out.columns:
             arr = out[name]
             if arr.dtype != object and np.issubdtype(arr.dtype, np.number):
-                cache[name] = torch.as_tensor(np.ascontiguousarray(arr),
-                                              device=self.device)
+                arr = np.ascontiguousarray(arr)
+                cache[name] = (
+                    torch.as_tensor(arr, device=self.device)
+                    if self.mesh is None else shard_batch(arr, self.mesh))
         out.__dict__["_device_cache"] = cache
         return out
 

@@ -12,7 +12,9 @@ CNTKLearner wraps its output model as a CNTKModel.  Fine-tuning is
 card unless the caller asks for the CPU, passed on to the fitted model.
 The stage saves under the JAX class path, so a learner saved by either
 package loads in the other through `load_stage`; its initial bundle goes
-with it.  A mesh of several devices is not ported (ROADMAP A10).
+with it.  `set_mesh(mesh)` trains data-parallel over the mesh's data
+axis (the Trainer's mesh) and the fitted model scores over the same mesh;
+a model axis raises (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
 from mmlspark_tpu_torch.models.tpu_model import TPUModel
 from mmlspark_tpu_torch.observe.logging import get_logger
 from mmlspark_tpu_torch.train.config import TrainerConfig
-from mmlspark_tpu_torch.train.trainer import Trainer
+from mmlspark_tpu_torch.train.trainer import Trainer, check_data_mesh
 
 
 class TPULearner(Estimator):
@@ -53,6 +55,7 @@ class TPULearner(Estimator):
         if config is not None:
             self.set("config", config.to_json())
         self._initial_bundle: Optional[ModelBundle] = None
+        self._mesh = None
 
     def trainer_config(self) -> TrainerConfig:
         return TrainerConfig.from_json(self.config) if self.config \
@@ -65,10 +68,11 @@ class TPULearner(Estimator):
         return self
 
     def set_mesh(self, mesh) -> "TPULearner":
+        """Train over `mesh` (None: on `device`); the Trainer checks it."""
         if mesh is not None:
-            raise NotImplementedError(
-                "TPULearner over a mesh is not ported (one device; ROADMAP "
-                "A10)")
+            check_data_mesh(mesh, "TPULearner")
+            self.device = resolve_device(mesh.devices.flat[0])
+        self._mesh = mesh
         return self
 
     def fit(self, table: DataTable) -> TPUModel:
@@ -81,13 +85,15 @@ class TPULearner(Estimator):
             raise TypeError(
                 f"label column '{self.labelCol}' must be numeric; "
                 "encode categoricals first (see core.schema.make_categorical)")
-        trainer = Trainer(cfg, device=self.device)
+        trainer = Trainer(cfg, mesh=self._mesh, device=self.device)
         bundle = trainer.fit_arrays(
             x, y, initial_bundle=self._initial_bundle,
             log_every=self.logEvery, log_fn=get_logger("train").info)
         model = TPUModel(bundle, device=self.device,
                          inputCol=self.featuresCol, outputCol=self.outputCol,
                          miniBatchSize=max(cfg.batch_size, 1))
+        if self._mesh is not None:
+            model.set_mesh(self._mesh)
         model._history = list(trainer.history)
         return model
 

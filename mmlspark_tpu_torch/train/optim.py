@@ -30,7 +30,7 @@ learning rate), `{"count"}` for a schedule, `{"count", "mu", "nu"}` for
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,24 +101,6 @@ def scale_by_adam(updates: list, state: dict, count_inc: int,
     bc2 = float(_F32(1) - _F32(b2) ** _F32(count_inc))
     return [(m / bc1) / (torch.sqrt(v / bc2) + eps)
             for m, v in zip(state["mu"], state["nu"])]
-
-
-def backward_and_update(tx: "Optimizer", params: Sequence[torch.Tensor],
-                        opt_state: dict, loss_and_aux: Callable[[], tuple],
-                        return_updates: bool = False) -> tuple:
-    """The core of a train step: clear `params`' grads, run
-    `loss_and_aux() -> (loss, aux)`, backpropagate the loss (zeros for a
-    parameter it does not reach), then `tx.update` in place.  Returns
-    (loss, aux, grads, the applied updates or None)."""
-    for p in params:
-        p.grad = None
-    loss, aux = loss_and_aux()
-    loss.backward()
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad
-             for p in params]
-    updates = tx.update(grads, opt_state, params,
-                        return_updates=return_updates)
-    return loss, aux, grads, updates
 
 
 class Optimizer:

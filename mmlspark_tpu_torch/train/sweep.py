@@ -1,5 +1,6 @@
 """Population training: N hyperparameter-sweep members stepped together,
-the port of `mmlspark_tpu/train/sweep.py` on one card.
+the port of `mmlspark_tpu/train/sweep.py`, on one card or over a data
+mesh.
 
 Every member's parameters, optimizer moments and BatchNorm statistics are
 stacked on a leading population axis (N, ...), the shared data batch is
@@ -27,7 +28,18 @@ global-norm clip, its own schedule over its base rate.
 Data order, batch clamping and the loss mask follow `Trainer.fit_arrays`.
 A population checkpoint is one file (stacked trees in the flax and optax
 layouts with the population axis first, plus `lr` and `active`).
-Single-card: a mesh raises (ROADMAP A10).
+
+Over a data mesh (`mesh=` or a `TrainerConfig.mesh` with data > 1) the
+members' vmap runs per shard on that shard's slab, outside the meshed
+step, as the JAX sweep has it (`mmlspark_tpu/train/sweep.py:269-323`):
+each shard's vmapped `grad_and_value` over the stacked parameters (on
+its device; a copy per other distinct device) with the loss over the
+global mask count, the members' gradients summed onto the home device in
+shard order (`parallel/ring.py` `reduce_to_home`), one vmapped update
+there.  A population with BatchNorm over a data axis of more than one
+device raises NotImplementedError: its global statistics would need the
+shards in lockstep inside `torch.func`'s transforms (a port difference,
+ROADMAP queue C).  A model axis raises (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -58,6 +70,9 @@ from mmlspark_tpu_torch.observe.spans import active_timings, monotonic, span_on
 from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import active_tracer, current_span_id
 from mmlspark_tpu_torch.parallel.bridge import stack_trees, unstack_member
+from mmlspark_tpu_torch.parallel.mesh import (batch_devices, distinct_devices,
+                                              mesh_for_spec)
+from mmlspark_tpu_torch.parallel.ring import ShardGroup, reduce_to_home
 from mmlspark_tpu_torch.parallel.partition import DEFAULT_RULES, rules_to_json
 from mmlspark_tpu_torch.resilience.checkpoints import (checkpoint_name,
                                                        latest_valid_checkpoint)
@@ -67,9 +82,9 @@ from mmlspark_tpu_torch.train.config import TrainerConfig
 from mmlspark_tpu_torch.train.optim import (Optimizer, named_tree,
                                             opt_state_from_jax,
                                             opt_state_to_jax, stats_tree)
-from mmlspark_tpu_torch.train.trainer import (Trainer, epoch_order,
-                                              host_batch, make_loss,
-                                              sown_leaves)
+from mmlspark_tpu_torch.train.trainer import (Trainer, check_data_mesh,
+                                              epoch_order, host_batch,
+                                              make_loss, sown_leaves)
 
 _MOMENTS = ("mu", "nu", "trace")
 
@@ -118,7 +133,8 @@ class SweepResult:
 
 
 class PopulationTrainer:
-    """Trains a population of sweep members with one vmapped step.
+    """Trains a population of sweep members with one vmapped step, on one
+    card or over a data mesh (module docstring).
 
     `members` is an int (population size N, every member at the config's
     learning rate) or a sequence of per-member dicts with optional
@@ -135,11 +151,14 @@ class PopulationTrainer:
             raise ValueError(
                 "population training does not compose with pipeline "
                 "parallelism (the stage ring owns the 'model' axis)")
-        spec = trainer_config.mesh
-        if mesh is not None or max(spec.data, spec.model, spec.seq) > 1:
-            raise NotImplementedError(
-                "population training over a mesh is not ported (one card; "
-                "ROADMAP A10)")
+        if mesh is None:
+            device = resolve_device(device)
+            mesh = mesh_for_spec(trainer_config.mesh, device)
+        check_data_mesh(mesh, "population training")
+        self.mesh = mesh
+        self.shard_devices = ([resolve_device(device)] if mesh is None
+                              else batch_devices(mesh))
+        device = self.shard_devices[0]
         if isinstance(members, int):
             if members < 1:
                 raise ValueError("population size must be >= 1")
@@ -159,6 +178,12 @@ class PopulationTrainer:
                        if isinstance(mod, BatchNorm)]
         self._stat_names = [f"{prefix}.{leaf}" for prefix, _ in self._norms
                             for leaf in ("mean", "var")]
+        if len(self.shard_devices) > 1 and self._norms:
+            raise NotImplementedError(
+                "a population with BatchNorm over a data axis of "
+                f"{len(self.shard_devices)} devices is not ported: the "
+                "global batch statistics would need the shards in lockstep "
+                "inside torch.func's vmap (ROADMAP A10)")
         self._loss = make_loss(trainer_config.loss)
         self.halving_rungs = int(SWEEP_HALVING_RUNGS.current()
                                  if halving_rungs is None else halving_rungs)
@@ -246,29 +271,45 @@ class PopulationTrainer:
         return functional_call(self.module, tensors, (x,),
                                {"collect": True})
 
+    def _on_shards(self, tensors: list) -> list:
+        """Stacked tensors on each shard's device: the home device's own,
+        one copy per other distinct device."""
+        copies = {self.device: tensors}
+        for dev in distinct_devices(self.shard_devices)[1:]:
+            copies[dev] = [t.to(dev) for t in tensors]
+        return [copies[dev] for dev in self.shard_devices]
+
     def make_population_step(self):
-        """`step(state, x, y, mask) -> (N,) losses`: one vmapped step of
-        every member; the state's stacked tensors are replaced and its step
-        advances."""
+        """`step(state, x, y, mask) -> (N,) losses`: x, y and mask are lists
+        of per-shard slabs (one card takes the tensors themselves).  Each
+        shard's vmapped `grad_and_value` over the stacked parameters on its
+        slab, the loss over the global mask count; the members' gradients
+        summed onto the home device in shard order; one vmapped update
+        there (module docstring).  The state's stacked tensors are
+        replaced and its step advances."""
         names, stat_names, norms = self._names, self._stat_names, self._norms
         loss_fn, tx = self._loss, self._tx
         aux_w = float(self.config.aux_loss_weight)
+        n = len(self.shard_devices)
 
-        def member_step(params, stats, moments, lr, active, x, y, mask,
-                        count):
+        def member_grads(params, stats, x, y, mask, denom):
             def compute(p):
                 tensors = dict(zip(names, p))
                 tensors.update(zip(stat_names, stats))
                 with functional_batch_stats() as moved:
                     logits, sown = self._forward(tensors, x)
-                loss = loss_fn(logits, y, mask)
+                loss = loss_fn(logits, y, mask, denom=denom)
                 if aux_w:
-                    loss = loss + aux_w * sum(
+                    loss = loss + (aux_w / n) * sum(
                         sown_leaves(sown.get("losses", {})))
                 return loss, [t for _, mod in norms for t in moved[mod]]
 
             grads, (loss, new_stats) = grad_and_value(
                 compute, has_aux=True)(list(params))
+            return grads, loss, new_stats
+
+        def member_update(params, stats, moments, lr, active, grads,
+                          new_stats, count):
             opt = {"count": count, **moments}
             updates = tx.updates(grads, opt, params, lr=lr)
             new_params = [p + u for p, u in zip(params, updates)]
@@ -280,21 +321,39 @@ class PopulationTrainer:
                 return [torch.where(keep, a, b) for a, b in zip(new, old)]
 
             return (freeze(new_params, params), freeze(new_stats, stats),
-                    {k: freeze(opt[k], moments[k]) for k in moments}, loss)
+                    {k: freeze(opt[k], moments[k]) for k in moments})
 
-        vmapped = vmap(member_step,
-                       in_dims=(0, 0, 0, 0, 0, None, None, None, None))
+        shard_grads = vmap(member_grads, in_dims=(0, 0, None, None, None,
+                                                  None))
+        update = vmap(member_update, in_dims=(0, 0, 0, 0, 0, 0, 0, None))
+        group = ShardGroup(n)
         f32 = self.module.dtype == torch.float32
 
-        def population_step(state: PopulationState, x, y, mask):
+        def population_step(state: PopulationState, xs, ys, masks):
+            if isinstance(xs, torch.Tensor):
+                xs, ys, masks = [xs], [ys], [masks]
             moments = {k: state.opt_state[k] for k in _MOMENTS
                        if k in state.opt_state}
+            denom = torch.clamp(reduce_to_home(
+                [m.float().sum() for m in masks]), min=1.0)
             with exact_f32() if f32 else contextlib.nullcontext():
-                params, stats, moments, losses = vmapped(
+                params = self._on_shards(state.params)
+                stats = self._on_shards(state.batch_stats)
+                # each shard inside `data_shard` (a MoE routes with the
+                # global batch's group size)
+                per_shard = group.run(lambda i: shard_grads(
+                    params[i], stats[i], xs[i], ys[i], masks[i],
+                    denom.to(xs[i].device)))
+                grads = [reduce_to_home([g[0][j] for g in per_shard])
+                         for j in range(len(names))]
+                losses = reduce_to_home([g[1] for g in per_shard])
+                # the moved BatchNorm statistics are shard 0's: a
+                # population with BatchNorm runs on one device
+                state.params, state.batch_stats, new_moments = update(
                     state.params, state.batch_stats, moments, state.lr,
-                    state.active, x, y, mask, state.opt_state["count"])
-            state.params, state.batch_stats = params, stats
-            state.opt_state.update(moments)
+                    state.active, grads, per_shard[0][2],
+                    state.opt_state["count"])
+            state.opt_state.update(new_moments)
             state.opt_state["count"] += 1
             state.step += 1
             return losses.detach()
@@ -305,7 +364,9 @@ class PopulationTrainer:
     def score_population(self, state: PopulationState,
                          x: np.ndarray) -> np.ndarray:
         """Every member's inference logits, (N, rows, ...), from one
-        vmapped forward in eval mode."""
+        vmapped forward in eval mode; over a data mesh each shard scores
+        its slab of the rows (padded to a multiple of the shards), joined
+        in row order."""
         names, stat_names = self._names, self._stat_names
 
         def member_apply(params, stats, xb):
@@ -313,17 +374,24 @@ class PopulationTrainer:
             tensors.update(zip(stat_names, stats))
             return self._forward(tensors, xb)[0]
 
-        xb = torch.from_numpy(host_batch(np.asarray(x))).to(self.device)
+        rows = host_batch(np.asarray(x))
+        slab = -(-len(rows) // len(self.shard_devices))
+        params = self._on_shards(state.params)
+        stats = self._on_shards(state.batch_stats)
         self.module.eval()
+        outs = []
         try:
             with torch.no_grad(), (exact_f32() if self.module.dtype ==
                                    torch.float32 else
                                    contextlib.nullcontext()):
-                out = vmap(member_apply, in_dims=(0, 0, None))(
-                    state.params, state.batch_stats, xb)
+                for i, dev in enumerate(self.shard_devices):
+                    xb = torch.from_numpy(np.ascontiguousarray(
+                        rows[i * slab:(i + 1) * slab])).to(dev)
+                    outs.append(vmap(member_apply, in_dims=(0, 0, None))(
+                        params[i], stats[i], xb).float().cpu().numpy())
         finally:
             self.module.train()
-        return out.float().cpu().numpy()
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=1)
 
     # -- the loop -------------------------------------------------------
     def fit_arrays(self, x: np.ndarray, y: np.ndarray,
@@ -340,7 +408,8 @@ class PopulationTrainer:
         n_pop = self.population
         ckpt_dir = ckpt_dir if ckpt_dir is not None else cfg.checkpoint_dir
         n = len(x)
-        bs = max(cfg.batch_size, 1)   # the JAX clamp with a data axis of 1
+        data = len(self.shard_devices)
+        bs = max(cfg.batch_size - cfg.batch_size % data, data)
         steps_per_epoch = max(1, (n + bs - 1) // bs)
         total_steps = steps_per_epoch * cfg.epochs
         self._effective_batch_size = bs
@@ -454,8 +523,12 @@ class PopulationTrainer:
                     mask[:valid] = 1.0
                     hosts = [host_batch(a) for a in (x[idx], y[idx], mask)]
                 with span_on(timings, "transfer"):
-                    xb, yb, mask_d = (torch.from_numpy(np.ascontiguousarray(
-                        h)).to(self.device) for h in hosts)
+                    # one contiguous slab per data shard
+                    slab = bs // data
+                    xb, yb, mask_d = ([torch.from_numpy(np.ascontiguousarray(
+                        h[i * slab:(i + 1) * slab])).to(dev)
+                        for i, dev in enumerate(self.shard_devices)]
+                        for h in hosts)
                 if tracer is None:
                     with span_on(timings, "compute"):
                         losses = step_fn(state, xb, yb, mask_d)
@@ -534,7 +607,8 @@ class PopulationTrainer:
             "sweep": {"member": int(k), "population": self.population,
                       "learning_rate": self.member_lr(k)},
             "partition": {"rules": rules_to_json(rules),
-                          "mesh": {"data": 1, "model": 1}},
+                          "mesh": {"data": len(self.shard_devices),
+                                   "model": 1}},
         }
         return ModelBundle(self.config.architecture,
                            model_config(self.module),
@@ -545,7 +619,7 @@ class PopulationTrainer:
         cfg = dataclasses.replace(self.config,
                                   learning_rate=self.member_lr(k),
                                   seed=self._member_seed(k))
-        return Trainer(cfg, device=self.device)
+        return Trainer(cfg, mesh=self.mesh, device=self.device)
 
     # -- checkpoint / resume ----------------------------------------------
     def _writer_for(self, ckpt_dir: str) -> CheckpointWriter:

@@ -1,11 +1,12 @@
-"""The single-device Trainer: the port of `mmlspark_tpu/train/trainer.py`
+"""The Trainer: the port of `mmlspark_tpu/train/trainer.py`
 (`_make_loss` :157-179, `_epoch_order` :197-208, `Trainer` :211-312,
 :367-442, `fit_arrays` :445-927, `_numerics_check` :929-987,
 `training_metric_data` :978-986, `bundle_from_state` :988-1022,
 `_ckpt_meta` :1040-1060, `save_checkpoint` / `restore_checkpoint`
-:1062-1170) for every registered architecture on one card: the
+:1062-1170) for every registered architecture: the
 `TransformerLM` and the scoring models (`MLPClassifier`, `LinearModel`,
-`ConvNetCIFAR10`, `ResNet`), the path of MMLSpark's CNTKLearner.
+`ConvNetCIFAR10`, `ResNet`), the path of MMLSpark's CNTKLearner, on
+one card or data-parallel over a `Mesh` with a data axis.
 
 `fit_arrays` keeps the JAX loop's contract: the clamped batch size, the
 numpy data order (`np.random.default_rng(seed)`, or `[seed, rng_fold]`),
@@ -72,8 +73,35 @@ Fault tolerance, as in the JAX Trainer:
   * the chaos hooks of `resilience/chaos.py` (`on_step`, `maybe_hang`,
     `poison_nan`, torn checkpoints).
 
-Still raising NotImplementedError: meshes and pipeline stages (ROADMAP
-A10; seq-parallel training is `parallel/ring.py`'s
+Data parallelism (`Trainer(config, mesh=...)` or a `TrainerConfig.mesh`
+with data > 1; the JAX Trainer's topology, which replaces the
+reference's `mpiexec` ring), under the port's single controller
+(`parallel/mesh.py`):
+
+  * the batch size clamps to `max(bs - bs % data, data)`; the global
+    batch is gathered, padded by cycling rows and masked exactly as on
+    one card, then cut into `data` contiguous slabs, slab i staged on
+    shard i's device (one `DeviceFeed` per distinct device);
+  * each shard runs its forward and backward on its slab with its own
+    replica of the module (`parallel/bridge.py` `ShardReplicas`: on a
+    device of its own a copy of the masters, sharing storage where
+    shards share a device), the loss's denominator the GLOBAL mask
+    count; a MoE's sown losses and metrics are averaged over the
+    shards; a training BatchNorm takes the global batch's statistics
+    (the shards then run in lockstep, `parallel/ring.py` `ShardGroup`);
+  * the gradients are summed onto the masters' device in shard order
+    (`reduce_to_home`); clipping, `grad_norm`, the numerics probe and
+    the optimizer run once there; the new values reach every other
+    distinct device;
+  * checkpoints hold the one copy, recording `data_devices` and the
+    bundle's partition mesh `{"data": data, "model": 1}` as the JAX
+    Trainer does; a restore onto another data width is byte-identical
+    (the elastic resume), and a saved effective batch size that does
+    not divide into the new data axis raises the JAX Trainer's
+    `ValueError`.
+
+Still raising NotImplementedError: the model axis and pipeline stages
+(ROADMAP A10; seq-parallel training is `parallel/ring.py`'s
 `make_seq_parallel_lm_step`).
 """
 
@@ -109,8 +137,12 @@ from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import (active_tracer, current_span_id,
                                               span_on_tracer, trace_event,
                                               trace_span)
-from mmlspark_tpu_torch.parallel.bridge import DeviceFeed
+from mmlspark_tpu_torch.parallel.bridge import DeviceFeed, ShardReplicas
+from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, SEQ_AXIS,
+                                              batch_devices, distinct_devices,
+                                              mesh_for_spec)
 from mmlspark_tpu_torch.parallel.partition import DEFAULT_RULES, rules_to_json
+from mmlspark_tpu_torch.parallel.ring import ShardGroup, reduce_to_home
 from mmlspark_tpu_torch.resilience.chaos import get_injector
 from mmlspark_tpu_torch.resilience.checkpoints import (
     checkpoint_meta, latest_valid_checkpoint)
@@ -121,8 +153,8 @@ from mmlspark_tpu_torch.resilience.preemption import (HungStepError,
                                                       PreemptionGuard,
                                                       StepWatchdog)
 from mmlspark_tpu_torch.train.config import TrainerConfig
-from mmlspark_tpu_torch.train.optim import (Optimizer, backward_and_update,
-                                            global_norm, named_tree,
+from mmlspark_tpu_torch.train.optim import (Optimizer, global_norm,
+                                            named_tree,
                                             opt_state_from_jax,
                                             opt_state_to_jax, stats_tree)
 
@@ -131,10 +163,12 @@ _LOG = logging.getLogger("mmlspark_tpu_torch.train")
 
 def make_loss(kind: str) -> Callable:
     """The JAX `_make_loss`: a per-row loss (mean over any trailing axes)
-    averaged over the rows whose mask is 1."""
-    def loss_fn(logits, labels, mask):
+    averaged over the rows whose mask is 1.  `denom` replaces the mask's
+    own count (a data shard's loss over the global batch's count)."""
+    def loss_fn(logits, labels, mask, denom=None):
         mask = mask.float()
-        denom = torch.clamp(mask.sum(), min=1.0)
+        if denom is None:
+            denom = torch.clamp(mask.sum(), min=1.0)
         if kind == "softmax_xent":
             ll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                  labels.reshape(-1).long(),
@@ -212,26 +246,39 @@ class TrainState:
     batch_stats: list = dataclasses.field(default_factory=list)
 
 
+def check_data_mesh(mesh, what: str) -> None:
+    """A mesh the data-parallel paths run over: a model or seq axis of
+    more than one device raises NotImplementedError naming ROADMAP A10."""
+    if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+        raise NotImplementedError(
+            f"{what} over a mesh with a model axis ({mesh.shape}) is not "
+            "ported: tensor and expert parallelism (ROADMAP A10)")
+    if mesh is not None and mesh.shape[SEQ_AXIS] > 1:
+        raise NotImplementedError(
+            f"{what} over a mesh with a seq axis ({mesh.shape}) is not "
+            "ported (ROADMAP A10): seq-parallel training is "
+            "parallel.ring.make_seq_parallel_lm_step")
+
+
 class Trainer:
-    """Drives the training loop for one model on one card."""
+    """Drives the training loop for one model on one card, or
+    data-parallel over a mesh's data axis (module docstring)."""
 
     def __init__(self, config: TrainerConfig, mesh=None, device="cuda"):
         if config.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline stages are not ported (ROADMAP A10)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the Trainer over a mesh is not ported (one card; ROADMAP "
-                "A10): seq-parallel training is "
-                "parallel.ring.make_seq_parallel_lm_step")
-        spec = config.mesh
-        if max(spec.data, spec.model, spec.seq) > 1:
-            raise NotImplementedError(
-                f"training over a mesh ({spec}) is not ported: the Trainer "
-                "runs on one card (ROADMAP A10)")
-        spec.resolve(1)   # a malformed spec raises
+        if mesh is None:
+            device = resolve_device(device)
+            mesh = mesh_for_spec(config.mesh, device)
+        check_data_mesh(mesh, "the Trainer")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # shard i's device (one entry on one card); the masters live on
+        # the first
+        self.shard_devices = ([resolve_device(device)] if mesh is None
+                              else batch_devices(mesh))
+        self.device = self.shard_devices[0]
         self.module = build_model(config.architecture, config.model_config,
                                   device=self.device)
         # the scoring models return (z, nodes) and infer their first
@@ -253,6 +300,16 @@ class Trainer:
         # class's first step under a run, replayed into later runs)
         self._costs = ProgramCosts("trainer")
         self._effective_batch_size: Optional[int] = None
+        # each shard's replica of the module (built with the state) and
+        # their runner; a training BatchNorm needs them in lockstep
+        self._replicas: Optional[ShardReplicas] = None
+        self._group = ShardGroup(len(self.shard_devices))
+        self._lockstep = bool(self._stat_names)
+
+    @property
+    def data_size(self) -> int:
+        """The data axis: how many shards a batch is cut into."""
+        return len(self.shard_devices)
 
     # -- state ----------------------------------------------------------
     def init_state(self, input_shape: tuple, total_steps: int = 1,
@@ -276,6 +333,7 @@ class Trainer:
                                                    self.config.seed)
         load_variables(self.module, variables)
         self.module.train()
+        self._replicas = ShardReplicas(self.module, self.shard_devices)
         params = list(self.module.parameters())
         start = int((initial_bundle.metadata or {}).get("steps", 0)) \
             if initial_bundle is not None else 0
@@ -287,53 +345,79 @@ class Trainer:
     # -- the step -------------------------------------------------------
     def make_train_step(self):
         """`step(state, x, y, mask, probe=False) -> (loss, metrics)`, both
-        device tensors; the state's parameters, optimizer state and
-        BatchNorm statistics are updated in place and its step advances.
-        `metrics` holds `grad_norm`, and on a probe step `health`
-        (`tree_health` over the new parameters, the gradients, the
-        updates and the logits)."""
-        module, loss_fn, tx, names = (self.module, self._loss, self._tx,
-                                      self._names)
-        scoring = self._scoring
-        f32 = module.dtype == torch.float32
+        device tensors: x, y and mask are lists of per-shard slabs (one
+        card takes the tensors themselves).  Each shard's forward and
+        backward runs on its slab with its own replica, its loss over the
+        global mask count; the gradients are summed onto the masters in
+        shard order, the optimizer runs once, and the new values reach the
+        other devices (module docstring).  The state's parameters,
+        optimizer state and BatchNorm statistics are updated in place and
+        its step advances.  `metrics` holds `grad_norm` (and a MoE's sown
+        metrics), and on a probe step `health` (`tree_health` over the new
+        parameters, the gradients, the updates and the logits)."""
+        loss_fn, tx, names = self._loss, self._tx, self._names
+        scoring, group = self._scoring, self._group
+        f32 = self.module.dtype == torch.float32
         aux_w = float(self.config.aux_loss_weight)
+        n = self.data_size
 
-        def train_step(state: TrainState, x, y, mask, probe: bool = False):
-            def loss_and_logits():
+        def train_step(state: TrainState, xs, ys, masks,
+                       probe: bool = False):
+            if isinstance(xs, torch.Tensor):
+                xs, ys, masks = [xs], [ys], [masks]
+            replicas = self._replicas
+            replicas.zero_grad()
+            denom = torch.clamp(reduce_to_home(
+                [m.float().sum() for m in masks]), min=1.0)
+
+            def shard_loss(i):
+                module = replicas.shards[i]
                 if scoring:
-                    logits, sown = module(x)[0], {}
+                    logits, sown = module(xs[i])[0], {}
                 else:
-                    logits, sown = module(x, collect=True)
-                loss = loss_fn(logits, y, mask)
+                    logits, sown = module(xs[i], collect=True)
+                loss = loss_fn(logits, ys[i], masks[i],
+                               denom=denom.to(logits.device))
                 if aux_w:
                     # model-sown auxiliary losses (the MoE load-balance and
-                    # z terms, ops/moe.py) join the objective
-                    loss = loss + aux_w * sum(
+                    # z terms, ops/moe.py) join the objective: each shard's
+                    # are means over its groups, the global mean is their
+                    # mean over the shards
+                    loss = loss + (aux_w / n) * sum(
                         sown_leaves(sown.get("losses", {})))
-                return loss, (logits, sown.get("metrics", {}))
+                return loss, logits.detach(), fold_metrics(
+                    sown.get("metrics", {}))
 
             # a float32 model computes in f32 on the card: TF32 off
             with exact_f32() if f32 else contextlib.nullcontext():
-                loss, (logits, sown), grads, updates = backward_and_update(
-                    tx, state.params, state.opt_state, loss_and_logits,
-                    return_updates=probe)
-            metrics = {**fold_metrics(sown), "grad_norm": global_norm(grads)}
+                shards = group.run(shard_loss, lockstep=self._lockstep)
+                loss = reduce_to_home([out[0] for out in shards])
+                loss.backward()
+                grads = replicas.reduced_grads()
+                updates = tx.update(grads, state.opt_state, state.params,
+                                    return_updates=probe)
+            replicas.broadcast()
+            metrics = {key: reduce_to_home([out[2][key] for out in shards])
+                       / n for key in shards[0][2]}
+            metrics["grad_norm"] = global_norm(grads)
             state.step += 1
             if probe:
                 metrics["health"] = tree_health(
                     dict(zip(names, state.params)), dict(zip(names, grads)),
-                    dict(zip(names, updates)), acts=logits.detach())
+                    dict(zip(names, updates)),
+                    acts=[out[1] for out in shards])
             return loss.detach(), metrics
 
         return train_step
 
     def _sync(self) -> None:
-        """Wait for the work queued so far on the card (a CUDA event's
-        synchronize: what the watchdog bounds)."""
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            event.synchronize()
+        """Wait for the work queued so far on every card of the step (a
+        CUDA event's synchronize each: what the watchdog bounds)."""
+        for dev in distinct_devices(self.shard_devices):
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                event.synchronize()
 
     # -- the loop -------------------------------------------------------
     def fit_arrays(self, x: np.ndarray, y: np.ndarray,
@@ -357,7 +441,8 @@ class Trainer:
         cfg = self.config
         ckpt_dir = ckpt_dir if ckpt_dir is not None else cfg.checkpoint_dir
         n = n_local = len(x)
-        bs = max(cfg.batch_size, 1)   # the JAX clamp with a data axis of 1
+        data = self.data_size
+        bs = max(cfg.batch_size - cfg.batch_size % data, data)
         # the newest valid checkpoint, validated once for this fit
         restore_from = latest_valid_checkpoint(ckpt_dir) \
             if resume and ckpt_dir else None
@@ -401,7 +486,8 @@ class Trainer:
         windows = [(int(a), int(b)) for a, b in (skip_data_windows or [])]
         watchdog = StepWatchdog(cfg.step_timeout_s) \
             if cfg.step_timeout_s else None
-        feed = DeviceFeed(self.device)
+        feeds = {dev: DeviceFeed(dev)
+                 for dev in distinct_devices(self.shard_devices)}
         timings = active_timings()   # captured HERE: workers have no context
 
         def plan():
@@ -420,8 +506,8 @@ class Trainer:
 
         def stage(item):
             # on a staging worker: the gather, the mask, the pinned
-            # buffers and the copies to the card (a skip window's marker
-            # stages nothing)
+            # buffers and the copies to the card, one slab per data shard
+            # (a skip window's marker stages nothing)
             epoch, step_c, order, start = item
             if order is None:
                 return epoch, step_c, None
@@ -436,10 +522,15 @@ class Trainer:
                                               np.resize(order, bs - valid)])
                     mask = np.zeros(bs, np.float32)
                     mask[:valid] = 1.0
-                    hosts = [feed.stage(host_batch(a), bs)
-                             for a in (x[idx], y[idx], mask)]
+                    rows, slab = (x[idx], y[idx], mask), bs // data
+                    hosts = [[feeds[dev].stage(
+                        host_batch(a[i * slab:(i + 1) * slab]), slab)
+                        for a in rows]
+                        for i, dev in enumerate(self.shard_devices)]
                 with span_on(timings, "transfer"):
-                    return epoch, step_c, [feed.put(h) for h in hosts]
+                    return epoch, step_c, [
+                        [feeds[dev].put(h) for h in shard]
+                        for dev, shard in zip(self.shard_devices, hosts)]
 
         losses, norms, sown = [], [], []
         cur_epoch: Optional[int] = None
@@ -492,10 +583,14 @@ class Trainer:
                         trace_event("train.step_skipped", cat="resilience",
                                     step=step_c, epoch=epoch)
                         continue
-                    xb, yb, mask_d = (feed.ready(*b) for b in batch)
+                    # per shard (x, y, mask), ready on its device
+                    parts = [[feeds[dev].ready(*b) for b in shard]
+                             for dev, shard in zip(self.shard_devices,
+                                                   batch)]
+                    xb, yb, mask_d = (list(col) for col in zip(*parts))
                     chaos.on_step(step_c)  # may deliver a simulated SIGTERM
                     if chaos.poison_nan(step_c):
-                        mask_d = mask_d * float("nan")
+                        mask_d = [m * float("nan") for m in mask_d]
                     probe_now = bool(cadence) and step_c % cadence == 0
                     # the watchdog arms from the third executed step (the
                     # first two pay kernel builds and allocator warm-up)
@@ -527,7 +622,9 @@ class Trainer:
                         # is the step's: the roofline joins it directly
                         # ("step_wall"); a new shape class's first step
                         # is counted instead (observe/costmodel.py)
-                        key = f"{tuple(xb.shape)}:{str(xb.dtype)[6:]}"
+                        # the global batch's shape class
+                        key = (f"{(bs,) + tuple(xb[0].shape[1:])}:"
+                               f"{str(xb[0].dtype)[6:]}")
                         with self._costs.execution(run, key,
                                                    basis="step_wall"), \
                                 tracer.span("train.step", parent=fit_id,
@@ -610,26 +707,38 @@ class Trainer:
         return self.bundle_from_state(state)
 
     def _adopt_saved_batch(self, path: str, bs: int) -> int:
-        """The one-card half of elastic resume: a checkpoint's `.meta.json`
-        names the effective batch size it was written under; adopt it so
-        the step numbering and data order replay identically."""
+        """Elastic resume: a checkpoint's `.meta.json` names the topology
+        and effective batch size it was written under; adopt the saved
+        batch size (when it divides into this data axis) so the step
+        numbering and data order replay identically."""
         saved = checkpoint_meta(path) or {}
         saved_bs = int(saved.get("effective_batch_size") or 0)
         saved_dp = int(saved.get("data_devices") or 0)
         saved_mp = int(saved.get("model_devices") or 0)
-        if (saved_dp and saved_dp != 1) or saved_mp > 1:
+        data = self.data_size
+        if saved_dp and (saved_dp != data or (saved_mp and saved_mp != 1)):
             trace_event("train.elastic_resume", cat="resilience",
-                        saved_dp=saved_dp, dp=1, saved_mp=saved_mp or 1,
+                        saved_dp=saved_dp, dp=data, saved_mp=saved_mp or 1,
                         mp=1, saved_batch=saved_bs or bs, batch=bs)
             inc_counter("train.elastic_resumes")
             get_logger("train").info(
                 "elastic resume: checkpoint written under dp=%d x mp=%d, "
-                "restoring onto one card", saved_dp, saved_mp or 1)
+                "restoring onto dp=%d x mp=1 (reshard-on-restore)",
+                saved_dp, saved_mp or 1, data)
         if saved_bs and saved_bs != bs:
+            if saved_bs % data:
+                raise ValueError(
+                    f"elastic resume: checkpoint written under "
+                    f"dp={saved_dp or '?'} x mp={saved_mp or 1} with "
+                    f"effective batch size {saved_bs} cannot replay onto "
+                    f"the current dp={data} x mp=1 mesh ({saved_bs} does "
+                    f"not divide into the new data-axis unit {data}); "
+                    f"pick a batch_size divisible by both topologies to "
+                    f"keep resumed runs reproducible")
             get_logger("train").info(
                 "elastic resume: adopting the checkpoint's effective batch "
-                "size %d (config %d) so data order replays identically",
-                saved_bs, bs)
+                "size %d (config clamped to %d) so data order replays "
+                "identically", saved_bs, bs)
             return saved_bs
         return bs
 
@@ -691,13 +800,13 @@ class Trainer:
     def bundle_from_state(self, state: TrainState) -> ModelBundle:
         """The trained bundle (parameters, and the BatchNorm statistics as
         `batch_stats`); metadata records the step and the partition
-        layout (rules and a {data: 1, model: 1} mesh) as the JAX Trainer
+        layout (rules and the {data, model} mesh) as the JAX Trainer
         does."""
         rules = self.config.partition_rules or DEFAULT_RULES
         metadata = {
             "steps": int(state.step),
             "partition": {"rules": rules_to_json(rules),
-                          "mesh": {"data": 1, "model": 1}},
+                          "mesh": {"data": self.data_size, "model": 1}},
         }
         return ModelBundle.from_module(self.module, metadata)
 
@@ -730,7 +839,8 @@ class Trainer:
     def _ckpt_meta(self, step: int) -> dict:
         """The `.meta.json` sidecar: the topology and effective batch size
         this checkpoint was written under, the JAX Trainer's keys."""
-        return {"step": int(step), "data_devices": 1, "model_devices": 1,
+        return {"step": int(step), "data_devices": self.data_size,
+                "model_devices": 1,
                 "process_count": 1,
                 "effective_batch_size": self._effective_batch_size,
                 "seed": int(self.config.seed),
@@ -781,6 +891,8 @@ class Trainer:
             for name, t in zip(self._names + self._stat_names,
                                state.params + state.batch_stats):
                 t.copy_(named[name])
+        if self._replicas is not None:
+            self._replicas.broadcast()
         return TrainState(step=int(np.asarray(restored["step"])),
                           params=state.params, opt_state=opt_state,
                           batch_stats=state.batch_stats)

@@ -13,6 +13,7 @@ mesh, as the port does, in a module fixture.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.core.pipeline import load_stage as jax_load_stage
 from mmlspark_tpu.core.table import DataTable as JaxDataTable
@@ -25,6 +26,8 @@ from mmlspark_tpu.train import TrainerConfig as JaxTrainerConfig
 from mmlspark_tpu_torch import (DataTable, ModelBundle, TPULearner,
                                 TPUModel, TrainerConfig)
 from mmlspark_tpu_torch.core.pipeline import load_stage
+from mmlspark_tpu_torch.parallel.mesh import MeshSpec as PortMeshSpec
+from mmlspark_tpu_torch.parallel.mesh import make_mesh as port_make_mesh
 
 MLP = {"hidden_sizes": [16], "num_classes": 2, "dtype": "float32"}
 
@@ -143,7 +146,8 @@ def test_set_mesh_raises_for_a_mesh():
     learner = TPULearner(device="cpu")
     assert learner.set_mesh(None) is learner
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        learner.set_mesh(object())
+        learner.set_mesh(port_make_mesh(PortMeshSpec(data=1, model=2),
+                                        [torch.device("cpu")] * 2))
 
 
 def test_learner_and_model_load_across_packages(fitted, tmp_path):

@@ -308,4 +308,5 @@ def test_population_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PopulationTrainer(_cfg(), 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        PopulationTrainer(_cfg(mesh={"data": 2}), 2, device="cpu")
+        PopulationTrainer(_cfg(mesh={"data": 1, "model": 2}), 2,
+                          device="cpu")

@@ -281,7 +281,8 @@ def test_defaults_to_the_card_and_raises_on_unported_paths(monkeypatch):
     cached._device_cache = {"x": torch.as_tensor(cached["x"])}
     np.testing.assert_array_equal(port_model("mlp").transform(cached)["y"],
                                   port_model("mlp").transform(table)["y"])
-    mesh = make_mesh(MeshSpec(data=2), devices=[torch.device("cpu")] * 2)
+    mesh = make_mesh(MeshSpec(data=1, model=2),
+                     devices=[torch.device("cpu")] * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         port_model("mlp").set_mesh(mesh)
     lm = ModelBundle.init("TransformerLM", {"vocab_size": 16, "d_model": 8,

@@ -132,12 +132,12 @@ def test_flash_and_dense_attention_give_the_same_gradients():
 
 
 def test_unported_trainer_options_raise():
-    """What the port's Trainer still refuses (pipeline stages, meshes)
-    raises NotImplementedError naming its ROADMAP item; the options it
-    runs since (the scoring architectures, the watchdog, the numerics
-    halts, checkpoints, resume, skip windows, the save_attention remat
-    policy) construct and fit."""
-    for kw in ({"pipeline_stages": 2}, {"mesh": {"data": 2}}):
+    """What the port's Trainer still refuses (pipeline stages, the model
+    axis of a mesh) raises NotImplementedError naming its ROADMAP item;
+    the options it runs since (the scoring architectures, the watchdog,
+    the numerics halts, checkpoints, resume, skip windows, the
+    save_attention remat policy, a data axis) construct and fit."""
+    for kw in ({"pipeline_stages": 2}, {"mesh": {"data": 1, "model": 2}}):
         cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)), **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             Trainer(cfg, device="cpu")
