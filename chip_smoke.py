@@ -17,8 +17,9 @@ ResNet-50 scoring under the depth Autotuner; `ImageTransformer` and
 (`TrainClassifier` / `TrainRegressor` over every learner family,
 `FindBestModel`, the text featurizer and `CheckpointData`), the
 mixture-of-experts LM (served, trained, rematerialized) and the
-population sweep, the measurement layer, and data parallelism over a
-mesh whose shards share the card, and times kernels and paths.
+population sweep, the measurement layer, and data, tensor and expert
+parallelism over meshes whose shards share the card, and times kernels
+and paths.
 
     python3 chip_smoke.py
 
@@ -86,8 +87,7 @@ Phases (any failure exits non-zero before the result line):
      engine's), bf16 and bf16 with an int8 cache (in-vocabulary rows);
      K1 and K4 launch counts exact against the engine's own spans; a
      clean drain; the repo's serving bench arms (continuous vs static
-     goodput, latency percentiles, 88 of 96 shed at a queue of 8); one
-     profiled pass of the HTTP traffic
+     goodput, latency percentiles, 88 of 96 shed at a queue of 8)
  13. the replicated fleet (`build_fleet` of 2 replicas on this card +
      `start_router` + `start_http` -> `Router` -> `Replica`s -> the
      engines) at the width of phase 6 with chunked prefill (512) and the
@@ -112,7 +112,7 @@ Phases (any failure exits non-zero before the result line):
      prefill crash mid-transfer, both re-prefilled exact; the bench's
      disaggregated arm against a colocated fleet; the disagg drill's
      interference scenario at full width (victims' inter-token p99,
-     colocated over tiered, at least the drill's 1.2; 16 timed passes an
+     colocated over tiered, at least the drill's 1.2; 8 timed passes an
      arm, the arms interleaved pass by pass, pooled)
  15. head dim 32: K1 and K1[lse] at (2, 1024, 8, 32), f32 and bf16,
      causal and not and at q/k offsets, and K4 and K4[stats] at (16,
@@ -152,7 +152,7 @@ Phases (any failure exits non-zero before the result line):
      layers) x the prefills of buckets >= 512 and K4 = rounds x 8 draft
      steps, exact; (b) the repo's speculative bench arm at its width
      (8 layers, 8 x 64 prompt, 128 new, k 7): tokens/s beside its plain
-     engine, the acceptance rate, a profile of each; (c) an int8 and a
+     engine, the acceptance rate; (c) an int8 and a
      bf16 `quantize_bundle` of the phase-6 model through `TextGenerator`:
      tokens/s, ms/step, resident Dense bytes, greedy agreement, K1 and K4
      exact; (d) `ServingEngine(spec_tokens=3)` over HTTP at f32 (every
@@ -211,7 +211,7 @@ Phases (any failure exits non-zero before the result line):
      PNGs of 224 x 224 x 3 written with the standard library, read in
      batches of 128 with resize_to (224, 224) and scored by the ResNet-50
      of phase 21 at bf16, at depth 0 (the Autotuner), fixed 8 and the hand
-     sweep 2-32, each arm 3 times interleaved: median images/s each, the
+     sweep 2-32, each arm 2 times interleaved: median images/s each, the
      fixed-8 / hand-8 gap (one configuration: the noise floor), autotune
      over the best hand arm, the Autotuner's steps and decisions, the
      autotune arm's decode / host / transfer / compute / drain
@@ -258,11 +258,11 @@ Phases (any failure exits non-zero before the result line):
      example 101's six families, fit and transform seconds, accuracy and
      AUC; card predictions equal to the CPU's on >= 99.9% of the test
      rows per family, the same FindBestModel winner, two RandomForest fits
-     bit-equal; (b) flights (500000 rows) through example 102's three
+     bit-equal; (b) flights (250000 rows) through example 102's three
      regressors, R^2 within 1e-4 of the CPU's, LinearRegression's
      coefficients on the collinear featurized matrix within 1e-3 of
      max |w| of float64 lstsq, with the gels solve and the JAX package's
-     cutoff read beside the limit; (c) 100000 reviews through example
+     cutoff read beside the limit; (c) 50000 reviews through example
      201's TextFeaturizer, every ASCII row counted through the fused
      native hasher, the first 2000 byte-identical to the staged path,
      LogisticRegression accuracy within 0.002 of the CPU's, example 202's
@@ -330,6 +330,27 @@ Phases (any failure exits non-zero before the result line):
      data 2, member accuracies against one card's; (f) one data 1 x
      seq 2 ring-flash step: every token-wise layer at S/2 a shard, the
      loss equal to the whole-array forward's
+ 28. the model axis over meshes of 2 and 4 shards on this card
+     (`phase_model_parallel`, only the port): (a) the LM at LM_CONFIG's
+     width, 8 x 2048 for 4 steps at data 1 x model 2 against one card
+     from one init: losses and grad norms within 5e-3 relative, K1[lse],
+     K2 and K3 exactly 4 layers x 2 shards x 4 steps = 32 times on
+     (8, 2048, 4, 128), each shard's qkv / mlp_up / lm_head at 1536 /
+     2048 / 4096 columns (forward hooks), the step's ms at both, f32 at
+     2 layers with TF32 off: the weights by phase 27's share rule; (b)
+     that f32 fit's checkpoint and bundle record (data 1, model 2) and
+     restore onto one card and onto data 2 x model 2 byte for byte; (c)
+     `TextGenerator` at model 2: f32 greedy tokens equal one card's over
+     phase 6's prompts with K1 / K4 once a layer a model shard, bf16 and
+     int8-cache rows against their floors, a speculative run with the
+     draft replicated equal to the plain one; (d) `ServingEngine` over
+     data 2 x model 2 at f32: tokens equal one card's, a prefix-pool
+     hit; (e) phase 25's MoE LM at model 2 (4 experts a shard): losses,
+     overflow and one forward's sown values against one card's, f32
+     decode at group size 1 equal; (f) `TPUModel` over (a)'s bundle at
+     model 2 and resnet50() bf16 at data 2 x model 2 against one card;
+     (g) K1[lse], K2, K3 at (8, 2048, 4, 128), K1 at (2, 1024, 4, 128)
+     and K4 at (2, 1152, 4, 128) against plain and timed
 
 Each phase's seconds print on a line of their own (`phase seconds N`) and
 as one `{"phase_seconds": ...}` line; the whole run stays under 1000 s.
@@ -1821,11 +1842,6 @@ SERVE_BENCH_CONFIG = {"vocab_size": 8192, "d_model": 512, "n_heads": 8,
 SERVE_BENCH = dict(n_req=48, short_new=16, long_new=96, max_batch=8,
                    seg=16, chunk=64, lens=(40, 48, 56, 64), offered=96,
                    reps=3)
-SERVE_GROUPS = (("K1 flash_fwd", ("flash_fwd",)),
-                ("K4 sqa_forward", ("sqa_",)),
-                ("GEMM (cuBLAS)", GEMM_KEYS))
-
-
 def http_json(port: int, method: str, path: str, body=None) -> tuple:
     """(status, parsed JSON body) of one request on a fresh connection."""
     import http.client
@@ -1938,8 +1954,8 @@ def phase_serving(dev, card) -> dict:
         continuous and static goodput, latency percentiles, the offline
         rate; 96 requests offered to a queue of 8 shed exactly 88 and
         every admitted one meets its deadline.
-    (c) one profiled warm pass of (a)'s traffic at bf16: device busy /
-        wall and the K1, K4, GEMM and small-kernel groups."""
+    (A profiled warm pass of (a)'s traffic at bf16 ran here until phase
+    28 needed the time; phase 6 profiles the serving path.)"""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.models.generate import (ServingWeights,
                                                     bucket_length)
@@ -1996,11 +2012,6 @@ def phase_serving(dev, card) -> dict:
                 torch.cuda.synchronize()
                 launched = read_counts()
                 records = rt.tracer.records()
-                if name == "bf16":
-                    # (c): the same traffic again, warm, under the profiler
-                    out["device_breakdown"] = device_breakdown(
-                        lambda: serve_traffic(port, prompts, late, streamed,
-                                              running), card, SERVE_GROUPS)
                 stats = http_json(port, "GET", "/statz")[1]
             finally:
                 stop_http(server)
@@ -3231,11 +3242,12 @@ def bench_disagg(dev, card) -> dict:
 # victims decoding while 6 long prompts arrive (a 1000-token prompt is
 # bucket 1024: two 512-token chunks, K1 at chunk 0).  A victim's tokens
 # arrive a segment (4) at a time, so a timed pass gives 3 x 12 = 36 gaps,
-# whose p99 is their largest: the gate pools 16 passes an arm (~560
-# gaps), the arms' passes interleaved so that the host's drift over the
-# run falls on both alike
+# whose p99 is their largest: the gate pools 8 passes an arm (~280 gaps;
+# 16 until phase 28 needed the time: pooled 1.406 over 16, the passes'
+# own ratios 0.93-2.08, PERF.md section 6), the arms' passes interleaved
+# so that the host's drift over the run falls on both alike
 INTERFERENCE = dict(victims=3, victim_len=20, victim_new=48, burst=6,
-                    burst_len=1000, burst_new=4, seg=4, passes=16,
+                    burst_len=1000, burst_new=4, seg=4, passes=8,
                     min_p99_ratio=1.2)
 
 
@@ -4511,16 +4523,11 @@ def phase_small_head_dims(dev, card) -> tuple:
 SPEC_K = 7
 SPEC_BENCH_CONFIG = {"vocab_size": 8192, "d_model": 1024, "n_heads": 8,
                      "n_layers": 8, "max_len": 512, "dtype": "bfloat16"}
-SPEC_BENCH = dict(batch=8, prompt=64, new=128, k=7, chunk=128, reps=3)
+# reps 3 until phase 28 needed the time
+SPEC_BENCH = dict(batch=8, prompt=64, new=128, k=7, chunk=128, reps=2)
 SPEC_SERVE_LENGTHS = (20, 70, 600, 900)
 SPEC_SERVE_K = 3
 BEAM = dict(prompt=600, new=16, width=4)
-LM_DECODE_GROUPS = (("K1 flash_fwd", ("flash_fwd",)),
-                    ("K4 sqa_", ("sqa_",)),
-                    ("GEMM (cuBLAS)", GEMM_KEYS),
-                    ("softmax", ("softmax",)))
-
-
 def lm_table(lengths, seed: int = 1) -> tuple:
     """Seeded prompts of the given lengths (phase 6's draw at seed 1 for
     PROMPT_LENGTHS) and their DataTable."""
@@ -4634,7 +4641,7 @@ def spec_main_path(dev, card) -> dict:
 def spec_bench(dev, card) -> dict:
     """Phase 18 (b): bench.py's speculative arm at its own width, bf16:
     `DecodeEngine` with and without a 1-layer draft of the softened
-    target, best of 3 generates each, in this call; the acceptance rate
+    target, best of 2 generates each, in this call; the acceptance rate
     and the agreement of the greedy tokens."""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.models import DecodeEngine
@@ -4654,12 +4661,8 @@ def spec_bench(dev, card) -> dict:
                         draft_module=draft.module(dev), spec_tokens=b["k"],
                         device=dev)
     ref, got = base.generate(prompts, tl), spec.generate(prompts, tl)
-    # where a round's device time goes: the whole generate profiled, and
     # the verify's plain attention (`segment_cache_attention`) timed
     # alone at its shape, times layers x rounds
-    breakdown = {name: device_breakdown(lambda: eng.generate(prompts, tl),
-                                        card, LM_DECODE_GROUPS)
-                 for name, eng in (("plain", base), ("spec", spec))}
     verify_ms = verify_attention_ms(dev, spec, b["batch"], b["prompt"])
     best = {"plain": float("inf"), "spec": float("inf")}
     for _ in range(b["reps"]):
@@ -4675,7 +4678,6 @@ def spec_bench(dev, card) -> dict:
            "acceptance": spec.last_spec_acceptance,
            "rounds": spec.last_spec_rounds,
            "agree": f"{int((ref == got).sum())}/{ref.size}",
-           "device_breakdown": breakdown,
            "verify_attention_ms": verify_ms * SPEC_BENCH_CONFIG["n_layers"]
            * spec.last_spec_rounds}
     print(f"speculative bench arm (bf16, {b['batch']} x {b['prompt']} "
@@ -4761,9 +4763,6 @@ def int8_weights_path(dev, card) -> dict:
             seg_ms = cuda_ms(lambda: engine.decode_segment(
                 32, window, caches, tok, done, tl, bucket, 0,
                 [0] * len(long_rows)), warmup=1, reps=5)
-            breakdown = device_breakdown(lambda: engine.decode_segment(
-                32, window, caches, tok, done, tl, bucket, 0,
-                [0] * len(long_rows)), card, LM_DECODE_GROUPS)
         # the per-call weight cast an int8 step pays: every Dense weight
         # to bf16 once, device time in a CUDA graph (bf16 weights: none)
         cast_ms = (graph_ms(lambda: [layer.weight.to(torch.bfloat16)
@@ -4773,7 +4772,6 @@ def int8_weights_path(dev, card) -> dict:
                      "ms_per_step": seg_ms / 32,
                      "dense_weight_bytes": nbytes,
                      "launches": {"K1": k1, "K4": k4},
-                     "device_breakdown_32_steps": breakdown,
                      "weight_cast_ms_per_step": cast_ms}
         print(f"{mode} weights main path: "
               f"{out[mode]['tokens_per_s']:.1f} tokens/s; decode "
@@ -4950,8 +4948,9 @@ def phase_lm_decoding(dev, card) -> dict:
 # chip_smoke phase 19: the phase-7 fit with checkpoints every 2 steps
 # (async), a chaos preemption and its resume, a resume past a torn newest
 # checkpoint, and the recovery supervisor against a NaN and a hung step
+# reps 5 until phase 28 needed the time
 CKPT = dict(every=2, preempt_at=2, nan_at=2, hang_at=3, hang_s=4.0,
-            step_timeout_s=2.0, reps=5)
+            step_timeout_s=2.0, reps=3)
 
 
 def ckpt_config(**kw):
@@ -5282,9 +5281,9 @@ def phase_seq_parallel_training(dev, card) -> tuple:
     over 2 shards: 2 diagonal block pairs + 1 below it) a step.  Its
     ms/step beside the one-card flash step's on the same batch.  At f32
     and 2 x 2048 one step's gradients against the one-card flash step's;
-    ulysses and ring at a small width against the dense step's.  A
-    profile of one step of each (device time by kernel group, idle
-    share).  Then the ring's block pairs' kernel rows.  Returns (kernel
+    ulysses and ring at a small width against the dense step's (the
+    profiles of both steps were dropped when phase 28 needed the time).
+    Then the ring's block pairs' kernel rows.  Returns (kernel
     rows, the path's numbers)."""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
@@ -5340,9 +5339,6 @@ def phase_seq_parallel_training(dev, card) -> tuple:
             "seq-parallel training launched K1 without lse")
     ring_ms = cuda_ms(lambda: step(params, opt, *batch), warmup=1,
                       reps=RING["reps"])
-    print("  profile of one ring_flash step:")
-    ring_profile = device_breakdown(lambda: step(params, opt, *batch), card,
-                                    TRAIN_GROUPS)
     del params, opt, step
     torch.cuda.empty_cache()
     # the one-card flash step: the same step over a mesh of one shard
@@ -5353,9 +5349,6 @@ def phase_seq_parallel_training(dev, card) -> tuple:
     fparams, fopt, fstep = seq_step(module("flash"), one)
     flash_ms = cuda_ms(lambda: fstep(fparams, fopt, *whole), warmup=1,
                        reps=RING["reps"])
-    print("  profile of one one-card flash step:")
-    flash_profile = device_breakdown(lambda: fstep(fparams, fopt, *whole),
-                                     card, TRAIN_GROUPS)
     del fparams, fopt, fstep, batch, whole
     torch.cuda.empty_cache()
     n_tokens = RING["batch"] * RING["seq"]
@@ -5386,8 +5379,6 @@ def phase_seq_parallel_training(dev, card) -> tuple:
     out = {"losses": losses, "seconds": seconds, "launches": launched,
            "block_launches": blocks,
            "ring_flash_ms_per_step": ring_ms, "flash_ms_per_step": flash_ms,
-           "ring_flash_profile": ring_profile,
-           "flash_profile": flash_profile,
            "f32_grads": f32, "small_width_grads": small_out}
     out["phase_seconds"] = time.perf_counter() - t_phase
     print(f"phase 20: {out['phase_seconds']:.1f} s [{card}]")
@@ -5500,8 +5491,9 @@ def ring_block_rows(dev, card, blocks: dict) -> list:
 # kernel: cuDNN and cuBLAS).  (a) the zoo ConvNet at bench.py
 # bench_convnet's configuration, (b) ResNet-50 at bench_resnet50's, (c) the
 # two MLP zoo bundles.  Inputs are made here with numpy from seed 0.
+# reps 3 (VISION, INGEST) until phase 28 needed the time
 VISION = dict(convnet_images=32768, convnet_batch=4096, resnet_images=1024,
-              resnet_batch=256, check_rows=256, reps=3, steady_iters=4,
+              resnet_batch=256, check_rows=256, reps=2, steady_iters=4,
               wdbc_rows=65536, text_rows=16384, mlp_batch=4096,
               calibration_rows=32, resnet_branch_scale=0.1)
 # The gates of phase 21, per model family and arm, each limit a share of
@@ -5924,7 +5916,7 @@ def resnet50_bundle(images: np.ndarray, branch_scale: float):
 # 240, 3) float32.
 INGEST = dict(n_files=768, side=224, batch=128, fixed=8,
               sweep=(2, 4, 8, 16, 32), interval=4, calibration_rows=32,
-              reps=3)
+              reps=2)
 TRANSFORM = dict(images=1024, height=240, width=320, batch=256, reps=3,
                  check_rows=16, cpu_feature_rows=8)
 OPS_SHAPE = (256, 320, 240, 3)
@@ -6875,10 +6867,11 @@ def phase_vision_training(dev, card) -> dict:
 
 # -- phase 24: the AutoML layer ------------------------------------------
 
-# sizes: the UCI Adult's own train/test split, about a month of US domestic
-# flights, 100,000 reviews, 8192 images
-AUTOML = dict(census_rows=48842, census_train=32561, flight_rows=500000,
-              flight_train=375000, review_rows=100000, review_train=75000,
+# sizes: the UCI Adult's own train/test split, about two weeks of US
+# domestic flights, 50,000 reviews, 8192 images (flights and reviews were
+# 500,000 and 100,000 until phase 28 needed the time)
+AUTOML = dict(census_rows=48842, census_train=32561, flight_rows=250000,
+              flight_train=187500, review_rows=50000, review_train=37500,
               staged_rows=2000, cache_images=8192, cache_batch=1024)
 # the gates: card predictions equal to the CPU's on this share of the
 # test rows; LinearRegression's coefficients within this share of max |w|
@@ -8127,15 +8120,18 @@ def dense_batches(module) -> tuple:
     return calls, handles
 
 
-def dp_shard_kernel_rows(dev, card, launched: dict) -> list:
-    """K1[lse], K2 and K3 at the data-2 path's shard shape
-    DP["shard_shape"] bf16, causal: against their plain versions (the
-    phase-3 and phase-4 limits), timed beside the bound and the library
-    call; `launched`: each kernel's launches on that path."""
+def dp_shard_kernel_rows(dev, card, launched: dict,
+                         shape: tuple = DP["shard_shape"],
+                         tag: str = "data 2 shard", phase: int = 27) -> list:
+    """K1[lse], K2 and K3 at a path's shard shape (default the data-2
+    path's, DP["shard_shape"]) bf16, causal: against their plain versions
+    (the phase-3 and phase-4 limits), timed beside the bound and the
+    library call; `launched`: each kernel's launches on that path; `tag`
+    names the rows, `phase` the failures."""
     from mmlspark_tpu_torch.ops.flash_attention import (
         flash_attention_with_lse, flash_attention_with_lse_plain,
         flash_block_grads_plain, flash_bwd_dkv, flash_bwd_dq)
-    b, s, h, d = DP["shard_shape"]
+    b, s, h, d = shape
     gen = torch.Generator(device=dev).manual_seed(27)
     q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
@@ -8144,11 +8140,11 @@ def dp_shard_kernel_rows(dev, card, launched: dict) -> list:
     ref, ref_lse = flash_attention_with_lse_plain(q, k, v, True)
     err, norm_err = out_errs(out, ref)
     lse_err = (lse - ref_lse).abs().max().item()
-    print(f"K1[lse] at the data-2 shard shape {DP['shard_shape']} bf16: "
+    print(f"K1[lse] at the {tag} shape {shape} bf16: "
           f"max_abs_err {err:.3e} (tol 2e-2), ||d||/||ref|| {norm_err:.3e} "
           f"(tol 1e-2), lse {lse_err:.3e} (tol 1e-3)")
     require(err <= 2e-2 and norm_err <= 1e-2 and lse_err <= 1e-3,
-            "phase 27: K1[lse] disagrees at the shard shape")
+            f"phase {phase}: K1[lse] disagrees at the shard shape")
     ms = graph_ms(lambda: flash_attention_with_lse(q, k, v, True))
     plain_ms = graph_ms(lambda: flash_attention_with_lse_plain(q, k, v,
                                                                True), calls=3)
@@ -8160,11 +8156,11 @@ def dp_shard_kernel_rows(dev, card, launched: dict) -> list:
     nbytes = 4.0 * b * s * h * d * 2 + b * s * h * 4
     bound, bound_by, term = attention_bound(flops, nbytes,
                                             b * h * visible_pairs(s, s, True))
-    print(f"timing K1[lse] {DP['shard_shape']} causal bf16: {ms:.4f} ms; "
+    print(f"timing K1[lse] {shape} causal bf16: {ms:.4f} ms; "
           f"plain {plain_ms:.4f} ms; aten flash forward {lib_ms:.4f} ms; "
           f"bound {bound:.4f} ms ({term}); "
           f"{k1_rates(flops, ms, lib_ms, bound)} [{card}]")
-    rows = [{"name": "flash_attention[lse,data 2 shard]", "route": "cuda",
+    rows = [{"name": f"flash_attention[lse,{tag}]", "route": "cuda",
              "source": "mmlspark_tpu_torch/csrc/flash_attention.cu",
              "replaces": "mmlspark_tpu/ops/flash_attention.py:148",
              "launches": launched["flash_attention[lse]"],
@@ -8186,13 +8182,13 @@ def dp_shard_kernel_rows(dev, card, launched: dict) -> list:
           f"||d||/||ref|| dq {errs[0][1]:.3e} dk {errs[1][1]:.3e} dv "
           f"{errs[2][1]:.3e} (tol 1e-2)")
     require(all(m <= 2e-2 and n <= 1e-2 for m, n in errs),
-            "phase 27: K2/K3 disagree at the shard shape")
+            f"phase {phase}: K2/K3 disagree at the shard shape")
     del got, want
     timed = time_backward(card, gen, d, args=args, shape=(b, s, h))
     for name, err in (("flash_bwd_dq", abs_errs[0]),
                       ("flash_bwd_dkv", max(abs_errs[1:]))):
         rows.append({
-            "name": f"{name}[data 2 shard]", "route": "cuda",
+            "name": f"{name}[{tag}]", "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/flash_backward.cu",
             "replaces": ("mmlspark_tpu/ops/flash_attention.py:318"
                          if name == "flash_bwd_dq" else
@@ -8600,6 +8596,603 @@ def phase_data_parallel(dev, card) -> tuple:
     return rows, out
 
 
+# -- phase 28: the model axis --------------------------------------------------
+
+# Tensor and expert parallelism over meshes whose shards share this card:
+# model 2 splits LM_CONFIG's 8 heads of 128 into 4 a shard.  Limits: the
+# bf16 losses and grad norms within loss_rtol of one card's (phase 27's
+# data-2 limit); the f32 weights after 4 steps as phase 27 (a) holds them
+# (`f32_weight_gaps`); the f32 greedy tokens equal; the bf16 and int8-cache
+# rows each agreeing on at least agree_floor of their tokens up to the
+# first divergence (`row_agreement`); the MoE losses within moe_rtol and
+# its overflow within moe_overflow_tol (bf16 routing: a token near a tie
+# between two experts takes the other after one step's round-off, and
+# the overflow moves with it; 2.04e-2 at step 2 on the H100, PERF.md
+# section 6); one forward's sown values from the same
+# weights within moe_sown_rtol; scoring logits within score_tol of max
+# |logit|.
+MP = dict(m=2, steps=4, f32_layers=2, loss_rtol=5e-3, bf16_rows_floor=0.25,
+          int8_rows_floor=0.5, moe_steps=2, moe_rtol=5e-3,
+          moe_overflow_tol=5e-2, moe_sown_rtol=1e-2, score_tol=2e-2,
+          score_rows=4, score_seq=512, short_lengths=(20, 70, 600, 1200),
+          short_new=32, spec_k=3, serve_lengths=(20, 45, 70, 100, 30, 60),
+          serve_shared=80, serve_new=64, ep_prompts=4, ep_new=16,
+          shard_shape=(8, 2048, 4, 128), prefill_shape=(2, 1024, 4, 128),
+          decode_window=1152)
+
+
+def mp_mesh(dev, data: int = 1, model: int = MP["m"]):
+    """A (data, model) mesh whose shards all sit on `dev`."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    return make_mesh(MeshSpec(data=data, model=model), [dev] * (data * model))
+
+
+def layer_widths(module, names) -> tuple:
+    """Forward hooks on the named layers of `module` (its replicas share
+    them): ({name: the set of output widths seen}, the handles)."""
+    seen: dict = {name: set() for name in names}
+    handles = [module.get_submodule(name).register_forward_hook(
+        lambda mod, args, out, name=name: seen[name].add(out.shape[-1]))
+        for name in names]
+    return seen, handles
+
+
+def row_agreement(got, ref) -> dict:
+    """Rows of generated tokens (prompt + new) against one card's: the
+    share of rows equal, and each row's first differing position past
+    the prompt (None where equal)."""
+    first = []
+    for a, b in zip(got, ref):
+        a, b = np.asarray(a), np.asarray(b)
+        diff = np.nonzero(a != b)[0]
+        first.append(int(diff[0]) if diff.size else None)
+    return {"rows_equal": sum(f is None for f in first) / len(first),
+            "first_divergence": first}
+
+
+def mp_lm(dev, card) -> tuple:
+    """(a) The LM at LM_CONFIG's width, flash, bf16: a one-card fit and a
+    (data 1, model 2) fit from one init over one batch of 8 x 2048, 4
+    steps; losses and grad norms within MP["loss_rtol"]; K1[lse], K2 and
+    K3 exactly n_layers x 2 shards x 4 steps each, on (8, 2048, 4, 128);
+    each shard's qkv 1536 columns, mlp_up 2048 and lm_head 4096 (forward
+    hooks); the step's ms at both; at f32 and MP["f32_layers"] layers the
+    weights after 4 steps; (b) that f32 fit's checkpoint and bundle record
+    the topology, and restore onto one card and onto (2, 2) byte for
+    byte.  Returns (the kernel rows at the shard shape, the numbers, the
+    bf16 bundle)."""
+    import tempfile
+    import shutil
+    from mmlspark_tpu_torch import ModelBundle, Trainer, TrainerConfig
+    from mmlspark_tpu_torch.models import definitions
+    from mmlspark_tpu_torch.resilience.checkpoints import (
+        checkpoint_meta, latest_valid_checkpoint)
+    vocab, n_layers, m = LM_CONFIG["vocab_size"], LM_CONFIG["n_layers"], \
+        MP["m"]
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, vocab)
+    x, y = rows[:, :-1], rows[:, 1:]
+
+    def config(model_config, **kw):
+        return TrainerConfig(
+            architecture="TransformerLM", model_config=model_config,
+            optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+            epochs=MP["steps"], loss="softmax_xent", seed=0,
+            numerics_cadence=0, **kw)
+
+    model_config = {**LM_CONFIG, "attn_impl": "flash"}
+    init = ModelBundle.init("TransformerLM", model_config, seed=0)
+    one = Trainer(config(model_config), device=dev)
+    one.fit_arrays(x, y, initial_bundle=init)
+    tp = Trainer(config(model_config), mesh=mp_mesh(dev))
+    widths, handles = layer_widths(tp.module, ("block0_w.qkv",
+                                               "block0_w.mlp_up", "lm_head"))
+    shapes: set = set()
+    real = definitions.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.add(tuple(q.shape))
+        return real(q, k, v, **kw)
+    definitions.flash_attention = recording
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        bundle = tp.fit_arrays(x, y, initial_bundle=init)
+        torch.cuda.synchronize()
+    finally:
+        definitions.flash_attention = real
+        for handle in handles:
+            handle.remove()
+    launched = read_counts()
+    losses = [[r["loss"] for r in t.history] for t in (one, tp)]
+    norms = [[r["grad_norm"] for r in t.history] for t in (one, tp)]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0])]
+    norm_gaps = [abs(a - b) / abs(b) for a, b in zip(norms[1], norms[0])]
+    want = n_layers * m * MP["steps"]
+    d, v = LM_CONFIG["d_model"], vocab
+    print(f"phase 28 (a) data 1 x model {m} on one card, {MP['steps']} "
+          f"steps of {TRAIN_BATCH}x{TRAIN_SEQ} bf16 flash at LM_CONFIG's "
+          f"width: losses {[round(t, 5) for t in losses[1]]} against one "
+          f"card's {[round(t, 5) for t in losses[0]]} (max rel gap "
+          f"{max(gaps):.3e}, tol {MP['loss_rtol']}); grad_norm "
+          f"{[round(t, 4) for t in norms[1]]} against "
+          f"{[round(t, 4) for t in norms[0]]} (max rel gap "
+          f"{max(norm_gaps):.3e}, tol {MP['loss_rtol']}); launches "
+          f"{launched} (want {want} each of K1[lse], K2, K3); the flash "
+          f"wrapper's q shapes {sorted(shapes)}; layer output widths "
+          f"{ {k: sorted(s) for k, s in widths.items()} } [{card}]")
+    require(max(gaps) <= MP["loss_rtol"], "phase 28 (a): the model-2 losses "
+            "differ from one card's")
+    require(max(norm_gaps) <= MP["loss_rtol"], "phase 28 (a): the model-2 "
+            "grad_norm differs from one card's")
+    require(losses[1][-1] < losses[1][0], "phase 28 (a): the loss did not "
+            "fall")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == want, f"phase 28 (a): {name} launched "
+                f"{launched[name]} times, want {want}")
+    require(shapes == {MP["shard_shape"]}, f"phase 28 (a): the flash "
+            f"kernels ran on {sorted(shapes)}, want {MP['shard_shape']}")
+    require(widths["block0_w.qkv"] == {3 * d // m}
+            and widths["block0_w.mlp_up"] == {4 * d // m}
+            and widths["lm_head"] == {v // m, v},
+            "phase 28 (a): a shard's layer widths are not its slices")
+    require(bundle.metadata["partition"]["mesh"] == {"data": 1, "model": m},
+            "phase 28 (a): the bundle's partition mesh")
+    xb = torch.from_numpy(x.astype(np.int64)).to(dev)
+    yb = torch.from_numpy(y.astype(np.int64)).to(dev)
+    mb = torch.ones(TRAIN_BATCH, device=dev)
+    times = {}
+    for width, trainer in ((1, one), (m, tp)):
+        state = trainer.init_state((1, TRAIN_SEQ), 16, init)
+        step = trainer.make_train_step()
+        args = (xb, yb, mb) if width == 1 else ([xb], [yb], [mb])
+        times[width] = cuda_ms(lambda: step(state, *args), warmup=1, reps=5)
+        del state, step
+    print(f"timing train step {TRAIN_BATCH}x{TRAIN_SEQ} bf16 flash: one card "
+          f"{times[1]:.3f} ms; data 1 x model {m} on the same card "
+          f"{times[m]:.3f} ms ({times[m] / times[1]:.3f}x; CUDA events, "
+          f"median of 5) [{card}]")
+    del one, tp
+    torch.cuda.empty_cache()
+    # f32, TF32 off in the step: the weights after 4 steps; (b) its
+    # checkpoint
+    f32_config = {**model_config, "dtype": "float32",
+                  "n_layers": MP["f32_layers"]}
+    f32_init = ModelBundle.init("TransformerLM", f32_config, seed=0)
+    work = tempfile.mkdtemp(prefix="phase28_")
+    try:
+        f32_one = Trainer(config(f32_config), device=dev).fit_arrays(
+            x, y, initial_bundle=f32_init)
+        f32_tp = Trainer(config(f32_config, checkpoint_every_steps=0),
+                         mesh=mp_mesh(dev))
+        f32_bundle = f32_tp.fit_arrays(x, y, initial_bundle=f32_init,
+                                       ckpt_dir=work)
+        f32 = f32_weight_gaps(f32_bundle.variables, f32_one.variables, d)
+        print(f"phase 28 (a) f32, {MP['f32_layers']} layers, TF32 off: "
+              f"weights after {MP['steps']} steps at model {m} against one "
+              f"card: share of a leaf's entries past {DP['f32_tol']} of its "
+              f"max |w| at most {f32['share']:.3e} ({f32['share_leaf']}; "
+              f"limit 1e-3), max |d| {f32['max_abs']:.3e} (limit "
+              f"{MP['steps'] * 3e-4:.1e}, Adam's step), ||d|| / ||w|| at "
+              f"most {f32['frobenius']:.3e} (limit {DP['f32_tol']}); the "
+              f"key third of each qkv bias left out [{card}]")
+        require(f32["share"] <= 1e-3 and f32["max_abs"] <= MP["steps"] * 3e-4
+                and f32["frobenius"] <= DP["f32_tol"],
+                "phase 28 (a): the f32 weights differ")
+        meta = checkpoint_meta(latest_valid_checkpoint(work))
+        want_meta = (meta["data_devices"], meta["model_devices"])
+        restored = {}
+        for label, mesh in (("one card", None),
+                            ("data 2 x model 2", mp_mesh(dev, 2, 2))):
+            t = Trainer(config(f32_config), mesh=mesh, device=dev)
+            state = t.restore_checkpoint(
+                t.init_state((1, TRAIN_SEQ), 1, f32_init), work)
+            restored[label] = all(
+                torch.equal(a, b.to(a.device)) for a, b in
+                zip(state.params, f32_tp._last_state.params))
+            del t, state
+        print(f"phase 28 (b) the f32 model-2 fit's checkpoint records "
+              f"(data_devices, model_devices) {want_meta}, its bundle "
+              f"{f32_bundle.metadata['partition']['mesh']}; restores "
+              f"byte-identical: {restored} [{card}]")
+        require(want_meta == (1, m) and f32_bundle.metadata["partition"][
+            "mesh"] == {"data": 1, "model": m}, "phase 28 (b): the topology "
+            "recorded")
+        require(all(restored.values()), "phase 28 (b): a restore differs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del f32_one, f32_tp, f32_bundle
+    torch.cuda.empty_cache()
+    rows = dp_shard_kernel_rows(dev, card, launched, MP["shard_shape"],
+                                "model 2 shard", 28)
+    return rows, {"losses": losses[1], "one_card_losses": losses[0],
+                  "loss_rel_gaps": gaps, "grad_norms": norms[1],
+                  "one_card_grad_norms": norms[0], "launches": launched,
+                  "step_ms": times[m], "one_card_step_ms": times[1],
+                  "f32_weights": f32, "checkpoint_topology": want_meta,
+                  "restores_equal": restored}, bundle
+
+
+def mp_decode(dev, card) -> tuple:
+    """(c) `TextGenerator` over phase 6's prompts at data 1 x model 2: at
+    f32 (TF32 off) greedy tokens equal one card's, K1 4 x 2 a prefill of a
+    bucket of 512 or more and K4 4 x 2 a decode step; at bf16 and with an
+    int8 KV cache (f32 model) each row's agreement with one card's; one
+    speculative run with the draft replicated, equal to the plain run.
+    Returns (the numbers, the bf16 run's launches)."""
+    from mmlspark_tpu_torch import ModelBundle, TextGenerator
+    from mmlspark_tpu_torch.core.device import exact_f32
+    from mmlspark_tpu_torch.zoo import truncated_draft_bundle
+    m, n_layers = MP["m"], LM_CONFIG["n_layers"]
+    rows, table = lm_table(PROMPT_LENGTHS)
+    short, short_table = lm_table(MP["short_lengths"], seed=2)
+    f32_bundle = ModelBundle.init(
+        "TransformerLM", {**LM_CONFIG, "dtype": "float32"}, seed=0)
+    bf16_bundle = ModelBundle.init("TransformerLM", LM_CONFIG, seed=0)
+
+    def run(bundle, tbl, new, mesh=None, **kw):
+        stage = TextGenerator(bundle, device=dev, inputCol="prompt",
+                              outputCol="out", maxNewTokens=new, **kw)
+        if mesh is not None:
+            stage.set_mesh(mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = stage.transform(tbl)["out"]
+        torch.cuda.synchronize()
+        return stage, list(out), read_counts(), time.perf_counter() - t0
+
+    with exact_f32():
+        _, want, _, one_s = run(f32_bundle, table, MAX_NEW)
+        stage, got, counts, tp_s = run(f32_bundle, table, MAX_NEW,
+                                       mp_mesh(dev))
+    k1, k4 = expected_serving_launches(stage._engine_for(), PROMPT_LENGTHS)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    print(f"phase 28 (c) TextGenerator f32 at data 1 x model {m}, "
+          f"{len(rows)} prompts x {MAX_NEW} tokens: greedy tokens equal to "
+          f"one card's {same}; K1 {counts['flash_attention']} (want "
+          f"{k1 * m} = {k1} x {m}), K4 {counts['fused_single_query_attention']}"
+          f" (want {k4 * m} = {k4} x {m}); {tp_s:.2f} s against one card's "
+          f"{one_s:.2f} s [{card}]")
+    require(same, "phase 28 (c): the f32 model-2 tokens differ")
+    require(counts["flash_attention"] == k1 * m
+            and counts["fused_single_query_attention"] == k4 * m,
+            "phase 28 (c): K1 / K4 not launched once a layer a model shard")
+    out = {"f32_equal": same, "f32_launches": counts, "f32_s": tp_s,
+           "one_card_f32_s": one_s}
+    _, want_bf16, _, _ = run(bf16_bundle, short_table, MP["short_new"])
+    stage, got_bf16, bf16_counts, _ = run(bf16_bundle, short_table,
+                                          MP["short_new"], mp_mesh(dev))
+    k1, k4 = expected_serving_launches(stage._engine_for(),
+                                       MP["short_lengths"])
+    bf16 = row_agreement(got_bf16, want_bf16)
+    require(bf16_counts["flash_attention"] == k1 * m
+            and bf16_counts["fused_single_query_attention"] == k4 * m,
+            "phase 28 (c): bf16 K1 / K4 launches")
+    with exact_f32():
+        _, want_int8, _, _ = run(f32_bundle, short_table, MP["short_new"],
+                                 kvCacheDtype="int8")
+        _, got_int8, _, _ = run(f32_bundle, short_table, MP["short_new"],
+                                mp_mesh(dev), kvCacheDtype="int8")
+        draft = truncated_draft_bundle(f32_bundle, 1)
+        spec_stage = TextGenerator(f32_bundle, device=dev, inputCol="prompt",
+                                   outputCol="out",
+                                   maxNewTokens=MP["short_new"],
+                                   specTokens=MP["spec_k"])
+        spec_stage.set_draft_bundle(draft).set_mesh(mp_mesh(dev))
+        spec = list(spec_stage.transform(short_table)["out"])
+        _, plain, _, _ = run(f32_bundle, short_table, MP["short_new"],
+                             mp_mesh(dev))
+    int8 = row_agreement(got_int8, want_int8)
+    spec_same = all(np.array_equal(a, b) for a, b in zip(spec, plain))
+    engine = spec_stage._engine_for()
+    print(f"phase 28 (c) bf16 at model {m}, {len(short)} prompts "
+          f"{MP['short_lengths']} x {MP['short_new']} tokens: rows equal to "
+          f"one card's {bf16['rows_equal']:.3f} (floor "
+          f"{MP['bf16_rows_floor']}), first divergence at "
+          f"{bf16['first_divergence']} (prompt + new positions; None = "
+          f"equal); K1 {bf16_counts['flash_attention']}, K4 "
+          f"{bf16_counts['fused_single_query_attention']}; int8 KV cache "
+          f"(f32 model) rows equal {int8['rows_equal']:.3f} (floor "
+          f"{MP['int8_rows_floor']}), first divergence "
+          f"{int8['first_divergence']}; speculative (k {MP['spec_k']}, "
+          f"1-layer draft replicated) equal to the plain model-2 run "
+          f"{spec_same} over {engine.last_spec_rounds} rounds of the last "
+          f"bucket [{card}]")
+    require(bf16["rows_equal"] >= MP["bf16_rows_floor"],
+            "phase 28 (c): bf16 rows agree below the floor")
+    require(int8["rows_equal"] >= MP["int8_rows_floor"],
+            "phase 28 (c): int8-cache rows agree below the floor")
+    require(spec_same, "phase 28 (c): the speculative tokens differ")
+    out.update(bf16=bf16, bf16_launches=bf16_counts, int8=int8,
+               speculative_equal=spec_same)
+    torch.cuda.empty_cache()
+    return out, bf16_counts
+
+
+def mp_serving(dev, card) -> dict:
+    """(d) `ServingEngine` over data 2 x model 2 (four shards on the
+    card): MP["serve_lengths"] prompts and two sharing an
+    MP["serve_shared"]-token prefix, MP["serve_new"] tokens each at f32;
+    tokens equal the one-card engine's; the prefix pool serves a hit."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.core.device import exact_f32
+    from mmlspark_tpu_torch.resilience.clock import VirtualClock
+    from mmlspark_tpu_torch.serve.engine import ServeConfig, ServingEngine
+    bundle = ModelBundle.init("TransformerLM",
+                              {**LM_CONFIG, "dtype": "float32"}, seed=0)
+    rng = np.random.default_rng(28)
+    shared = rng.integers(0, LM_CONFIG["vocab_size"], MP["serve_shared"])
+    prompts = [rng.integers(0, LM_CONFIG["vocab_size"], n)
+               for n in MP["serve_lengths"]] + [
+        np.concatenate([shared, rng.integers(0, LM_CONFIG["vocab_size"], 9)])
+        for _ in range(2)]
+    results = {}
+    for label, mesh in (("one card", None),
+                        ("data 2 x model 2", mp_mesh(dev, 2, 2))):
+        cfg = ServeConfig(max_new_tokens=MP["serve_new"], max_batch=4,
+                          segment_steps=16, cache_chunk=64,
+                          prefix_cache=True, warmup_buckets=(128,))
+        with exact_f32():
+            engine = ServingEngine(bundle, cfg, clock=VirtualClock(),
+                                   mesh=mesh, device=dev).warmup()
+            t0 = time.perf_counter()
+            toks = []
+            for p in prompts:
+                req = engine.submit(p)
+                while not req.finished:
+                    engine._tick()
+                toks.append(np.asarray(req.tokens))
+            torch.cuda.synchronize()
+        results[label] = (toks, engine._counts.get("prefix_hits", 0),
+                          time.perf_counter() - t0)
+        del engine
+    same = all(np.array_equal(a, b) for a, b in zip(
+        results["data 2 x model 2"][0], results["one card"][0]))
+    hits = results["data 2 x model 2"][1]
+    print(f"phase 28 (d) ServingEngine f32 over data 2 x model 2 on one "
+          f"card, {len(prompts)} requests x {MP['serve_new']} tokens: tokens "
+          f"equal to the one-card engine's {same}; prefix-pool hits {hits}; "
+          f"{results['data 2 x model 2'][2]:.2f} s against "
+          f"{results['one card'][2]:.2f} s [{card}]")
+    require(same, "phase 28 (d): the served tokens differ from one card's")
+    require(hits >= 1, "phase 28 (d): no prefix-pool hit")
+    torch.cuda.empty_cache()
+    return {"equal": same, "prefix_hits": hits,
+            "seconds": results["data 2 x model 2"][2],
+            "one_card_seconds": results["one card"][2]}
+
+
+def mp_experts(dev, card) -> dict:
+    """(e) Phase 25's MoE LM at data 1 x model 2 (4 experts a shard): over
+    MP["moe_steps"] steps the losses and the overflow fraction against
+    one card's, the sown losses of one forward against one card's; f32
+    greedy decode at moe_group_size 1 equal to one card's."""
+    from mmlspark_tpu_torch import ModelBundle, Trainer, TrainerConfig
+    from mmlspark_tpu_torch.models.generate import DecodeEngine
+    from mmlspark_tpu_torch.train.trainer import sown_leaves
+    m = MP["m"]
+    config = {**MOE_CONFIG, "attn_impl": "flash"}
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, config["vocab_size"])
+    x, y = rows[:, :-1], rows[:, 1:]
+    init = ModelBundle.init("TransformerLM", config, seed=0)
+    cfg = TrainerConfig(architecture="TransformerLM", model_config=config,
+                        optimizer="adam", learning_rate=3e-4,
+                        batch_size=TRAIN_BATCH, epochs=MP["moe_steps"],
+                        seed=0, numerics_cadence=0, aux_loss_weight=MOE_AUX)
+    fits = {}
+    for width, mesh in ((1, None), (m, mp_mesh(dev))):
+        trainer = Trainer(cfg, mesh=mesh, device=dev)
+        state = trainer.init_state((1, TRAIN_SEQ), 1, init)
+        module = (trainer.module if mesh is None
+                  else trainer._replicas.shards[0])
+        with torch.no_grad():
+            _, sown = module(torch.from_numpy(x[:1].astype(np.int64)).to(dev),
+                             collect=True)
+        sown = [float(t) for t in sown_leaves(sown["losses"])] + [
+            float(t) for t in sown_leaves(sown["metrics"])]
+        del state
+        trainer.fit_arrays(x, y, initial_bundle=init)
+        fits[width] = (trainer.history, sown, dict(trainer.param_splits))
+        del trainer
+        torch.cuda.empty_cache()
+    (h1, s1, _), (h2, s2, splits) = fits[1], fits[m]
+    loss_gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(h2, h1)]
+    over_gaps = [abs(a["moe_overflow_fraction"] - b["moe_overflow_fraction"])
+                 for a, b in zip(h2, h1)]
+    sown_gaps = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(s2, s1)]
+    print(f"phase 28 (e) MoE LM (8 experts, top 2, groups of 512) at data 1 "
+          f"x model {m}: expert stacks split {sorted(splits.items())[:2]}; "
+          f"losses {[round(r['loss'], 5) for r in h2]} against "
+          f"{[round(r['loss'], 5) for r in h1]} (max rel gap "
+          f"{max(loss_gaps):.3e}, tol {MP['moe_rtol']}); overflow "
+          f"{[round(r['moe_overflow_fraction'], 5) for r in h2]} against "
+          f"{[round(r['moe_overflow_fraction'], 5) for r in h1]} (max gap "
+          f"{max(over_gaps):.3e}, tol {MP['moe_overflow_tol']}); one "
+          f"forward's sown losses and overflow {[round(t, 6) for t in s2]} "
+          f"against {[round(t, 6) for t in s1]} (max rel gap "
+          f"{max(sown_gaps):.3e}, tol {MP['moe_sown_rtol']}) [{card}]")
+    require(splits.get("block0_w.moe.w_in") == (0, 1),
+            "phase 28 (e): the expert stacks are not split by expert")
+    require(max(loss_gaps) <= MP["moe_rtol"]
+            and max(over_gaps) <= MP["moe_overflow_tol"]
+            and max(sown_gaps) <= MP["moe_sown_rtol"],
+            "phase 28 (e): the expert-parallel fit differs from one card's")
+    f32 = ModelBundle.init("TransformerLM", {
+        **MOE_CONFIG, "dtype": "float32", "moe_group_size": 1}, seed=0
+    ).module(dev)
+    prompts = np.random.default_rng(5).integers(
+        0, MOE_CONFIG["vocab_size"], (MP["ep_prompts"], 64))
+    true_len = np.array([64, 40, 17, 52][:MP["ep_prompts"]])
+    from mmlspark_tpu_torch.core.device import exact_f32
+    with exact_f32():
+        want = DecodeEngine(f32, MP["ep_new"], device=dev).generate(
+            prompts, true_len)
+        got = DecodeEngine(f32, MP["ep_new"], device=dev,
+                           mesh=mp_mesh(dev)).generate(prompts, true_len)
+    same = bool(np.array_equal(got, want))
+    print(f"phase 28 (e) f32 MoE greedy decode at moe_group_size 1, model "
+          f"{m}: tokens equal to one card's {same} [{card}]")
+    require(same, "phase 28 (e): the expert-parallel decode differs")
+    torch.cuda.empty_cache()
+    return {"losses": [r["loss"] for r in h2],
+            "one_card_losses": [r["loss"] for r in h1],
+            "overflow": [r["moe_overflow_fraction"] for r in h2],
+            "one_card_overflow": [r["moe_overflow_fraction"] for r in h1],
+            "sown": s2, "one_card_sown": s1, "decode_equal": same}
+
+
+def mp_scoring(dev, card, bundle) -> dict:
+    """(f) `TPUModel` over (a)'s bf16 bundle at data 1 x model 2 against
+    one card (logits within MP["score_tol"] of max |logit|); resnet50()
+    bf16 over bench_resnet50's images at data 2 x model 2 (its leaves
+    match only the catch-all rule: each data row scores on its home)
+    held to VISION_GATES against one card."""
+    from mmlspark_tpu_torch import DataTable, TPUModel
+    toks = char_corpus(MP["score_rows"], MP["score_seq"],
+                       LM_CONFIG["vocab_size"])[:, :-1].astype(np.int32)
+    scores = {}
+    for label, mesh in (("one card", None), ("model 2", mp_mesh(dev))):
+        stage = TPUModel(bundle, device=dev, inputCol="t", outputCol="y",
+                         miniBatchSize=MP["score_rows"])
+        if mesh is not None:
+            stage.set_mesh(mesh)
+        scores[label] = stage.transform(DataTable({"t": toks}))["y"]
+        del stage
+    gap = float(np.abs(scores["model 2"] - scores["one card"]).max()
+                / np.abs(scores["one card"]).max())
+    agree = float((scores["model 2"].argmax(-1)
+                   == scores["one card"].argmax(-1)).mean())
+    print(f"phase 28 (f) TPUModel over the LM bundle (bf16) at model "
+          f"{MP['m']}, {toks.shape}: logits {scores['model 2'].shape} within "
+          f"{gap:.3e} of max |logit| of one card's (limit "
+          f"{MP['score_tol']}), argmax agreement {agree:.4f} [{card}]")
+    require(scores["model 2"].shape == scores["one card"].shape
+            and np.isfinite(scores["model 2"]).all()
+            and gap <= MP["score_tol"],
+            "phase 28 (f): the model-2 LM scores differ from one card's")
+    out = {"lm_gap": gap, "lm_argmax_agreement": agree}
+    del scores
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (DP["score_images"], 224, 224, 3),
+                          dtype=np.uint8)
+    r50 = resnet50_bundle(images[:DP["calibration_rows"]],
+                          VISION["resnet_branch_scale"])
+
+    def stage():
+        return TPUModel(r50, device=dev, inputCol="x", outputCol="y",
+                        miniBatchSize=DP["score_batch"],
+                        computeDtype="bfloat16")
+
+    table = DataTable({"x": images})
+    one = stage().transform(table)["y"]
+    got = stage().set_mesh(mp_mesh(dev, 2, 2)).transform(table)["y"]
+    tol = VISION_GATES["resnet50"]["tol"]["bf16"][1]
+    check_scores("phase 28 (f) resnet50 over data 2 x model 2", got,
+                 one.shape)
+    readings = arm_readings(got, one, tol)
+    ok = (readings["argmax_agreement"] >= AGREE_FLOOR
+          and readings["clear_rows"] >= readings["rows"] / 100
+          and readings["max_logit_gap"] <= tol * readings["max_abs_logit"])
+    print(f"phase 28 (f) resnet50 bf16 over data 2 x model 2 against one "
+          f"card: max logit gap "
+          f"{readings['max_logit_gap'] / readings['max_abs_logit']:.3e} of "
+          f"max |logit| (limit {tol}), argmax agreement "
+          f"{readings['argmax_agreement']:.4f} of {readings['clear_rows']} "
+          f"clear rows (floor {AGREE_FLOOR}) [{card}]")
+    require(ok, "phase 28 (f): resnet50 scores differ from one card's")
+    out["resnet50"] = readings
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_serving_kernel_rows(dev, card, launched: dict) -> list:
+    """(g) K1 at the (c) prefill's shard shape MP["prefill_shape"] and K4
+    at its first decode window, (2, MP["decode_window"], 4, 128), bf16:
+    against their plain versions (phases 2 and 5's limits), timed beside
+    the bound and the library call; launches from (c)'s bf16 run."""
+    from mmlspark_tpu_torch.ops.decode_attention import (
+        fused_single_query_attention, fused_single_query_attention_plain)
+    b, s, h, d = MP["prefill_shape"]
+    k1 = bf16_k1_rows(dev, card, MP["prefill_shape"], 28)
+    row = next(r for r in k1.values() if "lse" not in r["name"])
+    row.update(name="flash_attention[model 2 shard]",
+               launches=launched["flash_attention"])
+    gen = torch.Generator(device=dev).manual_seed(28)
+    window, bucket = MP["decode_window"], 1024
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, window, h, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    true_len = torch.randint(600, bucket + 1, (b,), generator=gen, device=dev)
+    visible = engine_mask(b, window, bucket, bucket + 31, true_len)
+    got = fused_single_query_attention(q, k, v, visible)
+    torch.cuda.synchronize()
+    ref = fused_single_query_attention_plain(q, k, v, visible)
+    err = (got - ref).abs().max().item()
+    print(f"fused_single_query_attention at the model 2 shard shape "
+          f"({b}, {window}, {h}, {d}) bf16: max_abs_err={err:.3e} (tol "
+          f"2e-3)")
+    require(err <= 2e-3, "phase 28 (g): K4 disagrees at the shard shape")
+
+    def call():
+        return fused_single_query_attention(q, k, v, visible)
+    ms = graph_ms(call)
+    plain_ms = graph_ms(lambda: fused_single_query_attention_plain(
+        q, k, v, visible))
+    mask = visible[:, None, None, :]
+    lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))
+    n_visible = int(visible.sum().item())
+    nbytes = (2.0 * n_visible * h * d * 2 + b * window + q.numel() * 2
+              + b * h * d * 4)
+    flops = 4.0 * n_visible * h * d
+    bound, by, term = attention_bound(flops, nbytes, n_visible * h,
+                                      PEAK_F32_FLOPS)
+    print(f"timing fused_single_query_attention ({b}, {window}, {h}, {d}) "
+          f"bf16, device time (CUDA graph): {ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; bound {bound:.4f} ms "
+          f"({term}), {bound / ms:.3f} of it [{card}]")
+    del q, k, v, got, ref
+    torch.cuda.empty_cache()
+    return [row, {
+        "name": "fused_single_query_attention[model 2 shard]",
+        "route": "cuda", "source": "mmlspark_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "mmlspark_tpu/ops/decode_attention.py:245",
+        "launches": launched["fused_single_query_attention"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "bound_term": term,
+        "library_ms": lib_ms}]
+
+
+def phase_model_parallel(dev, card) -> tuple:
+    """Phase 28: the model axis over meshes whose shards share this card,
+    through the port's entry points only: (a, b) `mp_lm`, (c) `mp_decode`,
+    (d) `mp_serving`, (e) `mp_experts`, (f) `mp_scoring`, (g) the kernels
+    at the shard shapes (`dp_shard_kernel_rows` at (8, 2048, 4, 128),
+    `mp_serving_kernel_rows`).  Returns (the kernel rows, the numbers)."""
+    t0 = time.perf_counter()
+    rows, lm, bundle = mp_lm(dev, card)
+    out = {"lm": lm}
+    print(f"phase 28 lm: {time.perf_counter() - t0:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    out["decode"], launched = mp_decode(dev, card)
+    print(f"phase 28 decode: {time.perf_counter() - t1:.1f} s [{card}]")
+    for key, fn in (("serving", mp_serving), ("experts", mp_experts)):
+        t1 = time.perf_counter()
+        out[key] = fn(dev, card)
+        torch.cuda.empty_cache()
+        print(f"phase 28 {key}: {time.perf_counter() - t1:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    out["scoring"] = mp_scoring(dev, card, bundle)
+    print(f"phase 28 scoring: {time.perf_counter() - t1:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    rows += mp_serving_kernel_rows(dev, card, launched)
+    print(f"phase 28 kernels: {time.perf_counter() - t1:.1f} s [{card}]")
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 28: {out['phase_seconds']:.1f} s [{card}]")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8692,6 +9285,9 @@ def main() -> int:
     print(json.dumps({"measurement": measurement, "card": card}))
     dp_rows, data_parallel = phase(27, phase_data_parallel)
     print(json.dumps({"data_parallel": data_parallel, "card": card}))
+    mp_rows, model_parallel = phase(28, phase_model_parallel)
+    print(json.dumps({"model_parallel": model_parallel, "card": card},
+                     default=str))
     total = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
                                         seconds.items()},
@@ -8713,7 +9309,8 @@ def main() -> int:
     ring_lse[0]["launches"] = seq2["flash_attention[lse]"]
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
-               + ring_lse + d32 + small + wide + ring_rows + dp_rows)
+               + ring_lse + d32 + small + wide + ring_rows + dp_rows
+               + mp_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
             "library_ms")

@@ -85,6 +85,21 @@ class ModelBundle:
         module.load_state_dict(state)
         return module.eval()
 
+    def partition_rules(self) -> Optional[tuple]:
+        """The partition rules this bundle was trained under
+        (`metadata["partition"]["rules"]`), or None for a bundle without
+        them (consumers then take DEFAULT_RULES)."""
+        data = (self.metadata or {}).get("partition", {}).get("rules")
+        if not data:
+            return None
+        from mmlspark_tpu_torch.parallel.partition import rules_from_json
+        return rules_from_json(data)
+
+    def partition_mesh_shape(self) -> Optional[dict]:
+        """{"data": dp, "model": mp} the bundle was produced under, or
+        None."""
+        return (self.metadata or {}).get("partition", {}).get("mesh")
+
     @staticmethod
     def from_module(module: nn.Module,
                     metadata: Optional[dict] = None) -> "ModelBundle":

@@ -53,6 +53,25 @@ sequence-sharded over that mesh (`seq_parallel_attention`) and the
 token-wise layers on the tokens' device, as the port's seq decode engine
 runs them.
 
+Tensor and expert parallelism (a mesh with a model axis): the Trainer,
+`TPUModel` and `TextGenerator` run a data row's forward on the row's
+home replica (`parallel/bridge.py` `ModelShardReplicas`), whose
+submodules know the same submodule of each model index's replica
+(`model_peers`) and the leaves they split (`model_split`).  The
+TransformerBlock follows the Megatron split of DEFAULT_RULES: the first
+LayerNorm runs once on the home, each model shard applies its head-
+aligned `qkv` columns and runs the attention (the flash kernels) on its
+own H/mp heads, `proj` is row-parallel (the shards' partial products
+summed on the home in model order, its bias added once after the sum),
+`mlp_up` column-parallel with its bias slice, `mlp_down` row-parallel.
+Every other split layer (the LM head over the vocabulary, embeddings and
+the Dense / Conv kernels the Trainer's fallback splits on their output
+channels, `parallel/partition.py` `param_sharding_rule`) computes its
+output columns per shard, joined on the home in model order before the
+next layer reads them; a row-split one sums partial products.  A
+replicated layer runs on the home.  Activations reach a shard through
+`.to(device)`, whose backward sums the shards' gradients on the home.
+
 Data parallelism (`parallel/ring.py` `ShardGroup`): inside a data shard
 of a step, a training `BatchNorm` takes its statistics over the global
 batch (the shards' sums of x and x^2 and their row counts, summed across
@@ -80,10 +99,10 @@ from mmlspark_tpu_torch.ops.attention import attention
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
 from mmlspark_tpu_torch.ops.moe import MoEMLP
 from mmlspark_tpu_torch.parallel.ring import (active_data_shard,
-                                              active_seq_mesh,
+                                              active_seq_mesh, reduce_to_home,
                                               seq_group_attention,
                                               seq_parallel_attention,
-                                              use_seq_mesh)
+                                              unshard, use_seq_mesh)
 from mmlspark_tpu_torch.quant.modules import (quant_conv_apply,
                                               quant_dense_apply)
 
@@ -131,6 +150,74 @@ class LayerNorm(nn.Module):
         return ((x32 - mu) * mul + self.bias).to(dtype)
 
 
+def split_of(layer: nn.Module, leaf: str = "weight") -> Optional[tuple]:
+    """(port dim, groups) of `layer`'s `leaf` where the layer is a home
+    replica's and the leaf is split over its model group, else None."""
+    return (getattr(layer, "model_split", None) or {}).get(leaf)
+
+
+def _split_dim(layer: nn.Module) -> Optional[int]:
+    split = split_of(layer)
+    return None if split is None else split[0]
+
+
+def row_parallel_sum(xs: list, weights: list, scale, bias,
+                     dtype) -> torch.Tensor:
+    """A row-parallel Dense over per-shard input slices `xs` and weight
+    slices (out, in / mp): each model shard's partial product in `dtype`,
+    summed in f32 on the home (shard 0's device) in model order, then an
+    int8 layer's per-channel `scale` (whole) and the `bias`, once, then
+    the cast."""
+    parts = [F.linear(xm.to(w.device).to(dtype), w.to(dtype)).float()
+             for xm, w in zip(xs, weights)]
+    y = reduce_to_home(parts)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+def row_parallel(layer: nn.Module, xs: list) -> torch.Tensor:
+    """A home replica's row-parallel Dense or `Int8Dense` (its weight split
+    on the input axis) over the per-shard input slices `xs`
+    (`row_parallel_sum` over its peers' weights)."""
+    return row_parallel_sum(xs, [p.weight for p in layer.model_peers],
+                            layer._buffers.get("scale"), layer.bias,
+                            layer.compute_dtype)
+
+
+def column_parallel(layer: nn.Module, x: torch.Tensor) -> list:
+    """A layer split on its output axis over a replicated input `x`: each
+    model shard's output columns, on the shard's device (the peers' own
+    forwards, so their hooks see the shard shapes)."""
+    return [p(x.to(p.weight.device)) for p in layer.model_peers]
+
+
+def _model_group_apply(layer: nn.Module, x: torch.Tensor,
+                       channel_dim: int) -> torch.Tensor:
+    """A split Dense or Conv on the home: output columns per shard joined
+    in model order (`column_parallel`), or partial products summed
+    (`row_parallel`, Dense only)."""
+    dim = _split_dim(layer)
+    if dim == 0:
+        return unshard(column_parallel(layer, x), channel_dim, x.device)
+    if dim == 1 and channel_dim == -1:
+        return row_parallel(layer, list(x.chunk(len(layer.model_peers),
+                                                -1)))
+    raise ValueError(f"{type(layer).__name__} split on dim {dim} has no "
+                     "model-parallel form")
+
+
+def embed(table: nn.Module, idx: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows `idx` of an embedding table in `dtype`; a table split on its
+    width takes each shard's columns and joins them on idx's device."""
+    if split_of(table) is not None:
+        return unshard([p.weight.to(dtype)[idx.to(p.weight.device)]
+                        for p in table.model_peers], -1, idx.device)
+    return table.weight.to(dtype)[idx]
+
+
 class Dense(nn.Linear):
     """flax `nn.Dense(dtype=dtype)`: an f32 weight (out, in) and bias,
     cast to the compute dtype on every call.  `n_in=None` leaves the
@@ -145,6 +232,8 @@ class Dense(nn.Linear):
             self.weight = UninitializedParameter(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if split_of(self) is not None:
+            return _model_group_apply(self, x, -1)
         if is_lazy(self.weight):
             self.weight.materialize((self.out_features, x.shape[-1]))
         dt = self.compute_dtype
@@ -171,6 +260,8 @@ class Int8Dense(nn.Module):
                                                  device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if split_of(self) is not None:
+            return _model_group_apply(self, x, -1)
         return quant_dense_apply(x, self.weight, self.scale, self.bias,
                                  self.compute_dtype)
 
@@ -250,6 +341,8 @@ class TransformerBlock(nn.Module):
             self.mlp_down = Dense(mlp_ratio * d_model, d_model, **kw)
 
     def forward(self, x: torch.Tensor) -> tuple:
+        if getattr(self, "model_peers", None) is not None:
+            return self._model_group_forward(x)
         q, k, v = self.attention_inputs(x)
         if self.attn_impl in SEQ_IMPLS:
             o = self._seq_attention(q, k, v)
@@ -287,6 +380,55 @@ class TransformerBlock(nn.Module):
             return x + y, {"moe": sown}
         h = F.gelu(self.mlp_up(h), approximate="tanh")
         return x + self.mlp_down(h), {}
+
+    def _model_group_forward(self, x: torch.Tensor) -> tuple:
+        """The block over a data row's model group, run on the row's home
+        replica (module docstring): per-shard heads where `qkv` is split
+        on its output axis, row-parallel `proj` / `mlp_down`,
+        column-parallel `mlp_up`; a layer the placement left whole runs
+        on the home."""
+        if self.attn_impl in SEQ_IMPLS:
+            raise ValueError(
+                f"attn_impl '{self.attn_impl}' does not compose with a "
+                "model axis: the seq-parallel step runs over a model-1 mesh")
+        peers = self.model_peers
+        b, s, _ = x.shape
+        mp, dt = len(peers), self.dtype
+        if _split_dim(self.qkv) == 0:
+            h = self.LayerNorm_0(x, dt)
+            heads = self.n_heads // mp
+            shape = (b, s, heads, self.d_model // self.n_heads)
+            o_parts = []
+            for blk, qkv in zip(peers, column_parallel(self.qkv, h)):
+                q, k, v = (t.reshape(shape) for t in qkv.split(
+                    self.d_model // mp, -1))
+                o_parts.append(blk.local_attention(q, k, v).reshape(
+                    b, s, self.d_model // mp))
+        else:
+            o_parts = [self.local_attention(*self.attention_inputs(x))
+                       .reshape(b, s, self.d_model)]
+        if self.name_attention and torch.is_grad_enabled():
+            o_parts = [attention_output(o) for o in o_parts]
+        if _split_dim(self.proj) == 1:
+            if len(o_parts) == 1:
+                o_parts = list(o_parts[0].chunk(mp, -1))
+            x = x + row_parallel(self.proj, o_parts)
+        else:
+            x = x + self.proj(unshard(o_parts, -1, x.device))
+        h = self.LayerNorm_1(x, dt)
+        if self.mlp_impl == "moe":
+            y, sown = self.moe(h)
+            return x + y, {"moe": sown}
+        if _split_dim(self.mlp_up) == 0:
+            ups = [F.gelu(u, approximate="tanh")
+                   for u in column_parallel(self.mlp_up, h)]
+        else:
+            ups = [F.gelu(self.mlp_up(h), approximate="tanh")]
+        if _split_dim(self.mlp_down) == 1:
+            if len(ups) == 1:
+                ups = list(ups[0].chunk(mp, -1))
+            return x + row_parallel(self.mlp_down, ups), {}
+        return x + self.mlp_down(unshard(ups, -1, x.device)), {}
 
     def _seq_attention(self, q, k, v) -> torch.Tensor:
         mesh = active_seq_mesh()
@@ -326,8 +468,9 @@ class TransformerLM(nn.Module):
     """Decoder-only language model with a dense or mixture-of-experts MLP.
 
     Takes the flax model's constructor fields, so a bundle config from
-    either package builds it; `expert_axis` (expert parallelism) must keep
-    its default (ROADMAP A10).  `attn_impl` ring | ring_flash | ulysses
+    either package builds it; `expert_axis` names the mesh axis a MoE
+    block's expert stacks split over (a placement the partition rules
+    make: module docstring).  `attn_impl` ring | ring_flash | ulysses
     need `seq_axis` (module docstring).  `remat=True` recomputes each
     block in the backward, under `remat_policy` "full" or
     "save_attention" (module docstring)."""
@@ -341,10 +484,6 @@ class TransformerLM(nn.Module):
                  moe_group_size: int = 512, remat: bool = False,
                  remat_policy: str = "full", device="cuda"):
         super().__init__()
-        if expert_axis is not None:
-            raise NotImplementedError(
-                "the expert-sharded TransformerLM is not ported (ROADMAP "
-                "A10)")
         if (attn_impl in SEQ_IMPLS) != (seq_axis is not None):
             raise ValueError(
                 f"attn_impl '{attn_impl}' with seq_axis {seq_axis!r}: the "
@@ -392,8 +531,8 @@ class TransformerLM(nn.Module):
         (logits, sown) where sown is flax's {"losses": ..., "metrics":
         ...} of the MoE blocks ({} for a dense model)."""
         pos = torch.arange(tokens.shape[1], device=tokens.device)
-        x = (self.tok_embed.weight.to(self.dtype)[tokens]
-             + self.pos_embed.weight.to(self.dtype)[pos][None])
+        x = (embed(self.tok_embed, tokens, self.dtype)
+             + embed(self.pos_embed, pos, self.dtype)[None])
         mesh = active_seq_mesh()
         sown = {}
         context = (_save_attention_contexts
@@ -572,6 +711,8 @@ class Conv(nn.Module):
             memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if split_of(self) is not None:
+            return _model_group_apply(self, x, 1)
         if is_lazy(self.weight):
             self.weight.materialize((self.out_features, x.shape[1],
                                      *self.kernel))
@@ -606,6 +747,8 @@ class Int8Conv(nn.Module):
                                          device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if split_of(self) is not None:
+            return _model_group_apply(self, x, 1)
         x, padding = pad_same(x, self.kernel, self.strides)
         return quant_conv_apply(x, self.weight, self.scale, self.bias,
                                 self.strides, padding, self.compute_dtype)

@@ -75,8 +75,20 @@ the distribution is the same.
     regime (moe_group_size=1).  Speculative decoding and the seq-sharded
     path refuse MoE models, as in the JAX package.
 
-Not ported yet (it raises NotImplementedError): tensor-parallel decode (a
-mesh with model > 1).
+  * **tensor-parallel decode** — with a `Mesh` whose 'model' axis is > 1
+    (seq 1), rows split over 'data' into groups, each group decoding over
+    its data row's model group with the weights placed by the partition
+    rules (`ServingWeights.model_group`): each model shard holds its H/mp
+    heads of the KV cache (`KV_CACHE_SPEC`: (B/d, W, H/mp, Dh), int8
+    scales alike, a tuple of `ModelShards` a layer), and runs the prefill
+    attention (the flash kernel K1 from `_PREFILL_FLASH_MIN` tokens up)
+    and every decode step's cache read (K4) on its own heads; `proj` and
+    `mlp_down` sum their shards' partial products on the group's home, in
+    model order; sampling reads the full logits, the vocab columns joined
+    in order.  The JAX engine reads the cache through an einsum under a
+    mesh (a Pallas call has no SPMD partitioning rule); the port keeps
+    its kernels there.  A cache row that leaves the engine (pages, the
+    prefix pool) is gathered to full heads in the reference's order.
 """
 
 from __future__ import annotations
@@ -100,7 +112,8 @@ from mmlspark_tpu_torch.core.pipeline import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
                                               save_bundle)
-from mmlspark_tpu_torch.models.definitions import Int8Dense, TransformerLM
+from mmlspark_tpu_torch.models.definitions import (Int8Dense, TransformerLM,
+                                                   row_parallel_sum)
 from mmlspark_tpu_torch.observe.costmodel import DeviceTimes, ProgramCosts
 from mmlspark_tpu_torch.observe.metrics import inc_counter
 from mmlspark_tpu_torch.observe.telemetry import active_run
@@ -113,9 +126,13 @@ from mmlspark_tpu_torch.ops.decode_attention import (
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
 from mmlspark_tpu_torch.ops.moe import moe_apply
 from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
-                                              Mesh)
-from mmlspark_tpu_torch.parallel.partition import SEQ_KV_CACHE_SPEC
-from mmlspark_tpu_torch.parallel.ring import reshard
+                                              Mesh, model_group)
+from mmlspark_tpu_torch.parallel.partition import (KV_CACHE_SPEC,
+                                                   SEQ_KV_CACHE_SPEC,
+                                                   ModelShards, model_dim,
+                                                   place, qkv_groups,
+                                                   registry_rule)
+from mmlspark_tpu_torch.parallel.ring import reshard, unshard
 from mmlspark_tpu_torch.quant.modules import quant_dense_apply
 from mmlspark_tpu_torch.quant.quantize import quantize_kv
 
@@ -123,6 +140,7 @@ DEFAULT_CACHE_CHUNK = 128  # cache-window growth granularity (slots)
 DEFAULT_MIN_BUCKET = 8     # smallest prompt bucket
 _PREFILL_FLASH_MIN = 512   # prompt length from which prefill runs flash
 _WINDOW_DIM = SEQ_KV_CACHE_SPEC.index(SEQ_AXIS)  # the cache axis over 'seq'
+_HEAD_DIM = KV_CACHE_SPEC.index(MODEL_AXIS)      # the cache axis over 'model'
 # speculative sampling streams: stream ids past any decode step (steps are
 # < max_len < 2**20) for the draft's draws, the acceptance coins and the
 # residual draw of each round, so they never meet the per-step streams
@@ -225,6 +243,78 @@ class ServingWeights:
             self._copies[device] = twin
         return self._copies[device]
 
+    def model_group(self, mesh, row: int = 0,
+                    rules=None) -> "ServingWeights":
+        """These weights over data row `row`'s model group of `mesh`
+        (model order, index 0 the home), placed by the partition rules
+        (DEFAULT_RULES by default) as the JAX `TextGenerator` shards its
+        variables: a column-parallel layer (qkv head-aligned, mlp_up,
+        lm_head) holds its weight, bias and int8 scale as `ModelShards`
+        cut on the output axis; a row-parallel one (proj, mlp_down) its
+        weight cut on the input axis and its bias and scale whole on the
+        home; a MoE block's expert stacks cut by expert where the rules
+        say; every other leaf, and a layer whose shape the axis does not
+        divide, whole on the home.  Made once per group and kept."""
+        devices = model_group(mesh, row)
+        key = ("model", tuple(devices))
+        if key in self._copies:
+            return self._copies[key]
+        rule = registry_rule(mesh, rules)
+        mp = len(devices)
+        base = self.on(devices[0])
+
+        def split(path: str, shape: tuple) -> Optional[tuple]:
+            spec, groups = qkv_groups(path, rule(path, shape), shape, mp,
+                                      self.n_heads)
+            dim = model_dim(spec)
+            return None if dim is None else (dim, groups)
+
+        def dense(layer, path: str):
+            s = split(f"{path}/kernel", tuple(layer.weight.shape[::-1]))
+            if s is None:
+                return layer
+            (fdim, groups), scale = s, getattr(layer, "scale", None)
+            if fdim == 1:                  # output columns: port dim 0
+                out = SimpleNamespace(
+                    weight=place(layer.weight, devices, 0, groups),
+                    bias=place(layer.bias, devices, 0, groups))
+                if scale is not None:
+                    out.scale = place(scale, devices, 0, groups)
+                return out
+            out = SimpleNamespace(weight=place(layer.weight, devices, 1),
+                                  bias=layer.bias)
+            if scale is not None:
+                out.scale = scale
+            return out
+
+        def moe(part, path: str):
+            stacks = {}
+            for leaf in ("w_in", "w_out"):
+                t = getattr(part, leaf)
+                s = split(f"{path}/{leaf}", tuple(t.shape))
+                stacks[leaf] = t if s is None else place(t, devices, *s)
+            return SimpleNamespace(**{**vars(part), **stacks})
+
+        twin = copy.copy(base)
+        twin._copies = {}
+        twin.lm_head = dense(base.lm_head, "lm_head")
+        twin.blocks = []
+        for i, blk in enumerate(base.blocks):
+            parts = dict(vars(blk))
+            for name in ("qkv", "proj", "mlp_up", "mlp_down"):
+                if name in parts:
+                    parts[name] = dense(parts[name], f"block{i}_w/{name}")
+            if "moe" in parts:
+                parts["moe"] = moe(parts["moe"], f"block{i}_w/moe")
+            twin.blocks.append(SimpleNamespace(**parts))
+        self._copies[key] = twin
+        return twin
+
+    def heads_split(self) -> int:
+        """How many model shards split the attention heads (1: none)."""
+        w = self.blocks[0].qkv.weight
+        return len(w) if isinstance(w, ModelShards) else 1
+
 
 def _ln(norm, x: torch.Tensor, dtype) -> torch.Tensor:
     """The decode path's LayerNorm: f32 two-pass statistics, f32 affine,
@@ -239,12 +329,45 @@ def _ln(norm, x: torch.Tensor, dtype) -> torch.Tensor:
 def _dense(linear, x: torch.Tensor, dtype) -> torch.Tensor:
     """A Dense layer over its model-dtype copy (`ServingWeights`), or an
     int8 layer (one with a `scale`): the JAX decode path's int8 branch,
-    the product rounded to `dtype` before the per-channel scale."""
+    the product rounded to `dtype` before the per-channel scale.  A layer
+    split over a model group (`ServingWeights.model_group`): a column-
+    parallel one's output columns joined on x's device in model order
+    (`_column`), a row-parallel one's partial products summed there
+    (`_row`)."""
+    w = linear.weight
+    if isinstance(w, ModelShards):
+        if w.dim == 0:
+            return unshard(_column(linear, x, dtype), -1, x.device)
+        return _row(linear, list(x.chunk(len(w), -1)), dtype)
     scale = getattr(linear, "scale", None)
     if scale is not None:
-        return quant_dense_apply(x, linear.weight, scale, linear.bias,
-                                 dtype)
-    return F.linear(x.to(dtype), linear.weight, linear.bias)
+        return quant_dense_apply(x, w, scale, linear.bias, dtype)
+    return F.linear(x.to(dtype), w, linear.bias)
+
+
+def _column(linear, x: torch.Tensor, dtype) -> list:
+    """A column-parallel layer over a replicated input: each model
+    shard's output columns, on the shard's device."""
+    out = []
+    for m, w in enumerate(linear.weight):
+        part = SimpleNamespace(weight=w, bias=linear.bias[m])
+        if getattr(linear, "scale", None) is not None:
+            part.scale = linear.scale[m]
+        out.append(_dense(part, x.to(w.device), dtype))
+    return out
+
+
+def _row(linear, xs: list, dtype) -> torch.Tensor:
+    """A row-parallel layer over per-shard input slices
+    (`models/definitions.py` `row_parallel_sum`: the partial products
+    summed on the home in model order, the scale and bias once)."""
+    return row_parallel_sum(xs, linear.weight, getattr(linear, "scale", None),
+                            linear.bias, dtype)
+
+
+def _is_split(linear, dim: int) -> bool:
+    w = linear.weight
+    return isinstance(w, ModelShards) and w.dim == dim
 
 
 def _mlp(block, h2: torch.Tensor, dtype) -> torch.Tensor:
@@ -253,7 +376,8 @@ def _mlp(block, h2: torch.Tensor, dtype) -> torch.Tensor:
     the JAX `_mlp`'s re-applied `MoEMLP`).  MoE routes the B x S tokens
     of the call as the module does, so a decode step routes its whole
     batch, padding and finished rows included, as one capacity group, as
-    the JAX engine does."""
+    the JAX engine does.  Over a model group a column-parallel `mlp_up`
+    feeds a row-parallel `mlp_down` shard by shard."""
     moe = getattr(block, "moe", None)
     if moe is not None:
         return moe_apply(h2, moe.router_weight, moe.router_bias, moe.w_in,
@@ -261,6 +385,10 @@ def _mlp(block, h2: torch.Tensor, dtype) -> torch.Tensor:
                          group_size=moe.group_size,
                          capacity_factor=moe.capacity_factor,
                          z_loss_weight=moe.z_loss_weight)[0]
+    if _is_split(block.mlp_up, 0) and _is_split(block.mlp_down, 1):
+        hs = [F.gelu(u, approximate="tanh")
+              for u in _column(block.mlp_up, h2, dtype)]
+        return _row(block.mlp_down, hs, dtype)
     return _dense(block.mlp_down, F.gelu(_dense(block.mlp_up, h2, dtype),
                                          approximate="tanh"), dtype)
 
@@ -286,46 +414,76 @@ def _block_tail(block, x: torch.Tensor, o: torch.Tensor,
     return x + _mlp(block, _ln(block.LayerNorm_1, x, dtype), dtype)
 
 
-def _block_with_cache(block, n_heads: int, x: torch.Tensor,
-                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+def _block(block, n_heads: int, x: torch.Tensor, cache,
+           dtype, attend) -> torch.Tensor:
+    """One TransformerBlock over x (B, S, D) whose attention is
+    `attend(cache, q, k, v) -> o` (B, S, h, Dh) over a layer cache.  Where
+    `qkv` is split over a model group (heads on 'model', KV_CACHE_SPEC),
+    `cache` is a tuple of `ModelShards` and each shard attends its own
+    heads over its own cache on its device (the kernels per shard), its
+    output going into a row-parallel `proj`; otherwise the whole."""
+    b, s, d = x.shape
+    if _is_split(block.qkv, 0):
+        h = _ln(block.LayerNorm_0, x, dtype)
+        mp = len(block.qkv.weight)
+        outs = [attend(tuple(c[m] for c in cache),
+                       *_split_heads(qkv, n_heads // mp)).reshape(b, s, -1)
+                for m, qkv in enumerate(_column(block.qkv, h, dtype))]
+    else:
+        outs = [attend(cache, *_qkv(block, n_heads, x, dtype)).reshape(
+            b, s, d)]
+    if _is_split(block.proj, 1):
+        if len(outs) == 1:
+            outs = list(outs[0].chunk(len(block.proj.weight), -1))
+        x = x + _row(block.proj, outs, dtype)
+    else:
+        x = x + _dense(block.proj, unshard(outs, -1, x.device).to(dtype),
+                       dtype)
+    return x + _mlp(block, _ln(block.LayerNorm_1, x, dtype), dtype)
+
+
+def _block_with_cache(block, n_heads: int, x: torch.Tensor, cache: tuple,
                       pos: int, dtype) -> torch.Tensor:
     """One TransformerBlock over a token segment starting at cache slot
-    `pos`, writing its K/V into the (B, W, H, Dh) caches in place."""
+    `pos`, writing its K/V into the layer's (B, W, H, Dh) caches in place
+    (each model shard's own heads over a model group)."""
     s = x.shape[1]
-    dh = x.shape[2] // n_heads
-    q, k, v = _qkv(block, n_heads, x, dtype)
-    k_cache[:, pos:pos + s] = k.to(k_cache.dtype)
-    v_cache[:, pos:pos + s] = v.to(v_cache.dtype)
-    if s >= _PREFILL_FLASH_MIN and pos == 0:
-        # long-prompt prefill: attention against the cache is exactly
-        # causal self-attention over the segment
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True)
-    else:
+
+    def attend(c, q, k, v):
+        k_cache, v_cache = c
+        k_cache[:, pos:pos + s] = k.to(k_cache.dtype)
+        v_cache[:, pos:pos + s] = v.to(v_cache.dtype)
+        if s >= _PREFILL_FLASH_MIN and pos == 0:
+            # long-prompt prefill: attention against the cache is exactly
+            # causal self-attention over the segment
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
         width = k_cache.shape[1]
         scores = torch.einsum("bqhd,blhd->bhql", q.float(),
-                              k_cache.float()) * dh ** -0.5
-        q_pos = pos + torch.arange(s, device=x.device)
-        visible = (torch.arange(width, device=x.device)[None, :]
+                              k_cache.float()) * q.shape[-1] ** -0.5
+        q_pos = pos + torch.arange(s, device=q.device)
+        visible = (torch.arange(width, device=q.device)[None, :]
                    <= q_pos[:, None])
         scores = torch.where(visible[None, None], scores, NEG_INF)
         w = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhql,blhd->bqhd", w, v_cache.float())
-    return _block_tail(block, x, o, dtype)
+        return torch.einsum("bhql,blhd->bqhd", w, v_cache.float())
+
+    return _block(block, n_heads, x, cache, dtype, attend)
 
 
 def _forward_with_cache(module, tokens: torch.Tensor, caches: list,
                         pos: int) -> torch.Tensor:
     """Logits (B, S, V) f32 for a token segment at cache slot `pos`; the
     per-layer (k, v) caches are written in place.  `module` is the
-    `ServingWeights` of a TransformerLM."""
+    `ServingWeights` of a TransformerLM (over a model group, its
+    `model_group`: the logits are the vocab columns joined in order)."""
     dtype = module.dtype
     positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
     emb = (module.tok_embed.weight[tokens]
            + module.pos_embed.weight[positions][None])
     x = emb.to(dtype)
-    for block, (kc, vc) in zip(module.blocks, caches):
-        x = _block_with_cache(block, module.n_heads, x, kc, vc, pos, dtype)
+    for block, cache in zip(module.blocks, caches):
+        x = _block_with_cache(block, module.n_heads, x, cache, pos, dtype)
     x = _ln(module.final_norm_w, x, dtype)
     return _dense(module.lm_head, x, dtype).float()
 
@@ -352,6 +510,76 @@ def _write_token(cache: tuple, slot, k: torch.Tensor,
         vc[at] = v.to(vc.dtype)
 
 
+def _quantize_layer(kc, vc) -> tuple:
+    """One layer's (k, v) model-dtype caches quantized per head:
+    (k_q, k_scale, v_q, v_scale), a model group's shard by shard."""
+    if isinstance(kc, ModelShards):
+        parts = [quantize_kv(k) + quantize_kv(v) for k, v in zip(kc, vc)]
+        return tuple(ModelShards(col, _HEAD_DIM) for col in zip(*parts))
+    return quantize_kv(kc) + quantize_kv(vc)
+
+
+class RowShards(list):
+    """A resident serving cache tensor of a data-grouped engine (a mesh
+    with a data axis): entry g holds rows [g B/d, (g+1) B/d) on data row
+    g's devices (a tensor, or the row's model group's `ModelShards`)."""
+
+    @property
+    def shape(self) -> tuple:
+        return ((sum(int(e.shape[0]) for e in self),)
+                + tuple(self[0].shape[1:]))
+
+    @property
+    def device(self) -> torch.device:
+        return self[0].device
+
+    def map(self, fn) -> "RowShards":
+        return RowShards(fn(e) for e in self)
+
+
+def cache_row(t, row: int) -> torch.Tensor:
+    """Row `row` of one cache tensor, (W, ...) with full heads in the
+    reference's order on its home device: a `RowShards` entry's, a
+    `ModelShards` joined over its shards."""
+    if isinstance(t, RowShards):
+        per = int(t[0].shape[0])
+        return cache_row(t[row // per], row % per)
+    if isinstance(t, ModelShards):
+        return torch.cat([p[row].to(t.device) for p in t], _HEAD_DIM - 1)
+    return t[row]
+
+
+def _merge_tensor(d, s, dst_rows: list, src_rows: list, window: int):
+    """`merge_cache_rows` of one cache tensor: rows `src_rows` of `s` into
+    rows `dst_rows` of `d`, both grown to `window`; a `RowShards` routes
+    each row to the data group that owns it, a `ModelShards` merges shard
+    by shard (a full-heads source split over the shards first)."""
+    if isinstance(d, RowShards):
+        per = int(d[0].shape[0])
+        out = []
+        for g, part in enumerate(d):
+            pairs = [(r - g * per, q) for r, q in zip(dst_rows, src_rows)
+                     if g * per <= r < (g + 1) * per]
+            out.append(_merge_tensor(part, s, [a for a, _ in pairs],
+                                     [q for _, q in pairs], window)
+                       if pairs else _grow_cache(part, window))
+        return RowShards(out)
+    if isinstance(d, ModelShards):
+        if isinstance(s, ModelShards):
+            parts = list(s)
+        else:
+            parts = place(s, [p.device for p in d], _HEAD_DIM)
+        return ModelShards([_merge_tensor(dp, sp, dst_rows, src_rows, window)
+                            for dp, sp in zip(d, parts)], d.dim)
+    if isinstance(s, ModelShards):
+        s = s.full(d.device)
+    d = _grow_cache(d, window)
+    di = torch.as_tensor(list(dst_rows), dtype=torch.long, device=d.device)
+    si = torch.as_tensor(list(src_rows), dtype=torch.long, device=s.device)
+    d[di] = _grow_cache(s, window)[si].to(d.device)
+    return d
+
+
 def _cache_read_args(cache: tuple) -> tuple:
     """(k, v, {k_scale, v_scale}) of a model-dtype or int8 cache."""
     if len(cache) == 4:
@@ -370,9 +598,12 @@ def _decode_step(module, tok: torch.Tensor, pos: torch.Tensor, caches: list,
     dtype = module.dtype
     emb = module.tok_embed.weight[tok] + module.pos_embed.weight[pos]
     x = emb[:, None].to(dtype)
+
+    def one_token(cache, q, k, v):
+        return attend(cache, q[:, 0].contiguous(), k[:, 0], v[:, 0])
+
     for block, cache in zip(module.blocks, caches):
-        q, k, v = (t[:, 0] for t in _qkv(block, module.n_heads, x, dtype))
-        x = _block_tail(block, x, attend(cache, q.contiguous(), k, v), dtype)
+        x = _block(block, module.n_heads, x, cache, dtype, one_token)
     x = _ln(module.final_norm_w, x, dtype)
     return _dense(module.lm_head, x, dtype).float()[:, 0]
 
@@ -421,21 +652,26 @@ def _verify_step_rows(module, toks: torch.Tensor, pos0: torch.Tensor,
         max=module.max_len - 1)
     x = (module.tok_embed.weight[toks]
          + module.pos_embed.weight[positions]).to(dtype)
-    for block, cache in zip(module.blocks, caches):
-        q, k, v = _qkv(block, module.n_heads, x, dtype)
+
+    def attend(cache, q, k, v):
         _write_segment(cache, slots0, k, v)
         kc, vc, scales = _cache_read_args(cache)
-        o = segment_cache_attention(q, kc, vc, visible, **scales)
-        x = _block_tail(block, x, o, dtype)
+        return segment_cache_attention(q, kc, vc, visible.to(kc.device),
+                                       **scales)
+
+    for block, cache in zip(module.blocks, caches):
+        x = _block(block, module.n_heads, x, cache, dtype, attend)
     x = _ln(module.final_norm_w, x, dtype)
     return _dense(module.lm_head, x, dtype).float()
 
 
 def _grow_cache(cache: torch.Tensor, window: int) -> torch.Tensor:
     """Zero-extend a cache prefix to `window` slots (payloads (B, W, H, D)
-    and int8 scales (B, W, H) alike)."""
+    and int8 scales (B, W, H) alike; a model group's, shard by shard)."""
     if cache.shape[1] == window:
         return cache
+    if isinstance(cache, list):
+        return cache.map(lambda t: _grow_cache(t, window))
     out = cache.new_zeros((cache.shape[0], window) + tuple(cache.shape[2:]))
     out[:, :cache.shape[1]] = cache
     return out
@@ -524,10 +760,11 @@ class CacheRowPages:
     k_scale, vq, v_scale).  The KV handoff bus frames a row's pages as it
     pushes them, so the row's copies spread over the ticks its transfer
     takes.  Holds views of `caches`, which must not be written
-    meanwhile."""
+    meanwhile (a model group's row is gathered to full heads, a copy)."""
 
     def __init__(self, caches, row: int, chunk: int):
-        self._row = [[t[row].detach() for t in layer] for layer in caches]
+        self._row = [[cache_row(t, row).detach() for t in layer]
+                     for layer in caches]
         self._width = self._row[0][0].shape[0]
         self._step = max(1, int(chunk))
 
@@ -728,32 +965,35 @@ def _same_device(have: torch.device, want: torch.device) -> bool:
                                        or have.index == want.index)
 
 
+def _canonical(device) -> torch.device:
+    """`device` with a card's index filled in (a mesh may name `cuda`,
+    its tensors say `cuda:0`)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _check_mesh_axes(mesh) -> None:
     """The refusals that depend on the mesh alone, shared by `DecodeEngine`
     and `TextGenerator.set_mesh`: a non-Mesh (TypeError); seq>1 with
-    model>1 (ValueError, as the JAX engine raises); a model axis alone,
-    tensor-parallel decode, is not ported (NotImplementedError)."""
+    model>1 (ValueError, as the JAX engine raises)."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a mmlspark_tpu_torch.parallel.mesh."
                         f"Mesh, got {type(mesh).__name__}")
-    if mesh.shape[MODEL_AXIS] > 1:
-        if mesh.shape[SEQ_AXIS] > 1:
-            raise ValueError(
-                "seq-sharded decode (mesh seq>1) does not compose with "
-                "model>1: the seq path keeps heads unsharded "
-                "(SEQ_KV_CACHE_SPEC) so the stats merge is the only "
-                "cross-shard attention collective")
-        raise NotImplementedError(
-            "tensor-parallel decode (mesh model>1) is not ported (ROADMAP "
-            "A10)")
+    if mesh.shape[MODEL_AXIS] > 1 and mesh.shape[SEQ_AXIS] > 1:
+        raise ValueError(
+            "seq-sharded decode (mesh seq>1) does not compose with "
+            "model>1: the seq path keeps heads unsharded "
+            "(SEQ_KV_CACHE_SPEC) so the stats merge is the only "
+            "cross-shard attention collective")
 
 
 def _check_mesh(mesh, module, device: torch.device, *, chunk: int,
                 min_bucket: int, prefill_chunk, draft_module) -> None:
     """The JAX engine's construction checks of a meshed decode
-    (generate.py:1164-1201), then the port's own: a model axis (tensor-
-    parallel decode) is not ported, and the mesh's devices must be the
-    engine's."""
+    (generate.py:1164-1201), then the port's own: the mesh's devices must
+    be the engine's."""
     _check_mesh_axes(mesh)
     seq = mesh.shape[SEQ_AXIS]
     if seq > 1:
@@ -915,6 +1155,14 @@ class DecodeEngine:
         The JAX code replicates that non-attention math on every chip;
         computing it once is the same arithmetic.
 
+    With a model axis (seq 1) the engine decodes tensor-parallel: each
+    data group over its row's model group (module docstring), the weights
+    placed by `partition_rules` (default DEFAULT_RULES) once per group.
+    `generate`, chunked prefill and speculation run per group; the
+    serving hooks run a resident batch's rows in `data` equal slabs, slab
+    g over row g's group (`RowShards` caches), a joining cohort on row
+    0's group.
+
     Shards may share one device (a mesh that repeats a card)."""
 
     def __init__(self, module, max_new_tokens: int, *,
@@ -927,7 +1175,7 @@ class DecodeEngine:
                  min_new_tokens: int = 1,
                  prefill_chunk: Optional[int] = None,
                  draft_module=None, spec_tokens: int = 0,
-                 device="cuda"):
+                 partition_rules=None, device="cuda"):
         self.device = resolve_device(device)
         if not isinstance(module, ServingWeights):
             _check_generatable(module)
@@ -1002,6 +1250,16 @@ class DecodeEngine:
                         else ServingWeights(module))
         self.mesh = mesh
         self.seq_shards = mesh.shape[SEQ_AXIS] if mesh is not None else 1
+        self.model_shards = (mesh.shape[MODEL_AXIS] if mesh is not None
+                             else 1)
+        # the weights each data row's model group decodes with, by the
+        # group's home device
+        self._group_weights: dict = {}
+        if self.model_shards > 1:
+            for row in range(mesh.shape[DATA_AXIS]):
+                group = self.weights.model_group(mesh, row, partition_rules)
+                self._group_weights.setdefault(
+                    _canonical(model_group(mesh, row)[0]), group)
         self.max_new_tokens = max_new_tokens
         self.stop_tokens = stop_tokens
         self.chunk = chunk
@@ -1033,6 +1291,14 @@ class DecodeEngine:
         # program keys), counted over each class's first execution under
         # a run and replayed into later runs
         self._costs = ProgramCosts("decode")
+
+    def _weights_on(self, device) -> ServingWeights:
+        """The weights a batch decodes with on `device`: the model group
+        whose home it is (a tensor-parallel engine), else the serving
+        weights there."""
+        if self._group_weights:
+            return self._group_weights[_canonical(device)]
+        return self.weights.on(device)
 
     def bucket_for(self, prompt_len: int) -> int:
         return bucket_length(prompt_len, self.weights.max_len,
@@ -1067,21 +1333,32 @@ class DecodeEngine:
             last, caches = self._ring_prefill(prompts, true_len, ring)
             return self._first_token(last, live, row_seeds) + (caches,)
         b, p = prompts.shape
-        caches = self._new_caches(b, _round_up(p + 1, self.chunk))
-        logits = _forward_with_cache(self.weights, prompts, caches, 0)
-        last = logits[torch.arange(b, device=self.device), true_len - 1]
+        caches = self._new_caches(b, _round_up(p + 1, self.chunk),
+                                  prompts.device)
+        logits = _forward_with_cache(self._weights_on(prompts.device),
+                                     prompts, caches, 0)
+        last = logits[torch.arange(b, device=logits.device), true_len - 1]
         return self._prefill_finish(caches, last, live, row_seeds)
 
     def _new_caches(self, b: int, window: int, device=None,
                     model=None) -> list:
         """Zeroed model-dtype (k, v) caches of `window` slots per layer of
-        `model` (default: the engine's weights) on `device` (default: the
-        engine's)."""
-        model = model or self.weights
-        shape = (b, window, model.n_heads, model.d_model // model.n_heads)
-        return [tuple(torch.zeros(shape, dtype=model.dtype,
-                                  device=device or self.device)
-                      for _ in range(2))
+        `model` (default: the engine's weights there) on `device` (default:
+        the engine's); over a model group each shard's heads on its
+        device."""
+        device = device or self.device
+        model = model or self._weights_on(device)
+        mp = model.heads_split()
+        shape = (b, window, model.n_heads // mp,
+                 model.d_model // model.n_heads)
+        if mp == 1:
+            return [tuple(torch.zeros(shape, dtype=model.dtype,
+                                      device=device) for _ in range(2))
+                    for _ in range(model.n_layers)]
+        devices = [w.device for w in model.blocks[0].qkv.weight]
+        return [tuple(ModelShards([torch.zeros(shape, dtype=model.dtype,
+                                               device=d) for d in devices],
+                                  _HEAD_DIM) for _ in range(2))
                 for _ in range(model.n_layers)]
 
     # -- chunked prefill (the JAX prefill_chunk0/chunk/finish and
@@ -1095,8 +1372,9 @@ class DecodeEngine:
         chunk, so from `_PREFILL_FLASH_MIN` tokens up it runs the flash
         kernel, as a whole-prompt prefill does."""
         b, cl = tokens.shape
-        caches = self._new_caches(b, w0)
-        logits = _forward_with_cache(self.weights, tokens, caches, 0)
+        caches = self._new_caches(b, w0, tokens.device)
+        logits = _forward_with_cache(self._weights_on(tokens.device), tokens,
+                                     caches, 0)
         idx = torch.clamp(true_len - 1, 0, cl - 1)
         return caches, logits[torch.arange(b, device=logits.device), idx]
 
@@ -1113,7 +1391,8 @@ class DecodeEngine:
             raise ValueError(
                 f"prefill segment [{c0}, {c0 + cl}) does not fit a cache "
                 f"window of {width} slots at an offset past 0")
-        logits = _forward_with_cache(self.weights, tokens, caches, c0)
+        logits = _forward_with_cache(self._weights_on(tokens.device), tokens,
+                                     caches, c0)
         idx = torch.clamp(true_len - 1 - c0, 0, cl - 1)
         cand = logits[torch.arange(b, device=logits.device), idx]
         here = (true_len - 1 >= c0) & (true_len - 1 < c0 + cl)
@@ -1126,8 +1405,7 @@ class DecodeEngine:
         (decode steps quantize each token as they write it)."""
         tok, done = self._first_token(last, live, row_seeds)
         if self.cache_dtype == "int8":
-            caches = [quantize_kv(kc) + quantize_kv(vc)
-                      for kc, vc in caches]
+            caches = [_quantize_layer(kc, vc) for kc, vc in caches]
         return tok, done, caches
 
     def _resume_init(self, w0: int, row_caches: list) -> tuple:
@@ -1138,6 +1416,9 @@ class DecodeEngine:
         writes into them in place), and the running logits start at zero
         (the suffix always holds the last prompt position)."""
         dtype, caches = self.weights.dtype, []
+        model = self._weights_on(self.device)
+        heads = (None if model.heads_split() == 1 else
+                 [w.device for w in model.blocks[0].qkv.weight])
         for layer in row_caches:
             if len(layer) == 4:
                 kq, ks, vq, vs = layer
@@ -1148,7 +1429,8 @@ class DecodeEngine:
                 out = torch.zeros((t.shape[0], w0) + tuple(t.shape[2:]),
                                   dtype=dtype, device=self.device)
                 out[:, :t.shape[1]] = t.to(self.device)
-                fresh.append(out)
+                fresh.append(out if heads is None
+                             else place(out, heads, _HEAD_DIM))
             caches.append(tuple(fresh))
         b = int(row_caches[0][0].shape[0])
         return caches, torch.zeros((b, self.weights.vocab_size),
@@ -1247,7 +1529,7 @@ class DecodeEngine:
                      for j, dev in enumerate(ring)]
         prompt_visible = [s[None, :] < true_len.to(s.device)[:, None]
                           for s in slots]
-        home = self.weights.on(tok.device)
+        home = self._weights_on(tok.device)
         emitted = []
         for t in range(t0, t0 + seg_len):
             slot = bucket + t
@@ -1366,7 +1648,7 @@ class DecodeEngine:
         committed tokens (the rest repeat the frozen token); `accepted` is
         the draft/target agreement length (0 for a row done on entry)."""
         dev = tok.device
-        target, draft = self.weights.on(dev), self.draft_weights.on(dev)
+        target, draft = self._weights_on(dev), self.draft_weights.on(dev)
         caches = [tuple(_grow_cache(c, window) for c in layer)
                   for layer in caches]
         draft_caches = [tuple(_grow_cache(c, window) for c in layer)
@@ -1436,8 +1718,7 @@ class DecodeEngine:
         out = np.zeros((b, max_new), np.int32)
         rounds = drafted = accepted_total = new_computed = 0
         with torch.inference_mode():
-            for rows, ring in groups:
-                dev = self.device if ring is None else ring[0]
+            for rows, ring, dev in groups:
                 n = len(row_seeds[rows])
                 prompts_t = torch.as_tensor(prompts[rows], dtype=torch.long,
                                             device=dev)
@@ -1515,17 +1796,22 @@ class DecodeEngine:
         return out
 
     def _groups(self, b: int) -> list:
-        """(row slice, seq ring or None) per data group."""
+        """(row slice, seq ring or None, home device) per data group: a
+        data / seq mesh's groups run over their seq rings, a model
+        mesh's over their model groups (home: model index 0)."""
         if self.mesh is None:
-            return [(slice(0, b), None)]
-        rings = self.mesh.seq_rings()
-        if b % len(rings):
+            return [(slice(0, b), None, self.device)]
+        n = self.mesh.shape[DATA_AXIS]
+        if b % n:
             raise ValueError(
                 f"batch ({b}) must divide by the mesh data axis "
-                f"({len(rings)}); pad it with not-live rows")
-        rows = b // len(rings)
-        return [(slice(g * rows, (g + 1) * rows), ring)
-                for g, ring in enumerate(rings)]
+                f"({n}); pad it with not-live rows")
+        rows = b // n
+        if self.model_shards > 1:
+            return [(slice(g * rows, (g + 1) * rows), None,
+                     model_group(self.mesh, g)[0]) for g in range(n)]
+        return [(slice(g * rows, (g + 1) * rows), ring, ring[0])
+                for g, ring in enumerate(self.mesh.seq_rings())]
 
     def generate(self, prompts, true_len, *, seed: int = 0, row_ids=None,
                  live=None) -> np.ndarray:
@@ -1566,14 +1852,15 @@ class DecodeEngine:
         # segment class, counted or timed on the card (observe/costmodel)
         run = active_run()
         timer = DeviceTimes(self.device) if run is not None else None
-        chunked = self.mesh is None and self._chunks_prefill(p)
+        # a data / seq mesh's ring prefill already splits the prompt
+        chunked = ((self.mesh is None or self.model_shards > 1)
+                   and self._chunks_prefill(p))
         with torch.inference_mode():
             states = []
             with (contextlib.nullcontext() if chunked else
                   self._costs.execution(run, ("prefill", b, p),
                                         timer=timer)):
-                for rows, ring in groups:
-                    dev = self.device if ring is None else ring[0]
+                for rows, ring, dev in groups:
                     tl = torch.as_tensor(tl_host[rows], dtype=torch.long,
                                          device=dev)
                     args = (torch.as_tensor(prompts[rows], dtype=torch.long,
@@ -1598,7 +1885,8 @@ class DecodeEngine:
                 with self._costs.execution(
                         run, ("segment", b, prev_w, window, seg_len),
                         timer=timer):
-                    for (rows, ring), st, out in zip(groups, states, parts):
+                    for (rows, ring, _), st, out in zip(groups, states,
+                                                        parts):
                         caches, tok, done, tl = st
                         caches, toks, tok, done = self.decode_segment(
                             seg_len, window, caches, tok, done, tl, p, t0,
@@ -1673,39 +1961,122 @@ class DecodeEngine:
         `window` must cover the highest slot a live row writes
         (`serve_window`); a resident cache never shrinks."""
         self._refuse_seq("serve_step")
-        dev = self.device
         b = len(row_seeds)
         w_in = int(caches[0][0].shape[1])
         window = max(int(window), w_in)
-        max_pos = self.weights.max_len - 1
         with torch.inference_mode():
-            tok, done = (_to_device(tok, torch.long, dev),
-                         _to_device(done, torch.bool, dev))
-            true_len = _to_device(true_len, torch.long, dev)
-            budget, t_row = (_to_device(x, torch.long, dev)
-                             for x in (budget, t_row))
-            caches = [tuple(_grow_cache(c, window) for c in layer)
-                      for layer in caches]
-            slots = torch.arange(window, device=dev)[None, :]
-            prompt_visible = slots < true_len[:, None]
-            emitted = []
-            for s_off in range(seg_len):
-                t = t_row + s_off                      # (B,) per-row step
-                slot = torch.clamp(bucket + t, max=window - 1)
-                visible = prompt_visible | ((slots >= bucket)
-                                            & (slots <= slot[:, None]))
-                logits = _decode_step(
-                    self.weights, tok, torch.clamp(true_len + t, max=max_pos),
-                    caches, functools.partial(_window_read, visible=visible,
-                                              slot=slot))
-                nxt = torch.where(done, tok,
-                                  self._sample(logits, row_seeds, t + 1))
-                done = done | self._stop_gate(nxt, t + 2) | (t + 1 >= budget)
-                emitted.append(nxt)
-                tok = nxt
-            toks = torch.stack(emitted, dim=1)
+            caches, toks, tok, done = self._by_row_groups(
+                lambda dev, c, rows, seeds: self._serve_step_at(
+                    dev, c[0], *rows, bucket, seeds, seg_len, window),
+                (caches,), (tok, done, true_len, budget, t_row), row_seeds,
+                n_caches=1)
         self._program("serve_segment", b, w_in, window, seg_len)
         return caches, toks, tok, done
+
+    def _serve_step_at(self, dev, caches, tok, done, true_len, budget,
+                       t_row, bucket: int, row_seeds, seg_len: int,
+                       window: int) -> tuple:
+        """`serve_step` of rows that all live on `dev`'s group."""
+        max_pos = self.weights.max_len - 1
+        tok, done = (_to_device(tok, torch.long, dev),
+                     _to_device(done, torch.bool, dev))
+        true_len = _to_device(true_len, torch.long, dev)
+        budget, t_row = (_to_device(x, torch.long, dev)
+                         for x in (budget, t_row))
+        caches = [tuple(_grow_cache(c, window) for c in layer)
+                  for layer in caches]
+        slots = torch.arange(window, device=dev)[None, :]
+        prompt_visible = slots < true_len[:, None]
+        emitted = []
+        for s_off in range(seg_len):
+            t = t_row + s_off                      # (B,) per-row step
+            slot = torch.clamp(bucket + t, max=window - 1)
+            visible = prompt_visible | ((slots >= bucket)
+                                        & (slots <= slot[:, None]))
+            logits = _decode_step(
+                self._weights_on(dev), tok,
+                torch.clamp(true_len + t, max=max_pos),
+                caches, functools.partial(_window_read, visible=visible,
+                                          slot=slot))
+            nxt = torch.where(done, tok,
+                              self._sample(logits, row_seeds, t + 1))
+            done = done | self._stop_gate(nxt, t + 2) | (t + 1 >= budget)
+            emitted.append(nxt)
+            tok = nxt
+        return caches, torch.stack(emitted, dim=1), tok, done
+
+    @property
+    def row_groups(self) -> int:
+        """How many equal row slabs the serving hooks cut a resident batch
+        into: the mesh's data axis (1 off a mesh)."""
+        return 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+
+    def _by_row_groups(self, fn, caches: tuple, rows: tuple, row_seeds,
+                       n_caches: int) -> tuple:
+        """`fn(device, caches, rows, seeds)` over the resident batch: whole
+        on the engine's device, or for `RowShards` caches once per data
+        group on its home, over the group's cache entries and its slab of
+        every per-row array in `rows`.  `fn` returns its first
+        `n_caches` results as caches, the rest per-row tensors; the
+        groups' caches come back as `RowShards`, the rest joined on the
+        engine's device in row order."""
+        if not isinstance(caches[0][0][0], RowShards):
+            return fn(self.device, caches, rows, list(row_seeds))
+        per = len(row_seeds) // self.row_groups
+        outs = []
+        for g in range(self.row_groups):
+            sl = slice(g * per, (g + 1) * per)
+            dev = self.mesh.devices[g, 0, 0]
+            sub = tuple([tuple(t[g] for t in layer) for layer in c]
+                        for c in caches)
+            outs.append(fn(dev, sub, tuple(x[sl] for x in rows),
+                           list(row_seeds[sl])))
+        joined = []
+        for i, col in enumerate(zip(*outs)):
+            if i < n_caches:
+                joined.append([tuple(RowShards(ts) for ts in zip(*layers))
+                               for layers in zip(*col)])
+            else:
+                joined.append(torch.cat([t.to(self.device) for t in col]))
+        return tuple(joined)
+
+    def empty_caches(self, b: int, window: int, draft: bool = False) -> list:
+        """Zeroed resident caches of `b` rows over `window` slots in the
+        engine's layout (the int8 4-tuple: payloads and f32 per-(row,
+        slot, head) scales; `draft`: the draft model's model-dtype
+        caches); a data-grouped engine's as `RowShards`, `b / data` rows
+        a group on its devices."""
+        def one(n: int, dev) -> list:
+            model = (self.draft_weights.on(dev) if draft
+                     else self._weights_on(dev))
+            caches = self._new_caches(n, window, dev, model)
+            if self.cache_dtype != "int8" or draft:
+                return caches
+
+            def zeros(t):
+                return (torch.zeros(t.shape, dtype=torch.int8,
+                                    device=t.device),
+                        torch.zeros(t.shape[:3], device=t.device))
+
+            def layer(kc):
+                if isinstance(kc, ModelShards):
+                    kq, ks = zip(*map(zeros, kc))
+                    return (ModelShards(kq, _HEAD_DIM),
+                            ModelShards(ks, _HEAD_DIM))
+                return zeros(kc)
+            return [layer(kc) + layer(vc) for kc, vc in caches]
+
+        with torch.inference_mode():
+            if self.row_groups == 1:
+                return one(b, self.device)
+            if b % self.row_groups:
+                raise ValueError(
+                    f"a resident batch of {b} rows does not split over the "
+                    f"mesh data axis ({self.row_groups})")
+            groups = [one(b // self.row_groups, self.mesh.devices[g, 0, 0])
+                      for g in range(self.row_groups)]
+            return [tuple(RowShards(ts) for ts in zip(*layers))
+                    for layers in zip(*groups)]
 
     def serve_window(self, bucket: int, max_t: int, seg_len: int) -> int:
         """The chunk-rounded cache window covering a segment whose oldest
@@ -1840,19 +2211,22 @@ class DecodeEngine:
         and emits that prefix of its toks.  Writes the caches in place
         where they need no growth."""
         self._refuse_seq("serve_spec_round")
-        dev = self.device
         b = len(row_seeds)
         w_in = int(caches[0][0].shape[1])
         window = max(int(window), w_in, int(draft_caches[0][0].shape[1]))
-        with torch.inference_mode():
-            out = self._spec_round(
-                window, caches, draft_caches,
-                _to_device(tok, torch.long, dev),
+
+        def run(dev, cs, rows, seeds):
+            tok, done, true_len, budget, t_row = rows
+            return self._spec_round(
+                window, cs[0], cs[1], _to_device(tok, torch.long, dev),
                 _to_device(done, torch.bool, dev),
                 _to_device(true_len, torch.long, dev),
                 _to_device(budget, torch.long, dev), int(bucket),
-                _to_device(t_row, torch.long, dev), int(round_idx),
-                list(row_seeds))
+                _to_device(t_row, torch.long, dev), int(round_idx), seeds)
+        with torch.inference_mode():
+            out = self._by_row_groups(
+                run, (caches, draft_caches),
+                (tok, done, true_len, budget, t_row), row_seeds, n_caches=2)
         self._program("spec_round", b, w_in, window, self.spec_tokens)
         return out
 
@@ -1866,26 +2240,19 @@ class DecodeEngine:
         batch.  Both cache layouts (2-tuple model dtype, 4-tuple int8) work:
         every tensor is row-indexed on axis 0.  Returns the merged caches;
         a `dst_caches` tensor that needs no growth is written in place.
-        `mesh`: the JAX signature's; a seq > 1 mesh is refused."""
+        A data-grouped resident batch (`RowShards`) takes each row in the
+        group that owns its slot; a model group's caches merge shard by
+        shard.  `mesh`: the JAX signature's; a seq > 1 mesh is refused."""
         if mesh is not None and mesh.shape[SEQ_AXIS] > 1:
             raise ValueError(
                 "merge_cache_rows refuses seq-sharded caches (mesh seq>1): "
                 "row splicing assumes whole-window rows")
         window = max(dst_caches[0][0].shape[1], src_caches[0][0].shape[1])
         with torch.inference_mode():
-            merged = []
-            for dst_layer, src_layer in zip(dst_caches, src_caches):
-                layer = []
-                for d, s in zip(dst_layer, src_layer):
-                    d = _grow_cache(d, window)
-                    di = torch.as_tensor(list(dst_rows), dtype=torch.long,
-                                         device=d.device)
-                    si = torch.as_tensor(list(src_rows), dtype=torch.long,
-                                         device=s.device)
-                    d[di] = _grow_cache(s, window)[si].to(d.device)
-                    layer.append(d)
-                merged.append(tuple(layer))
-        return merged
+            return [tuple(_merge_tensor(d, s, list(dst_rows), list(src_rows),
+                                        window)
+                          for d, s in zip(dst_layer, src_layer))
+                    for dst_layer, src_layer in zip(dst_caches, src_caches)]
 
     @property
     def compiled_programs(self) -> int:
@@ -1917,7 +2284,8 @@ def _window_read(cache: tuple, q: torch.Tensor, k: torch.Tensor,
     the shared `slot`, then the normalized fused cache read."""
     _write_token(cache, slot, k, v)
     kc, vc, scales = _cache_read_args(cache)
-    return fused_single_query_attention(q, kc, vc, visible, **scales)
+    return fused_single_query_attention(q, kc, vc, visible.to(kc.device),
+                                        **scales)
 
 
 def _sharded_read(cache: tuple, q: torch.Tensor, k: torch.Tensor,
@@ -2034,7 +2402,9 @@ class TextGenerator(Transformer):
     def set_mesh(self, mesh) -> "TextGenerator":
         """Generate over a device mesh (the JAX `set_mesh`): rows split over
         'data', zero-padded to whole groups with not-live rows; a 'seq' axis
-        > 1 runs the seq-sharded long-context engine.  The model-dtype
+        > 1 runs the seq-sharded long-context engine, a 'model' axis > 1
+        the tensor-parallel one, the weights sharded by the bundle's
+        partition rules (`ServingWeights.model_group`).  Replicated
         weights are held once per distinct device of the mesh.  Not saved
         with the stage: attach again after load.  `None` detaches."""
         if mesh is not None:
@@ -2091,7 +2461,8 @@ class TextGenerator(Transformer):
                 prefill_chunk=self.prefillChunk or None,
                 mesh=self._mesh, device=self.device,
                 draft_module=self._draft_weights if spec else None,
-                spec_tokens=spec)
+                spec_tokens=spec,
+                partition_rules=self._bundle.partition_rules())
         return self._engines[key]
 
     def _transform_beam(self, rows: list, out: list) -> None:

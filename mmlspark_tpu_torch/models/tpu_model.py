@@ -52,9 +52,21 @@ Under `run_telemetry` each new batch shape class raises a `recompile`
 event and its first batch is counted for the run's roofline row
 (`observe/costmodel.py`), with one synced probe forward after it.
 
-Not ported, raising with its ROADMAP item: a mesh with a model axis and
-the multi-host path (A10).  A TransformerLM bundle is scored by
-`TextGenerator`, not here.
+A TransformerLM bundle is scored over token ids (integer columns are
+not cast): the output is its logits (B, S, vocab), float32, as the JAX
+stage returns them.
+
+Over a mesh with a model axis the bundle's variables are placed by its
+own partition rules (DEFAULT_RULES for a bundle without them; unmatched
+leaves replicate), as the JAX stage's `shard_tree` places them: each
+data row's slab is scored on the row's home replica over its model group
+(`parallel/bridge.py` `ModelShardReplicas`, `models/definitions.py`), a
+TransformerLM's attention per model shard on its own heads (the flash
+kernel K1 under `attn_impl="flash"`).  A vision bundle's leaves match no
+rule but the catch-all, so every leaf replicates and each row's slab is
+scored once on its home.
+
+Not ported, raising with its ROADMAP item: the multi-host path (A10).
 """
 
 from __future__ import annotations
@@ -78,16 +90,17 @@ from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import (active_tracer,
                                               current_span_id,
                                               span_on_tracer)
-from mmlspark_tpu_torch.parallel.bridge import DeviceFeed
+from mmlspark_tpu_torch.parallel.bridge import DeviceFeed, ModelShardReplicas
 from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, batch_devices,
                                               default_mesh)
+from mmlspark_tpu_torch.parallel.partition import port_splits, registry_rule
 from mmlspark_tpu_torch.data import Dataset
 from mmlspark_tpu_torch.parallel.prefetch import OncePerTable, resolve_depth
 
 
 class TPUModel(Transformer):
     """Score a table column through a bundle's model on one device or
-    over a mesh's data axis (module docstring)."""
+    over a mesh (module docstring)."""
 
     saved_class = "mmlspark_tpu.models.tpu_model.TPUModel"
 
@@ -143,13 +156,10 @@ class TPUModel(Transformer):
         return self._bundle
 
     def set_mesh(self, mesh) -> "TPUModel":
-        """Score over `mesh`'s data axis (`parallel.mesh.Mesh`): the module
-        replicated to each distinct device, each minibatch cut into one
-        slab per shard.  A model axis raises (ROADMAP A10)."""
-        if mesh.shape[MODEL_AXIS] > 1:
-            raise NotImplementedError(
-                f"TPUModel over a mesh with a model axis ({mesh.shape}) is "
-                "not ported: tensor parallelism (ROADMAP A10)")
+        """Score over `mesh` (`parallel.mesh.Mesh`): each minibatch cut
+        into one slab per data row; the module replicated to each distinct
+        device, or with a model axis placed by the bundle's partition
+        rules over each row's model group (module docstring)."""
         self._mesh = mesh
         self._shards = [resolve_device(d) for d in batch_devices(mesh)]
         self.device = self._shards[0]
@@ -188,16 +198,27 @@ class TPUModel(Transformer):
         return ((self._bundle.metadata or {}).get("quantization")
                 or {}).get("mode")
 
+    def _shard_modules(self, devices: list) -> list:
+        """The module each data shard scores with: the bundle's module on
+        its device, or over a model axis each data row's home replica
+        (placed once per compute dtype)."""
+        if self._mesh is None or self._mesh.shape[MODEL_AXIS] == 1:
+            return [self._scoring_module(d) for d in devices]
+        key = (self.computeDtype, "model group")
+        if key not in self._modules:
+            module = self._scoring_module(devices[0])
+            splits = port_splits(module, self._mesh, registry_rule(
+                self._mesh, self._bundle.partition_rules()))
+            self._modules[key] = ModelShardReplicas(
+                module, self._mesh, splits, trainable=False).shards
+        return self._modules[key]
+
     def _scoring_module(self, device=None) -> torch.nn.Module:
         """The bundle's module on `device` (default the stage's first),
         rebuilt at `computeDtype` when the Param is set (cached per dtype
         and device)."""
         if self._bundle is None:
             raise ValueError("TPUModel has no model bundle; call set_bundle()")
-        if self._bundle.architecture == "TransformerLM":
-            raise NotImplementedError(
-                "TPUModel over a TransformerLM bundle is not ported; score "
-                "it with TextGenerator (ROADMAP A3)")
         cd = self.computeDtype
         device = self.device if device is None else device
         if (cd, device) not in self._modules:
@@ -216,7 +237,11 @@ class TPUModel(Transformer):
         with torch.inference_mode(), exact:
             if x.dtype == torch.uint8:
                 x = x.float()
-            out = self._select_output(*module(x))
+            out = module(x)
+            # a scoring model returns (output, nodes), a TransformerLM its
+            # logits and no nodes
+            out = self._select_output(*(out if isinstance(out, tuple)
+                                        else (out, {})))
         if out.dtype == torch.bfloat16 or (cast_f32
                                            and out.is_floating_point()):
             out = out.float()
@@ -314,7 +339,7 @@ class TPUModel(Transformer):
             raise ValueError(
                 f"the column is cached on {[str(t.device) for t in slabs]}; "
                 f"the stage scores on {[str(d) for d in devices]}")
-        modules = [self._scoring_module(d) for d in devices]
+        modules = self._shard_modules(devices)
         slabs = [t.float() if t.dtype == torch.float64 else
                  t.int() if t.dtype == torch.int64 else t for t in slabs]
         length = slabs[0].shape[0]
@@ -375,7 +400,7 @@ class TPUModel(Transformer):
         stays open across table boundaries (module docstring)."""
         self._check_required()
         devices = self.shard_devices()
-        modules = [self._scoring_module(d) for d in devices]
+        modules = self._shard_modules(devices)
         feeds = [self._get_feed(d) for d in devices]
         bs = self.miniBatchSize
         # each shard's slab of a minibatch padded to a multiple of them

@@ -37,6 +37,18 @@ cost row carries `flops` and `bytes_accessed` with the kernels included,
 and `kernel_flops` / `kernel_bytes` beside them: subtract them for the
 JAX package's `xla_visible` view.
 
+Over a mesh the counter sees every shard's ops, run one after another on
+the calling thread.  With a model axis each shard's slice of a split
+product counts its own share, so the shares of a column- or row-parallel
+layer sum to the whole product and a replicated layer, run once on its
+row's home, counts once: a train step's dense FLOPs equal the global
+batch's `lm_train_flops(...)["xla_visible"]` at any (data, model)
+(`tests/test_torch_tp_lm.py`).  The kernels report at their wrappers
+with each shard's own H/mp heads.  The model-group collectives are
+copies between devices and the row-parallel sums' adds: bytes, no FLOPs
+(a copy between shards that share a device moves nothing and counts
+nothing).
+
 Each hot loop owns a `ProgramCosts`: it counts a new shape class's first
 execution under an active run (that execution's seconds are not timed:
 the dispatch mode slows it), times every later execution into

@@ -45,8 +45,19 @@ raises `ValueError` (a port difference).  Each shard's sown values are
 means over its own groups; the shards have equal group counts, so the
 Trainer averages them over the shards.
 
-Expert parallelism (`expert_axis`, `expert_parallel_rules`) is not ported
-(ROADMAP A10): it raises.
+Expert parallelism: over a mesh with a model axis the expert stacks are
+placed by the partition rules (`expert_parallel_rules`, or the Trainer's
+`parallel/partition.py` `param_sharding_rule`).  `moe_apply` then takes
+each stack as a `ModelShards` list and routes exactly as on one device
+(the same groups, capacity and sown values, on the home replica): the
+(E, G C, D) slot tensor is cut by expert over the model group
+(`parallel/ring.py` `all_to_all`, the home the one sender), model shard m
+runs experts [m E/mp, (m+1) E/mp) with its own (E/mp, D, H) and (E/mp, H,
+D) stacks, and the outputs come back to the home in expert order, where
+the combine's gather (and its `index_add_` backward) runs as on one
+device.  A stack split on a trailing dim instead (`expert_parallel=False`,
+or an expert count mp does not divide) computes its output columns per
+shard, joined before the next product.
 """
 
 from __future__ import annotations
@@ -59,11 +70,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmlspark_tpu_torch.core.device import exact_f32, resolve_device
-from mmlspark_tpu_torch.parallel.ring import active_data_shard
-
-EXPERT_PARALLEL_UNPORTED = (
-    "expert parallelism (expert_axis, expert_parallel_rules) is not ported "
-    "(ROADMAP A10)")
+from mmlspark_tpu_torch.parallel.partition import ModelShards
+from mmlspark_tpu_torch.parallel.ring import (active_data_shard, all_to_all,
+                                              reduce_to_home, unshard)
 
 
 def _group_size(t: int, target: int) -> int:
@@ -198,8 +207,7 @@ def moe_apply(x: torch.Tensor, router_weight: torch.Tensor,
     # serially (0.70 of the card's step time at LM_CONFIG's width)
     slots = torch.index_select(xpad, 0, slot_token).reshape(
         e, g * capacity, d)
-    hmid = F.relu(torch.bmm(slots, w_in))
-    out = torch.bmm(hmid, w_out).float().reshape(n_slots, d)
+    out = _experts(slots, w_in, w_out).float().reshape(n_slots, d)
     outpad = torch.cat([out, out.new_zeros((1, d))])
     weight = r["gate"] * r["kept"].float()
     y = weight[0].reshape(t, 1) * torch.index_select(
@@ -214,12 +222,57 @@ def moe_apply(x: torch.Tensor, router_weight: torch.Tensor,
     return y.to(x.dtype).reshape(b, s, d), sown
 
 
+def _experts(slots: torch.Tensor, w_in, w_out) -> torch.Tensor:
+    """relu(slots @ w_in) @ w_out per expert: (E, N, D) -> (E, N, D) on
+    the slots' device.  Stacks split by expert run on their shards
+    (module docstring); other splits go product by product
+    (`_stack_product`)."""
+    if (isinstance(w_in, ModelShards) and isinstance(w_out, ModelShards)
+            and w_in.dim == 0 and w_out.dim == 0):
+        parts = all_to_all([slots], [t.device for t in w_in], 0, 0)
+        return unshard([torch.bmm(F.relu(torch.bmm(p, wi)), wo)
+                        for p, wi, wo in zip(parts, w_in, w_out)], 0,
+                       slots.device)
+    return _stack_product(F.relu(_stack_product(slots, w_in)), w_out)
+
+
+def _stack_product(x: torch.Tensor, w) -> torch.Tensor:
+    """x (E, N, K) @ w (E, K, M) per expert, w a tensor or a `ModelShards`
+    stack split on its expert (0), input (1) or output (2) dim, the
+    result on x's device."""
+    if not isinstance(w, ModelShards):
+        return torch.bmm(x, w)
+    devices = [t.device for t in w]
+    if w.dim == 2:
+        return unshard([torch.bmm(x.to(dev), t)
+                        for dev, t in zip(devices, w)], -1, x.device)
+    parts = all_to_all([x], devices, 0 if w.dim == 0 else 2,
+                       0 if w.dim == 0 else 2)
+    outs = [torch.bmm(p, t) for p, t in zip(parts, w)]
+    if w.dim == 0:
+        return unshard(outs, 0, x.device)
+    return reduce_to_home(outs).to(x.device)
+
+
+def _stack_of(module: nn.Module, name: str, dtype):
+    """A MoE stack in the compute dtype: the module's own leaf, or on a
+    home replica over a model group the peers' slices as a `ModelShards`."""
+    split = (getattr(module, "model_split", None) or {}).get(name)
+    if split is None:
+        return getattr(module, name).to(dtype)
+    return ModelShards([getattr(p, name).to(dtype)
+                        for p in module.model_peers], split[0], split[1],
+                       tuple(getattr(module, name).shape))
+
+
 class MoEMLP(nn.Module):
     """Drop-in MLP replacement: router -> top-k experts -> combine, with
     the flax module's parameters as f32 masters: `router.{weight, bias}`
     (the Dense layer's (E, D) weight and bias), `w_in` (E, D, H) and
     `w_out` (E, H, D), on the card unless `device` says otherwise.
-    `forward(x)` returns (y, sown) (`moe_apply`)."""
+    `forward(x)` returns (y, sown) (`moe_apply`).  `expert_axis` names
+    the mesh axis the stacks split over; the placement (module docstring)
+    decides it."""
 
     def __init__(self, d_model: int, n_experts: int = 8,
                  mlp_ratio: int = 4, capacity_factor: float = 1.25,
@@ -227,9 +280,8 @@ class MoEMLP(nn.Module):
                  group_size: int = 512, router_k: int = 1,
                  z_loss_weight: float = 1e-3, device="cuda"):
         super().__init__()
-        if expert_axis is not None:
-            raise NotImplementedError(EXPERT_PARALLEL_UNPORTED)
         device = resolve_device(device)
+        self.expert_axis = expert_axis
         h = mlp_ratio * d_model
         self.dtype = dtype
         self.n_experts, self.router_k = n_experts, router_k
@@ -243,8 +295,15 @@ class MoEMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple:
         shard = active_data_shard()
-        return moe_apply(x, self.router.weight, self.router.bias,
-                         self.w_in.to(self.dtype), self.w_out.to(self.dtype),
+        router = self.router
+        if (getattr(router, "model_split", None) or {}).get("weight"):
+            weight, bias = (torch.cat([getattr(p, leaf).to(x.device)
+                                       for p in router.model_peers])
+                            for leaf in ("weight", "bias"))
+        else:
+            weight, bias = router.weight, router.bias
+        return moe_apply(x, weight, bias, _stack_of(self, "w_in", self.dtype),
+                         _stack_of(self, "w_out", self.dtype),
                          router_k=self.router_k, group_size=self.group_size,
                          capacity_factor=self.capacity_factor,
                          z_loss_weight=self.z_loss_weight,
@@ -264,6 +323,19 @@ def is_expert_stack(path, shape, axis_size: int = 1) -> bool:
 
 
 def expert_parallel_rules(params: dict, mesh, axis: str = "model") -> dict:
-    """Expert-sharded placements over a mesh axis: not ported (ROADMAP
-    A10)."""
-    raise NotImplementedError(EXPERT_PARALLEL_UNPORTED)
+    """The placement of a flax parameter tree holding MoE experts (the JAX
+    function, moe.py:202-220): a tree of `parallel/mesh.py`
+    `ModelSharding`s, an (E, ...) expert stack's leading dim over `axis`
+    (where `is_expert_stack` holds: an expert count the axis does not
+    divide replicates), every other leaf replicated."""
+    from mmlspark_tpu_torch.parallel.mesh import model_sharding
+    size = mesh.shape.get(axis, 1)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        spec = ((axis, None, None) if is_expert_stack(path, np.shape(node),
+                                                      size) else ())
+        return model_sharding(mesh, spec)
+
+    return walk(params, ())

@@ -8,8 +8,12 @@ from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
 from mmlspark_tpu_torch.parallel.partition import (DEFAULT_RULES,
                                                    SEQ_KV_CACHE_SPEC,
                                                    SEQ_KV_SCALE_SPEC,
+                                                   gather_tree,
+                                                   make_gather_fns,
+                                                   make_shard_fns,
+                                                   match_partition_rules,
                                                    rules_from_json,
-                                                   rules_to_json)
+                                                   rules_to_json, shard_tree)
 from mmlspark_tpu_torch.parallel.ring import (make_seq_parallel_lm_step,
                                               pmax, ppermute, psum, reshard,
                                               seq_parallel_attention, shard,

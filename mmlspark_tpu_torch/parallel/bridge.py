@@ -35,7 +35,17 @@ contiguous slabs (padded to a multiple by `pad_to_multiple`, as
 per-shard tensors keeping one entry per shard.  `replicate_module` gives
 each shard a module whose parameters are leaves of their own, sharing
 storage with one copy per distinct device (the weights replicated,
-`P()`).
+`P()`).  `replicate_tree` puts a tree on every distinct device of a mesh;
+`put_tree_like` restores a full host tree onto a live tree's placements
+(a checkpoint's gathered leaves back onto whatever mesh is live).
+
+With a model axis, a batch is still cut along 'data' only: slab i lands
+on data row i's home (model index 0) and is replicated over the row's
+model shards by the layers that read it.  `ModelShardReplicas` holds the
+parameters of a (data, model) mesh: per data row a home replica of the
+module, with the replicated leaves, and one replica per model index with
+that index's slices of the sharded leaves (`parallel/partition.py`
+`port_splits`).
 """
 
 from __future__ import annotations
@@ -48,8 +58,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, batch_devices,
-                                              distinct_devices)
+from mmlspark_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, MODEL_AXIS,
+                                              batch_devices, distinct_devices,
+                                              model_group)
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int,
@@ -76,12 +87,16 @@ def _slabs(arr: np.ndarray, devices: Sequence) -> list:
 
 def shard_batch(arr: np.ndarray, mesh, *, axis: str = DATA_AXIS) -> list:
     """A host batch on the mesh, cut along its leading dim over `axis`
-    (zero-padded to a multiple): one slab per shard, in row order."""
-    if axis != DATA_AXIS:
-        raise NotImplementedError(
-            f"batches cut along '{axis}' are not ported (ROADMAP A10)")
+    (zero-padded to a multiple): one slab per shard, in row order, slab j
+    on the device at index j of `axis` (index 0 of the others: along
+    'data', each row's home)."""
     padded, _ = pad_to_multiple(np.asarray(arr), mesh.shape[axis])
-    return _slabs(padded, batch_devices(mesh))
+    if axis == DATA_AXIS:
+        return _slabs(padded, batch_devices(mesh))
+    at = AXES.index(axis)
+    devices = [mesh.devices[tuple(j if a == at else 0 for a in range(3))]
+               for j in range(mesh.shape[axis])]
+    return _slabs(padded, devices)
 
 
 def shard_table_columns(table, columns: Sequence[str], mesh, *,
@@ -158,6 +173,43 @@ def put_tree(tree: Any, devices: Any) -> Any:
     return type(tree)(put_tree(v, d) for v, d in zip(tree, devices))
 
 
+def replicate_tree(tree: Any, mesh) -> Any:
+    """Every tensor (or numpy) leaf of `tree` on every device of the mesh,
+    in the mesh's flat order: a list a leaf, one tensor object per
+    distinct device (the weights replicated, `P()`)."""
+    devices = list(mesh.devices.flat)
+
+    def rep(leaf):
+        t = torch.as_tensor(leaf)
+        copies = {d: t.to(d) for d in distinct_devices(devices)}
+        return [copies[d] for d in devices]
+    return _map(rep, tree) if not isinstance(tree, list) else \
+        [rep(leaf) for leaf in tree]
+
+
+def put_tree_like(new_tree: Any, like_tree: Any, mesh=None) -> Any:
+    """Reshard-on-restore: a host tree of full leaves placed as the live
+    tree `like_tree` is (a checkpoint's gathered leaves onto the current
+    mesh): a `ModelShards` leaf takes its slices over its own devices, a
+    list of per-device tensors a copy on each, a tensor its device and
+    dtype.  `mesh` replicates a single-device leaf over the mesh."""
+    from mmlspark_tpu_torch.parallel.partition import ModelShards, place
+    if isinstance(like_tree, dict):
+        return {k: put_tree_like(new_tree[k], v, mesh)
+                for k, v in like_tree.items()}
+    new = torch.as_tensor(np.asarray(new_tree))
+    if isinstance(like_tree, ModelShards):
+        return place(new.to(like_tree.dtype),
+                     [t.device for t in like_tree], like_tree.dim,
+                     like_tree.groups)
+    if isinstance(like_tree, (list, tuple)):
+        copies = {t.device: new.to(t.device, t.dtype) for t in like_tree}
+        return [copies[t.device] for t in like_tree]
+    if mesh is not None:
+        return replicate_tree(new.to(like_tree.dtype), mesh)
+    return new.to(like_tree.device, like_tree.dtype)
+
+
 def snapshot_tree(tree: Any) -> Any:
     """A copy of every tensor leaf on its own device (the asynchronous
     checkpoint's snapshot: later in-place updates do not reach it)."""
@@ -166,20 +218,24 @@ def snapshot_tree(tree: Any) -> Any:
 
 
 def replicate_module(module: nn.Module, device: torch.device,
-                     leaf_of: Callable) -> nn.Module:
+                     leaf_of: Callable,
+                     buffer_of: Optional[Callable] = None) -> nn.Module:
     """A replica of `module` for one shard on `device`: the module tree
     copied shallowly (configuration, hooks and code shared), each
     parameter replaced by `leaf_of(name, parameter)` (a leaf of the
-    shard's own), each buffer the module's own where it lives on
-    `device`, else a copy there."""
+    shard's own), each buffer by `buffer_of(name, buffer)`, by default
+    the module's own where it lives on `device`, else a copy there."""
+    if buffer_of is None:
+        def buffer_of(_name, b):
+            return b if b.device == device else b.to(device)
+
     def walk(mod: nn.Module, prefix: str) -> nn.Module:
         rep = copy.copy(mod)
         rep._parameters = {
             n: None if p is None else leaf_of(prefix + n, p)
             for n, p in mod._parameters.items()}
         rep._buffers = {
-            n: None if b is None else (b if b.device == device
-                                       else b.to(device))
+            n: None if b is None else buffer_of(prefix + n, b)
             for n, b in mod._buffers.items()}
         rep._modules = {n: None if m is None else walk(m, f"{prefix}{n}.")
                         for n, m in mod._modules.items()}
@@ -240,6 +296,191 @@ class ShardReplicas:
             if dev != self.home:
                 for n, t in copies.items():
                     t.copy_(masters[n])
+
+
+def column_biases(module: nn.Module, splits: dict) -> dict:
+    """{bias name: (0, groups)} of every layer whose weight `splits` cuts
+    on its output axis (port dim 0): the bias is replicated (rank 1, as
+    JAX places it), and each model shard computes with its slice of it."""
+    params = dict(module.named_parameters())
+    params.update(module.named_buffers())
+    out = {}
+    for name, (dim, groups) in splits.items():
+        prefix, _, leaf = name.rpartition(".")
+        bias = f"{prefix}.bias" if prefix else "bias"
+        if (leaf == "weight" and dim == 0 and bias not in splits
+                and params.get(bias) is not None):
+            out[bias] = (0, groups)
+    return out
+
+
+class ModelShardReplicas:
+    """A module's parameters over a (data, model) mesh (single controller,
+    `parallel/mesh.py`).  Per data row i (`rows[i]`, a (home, shards)
+    pair):
+
+      * `home`, a replica on the row's home (model index 0's device) that
+        holds every replicated leaf once (a leaf of its own, sharing
+        storage with its device's copy of the masters, as `ShardReplicas`
+        does), and each sharded leaf as the `ModelShards` list of its
+        slices;
+      * `shards[m]`, a replica on model index m's device whose sharded
+        leaves are m's slices (`parallel/partition.py` `take_slice`, the
+        layout `splits` names: {name: (port dim, groups)}), leaves of its
+        own; a column-parallel layer's replicated bias is sliced with its
+        weight (`column_biases`); every other leaf is the home's.
+
+    Every submodule of a home replica gets `model_peers`, the same
+    submodule of each model index's replica, and `model_split`, the split
+    leaves it owns: the layers of `models/definitions.py` run over the
+    group through them.  The masters are the module's own parameters
+    (on the mesh's first device); `reduced_grads` joins each leaf's
+    gradient there, `broadcast` hands the masters back out.  With
+    `trainable=False` (scoring, decoding) the replicas hold plain
+    tensors, parameters and buffers placed alike."""
+
+    def __init__(self, module: nn.Module, mesh, splits: dict,
+                 trainable: bool = True):
+        from mmlspark_tpu_torch.parallel.partition import (ModelShards,
+                                                           take_slice)
+        self.mesh = mesh
+        self.mp = mesh.shape[MODEL_AXIS]
+        self.splits = dict(splits)
+        self.splits.update(column_biases(module, self.splits))
+        masters = dict(module.named_parameters())
+        self.names = list(masters)
+        self.home = mesh.devices.flat[0]
+        self.trainable = trainable
+        n_data = mesh.shape[DATA_AXIS]
+        groups = [model_group(mesh, i) for i in range(n_data)]
+        # one copy of the replicated masters per distinct row home
+        self.copies = {self.home: masters}
+        for dev in distinct_devices([g[0] for g in groups])[1:]:
+            self.copies[dev] = {n: p.detach().to(dev)
+                                for n, p in masters.items()
+                                if n not in self.splits}
+        self.rows: list = []
+        # (leaf, name, model index) of every sliced leaf: `broadcast`
+        self._sliced: list = []
+        # per row, {name: [leaf per model index]} / {name: home leaf}
+        self._shard_leaves: list = []
+        self._home_leaves: list = []
+
+        def wrap(t):
+            return nn.Parameter(t) if trainable else t
+
+        for row, devices in enumerate(groups):
+            home_dev = devices[0]
+            own: dict = {}
+            sliced: dict = {}
+
+            def sliced_of(name, t, m, dev):
+                dim, grp = self.splits[name]
+                part = wrap(take_slice(t.detach(), dim, m, self.mp, grp)
+                            .to(dev).contiguous().clone())
+                sliced.setdefault(name, [None] * self.mp)[m] = part
+                if trainable:
+                    self._sliced.append((part, name, m))
+                return part
+
+            shards = []
+            for m, dev in enumerate(devices):
+                def leaf_of(name, p, m=m, dev=dev):
+                    if name in self.splits:
+                        return sliced_of(name, p, m, dev)
+                    if name not in own:
+                        base = self.copies[home_dev][name] if trainable \
+                            else p.detach().to(home_dev)
+                        own[name] = wrap(base.detach())
+                    return own[name]
+
+                def buffer_of(name, b, m=m, dev=dev):
+                    if name in self.splits:
+                        dim, grp = self.splits[name]
+                        return take_slice(b, dim, m, self.mp, grp).to(
+                            dev).contiguous()
+                    return b if b.device == home_dev else b.to(home_dev)
+                shards.append(replicate_module(module, dev, leaf_of,
+                                               buffer_of))
+
+            def home_leaf(name, p):
+                if name in self.splits and name in sliced:
+                    dim, grp = self.splits[name]
+                    return ModelShards(sliced[name], dim, grp,
+                                       tuple(p.shape))
+                return own[name] if name in own else leaf_of(name, p, 0,
+                                                             home_dev)
+
+            def home_buffer(name, b):
+                if name in self.splits:
+                    dim, grp = self.splits[name]
+                    return ModelShards([s.get_buffer(name) for s in shards],
+                                       dim, grp, tuple(b.shape))
+                return b if b.device == home_dev else b.to(home_dev)
+            home = replicate_module(module, home_dev, home_leaf, home_buffer)
+            for path, sub in home.named_modules():
+                peers = [s.get_submodule(path) for s in shards]
+                split = {leaf: self.splits[f"{path}.{leaf}" if path
+                                           else leaf]
+                         for leaf in list(sub._parameters)
+                         + list(sub._buffers)
+                         if (f"{path}.{leaf}" if path else leaf)
+                         in self.splits}
+                object.__setattr__(sub, "model_peers", peers)
+                object.__setattr__(sub, "model_split", split)
+            self.rows.append((home, shards))
+            self._shard_leaves.append(sliced)
+            self._home_leaves.append(own)
+
+    @property
+    def shards(self) -> list:
+        """Each data row's home replica, in row order: the module a data
+        shard's forward calls (`ShardReplicas.shards`'s counterpart)."""
+        return [home for home, _ in self.rows]
+
+    def zero_grad(self) -> None:
+        for own, sliced in zip(self._home_leaves, self._shard_leaves):
+            for p in list(own.values()) + [t for parts in sliced.values()
+                                           for t in parts]:
+                p.grad = None
+
+    def reduced_grads(self) -> list:
+        """Each parameter's full gradient on the masters' device: a
+        replicated leaf's summed over the data rows in row order
+        (`reduce_to_home`), a sharded leaf's slices each summed over the
+        rows in row order, then joined in model order (`join_slices`).
+        A leaf the loss did not reach adds zeros."""
+        from mmlspark_tpu_torch.parallel.partition import join_slices
+        from mmlspark_tpu_torch.parallel.ring import reduce_to_home
+
+        def grad(p):
+            return p.grad if p.grad is not None else torch.zeros_like(p)
+        out = []
+        for name in self.names:
+            if name in self.splits:
+                dim, grp = self.splits[name]
+                parts = [reduce_to_home([grad(s[name][m])
+                                         for s in self._shard_leaves])
+                         .to(self.home) for m in range(self.mp)]
+                out.append(join_slices(parts, dim, grp))
+            else:
+                out.append(reduce_to_home(
+                    [grad(own[name]) for own in self._home_leaves]))
+        return out
+
+    @torch.no_grad()
+    def broadcast(self) -> None:
+        """The masters' values to every other row home's copy and into
+        every model index's slices (after an update or a restore)."""
+        from mmlspark_tpu_torch.parallel.partition import take_slice
+        masters = self.copies[self.home]
+        for dev, copies in self.copies.items():
+            if dev != self.home:
+                for n, t in copies.items():
+                    t.copy_(masters[n])
+        for leaf, name, m in self._sliced:
+            dim, grp = self.splits[name]
+            leaf.copy_(take_slice(masters[name], dim, m, self.mp, grp))
 
 
 def stack_trees(trees: Sequence[Any]) -> Any:

@@ -21,6 +21,14 @@ are plain functions: `batch_devices` names the device of each slab of a
 batch cut along 'data' (`P("data")`: contiguous row slabs, slab i on the
 mesh's i-th data row), `distinct_devices` the devices a replicated weight
 lives on once each (`P()`).
+
+The model axis: `model_group(mesh, i)` is data row i's model group, the
+devices `mesh.devices[i, :, 0]` in model order, its first (model index 0)
+the row's home, where the row's batch slab, its replicated weights and
+the activations between its model-parallel layers live
+(`models/definitions.py`).  `model_sharding(mesh, spec)` names a weight
+layout over that axis (the JAX function of the same name);
+`parallel/partition.py` places leaves by it.
 """
 
 from __future__ import annotations
@@ -216,6 +224,34 @@ def batch_devices(mesh: Mesh) -> list:
     """The device of each slab of a batch cut along 'data' (slab i on the
     mesh's data row i; model and seq index 0)."""
     return [mesh.devices[i, 0, 0] for i in range(mesh.shape[DATA_AXIS])]
+
+
+def model_group(mesh: Mesh, row: int = 0) -> list:
+    """Data row `row`'s model group: its devices in model order (seq index
+    0), model index 0 the row's home."""
+    return list(mesh.devices[row, :, 0])
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSharding:
+    """A weight layout over a mesh (the JAX `NamedSharding` a
+    `model_sharding` call returns): `spec` names the axis of each dim."""
+
+    mesh: Mesh
+    spec: tuple
+
+    def place(self, x, row: int = 0):
+        """`x` over data row `row`'s model group under this spec
+        (`parallel/partition.py` `place`, after `compatible_spec`)."""
+        from mmlspark_tpu_torch.parallel.partition import (compatible_spec,
+                                                           model_dim, place)
+        spec = compatible_spec(self.spec, tuple(x.shape), self.mesh)
+        return place(x, model_group(self.mesh, row), model_dim(spec))
+
+
+def model_sharding(mesh: Mesh, spec) -> ModelSharding:
+    """A tensor-parallel weight layout (the JAX `model_sharding`)."""
+    return ModelSharding(mesh, tuple(spec))
 
 
 def distinct_devices(devices) -> list:

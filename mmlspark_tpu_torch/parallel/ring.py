@@ -11,7 +11,19 @@ device.  The collectives are explicit tensor moves between those devices:
   * `pmax` / `psum` — reduce on a home device (shard 0's) and return the
     result to every shard's device, as `lax.pmax` / `lax.psum` replicate
     it;
-  * `ppermute` — the ring rotation i -> i + 1 of `_ring_fold_loop`.
+  * `ppermute` — the ring rotation i -> i + 1 of `_ring_fold_loop`;
+  * over a data row's model group (`parallel/mesh.py` `model_group`,
+    index 0 its home): `psum` sums row-parallel partial outputs in model
+    order and hands the sum to every shard, `reduce_to_home` keeps it on
+    the home (where the port's residual stream lives); `all_gather` joins
+    column-parallel outputs (the MLP hidden, the vocab logits) along a
+    dim in model order; `all_to_all` exchanges expert slabs (the home
+    holds every token of its row, so expert parallelism's exchange is
+    the home's slot tensor cut by expert to the shards and their outputs
+    joined back: `all_to_all` with one sender).  Every one is plain
+    differentiable tensor moves: the backward of a `.to(device)` copy is
+    the copy back, and autograd sums the gradients of a tensor that
+    several shards read (Megatron's f / g pair).
 
 On shards that share one device each move is a no-op, so a mesh of one
 card costs no copies.  `seq_parallel_attention` is the JAX entry point of
@@ -156,6 +168,31 @@ def psum(parts: Sequence) -> list:
     """Elementwise sum over the shards (in shard order), on every shard's
     device."""
     return _reduce(parts, torch.add)
+
+
+def all_gather(parts: Sequence, dim: int) -> list:
+    """The shards' parts joined along `dim` in shard order, on every
+    shard's device (a joined tensor is made once per distinct device)."""
+    joined: dict = {}
+    out = []
+    for p in parts:
+        if p.device not in joined:
+            joined[p.device] = unshard(parts, dim, p.device)
+        out.append(joined[p.device])
+    return out
+
+
+def all_to_all(parts: Sequence, devices: Sequence, split_dim: int,
+               concat_dim: int) -> list:
+    """Sender i's tensor cut into len(devices) equal slabs along
+    `split_dim`; receiver j gets slab j of every sender, joined along
+    `concat_dim` in sender order, on devices[j].  Where shards share a
+    device the slabs are views, not copies."""
+    n = len(devices)
+    cut = [p.chunk(n, dim=split_dim) for p in parts]
+    return [torch.cat([c[j].to(dev) for c in cut], dim=concat_dim)
+            if len(cut) > 1 else cut[0][j].to(dev)
+            for j, dev in enumerate(devices)]
 
 
 def ppermute(parts: Sequence) -> list:

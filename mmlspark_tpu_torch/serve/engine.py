@@ -67,8 +67,16 @@ committed.  Greedy tokens are the offline speculative (and plain)
 engine's.  The degraded lane takes any bundle of the primary's
 vocabulary, an int8-weight `quantize_bundle` included.
 
-Not ported yet (it raises NotImplementedError, naming the ROADMAP step):
-serving over a mesh.
+OVER A MESH (`mesh=`, data only or data x model; a seq axis raises, as
+in the JAX engine): each lane's `DecodeEngine` takes the mesh, its
+weights placed by the bundle's partition rules over each data row's model
+group (replicated on a data-only mesh; the draft replicates).  A resident
+batch's `max_batch` rows split into `data` equal slabs, slab g decoding
+over data row g's group (`models/generate.py` `RowShards`); a joining
+cohort prefills on row 0's group and its rows are spliced into the
+groups that own their slots.  Rows that leave (prefix pool, pages) are
+gathered to full heads, so the pool holds one layout whatever the mesh.
+Admission and the lifecycle are unchanged.
 """
 
 from __future__ import annotations
@@ -84,7 +92,7 @@ from mmlspark_tpu_torch import config
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.models.generate import (DEFAULT_CACHE_CHUNK,
                                                 DecodeEngine, ServingWeights,
-                                                _mix, _round_up)
+                                                _mix, _round_up, cache_row)
 from mmlspark_tpu_torch.observe.logging import get_logger
 from mmlspark_tpu_torch.observe.metrics import inc_counter
 from mmlspark_tpu_torch.observe.spans import monotonic
@@ -352,8 +360,13 @@ class ServingEngine:
                     "whole-window cache rows, which a seq-partitioned "
                     "window breaks up; use DecodeEngine.generate / "
                     "TextGenerator for seq-parallel long-context decode")
-            raise NotImplementedError(
-                "serving over a mesh is not ported (ROADMAP A10)")
+            if self.cfg.max_batch % mesh.shape["data"]:
+                raise ValueError(
+                    f"max_batch ({self.cfg.max_batch}) must divide by the "
+                    f"mesh data axis ({mesh.shape['data']}): a resident "
+                    "batch splits into equal row slabs")
+            device = mesh.devices.flat[0]
+        self._mesh = mesh
         if self.cfg.spec_tokens and draft_bundle is None:
             raise ValueError(
                 "spec_tokens > 0 needs a draft_bundle "
@@ -367,13 +380,15 @@ class ServingEngine:
                        if self.cfg.spec_tokens else None)
         primary = ServingWeights(bundle.module(self.device))
         self.vocab_size = primary.vocab_size
-        self._engines = {"primary": self._decode_engine(primary)}
+        self._engines = {"primary": self._decode_engine(
+            primary, bundle.partition_rules())}
         if degraded_bundle is not None:
             deg = ServingWeights(degraded_bundle.module(self.device))
             if deg.vocab_size != self.vocab_size:
                 raise ValueError(
                     "degraded bundle must share the primary vocabulary")
-            self._engines["degraded"] = self._decode_engine(deg)
+            self._engines["degraded"] = self._decode_engine(
+                deg, degraded_bundle.partition_rules())
         self.estimator = StepTimeEstimator()
         self.breaker = MissRateBreaker(
             "serve", window=self.cfg.miss_window,
@@ -418,7 +433,8 @@ class ServingEngine:
         self._tracer = self._run.tracer if self._run is not None else None
         self._stops = np.asarray(self.cfg.stop_tokens or (), np.int64)
 
-    def _decode_engine(self, weights: ServingWeights) -> DecodeEngine:
+    def _decode_engine(self, weights: ServingWeights,
+                       rules=None) -> DecodeEngine:
         return DecodeEngine(
             weights, self.cfg.max_new_tokens,
             temperature=self.cfg.temperature, top_k=self.cfg.top_k,
@@ -426,7 +442,7 @@ class ServingEngine:
             chunk=self.cfg.cache_chunk, cache_dtype=self.cfg.cache_dtype,
             prefill_chunk=self.cfg.prefill_chunk or None,
             draft_module=self._draft, spec_tokens=self.cfg.spec_tokens,
-            device=self.device)
+            mesh=self._mesh, partition_rules=rules, device=self.device)
 
     # -- lifecycle ---------------------------------------------------------
     def now(self) -> float:
@@ -509,6 +525,15 @@ class ServingEngine:
             if eng.device.type == "cuda":
                 torch.cuda.synchronize(eng.device)
             return
+        if eng.row_groups > 1:
+            # a data-grouped batch decodes in its resident layout
+            rows = list(range(cap))
+            caches = DecodeEngine.merge_cache_rows(
+                self._empty_caches(eng, cap, bucket), caches, rows, rows)
+            if eng.spec_tokens:
+                dcaches = DecodeEngine.merge_cache_rows(
+                    self._empty_caches(eng, cap, bucket, eng.draft_weights),
+                    dcaches, rows, rows)
         warmed_widths: set = set()
 
         def warm_joins(resident) -> None:
@@ -1216,7 +1241,8 @@ class ServingEngine:
             n = ((req.true_len - 1) // chunk) * chunk
             if n < chunk:
                 continue
-            row = [tuple(t[j:j + 1] for t in layer) for layer in caches]
+            row = [tuple(cache_row(t, j)[None] for t in layer)
+                   for layer in caches]
             with torch.inference_mode():
                 res = self._prefix.insert(req.prompt, n, row)
             if res["inserted"]:
@@ -1241,19 +1267,9 @@ class ServingEngine:
         in the engine's cache layout (the int8 4-tuple: payloads and f32
         per-(row, slot, head) scales); with `weights` (the draft's),
         model-dtype caches of that model."""
-        w = weights or eng.weights
-        shape = (capacity, _round_up(bucket + 1, self.cfg.cache_chunk),
-                 w.n_heads, w.d_model // w.n_heads)
-        with torch.inference_mode():
-            if eng.cache_dtype == "int8" and weights is None:
-                def layer():
-                    return (torch.zeros(shape, dtype=torch.int8,
-                                        device=eng.device),
-                            torch.zeros(shape[:3], device=eng.device))
-                return [layer() + layer() for _ in range(w.n_layers)]
-            return [tuple(torch.zeros(shape, dtype=w.dtype,
-                                      device=eng.device) for _ in range(2))
-                    for _ in range(w.n_layers)]
+        return eng.empty_caches(capacity,
+                                _round_up(bucket + 1, self.cfg.cache_chunk),
+                                draft=weights is not None)
 
     def splice_remote(self, prompt: np.ndarray, max_new_tokens: int,
                       deadline: float, first_tok: int, src_caches,

@@ -70,7 +70,7 @@ class TPULearner(Estimator):
     def set_mesh(self, mesh) -> "TPULearner":
         """Train over `mesh` (None: on `device`); the Trainer checks it."""
         if mesh is not None:
-            check_data_mesh(mesh, "TPULearner")
+            check_data_mesh(mesh, "TPULearner", model_axis=True)
             self.device = resolve_device(mesh.devices.flat[0])
         self._mesh = mesh
         return self

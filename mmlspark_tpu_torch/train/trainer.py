@@ -100,9 +100,30 @@ reference's `mpiexec` ring), under the port's single controller
     not divide into the new data axis raises the JAX Trainer's
     `ValueError`.
 
-Still raising NotImplementedError: the model axis and pipeline stages
-(ROADMAP A10; seq-parallel training is `parallel/ring.py`'s
-`make_seq_parallel_lm_step`).
+Tensor and expert parallelism (a mesh with model > 1, e.g.
+`MeshSpec(data=d, model=m)`):
+
+  * the parameters are placed by the JAX Trainer's `_param_sharding_rule`
+    (`parallel/partition.py` `param_sharding_rule` over the config's
+    `tensor_parallel`, `expert_parallel` and `partition_rules`: the
+    registry's Megatron split, expert stacks over 'model', the fallback
+    that splits a wide kernel's last dim); each data row keeps a home
+    replica with the replicated leaves and one replica per model index
+    with that index's slices (`parallel/bridge.py` `ModelShardReplicas`);
+  * each data row's forward and backward runs over its model group
+    (`models/definitions.py`: per-shard heads through the flash kernels,
+    row-parallel sums on the home, column-parallel outputs joined); the
+    gradients are reduced over the data rows in row order for each model
+    index, joined into the masters' full gradient, and clipping,
+    `grad_norm` (each leaf counted once), the numerics probe and the
+    optimizer run once, on the masters (whole, on the mesh's first
+    device), whose new values go back into every slice;
+  * checkpoints and bundles hold the gathered full tree (restores cross
+    dp <-> dp x mp byte-identically), recording `model_devices` and the
+    partition mesh `{"data": d, "model": m}`.
+
+Still raising NotImplementedError: pipeline stages (ROADMAP A10; seq-
+parallel training is `parallel/ring.py`'s `make_seq_parallel_lm_step`).
 """
 
 from __future__ import annotations
@@ -137,11 +158,15 @@ from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import (active_tracer, current_span_id,
                                               span_on_tracer, trace_event,
                                               trace_span)
-from mmlspark_tpu_torch.parallel.bridge import DeviceFeed, ShardReplicas
+from mmlspark_tpu_torch.parallel.bridge import (DeviceFeed,
+                                                ModelShardReplicas,
+                                                ShardReplicas)
 from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, SEQ_AXIS,
                                               batch_devices, distinct_devices,
                                               mesh_for_spec)
-from mmlspark_tpu_torch.parallel.partition import DEFAULT_RULES, rules_to_json
+from mmlspark_tpu_torch.parallel.partition import (DEFAULT_RULES,
+                                                   param_sharding_rule,
+                                                   port_splits, rules_to_json)
 from mmlspark_tpu_torch.parallel.ring import ShardGroup, reduce_to_home
 from mmlspark_tpu_torch.resilience.chaos import get_injector
 from mmlspark_tpu_torch.resilience.checkpoints import (
@@ -246,10 +271,11 @@ class TrainState:
     batch_stats: list = dataclasses.field(default_factory=list)
 
 
-def check_data_mesh(mesh, what: str) -> None:
-    """A mesh the data-parallel paths run over: a model or seq axis of
-    more than one device raises NotImplementedError naming ROADMAP A10."""
-    if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+def check_data_mesh(mesh, what: str, model_axis: bool = False) -> None:
+    """A mesh the data-parallel paths run over: a seq axis of more than
+    one device, or a model axis where `model_axis` is False, raises
+    NotImplementedError naming ROADMAP A10."""
+    if mesh is not None and mesh.shape[MODEL_AXIS] > 1 and not model_axis:
         raise NotImplementedError(
             f"{what} over a mesh with a model axis ({mesh.shape}) is not "
             "ported: tensor and expert parallelism (ROADMAP A10)")
@@ -271,9 +297,15 @@ class Trainer:
         if mesh is None:
             device = resolve_device(device)
             mesh = mesh_for_spec(config.mesh, device)
-        check_data_mesh(mesh, "the Trainer")
+        check_data_mesh(mesh, "the Trainer", model_axis=True)
         self.config = config
         self.mesh = mesh
+        # the model axis: how many shards each leaf the placement splits
+        # is cut into
+        self.model_size = 1 if mesh is None else mesh.shape[MODEL_AXIS]
+        # {port leaf name: (dim, groups)} of the split leaves (set with
+        # the state)
+        self.param_splits: dict = {}
         # shard i's device (one entry on one card); the masters live on
         # the first
         self.shard_devices = ([resolve_device(device)] if mesh is None
@@ -302,7 +334,7 @@ class Trainer:
         self._effective_batch_size: Optional[int] = None
         # each shard's replica of the module (built with the state) and
         # their runner; a training BatchNorm needs them in lockstep
-        self._replicas: Optional[ShardReplicas] = None
+        self._replicas = None
         self._group = ShardGroup(len(self.shard_devices))
         self._lockstep = bool(self._stat_names)
 
@@ -333,7 +365,16 @@ class Trainer:
                                                    self.config.seed)
         load_variables(self.module, variables)
         self.module.train()
-        self._replicas = ShardReplicas(self.module, self.shard_devices)
+        if self.model_size > 1:
+            cfg = self.config
+            self.param_splits = port_splits(
+                self.module, self.mesh, param_sharding_rule(
+                    self.mesh, cfg.tensor_parallel, cfg.expert_parallel,
+                    cfg.partition_rules))
+            self._replicas = ModelShardReplicas(self.module, self.mesh,
+                                                self.param_splits)
+        else:
+            self._replicas = ShardReplicas(self.module, self.shard_devices)
         params = list(self.module.parameters())
         start = int((initial_bundle.metadata or {}).get("steps", 0)) \
             if initial_bundle is not None else 0
@@ -715,23 +756,23 @@ class Trainer:
         saved_bs = int(saved.get("effective_batch_size") or 0)
         saved_dp = int(saved.get("data_devices") or 0)
         saved_mp = int(saved.get("model_devices") or 0)
-        data = self.data_size
-        if saved_dp and (saved_dp != data or (saved_mp and saved_mp != 1)):
+        data, mp = self.data_size, self.model_size
+        if saved_dp and (saved_dp != data or (saved_mp and saved_mp != mp)):
             trace_event("train.elastic_resume", cat="resilience",
                         saved_dp=saved_dp, dp=data, saved_mp=saved_mp or 1,
-                        mp=1, saved_batch=saved_bs or bs, batch=bs)
+                        mp=mp, saved_batch=saved_bs or bs, batch=bs)
             inc_counter("train.elastic_resumes")
             get_logger("train").info(
                 "elastic resume: checkpoint written under dp=%d x mp=%d, "
-                "restoring onto dp=%d x mp=1 (reshard-on-restore)",
-                saved_dp, saved_mp or 1, data)
+                "restoring onto dp=%d x mp=%d (reshard-on-restore)",
+                saved_dp, saved_mp or 1, data, mp)
         if saved_bs and saved_bs != bs:
             if saved_bs % data:
                 raise ValueError(
                     f"elastic resume: checkpoint written under "
                     f"dp={saved_dp or '?'} x mp={saved_mp or 1} with "
                     f"effective batch size {saved_bs} cannot replay onto "
-                    f"the current dp={data} x mp=1 mesh ({saved_bs} does "
+                    f"the current dp={data} x mp={mp} mesh ({saved_bs} does "
                     f"not divide into the new data-axis unit {data}); "
                     f"pick a batch_size divisible by both topologies to "
                     f"keep resumed runs reproducible")
@@ -806,7 +847,8 @@ class Trainer:
         metadata = {
             "steps": int(state.step),
             "partition": {"rules": rules_to_json(rules),
-                          "mesh": {"data": self.data_size, "model": 1}},
+                          "mesh": {"data": self.data_size,
+                                   "model": self.model_size}},
         }
         return ModelBundle.from_module(self.module, metadata)
 
@@ -840,7 +882,7 @@ class Trainer:
         """The `.meta.json` sidecar: the topology and effective batch size
         this checkpoint was written under, the JAX Trainer's keys."""
         return {"step": int(step), "data_devices": self.data_size,
-                "model_devices": 1,
+                "model_devices": self.model_size,
                 "process_count": 1,
                 "effective_batch_size": self._effective_batch_size,
                 "seed": int(self.config.seed),

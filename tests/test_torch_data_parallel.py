@@ -214,17 +214,22 @@ def jax_fit(dp, ckpt, **kw):
 
 
 def test_mesh_options_and_refusals():
-    """A `TrainerConfig.mesh` with data 2 trains over host shards; the
-    model axis and pipeline stages still raise, naming ROADMAP A10."""
+    """A `TrainerConfig.mesh` with data 2 trains over host shards, one
+    with a model axis over a (data, model) mesh; pipeline stages and a seq
+    axis still raise, naming ROADMAP A10."""
     cfg = TrainerConfig(**{**mlp_config(), "mesh": {"data": 2}})
     assert Trainer(cfg, device="cpu").data_size == 2
-    for kw in ({"mesh": {"data": 1, "model": 2}}, {"pipeline_stages": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            Trainer(TrainerConfig(**{**mlp_config(), **kw}), device="cpu")
-    for spec in (MeshSpec(data=1, model=2), MeshSpec(data=1, seq=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            Trainer(TrainerConfig(**mlp_config()),
-                    mesh=make_mesh(spec, [CPU] * 2))
+    cfg = TrainerConfig(**{**mlp_config(), "mesh": {"data": 1, "model": 2}})
+    trainer = Trainer(cfg, device="cpu")
+    assert (trainer.data_size, trainer.model_size) == (1, 2)
+    assert Trainer(TrainerConfig(**mlp_config()), mesh=make_mesh(
+        MeshSpec(data=1, model=2), [CPU] * 2)).model_size == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        Trainer(TrainerConfig(**{**mlp_config(), "pipeline_stages": 2}),
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        Trainer(TrainerConfig(**mlp_config()),
+                mesh=make_mesh(MeshSpec(data=1, seq=2), [CPU] * 2))
 
 
 def payload(ckpt):

@@ -143,10 +143,13 @@ def test_warm_start_resumes_global_step():
 
 
 def test_set_mesh_raises_for_a_mesh():
+    """A model axis is taken (the Trainer runs it); a seq axis raises."""
     learner = TPULearner(device="cpu")
     assert learner.set_mesh(None) is learner
+    assert learner.set_mesh(port_make_mesh(
+        PortMeshSpec(data=1, model=2), [torch.device("cpu")] * 2)) is learner
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        learner.set_mesh(port_make_mesh(PortMeshSpec(data=1, model=2),
+        learner.set_mesh(port_make_mesh(PortMeshSpec(data=1, seq=2),
                                         [torch.device("cpu")] * 2))
 
 

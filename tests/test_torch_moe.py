@@ -234,10 +234,21 @@ def test_experts_are_relu_without_bias_and_the_router_is_f32():
 
 
 def test_expert_parallelism_raises_naming_a10():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        P.MoEMLP(8, expert_axis="model", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        P.expert_parallel_rules({}, None)
+    """Expert parallelism is ported: the module takes `expert_axis`, and
+    `expert_parallel_rules` places the expert stacks on their leading dim
+    over the axis (an expert count it does not divide replicates)."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    assert P.MoEMLP(8, expert_axis="model", device="cpu").expert_axis \
+        == "model"
+    mesh = make_mesh(MeshSpec(data=1, model=2), [torch.device("cpu")] * 2)
+    tree = {"block0_w": {"moe": {"w_in": np.zeros((4, 8, 16)),
+                                 "w_out": np.zeros((3, 16, 8)),
+                                 "router": {"kernel": np.zeros((8, 4))}}}}
+    rules = P.expert_parallel_rules(tree, mesh)["block0_w"]["moe"]
+    assert rules["w_in"].spec == ("model", None, None)
+    assert rules["w_out"].spec == () and rules["router"]["kernel"].spec == ()
+    assert [tuple(t.shape) for t in rules["w_in"].place(
+        torch.zeros(4, 8, 16))] == [(2, 8, 16)] * 2
 
 
 @pytest.mark.parametrize("path,shape,axis,want", [

@@ -208,14 +208,14 @@ def _cpu_mesh(**axes):
 
 
 def test_unported_options_raise():
-    """Tensor-parallel decode (a model axis) raises NotImplementedError;
-    speculation without a draft is refused with a ValueError naming what
-    is missing (speculative decoding and beam search are ported); a mesh
-    that is not a port `Mesh` is refused."""
+    """Tensor-parallel decode (a model axis) constructs; speculation
+    without a draft is refused with a ValueError naming what is missing
+    (speculative decoding and beam search are ported); a mesh that is not
+    a port `Mesh` is refused."""
     bundle = ModelBundle.init("TransformerLM", CFG)
     module = bundle.module("cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        DecodeEngine(module, 4, device="cpu", mesh=_cpu_mesh(model=2))
+    assert DecodeEngine(module, 4, device="cpu",
+                        mesh=_cpu_mesh(model=2)).model_shards == 2
     with pytest.raises(ValueError, match="draft_module"):
         DecodeEngine(module, 4, device="cpu", spec_tokens=2)
     with pytest.raises(ValueError, match="set_draft_bundle"):
@@ -228,8 +228,8 @@ def test_unported_options_raise():
         DecodeEngine(module, 4, device="cpu", mesh=object())
     with pytest.raises(TypeError, match="Mesh"):
         TextGenerator(bundle, device="cpu").set_mesh(object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        TextGenerator(bundle, device="cpu").set_mesh(_cpu_mesh(model=2))
+    stage = TextGenerator(bundle, device="cpu")
+    assert stage.set_mesh(_cpu_mesh(model=2)) is stage
     # seq>1 with model>1: the JAX engine's ValueError, the same from both
     with pytest.raises(ValueError, match="model>1"):
         TextGenerator(bundle, device="cpu").set_mesh(
@@ -1663,6 +1663,73 @@ def test_data_parallel_on_the_repeated_card_equals_one_card(cuda):
         assert (diff > 1e-5).mean() <= 1e-3, name
         assert diff.max() <= 1e-3 * b1.metadata["steps"], name
         assert np.linalg.norm(g - w) <= 1e-5 * np.linalg.norm(w), name
+
+
+@pytest.mark.cuda
+def test_model_axis_on_the_repeated_card_equals_one_card(cuda):
+    """A (data 1, model 2) mesh whose shards share the card trains the
+    flash LM (f32, TF32 off in the step) as one card does, to the data-
+    parallel case's tolerances; K1[lse], K2 and K3 launch once per layer
+    per model shard per step, each on its shard's H/2 heads."""
+    from mmlspark_tpu_torch.train import Trainer, TrainerConfig
+    config = {"vocab_size": 64, "d_model": 128, "n_heads": 4,
+              "n_layers": 2, "max_len": 128, "dtype": "float32",
+              "attn_impl": "flash"}
+    rows = np.random.default_rng(0).integers(0, 64, (8, 129))
+    init = ModelBundle.init("TransformerLM", config, seed=0)
+    kernels = (flash_attention_with_lse, flash_bwd_dq, flash_bwd_dkv)
+    fits = {}
+    for mp in (1, 2):
+        cfg = TrainerConfig(architecture="TransformerLM",
+                            model_config=config, optimizer="adam",
+                            learning_rate=1e-3, batch_size=4, epochs=1,
+                            seed=0, numerics_cadence=0)
+        trainer = Trainer(cfg, mesh=make_mesh(MeshSpec(data=1, model=mp),
+                                              [cuda] * mp))
+        before = [fn.launches for fn in kernels]
+        bundle = trainer.fit_arrays(rows[:, :-1], rows[:, 1:],
+                                    initial_bundle=init)
+        torch.cuda.synchronize()
+        launched = [fn.launches - b for fn, b in zip(kernels, before)]
+        assert launched == [2 * 2 * mp] * 3
+        fits[mp] = (trainer.history, bundle)
+    (h1, b1), (h2, b2) = fits[1], fits[2]
+    np.testing.assert_allclose([r["loss"] for r in h2],
+                               [r["loss"] for r in h1], rtol=1e-5)
+    assert b2.metadata["partition"]["mesh"] == {"data": 1, "model": 2}
+    d = config["d_model"]
+    got, want = named_leaves(b2.variables), named_leaves(b1.variables)
+    assert list(got) == list(want)
+    for name, g in got.items():
+        w = want[name]
+        if name.endswith("qkv/bias"):
+            g, w = np.delete(g, np.s_[d:2 * d]), np.delete(w, np.s_[d:2 * d])
+        diff = np.abs(g - w)
+        assert (diff > 1e-5).mean() <= 1e-3, name
+        assert diff.max() <= 1e-3 * b1.metadata["steps"], name
+        assert np.linalg.norm(g - w) <= 1e-5 * np.linalg.norm(w), name
+
+
+@pytest.mark.cuda
+def test_model_axis_greedy_decode_on_the_repeated_card(cuda):
+    """Greedy f32 tokens over (data 1, model 2) on the repeated card equal
+    one card's, with K1 launched per model shard in the prefill (a
+    512-token bucket) and K4 per model shard in every decode step."""
+    config = {"vocab_size": 64, "d_model": 128, "n_heads": 4,
+              "n_layers": 2, "max_len": 640, "dtype": "float32"}
+    module = ModelBundle.init("TransformerLM", config, seed=1).module(cuda)
+    prompts = np.random.default_rng(1).integers(0, 64, (2, 512))
+    true_len = np.array([512, 300])
+    want = DecodeEngine(module, 8, device=cuda).generate(prompts, true_len)
+    engine = DecodeEngine(module, 8, device=cuda,
+                          mesh=make_mesh(MeshSpec(data=1, model=2),
+                                         [cuda] * 2))
+    k1, k4 = flash_attention.launches, fused_single_query_attention.launches
+    got = engine.generate(prompts, true_len)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    assert flash_attention.launches - k1 == 2 * 2
+    assert fused_single_query_attention.launches - k4 == 2 * 2 * 7
 
 
 def named_leaves(tree, prefix="") -> dict:

@@ -437,12 +437,17 @@ def test_unported_options_raise_naming_the_roadmap_step(bundle,
     with pytest.raises(ValueError, match="draft_bundle"):
         ServingEngine(bundle, ServeConfig(spec_tokens=2), device="cpu")
     from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
-    for axes, err in (({"seq": 2}, ValueError), ({"data": 2},
-                                                  NotImplementedError)):
-        spec = MeshSpec(**{"data": 1, **axes})
-        mesh = make_mesh(spec, [torch.device("cpu")] * 2)
-        with pytest.raises(err):
-            ServingEngine(bundle, ServeConfig(), mesh=mesh, device="cpu")
+    # a seq axis raises; a data axis is ported (max_batch must split
+    # over it)
+    mesh = make_mesh(MeshSpec(data=1, seq=2), [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="seq"):
+        ServingEngine(bundle, ServeConfig(), mesh=mesh, device="cpu")
+    mesh = make_mesh(MeshSpec(data=2), [torch.device("cpu")] * 2)
+    assert ServingEngine(bundle, ServeConfig(max_batch=4), mesh=mesh,
+                         device="cpu")._mesh is mesh
+    with pytest.raises(ValueError, match="max_batch"):
+        ServingEngine(bundle, ServeConfig(max_batch=3), mesh=mesh,
+                      device="cpu")
     # the default device is the card: without one the engine raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -281,15 +281,24 @@ def test_defaults_to_the_card_and_raises_on_unported_paths(monkeypatch):
     cached._device_cache = {"x": torch.as_tensor(cached["x"])}
     np.testing.assert_array_equal(port_model("mlp").transform(cached)["y"],
                                   port_model("mlp").transform(table)["y"])
+    # a model axis is ported: the MLP's leaves match only the catch-all
+    # rule, replicate, and score as on one device
     mesh = make_mesh(MeshSpec(data=1, model=2),
                      devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        port_model("mlp").set_mesh(mesh)
+    np.testing.assert_array_equal(
+        port_model("mlp").set_mesh(mesh).transform(table)["y"],
+        port_model("mlp").transform(table)["y"])
+    # a TransformerLM bundle is scored over token ids: its logits
     lm = ModelBundle.init("TransformerLM", {"vocab_size": 16, "d_model": 8,
                                             "n_heads": 2, "n_layers": 1,
-                                            "max_len": 16})
-    with pytest.raises(NotImplementedError, match="TextGenerator"):
-        port_model("mlp", bundle=lm).transform(table)
+                                            "max_len": 16, "dtype": "float32"})
+    toks = np.arange(12, dtype=np.int32).reshape(2, 6) % 16
+    got = TPUModel(lm, device="cpu", inputCol="t", outputCol="y").transform(
+        DataTable({"t": toks}))["y"]
+    with torch.no_grad():
+        want = lm.module("cpu")(torch.as_tensor(toks)).numpy()
+    assert got.shape == (2, 6, 16) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="no model bundle"):
         TPUModel(device="cpu", inputCol="x").transform(table)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

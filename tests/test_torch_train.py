@@ -132,15 +132,18 @@ def test_flash_and_dense_attention_give_the_same_gradients():
 
 
 def test_unported_trainer_options_raise():
-    """What the port's Trainer still refuses (pipeline stages, the model
-    axis of a mesh) raises NotImplementedError naming its ROADMAP item;
-    the options it runs since (the scoring architectures, the watchdog,
-    the numerics halts, checkpoints, resume, skip windows, the
-    save_attention remat policy, a data axis) construct and fit."""
-    for kw in ({"pipeline_stages": 2}, {"mesh": {"data": 1, "model": 2}}):
-        cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)), **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            Trainer(cfg, device="cpu")
+    """What the port's Trainer still refuses (pipeline stages) raises
+    NotImplementedError naming its ROADMAP item; the options it runs since
+    (the scoring architectures, the watchdog, the numerics halts,
+    checkpoints, resume, skip windows, the save_attention remat policy, a
+    data axis, a model axis) construct and fit."""
+    cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)),
+                           "pipeline_stages": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        Trainer(cfg, device="cpu")
+    cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)),
+                           "mesh": {"data": 1, "model": 2}})
+    assert Trainer(cfg, device="cpu").model_size == 2
     x, y = corpus()
     mlp = TrainerConfig(**{**FIT, "architecture": "MLPClassifier",
                            "model_config": {"hidden_sizes": [8],
