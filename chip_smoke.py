@@ -368,6 +368,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -9193,6 +9194,528 @@ def phase_model_parallel(dev, card) -> tuple:
     return rows, out
 
 
+PP = dict(stages=2, micro=4, steps=4, f32_layers=2, logits_tol=2e-5,
+          grad_tol=1e-5, bundle_tol=2e-4, score_rows=2, score_seq=512)
+MH = dict(n=2, rows=16, batch=8, epochs=2, score_seq=256, score_batch=4,
+          drop=3, timeout_s=420)
+
+
+def pp_mesh(dev, stages: int = PP["stages"]):
+    """A (1, stages) mesh whose stages all sit on `dev`."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    return make_mesh(MeshSpec(data=1, model=stages), [dev] * stages)
+
+
+def pp_config(model_config: dict, **kw):
+    from mmlspark_tpu_torch import TrainerConfig
+    return TrainerConfig(**{**dict(
+        architecture="TransformerLM", model_config=model_config,
+        optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+        epochs=PP["steps"], loss="softmax_xent", seed=0,
+        shuffle_each_epoch=False, pipeline_stages=PP["stages"],
+        pipeline_microbatches=PP["micro"]), **kw})
+
+
+def checkpoint_bytes(ckpt_dir: str) -> bytes:
+    from mmlspark_tpu_torch.resilience.checkpoints import (
+        latest_valid_checkpoint)
+    with open(latest_valid_checkpoint(ckpt_dir), "rb") as f:
+        return f.read()
+
+
+def pp_lm(dev, card) -> dict:
+    """(a) The pipelined Trainer at LM_CONFIG's width (dense attention,
+    bf16), both stages on this card: 4 steps of 8 x 2048, the losses and
+    their fall, the Trainer's own step over two stages against its core
+    (`pipeline_train_step` through `make_pipeline_lm_step`) over two
+    stages and over one, the stage applications of a forward (M x S), the bubble,
+    each stage's block bytes; at f32 and PP["f32_layers"] layers the
+    pipelined logits and gradients against `sequential_lm_apply`, a
+    checkpoint restored and written again byte for byte, the emitted
+    bundle scored through `TPUModel` against the pipelined forward."""
+    import shutil
+    import tempfile
+
+    from mmlspark_tpu_torch import DataTable, Trainer
+    from mmlspark_tpu_torch.core.device import exact_f32
+    from mmlspark_tpu_torch.models import TPUModel
+    from mmlspark_tpu_torch.parallel import pipeline as pp
+    from mmlspark_tpu_torch.train.optim import Optimizer
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, LM_CONFIG["vocab_size"])
+    x, y = rows[:, :-1], rows[:, 1:]
+    model_config = {**LM_CONFIG, "attn_impl": "dense"}
+    mesh = pp_mesh(dev)
+    trainer = Trainer(pp_config(model_config), mesh=mesh)
+    trainer.fit_arrays(x, y)
+    torch.cuda.synchronize()
+    losses = [r["loss"] for r in trainer.history]
+    blocks = [sum(leaf[s].numel() * leaf[s].element_size()
+                  for name, leaf in trainer._pp_params.items()
+                  if name.startswith(pp.BLOCKS))
+              for s in range(PP["stages"])]
+    xb = torch.from_numpy(x.astype(np.int64)).to(dev)
+    yb = torch.from_numpy(y.astype(np.int64)).to(dev)
+    before = pp._apply_stage.applications
+    with torch.no_grad():
+        pp.pipelined_lm_apply(mesh, trainer._pp_params, xb,
+                              n_heads=LM_CONFIG["n_heads"],
+                              n_micro=PP["micro"], dtype=torch.bfloat16)
+    applications = pp._apply_stage.applications - before
+    bubble = pp.count_pipeline_bubble(PP["micro"], PP["stages"])
+    # the step fit_arrays runs: the Trainer's own, at two stages; the
+    # same core (`pp.pipeline_train_step`, through make_pipeline_lm_step)
+    # at two stages and at one
+    state = trainer.init_state((1, TRAIN_SEQ), 16)
+    train_step = trainer.make_train_step()
+    ones = torch.ones(TRAIN_BATCH, device=dev)
+    times = {"trainer": cuda_ms(
+        lambda: train_step(state, [xb], [yb], [ones]), warmup=1, reps=3)}
+    del trainer, state, train_step
+    torch.cuda.empty_cache()
+    for stages in (PP["stages"], 1):
+        m = pp_mesh(dev, stages)
+        params = pp.init_pipelined_lm(0, **{
+            k: LM_CONFIG[k] for k in ("vocab_size", "d_model", "n_heads",
+                                      "n_layers", "max_len")})
+        params = pp.place_pipeline_params(
+            params, pp.pipeline_param_shardings(m, params))
+        tx = Optimizer(pp_config(model_config), 16)
+        opt = tx.init(pp.pipeline_leaves(params))
+        step = pp.make_pipeline_lm_step(m, tx, n_heads=LM_CONFIG["n_heads"],
+                                        n_micro=PP["micro"],
+                                        dtype=torch.bfloat16)
+        times[stages] = cuda_ms(lambda: step(params, opt, xb, yb), warmup=1,
+                                reps=3)
+        del params, opt, step
+        torch.cuda.empty_cache()
+    print(f"phase 29 (a) pipeline, {PP['stages']} stages on one card, "
+          f"{PP['micro']} microbatches, {PP['steps']} steps of "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} bf16 dense at LM_CONFIG's width: "
+          f"losses {[round(v, 5) for v in losses]} (fall "
+          f"{losses[0] - losses[-1]:.5f}); stage applications a forward "
+          f"{applications} (want M x S = {PP['micro'] * PP['stages']}); "
+          f"bubble {bubble} (want 0.2); block bytes per stage {blocks} "
+          f"[{card}]")
+    print(f"timing pipelined train step {TRAIN_BATCH}x{TRAIN_SEQ} bf16 "
+          f"dense (CUDA events, median of 3): the Trainer's step at "
+          f"{PP['stages']} stages {times['trainer']:.3f} ms; "
+          f"pipeline_train_step through make_pipeline_lm_step at "
+          f"{PP['stages']} stages {times[PP['stages']]:.3f} ms, at one "
+          f"stage {times[1]:.3f} ms (Trainer at {PP['stages']} / core at "
+          f"one {times['trainer'] / times[1]:.3f}x) [{card}]")
+    require(losses[-1] < losses[0], "phase 29 (a): the loss did not fall")
+    require(applications == PP["micro"] * PP["stages"],
+            f"phase 29 (a): {applications} stage applications, want "
+            f"{PP['micro'] * PP['stages']}")
+    require(abs(bubble - 0.2) < 1e-12, "phase 29 (a): the bubble is not 0.2")
+    require(blocks[0] == blocks[1] > 0, "phase 29 (a): the stages hold "
+            "unequal block bytes")
+    # f32, 2 layers, TF32 off
+    f32_config = {**model_config, "dtype": "float32",
+                  "n_layers": PP["f32_layers"]}
+    params = pp.init_pipelined_lm(1, **{
+        k: f32_config[k] for k in ("vocab_size", "d_model", "n_heads",
+                                   "n_layers", "max_len")})
+    placed = pp.place_pipeline_params(
+        params, pp.pipeline_param_shardings(mesh, params))
+    leaves = pp.pipeline_leaves(placed)
+    flat = {n: t.to(dev) for n, t in params.items()}
+    for t in leaves + list(flat.values()):
+        t.requires_grad_(True)
+    heads = LM_CONFIG["n_heads"]
+    with exact_f32():
+        piped = pp.pipelined_lm_apply(mesh, placed, xb, n_heads=heads,
+                                      n_micro=PP["micro"])
+        seq = pp.sequential_lm_apply(flat, xb, n_heads=heads)
+        logit_gap = (piped - seq).abs().max().item()
+        for logits in (piped, seq):
+            torch.nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]),
+                yb.reshape(-1)).backward()
+    grads = pp.joined_leaves(placed, [t.grad for t in leaves])
+    grad_gaps = {n: ((grads[n] - flat[n].grad).norm()
+                     / flat[n].grad.norm().clamp(min=1e-30)).item()
+                 for n in flat}
+    worst = max(grad_gaps, key=grad_gaps.get)
+    del piped, seq, placed, leaves, flat, grads, params
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp()
+    try:
+        cfg = pp_config(f32_config, epochs=2)
+        t1 = Trainer(cfg, mesh=mesh)
+        bundle = t1.fit_arrays(x, y, ckpt_dir=os.path.join(work, "a"))
+        t2 = Trainer(cfg, mesh=mesh)
+        state = t2.restore_checkpoint(t2.init_state((1, TRAIN_SEQ), 2),
+                                      os.path.join(work, "a"))
+        t2.save_checkpoint(state, os.path.join(work, "b"), sync=True)
+        t2._close_writers()
+        same_ckpt = checkpoint_bytes(os.path.join(work, "a")) == \
+            checkpoint_bytes(os.path.join(work, "b"))
+        toks = x[:PP["score_rows"], :PP["score_seq"]]
+        with torch.no_grad(), exact_f32():
+            want = pp.pipelined_lm_apply(mesh, t1._pp_params, toks,
+                                         n_heads=heads,
+                                         n_micro=PP["score_rows"])
+        scored = TPUModel(bundle, device=dev, inputCol="tokens",
+                          outputCol="logits",
+                          miniBatchSize=PP["score_rows"]).transform(
+            DataTable({"tokens": toks}))["logits"]
+        score_gap = float(np.abs(scored - want.cpu().numpy()).max())
+        del t1, t2, state, bundle
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 29 (a) f32, {PP['f32_layers']} layers, TF32 off: "
+          f"pipelined logits against sequential_lm_apply max |d| "
+          f"{logit_gap:.3e} (tol {PP['logits_tol']}); gradients ||d||/||ref|| "
+          f"at most {grad_gaps[worst]:.3e} ({worst}; tol {PP['grad_tol']}); "
+          f"checkpoint restored and written again byte-identical "
+          f"{same_ckpt}; bundle scored through TPUModel against the "
+          f"pipelined forward max |d| {score_gap:.3e} (tol "
+          f"{PP['bundle_tol']}) [{card}]")
+    require(logit_gap <= PP["logits_tol"], "phase 29 (a): the pipelined "
+            "logits differ from the sequential stack's")
+    require(grad_gaps[worst] <= PP["grad_tol"], "phase 29 (a): the "
+            "pipelined gradients differ from the sequential stack's")
+    require(same_ckpt, "phase 29 (a): the restored checkpoint does not "
+            "write back byte-identical")
+    require(score_gap <= PP["bundle_tol"], "phase 29 (a): the bundle's "
+            "scores differ from the pipelined forward")
+    return {"losses": losses, "stage_applications": applications,
+            "bubble": bubble, "block_bytes": blocks,
+            "trainer_step_ms": times["trainer"],
+            "step_ms": times[PP["stages"]], "one_stage_step_ms": times[1],
+            "f32_logit_gap": logit_gap, "f32_grad_gap": grad_gaps[worst],
+            "checkpoint_identical": same_ckpt, "bundle_score_gap": score_gap}
+
+
+def mh_rows() -> tuple:
+    """The two processes' partitions: process p holds rows [8p, 8p + 8)
+    of 16 rows of 2048 (inputs, targets)."""
+    rows = char_corpus(MH["rows"], TRAIN_SEQ, LM_CONFIG["vocab_size"])
+    return rows[:, :-1], rows[:, 1:]
+
+
+def mh_settings(work: str, save: bool = False) -> None:
+    """The parent's LM_CONFIG, TRAIN_SEQ and MH in DIR/settings.json
+    (`save`), which each worker reads back, so both sides run one
+    configuration."""
+    global LM_CONFIG, TRAIN_SEQ, MH
+    path = os.path.join(work, "settings.json")
+    if save:
+        with open(path, "w") as f:
+            json.dump({"lm": LM_CONFIG, "seq": TRAIN_SEQ, "mh": MH}, f)
+        return
+    with open(path) as f:
+        settings = json.load(f)
+    LM_CONFIG, TRAIN_SEQ, MH = settings["lm"], settings["seq"], \
+        settings["mh"]
+
+
+def mh_config():
+    from mmlspark_tpu_torch import TrainerConfig
+    return TrainerConfig(
+        architecture="TransformerLM",
+        model_config={**LM_CONFIG, "attn_impl": "flash"},
+        optimizer="adam", learning_rate=3e-4, batch_size=MH["batch"],
+        epochs=MH["epochs"], loss="softmax_xent", seed=0,
+        shuffle_each_epoch=False, numerics_cadence=0)
+
+
+def file_digest(path: str) -> str:
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def tree_digest(trainer, state) -> str:
+    """sha256 of a state's checkpoint tree as the writer serializes it."""
+    import hashlib
+
+    from mmlspark_tpu_torch.resilience.ckpt_writer import serialize_tree
+    return hashlib.sha256(serialize_tree(
+        trainer.state_tree(state))).hexdigest()
+
+
+def mp_worker(rank: int, work: str, device: str = "cuda") -> int:
+    """`chip_smoke.py --mp-worker RANK DIR [DEVICE]`: one of phase 29
+    (b)'s two processes sharing the card over gloo (the knobs and the
+    settings come from the parent).
+    Fits its partition, checkpoints (the coordinator only), restores by
+    broadcast, scores an uneven partition on both mesh paths, answers the
+    health check, times the gloo all-reduce of the gradients' shapes, and
+    writes its numbers to DIR/worker<RANK>.json."""
+    from mmlspark_tpu_torch import DataTable, ModelBundle, Trainer
+    from mmlspark_tpu_torch.models import TPUModel
+    from mmlspark_tpu_torch.models.bundle import save_bundle
+    from mmlspark_tpu_torch.ops import native
+    from mmlspark_tpu_torch.parallel import distributed as dist
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_process_mesh
+    t0 = time.perf_counter()
+    mh_settings(work)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        native.build()     # built by the parent: found, not rebuilt
+        dev = torch.device("cuda", 0)
+    cfg = dist.DistributedConfig.from_env()
+    cfg.backend = "gloo"     # NCCL refuses two ranks on one card
+    dist.initialize_distributed(cfg, device=dev)
+    require(dist.process_index() == rank, "worker rank mismatch")
+    x, y = mh_rows()
+    per = MH["rows"] // MH["n"]
+    x, y = x[rank * per:(rank + 1) * per], y[rank * per:(rank + 1) * per]
+    ckpt = os.path.join(work, f"ckpt{rank}")
+    trainer = Trainer(mh_config(), device=dev)
+    init = ModelBundle.init("TransformerLM", mh_config().model_config, seed=0)
+    sync(dev)
+    reset_counts()
+    bundle = trainer.fit_arrays(x, y, initial_bundle=init, ckpt_dir=ckpt)
+    sync(dev)
+    launched = read_counts()
+    state = trainer._last_state
+    trained = tree_digest(trainer, state)
+    save_bundle(bundle, os.path.join(work, f"bundle{rank}"))
+    # the gloo all-reduce of the gradients' shapes, as the step runs it
+    grads = [torch.ones_like(p) for p in state.params]
+    reduce_ms = []
+    for _ in range(3):
+        sync(dev)
+        t1 = time.perf_counter()
+        dist.all_reduce_sum(grads)
+        sync(dev)
+        reduce_ms.append((time.perf_counter() - t1) * 1e3)
+    del grads
+    fresh = trainer.init_state((1, TRAIN_SEQ), 1)
+    restored = trainer.restore_checkpoint(fresh, ckpt)
+    restored_digest = tree_digest(trainer, restored)
+    toks = x[:, :MH["score_seq"]]
+    if rank == 0:
+        toks = toks[:-MH["drop"]]
+    local = TPUModel(bundle, device=dev, inputCol="tokens",
+                     outputCol="logits",
+                     miniBatchSize=MH["score_batch"]).transform(
+        DataTable({"tokens": toks}))["logits"]
+    glob = TPUModel(bundle, device=dev, inputCol="tokens",
+                    outputCol="logits", miniBatchSize=MH["score_batch"]
+                    ).set_mesh(make_process_mesh(MeshSpec(), [dev])
+                               ).transform(DataTable({"tokens": toks}))[
+        "logits"]
+    out = {"rank": rank, "losses": [r["loss"] for r in trainer.history],
+           "launches": launched, "trained_digest": trained,
+           "restored_digest": restored_digest,
+           "restored_step": int(restored.step),
+           "score_rows": int(local.shape[0]),
+           "score_equal": bool(np.array_equal(local, glob)),
+           "health": dist.health_check(timeout_s=120),
+           "allreduce_ms": statistics.median(reduce_ms),
+           "allreduce_bytes": int(sum(p.numel() * 4 for p in state.params)),
+           "mesh": {"process_count": trainer.mesh.process_count,
+                    "global_data": trainer.mesh.global_shape["data"]},
+           "seconds": time.perf_counter() - t0}
+    dist.barrier("worker.done", timeout_s=120)
+    with open(os.path.join(work, f"worker{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown_distributed()
+    return 0
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (a process group's rendezvous)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_workers(work: str, dev) -> list:
+    """Start phase 29 (b)'s two processes (this script in --mp-worker
+    mode), wait for both within MH["timeout_s"], kill what is left, and
+    return their numbers."""
+    port = free_port()
+    procs, logs = [], []
+    for rank in range(MH["n"]):
+        env = dict(os.environ, MMLSPARK_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   MMLSPARK_TPU_NUM_PROCESSES=str(MH["n"]),
+                   MMLSPARK_TPU_PROCESS_ID=str(rank),
+                   MMLSPARK_TPU_COLLECTIVE_TIMEOUT_S=str(MH["timeout_s"]))
+        logs.append(os.path.join(work, f"worker{rank}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker",
+                 str(rank), work, dev.type], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    try:
+        # both must end in time; one failing ends the wait for the other
+        deadline = time.monotonic() + MH["timeout_s"]
+        while (time.monotonic() < deadline
+               and any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[rank]) as f:
+                print(f"phase 29 (b) worker {rank} exited {p.returncode}; "
+                      f"its log's tail:\n{f.read()[-3000:]}")
+        require(p.returncode == 0, f"phase 29 (b): worker {rank} exited "
+                f"{p.returncode}")
+    out = []
+    for rank in range(MH["n"]):
+        with open(os.path.join(work, f"worker{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mh_training(dev, card) -> tuple:
+    """(b) Two processes sharing the card over gloo: the LM at LM_CONFIG
+    with flash attention, 16 rows of 2048, global batch 8, 4 rows a
+    process a step, 4 steps, held against this process's data-2 fit of
+    the same global batches (process 0's next 4 rows, then process 1's):
+    losses and weights bit-equal, K1[lse] / K2 / K3 16 launches in each
+    process, the bundles byte-equal, a checkpoint directory only for
+    process 0, process 1's restore equal to process 0's, uneven scoring
+    equal on the local and the global mesh, `health_check()` == [0, 1],
+    the gloo all-reduce ms.  Returns (the kernel rows at the process
+    shard's shape, the numbers)."""
+    import shutil
+    import tempfile
+
+    from mmlspark_tpu_torch import ModelBundle, Trainer
+    from mmlspark_tpu_torch.models.bundle import save_bundle
+    work = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        mh_settings(work, save=True)
+        workers = run_workers(work, dev)
+        workers_s = time.perf_counter() - t0
+        x, y = mh_rows()
+        per, half = MH["rows"] // MH["n"], MH["batch"] // MH["n"]
+        order = np.concatenate([np.r_[p * per + k * half:
+                                      p * per + (k + 1) * half]
+                                for k in range(per // half)
+                                for p in range(MH["n"])])
+        ref = Trainer(mh_config(), mesh=dp_mesh(dev, MH["n"]))
+        init = ModelBundle.init("TransformerLM", mh_config().model_config,
+                                seed=0)
+        bundle = ref.fit_arrays(x[order], y[order], initial_bundle=init)
+        save_bundle(bundle, os.path.join(work, "bundle_ref"))
+        ref_losses = [r["loss"] for r in ref.history]
+        digests = [file_digest(os.path.join(work, name, "params.msgpack"))
+                   for name in ("bundle0", "bundle1", "bundle_ref")]
+        metas = [file_digest(os.path.join(work, name, "bundle.json"))
+                 for name in ("bundle0", "bundle1", "bundle_ref")]
+        dirs = [os.path.isdir(os.path.join(work, f"ckpt{r}"))
+                for r in range(MH["n"])]
+        del ref, bundle, init
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = LM_CONFIG["n_layers"] * MH["epochs"] * (MH["rows"] // MH["n"]
+                                                    // (MH["batch"]
+                                                        // MH["n"]))
+    w0, w1 = workers
+    print(f"phase 29 (b) {MH['n']} processes over gloo sharing the card "
+          f"(mesh data {w0['mesh']['global_data']} over "
+          f"{w0['mesh']['process_count']} processes), {len(w0['losses'])} "
+          f"epochs of {MH['rows'] // MH['n']} rows a process, global batch "
+          f"{MH['batch']}, flash at LM_CONFIG's width: losses "
+          f"{w0['losses']} / {w1['losses']} against the one-process data-"
+          f"{MH['n']} fit's {ref_losses} (bit-equal "
+          f"{w0['losses'] == w1['losses'] == ref_losses}); bundles "
+          f"byte-equal {len(set(digests)) == 1} (json "
+          f"{len(set(metas)) == 1}); launches {w0['launches']} / "
+          f"{w1['launches']} (want {want} each of K1[lse], K2, K3 in each "
+          f"process); checkpoint directories {dirs}; restored state equal "
+          f"to the trained one {w0['restored_digest'] == w0['trained_digest']}"
+          f" / {w1['restored_digest'] == w0['trained_digest']} (step "
+          f"{w1['restored_step']}); uneven scoring rows "
+          f"{w0['score_rows']} / {w1['score_rows']}, local == global mesh "
+          f"{w0['score_equal']} / {w1['score_equal']}; health "
+          f"{w0['health']} [{card}]")
+    print(f"timing gloo all-reduce of the gradients ({w0['allreduce_bytes']}"
+          f" bytes f32, through host memory): {w0['allreduce_ms']:.1f} / "
+          f"{w1['allreduce_ms']:.1f} ms a step (median of 3); workers "
+          f"{w0['seconds']:.1f} / {w1['seconds']:.1f} s, {workers_s:.1f} s "
+          f"started to joined [{card}]")
+    require(w0["losses"] == w1["losses"] == ref_losses, "phase 29 (b): the "
+            "two-process losses are not bit-equal to the data-2 fit's")
+    require(len(set(digests)) == 1 and len(set(metas)) == 1,
+            "phase 29 (b): the bundles are not byte-equal")
+    for w in workers:
+        for name in ("flash_attention[lse]", "flash_bwd_dq",
+                     "flash_bwd_dkv"):
+            require(w["launches"][name] == want, f"phase 29 (b): process "
+                    f"{w['rank']} launched {name} {w['launches'][name]} "
+                    f"times, want {want}")
+        require(w["restored_digest"] == w0["trained_digest"]
+                and w["restored_step"] == 2 * MH["epochs"],
+                f"phase 29 (b): process {w['rank']}'s restore differs")
+        require(w["score_equal"], f"phase 29 (b): process {w['rank']}'s "
+                "scores differ between the local and the global mesh")
+        require(w["health"] == [0, 1], "phase 29 (b): health check")
+    require(dirs == [True, False], f"phase 29 (b): checkpoint directories "
+            f"{dirs}, want only process 0's")
+    require((w0["score_rows"], w1["score_rows"])
+            == (MH["rows"] // MH["n"] - MH["drop"], MH["rows"] // MH["n"]),
+            "phase 29 (b): the uneven scoring returned other row counts")
+    rows = dp_shard_kernel_rows(dev, card, w0["launches"],
+                                shape=(MH["batch"] // MH["n"], TRAIN_SEQ,
+                                       LM_CONFIG["n_heads"],
+                                       LM_CONFIG["d_model"]
+                                       // LM_CONFIG["n_heads"]),
+                                tag="process shard", phase=29)
+    return rows, {"losses": w0["losses"], "ref_losses": ref_losses,
+                  "launches": [w["launches"] for w in workers],
+                  "allreduce_ms": [w["allreduce_ms"] for w in workers],
+                  "allreduce_bytes": w0["allreduce_bytes"],
+                  "worker_s": [w["seconds"] for w in workers],
+                  "workers_s": workers_s}
+
+
+def nccl_world_one(dev, card) -> dict:
+    """(c) NCCL at world size 1: the group initialized, a sum and a
+    broadcast of CUDA tensors through it, a barrier, one process."""
+    from mmlspark_tpu_torch.parallel import distributed as dist
+    dist.initialize_distributed(dist.DistributedConfig(
+        f"127.0.0.1:{free_port()}", 1, 0), device=dev)
+    try:
+        backend = dist.backend()
+        t = [torch.arange(4.0, device=dev)]
+        dist.all_reduce_sum(t)
+        tree = dist.broadcast_one_to_all({"w": torch.ones(3, device=dev)})
+        dist.barrier("nccl_world_one", timeout_s=120)
+        count = dist.process_count()
+        ok = (t[0].is_cuda and t[0].tolist() == [0.0, 1.0, 2.0, 3.0]
+              and tree["w"].is_cuda and tree["w"].sum().item() == 3.0)
+    finally:
+        dist.shutdown_distributed()
+    print(f"phase 29 (c) NCCL at world size 1: backend {backend}, "
+          f"all_reduce_sum and broadcast_one_to_all on the card {ok}, "
+          f"barrier passed, process_count() {count} [{card}]")
+    require(backend == "nccl" and ok and count == 1,
+            "phase 29 (c): NCCL at world size 1")
+    return {"backend": backend, "process_count": count}
+
+
+def phase_pipeline_and_processes(dev, card) -> tuple:
+    """Phase 29: (a) `pp_lm`, (b) `mh_training`, (c) `nccl_world_one`.
+    Returns (the kernel rows, the numbers)."""
+    t0 = time.perf_counter()
+    out = {"pipeline": pp_lm(dev, card)}
+    print(f"phase 29 pipeline: {time.perf_counter() - t0:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    rows, out["processes"] = mh_training(dev, card)
+    print(f"phase 29 processes: {time.perf_counter() - t1:.1f} s [{card}]")
+    out["nccl"] = nccl_world_one(dev, card)
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 29: {out['phase_seconds']:.1f} s [{card}]")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9288,6 +9811,9 @@ def main() -> int:
     mp_rows, model_parallel = phase(28, phase_model_parallel)
     print(json.dumps({"model_parallel": model_parallel, "card": card},
                      default=str))
+    pp_rows, pipeline_processes = phase(29, phase_pipeline_and_processes)
+    print(json.dumps({"pipeline_and_processes": pipeline_processes,
+                      "card": card}, default=str))
     total = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
                                         seconds.items()},
@@ -9310,7 +9836,7 @@ def main() -> int:
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
                + ring_lse + d32 + small + wide + ring_rows + dp_rows
-               + mp_rows)
+               + mp_rows + pp_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
             "library_ms")
@@ -9464,6 +9990,8 @@ def ab_main(argv: list) -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--mp-worker"]:
+            sys.exit(mp_worker(int(sys.argv[2]), *sys.argv[3:5]))
         sys.exit(ab_main(sys.argv[1:]) if sys.argv[1:] else main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

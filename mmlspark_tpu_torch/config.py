@@ -150,3 +150,27 @@ SWEEP_MIN_ACTIVE = register(
     "MMLSPARK_TPU_SWEEP_MIN_ACTIVE", 1, ptype=int,
     doc="population training: floor of active members a halving rung "
         "may not cull below")
+
+# several processes (parallel/distributed.py), under the JAX package's names
+COORDINATOR = register(
+    "MMLSPARK_TPU_COORDINATOR", default=None,
+    doc="host:port of process 0, the torch.distributed rendezvous "
+        "(init_method tcp://host:port) for multi-process runs (the "
+        "reference's MPI hostfile analogue, parallel/distributed.py).")
+
+NUM_PROCESSES = register(
+    "MMLSPARK_TPU_NUM_PROCESSES", default=None, ptype=int,
+    doc="Total process count of the multi-process run (torch.distributed "
+        "world size).")
+
+PROCESS_ID = register(
+    "MMLSPARK_TPU_PROCESS_ID", default=None, ptype=int,
+    doc="This process's index in the multi-process run (torch.distributed "
+        "rank; 0 = coordinator).")
+
+COLLECTIVE_TIMEOUT_S = register(
+    "MMLSPARK_TPU_COLLECTIVE_TIMEOUT_S", default=600.0, ptype=float,
+    doc="Bounded wait for named torch.distributed collectives (barriers, "
+        "checkpoint broadcast/gather): on expiry a CollectiveTimeoutError "
+        "names the operation instead of the job hanging forever "
+        "(parallel/distributed.py).")

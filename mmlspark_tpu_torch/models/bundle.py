@@ -217,12 +217,19 @@ def params_from_jax(tree: dict) -> dict:
     widened exactly), except
     an int8 Dense or Conv node's: its weight stays int8 in the torch
     layout, its `kernel_scale` becomes `scale` (f32) and its bias keeps
-    its stored dtype (bfloat16 as `torch.bfloat16`)."""
+    its stored dtype (bfloat16 as `torch.bfloat16`).
+
+    The pipeline's stacked tree (`parallel/pipeline.py`: `tok_embed`,
+    `pos_embed`, `blocks` with every block leaf stacked on a leading
+    layer dim, `norm_scale`, `norm_bias`, `head`, `head_bias`) maps the
+    same way: its raw leaves keep their names and layout, and a stacked
+    Dense kernel (L, in, out) becomes `blocks.<layer>.weight` (L, out,
+    in)."""
     state = {}
 
     def weight(kernel: np.ndarray, dtype) -> torch.Tensor:
         k = np.asarray(kernel, dtype)
-        order = (3, 2, 0, 1) if k.ndim == 4 else (1, 0)
+        order = {4: (3, 2, 0, 1), 3: (0, 2, 1)}.get(k.ndim, (1, 0))
         return torch.from_numpy(np.ascontiguousarray(k.transpose(order)))
 
     def walk(prefix: str, node: dict) -> None:
@@ -288,7 +295,9 @@ def variables_to_jax(state_dict: dict) -> dict:
     int8 kernel, f32 `kernel_scale`, the bias in its own dtype), a rank-4
     `weight` a Conv (bias optional), `weight`/`bias` a Dense, `weight`
     alone an embedding, and a node without `weight` or `scale` (a MoE
-    block's expert stacks) keeps its leaves as they are."""
+    block's expert stacks, the pipeline's raw leaves at the root) keeps
+    its leaves as they are; a rank-3 `weight` is a stacked Dense of the
+    pipeline's tree (L, out, in) -> `kernel` (L, in, out)."""
     nodes: dict = {}
     for name, value in state_dict.items():
         prefix, _, leaf = name.rpartition(".")
@@ -304,7 +313,7 @@ def variables_to_jax(state_dict: dict) -> dict:
 
     def kernel(w: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(
-            w.transpose((2, 3, 1, 0) if w.ndim == 4 else (1, 0)))
+            w.transpose({4: (2, 3, 1, 0), 3: (0, 2, 1)}.get(w.ndim, (1, 0))))
 
     variables: dict = {"params": {}}
     for prefix, leaves in nodes.items():
@@ -329,6 +338,10 @@ def variables_to_jax(state_dict: dict) -> dict:
             if value is None:
                 continue
             parent = variables.setdefault(tree, {})
+            if not prefix:
+                # leaves at the root (the pipeline's raw embed / head)
+                parent.update(value)
+                continue
             *path, last = prefix.split(".")
             for key in path:
                 parent = parent.setdefault(key, {})

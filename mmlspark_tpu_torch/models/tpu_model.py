@@ -66,7 +66,17 @@ kernel K1 under `attn_impl="flash"`).  A vision bundle's leaves match no
 rule but the catch-all, so every leaf replicates and each row's slab is
 scored once on its home.
 
-Not ported, raising with its ROADMAP item: the multi-host path (A10).
+Several processes (`parallel/distributed.py`): each process scores its
+own rows, as MMLSpark scores each partition on its own executor
+(CNTKModel.scala:215-221).  A mesh over this process's own devices (the
+default: `default_mesh` stays local) and a mesh over every process
+(`parallel/mesh.py` `make_process_mesh`, which holds this process's block
+of data rows) take the same loop and give the same rows.  The JAX package
+runs a global mesh in lockstep steps with zero padding because its jitted
+program spans every process; here the model and stage axes stay inside a
+process, so no scoring step crosses one and no lockstep is needed.  A
+global mesh is only checked: it must span every process, with a data axis
+a multiple of the process count (the JAX package's two ValueErrors).
 """
 
 from __future__ import annotations
@@ -91,8 +101,9 @@ from mmlspark_tpu_torch.observe.trace import (active_tracer,
                                               current_span_id,
                                               span_on_tracer)
 from mmlspark_tpu_torch.parallel.bridge import DeviceFeed, ModelShardReplicas
-from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, batch_devices,
-                                              default_mesh)
+from mmlspark_tpu_torch.parallel.distributed import process_count
+from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                              batch_devices, default_mesh)
 from mmlspark_tpu_torch.parallel.partition import port_splits, registry_rule
 from mmlspark_tpu_torch.data import Dataset
 from mmlspark_tpu_torch.parallel.prefetch import OncePerTable, resolve_depth
@@ -178,6 +189,30 @@ class TPUModel(Transformer):
             self._shards = [self.device] if len(shards) == 1 else shards
             self.device = self._shards[0]
         return self._shards
+
+    @staticmethod
+    def _mesh_is_multiprocess(mesh) -> bool:
+        """Whether `mesh` spans several processes (module docstring)."""
+        return mesh is not None and mesh.process_count > 1
+
+    def _check_process_mesh(self) -> None:
+        """A mesh over several processes must span all of them, with a
+        data axis a multiple of the process count (module docstring)."""
+        mesh = self._mesh
+        if not self._mesh_is_multiprocess(mesh):
+            return
+        nproc = process_count()
+        if mesh.process_count != nproc:
+            raise ValueError(
+                f"multi-host scoring mesh spans {mesh.process_count} of "
+                f"{nproc} processes; use a mesh over ALL processes' "
+                f"devices, or a local-devices mesh for independent "
+                f"per-process scoring")
+        n_data = mesh.global_shape[DATA_AXIS]
+        if n_data % nproc:
+            raise ValueError(
+                f"multi-host scoring needs the data axis ({n_data}) to be "
+                f"a multiple of the process count ({nproc})")
 
     def _select_output(self, final, nodes: dict):
         name, idx = self.outputNodeName, self.outputNodeIndex
@@ -314,6 +349,7 @@ class TPUModel(Transformer):
     # -- transform -------------------------------------------------------
     def transform(self, table: DataTable) -> DataTable:
         in_col = self._check_input(table)
+        self._check_process_mesh()
         cached = getattr(table, "_device_cache", {}).get(in_col)
         if cached is not None:
             return table.with_column(
@@ -399,6 +435,7 @@ class TPUModel(Transformer):
         batches are resident on the host or the device, and the window
         stays open across table boundaries (module docstring)."""
         self._check_required()
+        self._check_process_mesh()
         devices = self.shard_devices()
         modules = self._shard_modules(devices)
         feeds = [self._get_feed(d) for d in devices]

@@ -1,6 +1,8 @@
 from mmlspark_tpu_torch.parallel.bridge import (gather_to_host,
                                                 pad_to_multiple, shard_batch,
                                                 shard_table_columns)
+from mmlspark_tpu_torch.parallel.distributed import (DistributedConfig,
+                                                     initialize_distributed)
 from mmlspark_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
                                               Mesh, MeshSpec, best_mesh,
                                               default_mesh, make_mesh,

@@ -129,9 +129,34 @@ def put_batch_parts(mesh, *arrays: np.ndarray,
     return tuple(shard_batch(a, mesh, axis=axis) for a in arrays)
 
 
+def put_sharded(local: np.ndarray, mesh) -> list:
+    """This process's rows on its own block of the mesh: `local` (rows a
+    multiple of the block's data rows) cut into contiguous slabs, slab i
+    on the block's data row i.  Under several processes each process puts
+    only its own rows (`bs / process_count` of a global batch) and no
+    process holds the global batch, as the JAX `put_sharded` assembles a
+    global array from each process's local data; with one process it is
+    `shard_batch` without padding."""
+    local = np.asarray(local)
+    devices = batch_devices(mesh)
+    if local.shape[0] % len(devices):
+        raise ValueError(
+            f"local rows {local.shape[0]} not divisible by this process's "
+            f"{len(devices)} data rows of the mesh")
+    return _slabs(local, devices)
+
+
 def gather_replicated(tree: Any, mesh) -> Any:
     """Every sharded leaf (a list of slabs) joined in row order on the
-    mesh's first device; a tensor leaf moved there."""
+    mesh's first device; a tensor leaf moved there.
+
+    Under several processes the JAX function is a collective that
+    all-gathers the leaves other processes hold.  The port needs none:
+    the Trainer all-reduces the gradients over the processes and runs one
+    identical update in each (`train/trainer.py`), so after every step
+    each process holds the whole masters and nothing has to cross.  The
+    Trainer still enters its checkpoint gather under a named, spanned
+    collective (`checkpoint.gather`) where the JAX Trainer does."""
     home = mesh.devices.flat[0]
     if isinstance(tree, dict):
         return {k: gather_replicated(v, mesh) for k, v in tree.items()}
@@ -145,7 +170,8 @@ def gather_replicated(tree: Any, mesh) -> Any:
 
 
 def gather_to_host(tree: Any, mesh) -> Any:
-    """`gather_replicated` on the host: numpy arrays."""
+    """`gather_replicated` on the host: numpy arrays (every process holds
+    the whole tree: see `gather_replicated`)."""
     def host(leaf):
         if isinstance(leaf, torch.Tensor):
             return leaf.detach().cpu().numpy()

@@ -10,8 +10,17 @@ moves tensors between those devices explicitly (`parallel/ring.py`).
 A device may repeat: its shards then share one card (or the host), the
 way the JAX tests put 8 virtual devices on one CPU.  Every layout, slot
 ownership and cross-shard merge still runs; only the traffic between
-cards does not.  A multi-process mesh over `torch.distributed` (several
-hosts) is later work.
+cards does not.
+
+Several processes (`parallel/distributed.py`): `make_process_mesh` builds
+a mesh whose data axis counts every process's devices, in contiguous
+blocks in rank order, as the JAX `make_mesh` over `jax.devices()` spans
+every process.  Each process holds only its own block: `devices` and
+`shape` are this process's, `process_count` says how many processes the
+mesh spans (the port's `{d.process_index for d in mesh.devices.flat}`)
+and `global_shape` is the JAX mesh's shape.  The model and seq axes stay
+inside one process.  `best_mesh` and `default_mesh` stay local, as the
+JAX ones take `jax.local_devices()` under several processes.
 
 The default meshes (`mesh_spec_from_config`, `default_mesh`, `best_mesh`,
 :31-52 and :96-140) read the JAX package's knobs MMLSPARK_TPU_MESH_DATA,
@@ -104,11 +113,12 @@ class Mesh:
     `devices` is the numpy object array of shape (data, model, seq) and
     `shape` maps each axis name to its size, as `jax.sharding.Mesh` does.
     Devices may repeat (shards sharing one card); they must all be of one
-    type."""
+    type.  A mesh over several processes (`make_process_mesh`) holds
+    this process's block of data rows (module docstring)."""
 
     axis_names = AXES
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, process_count: int = 1):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(AXES):
             raise ValueError(f"a mesh's device array is (data, model, seq), "
@@ -124,6 +134,14 @@ class Mesh:
         for i, d in enumerate(flat):
             self.devices.flat[i] = d
         self.shape = dict(zip(AXES, devices.shape))
+        self.process_count = int(process_count)
+
+    @property
+    def global_shape(self) -> dict:
+        """{axis: size} over every process the mesh spans: the data axis
+        counts each process's rows."""
+        return {**self.shape,
+                DATA_AXIS: self.shape[DATA_AXIS] * self.process_count}
 
     def seq_rings(self) -> list:
         """One list of devices per data group (model index 0): the group's
@@ -131,8 +149,10 @@ class Mesh:
         return [list(group[0]) for group in self.devices]
 
     def __repr__(self) -> str:
+        procs = (f", over {self.process_count} processes"
+                 if self.process_count > 1 else "")
         return (f"Mesh({self.shape}, devices="
-                f"{[str(d) for d in self.devices.flat]})")
+                f"{[str(d) for d in self.devices.flat]}{procs})")
 
 
 def make_mesh(spec: Optional[MeshSpec] = None,
@@ -150,6 +170,35 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     for i, d in enumerate(devices):
         array[i] = d
     return Mesh(array.reshape(tuple(sizes[a] for a in AXES)))
+
+
+def make_process_mesh(spec: Optional[MeshSpec] = None,
+                      devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh whose data axis spans every process of the process group
+    (module docstring): `devices` are this process's own (default every
+    visible card), every process passing as many; `spec` is resolved over
+    all of them.  Process p holds data rows [p * d, (p + 1) * d) of the
+    global axis, d = data / process count.  With one process this is
+    `make_mesh`."""
+    from mmlspark_tpu_torch.parallel.distributed import process_count
+    nproc = process_count()
+    if devices is None:
+        devices = _visible("cuda")
+    devices = [torch.device(d) for d in devices]
+    if nproc == 1:
+        return make_mesh(spec, devices)
+    sizes = (spec or MeshSpec()).resolve(len(devices) * nproc)
+    if sizes[DATA_AXIS] % nproc:
+        raise ValueError(
+            f"multi-host training needs the data axis ({sizes[DATA_AXIS]}) "
+            f"to be a multiple of the process count ({nproc}); keep "
+            "tensor/sequence parallelism within a host (over ICI) and "
+            "scale data parallelism across hosts (over DCN)")
+    local = (sizes[DATA_AXIS] // nproc, sizes[MODEL_AXIS], sizes[SEQ_AXIS])
+    array = np.empty(len(devices), dtype=object)
+    for i, d in enumerate(devices):
+        array[i] = d
+    return Mesh(array.reshape(local), process_count=nproc)
 
 
 def _visible(device_type: str) -> list:
@@ -210,11 +259,23 @@ def default_mesh(device="cuda") -> Mesh:
 def mesh_for_spec(spec: MeshSpec, device="cuda") -> Optional[Mesh]:
     """The mesh a config's MeshSpec asks for on `device`'s type, or None
     where it asks for one device (data -1 or 1, model and seq 1): the
-    caller then runs on `device` itself."""
+    caller then runs on `device` itself.  Under several processes the
+    mesh spans them all (`make_process_mesh`): each process contributes
+    its visible cards, or on the host its share of the data axis (one
+    shard at data -1)."""
+    from mmlspark_tpu_torch.parallel.distributed import process_count
     spec.resolve(max(1, spec.data) * spec.model * spec.seq)  # malformed
+    kind = torch.device(device).type
+    nproc = process_count()
+    if nproc > 1:
+        if kind == "cuda":
+            return make_process_mesh(spec, _visible(kind))
+        per_process = spec.model * spec.seq
+        if spec.data > 0:
+            per_process = max(1, spec.data // nproc) * per_process
+        return make_process_mesh(spec, [torch.device("cpu")] * per_process)
     if spec.data in (-1, 1) and spec.model == 1 and spec.seq == 1:
         return None
-    kind = torch.device(device).type
     n = max(1, spec.data) * spec.model * spec.seq
     local = _visible(kind) * (n if kind == "cpu" else 1)
     return make_mesh(spec, local[:n] if kind == "cpu" else local)

@@ -41,8 +41,12 @@ _F32 = np.float32
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: sqrt of the summed squares, in f32."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    """optax.global_norm: sqrt of the summed squares, in f32, on the first
+    tensor's device (each device's part added there: a pipeline's
+    stages)."""
+    home = tensors[0].device
+    return torch.sqrt(sum(torch.sum(t.float() * t.float()).to(home)
+                          for t in tensors))
 
 
 def _cosine_factor(count: int, decay_steps: int) -> np.float32:
@@ -76,8 +80,11 @@ def scheduled_rate(cfg, total_steps: int, count: int, base):
 
 def clip_by_global_norm(updates: list, max_norm: float) -> list:
     g_norm = global_norm(updates)
-    trigger = g_norm < max_norm
-    return [torch.where(trigger, u, (u / g_norm) * max_norm) for u in updates]
+    out = []
+    for u in updates:
+        norm = g_norm.to(u.device)
+        out.append(torch.where(norm < max_norm, u, (u / norm) * max_norm))
+    return out
 
 
 def add_decayed_weights(updates: list, params: list,
@@ -226,8 +233,9 @@ def named_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
     `models/bundle.py::variables_to_jax`: `scale`/`bias` a LayerNorm or a
     BatchNorm's params, a rank-4 `weight` a Conv (OIHW -> `kernel` HWIO,
     bias optional), `weight` and `bias` a Dense (weight (out, in) ->
-    `kernel` (in, out)), `weight` alone an embedding, anything else (a
-    MoE block's expert stacks) as it is.  Leaves: `to="numpy"`
+    `kernel` (in, out); the pipeline's stacked (L, out, in) -> (L, in,
+    out)), `weight` alone an embedding, anything else (a MoE block's
+    expert stacks, the pipeline's raw leaves) as it is.  Leaves: `to="numpy"`
     host copies; `"device"` fresh contiguous copies on the tensors' device
     (later in-place updates leave them alone); `"view"` the tensors
     themselves (shapes only: a restore's template)."""
@@ -245,12 +253,13 @@ def named_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
         elif leaves["weight"].dim() == 4:
             node = {"kernel": leaves["weight"].permute(2, 3, 1, 0)}
         elif "bias" in leaves:
-            node = {"kernel": leaves["weight"].t()}
+            node = {"kernel": leaves["weight"].transpose(-2, -1)}
         else:
             node = {"embedding": leaves["weight"]}
         if "kernel" in node and "bias" in leaves:
             node["bias"] = leaves["bias"]
-        flat[prefix] = {k: leaf_of(v) for k, v in node.items()}
+        flat.update({f"{prefix}.{k}" if prefix else k: leaf_of(v)
+                     for k, v in node.items()})
     return nest(flat)
 
 

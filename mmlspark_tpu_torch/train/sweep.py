@@ -70,6 +70,7 @@ from mmlspark_tpu_torch.observe.spans import active_timings, monotonic, span_on
 from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import active_tracer, current_span_id
 from mmlspark_tpu_torch.parallel.bridge import stack_trees, unstack_member
+from mmlspark_tpu_torch.parallel.distributed import process_count
 from mmlspark_tpu_torch.parallel.mesh import (batch_devices, distinct_devices,
                                               mesh_for_spec)
 from mmlspark_tpu_torch.parallel.ring import ShardGroup, reduce_to_home
@@ -147,6 +148,10 @@ class PopulationTrainer:
                  halving_rungs: Optional[int] = None,
                  cull_fraction: Optional[float] = None,
                  min_active: Optional[int] = None, device="cuda"):
+        if process_count() > 1:
+            raise NotImplementedError(
+                "population training is single-controller; shard the "
+                "candidate grid across hosts, not one population")
         if trainer_config.pipeline_stages > 1:
             raise ValueError(
                 "population training does not compose with pipeline "

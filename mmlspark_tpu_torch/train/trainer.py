@@ -122,8 +122,41 @@ Tensor and expert parallelism (a mesh with model > 1, e.g.
     dp <-> dp x mp byte-identically), recording `model_devices` and the
     partition mesh `{"data": d, "model": m}`.
 
-Still raising NotImplementedError: pipeline stages (ROADMAP A10; seq-
-parallel training is `parallel/ring.py`'s `make_seq_parallel_lm_step`).
+Pipeline stages (`pipeline_stages > 1`, a `TransformerLM` with dense
+attention and MLP over a (data, stages) mesh: the stage axis is 'model'):
+
+  * the parameters are the pipeline's stacked tree (`parallel/pipeline.py`),
+    each stage's block layers, and their optimizer moments, on the stage's
+    device, the embeddings on the first stage's and the head on the
+    last's; a warm start stacks an ordinary `TransformerLM` bundle;
+  * the step runs each data row's slab through the GPipe schedule over
+    its model group (`pipeline_row_logits`), `pipeline_microbatches`
+    microbatches a row; the batch clamps to a multiple of data x
+    microbatches; `grad_norm` and clipping add each device's part;
+  * the numerics cadence and the watchdog are off, as in the JAX Trainer;
+  * checkpoints hold the stacked tree and its optimizer state (the JAX
+    Trainer's bytes for the same state); a resume onto another stage count
+    raises; the bundle is unstacked into an ordinary `TransformerLM`
+    bundle that `TPUModel` scores.
+
+Several processes (`parallel/distributed.py`, the knobs
+MMLSPARK_TPU_COORDINATOR, _NUM_PROCESSES, _PROCESS_ID): `__init__`
+joins the process group before the mesh is built, and with no mesh given
+the mesh spans every process (`parallel/mesh.py` `make_process_mesh`).
+`fit_arrays` takes this process's partition: each process feeds
+`batch_size / process_count` rows a step onto its own block of the data
+axis, every epoch takes the smallest partition's row count (the
+partition sizes are all-gathered; surplus rows rotate into later epochs
+through `epoch_order`), and the seed is `seed + process_index()`.  The
+step all-reduces the mask count, the loss, the metrics and the locally
+summed gradients over the processes, and one identical optimizer update
+runs in each, so every process holds the whole masters.  The checkpoint
+flags must agree on every process; the coordinator decides a resume and
+broadcasts it; a preemption flag is all-gathered before the emergency
+save; only the coordinator writes checkpoints, and a restore is read by
+the coordinator and broadcast.  A model with training BatchNorm raises
+NotImplementedError under several processes (the cross-process batch
+statistics are not ported, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -131,6 +164,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import threading
 from typing import Callable, Optional, Sequence
 
@@ -141,10 +175,12 @@ import torch.nn.functional as F
 from mmlspark_tpu_torch.core.device import exact_f32, resolve_device
 from mmlspark_tpu_torch.data import Dataset
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_variables,
+                                              params_from_jax,
                                               variables_from_jax)
 from mmlspark_tpu_torch.models.definitions import (BatchNorm, build_model,
                                                    init_scoring_params,
-                                                   init_transformer_lm_params)
+                                                   init_transformer_lm_params,
+                                                   model_config)
 from mmlspark_tpu_torch.observe.costmodel import ProgramCosts
 from mmlspark_tpu_torch.observe.logging import get_logger
 from mmlspark_tpu_torch.observe.metrics import MetricData, inc_counter
@@ -161,6 +197,10 @@ from mmlspark_tpu_torch.observe.trace import (active_tracer, current_span_id,
 from mmlspark_tpu_torch.parallel.bridge import (DeviceFeed,
                                                 ModelShardReplicas,
                                                 ShardReplicas)
+from mmlspark_tpu_torch.parallel.distributed import (
+    all_reduce_sum, barrier, broadcast_one_to_all, initialize_distributed,
+    is_coordinator, process_allgather, process_count, process_index,
+    run_collective, sync_all)
 from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, SEQ_AXIS,
                                               batch_devices, distinct_devices,
                                               mesh_for_spec)
@@ -170,7 +210,7 @@ from mmlspark_tpu_torch.parallel.partition import (DEFAULT_RULES,
 from mmlspark_tpu_torch.parallel.ring import ShardGroup, reduce_to_home
 from mmlspark_tpu_torch.resilience.chaos import get_injector
 from mmlspark_tpu_torch.resilience.checkpoints import (
-    checkpoint_meta, latest_valid_checkpoint)
+    checkpoint_meta, checkpoint_name, latest_valid_checkpoint)
 from mmlspark_tpu_torch.resilience.ckpt_writer import (CheckpointWriter,
                                                        read_checkpoint)
 from mmlspark_tpu_torch.resilience.preemption import (HungStepError,
@@ -258,6 +298,26 @@ def host_batch(arr: np.ndarray) -> np.ndarray:
     return arr if narrow is None else arr.astype(narrow)
 
 
+def _global_count(masks: Sequence) -> torch.Tensor:
+    """The batch's mask count (the loss's denominator) over every shard
+    of every process."""
+    count = reduce_to_home([m.float().sum() for m in masks])
+    return all_reduce_sum([count])[0]
+
+
+def _sum_over_processes(grads: list, loss: torch.Tensor,
+                        sums: dict) -> tuple:
+    """The locally summed gradients (in place), the loss and the metric
+    sums added over the processes in one collective; (loss, sums) come
+    back detached.  With one process nothing moves."""
+    if process_count() == 1:
+        return loss, sums
+    extra = [loss.detach().clone()] + [v.detach().clone()
+                                       for v in sums.values()]
+    all_reduce_sum(list(grads) + extra)
+    return extra[0], dict(zip(sums, extra[1:]))
+
+
 @dataclasses.dataclass
 class TrainState:
     """The global step, the parameters (the module's f32 masters, updated
@@ -291,9 +351,11 @@ class Trainer:
     data-parallel over a mesh's data axis (module docstring)."""
 
     def __init__(self, config: TrainerConfig, mesh=None, device="cuda"):
-        if config.pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline stages are not ported (ROADMAP A10)")
+        # torch.distributed from the knobs when launched as several
+        # processes (a no-op with one); before the mesh, so that it spans
+        # every process
+        initialize_distributed(
+            device=device if mesh is None else mesh.devices.flat[0])
         if mesh is None:
             device = resolve_device(device)
             mesh = mesh_for_spec(config.mesh, device)
@@ -337,6 +399,47 @@ class Trainer:
         self._replicas = None
         self._group = ShardGroup(len(self.shard_devices))
         self._lockstep = bool(self._stat_names)
+        # pipeline stages: the placed stacked tree (set with the state)
+        self._pp = config.pipeline_stages > 1
+        self._pp_params: Optional[dict] = None
+        self._rows_seen: Optional[np.ndarray] = None
+        if self._pp:
+            self._validate_pipeline()
+
+    def _validate_pipeline(self) -> None:
+        """The JAX Trainer's pipeline preconditions, checked at
+        construction."""
+        cfg = self.config
+        if cfg.architecture != "TransformerLM":
+            raise ValueError(
+                "pipeline_stages > 1 supports architecture='TransformerLM' "
+                f"(got {cfg.architecture!r}); the stage schedule partitions "
+                "a transformer block stack")
+        m = self.module
+        attn_impl = m.config["attn_impl"]
+        if attn_impl != "dense" or m.mlp_impl != "dense":
+            raise ValueError(
+                "pipeline training runs dense transformer blocks; compose "
+                "long-context/MoE via attn_impl/mlp_impl WITHOUT "
+                "pipeline_stages, or keep the pipelined model dense "
+                f"(got attn_impl={attn_impl!r}, mlp_impl={m.mlp_impl!r})")
+        if m.remat and m.remat_policy != "full":
+            raise ValueError(
+                "pipeline training supports remat_policy='full' only (the "
+                "stage scan checkpoints whole layers); got "
+                f"remat_policy={m.remat_policy!r}")
+        stages = self.model_size
+        if stages != cfg.pipeline_stages:
+            raise ValueError(
+                f"pipeline_stages={cfg.pipeline_stages} must equal the "
+                f"mesh's '{MODEL_AXIS}' axis size ({stages}) — the stage "
+                "ring rides that axis")
+        if m.n_layers % cfg.pipeline_stages:
+            raise ValueError(
+                f"n_layers={m.n_layers} must divide evenly into "
+                f"pipeline_stages={cfg.pipeline_stages} stages")
+        if cfg.pipeline_microbatches < 1:
+            raise ValueError("pipeline_microbatches must be >= 1")
 
     @property
     def data_size(self) -> int:
@@ -355,6 +458,8 @@ class Trainer:
         `input_dtype` is the JAX signature's: a shape is all the port's
         init reads.  A warm start resumes the bundle's recorded step."""
         self._tx = Optimizer(self.config, total_steps)
+        if self._pp:
+            return self._init_state_pipelined(initial_bundle)
         if initial_bundle is not None:
             variables = initial_bundle.variables
         elif self._scoring:
@@ -383,6 +488,34 @@ class Trainer:
                           batch_stats=[self.module.get_buffer(n)
                                        for n in self._stat_names])
 
+    def _init_state_pipelined(self, initial_bundle) -> TrainState:
+        """The state over the pipeline's stacked tree, placed on the
+        stages (`parallel/pipeline.py`); a warm start stacks an ordinary
+        TransformerLM bundle's blocks."""
+        from mmlspark_tpu_torch.parallel.pipeline import (
+            init_pipelined_lm, pipeline_leaves, pipeline_param_shardings,
+            pipeline_params_from_variables, place_pipeline_params)
+        c = self.module.config
+        if initial_bundle is not None:
+            params = pipeline_params_from_variables(initial_bundle.variables,
+                                                    c["n_layers"])
+        else:
+            params = init_pipelined_lm(
+                self.config.seed, vocab_size=c["vocab_size"],
+                d_model=c["d_model"], n_heads=c["n_heads"],
+                n_layers=c["n_layers"], max_len=c["max_len"],
+                mlp_ratio=c["mlp_ratio"])
+        self._pp_params = place_pipeline_params(
+            params, pipeline_param_shardings(self.mesh, params))
+        self._names = list(self._pp_params)
+        leaves = pipeline_leaves(self._pp_params)
+        for t in leaves:
+            t.requires_grad_(True)
+        start = int((initial_bundle.metadata or {}).get("steps", 0)) \
+            if initial_bundle is not None else 0
+        return TrainState(step=start, params=leaves,
+                          opt_state=self._tx.init(leaves), batch_stats=[])
+
     # -- the step -------------------------------------------------------
     def make_train_step(self):
         """`step(state, x, y, mask, probe=False) -> (loss, metrics)`, both
@@ -395,12 +528,19 @@ class Trainer:
         optimizer state and BatchNorm statistics are updated in place and
         its step advances.  `metrics` holds `grad_norm` (and a MoE's sown
         metrics), and on a probe step `health` (`tree_health` over the new
-        parameters, the gradients, the updates and the logits)."""
+        parameters, the gradients, the updates and the logits).
+
+        Under several processes the mask count, the loss, the metrics and
+        the locally summed gradients are all-reduced over the processes
+        (one collective) before the one identical update each runs."""
+        if self._pp:
+            return self._make_pipeline_train_step()
         loss_fn, tx, names = self._loss, self._tx, self._names
         scoring, group = self._scoring, self._group
         f32 = self.module.dtype == torch.float32
         aux_w = float(self.config.aux_loss_weight)
-        n = self.data_size
+        # the global data axis: every process's shards
+        n = self.data_size * process_count()
 
         def train_step(state: TrainState, xs, ys, masks,
                        probe: bool = False):
@@ -408,8 +548,7 @@ class Trainer:
                 xs, ys, masks = [xs], [ys], [masks]
             replicas = self._replicas
             replicas.zero_grad()
-            denom = torch.clamp(reduce_to_home(
-                [m.float().sum() for m in masks]), min=1.0)
+            denom = torch.clamp(_global_count(masks), min=1.0)
 
             def shard_loss(i):
                 module = replicas.shards[i]
@@ -435,11 +574,13 @@ class Trainer:
                 loss = reduce_to_home([out[0] for out in shards])
                 loss.backward()
                 grads = replicas.reduced_grads()
+                sums = {key: reduce_to_home([out[2][key] for out in shards])
+                        for key in shards[0][2]}
+                loss, sums = _sum_over_processes(grads, loss, sums)
                 updates = tx.update(grads, state.opt_state, state.params,
                                     return_updates=probe)
             replicas.broadcast()
-            metrics = {key: reduce_to_home([out[2][key] for out in shards])
-                       / n for key in shards[0][2]}
+            metrics = {key: value / n for key, value in sums.items()}
             metrics["grad_norm"] = global_norm(grads)
             state.step += 1
             if probe:
@@ -448,6 +589,36 @@ class Trainer:
                     dict(zip(names, updates)),
                     acts=[out[1] for out in shards])
             return loss.detach(), metrics
+
+        return train_step
+
+    def _make_pipeline_train_step(self):
+        """The step through the pipeline (`parallel/pipeline.py`
+        `pipeline_train_step`): each data row's slab through the GPipe
+        schedule over its stages, the loss over the global mask count,
+        the gradients of each stage's layers on its device summed over
+        the processes, one update of the stacked tree's leaves (the
+        numerics probe is off under pipeline stages)."""
+        from mmlspark_tpu_torch.parallel.pipeline import pipeline_train_step
+        loss_fn, tx, cfg, c = self._loss, self._tx, self.config, \
+            self.module.config
+        f32 = self.module.dtype == torch.float32
+
+        def train_step(state: TrainState, xs, ys, masks,
+                       probe: bool = False):
+            if isinstance(xs, torch.Tensor):
+                xs, ys, masks = [xs], [ys], [masks]
+            denom = torch.clamp(_global_count(masks), min=1.0)
+            with exact_f32() if f32 else contextlib.nullcontext():
+                loss, grads = pipeline_train_step(
+                    self.mesh, self._pp_params, tx, state.opt_state, xs, ys,
+                    masks, loss_fn, denom, n_heads=c["n_heads"],
+                    n_micro=cfg.pipeline_microbatches,
+                    mlp_ratio=c["mlp_ratio"], dtype=self.module.dtype,
+                    remat=c["remat"],
+                    reduce=lambda g, l: _sum_over_processes(g, l, {})[0])
+            state.step += 1
+            return loss, {"grad_norm": global_norm(grads)}
 
         return train_step
 
@@ -478,28 +649,61 @@ class Trainer:
         completed steps, so a preempted-and-resumed run ends with the step
         count and weights of an uninterrupted one.  `skip_data_windows`
         ([(first, last)] inclusive step ranges) skips those steps' data
-        and updates while the step number advances."""
+        and updates while the step number advances.
+
+        Under several processes `x` / `y` are this process's partition
+        (module docstring)."""
         cfg = self.config
         ckpt_dir = ckpt_dir if ckpt_dir is not None else cfg.checkpoint_dir
         n = n_local = len(x)
-        data = self.data_size
+        nproc = process_count()
+        data = self.data_size * nproc   # the global data axis
+        if nproc > 1:
+            self._check_processes(n_local, ckpt_dir, resume)
+            # every process runs the same step count: each epoch feeds the
+            # smallest partition's rows, surplus rows rotate in later
+            sizes = run_collective("fit.sizes", lambda: process_allgather(
+                np.asarray(n_local, np.int64)))
+            n = int(sizes.min())
+            if n != n_local:
+                get_logger("train").warning(
+                    "unequal data partitions %s: each epoch uses %d of this "
+                    "process's %d rows (lockstep step count); surplus rows "
+                    "rotate into later epochs", sizes.tolist(), n, n_local)
         bs = max(cfg.batch_size - cfg.batch_size % data, data)
-        # the newest valid checkpoint, validated once for this fit
+        if self._pp:
+            # each data row's batch splits into whole microbatches
+            unit = data * cfg.pipeline_microbatches
+            bs = max(bs - bs % unit, unit)
+        # the newest valid checkpoint (the coordinator's directory decides),
+        # validated once for this fit
         restore_from = latest_valid_checkpoint(ckpt_dir) \
-            if resume and ckpt_dir else None
+            if resume and ckpt_dir and is_coordinator() else None
         if restore_from:
             bs = self._adopt_saved_batch(restore_from, bs)
+        found = restore_from is not None
+        if nproc > 1 and resume and ckpt_dir:
+            # a restore is a collective: every process follows the
+            # coordinator's decision (and the batch size it adopted)
+            found, bs = (int(v) for v in run_collective(
+                "resume.poll", lambda: broadcast_one_to_all(
+                    np.asarray([int(found), bs], np.int64))))
         self._effective_batch_size = bs
-        steps_per_epoch = max(1, (n + bs - 1) // bs)
+        # rows this process feeds a step (data % nproc == 0 and
+        # bs % data == 0 give equal whole shares)
+        bs_local = bs // nproc
+        steps_per_epoch = max(1, (n + bs_local - 1) // bs_local)
         total_steps = steps_per_epoch * cfg.epochs
 
         state = self.init_state((1,) + x.shape[1:], total_steps,
                                 initial_bundle, input_dtype=x.dtype)
         base_step = skip_until = int(state.step)
-        if restore_from:
+        if found:
             with trace_span("checkpoint.restore", cat="checkpoint",
                             ckpt_dir=ckpt_dir):
-                state = self._restore_path(state, restore_from)
+                state = (self._restore_path(state, restore_from)
+                         if nproc == 1 else
+                         self._restore_broadcast(state, ckpt_dir))
             skip_until = int(state.step)
             trace_event("train.resume", cat="resilience", step=skip_until,
                         ckpt_dir=ckpt_dir,
@@ -508,8 +712,10 @@ class Trainer:
                 "resuming from checkpoint at step %d (skipping %d "
                 "completed steps)", skip_until, skip_until - base_step)
         step_fn = self.make_train_step()
+        # distinct streams per process, so partitions shuffle independently
+        seed = cfg.seed + process_index()
         rng = np.random.default_rng(
-            cfg.seed if not cfg.rng_fold else [cfg.seed, int(cfg.rng_fold)])
+            seed if not cfg.rng_fold else [seed, int(cfg.rng_fold)])
         t0 = monotonic()
         emit = log_fn if log_fn is not None else _LOG.info
         chaos = get_injector()
@@ -521,12 +727,14 @@ class Trainer:
             batch_size=bs, resume_from=skip_until - base_step or 0,
         ) if tracer is not None else None
         fit_id = fit_span.span_id if fit_span is not None else None
-        cadence = max(0, int(cfg.numerics_cadence))
+        # the numerics probe and the watchdog are off under pipeline stages
+        cadence = max(0, int(cfg.numerics_cadence)) if not self._pp else 0
         detector = LossSpikeDetector() if cadence else None
         self.last_health = None
         windows = [(int(a), int(b)) for a, b in (skip_data_windows or [])]
         watchdog = StepWatchdog(cfg.step_timeout_s) \
-            if cfg.step_timeout_s else None
+            if cfg.step_timeout_s and not self._pp else None
+        self._rows_seen = np.zeros(n_local, bool)   # coverage, inspectable
         feeds = {dev: DeviceFeed(dev)
                  for dev in distinct_devices(self.shard_devices)}
         timings = active_timings()   # captured HERE: workers have no context
@@ -538,7 +746,8 @@ class Trainer:
             for epoch in range(cfg.epochs):
                 order = epoch_order(rng, epoch, n, n_local,
                                     cfg.shuffle_each_epoch)
-                for start in range(0, n, bs):
+                self._rows_seen[order] = True
+                for start in range(0, n, bs_local):
                     if step_c >= skip_until:
                         skipped = any(a <= step_c <= b for a, b in windows)
                         yield epoch, step_c, None if skipped else order, \
@@ -555,15 +764,16 @@ class Trainer:
             with span_on_tracer(tracer, "train.stage", parent=fit_id,
                                 cat="stage", step=step_c):
                 with span_on(timings, "host"):
-                    idx = order[start:start + bs]
+                    idx = order[start:start + bs_local]
                     valid = len(idx)
-                    if valid < bs:
+                    if valid < bs_local:
                         # cycle rows of the order into the pad, masked out
-                        idx = np.concatenate([idx,
-                                              np.resize(order, bs - valid)])
-                    mask = np.zeros(bs, np.float32)
+                        idx = np.concatenate([
+                            idx, np.resize(order, bs_local - valid)])
+                    mask = np.zeros(bs_local, np.float32)
                     mask[:valid] = 1.0
-                    rows, slab = (x[idx], y[idx], mask), bs // data
+                    rows = (x[idx], y[idx], mask)
+                    slab = bs_local // self.data_size
                     hosts = [[feeds[dev].stage(
                         host_batch(a[i * slab:(i + 1) * slab]), slab)
                         for a in rows]
@@ -694,7 +904,14 @@ class Trainer:
                         self.save_checkpoint(
                             state, ckpt_dir, step=step,
                             sync=not cfg.async_checkpointing)
-                    if guard.triggered:
+                    preempt_now = guard.triggered
+                    if nproc > 1:
+                        # lockstep: every process agrees before the
+                        # collective save
+                        preempt_now = bool(run_collective(
+                            "preempt.sync", lambda: int(process_allgather(
+                                np.asarray(int(guard.triggered))).max())))
+                    if preempt_now:
                         # the emergency save is a barrier: durable before
                         # the process exits in its grace window
                         self.save_checkpoint(state, ckpt_dir, step=step,
@@ -747,6 +964,33 @@ class Trainer:
         self._last_state = state
         return self.bundle_from_state(state)
 
+    def _check_processes(self, n_local: int, ckpt_dir, resume: bool) -> None:
+        """The preconditions of a fit over several processes: the mesh
+        spans them all (`make_process_mesh`, which holds the data axis to
+        a multiple of their count), no training BatchNorm, and the
+        checkpoint flags (a collective) set alike on every process."""
+        nproc = process_count()
+        spans = 1 if self.mesh is None else self.mesh.process_count
+        if spans != nproc:
+            raise ValueError(
+                f"multi-host training needs a mesh over all {nproc} "
+                f"processes (parallel.mesh.make_process_mesh), got one over "
+                f"{spans}")
+        if self._lockstep:
+            raise NotImplementedError(
+                "training BatchNorm statistics across processes are not "
+                "ported (ROADMAP A10): train this model in one process")
+        flags = np.asarray([int(bool(ckpt_dir)),
+                            int(self.config.checkpoint_every_steps or 0),
+                            int(bool(resume))], np.int64)
+        all_flags = run_collective("fit.flags",
+                                   lambda: process_allgather(flags))
+        if not (all_flags == flags).all():
+            raise ValueError(
+                "checkpoint_dir/checkpoint_every_steps must be set "
+                "consistently on every process (checkpointing is a "
+                f"collective); got {all_flags.tolist()}")
+
     def _adopt_saved_batch(self, path: str, bs: int) -> int:
         """Elastic resume: a checkpoint's `.meta.json` names the topology
         and effective batch size it was written under; adopt the saved
@@ -756,7 +1000,16 @@ class Trainer:
         saved_bs = int(saved.get("effective_batch_size") or 0)
         saved_dp = int(saved.get("data_devices") or 0)
         saved_mp = int(saved.get("model_devices") or 0)
-        data, mp = self.data_size, self.model_size
+        data, mp = self.data_size * process_count(), self.model_size
+        if saved_mp and self._pp and saved_mp != mp:
+            # the stage ring is not elastic: stage-placed block stacks do
+            # not re-partition across another stage count mid-run
+            raise ValueError(
+                f"checkpoint written under dp={saved_dp or '?'} x "
+                f"mp={saved_mp} cannot resume onto the current "
+                f"dp={data} x mp={mp} mesh: pipeline "
+                f"training requires the same stage count "
+                f"(pipeline_stages == '{MODEL_AXIS}' axis size)")
         if saved_dp and (saved_dp != data or (saved_mp and saved_mp != mp)):
             trace_event("train.elastic_resume", cat="resilience",
                         saved_dp=saved_dp, dp=data, saved_mp=saved_mp or 1,
@@ -767,13 +1020,15 @@ class Trainer:
                 "restoring onto dp=%d x mp=%d (reshard-on-restore)",
                 saved_dp, saved_mp or 1, data, mp)
         if saved_bs and saved_bs != bs:
-            if saved_bs % data:
+            unit = data * (self.config.pipeline_microbatches if self._pp
+                           else 1)
+            if saved_bs % unit:
                 raise ValueError(
                     f"elastic resume: checkpoint written under "
                     f"dp={saved_dp or '?'} x mp={saved_mp or 1} with "
                     f"effective batch size {saved_bs} cannot replay onto "
                     f"the current dp={data} x mp={mp} mesh ({saved_bs} does "
-                    f"not divide into the new data-axis unit {data}); "
+                    f"not divide into the new data-axis unit {unit}); "
                     f"pick a batch_size divisible by both topologies to "
                     f"keep resumed runs reproducible")
             get_logger("train").info(
@@ -847,9 +1102,18 @@ class Trainer:
         metadata = {
             "steps": int(state.step),
             "partition": {"rules": rules_to_json(rules),
-                          "mesh": {"data": self.data_size,
+                          "mesh": {"data": self.data_size * process_count(),
                                    "model": self.model_size}},
         }
+        if self._pp:
+            # the stacked tree unstacked: an ordinary TransformerLM bundle
+            from mmlspark_tpu_torch.parallel.pipeline import (
+                variables_from_pipeline_params)
+            return ModelBundle(
+                "TransformerLM", model_config(self.module),
+                variables_from_pipeline_params(
+                    self._pp_params, self.module.config["n_layers"]),
+                metadata)
         return ModelBundle.from_module(self.module, metadata)
 
     # -- checkpoint / resume ----------------------------------------------
@@ -857,12 +1121,29 @@ class Trainer:
         """The checkpoint tree of the JAX Trainer (`{"batch_stats": flax's
         statistics tree ({} without BatchNorm), "opt_state": optax's
         state, "params": the flax tree, "step"}`), leaves as
-        `named_tree`'s `to` says."""
+        `named_tree`'s `to` says.  Under pipeline stages the params are
+        the stacked tree and the optimizer state mirrors it, each stage's
+        parts joined."""
+        if self._pp:
+            return self._pipeline_tree(state, to)
         return {"batch_stats": stats_tree(self._stat_names,
                                           state.batch_stats, to=to),
                 "opt_state": opt_state_to_jax(state.opt_state, self._names,
                                               to=to),
                 "params": named_tree(self._names, state.params, to=to),
+                "step": np.asarray(int(state.step), np.int32)}
+
+    def _pipeline_tree(self, state: TrainState, to: str) -> dict:
+        from mmlspark_tpu_torch.parallel.pipeline import joined_leaves
+
+        def whole(tensors):
+            joined = joined_leaves(self._pp_params, tensors)
+            return [joined[n] for n in self._names]
+        opt = {k: whole(v) if isinstance(v, list) else v
+               for k, v in state.opt_state.items()}
+        return {"batch_stats": {},
+                "opt_state": opt_state_to_jax(opt, self._names, to=to),
+                "params": named_tree(self._names, whole(state.params), to=to),
                 "step": np.asarray(int(state.step), np.int32)}
 
     def _writer_for(self, ckpt_dir: str) -> CheckpointWriter:
@@ -881,9 +1162,10 @@ class Trainer:
     def _ckpt_meta(self, step: int) -> dict:
         """The `.meta.json` sidecar: the topology and effective batch size
         this checkpoint was written under, the JAX Trainer's keys."""
-        return {"step": int(step), "data_devices": self.data_size,
+        return {"step": int(step),
+                "data_devices": self.data_size * process_count(),
                 "model_devices": self.model_size,
-                "process_count": 1,
+                "process_count": process_count(),
                 "effective_batch_size": self._effective_batch_size,
                 "seed": int(self.config.seed),
                 "rng_fold": int(self.config.rng_fold), "format": 1}
@@ -896,10 +1178,20 @@ class Trainer:
         next step's in-place update cannot reach a pending write;
         `sync=False` returns once the copy is queued and the background
         writer has it (the copy to the host, serialization and the disk
-        happen on the writer thread), `sync=True` drains first."""
+        happen on the writer thread), `sync=True` drains first.
+
+        Under several processes every process enters the collective
+        `checkpoint.gather` (each holds the whole state: nothing crosses)
+        and only the coordinator writes."""
         with trace_span("checkpoint.save", cat="checkpoint", sync=sync):
             step = int(state.step) if step is None else int(step)
-            snapshot = self.state_tree(state, to="device")
+            if process_count() == 1:
+                snapshot = self.state_tree(state, to="device")
+            else:
+                run_collective("checkpoint.gather", sync_all)
+                if not is_coordinator():
+                    return os.path.join(ckpt_dir, checkpoint_name(step))
+                snapshot = self.state_tree(state, to="device")
             return self._writer_for(ckpt_dir).submit(
                 step, snapshot, meta=self._ckpt_meta(step), sync=sync)
 
@@ -910,16 +1202,51 @@ class Trainer:
         accepted) into the live parameters (in place) and a new optimizer
         state, and the BatchNorm statistics into their buffers.  A
         checkpoint of another optimizer chain, or of another tree (a
-        pipeline-stage checkpoint's stacked blocks), raises ValueError."""
+        pipeline-stage checkpoint's stacked blocks, into a trainer
+        without stages), raises ValueError.  Under several processes the
+        coordinator reads the file and broadcasts it (`_restore_broadcast`).
+        """
         with trace_span("checkpoint.restore", cat="checkpoint",
                         ckpt_dir=ckpt_dir):
+            if process_count() > 1:
+                return self._restore_broadcast(state, ckpt_dir)
             path = latest_valid_checkpoint(ckpt_dir)
             if path is None:
                 raise FileNotFoundError(f"no valid checkpoint in {ckpt_dir}")
             return self._restore_path(state, path)
 
+    def _restore_broadcast(self, state: TrainState,
+                           ckpt_dir: str) -> TrainState:
+        """The restore over several processes: all peers meet at a named
+        barrier, agree on whether the coordinator's checkpoint is
+        readable, and get the coordinator's read by broadcast (no shared
+        filesystem needed)."""
+        barrier("restore_checkpoint")
+        path = latest_valid_checkpoint(ckpt_dir) if is_coordinator() \
+            else None
+        readable = int(run_collective(
+            "restore.readable", lambda: broadcast_one_to_all(
+                np.asarray(int(path is not None), np.int32))))
+        if not readable:
+            raise FileNotFoundError(
+                f"coordinator has no valid checkpoint in {ckpt_dir}")
+        template = self.state_tree(state, to="numpy")
+        host = read_checkpoint(template, path) if is_coordinator() \
+            else template
+        restored = run_collective("restore.broadcast",
+                                  lambda: broadcast_one_to_all(host))
+        return self._apply_restored(state, restored, path or ckpt_dir)
+
     def _restore_path(self, state: TrainState, path: str) -> TrainState:
         restored = read_checkpoint(self.state_tree(state, to="view"), path)
+        return self._apply_restored(state, restored, path)
+
+    def _apply_restored(self, state: TrainState, restored: dict,
+                        path: str) -> TrainState:
+        """A checkpoint's tree into the live parameters (in place), a new
+        optimizer state and the BatchNorm buffers."""
+        if self._pp:
+            return self._apply_restored_pipeline(state, restored, path)
         opt_state = opt_state_from_jax(restored["opt_state"], self._names,
                                        device=self.device)
         if opt_state["layout"] != state.opt_state["layout"]:
@@ -938,3 +1265,25 @@ class Trainer:
         return TrainState(step=int(np.asarray(restored["step"])),
                           params=state.params, opt_state=opt_state,
                           batch_stats=state.batch_stats)
+
+    def _apply_restored_pipeline(self, state: TrainState, restored: dict,
+                                 path: str) -> TrainState:
+        from mmlspark_tpu_torch.parallel.pipeline import split_leaves
+        opt_state = opt_state_from_jax(restored["opt_state"], self._names)
+        if opt_state["layout"] != state.opt_state["layout"]:
+            raise ValueError(
+                f"checkpoint {path} holds another optimizer chain's state "
+                f"than {self.config.optimizer!r} with this config's clip, "
+                "weight decay and schedule")
+        for key, value in list(opt_state.items()):
+            if isinstance(value, list):
+                opt_state[key] = split_leaves(self._pp_params,
+                                              dict(zip(self._names, value)))
+        parts = split_leaves(self._pp_params,
+                             params_from_jax(restored["params"]))
+        with torch.no_grad():
+            for t, value in zip(state.params, parts):
+                t.copy_(value)
+        return TrainState(step=int(np.asarray(restored["step"])),
+                          params=state.params, opt_state=opt_state,
+                          batch_stats=[])

@@ -215,8 +215,9 @@ def jax_fit(dp, ckpt, **kw):
 
 def test_mesh_options_and_refusals():
     """A `TrainerConfig.mesh` with data 2 trains over host shards, one
-    with a model axis over a (data, model) mesh; pipeline stages and a seq
-    axis still raise, naming ROADMAP A10."""
+    with a model axis over a (data, model) mesh; pipeline stages over a
+    scoring architecture raise the JAX Trainer's ValueError, and a seq
+    axis still raises NotImplementedError naming ROADMAP A10."""
     cfg = TrainerConfig(**{**mlp_config(), "mesh": {"data": 2}})
     assert Trainer(cfg, device="cpu").data_size == 2
     cfg = TrainerConfig(**{**mlp_config(), "mesh": {"data": 1, "model": 2}})
@@ -224,7 +225,7 @@ def test_mesh_options_and_refusals():
     assert (trainer.data_size, trainer.model_size) == (1, 2)
     assert Trainer(TrainerConfig(**mlp_config()), mesh=make_mesh(
         MeshSpec(data=1, model=2), [CPU] * 2)).model_size == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="TransformerLM"):
         Trainer(TrainerConfig(**{**mlp_config(), "pipeline_stages": 2}),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):

@@ -52,7 +52,8 @@ CFG = {"vocab_size": 32, "d_model": 32, "n_heads": 2, "n_layers": 1,
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_multihost_worker.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
@@ -89,8 +90,10 @@ def test_port_never_imports_the_jax_stack():
                    "utils/demo_data.py", "utils/benchmarks.py",
                    "utils/perf.py", "observe/costmodel.py",
                    "observe/profiler.py", "observe/timing.py",
-                   "observe/history.py", "observe/report.py"):
+                   "observe/history.py", "observe/report.py",
+                   "parallel/distributed.py", "parallel/pipeline.py"):
         assert os.path.join(PKG, module) in sources
+    assert os.path.exists(sources[1])
     offenders = [(os.path.relpath(p, REPO), name) for p in sources
                  for name in _imported_roots(p) if name in FORBIDDEN]
     assert offenders == []
@@ -1730,6 +1733,27 @@ def test_model_axis_greedy_decode_on_the_repeated_card(cuda):
     np.testing.assert_array_equal(got, want)
     assert flash_attention.launches - k1 == 2 * 2
     assert fused_single_query_attention.launches - k4 == 2 * 2 * 7
+
+
+@pytest.mark.cuda
+def test_nccl_at_world_size_one(cuda):
+    """The NCCL process group at world size 1 on the card: a sum and a
+    broadcast of CUDA tensors stay on the card, a barrier passes, and
+    the count is 1 (chip_smoke phase 29 (c))."""
+    from mmlspark_tpu_torch.parallel import distributed as d
+    assert d.initialize_distributed(d.DistributedConfig(
+        f"127.0.0.1:{chip_smoke.free_port()}", 1, 0), device=cuda)
+    try:
+        assert d.backend() == "nccl" and d.process_count() == 1
+        t = [torch.arange(4.0, device=cuda)]
+        d.all_reduce_sum(t)
+        assert t[0].is_cuda and t[0].tolist() == [0.0, 1.0, 2.0, 3.0]
+        out = d.broadcast_one_to_all({"w": torch.ones(3, device=cuda)})
+        assert out["w"].is_cuda and out["w"].sum().item() == 3.0
+        d.barrier("nccl_world_one", timeout_s=60)
+    finally:
+        d.shutdown_distributed()
+    assert d.backend() is None
 
 
 def named_leaves(tree, prefix="") -> dict:

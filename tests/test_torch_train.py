@@ -132,14 +132,14 @@ def test_flash_and_dense_attention_give_the_same_gradients():
 
 
 def test_unported_trainer_options_raise():
-    """What the port's Trainer still refuses (pipeline stages) raises
-    NotImplementedError naming its ROADMAP item; the options it runs since
-    (the scoring architectures, the watchdog, the numerics halts,
-    checkpoints, resume, skip windows, the save_attention remat policy, a
-    data axis, a model axis) construct and fit."""
-    cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)),
-                           "pipeline_stages": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """Pipeline stages without a model axis of as many stages raise the
+    JAX Trainer's ValueError (the stage ring rides that axis); the options
+    the port runs (the scoring architectures, the watchdog, the numerics
+    halts, checkpoints, resume, skip windows, the save_attention remat
+    policy, a data axis, a model axis) construct and fit."""
+    cfg = TrainerConfig(**{**dict(FIT, model_config=dict(
+        LM, attn_impl="dense")), "pipeline_stages": 2})
+    with pytest.raises(ValueError, match="axis size"):
         Trainer(cfg, device="cpu")
     cfg = TrainerConfig(**{**dict(FIT, model_config=dict(LM)),
                            "mesh": {"data": 1, "model": 2}})
