@@ -18,8 +18,9 @@ ResNet-50 scoring under the depth Autotuner; `ImageTransformer` and
 `FindBestModel`, the text featurizer and `CheckpointData`), the
 mixture-of-experts LM (served, trained, rematerialized) and the
 population sweep, the measurement layer, and data, tensor and expert
-parallelism over meshes whose shards share the card, and times kernels
-and paths.
+parallelism over meshes whose shards share the card, pipeline stages
+and several processes, and the data service's worker processes feeding
+ResNet-50 scoring, and times kernels and paths.
 
     python3 chip_smoke.py
 
@@ -59,7 +60,7 @@ Phases (any failure exits non-zero before the result line):
      2048 tokens, batch 8, 2 epochs of adam at 3e-4 with flash attention;
      the loss must fall and K1[lse], K2, K3 must each launch n_layers x
      steps times; the trained bundle generates through `TextGenerator`;
-     step time, tokens/s, MFU and a profiler breakdown of one step
+     step time, tokens/s and MFU
   8. the stats entry of the decode kernel, K4[stats], vs plain: bf16 and
      int8 caches (f32 q), head dims 64 and 128, the long-context slab
      (2, 4224, 8, 64) and a window not a multiple of SPLIT, a fully masked
@@ -248,8 +249,7 @@ Phases (any failure exits non-zero before the result line):
      fits; (e) `TPULearner` -> `TPUModel` over 65536 rows x 30: accuracy
      >= 0.95.  Step ms (CUDA events, median of 5), images/s end to end
      per arm, training FLOPs per image and the share of the bf16 peak,
-     peak memory, host / transfer / dispatch / stall seconds and a device
-     breakdown of one step by kernel group
+     peak memory, host / transfer / dispatch / stall seconds
  24. the AutoML layer (`TrainClassifier`, `TrainRegressor`, `Featurize`,
      `TextFeaturizer`, `Word2Vec`, `FindBestModel`,
      `ComputeModelStatistics`, `CheckpointData`; torch ops, no
@@ -258,11 +258,11 @@ Phases (any failure exits non-zero before the result line):
      example 101's six families, fit and transform seconds, accuracy and
      AUC; card predictions equal to the CPU's on >= 99.9% of the test
      rows per family, the same FindBestModel winner, two RandomForest fits
-     bit-equal; (b) flights (250000 rows) through example 102's three
+     bit-equal; (b) flights (125000 rows) through example 102's three
      regressors, R^2 within 1e-4 of the CPU's, LinearRegression's
      coefficients on the collinear featurized matrix within 1e-3 of
      max |w| of float64 lstsq, with the gels solve and the JAX package's
-     cutoff read beside the limit; (c) 50000 reviews through example
+     cutoff read beside the limit; (c) 25000 reviews through example
      201's TextFeaturizer, every ASCII row counted through the fused
      native hasher, the first 2000 byte-identical to the staged path,
      LogisticRegression accuracy within 0.002 of the CPU's, example 202's
@@ -282,7 +282,7 @@ Phases (any failure exits non-zero before the result line):
      (>= 0.95 equal); (b) `Trainer.fit_arrays` at phase 7's shape with
      aux_loss_weight 1e-2: the loss falls, K1[lse], K2 and K3 n_layers x
      steps each, history's moe_overflow_fraction, step ms, tokens/s, the
-     FLOPs as run, the routing share, a device breakdown; (c) one step
+     FLOPs as run, the routing share; (c) one step
      each with no remat, "full" and "save_attention": K1[lse] n / 2n / n,
      the bytes held for the backward none > save_attention > full,
      gradients within 1e-5 of max |g| (bit-equal expected); (d)
@@ -351,6 +351,21 @@ Phases (any failure exits non-zero before the result line):
      model 2 and resnet50() bf16 at data 2 x model 2 against one card;
      (g) K1[lse], K2, K3 at (8, 2048, 4, 128), K1 at (2, 1024, 4, 128)
      and K4 at (2, 1152, 4, 128) against plain and timed
+ 29. pipeline stages and several processes (`phase_pipeline_and_processes`):
+     (a) the Trainer's GPipe step at 2 stages on this card against the
+     core at one stage; (b) the flash LM over 2 processes sharing the
+     card over gloo, bit-equal to the one-process data-2 fit; (c) NCCL at
+     world size 1
+ 30. the data service (`phase_data_service`): phase 22's 768 PNGs ->
+     `read_images_iter(service=DataService(workers=w, mode="process"))`
+     -> ResNet-50 bf16 `TPUModel.transform_batches`, decode in worker
+     processes that see no card: (a) w = 1, 2, 4 beside the local
+     reader (time to the first table, steady images/s; rows in order,
+     pixels equal, scores within phase 22's limit, no worker holding a
+     context on the card); (b) dynamic at 2 workers, every file once;
+     (c) a worker killed by the chaos injector, output byte-equal to
+     local, the death and the re-dispatch in the `data_service`
+     timeline; (d) workers=0, the Autotuner's fleet widths
 
 Each phase's seconds print on a line of their own (`phase seconds N`) and
 as one `{"phase_seconds": ...}` line; the whole run stays under 1000 s.
@@ -521,13 +536,6 @@ GEMM_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 KERNEL_GROUPS = (("flash_attention (K1)", ("flash_fwd",)),
                  ("fused_single_query_attention (K4)", ("sqa_",)),
                  ("GEMM (cuBLAS)", GEMM_KEYS))
-LC_GROUPS = (("K1 / K1[lse] flash_fwd", ("flash_fwd",)),
-             ("K4 / K4[stats] sqa_", ("sqa_",)),
-             ("GEMM (cuBLAS)", GEMM_KEYS))
-TRAIN_GROUPS = (("K1 flash forward with lse", ("flash_fwd",)),
-                ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
-                ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
-                ("GEMM (cuBLAS)", GEMM_KEYS))
 
 
 def device_breakdown(fn, card, kernel_groups=KERNEL_GROUPS) -> dict:
@@ -1594,10 +1602,7 @@ def phase_long_context(dev, card) -> dict:
                             "prefill_ms_all": prefills,
                             "decode_ms_per_step": statistics.median(decode),
                             "decode_ms_per_step_all": decode,
-                            "generate_ms": statistics.median(totals),
-                            "device_breakdown": device_breakdown(
-                                lambda: eng[seq].generate(prompts, true_len),
-                                card, LC_GROUPS)}
+                            "generate_ms": statistics.median(totals)}
         print(f"long-context seq={seq}"
               f"{' (both shards on this one card)' if seq > 1 else ''}, "
               f"{len(totals)} runs each, median [min, max]: prefill "
@@ -1765,11 +1770,9 @@ def phase_train(dev, card) -> dict:
           f"{step_ms:.3f} ms/step = {n_tokens / step_ms * 1e3:.1f} tokens/s; "
           f"analytic MFU {mfu:.4f} of 989 TFLOP/s ({flops / 1e12:.3f} "
           f"TFLOP/step); peak allocated {peak_gb:.2f} GiB [{card}]")
-    breakdown = device_breakdown(lambda: step(state, xb, yb, mb), card,
-                                 TRAIN_GROUPS)
     return {"counts": launched, "seconds": seconds, "history": trainer.history,
             "step_ms": step_ms, "tokens_per_s": n_tokens / step_ms * 1e3,
-            "mfu": mfu, "device_breakdown": breakdown}
+            "mfu": mfu}
 
 
 def phase_grad_check(dev, card) -> dict:
@@ -3245,8 +3248,9 @@ def bench_disagg(dev, card) -> dict:
 # arrive a segment (4) at a time, so a timed pass gives 3 x 12 = 36 gaps,
 # whose p99 is their largest: the gate pools 8 passes an arm (~280 gaps;
 # 16 until phase 28 needed the time: pooled 1.406 over 16, the passes'
-# own ratios 0.93-2.08, PERF.md section 6), the arms' passes interleaved
-# so that the host's drift over the run falls on both alike
+# own ratios 0.93-2.08, PERF.md section 6; 6 passes once pooled 1.144
+# when one pass read 0.888), the arms' passes interleaved so that the
+# host's drift over the run falls on both alike
 INTERFERENCE = dict(victims=3, victim_len=20, victim_new=48, burst=6,
                     burst_len=1000, burst_new=4, seg=4, passes=8,
                     min_p99_ratio=1.2)
@@ -5911,14 +5915,15 @@ def resnet50_bundle(images: np.ndarray, branch_scale: float):
 # disk, read in batches of 128, scored by resnet50() at bf16; the depth
 # knob 0 (the Autotuner), fixed 8 and the hand sweep, decisions every 4
 # batch pulls (6 batches: each tuner steps once); each arm timed `reps`
-# times, the arms interleaved, the start rotated a rep.  (b): 1024 seeded
+# times (2 until phase 30 needed the time), the arms interleaved, the
+# start rotated a rep.  (b): 1024 seeded
 # uint8 images 240 high, 320 wide (a resize to 256 x 256 scales the
 # height up and the width down), batch 256; each op alone at (256, 320,
 # 240, 3) float32.
 INGEST = dict(n_files=768, side=224, batch=128, fixed=8,
               sweep=(2, 4, 8, 16, 32), interval=4, calibration_rows=32,
-              reps=2)
-TRANSFORM = dict(images=1024, height=240, width=320, batch=256, reps=3,
+              reps=1)
+TRANSFORM = dict(images=1024, height=240, width=320, batch=256, reps=2,
                  check_rows=16, cpu_feature_rows=8)
 OPS_SHAPE = (256, 320, 240, 3)
 OPS_CHECK_ROWS = 8
@@ -6073,7 +6078,7 @@ def counting_tuner_steps():
         Autotuner.step = step
 
 
-def phase_image_pipeline(dev, card) -> dict:
+def phase_image_pipeline(dev, card, shared: Optional[dict] = None) -> dict:
     """chip_smoke phase 22: the image pipeline.  (0) the host's codecs;
     (a) bench_ingestion's configuration: 768 PNGs written with the
     standard library -> `read_images_iter(batch_size=128, resize_to=(224,
@@ -6135,8 +6140,7 @@ def phase_image_pipeline(dev, card) -> dict:
                 return (Dataset.from_iterable(lambda: zip(paths, arrays))
                         .batch(bs).map(decode, name="decode"))
             out["decoder"] = "arrays"
-        r50 = resnet50_bundle(arrays[:INGEST["calibration_rows"]],
-                              VISION["resnet_branch_scale"])
+        r50 = ingest_resnet50(arrays, shared)
         model = TPUModel(r50, device=dev, inputCol="image",
                          outputCol="scores", miniBatchSize=bs,
                          computeDtype="bfloat16")
@@ -6190,7 +6194,7 @@ def phase_image_pipeline(dev, card) -> dict:
         "max_score_gap": max(gaps.values()), "max_abs_score": gap_scale,
         "spans": spans.summary(), "autotune_steps": steps,
         "autotune_decisions": decisions,
-        "service_arm": "not ported (A12)"}
+        "service_arm": "phase 30"}
     print(f"phase 22 (a) ingestion of {len(paths)} PNGs "
           f"({out['corpus']['bytes']} bytes, written in "
           f"{out['corpus']['write_s']:.2f} s; decoded {decoded}): images/s, "
@@ -6207,7 +6211,7 @@ def phase_image_pipeline(dev, card) -> dict:
           + "/".join(f"{k} {v:.3f}" for k, v in spans.seconds.items())
           + f" thread-s; pixels equal, rows in order, max score gap "
           f"{out['ingest']['max_score_gap']:.3e} of max |score| "
-          f"{gap_scale:.3e}; service arm: not ported (A12) [{card}]")
+          f"{gap_scale:.3e}; the service arms: phase 30 [{card}]")
     del reference
     torch.cuda.empty_cache()
     out["transform"] = transform_and_featurize(dev, card, r50)
@@ -6483,15 +6487,6 @@ def template_images(n: int, classes: int, noise: float, seed: int) -> tuple:
     return np.clip(noisy, 0, 255).astype(np.uint8), labels.astype(np.int32)
 
 
-VISION_TRAIN_GROUPS = (
-    ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
-                             "implicit")),
-    ("GEMM (cuBLAS)", GEMM_KEYS),
-    ("pooling", ("pool",)),
-    ("reductions", ("reduce",)),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")))
-
-
 def train_step_ms(trainer, bundle, x: np.ndarray, y: np.ndarray,
                   dev) -> tuple:
     """(median ms, one step as a no-argument function): CUDA events
@@ -6622,7 +6617,6 @@ def phase_vision_training(dev, card) -> dict:
     # the timed fits
     step_ms, one_step = train_step_ms(
         Trainer(TrainerConfig(**cfg), device=dev), init, x[:b], y[:b], dev)
-    breakdown = device_breakdown(one_step, card, VISION_TRAIN_GROUPS)
     arms: dict = {-1: [], 2: []}
     spans: dict = {-1: [], 2: []}
     bundles = []
@@ -6652,7 +6646,6 @@ def phase_vision_training(dev, card) -> dict:
         "train_accuracy": accuracy, "losses": losses,
         "e2e_images_per_s": {str(k): v for k, v in arms.items()},
         "spans": {str(k): v for k, v in spans.items()},
-        "device_breakdown": breakdown,
         "step_ms": step_ms, "steady_images_per_s": steady,
         "train_flops_per_image": 3 * fwd,
         "steady_share_of_bf16_peak": steady * 3 * fwd / PEAK_BF16_FLOPS,
@@ -6684,7 +6677,6 @@ def phase_vision_training(dev, card) -> dict:
                             input_shape=(1, side, side, 3))
     step_ms, one_step = train_step_ms(
         Trainer(TrainerConfig(**cfg), device=dev), init, x[:b], y[:b], dev)
-    breakdown = device_breakdown(one_step, card, VISION_TRAIN_GROUPS)
     del one_step
     r50: dict = {}
     for depth in (-1, 2):
@@ -6711,7 +6703,7 @@ def phase_vision_training(dev, card) -> dict:
     fwd = flops_per_row(TPUModel(bundle, device=dev, inputCol="x"), x[0])
     steady = b / step_ms * 1e3
     out["resnet50"] = {
-        "arms": r50, "device_breakdown": breakdown,
+        "arms": r50,
         "step_ms": step_ms, "steady_images_per_s": steady,
         "train_flops_per_image": 3 * fwd,
         "steady_share_of_bf16_peak": steady * 3 * fwd / PEAK_BF16_FLOPS}
@@ -6869,10 +6861,11 @@ def phase_vision_training(dev, card) -> dict:
 # -- phase 24: the AutoML layer ------------------------------------------
 
 # sizes: the UCI Adult's own train/test split, about two weeks of US
-# domestic flights, 50,000 reviews, 8192 images (flights and reviews were
-# 500,000 and 100,000 until phase 28 needed the time)
-AUTOML = dict(census_rows=48842, census_train=32561, flight_rows=250000,
-              flight_train=187500, review_rows=50000, review_train=37500,
+# domestic flights, 25,000 reviews, 8192 images (flights and reviews were
+# 500,000 and 100,000 until phase 28 needed the time, 250,000 and 50,000
+# until phase 30 did)
+AUTOML = dict(census_rows=48842, census_train=32561, flight_rows=125000,
+              flight_train=93750, review_rows=25000, review_train=18750,
               staged_rows=2000, cache_images=8192, cache_batch=1024)
 # the gates: card predictions equal to the CPU's on this share of the
 # test rows; LinearRegression's coefficients within this share of max |w|
@@ -7251,15 +7244,6 @@ MOE_CONFIG = {**LM_CONFIG, "mlp_impl": "moe", "n_experts": 8,
 MOE_AUX = 1e-2
 SWEEP_RATES = (1e-3, 3e-3, 1e-2, 3e-2)
 SWEEP_RUNGS = 2
-MOE_TRAIN_GROUPS = (("K1 flash forward with lse", ("flash_fwd",)),
-                    ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
-                    ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
-                    ("GEMM (cuBLAS)", GEMM_KEYS),
-                    ("gather / scatter / index", ("index", "scatter",
-                                                  "gather")),
-                    ("softmax / argmax / cumsum", ("softmax", "argmax",
-                                                   "cumsum", "scan",
-                                                   "reduce")))
 
 
 def expected_serving_launches(engine, lengths) -> tuple:
@@ -7521,8 +7505,6 @@ def moe_training(dev, card) -> dict:
           f"TFLOP/s; routing (softmax, top-2, positions) {route_ms:.3f} ms "
           f"a layer's forward = {out['routing_share']:.4f} of the step "
           f"[{card}]")
-    out["device_breakdown"] = device_breakdown(
-        lambda: step(state, xb, yb, mb), card, MOE_TRAIN_GROUPS)
     del state, trainer
     torch.cuda.empty_cache()
     # (c) one step in each remat mode from the same weights and batch
@@ -9716,6 +9698,333 @@ def phase_pipeline_and_processes(dev, card) -> tuple:
     return rows, out
 
 
+# -- phase 30: the data service -----------------------------------------------
+
+# bench_ingestion's corpus, batch and ResNet-50 (phase 22) read through
+# `read_images_iter(service=DataService(mode="process"))`: (a) the
+# deterministic stream at these fleet widths, one chunk a split, beside
+# the local reader; (b) the dynamic stream at 2 workers; (c) at 2
+# workers, two chunks a split, worker 0 killed by the chaos injector
+# before its second element; (d) workers=0 (the Autotuner sizes the
+# fleet) over reads of `autoscale_batch` images, a tuner step every
+# `autoscale_interval` pulls.
+DATA_SERVICE = dict(widths=(1, 2, 4), split_elems=1, dynamic_workers=2,
+                    crash_workers=2, crash_split_elems=2, crash_at=0,
+                    autoscale_batch=32, autoscale_interval=2)
+
+
+def ingest_resnet50(arrays: np.ndarray, shared: Optional[dict] = None):
+    """Phases 22 and 30's ResNet-50 bundle, calibrated over the corpus's
+    first `calibration_rows` images; kept in `shared` (main's dict of what
+    phases hand on) so that it is built once a run."""
+    shared = {} if shared is None else shared
+    if "resnet50" not in shared:
+        shared["resnet50"] = resnet50_bundle(
+            arrays[:INGEST["calibration_rows"]],
+            VISION["resnet_branch_scale"])
+    return shared["resnet50"]
+
+
+def card_pids() -> list:
+    """The pids holding a compute context on the card, as nvidia-smi
+    lists them."""
+    done = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60)
+    require(done.returncode == 0,
+            f"nvidia-smi --query-compute-apps failed: {done.stderr[-300:]}")
+    return sorted(int(t) for t in done.stdout.split() if t.isdigit())
+
+
+def process_facts(pid: int) -> dict:
+    """Whether process `pid` maps libcuda (CUDA's user-mode library), and
+    the CUDA_VISIBLE_DEVICES its environment holds."""
+    facts = {"pid": pid, "libcuda": None, "cuda_visible_devices": None}
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            facts["libcuda"] = "libcuda.so" in f.read()
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            for item in f.read().split(b"\0"):
+                if item.startswith(b"CUDA_VISIBLE_DEVICES="):
+                    facts["cuda_visible_devices"] = item.split(b"=", 1)[
+                        1].decode()
+    except OSError:
+        pass
+    return facts
+
+
+@contextlib.contextmanager
+def recorded_workers():
+    """Records every worker process the data service spawns inside the
+    block."""
+    from mmlspark_tpu_torch.data.service import transport
+    procs: list = []
+    spawn = transport.spawn_worker
+
+    def recording(*args, **kwargs):
+        proc = spawn(*args, **kwargs)
+        procs.append(proc)
+        return proc
+    transport.spawn_worker = recording
+    try:
+        yield procs
+    finally:
+        transport.spawn_worker = spawn
+
+
+@contextlib.contextmanager
+def service_timeline():
+    """A telemetry run whose summary holds the `data_service` timeline,
+    with the per-program cost counter off: counting ResNet-50's first
+    batch would land inside the timed pass."""
+    from mmlspark_tpu_torch import config
+    from mmlspark_tpu_torch.observe.telemetry import run_telemetry
+    prev = config.get("MMLSPARK_TPU_COSTMODEL")
+    config.set("MMLSPARK_TPU_COSTMODEL", "0")
+    try:
+        with run_telemetry(None) as rt:
+            yield rt
+    finally:
+        config.set("MMLSPARK_TPU_COSTMODEL", prev)
+
+
+def timeline_entry(event: dict) -> str:
+    keys = ("worker", "split", "reason", "received", "redispatches",
+            "delivered")
+    return event["kind"] + "(" + ", ".join(
+        f"{k}={event[k]}" for k in keys if k in event) + ")"
+
+
+def service_arm(model, source, probe=None) -> dict:
+    """One pass of `source()` -> `model.transform_batches`: the time to
+    the reader's first table (worker start included), the steady rate
+    after it, and the rows; `probe()` runs once the first table is out
+    (the session and its workers are live then)."""
+    marks: dict = {}
+
+    def timed(tables):
+        for table in tables:
+            if "first_s" not in marks:
+                marks["first_s"] = time.perf_counter() - t0
+                marks["first_rows"] = len(table["path"])
+                if probe is not None:
+                    probe()
+            yield table
+    paths, scores, images = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scored in model.transform_batches(timed(source())):
+        paths.extend(scored["path"])
+        scores.append(scored["scores"])
+        images.append(scored["image"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steady_s = wall - marks["first_s"]
+    return {"first_s": marks["first_s"], "wall_s": wall,
+            "images_per_s": len(paths) / wall,
+            "steady_images_per_s": (len(paths) - marks["first_rows"])
+            / max(steady_s, 1e-9),
+            "paths": paths, "scores": np.concatenate(scores),
+            "images": np.concatenate(images)}
+
+
+def phase_data_service(dev, card, shared: Optional[dict] = None) -> dict:
+    """chip_smoke phase 30: the data service.  bench_ingestion's 768
+    PNGs -> `read_images_iter(..., resize_to=(224, 224), device=dev,
+    service=DataService(workers=w, mode="process"))` -> ResNet-50 bf16
+    `TPUModel.transform_batches`: decode runs in worker processes that see
+    no card; resize, batching and scoring run on the card here.  (a) w in
+    DATA_SERVICE["widths"] beside the local reader: time to the first
+    table and steady images/s; gates: the 768 paths in order, pixels equal
+    to the local reader's, scores within phase 22's limit with argmax
+    equal, no worker among nvidia-smi's compute pids and each with
+    CUDA_VISIBLE_DEVICES empty (whether one maps libcuda is printed);
+    (b) dynamic at 2 workers: every path exactly once, each row's pixels
+    and scores its path's; (c) a worker crash: output byte-equal to local, the
+    `data_service` timeline shows the death before the re-dispatch; (d)
+    workers=0: the fleet widths the Autotuner chose (no gate)."""
+    import tempfile
+    from mmlspark_tpu_torch import DataTable, TPUModel, config
+    from mmlspark_tpu_torch.data.service import DataService
+    from mmlspark_tpu_torch.io.image_reader import read_images_iter
+    from mmlspark_tpu_torch.resilience.chaos import (ChaosInjector, Fault,
+                                                     set_injector)
+    t0 = time.perf_counter()
+    cfg = DATA_SERVICE
+    bs = INGEST["batch"]
+    out: dict = {"card": card, "config": dict(cfg, batch=bs,
+                                              files=INGEST["n_files"])}
+    with tempfile.TemporaryDirectory() as corpus:
+        paths, arrays = ingest_corpus(corpus)
+        model = TPUModel(ingest_resnet50(arrays, shared), device=dev,
+                         inputCol="image", outputCol="scores",
+                         miniBatchSize=bs, computeDtype="bfloat16")
+        model.transform(DataTable({"image": arrays[:bs]}))   # warm
+
+        def source(service=None, batch=bs, deterministic=True):
+            return lambda: read_images_iter(
+                corpus, batch_size=batch, resize_to=(224, 224), device=dev,
+                service=service, deterministic=deterministic)
+        local = service_arm(model, source())
+        require(local["paths"] == paths
+                and np.array_equal(local["images"], arrays),
+                "phase 30: the local reader's rows differ from the files")
+        limit = 1e-3 * float(np.abs(local["scores"]).max())
+        row_of = {p: i for i, p in enumerate(paths)}
+
+        def check(name: str, arm: dict, ordered: bool = True) -> dict:
+            if ordered:
+                require(arm["paths"] == paths,
+                        f"phase 30 {name}: {len(arm['paths'])} rows, not "
+                        f"the {len(paths)} files in order")
+                idx = np.arange(len(paths))
+            else:
+                require(len(arm["paths"]) == len(paths)
+                        and sorted(arm["paths"]) == sorted(paths),
+                        f"phase 30 {name}: not every file exactly once "
+                        f"({len(arm['paths'])} rows, "
+                        f"{len(set(arm['paths']))} distinct)")
+                idx = np.array([row_of[p] for p in arm["paths"]])
+            require(np.array_equal(arm["images"], local["images"][idx]),
+                    f"phase 30 {name}: pixels differ from the local "
+                    "reader's")
+            ref = local["scores"][idx]
+            gap = float(np.abs(arm["scores"] - ref).max())
+            same = bool((arm["scores"].argmax(1) == ref.argmax(1)).all())
+            require(same and gap <= limit,
+                    f"phase 30 {name}: scores against the local stream's: "
+                    f"max gap {gap:.3e} (limit {limit:.3e}), argmax equal "
+                    f"{same}")
+            return {"first_s": arm["first_s"], "wall_s": arm["wall_s"],
+                    "images_per_s": arm["images_per_s"],
+                    "steady_images_per_s": arm["steady_images_per_s"],
+                    "max_score_gap": gap,
+                    "scores_bitwise_equal": bool(np.array_equal(
+                        arm["scores"], ref))}
+
+        def describe(arm: dict) -> str:
+            return (f"first table {arm['first_s']:.3f} s, "
+                    f"{arm['images_per_s']:.1f} images/s over the pass, "
+                    f"steady {arm['steady_images_per_s']:.1f}")
+        out["local"] = {k: local[k] for k in ("first_s", "wall_s",
+                                              "images_per_s",
+                                              "steady_images_per_s")}
+        print(f"phase 30 local reader: {describe(local)} [{card}]")
+
+        # (a) deterministic at each width, the workers looked at live
+        out["widths"] = {}
+        for w in cfg["widths"]:
+            seen: dict = {}
+            with recorded_workers() as procs:
+                def probe():
+                    live = [p.pid for p in procs if p.poll() is None]
+                    seen.update(workers=live, on_card=card_pids(),
+                                facts=[process_facts(pid) for pid in live])
+                svc = DataService(workers=w, mode="process",
+                                  split_elems=cfg["split_elems"])
+                arm = service_arm(model, source(svc), probe)
+            row = check(f"(a) workers={w}", arm)
+            row.update(seen)
+            require(len(seen["workers"]) == w,
+                    f"phase 30 (a) workers={w}: {len(seen['workers'])} "
+                    "live workers at the first table")
+            require(not set(seen["workers"]) & set(seen["on_card"]),
+                    f"phase 30 (a) workers={w}: worker pids "
+                    f"{seen['workers']} among the card's compute pids "
+                    f"{seen['on_card']}")
+            require(all(f["cuda_visible_devices"] == ""
+                        for f in seen["facts"]),
+                    f"phase 30 (a) workers={w}: a worker sees a card: "
+                    f"{seen['facts']}")
+            out["widths"][w] = row
+            print(f"phase 30 (a) {w} worker process(es): {describe(arm)}; "
+                  f"{len(paths)} rows in order, pixels equal to the local "
+                  f"reader's, "
+                  f"max score gap {row['max_score_gap']:.3e} (limit "
+                  f"{limit:.3e}, bitwise {row['scores_bitwise_equal']}); "
+                  f"worker pids {seen['workers']}, the card's compute pids "
+                  f"{seen['on_card']} (this process {os.getpid()}), "
+                  f"workers mapping libcuda "
+                  f"{[f['pid'] for f in seen['facts'] if f['libcuda']]}, "
+                  f"each sees CUDA_VISIBLE_DEVICES='' [{card}]")
+            del arm
+
+        # (b) dynamic: first come, every path once
+        arm = service_arm(model, source(
+            DataService(workers=cfg["dynamic_workers"], mode="process",
+                        split_elems=cfg["split_elems"]),
+            deterministic=False))
+        out["dynamic"] = check("(b) dynamic", arm, ordered=False)
+        out["dynamic"]["in_file_order"] = arm["paths"] == paths
+        print(f"phase 30 (b) dynamic, {cfg['dynamic_workers']} workers: "
+              f"{describe(arm)}; each of the {len(paths)} files exactly "
+              f"once (in "
+              f"file order: {out['dynamic']['in_file_order']}), each row's "
+              f"pixels and scores its file's [{card}]")
+        del arm
+
+        # (c) a worker killed mid-split by the chaos injector
+        prev = set_injector(ChaosInjector(script=[Fault(
+            kind="worker_crash", worker=0, at_elem=cfg["crash_at"])]))
+        try:
+            with service_timeline() as rt:
+                arm = service_arm(model, source(DataService(
+                    workers=cfg["crash_workers"], mode="process",
+                    split_elems=cfg["crash_split_elems"])))
+        finally:
+            set_injector(prev)
+        events = rt.summary()["data_service"]
+        kinds = [e["kind"] for e in events]
+        require("worker_dead" in kinds and "redispatch" in kinds
+                and kinds.index("worker_dead") < kinds.index("redispatch"),
+                f"phase 30 (c): the timeline lacks the death before the "
+                f"re-dispatch: {kinds}")
+        out["crash"] = check("(c) crash", arm)
+        out["crash"]["timeline"] = [
+            e for e in events if e["kind"] in ("worker_dead", "redispatch",
+                                               "respawn", "session_end")]
+        print(f"phase 30 (c) worker 0 killed after {cfg['crash_at'] + 1} "
+              f"element(s) ({cfg['crash_workers']} workers, "
+              f"{cfg['crash_split_elems']} chunks a split): {describe(arm)}; "
+              f"rows and pixels byte-equal to the local reader's, scores "
+              f"bitwise {out['crash']['scores_bitwise_equal']}; timeline "
+              + ", ".join(timeline_entry(e) for e in out["crash"]["timeline"])
+              + f" [{card}]")
+        del arm
+
+        # (d) the Autotuner sizes the fleet
+        prev_interval = config.get("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL")
+        config.set("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL",
+                   cfg["autoscale_interval"])
+        try:
+            with service_timeline() as rt:
+                arm = service_arm(model, source(
+                    DataService(workers=0, mode="process",
+                                split_elems=cfg["split_elems"]),
+                    batch=cfg["autoscale_batch"]))
+        finally:
+            config.set("MMLSPARK_TPU_DATA_AUTOTUNE_INTERVAL", prev_interval)
+        require(arm["paths"] == paths
+                and np.array_equal(arm["images"], local["images"]),
+                "phase 30 (d): the autoscaled stream differs from the "
+                "local reader's rows")
+        scale = [(e["workers_from"], e["workers_to"])
+                 for e in rt.summary()["data_service"]
+                 if e["kind"] == "scale"]
+        out["autoscale"] = {"scale": scale, "first_s": arm["first_s"],
+                            "images_per_s": arm["images_per_s"],
+                            "steady_images_per_s":
+                                arm["steady_images_per_s"]}
+        print(f"phase 30 (d) workers=0, reads of "
+              f"{cfg['autoscale_batch']}: the Autotuner's fleet widths "
+              f"{scale or 'unchanged at 1'}; {describe(arm)} [{card}]")
+        del arm, local
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 30 (the data service): {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9796,7 +10105,8 @@ def main() -> int:
                       "card": card}))
     vision = phase(21, phase_vision_scoring)
     print(json.dumps({"vision_scoring": vision, "card": card}))
-    image_pipeline = phase(22, phase_image_pipeline)
+    shared: dict = {}   # what one phase hands on to a later one
+    image_pipeline = phase(22, phase_image_pipeline, shared)
     print(json.dumps({"image_pipeline": image_pipeline, "card": card}))
     vision_training = phase(23, phase_vision_training)
     print(json.dumps({"vision_training": vision_training, "card": card}))
@@ -9814,6 +10124,9 @@ def main() -> int:
     pp_rows, pipeline_processes = phase(29, phase_pipeline_and_processes)
     print(json.dumps({"pipeline_and_processes": pipeline_processes,
                       "card": card}, default=str))
+    data_service = phase(30, phase_data_service, shared)
+    print(json.dumps({"data_service": data_service, "card": card},
+                     default=str))
     total = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
                                         seconds.items()},

@@ -106,13 +106,23 @@ Layer map:
 
 __version__ = "0.1.0"
 
-from mmlspark_tpu_torch.core import (DataTable, Estimator, Param, Params,
-                                     Pipeline, PipelineModel, PipelineStage,
-                                     Transformer, load_stage)
-from mmlspark_tpu_torch.models import (DecodeEngine, ModelBundle,
-                                       TextGenerator, TPUModel, TransformerLM,
-                                       build_model, load_bundle,
-                                       naive_generate, save_bundle)
-from mmlspark_tpu_torch.observe import profile, run_telemetry, stage_timing
-from mmlspark_tpu_torch.train import TPULearner, Trainer, TrainerConfig
-from mmlspark_tpu_torch.zoo import ModelDownloader, pretrained_repo
+from mmlspark_tpu_torch._lazy import lazy_exports
+
+# resolved on first use (`_lazy.py`): importing the package loads no torch
+_EXPORTS = {
+    **dict.fromkeys(("DataTable", "Estimator", "Param", "Params", "Pipeline",
+                     "PipelineModel", "PipelineStage", "Transformer",
+                     "load_stage"), "mmlspark_tpu_torch.core"),
+    **dict.fromkeys(("DecodeEngine", "ModelBundle", "TextGenerator",
+                     "TPUModel", "TransformerLM", "build_model",
+                     "load_bundle", "naive_generate", "save_bundle"),
+                    "mmlspark_tpu_torch.models"),
+    **dict.fromkeys(("profile", "run_telemetry", "stage_timing"),
+                    "mmlspark_tpu_torch.observe"),
+    **dict.fromkeys(("TPULearner", "Trainer", "TrainerConfig"),
+                    "mmlspark_tpu_torch.train"),
+    **dict.fromkeys(("ModelDownloader", "pretrained_repo"),
+                    "mmlspark_tpu_torch.zoo"),
+}
+__all__ = sorted(_EXPORTS)
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

@@ -174,3 +174,16 @@ COLLECTIVE_TIMEOUT_S = register(
         "checkpoint broadcast/gather): on expiry a CollectiveTimeoutError "
         "names the operation instead of the job hanging forever "
         "(parallel/distributed.py).")
+
+# the port's CPU test environment (utils/testenv.py)
+TEST_PLATFORM = register(
+    "MMLSPARK_TPU_TEST_PLATFORM", default="cpu",
+    doc="Test harness: 'cpu' pins the port's CPU test environment (no "
+        "CUDA device visible, float32 default dtype, tensors on the CPU; "
+        "utils/testenv.py); 'cuda' leaves the card visible for the "
+        "`cuda`-marked cases.")
+
+TEST_BUDGET_S = register(
+    "MMLSPARK_TPU_TEST_BUDGET_S", default=30.0, ptype=float,
+    doc="Per-test duration alert budget in seconds (reference "
+        "TestBase.scala:65 alerts at 3s).")

@@ -32,10 +32,12 @@ Row-level error policy on `map` is the shared `on_error` contract
 "skip" drops the row and reports it through `record_skipped_rows`, and
 "column" keeps the row as a `MapError(item, error)`.
 
-The JAX package also records a declarative spec of every node, which its
-`data/graph.py` serializes for its data service; neither is ported, and
-`distribute` raises (ROADMAP A12).  `snapshot(tag)` exposes a
-consumed-element offset for mid-epoch resume (data/snapshot.py).
+Every source and op also records a declarative `_spec` node (op name,
+raw params, parent) beside its closure, the JAX package's nodes.  The spec
+is what `data/graph.py` serializes so a data-service worker
+(`data/service/`) can rebuild and run the same plan in another process;
+`distribute()` splices that service into the chain, and `snapshot(tag)`
+exposes a consumed-element offset for mid-epoch resume (data/snapshot.py).
 """
 
 from __future__ import annotations
@@ -97,9 +99,12 @@ class Dataset:
     work happens until `iterator()` (or plain `for ... in ds`)."""
 
     def __init__(self, make_iter: Callable[["DatasetIterator"], Iterator],
-                 name: str):
+                 name: str, spec: Optional[tuple] = None):
         self._make_iter = make_iter
         self._name = name
+        # (op, params, parent Dataset | None); None marks the node as not
+        # serializable for service execution (from_table, distribute)
+        self._spec = spec
 
     # -- sources --------------------------------------------------------
     @staticmethod
@@ -108,7 +113,9 @@ class Dataset:
         makes the dataset re-iterable — as a source."""
         def make(it):
             return iter(items() if callable(items) else items)
-        return Dataset(make, name)
+        return Dataset(make, name,
+                       spec=("iterable", {"items": items, "name": name},
+                             None))
 
     @staticmethod
     def from_files(path: str, *, recursive: bool = False,
@@ -125,7 +132,12 @@ class Dataset:
                                      sample_ratio=sample_ratio,
                                      inspect_zip=inspect_zip,
                                      pattern=pattern, seed=seed)
-        return Dataset(make, name)
+        return Dataset(make, name,
+                       spec=("files", {"path": path, "recursive": recursive,
+                                       "sample_ratio": sample_ratio,
+                                       "inspect_zip": inspect_zip,
+                                       "pattern": pattern, "seed": seed,
+                                       "name": name}, None))
 
     @staticmethod
     def from_table(table, columns: Optional[list] = None,
@@ -193,7 +205,11 @@ class Dataset:
                     else:  # column
                         yield MapError(*val)
             return gen()
-        return Dataset(make, f"{self._name}.map({name})")
+        return Dataset(make, f"{self._name}.map({name})",
+                       spec=("map", {"fn": fn, "name": name, "depth": depth,
+                                     "workers": workers,
+                                     "on_error": on_error, "span": span},
+                             parent))
 
     def batch(self, batch_size: int,
               drop_remainder: bool = False) -> "Dataset":
@@ -217,7 +233,10 @@ class Dataset:
                 if buf and not drop_remainder:
                     yield buf
             return gen()
-        return Dataset(make, f"{self._name}.batch")
+        return Dataset(make, f"{self._name}.batch",
+                       spec=("batch", {"batch_size": batch_size,
+                                       "drop_remainder": drop_remainder},
+                             parent))
 
     def shuffle(self, buffer_size: int, *, seed: int = 0) -> "Dataset":
         """Seeded windowed shuffle: a `buffer_size` reservoir is kept
@@ -248,7 +267,9 @@ class Dataset:
                 while buf:
                     yield pop()
             return gen()
-        return Dataset(make, f"{self._name}.shuffle")
+        return Dataset(make, f"{self._name}.shuffle",
+                       spec=("shuffle", {"buffer_size": buffer_size,
+                                         "seed": seed}, parent))
 
     def interleave(self, sub_fn: Callable[[Any], Any], *,
                    cycle_length: int, block_length: int = 1) -> "Dataset":
@@ -299,7 +320,11 @@ class Dataset:
                     else:
                         idx += 1
             return gen()
-        return Dataset(make, f"{self._name}.interleave")
+        return Dataset(make, f"{self._name}.interleave",
+                       spec=("interleave", {"sub_fn": sub_fn,
+                                            "cycle_length": cycle_length,
+                                            "block_length": block_length},
+                             parent))
 
     def prefetch(self, depth: Optional[int] = None, *,
                  name: str = "prefetch") -> "Dataset":
@@ -337,7 +362,9 @@ class Dataset:
                     yield val
                 runner.close()
             return gen()
-        return Dataset(make, f"{self._name}.prefetch")
+        return Dataset(make, f"{self._name}.prefetch",
+                       spec=("prefetch", {"depth": depth, "name": name},
+                             parent))
 
     def skip(self, n: int) -> "Dataset":
         """Drop the first `n` elements (the resume idiom: replay the
@@ -347,7 +374,8 @@ class Dataset:
         def make(it):
             upstream = parent._make_iter(it)
             return itertools.islice(upstream, max(0, int(n)), None)
-        return Dataset(make, f"{self._name}.skip")
+        return Dataset(make, f"{self._name}.skip",
+                       spec=("skip", {"n": n}, parent))
 
     def take(self, n: int) -> "Dataset":
         """Keep only the first `n` elements."""
@@ -356,15 +384,18 @@ class Dataset:
         def make(it):
             upstream = parent._make_iter(it)
             return itertools.islice(upstream, max(0, int(n)))
-        return Dataset(make, f"{self._name}.take")
+        return Dataset(make, f"{self._name}.take",
+                       spec=("take", {"n": n}, parent))
 
     def snapshot(self, tag: str = "default") -> "Dataset":
         """Count delivered elements into the process-wide snapshot
         registry (data/snapshot.py) under `tag`, so a checkpoint can
         record a mid-epoch consumed offset in its `.meta.json` sidecar.
         On the next `iterator()` after `set_restore_offsets`, the recorded
-        offset is replayed by dropping the first `offset` elements of the
-        seeded local stream."""
+        offset is replayed: through the service session's dispatch offset
+        when this sits directly above `distribute()` (nothing skipped is
+        ever produced), else by dropping the first `offset` elements of
+        the seeded local stream."""
         parent = self
 
         def make(it):
@@ -373,7 +404,12 @@ class Dataset:
             handle = snapmod.register(tag)
             pending = snapmod.take_restore(tag)
             if pending:
-                upstream = itertools.islice(upstream, pending, None)
+                svc = (it.stage("service")
+                       if getattr(parent, "_service_direct", False) else None)
+                if not (svc is not None
+                        and getattr(svc.runner, "fast_forward",
+                                    lambda n: False)(pending)):
+                    upstream = itertools.islice(upstream, pending, None)
                 handle.consumed = pending
 
             def gen():
@@ -381,15 +417,56 @@ class Dataset:
                     handle.consumed += 1
                     yield item
             return gen()
-        return Dataset(make, f"{self._name}.snapshot")
+        return Dataset(make, f"{self._name}.snapshot",
+                       spec=("snapshot", {"tag": tag}, parent))
 
-    def distribute(self, service=None, **_kwargs) -> "Dataset":
-        """The disaggregated data service (the JAX package's
-        `Dataset.distribute`, its dispatcher and worker processes) is not
-        ported."""
-        raise NotImplementedError(
-            "Dataset.distribute: the data service is not ported (ROADMAP "
-            "A12); iterate the graph locally")
+    def distribute(self, service=None, *, workers: Optional[int] = None,
+                   mode: Optional[str] = None, deterministic: bool = True,
+                   consumer_index: int = 0, num_consumers: int = 1,
+                   split_elems: Optional[int] = None,
+                   name: str = "service") -> "Dataset":
+        """Splice the data service into the chain: the graph below this
+        point is serialized (data/graph.py, at once: an unserializable
+        graph fails here, not in a worker) and executed by service
+        workers; this op streams their ready elements.
+
+        `service` is a `data.service.DataService` (shared across
+        iterators and consumers); None builds a private one from the
+        `MMLSPARK_TPU_DATA_SERVICE_*` knobs.  `workers` follows the shared
+        knob contract: None = config, positive pins the worker count, 0
+        lets the Autotuner scale workers from stall evidence, negative
+        bypasses the service (the graph runs locally).
+        `deterministic=True` reassembles splits in index order, so the
+        epoch is byte-identical to local execution; False yields
+        first-come (dynamic sharding).  `consumer_index` /
+        `num_consumers` shard splits round-robin across consumers.  The
+        session opens on the first pull, so a `snapshot()` above can
+        fast-forward it."""
+        from mmlspark_tpu_torch.data.graph import to_spec
+        spec = to_spec(self)
+        parent = self
+
+        def make(it):
+            from mmlspark_tpu_torch.data.service import DataService
+            from mmlspark_tpu_torch.data.service.consume import (
+                ServiceConsumer)
+            svc = service
+            if svc is None:
+                w = (int(config.get("MMLSPARK_TPU_DATA_SERVICE_WORKERS"))
+                     if workers is None else int(workers))
+                if w < 0:
+                    return parent._make_iter(it)
+                svc = DataService(workers=w, mode=mode)
+            runner = ServiceConsumer(
+                svc, spec, deterministic=deterministic,
+                consumer_index=consumer_index,
+                num_consumers=num_consumers, split_elems=split_elems,
+                owns_service=service is None)
+            it.register(name, runner, tunable=runner.tunable)
+            return iter(runner)
+        ds = Dataset(make, f"{self._name}.distribute")
+        ds._service_direct = True
+        return ds
 
     # -- execution ------------------------------------------------------
     def iterator(self, *, autotune: Optional[bool] = None,

@@ -1,13 +1,20 @@
-"""The socket transport's framing and its non-blocking socket helpers (the
-port of `mmlspark_tpu/data/service/transport.py`, the part the serving
-tiers' KV handoff uses).
+"""The data service's one transport module: sockets and worker spawn (the
+port of `mmlspark_tpu/data/service/transport.py`), also what the serving
+tiers' KV handoff rides.
 
 Wire format — length-prefixed frames on a localhost TCP stream, byte for
 byte the JAX package's:
 
     [4B big-endian length][1B type][payload]
 
-Type ``J``: a JSON control message `{"t": kind, ...}` (sorted keys).
+Type ``J``: a JSON control message `{"t": kind, ...}` (sorted keys):
+handshake (`hello`), plan delivery (`graph`), work assignment (`split`),
+completion (`split_end` with the element count and stage stats), a
+worker-side failure (`err`), shutdown (`stop`).
+Type ``E``: one ready data-service element — `[4B split][4B seq]` + the
+pickled payload (numpy arrays and Python values, never tensors).
+Sequence numbers are per (split, attempt), which is what lets the
+dispatcher drop redelivered elements after a crash re-dispatch.
 Type ``K``: one KV-cache page of the prefill->decode handoff —
 `[4B request id][4B chunk index][4B byte length][4B crc32]` + raw page
 bytes.  The crc is validated at parse time: a bit-flipped page surfaces
@@ -16,26 +23,31 @@ instead of a silently corrupt cache splice, and the bad frame is
 consumed first so the stream stays parseable — one torn page fails one
 transfer, not the whole link.
 
-Type ``E`` (one pickled data-service element) and the worker process
-spawn belong to the data service's dispatcher and workers, which wait for
-ROADMAP A12: an ``E`` frame raises `TransportError` here.
-
-Reads are non-blocking (`recv_ready` + `FrameBuffer`), so one thread can
-pump every link; `read_frame` is the blocking read with a bounded wall
-deadline.
+Reads on the dispatcher's side are non-blocking (`recv_ready` +
+`FrameBuffer`), so one consumer thread can pump every worker;
+`read_frame` is the blocking read with a bounded wall deadline.  Workers
+use plain blocking sockets.  `spawn_worker` starts a worker process
+(`python -m mmlspark_tpu_torch.data.service.worker`) with
+`CUDA_VISIBLE_DEVICES=""`: a worker decodes and shapes host data and
+never creates a context on a card.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import pickle
 import socket
 import struct
+import subprocess
+import sys
 import zlib
 from typing import Iterator, Optional
 
 from mmlspark_tpu_torch.observe.spans import monotonic
 
 _HDR = struct.Struct(">IB")
+_ELEM = struct.Struct(">II")     # split, seq
 _PAGE = struct.Struct(">IIII")  # request id, chunk index, byte len, crc32
 _TYPE_JSON = 0x4A   # 'J'
 _TYPE_ELEM = 0x45   # 'E'
@@ -61,6 +73,18 @@ def encode_json(msg: dict) -> bytes:
     return _HDR.pack(len(payload) + 1, _TYPE_JSON) + payload
 
 
+def send_json(sock: socket.socket, msg: dict) -> None:
+    sock.sendall(encode_json(msg))
+
+
+def send_elem(sock: socket.socket, split: int, seq: int, obj) -> None:
+    """One element frame: the split, the element's sequence number within
+    this attempt at the split, then the pickled element."""
+    payload = _ELEM.pack(split, seq) + pickle.dumps(
+        obj, protocol=pickle.HIGHEST_PROTOCOL)
+    sock.sendall(_HDR.pack(len(payload) + 1, _TYPE_ELEM) + payload)
+
+
 def encode_page(request_id: int, page_index: int, data: bytes) -> bytes:
     """One KV page frame: the (request id, chunk index, byte length,
     crc32) header the handoff protocol acks against, then the raw page.
@@ -73,10 +97,10 @@ def encode_page(request_id: int, page_index: int, data: bytes) -> bytes:
 
 class FrameBuffer:
     """Incremental frame parser: `feed` raw bytes, iterate `frames()`.
-    Frames come out as ("json", dict) or ("page", request_id, page_index,
-    data) — page frames crc-validated at parse time (a failed page raises
-    `TransportError` AFTER consuming the frame, so iteration can resume
-    on the next frame)."""
+    Frames come out as ("json", dict), ("elem", split, seq, obj) or
+    ("page", request_id, page_index, data) — page frames crc-validated
+    at parse time (a failed page raises `TransportError` AFTER consuming
+    the frame, so iteration can resume on the next frame)."""
 
     def __init__(self):
         self._buf = bytearray()
@@ -104,9 +128,12 @@ class FrameBuffer:
             elif ftype == _TYPE_PAGE:
                 yield self._page(payload)
             elif ftype == _TYPE_ELEM:
-                raise TransportError(
-                    "data-service element frames are not ported "
-                    "(ROADMAP A12)")
+                if len(payload) < _ELEM.size:
+                    raise TransportError(
+                        f"truncated element header ({len(payload)}B)")
+                split, seq = _ELEM.unpack_from(payload)
+                yield ("elem", split, seq,
+                       pickle.loads(payload[_ELEM.size:]))
             else:
                 raise TransportError(f"unknown frame type {ftype:#x}")
 
@@ -211,3 +238,45 @@ def recv_ready(sock: socket.socket) -> Optional[bytes]:
         if len(data) < (1 << 16):
             break
     return b"".join(chunks)
+
+
+def spawn_worker(worker_id: int, host: str, port: int, *,
+                 env: Optional[dict] = None) -> subprocess.Popen:
+    """Launch one service worker process that connects back to the
+    dispatcher at host:port, importing the consumer's copy of the package.
+    The worker sees no card (`CUDA_VISIBLE_DEVICES=""`): it decodes and
+    shapes host data and must never create a CUDA context.  Its stderr goes to
+    `MMLSPARK_TPU_DATA_SERVICE_WORKER_LOG/worker-<k>.log` when that knob
+    names a directory, else to /dev/null."""
+    import mmlspark_tpu_torch
+    from mmlspark_tpu_torch import config
+    wenv = dict(os.environ)
+    wenv["CUDA_VISIBLE_DEVICES"] = ""
+    # the worker imports the consumer's copy of the package, wherever the
+    # consumer found it (a checkout on sys.path, not only an install)
+    root = os.path.dirname(os.path.dirname(
+        os.path.abspath(mmlspark_tpu_torch.__file__)))
+    wenv["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in wenv.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    # gauges emitted inside the worker get a per-worker namespace so N
+    # workers reporting into one metrics backend never collide
+    wenv["MMLSPARK_TPU_DATA_SERVICE_WORKER_NS"] = \
+        f"data.service.w{worker_id}"
+    wenv.update(env or {})
+    log_dir = str(config.get("MMLSPARK_TPU_DATA_SERVICE_WORKER_LOG")
+                  or "")
+    stderr = subprocess.DEVNULL
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+        stderr = open(os.path.join(log_dir, f"worker-{worker_id}.log"),
+                      "ab")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "mmlspark_tpu_torch.data.service.worker",
+             "--connect", f"{host}:{port}", "--id", str(worker_id)],
+            stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+            stderr=stderr, env=wenv)
+    finally:
+        if stderr is not subprocess.DEVNULL:
+            stderr.close()   # the child holds its own descriptor

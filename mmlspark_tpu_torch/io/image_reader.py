@@ -20,7 +20,6 @@ import threading
 from typing import Iterator, Optional
 
 import numpy as np
-import torch
 
 from mmlspark_tpu_torch.core.pipeline import check_on_error, record_skipped_rows
 from mmlspark_tpu_torch.core.schema import ColumnMeta, ImageSchema
@@ -84,6 +83,8 @@ def _resize_all(images: list, resize_to: tuple, device="cuda") -> list:
     are grouped by source shape; each group goes to `device` once,
     resizes, rounds half to even, clips and narrows to uint8 there, and
     comes back once."""
+    import torch
+
     from mmlspark_tpu_torch.ops.image import resize
     h, w = resize_to
     fixed = [np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img
@@ -194,10 +195,11 @@ def read_images(path: str, recursive: bool = False, sample_ratio: float = 1.0,
 
 def service_decode_chunk(chunk: list) -> tuple:
     """Decode one `(path, bytes)` chunk to `([paths], [arrays|None])`:
-    the module-level form of the decode stage, which the JAX package ships
-    to its data-service workers.  Per-row `on_error` policy is NOT applied
-    here: it stays on the consumer thread (`absorb`), so failures surface
-    in row order."""
+    the module-level (graph-serializable) form of the decode stage, so
+    `read_images_iter(service=...)` can ship it to data-service workers
+    by import reference (data/graph.py).  Per-row `on_error` policy is
+    NOT applied here: it stays on the consumer thread (`absorb`), so
+    failures surface in row order whichever process decoded them."""
     return [p for p, _ in chunk], decode_many([b for _, b in chunk])
 
 
@@ -244,15 +246,15 @@ def read_images_iter(path: str, batch_size: int = 256,
     decodable image (or resize_to) before the first failure, since the
     placeholder must match the stream's fixed shape.
 
-    `service` (the JAX package's data-service path) is not ported and
-    raises; `deterministic` belongs to it and is accepted for the JAX
-    signature's sake.
+    `service` splices the data service into the decode path: pass a
+    `data.service.DataService` and the read + decode graph runs on its
+    worker processes (`Dataset.distribute`), which see no card, while
+    per-row policy, the resize on `device` and batch assembly stay in
+    the consumer.  `deterministic=True` (default) keeps batch order
+    byte-identical to local execution; False takes first-come dynamic
+    sharding.
     """
     policy = _resolve_on_error(on_error, drop_failures)
-    if service is not None:
-        raise NotImplementedError(
-            "read_images_iter(service=...): the data service is not ported "
-            "(ROADMAP A12)")
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
     paths: list = []
@@ -328,7 +330,18 @@ def read_images_iter(path: str, batch_size: int = 256,
                                 sample_ratio=sample_ratio,
                                 inspect_zip=inspect_zip, pattern=pattern,
                                 seed=seed).batch(batch_size)
-    staged = source.map(decode_batch, name="decode", span=None).iterator()
+    if service is not None:
+        # service path: the serializable module-level decode fn replaces
+        # the span-instrumented closure (workers cannot see this run's
+        # timings anyway), and the graph below this point runs on the
+        # service's worker processes
+        staged = (source
+                  .map(service_decode_chunk, name="decode", span=None)
+                  .distribute(service, deterministic=deterministic)
+                  .iterator())
+    else:
+        staged = (source.map(decode_batch, name="decode", span=None)
+                  .iterator())
     try:
         for batch_paths, decoded in staged:
             absorb(batch_paths, decoded)

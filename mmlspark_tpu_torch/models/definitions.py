@@ -105,6 +105,7 @@ from mmlspark_tpu_torch.parallel.ring import (active_data_shard,
                                               unshard, use_seq_mesh)
 from mmlspark_tpu_torch.quant.modules import (quant_conv_apply,
                                               quant_dense_apply)
+from mmlspark_tpu_torch.utils.registry import register_quant_wrapper
 
 ATTN_IMPLS = ("dense", "flash", "ring", "ring_flash", "ulysses")
 SEQ_IMPLS = ("ring", "ring_flash", "ulysses")
@@ -752,6 +753,11 @@ class Int8Conv(nn.Module):
         x, padding = pad_same(x, self.kernel, self.strides)
         return quant_conv_apply(x, self.weight, self.scale, self.bias,
                                 self.strides, padding, self.compute_dtype)
+
+
+# the int8 forward of each float layer class (utils/registry.py)
+register_quant_wrapper(Dense, quant_dense_apply)
+register_quant_wrapper(Conv, quant_conv_apply)
 
 
 _STATS_SINK: list = []

@@ -8,10 +8,7 @@ interpret them: per-program cost counting with roofline attribution
 bench-history regression store (history.py).  Run summaries carry the
 JAX package's keys."""
 
-from mmlspark_tpu_torch.observe.costmodel import (CostCounter,
-                                                  costmodel_enabled,
-                                                  roofline)
-from mmlspark_tpu_torch.observe.profiler import annotate, profile
+from mmlspark_tpu_torch._lazy import lazy_exports
 from mmlspark_tpu_torch.observe.telemetry import (RunTelemetry, active_run,
                                                   run_telemetry)
 from mmlspark_tpu_torch.observe.timing import (StageTimings,
@@ -21,3 +18,10 @@ from mmlspark_tpu_torch.observe.timing import (StageTimings,
 __all__ = ["CostCounter", "costmodel_enabled", "roofline", "annotate",
            "profile", "RunTelemetry", "active_run", "run_telemetry",
            "StageTimings", "instrument_stage_method", "stage_timing"]
+
+# costmodel and profiler import torch: resolved on first use (`_lazy.py`)
+__getattr__, __dir__ = lazy_exports(__name__, {
+    **dict.fromkeys(("CostCounter", "costmodel_enabled", "roofline"),
+                    "mmlspark_tpu_torch.observe.costmodel"),
+    **dict.fromkeys(("annotate", "profile"),
+                    "mmlspark_tpu_torch.observe.profiler")})

@@ -41,11 +41,10 @@ import contextlib
 import contextvars
 import json
 import os
+import sys
 import threading
 import time
 from typing import Iterator, Optional
-
-import torch
 
 from mmlspark_tpu_torch import config
 from mmlspark_tpu_torch.observe.metrics import counters_snapshot
@@ -125,6 +124,10 @@ class RunTelemetry:
         # the run's population-sweep timeline (train/sweep.py): start,
         # rung culls, member finals and the winner in order
         self._sweep: list[dict] = []
+        # the run's data-service timeline (data/service/dispatcher.py):
+        # dispatches, split ends, worker deaths, re-dispatches, respawns,
+        # scale decisions and snapshot resumes in order
+        self._data_service: list[dict] = []
         # bounded-time cleanups run at finish() (e.g. stopping a metrics
         # server bound to this run) — never allowed to raise or hang the
         # run exit
@@ -192,9 +195,11 @@ class RunTelemetry:
     def sample_memory(self, tag: str = "sample") -> dict:
         """Gauge each visible card's bytes in use / peak bytes in use
         (`torch.cuda.memory_stats`, allocated bytes); nothing on a host
-        without a card — never fabricated."""
+        without a card — never fabricated.  A process that never imported
+        torch (a data-service worker) holds no card memory: nothing."""
         out: dict[str, float] = {}
-        if not self.live:
+        torch = sys.modules.get("torch")
+        if not self.live or torch is None:
             return out
         if not torch.cuda.is_available():
             return out
@@ -311,6 +316,20 @@ class RunTelemetry:
         self.tracer._record({"type": "sweep",
                              "ts": round(self.tracer.now(), 6), **rec})
 
+    def record_data_service(self, event: dict) -> None:
+        """Append one data-service event (data/service/dispatcher.py) to
+        the run's ordered timeline (also streamed as a `data_service`
+        record); the full list lands in run_summary.json under
+        `data_service`: every dispatch, split end, worker death,
+        re-dispatch, respawn, scale decision and snapshot resume, what the
+        crash tests hold their no-duplicate / no-drop recovery against."""
+        if not self.live:
+            return
+        rec = dict(event)
+        self._data_service.append(rec)
+        self.tracer._record({"type": "data_service",
+                             "ts": round(self.tracer.now(), 6), **rec})
+
     # -- finalizers --------------------------------------------------------
     def record_recovery(self, event: dict) -> None:
         """Append one recovery-supervisor event to the run's timeline
@@ -380,9 +399,7 @@ class RunTelemetry:
             "handoff": [dict(e) for e in self._handoff],
             "recovery": [dict(e) for e in self._recovery],
             "sweep": [dict(e) for e in self._sweep],
-            # the data service's timeline (not ported yet): empty, so a
-            # summary keeps the JAX package's keys
-            "data_service": [],
+            "data_service": [dict(e) for e in self._data_service],
             "trace_records_dropped": self.tracer.dropped,
         }
 

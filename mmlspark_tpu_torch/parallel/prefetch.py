@@ -46,6 +46,15 @@ PREFETCH_WORKERS = config.register(
         "threads run the host stacking/padding into pinned buffers and "
         "the host->device copy.")
 
+PREFETCH_WORKER_NS = config.register(
+    "MMLSPARK_TPU_DATA_SERVICE_WORKER_NS", default=None,
+    doc="Gauge namespace prefix for Prefetcher stages running inside a "
+        "data-service worker (set per process by the dispatcher at "
+        "spawn, e.g. 'data.service.w3'): stage gauges publish as "
+        "'<ns>.<stage>.depth' instead of 'prefetch.<stage>.depth', so "
+        "N workers reporting into one metrics backend never collide. "
+        "Unset: the in-process 'prefetch.' namespace.")
+
 
 # The autotuner's floor: an autotuned stage starts here and is never
 # narrowed below it, so "autotune" always keeps at least double buffering.
@@ -100,6 +109,10 @@ class Prefetcher:
         # see its contextvar
         from mmlspark_tpu_torch.observe.telemetry import active_run
         self._run = active_run()
+        # inside a data-service worker, gauges carry the per-worker
+        # namespace the dispatcher assigned (data.service.w<k>.<stage>)
+        ns = config.get("MMLSPARK_TPU_DATA_SERVICE_WORKER_NS")
+        self._gauge_ns = f"{ns}.{name}" if ns else f"prefetch.{name}"
         # always-on counters, which the Autotuner reads through `stats()`
         self.stall_s = 0.0   # consumer time blocked on unfinished staging
         self.stalls = 0      # deliveries that blocked on an unfinished item
@@ -163,9 +176,9 @@ class Prefetcher:
             self.deliveries += 1
             self.residency += len(self._pending)
             if self._run is not None:
-                self._run.gauge(f"prefetch.{self._name}.depth",
+                self._run.gauge(f"{self._gauge_ns}.depth",
                                 len(self._pending))
-                self._run.gauge(f"prefetch.{self._name}.stall_s",
+                self._run.gauge(f"{self._gauge_ns}.stall_s",
                                 round(self.stall_s, 6))
             self._top_up()
             return result

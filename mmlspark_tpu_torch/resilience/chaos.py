@@ -160,9 +160,10 @@ class Fault:
     replica crashes after its first page is on the wire; the remaining
     pages never arrive and the request must re-prefill elsewhere).
 
-    In the port the data service is not ported yet (ROADMAP A12): its
-    fault kinds are kept so a script means the same in both packages,
-    and nothing of the port consults them.
+    The data-service kinds reach the port's dispatcher
+    (data/service/dispatcher.py) the JAX package's way: in-process
+    workers read them from the injector, and a spawned worker gets them
+    in its environment (`MMLSPARK_TPU_DATA_SERVICE_CHAOS`).
     """
 
     kind: str

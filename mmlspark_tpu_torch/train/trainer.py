@@ -174,6 +174,8 @@ import torch.nn.functional as F
 
 from mmlspark_tpu_torch.core.device import exact_f32, resolve_device
 from mmlspark_tpu_torch.data import Dataset
+from mmlspark_tpu_torch.data.snapshot import (set_restore_offsets,
+                                             snapshot_offsets)
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_variables,
                                               params_from_jax,
                                               variables_from_jax)
@@ -997,6 +999,11 @@ class Trainer:
         batch size (when it divides into this data axis) so the step
         numbering and data order replay identically."""
         saved = checkpoint_meta(path) or {}
+        # mid-epoch data position saved by snapshot() ops: arm the restore
+        # registry so the NEXT build of each tagged pipeline skips the
+        # already-consumed prefix
+        if saved.get("data_snapshots"):
+            set_restore_offsets(saved["data_snapshots"])
         saved_bs = int(saved.get("effective_batch_size") or 0)
         saved_dp = int(saved.get("data_devices") or 0)
         saved_mp = int(saved.get("model_devices") or 0)
@@ -1162,13 +1169,20 @@ class Trainer:
     def _ckpt_meta(self, step: int) -> dict:
         """The `.meta.json` sidecar: the topology and effective batch size
         this checkpoint was written under, the JAX Trainer's keys."""
-        return {"step": int(step),
+        meta = {"step": int(step),
                 "data_devices": self.data_size * process_count(),
                 "model_devices": self.model_size,
                 "process_count": process_count(),
                 "effective_batch_size": self._effective_batch_size,
                 "seed": int(self.config.seed),
                 "rng_fold": int(self.config.rng_fold), "format": 1}
+        # mid-epoch data position: every live snapshot() op's consumed
+        # count rides the sidecar, so a resume replays exactly the
+        # remaining elements (data/snapshot.py)
+        offsets = snapshot_offsets()
+        if offsets:
+            meta["data_snapshots"] = offsets
+        return meta
 
     def save_checkpoint(self, state: TrainState, ckpt_dir: str, *,
                         step: Optional[int] = None,

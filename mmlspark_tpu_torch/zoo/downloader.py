@@ -1,5 +1,5 @@
-"""Model repository client, local half: manifest -> sha256-verified local
-cache (the port of `mmlspark_tpu/zoo/downloader.py`).
+"""Model repository client: manifest -> sha256-verified local cache (the
+port of `mmlspark_tpu/zoo/downloader.py`).
 
 A repository is a directory of `.tpubundle` payloads (a deterministic zip
 of a ModelBundle directory, `models/bundle.py`) beside `.meta` JSON schemas
@@ -11,7 +11,9 @@ by either package serves the other.
 
 `pretrained_repo()` reads the JAX package's committed trained bundles
 (`mmlspark_tpu/zoo/pretrained/`) in place, as data files.  `RemoteRepo`
-(HTTP) is not ported (ROADMAP A12).
+reads a repository served over HTTP(S) (a directory with a MANIFEST,
+`LocalRepo.export_manifest`) through `resilience/net.py` `fetch_url`
+(retries, the host's circuit breaker).
 """
 
 from __future__ import annotations
@@ -181,13 +183,46 @@ class LocalRepo:
 
 
 class RemoteRepo:
-    """An HTTP(S) repository (a MANIFEST of `.meta` names): not ported.
-    The port has no network fetch layer yet (`resilience/net.py`)."""
+    """HTTP(S) repository: a MANIFEST lists the `.meta` names (the
+    DefaultModelRepo analogue, ModelDownloader.scala:109-157)."""
 
-    def __init__(self, base_url: str, *args, **kwargs):
-        raise NotImplementedError(
-            "RemoteRepo is not ported (ROADMAP A12); the port reads local "
-            "repositories (LocalRepo, pretrained_repo)")
+    def __init__(self, base_url: str, connect_timeout: float = 15.0,
+                 read_timeout: float = 60.0):
+        self.base_url = base_url.rstrip("/")
+        self.connect_timeout = connect_timeout
+        self.read_timeout = read_timeout
+
+    def _fetch(self, rel: str, timeout: Optional[float] = None) -> bytes:
+        # the resilience layer's fetch: retry/backoff and the host's
+        # circuit breaker, the policy io/remote.py uses
+        from mmlspark_tpu_torch.resilience.net import fetch_url
+        return fetch_url(f"{self.base_url}/{rel}",
+                         timeout=timeout or self.connect_timeout)
+
+    def list_schemas(self) -> Iterable[ModelSchema]:
+        manifest = self._fetch("MANIFEST").decode().split()
+        return [ModelSchema.from_json(json.loads(self._fetch(name).decode()))
+                for name in manifest]
+
+    def get_payload(self, schema: ModelSchema) -> bytes:
+        uri = schema.uri
+        if "://" in uri:
+            # an absolute URI may name a subdirectory or another host than
+            # base_url, but a remote-supplied .meta must not steer the
+            # client to file:///etc/... or an internal service: http(s)
+            # only, the trust level of base_url itself
+            import urllib.parse
+            if urllib.parse.urlparse(uri).scheme not in ("http", "https"):
+                raise ModelNotFoundError(
+                    f"refusing non-http(s) payload uri: {uri!r}")
+        try:
+            if "://" in uri:
+                from mmlspark_tpu_torch.resilience.net import fetch_url
+                return fetch_url(uri, timeout=self.read_timeout)
+            # large payloads get the (longer) read window
+            return self._fetch(uri, timeout=self.read_timeout)
+        except Exception as e:
+            raise ModelNotFoundError(uri) from e
 
 
 def pretrained_repo() -> LocalRepo:

@@ -228,8 +228,16 @@ def test_snapshot_offsets_replay_the_remaining_stream():
 
 
 def test_distribute_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        Dataset.from_iterable(range(3)).distribute()
+    """`distribute` (once a NotImplementedError) now runs the graph on
+    the data service: in-process workers give the local stream, and
+    workers < 0 bypass the service."""
+    ds = Dataset.from_iterable(list(range(7))).batch(2)
+    want = [list(b) for b in ds]
+    for kw in ({"workers": 2, "mode": "inproc", "split_elems": 1},
+               {"workers": -1}):
+        it = ds.distribute(**kw).iterator(autotune=False)
+        with it:
+            assert [list(b) for b in it] == want
 
 
 @pytest.fixture(scope="module")
@@ -293,6 +301,8 @@ def test_read_images_iter_refuses_a_shape_change_and_the_service(tmp_path):
         (tmp_path / f"{i}.png").write_bytes(buf.getvalue())
     with pytest.raises(ValueError, match="uniform shapes"):
         list(read_images_iter(str(tmp_path), batch_size=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        next(read_images_iter(str(tmp_path), service=object(),
-                              device="cpu"))
+    from mmlspark_tpu_torch.data.service import DataService
+    with pytest.raises(ValueError, match="uniform shapes"):
+        list(read_images_iter(str(tmp_path), batch_size=2, device="cpu",
+                              service=DataService(workers=2,
+                                                  mode="inproc")))

@@ -119,14 +119,20 @@ def test_flipped_bit_fails_crc_in_both_packages(bit):
 
 
 def test_element_frames_wait_for_the_data_service():
-    """Type E frames (the data service's elements) are the JAX module's
-    only; the port refuses one instead of unpickling it."""
+    """Type E frames (the data service's elements, once refused here)
+    decode as the JAX module's: `[4B split][4B seq]` + the pickled
+    element; a frame too short for its header is a TransportError (a
+    dead link to the dispatcher), not a struct error."""
+    import pickle
     hdr = struct.Struct(">IB")
+    payload = struct.pack(">II", 3, 5) + pickle.dumps(("p", [1, 2]))
     buf = FrameBuffer()
-    buf.feed(hdr.pack(9, 0x45) + b"\x00" * 8)
-    with pytest.raises(TransportError, match="A12"):
+    buf.feed(hdr.pack(len(payload) + 1, 0x45) + payload)
+    assert list(buf.frames()) == [("elem", 3, 5, ("p", [1, 2]))]
+    buf.feed(hdr.pack(5, 0x45) + b"\x00" * 4)
+    with pytest.raises(TransportError, match="truncated element header"):
         list(buf.frames())
-    assert not hasattr(transport, "spawn_worker")
+    assert callable(transport.spawn_worker)
 
 
 def test_listen_connect_accept_and_recv_ready():

@@ -287,6 +287,77 @@ def test_builtin_repo_and_remote_repo(tmp_path):
     jb = JaxDL(str(tmp_path / "c")).load_bundle(s)
     assert jb.config == {"hidden_sizes": [100], "num_classes": 2,
                          "dtype": "bfloat16"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        RemoteRepo("http://localhost:1")
+    remote = RemoteRepo("http://127.0.0.1:1/")
+    assert (remote.base_url, remote.read_timeout) == ("http://127.0.0.1:1",
+                                                      60.0)
+
+
+@pytest.fixture
+def served_repo(tmp_path):
+    """A LocalRepo with one model and its MANIFEST, served over HTTP from
+    a thread on 127.0.0.1; yields (base url, the LocalRepo)."""
+    import functools
+    import http.server
+    import threading
+    repo = create_builtin_repo(str(tmp_path / "serve"), include=["MLP"])
+    repo.export_manifest()
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+    server = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Quiet, directory=repo.path))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}", repo
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)
+        server.server_close()
+
+
+def test_remote_repo_equals_the_jax_remote_repo(served_repo, tmp_path):
+    """Over one HTTP server the port's RemoteRepo lists the JAX
+    RemoteRepo's schemas and fetches the same payload bytes, and a
+    download through it verifies and loads."""
+    from mmlspark_tpu.zoo import RemoteRepo as JaxRemoteRepo
+    base, repo = served_repo
+    remote, jax_remote = RemoteRepo(base), JaxRemoteRepo(base)
+    schemas = list(remote.list_schemas())
+    jax_schemas = list(jax_remote.list_schemas())
+    assert [s.to_json() for s in schemas] == \
+        [s.to_json() for s in jax_schemas]
+    assert [s.name for s in schemas] == ["MLP"]
+    payload = remote.get_payload(schemas[0])
+    assert payload == jax_remote.get_payload(jax_schemas[0])
+    with open(os.path.join(repo.path, schemas[0].uri), "rb") as f:
+        assert payload == f.read()
+    dl = ModelDownloader(str(tmp_path / "cache"))
+    local = dl.download_by_name(remote, "MLP")
+    assert sha256_file(local.uri) == schemas[0].hash
+    assert dl.load_bundle(local).config["hidden_sizes"] == [100]
+    with pytest.raises(ModelNotFoundError):
+        dl.download_by_name(remote, "DoesNotExist")
+
+
+def test_remote_payload_uri_scheme_restricted(tmp_path, monkeypatch):
+    """A remote-supplied .meta whose payload uri is not http(s) is refused
+    without being opened (the JAX package's hostile-manifest case)."""
+    import dataclasses
+
+    from mmlspark_tpu_torch.resilience import net
+    repo = create_builtin_repo(str(tmp_path / "zoo"), include=["MLP"])
+    [src] = repo.list_schemas()
+    secret = tmp_path / "secret.bin"
+    secret.write_bytes(b"host file contents")
+    opened = []
+    monkeypatch.setattr(net, "http_get",
+                        lambda url, **kw: opened.append(url) or b"")
+    remote = RemoteRepo("http://127.0.0.1:1/unused")
+    for bad in (f"file://{secret}", "ftp://internal/payload",
+                "gopher://internal:70/x"):
+        with pytest.raises(ModelNotFoundError, match="non-http"):
+            remote.get_payload(dataclasses.replace(src, uri=bad))
+    assert opened == []
 
