@@ -354,8 +354,9 @@ Phases (any failure exits non-zero before the result line):
  29. pipeline stages and several processes (`phase_pipeline_and_processes`):
      (a) the Trainer's GPipe step at 2 stages on this card against the
      core at one stage; (b) the flash LM over 2 processes sharing the
-     card over gloo, bit-equal to the one-process data-2 fit; (c) NCCL at
-     world size 1
+     card over gloo, bit-equal to the one-process data-2 fit, and
+     ResNet-50 with training BatchNorm (its statistics all-reduced over
+     the processes) bit-equal likewise; (c) NCCL at world size 1
  30. the data service (`phase_data_service`): phase 22's 768 PNGs ->
      `read_images_iter(service=DataService(workers=w, mode="process"))`
      -> ResNet-50 bf16 `TPUModel.transform_batches`, decode in worker
@@ -366,6 +367,18 @@ Phases (any failure exits non-zero before the result line):
      (c) a worker killed by the chaos injector, output byte-equal to
      local, the death and the re-dispatch in the `data_service`
      timeline; (d) workers=0, the Autotuner's fleet widths
+ 31. populations (`phase_populations`, only the port): (a) the LM
+     population at LM_CONFIG's width, 4 members at SWEEP_RATES, 2 steps
+     of 8 x 2048: K1[lse], K2 and K3 exactly n_layers x steps times each
+     whatever the population's size (the members folded into one
+     launch), each member's curve within 5e-3 of its plain `Trainer`
+     fit, an f32 arm at 2 layers within 2e-5 (weights as POP's note
+     says), the folded kernels checked and timed at (32, 2048, 8, 128);
+     (b) the f32 population at 2 layers over data 2 x model 2 on this
+     card against one card, K1[lse] / K2 / K3 layers x steps x 4 shards;
+     (c) a ResNet-18 population with training BatchNorm at data 2 against
+     one card at the same global batch, phase 27 (c)'s limits, a planted
+     per-shard BatchNorm rejected
 
 Each phase's seconds print on a line of their own (`phase seconds N`) and
 as one `{"phase_seconds": ...}` line; the whole run stays under 1000 s.
@@ -530,54 +543,6 @@ def repeat_and_graph_check(fn, what: str) -> None:
                 f"{what}: a CUDA graph replay differs from an eager call")
     print(f"{what}: two calls bitwise equal; a CUDA graph replayed twice "
           f"equals them")
-
-
-GEMM_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
-KERNEL_GROUPS = (("flash_attention (K1)", ("flash_fwd",)),
-                 ("fused_single_query_attention (K4)", ("sqa_",)),
-                 ("GEMM (cuBLAS)", GEMM_KEYS))
-
-
-def device_breakdown(fn, card, kernel_groups=KERNEL_GROUPS) -> dict:
-    """Profile one call with torch.profiler: device kernel time by group
-    and the device's idle share of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    groups: dict = {}
-    top = []
-    for evt in prof.key_averages():
-        # kernel rows only: an operator row repeats its kernels' time
-        if evt.device_type == DeviceType.CPU:
-            continue
-        us = evt.self_device_time_total
-        if us <= 0:
-            continue
-        name = evt.key.lower()
-        group = next((g for g, keys in kernel_groups
-                      if any(k in name for k in keys)), "other kernels")
-        groups[group] = groups.get(group, 0.0) + us
-        top.append((us, evt.count, evt.key[:90]))
-    busy = sum(groups.values())
-    if busy == 0:
-        print(f"  device breakdown: not measured (the profiler saw no "
-              f"device time) [{card}]")
-        return {}
-    print(f"  device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-          f"(idle share {1 - busy / wall_us:.3f}) [{card}]")
-    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"    {group}: {us / 1e3:.3f} ms ({us / busy:.3f} of busy)")
-    for us, count, key in sorted(top, reverse=True)[:8]:
-        print(f"      {us / 1e3:.3f} ms in {count} launches: {key}")
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / wall_us,
-            "groups_ms": {g: us / 1e3 for g, us in groups.items()}}
 
 
 def card_line() -> str:
@@ -1154,7 +1119,6 @@ def phase_main_path(dev, card) -> dict:
     table = DataTable({"prompt": object_column(rows)})
     counts = {}
     tokens_per_s = {}
-    breakdown = {}
     for kv in (None, "int8"):
         stage = TextGenerator(bundle, device=dev, inputCol="prompt",
                               maxNewTokens=MAX_NEW, kvCacheDtype=kv)
@@ -1181,9 +1145,6 @@ def phase_main_path(dev, card) -> dict:
               f"decode={counts[kv or 'model'][1]} [{card}]")
         require(counts[kv or "model"][0] > 0, "flash kernel not launched")
         require(counts[kv or "model"][1] > 0, "decode kernel not launched")
-        if kv is None:
-            breakdown["model"] = device_breakdown(
-                lambda: stage.transform(table), card)
 
     # per-phase device time of the largest bucket (1984: two rows)
     stage = TextGenerator(bundle, device=dev, inputCol="prompt",
@@ -1248,7 +1209,6 @@ def phase_main_path(dev, card) -> dict:
     print(f"f32 greedy tokens kernel path vs recompute oracle: "
           f"{matches}/{total} = {matches / total:.4f} match")
     return {"counts": counts, "tokens_per_s": tokens_per_s,
-            "device_breakdown": breakdown,
             "prefill_ms": prefill_ms, "decode_ms_per_step": seg_ms / steps,
             "greedy_match_f32": matches / total}
 
@@ -1845,7 +1805,7 @@ SERVE_BENCH_CONFIG = {"vocab_size": 8192, "d_model": 512, "n_heads": 8,
                       "n_layers": 4, "max_len": 256, "dtype": "bfloat16"}
 SERVE_BENCH = dict(n_req=48, short_new=16, long_new=96, max_batch=8,
                    seg=16, chunk=64, lens=(40, 48, 56, 64), offered=96,
-                   reps=3)
+                   reps=2)
 def http_json(port: int, method: str, path: str, body=None) -> tuple:
     """(status, parsed JSON body) of one request on a fresh connection."""
     import http.client
@@ -2263,7 +2223,7 @@ FIRST_TOKEN = dict(config={"vocab_size": 8192, "d_model": 1024,
 # head dim 32), f32 for its exact gate
 ZIPF = dict(config={"vocab_size": 8192, "d_model": 256, "n_heads": 8,
                     "n_layers": 4, "max_len": 1024, "dtype": "float32"},
-            n=16, new=8, chunk=64, prefix=896, suffix=64, reps=3)
+            n=16, new=8, chunk=64, prefix=896, suffix=64, reps=2)
 
 
 def post_all(port, named: dict, then: Optional[dict] = None) -> dict:
@@ -4528,8 +4488,8 @@ def phase_small_head_dims(dev, card) -> tuple:
 SPEC_K = 7
 SPEC_BENCH_CONFIG = {"vocab_size": 8192, "d_model": 1024, "n_heads": 8,
                      "n_layers": 8, "max_len": 512, "dtype": "bfloat16"}
-# reps 3 until phase 28 needed the time
-SPEC_BENCH = dict(batch=8, prompt=64, new=128, k=7, chunk=128, reps=2)
+# reps 3 until phase 28 needed the time, 2 until phase 31 did
+SPEC_BENCH = dict(batch=8, prompt=64, new=128, k=7, chunk=128, reps=1)
 SPEC_SERVE_LENGTHS = (20, 70, 600, 900)
 SPEC_SERVE_K = 3
 BEAM = dict(prompt=600, new=16, width=4)
@@ -4646,8 +4606,8 @@ def spec_main_path(dev, card) -> dict:
 def spec_bench(dev, card) -> dict:
     """Phase 18 (b): bench.py's speculative arm at its own width, bf16:
     `DecodeEngine` with and without a 1-layer draft of the softened
-    target, best of 2 generates each, in this call; the acceptance rate
-    and the agreement of the greedy tokens."""
+    target, the best of SPEC_BENCH["reps"] generates each, in this call;
+    the acceptance rate and the agreement of the greedy tokens."""
     from mmlspark_tpu_torch import ModelBundle
     from mmlspark_tpu_torch.models import DecodeEngine
     from mmlspark_tpu_torch.zoo import (soften_late_blocks,
@@ -4954,8 +4914,8 @@ def phase_lm_decoding(dev, card) -> dict:
 # (async), a chaos preemption and its resume, a resume past a torn newest
 # checkpoint, and the recovery supervisor against a NaN and a hung step
 # reps 5 until phase 28 needed the time
-CKPT = dict(every=2, preempt_at=2, nan_at=2, hang_at=3, hang_s=4.0,
-            step_timeout_s=2.0, reps=3)
+CKPT = dict(every=2, preempt_at=2, nan_at=2, hang_at=3, hang_s=3.0,
+            step_timeout_s=2.0, reps=2)
 
 
 def ckpt_config(**kw):
@@ -5498,7 +5458,7 @@ def ring_block_rows(dev, card, blocks: dict) -> list:
 # two MLP zoo bundles.  Inputs are made here with numpy from seed 0.
 # reps 3 (VISION, INGEST) until phase 28 needed the time
 VISION = dict(convnet_images=32768, convnet_batch=4096, resnet_images=1024,
-              resnet_batch=256, check_rows=256, reps=2, steady_iters=4,
+              resnet_batch=256, check_rows=256, reps=1, steady_iters=4,
               wdbc_rows=65536, text_rows=16384, mlp_batch=4096,
               calibration_rows=32, resnet_branch_scale=0.1)
 # The gates of phase 21, per model family and arm, each limit a share of
@@ -9179,7 +9139,7 @@ def phase_model_parallel(dev, card) -> tuple:
 PP = dict(stages=2, micro=4, steps=4, f32_layers=2, logits_tol=2e-5,
           grad_tol=1e-5, bundle_tol=2e-4, score_rows=2, score_seq=512)
 MH = dict(n=2, rows=16, batch=8, epochs=2, score_seq=256, score_batch=4,
-          drop=3, timeout_s=420)
+          drop=3, timeout_s=420, r50_rows=32, r50_batch=16, r50_side=224)
 
 
 def pp_mesh(dev, stages: int = PP["stages"]):
@@ -9382,16 +9342,17 @@ def mh_settings(work: str, save: bool = False) -> None:
     """The parent's LM_CONFIG, TRAIN_SEQ and MH in DIR/settings.json
     (`save`), which each worker reads back, so both sides run one
     configuration."""
-    global LM_CONFIG, TRAIN_SEQ, MH
+    global LM_CONFIG, TRAIN_SEQ, MH, RESNET50
     path = os.path.join(work, "settings.json")
     if save:
         with open(path, "w") as f:
-            json.dump({"lm": LM_CONFIG, "seq": TRAIN_SEQ, "mh": MH}, f)
+            json.dump({"lm": LM_CONFIG, "seq": TRAIN_SEQ, "mh": MH,
+                       "r50": RESNET50}, f)
         return
     with open(path) as f:
         settings = json.load(f)
-    LM_CONFIG, TRAIN_SEQ, MH = settings["lm"], settings["seq"], \
-        settings["mh"]
+    LM_CONFIG, TRAIN_SEQ, MH, RESNET50 = settings["lm"], settings["seq"], \
+        settings["mh"], settings["r50"]
 
 
 def mh_config():
@@ -9402,6 +9363,47 @@ def mh_config():
         optimizer="adam", learning_rate=3e-4, batch_size=MH["batch"],
         epochs=MH["epochs"], loss="softmax_xent", seed=0,
         shuffle_each_epoch=False, numerics_cadence=0)
+
+
+def mh_r50_config():
+    """ResNet-50 (training BatchNorm) at RESNET50, momentum, one epoch of
+    MH["r50_rows"] rows in global batches of MH["r50_batch"]."""
+    from mmlspark_tpu_torch import TrainerConfig
+    return TrainerConfig(
+        architecture="ResNet", model_config=dict(RESNET50),
+        optimizer="momentum", learning_rate=0.01, batch_size=MH["r50_batch"],
+        epochs=1, loss="softmax_xent", seed=0, shuffle_each_epoch=False,
+        numerics_cadence=0)
+
+
+def mh_r50_rows() -> tuple:
+    """ResNet-50's images (uint8) and labels; process p holds rows
+    [p n / 2, (p + 1) n / 2)."""
+    side = MH["r50_side"]
+    rng = np.random.default_rng(29)
+    return (rng.integers(0, 256, (MH["r50_rows"], side, side, 3),
+                         dtype=np.uint8),
+            rng.integers(0, RESNET50["num_classes"], MH["r50_rows"]
+                         ).astype(np.int32))
+
+
+def mh_r50_init():
+    from mmlspark_tpu_torch import ModelBundle
+    side = MH["r50_side"]
+    return ModelBundle.init("ResNet", dict(RESNET50), seed=0,
+                            input_shape=(1, side, side, 3))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block (two fits of one
+    batch then agree bit for bit; the default may pick atomic ones)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def file_digest(path: str) -> str:
@@ -9425,8 +9427,9 @@ def mp_worker(rank: int, work: str, device: str = "cuda") -> int:
     settings come from the parent).
     Fits its partition, checkpoints (the coordinator only), restores by
     broadcast, scores an uneven partition on both mesh paths, answers the
-    health check, times the gloo all-reduce of the gradients' shapes, and
-    writes its numbers to DIR/worker<RANK>.json."""
+    health check, times the gloo all-reduce of the gradients' shapes,
+    fits ResNet-50 (training BatchNorm) on its partition, and writes its
+    numbers to DIR/worker<RANK>.json."""
     from mmlspark_tpu_torch import DataTable, ModelBundle, Trainer
     from mmlspark_tpu_torch.models import TPUModel
     from mmlspark_tpu_torch.models.bundle import save_bundle
@@ -9494,6 +9497,23 @@ def mp_worker(rank: int, work: str, device: str = "cuda") -> int:
            "mesh": {"process_count": trainer.mesh.process_count,
                     "global_data": trainer.mesh.global_shape["data"]},
            "seconds": time.perf_counter() - t0}
+    # ResNet-50 with training BatchNorm: each BatchNorm's sums all-reduced
+    # over the processes (forward and backward)
+    del trainer, bundle, state, fresh, restored
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rx, ry = mh_r50_rows()
+    per = MH["r50_rows"] // MH["n"]
+    r50 = Trainer(mh_r50_config(), device=dev)
+    with deterministic_cudnn():
+        r50_bundle = r50.fit_arrays(rx[rank * per:(rank + 1) * per],
+                                    ry[rank * per:(rank + 1) * per],
+                                    initial_bundle=mh_r50_init())
+    sync(dev)
+    save_bundle(r50_bundle, os.path.join(work, f"r50_{rank}"))
+    out["r50_losses"] = [r["loss"] for r in r50.history]
+    out["r50_steps"] = int(r50_bundle.metadata["steps"])
+    out["r50_seconds"] = time.perf_counter() - t1
     dist.barrier("worker.done", timeout_s=120)
     with open(os.path.join(work, f"worker{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -9557,7 +9577,9 @@ def mh_training(dev, card) -> tuple:
     with flash attention, 16 rows of 2048, global batch 8, 4 rows a
     process a step, 4 steps, held against this process's data-2 fit of
     the same global batches (process 0's next 4 rows, then process 1's):
-    losses and weights bit-equal, K1[lse] / K2 / K3 16 launches in each
+    losses and weights bit-equal (and ResNet-50 with training BatchNorm,
+    2 steps of 8 images a process, cuDNN deterministic: losses, weights
+    and batch_stats bit-equal), K1[lse] / K2 / K3 16 launches in each
     process, the bundles byte-equal, a checkpoint directory only for
     process 0, process 1's restore equal to process 0's, uneven scoring
     equal on the local and the global mesh, `health_check()` == [0, 1],
@@ -9594,6 +9616,24 @@ def mh_training(dev, card) -> tuple:
                 for r in range(MH["n"])]
         del ref, bundle, init
         torch.cuda.empty_cache()
+        # ResNet-50: this process's data-2 fit of the same global batches
+        rx, ry = mh_r50_rows()
+        rper, rhalf = MH["r50_rows"] // MH["n"], MH["r50_batch"] // MH["n"]
+        rorder = np.concatenate([np.r_[p * rper + k * rhalf:
+                                       p * rper + (k + 1) * rhalf]
+                                 for k in range(rper // rhalf)
+                                 for p in range(MH["n"])])
+        r50_ref = Trainer(mh_r50_config(), mesh=dp_mesh(dev, MH["n"]))
+        with deterministic_cudnn():
+            r50_bundle = r50_ref.fit_arrays(rx[rorder], ry[rorder],
+                                            initial_bundle=mh_r50_init())
+        save_bundle(r50_bundle, os.path.join(work, "r50_ref"))
+        r50_ref_losses = [r["loss"] for r in r50_ref.history]
+        r50_digests = [file_digest(os.path.join(work, name,
+                                                "params.msgpack"))
+                       for name in ("r50_0", "r50_1", "r50_ref")]
+        del r50_ref, r50_bundle
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     want = LM_CONFIG["n_layers"] * MH["epochs"] * (MH["rows"] // MH["n"]
@@ -9623,8 +9663,19 @@ def mh_training(dev, card) -> tuple:
           f"{w1['allreduce_ms']:.1f} ms a step (median of 3); workers "
           f"{w0['seconds']:.1f} / {w1['seconds']:.1f} s, {workers_s:.1f} s "
           f"started to joined [{card}]")
+    print(f"phase 29 (b) ResNet-50 ({RESNET50['dtype']}, training "
+          f"BatchNorm, {MH['r50_rows'] // MH['n']} rows of "
+          f"{MH['r50_side']}^2 a process, global batch {MH['r50_batch']}, "
+          f"{w0['r50_steps']} steps, cuDNN deterministic): losses "
+          f"{w0['r50_losses']} / {w1['r50_losses']} against the one-process "
+          f"data-{MH['n']} fit's {r50_ref_losses}; bundles (parameters and "
+          f"batch_stats) byte-equal {len(set(r50_digests)) == 1}; "
+          f"{w0['r50_seconds']:.1f} / {w1['r50_seconds']:.1f} s [{card}]")
     require(w0["losses"] == w1["losses"] == ref_losses, "phase 29 (b): the "
             "two-process losses are not bit-equal to the data-2 fit's")
+    require(w0["r50_losses"] == w1["r50_losses"] == r50_ref_losses
+            and len(set(r50_digests)) == 1, "phase 29 (b): the two-process "
+            "ResNet-50 fit is not bit-equal to the data-2 fit")
     require(len(set(digests)) == 1 and len(set(metas)) == 1,
             "phase 29 (b): the bundles are not byte-equal")
     for w in workers:
@@ -9654,6 +9705,8 @@ def mh_training(dev, card) -> tuple:
                   "launches": [w["launches"] for w in workers],
                   "allreduce_ms": [w["allreduce_ms"] for w in workers],
                   "allreduce_bytes": w0["allreduce_bytes"],
+                  "r50_losses": w0["r50_losses"],
+                  "r50_ref_losses": r50_ref_losses,
                   "worker_s": [w["seconds"] for w in workers],
                   "workers_s": workers_s}
 
@@ -10025,6 +10078,369 @@ def phase_data_service(dev, card, shared: Optional[dict] = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: populations over the whole mesh, BatchNorm populations
+# ---------------------------------------------------------------------------
+
+# (a) LM_CONFIG's members at SWEEP_RATES, one batch of TRAIN_BATCH x
+# TRAIN_SEQ for `steps` steps (an epoch a step, so that each plain fit's
+# history is its per-step curve); the f32 arm at f32_layers; (b) the f32
+# population at mesh_layers over data 2 x model 2 against one card; (c) a
+# basic ResNet-18 (the repo's ConvNet has no BatchNorm) at data 2 against
+# one card, momentum, standard-normal images, one step (on an H100 one
+# step's update parts by 6e-6 to 4.3e-3 between any two of the population
+# and the plain Trainer at one card and at data 2, two steps' by up to
+# 7.7e-2, too near phase 27 (c)'s limit of 0.1).
+# f32 weights: Adam moves an entry by at most its rate a step, and an
+# entry whose gradient is round-off takes a step of up to its rate, of
+# either sign, which the batched GEMMs' rounding decides (the gradient of
+# a bias summed over 16,384 tokens cancels to round-off): such entries
+# part by up to 2 x steps x rate, and a leaf made mostly of them (a
+# LayerNorm or qkv bias, zero at init) parts by much of its norm (on an
+# H100: 0.2383 of a LayerNorm bias's entries past 1e-5 of its max at rate
+# 3e-2, a qkv bias's ||d|| / ||w|| 2.164e-4 at 3e-3).  So the weights are
+# held by the update's gap over every leaf (`update_gap`), as phase 27
+# holds ResNet-50's, and by that bound on each entry
+POP = dict(steps=2, f32_layers=2, bf16_loss_rtol=5e-3, f32_loss_rtol=2e-5,
+           f32_update_tol=1e-3, mesh_layers=2, mesh_members=2,
+           bn_config={"stage_sizes": [2, 2, 2, 2],
+                      "widths": [64, 128, 256, 512], "num_classes": 10,
+                      "dtype": "float32"},
+           bn_rates=(0.02, 0.01, 0.005, 0.002), bn_images=128, bn_batch=128,
+           bn_side=32, bn_loss_rtol=1e-5)
+
+
+def member_weight_gaps(got: dict, ref: dict, init: dict,
+                       d_model: int) -> dict:
+    """An f32 member's parameters against its reference, both trained from
+    `init` (flax trees with "params"): `f32_weight_gaps`, and the update's
+    gap over every leaf as `update_gap` reckons it, the key third of each
+    qkv bias left out (its true gradient is zero)."""
+    leaves = [named_leaf_arrays(t["params"]) for t in (got, ref, init)]
+    num = den = 0.0
+    for path, r in leaves[1].items():
+        g, i = leaves[0][path], leaves[2][path]
+        if path.endswith("qkv/bias"):
+            g, r, i = (np.delete(a, np.s_[d_model:2 * d_model])
+                       for a in (g, r, i))
+        num += float(((g - r) ** 2).sum())
+        den += float(((r - i) ** 2).sum())
+    return {**f32_weight_gaps(got["params"], ref["params"], d_model),
+            "update_gap": (num / max(den, 1e-300)) ** 0.5}
+
+
+def f32_weights_ok(w: dict, rate: float) -> bool:
+    """`member_weight_gaps` within POP["f32_update_tol"] and no entry
+    further than two Adam paths of `rate` apart (the note at POP)."""
+    return (w["update_gap"] <= POP["f32_update_tol"]
+            and w["max_abs"] <= 2 * POP["steps"] * rate)
+
+
+def truncated_lm(variables: dict, n_layers: int) -> dict:
+    """An LM init's variables cut to its first `n_layers` blocks."""
+    params = {k: v for k, v in variables["params"].items()
+              if not (k.startswith("block") and k.endswith("_w")
+                      and int(k[5:-2]) >= n_layers)}
+    return {**variables, "params": params}
+
+
+def pop_config(model_config: dict, epochs: int):
+    from mmlspark_tpu_torch import TrainerConfig
+    return TrainerConfig(
+        architecture="TransformerLM", model_config=model_config,
+        optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+        epochs=epochs, loss="softmax_xent", seed=0, numerics_cadence=0)
+
+
+def pop_lm(dev, card, model_config: dict, tag: str,
+           inits: Optional[list] = None) -> dict:
+    """One population of the LM at SWEEP_RATES through
+    `PopulationTrainer.fit_arrays` from `inits` (default each member's
+    seeded init) and each member's plain `Trainer` fit from the same init
+    at its rate: the members' per-step losses, the kernels' launches of
+    the population's fit, its wall, its step's ms beside one plain step's,
+    its peak memory, and (f32) the members' weights against their plain
+    fits'."""
+    from mmlspark_tpu_torch import ModelBundle
+    from mmlspark_tpu_torch.models.definitions import model_config as cfg_of
+    from mmlspark_tpu_torch.train import PopulationTrainer
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, model_config["vocab_size"])
+    x, y = rows[:, :-1], rows[:, 1:]
+    members = [{"learning_rate": r} for r in SWEEP_RATES]
+    pt = PopulationTrainer(pop_config(model_config, POP["steps"]), members,
+                           device=dev)
+    if inits is None:
+        inits = [pt.member_init_variables(k, (1, TRAIN_SEQ))
+                 for k in range(len(members))]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = pt.fit_arrays(x, y, member_variables=inits)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launched = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    curves = [[h["member_loss"][k] for h in pt.history]
+              for k in range(len(members))]
+    f32 = model_config["dtype"] == "float32"
+    member_vars = ([pt.member_variables(result.state, k)
+                    for k in range(len(members))] if f32 else None)
+    # the population's step alone (it advances the finished state)
+    xb, yb = (torch.from_numpy(a).to(dev) for a in (x, y))
+    mb = torch.ones(TRAIN_BATCH, device=dev)
+    step = pt.make_population_step()
+    step_ms = cuda_ms(lambda: step(result.state, xb, yb, mb), warmup=0,
+                      reps=2)
+    del result, step
+    torch.cuda.empty_cache()
+    plain, plain_s, bundles = [], 0.0, []
+    for k in range(len(members)):
+        trainer = pt.member_trainer(k)
+        sync(dev)
+        t0 = time.perf_counter()
+        bundle = trainer.fit_arrays(x, y, initial_bundle=ModelBundle(
+            "TransformerLM", cfg_of(pt.module), inits[k]))
+        sync(dev)
+        plain_s += time.perf_counter() - t0
+        plain.append([h["loss"] for h in trainer.history])
+        if f32:
+            bundles.append(bundle)
+        if k == 0:
+            state = trainer._last_state
+            one = trainer.make_train_step()
+            plain_step_ms = cuda_ms(lambda: one(state, xb, yb, mb),
+                                    warmup=0, reps=2)
+            del state, one
+        del trainer, bundle
+        torch.cuda.empty_cache()
+    gaps = [abs(a - b) / abs(b) for pc, mc in zip(plain, curves)
+            for a, b in zip(mc, pc)]
+    out = {"curves": curves, "plain_curves": plain,
+           "max_rel_gap": max(gaps), "launches": launched,
+           "fit_s": wall, "plain_fits_s": plain_s, "step_ms": step_ms,
+           "plain_step_ms": plain_step_ms, "peak_gib": peak / 2 ** 30,
+           "inits": inits}
+    if f32:
+        out["weights"] = [member_weight_gaps(v, b.variables, i,
+                                             model_config["d_model"])
+                          for v, b, i in zip(member_vars, bundles, inits)]
+    print(f"phase 31 (a) {tag}: {len(members)} members at {SWEEP_RATES}, "
+          f"{POP['steps']} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, "
+          f"{model_config['n_layers']} layers: member losses {curves}; "
+          f"plain fits {plain}; max rel gap {max(gaps):.3e}; launches "
+          f"{launched}; the population's fit {wall:.2f} s (peak "
+          f"{out['peak_gib']:.2f} GiB), the {len(members)} plain fits "
+          f"{plain_s:.2f} s; a population step {step_ms:.1f} ms against a "
+          f"plain step's {plain_step_ms:.1f} ms (CUDA events, median of 2) "
+          f"[{card}]")
+    return out
+
+
+def pop_mesh(dev, card, inits: list) -> dict:
+    """(b) The f32 LM population at LM_CONFIG's width and POP["mesh_layers"]
+    over data 2 x model 2 (shards sharing the card) against the same
+    population on one card: member losses and weights, K1[lse] / K2 / K3
+    once per (data row, model shard, layer, step)."""
+    from mmlspark_tpu_torch.train import PopulationTrainer
+    model_config = {**LM_CONFIG, "attn_impl": "flash", "dtype": "float32",
+                    "n_layers": POP["mesh_layers"]}
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, model_config["vocab_size"])
+    x, y = rows[:, :-1], rows[:, 1:]
+    members = [{"learning_rate": r}
+               for r in SWEEP_RATES[:POP["mesh_members"]]]
+    runs = {}
+    for name, mesh in (("one card", None), ("data 2 x model 2",
+                                            mp_mesh(dev, 2, 2))):
+        pt = PopulationTrainer(pop_config(model_config, POP["steps"]),
+                               members, mesh=mesh, device=dev)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        result = pt.fit_arrays(x, y, member_variables=inits)
+        sync(dev)
+        runs[name] = {"losses": result.member_loss.tolist(),
+                      "launches": read_counts(),
+                      "seconds": time.perf_counter() - t0,
+                      "params": [pt.member_variables(result.state, k)[
+                          "params"] for k in range(len(members))],
+                      "mesh": result.member_bundle(0).metadata[
+                          "partition"]["mesh"]}
+        del pt, result
+        torch.cuda.empty_cache()
+    one, mesh = runs["one card"], runs["data 2 x model 2"]
+    gaps = [abs(a - b) / abs(b) for ra, rb in zip(mesh["losses"],
+                                                   one["losses"])
+            for a, b in zip(ra, rb)]
+    weights = [member_weight_gaps({"params": a}, {"params": b}, i,
+                                  model_config["d_model"])
+               for a, b, i in zip(mesh["params"], one["params"], inits)]
+    want = POP["mesh_layers"] * POP["steps"] * 4
+    print(f"phase 31 (b) the f32 population of {len(members)} at "
+          f"{POP['mesh_layers']} layers over data 2 x model 2 on this card: "
+          f"member losses {mesh['losses']} against one card's "
+          f"{one['losses']} (max rel gap {max(gaps):.3e}, tol "
+          f"{POP['f32_loss_rtol']}); weights {weights}; launches "
+          f"{mesh['launches']} (want {want} each of K1[lse], K2, K3); "
+          f"bundle mesh {mesh['mesh']}; {mesh['seconds']:.2f} s against "
+          f"{one['seconds']:.2f} s [{card}]")
+    require(max(gaps) <= POP["f32_loss_rtol"], "phase 31 (b): the mesh "
+            "population's losses differ from one card's")
+    for k, w in enumerate(weights):
+        require(f32_weights_ok(w, SWEEP_RATES[k]), f"phase 31 (b): member "
+                f"{k}'s weights differ from one card's")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(mesh["launches"][name] == want, f"phase 31 (b): {name} "
+                f"launched {mesh['launches'][name]} times, want {want}")
+    require(mesh["mesh"] == {"data": 2, "model": 2}, "phase 31 (b): the "
+            "member bundle's mesh")
+    return {"losses": mesh["losses"], "one_card_losses": one["losses"],
+            "max_rel_gap": max(gaps), "weights": weights,
+            "launches": mesh["launches"], "seconds": mesh["seconds"],
+            "one_card_seconds": one["seconds"]}
+
+
+def pop_batchnorm(dev, card) -> dict:
+    """(c) A ResNet population with training BatchNorm at data 2 (the
+    shards' vmapped forwards in lockstep, each member's statistics over
+    the global batch) against the same population on one card at the
+    same global batch, one step, the batch's first half (shard 0's slab)
+    dimmed to a quarter, as phase 27 (c) has it: member losses within
+    POP["bn_loss_rtol"], each member's update within DP["weight_tol"] of
+    one card's (`update_gap`) and its batch_stats within DP["stats_tol"]
+    of each leaf's max, and a planted BatchNorm with each shard's own
+    statistics must fail the batch_stats gate.  (The CPU holds the same
+    populations to 1e-6, tests/test_torch_sweep_bn.py; on the card the
+    convolutions round with the shards' batch shapes, and a random
+    ResNet's BatchNorm amplifies that rounding in the backward: the note
+    at POP.)"""
+    from mmlspark_tpu_torch import TrainerConfig
+    from mmlspark_tpu_torch.models import definitions
+    from mmlspark_tpu_torch.train import PopulationTrainer
+    side, b = POP["bn_side"], POP["bn_batch"]
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((POP["bn_images"], side, side, 3)).astype(
+        np.float32)
+    for start in range(0, POP["bn_images"], b):
+        x[start:start + b // 2] *= np.float32(0.25)
+    y = rng.integers(0, POP["bn_config"]["num_classes"],
+                     POP["bn_images"]).astype(np.int32)
+    cfg = TrainerConfig(architecture="ResNet",
+                        model_config=dict(POP["bn_config"]),
+                        optimizer="momentum", learning_rate=0.05,
+                        batch_size=b, epochs=1, shuffle_each_epoch=False,
+                        loss="softmax_xent", seed=0, numerics_cadence=0)
+    members = [{"learning_rate": r} for r in POP["bn_rates"]]
+    seeded = PopulationTrainer(cfg, members, device=dev)
+    inits = [seeded.member_init_variables(k, (1, side, side, 3))
+             for k in range(len(members))]
+    del seeded
+
+    def fit(mesh) -> dict:
+        pt = PopulationTrainer(cfg, members, mesh=mesh, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        result = pt.fit_arrays(x, y, member_variables=inits)
+        sync(dev)
+        run = {"losses": result.member_loss.tolist(),
+               "seconds": time.perf_counter() - t0,
+               "vars": [pt.member_variables(result.state, k)
+                        for k in range(len(members))]}
+        del pt, result
+        torch.cuda.empty_cache()
+        return run
+
+    def stats_gap(run: dict) -> float:
+        return max(max(named_gaps(a["batch_stats"], r["batch_stats"])
+                       .values()) for a, r in zip(run["vars"], one["vars"]))
+
+    one, dp = fit(None), fit(dp_mesh(dev))
+    real = definitions.active_data_shard
+    definitions.active_data_shard = lambda: None
+    try:
+        planted = fit(dp_mesh(dev))
+    finally:
+        definitions.active_data_shard = real
+    gaps = [abs(a - b) / abs(b) for ra, rb in zip(dp["losses"],
+                                                   one["losses"])
+            for a, b in zip(ra, rb)]
+    worst = max(update_gap(a, r, i) for a, r, i in zip(
+        dp["vars"], one["vars"], inits))
+    stats, planted_stats = stats_gap(dp), stats_gap(planted)
+    print(f"phase 31 (c) ResNet-18 population of {len(members)} at "
+          f"{list(POP['bn_rates'])} (momentum, f32), {POP['bn_images']} "
+          f"images of {side}^2 in batches of {b}, each batch's first half "
+          f"dimmed: data 2 member losses {dp['losses']} against one card's "
+          f"{one['losses']} (max rel gap {max(gaps):.3e}, tol "
+          f"{POP['bn_loss_rtol']}); the update's gap at most {worst:.3e} "
+          f"(tol {DP['weight_tol']}); batch_stats at most {stats:.3e} of a "
+          f"leaf's max (tol {DP['stats_tol']}), the planted per-shard "
+          f"statistics {planted_stats:.3e}; {dp['seconds']:.2f} s against "
+          f"{one['seconds']:.2f} s [{card}]")
+    require(max(gaps) <= POP["bn_loss_rtol"], "phase 31 (c): the data-2 "
+            "BatchNorm population's losses differ from one card's")
+    require(worst <= DP["weight_tol"] and stats <= DP["stats_tol"],
+            "phase 31 (c): the data-2 BatchNorm population's parameters or "
+            "statistics differ")
+    require(planted_stats > DP["stats_tol"], "phase 31 (c): per-shard "
+            "statistics pass the batch_stats gate")
+    return {"losses": dp["losses"], "one_card_losses": one["losses"],
+            "max_rel_gap": max(gaps), "update_gap": worst,
+            "batch_stats_gap": stats, "planted_stats_gap": planted_stats,
+            "seconds": dp["seconds"], "one_card_seconds": one["seconds"]}
+
+
+def phase_populations(dev, card) -> tuple:
+    """Phase 31: (a) the LM population at LM_CONFIG's width, K1[lse], K2
+    and K3 folded over the members (n_layers x steps launches whatever
+    the population's size), each member's curve against its plain fit,
+    an f32 arm; the folded kernels checked and timed at (members x
+    TRAIN_BATCH, TRAIN_SEQ, 8, 128); (b) `pop_mesh`; (c)
+    `pop_batchnorm`.  Returns (the kernel rows, the numbers)."""
+    t0 = time.perf_counter()
+    n_layers = LM_CONFIG["n_layers"]
+    bf16 = pop_lm(dev, card, {**LM_CONFIG, "attn_impl": "flash"},
+                  "bf16 at LM_CONFIG's width")
+    want = n_layers * POP["steps"]
+    require(bf16["max_rel_gap"] <= POP["bf16_loss_rtol"], "phase 31 (a): a "
+            "member's bf16 losses differ from its plain fit's")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(bf16["launches"][name] == want, f"phase 31 (a): {name} "
+                f"launched {bf16['launches'][name]} times for "
+                f"{len(SWEEP_RATES)} members, want {want} (one a layer a "
+                "step, whatever the population's size)")
+    require(all(c[-1] < c[0] for c in bf16["curves"][:2]),
+            "phase 31 (a): the slow members' loss did not fall")
+    # the f32 arms start from the bf16 arm's inits cut to their depth
+    inits = [truncated_lm(v, POP["f32_layers"]) for v in bf16.pop("inits")]
+    f32 = pop_lm(dev, card, {**LM_CONFIG, "attn_impl": "flash",
+                             "dtype": "float32",
+                             "n_layers": POP["f32_layers"]},
+                 f"f32 at {POP['f32_layers']} layers", inits)
+    f32.pop("inits")
+    print(f"phase 31 (a) f32 weights against the plain fits: {f32['weights']}"
+          f" [{card}]")
+    require(f32["max_rel_gap"] <= POP["f32_loss_rtol"], "phase 31 (a): a "
+            "member's f32 losses differ from its plain fit's")
+    for k, w in enumerate(f32["weights"]):
+        require(f32_weights_ok(w, SWEEP_RATES[k]), f"phase 31 (a): member "
+                f"{k}'s f32 weights differ from its plain fit's")
+    rows = dp_shard_kernel_rows(
+        dev, card, bf16["launches"],
+        shape=(len(SWEEP_RATES) * TRAIN_BATCH, TRAIN_SEQ,
+               LM_CONFIG["n_heads"],
+               LM_CONFIG["d_model"] // LM_CONFIG["n_heads"]),
+        tag="population fold", phase=31)
+    out = {"lm_bf16": bf16, "lm_f32": f32,
+           "mesh": pop_mesh(dev, card, [truncated_lm(
+               v, POP["mesh_layers"]) for v in inits[:POP["mesh_members"]]]),
+           "batchnorm": pop_batchnorm(dev, card)}
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 31: {out['phase_seconds']:.1f} s [{card}]")
+    return rows, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -10127,6 +10543,9 @@ def main() -> int:
     data_service = phase(30, phase_data_service, shared)
     print(json.dumps({"data_service": data_service, "card": card},
                      default=str))
+    pop_rows, populations = phase(31, phase_populations)
+    print(json.dumps({"populations": populations, "card": card},
+                     default=str))
     total = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
                                         seconds.items()},
@@ -10149,7 +10568,7 @@ def main() -> int:
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
                + ring_lse + d32 + small + wide + ring_rows + dp_rows
-               + mp_rows + pp_rows)
+               + mp_rows + pp_rows + pop_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
             "library_ms")

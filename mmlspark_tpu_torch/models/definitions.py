@@ -83,6 +83,7 @@ batch-sharded array; the MoE routes with the global group size
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import functools
 from typing import Callable, Optional
 
@@ -98,6 +99,7 @@ from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.ops.attention import attention
 from mmlspark_tpu_torch.ops.flash_attention import flash_attention
 from mmlspark_tpu_torch.ops.moe import MoEMLP
+from mmlspark_tpu_torch.parallel.distributed import process_count
 from mmlspark_tpu_torch.parallel.ring import (active_data_shard,
                                               active_seq_mesh, reduce_to_home,
                                               seq_group_attention,
@@ -760,7 +762,10 @@ register_quant_wrapper(Dense, quant_dense_apply)
 register_quant_wrapper(Conv, quant_conv_apply)
 
 
-_STATS_SINK: list = []
+# a context variable: the shards of a lockstep step run on threads of
+# their own, each in its own block
+_STATS_SINK: contextvars.ContextVar = contextvars.ContextVar(
+    "mmlspark_tpu_torch_stats_sink", default=None)
 
 
 @contextlib.contextmanager
@@ -768,11 +773,11 @@ def functional_batch_stats():
     """Within the block a training BatchNorm leaves its buffers alone and
     puts its moved (mean, var) into the yielded dict, keyed by module."""
     sink: dict = {}
-    _STATS_SINK.append(sink)
+    token = _STATS_SINK.set(sink)
     try:
         yield sink
     finally:
-        _STATS_SINK.pop()
+        _STATS_SINK.reset(token)
 
 
 class BatchNorm(nn.Module):
@@ -820,20 +825,21 @@ class BatchNorm(nn.Module):
         xf = nhwc(x).float()
         dims = (0, 1, 2)
         shard = active_data_shard()
-        if shard is None or shard.count == 1:
+        if shard is None or (shard.count == 1 and process_count() == 1):
             mean = xf.mean(dims)
             var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
         else:
             # the global batch's statistics: every shard's sums and row
-            # count summed across the shards (differentiable, so the
-            # backward carries the cross-shard terms)
+            # count summed across the shards and the processes
+            # (differentiable, so the backward carries the cross-shard
+            # terms)
             rows = torch.full((1,), float(xf[..., 0].numel()),
                               device=xf.device)
             s1, s2, n = shard.group.all_sum(
                 shard.index, (xf.sum(dims), (xf * xf).sum(dims), rows))
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
-        sink = _STATS_SINK[-1] if _STATS_SINK else None
+        sink = _STATS_SINK.get()
         with torch.no_grad():
             moved = [BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat
                      for buf, stat in ((self.mean, mean), (self.var, var))]

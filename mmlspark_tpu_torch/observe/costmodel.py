@@ -104,7 +104,10 @@ def _self_reporting() -> frozenset:
     """Operators whose implementation is a kernel wrapper that reports
     its own work: counting their formula too would count it twice."""
     from mmlspark_tpu_torch.ops import flash_attention  # noqa: F401
-    return frozenset((torch.ops.mmlspark.flash_attention_lse.default,))
+    ops = torch.ops.mmlspark
+    return frozenset((ops.flash_attention.default,
+                      ops.flash_attention_lse.default,
+                      ops.flash_attention_lse_backward.default))
 
 
 def _tensor_bytes(tree, seen: set) -> int:

@@ -24,9 +24,13 @@ ragged last tile themselves, so there is no dense fallback.
 Entry points, each with its plain version beside it:
 
   * `flash_attention` — differentiable; with grad, `flash_attention_op`
-    (the port of the `_flash` custom VJP, a torch operator) runs K1 with
-    the LSE output forward and K2 + K3 backward, delta computed between
-    them as a torch op;
+    (the port of the `_flash` custom VJP) runs K1 with the LSE output
+    forward and delta, K2 and K3 backward; without, K1 alone.  The three
+    are torch operators (`mmlspark::flash_attention_lse`,
+    `mmlspark::flash_attention_lse_backward`, `mmlspark::flash_attention`)
+    under an `autograd.Function` that `torch.func` transforms accept; each
+    operator's vmap rule folds the vmapped (member) axis into the batch
+    axis, so a population's members share one launch of each kernel;
   * `flash_attention_with_lse` — forward with lse and offsets;
   * `flash_block_grads` — (dq, dk, dv) of one K/V block against global
     lse/delta (the ring backward's building block), through K2 and K3.
@@ -378,46 +382,151 @@ def flash_block_grads(q, k, v, do, lse, delta, causal: bool, scale: float,
                                  q_offset, k_offset)
 
 
+def _fold(info, in_dims, tensors) -> list:
+    """The tensors of a vmapped call with the member axis folded into the
+    batch axis: (N, B, ...) -> (N * B, ...), contiguous (an unbatched one
+    expanded over the N members first)."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = (t.movedim(d, 0) if d is not None
+             else t.expand(info.batch_size, *t.shape))
+        out.append(t.reshape((-1,) + tuple(t.shape[2:])).contiguous())
+    return out
+
+
+def _unfold(info, tensors) -> tuple:
+    """A folded call's outputs back to (N, B, ...), member axis 0."""
+    return tuple(t.reshape((info.batch_size, -1) + tuple(t.shape[1:]))
+                 for t in tensors)
+
+
+@torch.library.custom_op("mmlspark::flash_attention", mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool,
+                           scale: float) -> torch.Tensor:
+    """K1 without the lse output as a torch operator (the no-grad
+    forward): its vmap rule folds the member axis into the batch axis,
+    so one launch covers every member of a population."""
+    with costmodel.kernel_work("K1", k1_cost, q, k, v, causal):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal, scale)
+        out, _ = _forward_kernel(q, k, v, causal, scale, False, 0, 0)
+    flash_attention.launches += 1
+    return out
+
+
+# The fake kernels check what the CUDA wrappers check: a `meta` tensor
+# reaches them instead of a wrapper, and must raise as it did there.
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, scale):
+    _check_inputs(q, k, v)
+    return torch.empty_like(q)
+
+
+@flash_attention_fwd_op.register_vmap
+def _flash_attention_fwd_vmap(info, in_dims, q, k, v, causal, scale):
+    q, k, v = _fold(info, in_dims[:3], (q, k, v))
+    return _unfold(info, (flash_attention_fwd_op(q, k, v, causal,
+                                                 scale),))[0], 0
+
+
 @torch.library.custom_op("mmlspark::flash_attention_lse", mutates_args=())
-def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool, scale: float
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The differentiable flash attention as one torch operator, the port
-    of the JAX `_flash` custom VJP: (out, lse) from K1 with its lse output
-    (the plain version on CPU tensors); its backward computes delta =
-    rowsum(dO * O) in f32 and runs K2 and K3.  An operator, not an
-    autograd.Function, so that a selective-checkpoint policy sees the
-    kernel's launch and can keep its outputs (`remat_policy
-    "save_attention"`, models/definitions.py)."""
+def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool, scale: float
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 with its lse output as a torch operator, (out, lse) (the plain
+    version on CPU tensors): the training forward.  An operator, so that
+    a selective-checkpoint policy sees the kernel's launch and can keep
+    its outputs (`remat_policy "save_attention"`,
+    models/definitions.py); its vmap rule folds the member axis into the
+    batch axis (one launch for every member)."""
     return flash_attention_with_lse(q, k, v, causal, scale)
 
 
-@flash_attention_op.register_fake
-def _flash_attention_op_fake(q, k, v, causal, scale):
+@flash_attention_lse_op.register_fake
+def _flash_attention_lse_fake(q, k, v, causal, scale):
+    _check_inputs(q, k, v)
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
-def _flash_attention_op_setup(ctx, inputs, output) -> None:
-    q, k, v, causal, scale = inputs
-    ctx.save_for_backward(q, k, v, *output)
-    ctx.causal, ctx.scale = causal, scale
-    # the autograd engine may run the backward on its own thread: carry
-    # the forward's cost counters there
-    ctx.cost_counters = costmodel.active_counters()
+@flash_attention_lse_op.register_vmap
+def _flash_attention_lse_vmap(info, in_dims, q, k, v, causal, scale):
+    q, k, v = _fold(info, in_dims[:3], (q, k, v))
+    return _unfold(info, flash_attention_lse_op(q, k, v, causal,
+                                                scale)), (0, 0)
 
 
-def _flash_attention_op_backward(ctx, g, _g_lse):
-    q, k, v, out, lse = ctx.saved_tensors
-    with costmodel.bound(ctx.cost_counters):
-        g = g.contiguous()
-        delta = (g.float() * out.float()).sum(-1)
-        dq, dk, dv = flash_block_grads(q, k, v, g, lse, delta, ctx.causal,
-                                       ctx.scale)
-    return dq, dk, dv, None, None
+@torch.library.custom_op("mmlspark::flash_attention_lse_backward",
+                         mutates_args=())
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, g: torch.Tensor, causal: bool,
+                           scale: float
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The backward of `flash_attention_lse_op` as a torch operator:
+    delta = rowsum(dO * O) in f32, then K2 and K3 (`flash_block_grads`).
+    Its vmap rule folds the member axis as the forward's does, so K2 and
+    K3 launch once for every member."""
+    g = g.contiguous()
+    delta = (g.float() * out.float()).sum(-1)
+    return flash_block_grads(q, k, v, g, lse, delta, causal, scale)
 
 
-flash_attention_op.register_autograd(_flash_attention_op_backward,
-                                     setup_context=_flash_attention_op_setup)
+@flash_attention_bwd_op.register_fake
+def _flash_attention_bwd_fake(q, k, v, out, lse, g, causal, scale):
+    _check_inputs(q, k, v)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@flash_attention_bwd_op.register_vmap
+def _flash_attention_bwd_vmap(info, in_dims, q, k, v, out, lse, g, causal,
+                              scale):
+    folded = _fold(info, in_dims[:6], (q, k, v, out, lse, g))
+    return _unfold(info, flash_attention_bwd_op(*folded, causal,
+                                                scale)), (0, 0, 0)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The port of the JAX `_flash` custom VJP over the two operators:
+    forward `flash_attention_lse_op`, backward `flash_attention_bwd_op`.
+    Written with `setup_context` and `generate_vmap_rule`, so that it runs
+    under `torch.func`'s transforms as under ordinary autograd: under
+    `vmap` the operators' own rules fold the members into one launch."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, causal, scale):
+        return flash_attention_lse_op(q, k, v, causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale = inputs
+        ctx.save_for_backward(q, k, v, *output)
+        ctx.causal, ctx.scale = causal, scale
+        # the autograd engine may run the backward on its own thread:
+        # carry the forward's cost counters there
+        ctx.cost_counters = costmodel.active_counters()
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        # no_grad: the operators have no derivative of their own (no
+        # double backward), and functorch's grad runs this backward with
+        # graph recording on
+        with costmodel.bound(ctx.cost_counters), torch.no_grad():
+            dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, g,
+                                                ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: float) -> tuple:
+    """The differentiable flash attention: (out, lse) from K1 with its
+    lse output; its backward runs K2 and K3 (`_FlashAttention`)."""
+    return _FlashAttention.apply(q, k, v, causal, scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -425,17 +534,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention: q (B, Sq, H, D), k/v (B, Sk, H, D) -> (B, Sq, H, D)
     in q's dtype.  Differentiable: when grad is needed it goes through
-    `flash_attention_op` (K1 with lse, then K2 + K3 backward)."""
+    `flash_attention_op` (K1 with lse, then K2 + K3 backward); without, K1
+    alone (`flash_attention_fwd_op`)."""
     scale = _scale(q, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return flash_attention_op(q, k, v, causal, scale)[0]
-    with costmodel.kernel_work("K1", k1_cost, q, k, v, causal):
-        if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, causal, scale)
-        out, _ = _forward_kernel(q, k, v, causal, scale, False, 0, 0)
-    flash_attention.launches += 1
-    return out
+    return flash_attention_fwd_op(q, k, v, causal, scale)
 
 
 flash_attention.launches = 0

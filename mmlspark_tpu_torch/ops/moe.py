@@ -102,10 +102,13 @@ def route(logits: torch.Tensor, capacity: int, k: int = 1) -> dict:
     probs = torch.softmax(logits32, dim=-1)
     remaining = probs
     counts = logits32.new_zeros((g, 1, e))
+    # the one-hot as a comparison with arange(e): `F.one_hot` reads the
+    # largest index back to the host, which `torch.func.vmap` refuses
+    ids = torch.arange(e, device=logits.device)
     experts, gates, positions, onehots = [], [], [], []
     for _ in range(k):
         idx = torch.argmax(remaining, dim=-1)                     # (G, T)
-        onehot = F.one_hot(idx, e).to(torch.float32)
+        onehot = (idx[..., None] == ids).to(torch.float32)
         gates.append(torch.gather(probs, -1, idx[..., None])[..., 0])
         pos = torch.cumsum(onehot, dim=1) - 1.0 + counts
         positions.append((pos * onehot).sum(-1))
@@ -196,8 +199,12 @@ def moe_apply(x: torch.Tensor, router_weight: torch.Tensor,
     tokens = torch.arange(t, device=x.device).reshape(g, gs)
     slot_token = torch.full((n_slots + 1,), t, dtype=torch.long,
                             device=x.device)
+    # out of place, so that a population's vmap gives each member its own
+    # slot table (every kept slot is written once; the dropped choices all
+    # land on the pad entry cut below)
     for j in range(router_k):
-        slot_token[flat[j]] = tokens
+        slot_token = slot_token.scatter(0, flat[j].reshape(-1),
+                                        tokens.reshape(-1))
     slot_token = slot_token[:n_slots]
     dt = w_in.dtype
     xpad = torch.cat([xf.to(dt), xf.new_zeros((1, d), dtype=dt)])

@@ -422,15 +422,105 @@ class ShardGroup:
 
     def all_sum(self, index: int, tensors: Sequence) -> list:
         """Each of `tensors` summed over the shards, on this shard's
-        device (called by every shard of a lockstep `run`)."""
+        device (called by every shard of a lockstep `run`), then over
+        the processes where there are several (`process_sum`, after the
+        local shard sum: the order of the Trainer's gradient sum).  Under
+        `torch.func.vmap` (a population's members) the sum runs through
+        `_MemberAllSum`, whose rule hands it the members' plain stacked
+        tensors: a functorch wrapper is bound to its own thread's
+        transform and cannot meet the other shards' threads."""
+        if any(_batched(t) for t in tensors):
+            return list(_MemberAllSum.apply(self, index, *tensors))
+        return self._all_sum(index, list(tensors))
+
+    def _all_sum(self, index: int, tensors: list) -> list:
         if self.count == 1:
-            return list(tensors)
+            return process_sum(tensors)
         if not self._lockstep:
             raise RuntimeError(
                 "a cross-shard sum needs the shards in lockstep "
                 "(ShardGroup.run(..., lockstep=True))")
-        self._parts[index] = list(tensors)
+        self._parts[index] = tensors
         if self._barrier.wait() == 0:
-            self._sums = [psum(list(col)) for col in zip(*self._parts)]
+            # `psum`, with one collective over the processes on the
+            # home's sums before they go back to every shard's device
+            cols = list(zip(*self._parts))
+            home = process_sum([reduce_to_home(list(c)) for c in cols])
+            self._sums = [[t.to(p.device) for p in col]
+                          for t, col in zip(home, cols)]
         self._barrier.wait()
         return [col[index] for col in self._sums]
+
+
+def _batched(t) -> bool:
+    """`t` is a tensor wrapped by `torch.func.vmap`."""
+    return isinstance(t, torch.Tensor) and \
+        torch._C._functorch.is_batchedtensor(t)
+
+
+class _MemberAllSum(torch.autograd.Function):
+    """`ShardGroup.all_sum` of vmapped tensors.  Its vmap rule moves each
+    tensor's member axis first and sums the plain (N, ...) tensors across
+    the shards' threads; those sums are plain differentiable ops, so the
+    population's one backward over the shards' joint graph
+    (`train/sweep.py`, lockstep) carries each shard's share.  There is
+    nothing to run outside vmap, and no gradient transform of its own: a
+    `torch.func.grad` inside the vmap would meet other threads'
+    wrappers."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(group, index, *tensors):
+        raise RuntimeError("_MemberAllSum runs under torch.func.vmap only")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "a population's cross-shard sum takes ordinary autograd over "
+            "its vmapped forward, not torch.func.grad")
+
+    @staticmethod
+    def vmap(info, in_dims, group, index, *tensors):
+        dims = in_dims[2:]
+        plain = [t if d is None else t.movedim(d, 0)
+                 for t, d in zip(tensors, dims)]
+        out = group._all_sum(index, plain)
+        return tuple(out), tuple(None if d is None else 0 for d in dims)
+
+
+class _ProcessSum(torch.autograd.Function):
+    """The differentiable all-reduce over the processes: forward each
+    tensor summed over them (`parallel/distributed.py` `all_reduce_sum`),
+    backward the same of the gradients, each inside `run_collective`'s
+    bounded wait.  Every process calls it in the same order: BatchNorm
+    layers in forward order, and the backward in the reverse."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        from mmlspark_tpu_torch.parallel.distributed import (
+            all_reduce_sum, run_collective)
+        out = [t.detach().clone() for t in tensors]
+        run_collective("batch_stats.sum", lambda: all_reduce_sum(out))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from mmlspark_tpu_torch.parallel.distributed import (
+            all_reduce_sum, run_collective)
+        out = [g.detach().clone() for g in grads]
+        run_collective("batch_stats.grad", lambda: all_reduce_sum(out))
+        return tuple(out)
+
+
+def process_sum(tensors: Sequence) -> list:
+    """Each tensor summed over the processes, differentiably
+    (`_ProcessSum`); with one process the tensors themselves."""
+    from mmlspark_tpu_torch.parallel.distributed import process_count
+    if process_count() == 1:
+        return list(tensors)
+    return list(_ProcessSum.apply(*tensors))

@@ -12,9 +12,9 @@ CNTKLearner wraps its output model as a CNTKModel.  Fine-tuning is
 card unless the caller asks for the CPU, passed on to the fitted model.
 The stage saves under the JAX class path, so a learner saved by either
 package loads in the other through `load_stage`; its initial bundle goes
-with it.  `set_mesh(mesh)` trains data-parallel over the mesh's data
-axis (the Trainer's mesh) and the fitted model scores over the same mesh;
-a model axis raises (ROADMAP A10).
+with it.  `set_mesh(mesh)` trains over the mesh's data and model axes
+(the Trainer's mesh) and the fitted model scores over the same mesh; a
+seq axis raises (ROADMAP A10), as the Trainer's does.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ class TPULearner(Estimator):
     def set_mesh(self, mesh) -> "TPULearner":
         """Train over `mesh` (None: on `device`); the Trainer checks it."""
         if mesh is not None:
-            check_data_mesh(mesh, "TPULearner", model_axis=True)
+            check_data_mesh(mesh, "TPULearner")
             self.device = resolve_device(mesh.devices.flat[0])
         self._mesh = mesh
         return self

@@ -1,6 +1,6 @@
 """Population training: N hyperparameter-sweep members stepped together,
 the port of `mmlspark_tpu/train/sweep.py`, on one card or over a data
-mesh.
+and model mesh.
 
 Every member's parameters, optimizer moments and BatchNorm statistics are
 stacked on a leading population axis (N, ...), the shared data batch is
@@ -29,28 +29,63 @@ Data order, batch clamping and the loss mask follow `Trainer.fit_arrays`.
 A population checkpoint is one file (stacked trees in the flax and optax
 layouts with the population axis first, plus `lr` and `active`).
 
-Over a data mesh (`mesh=` or a `TrainerConfig.mesh` with data > 1) the
-members' vmap runs per shard on that shard's slab, outside the meshed
-step, as the JAX sweep has it (`mmlspark_tpu/train/sweep.py:269-323`):
-each shard's vmapped `grad_and_value` over the stacked parameters (on
-its device; a copy per other distinct device) with the loss over the
-global mask count, the members' gradients summed onto the home device in
-shard order (`parallel/ring.py` `reduce_to_home`), one vmapped update
-there.  A population with BatchNorm over a data axis of more than one
-device raises NotImplementedError: its global statistics would need the
-shards in lockstep inside `torch.func`'s transforms (a port difference,
-ROADMAP queue C).  A model axis raises (ROADMAP A10).
+Over a mesh (`mesh=` or a `TrainerConfig.mesh` with data or model > 1)
+the members' vmap runs per data shard on that shard's slab, outside the
+meshed step, as the JAX sweep has it (`mmlspark_tpu/train/sweep.py:269-323`):
+
+  * each data shard's vmapped `grad_and_value` over its view of the
+    stacked parameters, the loss over the global mask count, the members'
+    gradients summed onto the home device in shard order
+    (`parallel/ring.py` `reduce_to_home`), one vmapped update there;
+  * over a model axis each member's stacked leaves are split by the
+    Trainer's placement behind the population axis (the JAX
+    `_stacked_shardings`, :214-227; `parallel/partition.py`
+    `param_sharding_rule` / `port_splits`, `take_slice` one dim further
+    in), and the vmap runs over each data row's `ModelShardReplicas` (the
+    home and its model shards under one `_ModelRow`, so that
+    `functional_call` reaches every replica), the Megatron split inside
+    the vmapped forward: the flash operator launches once per model
+    shard on its heads for every member (`ops/flash_attention.py`, whose
+    vmap rules fold the member axis into the batch axis); a split leaf's
+    slices' gradients are summed over the rows and joined in model
+    order.  The masters stay whole, so checkpoints and `member_bundle`
+    hold the reference layout;
+  * a model with BatchNorm over several data shards takes each member's
+    statistics over the global batch, as the JAX sweep's jit does.  The
+    shards then run in lockstep, each on a thread of its own
+    (`ShardGroup.run(lockstep=True)`) with a replica of its own
+    (`functional_call` swaps a module's tensors in place, so two threads
+    cannot share one).  A functorch wrapper belongs to its thread's
+    transform and cannot meet another thread's, so a lockstep step does
+    not take `grad_and_value` inside the vmap: each shard runs the
+    vmapped forward under ordinary autograd, the stacked parameters as
+    leaves, `ShardGroup.all_sum` sees the members' plain (N, C) sums
+    through a vmap rule (`parallel/ring.py` `_MemberAllSum`), and one
+    `torch.autograd.grad` of the sum of every member's loss over the
+    shards' joint graph gives each member its own gradient (members are
+    independent).  This keeps the all-sum's plain, differentiable
+    tensor moves, which carry each shard's share of the cross-shard
+    terms backward as in the Trainer's data step; an all-sum operator
+    with a vmap rule and a backward of its own would need the backward
+    in lockstep too.  Shard 0's moved statistics are the global batch's;
+    a culled member's stay frozen.
+
+A population across processes raises, in both packages
+(`mmlspark_tpu/train/sweep.py:149-150`), as does a mesh with a seq axis
+of more than one device here (`check_data_mesh`, ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call, grad_and_value, vmap
 
 from mmlspark_tpu_torch.config import (SWEEP_CULL_FRACTION,
@@ -69,12 +104,18 @@ from mmlspark_tpu_torch.observe.logging import get_logger
 from mmlspark_tpu_torch.observe.spans import active_timings, monotonic, span_on
 from mmlspark_tpu_torch.observe.telemetry import active_run
 from mmlspark_tpu_torch.observe.trace import active_tracer, current_span_id
-from mmlspark_tpu_torch.parallel.bridge import stack_trees, unstack_member
+from mmlspark_tpu_torch.parallel.bridge import (ModelShardReplicas,
+                                                ShardReplicas, stack_trees,
+                                                unstack_member)
 from mmlspark_tpu_torch.parallel.distributed import process_count
-from mmlspark_tpu_torch.parallel.mesh import (batch_devices, distinct_devices,
-                                              mesh_for_spec)
+from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, batch_devices,
+                                              mesh_for_spec, model_group)
 from mmlspark_tpu_torch.parallel.ring import ShardGroup, reduce_to_home
-from mmlspark_tpu_torch.parallel.partition import DEFAULT_RULES, rules_to_json
+from mmlspark_tpu_torch.parallel.partition import (DEFAULT_RULES,
+                                                   join_slices,
+                                                   param_sharding_rule,
+                                                   port_splits,
+                                                   rules_to_json, take_slice)
 from mmlspark_tpu_torch.resilience.checkpoints import (checkpoint_name,
                                                        latest_valid_checkpoint)
 from mmlspark_tpu_torch.resilience.ckpt_writer import (CheckpointWriter,
@@ -133,9 +174,37 @@ class SweepResult:
         return self.member_bundle(self.best_member)
 
 
+@dataclasses.dataclass
+class _Row:
+    """One data shard's forward: the module it calls, its leaf entries
+    (the module's names for the tensor, the master's index, (dim, groups,
+    model index) of a split leaf's slice or None, and the device), its
+    BatchNorm statistics' names and modules, and its home device."""
+
+    module: nn.Module
+    leaves: list
+    stat_keys: list
+    norms: list
+    device: torch.device
+
+
+class _ModelRow(nn.Module):
+    """A data row's home replica and its model shards under one module,
+    so that `functional_call` reaches every replica's tensors; calls the
+    home, which runs the model group (`ModelShardReplicas`)."""
+
+    def __init__(self, home: nn.Module, peers: Sequence):
+        super().__init__()
+        self.home = home
+        self.peers = nn.ModuleList(peers)
+
+    def forward(self, *args, **kwargs):
+        return self.home(*args, **kwargs)
+
+
 class PopulationTrainer:
     """Trains a population of sweep members with one vmapped step, on one
-    card or over a data mesh (module docstring).
+    card or over a data and model mesh (module docstring).
 
     `members` is an int (population size N, every member at the config's
     learning rate) or a sequence of per-member dicts with optional
@@ -149,6 +218,7 @@ class PopulationTrainer:
                  cull_fraction: Optional[float] = None,
                  min_active: Optional[int] = None, device="cuda"):
         if process_count() > 1:
+            # the JAX sweep raises here too (mmlspark_tpu/train/sweep.py:149)
             raise NotImplementedError(
                 "population training is single-controller; shard the "
                 "candidate grid across hosts, not one population")
@@ -163,6 +233,7 @@ class PopulationTrainer:
         self.mesh = mesh
         self.shard_devices = ([resolve_device(device)] if mesh is None
                               else batch_devices(mesh))
+        self.model_size = 1 if mesh is None else mesh.shape[MODEL_AXIS]
         device = self.shard_devices[0]
         if isinstance(members, int):
             if members < 1:
@@ -183,12 +254,14 @@ class PopulationTrainer:
                        if isinstance(mod, BatchNorm)]
         self._stat_names = [f"{prefix}.{leaf}" for prefix, _ in self._norms
                             for leaf in ("mean", "var")]
-        if len(self.shard_devices) > 1 and self._norms:
-            raise NotImplementedError(
-                "a population with BatchNorm over a data axis of "
-                f"{len(self.shard_devices)} devices is not ported: the "
-                "global batch statistics would need the shards in lockstep "
-                "inside torch.func's vmap (ROADMAP A10)")
+        # a training BatchNorm over several data shards takes the global
+        # batch's statistics: the shards then run in lockstep (module
+        # docstring)
+        self._lockstep = len(self.shard_devices) > 1 and bool(self._norms)
+        # {port leaf name: (dim, groups)} of the leaves split over the
+        # model axis, and each data shard's forward (set with the state)
+        self.param_splits: dict = {}
+        self._rows: list = []
         self._loss = make_loss(trainer_config.loss)
         self.halving_rungs = int(SWEEP_HALVING_RUNGS.current()
                                  if halving_rungs is None else halving_rungs)
@@ -254,6 +327,7 @@ class PopulationTrainer:
             stats.append([self.module.get_buffer(s).detach().clone()
                           for s in self._stat_names])
         self.module.train()
+        self._build_rows()
         opt = self._tx.init(params[0])
         for key in _MOMENTS:
             if key in opt:
@@ -268,50 +342,137 @@ class PopulationTrainer:
             active=torch.ones(n, device=self.device))
 
     # -- the step -------------------------------------------------------
-    def _forward(self, tensors: dict, x: torch.Tensor) -> tuple:
-        """(logits, sown) of the module over `tensors` (one member's
-        parameters and statistics)."""
-        if self._scoring:
-            return functional_call(self.module, tensors, (x,))[0], {}
-        return functional_call(self.module, tensors, (x,),
-                               {"collect": True})
+    def _build_rows(self) -> None:
+        """Each data shard's forward and the tensors it reads (module
+        docstring): over a model axis the data row's home replica with its
+        model shards (`ModelShardReplicas`), whose split leaves are read
+        as each model index's slices; in lockstep a replica per shard
+        (`ShardReplicas`: `functional_call` swaps a module's tensors in
+        place, so two threads cannot share one module); else the module
+        itself."""
+        names, n = self._names, len(self.shard_devices)
+        self._rows = []
+        if self.model_size > 1:
+            cfg = self.config
+            self.param_splits = port_splits(
+                self.module, self.mesh, param_sharding_rule(
+                    self.mesh, cfg.tensor_parallel, cfg.expert_parallel,
+                    cfg.partition_rules))
+            replicas = ModelShardReplicas(self.module, self.mesh,
+                                          self.param_splits)
+            for i, (home, shards) in enumerate(replicas.rows):
+                devices = model_group(self.mesh, i)
+                peers = [f"peers.{m}." for m in range(self.model_size)]
+                leaves = []
+                for j, name in enumerate(names):
+                    split = replicas.splits.get(name)
+                    if split is None:
+                        # the home's leaf, which the model shards share
+                        leaves.append(((f"home.{name}",) + tuple(
+                            p + name for p in peers), j, None, devices[0]))
+                    else:
+                        leaves += [((peers[m] + name,), j, split + (m,),
+                                    dev) for m, dev in enumerate(devices)]
+                self._rows.append(_Row(
+                    _ModelRow(home, shards), leaves,
+                    [f"home.{s}" for s in self._stat_names],
+                    [home.get_submodule(p) for p, _ in self._norms],
+                    devices[0]))
+            return
+        shards = (ShardReplicas(self.module, self.shard_devices).shards
+                  if self._lockstep else [self.module] * n)
+        for module, dev in zip(shards, self.shard_devices):
+            self._rows.append(_Row(
+                module, [((name,), j, None, dev)
+                         for j, name in enumerate(names)],
+                list(self._stat_names),
+                [module.get_submodule(p) for p, _ in self._norms], dev))
 
-    def _on_shards(self, tensors: list) -> list:
-        """Stacked tensors on each shard's device: the home device's own,
-        one copy per other distinct device."""
-        copies = {self.device: tensors}
-        for dev in distinct_devices(self.shard_devices)[1:]:
-            copies[dev] = [t.to(dev) for t in tensors]
-        return [copies[dev] for dev in self.shard_devices]
+    def _row_tensors(self, row: "_Row", params: list,
+                     stats: list) -> tuple:
+        """One data shard's view of the stacked (N, ...) tensors: each
+        leaf on its device, a split leaf as model index m's slice (the
+        Trainer's placement behind the population axis)."""
+        tensors = []
+        for _, j, split, dev in row.leaves:
+            t = params[j]
+            if split is not None:
+                dim, groups, m = split
+                t = take_slice(t, dim + 1, m, self.model_size,
+                               groups).to(dev).contiguous()
+            tensors.append(t.to(dev))
+        return tensors, [t.to(row.device) for t in stats]
+
+    def _joined_grads(self, per_row: list) -> list:
+        """Each parameter's (N, ...) gradient on the home device from the
+        data shards' gradients (one per leaf entry of a row): summed over
+        the shards in shard order (`reduce_to_home`), a split leaf's
+        slices each summed so and joined in model order."""
+        grads, pos = [], 0
+        leaves = self._rows[0].leaves
+        while pos < len(leaves):
+            split = leaves[pos][2]
+            if split is None:
+                grads.append(reduce_to_home([g[pos] for g in per_row]))
+                pos += 1
+                continue
+            dim, groups, _ = split
+            parts = [reduce_to_home([g[pos + m] for g in per_row])
+                     .to(self.device) for m in range(self.model_size)]
+            grads.append(join_slices(parts, dim + 1, groups))
+            pos += self.model_size
+        return grads
+
+    def _forward(self, row: "_Row", tensors: list, stats: list,
+                 x: torch.Tensor) -> tuple:
+        """(logits, sown) of the row's forward over one member's tensors
+        (`tensors` in the row's leaf order, `stats` in statistic order)."""
+        named = {key: t for (keys, _, _, _), t in zip(row.leaves, tensors)
+                 for key in keys}
+        named.update(zip(row.stat_keys, stats))
+        # a model row names every key of a tied leaf itself
+        tie = not isinstance(row.module, _ModelRow)
+        if self._scoring:
+            return functional_call(row.module, named, (x,),
+                                   tie_weights=tie)[0], {}
+        return functional_call(row.module, named, (x,), {"collect": True},
+                               tie_weights=tie)
 
     def make_population_step(self):
         """`step(state, x, y, mask) -> (N,) losses`: x, y and mask are lists
         of per-shard slabs (one card takes the tensors themselves).  Each
-        shard's vmapped `grad_and_value` over the stacked parameters on its
-        slab, the loss over the global mask count; the members' gradients
-        summed onto the home device in shard order; one vmapped update
-        there (module docstring).  The state's stacked tensors are
-        replaced and its step advances."""
-        names, stat_names, norms = self._names, self._stat_names, self._norms
-        loss_fn, tx = self._loss, self._tx
+        data shard's vmapped `grad_and_value` over its view of the stacked
+        parameters on its slab (in lockstep: each shard's vmapped forward
+        on a thread of its own, then one `torch.autograd.grad` of the sum
+        of every member's loss over the shards' joint graph), the loss
+        over the global mask count; the members' gradients summed onto the
+        home device in shard order and joined over the model axis; one
+        vmapped update there (module docstring).  The state's stacked
+        tensors are replaced and its step advances."""
+        loss_fn, tx, rows = self._loss, self._tx, self._rows
         aux_w = float(self.config.aux_loss_weight)
         n = len(self.shard_devices)
+        lockstep = self._lockstep
 
-        def member_grads(params, stats, x, y, mask, denom):
-            def compute(p):
-                tensors = dict(zip(names, p))
-                tensors.update(zip(stat_names, stats))
-                with functional_batch_stats() as moved:
-                    logits, sown = self._forward(tensors, x)
-                loss = loss_fn(logits, y, mask, denom=denom)
-                if aux_w:
-                    loss = loss + (aux_w / n) * sum(
-                        sown_leaves(sown.get("losses", {})))
-                return loss, [t for _, mod in norms for t in moved[mod]]
+        def member_loss(row, tensors, stats, x, y, mask, denom):
+            with functional_batch_stats() as moved:
+                logits, sown = self._forward(row, tensors, stats, x)
+            loss = loss_fn(logits, y, mask, denom=denom)
+            if aux_w:
+                loss = loss + (aux_w / n) * sum(
+                    sown_leaves(sown.get("losses", {})))
+            return loss, [t for mod in row.norms for t in moved[mod]]
 
+        def member_grads(row, tensors, stats, x, y, mask, denom):
             grads, (loss, new_stats) = grad_and_value(
-                compute, has_aux=True)(list(params))
+                lambda p: member_loss(row, p, stats, x, y, mask, denom),
+                has_aux=True)(list(tensors))
             return grads, loss, new_stats
+
+        batched = (0, 0, None, None, None, None)
+        shard_fns = [vmap(functools.partial(
+            member_loss if lockstep else member_grads, row), in_dims=batched)
+            for row in rows]
 
         def member_update(params, stats, moments, lr, active, grads,
                           new_stats, count):
@@ -328,11 +489,29 @@ class PopulationTrainer:
             return (freeze(new_params, params), freeze(new_stats, stats),
                     {k: freeze(opt[k], moments[k]) for k in moments})
 
-        shard_grads = vmap(member_grads, in_dims=(0, 0, None, None, None,
-                                                  None))
         update = vmap(member_update, in_dims=(0, 0, 0, 0, 0, 0, 0, None))
         group = ShardGroup(n)
         f32 = self.module.dtype == torch.float32
+
+        def lockstep_grads(inputs, xs, ys, masks, denom) -> tuple:
+            """The shards' vmapped forwards in lockstep (their BatchNorm
+            statistics summed across them) under ordinary autograd, then
+            one backward over the joint graph: members are independent,
+            so the gradient of the sum is each member's own."""
+            leaves = [[t.detach().requires_grad_() for t in tensors]
+                      for tensors, _ in inputs]
+            outs = group.run(lambda i: shard_fns[i](
+                leaves[i], inputs[i][1], xs[i], ys[i], masks[i],
+                denom.to(xs[i].device)), lockstep=True)
+            flat = torch.autograd.grad(
+                reduce_to_home([loss.sum() for loss, _ in outs]),
+                [t for row in leaves for t in row])
+            per_row, at = [], 0
+            for row in leaves:
+                per_row.append(list(flat[at:at + len(row)]))
+                at += len(row)
+            return (per_row, reduce_to_home([loss for loss, _ in outs]),
+                    [t.detach() for t in outs[0][1]])
 
         def population_step(state: PopulationState, xs, ys, masks):
             if isinstance(xs, torch.Tensor):
@@ -342,21 +521,29 @@ class PopulationTrainer:
             denom = torch.clamp(reduce_to_home(
                 [m.float().sum() for m in masks]), min=1.0)
             with exact_f32() if f32 else contextlib.nullcontext():
-                params = self._on_shards(state.params)
-                stats = self._on_shards(state.batch_stats)
-                # each shard inside `data_shard` (a MoE routes with the
-                # global batch's group size)
-                per_shard = group.run(lambda i: shard_grads(
-                    params[i], stats[i], xs[i], ys[i], masks[i],
-                    denom.to(xs[i].device)))
-                grads = [reduce_to_home([g[0][j] for g in per_shard])
-                         for j in range(len(names))]
-                losses = reduce_to_home([g[1] for g in per_shard])
-                # the moved BatchNorm statistics are shard 0's: a
-                # population with BatchNorm runs on one device
+                inputs = [self._row_tensors(row, state.params,
+                                            state.batch_stats)
+                          for row in rows]
+                if lockstep:
+                    per_row, losses, new_stats = lockstep_grads(
+                        inputs, xs, ys, masks, denom)
+                else:
+                    # each shard inside `data_shard` (a MoE routes with
+                    # the global batch's group size)
+                    per_shard = group.run(lambda i: shard_fns[i](
+                        inputs[i][0], inputs[i][1], xs[i], ys[i], masks[i],
+                        denom.to(xs[i].device)))
+                    per_row = [g[0] for g in per_shard]
+                    losses = reduce_to_home([g[1] for g in per_shard])
+                    # without lockstep BatchNorm runs on one shard only
+                    new_stats = per_shard[0][2]
+                grads = self._joined_grads(per_row)
+                # the moved BatchNorm statistics are shard 0's: the global
+                # batch's where the shards run in lockstep
                 state.params, state.batch_stats, new_moments = update(
                     state.params, state.batch_stats, moments, state.lr,
-                    state.active, grads, per_shard[0][2],
+                    state.active, grads, [t.to(self.device)
+                                          for t in new_stats],
                     state.opt_state["count"])
             state.opt_state.update(new_moments)
             state.opt_state["count"] += 1
@@ -372,30 +559,30 @@ class PopulationTrainer:
         vmapped forward in eval mode; over a data mesh each shard scores
         its slab of the rows (padded to a multiple of the shards), joined
         in row order."""
-        names, stat_names = self._names, self._stat_names
-
-        def member_apply(params, stats, xb):
-            tensors = dict(zip(names, params))
-            tensors.update(zip(stat_names, stats))
-            return self._forward(tensors, xb)[0]
+        def member_apply(row, tensors, stats, xb):
+            return self._forward(row, tensors, stats, xb)[0]
 
         rows = host_batch(np.asarray(x))
         slab = -(-len(rows) // len(self.shard_devices))
-        params = self._on_shards(state.params)
-        stats = self._on_shards(state.batch_stats)
-        self.module.eval()
+        modules = {id(row.module): row.module for row in self._rows}
+        for module in modules.values():
+            module.eval()
         outs = []
         try:
             with torch.no_grad(), (exact_f32() if self.module.dtype ==
                                    torch.float32 else
                                    contextlib.nullcontext()):
-                for i, dev in enumerate(self.shard_devices):
+                for i, row in enumerate(self._rows):
                     xb = torch.from_numpy(np.ascontiguousarray(
-                        rows[i * slab:(i + 1) * slab])).to(dev)
-                    outs.append(vmap(member_apply, in_dims=(0, 0, None))(
-                        params[i], stats[i], xb).float().cpu().numpy())
+                        rows[i * slab:(i + 1) * slab])).to(row.device)
+                    tensors, stats = self._row_tensors(
+                        row, state.params, state.batch_stats)
+                    outs.append(vmap(functools.partial(member_apply, row),
+                                     in_dims=(0, 0, None))(
+                        tensors, stats, xb).float().cpu().numpy())
         finally:
-            self.module.train()
+            for module in modules.values():
+                module.train()
         return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=1)
 
     # -- the loop -------------------------------------------------------
@@ -613,7 +800,7 @@ class PopulationTrainer:
                       "learning_rate": self.member_lr(k)},
             "partition": {"rules": rules_to_json(rules),
                           "mesh": {"data": len(self.shard_devices),
-                                   "model": 1}},
+                                   "model": self.model_size}},
         }
         return ModelBundle(self.config.architecture,
                            model_config(self.module),

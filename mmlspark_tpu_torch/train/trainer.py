@@ -154,9 +154,16 @@ runs in each, so every process holds the whole masters.  The checkpoint
 flags must agree on every process; the coordinator decides a resume and
 broadcasts it; a preemption flag is all-gathered before the emergency
 save; only the coordinator writes checkpoints, and a restore is read by
-the coordinator and broadcast.  A model with training BatchNorm raises
-NotImplementedError under several processes (the cross-process batch
-statistics are not ported, ROADMAP A10).
+the coordinator and broadcast (the BatchNorm statistics with the
+parameters).  A training BatchNorm takes the global batch's statistics:
+`ShardGroup.all_sum` adds each process's shard sums over the processes
+(`parallel/ring.py` `process_sum`, a differentiable all-reduce inside
+`run_collective`, called in the same layer order on every process and
+the reverse in the backward), after the local shard sum, the order of
+`_sum_over_processes`.  Each process's shard 0 moves its running
+statistics with the same global values, so every process ends with the
+same `batch_stats`; the coordinator's are the ones its checkpoints
+write.
 """
 
 from __future__ import annotations
@@ -333,15 +340,12 @@ class TrainState:
     batch_stats: list = dataclasses.field(default_factory=list)
 
 
-def check_data_mesh(mesh, what: str, model_axis: bool = False) -> None:
-    """A mesh the data-parallel paths run over: a seq axis of more than
-    one device, or a model axis where `model_axis` is False, raises
-    NotImplementedError naming ROADMAP A10."""
-    if mesh is not None and mesh.shape[MODEL_AXIS] > 1 and not model_axis:
-        raise NotImplementedError(
-            f"{what} over a mesh with a model axis ({mesh.shape}) is not "
-            "ported: tensor and expert parallelism (ROADMAP A10)")
+def check_data_mesh(mesh, what: str) -> None:
+    """A mesh the data- and model-parallel paths run over: a seq axis of
+    more than one device raises NotImplementedError naming ROADMAP A10."""
     if mesh is not None and mesh.shape[SEQ_AXIS] > 1:
+        # the JAX Trainer and sweep compute here (the batch replicated
+        # over 'seq'): not ported yet, ROADMAP queue A step 8
         raise NotImplementedError(
             f"{what} over a mesh with a seq axis ({mesh.shape}) is not "
             "ported (ROADMAP A10): seq-parallel training is "
@@ -361,7 +365,7 @@ class Trainer:
         if mesh is None:
             device = resolve_device(device)
             mesh = mesh_for_spec(config.mesh, device)
-        check_data_mesh(mesh, "the Trainer", model_axis=True)
+        check_data_mesh(mesh, "the Trainer")
         self.config = config
         self.mesh = mesh
         # the model axis: how many shards each leaf the placement splits
@@ -969,8 +973,8 @@ class Trainer:
     def _check_processes(self, n_local: int, ckpt_dir, resume: bool) -> None:
         """The preconditions of a fit over several processes: the mesh
         spans them all (`make_process_mesh`, which holds the data axis to
-        a multiple of their count), no training BatchNorm, and the
-        checkpoint flags (a collective) set alike on every process."""
+        a multiple of their count) and the checkpoint flags (a
+        collective) set alike on every process."""
         nproc = process_count()
         spans = 1 if self.mesh is None else self.mesh.process_count
         if spans != nproc:
@@ -978,10 +982,6 @@ class Trainer:
                 f"multi-host training needs a mesh over all {nproc} "
                 f"processes (parallel.mesh.make_process_mesh), got one over "
                 f"{spans}")
-        if self._lockstep:
-            raise NotImplementedError(
-                "training BatchNorm statistics across processes are not "
-                "ported (ROADMAP A10): train this model in one process")
         flags = np.asarray([int(bool(ckpt_dir)),
                             int(self.config.checkpoint_every_steps or 0),
                             int(bool(resume))], np.int64)

@@ -234,7 +234,7 @@ def test_population_over_a_data_mesh(jax_refs):
     """The 4-rate sweep at data 2 from the JAX members' inits: the JAX
     population's member losses and parameters at data 2, and the port's
     one-device population's; a BatchNorm population over the data axis
-    raises."""
+    trains on the global batch's statistics, as the one-device one."""
     inits, jloss, jparams = jax_refs["population"]
     x, y = table_data()
     members = [{"learning_rate": r} for r in RATES]
@@ -262,8 +262,18 @@ def test_population_over_a_data_mesh(jax_refs):
     resnet = TrainerConfig(**fit_kw(architecture="ResNet", model_config={
         "stage_sizes": [1], "widths": [4], "num_classes": 3,
         "dtype": "float32"}))
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        PopulationTrainer(resnet, 2, mesh=host_mesh(2))
+    rng = np.random.default_rng(4)
+    xi = rng.normal(size=(16, 8, 8, 3)).astype(np.float32)
+    yi = rng.integers(0, 3, 16).astype(np.int32)
+    bn = PopulationTrainer(resnet, 2, mesh=host_mesh(2))
+    bn_inits = [bn.member_init_variables(k, (1, 8, 8, 3)) for k in range(2)]
+    meshed = bn.fit_arrays(xi, yi, member_variables=bn_inits)
+    alone = PopulationTrainer(resnet, 2, device="cpu").fit_arrays(
+        xi, yi, member_variables=bn_inits)
+    np.testing.assert_allclose(meshed.member_loss, alone.member_loss,
+                               rtol=1e-6)
+    for a, b in zip(meshed.state.batch_stats, alone.state.batch_stats):
+        close(a.numpy(), b.numpy())
 
 
 def test_train_classifier_population_over_a_mesh():

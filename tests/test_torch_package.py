@@ -941,6 +941,59 @@ def test_flash_autograd_matches_plain_autograd(cuda, dtype):
         _assert_grad_close(a, b, dtype)
 
 
+# ------------------------------- the flash operator folded over members ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 32)])
+def test_flash_operator_folds_members_into_one_launch(cuda, dtype, d):
+    """`vmap(grad_and_value)` over 3 members of (2, 640, 4, d): K1[lse], K2
+    and K3 launch once each at the folded (6, 640, 4, d), and each
+    member's output and gradients agree with its plain autograd."""
+    from torch.func import grad_and_value, vmap
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, w = (torch.randn((3, 2, 640, 4, d), generator=gen,
+                              device=cuda).to(dtype) for _ in range(4))
+
+    def loss(q, k, v, w):
+        return (flash_attention(q, k, v, causal=True).float()
+                * w.float()).sum()
+
+    before = (flash_attention_with_lse.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    grads, _ = vmap(grad_and_value(loss, argnums=(0, 1, 2)))(q, k, v, w)
+    torch.cuda.synchronize()
+    assert (flash_attention_with_lse.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    for m in range(3):
+        leaves = [t[m].detach().clone().requires_grad_() for t in (q, k, v)]
+        ref = torch.autograd.grad(
+            (flash_attention_with_lse_plain(*leaves, causal=True)[0].float()
+             * w[m].float()).sum(), leaves)
+        for got, want in zip(grads, ref):
+            _assert_grad_close(got[m], want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_forward_folds_members_without_grad(cuda):
+    """The no-grad forward under vmap: one K1 launch for 4 members, each
+    member's output as its plain version's."""
+    from torch.func import vmap
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((4, 2, 1000, 8, 128), generator=gen,
+                           device=cuda).to(torch.bfloat16) for _ in range(3))
+    before = flash_attention.launches
+    with torch.no_grad():
+        out = vmap(lambda a, b, c: flash_attention(a, b, c, causal=True))(
+            q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    for m in range(4):
+        ref = flash_attention_plain(q[m], k[m], v[m], causal=True)
+        _assert_out_norm_close(out[m], ref, torch.bfloat16)
+
+
 # ------------------------------------------- head dims 8 and 16 -------
 
 SMALL_HEAD_DIMS = [8, 16]

@@ -334,14 +334,22 @@ def test_rng_fold_changes_shuffle_order_only_when_set():
 
 # -------------------------------------------------- hung-step watchdog ---
 
+# The watchdog drills: a deadline no ordinary step comes near, even on a
+# loaded host, and a chaos hang far past it, so that only the hang can
+# fire the watchdog (the hung worker is a daemon: it wakes after the test
+# and, abandoned, runs nothing)
+DRILL_TIMEOUT_S = 1.5
+DRILL_HANG_S = 60.0
+
+
 def test_watchdog_raises_hung_step_and_checkpoints(tmp_path):
     """A chaos hang past step_timeout_s raises HungStepError; the newest
     checkpoint is the last completed step's emergency save."""
     x, y = lm_data()
-    restore = scripted(Fault("hang", step=4, seconds=0.5))
+    restore = scripted(Fault("hang", step=4, seconds=DRILL_HANG_S))
     try:
         with pytest.raises(HungStepError) as ei:
-            trainer(drill_config(step_timeout_s=0.1,
+            trainer(drill_config(step_timeout_s=DRILL_TIMEOUT_S,
                                  numerics_cadence=0)).fit_arrays(
                 x, y, ckpt_dir=str(tmp_path))
     finally:
@@ -386,10 +394,10 @@ def test_watchdog_writes_no_checkpoint_when_the_hung_step_launched(
 
 def test_supervisor_recovers_from_hung_step(tmp_path):
     x, y = lm_data()
-    restore = scripted(Fault("hang", step=4, seconds=0.5))
+    restore = scripted(Fault("hang", step=4, seconds=DRILL_HANG_S))
     try:
         sup = RecoverySupervisor(
-            drill_config(step_timeout_s=0.1, numerics_cadence=0),
+            drill_config(step_timeout_s=DRILL_TIMEOUT_S, numerics_cadence=0),
             RecoveryPolicy(max_recoveries=2), device="cpu")
         bundle = sup.fit_arrays(x, y, ckpt_dir=str(tmp_path))
     finally:

@@ -307,6 +307,10 @@ def test_population_defaults_to_the_card():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PopulationTrainer(_cfg(), 2)
+    # a model axis is taken (the members split as the Trainer's
+    # placement has it); a seq axis raises
+    pt = PopulationTrainer(_cfg(mesh={"data": 1, "model": 2}), 2,
+                           device="cpu")
+    assert pt.model_size == 2 and pt.mesh.shape["model"] == 2
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        PopulationTrainer(_cfg(mesh={"data": 1, "model": 2}), 2,
-                          device="cpu")
+        PopulationTrainer(_cfg(mesh={"data": 1, "seq": 2}), 2, device="cpu")

@@ -6,7 +6,10 @@ itself: `Trainer.__init__` joins the process group from the
 MMLSPARK_TPU_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID knobs.  It
 imports only the port.
 
-Invoked as: python torch_multihost_worker.py <out_dir> <init_bundle_dir>
+Invoked as: python torch_multihost_worker.py <out_dir> <init_bundle_dir>,
+or with `bn` first (`tests/test_torch_multihost_bn.py`): a ResNet with
+training BatchNorm fitted over a global data axis of 2, one shard a
+process, its statistics summed across the processes.
 """
 
 import os
@@ -31,6 +34,63 @@ PP_FIT = dict(architecture="TransformerLM", model_config=PP_LM,
               numerics_cadence=0)
 
 
+# training BatchNorm across the processes: a basic ResNet, one data shard
+# a process (momentum: no Adam amplification of round-off on a
+# zero-gradient direction)
+BN_RESNET = {"stage_sizes": [1], "widths": [4], "num_classes": 3,
+             "dtype": "float32"}
+BN_FIT = dict(architecture="ResNet", model_config=BN_RESNET,
+              optimizer="momentum", learning_rate=0.05, epochs=2,
+              batch_size=8, loss="softmax_xent", seed=0,
+              shuffle_each_epoch=False, numerics_cadence=0)
+
+
+def make_images(n=16, seed=3):
+    """Images (n, 8, 8, 3) and labels, process p holding rows
+    [n/2 p, n/2 (p + 1))."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, 8, 8, 3)).astype(np.float32),
+            rng.integers(0, 3, n).astype(np.int32))
+
+
+def bn_main(out_dir, init_dir):
+    """The BatchNorm fit: each process feeds 4 rows a step of its half;
+    only the coordinator writes checkpoints."""
+    import torch
+
+    from mmlspark_tpu_torch.models.bundle import load_bundle
+    from mmlspark_tpu_torch.train import Trainer, TrainerConfig
+
+    torch.set_num_threads(1)
+    pid = int(os.environ["MMLSPARK_TPU_PROCESS_ID"])
+    nproc = int(os.environ["MMLSPARK_TPU_NUM_PROCESSES"])
+    x, y = make_images()
+    half = len(x) // nproc
+    trainer = Trainer(TrainerConfig(
+        **BN_FIT, mesh={"data": 2},
+        checkpoint_dir=os.path.join(out_dir, f"bn_ckpt{pid}"),
+        checkpoint_every_steps=2), device="cpu")
+    assert trainer.data_size == 1 and trainer.mesh.process_count == nproc
+    bundle = trainer.fit_arrays(x[pid * half:(pid + 1) * half],
+                                y[pid * half:(pid + 1) * half],
+                                initial_bundle=load_bundle(init_dir))
+    flat = {}
+
+    def walk(node, path):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                walk(node[key], path + (key,))
+            else:
+                flat["/".join(path + (key,))] = np.asarray(node[key])
+    # the final state's statistics (the bundle's) and parameters
+    walk({"stat": bundle.variables["batch_stats"],
+          "param": bundle.variables["params"]}, ())
+    np.savez(os.path.join(out_dir, f"bn{pid}.npz"),
+             losses=np.asarray([h["loss"] for h in trainer.history]),
+             steps=bundle.metadata["steps"], **flat)
+    print(f"bn worker {pid} done", flush=True)
+
+
 def make_tokens(n=16, seed=7):
     """Token rows and their next-token targets, process p holding rows
     [8p, 8p + 8)."""
@@ -51,6 +111,9 @@ def make_data(n=128, seed=0):
 
 
 def main():
+    if sys.argv[1] == "bn":
+        bn_main(sys.argv[2], sys.argv[3])
+        return
     out_dir, init_dir = sys.argv[1], sys.argv[2]
     import torch
 
