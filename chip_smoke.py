@@ -379,9 +379,25 @@ Phases (any failure exits non-zero before the result line):
      (c) a ResNet-18 population with training BatchNorm at data 2 against
      one card at the same global batch, phase 27 (c)'s limits, a planted
      per-shard BatchNorm rejected
+ 32. the seq axis under training (`phase_seq_axis`, only the port; the
+     shards of a data 2 x seq 2 mesh share the card, the seq axis
+     replicating the batch as the JAX Trainer's does): (a) the LM at
+     LM_CONFIG's width, bf16 flash, phase 27 (a)'s init and batch, 4
+     steps: per-step losses and grad norms equal to the data-2 fit's bit
+     for bit, K1[lse], K2 and K3 each n_layers x 2 data shards x 4 steps
+     (the seq replicas launch nothing), every Dense call at batch 4, the
+     step's ms beside the data-2 step's; (b) `TPULearner.set_mesh` with
+     phase 31 (c)'s ResNet-18 under deterministic cuDNN: weights and
+     batch_stats equal to the data-2 fit's bit for bit, the fitted
+     model's scores over the seq mesh equal to its scores over data 2;
+     (c) a `PopulationTrainer` of 1 (phase 31 (b)'s f32 LM at 2 layers)
+     byte-equal to the plain `Trainer` over the same mesh; (d) a
+     sequence-sharded model refused with a ValueError before any launch
 
 Each phase's seconds print on a line of their own (`phase seconds N`) and
-as one `{"phase_seconds": ...}` line; the whole run stays under 1000 s.
+as one `{"phase_seconds": ...}` line, and each arm of phases 12-14, 19,
+25 and 28 on one of its own (`phase N arm NAME: S s`); the whole run
+stays under 1200 s.
 
 Kernel and step times come from CUDA events (median after warm-up); each
 timed K1 shape also prints its TFLOP/s, its ratio to the library call of
@@ -1101,7 +1117,51 @@ def phase_decode(dev, card) -> list:
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "bound_term": term,
             "library_ms": lib_ms})
+    entries.append(k4_f32_row(q, k, v, visible, n_visible, card))
     return entries
+
+
+def k4_f32_row(q, k, v, visible, n_visible: int, card: str) -> dict:
+    """K4 at f32 (the f32 engines' decode read, D128) on phase 5's timing
+    inputs (8, 1152, 8, 128) cast to f32: checked against its plain
+    version (tol 2e-3), timed in a CUDA graph beside the plain version,
+    SDPA on the same f32 inputs and its bound (bytes at the HBM rate)."""
+    from mmlspark_tpu_torch.ops.decode_attention import (
+        fused_single_query_attention, fused_single_query_attention_plain)
+    q, k, v = q.float(), k.float(), v.float()
+    b, window, h, d = k.shape
+
+    def call():
+        return fused_single_query_attention(q, k, v, visible)
+    got = call()
+    torch.cuda.synchronize()
+    err = (got - fused_single_query_attention_plain(q, k, v, visible)
+           ).abs().max().item()
+    print(f"fused_single_query_attention (8,1152,8,128) f32: max_abs_err="
+          f"{err:.3e} (tol 2e-3)")
+    require(err <= 2e-3, "decode kernel disagrees at f32 D128")
+    repeat_and_graph_check(call, "fused_single_query_attention "
+                                 "(8,1152,8,128) f32")
+    ms = graph_ms(call)
+    plain_ms = graph_ms(lambda: fused_single_query_attention_plain(
+        q, k, v, visible))
+    mask = visible[:, None, None, :]
+    lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))
+    nbytes = 2.0 * n_visible * h * d * 4 + b * window + q.numel() * 4 \
+        + b * h * d * 4
+    bound, by, term = attention_bound(4.0 * n_visible * h * d, nbytes,
+                                      n_visible * h, PEAK_F32_FLOPS)
+    print(f"timing fused_single_query_attention (8,1152,8,128) f32, device "
+          f"time (CUDA graph): {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s); "
+          f"plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({term}), {bound / ms:.3f} of it [{card}]")
+    return {"name": "fused_single_query_attention[f32]", "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "mmlspark_tpu/ops/decode_attention.py:245",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "bound_term": term,
+            "library_ms": lib_ms}
 
 
 def phase_main_path(dev, card) -> dict:
@@ -1489,6 +1549,14 @@ def host_ms(fn, reps: int = 10) -> list:
     return sorted(times)
 
 
+def arm_line(phase: int, arm: str, t0: float, card: str) -> float:
+    """Print an arm's seconds since `t0` on a line of its own; returns
+    the time now (the next arm's start)."""
+    now = time.perf_counter()
+    print(f"phase {phase} arm {arm}: {now - t0:.1f} s [{card}]")
+    return now
+
+
 def phase_long_context(dev, card) -> dict:
     """The seq-sharded long-context path at full width: `DecodeEngine` at
     seq=1 and over a seq=2 mesh whose two shards share this card, on the
@@ -1803,9 +1871,11 @@ def flash_grad_check(dev, card, config: dict, seq: int, seed: int) -> dict:
 # the repo's serving bench arm (bench.py bench_serve arms 1 and 2, not cut)
 SERVE_BENCH_CONFIG = {"vocab_size": 8192, "d_model": 512, "n_heads": 8,
                       "n_layers": 4, "max_len": 256, "dtype": "bfloat16"}
+# reps 3 until phase 31 needed the time, 2 until phase 32 did (phase 12's
+# bench, phase 13's router arm, phase 14's disaggregated arm)
 SERVE_BENCH = dict(n_req=48, short_new=16, long_new=96, max_batch=8,
                    seg=16, chunk=64, lens=(40, 48, 56, 64), offered=96,
-                   reps=2)
+                   reps=1)
 def http_json(port: int, method: str, path: str, body=None) -> tuple:
     """(status, parsed JSON body) of one request on a fresh connection."""
     import http.client
@@ -1947,6 +2017,7 @@ def phase_serving(dev, card) -> dict:
     for name, dtype, cache in (("f32", "float32", "model"),
                                ("bf16", "bfloat16", "model"),
                                ("bf16_int8", "bfloat16", "int8")):
+        t_arm = time.perf_counter()
         bundle = ModelBundle("TransformerLM", {**LM_CONFIG, "dtype": dtype},
                              base.variables)
         cfg = ServeConfig(max_new_tokens=MAX_NEW, max_batch=8,
@@ -2048,7 +2119,10 @@ def phase_serving(dev, card) -> dict:
               f"({seg_ms / cfg.segment_steps:.2f} ms/step), prefill "
               f"{out[name]['prefill_ms']:.2f} ms; tokens agree with the "
               f"offline engine {out[name]['agree_offline']} [{card}]")
+        arm_line(12, name, t_arm, card)
+    t_arm = time.perf_counter()
     out["bench"] = serve_bench(dev, card)
+    arm_line(12, "bench", t_arm, card)
     return out
 
 
@@ -2393,6 +2467,7 @@ def phase_fleet(dev, card, benches: bool = True) -> dict:
     for name, dtype, cache in (("f32", "float32", "model"),
                                ("bf16", "bfloat16", "model"),
                                ("bf16_int8", "bfloat16", "int8")):
+        t_arm = time.perf_counter()
         bundle = ModelBundle("TransformerLM", {**LM_CONFIG, "dtype": dtype},
                              base.variables)
         scfg = ServeConfig(**FLEET_SERVE, cache_dtype=cache,
@@ -2524,10 +2599,13 @@ def phase_fleet(dev, card, benches: bool = True) -> dict:
             out["prefill"] = prefill_timings(weights, dev, shared[1], card)
         del router, weights
         torch.cuda.empty_cache()
+        arm_line(13, name, t_arm, card)
     if benches:
-        out["first_token"] = bench_first_token(dev, card)
-        out["zipf"] = bench_zipf(dev, card)
-        out["router"] = bench_router(dev, card)
+        for key, fn in (("first_token", bench_first_token),
+                        ("zipf", bench_zipf), ("router", bench_router)):
+            t_arm = time.perf_counter()
+            out[key] = fn(dev, card)
+            arm_line(13, key, t_arm, card)
     return out
 
 
@@ -2595,8 +2673,9 @@ def bench_first_token(dev, card) -> dict:
 def bench_zipf(dev, card) -> dict:
     """bench.py bench_serve arm 5: 16 prompts over 4 shared 896-token
     prefixes (Zipf weights) plus 64-token suffixes, 8 new tokens each,
-    through one engine with and without the prefix pool; goodput (best of
-    3 timed passes after a warm pass that fills the pool), the suffix
+    through one engine with and without the prefix pool; goodput (the
+    best of ZIPF["reps"] timed passes after a warm pass that fills the
+    pool), the suffix
     fraction of prefilled prompt tokens, tokens equal across the arms."""
     import gc
 
@@ -2694,8 +2773,9 @@ def bench_zipf(dev, card) -> dict:
 def bench_router(dev, card) -> dict:
     """bench.py bench_serve arm 3: the serving bench's 48 requests through
     a 2-replica router with replica r1 slowed 4x (`inject_slow(4.0)`)
-    against one healthy replica behind the same router; goodput (best of
-    3 timed passes after a warm one), the ratio, the healthy replica's
+    against one healthy replica behind the same router; goodput (the
+    best of SERVE_BENCH["reps"] timed passes after a warm one), the
+    ratio, the healthy replica's
     share of the routed attempts; every token equal to the offline
     engine's.  f32, so the exact gate holds whatever the batch
     composition."""
@@ -2941,6 +3021,7 @@ def phase_tiered(dev, card, benches: bool = True) -> dict:
     for name, dtype, cache in (("f32", "float32", "model"),
                                ("bf16", "bfloat16", "model"),
                                ("bf16_int8", "bfloat16", "int8")):
+        t_arm = time.perf_counter()
         bundle = ModelBundle("TransformerLM", {**LM_CONFIG, "dtype": dtype},
                              base.variables)
         scfg = ServeConfig(**TIER_SERVE, cache_dtype=cache,
@@ -3103,12 +3184,16 @@ def phase_tiered(dev, card, benches: bool = True) -> dict:
                   f"offline tokens [{card}]")
         del router, weights
         torch.cuda.empty_cache()
+        arm_line(14, name, t_arm, card)
     for name in ("f32", "bf16", "bf16_int8"):
         out[name]["bytes_vs_bf16"] = (out[name]["bytes_per_request"]
                                       / out["bf16"]["bytes_per_request"])
     if benches:
+        t_arm = time.perf_counter()
         out["disagg_arm"] = bench_disagg(dev, card)
+        t_arm = arm_line(14, "disagg_arm", t_arm, card)
         out["interference"] = bench_interference(dev, card)
+        arm_line(14, "interference", t_arm, card)
         require(out["interference"]["passed"],
                 f"interference: p99 ratio {out['interference']['p99_ratio']:.3f}"
                 f" under the drill's {INTERFERENCE['min_p99_ratio']}")
@@ -3118,8 +3203,9 @@ def phase_tiered(dev, card, benches: bool = True) -> dict:
 def bench_disagg(dev, card) -> dict:
     """bench.py bench_serve arm 4: the serving bench's 48 requests through
     1 prefill + 1 decode replica with int8 caches and chunk-64 prefill,
-    against a colocated 2-replica fleet of the same config; goodput (best
-    of 3 timed passes after a warm one) and the bus's bytes, pages,
+    against a colocated 2-replica fleet of the same config; goodput (the
+    best of SERVE_BENCH["reps"] timed passes after a warm one) and the
+    bus's bytes, pages,
     splices and overlap.  Every token equal to the colocated engine's of
     the same config.  f32, so the exact gate holds whatever the batch
     composition (as the router arm)."""
@@ -4913,9 +4999,9 @@ def phase_lm_decoding(dev, card) -> dict:
 # chip_smoke phase 19: the phase-7 fit with checkpoints every 2 steps
 # (async), a chaos preemption and its resume, a resume past a torn newest
 # checkpoint, and the recovery supervisor against a NaN and a hung step
-# reps 5 until phase 28 needed the time
+# reps 5 until phase 28 needed the time, 2 until phase 32 did
 CKPT = dict(every=2, preempt_at=2, nan_at=2, hang_at=3, hang_s=3.0,
-            step_timeout_s=2.0, reps=2)
+            step_timeout_s=2.0, reps=1)
 
 
 def ckpt_config(**kw):
@@ -5019,6 +5105,7 @@ def phase_checkpointed_training(dev, card) -> dict:
         require(all(v == n_layers * executed for v in got.values()),
                 f"{label}: launches {got}, want {n_layers * executed} each")
 
+    t_arm = time.perf_counter()
     try:
         # (a) two fault-free fits, the second without checkpoints (it
         # only asks whether the step is bitwise repeatable)
@@ -5055,6 +5142,7 @@ def phase_checkpointed_training(dev, card) -> dict:
                     f"fit's by {diff:.3e}")
             return diff
 
+        t_arm = arm_line(19, "a", t_arm, card)
         # (b) preempted at a step, then resumed
         d_b = os.path.join(root, "b")
         err, launched_1, secs_1 = run(
@@ -5069,6 +5157,7 @@ def phase_checkpointed_training(dev, card) -> dict:
             k: launched_1[k] + launched_2[k] for k in kernels}, steps)
         out["b_max_diff"] = same_as_a("(b) resumed", bundle)
 
+        t_arm = arm_line(19, "b", t_arm, card)
         # (c) the newest checkpoint of (a) torn: the resume falls back
         d_c = os.path.join(root, "a1")
         newest = list_checkpoints(d_c)[0][1]
@@ -5082,6 +5171,7 @@ def phase_checkpointed_training(dev, card) -> dict:
         require_launches("(c) resumed", launched, steps - fallback)
         out["c_max_diff"] = same_as_a("(c) resumed", bundle)
 
+        t_arm = arm_line(19, "c", t_arm, card)
         # (d) the supervisor against a NaN, then against a hung step
         sups = {}
         for label, cfg, fault, kind, restore, executed in (
@@ -5117,6 +5207,7 @@ def phase_checkpointed_training(dev, card) -> dict:
             sups[label] = sup.timeline
         out["timelines"] = sups
 
+        t_arm = arm_line(19, "d", t_arm, card)
         # (e) the checkpoint's cost at this width
         timer = Trainer(ckpt_config(), device=dev)
         state = timer.init_state((1, TRAIN_SEQ), 16, init)
@@ -5160,6 +5251,7 @@ def phase_checkpointed_training(dev, card) -> dict:
                    step_ms_async_every_step=async_ms,
                    step_ms_no_checkpoint=none_ms, restore_s=resume_s)
         del timer, again, state, restored, fresh
+        arm_line(19, "e", t_arm, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -7626,9 +7718,12 @@ def moe_sweep(dev, card) -> dict:
 def phase_moe_and_sweep(dev, card) -> dict:
     """Phase 25: the mixture-of-experts LM served and trained at
     LM_CONFIG's width, the remat policies, and the population sweep."""
-    out = {"serving": moe_serving(dev, card)}
-    out["training"] = moe_training(dev, card)
-    out["sweep"] = moe_sweep(dev, card)
+    out = {}
+    for key, fn in (("serving", moe_serving), ("training", moe_training),
+                    ("sweep", moe_sweep)):
+        t_arm = time.perf_counter()
+        out[key] = fn(dev, card)
+        arm_line(25, key, t_arm, card)
     return out
 
 
@@ -8141,27 +8236,36 @@ def dp_shard_kernel_rows(dev, card, launched: dict,
     return rows
 
 
-def dp_lm(dev, card) -> tuple:
+def dp_lm_config(model_config: dict):
+    """Phase 27 (a)'s fit: adam 3e-4, one batch of TRAIN_BATCH rows a
+    step for DP["steps"] steps."""
+    from mmlspark_tpu_torch import TrainerConfig
+    return TrainerConfig(
+        architecture="TransformerLM", model_config=model_config,
+        optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+        epochs=DP["steps"], loss="softmax_xent", seed=0, numerics_cadence=0)
+
+
+def dp_lm_batch() -> tuple:
+    """Phase 27 (a)'s batch of TRAIN_BATCH x TRAIN_SEQ (inputs, targets)."""
+    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, LM_CONFIG["vocab_size"])
+    return rows[:, :-1], rows[:, 1:]
+
+
+def dp_lm(dev, card, shared: Optional[dict] = None) -> tuple:
     """(a) The LM at LM_CONFIG's width, flash, bf16: a one-card fit and a
     data-2 fit from one init over one batch of 8 x 2048, 4 steps; the
     per-step losses within DP["loss_rtol"], K1[lse], K2 and K3 exactly
     n_layers x 2 shards x 4 steps each, every Dense call at batch 4; the
     step's ms at both widths; at f32 and DP["f32_layers"] layers the
-    weights after 4 steps as `f32_weight_gaps` holds them.
+    weights after 4 steps as `f32_weight_gaps` holds them.  `shared`
+    gets the init, the data-2 fit's per-step losses and grad norms, its
+    step's ms and the kernel rows, for phase 32.
     Returns (the kernel rows at the shard shape, the numbers)."""
-    from mmlspark_tpu_torch import ModelBundle, Trainer, TrainerConfig
-    vocab, n_layers, n = LM_CONFIG["vocab_size"], LM_CONFIG["n_layers"], \
-        DP["n"]
-    rows = char_corpus(TRAIN_BATCH, TRAIN_SEQ, vocab)
-    x, y = rows[:, :-1], rows[:, 1:]
-
-    def config(model_config):
-        return TrainerConfig(
-            architecture="TransformerLM", model_config=model_config,
-            optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
-            epochs=DP["steps"], loss="softmax_xent", seed=0,
-            numerics_cadence=0)
-
+    from mmlspark_tpu_torch import ModelBundle, Trainer
+    n_layers, n = LM_CONFIG["n_layers"], DP["n"]
+    x, y = dp_lm_batch()
+    config = dp_lm_config
     model_config = {**LM_CONFIG, "attn_impl": "flash"}
     init = ModelBundle.init("TransformerLM", model_config, seed=0)
     one = Trainer(config(model_config), device=dev)
@@ -8176,6 +8280,7 @@ def dp_lm(dev, card) -> tuple:
     for handle in handles:
         handle.remove()
     losses = [[r["loss"] for r in t.history] for t in (one, dp)]
+    dp_norms = [r["grad_norm"] for r in dp.history]
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0])]
     dense = {shape[0] for kind, shape, _ in calls if kind == "Dense"}
     want = n_layers * n * DP["steps"]
@@ -8235,6 +8340,10 @@ def dp_lm(dev, card) -> tuple:
     del bundles
     torch.cuda.empty_cache()
     rows = dp_shard_kernel_rows(dev, card, launched)
+    if shared is not None:
+        shared["dp_lm"] = {"init": init, "losses": losses[1],
+                           "grad_norms": dp_norms, "step_ms": times[n],
+                           "rows": rows}
     return rows, {"losses": losses[1], "one_card_losses": losses[0],
                   "loss_rel_gaps": gaps, "launches": launched,
                   "step_ms": times[n], "one_card_step_ms": times[1],
@@ -8518,14 +8627,14 @@ def dp_seq_step(dev, card) -> dict:
             "whole_array_loss": ref, "loss_rel": rel}
 
 
-def phase_data_parallel(dev, card) -> tuple:
+def phase_data_parallel(dev, card, shared: Optional[dict] = None) -> tuple:
     """Phase 27: data parallelism over a mesh whose 2 shards share this
-    card, through the port's entry points only: (a) `dp_lm`, (b)
-    `dp_checkpoints`, (c) `dp_vision`, (d) `dp_scoring`, (e) `dp_sweep`,
-    (f) `dp_seq_step`.  Returns (the kernel rows at the data-2 shard
-    shape, the numbers)."""
+    card, through the port's entry points only: (a) `dp_lm` (its fit
+    handed on to phase 32 through `shared`), (b) `dp_checkpoints`, (c)
+    `dp_vision`, (d) `dp_scoring`, (e) `dp_sweep`, (f) `dp_seq_step`.
+    Returns (the kernel rows at the data-2 shard shape, the numbers)."""
     t0 = time.perf_counter()
-    rows, out = dp_lm(dev, card)
+    rows, out = dp_lm(dev, card, shared)
     out = {"lm": out}
     for key, fn in (("checkpoints", dp_checkpoints), ("vision", dp_vision),
                     ("scoring", dp_scoring), ("sweep", dp_sweep),
@@ -9138,8 +9247,9 @@ def phase_model_parallel(dev, card) -> tuple:
 
 PP = dict(stages=2, micro=4, steps=4, f32_layers=2, logits_tol=2e-5,
           grad_tol=1e-5, bundle_tol=2e-4, score_rows=2, score_seq=512)
+# ResNet-50 took 32 rows (2 steps) until phase 32 needed the time
 MH = dict(n=2, rows=16, batch=8, epochs=2, score_seq=256, score_batch=4,
-          drop=3, timeout_s=420, r50_rows=32, r50_batch=16, r50_side=224)
+          drop=3, timeout_s=420, r50_rows=16, r50_batch=16, r50_side=224)
 
 
 def pp_mesh(dev, stages: int = PP["stages"]):
@@ -10391,13 +10501,15 @@ def pop_batchnorm(dev, card) -> dict:
             "seconds": dp["seconds"], "one_card_seconds": one["seconds"]}
 
 
-def phase_populations(dev, card) -> tuple:
+def phase_populations(dev, card, shared: Optional[dict] = None) -> tuple:
     """Phase 31: (a) the LM population at LM_CONFIG's width, K1[lse], K2
     and K3 folded over the members (n_layers x steps launches whatever
     the population's size), each member's curve against its plain fit,
     an f32 arm; the folded kernels checked and timed at (members x
     TRAIN_BATCH, TRAIN_SEQ, 8, 128); (b) `pop_mesh`; (c)
-    `pop_batchnorm`.  Returns (the kernel rows, the numbers)."""
+    `pop_batchnorm`.  `shared` gets member 0's f32 init at
+    POP["mesh_layers"] layers, for phase 32.  Returns (the kernel rows,
+    the numbers)."""
     t0 = time.perf_counter()
     n_layers = LM_CONFIG["n_layers"]
     bf16 = pop_lm(dev, card, {**LM_CONFIG, "attn_impl": "flash"},
@@ -10432,12 +10544,295 @@ def phase_populations(dev, card) -> tuple:
                LM_CONFIG["n_heads"],
                LM_CONFIG["d_model"] // LM_CONFIG["n_heads"]),
         tag="population fold", phase=31)
+    mesh_inits = [truncated_lm(v, POP["mesh_layers"])
+                  for v in inits[:POP["mesh_members"]]]
+    if shared is not None:
+        shared["pop_f32_init"] = mesh_inits[0]
     out = {"lm_bf16": bf16, "lm_f32": f32,
-           "mesh": pop_mesh(dev, card, [truncated_lm(
-               v, POP["mesh_layers"]) for v in inits[:POP["mesh_members"]]]),
+           "mesh": pop_mesh(dev, card, mesh_inits),
            "batchnorm": pop_batchnorm(dev, card)}
     out["phase_seconds"] = time.perf_counter() - t0
     print(f"phase 31: {out['phase_seconds']:.1f} s [{card}]")
+    return rows, out
+
+
+# -- phase 32: the seq axis under training -----------------------------------
+
+# A mesh's seq axis under the Trainer, TPULearner and the sweep replicates
+# the batch (the JAX Trainer's P('data')): each (data, model) group computes
+# once, at seq index 0, so every gate here is bit-equality with the mesh
+# without its seq axis.  (b) is phase 31 (c)'s ResNet-18 and images, two
+# steps of 64 a shard; (c) phase 31 (b)'s f32 LM at 2 layers.
+SEQ = dict(data=2, seq=2, vision_epochs=2, vision_lr=0.05)
+
+
+def seq_mesh(dev, data: int = SEQ["data"], seq: int = SEQ["seq"]):
+    """A data x seq mesh whose positions all sit on `dev`."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    return make_mesh(MeshSpec(data=data, seq=seq), [dev] * (data * seq))
+
+
+def seq_lm(dev, card, shared: dict) -> tuple:
+    """(a) The LM at LM_CONFIG's width, bf16 flash, over data 2 x seq 2
+    from phase 27 (a)'s init and batch, 4 steps: per-step losses and grad
+    norms equal to the data-2 fit's (phase 27 (a)'s, or run here), K1[lse],
+    K2 and K3 each n_layers x 2 data shards x 4 steps, every Dense call at
+    batch 4, the step's ms beside the data-2 step's.  The kernel rows are
+    phase 27's at the same shard shape (measured here when phase 27 did
+    not run) with this path's launches.  Returns (rows, numbers)."""
+    from mmlspark_tpu_torch import ModelBundle, Trainer
+    n_layers, n = LM_CONFIG["n_layers"], SEQ["data"]
+    x, y = dp_lm_batch()
+    model_config = {**LM_CONFIG, "attn_impl": "flash"}
+    ref = shared.get("dp_lm")
+    if ref is None:
+        init = ModelBundle.init("TransformerLM", model_config, seed=0)
+        dp = Trainer(dp_lm_config(model_config), mesh=dp_mesh(dev))
+        dp.fit_arrays(x, y, initial_bundle=init)
+        ref = {"init": init, "losses": [r["loss"] for r in dp.history],
+               "grad_norms": [r["grad_norm"] for r in dp.history],
+               "step_ms": None, "rows": None}
+        del dp
+        torch.cuda.empty_cache()
+    init = ref["init"]
+    trainer = Trainer(dp_lm_config(model_config), mesh=seq_mesh(dev))
+    calls, handles = dense_batches(trainer.module)
+    torch.cuda.synchronize()
+    reset_counts()
+    trainer.fit_arrays(x, y, initial_bundle=init)
+    torch.cuda.synchronize()
+    launched = read_counts()
+    for handle in handles:
+        handle.remove()
+    losses = [r["loss"] for r in trainer.history]
+    norms = [r["grad_norm"] for r in trainer.history]
+    dense = {shape[0] for kind, shape, _ in calls if kind == "Dense"}
+    want = n_layers * n * DP["steps"]
+    xb = torch.from_numpy(x.astype(np.int64)).to(dev)
+    yb = torch.from_numpy(y.astype(np.int64)).to(dev)
+    mb = torch.ones(TRAIN_BATCH, device=dev)
+    state = trainer.init_state((1, TRAIN_SEQ), 16, init)
+    step = trainer.make_train_step()
+    args = tuple(list(t.chunk(n)) for t in (xb, yb, mb))
+    step_ms = cuda_ms(lambda: step(state, *args), warmup=1, reps=5)
+    del state, step, trainer
+    torch.cuda.empty_cache()
+    dp_ms = ref["step_ms"]
+    print(f"phase 32 (a) data {n} x seq {SEQ['seq']} on one card, "
+          f"{DP['steps']} steps of {TRAIN_BATCH}x{TRAIN_SEQ} bf16 flash at "
+          f"LM_CONFIG's width: losses {losses} against data {n}'s "
+          f"{ref['losses']} (bit for bit: {losses == ref['losses']}); grad "
+          f"norms {norms} against {ref['grad_norms']} (bit for bit: "
+          f"{norms == ref['grad_norms']}); launches {launched} (want {want} "
+          f"each of K1[lse], K2, K3); Dense calls "
+          f"{sum(k == 'Dense' for k, _, _ in calls)} at batch "
+          f"{sorted(dense)}; step {step_ms:.3f} ms against data {n}'s "
+          + ("(not run here)" if dp_ms is None else f"{dp_ms:.3f} ms")
+          + f" (CUDA events, median of 5) [{card}]")
+    require(losses == ref["losses"], "phase 32 (a): the seq-axis losses "
+            "differ from the data-2 fit's")
+    require(norms == ref["grad_norms"], "phase 32 (a): the seq-axis grad "
+            "norms differ from the data-2 fit's")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == want, f"phase 32 (a): {name} launched "
+                f"{launched[name]} times, want {want} (the seq replicas "
+                "launch nothing)")
+    require(dense == {TRAIN_BATCH // n}, f"phase 32 (a): Dense calls at "
+            f"batch {sorted(dense)}, want {TRAIN_BATCH // n}")
+    tag = f"data {n} x seq {SEQ['seq']} shard"
+    if ref["rows"] is None:
+        rows = dp_shard_kernel_rows(dev, card, launched, tag=tag, phase=32)
+    else:
+        # phase 27's rows at the same shard shape, this path's launches
+        rows = []
+        for row, base in zip(ref["rows"], ("flash_attention[lse]",
+                                           "flash_bwd_dq", "flash_bwd_dkv")):
+            name = (f"flash_attention[lse,{tag}]" if base.startswith(
+                "flash_attention") else f"{base}[{tag}]")
+            rows.append({**row, "name": name, "launches": launched[base]})
+    return rows, {"losses": losses, "grad_norms": norms,
+                  "data_losses": ref["losses"], "launches": launched,
+                  "step_ms": step_ms, "data_step_ms": dp_ms}
+
+
+def seq_vision(dev, card) -> dict:
+    """(b) `TPULearner.set_mesh` over data 2 x seq 2 with phase 31 (c)'s
+    ResNet-18 (f32, training BatchNorm) on its 128 images of 32^2, two
+    epochs of one batch, against the same learner over data 2, under
+    deterministic cuDNN: weights and batch_stats bit for bit, and the
+    fitted model's scores over the seq mesh equal to its scores over
+    data 2."""
+    from mmlspark_tpu_torch import (DataTable, ModelBundle, TPULearner,
+                                    TrainerConfig)
+    side, b = POP["bn_side"], POP["bn_batch"]
+    rng = np.random.default_rng(32)
+    x = rng.standard_normal((POP["bn_images"], side, side, 3)).astype(
+        np.float32)
+    y = rng.integers(0, POP["bn_config"]["num_classes"],
+                     POP["bn_images"]).astype(np.int32)
+    table = DataTable({"features": x, "label": y})
+    cfg = TrainerConfig(architecture="ResNet",
+                        model_config=dict(POP["bn_config"]),
+                        optimizer="momentum", learning_rate=SEQ["vision_lr"],
+                        batch_size=b, epochs=SEQ["vision_epochs"],
+                        shuffle_each_epoch=False, loss="softmax_xent",
+                        seed=0, numerics_cadence=0)
+    init = ModelBundle.init("ResNet", dict(POP["bn_config"]), seed=0,
+                            input_shape=(1, side, side, 3))
+    models, seconds = {}, {}
+    with deterministic_cudnn():
+        for name, mesh in (("data 2", dp_mesh(dev)),
+                           ("data 2 x seq 2", seq_mesh(dev))):
+            sync(dev)
+            t0 = time.perf_counter()
+            models[name] = TPULearner(cfg, device=dev).set_initial_bundle(
+                init).set_mesh(mesh).fit(table)
+            sync(dev)
+            seconds[name] = time.perf_counter() - t0
+        seq_model = models["data 2 x seq 2"]
+        scores_seq = np.asarray(seq_model.transform(table)["output"])
+        scores_dp = np.asarray(seq_model.set_mesh(dp_mesh(dev)).transform(
+            table)["output"])
+    got, ref = (leaf_bytes(models[k].bundle.variables)
+                for k in ("data 2 x seq 2", "data 2"))
+    differ = sorted(p for p in ref if got.get(p) != ref[p])
+    stats = [p for p in ref if p.startswith("/batch_stats")]
+    losses = [h["loss"] for h in seq_model._history]
+    print(f"phase 32 (b) TPULearner over data 2 x seq 2, ResNet-18 f32 "
+          f"(training BatchNorm), {SEQ['vision_epochs']} steps of {b} images "
+          f"of {side}^2, deterministic cuDNN: losses {losses}; "
+          f"{len(ref) - len(differ)} of {len(ref)} leaves ({len(stats)} "
+          f"batch_stats) bit-equal to the data-2 learner's (differ: "
+          f"{differ[:4]}); scores over the seq mesh equal to its scores over "
+          f"data 2: {np.array_equal(scores_seq, scores_dp)} "
+          f"({scores_seq.shape}); fits {seconds['data 2 x seq 2']:.2f} s "
+          f"against {seconds['data 2']:.2f} s [{card}]")
+    require(not differ and stats, "phase 32 (b): the seq-axis weights or "
+            "batch_stats differ from the data-2 fit's")
+    require(np.array_equal(scores_seq, scores_dp) and np.isfinite(
+        scores_seq).all(), "phase 32 (b): the scores over the seq mesh "
+            "differ from the scores over data 2")
+    del models, seq_model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "leaves": len(ref), "batch_stats": len(stats),
+            "scores_equal": True, "seconds": seconds["data 2 x seq 2"],
+            "data_seconds": seconds["data 2"]}
+
+
+def seq_sweep(dev, card, shared: dict) -> dict:
+    """(c) A `PopulationTrainer` of 1 member over data 2 x seq 2, phase 31
+    (b)'s f32 LM at POP["mesh_layers"] layers (member 0's init, handed
+    on from phase 31 or drawn here), against the plain `Trainer` over the
+    same mesh from the same init: per-step losses and every parameter
+    byte for byte."""
+    from mmlspark_tpu_torch import ModelBundle, Trainer
+    from mmlspark_tpu_torch.models.definitions import model_config as cfg_of
+    from mmlspark_tpu_torch.train import PopulationTrainer
+    model_config = {**LM_CONFIG, "attn_impl": "flash", "dtype": "float32",
+                    "n_layers": POP["mesh_layers"]}
+    x, y = dp_lm_batch()
+    cfg = pop_config(model_config, POP["steps"])
+    pt = PopulationTrainer(cfg, 1, mesh=seq_mesh(dev), device=dev)
+    init = shared.get("pop_f32_init")
+    if init is None:
+        init = pt.member_init_variables(0, (1, TRAIN_SEQ))
+    sync(dev)
+    reset_counts()
+    result = pt.fit_arrays(x, y, member_variables=[init])
+    sync(dev)
+    launched = read_counts()
+    member = pt.member_variables(result.state, 0)["params"]
+    pop_losses = [float(h["member_loss"][0]) for h in pt.history]
+    del result
+    trainer = Trainer(cfg, mesh=seq_mesh(dev))
+    bundle = trainer.fit_arrays(x, y, initial_bundle=ModelBundle(
+        "TransformerLM", cfg_of(pt.module), init))
+    plain_losses = [float(h["loss"]) for h in trainer.history]
+    got, ref = leaf_bytes(member), leaf_bytes(bundle.variables["params"])
+    differ = sorted(p for p in ref if got.get(p) != ref[p])
+    want = POP["mesh_layers"] * SEQ["data"] * POP["steps"]
+    print(f"phase 32 (c) a population of 1 over data 2 x seq 2, f32 LM at "
+          f"{POP['mesh_layers']} layers, {POP['steps']} steps of "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}: member losses {pop_losses} against "
+          f"the plain Trainer's {plain_losses} (byte for byte: "
+          f"{pop_losses == plain_losses}); {len(ref) - len(differ)} of "
+          f"{len(ref)} parameter leaves byte-equal (differ: {differ[:4]}); "
+          f"launches {launched} (want {want} each of K1[lse], K2, K3) "
+          f"[{card}]")
+    require(pop_losses == plain_losses and not differ, "phase 32 (c): the "
+            "population of 1 differs from the plain Trainer")
+    for name in ("flash_attention[lse]", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(launched[name] == want, f"phase 32 (c): {name} launched "
+                f"{launched[name]} times, want {want}")
+    del pt, trainer, bundle, member
+    torch.cuda.empty_cache()
+    return {"losses": pop_losses, "plain_losses": plain_losses,
+            "leaves": len(ref), "launches": launched}
+
+
+def leaf_bytes(tree: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves by "/"-joined path, as their bytes."""
+    out = {}
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            out.update(leaf_bytes(tree[key], f"{prefix}/{key}"))
+        else:
+            out[f"{prefix}/{key}"] = np.asarray(tree[key]).tobytes()
+    return out
+
+
+def seq_refusal(dev, card) -> dict:
+    """(d) A sequence-sharded model (ring_flash, seq_axis "seq") in the
+    Trainer and the population over data 2 x seq 2: a ValueError naming
+    `make_seq_parallel_lm_step` before any launch."""
+    from mmlspark_tpu_torch import Trainer, TrainerConfig
+    from mmlspark_tpu_torch.train import PopulationTrainer
+    cfg = TrainerConfig(
+        architecture="TransformerLM",
+        model_config={**LM_CONFIG, "attn_impl": "ring_flash",
+                      "seq_axis": "seq"},
+        optimizer="adam", learning_rate=3e-4, batch_size=TRAIN_BATCH,
+        numerics_cadence=0)
+    sync(dev)
+    reset_counts()
+    refused = []
+    for what, build in (("Trainer", lambda: Trainer(cfg, mesh=seq_mesh(dev))),
+                        ("PopulationTrainer", lambda: PopulationTrainer(
+                            cfg, 2, mesh=seq_mesh(dev), device=dev))):
+        try:
+            build()
+        except ValueError as err:
+            if "make_seq_parallel_lm_step" in str(err):
+                refused.append(what)
+    sync(dev)
+    launched = read_counts()
+    print(f"phase 32 (d) ring_flash over data 2 x seq 2: refused by "
+          f"{refused}; launches {launched} [{card}]")
+    require(refused == ["Trainer", "PopulationTrainer"], "phase 32 (d): a "
+            "sequence-sharded model was not refused")
+    require(not any(launched.values()), "phase 32 (d): a kernel launched "
+            "before the refusal")
+    return {"refused": refused, "launches": launched}
+
+
+def phase_seq_axis(dev, card, shared: Optional[dict] = None) -> tuple:
+    """Phase 32: the seq axis under training, on meshes whose positions
+    share this card, through the port's entry points only: (a) `seq_lm`,
+    (b) `seq_vision`, (c) `seq_sweep`, (d) `seq_refusal`.  Returns (the
+    kernel rows of the data-2 shard with (a)'s launches, the numbers)."""
+    shared = {} if shared is None else shared
+    t0 = time.perf_counter()
+    rows, lm = seq_lm(dev, card, shared)
+    out = {"lm": lm}
+    t_arm = arm_line(32, "lm", t0, card)
+    out["vision"] = seq_vision(dev, card)
+    t_arm = arm_line(32, "vision", t_arm, card)
+    out["sweep"] = seq_sweep(dev, card, shared)
+    t_arm = arm_line(32, "sweep", t_arm, card)
+    out["refusal"] = seq_refusal(dev, card)
+    arm_line(32, "refusal", t_arm, card)
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 32: {out['phase_seconds']:.1f} s [{card}]")
     return rows, out
 
 
@@ -10532,7 +10927,7 @@ def main() -> int:
     print(json.dumps({"moe_and_sweep": moe, "card": card}))
     measurement = phase(26, phase_measurement)
     print(json.dumps({"measurement": measurement, "card": card}))
-    dp_rows, data_parallel = phase(27, phase_data_parallel)
+    dp_rows, data_parallel = phase(27, phase_data_parallel, shared)
     print(json.dumps({"data_parallel": data_parallel, "card": card}))
     mp_rows, model_parallel = phase(28, phase_model_parallel)
     print(json.dumps({"model_parallel": model_parallel, "card": card},
@@ -10543,9 +10938,11 @@ def main() -> int:
     data_service = phase(30, phase_data_service, shared)
     print(json.dumps({"data_service": data_service, "card": card},
                      default=str))
-    pop_rows, populations = phase(31, phase_populations)
+    pop_rows, populations = phase(31, phase_populations, shared)
     print(json.dumps({"populations": populations, "card": card},
                      default=str))
+    seq_rows, seq_axis = phase(32, phase_seq_axis, shared)
+    print(json.dumps({"seq_axis": seq_axis, "card": card}, default=str))
     total = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {str(k): round(v, 1) for k, v in
                                         seconds.items()},
@@ -10555,6 +10952,9 @@ def main() -> int:
     flash["launches"] = main_path["counts"]["model"][0]
     decode[0]["launches"] = main_path["counts"]["model"][1]
     decode[1]["launches"] = main_path["counts"]["int8"][1]
+    # K4 at f32 D128: the speculative f32 path's draft reads (phase 18)
+    decode[2]["launches"] = lm_decoding["speculative"]["f32"]["launches"][
+        "K4"]
     flash_lse["launches"] = train["counts"]["flash_attention[lse]"]
     for entry in backward:
         entry["launches"] = train["counts"][entry["name"]]
@@ -10568,7 +10968,7 @@ def main() -> int:
     ring_lse[1]["launches"] = seq1["flash_attention"]
     kernels = ([flash, flash_lse] + backward + decode + decode_stats
                + ring_lse + d32 + small + wide + ring_rows + dp_rows
-               + mp_rows + pp_rows + pop_rows)
+               + mp_rows + pp_rows + pop_rows + seq_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
             "library_ms")

@@ -12,9 +12,9 @@ CNTKLearner wraps its output model as a CNTKModel.  Fine-tuning is
 card unless the caller asks for the CPU, passed on to the fitted model.
 The stage saves under the JAX class path, so a learner saved by either
 package loads in the other through `load_stage`; its initial bundle goes
-with it.  `set_mesh(mesh)` trains over the mesh's data and model axes
-(the Trainer's mesh) and the fitted model scores over the same mesh; a
-seq axis raises (ROADMAP A10), as the Trainer's does.
+with it.  `set_mesh(mesh)` trains over the mesh (the Trainer's mesh:
+the batch cut over 'data' and replicated over 'seq', the weights placed
+over 'model') and the fitted model scores over the same mesh.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_bundle,
 from mmlspark_tpu_torch.models.tpu_model import TPUModel
 from mmlspark_tpu_torch.observe.logging import get_logger
 from mmlspark_tpu_torch.train.config import TrainerConfig
-from mmlspark_tpu_torch.train.trainer import Trainer, check_data_mesh
+from mmlspark_tpu_torch.train.trainer import Trainer
 
 
 class TPULearner(Estimator):
@@ -70,7 +70,6 @@ class TPULearner(Estimator):
     def set_mesh(self, mesh) -> "TPULearner":
         """Train over `mesh` (None: on `device`); the Trainer checks it."""
         if mesh is not None:
-            check_data_mesh(mesh, "TPULearner")
             self.device = resolve_device(mesh.devices.flat[0])
         self._mesh = mesh
         return self

@@ -70,9 +70,12 @@ meshed step, as the JAX sweep has it (`mmlspark_tpu/train/sweep.py:269-323`):
     in lockstep too.  Shard 0's moved statistics are the global batch's;
     a culled member's stay frozen.
 
-A population across processes raises, in both packages
-(`mmlspark_tpu/train/sweep.py:149-150`), as does a mesh with a seq axis
-of more than one device here (`check_data_mesh`, ROADMAP queue A).
+A seq axis replicates the batch, as the JAX sweep's `batch_sharding`
+does (`mmlspark_tpu/train/sweep.py:357`): the rows run at seq index 0
+(`batch_devices`, `model_group`), the devices past it compute nothing,
+and `_lockstep` counts data shards.  A population across processes
+raises, in both packages (`mmlspark_tpu/train/sweep.py:149-150`), as
+does a sequence-sharded model (`train/trainer.py` `refuse_seq_sharded`).
 """
 
 from __future__ import annotations
@@ -124,9 +127,9 @@ from mmlspark_tpu_torch.train.config import TrainerConfig
 from mmlspark_tpu_torch.train.optim import (Optimizer, named_tree,
                                             opt_state_from_jax,
                                             opt_state_to_jax, stats_tree)
-from mmlspark_tpu_torch.train.trainer import (Trainer, check_data_mesh,
-                                              epoch_order, host_batch,
-                                              make_loss, sown_leaves)
+from mmlspark_tpu_torch.train.trainer import (Trainer, epoch_order,
+                                              host_batch, make_loss,
+                                              refuse_seq_sharded, sown_leaves)
 
 _MOMENTS = ("mu", "nu", "trace")
 
@@ -226,10 +229,10 @@ class PopulationTrainer:
             raise ValueError(
                 "population training does not compose with pipeline "
                 "parallelism (the stage ring owns the 'model' axis)")
+        refuse_seq_sharded(trainer_config, "population training")
         if mesh is None:
             device = resolve_device(device)
             mesh = mesh_for_spec(trainer_config.mesh, device)
-        check_data_mesh(mesh, "population training")
         self.mesh = mesh
         self.shard_devices = ([resolve_device(device)] if mesh is None
                               else batch_devices(mesh))

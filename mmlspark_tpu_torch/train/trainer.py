@@ -6,7 +6,8 @@
 :1062-1170) for every registered architecture: the
 `TransformerLM` and the scoring models (`MLPClassifier`, `LinearModel`,
 `ConvNetCIFAR10`, `ResNet`), the path of MMLSpark's CNTKLearner, on
-one card or data-parallel over a `Mesh` with a data axis.
+one card or data-parallel over a `Mesh` with a data axis (and a model
+and a seq axis).
 
 `fit_arrays` keeps the JAX loop's contract: the clamped batch size, the
 numpy data order (`np.random.default_rng(seed)`, or `[seed, rng_fold]`),
@@ -122,6 +123,21 @@ Tensor and expert parallelism (a mesh with model > 1, e.g.
     dp <-> dp x mp byte-identically), recording `model_devices` and the
     partition mesh `{"data": d, "model": m}`.
 
+A seq axis (e.g. `MeshSpec(data=d, model=m, seq=s)`) replicates the
+batch, as the JAX Trainer's `P('data')` batch sharding does
+(`mmlspark_tpu/train/trainer.py:622`): each (data, model) group computes
+once, at seq index 0 (`parallel/mesh.py` `batch_devices`, `model_group`),
+and the devices at seq index > 0 hold no replica and launch nothing; the
+JAX step computes the same replicated batch on every seq index, so the
+results are the port's over data d x model m, bit for bit.  The data
+width (`data_size`, the shards, the BatchNorm all-sum, the MoE groups,
+the sums over processes) counts data shards only, and checkpoints and
+bundles record `data_devices`, `model_devices` and the partition mesh
+`{"data", "model"}` as the JAX Trainer writes them (a resume across seq
+widths is an ordinary resume).  A sequence-sharded model raises
+(`refuse_seq_sharded`): it trains through
+`parallel.ring.make_seq_parallel_lm_step`.
+
 Pipeline stages (`pipeline_stages > 1`, a `TransformerLM` with dense
 attention and MLP over a (data, stages) mesh: the stage axis is 'model'):
 
@@ -186,7 +202,8 @@ from mmlspark_tpu_torch.data.snapshot import (set_restore_offsets,
 from mmlspark_tpu_torch.models.bundle import (ModelBundle, load_variables,
                                               params_from_jax,
                                               variables_from_jax)
-from mmlspark_tpu_torch.models.definitions import (BatchNorm, build_model,
+from mmlspark_tpu_torch.models.definitions import (SEQ_IMPLS, BatchNorm,
+                                                   build_model,
                                                    init_scoring_params,
                                                    init_transformer_lm_params,
                                                    model_config)
@@ -210,9 +227,8 @@ from mmlspark_tpu_torch.parallel.distributed import (
     all_reduce_sum, barrier, broadcast_one_to_all, initialize_distributed,
     is_coordinator, process_allgather, process_count, process_index,
     run_collective, sync_all)
-from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, SEQ_AXIS,
-                                              batch_devices, distinct_devices,
-                                              mesh_for_spec)
+from mmlspark_tpu_torch.parallel.mesh import (MODEL_AXIS, batch_devices,
+                                              distinct_devices, mesh_for_spec)
 from mmlspark_tpu_torch.parallel.partition import (DEFAULT_RULES,
                                                    param_sharding_rule,
                                                    port_splits, rules_to_json)
@@ -340,16 +356,23 @@ class TrainState:
     batch_stats: list = dataclasses.field(default_factory=list)
 
 
-def check_data_mesh(mesh, what: str) -> None:
-    """A mesh the data- and model-parallel paths run over: a seq axis of
-    more than one device raises NotImplementedError naming ROADMAP A10."""
-    if mesh is not None and mesh.shape[SEQ_AXIS] > 1:
-        # the JAX Trainer and sweep compute here (the batch replicated
-        # over 'seq'): not ported yet, ROADMAP queue A step 8
-        raise NotImplementedError(
-            f"{what} over a mesh with a seq axis ({mesh.shape}) is not "
-            "ported (ROADMAP A10): seq-parallel training is "
-            "parallel.ring.make_seq_parallel_lm_step")
+def refuse_seq_sharded(config: TrainerConfig, what: str) -> None:
+    """A sequence-sharded model (a TransformerLM with `attn_impl` ring |
+    ring_flash | ulysses and a `seq_axis`) raises ValueError before any
+    work, whatever the mesh: the Trainer's step replicates the batch over
+    'seq', and such a model trains through
+    `parallel.ring.make_seq_parallel_lm_step`.  The JAX Trainer and sweep
+    refuse it too, with a NameError from `jax.lax.axis_index` outside any
+    `shard_map` (`mmlspark_tpu/models/definitions.py:324-325`)."""
+    mc = config.model_config or {}
+    if config.architecture == "TransformerLM" and \
+            mc.get("attn_impl") in SEQ_IMPLS and mc.get("seq_axis"):
+        raise ValueError(
+            f"{what} runs a sequence-sharded model (attn_impl "
+            f"{mc['attn_impl']!r}, seq_axis {mc['seq_axis']!r}) unsharded: "
+            "train it with parallel.ring.make_seq_parallel_lm_step, or "
+            "pick attn_impl 'dense' or 'flash' (a mesh's seq axis then "
+            "replicates the batch)")
 
 
 class Trainer:
@@ -357,6 +380,7 @@ class Trainer:
     data-parallel over a mesh's data axis (module docstring)."""
 
     def __init__(self, config: TrainerConfig, mesh=None, device="cuda"):
+        refuse_seq_sharded(config, "the Trainer")
         # torch.distributed from the knobs when launched as several
         # processes (a no-op with one); before the mesh, so that it spans
         # every process
@@ -365,7 +389,6 @@ class Trainer:
         if mesh is None:
             device = resolve_device(device)
             mesh = mesh_for_spec(config.mesh, device)
-        check_data_mesh(mesh, "the Trainer")
         self.config = config
         self.mesh = mesh
         # the model axis: how many shards each leaf the placement splits
@@ -449,7 +472,8 @@ class Trainer:
 
     @property
     def data_size(self) -> int:
-        """The data axis: how many shards a batch is cut into."""
+        """The data axis: how many shards a batch is cut into (this
+        process's; a seq axis adds none)."""
         return len(self.shard_devices)
 
     # -- state ----------------------------------------------------------

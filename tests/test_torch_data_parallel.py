@@ -216,8 +216,11 @@ def jax_fit(dp, ckpt, **kw):
 def test_mesh_options_and_refusals():
     """A `TrainerConfig.mesh` with data 2 trains over host shards, one
     with a model axis over a (data, model) mesh; pipeline stages over a
-    scoring architecture raise the JAX Trainer's ValueError, and a seq
-    axis still raises NotImplementedError naming ROADMAP A10."""
+    scoring architecture raise the JAX Trainer's ValueError; a seq axis
+    replicates the batch (one data shard at seq index 0), and a
+    sequence-sharded model raises ValueError naming
+    `make_seq_parallel_lm_step` (tests/test_torch_seq_axis_train.py
+    holds the fits)."""
     cfg = TrainerConfig(**{**mlp_config(), "mesh": {"data": 2}})
     assert Trainer(cfg, device="cpu").data_size == 2
     cfg = TrainerConfig(**{**mlp_config(), "mesh": {"data": 1, "model": 2}})
@@ -228,8 +231,16 @@ def test_mesh_options_and_refusals():
     with pytest.raises(ValueError, match="TransformerLM"):
         Trainer(TrainerConfig(**{**mlp_config(), "pipeline_stages": 2}),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Trainer(TrainerConfig(**mlp_config()),
+    trainer = Trainer(TrainerConfig(**mlp_config()),
+                      mesh=make_mesh(MeshSpec(data=1, seq=2), [CPU] * 2))
+    assert (trainer.data_size, trainer.model_size) == (1, 1)
+    assert trainer.mesh.shape["seq"] == 2 and trainer.shard_devices == [CPU]
+    ring = {"vocab_size": 32, "d_model": 16, "n_heads": 2, "n_layers": 1,
+            "max_len": 8, "dtype": "float32", "attn_impl": "ring_flash",
+            "seq_axis": "seq"}
+    with pytest.raises(ValueError, match="make_seq_parallel_lm_step"):
+        Trainer(TrainerConfig(architecture="TransformerLM",
+                              model_config=ring),
                 mesh=make_mesh(MeshSpec(data=1, seq=2), [CPU] * 2))
 
 

@@ -143,14 +143,23 @@ def test_warm_start_resumes_global_step():
 
 
 def test_set_mesh_raises_for_a_mesh():
-    """A model axis is taken (the Trainer runs it); a seq axis raises."""
+    """A model axis is taken and a seq axis too (the Trainer runs both:
+    the seq axis replicates the batch, so the fitted model scores over
+    one data shard); tests/test_torch_seq_axis_train.py holds the
+    fits."""
     learner = TPULearner(device="cpu")
     assert learner.set_mesh(None) is learner
     assert learner.set_mesh(port_make_mesh(
         PortMeshSpec(data=1, model=2), [torch.device("cpu")] * 2)) is learner
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        learner.set_mesh(port_make_mesh(PortMeshSpec(data=1, seq=2),
-                                        [torch.device("cpu")] * 2))
+    mesh = port_make_mesh(PortMeshSpec(data=1, seq=2),
+                          [torch.device("cpu")] * 2)
+    learner = TPULearner(TrainerConfig(**mlp_config(epochs=1)),
+                         device="cpu")
+    assert learner.set_mesh(mesh) is learner
+    x, y = two_blob_data(n=32)
+    model = learner.fit(DataTable({"features": x, "label": y}))
+    assert model._mesh is mesh
+    assert model.shard_devices() == [torch.device("cpu")]
 
 
 def test_learner_and_model_load_across_packages(fitted, tmp_path):

@@ -308,9 +308,11 @@ def test_population_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PopulationTrainer(_cfg(), 2)
     # a model axis is taken (the members split as the Trainer's
-    # placement has it); a seq axis raises
+    # placement has it), and a seq axis (it replicates the batch: one
+    # data shard at seq index 0; tests/test_torch_seq_axis_sweep.py)
     pt = PopulationTrainer(_cfg(mesh={"data": 1, "model": 2}), 2,
                            device="cpu")
     assert pt.model_size == 2 and pt.mesh.shape["model"] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        PopulationTrainer(_cfg(mesh={"data": 1, "seq": 2}), 2, device="cpu")
+    pt = PopulationTrainer(_cfg(mesh={"data": 1, "seq": 2}), 2, device="cpu")
+    assert pt.mesh.shape["seq"] == 2
+    assert pt.shard_devices == [torch.device("cpu")]

@@ -9,7 +9,9 @@ imports only the port.
 Invoked as: python torch_multihost_worker.py <out_dir> <init_bundle_dir>,
 or with `bn` first (`tests/test_torch_multihost_bn.py`): a ResNet with
 training BatchNorm fitted over a global data axis of 2, one shard a
-process, its statistics summed across the processes.
+process, its statistics summed across the processes; with `seq` first
+(`tests/test_torch_multihost_seq.py`) the same over a global data 2 x
+seq 2 mesh.
 """
 
 import os
@@ -53,9 +55,12 @@ def make_images(n=16, seed=3):
             rng.integers(0, 3, n).astype(np.int32))
 
 
-def bn_main(out_dir, init_dir):
+def bn_main(out_dir, init_dir, mode="bn"):
     """The BatchNorm fit: each process feeds 4 rows a step of its half;
-    only the coordinator writes checkpoints."""
+    only the coordinator writes checkpoints.  `mode` "seq" fits over a
+    global data 2 x seq 2 mesh (each process data 1 x seq 2: the seq axis
+    replicates the batch), and checks that a data axis the processes do
+    not divide still raises."""
     import torch
 
     from mmlspark_tpu_torch.models.bundle import load_bundle
@@ -66,11 +71,23 @@ def bn_main(out_dir, init_dir):
     nproc = int(os.environ["MMLSPARK_TPU_NUM_PROCESSES"])
     x, y = make_images()
     half = len(x) // nproc
+    mesh = {"data": 2, "seq": 2} if mode == "seq" else {"data": 2}
     trainer = Trainer(TrainerConfig(
-        **BN_FIT, mesh={"data": 2},
-        checkpoint_dir=os.path.join(out_dir, f"bn_ckpt{pid}"),
+        **BN_FIT, mesh=mesh,
+        checkpoint_dir=os.path.join(out_dir, f"{mode}_ckpt{pid}"),
         checkpoint_every_steps=2), device="cpu")
     assert trainer.data_size == 1 and trainer.mesh.process_count == nproc
+    if mode == "seq":
+        from mmlspark_tpu_torch.parallel.mesh import (MeshSpec,
+                                                      make_process_mesh)
+        assert trainer.mesh.shape == {"data": 1, "model": 1, "seq": 2}
+        assert trainer.mesh.global_shape["data"] == 2
+        try:
+            make_process_mesh(MeshSpec(data=1, seq=4),
+                              [torch.device("cpu")] * 2)
+            raise AssertionError("a data axis of 1 over 2 processes")
+        except ValueError as err:
+            assert "multiple of the process count" in str(err), err
     bundle = trainer.fit_arrays(x[pid * half:(pid + 1) * half],
                                 y[pid * half:(pid + 1) * half],
                                 initial_bundle=load_bundle(init_dir))
@@ -85,10 +102,11 @@ def bn_main(out_dir, init_dir):
     # the final state's statistics (the bundle's) and parameters
     walk({"stat": bundle.variables["batch_stats"],
           "param": bundle.variables["params"]}, ())
-    np.savez(os.path.join(out_dir, f"bn{pid}.npz"),
+    np.savez(os.path.join(out_dir, f"{mode}{pid}.npz"),
              losses=np.asarray([h["loss"] for h in trainer.history]),
-             steps=bundle.metadata["steps"], **flat)
-    print(f"bn worker {pid} done", flush=True)
+             steps=bundle.metadata["steps"],
+             mesh_data=bundle.metadata["partition"]["mesh"]["data"], **flat)
+    print(f"{mode} worker {pid} done", flush=True)
 
 
 def make_tokens(n=16, seed=7):
@@ -111,8 +129,8 @@ def make_data(n=128, seed=0):
 
 
 def main():
-    if sys.argv[1] == "bn":
-        bn_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1] in ("bn", "seq"):
+        bn_main(sys.argv[2], sys.argv[3], sys.argv[1])
         return
     out_dir, init_dir = sys.argv[1], sys.argv[2]
     import torch
